@@ -3,8 +3,10 @@
 The same Program/Block/Operator IR, JSON program format, layers, model
 builders, executor and Predictor as the JAX package, with op lowerings
 written in PyTorch and the TPU's Pallas kernels rewritten by hand for
-Hopper (``csrc/``, built with nvcc at first use).  Programs run eagerly,
-op by op, on one device: the card (``cuda:0``) unless the caller passes
+Hopper (``csrc/``, built with nvcc at first use).  It serves
+(``inference.Predictor``) and trains (``optimizer.AdamOptimizer``,
+``clip``, ``contrib.mixed_precision``) BERT.  Programs run eagerly, op
+by op, on one device: the card (``cuda:0``) unless the caller passes
 ``CPUPlace()`` / ``device="cpu"``.
 
 The port imports neither jax nor ``paddle_tpu``.
@@ -26,5 +28,10 @@ from . import io  # noqa
 from . import inference  # noqa
 from . import interop  # noqa
 from . import errors  # noqa
+from . import optimizer  # noqa
+from . import clip  # noqa
+from . import regularizer  # noqa
+from . import contrib  # noqa
+from .framework.backward import append_backward  # noqa
 
 __version__ = "0.1.0"

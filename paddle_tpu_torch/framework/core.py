@@ -100,6 +100,26 @@ class OpRole:
     Loss = 256
 
 
+_op_role_stack: List[int] = []
+
+
+class op_role_guard:
+    """Ops appended inside the guard default to the given role (the LR
+    schedule and the clip ops are kept out of the backward sweep this
+    way)."""
+
+    def __init__(self, role: int):
+        self.role = role
+
+    def __enter__(self):
+        _op_role_stack.append(self.role)
+        return self
+
+    def __exit__(self, *exc):
+        _op_role_stack.pop()
+        return False
+
+
 # ---------------------------------------------------------------------------
 # Variable
 # ---------------------------------------------------------------------------
@@ -177,7 +197,9 @@ class Operator:
         self.inputs = {k: _as_name_list(v) for k, v in (inputs or {}).items()}
         self.outputs = {k: _as_name_list(v) for k, v in (outputs or {}).items()}
         self.attrs = dict(attrs or {})
-        self.attrs.setdefault("op_role", OpRole.Forward)
+        self.attrs.setdefault(
+            "op_role",
+            _op_role_stack[-1] if _op_role_stack else OpRole.Forward)
         self.idx = -1
 
     def input(self, slot: str) -> List[str]:
@@ -278,6 +300,9 @@ class Block:
     def has_var(self, name: str) -> bool:
         return self._find_var_recursive(name) is not None
 
+    def has_var_local(self, name: str) -> bool:
+        return name in self.vars
+
     def _find_var_recursive(self, name: str) -> Optional[Variable]:
         blk: Optional[Block] = self
         while blk is not None:
@@ -286,6 +311,10 @@ class Block:
             blk = (self.program.blocks[blk.parent_idx]
                    if blk.parent_idx >= 0 else None)
         return None
+
+    def all_parameters(self) -> List[Parameter]:
+        return [v for v in self.vars.values()
+                if getattr(v, "is_parameter", False)]
 
     def append_op(self, type: str, inputs=None, outputs=None, attrs=None,
                   infer_shape: bool = True) -> Operator:
@@ -322,6 +351,9 @@ class Program:
         self._current_block_idx = 0
         self.random_seed = 0
         self._version = 1
+        # bumped by every mutation helper (append_backward, optimizers);
+        # the eager executor caches nothing, so nothing reads it yet
+        self._mod_count = 0
         self._is_startup = False
 
     def global_block(self) -> Block:
@@ -332,6 +364,9 @@ class Program:
 
     def block(self, idx: int) -> Block:
         return self.blocks[idx]
+
+    def bump(self):
+        self._mod_count += 1
 
     def clone(self, for_test: bool = False) -> "Program":
         p = copy.deepcopy(self)
@@ -348,6 +383,9 @@ class Program:
     def list_vars(self) -> Iterator[Variable]:
         for blk in self.blocks:
             yield from blk.vars.values()
+
+    def all_parameters(self) -> List[Parameter]:
+        return self.global_block().all_parameters()
 
     def to_dict(self) -> dict:
         return {"version": self._version,

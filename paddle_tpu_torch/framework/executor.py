@@ -3,7 +3,11 @@
 Counterpart of ``paddle_tpu/framework/executor.py``.  The JAX executor
 traces a whole block into one XLA program; here ``Executor.run`` walks the
 block's ops in order and runs each op's PyTorch lowering on the
-executor's device.  The Scope holds torch tensors on that device.
+executor's device, under ``torch.no_grad()`` (the auto-derived grad ops
+turn autograd on for themselves).  The Scope holds torch tensors on that
+device.  A persistable var that an op writes (an optimizer's ParamOut,
+the LR counter) goes back into the scope as a new tensor after the run:
+nothing is updated in place.
 
 The JAX executor's telemetry, non-finite guard, compile cache and
 pipelines wait for later slices.
@@ -133,11 +137,15 @@ def analyze_block(block: Block, feed_names: Sequence[str]):
 
 
 def lower_block(block: Block, env: Dict[str, Any], device,
-                random_seed: int = 0, is_test: bool = False) -> LowerContext:
+                random_seed: int = 0, is_test: bool = False,
+                step: int = 0) -> LowerContext:
     """Run every op of `block` eagerly on `device`; `env` (name -> tensor)
-    receives the outputs."""
+    receives the outputs.  `step` is the executor's run count, which
+    seeds stochastic ops together with `random_seed`; the program's
+    ``_amp_lowering`` turns on the AMP autocast."""
     ctx = LowerContext(block, env, device, random_seed=random_seed,
-                       is_test=is_test)
+                       is_test=is_test, step=step,
+                       amp=getattr(block.program, "_amp_lowering", None))
     for op in block.ops:
         if op.type in ("feed", "fetch"):
             continue
@@ -189,6 +197,7 @@ class Executor:
     def __init__(self, place=None):
         self.place = place
         self.device = resolve_device(place)
+        self._step = 0  # runs so far; each run draws fresh random numbers
 
     def run(self, program: Optional[Program] = None,
             feed: Optional[Dict[str, Any]] = None,
@@ -206,9 +215,10 @@ class Executor:
             env[n] = _scope_value(scope, n, self.device)
         for n in fetch_names:
             block.var(n)  # raises if unknown
+        self._step += 1
         with torch.no_grad():
             lower_block(block, env, self.device,
-                        random_seed=program.random_seed)
+                        random_seed=program.random_seed, step=self._step)
         for n in state_out:
             scope.set_var(n, env[n])
         fetches = [env[n] for n in fetch_names]

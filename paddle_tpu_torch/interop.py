@@ -1,9 +1,12 @@
-"""Carry parameters from the JAX package into the port.
+"""Carry parameters and training state from the JAX package into the port.
 
-The two packages name and lay out parameters the same way (``fc``
-weights [in, out], embeddings [V, H], layer-norm scale and bias [H]), so
+The two packages name and lay out persistable vars the same way (``fc``
+weights [in, out], embeddings [V, H], layer-norm scale and bias [H],
+Adam's moments and beta powers, the LR counter, ``loss_scaling_0``), so
 moving a JAX scope across is a dtype and device conversion of numpy
-arrays keyed by variable name, checked against the port's program.
+arrays keyed by variable name, checked against the port's program.  Each
+value takes its var's declared dtype: the JAX package without x64 hands
+the int64 ``@LR_DECAY_COUNTER@`` back as int32.
 """
 from __future__ import annotations
 

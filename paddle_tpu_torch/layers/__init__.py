@@ -3,6 +3,8 @@
 from .nn import *  # noqa
 from .tensor import *  # noqa
 from .loss import *  # noqa
+from .learning_rate_scheduler import *  # noqa
 from . import nn  # noqa
 from . import tensor  # noqa
 from . import loss  # noqa
+from . import learning_rate_scheduler  # noqa

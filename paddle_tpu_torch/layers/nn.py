@@ -8,7 +8,8 @@ import numpy as np
 from ..framework.initializer import ConstantInitializer
 from ..framework.layer_helper import LayerHelper
 
-__all__ = ["fc", "layer_norm", "embedding", "flash_attention_qkv"]
+__all__ = ["fc", "layer_norm", "embedding", "flash_attention_qkv",
+           "dropout", "sqrt"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -100,4 +101,26 @@ def flash_attention_qkv(qkv, num_heads, bias=None, causal=False,
         inputs["Bias"] = [bias]
     helper.append_op("flash_attention_qkv", inputs=inputs,
                      outputs={"Out": [out]}, attrs=attrs)
+    return out
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
+            dropout_implementation="downgrade_in_infer"):
+    """No Mask output: the grad replays the mask from the per-op
+    generator, so nothing consumes one."""
+    helper = LayerHelper("dropout", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("dropout", inputs={"X": [x]},
+                     outputs={"Out": [out]},
+                     attrs={"dropout_prob": dropout_prob, "is_test": is_test,
+                            "seed": seed or 0,
+                            "dropout_implementation": dropout_implementation})
+    return out
+
+
+def sqrt(x, name=None):
+    helper = LayerHelper("sqrt", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("sqrt", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={})
     return out

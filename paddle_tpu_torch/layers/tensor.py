@@ -1,15 +1,17 @@
 """Graph-building tensor layers: the subset of
-``paddle_tpu/layers/tensor.py`` on the BERT path, with the same
-arguments, ops and attrs."""
+``paddle_tpu/layers/tensor.py`` on the BERT path (training included),
+with the same arguments, ops and attrs."""
 from __future__ import annotations
 
-from ..framework.core import default_main_program
+from ..framework.core import (default_main_program, default_startup_program,
+                              unique_name)
 from ..framework.layer_helper import LayerHelper
 
 __all__ = [
-    "data", "fill_constant", "squeeze", "unsqueeze", "stack", "gather_nd",
-    "expand", "range", "reduce_sum", "elementwise_add", "elementwise_mul",
-    "elementwise_div", "scale",
+    "data", "fill_constant", "create_global_var", "cast", "sums",
+    "squeeze", "unsqueeze", "stack", "gather_nd", "expand", "range",
+    "reduce_sum", "elementwise_add", "elementwise_mul", "elementwise_div",
+    "elementwise_max", "less_than", "scale", "increment", "where",
 ]
 
 
@@ -34,6 +36,40 @@ def fill_constant(shape, dtype, value, force_cpu=False, out=None, name=None):
                      attrs={"shape": list(shape), "dtype": dtype,
                             "value": float(value)})
     out.stop_gradient = True
+    return out
+
+
+def create_global_var(shape, value, dtype, persistable=False,
+                      force_cpu=False, name=None):
+    """Persistable var in the main program, filled by the startup
+    program."""
+    main_block = default_main_program().global_block()
+    name = name or unique_name("global_var")
+    var = main_block.create_var(name=name, shape=list(shape), dtype=dtype,
+                                persistable=persistable, stop_gradient=True)
+    sb = default_startup_program().global_block()
+    sb.create_var(name=name, shape=list(shape), dtype=dtype,
+                  persistable=persistable)
+    sb.append_op("fill_constant", outputs={"Out": [name]},
+                 attrs={"shape": list(shape), "dtype": dtype,
+                        "value": float(value)})
+    return var
+
+
+def cast(x, dtype):
+    helper = LayerHelper("cast")
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op("cast", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"out_dtype": dtype, "in_dtype": x.dtype})
+    return out
+
+
+def sums(input, out=None):
+    helper = LayerHelper("sum")
+    if out is None:
+        out = helper.create_variable_for_type_inference(input[0].dtype)
+    helper.append_op("sum", inputs={"X": list(input)},
+                     outputs={"Out": [out]})
     return out
 
 
@@ -71,6 +107,15 @@ def _binary(op_type):
 elementwise_add = _binary("elementwise_add")
 elementwise_mul = _binary("elementwise_mul")
 elementwise_div = _binary("elementwise_div")
+elementwise_max = _binary("elementwise_max")
+
+
+def less_than(x, y, cond=None, name=None):
+    helper = LayerHelper("less_than", name=name)
+    out = cond or helper.create_variable_for_type_inference("bool")
+    helper.append_op("less_than", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]})
+    return out
 
 
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
@@ -81,6 +126,24 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
                      attrs={"scale": float(scale), "bias": float(bias),
                             "bias_after_scale": bias_after_scale})
     return helper.append_activation(out, act)
+
+
+def increment(x, value=1.0, in_place=True):
+    helper = LayerHelper("increment")
+    out = x if in_place else helper.create_variable_for_type_inference(
+        x.dtype)
+    helper.append_op("increment", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"step": float(value)})
+    return out
+
+
+def where(condition, x, y, name=None):
+    helper = LayerHelper("where", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("where",
+                     inputs={"Condition": [condition], "X": [x], "Y": [y]},
+                     outputs={"Out": [out]})
+    return out
 
 
 def squeeze(input, axes, name=None):

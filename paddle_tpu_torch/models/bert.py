@@ -3,14 +3,17 @@ flash-attention path.
 
 Counterpart of ``paddle_tpu/models/bert.py``: the same layers in the same
 order, so the program matches the JAX package's op for op, name for
-name.  What waits for later slices raises NotImplementedError:
-
-  * the unfused (``use_flash=False``) and einsum (``use_flash="xla"``)
-    attention paths, and widths the packed path cannot take
-    (hidden % 128 != 0 or head_dim not in (64, 128));
-  * dropout (``is_test=False`` with ``dropout > 0``): the training slice.
+name, for serving (``is_test=True``) and for training (``dropout`` on the
+embeddings, the attention output and the FFN output; the flash path folds
+out attention-probability dropout, as the JAX package does).  What waits
+for later slices raises NotImplementedError: the unfused
+(``use_flash=False``) and einsum (``use_flash="xla"``) attention paths,
+and widths the packed path cannot take (hidden % 128 != 0 or head_dim
+not in (64, 128)).
 """
 from __future__ import annotations
+
+import warnings
 
 from .. import layers
 
@@ -29,6 +32,10 @@ def _attention(x, hidden, num_heads, seq_len, attn_bias=None, dropout=0.0,
             f"needs hidden % 128 == 0 and head_dim in (64, 128); the "
             f"unpacked flash_attention path is not ported")
     qkv = layers.fc(x, size=3 * hidden, num_flatten_dims=2)  # [B,S,3H]
+    if dropout and not is_test:
+        warnings.warn(
+            "bert: flash attention folds out attention-probability "
+            "dropout (output dropout kept)", stacklevel=3)
     ctx = layers.flash_attention_qkv(qkv, num_heads, bias=attn_bias)
     return layers.fc(ctx, size=hidden, num_flatten_dims=2)
 
@@ -47,10 +54,6 @@ def bert_encoder(input_ids, token_type_ids=None, attn_mask=None,
     input_ids/token_type_ids: [-1, S] int64; attn_mask: [-1, S] float32
     (1 = attend, 0 = pad) or None.
     """
-    if dropout and not is_test:
-        raise NotImplementedError(
-            "bert with dropout (is_test=False) needs the dropout op, which "
-            "waits for the training slice")
     word_emb = layers.embedding(input_ids, size=[vocab_size, hidden])
     pos_ids = layers.range(0, seq_len, 1, dtype="int64")
     pos_emb = layers.embedding(pos_ids, size=[max_position, hidden])
@@ -59,6 +62,9 @@ def bert_encoder(input_ids, token_type_ids=None, attn_mask=None,
         type_emb = layers.embedding(token_type_ids, size=[type_vocab, hidden])
         emb = layers.elementwise_add(emb, type_emb)
     x = layers.layer_norm(emb, begin_norm_axis=2)
+    if dropout and not is_test:
+        x = layers.dropout(x, dropout, is_test=is_test,
+                           dropout_implementation="upscale_in_train")
 
     attn_bias = None
     if attn_mask is not None:
@@ -68,9 +74,15 @@ def bert_encoder(input_ids, token_type_ids=None, attn_mask=None,
     for _ in range(num_layers):
         attn = _attention(x, hidden, num_heads, seq_len, attn_bias,
                           dropout, is_test, use_flash=use_flash)
+        if dropout and not is_test:
+            attn = layers.dropout(attn, dropout, is_test=is_test,
+                                  dropout_implementation="upscale_in_train")
         x = layers.layer_norm(layers.elementwise_add(x, attn),
                               begin_norm_axis=2)
         ffn = _ffn(x, hidden, intermediate)
+        if dropout and not is_test:
+            ffn = layers.dropout(ffn, dropout, is_test=is_test,
+                                 dropout_implementation="upscale_in_train")
         x = layers.layer_norm(layers.elementwise_add(x, ffn),
                               begin_norm_axis=2)
     return x

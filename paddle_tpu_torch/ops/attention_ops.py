@@ -1,17 +1,20 @@
 """Fused attention op ``flash_attention_qkv`` (packed QKV projection).
 
-Counterpart of ``paddle_tpu/ops/attention_ops.py:108-166``.  Dispatch:
+Counterpart of ``paddle_tpu/ops/attention_ops.py:108-166``.  The op goes
+through ``flash_attention_packed_autograd``, whose backward is what the
+auto-derived ``flash_attention_qkv_grad`` runs.  Dispatch:
 
   * a CUDA tensor with H % 128 == 0 and head_dim in (64, 128) launches
-    the Hopper kernel (ops/cuda/flash_attention.py);
-  * a CPU tensor takes the plain PyTorch version;
+    the Hopper kernels (ops/cuda/flash_attention.py): the forward kernel,
+    and the dK/dV and dQ kernels in the backward;
+  * a CPU tensor takes the plain PyTorch versions;
   * a CUDA tensor of any other shape raises: the unpacked
     ``flash_attention`` op, which models/bert.py uses for other widths,
     is a later slice.
 """
 from __future__ import annotations
 
-from .cuda.flash_attention import flash_attention_packed
+from .cuda.flash_attention import flash_attention_packed_autograd
 from .registry import in_var, register_op, set_out
 
 
@@ -38,6 +41,5 @@ def _flash_attention_qkv(ctx, op):
             f"flash_attention_qkv on CUDA needs hidden % 128 == 0 and "
             f"head_dim in (64, 128) (got hidden {H}, head_dim {D}); the "
             f"unpacked flash_attention path is not ported yet")
-    out, _ = flash_attention_packed(qkv, bias, nh, op.attr("causal", False),
-                                    op.attr("scale", None))
-    ctx.set_output(op, "Out", out)
+    ctx.set_output(op, "Out", flash_attention_packed_autograd(
+        qkv, bias, nh, op.attr("causal", False), op.attr("scale", None)))

@@ -1,20 +1,33 @@
-"""Packed-QKV flash attention: the Hopper kernel's wrapper and its plain
-PyTorch version.
+"""Packed-QKV flash attention: the Hopper kernels' wrappers and their
+plain PyTorch versions.
 
-Counterpart of ``paddle_tpu/ops/pallas/flash_attention.py`` for the
-forward of the packed path.  ``flash_attention_packed`` runs the CUDA
-kernel ``csrc/flash_attention_packed_fwd.cu`` (which replaces the TPU
-kernel ``_fp_fwd_kernel``) on a CUDA tensor, and the plain version
-``flash_attention_packed_reference`` on a CPU tensor; on a CUDA tensor it
-launches the kernel or raises, never falling back.  The plain version is
-built on ``blockwise_attention``, a pure-PyTorch port of the JAX
-package's online-softmax scan, and is the kernel's oracle in the tests
-and in ``chip_smoke.py``.
+Counterpart of the packed path of ``paddle_tpu/ops/pallas/flash_attention.py``:
+
+* forward, ``flash_attention_packed``: CUDA kernel
+  ``csrc/flash_attention_packed_fwd.cu`` (replaces ``_fp_fwd_kernel``);
+  plain version ``flash_attention_packed_reference``, built on
+  ``blockwise_attention``, a pure-PyTorch port of the JAX package's
+  online-softmax scan;
+* backward, ``flash_attention_packed_backward``: delta = rowsum(dO * O)
+  in PyTorch (the JAX package also computes it outside its kernels), then
+  the CUDA kernels of ``csrc/flash_attention_packed_bwd.cu``:
+  ``flash_attention_packed_dkv`` (replaces ``_fp_dkv_kernel``) and
+  ``flash_attention_packed_dq`` (replaces ``_fp_dq_kernel``), which write
+  dq, dk and dv straight into the three column blocks of one [B, S, 3H]
+  gradient; plain version ``flash_attention_packed_backward_reference``;
+* ``flash_attention_packed_autograd``: a ``torch.autograd.Function``
+  whose forward is the forward kernel and whose backward is the two
+  backward kernels (the JAX package's ``jax.custom_vjp``).
+
+A wrapper takes its plain version only for a tensor on the CPU; on a
+CUDA tensor it launches its kernel (counted in ``.launches``) or raises,
+never falling back.  The plain versions count their calls (``.calls``)
+and are the kernels' oracles in the tests and in ``chip_smoke.py``.
 
 Layouts: qkv [B, S, 3H] with q, k, v as column blocks; bias [B, S]
-additive, broadcast over heads and queries; out [B, S, H] heads merged;
-lse [B, num_heads, S] float32 (the TPU kernel's [B, H/128, 128/D, S]
-is this array reshaped).
+additive, broadcast over heads and queries; out and dout [B, S, H] heads
+merged; lse and delta [B, num_heads, S] float32 (the TPU kernels'
+[B, H/128, 128/D, S] is this array reshaped).
 """
 from __future__ import annotations
 
@@ -28,6 +41,7 @@ DEFAULT_BLOCK_K = 512
 NEG_INF = -1e30
 
 _KERNEL = "flash_attention_packed_fwd"
+_BWD_KERNEL = "flash_attention_packed_bwd"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -111,6 +125,74 @@ def flash_attention_packed_reference(qkv: torch.Tensor,
 flash_attention_packed_reference.calls = 0
 
 
+def flash_attention_packed_backward_reference(
+        qkv: torch.Tensor, bias: Optional[torch.Tensor], out: torch.Tensor,
+        lse: torch.Tensor, dout: torch.Tensor, num_heads: int,
+        causal: bool = False, sm_scale: Optional[float] = None
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain PyTorch version of the backward kernels: (dqkv [B,S,3H] in
+    qkv's dtype, dbias [B,S] in bias's dtype or None), all math in
+    float32 on the full [B, h, S, S] score matrix.  p = exp(s - lse) is
+    0 where the score is masked and in a row with no live key (lse =
+    -inf).  Counts its calls in ``.calls``."""
+    flash_attention_packed_backward_reference.calls += 1
+    B, S, H, D = _split_heads(qkv, num_heads)
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    x = qkv.float().reshape(B, S, 3, num_heads, D)
+    q, k, v = (x[:, :, j].transpose(1, 2) for j in range(3))  # [B,h,S,D]
+    do = dout.float().reshape(B, S, num_heads, D).transpose(1, 2)
+    o = out.float().reshape(B, S, num_heads, D).transpose(1, 2)
+    delta = (do * o).sum(-1)                                  # [B,h,S]
+    qs = q * scale
+    s = torch.matmul(qs, k.transpose(-1, -2))                 # [B,h,S,S]
+    if bias is not None:
+        s = s + bias.float()[:, None, None, :]
+    live = torch.isfinite(lse)[..., None].expand_as(s)
+    if causal:
+        pos = torch.arange(S, device=qkv.device)
+        live = live & (pos[:, None] >= pos[None, :])
+    p = torch.where(live, torch.exp(s - lse[..., None]), s.new_zeros(()))
+    dv = torch.matmul(p.transpose(-1, -2), do)
+    ds = p * (torch.matmul(do, v.transpose(-1, -2)) - delta[..., None])
+    dk = torch.matmul(ds.transpose(-1, -2), qs)
+    dq = torch.matmul(ds, k) * scale
+    dqkv = torch.cat([t.transpose(1, 2).reshape(B, S, H)
+                      for t in (dq, dk, dv)], dim=-1).to(qkv.dtype)
+    dbias = None if bias is None else ds.sum((1, 2)).to(bias.dtype)
+    return dqkv, dbias
+
+
+flash_attention_packed_backward_reference.calls = 0
+
+
+def _check_qkv(qkv, num_heads, what):
+    """What every kernel needs of qkv: a contiguous float32 or bfloat16
+    [B, S, 3H] CUDA tensor with head_dim 64 or 128 and a grid CUDA can
+    launch; returns (B, S, H, D)."""
+    if qkv.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {qkv.device}")
+    if qkv.dim() != 3:
+        raise ValueError(f"qkv must be [B, S, 3H], got {tuple(qkv.shape)}")
+    B, S, H, D = _split_heads(qkv, num_heads)
+    if qkv.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{what} takes float32 or bfloat16, got {qkv.dtype}")
+    if D not in (64, 128):
+        raise ValueError(f"{what} needs head_dim in (64, 128); got {D}")
+    if not qkv.is_contiguous():
+        raise ValueError(f"{what} needs a contiguous qkv")
+    if B == 0 or S == 0 or B > 65535 or num_heads > 65535:
+        raise ValueError(f"{what}: unsupported grid B={B} S={S} "
+                         f"num_heads={num_heads}")
+    return B, S, H, D
+
+
+def _raise_on(lib, err, what):
+    if err != 0:
+        raise RuntimeError(
+            f"{what} kernel launch failed: "
+            f"{lib.pt_cuda_error_string(err).decode()} (cudaError {err})")
+
+
 def _lib():
     from .build import load
 
@@ -140,23 +222,7 @@ def flash_attention_packed(qkv: torch.Tensor, bias: Optional[torch.Tensor],
     if qkv.device.type == "cpu":
         return flash_attention_packed_reference(qkv, bias, num_heads,
                                                 causal, sm_scale)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"flash_attention_packed: unsupported device "
-                         f"{qkv.device}")
-    if qkv.dim() != 3:
-        raise ValueError(f"qkv must be [B, S, 3H], got {tuple(qkv.shape)}")
-    B, S, H, D = _split_heads(qkv, num_heads)
-    if qkv.dtype not in _DTYPE_CODES:
-        raise TypeError(f"flash_attention_packed takes float32 or bfloat16, "
-                        f"got {qkv.dtype}")
-    if D not in (64, 128):
-        raise ValueError(f"flash_attention_packed needs head_dim in "
-                         f"(64, 128); got {D}")
-    if not qkv.is_contiguous():
-        raise ValueError("flash_attention_packed needs a contiguous qkv")
-    if B == 0 or S == 0 or B > 65535 or num_heads > 65535:
-        raise ValueError(f"flash_attention_packed: unsupported grid "
-                         f"B={B} S={S} num_heads={num_heads}")
+    B, S, H, D = _check_qkv(qkv, num_heads, "flash_attention_packed")
     if bias is not None:
         if tuple(bias.shape) != (B, S) or bias.device != qkv.device:
             raise ValueError(f"bias must be [B, S] = {(B, S)} on "
@@ -175,12 +241,173 @@ def flash_attention_packed(qkv: torch.Tensor, bias: Optional[torch.Tensor],
             qkv.data_ptr(), bias.data_ptr() if bias is not None else None,
             out.data_ptr(), lse.data_ptr(), B, S, H, num_heads,
             int(bool(causal)), float(scale), _DTYPE_CODES[qkv.dtype], stream)
-    if err != 0:
-        raise RuntimeError(
-            f"flash_attention_packed kernel launch failed: "
-            f"{lib.pt_cuda_error_string(err).decode()} (cudaError {err})")
+    _raise_on(lib, err, "flash_attention_packed")
     flash_attention_packed.launches += 1
     return out, lse
 
 
 flash_attention_packed.launches = 0
+
+
+def _bwd_lib():
+    from .build import load
+
+    lib = load(_BWD_KERNEL)
+    for fn, n_ptr in ((lib.pt_flash_attention_packed_bwd_dkv, 7),
+                      (lib.pt_flash_attention_packed_bwd_dq, 6)):
+        if fn.argtypes is None:
+            fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [
+                ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+    lib.pt_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.pt_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check_backward_inputs(qkv, bias, out, lse, dout, num_heads,
+                          what="flash_attention_packed_backward"):
+    """What the backward kernels take: qkv as ``_check_qkv`` wants it, and
+    out, dout [B, S, H] in qkv's dtype, lse [B, num_heads, S] float32 and
+    bias [B, S] float32 or None, all contiguous on qkv's device.  Raises
+    on anything else; returns (B, S, H, D).  The launch helpers
+    ``flash_attention_packed_dkv`` and ``flash_attention_packed_dq``
+    trust their caller to have called it."""
+    B, S, H, D = _check_qkv(qkv, num_heads, what)
+    want = {"out": (out, (B, S, H), qkv.dtype),
+            "dout": (dout, (B, S, H), qkv.dtype),
+            "lse": (lse, (B, num_heads, S), torch.float32)}
+    if bias is not None:
+        want["bias"] = (bias, (B, S), torch.float32)
+    for name, (t, shape, dtype) in want.items():
+        if tuple(t.shape) != shape or t.dtype != dtype or \
+                t.device != qkv.device or not t.is_contiguous():
+            raise ValueError(
+                f"{what}: {name} must be a contiguous {dtype} {shape} on "
+                f"{qkv.device}, got {t.dtype} {tuple(t.shape)} on "
+                f"{t.device}{'' if t.is_contiguous() else ' (not contiguous)'}")
+    return B, S, H, D
+
+
+def flash_attention_packed_dkv(qkv, bias, dout, lse, delta, dqkv,
+                               dbias_heads, num_heads, causal, scale):
+    """Launch the dK/dV kernel on inputs that ``check_backward_inputs``
+    passed: writes dk and dv into columns [H, 3H) of `dqkv` (a contiguous
+    [B, S, 3H] in qkv's dtype) and, when `dbias_heads` ([B, num_heads, S]
+    float32, only with a bias) is given, each head's bias-gradient row
+    sums into it.  `delta` is laid out like lse.  Counts launches in
+    ``.launches``."""
+    B, S, threeH = qkv.shape
+    lib = _bwd_lib()
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        err = lib.pt_flash_attention_packed_bwd_dkv(
+            qkv.data_ptr(), bias.data_ptr() if bias is not None else None,
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dqkv.data_ptr(),
+            dbias_heads.data_ptr() if dbias_heads is not None else None,
+            B, S, threeH // 3, num_heads, int(bool(causal)), float(scale),
+            _DTYPE_CODES[qkv.dtype], stream)
+    _raise_on(lib, err, "flash_attention_packed_dkv")
+    flash_attention_packed_dkv.launches += 1
+
+
+flash_attention_packed_dkv.launches = 0
+
+
+def flash_attention_packed_dq(qkv, bias, dout, lse, delta, dqkv, num_heads,
+                              causal, scale):
+    """Launch the dQ kernel on inputs that ``check_backward_inputs``
+    passed: writes dq into columns [0, H) of `dqkv`.  Counts launches in
+    ``.launches``."""
+    B, S, threeH = qkv.shape
+    lib = _bwd_lib()
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        err = lib.pt_flash_attention_packed_bwd_dq(
+            qkv.data_ptr(), bias.data_ptr() if bias is not None else None,
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dqkv.data_ptr(), B, S, threeH // 3, num_heads,
+            int(bool(causal)), float(scale), _DTYPE_CODES[qkv.dtype], stream)
+    _raise_on(lib, err, "flash_attention_packed_dq")
+    flash_attention_packed_dq.launches += 1
+
+
+flash_attention_packed_dq.launches = 0
+
+
+def backward_delta(out, dout, num_heads):
+    """delta = rowsum(dO * O) per head in float32, laid out like lse
+    [B, num_heads, S]."""
+    B, S, H = out.shape
+    delta = (dout.float() * out.float()).reshape(B, S, num_heads,
+                                                 H // num_heads).sum(-1)
+    return delta.transpose(1, 2).contiguous()
+
+
+def flash_attention_packed_backward(
+        qkv: torch.Tensor, bias: Optional[torch.Tensor], out: torch.Tensor,
+        lse: torch.Tensor, dout: torch.Tensor, num_heads: int,
+        causal: bool = False, sm_scale: Optional[float] = None,
+        need_dbias: bool = True
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Packed attention backward: (dqkv [B,S,3H] in qkv's dtype, dbias
+    [B,S] in bias's dtype, or None without a bias or with need_dbias
+    False).  A CPU tensor takes the plain version; a CUDA tensor is
+    checked once (``check_backward_inputs``), then launches the dK/dV and
+    the dQ kernel, or raises."""
+    if qkv.device.type == "cpu":
+        dqkv, dbias = flash_attention_packed_backward_reference(
+            qkv, bias, out, lse, dout, num_heads, causal, sm_scale)
+        return dqkv, dbias if need_dbias else None
+    bias32 = None if bias is None else bias.to(torch.float32).contiguous()
+    B, S, H, D = check_backward_inputs(qkv, bias32, out, lse, dout,
+                                       num_heads)
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    delta = backward_delta(out, dout, num_heads)
+    dqkv = torch.empty_like(qkv)
+    dbias_heads = None
+    if bias is not None and need_dbias:
+        dbias_heads = torch.empty((B, num_heads, S), dtype=torch.float32,
+                                  device=qkv.device)
+    flash_attention_packed_dkv(qkv, bias32, dout, lse, delta, dqkv,
+                               dbias_heads, num_heads, causal, scale)
+    flash_attention_packed_dq(qkv, bias32, dout, lse, delta, dqkv,
+                              num_heads, causal, scale)
+    dbias = None
+    if dbias_heads is not None:
+        # per-head partials summed here: no atomics, a deterministic sum
+        dbias = dbias_heads.sum(1).to(bias.dtype)
+    return dqkv, dbias
+
+
+class _FlashAttentionPacked(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qkv, bias, num_heads, causal, sm_scale):
+        out, lse = flash_attention_packed(qkv, bias, num_heads, causal,
+                                          sm_scale)
+        ctx.save_for_backward(qkv, bias, out, lse)
+        ctx.attrs = (num_heads, causal, sm_scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, bias, out, lse = ctx.saved_tensors
+        num_heads, causal, sm_scale = ctx.attrs
+        dqkv, dbias = flash_attention_packed_backward(
+            qkv, bias, out, lse, dout.to(qkv.dtype).contiguous(), num_heads,
+            causal, sm_scale,
+            need_dbias=bias is not None and ctx.needs_input_grad[1])
+        return dqkv, dbias, None, None, None
+
+
+def flash_attention_packed_autograd(qkv: torch.Tensor,
+                                    bias: Optional[torch.Tensor],
+                                    num_heads: int, causal: bool = False,
+                                    sm_scale: Optional[float] = None
+                                    ) -> torch.Tensor:
+    """``flash_attention_packed``'s out [B,S,H], differentiable in qkv
+    and bias: forward kernel forward, backward kernels backward (plain
+    versions on the CPU).  The bias grad is computed only when autograd
+    asks for it."""
+    return _FlashAttentionPacked.apply(qkv, bias, num_heads, causal,
+                                       sm_scale)

@@ -1,10 +1,14 @@
 """Math / elementwise / reduction / matmul op lowerings in PyTorch.
 
 Counterpart of ``paddle_tpu/ops/math_ops.py`` for the ops on the BERT
-serving path: ``elementwise_add/mul/div`` with Paddle ``axis``
-broadcasting, ``scale``, ``mul``, ``gelu`` and ``reduce_sum``.  The plain
-matrix product of ``mul`` stays ``torch.matmul``, as the JAX package
-leaves it to XLA.
+path: ``elementwise_add/mul/div/max`` with Paddle ``axis``
+broadcasting, ``less_than``, ``scale``, ``mul``, ``gelu``, ``sqrt``,
+``cast``, ``reduce_sum`` and ``sum``.  The plain matrix product of ``mul``
+stays ``torch.matmul``, as the JAX package leaves it to XLA.
+
+Binary ops promote their operands as jax.numpy does: a bfloat16 and a
+float32 operand give float32 whatever their ranks (torch alone would
+keep a dimensioned bfloat16 tensor's type against a 0-d float32 one).
 """
 from __future__ import annotations
 
@@ -45,9 +49,17 @@ def _align_y(x, y, axis):
     return x, y
 
 
+def _promote(x, y):
+    if x.dtype == y.dtype:
+        return x, y
+    dt = torch.promote_types(x.dtype, y.dtype)
+    return x.to(dt), y.to(dt)
+
+
 def _make_ew(op_type, fn):
     def lower(ctx: LowerContext, op: Operator):
-        x, y = _align_y(ctx.get_input(op, "X"), ctx.get_input(op, "Y"),
+        x, y = _align_y(*_promote(ctx.get_input(op, "X"),
+                                  ctx.get_input(op, "Y")),
                         op.attr("axis", -1))
         ctx.set_output(op, "Out", fn(x, y))
     register_op(op_type, infer=_ew_infer, lower=lower)
@@ -56,6 +68,25 @@ def _make_ew(op_type, fn):
 _make_ew("elementwise_add", lambda x, y: x + y)
 _make_ew("elementwise_mul", lambda x, y: x * y)
 _make_ew("elementwise_div", lambda x, y: x / y)
+_make_ew("elementwise_max", torch.maximum)
+
+
+# ---------------------------------------------------------------------------
+# comparison (non-differentiable)
+# ---------------------------------------------------------------------------
+
+def _cmp_infer(op: Operator, block: Block):
+    x = in_var(op, block, "X")
+    y = in_var(op, block, "Y")
+    shape = broadcast_shapes(list(x.shape), list(y.shape),
+                             op.attr("axis", -1))
+    set_out(op, block, "Out", shape, "bool")
+
+
+@register_op("less_than", infer=_cmp_infer, grad=None)
+def _less_than(ctx: LowerContext, op: Operator):
+    x, y = _promote(ctx.get_input(op, "X"), ctx.get_input(op, "Y"))
+    ctx.set_output(op, "Out", x < y)
 
 
 # ---------------------------------------------------------------------------
@@ -69,6 +100,22 @@ def _gelu(ctx: LowerContext, op: Operator):
     approx = "tanh" if op.attr("approximate", False) else "none"
     ctx.set_output(op, "Out", F.gelu(ctx.get_input(op, "X"),
                                      approximate=approx))
+
+
+@register_op("sqrt", infer=same_as_input())
+def _sqrt(ctx: LowerContext, op: Operator):
+    ctx.set_output(op, "Out", torch.sqrt(ctx.get_input(op, "X")))
+
+
+def _cast_infer(op: Operator, block: Block):
+    x = in_var(op, block, "X")
+    set_out(op, block, "Out", x.shape, op.attr("out_dtype", "float32"))
+
+
+@register_op("cast", infer=_cast_infer)
+def _cast(ctx: LowerContext, op: Operator):
+    ctx.set_output(op, "Out", ctx.get_input(op, "X").to(
+        dtype_to_torch(op.attr("out_dtype", "float32"))))
 
 
 @register_op("scale", infer=same_as_input())
@@ -140,4 +187,19 @@ def _reduce_sum(ctx: LowerContext, op: Operator):
         out = x.sum(dim=tuple(d % x.dim() for d in dims), keepdim=keep)
     if op.attr("out_dtype"):
         out = out.to(dtype_to_torch(op.attr("out_dtype")))
+    ctx.set_output(op, "Out", out)
+
+
+def _sum_infer(op: Operator, block: Block):
+    x = in_var(op, block, "X")
+    set_out(op, block, "Out", x.shape, x.dtype)
+
+
+@register_op("sum", infer=_sum_infer)
+def _sum(ctx: LowerContext, op: Operator):
+    """Add N tensors (the clip's sum of squared grad norms)."""
+    xs = ctx.get_inputs(op, "X")
+    out = xs[0]
+    for x in xs[1:]:
+        out = torch.add(*_promote(out, x))
     ctx.set_output(op, "Out", out)

@@ -1,9 +1,10 @@
-"""Neural-network op lowerings in PyTorch: ``layer_norm`` and
-``softmax_with_cross_entropy``.
+"""Neural-network op lowerings in PyTorch: ``layer_norm``,
+``softmax_with_cross_entropy`` and ``dropout``.
 
-Counterpart of the same two ops in ``paddle_tpu/ops/nn_ops.py``, with the
-same formulas: layer-norm statistics in float32, and the loss as
-``logsumexp(logits) - logits[label]`` (the numerically stable form).
+Counterpart of the same ops in ``paddle_tpu/ops/nn_ops.py``, with the
+same formulas: layer-norm statistics in float32, the loss as
+``logsumexp(logits) - logits[label]`` (the numerically stable form), and
+dropout's keep test on uint8 random bits.
 """
 from __future__ import annotations
 
@@ -81,3 +82,42 @@ def _softmax_with_cross_entropy(ctx, op):
             loss = torch.where(lab == ignore, torch.zeros_like(loss), loss)
     ctx.set_output(op, "Softmax", softmax)
     ctx.set_output(op, "Loss", loss)
+
+
+def _dropout_infer(op, block):
+    x = in_var(op, block, "X")
+    set_out(op, block, "Out", x.shape, x.dtype)
+    if op.output("Mask"):
+        set_out(op, block, "Mask", x.shape, "uint8")
+
+
+@register_op("dropout", infer=_dropout_infer)
+def _dropout(ctx, op):
+    """Keeps an element where a uniform uint8 draw is >= round(p * 256),
+    as the JAX package does (keep probability 1 - round(256 p) / 256);
+    ``upscale_in_train`` scales the kept ones by 1 / (1 - p).  The bits
+    come from ``ctx.rng(op)``: the auto-derived ``dropout_grad``
+    re-lowers this op in the same run and so replays the mask."""
+    x = ctx.get_input(op, "X")
+    p = op.attr("dropout_prob", 0.5)
+    impl = op.attr("dropout_implementation", "downgrade_in_infer")
+    if op.attr("is_test", False) or ctx.is_test:
+        ctx.set_output(op, "Out",
+                       x if impl == "upscale_in_train" else x * (1.0 - p))
+        if op.output("Mask"):
+            ctx.set_output(op, "Mask", torch.ones(
+                x.shape, dtype=torch.uint8, device=x.device))
+        return
+    scale = (0.0 if p >= 1.0 else 1.0 / (1.0 - p)) \
+        if impl == "upscale_in_train" else 1.0
+    if p >= 255.5 / 256.0:  # below uint8 granularity: drop everything
+        keep = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
+    else:
+        bits = torch.randint(0, 256, tuple(x.shape), generator=ctx.rng(op),
+                             dtype=torch.uint8, device=x.device)
+        keep = bits >= round(max(p, 0.0) * 256.0)
+    out = torch.where(keep, x * scale if scale != 1.0 else x,
+                      torch.zeros((), dtype=x.dtype, device=x.device))
+    ctx.set_output(op, "Out", out)
+    if op.output("Mask"):
+        ctx.set_output(op, "Mask", keep.to(torch.uint8))

@@ -1,8 +1,8 @@
 """Tensor creation / manipulation op lowerings in PyTorch.
 
 Counterpart of ``paddle_tpu/ops/tensor_ops.py`` for the ops on the BERT
-serving path: ``fill_constant``, ``uniform_random``, ``range``,
-``squeeze2``/``unsqueeze2``, ``lookup_table_v2`` and, for the
+path: ``fill_constant``, ``fill_any_like``, ``uniform_random``, ``range``,
+``squeeze2``/``unsqueeze2``, ``lookup_table_v2``, ``where`` and, for the
 masked-gather MLM head, ``expand``, ``stack`` and ``gather_nd``.
 Randomness comes from a per-op ``torch.Generator`` (LowerContext.rng); it
 draws other numbers than jax.random from the same seed.
@@ -38,6 +38,21 @@ def _fill_constant(ctx: LowerContext, op: Operator):
     else:
         out = torch.full(shape, value, dtype=dtype, device=ctx.device)
     ctx.set_output(op, "Out", out)
+
+
+def _fill_like_infer(op, block):
+    x = in_var(op, block, "X")
+    dt = op.attr("dtype", -1)
+    set_out(op, block, "Out", x.shape, x.dtype if dt in (-1, None, "") else dt)
+
+
+@register_op("fill_any_like", infer=_fill_like_infer, grad=None)
+def _fill_any_like(ctx: LowerContext, op: Operator):
+    x = ctx.get_input(op, "X")
+    dt = op.attr("dtype", -1)
+    dtype = x.dtype if dt in (-1, None, "") else dtype_to_torch(dt)
+    ctx.set_output(op, "Out", torch.full(tuple(x.shape), op.attr("value", 0.0),
+                                         dtype=dtype, device=x.device))
 
 
 def _range_infer(op, block):
@@ -187,3 +202,19 @@ def _lookup_table_v2(ctx: LowerContext, op: Operator):
     if padding_idx is not None and padding_idx >= 0:
         out = out * (ids != padding_idx).unsqueeze(-1).to(out.dtype)
     ctx.set_output(op, "Out", out)
+
+
+# ---------------------------------------------------------------------------
+# selection
+# ---------------------------------------------------------------------------
+
+def _where_infer(op, block):
+    x = in_var(op, block, "X")
+    set_out(op, block, "Out", x.shape, x.dtype)
+
+
+@register_op("where", infer=_where_infer)
+def _where(ctx, op):
+    cond = ctx.get_input(op, "Condition")
+    x, y = ctx.get_input(op, "X"), ctx.get_input(op, "Y")
+    ctx.set_output(op, "Out", torch.where(cond, x, y))

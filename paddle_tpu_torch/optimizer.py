@@ -1,0 +1,140 @@
+"""Static-graph optimizers: ``Optimizer`` and ``AdamOptimizer``.
+
+Counterpart of ``paddle_tpu/optimizer.py:34-152`` and ``:323-358``.
+``minimize(loss)`` = append_backward + clip + regularization + one
+optimizer op per parameter, with the accumulators (moments, beta powers)
+as persistable vars filled by the startup program.  The dygraph branches,
+``state_dict`` and the other optimizers wait for later slices.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+from .framework.backward import append_backward
+from .framework.core import (OpRole, Program, Variable, default_main_program,
+                             default_startup_program, unique_name)
+from .framework.initializer import ConstantInitializer
+from .regularizer import append_regularization_ops
+
+__all__ = ["Optimizer", "Adam", "AdamOptimizer"]
+
+
+class Optimizer:
+    op_type = None
+
+    def __init__(self, learning_rate=0.001, parameter_list=None,
+                 regularization=None, grad_clip=None, name=None):
+        self._learning_rate = learning_rate
+        self._parameter_list = parameter_list
+        self.regularization = regularization
+        self._grad_clip = grad_clip
+        self._name = name or unique_name(self.__class__.__name__.lower())
+        self._accumulators: Dict[str, Dict[str, Variable]] = {}
+        self._lr_var: Optional[Variable] = None
+
+    def _create_lr_var(self, program: Program) -> Variable:
+        if self._lr_var is not None and \
+                self._lr_var.block.program is program:
+            return self._lr_var
+        from .layers.tensor import create_global_var
+        if isinstance(self._learning_rate, Variable):
+            self._lr_var = self._learning_rate
+            return self._lr_var
+        self._lr_var = create_global_var(
+            [1], float(self._learning_rate), "float32", persistable=True,
+            name=unique_name(f"{self._name}.lr"))
+        return self._lr_var
+
+    def _add_accumulator(self, name: str, param: Variable, shape=None,
+                         fill_value=0.0, dtype="float32") -> Variable:
+        acc = self._accumulators.setdefault(name, {})
+        if param.name in acc:
+            return acc[param.name]
+        shape = list(shape if shape is not None else param.shape)
+        v = default_main_program().global_block().create_var(
+            name=unique_name(f"{self._name}.{param.name}.{name}"),
+            shape=shape, dtype=dtype, persistable=True, stop_gradient=True)
+        ConstantInitializer(fill_value)(
+            v, default_startup_program().global_block())
+        acc[param.name] = v
+        return v
+
+    def _get_accumulator(self, name: str, param: Variable) -> Variable:
+        return self._accumulators[name][param.name]
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        params_grads = self.backward(loss, startup_program, parameter_list,
+                                     no_grad_set)
+        return self.apply_gradients(params_grads), params_grads
+
+    def backward(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None, callbacks=None):
+        return append_backward(loss, parameter_list or self._parameter_list,
+                               no_grad_set, callbacks)
+
+    def apply_gradients(self, params_grads: List[Tuple[Variable, Variable]]):
+        if self._grad_clip is not None:
+            params_grads = self._grad_clip(params_grads)
+        params_grads = append_regularization_ops(params_grads,
+                                                 self.regularization)
+        return self.apply_optimize(params_grads)
+
+    def apply_optimize(self, params_grads):
+        program = default_main_program()
+        lr = self._create_lr_var(program)
+        for p, _ in params_grads:
+            self._create_accumulators(p)
+        ops = []
+        for p, g in params_grads:
+            op = self._append_optimize_op(p, g, lr)
+            if op is not None:
+                op.attrs["op_role"] = OpRole.Optimize
+                ops.append(op)
+        program.bump()
+        return ops
+
+    def _create_accumulators(self, param: Variable):
+        pass
+
+    def _append_optimize_op(self, param, grad, lr):
+        raise NotImplementedError
+
+
+class AdamOptimizer(Optimizer):
+    """Adam with bias correction folded into the step size (the
+    reference's adam_op).  ``lazy_mode`` is accepted and, as in the JAX
+    package, has no effect on a dense gradient."""
+    op_type = "adam"
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, lazy_mode=False, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+
+    def _create_accumulators(self, param):
+        self._add_accumulator("moment1", param)
+        self._add_accumulator("moment2", param)
+        self._add_accumulator("beta1_pow", param, shape=[1],
+                              fill_value=self._beta1)
+        self._add_accumulator("beta2_pow", param, shape=[1],
+                              fill_value=self._beta2)
+
+    def _append_optimize_op(self, param, grad, lr):
+        m1 = self._get_accumulator("moment1", param)
+        m2 = self._get_accumulator("moment2", param)
+        b1p = self._get_accumulator("beta1_pow", param)
+        b2p = self._get_accumulator("beta2_pow", param)
+        return default_main_program().current_block().append_op(
+            self.op_type,
+            inputs={"Param": [param], "Grad": [grad], "Moment1": [m1],
+                    "Moment2": [m2], "Beta1Pow": [b1p], "Beta2Pow": [b2p],
+                    "LearningRate": [lr]},
+            outputs={"ParamOut": [param], "Moment1Out": [m1],
+                     "Moment2Out": [m2], "Beta1PowOut": [b1p],
+                     "Beta2PowOut": [b2p]},
+            attrs={"beta1": self._beta1, "beta2": self._beta2,
+                   "epsilon": self._epsilon})
+
+
+Adam = AdamOptimizer

@@ -133,3 +133,95 @@ def test_small_bert_on_the_card_matches_the_cpu(cuda):
     got, want = on_card.run(feed), on_cpu.run(feed)
     np.testing.assert_allclose(got[0], want[0], atol=1e-4, rtol=0)
     np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=0)
+
+
+def _bwd_inputs(B, S, H, nh, causal, with_bias, dtype, device, seed):
+    """qkv, bias (last row all padding), and the forward's out / lse from
+    the plain version; dout random."""
+    rng = np.random.RandomState(seed)
+    qkv = torch.from_numpy(rng.randn(B, S, 3 * H).astype("float32"))
+    qkv = qkv.to(device, getattr(torch, dtype))
+    dout = torch.from_numpy(rng.randn(B, S, H).astype("float32"))
+    dout = dout.to(device, getattr(torch, dtype))
+    bias = None
+    if with_bias:
+        mask = (rng.rand(B, S) > 0.2).astype("float32")
+        mask[-1] = 0.0
+        bias = torch.from_numpy(mask * 1e4 - 1e4).to(device)
+    out, lse = tfa.flash_attention_packed_reference(qkv.float(), bias, nh,
+                                                    causal)
+    return qkv, bias, out.to(qkv.dtype), lse, dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,nh,causal,with_bias",
+                         [(2, 128, 768, 12, False, True),
+                          (2, 100, 256, 2, True, True),
+                          (2, 64, 256, 2, False, False),
+                          (1, 100, 768, 12, True, False)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_kernels_match_plain_version(cuda, B, S, H, nh, causal,
+                                              with_bias, dtype):
+    """dqkv and dbias from the dK/dV and dQ kernels against the plain
+    backward on the same (rounded) inputs in float32.  fp32: atol 1e-4 on
+    dqkv and dbias (sums of up to S products of O(1) terms in another
+    order); bf16: atol 5e-2 on dqkv, the kernel's bf16 output rounding
+    (2**-8 relative on values up to ~10), and 1e-4 on the float32 dbias."""
+    qkv, bias, out, lse, dout = _bwd_inputs(B, S, H, nh, causal, with_bias,
+                                            dtype, cuda, seed=B * S + H)
+    before = (tfa.flash_attention_packed_dkv.launches,
+              tfa.flash_attention_packed_dq.launches)
+    dqkv, dbias = tfa.flash_attention_packed_backward(
+        qkv, bias, out, lse, dout, nh, causal)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention_packed_dkv.launches,
+            tfa.flash_attention_packed_dq.launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    ref, ref_db = tfa.flash_attention_packed_backward_reference(
+        qkv.float(), bias, out.float(), lse, dout.float(), nh, causal)
+    assert dqkv.dtype == qkv.dtype and dqkv.shape == qkv.shape
+    atol = 1e-4 if dtype == "float32" else 5e-2
+    assert torch.isfinite(dqkv.float()).all()
+    assert (dqkv.float() - ref).abs().max().item() <= atol
+    if with_bias:
+        assert dbias.dtype == torch.float32 and dbias.shape == (B, S)
+        # float32 in both, on the same rounded inputs
+        assert (dbias - ref_db).abs().max().item() <= 1e-4
+    else:
+        assert dbias is None
+
+
+@pytest.mark.cuda
+def test_autograd_function_on_the_card_matches_the_cpu(cuda):
+    """flash_attention_packed_autograd: kernel forward and backward on the
+    card against the plain versions on the CPU (fp32, atol 1e-4)."""
+    rng = np.random.RandomState(11)
+    x = rng.randn(2, 80, 3 * 256).astype("float32")
+    mask = (rng.rand(2, 80) > 0.3).astype("float32")
+    b = mask * 1e4 - 1e4
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        qkv = torch.from_numpy(x).to(dev).requires_grad_(True)
+        bias = torch.from_numpy(b).to(dev).requires_grad_(True)
+        out = tfa.flash_attention_packed_autograd(qkv, bias, 2, True)
+        (out * out).sum().backward()
+        grads.append((qkv.grad.cpu(), bias.grad.cpu()))
+    for g, want in zip(grads[0], grads[1]):
+        np.testing.assert_allclose(g.numpy(), want.numpy(), atol=1e-4,
+                                   rtol=0)
+
+
+@pytest.mark.cuda
+def test_backward_wrapper_rejects_what_the_kernels_do_not_take(cuda):
+    qkv, bias, out, lse, dout = _bwd_inputs(2, 16, 128, 2, False, True,
+                                            "float32", cuda, seed=1)
+    with pytest.raises(ValueError, match="dout"):
+        tfa.flash_attention_packed_backward(
+            qkv, bias, out, lse, dout.transpose(0, 1).contiguous().transpose(0, 1),
+            2)
+    with pytest.raises(ValueError, match="lse"):
+        tfa.flash_attention_packed_backward(qkv, bias, out, lse[:, :1], dout,
+                                            2)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tfa.flash_attention_packed_backward(qkv.half(), bias, out.half(),
+                                            lse, dout.half(), 2)

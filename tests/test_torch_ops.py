@@ -6,6 +6,11 @@ compares the fetches.  fp32; atol 1e-5 plus rtol 1e-5 for the ops that
 reduce or take a product (different summation order), exact for the rest.
 ``uniform_random`` draws from a different generator than jax.random, so it
 is checked for range, moments and determinism instead.
+
+The grad cases append ``loss = reduce_sum(out * cot)`` (cot a fed random
+cotangent) and ``append_backward`` in both packages, and compare the
+inputs' ``@GRAD`` vars (jax.vjp against torch.autograd.grad of the same
+forward lowering): atol 1e-5, rtol 1e-5.
 """
 import numpy as np
 import pytest
@@ -165,6 +170,69 @@ CASES = [
     ("flash_attention_qkv_unpacked_width", "flash_attention_qkv",
      {"QKV": {"qkv": _f(2, 8, 3 * 48)}},
      {"Out": ["o"]}, {"num_heads": 3, "causal": False}, ["o"], False),
+    ("dropout_is_test_upscale", "dropout", {"X": {"x": _f(3, 4)}},
+     {"Out": ["o"], "Mask": ["m"]},
+     {"dropout_prob": 0.3, "is_test": True,
+      "dropout_implementation": "upscale_in_train"}, ["o", "m"], True),
+    ("dropout_is_test_downgrade", "dropout", {"X": {"x": _f(3, 4)}},
+     {"Out": ["o"]},
+     {"dropout_prob": 0.3, "is_test": True,
+      "dropout_implementation": "downgrade_in_infer"}, ["o"], True),
+    ("dropout_train_p0", "dropout", {"X": {"x": _f(3, 4)}},
+     {"Out": ["o"], "Mask": ["m"]},
+     {"dropout_prob": 0.0, "is_test": False,
+      "dropout_implementation": "upscale_in_train"}, ["o", "m"], True),
+    ("dropout_train_p1", "dropout", {"X": {"x": _f(3, 4)}},
+     {"Out": ["o"], "Mask": ["m"]},
+     {"dropout_prob": 1.0, "is_test": False,
+      "dropout_implementation": "upscale_in_train"}, ["o", "m"], True),
+    ("sqrt", "sqrt", {"X": {"x": np.abs(_f(3, 4)) + 0.1}}, {"Out": ["o"]},
+     {}, ["o"], False),
+    ("elementwise_max", "elementwise_max",
+     {"X": {"x": _f(3, 4)}, "Y": {"y": _f(4)}}, {"Out": ["o"]},
+     {"axis": -1}, ["o"], True),
+    ("elementwise_max_0d_1d", "elementwise_max",
+     {"X": {"x": np.float32(0.5).reshape(())},
+      "Y": {"y": np.array([1.0], "float32")}}, {"Out": ["o"]},
+     {"axis": -1}, ["o"], True),
+    ("less_than", "less_than",
+     {"X": {"x": _f(6)}, "Y": {"y": np.array([0.0], "float32")}},
+     {"Out": ["o"]}, {}, ["o"], True),
+    ("cast_f32_i64", "cast",
+     {"X": {"x": np.array([2.7, -1.5, 0.2, 9.0], "float32")}},
+     {"Out": ["o"]}, {"out_dtype": "int64", "in_dtype": "float32"}, ["o"],
+     True),
+    ("cast_i64_f32", "cast",
+     {"X": {"x": np.array([-1, 0, 7], "int64")}},
+     {"Out": ["o"]}, {"out_dtype": "float32", "in_dtype": "int64"}, ["o"],
+     True),
+    ("sum", "sum", {"X": {"a": _f(2, 3), "b": _f(2, 3), "c": _f(2, 3)}},
+     {"Out": ["o"]}, {}, ["o"], False),
+    # in place, as layers.increment appends it (its infer adds no var)
+    ("increment_i64", "increment",
+     {"X": {"x": np.array([-1], "int64")}}, {"Out": ["x"]}, {"step": 1.0},
+     ["x"], True),
+    ("increment_f32", "increment", {"X": {"x": _f(3)}}, {"Out": ["x"]},
+     {"step": 2.5}, ["x"], True),
+    ("fill_any_like", "fill_any_like", {"X": {"x": _f(2, 3)}},
+     {"Out": ["o"]}, {"value": 1.0, "dtype": "float32"}, ["o"], True),
+    ("fill_any_like_keep_dtype", "fill_any_like",
+     {"X": {"x": np.zeros((4,), "int64")}}, {"Out": ["o"]},
+     {"value": 3.0, "dtype": -1}, ["o"], True),
+    ("where", "where",
+     {"Condition": {"c": R.rand(3, 4) > 0.5}, "X": {"x": _f(3, 4)},
+      "Y": {"y": _f(3, 4)}}, {"Out": ["o"]}, {}, ["o"], True),
+    ("adam", "adam",
+     {"Param": {"p": _f(4, 3)}, "Grad": {"g": _f(4, 3) * 0.1},
+      "Moment1": {"m1": _f(4, 3) * 0.01},
+      "Moment2": {"m2": np.abs(_f(4, 3)) * 0.01},
+      "Beta1Pow": {"b1p": np.array([0.9 ** 3], "float32")},
+      "Beta2Pow": {"b2p": np.array([0.999 ** 3], "float32")},
+      "LearningRate": {"lr": np.array([1e-3], "float32")}},
+     {"ParamOut": ["po"], "Moment1Out": ["m1o"], "Moment2Out": ["m2o"],
+      "Beta1PowOut": ["b1o"], "Beta2PowOut": ["b2o"]},
+     {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8},
+     ["po", "m1o", "m2o", "b1o", "b2o"], False),
     ("expand", "expand", {"X": {"x": _f(3, 1)}}, {"Out": ["o"]},
      {"expand_times": [2, 4]}, ["o"], True),
     ("stack", "stack", {"X": {"a": _f(2, 3), "b": _f(2, 3)}},
@@ -249,3 +317,183 @@ def test_executor_without_cuda_and_without_cpu_place_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tpt.Executor(tpt.CUDAPlace(0))
     assert tpt.Executor(tpt.CPUPlace()).device.type == "cpu"
+
+
+def test_ported_op_set_covers_the_training_step():
+    """Every op of the BERT training program (backward, clip, Adam, LR
+    warmup, startup) is lowered and has a case here."""
+    from paddle_tpu_torch.ops.registry import all_registered_ops
+
+    training = {"dropout", "cast", "increment", "less_than", "where",
+                "sqrt", "elementwise_max", "sum", "fill_any_like", "adam"}
+    assert training <= set(all_registered_ops())
+    assert training <= {c[1] for c in CASES}
+
+
+def _run_grad(pkg, op_type, inputs, outputs, attrs, out_name, wrt, cot):
+    """One-op program + loss = reduce_sum(out * cot) + append_backward;
+    returns the `wrt` vars' grads as numpy."""
+    if pkg is jpt:
+        from paddle_tpu.framework.backward import append_backward
+    else:
+        from paddle_tpu_torch.framework.backward import append_backward
+    main = pkg.Program()
+    block = main.global_block()
+    feed = {"cot": cot}
+    for slot, named in inputs.items():
+        for name, arr in named.items():
+            block.create_var(name=name, shape=list(arr.shape),
+                             dtype=str(arr.dtype), is_data=True,
+                             stop_gradient=name not in wrt)
+            feed[name] = arr
+    block.create_var(name="cot", shape=list(cot.shape), dtype="float32",
+                     is_data=True, stop_gradient=True)
+    with pkg.program_guard(main, pkg.Program()):
+        block.append_op(op_type,
+                        inputs={s: list(n) for s, n in inputs.items()},
+                        outputs={s: list(n) for s, n in outputs.items()},
+                        attrs=dict(attrs))
+        block.append_op("elementwise_mul", inputs={"X": [out_name],
+                                                   "Y": ["cot"]},
+                        outputs={"Out": ["prod"]}, attrs={"axis": -1})
+        block.append_op("reduce_sum", inputs={"X": ["prod"]},
+                        outputs={"Out": ["loss"]},
+                        attrs={"dim": [0], "reduce_all": True,
+                               "keep_dim": False})
+        append_backward(block.var("loss"))
+    exe = pkg.Executor(pkg.CPUPlace())
+    return exe.run(main, feed=feed, fetch_list=[w + "@GRAD" for w in wrt],
+                   scope=pkg.Scope())
+
+
+def _ids(*shape, high):
+    return R.randint(0, high, shape).astype("int64")
+
+
+# (id, op, inputs, outputs, attrs, differentiated output, wrt, out shape)
+GRAD_CASES = [
+    ("elementwise_add_axis1", "elementwise_add",
+     {"X": {"x": _f(2, 3, 4)}, "Y": {"y": _f(3)}}, {"Out": ["o"]},
+     {"axis": 1}, "o", ["x", "y"], (2, 3, 4)),
+    ("elementwise_mul_same_var", "elementwise_mul",
+     {"X": {"x": _f(3, 4)}, "Y": {"x": _f(3, 4)}}, {"Out": ["o"]},
+     {"axis": -1}, "o", ["x"], (3, 4)),
+    ("elementwise_mul_bcast", "elementwise_mul",
+     {"X": {"x": _f(3, 4)}, "Y": {"y": _f(1)}}, {"Out": ["o"]},
+     {"axis": -1}, "o", ["x", "y"], (3, 4)),
+    ("elementwise_div", "elementwise_div",
+     {"X": {"x": _f(3, 4)}, "Y": {"y": _f(1) + 3.0}}, {"Out": ["o"]},
+     {"axis": -1}, "o", ["x", "y"], (3, 4)),
+    ("elementwise_max", "elementwise_max",
+     {"X": {"x": _f(3, 4)}, "Y": {"y": _f(3, 4)}}, {"Out": ["o"]},
+     {"axis": -1}, "o", ["x", "y"], (3, 4)),
+    ("mul", "mul", {"X": {"x": _f(2, 3, 4)}, "Y": {"y": _f(4, 5)}},
+     {"Out": ["o"]}, {"x_num_col_dims": 2, "y_num_col_dims": 1}, "o",
+     ["x", "y"], (2, 3, 5)),
+    ("gelu", "gelu", {"X": {"x": _f(4, 5) * 2}}, {"Out": ["o"]}, {}, "o",
+     ["x"], (4, 5)),
+    ("scale", "scale", {"X": {"x": _f(3, 4)}}, {"Out": ["o"]},
+     {"scale": 3.0, "bias": 1.0, "bias_after_scale": True}, "o", ["x"],
+     (3, 4)),
+    ("sqrt", "sqrt", {"X": {"x": np.abs(_f(3, 4)) + 0.5}}, {"Out": ["o"]},
+     {}, "o", ["x"], (3, 4)),
+    ("layer_norm", "layer_norm",
+     {"X": {"x": _f(2, 3, 8) * 2 + 1}, "Scale": {"s": _f(8)},
+      "Bias": {"b": _f(8)}},
+     {"Y": ["o"], "Mean": ["m"], "Variance": ["v"]},
+     {"epsilon": 1e-5, "begin_norm_axis": 2}, "o", ["x", "s", "b"],
+     (2, 3, 8)),
+    ("softmax_with_cross_entropy", "softmax_with_cross_entropy",
+     {"Logits": {"lg": _f(2, 3, 7) * 2},
+      "Label": {"lab": _ids(2, 3, 1, high=7)}},
+     {"Softmax": ["sm"], "Loss": ["o"]},
+     {"soft_label": False, "ignore_index": -100, "axis": -1}, "o", ["lg"],
+     (2, 3, 1)),
+    ("squeeze2", "squeeze2", {"X": {"x": _f(2, 1, 3)}},
+     {"Out": ["o"], "XShape": ["xs"]}, {"axes": [1]}, "o", ["x"], (2, 3)),
+    ("unsqueeze2", "unsqueeze2", {"X": {"x": _f(2, 3)}},
+     {"Out": ["o"], "XShape": ["xs"]}, {"axes": [2]}, "o", ["x"],
+     (2, 3, 1)),
+    ("reduce_sum", "reduce_sum", {"X": {"x": _f(2, 3, 4)}}, {"Out": ["o"]},
+     {"dim": [1], "keep_dim": False, "reduce_all": False}, "o", ["x"],
+     (2, 4)),
+    ("where", "where",
+     {"Condition": {"c": R.rand(3, 4) > 0.5}, "X": {"x": _f(3, 4)},
+      "Y": {"y": _f(3, 4)}}, {"Out": ["o"]}, {}, "o", ["x", "y"], (3, 4)),
+    ("sum", "sum", {"X": {"a": _f(2, 3), "b": _f(2, 3)}}, {"Out": ["o"]},
+     {}, "o", ["a", "b"], (2, 3)),
+    ("lookup_table_v2", "lookup_table_v2",
+     {"W": {"w": _f(10, 4)}, "Ids": {"ids": _ids(2, 5, high=10)}},
+     {"Out": ["o"]}, {"padding_idx": -1}, "o", ["w"], (2, 5, 4)),
+    ("gather_nd", "gather_nd",
+     {"X": {"x": _f(3, 5, 4)},
+      "Index": {"idx": np.array([[[0, 1], [2, 4]], [[0, 1], [1, 3]]],
+                                "int64")}},
+     {"Out": ["o"]}, {}, "o", ["x"], (2, 2, 4)),
+    ("expand", "expand", {"X": {"x": _f(3, 1)}}, {"Out": ["o"]},
+     {"expand_times": [2, 4]}, "o", ["x"], (6, 4)),
+    ("stack", "stack", {"X": {"a": _f(2, 3), "b": _f(2, 3)}},
+     {"Y": ["o"]}, {"axis": 1}, "o", ["a", "b"], (2, 2, 3)),
+    ("dropout_p0", "dropout", {"X": {"x": _f(3, 4)}}, {"Out": ["o"]},
+     {"dropout_prob": 0.0, "is_test": False,
+      "dropout_implementation": "upscale_in_train"}, "o", ["x"], (3, 4)),
+    ("flash_attention_qkv", "flash_attention_qkv",
+     {"QKV": {"qkv": _f(2, 16, 3 * 128)},
+      "Bias": {"bias": np.where(R.rand(2, 16) > 0.3, 0.0, -1e4)
+               .astype("float32")}},
+     {"Out": ["o"]}, {"num_heads": 2, "causal": False}, "o",
+     ["qkv", "bias"], (2, 16, 128)),
+    ("flash_attention_qkv_causal_d128", "flash_attention_qkv",
+     {"QKV": {"qkv": _f(2, 16, 3 * 256)}},
+     {"Out": ["o"]}, {"num_heads": 2, "causal": True}, "o", ["qkv"],
+     (2, 16, 256)),
+]
+
+
+@pytest.mark.parametrize("case", GRAD_CASES, ids=[c[0] for c in GRAD_CASES])
+def test_auto_grad_matches_jax_vjp(case):
+    _id, op_type, inputs, outputs, attrs, out_name, wrt, shape = case
+    cot = R.randn(*shape).astype("float32")
+    want = _run_grad(jpt, op_type, inputs, outputs, attrs, out_name, wrt,
+                     cot)
+    got = _run_grad(tpt, op_type, inputs, outputs, attrs, out_name, wrt, cot)
+    for w, g in zip(want, got):
+        w = np.asarray(w)
+        assert g.shape == w.shape and g.dtype == w.dtype, (g.shape, w.shape)
+        np.testing.assert_allclose(g, w, atol=1e-5, rtol=1e-5)
+
+
+def test_grad_accumulates_across_consumers():
+    """x feeds two ops (x * y, then + x): the two grad ops sum into one
+    x@GRAD, as in the JAX package."""
+    x, y = _f(3, 4), _f(3, 4)
+    got = []
+    for pkg in (jpt, tpt):
+        if pkg is jpt:
+            from paddle_tpu.framework.backward import append_backward
+        else:
+            from paddle_tpu_torch.framework.backward import append_backward
+        main = pkg.Program()
+        block = main.global_block()
+        for n in ("x", "y"):
+            block.create_var(name=n, shape=[3, 4], dtype="float32",
+                             is_data=True, stop_gradient=False)
+        with pkg.program_guard(main, pkg.Program()):
+            block.append_op("elementwise_mul", inputs={"X": ["x"],
+                                                       "Y": ["y"]},
+                            outputs={"Out": ["a"]}, attrs={"axis": -1})
+            block.append_op("elementwise_add", inputs={"X": ["a"],
+                                                       "Y": ["x"]},
+                            outputs={"Out": ["b"]}, attrs={"axis": -1})
+            block.append_op("reduce_sum", inputs={"X": ["b"]},
+                            outputs={"Out": ["loss"]},
+                            attrs={"dim": [0], "reduce_all": True,
+                                   "keep_dim": False})
+            pg = append_backward(block.var("loss"))
+        assert pg == []  # no parameters in this program
+        got.append(pkg.Executor(pkg.CPUPlace()).run(
+            main, feed={"x": x, "y": y}, fetch_list=["x@GRAD", "y@GRAD"],
+            scope=pkg.Scope()))
+    np.testing.assert_allclose(got[1][0], y + 1.0, rtol=1e-6)
+    for w, g in zip(*got):
+        np.testing.assert_allclose(g, np.asarray(w), atol=1e-6, rtol=1e-6)
