@@ -9,7 +9,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    versions; TF32 off for matmuls and cuDNN.
 2. build: every CUDA source under paddle_tpu_torch/csrc/ with nvcc for
    sm_90a (one nvcc per source, started together), timed, then loaded.
-3. kernels: each kernel against its plain PyTorch version on the card,
+3. packed kernels: each against its plain PyTorch version on the card,
    at BERT-base's serving shape (B=4, S=128, H=768, 12 heads), at the
    flagship training shape (B=8, S=512, H=768, 12 heads: 8 kv and 8 q
    tiles), at H=256/2 heads (head_dim 128) and at a ragged S=100; with
@@ -60,13 +60,47 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    loss at every step, peak device memory, exactly 24 / 12 / 12 kernel
    launches per step and no call of a plain version; then a
    torch.profiler view of one more step (not counted).
+7. unpacked kernels (the flash_attention op's forward, dK/dV and dQ),
+   each against its plain version on the card: at Llama-2-7B's attention
+   shape (B 1, 32 heads, S 2048, D 128, causal), at D 64, a ragged S 100,
+   Sq != Sk both ways (128 / 384), with and without a bias holding one
+   all-padding row, on contiguous tensors and on the [B, H, S, D] views of
+   [B, S, H, D] buffers that transpose2 and rope leave; fp32 and bf16.
+   Tolerances as in phase 3 and for the same reasons: fp32 out 2e-5, lse
+   1e-5, grads 1e-4; bf16 out 2e-2, grads 5e-2 (output rounding); dbias
+   1e-4; the all-padding row half / one fp32 ulp at 1e4 (out / lse) and
+   2**-6 (grads).  Then times with CUDA events at the Llama shape (bf16,
+   causal): the three kernels, their plain versions, and
+   scaled_dot_product_attention(is_causal=True) forward and its backward
+   through torch.autograd.grad as the yardstick; the timed results are
+   held to the same tolerances.
+8. Llama training parity at full width: Llama-2-7B's widths (vocab 32000,
+   hidden 4096, 32 heads, intermediate 11008) at 1 layer, seq 128, batch
+   2, fp32 with TF32 off, AdamW(1e-3, weight_decay 0.01); 3 Executor.run
+   steps on the card and 3 on the port's CPU path from one startup scope,
+   copied.  Loss rel diff <= 1e-4 at every step, step-1 gradients within
+   1e-3 of their largest value, parameters after step 3 within 2 * (sum
+   of the LRs) everywhere and 1e-5 on 99.9% of all elements (as phase
+   5).  Each card step launches the unpacked forward kernel twice (the
+   forward and its recomputation in flash_attention_grad), dK/dV and dQ
+   once, and no packed kernel.
+9. Llama flagship training: build_llama_train at Llama-2-7B's widths, 4
+   layers (all 32 would need ~108 GB of fp32 weights, grads and AdamW
+   moments), batch 1, seq 2048, bf16 AMP, AdamW(1e-4, weight_decay 0.01)
+   as __graft_entry__.py builds it, random token ids from a numpy seed;
+   6 steps.  Each step's host time (ending in the loss fetch) and
+   tokens/s, a finite loss at every step, peak device memory, exactly
+   8 / 4 / 4 launches of the unpacked kernels per step, none of the packed
+   ones, no call of a plain version; then a profiled step.
 
-The "launches" of each kernel in the kernels line is its count in the
-run of phase 6, this slice's main path; "launches_by_path" has beside it
-the count of each path, each read from 0: serving (phase 4), training
-parity (phase 5, card steps) and flagship training (phase 6).  The last lines are the
-card's name and power limit, one {"kernels": ...} JSON line, and
-{"ok": true, "device": {...}}.
+The "launches" of each kernel in the kernels line is its count on its
+slice's main path: phase 6 (BERT training) for the packed kernels,
+phase 9 (Llama training) for the unpacked ones.  "launches_by_path" has
+beside it the count of every path, each read from 0: serving (phase 4),
+training_parity (phase 5, card steps), training_flagship (phase 6),
+llama_parity (phase 8, card steps) and llama_flagship (phase 9).  The
+last lines are the card's name and power limit, one {"kernels": ...}
+JSON line, and {"ok": true, "device": {...}}.
 """
 import json
 import math
@@ -114,6 +148,17 @@ FLAGSHIP = dict(BERT_BASE, batch_size=8, seq_len=512,
 FLAGSHIP_LR = dict(learning_rate=1e-4, warmup_steps=10000, start_lr=0.0,
                    end_lr=1e-4)
 FLAGSHIP_STEPS = 6
+
+# Llama-2-7B's widths (BASELINE.json's "Llama-2-7B", models/llama.py's
+# defaults): head_dim 128, multi-head (num_kv_heads = num_heads)
+LLAMA = dict(vocab_size=32000, hidden=4096, num_heads=32,
+             intermediate=11008)
+LLAMA_PARITY = dict(LLAMA, num_layers=1, batch_size=2, seq_len=128)
+LLAMA_PARITY_LR = 1e-3
+LLAMA_FLAGSHIP = dict(LLAMA, num_layers=4, batch_size=1, seq_len=2048)
+LLAMA_FLAGSHIP_LR = 1e-4
+# the unpacked kernels' grads in fp32 and bf16 (as the packed ones')
+FP32_GRAD_ATOL, BF16_GRAD_ATOL = 1e-4, 5e-2
 
 
 def log(msg):
@@ -409,6 +454,200 @@ def time_forward_flagship(fa, device):
                              "version at the flagship shape")
 
 
+def unpacked_cases():
+    """(name, B, H, Sq, Sk, D, causal, bias kind, views, dtype): the Llama
+    attention shape, D 64, ragged S 100, Sq != Sk both ways, bias or not,
+    views of [B, S, H, D] buffers or contiguous tensors."""
+    shapes = [(1, 32, 2048, 2048, 128, True, "none", True),
+              (2, 4, 128, 128, 64, True, "none", True),
+              (2, 4, 128, 128, 64, False, "pad_dead_row", False),
+              (2, 2, 100, 100, 128, True, "pad_dead_row", True),
+              (3, 2, 100, 100, 64, False, "none", False),
+              (2, 2, 128, 384, 64, True, "pad_dead_row", True),
+              (2, 2, 384, 128, 128, False, "none", True),
+              (2, 2, 128, 384, 128, False, "pad_dead_row", False)]
+    return [(f"{dtype}_B{B}_H{H}_Sq{Sq}_Sk{Sk}_D{D}_"
+             f"{'causal' if causal else 'full'}_{bias}_"
+             f"{'views' if views else 'contiguous'}",
+             B, H, Sq, Sk, D, causal, bias, views, dtype)
+            for dtype in ("float32", "bfloat16")
+            for B, H, Sq, Sk, D, causal, bias, views in shapes]
+
+
+def unpacked_inputs(B, H, Sq, Sk, D, bias_kind, views, seed, device, dtype):
+    """q, k, v and a cotangent dout, as [B, H, S, D] views of [B, S, H, D]
+    buffers (what transpose2 and rope leave) or contiguous; a bias whose
+    last batch row is all padding."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+
+    def heads(S):
+        x = torch.from_numpy(rng.randn(B, S, H, D).astype("float32"))
+        x = x.to(device=device, dtype=getattr(torch, dtype)).transpose(1, 2)
+        return x if views else x.contiguous()
+
+    q, k, v, dout = heads(Sq), heads(Sk), heads(Sk), heads(Sq)
+    bias = None
+    if bias_kind != "none":
+        mask = (rng.rand(B, Sk) > 0.2).astype("float32")
+        mask[:, 0] = 1.0
+        mask[-1] = 0.0  # the last batch row is all padding
+        bias = torch.from_numpy(mask * 1e4 - 1e4).to(device)
+    return q, k, v, bias, dout
+
+
+def unpacked_errors(fa, q, k, v, bias, dout, causal, out, lse, grads):
+    """Max abs errors of (out, lse, dq, dk, dv, dbias) against the plain
+    versions on the same (rounded) inputs in float32, over the live batch
+    rows and over the all-padding row (None without a bias)."""
+    f = [t.float() for t in (q, k, v)]
+    ref_out, ref_lse = fa.flash_attention_reference(*f, bias, causal)
+    ref = fa.flash_attention_backward_reference(
+        *f, bias, out.float(), lse, dout.float(), causal)
+    import torch
+
+    pairs = [(out, ref_out), (lse, ref_lse)] + list(zip(grads, ref))
+    B = q.shape[0]
+    live = slice(0, B - 1) if bias is not None else slice(0, B)
+    errs_live, errs_dead = [], []
+    for got, want in pairs:
+        if got is None:
+            errs_live.append(0.0)
+            errs_dead.append(0.0)
+            continue
+        e = (got.float() - want.float()).abs()
+        if not bool(torch.isfinite(got.float()).all()):
+            raise AssertionError("a kernel output is not finite")
+        errs_live.append(e[live].max().item())
+        errs_dead.append(e[B - 1].max().item() if bias is not None else 0.0)
+    return errs_live, (errs_dead if bias is not None else None)
+
+
+def unpacked_limits(dtype):
+    """(out, lse, dq, dk, dv, dbias) tolerances on live rows and on the
+    all-padding row, as the docstring states them."""
+    fp32 = dtype == "float32"
+    out = FP32_OUT_ATOL if fp32 else BF16_OUT_ATOL
+    grad = FP32_GRAD_ATOL if fp32 else BF16_GRAD_ATOL
+    live = [out, FP32_LSE_ATOL, grad, grad, grad, DBIAS_ATOL]
+    dead = [DEAD_OUT_ATOL if fp32 else BF16_OUT_ATOL, DEAD_LSE_ATOL] + [
+        max(grad, DEAD_GRAD_ATOL)] * 3 + [max(DBIAS_ATOL, DEAD_GRAD_ATOL)]
+    return live, dead
+
+
+def check_unpacked(fa, device):
+    import torch
+
+    names = ("out", "lse", "dq", "dk", "dv", "dbias")
+    for i, (name, B, H, Sq, Sk, D, causal, bias_kind, views, dtype) in \
+            enumerate(unpacked_cases()):
+        q, k, v, bias, dout = unpacked_inputs(B, H, Sq, Sk, D, bias_kind,
+                                              views, 900 + i, device, dtype)
+        out, lse = fa.flash_attention_unpacked(q, k, v, bias, causal)
+        grads = fa.flash_attention_unpacked_backward(q, k, v, bias, out, lse,
+                                                     dout, causal)
+        torch.cuda.synchronize()
+        live, dead = unpacked_errors(fa, q, k, v, bias, dout, causal, out,
+                                     lse, grads)
+        lim_live, lim_dead = unpacked_limits(dtype)
+        ok = all(e <= t for e, t in zip(live, lim_live))
+        msg = "  " + name + ": " + ", ".join(
+            f"{n} {e:.3e}" for n, e in zip(names, live))
+        if dead is not None:
+            ok = ok and all(e <= t for e, t in zip(dead, lim_dead))
+            msg += "; all-padding row " + ", ".join(
+                f"{n} {e:.3e}" for n, e in zip(names, dead))
+        log(msg)
+        if not ok:
+            raise AssertionError(f"unpacked kernels disagree with their "
+                                 f"plain versions: {name} (limits "
+                                 f"{lim_live}, all-padding row {lim_dead})")
+        del q, k, v, dout, out, lse, grads
+    torch.cuda.empty_cache()
+
+
+def time_unpacked(fa, device):
+    """Times of the three unpacked kernels at the Llama flagship's
+    attention shape (B 1, 32 heads, S 2048, D 128, causal, bf16, views of
+    [B, S, H, D] buffers as rope leaves them), beside their plain
+    versions and scaled_dot_product_attention(is_causal=True) forward and
+    backward (torch.autograd.grad over one forward, grads of q, k, v).
+    The timed results are held to the phase's tolerances.  The work is
+    what the causal mask leaves: S (S + 1) / 2 live (q, k) pairs."""
+    import torch
+    import torch.nn.functional as F
+
+    B, H, S, D = (LLAMA_FLAGSHIP["batch_size"], LLAMA["num_heads"],
+                  LLAMA_FLAGSHIP["seq_len"],
+                  LLAMA["hidden"] // LLAMA["num_heads"])
+    dtype = "bfloat16"
+    q, k, v, _, dout = unpacked_inputs(B, H, S, S, D, "none", True, 17,
+                                       device, dtype)
+    scale = 1.0 / math.sqrt(D)
+    fwd_ms = cuda_ms(lambda: fa.flash_attention_unpacked(q, k, v, None, True),
+                     iters=10, warmup=2)
+    fwd_plain_ms = cuda_ms(
+        lambda: fa.flash_attention_reference(q, k, v, None, True), iters=3,
+        warmup=1)
+    fwd_lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), iters=10, warmup=2)
+
+    out, lse = fa.flash_attention_unpacked(q, k, v, None, True)
+    fa.check_unpacked_backward_inputs(q, k, v, None, out, lse, dout)
+    delta = (dout.float() * out.float()).sum(-1).contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dkv_ms = cuda_ms(lambda: fa.flash_attention_unpacked_dkv(
+        q, k, v, None, dout, lse, delta, dk, dv, None, True, scale),
+        iters=10, warmup=2)
+    dq_ms = cuda_ms(lambda: fa.flash_attention_unpacked_dq(
+        q, k, v, None, dout, lse, delta, dq, True, scale), iters=10,
+        warmup=2)
+    bwd_plain_ms = cuda_ms(lambda: fa.flash_attention_backward_reference(
+        q, k, v, None, out, lse, dout, True), iters=3, warmup=1)
+    ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    bwd_lib_ms = cuda_ms(lambda: torch.autograd.grad(
+        lib_out, (ql, kl, vl), dout, retain_graph=True), iters=10, warmup=2)
+    del lib_out, ql, kl, vl
+
+    live, _ = unpacked_errors(fa, q, k, v, None, dout, True, out, lse,
+                              (dq, dk, dv, None))
+    lim, _ = unpacked_limits(dtype)
+    if not all(e <= t for e, t in zip(live, lim)):
+        raise AssertionError(f"unpacked kernels disagree with their plain "
+                             f"versions in the timed calls: {live}")
+    elem = q.element_size()
+    tile = B * H * S * D * elem                  # one [B, H, S, D] tensor
+    rows = B * H * S * 4                         # one [B, H, S] f32 row set
+    pairs = B * H * D * S * (S + 1) / 2.0        # live multiply-adds / 2
+    rows_out = {}
+    for name, flops, nbytes, ms, plain_ms, lib_ms, err in (
+            ("fwd", 4 * pairs, 4 * tile + rows, fwd_ms, fwd_plain_ms,
+             fwd_lib_ms, max(live[:2])),
+            ("dkv", 8 * pairs, 6 * tile + 2 * rows, dkv_ms, bwd_plain_ms,
+             bwd_lib_ms, max(live[3:5])),
+            ("dq", 6 * pairs, 5 * tile + 2 * rows, dq_ms, bwd_plain_ms,
+             bwd_lib_ms, live[2])):
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOP_PER_S[dtype] * 1e3
+        rows_out[name] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            max_abs_err=err)
+        log(f"  {name} at B={B} H={H} S={S} D={D} causal {dtype}: kernel "
+            f"{ms:.5f} ms, plain {plain_ms:.5f} ms, sdpa {lib_ms:.5f} ms, "
+            f"bound {max(t_bytes, t_ops):.5f} ms "
+            f"({rows_out[name]['bound_by']}: {flops:.4g} flop, {nbytes} "
+            f"bytes), max|err| {err:.3e}")
+    log("  (plain and sdpa backward times each cover dq, dk and dv in one "
+        "call)")
+    del q, k, v, dout, out, lse, delta, dq, dk, dv
+    torch.cuda.empty_cache()
+    return rows_out
+
+
 def bert_feed(batch, seed):
     rng = np.random.RandomState(seed)
     S, V = BERT["seq_len"], BERT["vocab_size"]
@@ -424,21 +663,32 @@ def bert_feed(batch, seed):
     }
 
 
+def kernel_wrappers(fa):
+    """The six kernels' wrappers, in the kernels line's order: packed
+    forward, dK/dV, dQ; unpacked forward, dK/dV, dQ."""
+    return (fa.flash_attention_packed, fa.flash_attention_packed_dkv,
+            fa.flash_attention_packed_dq, fa.flash_attention_unpacked,
+            fa.flash_attention_unpacked_dkv, fa.flash_attention_unpacked_dq)
+
+
+def plain_versions(fa):
+    return (fa.flash_attention_packed_reference,
+            fa.flash_attention_packed_backward_reference,
+            fa.flash_attention_reference,
+            fa.flash_attention_backward_reference)
+
+
 def reset_counts(fa):
-    fa.flash_attention_packed.launches = 0
-    fa.flash_attention_packed_dkv.launches = 0
-    fa.flash_attention_packed_dq.launches = 0
-    fa.flash_attention_packed_reference.calls = 0
-    fa.flash_attention_packed_backward_reference.calls = 0
+    for w in kernel_wrappers(fa):
+        w.launches = 0
+    for p in plain_versions(fa):
+        p.calls = 0
 
 
 def read_counts(fa):
-    """(forward launches, (dK/dV, dQ) launches, plain-version calls)"""
-    return (fa.flash_attention_packed.launches,
-            (fa.flash_attention_packed_dkv.launches,
-             fa.flash_attention_packed_dq.launches),
-            fa.flash_attention_packed_reference.calls
-            + fa.flash_attention_packed_backward_reference.calls)
+    """(launches of the six kernels, plain-version calls)"""
+    return (tuple(w.launches for w in kernel_wrappers(fa)),
+            sum(p.calls for p in plain_versions(fa)))
 
 
 def serve(tpt, fa, workdir):
@@ -491,14 +741,15 @@ def serve(tpt, fa, workdir):
                 not (np.isfinite(out[0]).all() and np.isfinite(out[1]).all()):
             raise AssertionError(f"batch {b}: bad output {out[0].shape}")
         results[(b, s)] = out
-    launches, bwd_launches, plain_calls = read_counts(fa)
+    counts, plain_calls = read_counts(fa)
+    launches = counts[0]
     if plain_calls:
         raise AssertionError(f"a plain version ran {plain_calls} times on "
                              f"the serving path")
-    if launches != n_attn * len(requests) or any(bwd_launches):
-        raise AssertionError(f"{launches} forward and {bwd_launches} "
-                             f"backward launches for {len(requests)} "
-                             f"requests")
+    if counts != (n_attn * len(requests), 0, 0, 0, 0, 0):
+        raise AssertionError(f"launches {counts} for {len(requests)} "
+                             f"requests, want {n_attn * len(requests)} of "
+                             f"the packed forward only")
     for b, ms in lat.items():
         log(f"  batch {b} x seq {BERT['seq_len']}: request latency on the "
             f"card {', '.join(f'{x:.3f}' for x in ms)} ms (first includes "
@@ -519,7 +770,7 @@ def serve(tpt, fa, workdir):
     if not (logit_diff <= LOGITS_ATOL and loss_rel <= LOSS_RTOL):
         raise AssertionError("card and CPU disagree")
     profile_request(pred, bert_feed(4, seed=41))
-    return launches
+    return counts
 
 
 def profile_request(pred, feed):
@@ -612,20 +863,54 @@ def train_batch(cfg, seed, padding):
     }
 
 
+def build_llama(tpt, cfg, lr, amp):
+    """The Llama training step: build_llama_train, AdamW(lr,
+    weight_decay=0.01) as __graft_entry__.py builds it, optionally bf16
+    AMP with the default lists (mul and flash_attention in bf16);
+    minimize."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.contrib import mixed_precision
+    from paddle_tpu_torch.models import build_llama_train
+
+    tpt.reset_unique_name()
+    main, startup = tpt.Program(), tpt.Program()
+    startup._is_startup = True
+    with tpt.program_guard(main, startup):
+        feeds, outs = build_llama_train(**cfg)
+        opt = optimizer.AdamW(learning_rate=lr, weight_decay=0.01)
+        if amp:
+            opt = mixed_precision.decorate(opt, dtype="bfloat16")
+        opt.minimize(outs["loss"])
+    return main, startup, outs["loss"].name
+
+
+def llama_batch(cfg, seed):
+    """Random token ids and next-token labels from a numpy seed."""
+    rng = np.random.RandomState(seed)
+    B, S, V = cfg["batch_size"], cfg["seq_len"], cfg["vocab_size"]
+    return {"input_ids": rng.randint(0, V, (B, S)).astype("int64"),
+            "labels": rng.randint(0, V, (B, S)).astype("int64")}
+
+
 def per_step_launches(main):
-    n_attn = sum(op.type == "flash_attention_qkv"
-                 for op in main.global_block().ops)
-    # the forward, and its recomputation inside each auto-derived grad op
-    return 2 * n_attn, (n_attn, n_attn)
+    """Launches of the six kernels one training step makes: each attention
+    op's forward, and its recomputation inside the auto-derived grad op,
+    then dK/dV and dQ once."""
+    ops = main.global_block().ops
+    packed = sum(op.type == "flash_attention_qkv" for op in ops)
+    unpacked = sum(op.type == "flash_attention" for op in ops)
+    return (2 * packed, packed, packed, 2 * unpacked, unpacked, unpacked)
 
 
-def train_parity(tpt, fa):
+def train_parity(tpt, fa, what, main, startup, loss, batches, grads, lrs):
+    """Steps on the card against the port's CPU path from one startup
+    scope, copied (fp32, TF32 off): the loss at every step, the step-1
+    `grads`, the parameters after the last step (bounded by 2 * the sum
+    of the per-step `lrs`), and each card step's kernel launches.
+    Returns the card steps' launches of the six kernels."""
     import torch
 
-    t0 = time.perf_counter()
-    main, startup, loss = build_train(tpt, PARITY, PARITY_LR, amp=False,
-                                      dropout=0.0)
-    fwd_want, bwd_want = per_step_launches(main)
+    want = per_step_launches(main)
     card = tpt.Executor()
     scope = tpt.Scope()
     card.run(startup, scope=scope)
@@ -634,107 +919,159 @@ def train_parity(tpt, fa):
         cpu_scope.set_var(n, scope.find_var(n).cpu())
     cpu = tpt.Executor(tpt.CPUPlace())
     params = [p.name for p in main.all_parameters()]
-    grads = ["fc_0.w_0@GRAD", "fc_0.tmp_1@GRAD", "layer_norm_0.w_0@GRAD",
-             "embedding_0.w_0@GRAD", f"{params[-2]}@GRAD"]
-    log(f"  built BERT-base training ({len(main.global_block().ops)} ops, "
-        f"{len(params)} parameters) and initialised it on the card "
-        f"({time.perf_counter() - t0:.2f} s)")
-    launches = [0, 0, 0]
-    for step in range(3):
-        feed = train_batch(PARITY, seed=500 + step, padding=True)
+    n_params = sum(scope.find_var(n).numel() for n in params)
+    log(f"  built {what} training ({len(main.global_block().ops)} ops, "
+        f"{len(params)} parameters, {n_params} elements) and initialised "
+        f"it on the card")
+    launches = [0] * 6
+    for step, feed in enumerate(batches):
         fetch = [loss] + (grads if step == 0 else [])
         reset_counts(fa)
         t = time.perf_counter()
         got = card.run(main, feed=feed, fetch_list=fetch, scope=scope)
         card_s = time.perf_counter() - t
-        fwd, bwd, plain = read_counts(fa)
-        if (fwd, bwd, plain) != (fwd_want, bwd_want, 0):
-            raise AssertionError(f"parity step {step}: launches {fwd}, "
-                                 f"{bwd} and {plain} plain calls, want "
-                                 f"{fwd_want}, {bwd_want}, 0")
-        launches = [launches[0] + fwd, launches[1] + bwd[0],
-                    launches[2] + bwd[1]]
+        counts, plain = read_counts(fa)
+        if (counts, plain) != (want, 0):
+            raise AssertionError(f"{what} parity step {step + 1}: launches "
+                                 f"{counts} and {plain} plain calls, want "
+                                 f"{want}, 0")
+        launches = [a + b for a, b in zip(launches, counts)]
         t = time.perf_counter()
-        want = cpu.run(main, feed=feed, fetch_list=fetch, scope=cpu_scope)
+        want_out = cpu.run(main, feed=feed, fetch_list=fetch,
+                           scope=cpu_scope)
         cpu_s = time.perf_counter() - t
-        rel = float(abs(got[0][0] - want[0][0]) / abs(want[0][0]))
-        log(f"  step {step + 1}: loss card {got[0][0]:.7f} cpu "
-            f"{want[0][0]:.7f} rel diff {rel:.3e} (limit {LOSS_RTOL:g}); "
-            f"card {card_s:.3f} s, cpu {cpu_s:.2f} s")
+        # BERT's loss is [1], Llama's a 0-d mean
+        lg, lw = float(np.ravel(got[0])[0]), float(np.ravel(want_out[0])[0])
+        rel = abs(lg - lw) / abs(lw)
+        log(f"  step {step + 1}: loss card {lg:.7f} cpu {lw:.7f} rel diff "
+            f"{rel:.3e} (limit "
+            f"{LOSS_RTOL:g}); card {card_s:.3f} s, cpu {cpu_s:.2f} s")
         if not (np.isfinite(got[0]).all() and rel <= LOSS_RTOL):
-            raise AssertionError(f"parity step {step}: loss disagrees")
-        for name, g, w in zip(fetch[1:], got[1:], want[1:]):
+            raise AssertionError(f"{what} parity step {step + 1}: loss "
+                                 f"disagrees")
+        for name, g, w in zip(fetch[1:], got[1:], want_out[1:]):
             diff = float(np.abs(g - w).max())
             top = float(np.abs(w).max())
             log(f"    {name}: max|diff| {diff:.3e}, max|grad| {top:.3e} "
                 f"(limit {PARITY_GRAD_RTOL:g} of it)")
             if not (top > 0 and diff <= PARITY_GRAD_RTOL * top):
-                raise AssertionError(f"parity: {name} disagrees")
-    bound = 2 * sum(PARITY_LRS)
-    diffs = []
+                raise AssertionError(f"{what} parity: {name} disagrees")
+    bound = 2 * sum(lrs)
+    worst, close, total = 0.0, 0, 0
     for n in params:
         d = (scope.find_var(n).cpu() - cpu_scope.find_var(n)).abs()
-        diffs.append(d.flatten())
-    diffs = torch.cat(diffs)
-    close = float((diffs <= PARITY_PARAM_ATOL).float().mean())
-    log(f"  parameters after step 3: max|diff| {diffs.max().item():.3e} "
-        f"(limit {bound:g}), {100 * close:.4f}% within "
+        worst = max(worst, d.max().item())
+        close += int((d <= PARITY_PARAM_ATOL).sum())
+        total += d.numel()
+    log(f"  parameters after step {len(batches)}: max|diff| {worst:.3e} "
+        f"(limit {bound:g}), {100 * close / total:.4f}% within "
         f"{PARITY_PARAM_ATOL:g} (limit 99.9%)")
-    if not (diffs.max().item() <= bound and close >= 0.999):
-        raise AssertionError("parity: parameters disagree after 3 steps")
+    if not (worst <= bound and close >= 0.999 * total):
+        raise AssertionError(f"{what} parity: parameters disagree after "
+                             f"{len(batches)} steps")
     del scope, cpu_scope
     torch.cuda.empty_cache()
-    return launches[0], (launches[1], launches[2])
+    return tuple(launches)
 
 
-def train_flagship(tpt, fa):
+def train_flagship(tpt, fa, what, main, startup, loss, batches, steps,
+                   tokens):
+    """`steps` steps on the card (cycling over `batches`): each step's
+    host time, ending in the loss fetch, and tokens/s; a finite loss;
+    exactly the expected kernel launches every step and no plain call;
+    peak device memory; then one profiled step.  Returns the launches of
+    the six kernels over the counted steps."""
     import torch
 
     t0 = time.perf_counter()
-    main, startup, loss = build_train(tpt, FLAGSHIP, FLAGSHIP_LR, amp=True,
-                                      dropout=0.1)
-    fwd_want, bwd_want = per_step_launches(main)
+    want = per_step_launches(main)
     exe = tpt.Executor()
     scope = tpt.Scope()
     exe.run(startup, scope=scope)
-    batches = [train_batch(FLAGSHIP, seed=600 + i, padding=False)
-               for i in range(4)]
     torch.cuda.synchronize()
-    log(f"  built and initialised bench.py's seq-512 step "
-        f"({len(main.global_block().ops)} ops; "
-        f"{time.perf_counter() - t0:.2f} s)")
+    n_params = sum(p.numel() for p in
+                   (scope.find_var(v.name) for v in main.all_parameters()))
+    log(f"  built and initialised {what} ({len(main.global_block().ops)} "
+        f"ops, {n_params} parameters; {time.perf_counter() - t0:.2f} s)")
     torch.cuda.reset_peak_memory_stats()
     reset_counts(fa)
     losses, times = [], []
-    for step in range(FLAGSHIP_STEPS):
+    for step in range(steps):
         before = read_counts(fa)
         t = time.perf_counter()
-        out = exe.run(main, feed=batches[step % 4], fetch_list=[loss],
-                      scope=scope)
+        out = exe.run(main, feed=batches[step % len(batches)],
+                      fetch_list=[loss], scope=scope)
         times.append((time.perf_counter() - t) * 1e3)
         after = read_counts(fa)
-        losses.append(float(out[0][0]))
-        got = (after[0] - before[0],
-               tuple(a - b for a, b in zip(after[1], before[1])),
-               after[2] - before[2])
-        if got != (fwd_want, bwd_want, 0):
-            raise AssertionError(f"flagship step {step + 1}: launches "
-                                 f"{got}, want {fwd_want}, {bwd_want}, 0")
+        losses.append(float(np.ravel(out[0])[0]))
+        got = (tuple(a - b for a, b in zip(after[0], before[0])),
+               after[1] - before[1])
+        if got != (want, 0):
+            raise AssertionError(f"{what} step {step + 1}: launches {got}, "
+                                 f"want {want}, 0")
         if not np.isfinite(out[0]).all():
-            raise AssertionError(f"flagship step {step + 1}: loss {out[0]}")
-    fwd, bwd, plain = read_counts(fa)
+            raise AssertionError(f"{what} step {step + 1}: loss {out[0]}")
+    counts, plain = read_counts(fa)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"  {FLAGSHIP_STEPS} steps at batch {FLAGSHIP['batch_size']} x seq "
-        f"{FLAGSHIP['seq_len']}, bf16 AMP, dropout 0.1: losses "
-        f"{', '.join(f'{x:.5f}' for x in losses)}")
+    log(f"  {steps} steps: losses {', '.join(f'{x:.5f}' for x in losses)}")
     log(f"  step time on the card (host clock, ends in the loss fetch): "
         f"{', '.join(f'{x:.1f}' for x in times)} ms (first includes "
-        f"one-time set-up); peak device memory {peak:.2f} GiB")
-    log(f"  launches: {fwd} forward, {bwd[0]} dK/dV, {bwd[1]} dQ "
-        f"({fwd_want} / {bwd_want[0]} / {bwd_want[1]} per step); plain "
+        f"one-time set-up); tokens/s "
+        f"{', '.join(f'{tokens * 1e3 / x:.0f}' for x in times)}; peak "
+        f"device memory {peak:.2f} GiB")
+    log(f"  launches of the six kernels {counts} ({want} per step); plain "
         f"versions called {plain} times")
     profile_step(exe, main, scope, batches[0], loss)
-    return fwd, bwd
+    del scope
+    torch.cuda.empty_cache()
+    return counts
+
+
+def bert_parity(tpt, fa):
+    main, startup, loss = build_train(tpt, PARITY, PARITY_LR, amp=False,
+                                      dropout=0.0)
+    params = [p.name for p in main.all_parameters()]
+    grads = ["fc_0.w_0@GRAD", "fc_0.tmp_1@GRAD", "layer_norm_0.w_0@GRAD",
+             "embedding_0.w_0@GRAD", f"{params[-2]}@GRAD"]
+    batches = [train_batch(PARITY, seed=500 + step, padding=True)
+               for step in range(3)]
+    return train_parity(tpt, fa, "BERT-base", main, startup, loss, batches,
+                        grads, PARITY_LRS)
+
+
+def bert_flagship(tpt, fa):
+    main, startup, loss = build_train(tpt, FLAGSHIP, FLAGSHIP_LR, amp=True,
+                                      dropout=0.1)
+    batches = [train_batch(FLAGSHIP, seed=600 + i, padding=False)
+               for i in range(4)]
+    return train_flagship(
+        tpt, fa, "bench.py's seq-512 step (bf16 AMP, dropout 0.1)", main,
+        startup, loss, batches, FLAGSHIP_STEPS,
+        FLAGSHIP["batch_size"] * FLAGSHIP["seq_len"])
+
+
+def llama_parity(tpt, fa):
+    main, startup, loss = build_llama(tpt, LLAMA_PARITY, LLAMA_PARITY_LR,
+                                      amp=False)
+    # qkv and ln1 of the layer, the first attention's Q input (through
+    # the backward kernels), the embedding (the end of the chain)
+    grads = ["fc_0.w_0@GRAD", "rms_norm_0.w_0@GRAD", "rope_0.tmp_0@GRAD",
+             "embedding_0.w_0@GRAD"]
+    batches = [llama_batch(LLAMA_PARITY, seed=700 + step)
+               for step in range(3)]
+    return train_parity(tpt, fa, "Llama-2-7B-width (1 layer)", main,
+                        startup, loss, batches, grads,
+                        [LLAMA_PARITY_LR] * len(batches))
+
+
+def llama_flagship(tpt, fa):
+    main, startup, loss = build_llama(tpt, LLAMA_FLAGSHIP, LLAMA_FLAGSHIP_LR,
+                                      amp=True)
+    batches = [llama_batch(LLAMA_FLAGSHIP, seed=800 + i) for i in range(3)]
+    return train_flagship(
+        tpt, fa, "Llama-2-7B-width training (4 layers, bf16 AMP)", main,
+        startup, loss, batches, FLAGSHIP_STEPS,
+        LLAMA_FLAGSHIP["batch_size"] * LLAMA_FLAGSHIP["seq_len"])
 
 
 def profile_step(exe, main, scope, feed, loss):
@@ -769,7 +1106,7 @@ def main():
 
     t_start = time.perf_counter()
     card = card_line()
-    log(f"[1/6] device: {card}; torch {torch.__version__}, CUDA "
+    log(f"[1/9] device: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -780,13 +1117,13 @@ def main():
     built = build.build_all()
     fa._lib()
     fa._bwd_lib()
-    log(f"[2/6] built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
+    log(f"[2/9] built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
     for name, text in build.build_logs.items():
         for line in text.splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
-    log("[3/6] kernels against their plain versions")
+    log("[3/9] packed kernels against their plain versions")
     check_kernel(fa, device)
     check_backward(fa, device)
     timing = time_kernel(fa, device)
@@ -795,37 +1132,57 @@ def main():
     time_backward(fa, device, "float32")
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    # each path's launches of (forward, dK/dV, dQ), each read from 0
+    # each path's launches of the six kernels, each read from 0
     by_path = {}
-    log("[4/6] BERT-base serving through Predictor on the card")
+    log("[4/9] BERT-base serving through Predictor on the card")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        by_path["serving"] = (serve(tpt, fa, workdir), 0, 0)
+        by_path["serving"] = serve(tpt, fa, workdir)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[5/6] BERT-base training, card against the CPU (fp32)")
-    fwd, (dkv, dq) = train_parity(tpt, fa)
-    by_path["training_parity"] = (fwd, dkv, dq)
+    log("[5/9] BERT-base training, card against the CPU (fp32)")
+    by_path["training_parity"] = bert_parity(tpt, fa)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[6/6] bench.py's seq-512 training step on the card (bf16 AMP)")
-    fwd, (dkv, dq) = train_flagship(tpt, fa)
-    by_path["training_flagship"] = (fwd, dkv, dq)
+    log("[6/9] bench.py's seq-512 training step on the card (bf16 AMP)")
+    by_path["training_flagship"] = bert_flagship(tpt, fa)
+    log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
+
+    log("[7/9] unpacked kernels against their plain versions")
+    check_unpacked(fa, device)
+    unpacked_timing = time_unpacked(fa, device)
+    log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
+
+    log("[8/9] Llama-2-7B-width training, card against the CPU (fp32)")
+    by_path["llama_parity"] = llama_parity(tpt, fa)
+    log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
+
+    log("[9/9] Llama-2-7B-width training on the card (4 layers, bf16 AMP)")
+    by_path["llama_flagship"] = llama_flagship(tpt, fa)
     log(f"  ({time.perf_counter() - t_start:.1f} s in all)")
 
     src = "paddle_tpu_torch/csrc/"
     tpu = "paddle_tpu/ops/pallas/flash_attention.py:"
     kernels = [
         dict(name="flash_attention_packed_fwd", route="cuda",
-             source=src + "flash_attention_packed_fwd.cu",
-             replaces=tpu + "513", **timing),
+             source=src + "flash_attention_fwd.cu", replaces=tpu + "513",
+             main_path="training_flagship", **timing),
         dict(name="flash_attention_packed_dkv", route="cuda",
-             source=src + "flash_attention_packed_bwd.cu",
-             replaces=tpu + "611", **bwd_timing["dkv"]),
+             source=src + "flash_attention_bwd.cu", replaces=tpu + "611",
+             main_path="training_flagship", **bwd_timing["dkv"]),
         dict(name="flash_attention_packed_dq", route="cuda",
-             source=src + "flash_attention_packed_bwd.cu",
-             replaces=tpu + "686", **bwd_timing["dq"])]
+             source=src + "flash_attention_bwd.cu", replaces=tpu + "686",
+             main_path="training_flagship", **bwd_timing["dq"]),
+        dict(name="flash_attention_fwd", route="cuda",
+             source=src + "flash_attention_fwd.cu", replaces=tpu + "120",
+             main_path="llama_flagship", **unpacked_timing["fwd"]),
+        dict(name="flash_attention_dkv", route="cuda",
+             source=src + "flash_attention_bwd.cu", replaces=tpu + "226",
+             main_path="llama_flagship", **unpacked_timing["dkv"]),
+        dict(name="flash_attention_dq", route="cuda",
+             source=src + "flash_attention_bwd.cu", replaces=tpu + "292",
+             main_path="llama_flagship", **unpacked_timing["dq"])]
     for i, k in enumerate(kernels):
-        k["launches"] = by_path["training_flagship"][i]
+        k["launches"] = by_path[k.pop("main_path")][i]
         k["launches_by_path"] = {p: n[i] for p, n in by_path.items()}
         if not all(math.isfinite(k[x]) for x in
                    ("max_abs_err", "ms", "plain_ms", "bound_ms")):

@@ -1,0 +1,540 @@
+// Flash-attention backward for Hopper (sm_90a): two stride-generic kernels,
+// each serving the packed and the unpacked layout through its own entry.
+//
+//   * fa_dkv_kernel replaces `_fp_dkv_kernel` (pt_flash_attention_packed_
+//     bwd_dkv; paddle_tpu/ops/pallas/flash_attention.py:611, launched by
+//     `_packed_backward` at :745) and `_fa_dkv_kernel` (pt_flash_attention_
+//     bwd_dkv; :226, launched by `_flash_backward` at :342).
+//   * fa_dq_kernel replaces `_fp_dq_kernel` (pt_flash_attention_packed_
+//     bwd_dq; :686) and `_fa_dq_kernel` (pt_flash_attention_bwd_dq; :292).
+//
+// Both read q [B, nh, Sq, D], k and v [B, nh, Sk, D], dO [B, nh, Sq, D]
+// through per-tensor batch, head and row strides (the last dim contiguous:
+// the packed layout is q, k and v as column blocks of qkv [B, S, 3H] and dO
+// as [B, S, H]), the forward's per-row log-sum-exp lse [B, nh, Sq] and
+// delta = rowsum(dO * O) [B, nh, Sq] (both float32), and the optional
+// additive float32 [B, Sk] key bias.  They recompute
+// p = exp(q.k^T * scale + bias - lse) tile by tile and never hold an
+// Sq x Sk matrix in device memory:
+//
+//   dV = P^T dO,  dS = P * (dO V^T - delta),  dK = dS^T (q * scale),
+//   dQ = dS K * scale,  dbias[k] = sum over heads and queries of dS.
+//
+// dq, dk and dv are written through their own strides too: the packed
+// entries put them straight into the three column blocks of one [B, S, 3H]
+// gradient, so nothing is concatenated afterwards.  The bias gradient is
+// written as per-head partials [B, nh, Sk] that the wrapper sums: no
+// atomics, so the sum is deterministic.
+//
+// Design (a block runs alone on Hopper, so a loop inside the block takes
+// the place of the TPU's sequential grid axis):
+//   * dK/dV: one block of 256 threads per (64-key tile, head, batch).  Its
+//     K and V tiles stay in shared memory while it loops over the 64-row
+//     q tiles (from the diagonal tile on when causal).  Each thread owns a
+//     4x4 patch of the 64x64 score tile for P and dS, and 4 key rows x
+//     D/16 columns of the dK and dV accumulators, in float32 registers.
+//   * dQ: one block per (64-row q tile, head, batch), looping over the
+//     64-key tiles up to the diagonal when causal; a thread owns 4 q rows x
+//     D/16 columns of dQ.
+// Inputs may be float32 or bfloat16; all math is float32 and the bias
+// stays float32 (bfloat16 would round -10000 to -9984).  Any Sq and Sk
+// work: rows and keys past them in the last tile are masked.  p is exactly
+// 0 for a masked score and in a row with no live key (lse = -inf, the
+// forward kernel's convention), never exp(-inf + inf).
+//
+// Bounds on an H100 SXM (data-sheet peaks at the card's 700 W limit).
+// Packed, at BERT's training shape (B=8, S=512, 12 heads, D=64, bf16):
+// dK/dV does 4 products of B*nh*S^2*D = 1.61e9 multiply-adds each, 12.9
+// GFLOP, 13.0 us at the 989 TFLOP/s bf16 tensor-core peak, against about
+// 38 MB moved (11.4 us at 3.35 TB/s); dQ 3 products, 9.7 GFLOP, 9.8 us.
+// Unpacked, at Llama-2-7B width (B=1, 32 heads, S=2048, D=128, causal,
+// bf16): dK/dV 6.87e10 flop (69.5 us), dQ 5.15e10 (52.1 us).  All are
+// bound by operations.  This version keeps every intermediate on chip but
+// runs its products as fp32 FMAs on the CUDA cores (67 TFLOP/s); wgmma on
+// bf16 tiles, TMA loads and warp specialisation are the later steps.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int kBQ = 64;        // q rows per tile
+constexpr int kBK = 64;        // k/v rows per tile
+constexpr int kThreads = 256;  // 8 warps; 16 x 16 thread grid
+
+// Element strides of one [B, heads, rows, D] operand; the last dim is
+// contiguous.
+struct Layout {
+  long long b, h, s;
+};
+
+// Strides and sizes of one call.  The pointers travel as __restrict__
+// kernel parameters, which keeps the read-only load path.
+struct BwdShape {
+  Layout ql, kl, vl, dol, dql, dkl, dvl;
+  int Sq, Sk, num_heads, causal;
+  float scale;
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// Rows r0..r0+63 of a [rows, D] matrix with row stride `row_stride`, from
+// `src`, into dst [64][D + 1] as float32 (times `mul`); rows past `rows`
+// read as 0.
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
+                                          int rows, long long row_stride,
+                                          float mul, int tid) {
+  for (int i = tid; i < 64 * D; i += kThreads) {
+    const int r = i / D, c = i % D;
+    const int g = r0 + r;
+    dst[r * (D + 1) + c] =
+        g < rows ? to_f32(src[g * row_stride + c]) * mul : 0.f;
+  }
+}
+
+// The 64x64 tile of P and dS for q rows q0 + ty + 16 i and keys
+// k0 + tx + 16 j:  s = Qs.Ks^T + bias, p = exp(s - lse) where live,
+// dS = p * (dOs.Vs^T - delta).  Qs is q * scale; b_s the tile's bias.
+template <int D>
+__device__ __forceinline__ void p_and_ds(const float* Qs, const float* dOs,
+                                         const float* Ks, const float* Vs,
+                                         const float* lse_s,
+                                         const float* dlt_s, const float* b_s,
+                                         int q0, int k0, int Sq, int Sk,
+                                         int causal, int tx, int ty,
+                                         float p[4][4], float ds[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) p[i][j] = ds[i][j] = 0.f;
+  for (int d = 0; d < D; ++d) {
+    float qv[4], dov[4], kv[4], vv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      qv[i] = Qs[(ty + 16 * i) * (D + 1) + d];
+      dov[i] = dOs[(ty + 16 * i) * (D + 1) + d];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      kv[j] = Ks[(tx + 16 * j) * (D + 1) + d];
+      vv[j] = Vs[(tx + 16 * j) * (D + 1) + d];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        p[i][j] = fmaf(qv[i], kv[j], p[i][j]);     // score so far
+        ds[i][j] = fmaf(dov[i], vv[j], ds[i][j]);  // dP so far
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i;
+    const int q = q0 + r;
+    const float lse = lse_s[r], dlt = dlt_s[r];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = tx + 16 * j;
+      const int k = k0 + c;
+      const bool live = q < Sq && k < Sk && !(causal && k > q) &&
+                        lse != -INFINITY;
+      const float pv = live ? expf(p[i][j] + b_s[c] - lse) : 0.f;
+      p[i][j] = pv;
+      ds[i][j] = pv * (ds[i][j] - dlt);
+    }
+  }
+}
+
+template <int D>
+constexpr size_t dkv_smem_bytes() {
+  // Ks, Vs, Qs, dOs [64][D+1]; Ps, dSs [64][65]; lse, delta, bias [64]
+  return sizeof(float) * (4 * 64 * (D + 1) + 2 * 64 * 65 + 3 * 64);
+}
+
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  // Qs, dOs, Ks, Vs [64][D+1]; dSs [64][65]; lse, delta, bias [64]
+  return sizeof(float) * (4 * 64 * (D + 1) + 64 * 65 + 3 * 64);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+fa_dkv_kernel(const T* __restrict__ q_, const T* __restrict__ k_,
+              const T* __restrict__ v_, const T* __restrict__ dout,
+              const float* __restrict__ bias, const float* __restrict__ lse,
+              const float* __restrict__ delta, T* __restrict__ dk,
+              T* __restrict__ dv, float* __restrict__ dbias_heads,
+              const BwdShape a) {
+  extern __shared__ float smem[];
+  float* Ks = smem;                    // [kBK][D + 1]
+  float* Vs = Ks + kBK * (D + 1);      // [kBK][D + 1]
+  float* Qs = Vs + kBK * (D + 1);      // [kBQ][D + 1], q * scale
+  float* dOs = Qs + kBQ * (D + 1);     // [kBQ][D + 1]
+  float* Ps = dOs + kBQ * (D + 1);     // [kBQ][kBK + 1]
+  float* dSs = Ps + kBQ * (kBK + 1);   // [kBQ][kBK + 1]
+  float* lse_s = dSs + kBQ * (kBK + 1);
+  float* dlt_s = lse_s + kBQ;
+  float* b_s = dlt_s + kBQ;
+
+  const int k0 = blockIdx.x * kBK;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+  const int Sq = a.Sq, Sk = a.Sk;
+  const long long row = (long long)b * a.num_heads + h;
+  const float* lse_row = lse + row * Sq;
+  const float* dlt_row = delta + row * Sq;
+  const T* qb = q_ + b * a.ql.b + h * a.ql.h;
+  const T* dob = dout + b * a.dol.b + h * a.dol.h;
+
+  load_tile<T, D>(Ks, k_ + b * a.kl.b + h * a.kl.h, k0, Sk, a.kl.s, 1.f,
+                  tid);
+  load_tile<T, D>(Vs, v_ + b * a.vl.b + h * a.vl.h, k0, Sk, a.vl.s, 1.f,
+                  tid);
+  if (tid < kBK)
+    b_s[tid] = (bias && k0 + tid < Sk)
+                   ? bias[(long long)b * Sk + k0 + tid] : 0.f;
+
+  constexpr int NJ = D / 16;
+  float acc_dk[4][NJ], acc_dv[4][NJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc_dk[i][j] = acc_dv[i][j] = 0.f;
+  float db = 0.f;  // this key's bias-grad sum (threads tid < kBK)
+
+  const int nqt = (Sq + kBQ - 1) / kBQ;
+  for (int qt = a.causal ? k0 / kBQ : 0; qt < nqt; ++qt) {
+    const int q0 = qt * kBQ;
+    __syncthreads();  // the previous tile's reads of Qs/dOs/Ps/dSs are done
+    load_tile<T, D>(Qs, qb, q0, Sq, a.ql.s, a.scale, tid);
+    load_tile<T, D>(dOs, dob, q0, Sq, a.dol.s, 1.f, tid);
+    if (tid < kBQ) {
+      lse_s[tid] = q0 + tid < Sq ? lse_row[q0 + tid] : 0.f;
+      dlt_s[tid] = q0 + tid < Sq ? dlt_row[q0 + tid] : 0.f;
+    }
+    __syncthreads();
+
+    float p[4][4], ds[4][4];
+    p_and_ds<D>(Qs, dOs, Ks, Vs, lse_s, dlt_s, b_s, q0, k0, Sq, Sk, a.causal,
+                tx, ty, p, ds);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        Ps[(ty + 16 * i) * (kBK + 1) + tx + 16 * j] = p[i][j];
+        dSs[(ty + 16 * i) * (kBK + 1) + tx + 16 * j] = ds[i][j];
+      }
+    __syncthreads();
+
+    // dV[k] += sum_q P[q][k] dO[q];  dK[k] += sum_q dS[q][k] (q * scale)
+    for (int q = 0; q < kBQ; ++q) {
+      float pv[4], dsv[4], dov[NJ], qv[NJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pv[i] = Ps[q * (kBK + 1) + ty + 16 * i];
+        dsv[i] = dSs[q * (kBK + 1) + ty + 16 * i];
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        dov[j] = dOs[q * (D + 1) + tx + 16 * j];
+        qv[j] = Qs[q * (D + 1) + tx + 16 * j];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          acc_dv[i][j] = fmaf(pv[i], dov[j], acc_dv[i][j]);
+          acc_dk[i][j] = fmaf(dsv[i], qv[j], acc_dk[i][j]);
+        }
+    }
+    if (dbias_heads && tid < kBK) {
+      for (int q = 0; q < kBQ; ++q) db += dSs[q * (kBK + 1) + tid];
+    }
+  }
+
+  T* dkb = dk + b * a.dkl.b + h * a.dkl.h;
+  T* dvb = dv + b * a.dvl.b + h * a.dvl.h;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int k = k0 + ty + 16 * i;
+    if (k >= Sk) continue;
+    T* dkrow = dkb + k * a.dkl.s;
+    T* dvrow = dvb + k * a.dvl.s;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      dkrow[tx + 16 * j] = from_f32<T>(acc_dk[i][j]);
+      dvrow[tx + 16 * j] = from_f32<T>(acc_dv[i][j]);
+    }
+  }
+  if (dbias_heads && tid < kBK && k0 + tid < Sk)
+    dbias_heads[row * Sk + k0 + tid] = db;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+fa_dq_kernel(const T* __restrict__ q_, const T* __restrict__ k_,
+             const T* __restrict__ v_, const T* __restrict__ dout,
+             const float* __restrict__ bias, const float* __restrict__ lse,
+             const float* __restrict__ delta, T* __restrict__ dq,
+             const BwdShape a) {
+  extern __shared__ float smem[];
+  float* Qs = smem;                    // [kBQ][D + 1], q * scale
+  float* dOs = Qs + kBQ * (D + 1);     // [kBQ][D + 1]
+  float* Ks = dOs + kBQ * (D + 1);     // [kBK][D + 1]
+  float* Vs = Ks + kBK * (D + 1);      // [kBK][D + 1]
+  float* dSs = Vs + kBK * (D + 1);     // [kBQ][kBK + 1]
+  float* lse_s = dSs + kBQ * (kBK + 1);
+  float* dlt_s = lse_s + kBQ;
+  float* b_s = dlt_s + kBQ;
+
+  const int q0 = blockIdx.x * kBQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+  const int Sq = a.Sq, Sk = a.Sk;
+  const long long row = (long long)b * a.num_heads + h;
+  const float* lse_row = lse + row * Sq;
+  const float* dlt_row = delta + row * Sq;
+  const T* kb = k_ + b * a.kl.b + h * a.kl.h;
+  const T* vb = v_ + b * a.vl.b + h * a.vl.h;
+
+  load_tile<T, D>(Qs, q_ + b * a.ql.b + h * a.ql.h, q0, Sq, a.ql.s, a.scale,
+                  tid);
+  load_tile<T, D>(dOs, dout + b * a.dol.b + h * a.dol.h, q0, Sq, a.dol.s,
+                  1.f, tid);
+  if (tid < kBQ) {
+    lse_s[tid] = q0 + tid < Sq ? lse_row[q0 + tid] : 0.f;
+    dlt_s[tid] = q0 + tid < Sq ? dlt_row[q0 + tid] : 0.f;
+  }
+
+  constexpr int NJ = D / 16;
+  float acc[4][NJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+
+  int nkt = (Sk + kBK - 1) / kBK;
+  if (a.causal) nkt = min(nkt, (q0 + kBQ - 1) / kBK + 1);  // later tiles dead
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int k0 = kt * kBK;
+    __syncthreads();  // the previous tile's reads of Ks/Vs/dSs are done
+    load_tile<T, D>(Ks, kb, k0, Sk, a.kl.s, 1.f, tid);
+    load_tile<T, D>(Vs, vb, k0, Sk, a.vl.s, 1.f, tid);
+    if (tid < kBK)
+      b_s[tid] = (bias && k0 + tid < Sk)
+                     ? bias[(long long)b * Sk + k0 + tid] : 0.f;
+    __syncthreads();
+
+    float p[4][4], ds[4][4];
+    p_and_ds<D>(Qs, dOs, Ks, Vs, lse_s, dlt_s, b_s, q0, k0, Sq, Sk, a.causal,
+                tx, ty, p, ds);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        dSs[(ty + 16 * i) * (kBK + 1) + tx + 16 * j] = ds[i][j];
+    __syncthreads();
+
+    // dQ[q] += sum_k dS[q][k] K[k]
+    for (int k = 0; k < kBK; ++k) {
+      float dsv[4], kv[NJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dsv[i] = dSs[(ty + 16 * i) * (kBK + 1) + k];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) kv[j] = Ks[k * (D + 1) + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(dsv[i], kv[j], acc[i][j]);
+    }
+  }
+
+  T* dqb = dq + b * a.dql.b + h * a.dql.h;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int q = q0 + ty + 16 * i;
+    if (q >= Sq) continue;
+    T* dqrow = dqb + q * a.dql.s;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      dqrow[tx + 16 * j] = from_f32<T>(acc[i][j] * a.scale);
+  }
+}
+
+// Pointers and layouts of one backward call, as the entries receive them.
+struct Call {
+  const void *q, *k, *v, *dout, *bias, *lse, *delta;
+  void *dq, *dk, *dv, *dbias_heads;
+  BwdShape a;
+  int B, D;
+};
+
+template <typename T, int D>
+int launch_dkv(const Call& c, cudaStream_t stream) {
+  constexpr size_t smem = dkv_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      fa_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((c.a.Sk + kBK - 1) / kBK, c.a.num_heads, c.B);
+  fa_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(c.q), static_cast<const T*>(c.k),
+      static_cast<const T*>(c.v), static_cast<const T*>(c.dout),
+      static_cast<const float*>(c.bias), static_cast<const float*>(c.lse),
+      static_cast<const float*>(c.delta), static_cast<T*>(c.dk),
+      static_cast<T*>(c.dv), static_cast<float*>(c.dbias_heads), c.a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch_dq(const Call& c, cudaStream_t stream) {
+  constexpr size_t smem = dq_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      fa_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((c.a.Sq + kBQ - 1) / kBQ, c.a.num_heads, c.B);
+  fa_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(c.q), static_cast<const T*>(c.k),
+      static_cast<const T*>(c.v), static_cast<const T*>(c.dout),
+      static_cast<const float*>(c.bias), static_cast<const float*>(c.lse),
+      static_cast<const float*>(c.delta), static_cast<T*>(c.dq), c.a);
+  return (int)cudaGetLastError();
+}
+
+// which: 0 = dK/dV, 1 = dQ.  dtype: 0 = float32, 1 = bfloat16.
+int run(const Call& c, int which, int dtype, void* stream) {
+  if (c.B <= 0 || c.a.Sq <= 0 || c.a.Sk <= 0 || c.a.num_heads <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PT_LAUNCH(T, DD)                                               \
+  return which == 0 ? launch_dkv<T, DD>(c, st) : launch_dq<T, DD>(c, st)
+  if (dtype == 0 && c.D == 64) PT_LAUNCH(float, 64);
+  if (dtype == 0 && c.D == 128) PT_LAUNCH(float, 128);
+  if (dtype == 1 && c.D == 64) PT_LAUNCH(__nv_bfloat16, 64);
+  if (dtype == 1 && c.D == 128) PT_LAUNCH(__nv_bfloat16, 128);
+#undef PT_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+// The packed layout: q, k, v (and dq, dk, dv) as the column blocks of
+// qkv (dqkv) [B, S, 3H], dout [B, S, H].
+Call packed_call(const void* qkv, const void* bias, const void* dout,
+                 const void* lse, const void* delta, void* dqkv,
+                 void* dbias_heads, int B, int S, int H, int num_heads,
+                 int causal, float scale, int dtype) {
+  const int D = H / num_heads;
+  const long long row = 3LL * H;
+  const Layout in{(long long)S * row, D, row};
+  const Layout dl{(long long)S * H, D, H};
+  const size_t col = (size_t)H * (dtype == 1 ? sizeof(__nv_bfloat16)
+                                             : sizeof(float));
+  const char* x = static_cast<const char*>(qkv);
+  char* dx = static_cast<char*>(dqkv);
+  return Call{x, x + col, x + 2 * col, dout, bias, lse, delta,
+              dx, dx + col, dx + 2 * col, dbias_heads,
+              BwdShape{in, in, in, dl, in, in, in, S, S, num_heads, causal,
+                       scale},
+              B, D};
+}
+
+// The unpacked layout: 21 element strides, (batch, head, row) of q, k, v,
+// dout, dq, dk and dv in that order.
+Call unpacked_call(const void* q, const void* k, const void* v,
+                   const void* dout, const void* bias, const void* lse,
+                   const void* delta, void* dq, void* dk, void* dv,
+                   void* dbias_heads, const long long* s, int B, int Sq,
+                   int Sk, int num_heads, int D, int causal, float scale) {
+  Layout l[7];
+  for (int i = 0; i < 7; ++i) l[i] = Layout{s[3 * i], s[3 * i + 1],
+                                            s[3 * i + 2]};
+  return Call{q, k, v, dout, bias, lse, delta, dq, dk, dv, dbias_heads,
+              BwdShape{l[0], l[1], l[2], l[3], l[4], l[5], l[6], Sq, Sk,
+                       num_heads, causal, scale},
+              B, D};
+}
+
+}  // namespace
+
+extern "C" {
+
+// Packed QKV.  dtype: 0 = float32, 1 = bfloat16.  bias is float32 [B, S]
+// or null; dbias_heads is float32 [B, num_heads, S] or null (no bias
+// grad).  Each returns the cudaError_t of its launch (0 = success).
+int pt_flash_attention_packed_bwd_dkv(const void* qkv, const void* bias,
+                                      const void* dout, const void* lse,
+                                      const void* delta, void* dqkv,
+                                      void* dbias_heads, int B, int S, int H,
+                                      int num_heads, int causal, float scale,
+                                      int dtype, void* stream) {
+  if (num_heads <= 0 || H % num_heads != 0) return (int)cudaErrorInvalidValue;
+  return run(packed_call(qkv, bias, dout, lse, delta, dqkv, dbias_heads, B, S,
+                         H, num_heads, causal, scale, dtype),
+             0, dtype, stream);
+}
+
+int pt_flash_attention_packed_bwd_dq(const void* qkv, const void* bias,
+                                     const void* dout, const void* lse,
+                                     const void* delta, void* dqkv, int B,
+                                     int S, int H, int num_heads, int causal,
+                                     float scale, int dtype, void* stream) {
+  if (num_heads <= 0 || H % num_heads != 0) return (int)cudaErrorInvalidValue;
+  return run(packed_call(qkv, bias, dout, lse, delta, dqkv, nullptr, B, S, H,
+                         num_heads, causal, scale, dtype),
+             1, dtype, stream);
+}
+
+// Unpacked q, dout [B, nh, Sq, D] and k, v [B, nh, Sk, D], each read
+// through its strides; dk, dv (dK/dV entry) and dq (dQ entry) written
+// through theirs.  bias float32 [B, Sk] or null, lse and delta float32
+// [B, nh, Sq], dbias_heads float32 [B, nh, Sk] or null.
+int pt_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
+                               const void* dout, const void* bias,
+                               const void* lse, const void* delta, void* dk,
+                               void* dv, void* dbias_heads,
+                               const long long* strides, int B, int Sq,
+                               int Sk, int num_heads, int D, int causal,
+                               float scale, int dtype, void* stream) {
+  return run(unpacked_call(q, k, v, dout, bias, lse, delta, nullptr, dk, dv,
+                           dbias_heads, strides, B, Sq, Sk, num_heads, D,
+                           causal, scale),
+             0, dtype, stream);
+}
+
+int pt_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
+                              const void* dout, const void* bias,
+                              const void* lse, const void* delta, void* dq,
+                              const long long* strides, int B, int Sq, int Sk,
+                              int num_heads, int D, int causal, float scale,
+                              int dtype, void* stream) {
+  return run(unpacked_call(q, k, v, dout, bias, lse, delta, dq, nullptr,
+                           nullptr, nullptr, strides, B, Sq, Sk, num_heads, D,
+                           causal, scale),
+             1, dtype, stream);
+}
+
+const char* pt_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -1,14 +1,27 @@
-// Packed-QKV flash-attention forward for Hopper (sm_90a).
+// Flash-attention forward for Hopper (sm_90a), packed and unpacked.
 //
-// Replaces the TPU kernel `_fp_fwd_kernel`
-// (paddle_tpu/ops/pallas/flash_attention.py:513, launched by
-// `_packed_forward` at :572).  It reads q, k and v straight out of the
-// fused projection qkv [B, S, 3H] (q at column h*D, k at H + h*D, v at
-// 2H + h*D; nothing is transposed or copied first), adds an optional
-// additive [B, S] key bias broadcast over heads and queries, applies an
-// optional causal mask and the softmax scale, and writes out [B, S, H]
-// with heads merged plus the per-row log-sum-exp, lse [B, num_heads, S]
-// in float32, which the backward kernels read.
+// One stride-generic kernel serves two TPU kernels of
+// paddle_tpu/ops/pallas/flash_attention.py, each through its own entry:
+//
+//   * pt_flash_attention_packed_fwd replaces `_fp_fwd_kernel` (:513,
+//     launched by `_packed_forward` at :572).  It reads q, k and v straight
+//     out of the fused projection qkv [B, S, 3H] (q at column h*D, k at
+//     H + h*D, v at 2H + h*D; nothing is transposed or copied first) and
+//     writes out [B, S, H] with heads merged.
+//   * pt_flash_attention_fwd replaces `_fa_fwd_kernel` (:120, launched by
+//     `_flash_forward` at :174).  It reads q [B, nh, Sq, D] and k, v
+//     [B, nh, Sk, D], each through its own batch, head and row strides
+//     (the last dim contiguous), so a [B, nh, S, D] view of a [B, S, nh, D]
+//     buffer is read in place, and writes out [B, nh, Sq, D] through the
+//     strides it is given.
+//
+// The two layouts differ only in strides: the packed q of (b, h, s) sits at
+// b*S*3H + s*3H + h*D, the unpacked one at b*qb + h*qh + s*qs.  Both add an
+// optional additive float32 [B, Sk] key bias broadcast over heads and
+// queries, apply an optional causal mask q_pos >= k_pos (key tiles past a
+// q tile's last row are skipped) and the softmax scale, and write the
+// per-row log-sum-exp lse [B, nh, Sq] in float32, which the backward
+// kernels read.
 //
 // Design: one block of 256 threads per (64-row q tile, head, batch).  The
 // block keeps its q tile in shared memory and loops over 64-row k/v tiles
@@ -17,18 +30,20 @@
 // (shuffle reductions), then O += P V into registers (each thread owns 4
 // rows x D/16 columns).  Inputs may be float32 or bfloat16; all math is
 // float32 and the bias stays float32 (in bfloat16, -10000 would round to
-// -9984).  Any S works: rows and keys past S in the last tile are masked.
-// A running max of -inf is never subtracted from itself, so a row whose
-// keys are all masked in a tile contributes 0, not exp(0).
+// -9984).  Any Sq and Sk work: rows and keys past them in the last tile are
+// masked.  A running max of -inf is never subtracted from itself, so a row
+// whose keys are all masked in a tile contributes 0, not exp(0).
 //
-// Bound on an H100 SXM (data-sheet peaks, which assume its 700 W power
-// limit) at BERT-base serving shape (B=4, S=128, 12 heads, D=64, fp32):
-// 4*B*nh*S^2*D = 201 MFLOP, about 3.0 us at the 67 TFLOP/s fp32
-// (non-tensor-core) peak, against 6.3 MB moved (qkv read once, out and
-// lse written once), about 1.9 us at 3.35 TB/s.  So it is bound by
-// operations.  This first version does nothing about that bound beyond
-// keeping every intermediate on chip: it uses the fp32 CUDA cores, not
-// the tensor cores.  wgmma on bf16/tf32 tiles, TMA loads and warp
+// Bounds on an H100 SXM (data-sheet peaks, which assume its 700 W power
+// limit).  Packed, at BERT-base serving shape (B=4, S=128, 12 heads, D=64,
+// fp32): 4*B*nh*S^2*D = 201 MFLOP, 3.0 us at the 67 TFLOP/s fp32
+// (non-tensor-core) peak, against 6.3 MB moved (1.9 us at 3.35 TB/s).
+// Unpacked, at Llama-2-7B width (B=1, 32 heads, S=2048, D=128, causal,
+// bf16): about half of 4*B*nh*S^2*D, 3.44e10 flop, 34.7 us at the 989
+// TFLOP/s bf16 tensor-core peak, against 67.4 MB (20.1 us).  Both are
+// bound by operations.  This version does nothing about that bound beyond
+// keeping every intermediate on chip: it uses the fp32 CUDA cores, not the
+// tensor cores.  wgmma on bf16/tf32 tiles, TMA loads and warp
 // specialisation are the later steps toward the bound.
 
 #include <cuda_bf16.h>
@@ -40,6 +55,26 @@ namespace {
 constexpr int kBQ = 64;        // q rows per block
 constexpr int kBK = 64;        // k/v rows per tile
 constexpr int kThreads = 256;  // 8 warps; 16 x 16 thread grid
+
+// Element strides of one [B, heads, rows, D] operand; the last dim is
+// contiguous.
+struct Layout {
+  long long b, h, s;
+};
+
+// Strides and sizes of one call.  The pointers travel as __restrict__
+// kernel parameters, which keeps the read-only load path.
+struct FwdShape {
+  Layout ql, kl, vl, ol;
+  int Sq, Sk, num_heads, causal;
+  float scale;
+};
+
+// One call's pointers: bias [B, Sk] or null, lse [B, num_heads, Sq].
+struct FwdPtrs {
+  const void *q, *k, *v, *bias;
+  void *out, *lse;
+};
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -64,9 +99,10 @@ constexpr size_t smem_bytes() {
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-fp_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
-              T* __restrict__ out, float* __restrict__ lse, int S, int H,
-              int num_heads, int causal, float scale) {
+fa_fwd_kernel(const T* __restrict__ q_, const T* __restrict__ k_,
+              const T* __restrict__ v_, const float* __restrict__ bias,
+              T* __restrict__ out, float* __restrict__ lse,
+              const FwdShape a) {
   extern __shared__ float smem[];
   float* Qs = smem;                      // [kBQ][D + 1]
   float* Ks = Qs + kBQ * (D + 1);        // [kBK][D + 1]
@@ -84,18 +120,18 @@ fp_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
   const int ty = tid / 16;
   const int lane = tid % 32;
   const int warp = tid / 32;
-  const long row_stride = 3L * H;
-  const T* base = qkv + (long)b * S * row_stride;
-  const T* qb = base + h * D;
-  const T* kb = base + H + h * D;
-  const T* vb = base + 2 * H + h * D;
-  const float* brow = bias ? bias + (long)b * S : nullptr;
+  const int Sq = a.Sq, Sk = a.Sk;
+  const T* qb = q_ + b * a.ql.b + h * a.ql.h;
+  const T* kb = k_ + b * a.kl.b + h * a.kl.h;
+  const T* vb = v_ + b * a.vl.b + h * a.vl.h;
+  const float* brow = bias ? bias + (long long)b * Sk : nullptr;
 
-  // q tile, pre-scaled as the TPU kernel does (q * scale, then q . k)
+  // q tile, pre-scaled as the TPU kernels do (q * scale, then q . k)
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int r = i / D, c = i % D;
     const int q = q0 + r;
-    Qs[r * (D + 1) + c] = q < S ? to_f32(qb[q * row_stride + c]) * scale : 0.f;
+    Qs[r * (D + 1) + c] =
+        q < Sq ? to_f32(qb[q * a.ql.s + c]) * a.scale : 0.f;
   }
   if (tid < kBQ) {
     m_s[tid] = -INFINITY;
@@ -109,8 +145,8 @@ fp_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
 
-  int nkt = (S + kBK - 1) / kBK;
-  if (causal) nkt = min(nkt, (q0 + kBQ - 1) / kBK + 1);  // later tiles dead
+  int nkt = (Sk + kBK - 1) / kBK;
+  if (a.causal) nkt = min(nkt, (q0 + kBQ - 1) / kBK + 1);  // later tiles dead
 
   for (int kt = 0; kt < nkt; ++kt) {
     const int k0 = kt * kBK;
@@ -119,9 +155,9 @@ fp_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
       const int r = i / D, c = i % D;
       const int k = k0 + r;
       float kv = 0.f, vv = 0.f;
-      if (k < S) {
-        kv = to_f32(kb[k * row_stride + c]);
-        vv = to_f32(vb[k * row_stride + c]);
+      if (k < Sk) {
+        kv = to_f32(kb[k * a.kl.s + c]);
+        vv = to_f32(vb[k * a.vl.s + c]);
       }
       Ks[r * (D + 1) + c] = kv;
       Vs[r * D + c] = vv;
@@ -153,7 +189,7 @@ fp_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
         const int c = tx + 16 * j;
         const int k = k0 + c;
         float v = -INFINITY;
-        if (k < S && !(causal && k > q0 + r)) {
+        if (k < Sk && !(a.causal && k > q0 + r)) {
           v = s[i][j];
           if (brow) v += brow[k];
         }
@@ -212,65 +248,90 @@ fp_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
   }
   __syncthreads();
 
+  T* ob = out + b * a.ol.b + h * a.ol.h;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i;
     const int q = q0 + r;
-    if (q >= S) continue;
+    if (q >= Sq) continue;
     const float l = fmaxf(l_s[r], 1e-30f);
-    T* orow = out + ((long)b * S + q) * H + h * D;
+    T* orow = ob + q * a.ol.s;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) orow[tx + 16 * j] = from_f32<T>(acc[i][j] / l);
   }
-  if (tid < kBQ && q0 + tid < S) {
-    lse[((long)b * num_heads + h) * S + q0 + tid] =
+  if (tid < kBQ && q0 + tid < Sq) {
+    lse[((long long)b * a.num_heads + h) * Sq + q0 + tid] =
         m_s[tid] + logf(fmaxf(l_s[tid], 1e-30f));
   }
 }
 
 template <typename T, int D>
-int launch(const void* qkv, const void* bias, void* out, void* lse, int B,
-           int S, int H, int num_heads, int causal, float scale,
-           cudaStream_t stream) {
+int launch(const FwdPtrs& p, const FwdShape& a, int B, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      fp_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fa_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((S + kBQ - 1) / kBQ, num_heads, B);
-  fp_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const float*>(bias),
-      static_cast<T*>(out), static_cast<float*>(lse), S, H, num_heads, causal,
-      scale);
+  dim3 grid((a.Sq + kBQ - 1) / kBQ, a.num_heads, B);
+  fa_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(p.q), static_cast<const T*>(p.k),
+      static_cast<const T*>(p.v), static_cast<const float*>(p.bias),
+      static_cast<T*>(p.out), static_cast<float*>(p.lse), a);
   return (int)cudaGetLastError();
+}
+
+// dtype: 0 = float32, 1 = bfloat16.
+int run(int dtype, int D, const FwdPtrs& p, const FwdShape& a, int B,
+        void* stream) {
+  if (B <= 0 || a.Sq <= 0 || a.Sk <= 0 || a.num_heads <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && D == 64) return launch<float, 64>(p, a, B, st);
+  if (dtype == 0 && D == 128) return launch<float, 128>(p, a, B, st);
+  if (dtype == 1 && D == 64) return launch<__nv_bfloat16, 64>(p, a, B, st);
+  if (dtype == 1 && D == 128) return launch<__nv_bfloat16, 128>(p, a, B, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  bias is float32 [B, S] or null.
-// Returns the cudaError_t of the launch (0 = success).
+// Packed QKV.  dtype: 0 = float32, 1 = bfloat16.  bias is float32 [B, S]
+// or null.  Returns the cudaError_t of the launch (0 = success).
 int pt_flash_attention_packed_fwd(const void* qkv, const void* bias,
                                   void* out, void* lse, int B, int S, int H,
                                   int num_heads, int causal, float scale,
                                   int dtype, void* stream) {
   if (num_heads <= 0 || H % num_heads != 0) return (int)cudaErrorInvalidValue;
   const int D = H / num_heads;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64)
-    return launch<float, 64>(qkv, bias, out, lse, B, S, H, num_heads, causal,
-                             scale, st);
-  if (dtype == 0 && D == 128)
-    return launch<float, 128>(qkv, bias, out, lse, B, S, H, num_heads, causal,
-                              scale, st);
-  if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64>(qkv, bias, out, lse, B, S, H, num_heads,
-                                     causal, scale, st);
-  if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(qkv, bias, out, lse, B, S, H, num_heads,
-                                      causal, scale, st);
-  return (int)cudaErrorInvalidValue;
+  const long long row = 3LL * H;
+  const Layout in{(long long)S * row, D, row};
+  const Layout ol{(long long)S * H, D, H};
+  const char* base = static_cast<const char*>(qkv);
+  const size_t col = (size_t)H * (dtype == 1 ? sizeof(__nv_bfloat16)
+                                             : sizeof(float));
+  const FwdPtrs p{base, base + col, base + 2 * col, bias, out, lse};
+  const FwdShape a{in, in, in, ol, S, S, num_heads, causal, scale};
+  return run(dtype, D, p, a, B, stream);
+}
+
+// Unpacked q [B, nh, Sq, D], k and v [B, nh, Sk, D], out [B, nh, Sq, D].
+// strides: 12 element strides, (batch, head, row) of q, k, v and out in
+// that order; every last dim is contiguous.  bias is float32 [B, Sk] or
+// null; lse float32 [B, nh, Sq].  dtype as above.
+int pt_flash_attention_fwd(const void* q, const void* k, const void* v,
+                           const void* bias, void* out, void* lse,
+                           const long long* strides, int B, int Sq, int Sk,
+                           int num_heads, int D, int causal, float scale,
+                           int dtype, void* stream) {
+  const Layout ql{strides[0], strides[1], strides[2]};
+  const Layout kl{strides[3], strides[4], strides[5]};
+  const Layout vl{strides[6], strides[7], strides[8]};
+  const Layout ol{strides[9], strides[10], strides[11]};
+  const FwdPtrs p{q, k, v, bias, out, lse};
+  const FwdShape a{ql, kl, vl, ol, Sq, Sk, num_heads, causal, scale};
+  return run(dtype, D, p, a, B, stream);
 }
 
 const char* pt_cuda_error_string(int err) {

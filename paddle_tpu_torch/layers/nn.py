@@ -1,6 +1,6 @@
 """Graph-building NN layers: the subset of ``paddle_tpu/layers/nn.py`` on
-the BERT path, with the same arguments, ops and attrs (static graph
-only)."""
+the BERT and Llama paths, with the same arguments, ops and attrs (static
+graph only)."""
 from __future__ import annotations
 
 import numpy as np
@@ -8,8 +8,9 @@ import numpy as np
 from ..framework.initializer import ConstantInitializer
 from ..framework.layer_helper import LayerHelper
 
-__all__ = ["fc", "layer_norm", "embedding", "flash_attention_qkv",
-           "dropout", "sqrt"]
+__all__ = ["fc", "layer_norm", "embedding", "flash_attention",
+           "flash_attention_qkv", "dropout", "sqrt", "silu", "mean",
+           "rms_norm", "rope"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -83,6 +84,31 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
     return out
 
 
+def flash_attention(q, k, v, bias=None, causal=False, scale=None,
+                    seq_parallel_mode="ring", impl="auto", layout="bhsd",
+                    dropout_prob=0.0, is_test=False, name=None):
+    """Fused multi-head attention; q: [B, H, Sq, D], k/v: [B, H, Sk, D].
+
+    bias: optional additive score bias [B, Sk] (or [B, 1, 1, Sk]), the
+    padding mask.  On the card it runs the Hopper kernels
+    (ops/attention_ops.py); ``impl="xla"`` is not ported and raises when
+    the program runs.
+    """
+    helper = LayerHelper("flash_attention", name=name)
+    out = helper.create_variable_for_type_inference(q.dtype)
+    attrs = {"causal": causal, "seq_parallel_mode": seq_parallel_mode,
+             "impl": impl, "layout": layout,
+             "dropout_prob": float(dropout_prob), "is_test": is_test}
+    if scale is not None:
+        attrs["scale"] = float(scale)
+    inputs = {"Q": [q], "K": [k], "V": [v]}
+    if bias is not None:
+        inputs["Bias"] = [bias]
+    helper.append_op("flash_attention", inputs=inputs,
+                     outputs={"Out": [out]}, attrs=attrs)
+    return out
+
+
 def flash_attention_qkv(qkv, num_heads, bias=None, causal=False,
                         scale=None, name=None):
     """Transpose-free fused attention on a packed QKV projection.
@@ -118,9 +144,52 @@ def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
     return out
 
 
-def sqrt(x, name=None):
-    helper = LayerHelper("sqrt", name=name)
+def _unary(op_type):
+    def f(x, name=None, **attrs):
+        helper = LayerHelper(op_type, name=name)
+        out = helper.create_variable_for_type_inference(x.dtype)
+        helper.append_op(op_type, inputs={"X": [x]},
+                         outputs={"Out": [out]}, attrs=attrs)
+        return out
+    f.__name__ = op_type
+    return f
+
+
+sqrt = _unary("sqrt")
+silu = _unary("silu")
+
+
+def mean(x, name=None):
+    helper = LayerHelper("mean", name=name)
     out = helper.create_variable_for_type_inference(x.dtype)
-    helper.append_op("sqrt", inputs={"X": [x]}, outputs={"Out": [out]},
-                     attrs={})
+    helper.append_op("mean", inputs={"X": [x]}, outputs={"Out": [out]})
+    return out
+
+
+def rms_norm(x, epsilon=1e-6, param_attr=None, name=None):
+    """RMSNorm over the last dim, with a [H] scale initialised to 1."""
+    helper = LayerHelper("rms_norm", name=name)
+    scale = helper.create_parameter(
+        param_attr, [x.shape[-1]], "float32",
+        default_initializer=ConstantInitializer(1.0))
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("rms_norm", inputs={"X": [x], "Scale": [scale]},
+                     outputs={"Y": [out]}, attrs={"epsilon": epsilon})
+    return out
+
+
+def rope(x, base=10000.0, position_offset=0, offset=None, name=None):
+    """Rotary position embedding; x: [B, H, S, D].
+
+    ``offset``: optional [B] int Variable of per-row position offsets
+    (row b's S positions start at ``offset[b]``); the static
+    ``position_offset`` attr applies when it is absent."""
+    helper = LayerHelper("rope", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    inputs = {"X": [x]}
+    if offset is not None:
+        inputs["Offset"] = [offset]
+    helper.append_op("rope", inputs=inputs, outputs={"Out": [out]},
+                     attrs={"base": base,
+                            "position_offset": position_offset})
     return out

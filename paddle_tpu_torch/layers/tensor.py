@@ -1,6 +1,6 @@
 """Graph-building tensor layers: the subset of
-``paddle_tpu/layers/tensor.py`` on the BERT path (training included),
-with the same arguments, ops and attrs."""
+``paddle_tpu/layers/tensor.py`` on the BERT and Llama paths (training
+included), with the same arguments, ops and attrs."""
 from __future__ import annotations
 
 from ..framework.core import (default_main_program, default_startup_program,
@@ -9,7 +9,8 @@ from ..framework.layer_helper import LayerHelper
 
 __all__ = [
     "data", "fill_constant", "create_global_var", "cast", "sums",
-    "squeeze", "unsqueeze", "stack", "gather_nd", "expand", "range",
+    "reshape", "transpose", "squeeze", "unsqueeze", "stack", "slice",
+    "gather_nd", "expand", "tile", "range",
     "reduce_sum", "elementwise_add", "elementwise_mul", "elementwise_div",
     "elementwise_max", "less_than", "scale", "increment", "where",
 ]
@@ -146,6 +147,27 @@ def where(condition, x, y, name=None):
     return out
 
 
+def reshape(x, shape, actual_shape=None, act=None, inplace=False,
+            name=None):
+    helper = LayerHelper("reshape", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    xshape = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("reshape2", inputs={"X": [x]},
+                     outputs={"Out": [out], "XShape": [xshape]},
+                     attrs={"shape": list(shape)})
+    return helper.append_activation(out, act)
+
+
+def transpose(x, perm, name=None):
+    helper = LayerHelper("transpose", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    xshape = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("transpose2", inputs={"X": [x]},
+                     outputs={"Out": [out], "XShape": [xshape]},
+                     attrs={"axis": list(perm)})
+    return out
+
+
 def squeeze(input, axes, name=None):
     helper = LayerHelper("squeeze", name=name)
     out = helper.create_variable_for_type_inference(input.dtype)
@@ -174,6 +196,16 @@ def stack(x, axis=0, name=None):
     return out
 
 
+def slice(input, axes, starts, ends, name=None):
+    helper = LayerHelper("slice", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("slice", inputs={"Input": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"axes": list(axes), "starts": list(starts),
+                            "ends": list(ends)})
+    return out
+
+
 def gather_nd(input, index, name=None):
     helper = LayerHelper("gather_nd", name=name)
     out = helper.create_variable_for_type_inference(input.dtype)
@@ -187,6 +219,14 @@ def expand(x, expand_times, name=None):
     out = helper.create_variable_for_type_inference(x.dtype)
     helper.append_op("expand", inputs={"X": [x]}, outputs={"Out": [out]},
                      attrs={"expand_times": list(expand_times)})
+    return out
+
+
+def tile(x, repeat_times, name=None):
+    helper = LayerHelper("tile", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("tile", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"repeat_times": list(repeat_times)})
     return out
 
 

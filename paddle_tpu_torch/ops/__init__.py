@@ -4,5 +4,6 @@ from . import tensor_ops  # noqa
 from . import math_ops  # noqa
 from . import nn_ops  # noqa
 from . import attention_ops  # noqa
+from . import rope_ops  # noqa
 from . import control_flow_ops  # noqa
 from . import optimizer_ops  # noqa

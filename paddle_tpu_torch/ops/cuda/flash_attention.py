@@ -1,16 +1,21 @@
-"""Packed-QKV flash attention: the Hopper kernels' wrappers and their
-plain PyTorch versions.
+"""Flash attention: the Hopper kernels' wrappers and their plain PyTorch
+versions, for the packed-QKV layout and the unpacked [B, H, S, D] one.
 
-Counterpart of the packed path of ``paddle_tpu/ops/pallas/flash_attention.py``:
+Counterpart of ``paddle_tpu/ops/pallas/flash_attention.py``.  One
+stride-generic CUDA source serves each direction of both layouts
+(``csrc/flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu``), with
+one C entry, one wrapper and one launch counter per TPU kernel.
+
+Packed path (the ``flash_attention_qkv`` op):
 
 * forward, ``flash_attention_packed``: CUDA kernel
-  ``csrc/flash_attention_packed_fwd.cu`` (replaces ``_fp_fwd_kernel``);
+  ``csrc/flash_attention_fwd.cu`` (replaces ``_fp_fwd_kernel``);
   plain version ``flash_attention_packed_reference``, built on
   ``blockwise_attention``, a pure-PyTorch port of the JAX package's
   online-softmax scan;
 * backward, ``flash_attention_packed_backward``: delta = rowsum(dO * O)
   in PyTorch (the JAX package also computes it outside its kernels), then
-  the CUDA kernels of ``csrc/flash_attention_packed_bwd.cu``:
+  the CUDA kernels of ``csrc/flash_attention_bwd.cu``:
   ``flash_attention_packed_dkv`` (replaces ``_fp_dkv_kernel``) and
   ``flash_attention_packed_dq`` (replaces ``_fp_dq_kernel``), which write
   dq, dk and dv straight into the three column blocks of one [B, S, 3H]
@@ -19,15 +24,30 @@ Counterpart of the packed path of ``paddle_tpu/ops/pallas/flash_attention.py``:
   whose forward is the forward kernel and whose backward is the two
   backward kernels (the JAX package's ``jax.custom_vjp``).
 
+Unpacked path (the ``flash_attention`` op), q [B, H, Sq, D] and k, v
+[B, H, Sk, D], each read through its own strides (the last dim
+contiguous), so the [B, H, S, D] views that ``transpose2`` and ``rope``
+leave are read in place:
+
+* forward, ``flash_attention_unpacked`` (replaces ``_fa_fwd_kernel``);
+  plain version ``flash_attention_reference``;
+* backward, ``flash_attention_unpacked_backward``: delta in PyTorch, then
+  ``flash_attention_unpacked_dkv`` (replaces ``_fa_dkv_kernel``) and
+  ``flash_attention_unpacked_dq`` (replaces ``_fa_dq_kernel``); plain
+  version ``flash_attention_backward_reference``;
+* ``flash_attention_autograd``: the ``torch.autograd.Function``
+  differentiable in q, k, v and bias.
+
 A wrapper takes its plain version only for a tensor on the CPU; on a
 CUDA tensor it launches its kernel (counted in ``.launches``) or raises,
 never falling back.  The plain versions count their calls (``.calls``)
 and are the kernels' oracles in the tests and in ``chip_smoke.py``.
 
-Layouts: qkv [B, S, 3H] with q, k, v as column blocks; bias [B, S]
-additive, broadcast over heads and queries; out and dout [B, S, H] heads
-merged; lse and delta [B, num_heads, S] float32 (the TPU kernels'
-[B, H/128, 128/D, S] is this array reshaped).
+Packed layouts: qkv [B, S, 3H] with q, k, v as column blocks; bias
+[B, S] additive, broadcast over heads and queries; out and dout [B, S, H]
+heads merged; lse and delta [B, num_heads, S] float32 (the TPU kernels'
+[B, H/128, 128/D, S] is this array reshaped).  Unpacked: bias [B, Sk],
+lse and delta [B, H, Sq] float32, as the TPU kernels lay them out.
 """
 from __future__ import annotations
 
@@ -40,8 +60,8 @@ import torch
 DEFAULT_BLOCK_K = 512
 NEG_INF = -1e30
 
-_KERNEL = "flash_attention_packed_fwd"
-_BWD_KERNEL = "flash_attention_packed_bwd"
+_KERNEL = "flash_attention_fwd"
+_BWD_KERNEL = "flash_attention_bwd"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -125,6 +145,30 @@ def flash_attention_packed_reference(qkv: torch.Tensor,
 flash_attention_packed_reference.calls = 0
 
 
+def _backward_math(q, k, v, bias, o, lse, do, causal, scale):
+    """The backward kernels' math in float32 on the full [B, h, Sq, Sk]
+    score matrix, from float32 q, o, do [B,h,Sq,D], k, v [B,h,Sk,D] and
+    lse [B,h,Sq]: (dq, dk, dv, dS).  p = exp(s - lse) is 0 where the
+    score is masked (causal: q_pos >= k_pos live) and in a row with no
+    live key (lse = -inf)."""
+    delta = (do * o).sum(-1)                                  # [B,h,Sq]
+    qs = q * scale
+    s = torch.matmul(qs, k.transpose(-1, -2))                 # [B,h,Sq,Sk]
+    if bias is not None:
+        s = s + bias.float()[:, None, None, :]
+    live = torch.isfinite(lse)[..., None].expand_as(s)
+    if causal:
+        q_pos = torch.arange(s.shape[-2], device=s.device)
+        k_pos = torch.arange(s.shape[-1], device=s.device)
+        live = live & (q_pos[:, None] >= k_pos[None, :])
+    p = torch.where(live, torch.exp(s - lse[..., None]), s.new_zeros(()))
+    dv = torch.matmul(p.transpose(-1, -2), do)
+    ds = p * (torch.matmul(do, v.transpose(-1, -2)) - delta[..., None])
+    dk = torch.matmul(ds.transpose(-1, -2), qs)
+    dq = torch.matmul(ds, k) * scale
+    return dq, dk, dv, ds
+
+
 def flash_attention_packed_backward_reference(
         qkv: torch.Tensor, bias: Optional[torch.Tensor], out: torch.Tensor,
         lse: torch.Tensor, dout: torch.Tensor, num_heads: int,
@@ -142,20 +186,7 @@ def flash_attention_packed_backward_reference(
     q, k, v = (x[:, :, j].transpose(1, 2) for j in range(3))  # [B,h,S,D]
     do = dout.float().reshape(B, S, num_heads, D).transpose(1, 2)
     o = out.float().reshape(B, S, num_heads, D).transpose(1, 2)
-    delta = (do * o).sum(-1)                                  # [B,h,S]
-    qs = q * scale
-    s = torch.matmul(qs, k.transpose(-1, -2))                 # [B,h,S,S]
-    if bias is not None:
-        s = s + bias.float()[:, None, None, :]
-    live = torch.isfinite(lse)[..., None].expand_as(s)
-    if causal:
-        pos = torch.arange(S, device=qkv.device)
-        live = live & (pos[:, None] >= pos[None, :])
-    p = torch.where(live, torch.exp(s - lse[..., None]), s.new_zeros(()))
-    dv = torch.matmul(p.transpose(-1, -2), do)
-    ds = p * (torch.matmul(do, v.transpose(-1, -2)) - delta[..., None])
-    dk = torch.matmul(ds.transpose(-1, -2), qs)
-    dq = torch.matmul(ds, k) * scale
+    dq, dk, dv, ds = _backward_math(q, k, v, bias, o, lse, do, causal, scale)
     dqkv = torch.cat([t.transpose(1, 2).reshape(B, S, H)
                       for t in (dq, dk, dv)], dim=-1).to(qkv.dtype)
     dbias = None if bias is None else ds.sum((1, 2)).to(bias.dtype)
@@ -197,14 +228,26 @@ def _lib():
     from .build import load
 
     lib = load(_KERNEL)
-    fn = lib.pt_flash_attention_packed_fwd
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+    _bind(lib, ((lib.pt_flash_attention_packed_fwd, 4, False),
+                (lib.pt_flash_attention_fwd, 6, True)))
+    return lib
+
+
+def _bind(lib, entries):
+    """Set each C entry's argtypes once: `n_ptr` pointers, then (for an
+    unpacked entry) the int64 stride array and B, Sq, Sk, heads, D,
+    causal; a packed entry has B, S, H, heads, causal.  Then the scale,
+    the dtype code and the stream."""
+    for fn, n_ptr, unpacked in entries:
+        if fn.argtypes is not None:
+            continue
+        mid = ([ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 6
+               if unpacked else [ctypes.c_int] * 5)
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + mid + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.pt_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.pt_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    lib.pt_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.pt_cuda_error_string.restype = ctypes.c_char_p
 
 
 def flash_attention_packed(qkv: torch.Tensor, bias: Optional[torch.Tensor],
@@ -253,14 +296,10 @@ def _bwd_lib():
     from .build import load
 
     lib = load(_BWD_KERNEL)
-    for fn, n_ptr in ((lib.pt_flash_attention_packed_bwd_dkv, 7),
-                      (lib.pt_flash_attention_packed_bwd_dq, 6)):
-        if fn.argtypes is None:
-            fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [
-                ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-    lib.pt_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.pt_cuda_error_string.restype = ctypes.c_char_p
+    _bind(lib, ((lib.pt_flash_attention_packed_bwd_dkv, 7, False),
+                (lib.pt_flash_attention_packed_bwd_dq, 6, False),
+                (lib.pt_flash_attention_bwd_dkv, 10, True),
+                (lib.pt_flash_attention_bwd_dq, 8, True)))
     return lib
 
 
@@ -411,3 +450,296 @@ def flash_attention_packed_autograd(qkv: torch.Tensor,
     asks for it."""
     return _FlashAttentionPacked.apply(qkv, bias, num_heads, causal,
                                        sm_scale)
+
+
+# ---------------------------------------------------------------------------
+# unpacked layout: q [B, H, Sq, D], k / v [B, H, Sk, D] (the flash_attention
+# op), each read and written through its own strides
+# ---------------------------------------------------------------------------
+
+def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor,
+                              bias: Optional[torch.Tensor] = None,
+                              causal: bool = False,
+                              sm_scale: Optional[float] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the unpacked forward kernel: (out
+    [B,H,Sq,D] in q's dtype, lse [B,H,Sq] float32), on
+    ``blockwise_attention``.  Counts its calls in ``.calls``."""
+    flash_attention_reference.calls += 1
+    out, (m, l) = blockwise_attention(q, k, v, causal=causal,
+                                      sm_scale=sm_scale, bias=bias)
+    return out, m + torch.log(torch.clamp(l, min=1e-30))
+
+
+flash_attention_reference.calls = 0
+
+
+def flash_attention_backward_reference(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        bias: Optional[torch.Tensor], out: torch.Tensor, lse: torch.Tensor,
+        dout: torch.Tensor, causal: bool = False,
+        sm_scale: Optional[float] = None):
+    """Plain PyTorch version of the unpacked backward kernels: (dq, dk, dv
+    in q's, k's and v's dtypes, dbias [B,Sk] in bias's dtype or None), all
+    math in float32 on the full [B, H, Sq, Sk] score matrix.  Counts its
+    calls in ``.calls``."""
+    flash_attention_backward_reference.calls += 1
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(
+        q.shape[-1])
+    dq, dk, dv, ds = _backward_math(q.float(), k.float(), v.float(), bias,
+                                    out.float(), lse, dout.float(), causal,
+                                    scale)
+    dbias = None if bias is None else ds.sum((1, 2)).to(bias.dtype)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias
+
+
+flash_attention_backward_reference.calls = 0
+
+
+def _check_unpacked(q, k, v, what):
+    """What the unpacked kernels need: CUDA tensors q [B,H,Sq,D] and k, v
+    [B,H,Sk,D] of one dtype, float32 or bfloat16, on one device, head_dim
+    64 or 128, each with a contiguous last dim (any other strides); and a
+    grid CUDA can launch.  Returns (B, H, Sq, Sk, D)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {q.device}")
+    if q.dim() != 4:
+        raise ValueError(f"{what}: q must be [B, H, Sq, D], got "
+                         f"{tuple(q.shape)}")
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2] if k.dim() == 4 else -1
+    for name, t in (("k", k), ("v", v)):
+        if tuple(t.shape) != (B, H, Sk, D):
+            raise ValueError(f"{what}: {name} must be [B, H, Sk, D] like q "
+                             f"{tuple(q.shape)}, got {tuple(t.shape)}")
+    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or \
+            v.dtype != q.dtype:
+        raise TypeError(f"{what} takes float32 or bfloat16 q, k and v of "
+                        f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if D not in (64, 128):
+        raise ValueError(f"{what} needs head_dim in (64, 128); got {D}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{what}: {name} is on {t.device}, q on "
+                             f"{q.device}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{what} needs {name} with a contiguous last "
+                             f"dim, got strides {t.stride()}")
+    if B == 0 or Sq == 0 or Sk == 0 or B > 65535 or H > 65535:
+        raise ValueError(f"{what}: unsupported grid B={B} H={H} Sq={Sq} "
+                         f"Sk={Sk}")
+    return B, H, Sq, Sk, D
+
+
+def _bias32(bias, B, Sk, device, what):
+    """The bias as the kernels take it: float32 [B, Sk], contiguous (bf16
+    would round -1e4 to -9984), or None."""
+    if bias is None:
+        return None
+    if tuple(bias.shape) != (B, Sk) or bias.device != device:
+        raise ValueError(f"{what}: bias must be [B, Sk] = {(B, Sk)} on "
+                         f"{device}, got {tuple(bias.shape)} on "
+                         f"{bias.device}")
+    return bias.to(torch.float32).contiguous()
+
+
+def _strides(*tensors):
+    """(batch, head, row) element strides of each [B, H, S, D] tensor, as
+    the C entries read them; None (an output the entry does not write)
+    gives zeros."""
+    vals = []
+    for t in tensors:
+        vals += [0, 0, 0] if t is None else list(t.stride()[:3])
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def flash_attention_unpacked(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor,
+                             bias: Optional[torch.Tensor] = None,
+                             causal: bool = False,
+                             sm_scale: Optional[float] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Unpacked attention forward: (out [B,H,Sq,D] in q's dtype, lse
+    [B,H,Sq] float32).
+
+    A CUDA tensor launches the Hopper kernel (counted in ``.launches``);
+    a CPU tensor takes the plain version.  The kernel writes out into
+    [B, Sq, H, D] memory (returned as its [B, H, Sq, D] view), so moving
+    the heads back next to each other and merging them is free.  Raises on
+    anything the kernel does not take (``_check_unpacked``), or a bias
+    that is not [B, Sk] on q's device.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, bias, causal, sm_scale)
+    what = "flash_attention_unpacked"
+    B, H, Sq, Sk, D = _check_unpacked(q, k, v, what)
+    bias = _bias32(bias, B, Sk, q.device, what)
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    out = torch.empty((B, Sq, H, D), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.pt_flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
+            out.data_ptr(), lse.data_ptr(), _strides(q, k, v, out), B, Sq,
+            Sk, H, D, int(bool(causal)), float(scale),
+            _DTYPE_CODES[q.dtype], stream)
+    _raise_on(lib, err, what)
+    flash_attention_unpacked.launches += 1
+    return out, lse
+
+
+flash_attention_unpacked.launches = 0
+
+
+def check_unpacked_backward_inputs(q, k, v, bias, out, lse, dout,
+                                   what="flash_attention_unpacked_backward"):
+    """What the unpacked backward kernels take: q, k, v as
+    ``_check_unpacked`` wants them, out and dout [B,H,Sq,D] in q's dtype
+    with a contiguous last dim, lse [B,H,Sq] float32 and bias [B,Sk]
+    float32 or None, both contiguous, all on q's device.  Raises on
+    anything else; returns (B, H, Sq, Sk, D).  The launch helpers
+    ``flash_attention_unpacked_dkv`` and ``flash_attention_unpacked_dq``
+    trust their caller to have called it."""
+    B, H, Sq, Sk, D = _check_unpacked(q, k, v, what)
+    want = {"out": (out, (B, H, Sq, D), q.dtype, False),
+            "dout": (dout, (B, H, Sq, D), q.dtype, False),
+            "lse": (lse, (B, H, Sq), torch.float32, True)}
+    if bias is not None:
+        want["bias"] = (bias, (B, Sk), torch.float32, True)
+    for name, (t, shape, dtype, whole) in want.items():
+        laid_out = t.is_contiguous() if whole else t.stride(-1) == 1
+        if tuple(t.shape) != shape or t.dtype != dtype or \
+                t.device != q.device or not laid_out:
+            raise ValueError(
+                f"{what}: {name} must be a {dtype} {shape} on {q.device} "
+                f"with a contiguous {'layout' if whole else 'last dim'}, "
+                f"got {t.dtype} {tuple(t.shape)} on {t.device}, strides "
+                f"{t.stride()}")
+    return B, H, Sq, Sk, D
+
+
+def flash_attention_unpacked_dkv(q, k, v, bias, dout, lse, delta, dk, dv,
+                                 dbias_heads, causal, scale):
+    """Launch the dK/dV kernel on inputs that
+    ``check_unpacked_backward_inputs`` passed: writes dk and dv ([B,H,Sk,D]
+    in k's dtype, last dim contiguous) and, when `dbias_heads` ([B,H,Sk]
+    float32, only with a bias) is given, each head's bias-gradient row
+    sums into it.  `delta` is laid out like lse.  Counts launches in
+    ``.launches``."""
+    B, H, Sq, D = q.shape
+    lib = _bwd_lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.pt_flash_attention_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            _ptr(bias), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), _ptr(dbias_heads),
+            _strides(q, k, v, dout, None, dk, dv), B, Sq, k.shape[2], H, D,
+            int(bool(causal)), float(scale), _DTYPE_CODES[q.dtype], stream)
+    _raise_on(lib, err, "flash_attention_unpacked_dkv")
+    flash_attention_unpacked_dkv.launches += 1
+
+
+flash_attention_unpacked_dkv.launches = 0
+
+
+def flash_attention_unpacked_dq(q, k, v, bias, dout, lse, delta, dq, causal,
+                                scale):
+    """Launch the dQ kernel on inputs that
+    ``check_unpacked_backward_inputs`` passed: writes dq ([B,H,Sq,D] in
+    q's dtype, last dim contiguous).  Counts launches in ``.launches``."""
+    B, H, Sq, D = q.shape
+    lib = _bwd_lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.pt_flash_attention_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            _ptr(bias), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            _strides(q, k, v, dout, dq, None, None), B, Sq, k.shape[2], H,
+            D, int(bool(causal)), float(scale), _DTYPE_CODES[q.dtype],
+            stream)
+    _raise_on(lib, err, "flash_attention_unpacked_dq")
+    flash_attention_unpacked_dq.launches += 1
+
+
+flash_attention_unpacked_dq.launches = 0
+
+
+def flash_attention_unpacked_backward(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        bias: Optional[torch.Tensor], out: torch.Tensor, lse: torch.Tensor,
+        dout: torch.Tensor, causal: bool = False,
+        sm_scale: Optional[float] = None, need_dbias: bool = True):
+    """Unpacked attention backward: (dq, dk, dv laid out like q, k and v,
+    dbias [B,Sk] in bias's dtype, or None without a bias or with
+    need_dbias False).  A CPU tensor takes the plain version; a CUDA
+    tensor is checked once (``check_unpacked_backward_inputs``), then
+    launches the dK/dV and the dQ kernel, or raises."""
+    if q.device.type == "cpu":
+        dq, dk, dv, dbias = flash_attention_backward_reference(
+            q, k, v, bias, out, lse, dout, causal, sm_scale)
+        return dq, dk, dv, dbias if need_dbias else None
+    bias32 = None if bias is None else bias.to(torch.float32).contiguous()
+    B, H, Sq, Sk, D = check_unpacked_backward_inputs(q, k, v, bias32, out,
+                                                     lse, dout)
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    delta = (dout.float() * out.float()).sum(-1).contiguous()  # [B,H,Sq]
+    # laid out like q, k and v where they are dense (a view of another
+    # layout keeps its strides), contiguous otherwise: the last dim stays
+    # contiguous either way
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    dbias_heads = None
+    if bias is not None and need_dbias:
+        dbias_heads = torch.empty((B, H, Sk), dtype=torch.float32,
+                                  device=q.device)
+    flash_attention_unpacked_dkv(q, k, v, bias32, dout, lse, delta, dk, dv,
+                                 dbias_heads, causal, scale)
+    flash_attention_unpacked_dq(q, k, v, bias32, dout, lse, delta, dq,
+                                causal, scale)
+    dbias = None
+    if dbias_heads is not None:
+        # per-head partials summed here: no atomics, a deterministic sum
+        dbias = dbias_heads.sum(1).to(bias.dtype)
+    return dq, dk, dv, dbias
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias, causal, sm_scale):
+        out, lse = flash_attention_unpacked(q, k, v, bias, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        ctx.attrs = (causal, sm_scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        causal, sm_scale = ctx.attrs
+        dout = dout.to(q.dtype)
+        if dout.stride(-1) != 1:
+            dout = dout.contiguous()
+        dq, dk, dv, dbias = flash_attention_unpacked_backward(
+            q, k, v, bias, out, lse, dout, causal, sm_scale,
+            need_dbias=bias is not None and ctx.needs_input_grad[3])
+        return dq, dk, dv, dbias, None, None
+
+
+def flash_attention_autograd(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor,
+                             bias: Optional[torch.Tensor] = None,
+                             causal: bool = False,
+                             sm_scale: Optional[float] = None
+                             ) -> torch.Tensor:
+    """``flash_attention_unpacked``'s out [B,H,Sq,D], differentiable in q,
+    k, v and bias: forward kernel forward, backward kernels backward
+    (plain versions on the CPU).  The bias grad is computed only when
+    autograd asks for it."""
+    return _FlashAttention.apply(q, k, v, bias, causal, sm_scale)

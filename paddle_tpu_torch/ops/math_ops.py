@@ -1,10 +1,11 @@
 """Math / elementwise / reduction / matmul op lowerings in PyTorch.
 
 Counterpart of ``paddle_tpu/ops/math_ops.py`` for the ops on the BERT
-path: ``elementwise_add/mul/div/max`` with Paddle ``axis``
-broadcasting, ``less_than``, ``scale``, ``mul``, ``gelu``, ``sqrt``,
-``cast``, ``reduce_sum`` and ``sum``.  The plain matrix product of ``mul``
-stays ``torch.matmul``, as the JAX package leaves it to XLA.
+and Llama paths: ``elementwise_add/mul/div/max`` with Paddle ``axis``
+broadcasting, ``less_than``, ``scale``, ``mul``, ``gelu``, ``silu``,
+``sqrt``, ``cast``, ``reduce_sum``, ``mean`` and ``sum``.  The plain
+matrix product of ``mul`` stays ``torch.matmul``, as the JAX package
+leaves it to XLA.
 
 Binary ops promote their operands as jax.numpy does: a bfloat16 and a
 float32 operand give float32 whatever their ranks (torch alone would
@@ -102,6 +103,11 @@ def _gelu(ctx: LowerContext, op: Operator):
                                      approximate=approx))
 
 
+@register_op("silu", infer=same_as_input())
+def _silu(ctx: LowerContext, op: Operator):
+    ctx.set_output(op, "Out", F.silu(ctx.get_input(op, "X")))
+
+
 @register_op("sqrt", infer=same_as_input())
 def _sqrt(ctx: LowerContext, op: Operator):
     ctx.set_output(op, "Out", torch.sqrt(ctx.get_input(op, "X")))
@@ -188,6 +194,16 @@ def _reduce_sum(ctx: LowerContext, op: Operator):
     if op.attr("out_dtype"):
         out = out.to(dtype_to_torch(op.attr("out_dtype")))
     ctx.set_output(op, "Out", out)
+
+
+def _mean_infer(op: Operator, block: Block):
+    set_out(op, block, "Out", [], in_var(op, block, "X").dtype)
+
+
+@register_op("mean", infer=_mean_infer)
+def _mean(ctx: LowerContext, op: Operator):
+    """The mean of every element: Out has shape []."""
+    ctx.set_output(op, "Out", ctx.get_input(op, "X").mean())
 
 
 def _sum_infer(op: Operator, block: Block):

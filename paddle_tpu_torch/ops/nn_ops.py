@@ -1,8 +1,8 @@
-"""Neural-network op lowerings in PyTorch: ``layer_norm``,
+"""Neural-network op lowerings in PyTorch: ``layer_norm``, ``rms_norm``,
 ``softmax_with_cross_entropy`` and ``dropout``.
 
 Counterpart of the same ops in ``paddle_tpu/ops/nn_ops.py``, with the
-same formulas: layer-norm statistics in float32, the loss as
+same formulas: normalisation statistics in float32, the loss as
 ``logsumexp(logits) - logits[label]`` (the numerically stable form), and
 dropout's keep test on uint8 random bits.
 """
@@ -47,6 +47,22 @@ def _layer_norm(ctx, op):
     ctx.set_output(op, "Y", y.to(x.dtype))
     ctx.set_output(op, "Mean", mean.reshape(-1))
     ctx.set_output(op, "Variance", var.reshape(-1))
+
+
+@register_op("rms_norm", infer=lambda op, block: set_out(
+    op, block, "Y", in_var(op, block, "X").shape,
+    in_var(op, block, "X").dtype))
+def _rms_norm(ctx, op):
+    """RMSNorm over the last dim: statistics in float32, output in X's
+    dtype."""
+    x = ctx.get_input(op, "X")
+    scale = ctx.get_input(op, "Scale")
+    eps = op.attr("epsilon", 1e-6)
+    xf = x.float()
+    y = xf / torch.sqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    if scale is not None:
+        y = y * scale
+    ctx.set_output(op, "Y", y.to(x.dtype))
 
 
 def _swce_infer(op, block):

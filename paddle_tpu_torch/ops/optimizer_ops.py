@@ -1,10 +1,10 @@
-"""Optimizer op lowerings: ``adam`` on a dense gradient.
+"""Optimizer op lowerings: ``adam`` and ``adamw`` on a dense gradient.
 
-Counterpart of ``paddle_tpu/ops/optimizer_ops.py:97-147``.  A pure update
-(param, grad, state) -> (param', state') in float32; the executor writes
-the new tensors back into the scope, so nothing is updated in place.
-Registered grad=None with its aliased outputs as ``stateful_outputs``.
-The SelectedRows / ``lazy_mode`` path and ``adamw`` wait.
+Counterpart of ``paddle_tpu/ops/optimizer_ops.py:97-147,196-199``.  A
+pure update (param, grad, state) -> (param', state') in float32; the
+executor writes the new tensors back into the scope, so nothing is
+updated in place.  Registered grad=None with their aliased outputs as
+``stateful_outputs``.  The SelectedRows / ``lazy_mode`` path waits.
 """
 from __future__ import annotations
 
@@ -25,9 +25,9 @@ def _adam_infer(op: Operator, block: Block):
             set_out(op, block, out_slot, src.shape, src.dtype)
 
 
-@register_op("adam", infer=_adam_infer, grad=None,
-             stateful_outputs=tuple(a for a, _ in _ADAM_ALIASES))
 def _adam(ctx: LowerContext, op: Operator):
+    """Adam; ``adamw`` first decays the parameter, p * (1 - lr * coeff)
+    (decoupled weight decay; ``with_decay`` False sets coeff to 0)."""
     p = ctx.get_input(op, "Param")
     g = ctx.get_input(op, "Grad").float()
     m1 = ctx.get_input(op, "Moment1")
@@ -42,6 +42,10 @@ def _adam(ctx: LowerContext, op: Operator):
     if op.single_input("Beta2Tensor"):
         b2 = ctx.get_input(op, "Beta2Tensor")
     eps = op.attr("epsilon", 1e-8)
+    if op.type == "adamw":
+        coeff = op.attr("coeff", 0.01) if op.attr("with_decay", True) \
+            else 0.0
+        p = p * (1.0 - lr * coeff)
     m1n = b1 * m1 + (1 - b1) * g
     m2n = b2 * m2 + (1 - b2) * g * g
     # lr_t = lr * sqrt(1 - b2^t) / (1 - b1^t), as the reference's adam_op
@@ -52,3 +56,8 @@ def _adam(ctx: LowerContext, op: Operator):
     ctx.set_output(op, "Moment2Out", m2n)
     ctx.set_output(op, "Beta1PowOut", b1p * b1)
     ctx.set_output(op, "Beta2PowOut", b2p * b2)
+
+
+for _t in ("adam", "adamw"):
+    register_op(_t, infer=_adam_infer, lower=_adam, grad=None,
+                stateful_outputs=tuple(a for a, _ in _ADAM_ALIASES))

@@ -1,10 +1,12 @@
 """Tensor creation / manipulation op lowerings in PyTorch.
 
 Counterpart of ``paddle_tpu/ops/tensor_ops.py`` for the ops on the BERT
-path: ``fill_constant``, ``fill_any_like``, ``uniform_random``, ``range``,
-``squeeze2``/``unsqueeze2``, ``lookup_table_v2``, ``where`` and, for the
+and Llama paths: ``fill_constant``, ``fill_any_like``, ``uniform_random``,
+``range``, ``reshape2``/``transpose2``, ``squeeze2``/``unsqueeze2``,
+``slice``, ``tile``, ``lookup_table_v2``, ``where`` and, for the
 masked-gather MLM head, ``expand``, ``stack`` and ``gather_nd``.
-Randomness comes from a per-op ``torch.Generator`` (LowerContext.rng); it
+Reshape, transpose and slice return views where PyTorch can, as the JAX
+package leaves layout to XLA.  Randomness comes from a per-op ``torch.Generator`` (LowerContext.rng); it
 draws other numbers than jax.random from the same seed.
 """
 from __future__ import annotations
@@ -80,6 +82,127 @@ def _uniform_random(ctx, op):
     u = torch.rand(shape, generator=ctx.rng(op), dtype=torch.float32,
                    device=ctx.device)
     ctx.set_output(op, "Out", (u * (hi - lo) + lo).to(dtype))
+
+
+# ---------------------------------------------------------------------------
+# reshape / transpose / slice / tile
+# ---------------------------------------------------------------------------
+
+def _infer_reshape_shape(in_shape, target):
+    """Paddle's reshape target: 0 copies the input dim, one -1 takes the
+    rest."""
+    target = list(target)
+    if -1 in target:
+        known = 1
+        for s in target:
+            if s not in (-1, 0):
+                known *= s
+        for i, s in enumerate(target):
+            if s == 0:
+                target[i] = in_shape[i]
+                known *= in_shape[i]
+        total = int(np.prod([s for s in in_shape]))
+        target[target.index(-1)] = (total // known) if known else -1
+    else:
+        for i, s in enumerate(target):
+            if s == 0:
+                target[i] = in_shape[i]
+    return target
+
+
+def _reshape_infer(op: Operator, block: Block):
+    x = in_var(op, block, "X")
+    shape = op.attr("shape", [])
+    if -1 in (x.shape or ()):  # dynamic batch flows through
+        out = list(shape)
+        for i, s in enumerate(out):
+            if s == 0:
+                out[i] = x.shape[i]
+    else:
+        out = _infer_reshape_shape(list(x.shape), shape)
+    set_out(op, block, "Out", out, x.dtype)
+    if op.output("XShape"):
+        set_out(op, block, "XShape", [0] + list(x.shape), x.dtype)
+
+
+def _reshape_lower(ctx: LowerContext, op: Operator):
+    x = ctx.get_input(op, "X")
+    if op.single_input("Shape"):
+        shape = [int(s) for s in ctx.get_input(op, "Shape").tolist()]
+    else:
+        shape = list(op.attr("shape", []))
+    ctx.set_output(op, "Out", x.reshape(
+        _infer_reshape_shape(list(x.shape), shape)))
+    if op.output("XShape"):
+        ctx.set_output(op, "XShape", x.new_zeros((0,)))
+
+
+register_op("reshape2", infer=_reshape_infer, lower=_reshape_lower)
+
+
+def _transpose_infer(op, block):
+    x = in_var(op, block, "X")
+    axis = op.attr("axis", [])
+    set_out(op, block, "Out", [x.shape[a] for a in axis], x.dtype)
+    if op.output("XShape"):
+        set_out(op, block, "XShape", [0] + list(x.shape), x.dtype)
+
+
+def _transpose_lower(ctx, op):
+    x = ctx.get_input(op, "X")
+    ctx.set_output(op, "Out", x.permute(*op.attr("axis", [])))
+    if op.output("XShape"):
+        ctx.set_output(op, "XShape", x.new_zeros((0,)))
+
+
+register_op("transpose2", infer=_transpose_infer, lower=_transpose_lower)
+
+
+def _slice_infer(op, block):
+    x = in_var(op, block, "Input")
+    axes = op.attr("axes", [])
+    starts, ends = op.attr("starts", []), op.attr("ends", [])
+    out = list(x.shape)
+    for a, s, e in zip(axes, starts, ends):
+        dim = x.shape[a]
+        if dim == -1:
+            continue
+        s = max(s + dim, 0) if s < 0 else min(s, dim)
+        e = max(e + dim, 0) if e < 0 else min(e, dim)
+        out[a] = max(e - s, 0)
+    for a in sorted(op.attr("decrease_axis", []), reverse=True):
+        out.pop(a)
+    set_out(op, block, "Out", out, x.dtype)
+
+
+@register_op("slice", infer=_slice_infer)
+def _slice(ctx, op):
+    x = ctx.get_input(op, "Input")
+    idx = [slice(None)] * x.dim()
+    for a, s, e in zip(op.attr("axes", []), op.attr("starts", []),
+                       op.attr("ends", [])):
+        idx[a] = slice(s, e if e < np.iinfo(np.int32).max else None)
+    out = x[tuple(idx)]
+    for a in sorted(op.attr("decrease_axis", []), reverse=True):
+        if out.shape[a] != 1:
+            raise ValueError(f"slice: decrease_axis {a} has size "
+                             f"{out.shape[a]}, not 1")
+        out = out.squeeze(a)
+    ctx.set_output(op, "Out", out)
+
+
+def _tile_infer(op, block):
+    x = in_var(op, block, "X")
+    times = op.attr("repeat_times", [])
+    xs = [1] * (len(times) - len(x.shape)) + list(x.shape)
+    set_out(op, block, "Out",
+            [s * t for s, t in zip(xs, times)] or x.shape, x.dtype)
+
+
+@register_op("tile", infer=_tile_infer)
+def _tile(ctx, op):
+    ctx.set_output(op, "Out", torch.tile(ctx.get_input(op, "X"),
+                                         tuple(op.attr("repeat_times", []))))
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
-"""Static-graph optimizers: ``Optimizer`` and ``AdamOptimizer``.
+"""Static-graph optimizers: ``Optimizer``, ``AdamOptimizer`` and ``AdamW``.
 
-Counterpart of ``paddle_tpu/optimizer.py:34-152`` and ``:323-358``.
+Counterpart of ``paddle_tpu/optimizer.py:34-152`` and ``:323-384``.
 ``minimize(loss)`` = append_backward + clip + regularization + one
 optimizer op per parameter, with the accumulators (moments, beta powers)
 as persistable vars filled by the startup program.  The dygraph branches,
@@ -16,7 +16,7 @@ from .framework.core import (OpRole, Program, Variable, default_main_program,
 from .framework.initializer import ConstantInitializer
 from .regularizer import append_regularization_ops
 
-__all__ = ["Optimizer", "Adam", "AdamOptimizer"]
+__all__ = ["Optimizer", "Adam", "AdamOptimizer", "AdamW"]
 
 
 class Optimizer:
@@ -134,7 +134,36 @@ class AdamOptimizer(Optimizer):
                      "Moment2Out": [m2], "Beta1PowOut": [b1p],
                      "Beta2PowOut": [b2p]},
             attrs={"beta1": self._beta1, "beta2": self._beta2,
-                   "epsilon": self._epsilon})
+                   "epsilon": self._epsilon, **self._extra_attrs()})
+
+    def _extra_attrs(self):
+        return {}
+
+
+class AdamW(AdamOptimizer):
+    """Adam with decoupled weight decay (the ``adamw`` op): the parameter
+    is scaled by 1 - lr * weight_decay before the Adam update.  A
+    parameter for which ``apply_decay_param_fun(name)`` is false is not
+    decayed (``with_decay`` False on its op)."""
+    op_type = "adamw"
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, weight_decay=0.01, apply_decay_param_fun=None,
+                 **kwargs):
+        kwargs.pop("coeff", None)
+        super().__init__(learning_rate, beta1, beta2, epsilon, **kwargs)
+        self._coeff = weight_decay
+        self._apply_decay_param_fun = apply_decay_param_fun
+
+    def _extra_attrs(self):
+        return {"coeff": self._coeff}
+
+    def _append_optimize_op(self, param, grad, lr):
+        op = super()._append_optimize_op(param, grad, lr)
+        if self._apply_decay_param_fun is not None and \
+                not self._apply_decay_param_fun(param.name):
+            op.attrs["with_decay"] = False
+        return op
 
 
 Adam = AdamOptimizer

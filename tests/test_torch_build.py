@@ -10,7 +10,7 @@ from paddle_tpu_torch.ops.cuda import build
 
 def test_every_source_builds_for_sm_90a_into_the_ignored_build_dir():
     names = build.sources()
-    assert "flash_attention_packed_fwd" in names
+    assert {"flash_attention_fwd", "flash_attention_bwd"} <= set(names)
     for name in names:
         out = build.library_path(name)
         assert os.path.dirname(out) == build.BUILD_DIR

@@ -225,3 +225,163 @@ def test_backward_wrapper_rejects_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         tfa.flash_attention_packed_backward(qkv.half(), bias, out.half(),
                                             lse, dout.half(), 2)
+
+
+# ---------------------------------------------------------------------------
+# unpacked kernels (#4-#6 of the TPU kernel table): q [B,H,Sq,D], k/v
+# [B,H,Sk,D], read through their strides
+# ---------------------------------------------------------------------------
+
+def _unpacked_inputs(B, H, Sq, Sk, D, with_bias, dtype, device, seed,
+                     views):
+    """q, k, v (as [B,H,S,D] views of [B,S,H,D] buffers when `views`, as
+    the port's transpose2 and rope leave them; contiguous otherwise), a
+    bias with an all-padding last row, and a cotangent."""
+    rng = np.random.RandomState(seed)
+
+    def heads(S):
+        x = torch.from_numpy(rng.randn(B, S, H, D).astype("float32"))
+        x = x.to(device, getattr(torch, dtype)).transpose(1, 2)
+        return x if views else x.contiguous()
+
+    q, k, v, dout = heads(Sq), heads(Sk), heads(Sk), heads(Sq)
+    bias = None
+    if with_bias:
+        mask = (rng.rand(B, Sk) > 0.2).astype("float32")
+        mask[-1] = 0.0
+        bias = torch.from_numpy(mask * 1e4 - 1e4).to(device)
+    return q, k, v, bias, dout
+
+
+UNPACKED_CASES = [
+    # (B, H, Sq, Sk, D, causal, with_bias, views)
+    (2, 4, 128, 128, 64, True, False, True),
+    (2, 2, 100, 100, 128, True, True, False),
+    (2, 2, 128, 384, 64, False, True, True),
+    (1, 2, 384, 128, 128, True, False, True),
+    (3, 2, 64, 100, 64, False, False, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Sq,Sk,D,causal,with_bias,views",
+                         UNPACKED_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_unpacked_kernels_match_plain_versions(cuda, B, H, Sq, Sk, D,
+                                               causal, with_bias, views,
+                                               dtype):
+    """Forward (out, lse) and backward (dq, dk, dv, dbias) on the card
+    against the plain versions on the same rounded inputs in float32.
+    Tolerances as for the packed kernels: fp32 out 2e-5, lse 1e-5, grads
+    1e-4; bf16 out 2e-2, grads 5e-2 (the kernels' output rounding); the
+    all-padding row of out to half an fp32 ulp at 1e4 (or the bf16
+    tolerance), its lse to one ulp, its grads to 2**-6."""
+    q, k, v, bias, dout = _unpacked_inputs(B, H, Sq, Sk, D, with_bias,
+                                           dtype, cuda, B * Sq + Sk + D,
+                                           views)
+    before = (tfa.flash_attention_unpacked.launches,
+              tfa.flash_attention_unpacked_dkv.launches,
+              tfa.flash_attention_unpacked_dq.launches)
+    out, lse = tfa.flash_attention_unpacked(q, k, v, bias, causal)
+    dq, dk, dv, dbias = tfa.flash_attention_unpacked_backward(
+        q, k, v, bias, out, lse, dout, causal)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention_unpacked.launches,
+            tfa.flash_attention_unpacked_dkv.launches,
+            tfa.flash_attention_unpacked_dq.launches) == tuple(
+                n + 1 for n in before)
+    f = [t.float() for t in (q, k, v)]
+    ref_out, ref_lse = tfa.flash_attention_reference(*f, bias, causal)
+    ref = tfa.flash_attention_backward_reference(
+        *f, bias, out.float(), lse, dout.float(), causal)
+    fp32 = dtype == "float32"
+    live = slice(0, B - 1) if with_bias else slice(0, B)
+    out_tol, grad_tol = (2e-5, 1e-4) if fp32 else (2e-2, 5e-2)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert (out.float() - ref_out)[live].abs().max().item() <= out_tol
+    assert (lse - ref_lse)[live].abs().max().item() <= 1e-5
+    for got, want in zip((dq, dk, dv), ref[:3]):
+        assert got.dtype == q.dtype and got.shape == want.shape
+        assert torch.isfinite(got.float()).all()
+        assert (got.float() - want.float())[live].abs().max().item() \
+            <= grad_tol
+    if with_bias:
+        assert (dbias - ref[3])[live].abs().max().item() <= 1e-4
+        assert (out.float() - ref_out)[-1].abs().max().item() <= max(
+            out_tol, 2.0 ** -11)
+        assert (lse - ref_lse)[-1].abs().max().item() <= 2.0 ** -10
+        for got, want in zip((dq, dk, dv, dbias), ref):
+            assert (got.float() - want.float())[-1].abs().max().item() <= \
+                max(grad_tol, 2.0 ** -6)
+    else:
+        assert dbias is None
+
+
+@pytest.mark.cuda
+def test_unpacked_wrapper_rejects_what_the_kernels_do_not_take(cuda):
+    def t(*shape, dtype=torch.float32):
+        return torch.randn(*shape, device=cuda, dtype=dtype)
+
+    q = t(1, 2, 32, 64)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.flash_attention_unpacked(t(1, 2, 32, 96), t(1, 2, 32, 96),
+                                     t(1, 2, 32, 96))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tfa.flash_attention_unpacked(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError, match="one dtype"):
+        tfa.flash_attention_unpacked(q, q.bfloat16(), q)
+    with pytest.raises(ValueError, match="contiguous last dim"):
+        tfa.flash_attention_unpacked(t(1, 2, 64, 32).transpose(2, 3), q, q)
+    with pytest.raises(ValueError, match="bias"):
+        tfa.flash_attention_unpacked(q, q, q, torch.zeros(1, 31, device=cuda))
+    with pytest.raises(ValueError, match="k must be"):
+        tfa.flash_attention_unpacked(q, t(1, 2, 32, 128), q)
+    out, lse = tfa.flash_attention_unpacked(q, q, q)
+    with pytest.raises(ValueError, match="lse"):
+        tfa.flash_attention_unpacked_backward(q, q, q, None, out, lse[:, :1],
+                                              out)
+
+
+@pytest.mark.cuda
+def test_flash_attention_op_on_the_card(cuda):
+    """The flash_attention op launches the forward kernel, its grad op the
+    forward again and both backward kernels, on the card (fp32 against
+    the CPU: atol 1e-4); head_dim 96 and impl='xla' raise."""
+    import paddle_tpu_torch as tpt
+
+    def run(place, D, impl="auto"):
+        tpt.reset_unique_name()
+        main = tpt.Program()
+        block = main.global_block()
+        for n in ("q", "k", "v"):
+            block.create_var(name=n, shape=[2, 2, 80, D], dtype="float32",
+                             is_data=True, stop_gradient=False)
+        with tpt.program_guard(main, tpt.Program()):
+            out = tpt.layers.flash_attention(block.var("q"), block.var("k"),
+                                             block.var("v"), causal=True,
+                                             impl=impl)
+            loss = tpt.layers.mean(tpt.layers.elementwise_mul(out, out))
+            tpt.append_backward(loss)
+        rng = np.random.RandomState(D)
+        feed = {n: rng.randn(2, 2, 80, D).astype("float32")
+                for n in ("q", "k", "v")}
+        return tpt.Executor(place).run(
+            main, feed=feed, fetch_list=[out, "q@GRAD", "k@GRAD", "v@GRAD"],
+            scope=tpt.Scope())
+
+    before = (tfa.flash_attention_unpacked.launches,
+              tfa.flash_attention_unpacked_dkv.launches,
+              tfa.flash_attention_unpacked_dq.launches)
+    got = run(None, 64)
+    assert (tfa.flash_attention_unpacked.launches,
+            tfa.flash_attention_unpacked_dkv.launches,
+            tfa.flash_attention_unpacked_dq.launches) == (
+                before[0] + 2, before[1] + 1, before[2] + 1)
+    want = run(tpt.CPUPlace(), 64)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, atol=1e-4, rtol=0)
+    # the op's lowering wraps the wrapper's ValueError with its context
+    with pytest.raises(tpt.errors.EnforceNotMet, match="head_dim"):
+        run(None, 96)
+    with pytest.raises(NotImplementedError, match="xla"):
+        run(None, 64, impl="xla")

@@ -233,6 +233,67 @@ CASES = [
       "Beta1PowOut": ["b1o"], "Beta2PowOut": ["b2o"]},
      {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8},
      ["po", "m1o", "m2o", "b1o", "b2o"], False),
+    ("adamw_decay", "adamw",
+     {"Param": {"p": _f(4, 3)}, "Grad": {"g": _f(4, 3) * 0.1},
+      "Moment1": {"m1": _f(4, 3) * 0.01},
+      "Moment2": {"m2": np.abs(_f(4, 3)) * 0.01},
+      "Beta1Pow": {"b1p": np.array([0.9 ** 3], "float32")},
+      "Beta2Pow": {"b2p": np.array([0.999 ** 3], "float32")},
+      "LearningRate": {"lr": np.array([1e-1], "float32")}},
+     {"ParamOut": ["po"], "Moment1Out": ["m1o"], "Moment2Out": ["m2o"],
+      "Beta1PowOut": ["b1o"], "Beta2PowOut": ["b2o"]},
+     {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8, "coeff": 0.05},
+     ["po", "m1o", "m2o", "b1o", "b2o"], False),
+    ("adamw_without_decay", "adamw",
+     {"Param": {"p": _f(4, 3)}, "Grad": {"g": _f(4, 3) * 0.1},
+      "Moment1": {"m1": _f(4, 3) * 0.01},
+      "Moment2": {"m2": np.abs(_f(4, 3)) * 0.01},
+      "Beta1Pow": {"b1p": np.array([0.9], "float32")},
+      "Beta2Pow": {"b2p": np.array([0.999], "float32")},
+      "LearningRate": {"lr": np.array([1e-1], "float32")}},
+     {"ParamOut": ["po"], "Moment1Out": ["m1o"], "Moment2Out": ["m2o"],
+      "Beta1PowOut": ["b1o"], "Beta2PowOut": ["b2o"]},
+     {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8, "coeff": 0.05,
+      "with_decay": False}, ["po", "m1o", "m2o"], False),
+    ("rms_norm", "rms_norm",
+     {"X": {"x": _f(2, 3, 8) * 2 + 0.5}, "Scale": {"s": _f(8)}},
+     {"Y": ["y"]}, {"epsilon": 1e-6}, ["y"], False),
+    ("rope_static_offset", "rope", {"X": {"x": _f(2, 3, 5, 8)}},
+     {"Out": ["o"]}, {"base": 10000.0, "position_offset": 7}, ["o"],
+     False),
+    ("rope_offset_input", "rope",
+     {"X": {"x": _f(2, 3, 5, 8)},
+      "Offset": {"off": np.array([0, 41], "int32")}},
+     {"Out": ["o"]}, {"base": 500.0, "position_offset": 0}, ["o"], False),
+    ("silu", "silu", {"X": {"x": _f(4, 5) * 3}}, {"Out": ["o"]}, {},
+     ["o"], False),
+    ("mean", "mean", {"X": {"x": _f(3, 4, 5)}}, {"Out": ["o"]}, {},
+     ["o"], False),
+    ("reshape2", "reshape2", {"X": {"x": _f(2, 3, 4)}},
+     {"Out": ["o"], "XShape": ["xs"]}, {"shape": [0, -1, 2]}, ["o"], True),
+    ("transpose2", "transpose2", {"X": {"x": _f(2, 3, 4, 5)}},
+     {"Out": ["o"], "XShape": ["xs"]}, {"axis": [0, 2, 1, 3]}, ["o"], True),
+    ("slice", "slice", {"Input": {"x": _f(2, 3, 10)}}, {"Out": ["o"]},
+     {"axes": [2, 1], "starts": [2, -2], "ends": [7, 2147483647]}, ["o"],
+     True),
+    ("slice_decrease_axis", "slice", {"Input": {"x": _f(4, 3, 5)}},
+     {"Out": ["o"]},
+     {"axes": [0, 2], "starts": [1, 0], "ends": [2, 3],
+      "decrease_axis": [0]}, ["o"], True),
+    ("tile", "tile", {"X": {"x": _f(2, 1, 3)}}, {"Out": ["o"]},
+     {"repeat_times": [1, 4, 2]}, ["o"], True),
+    ("tile_more_dims", "tile", {"X": {"x": _f(2, 3)}}, {"Out": ["o"]},
+     {"repeat_times": [2, 1, 2]}, ["o"], True),
+    ("flash_attention_causal", "flash_attention",
+     {"Q": {"q": _f(2, 2, 24, 16)}, "K": {"k": _f(2, 2, 24, 16)},
+      "V": {"v": _f(2, 2, 24, 16)}},
+     {"Out": ["o"]}, {"causal": True, "impl": "auto"}, ["o"], False),
+    ("flash_attention_bias_sq_ne_sk", "flash_attention",
+     {"Q": {"q": _f(2, 2, 8, 16)}, "K": {"k": _f(2, 2, 24, 16)},
+      "V": {"v": _f(2, 2, 24, 16)},
+      "Bias": {"bias": np.where(R.rand(2, 1, 1, 24) > 0.3, 0.0, -1e4)
+               .astype("float32")}},
+     {"Out": ["o"]}, {"causal": False, "scale": 0.3}, ["o"], False),
     ("expand", "expand", {"X": {"x": _f(3, 1)}}, {"Out": ["o"]},
      {"expand_times": [2, 4]}, ["o"], True),
     ("stack", "stack", {"X": {"a": _f(2, 3), "b": _f(2, 3)}},
@@ -437,6 +498,36 @@ GRAD_CASES = [
     ("dropout_p0", "dropout", {"X": {"x": _f(3, 4)}}, {"Out": ["o"]},
      {"dropout_prob": 0.0, "is_test": False,
       "dropout_implementation": "upscale_in_train"}, "o", ["x"], (3, 4)),
+    ("rms_norm", "rms_norm",
+     {"X": {"x": _f(2, 3, 8) * 2 + 0.5}, "Scale": {"s": _f(8)}},
+     {"Y": ["o"]}, {"epsilon": 1e-6}, "o", ["x", "s"], (2, 3, 8)),
+    ("rope", "rope", {"X": {"x": _f(2, 3, 5, 8)}}, {"Out": ["o"]},
+     {"base": 10000.0, "position_offset": 3}, "o", ["x"], (2, 3, 5, 8)),
+    ("silu", "silu", {"X": {"x": _f(4, 5) * 2}}, {"Out": ["o"]}, {}, "o",
+     ["x"], (4, 5)),
+    ("mean", "mean", {"X": {"x": _f(3, 4)}}, {"Out": ["o"]}, {}, "o",
+     ["x"], ()),
+    ("reshape2", "reshape2", {"X": {"x": _f(2, 3, 4)}},
+     {"Out": ["o"], "XShape": ["xs"]}, {"shape": [0, 12]}, "o", ["x"],
+     (2, 12)),
+    ("transpose2", "transpose2", {"X": {"x": _f(2, 3, 4)}},
+     {"Out": ["o"], "XShape": ["xs"]}, {"axis": [1, 0, 2]}, "o", ["x"],
+     (3, 2, 4)),
+    ("slice", "slice", {"Input": {"x": _f(2, 3, 10)}}, {"Out": ["o"]},
+     {"axes": [2], "starts": [3], "ends": [8]}, "o", ["x"], (2, 3, 5)),
+    ("tile", "tile", {"X": {"x": _f(2, 1, 3)}}, {"Out": ["o"]},
+     {"repeat_times": [1, 2, 1]}, "o", ["x"], (2, 2, 3)),
+    ("flash_attention_causal", "flash_attention",
+     {"Q": {"q": _f(2, 2, 24, 16)}, "K": {"k": _f(2, 2, 24, 16)},
+      "V": {"v": _f(2, 2, 24, 16)}},
+     {"Out": ["o"]}, {"causal": True}, "o", ["q", "k", "v"], (2, 2, 24, 16)),
+    ("flash_attention_bias", "flash_attention",
+     {"Q": {"q": _f(2, 2, 8, 16)}, "K": {"k": _f(2, 2, 24, 16)},
+      "V": {"v": _f(2, 2, 24, 16)},
+      "Bias": {"bias": np.where(R.rand(2, 24) > 0.3, 0.0, -1e4)
+               .astype("float32")}},
+     {"Out": ["o"]}, {"causal": False}, "o", ["q", "k", "v", "bias"],
+     (2, 2, 8, 16)),
     ("flash_attention_qkv", "flash_attention_qkv",
      {"QKV": {"qkv": _f(2, 16, 3 * 128)},
       "Bias": {"bias": np.where(R.rand(2, 16) > 0.3, 0.0, -1e4)
@@ -453,7 +544,7 @@ GRAD_CASES = [
 @pytest.mark.parametrize("case", GRAD_CASES, ids=[c[0] for c in GRAD_CASES])
 def test_auto_grad_matches_jax_vjp(case):
     _id, op_type, inputs, outputs, attrs, out_name, wrt, shape = case
-    cot = R.randn(*shape).astype("float32")
+    cot = np.asarray(R.randn(*shape), "float32")  # shape () too
     want = _run_grad(jpt, op_type, inputs, outputs, attrs, out_name, wrt,
                      cot)
     got = _run_grad(tpt, op_type, inputs, outputs, attrs, out_name, wrt, cot)
@@ -497,3 +588,30 @@ def test_grad_accumulates_across_consumers():
     np.testing.assert_allclose(got[1][0], y + 1.0, rtol=1e-6)
     for w, g in zip(*got):
         np.testing.assert_allclose(g, np.asarray(w), atol=1e-6, rtol=1e-6)
+
+
+def test_ported_op_set_covers_the_llama_training_step():
+    """Every op of the Llama training program (and its startup) is
+    lowered and has a forward case here; the differentiable ones a grad
+    case too."""
+    from paddle_tpu_torch.ops.registry import all_registered_ops
+
+    llama = {"rms_norm", "mul", "slice", "reshape2", "transpose2", "rope",
+             "tile", "flash_attention", "elementwise_add", "silu",
+             "elementwise_mul", "lookup_table_v2", "unsqueeze2",
+             "softmax_with_cross_entropy", "squeeze2", "mean", "adamw",
+             "fill_constant", "uniform_random"}
+    assert llama <= set(all_registered_ops())
+    assert llama <= {c[1] for c in CASES} | {"uniform_random"}
+    assert llama - {"adamw", "fill_constant", "uniform_random"} <= {
+        c[1] for c in GRAD_CASES}
+
+
+def test_flash_attention_xla_impl_raises():
+    """impl='xla' (the einsum formulation) is not ported: it raises
+    instead of running another formulation."""
+    q = _f(1, 2, 8, 16)
+    with pytest.raises(NotImplementedError, match="xla"):
+        _run(tpt, "flash_attention", {"Q": {"q": q}, "K": {"k": q},
+                                      "V": {"v": q}},
+             {"Out": ["o"]}, {"impl": "xla"}, ["o"])
