@@ -8,7 +8,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; TF32 off for matmuls and cuDNN.
 2. build: every CUDA source under paddle_tpu_torch/csrc/ with nvcc for
-   sm_90a (one nvcc per source, started together), timed, then loaded.
+   sm_90a (one nvcc per source, started together), timed, then loaded;
+   ptxas's registers and spills per kernel, and per library the count of
+   HGMMA (wgmma) and UTMALDG (TMA load) instructions in cuobjdump's SASS.
+   Both libraries hold a bfloat16 tensor-core kernel (forward; dQ), so
+   each must show HGMMA: the proof that the tensor cores run.
+   Each source picks its kernel by dtype: bfloat16 forward and dQ run the
+   tensor-core kernels, float32 the CUDA-core ones; dK/dV is one CUDA-core
+   kernel in both.  So the bf16 cases of phases 3 and 7 and the bf16
+   training phases 6 and 9 run the tensor-core forward and dQ, while the
+   fp32 gates (phases 4, 5, 8) run the CUDA-core kernels.
 3. packed kernels: each against its plain PyTorch version on the card,
    at BERT-base's serving shape (B=4, S=128, H=768, 12 heads), at the
    flagship training shape (B=8, S=512, H=768, 12 heads: 8 kv and 8 q
@@ -16,7 +25,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    and without bias, causal and not, one all-padding bias row; fp32 and
    bf16 (bf16 against the fp32 plain version on the same bf16-rounded
    inputs).
-   * forward: fp32 out atol 2e-5, lse atol 1e-5; bf16 out atol 2e-2.
+   * forward: fp32 out atol 2e-5, lse atol 1e-5; bf16 out atol 2e-2
+     (a causal row's first keys give outputs up to ~3, and the bf16
+     output rounds them by 2**-9 relative).
      The all-padding row's scores sit near -1e4, where one fp32 ulp is
      2**-10, so that row is held to half an ulp (out) and one ulp (lse).
    * backward (dK/dV and dQ kernels): fp32 dqkv atol 1e-4 (sums of up to
@@ -26,6 +37,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      1e-4, float32 on both sides.  In the all-padding row p = exp(s -
      lse) has s and lse near -1e4, good to ~2**-9 relative, so that row
      is held to 2**-6.
+   * bf16 out, dq, dk and dv also relative to their own size: per (batch,
+     head, block of 128 rows) ||got - ref|| / ||ref|| <= 1e-2 over the
+     live batch rows.  A row over n keys has values near sqrt(e / n),
+     which at S 512-2048 are as small as the absolute limits; the
+     tensor-core kernels round P (forward) or dS (dQ) to bf16 before the
+     second product (~2**-9 relative a term) and the output again: ~4e-3.
    Then times with CUDA events: the forward at BERT-base's serving shape
    (fp32) and at the flagship training shape (bf16), the backward
    kernels at the flagship shape (bf16, and fp32), each beside its plain
@@ -67,9 +84,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    all-padding row, on contiguous tensors and on the [B, H, S, D] views of
    [B, S, H, D] buffers that transpose2 and rope leave; fp32 and bf16.
    Tolerances as in phase 3 and for the same reasons: fp32 out 2e-5, lse
-   1e-5, grads 1e-4; bf16 out 2e-2, grads 5e-2 (output rounding); dbias
-   1e-4; the all-padding row half / one fp32 ulp at 1e4 (out / lse) and
-   2**-6 (grads).  Then times with CUDA events at the Llama shape (bf16,
+   1e-5, grads 1e-4; bf16 out 2e-2, grads 5e-2 (output rounding) and
+   1e-2 relative per 128-row block; dbias 1e-4; the all-padding row half /
+   one fp32 ulp at 1e4 (out / lse) and 2**-6 (grads).  Then times with
+   CUDA events at the Llama shape (bf16,
    causal): the three kernels, their plain versions, and
    scaled_dot_product_attention(is_causal=True) forward and its backward
    through torch.autograd.grad as the yardstick; the timed results are
@@ -89,9 +107,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    moments), batch 1, seq 2048, bf16 AMP, AdamW(1e-4, weight_decay 0.01)
    as __graft_entry__.py builds it, random token ids from a numpy seed;
    6 steps.  Each step's host time (ending in the loss fetch) and
-   tokens/s, a finite loss at every step, peak device memory, exactly
-   8 / 4 / 4 launches of the unpacked kernels per step, none of the packed
-   ones, no call of a plain version; then a profiled step.
+   tokens/s, a finite loss at every step, within 1e-3 (relative) of the
+   losses the CUDA-core kernels gave on the same seeds before the
+   tensor-core ones replaced them (LLAMA_LOSSES_CUDA_CORES; bf16 rounds at
+   other places in the new kernels), peak device memory,
+   exactly 8 / 4 / 4 launches of the unpacked kernels per step, none of the
+   packed ones, no call of a plain version; then a profiled step.
+
+On every path (phases 4, 5, 6, 8, 9) no bfloat16 operand is copied to
+meet TMA's 16-byte alignment: the launching wrappers' ".realigned"
+counts stay 0.
 
 The "launches" of each kernel in the kernels line is its count on its
 slice's main path: phase 6 (BERT training) for the packed kernels,
@@ -105,6 +130,7 @@ JSON line, and {"ok": true, "device": {...}}.
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -127,6 +153,15 @@ FP32_OUT_ATOL, FP32_LSE_ATOL, BF16_OUT_ATOL = 2e-5, 1e-5, 2e-2
 DEAD_OUT_ATOL, DEAD_LSE_ATOL = 2.0 ** -11, 2.0 ** -10
 FP32_DQKV_ATOL, BF16_DQKV_ATOL, DBIAS_ATOL = 1e-4, 5e-2, 1e-4
 DEAD_GRAD_ATOL = 2.0 ** -6
+# bf16 out and grads also held relative to their own size, per (batch,
+# head, block of REL_BLOCK rows): ||got - ref|| / ||ref||.  The absolute
+# limits are set by a causal row's first keys, where values are O(1); a
+# row over n keys has values near sqrt(e / n), 0.035-0.05 at S 2048, as
+# small as the limits themselves.  Rounding P (forward) or dS (dQ) to bf16
+# costs ~2**-9 relative a term and the bf16 output another 2**-9: ~4e-3
+# together, inside 1e-2.
+BF16_REL_LIMIT, REL_BLOCK = 1e-2, 128
+REL_NAMES = ("out", "dq", "dk", "dv")
 LOGITS_ATOL, LOSS_RTOL = 1e-3, 1e-4
 
 # bench.py's training step (_run_config_once) and its BENCH_BF16_STREAM
@@ -157,6 +192,15 @@ LLAMA_PARITY = dict(LLAMA, num_layers=1, batch_size=2, seq_len=128)
 LLAMA_PARITY_LR = 1e-3
 LLAMA_FLAGSHIP = dict(LLAMA, num_layers=4, batch_size=1, seq_len=2048)
 LLAMA_FLAGSHIP_LR = 1e-4
+# phase 9's six losses with the attention kernels on the CUDA cores
+# throughout (before the bf16 forward and dQ moved to the tensor cores), on
+# one H100 80GB HBM3 at 700 W: the yardstick of the tensor-core kernels'
+# losses on the same seeds.  Those read 10.49628, 10.48460, 10.48037,
+# 9.89261, 9.86534, 9.88588 in every run on that card, at most 4.71e-5
+# relative from these; the limit is about 20 times that.
+LLAMA_LOSSES_CUDA_CORES = (10.49620, 10.48460, 10.48037, 9.89279, 9.86580,
+                           9.88604)
+LLAMA_LOSS_RTOL = 1e-3
 # the unpacked kernels' grads in fp32 and bf16 (as the packed ones')
 FP32_GRAD_ATOL, BF16_GRAD_ATOL = 1e-4, 5e-2
 
@@ -185,6 +229,32 @@ def cuda_ms(fn, iters, warmup=10):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def block_rel_err(got, want):
+    """max over (batch, head, block of REL_BLOCK rows) of ||got - want|| /
+    ||want|| for [B, H, S, D] tensors: inf where want is 0 and got is not,
+    0 where both are."""
+    import torch
+    import torch.nn.functional as F
+
+    B, H, S, D = want.shape
+    pad = -S % REL_BLOCK
+    diff, ref = (F.pad(t, (0, 0, 0, pad)).reshape(B, H, -1, REL_BLOCK * D)
+                 for t in (got.float() - want.float(), want.float()))
+    num, den = diff.norm(dim=-1), ref.norm(dim=-1)
+    return torch.where(num == 0, torch.zeros_like(num), num / den).max().item()
+
+
+def packed_rel_errs(got, want, nh, H):
+    """block_rel_err of each H-wide column block of packed [B, S, n * H]
+    tensors (out; or the q, k and v blocks of d(qkv)), heads split out."""
+    def heads(x):
+        B, S, _ = x.shape
+        return x.reshape(B, S, nh, H // nh).transpose(1, 2)
+
+    return [block_rel_err(heads(got[..., j:j + H]), heads(want[..., j:j + H]))
+            for j in range(0, got.shape[-1], H)]
 
 
 def kernel_cases():
@@ -236,6 +306,10 @@ def check_kernel(fa, device):
         ok = out_live <= tol and lse_live <= FP32_LSE_ATOL
         msg = (f"  {name}: out max|err| {out_live:.3e} (atol {tol:g}), "
                f"lse {lse_live:.3e} (atol {FP32_LSE_ATOL:g})")
+        if dtype == "bfloat16":
+            rel, = packed_rel_errs(out[live], ref_out[live], nh, H)
+            ok = ok and rel <= BF16_REL_LIMIT
+            msg += f", out rel {rel:.3e} (limit {BF16_REL_LIMIT:g})"
         if bias is not None:
             out_dead = err[B - 1].max().item()
             lse_dead = lerr[B - 1].max().item()
@@ -329,6 +403,11 @@ def check_backward(fa, device):
         live_err = err[live].max().item()
         ok = live_err <= tol and bool(torch.isfinite(dqkv.float()).all())
         msg = f"  {name}: dqkv max|err| {live_err:.3e} (atol {tol:g})"
+        if dtype == "bfloat16":
+            rel = packed_rel_errs(dqkv[live], ref[live], nh, H)
+            ok = ok and max(rel) <= BF16_REL_LIMIT
+            msg += (", rel dq {:.3e}, dk {:.3e}, dv {:.3e}".format(*rel) +
+                    f" (limit {BF16_REL_LIMIT:g})")
         if bias is not None:
             db_err = (dbias - ref_db)[live].abs().max().item()
             dead = max(err[B - 1].max().item(),
@@ -388,6 +467,13 @@ def time_backward(fa, device, dtype):
     err = (dqkv.float() - ref).abs()
     db_err = (dbias - ref_db).abs().max().item()
     tol = FP32_DQKV_ATOL if dtype == "float32" else BF16_DQKV_ATOL
+    if dtype == "bfloat16":
+        rel = packed_rel_errs(dqkv, ref, nh, H)
+        log("  rel dq {:.3e}, dk {:.3e}, dv {:.3e}".format(*rel) +
+            f" (limit {BF16_REL_LIMIT:g})")
+        if not max(rel) <= BF16_REL_LIMIT:
+            raise AssertionError("backward kernels disagree with their plain "
+                                 "version at the flagship shape (relative)")
     elem = qkv.element_size()
     io = (qkv.numel() * elem + dout.numel() * elem + 2 * lse.numel() * 4
           + bias.numel() * 4)
@@ -444,12 +530,15 @@ def time_forward_flagship(fa, device):
                                                            nh)
     out_err = (out.float() - ref_out).abs().max().item()
     lse_err = (lse - ref_lse).abs().max().item()
+    rel, = packed_rel_errs(out, ref_out, nh, H)
     log(f"  forward at B={B} S={S} H={H} nh={nh} bfloat16 with bias: kernel "
         f"{ms:.5f} ms, sdpa {lib_ms:.5f} ms, bound "
         f"{flops / PEAK_FLOP_PER_S['bfloat16'] * 1e3:.5f} ms (operations); "
-        f"out max|err| {out_err:.3e} (atol {BF16_OUT_ATOL:g}), lse "
-        f"{lse_err:.3e} (atol {FP32_LSE_ATOL:g})")
-    if not (out_err <= BF16_OUT_ATOL and lse_err <= FP32_LSE_ATOL):
+        f"out max|err| {out_err:.3e} (atol {BF16_OUT_ATOL:g}), rel "
+        f"{rel:.3e} (limit {BF16_REL_LIMIT:g}), lse {lse_err:.3e} (atol "
+        f"{FP32_LSE_ATOL:g})")
+    if not (out_err <= BF16_OUT_ATOL and lse_err <= FP32_LSE_ATOL and
+            rel <= BF16_REL_LIMIT):
         raise AssertionError("forward kernel disagrees with its plain "
                              "version at the flagship shape")
 
@@ -500,7 +589,9 @@ def unpacked_inputs(B, H, Sq, Sk, D, bias_kind, views, seed, device, dtype):
 def unpacked_errors(fa, q, k, v, bias, dout, causal, out, lse, grads):
     """Max abs errors of (out, lse, dq, dk, dv, dbias) against the plain
     versions on the same (rounded) inputs in float32, over the live batch
-    rows and over the all-padding row (None without a bias)."""
+    rows and over the all-padding row (None without a bias); in bf16 also
+    the block_rel_err of (out, dq, dk, dv) over the live rows (else
+    None)."""
     f = [t.float() for t in (q, k, v)]
     ref_out, ref_lse = fa.flash_attention_reference(*f, bias, causal)
     ref = fa.flash_attention_backward_reference(
@@ -521,7 +612,11 @@ def unpacked_errors(fa, q, k, v, bias, dout, causal, out, lse, grads):
             raise AssertionError("a kernel output is not finite")
         errs_live.append(e[live].max().item())
         errs_dead.append(e[B - 1].max().item() if bias is not None else 0.0)
-    return errs_live, (errs_dead if bias is not None else None)
+    rel = None
+    if q.dtype == torch.bfloat16:
+        rel = [block_rel_err(got[live], want[live])
+               for got, want in [pairs[0]] + pairs[2:5]]
+    return errs_live, (errs_dead if bias is not None else None), rel
 
 
 def unpacked_limits(dtype):
@@ -548,12 +643,16 @@ def check_unpacked(fa, device):
         grads = fa.flash_attention_unpacked_backward(q, k, v, bias, out, lse,
                                                      dout, causal)
         torch.cuda.synchronize()
-        live, dead = unpacked_errors(fa, q, k, v, bias, dout, causal, out,
-                                     lse, grads)
+        live, dead, rel = unpacked_errors(fa, q, k, v, bias, dout, causal,
+                                          out, lse, grads)
         lim_live, lim_dead = unpacked_limits(dtype)
         ok = all(e <= t for e, t in zip(live, lim_live))
         msg = "  " + name + ": " + ", ".join(
             f"{n} {e:.3e}" for n, e in zip(names, live))
+        if rel is not None:
+            ok = ok and max(rel) <= BF16_REL_LIMIT
+            msg += "; rel " + ", ".join(
+                f"{n} {e:.3e}" for n, e in zip(REL_NAMES, rel))
         if dead is not None:
             ok = ok and all(e <= t for e, t in zip(dead, lim_dead))
             msg += "; all-padding row " + ", ".join(
@@ -562,7 +661,8 @@ def check_unpacked(fa, device):
         if not ok:
             raise AssertionError(f"unpacked kernels disagree with their "
                                  f"plain versions: {name} (limits "
-                                 f"{lim_live}, all-padding row {lim_dead})")
+                                 f"{lim_live}, all-padding row {lim_dead}, "
+                                 f"bf16 rel {BF16_REL_LIMIT:g})")
         del q, k, v, dout, out, lse, grads
     torch.cuda.empty_cache()
 
@@ -611,12 +711,17 @@ def time_unpacked(fa, device):
         lib_out, (ql, kl, vl), dout, retain_graph=True), iters=10, warmup=2)
     del lib_out, ql, kl, vl
 
-    live, _ = unpacked_errors(fa, q, k, v, None, dout, True, out, lse,
-                              (dq, dk, dv, None))
+    live, _, rel = unpacked_errors(fa, q, k, v, None, dout, True, out, lse,
+                                   (dq, dk, dv, None))
     lim, _ = unpacked_limits(dtype)
-    if not all(e <= t for e, t in zip(live, lim)):
+    log("  timed results: rel " + ", ".join(
+        f"{n} {e:.3e}" for n, e in zip(REL_NAMES, rel)) +
+        f" (limit {BF16_REL_LIMIT:g})")
+    if not (all(e <= t for e, t in zip(live, lim)) and
+            max(rel) <= BF16_REL_LIMIT):
         raise AssertionError(f"unpacked kernels disagree with their plain "
-                             f"versions in the timed calls: {live}")
+                             f"versions in the timed calls: {live}, rel "
+                             f"{rel}")
     elem = q.element_size()
     tile = B * H * S * D * elem                  # one [B, H, S, D] tensor
     rows = B * H * S * 4                         # one [B, H, S] f32 row set
@@ -678,17 +783,28 @@ def plain_versions(fa):
             fa.flash_attention_backward_reference)
 
 
+def tma_wrappers(fa):
+    """The wrappers that launch a bfloat16 TMA kernel and count the
+    operands they had to copy to meet its alignment (``.realigned``)."""
+    return (fa.flash_attention_packed, fa.flash_attention_packed_dq,
+            fa.flash_attention_unpacked, fa.flash_attention_unpacked_dq)
+
+
 def reset_counts(fa):
     for w in kernel_wrappers(fa):
         w.launches = 0
+    for w in tma_wrappers(fa):
+        w.realigned = 0
     for p in plain_versions(fa):
         p.calls = 0
 
 
 def read_counts(fa):
-    """(launches of the six kernels, plain-version calls)"""
+    """(launches of the six kernels, plain-version calls, operands
+    realigned for TMA): a path must leave the last two at 0."""
     return (tuple(w.launches for w in kernel_wrappers(fa)),
-            sum(p.calls for p in plain_versions(fa)))
+            sum(p.calls for p in plain_versions(fa)),
+            sum(w.realigned for w in tma_wrappers(fa)))
 
 
 def serve(tpt, fa, workdir):
@@ -741,11 +857,14 @@ def serve(tpt, fa, workdir):
                 not (np.isfinite(out[0]).all() and np.isfinite(out[1]).all()):
             raise AssertionError(f"batch {b}: bad output {out[0].shape}")
         results[(b, s)] = out
-    counts, plain_calls = read_counts(fa)
+    counts, plain_calls, realigned = read_counts(fa)
     launches = counts[0]
     if plain_calls:
         raise AssertionError(f"a plain version ran {plain_calls} times on "
                              f"the serving path")
+    if realigned:
+        raise AssertionError(f"{realigned} operands were realigned for TMA "
+                             f"on the serving path")
     if counts != (n_attn * len(requests), 0, 0, 0, 0, 0):
         raise AssertionError(f"launches {counts} for {len(requests)} "
                              f"requests, want {n_attn * len(requests)} of "
@@ -755,7 +874,8 @@ def serve(tpt, fa, workdir):
             f"card {', '.join(f'{x:.3f}' for x in ms)} ms (first includes "
             f"one-time set-up)")
     log(f"  serving: {len(requests)} requests, {launches} kernel launches "
-        f"({n_attn} per request), plain version called {plain_calls} times")
+        f"({n_attn} per request), plain version called {plain_calls} times, "
+        f"operands realigned {realigned}")
 
     t0 = time.perf_counter()
     cpu = tpt.inference.Predictor(workdir, device="cpu")
@@ -930,11 +1050,12 @@ def train_parity(tpt, fa, what, main, startup, loss, batches, grads, lrs):
         t = time.perf_counter()
         got = card.run(main, feed=feed, fetch_list=fetch, scope=scope)
         card_s = time.perf_counter() - t
-        counts, plain = read_counts(fa)
-        if (counts, plain) != (want, 0):
+        counts, plain, realigned = read_counts(fa)
+        if (counts, plain, realigned) != (want, 0, 0):
             raise AssertionError(f"{what} parity step {step + 1}: launches "
-                                 f"{counts} and {plain} plain calls, want "
-                                 f"{want}, 0")
+                                 f"{counts}, {plain} plain calls and "
+                                 f"{realigned} realigned operands, want "
+                                 f"{want}, 0, 0")
         launches = [a + b for a, b in zip(launches, counts)]
         t = time.perf_counter()
         want_out = cpu.run(main, feed=feed, fetch_list=fetch,
@@ -1005,13 +1126,14 @@ def train_flagship(tpt, fa, what, main, startup, loss, batches, steps,
         after = read_counts(fa)
         losses.append(float(np.ravel(out[0])[0]))
         got = (tuple(a - b for a, b in zip(after[0], before[0])),
-               after[1] - before[1])
-        if got != (want, 0):
-            raise AssertionError(f"{what} step {step + 1}: launches {got}, "
-                                 f"want {want}, 0")
+               after[1] - before[1], after[2] - before[2])
+        if got != (want, 0, 0):
+            raise AssertionError(f"{what} step {step + 1}: (launches, plain "
+                                 f"calls, realigned operands) {got}, want "
+                                 f"{want}, 0, 0")
         if not np.isfinite(out[0]).all():
             raise AssertionError(f"{what} step {step + 1}: loss {out[0]}")
-    counts, plain = read_counts(fa)
+    counts, plain, realigned = read_counts(fa)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"  {steps} steps: losses {', '.join(f'{x:.5f}' for x in losses)}")
     log(f"  step time on the card (host clock, ends in the loss fetch): "
@@ -1020,11 +1142,11 @@ def train_flagship(tpt, fa, what, main, startup, loss, batches, steps,
         f"{', '.join(f'{tokens * 1e3 / x:.0f}' for x in times)}; peak "
         f"device memory {peak:.2f} GiB")
     log(f"  launches of the six kernels {counts} ({want} per step); plain "
-        f"versions called {plain} times")
+        f"versions called {plain} times; operands realigned {realigned}")
     profile_step(exe, main, scope, batches[0], loss)
     del scope
     torch.cuda.empty_cache()
-    return counts
+    return counts, losses
 
 
 def bert_parity(tpt, fa):
@@ -1074,6 +1196,33 @@ def llama_flagship(tpt, fa):
         LLAMA_FLAGSHIP["batch_size"] * LLAMA_FLAGSHIP["seq_len"])
 
 
+def compare_losses(losses):
+    """Phase 9's losses beside the CUDA-core kernels' on the same seeds:
+    within LLAMA_LOSS_RTOL relative at every step."""
+    want = LLAMA_LOSSES_CUDA_CORES
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+    log("  losses beside the CUDA-core kernels': " + ", ".join(
+        f"{a:.5f} / {b:.5f} ({r:.2e})" for a, b, r in zip(losses, want, rel))
+        + f" (limit {LLAMA_LOSS_RTOL:g} relative)")
+    if len(losses) != len(want) or \
+            not all(r <= LLAMA_LOSS_RTOL for r in rel):
+        raise AssertionError("Llama flagship losses do not track the "
+                             "CUDA-core kernels'")
+
+
+def sass_counts(build):
+    """Per library: (HGMMA, UTMALDG) instructions in its SASS, from the
+    toolkit's cuobjdump beside nvcc."""
+    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    counts = {}
+    for name in build.sources():
+        sass = subprocess.run(
+            [cuobjdump, "--dump-sass", build.library_path(name)],
+            check=True, capture_output=True, text=True, timeout=120).stdout
+        counts[name] = (sass.count("HGMMA"), sass.count("UTMALDG"))
+    return counts
+
+
 def profile_step(exe, main, scope, feed, loss):
     """Where one flagship step's time goes: torch.profiler's device time
     by kernel against the step's wall time (after the counted steps)."""
@@ -1120,8 +1269,19 @@ def main():
     log(f"[2/9] built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
     for name, text in build.build_logs.items():
         for line in text.splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
+            entry = re.search(r"Compiling.*(fa_\w*kernel)I(\w*?)Li(\d+)E",
+                              line)
+            if entry:  # the tensor-core kernels are bf16 only
+                dtype = "float" if entry.group(2) == "f" else "bf16"
+                log(f"  ptxas {name}: {entry.group(1)}<{dtype}, "
+                    f"{entry.group(3)}>")
+            elif "registers" in line or "smem" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    for name, (hgmma, utmaldg) in sass_counts(build).items():
+        log(f"  SASS {name}: {hgmma} HGMMA, {utmaldg} UTMALDG")
+        if hgmma == 0:  # both libraries hold a bf16 tensor-core kernel
+            raise AssertionError(f"no wgmma (HGMMA) in {name}'s SASS: the "
+                                 f"bf16 kernels do not use the tensor cores")
 
     log("[3/9] packed kernels against their plain versions")
     check_kernel(fa, device)
@@ -1144,7 +1304,7 @@ def main():
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
     log("[6/9] bench.py's seq-512 training step on the card (bf16 AMP)")
-    by_path["training_flagship"] = bert_flagship(tpt, fa)
+    by_path["training_flagship"], _ = bert_flagship(tpt, fa)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
     log("[7/9] unpacked kernels against their plain versions")
@@ -1157,7 +1317,8 @@ def main():
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
     log("[9/9] Llama-2-7B-width training on the card (4 layers, bf16 AMP)")
-    by_path["llama_flagship"] = llama_flagship(tpt, fa)
+    by_path["llama_flagship"], losses = llama_flagship(tpt, fa)
+    compare_losses(losses)
     log(f"  ({time.perf_counter() - t_start:.1f} s in all)")
 
     src = "paddle_tpu_torch/csrc/"

@@ -1,14 +1,16 @@
-// Flash-attention backward for Hopper (sm_90a): two stride-generic kernels,
-// each serving the packed and the unpacked layout through its own entry.
+// Flash-attention backward for Hopper (sm_90a), each entry serving the
+// packed or the unpacked layout of one TPU kernel of
+// paddle_tpu/ops/pallas/flash_attention.py:
 //
 //   * fa_dkv_kernel replaces `_fp_dkv_kernel` (pt_flash_attention_packed_
-//     bwd_dkv; paddle_tpu/ops/pallas/flash_attention.py:611, launched by
-//     `_packed_backward` at :745) and `_fa_dkv_kernel` (pt_flash_attention_
-//     bwd_dkv; :226, launched by `_flash_backward` at :342).
-//   * fa_dq_kernel replaces `_fp_dq_kernel` (pt_flash_attention_packed_
-//     bwd_dq; :686) and `_fa_dq_kernel` (pt_flash_attention_bwd_dq; :292).
+//     bwd_dkv; :611, launched by `_packed_backward` at :745) and
+//     `_fa_dkv_kernel` (pt_flash_attention_bwd_dkv; :226, launched by
+//     `_flash_backward` at :342).
+//   * the dQ entries replace `_fp_dq_kernel` (pt_flash_attention_packed_
+//     bwd_dq; :686) and `_fa_dq_kernel` (pt_flash_attention_bwd_dq; :292):
+//     fa_dq_tc_kernel in bfloat16, fa_dq_kernel in float32.
 //
-// Both read q [B, nh, Sq, D], k and v [B, nh, Sk, D], dO [B, nh, Sq, D]
+// All read q [B, nh, Sq, D], k and v [B, nh, Sk, D], dO [B, nh, Sq, D]
 // through per-tensor batch, head and row strides (the last dim contiguous:
 // the packed layout is q, k and v as column blocks of qkv [B, S, 3H] and dO
 // as [B, S, H]), the forward's per-row log-sum-exp lse [B, nh, Sq] and
@@ -24,23 +26,37 @@
 // entries put them straight into the three column blocks of one [B, S, 3H]
 // gradient, so nothing is concatenated afterwards.  The bias gradient is
 // written as per-head partials [B, nh, Sk] that the wrapper sums: no
-// atomics, so the sum is deterministic.
+// atomics, so the sum is deterministic.  Any Sq and Sk work: rows and keys
+// past them in the last tile are masked; causal masking is by absolute
+// position (q_pos >= k_pos).  p is exactly 0 for a masked score and in a row
+// with no live key (lse = -inf, the forward kernels' convention), never
+// exp(-inf + inf).  The bias stays float32 (bfloat16 would round -10000 to
+// -9984).
 //
 // Design (a block runs alone on Hopper, so a loop inside the block takes
 // the place of the TPU's sequential grid axis):
-//   * dK/dV: one block of 256 threads per (64-key tile, head, batch).  Its
-//     K and V tiles stay in shared memory while it loops over the 64-row
-//     q tiles (from the diagonal tile on when causal).  Each thread owns a
-//     4x4 patch of the 64x64 score tile for P and dS, and 4 key rows x
-//     D/16 columns of the dK and dV accumulators, in float32 registers.
-//   * dQ: one block per (64-row q tile, head, batch), looping over the
-//     64-key tiles up to the diagonal when causal; a thread owns 4 q rows x
-//     D/16 columns of dQ.
-// Inputs may be float32 or bfloat16; all math is float32 and the bias
-// stays float32 (bfloat16 would round -10000 to -9984).  Any Sq and Sk
-// work: rows and keys past them in the last tile are masked.  p is exactly
-// 0 for a masked score and in a row with no live key (lse = -inf, the
-// forward kernel's convention), never exp(-inf + inf).
+//   * dK/dV (float32 and bfloat16 inputs, fp32 FMAs on the CUDA cores): one
+//     block of 256 threads per (64-key tile, head, batch).  Its K and V
+//     tiles stay in shared memory while it loops over the 64-row q tiles
+//     (from the diagonal tile on when causal).  Each thread owns a 4x4 patch
+//     of the 64x64 score tile for P and dS, and 4 key rows x D/16 columns of
+//     the dK and dV accumulators, in float32 registers.
+//   * dQ, bfloat16 (fa_dq_tc_kernel, tensor cores): one block of 288
+//     threads per (128-row q tile, head, batch), so each q row is owned by
+//     one block (no atomics, deterministic): two consumer warpgroups of 64
+//     rows and a producer warp.  The producer loads Q and dO once and
+//     streams 64-key K and V tiles through a two-stage TMA ring (hopper.cuh).
+//     Per tile a warpgroup computes S = Q K^T and dP = dO V^T with wgmma
+//     (operands in shared memory), P = exp(S * scale + bias - lse) and
+//     dS = P * (dP - delta) in fp32 registers, rounds dS to bf16 in
+//     registers and accumulates dQ += dS K with wgmma (K read MN-major from
+//     the same shared tile through the transpose bit).  dQ stays in fp32
+//     registers; the epilogue writes dq * scale in bf16.  Causal q tiles run
+//     longest first.
+//   * dQ, float32 (fa_dq_kernel): one block of 256 threads per (64-row q
+//     tile, head, batch), looping over the 64-key tiles up to the diagonal
+//     when causal; a thread owns 4 q rows x D/16 columns of dQ, in fp32
+//     FMAs (the fp32 gates hold its dq bit-equal to the plain version).
 //
 // Bounds on an H100 SXM (data-sheet peaks at the card's 700 W limit).
 // Packed, at BERT's training shape (B=8, S=512, 12 heads, D=64, bf16):
@@ -49,13 +65,15 @@
 // 38 MB moved (11.4 us at 3.35 TB/s); dQ 3 products, 9.7 GFLOP, 9.8 us.
 // Unpacked, at Llama-2-7B width (B=1, 32 heads, S=2048, D=128, causal,
 // bf16): dK/dV 6.87e10 flop (69.5 us), dQ 5.15e10 (52.1 us).  All are
-// bound by operations.  This version keeps every intermediate on chip but
-// runs its products as fp32 FMAs on the CUDA cores (67 TFLOP/s); wgmma on
-// bf16 tiles, TMA loads and warp specialisation are the later steps.
+// bound by operations.  The bf16 dQ kernel runs its three products on the
+// tensor cores with loads kept off the compute warps; dK/dV still runs
+// fp32 FMAs on the CUDA cores (67 TFLOP/s).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -63,11 +81,7 @@ constexpr int kBQ = 64;        // q rows per tile
 constexpr int kBK = 64;        // k/v rows per tile
 constexpr int kThreads = 256;  // 8 warps; 16 x 16 thread grid
 
-// Element strides of one [B, heads, rows, D] operand; the last dim is
-// contiguous.
-struct Layout {
-  long long b, h, s;
-};
+using hopper::Layout;
 
 // Strides and sizes of one call.  The pointers travel as __restrict__
 // kernel parameters, which keeps the read-only load path.
@@ -406,34 +420,190 @@ int launch_dkv(const Call& c, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
-int launch_dq(const Call& c, cudaStream_t stream) {
+template <int D>
+int launch_dq_f32(const Call& c, cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      fa_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fa_dq_kernel<float, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((c.a.Sq + kBQ - 1) / kBQ, c.a.num_heads, c.B);
-  fa_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(c.q), static_cast<const T*>(c.k),
-      static_cast<const T*>(c.v), static_cast<const T*>(c.dout),
+  fa_dq_kernel<float, D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(c.q), static_cast<const float*>(c.k),
+      static_cast<const float*>(c.v), static_cast<const float*>(c.dout),
       static_cast<const float*>(c.bias), static_cast<const float*>(c.lse),
-      static_cast<const float*>(c.delta), static_cast<T*>(c.dq), c.a);
+      static_cast<const float*>(c.delta), static_cast<float*>(c.dq), c.a);
   return (int)cudaGetLastError();
 }
 
-// which: 0 = dK/dV, 1 = dQ.  dtype: 0 = float32, 1 = bfloat16.
+namespace tc {
+
+using namespace hopper::attn;
+using hopper::attn::kThreads;  // not the CUDA-core kernels', found first
+
+// Shared memory: the Q and dO tiles, the K/V ring, its barriers, and slack
+// to align the tiles to 1024 bytes.
+template <int D>
+constexpr int kDqSmem =
+    2 * kRowTile<D> + Ring<D>::kBytes + Ring<D>::kBarBytes + 1024;
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+fa_dq_tc_kernel(const __grid_constant__ hopper::TmaMaps<4> maps,
+                const float* __restrict__ bias, const float* __restrict__ lse,
+                const float* __restrict__ delta,
+                __nv_bfloat16* __restrict__ dq, const BwdShape a) {
+  constexpr int kQ = kRowTile<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = hopper::align1024(smem_raw);
+  Ring<D> ring(sm + 2 * kQ, sm + 2 * kQ + Ring<D>::kBytes);
+  const Frame f(a.num_heads, a.Sk, a.causal);
+  const int Sq = a.Sq, Sk = a.Sk, nkt = f.nkt, quad = f.quad;
+
+  if (threadIdx.x == 0) ring.init(kConsumerWarps);
+  __syncthreads();
+
+  if (f.producer()) {  // one thread issues every load
+    if (f.lane == 0) {
+      hopper::mbar_expect_tx(ring.q_full, 2 * kQ);
+      load_rows<D>(sm, &maps.m[0], ring.q_full, f);
+      load_rows<D>(sm + kQ, &maps.m[3], ring.q_full, f);
+      ring.produce(&maps.m[1], &maps.m[2], nkt, f.h, f.b);
+    }
+    return;
+  }
+
+  const int row0 = f.row0, wg_last = f.wg_last;
+  const uint8_t* qs = sm + f.wg * 64 * 128;
+  const uint8_t* dos = qs + kQ;
+  const float* brow = bias ? bias + (long long)f.b * Sk : nullptr;
+  const long long stats = ((long long)f.b * a.num_heads + f.h) * Sq;
+  float lse_r[2], dlt_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    // a row past Sq behaves as a row with no live key: p = 0
+    lse_r[i] = row < Sq ? lse[stats + row] : -INFINITY;
+    dlt_r[i] = row < Sq ? delta[stats + row] : 0.f;
+  }
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float s[kBN / 2], dp[kBN / 2];
+
+  hopper::mbar_wait(ring.q_full, 0);
+  for (int t = 0; t < nkt; ++t) {
+    const int k0 = t * kBN;
+    ring.wait(t);
+    if (!(a.causal && k0 > wg_last)) {  // else every key of the tile is dead
+      // S = Q K^T, dP = dO V^T
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_ss_n64(s, hopper::desc_k_step(qs, kBM, kk),
+                             hopper::desc_k_step(ring.k(t), kBN, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_ss_n64(dp, hopper::desc_k_step(dos, kBM, kk),
+                             hopper::desc_k_step(ring.v(t), kBN, kk), kk > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait_all();
+      hopper::fence_regs(s);
+      hopper::fence_regs(dp);
+
+      // p and dS = p * (dP - delta), in place of S, key by key: each key's
+      // bias is loaded once for both of this thread's rows (an array of the
+      // tile's 16 would spill the D-128 kernel past its 168 registers)
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int key = k0 + 8 * j + 2 * quad + c;
+          const float bk = brow ? __ldg(brow + min(key, Sk - 1)) : 0.f;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int r = 4 * j + 2 * i + c;
+            const bool live = key < Sk && !(a.causal && key > row0 + 8 * i) &&
+                              lse_r[i] != -INFINITY;
+            const float x = s[r] * a.scale + bk - lse_r[i];
+            const float p = live ? exp2f(x * kLog2e) : 0.f;
+            s[r] = p * (dp[r] - dlt_r[i]);
+          }
+        }
+
+      // dS in bf16 as wgmma A fragments: 16 keys per fragment
+      uint32_t ds[kBN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          ds[kk][r] =
+              hopper::pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+
+      // dQ += dS K
+      hopper::fence_regs(acc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk)
+        hopper::wgmma_rs<D>(acc, ds[kk],
+                            hopper::desc_mn_step(ring.k(t), kBN, kk));
+      hopper::wgmma_commit();
+      hopper::wgmma_wait_all();
+      hopper::fence_regs(acc);
+    }
+    ring.release(t);
+  }
+
+  // epilogue: dq * scale in bf16 through the strides
+  const float mul[2] = {a.scale, a.scale};
+  store_bf16<D>(dq + f.b * a.dql.b + f.h * a.dql.h, a.dql.s, Sq, f, acc, mul);
+}
+
+template <int D>
+int launch_dq(const Call& c, cudaStream_t stream) {
+  const BwdShape& a = c.a;
+  const int nh = a.num_heads;
+  if (!pairs_aligned(c.dq, a.dql)) return (int)cudaErrorMisalignedAddress;
+  hopper::TmaMaps<4> maps;
+  const Operand ops[4] = {{c.q, a.Sq, a.ql, kBM},
+                          {c.k, a.Sk, a.kl, kBN},
+                          {c.v, a.Sk, a.vl, kBN},
+                          {c.dout, a.Sq, a.dol, kBM}};
+  const int err = encode_maps(&maps, ops, D, nh, c.B);
+  if (err) return err;
+  constexpr int smem = kDqSmem<D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      fa_dq_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(c.B * nh, (a.Sq + kBM - 1) / kBM);
+  fa_dq_tc_kernel<D><<<grid, kThreads, smem, stream>>>(
+      maps, static_cast<const float*>(c.bias),
+      static_cast<const float*>(c.lse), static_cast<const float*>(c.delta),
+      static_cast<__nv_bfloat16*>(c.dq), a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
+// which: 0 = dK/dV, 1 = dQ.  dtype: 0 = float32, 1 = bfloat16.  dK/dV runs
+// fa_dkv_kernel in both dtypes; dQ runs the tensor-core kernel in bfloat16
+// and fa_dq_kernel in float32.
 int run(const Call& c, int which, int dtype, void* stream) {
   if (c.B <= 0 || c.a.Sq <= 0 || c.a.Sk <= 0 || c.a.num_heads <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define PT_LAUNCH(T, DD)                                               \
-  return which == 0 ? launch_dkv<T, DD>(c, st) : launch_dq<T, DD>(c, st)
-  if (dtype == 0 && c.D == 64) PT_LAUNCH(float, 64);
-  if (dtype == 0 && c.D == 128) PT_LAUNCH(float, 128);
-  if (dtype == 1 && c.D == 64) PT_LAUNCH(__nv_bfloat16, 64);
-  if (dtype == 1 && c.D == 128) PT_LAUNCH(__nv_bfloat16, 128);
-#undef PT_LAUNCH
+  if (which == 0) {
+    if (dtype == 0 && c.D == 64) return launch_dkv<float, 64>(c, st);
+    if (dtype == 0 && c.D == 128) return launch_dkv<float, 128>(c, st);
+    if (dtype == 1 && c.D == 64) return launch_dkv<__nv_bfloat16, 64>(c, st);
+    if (dtype == 1 && c.D == 128) return launch_dkv<__nv_bfloat16, 128>(c, st);
+  } else {
+    if (dtype == 0 && c.D == 64) return launch_dq_f32<64>(c, st);
+    if (dtype == 0 && c.D == 128) return launch_dq_f32<128>(c, st);
+    if (dtype == 1 && c.D == 64) return tc::launch_dq<64>(c, st);
+    if (dtype == 1 && c.D == 128) return tc::launch_dq<128>(c, st);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,0 +1,504 @@
+// Hopper (sm_90a) building blocks of the bf16 tensor-core attention kernels
+// in flash_attention_fwd.cu and flash_attention_bwd.cu: TMA tensor maps and
+// loads, mbarriers, and warpgroup matrix multiplies (wgmma) on bf16 tiles
+// held in 128-byte-swizzled shared memory; then the frame both kernels share
+// (tile sizes, block and thread coordinates, q-tile loads, the bf16
+// epilogue, the launch-side maps).  Raw PTX, no CUTLASS/CuTe, so a source
+// builds in seconds.
+//
+// Shared-memory tiles.  TMA writes a box of 64 bf16 columns (128 bytes, the
+// swizzle span) x R rows as R rows of 128 bytes, the 16-byte chunks of row r
+// XOR-ed with r % 8: 8-row atoms of 1024 bytes, which is the layout wgmma's
+// 128B-swizzle mode reads.  A D-wide tile (D = 64 or 128) is D/64 such boxes
+// ("halves") one after another.  A tile is read by wgmma in two ways:
+//   * K-major (the contraction runs along the 64 columns): Q, dO and K as
+//     the operands of Q K^T and dO V^T.  Descriptor: SBO = 1024 (next 8
+//     rows); a 16-column k step moves the start address by 32 bytes inside
+//     the atom; the next 64 columns are the next half.
+//   * MN-major (the contraction runs along the rows, the output columns
+//     along the 64 contiguous columns): V in P V and K in dS K, with the
+//     instruction's transpose bit.  Descriptor: SBO = 1024 (next 8 rows of
+//     the contraction), LBO = the byte distance between halves (next 64
+//     output columns); a 16-row k step moves the start by 2048 bytes.
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums (types only)
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace hopper {
+
+// ---------------------------------------------------------------------------
+// host: tensor maps
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, looked up at run time through the
+// CUDA runtime, so that the library links against the runtime only (no
+// -lcuda).
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// The N maps one kernel reads (q, k, v, and dO for the dQ kernel).  Passed
+// by value as a __grid_constant__ kernel parameter.
+template <int N>
+struct TmaMaps {
+  CUtensorMap m[N];
+};
+
+// A rank-4 map (D, heads, rows, batch) over a bf16 [B, heads, rows, D]
+// operand whose last dim is contiguous, with element strides (sb, sh, ss):
+// boxes of 64 columns x `box_rows` rows of one head and batch, 128-byte
+// swizzled; rows past `rows` read as zeros.  TMA needs the base address and
+// every byte stride to be multiples of 16 (a size-1 dim's stride is never
+// stepped).  Returns 0 or a cudaError_t.
+inline int encode_map(CUtensorMap* map, const void* base, int D, int heads,
+                      int rows, int B, long long sb, long long sh,
+                      long long ss, int box_rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  if (reinterpret_cast<uintptr_t>(base) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  const long long sizes[3] = {heads, rows, B};
+  const long long elems[3] = {sh, ss, sb};
+  cuuint64_t strides[3];
+  for (int i = 0; i < 3; ++i) {
+    const long long bytes = sizes[i] == 1 ? 16 : elems[i] * 2;
+    if (bytes <= 0 || bytes % 16 != 0 || bytes >= (1LL << 40))
+      return (int)cudaErrorMisalignedAddress;
+    strides[i] = (cuuint64_t)bytes;
+  }
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                              (cuuint64_t)rows, (cuuint64_t)B};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(base), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidPitchValue;
+}
+
+// ---------------------------------------------------------------------------
+// device: shared memory, mbarriers, TMA
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The first 1024-byte boundary at or after `p` (the 128B swizzle repeats
+// every 1024 bytes, so a swizzled tile must start on one).
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Makes the initialised barriers visible to the TMA unit.
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Waits until the barrier's phase of parity `parity` has completed.  A
+// wait that outlasts ~10 s of clock (a lost TMA transaction or a wrong
+// parity) traps, so a fault ends the launch with an error, never a hang.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  const long long start = clock64();
+  while (true) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - start > 20000000000LL) __trap();
+  }
+}
+
+// One box of `map` at coordinates (col, head, row, batch) into `dst`,
+// counted against `bar`'s transaction bytes.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int col, int head,
+                                         int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col),
+      "r"(head), "r"(row), "r"(batch)
+      : "memory");
+}
+
+// The K/V ring of a kernel whose consumer warps loop over key tiles of
+// kBN rows: stage s holds a K tile then a V tile, each D/64 halves of
+// kBN x 128 bytes.  Barriers: `q_full` for the tiles loaded once, then
+// full[s] (the producer's arrival and TMA's bytes) and empty[s] (one
+// arrival from each consumer warp) per stage.
+template <int D, int kBN, int kStages>
+struct KvRing {
+  static constexpr int kHalf = kBN * 128;       // one 64-column half
+  static constexpr int kTile = kBN * D * 2;     // one K or V tile
+  static constexpr int kBytes = kStages * 2 * kTile;
+  static constexpr int kBarBytes = 8 * (1 + 2 * kStages);
+
+  uint8_t* tiles;  // kBytes, 1024-aligned
+  uint64_t* q_full;
+  uint64_t* full;
+  uint64_t* empty;
+
+  __device__ KvRing(uint8_t* tiles_, uint8_t* bars)
+      : tiles(tiles_),
+        q_full(reinterpret_cast<uint64_t*>(bars)),
+        full(q_full + 1),
+        empty(q_full + 1 + kStages) {}
+
+  // One thread, before the block's __syncthreads.
+  __device__ void init(int consumer_warps) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], consumer_warps);
+    }
+    fence_barrier_init();
+  }
+
+  __device__ const uint8_t* k(int t) const {
+    return tiles + (t % kStages) * 2 * kTile;
+  }
+  __device__ const uint8_t* v(int t) const { return k(t) + kTile; }
+
+  // The producer thread: key tiles 0 .. nkt-1 of (head, batch), each into
+  // its stage once the consumers have freed it.
+  __device__ void produce(const CUtensorMap* kmap, const CUtensorMap* vmap,
+                          int nkt, int head, int batch) {
+    for (int t = 0; t < nkt; ++t) {
+      const int s = t % kStages;
+      if (t >= kStages) mbar_wait(&empty[s], (t / kStages - 1) & 1);
+      uint8_t* kt = tiles + s * 2 * kTile;
+      mbar_expect_tx(&full[s], 2 * kTile);
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load(kt + c * kHalf, kmap, &full[s], c * 64, head, t * kBN,
+                 batch);
+        tma_load(kt + kTile + c * kHalf, vmap, &full[s], c * 64, head,
+                 t * kBN, batch);
+      }
+    }
+  }
+
+  // A consumer warp: wait for tile t, and release it when done with it.
+  __device__ void wait(int t) {
+    mbar_wait(&full[t % kStages], (t / kStages) & 1);
+  }
+  __device__ void release(int t) {
+    __syncwarp();
+    if (threadIdx.x % 32 == 0) mbar_arrive(&empty[t % kStages]);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// device: wgmma
+// ---------------------------------------------------------------------------
+
+// A shared-memory matrix descriptor in 128B-swizzle mode (see the top).
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+// K-major operand: LBO is unused in swizzled K-major mode (1 by
+// convention), SBO = one 8-row atom.
+__device__ __forceinline__ uint64_t desc_kmajor(const void* p) {
+  return smem_desc(p, 16, 1024);
+}
+
+// MN-major operand whose 64-column halves lie `half_bytes` apart.
+__device__ __forceinline__ uint64_t desc_mnmajor(const void* p,
+                                                 uint32_t half_bytes) {
+  return smem_desc(p, half_bytes, 1024);
+}
+
+// k step kk (16 columns) of a K-major tile whose halves have `rows` rows:
+// half kk / 4, 32 bytes a step inside it.
+__device__ __forceinline__ uint64_t desc_k_step(const uint8_t* tile,
+                                                int rows, int kk) {
+  return desc_kmajor(tile + (kk / 4) * rows * 128 + (kk % 4) * 32);
+}
+
+// k step kk (16 rows) of a tile of `rows` rows read MN-major: 2048 bytes a
+// step, the halves `rows` x 128 bytes apart.
+__device__ __forceinline__ uint64_t desc_mn_step(const uint8_t* tile,
+                                                 int rows, int kk) {
+  return desc_mnmajor(tile + kk * 16 * 128, rows * 128);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous wgmma that owns them.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Two floats as the bf16 pair of one A-fragment register (lo in the low
+// half: the lower column).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+#define PT_F8(d, i)                                                      \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),            \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define PT_F32(d) PT_F8(d, 0), PT_F8(d, 8), PT_F8(d, 16), PT_F8(d, 24)
+#define PT_F64(d) \
+  PT_F32(d), PT_F8(d, 32), PT_F8(d, 40), PT_F8(d, 48), PT_F8(d, 56)
+
+// d[64 x 64] (+)= A[64 x 16] B[64 x 16]^T, A and B K-major in shared
+// memory; the first product of a sum passes accumulate = 0.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : PT_F32(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[64 x N] += A[64 x 16] B[16 x N], A in registers (the accumulator
+// layout of a 64 x 16 slice, as bf16 pairs), B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : PT_F32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : PT_F64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef PT_F64
+#undef PT_F32
+#undef PT_F8
+
+// d[64 x D] += A B for D = 64 or 128 (see wgmma_rs_n64).
+template <int D>
+__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (D == 64) {
+    wgmma_rs_n64(d, a, b);
+  } else {
+    static_assert(D == 128, "head_dim 64 or 128");
+    wgmma_rs_n128(d, a, b);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the frame of the tensor-core attention kernels (forward and dQ)
+// ---------------------------------------------------------------------------
+
+// Element strides of one [B, heads, rows, D] operand; the last dim is
+// contiguous.
+struct Layout {
+  long long b, h, s;
+};
+
+namespace attn {
+
+constexpr int kBM = 128;                   // q rows per block
+constexpr int kBN = 64;                    // keys per K/V tile
+constexpr int kStages = 2;                 // K/V ring depth
+constexpr int kConsumerWarps = 8;          // two warpgroups of 64 rows
+constexpr int kThreads = 32 * kConsumerWarps + 32;  // + the producer warp
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+using Ring = KvRing<D, kBN, kStages>;
+
+// A kBM-row tile of D bf16 columns: D/64 halves of kBM x 128 bytes.
+template <int D>
+constexpr int kRowTile = kBM * D * 2;
+
+// Where a block and one of its threads work.  Block (x = b * heads + h, y)
+// takes q tile y of head h and batch b, reversed when causal so that the
+// longest tiles run first, and visits nkt key tiles (causal: none past its
+// last row).  A consumer thread of warpgroup wg owns rows row0 and row0 + 8
+// of the warpgroup's 64 (q0 + 64 wg .. wg_last) and keys 2 * quad + {0, 1}
+// of every 8-key group: the wgmma accumulator layout.
+struct Frame {
+  int h, b, q0, nkt, warp, lane, wg, quad, row0, wg_last;
+
+  __device__ Frame(int num_heads, int Sk, int causal) {
+    h = blockIdx.x % num_heads;
+    b = blockIdx.x / num_heads;
+    const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+    q0 = qt * kBM;
+    nkt = (Sk + kBN - 1) / kBN;
+    if (causal) nkt = min(nkt, (q0 + kBM - 1) / kBN + 1);  // later tiles dead
+    warp = threadIdx.x / 32;
+    lane = threadIdx.x % 32;
+    wg = warp / 4;
+    quad = lane % 4;
+    row0 = q0 + wg * 64 + (warp % 4) * 16 + lane / 4;
+    wg_last = q0 + wg * 64 + 63;
+  }
+
+  __device__ bool producer() const { return warp == kConsumerWarps; }
+};
+
+// The producer: the block's q tile of `map` (q or dO) into `dst`.
+template <int D>
+__device__ __forceinline__ void load_rows(uint8_t* dst, const CUtensorMap* map,
+                                          uint64_t* bar, const Frame& f) {
+  for (int c = 0; c < D / 64; ++c)
+    tma_load(dst + c * kBM * 128, map, bar, c * 64, f.h, f.q0, f.b);
+}
+
+// This thread's share of a warpgroup's 64 x D fp32 accumulator, row i times
+// mul[i], as bf16 pairs into the rows of `base` (row stride `ss` elements)
+// below `rows`.
+template <int D>
+__device__ __forceinline__ void store_bf16(__nv_bfloat16* base, long long ss,
+                                           int rows, const Frame& f,
+                                           const float (&acc)[D / 2],
+                                           const float (&mul)[2]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = f.row0 + 8 * i;
+    if (row >= rows) continue;
+    __nv_bfloat16* r = base + row * ss + 2 * f.quad;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(r + 8 * j) = __floats2bfloat162_rn(
+          acc[4 * j + 2 * i] * mul[i], acc[4 * j + 2 * i + 1] * mul[i]);
+  }
+}
+
+// An output that store_bf16 writes as 4-byte bf16 pairs: its base and
+// every stride must be even.
+inline bool pairs_aligned(const void* p, const Layout& l) {
+  return reinterpret_cast<uintptr_t>(p) % 4 == 0 && l.b % 2 == 0 &&
+         l.h % 2 == 0 && l.s % 2 == 0;
+}
+
+// One operand that a kernel reads by TMA: base, rows, strides, and the rows
+// of its box (kBM for q and dO, kBN for k and v).
+struct Operand {
+  const void* p;
+  int rows;
+  Layout l;
+  int box_rows;
+};
+
+// The maps of one call, in the kernel's order (see encode_map); 0 or the
+// first error.
+template <int N>
+inline int encode_maps(TmaMaps<N>* maps, const Operand (&ops)[N], int D,
+                       int heads, int B) {
+  for (int i = 0; i < N; ++i) {
+    const Operand& o = ops[i];
+    const int err = encode_map(&maps->m[i], o.p, D, heads, o.rows, B, o.l.b,
+                               o.l.h, o.l.s, o.box_rows);
+    if (err) return err;
+  }
+  return 0;
+}
+
+}  // namespace attn
+
+}  // namespace hopper

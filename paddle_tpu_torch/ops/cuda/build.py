@@ -3,8 +3,9 @@
 Each ``paddle_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for
 Hopper (``sm_90a``) into a shared library with a plain C interface,
 ``paddle_tpu_torch/_build/lib<name>-<hash>.so``, and loaded with
-``ctypes``.  The file name carries a hash of the source and the flags,
-so an edited source is rebuilt and a stale library is never loaded.
+``ctypes``.  The file name carries a hash of the source, of every shared
+header ``csrc/*.cuh`` and of the flags, so an edited source or header is
+rebuilt and a stale library is never loaded.
 Nothing is built at import: the first call that needs a kernel builds
 it, and ``build_all()`` builds every source at once, one ``nvcc`` per
 source, all started together.
@@ -51,11 +52,16 @@ def find_nvcc() -> str:
                        "first use")
 
 
+def headers() -> List[str]:
+    return sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+
+
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, name + ".cu")
     h = hashlib.sha256()
-    with open(src, "rb") as f:
-        h.update(f.read())
+    for f in [name + ".cu"] + headers():
+        h.update(f.encode())
+        with open(os.path.join(CSRC_DIR, f), "rb") as fh:
+            h.update(fh.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 

@@ -8,8 +8,8 @@ one C entry, one wrapper and one launch counter per TPU kernel.
 
 Packed path (the ``flash_attention_qkv`` op):
 
-* forward, ``flash_attention_packed``: CUDA kernel
-  ``csrc/flash_attention_fwd.cu`` (replaces ``_fp_fwd_kernel``);
+* forward, ``flash_attention_packed``: CUDA kernels of
+  ``csrc/flash_attention_fwd.cu`` (replace ``_fp_fwd_kernel``);
   plain version ``flash_attention_packed_reference``, built on
   ``blockwise_attention``, a pure-PyTorch port of the JAX package's
   online-softmax scan;
@@ -37,6 +37,14 @@ leave are read in place:
   version ``flash_attention_backward_reference``;
 * ``flash_attention_autograd``: the ``torch.autograd.Function``
   differentiable in q, k, v and bias.
+
+Each source picks its kernel by dtype: bfloat16 runs the tensor-core
+kernels (wgmma, with TMA loads) for the forward and dQ, float32 the CUDA-
+core kernels; dK/dV runs one CUDA-core kernel in both.  TMA reads its
+operands only at 16-byte-aligned addresses and byte strides: a bfloat16
+operand that is not (``tma_aligned``) is copied to fresh contiguous memory
+first, and each such copy is counted in the launching wrapper's
+``.realigned``, which stays 0 on the model paths.
 
 A wrapper takes its plain version only for a tensor on the CPU; on a
 CUDA tensor it launches its kernel (counted in ``.launches``) or raises,
@@ -217,6 +225,27 @@ def _check_qkv(qkv, num_heads, what):
     return B, S, H, D
 
 
+def tma_aligned(t: torch.Tensor) -> bool:
+    """Whether TMA can read `t` in place: its address and every byte
+    stride of a dim longer than 1 (the last dim's stride is 1, the box
+    runs along it) are positive multiples of 16."""
+    if t.data_ptr() % 16:
+        return False
+    return all(n == 1 or (st > 0 and st * t.element_size() % 16 == 0)
+               for n, st in zip(t.shape[:-1], t.stride()[:-1]))
+
+
+def tma_operand(t: torch.Tensor, owner) -> torch.Tensor:
+    """`t` as a bfloat16 kernel's TMA loads can read it: itself when
+    ``tma_aligned``, else a fresh contiguous copy (new storage, so aligned),
+    counted in ``owner.realigned``.  float32 operands are read without TMA
+    and pass through."""
+    if t.dtype != torch.bfloat16 or tma_aligned(t):
+        return t
+    owner.realigned += 1
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def _raise_on(lib, err, what):
     if err != 0:
         raise RuntimeError(
@@ -274,6 +303,7 @@ def flash_attention_packed(qkv: torch.Tensor, bias: Optional[torch.Tensor],
         # the kernel adds the bias in float32 (bf16 would round -1e4)
         bias = bias.to(torch.float32).contiguous()
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    qkv = tma_operand(qkv, flash_attention_packed)
     out = torch.empty((B, S, H), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((B, num_heads, S), dtype=torch.float32,
                       device=qkv.device)
@@ -290,6 +320,7 @@ def flash_attention_packed(qkv: torch.Tensor, bias: Optional[torch.Tensor],
 
 
 flash_attention_packed.launches = 0
+flash_attention_packed.realigned = 0
 
 
 def _bwd_lib():
@@ -357,8 +388,10 @@ def flash_attention_packed_dq(qkv, bias, dout, lse, delta, dqkv, num_heads,
                               causal, scale):
     """Launch the dQ kernel on inputs that ``check_backward_inputs``
     passed: writes dq into columns [0, H) of `dqkv`.  Counts launches in
-    ``.launches``."""
+    ``.launches`` and realigned bfloat16 operands in ``.realigned``."""
     B, S, threeH = qkv.shape
+    qkv = tma_operand(qkv, flash_attention_packed_dq)
+    dout = tma_operand(dout, flash_attention_packed_dq)
     lib = _bwd_lib()
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
@@ -372,6 +405,7 @@ def flash_attention_packed_dq(qkv, bias, dout, lse, delta, dqkv, num_heads,
 
 
 flash_attention_packed_dq.launches = 0
+flash_attention_packed_dq.realigned = 0
 
 
 def backward_delta(out, dout, num_heads):
@@ -580,6 +614,7 @@ def flash_attention_unpacked(q: torch.Tensor, k: torch.Tensor,
     B, H, Sq, Sk, D = _check_unpacked(q, k, v, what)
     bias = _bias32(bias, B, Sk, q.device, what)
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    q, k, v = (tma_operand(t, flash_attention_unpacked) for t in (q, k, v))
     out = torch.empty((B, Sq, H, D), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
@@ -597,6 +632,7 @@ def flash_attention_unpacked(q: torch.Tensor, k: torch.Tensor,
 
 
 flash_attention_unpacked.launches = 0
+flash_attention_unpacked.realigned = 0
 
 
 def check_unpacked_backward_inputs(q, k, v, bias, out, lse, dout,
@@ -655,8 +691,11 @@ def flash_attention_unpacked_dq(q, k, v, bias, dout, lse, delta, dq, causal,
                                 scale):
     """Launch the dQ kernel on inputs that
     ``check_unpacked_backward_inputs`` passed: writes dq ([B,H,Sq,D] in
-    q's dtype, last dim contiguous).  Counts launches in ``.launches``."""
+    q's dtype, last dim contiguous).  Counts launches in ``.launches`` and
+    realigned bfloat16 operands in ``.realigned``."""
     B, H, Sq, D = q.shape
+    q, k, v, dout = (tma_operand(t, flash_attention_unpacked_dq)
+                     for t in (q, k, v, dout))
     lib = _bwd_lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -671,6 +710,7 @@ def flash_attention_unpacked_dq(q, k, v, bias, dout, lse, delta, dq, causal,
 
 
 flash_attention_unpacked_dq.launches = 0
+flash_attention_unpacked_dq.realigned = 0
 
 
 def flash_attention_unpacked_backward(

@@ -11,6 +11,7 @@ from paddle_tpu_torch.ops.cuda import build
 def test_every_source_builds_for_sm_90a_into_the_ignored_build_dir():
     names = build.sources()
     assert {"flash_attention_fwd", "flash_attention_bwd"} <= set(names)
+    assert "hopper.cuh" in build.headers()
     for name in names:
         out = build.library_path(name)
         assert os.path.dirname(out) == build.BUILD_DIR
@@ -22,12 +23,24 @@ def test_every_source_builds_for_sm_90a_into_the_ignored_build_dir():
         assert "paddle_tpu_torch/_build/" in f.read().split()
 
 
-def test_library_name_tracks_the_source(tmp_path, monkeypatch):
-    src = tmp_path / "k.cu"
-    src.write_text("// one\n")
+@pytest.mark.parametrize("edited", ["k.cu", "shared.cuh"])
+def test_library_name_tracks_the_source(tmp_path, monkeypatch, edited):
+    """An edit to the source, or to a header it may include, renames the
+    library, so a stale build is never loaded."""
+    (tmp_path / "k.cu").write_text("// one\n")
+    (tmp_path / "shared.cuh").write_text("// one\n")
     monkeypatch.setattr(build, "CSRC_DIR", str(tmp_path))
     first = build.library_path("k")
-    src.write_text("// two\n")
+    assert build.library_path("k") == first
+    (tmp_path / edited).write_text("// two\n")
+    assert build.library_path("k") != first
+
+
+def test_library_name_tracks_a_new_header(tmp_path, monkeypatch):
+    (tmp_path / "k.cu").write_text("// one\n")
+    monkeypatch.setattr(build, "CSRC_DIR", str(tmp_path))
+    first = build.library_path("k")
+    (tmp_path / "extra.cuh").write_text("// new\n")
     assert build.library_path("k") != first
 
 

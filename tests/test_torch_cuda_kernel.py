@@ -385,3 +385,143 @@ def test_flash_attention_op_on_the_card(cuda):
         run(None, 96)
     with pytest.raises(NotImplementedError, match="xla"):
         run(None, 64, impl="xla")
+
+
+# ---------------------------------------------------------------------------
+# the bf16 tensor-core kernels (forward and dQ: wgmma, TMA loads), which
+# every bf16 call of the forward and dQ entries runs, packed or unpacked
+# ---------------------------------------------------------------------------
+
+TC_CASES = [
+    # (B, H, Sq, Sk, D, causal, with_bias, views)
+    (1, 32, 2048, 2048, 128, True, False, True),   # the Llama shape
+    (2, 2, 128, 384, 128, True, True, True),       # Sq < Sk
+    (2, 2, 384, 128, 128, False, True, False),     # Sq > Sk
+    (2, 2, 100, 100, 128, True, True, True),       # ragged S 100
+    (3, 2, 100, 100, 64, False, True, False),
+]
+
+
+def _block_rel(got, want, block=128):
+    """max over (batch, head, block of 128 rows) of ||got - want|| /
+    ||want|| for [B, H, S, D] tensors: a long row's values (near
+    sqrt(e / n) over n keys) are as small as the absolute limits, so the
+    bf16 results are also held to 1e-2 of their own size (~4e-3 from
+    rounding P or dS and the output to bf16)."""
+    B, H, S, D = want.shape
+    pad = -S % block
+    diff, ref = (torch.nn.functional.pad(t, (0, 0, 0, pad)).reshape(
+        B, H, -1, block * D) for t in (got.float() - want, want))
+    num, den = diff.norm(dim=-1), ref.norm(dim=-1)
+    return torch.where(num == 0, torch.zeros_like(num), num / den).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Sq,Sk,D,causal,with_bias,views", TC_CASES)
+def test_tensor_core_kernels_match_plain_versions(cuda, B, H, Sq, Sk, D,
+                                                  causal, with_bias, views):
+    """The bf16 forward (out, lse) and dQ kernels against the plain
+    versions on the same rounded inputs in float32: out atol 2e-2 and dq
+    5e-2 (P and dS are rounded to bf16 before their second product, ~2**-9
+    relative a term, and the outputs to bf16), lse 1e-5 (float32); the
+    all-padding row of out to the bf16 tolerance, its lse to one fp32 ulp
+    at 1e4, its dq to 5e-2.  No operand needs realigning."""
+    q, k, v, bias, dout = _unpacked_inputs(B, H, Sq, Sk, D, with_bias,
+                                           "bfloat16", cuda, Sq + Sk + D,
+                                           views)
+    before = (tfa.flash_attention_unpacked.launches,
+              tfa.flash_attention_unpacked_dq.launches,
+              tfa.flash_attention_unpacked.realigned,
+              tfa.flash_attention_unpacked_dq.realigned)
+    out, lse = tfa.flash_attention_unpacked(q, k, v, bias, causal)
+    scale = 1.0 / D ** 0.5
+    delta = (dout.float() * out.float()).sum(-1).contiguous()
+    dq = torch.empty_like(q)
+    tfa.flash_attention_unpacked_dq(q, k, v, bias, dout, lse, delta, dq,
+                                    causal, scale)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention_unpacked.launches,
+            tfa.flash_attention_unpacked_dq.launches,
+            tfa.flash_attention_unpacked.realigned,
+            tfa.flash_attention_unpacked_dq.realigned) == (
+                before[0] + 1, before[1] + 1, before[2], before[3])
+    f = [t.float() for t in (q, k, v)]
+    ref_out, ref_lse = tfa.flash_attention_reference(*f, bias, causal)
+    ref_dq = tfa.flash_attention_backward_reference(
+        *f, bias, out.float(), lse, dout.float(), causal)[0]
+    live = slice(0, B - 1) if with_bias else slice(0, B)
+    assert torch.isfinite(out.float()).all() and torch.isfinite(
+        dq.float()).all()
+    assert (out.float() - ref_out)[live].abs().max().item() <= 2e-2
+    assert (lse - ref_lse)[live].abs().max().item() <= 1e-5
+    assert (dq.float() - ref_dq)[live].abs().max().item() <= 5e-2
+    assert _block_rel(out[live], ref_out[live]) <= 1e-2
+    assert _block_rel(dq[live], ref_dq[live]) <= 1e-2
+    if with_bias:
+        assert (out.float() - ref_out)[-1].abs().max().item() <= 2e-2
+        assert (lse - ref_lse)[-1].abs().max().item() <= 2.0 ** -10
+        assert (dq.float() - ref_dq)[-1].abs().max().item() <= 5e-2
+
+
+@pytest.mark.cuda
+def test_tensor_core_kernels_at_the_bert_training_shape(cuda):
+    """Packed qkv [8, 512, 2304] bf16 (12 heads of 64) with a bias whose
+    last row is all padding: the forward and the dQ columns of d(qkv)
+    against the plain versions, tolerances as above."""
+    B, S, H, nh = 8, 512, 768, 12
+    qkv, bias, out, lse, dout = _bwd_inputs(B, S, H, nh, False, True,
+                                            "bfloat16", cuda, seed=5)
+    got, got_lse = tfa.flash_attention_packed(qkv, bias, nh)
+    dqkv, _ = tfa.flash_attention_packed_backward(qkv, bias, out, lse, dout,
+                                                  nh)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = tfa.flash_attention_packed_reference(qkv.float(),
+                                                            bias, nh)
+    ref, _ = tfa.flash_attention_packed_backward_reference(
+        qkv.float(), bias, out.float(), lse, dout.float(), nh)
+    assert (got.float() - ref_out).abs().max().item() <= 2e-2
+    assert (got_lse - ref_lse)[:-1].abs().max().item() <= 1e-5
+    assert (got_lse - ref_lse)[-1].abs().max().item() <= 2.0 ** -10
+    assert (dqkv.float() - ref)[..., :H].abs().max().item() <= 5e-2
+
+    def heads(x):  # the live rows of [B, S, H] as [B - 1, nh, S, D]
+        return x[:-1].reshape(B - 1, S, nh, H // nh).transpose(1, 2)
+
+    assert _block_rel(heads(got), heads(ref_out)) <= 1e-2
+    assert _block_rel(heads(dqkv[..., :H]), heads(ref[..., :H])) <= 1e-2
+    assert (tfa.flash_attention_packed.realigned,
+            tfa.flash_attention_packed_dq.realigned) == (0, 0)
+
+
+@pytest.mark.cuda
+def test_misaligned_bf16_operands_are_realigned_and_counted(cuda):
+    """A bf16 view 2 bytes into its storage cannot be read by TMA: the
+    wrapper copies it to contiguous memory, counts the copy in
+    ``.realigned``, and the result still matches the plain version."""
+    B, H, S, D = 2, 2, 128, 64
+    n = B * H * S * D
+    rng = np.random.RandomState(3)
+    flat = torch.from_numpy(rng.randn(n + 1).astype("float32")).to(
+        cuda, torch.bfloat16)
+    q = flat[1:].view(B, H, S, D)
+    assert not tfa.tma_aligned(q)
+    k, v, dout = (torch.from_numpy(rng.randn(B, H, S, D).astype(
+        "float32")).to(cuda, torch.bfloat16) for _ in range(3))
+    before = (tfa.flash_attention_unpacked.realigned,
+              tfa.flash_attention_unpacked_dq.realigned)
+    out, lse = tfa.flash_attention_unpacked(q, k, v, None, True)
+    delta = (dout.float() * out.float()).sum(-1).contiguous()
+    dq = torch.empty_like(k)
+    tfa.flash_attention_unpacked_dq(q, k, v, None, dout, lse, delta, dq,
+                                    True, D ** -0.5)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention_unpacked.realigned,
+            tfa.flash_attention_unpacked_dq.realigned) == (
+                before[0] + 1, before[1] + 1)
+    f = [t.float() for t in (q, k, v)]
+    ref_out, ref_lse = tfa.flash_attention_reference(*f, None, True)
+    ref_dq = tfa.flash_attention_backward_reference(
+        *f, None, out.float(), lse, dout.float(), True)[0]
+    assert (out.float() - ref_out).abs().max().item() <= 2e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-5
+    assert (dq.float() - ref_dq).abs().max().item() <= 5e-2
