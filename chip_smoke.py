@@ -8,16 +8,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; TF32 off for matmuls and cuDNN.
 2. build: every CUDA source under paddle_tpu_torch/csrc/ with nvcc for
-   sm_90a (one nvcc per source, started together), timed, then loaded;
-   ptxas's registers and spills per kernel, and per library the count of
-   HGMMA (wgmma) and UTMALDG (TMA load) instructions in cuobjdump's SASS.
-   Both libraries hold a bfloat16 tensor-core kernel (forward; dQ), so
-   each must show HGMMA: the proof that the tensor cores run.
-   Each source picks its kernel by dtype: bfloat16 forward and dQ run the
-   tensor-core kernels, float32 the CUDA-core ones; dK/dV is one CUDA-core
-   kernel in both.  So the bf16 cases of phases 3 and 7 and the bf16
-   training phases 6 and 9 run the tensor-core forward and dQ, while the
-   fp32 gates (phases 4, 5, 8) run the CUDA-core kernels.
+   sm_90a (one nvcc per source, started together; anew, even where a
+   library is already built, since the checks read ptxas's report),
+   timed, then loaded;
+   ptxas's registers and spills per kernel, and per kernel function the
+   count of HGMMA (wgmma) and UTMALDG (TMA load) instructions in
+   cuobjdump's SASS.  Each bfloat16 tensor-core kernel (fa_fwd_tc_kernel,
+   fa_dq_tc_kernel, fa_dkv_tc_kernel, at D 64 and 128) must show HGMMA in
+   its own code, the proof that the tensor cores run, and spill nothing;
+   a ptxas warning C7508 (setmaxnreg ignored) or C7512 (wgmmas serialised
+   for want of registers) fails the phase.
+   Each source picks its kernel by dtype: bfloat16 runs the tensor-core
+   kernels, float32 the CUDA-core ones.  So the bf16 cases of phases 3
+   and 7 and the bf16 training phases 6 and 9 run the tensor-core
+   kernels, while the fp32 gates (phases 4, 5, 8) run the CUDA-core ones.
 3. packed kernels: each against its plain PyTorch version on the card,
    at BERT-base's serving shape (B=4, S=128, H=768, 12 heads), at the
    flagship training shape (B=8, S=512, H=768, 12 heads: 8 kv and 8 q
@@ -41,8 +45,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      head, block of 128 rows) ||got - ref|| / ||ref|| <= 1e-2 over the
      live batch rows.  A row over n keys has values near sqrt(e / n),
      which at S 512-2048 are as small as the absolute limits; the
-     tensor-core kernels round P (forward) or dS (dQ) to bf16 before the
-     second product (~2**-9 relative a term) and the output again: ~4e-3.
+     tensor-core kernels round P (forward), dS (dQ) or P^T and dS^T
+     (dK/dV) to bf16 before the second product (~2**-9 relative a term)
+     and the output again: ~4e-3.
    Then times with CUDA events: the forward at BERT-base's serving shape
    (fp32) and at the flagship training shape (bf16), the backward
    kernels at the flagship shape (bf16, and fp32), each beside its plain
@@ -157,9 +162,9 @@ DEAD_GRAD_ATOL = 2.0 ** -6
 # head, block of REL_BLOCK rows): ||got - ref|| / ||ref||.  The absolute
 # limits are set by a causal row's first keys, where values are O(1); a
 # row over n keys has values near sqrt(e / n), 0.035-0.05 at S 2048, as
-# small as the limits themselves.  Rounding P (forward) or dS (dQ) to bf16
-# costs ~2**-9 relative a term and the bf16 output another 2**-9: ~4e-3
-# together, inside 1e-2.
+# small as the limits themselves.  Rounding P (forward), dS (dQ) or P^T and
+# dS^T (dK/dV) to bf16 costs ~2**-9 relative a term and the bf16 output
+# another 2**-9: ~4e-3 together, inside 1e-2.
 BF16_REL_LIMIT, REL_BLOCK = 1e-2, 128
 REL_NAMES = ("out", "dq", "dk", "dv")
 LOGITS_ATOL, LOSS_RTOL = 1e-3, 1e-4
@@ -203,6 +208,8 @@ LLAMA_LOSSES_CUDA_CORES = (10.49620, 10.48460, 10.48037, 9.89279, 9.86580,
 LLAMA_LOSS_RTOL = 1e-3
 # the unpacked kernels' grads in fp32 and bf16 (as the packed ones')
 FP32_GRAD_ATOL, BF16_GRAD_ATOL = 1e-4, 5e-2
+# the bf16 tensor-core kernels, each built at D 64 and 128
+TC_KERNELS = ("fa_fwd_tc_kernel", "fa_dq_tc_kernel", "fa_dkv_tc_kernel")
 
 
 def log(msg):
@@ -497,6 +504,8 @@ def time_backward(fa, device, dtype):
         if not e <= tol:
             raise AssertionError(f"{name} kernel disagrees with its plain "
                                  f"version at the flagship shape ({dtype})")
+    log(f"  dK/dV + dQ {dkv_ms + dq_ms:.5f} ms beside sdpa's whole backward "
+        f"{library_ms:.5f} ms ({(dkv_ms + dq_ms) / library_ms:.2f}x)")
     log(f"  dbias max|err| {db_err:.3e} (atol {DBIAS_ATOL:g})")
     if not db_err <= DBIAS_ATOL:
         raise AssertionError(f"dK/dV kernel's bias gradient disagrees with "
@@ -748,6 +757,8 @@ def time_unpacked(fa, device):
             f"bytes), max|err| {err:.3e}")
     log("  (plain and sdpa backward times each cover dq, dk and dv in one "
         "call)")
+    log(f"  dK/dV + dQ {dkv_ms + dq_ms:.5f} ms beside sdpa's whole backward "
+        f"{bwd_lib_ms:.5f} ms ({(dkv_ms + dq_ms) / bwd_lib_ms:.2f}x)")
     del q, k, v, dout, out, lse, delta, dq, dk, dv
     torch.cuda.empty_cache()
     return rows_out
@@ -785,9 +796,9 @@ def plain_versions(fa):
 
 def tma_wrappers(fa):
     """The wrappers that launch a bfloat16 TMA kernel and count the
-    operands they had to copy to meet its alignment (``.realigned``)."""
-    return (fa.flash_attention_packed, fa.flash_attention_packed_dq,
-            fa.flash_attention_unpacked, fa.flash_attention_unpacked_dq)
+    operands they had to copy to meet its alignment (``.realigned``): all
+    six."""
+    return kernel_wrappers(fa)
 
 
 def reset_counts(fa):
@@ -1210,17 +1221,82 @@ def compare_losses(losses):
                              "CUDA-core kernels'")
 
 
+def kernel_label(mangled):
+    """'fa_dkv_tc_kernel<bf16, 128>' for a kernel's mangled name (the
+    tensor-core kernels are bf16 only and templated on D alone), None for
+    anything else."""
+    m = re.search(r"(fa_\w*?kernel)I(\w*?)Li(\d+)E", mangled)
+    if m is None:
+        return None
+    return (f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'bf16'}, "
+            f"{m.group(3)}>")
+
+
 def sass_counts(build):
-    """Per library: (HGMMA, UTMALDG) instructions in its SASS, from the
-    toolkit's cuobjdump beside nvcc."""
+    """Per kernel function: (HGMMA, UTMALDG) instructions in its SASS, from
+    the toolkit's cuobjdump beside nvcc (each function's code follows its
+    'Function : <mangled name>' line)."""
     cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     counts = {}
     for name in build.sources():
         sass = subprocess.run(
             [cuobjdump, "--dump-sass", build.library_path(name)],
             check=True, capture_output=True, text=True, timeout=120).stdout
-        counts[name] = (sass.count("HGMMA"), sass.count("UTMALDG"))
+        for chunk in re.split(r"Function : ", sass)[1:]:
+            label = kernel_label(chunk.split(None, 1)[0])
+            if label is not None:
+                counts[label] = (chunk.count("HGMMA"), chunk.count("UTMALDG"))
     return counts
+
+
+def ptxas_report(build):
+    """Per kernel: ptxas's register and spill lines from the builds'
+    -Xptxas -v output."""
+    rows = {}
+    for text in build.build_logs.values():
+        label = None
+        for line in text.splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?(\w+)", line)
+            if m:
+                label = kernel_label(m.group(1))
+            elif label and ("registers" in line or "spill" in line):
+                rows.setdefault(label, []).append(line.strip())
+    return rows
+
+
+def check_build(build):
+    """Phase 2's checks on what nvcc made: every tensor-core kernel shows
+    HGMMA (wgmma) in its own SASS at D 64 and 128 and spills nothing;
+    ptxas neither ignored a setmaxnreg (warning C7508) nor serialised a
+    kernel's wgmmas for want of registers (C7512)."""
+    logs = "\n".join(build.build_logs.values())
+    for line in logs.splitlines():
+        if "warning" in line.lower() or "C75" in line:
+            log(f"  ptxas: {line.strip()}")
+    if "C7508" in logs or "setmaxnreg ignored" in logs:
+        raise AssertionError("ptxas ignored a setmaxnreg (C7508)")
+    if "C7512" in logs:
+        raise AssertionError("ptxas serialised wgmmas for want of "
+                             "registers (C7512)")
+    report = ptxas_report(build)
+    for label, lines in sorted(report.items()):
+        log(f"  ptxas {label}: " + "; ".join(lines))
+    counts = sass_counts(build)
+    for label, (hgmma, utmaldg) in sorted(counts.items()):
+        log(f"  SASS {label}: {hgmma} HGMMA, {utmaldg} UTMALDG")
+    for kernel in TC_KERNELS:
+        for D in (64, 128):
+            label = f"{kernel}<bf16, {D}>"
+            if counts.get(label, (0, 0))[0] == 0:
+                raise AssertionError(f"no wgmma (HGMMA) in {label}'s SASS: "
+                                     f"it does not use the tensor cores")
+            spills = [int(x) for line in report.get(label, ())
+                      for x in re.findall(r"(\d+) bytes spill", line)]
+            if not spills or any(spills):
+                raise AssertionError(f"{label} spills registers (or ptxas "
+                                     f"printed no spill line): "
+                                     f"{report.get(label)}")
 
 
 def profile_step(exe, main, scope, feed, loss):
@@ -1263,25 +1339,15 @@ def main():
     device = torch.device("cuda", 0)
 
     t0 = time.perf_counter()
+    # phase 2 reads ptxas's report, which only a build prints: build anew
+    for name in build.sources():
+        if os.path.exists(build.library_path(name)):
+            os.remove(build.library_path(name))
     built = build.build_all()
     fa._lib()
     fa._bwd_lib()
     log(f"[2/9] built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
-    for name, text in build.build_logs.items():
-        for line in text.splitlines():
-            entry = re.search(r"Compiling.*(fa_\w*kernel)I(\w*?)Li(\d+)E",
-                              line)
-            if entry:  # the tensor-core kernels are bf16 only
-                dtype = "float" if entry.group(2) == "f" else "bf16"
-                log(f"  ptxas {name}: {entry.group(1)}<{dtype}, "
-                    f"{entry.group(3)}>")
-            elif "registers" in line or "smem" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
-    for name, (hgmma, utmaldg) in sass_counts(build).items():
-        log(f"  SASS {name}: {hgmma} HGMMA, {utmaldg} UTMALDG")
-        if hgmma == 0:  # both libraries hold a bf16 tensor-core kernel
-            raise AssertionError(f"no wgmma (HGMMA) in {name}'s SASS: the "
-                                 f"bf16 kernels do not use the tensor cores")
+    check_build(build)
 
     log("[3/9] packed kernels against their plain versions")
     check_kernel(fa, device)

@@ -2,10 +2,11 @@
 // packed or the unpacked layout of one TPU kernel of
 // paddle_tpu/ops/pallas/flash_attention.py:
 //
-//   * fa_dkv_kernel replaces `_fp_dkv_kernel` (pt_flash_attention_packed_
-//     bwd_dkv; :611, launched by `_packed_backward` at :745) and
+//   * the dK/dV entries replace `_fp_dkv_kernel` (pt_flash_attention_
+//     packed_bwd_dkv; :611, launched by `_packed_backward` at :745) and
 //     `_fa_dkv_kernel` (pt_flash_attention_bwd_dkv; :226, launched by
-//     `_flash_backward` at :342).
+//     `_flash_backward` at :342): fa_dkv_tc_kernel in bfloat16,
+//     fa_dkv_kernel in float32.
 //   * the dQ entries replace `_fp_dq_kernel` (pt_flash_attention_packed_
 //     bwd_dq; :686) and `_fa_dq_kernel` (pt_flash_attention_bwd_dq; :292):
 //     fa_dq_tc_kernel in bfloat16, fa_dq_kernel in float32.
@@ -35,12 +36,42 @@
 //
 // Design (a block runs alone on Hopper, so a loop inside the block takes
 // the place of the TPU's sequential grid axis):
-//   * dK/dV (float32 and bfloat16 inputs, fp32 FMAs on the CUDA cores): one
+//   * dK/dV, bfloat16 (fa_dkv_tc_kernel, tensor cores): one block of 256
+//     threads per (128-key tile, head, batch), so each key row is owned by
+//     one block (no atomics, deterministic): two warpgroups of 64 keys.
+//     The K and V tiles are loaded once by TMA and stay in 128B-swizzled
+//     shared memory; the 64-row Q and dO tiles stream through a three-stage
+//     TMA ring, from the diagonal q tile on when causal, each stage with
+//     its rows' lse and delta (64 floats each, cp.async: a 1-D bulk copy
+//     would need Sq % 4 == 0 and would read past the arrays at the ragged
+//     end).  Warp 0 issues every load, between its own stages, one stage
+//     behind the one just finished, so that it waits for the other
+//     warpgroup only when that is a whole stage behind.  Per stage a
+//     warpgroup computes S^T = K Q^T and dP^T = V dO^T with wgmma (both
+//     operands K-major in shared memory; the exponentials run while dP^T's
+//     product does), P^T = exp((S^T * scale + bias[key]) - lse[q]) (summed
+//     in the plain version's order, so an all-padding row's -1e4 rounds
+//     alike) and dS^T = P^T * (dP^T - delta[q]) in fp32 registers (the keys
+//     are the rows, so each thread loads its two keys' bias once per block
+//     and reads lse and delta from shared memory at use), rounds P^T and
+//     dS^T to bf16 in registers (the accumulator layout is wgmma's
+//     A-fragment layout) and accumulates dV += P^T dO and dK += dS^T Q with
+//     wgmma (dO and Q read MN-major from the same stage through the
+//     transpose bit).  The bias gradient's row sums are taken from the fp32
+//     dS^T, before the rounding, reduced over a quad once at the end, one
+//     writer per key.  Registers are what shaped it: at D 128 a thread
+//     holds dK, dV, S^T and dP^T (64 + 64 + 32 + 32 fp32).  ptxas sizes a
+//     block's wgmma pipeline by its launch budget per thread (65536 over
+//     the threads rounded up to whole warpgroups: 168 with a third,
+//     producer warpgroup, setmaxnreg or not), and there it serialised the
+//     wgmmas and spilled; two warpgroups get up to 255, and no spill.
+//   * dK/dV, float32 (fa_dkv_kernel, fp32 FMAs on the CUDA cores): one
 //     block of 256 threads per (64-key tile, head, batch).  Its K and V
 //     tiles stay in shared memory while it loops over the 64-row q tiles
 //     (from the diagonal tile on when causal).  Each thread owns a 4x4 patch
 //     of the 64x64 score tile for P and dS, and 4 key rows x D/16 columns of
-//     the dK and dV accumulators, in float32 registers.
+//     the dK and dV accumulators, in float32 registers.  It keeps the fp32
+//     gates bit-equal to the plain version, which TF32 would not.
 //   * dQ, bfloat16 (fa_dq_tc_kernel, tensor cores): one block of 288
 //     threads per (128-row q tile, head, batch), so each q row is owned by
 //     one block (no atomics, deterministic): two consumer warpgroups of 64
@@ -65,9 +96,9 @@
 // 38 MB moved (11.4 us at 3.35 TB/s); dQ 3 products, 9.7 GFLOP, 9.8 us.
 // Unpacked, at Llama-2-7B width (B=1, 32 heads, S=2048, D=128, causal,
 // bf16): dK/dV 6.87e10 flop (69.5 us), dQ 5.15e10 (52.1 us).  All are
-// bound by operations.  The bf16 dQ kernel runs its three products on the
-// tensor cores with loads kept off the compute warps; dK/dV still runs
-// fp32 FMAs on the CUDA cores (67 TFLOP/s).
+// bound by operations.  Both bf16 kernels run their products on the tensor
+// cores with loads kept off the compute warps; the fp32 ones run FMAs on
+// the CUDA cores (67 TFLOP/s).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,18 +123,15 @@ struct BwdShape {
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+
+// ---------------------------------------------------------------------------
+// float32: CUDA cores
+// ---------------------------------------------------------------------------
 
 // Rows r0..r0+63 of a [rows, D] matrix with row stride `row_stride`, from
 // `src`, into dst [64][D + 1] as float32 (times `mul`); rows past `rows`
@@ -403,20 +431,20 @@ struct Call {
   int B, D;
 };
 
-template <typename T, int D>
-int launch_dkv(const Call& c, cudaStream_t stream) {
+template <int D>
+int launch_dkv_f32(const Call& c, cudaStream_t stream) {
   constexpr size_t smem = dkv_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      fa_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fa_dkv_kernel<float, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((c.a.Sk + kBK - 1) / kBK, c.a.num_heads, c.B);
-  fa_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(c.q), static_cast<const T*>(c.k),
-      static_cast<const T*>(c.v), static_cast<const T*>(c.dout),
+  fa_dkv_kernel<float, D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(c.q), static_cast<const float*>(c.k),
+      static_cast<const float*>(c.v), static_cast<const float*>(c.dout),
       static_cast<const float*>(c.bias), static_cast<const float*>(c.lse),
-      static_cast<const float*>(c.delta), static_cast<T*>(c.dk),
-      static_cast<T*>(c.dv), static_cast<float*>(c.dbias_heads), c.a);
+      static_cast<const float*>(c.delta), static_cast<float*>(c.dk),
+      static_cast<float*>(c.dv), static_cast<float*>(c.dbias_heads), c.a);
   return (int)cudaGetLastError();
 }
 
@@ -557,7 +585,8 @@ fa_dq_tc_kernel(const __grid_constant__ hopper::TmaMaps<4> maps,
 
   // epilogue: dq * scale in bf16 through the strides
   const float mul[2] = {a.scale, a.scale};
-  store_bf16<D>(dq + f.b * a.dql.b + f.h * a.dql.h, a.dql.s, Sq, f, acc, mul);
+  store_bf16<D>(dq + f.b * a.dql.b + f.h * a.dql.h, a.dql.s, Sq, row0, quad,
+                acc, mul);
 }
 
 template <int D>
@@ -584,20 +613,260 @@ int launch_dq(const Call& c, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// dK/dV: 128 keys a block, 64 per warpgroup, q tiles of 64 rows streamed
+// through the ring (the dQ kernel's frame turned around: the keys are the
+// rows of every accumulator); two warpgroups and no producer warp, for
+// the registers (see the top of the file).
+constexpr int kKeys = 128;                           // keys per block
+constexpr int kQRows = 64;                           // q rows per stage
+constexpr int kQStages = 3;                          // Q/dO ring depth
+constexpr int kDkvThreads = 2 * 128;                 // two warpgroups
+
+template <int D>
+using QRing = hopper::KvRing<D, kQRows, kQStages>;
+
+// K and V (kKeys x D bf16 each), the ring, its stats (lse and delta,
+// kQRows floats each a stage), its barriers, and alignment slack.
+template <int D>
+constexpr int kKvTile = kKeys * D * 2;
+constexpr int kStatBytes = kQStages * 2 * kQRows * 4;
+template <int D>
+constexpr int kDkvSmem = 2 * kKvTile<D> + QRing<D>::kBytes + kStatBytes +
+                         QRing<D>::kBarBytes + 1024;
+
+template <int D>
+__global__ void __launch_bounds__(kDkvThreads, 1)
+fa_dkv_tc_kernel(const __grid_constant__ hopper::TmaMaps<4> maps,
+                 const float* __restrict__ bias, const float* __restrict__ lse,
+                 const float* __restrict__ delta,
+                 __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                 float* __restrict__ dbias_heads, const BwdShape a) {
+  constexpr int kKV = kKvTile<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = hopper::align1024(smem_raw);
+  uint8_t* ring_tiles = sm + 2 * kKV;
+  float* stats = reinterpret_cast<float*>(ring_tiles + QRing<D>::kBytes);
+  QRing<D> ring(ring_tiles, ring_tiles + QRing<D>::kBytes + kStatBytes);
+
+  const int nh = a.num_heads, Sq = a.Sq, Sk = a.Sk;
+  const int h = blockIdx.x % nh, b = blockIdx.x / nh;
+  const int k0 = blockIdx.y * kKeys;
+  // causal: q tiles before the diagonal see no key of this block
+  const int first = a.causal ? k0 / kQRows : 0;
+  const int n = max((Sq + kQRows - 1) / kQRows - first, 0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long row = ((long long)b * nh + h) * Sq;
+
+  // Warp 0 fills iteration j's stage once it is free: every lane copies two
+  // rows' lse and delta with cp.async (a row past Sq copies row Sq - 1; the
+  // consumers mask it) and arrives when they land, lane 0 also with the Q
+  // and dO tiles' bytes: 33 arrivals a fill.
+  auto fill = [&](int j) {
+    ring.acquire(j);
+    const int q0 = (first + j) * kQRows;
+    float* st = stats + (j % kQStages) * 2 * kQRows;
+    for (int r = lane; r < kQRows; r += 32) {
+      const long long q = row + min(q0 + r, Sq - 1);
+      hopper::cp_async_f32(st + r, lse + q);
+      hopper::cp_async_f32(st + kQRows + r, delta + q);
+    }
+    hopper::cp_async_arrive(&ring.full[j % kQStages]);
+    if (lane == 0) ring.load(&maps.m[0], &maps.m[3], j, first + j, h, b);
+  };
+
+  if (threadIdx.x == 0) ring.init(kDkvThreads / 32, 33);
+  __syncthreads();
+  if (warp == 0) {
+    if (lane == 0) {  // K and V once
+      hopper::mbar_expect_tx(ring.q_full, 2 * kKV);
+      for (int c = 0; c < D / 64; ++c) {
+        hopper::tma_load(sm + c * kKeys * 128, &maps.m[1], ring.q_full,
+                         c * 64, h, k0, b);
+        hopper::tma_load(sm + kKV + c * kKeys * 128, &maps.m[2], ring.q_full,
+                         c * 64, h, k0, b);
+      }
+    }
+    for (int j = 0; j < min(n, kQStages - 1); ++j) fill(j);
+  }
+
+  // this warpgroup's keys kw0 .. kw0 + 63
+  const int wg = warp / 4, quad = lane % 4;
+  const int kw0 = k0 + wg * 64;
+  const int row0 = kw0 + (warp % 4) * 16 + lane / 4;  // keys row0, row0 + 8
+  const uint8_t* ks = sm + wg * 64 * 128;
+  const uint8_t* vs = ks + kKV;
+  float bk[2];  // this thread's keys' bias
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    bk[i] = bias ? __ldg(bias + (long long)b * Sk + min(row0 + 8 * i, Sk - 1))
+                 : 0.f;
+
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+  float db[2] = {0.f, 0.f};  // bias-gradient row sums
+
+  hopper::mbar_wait(ring.q_full, 0);
+  for (int i = 0; i < n; ++i) {
+    const int q0 = (first + i) * kQRows;
+    ring.wait(i);
+    // else this warpgroup's keys all come after the stage's last row
+    if (!(a.causal && kw0 > q0 + kQRows - 1)) {
+      const uint8_t* qs = ring.k(i);
+      const uint8_t* dos = ring.v(i);
+      const float* st = stats + (i % kQStages) * 2 * kQRows;
+      float s[kQRows / 2], dp[kQRows / 2];
+
+      // S^T = K Q^T, then dP^T = V dO^T: two groups, so the
+      // exponentials below run while the second one does
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_ss_n64(s, hopper::desc_k_step(ks, kKeys, kk),
+                             hopper::desc_k_step(qs, kQRows, kk), kk > 0);
+      hopper::wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_ss_n64(dp, hopper::desc_k_step(vs, kKeys, kk),
+                             hopper::desc_k_step(dos, kQRows, kk), kk > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();
+      hopper::fence_regs(s);
+
+      // P^T in place of S^T: row r of the thread is key row0 + 8 r,
+      // column 8 j + 2 quad + c its q row ql.  The score and the bias
+      // are summed before lse is taken off, as the plain version does:
+      // an all-padding row's -1e4 then rounds alike in both.
+#pragma unroll
+      for (int j = 0; j < kQRows / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int ql = 8 * j + 2 * quad + c;
+          const float l = st[ql];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float& x = s[4 * j + 2 * r + c];
+            const bool live = q0 + ql < Sq &&
+                              !(a.causal && row0 + 8 * r > q0 + ql) &&
+                              l != -INFINITY;
+            x = live ? exp2f((fmaf(x, a.scale, bk[r]) - l) * kLog2e)
+                     : 0.f;
+          }
+        }
+
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dp);
+
+      // dS^T = P^T (dP^T - delta) in place of dP^T; its fp32 row sums
+#pragma unroll
+      for (int j = 0; j < kQRows / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float dl = st[kQRows + 8 * j + 2 * quad + c];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int e = 4 * j + 2 * r + c;
+            dp[e] = s[e] * (dp[e] - dl);
+            db[r] += dp[e];
+          }
+        }
+
+      // P^T and dS^T in bf16 as wgmma A fragments, 16 q rows each
+      uint32_t pf[kQRows / 16][4], dsf[kQRows / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kQRows / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          pf[kk][r] =
+              hopper::pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+          dsf[kk][r] =
+              hopper::pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+        }
+
+      // dV += P^T dO, dK += dS^T Q
+      hopper::fence_regs(dva);
+      hopper::fence_regs(dka);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kQRows / 16; ++kk)
+        hopper::wgmma_rs<D>(dva, pf[kk],
+                            hopper::desc_mn_step(dos, kQRows, kk));
+#pragma unroll
+      for (int kk = 0; kk < kQRows / 16; ++kk)
+        hopper::wgmma_rs<D>(dka, dsf[kk],
+                            hopper::desc_mn_step(qs, kQRows, kk));
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dva);
+      hopper::fence_regs(dka);
+    }
+    ring.release(i);
+    // warp 0 refills the stage of iteration i - 1, which the other
+    // warpgroup has most likely released by now: it waits on it only when
+    // a whole stage behind
+    if (warp == 0 && i + kQStages - 1 < n) fill(i + kQStages - 1);
+  }
+
+  // epilogue: dk * scale and dv in bf16 through the strides; each key's
+  // bias gradient summed over its quad, written by one thread
+  const float one[2] = {1.f, 1.f}, sc[2] = {a.scale, a.scale};
+  store_bf16<D>(dv + b * a.dvl.b + h * a.dvl.h, a.dvl.s, Sk, row0, quad,
+                dva, one);
+  store_bf16<D>(dk + b * a.dkl.b + h * a.dkl.h, a.dkl.s, Sk, row0, quad,
+                dka, sc);
+  if (dbias_heads) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float x = db[r];
+      x += __shfl_xor_sync(0xffffffffu, x, 1);
+      x += __shfl_xor_sync(0xffffffffu, x, 2);
+      const int key = row0 + 8 * r;
+      if (quad == 0 && key < Sk)
+        dbias_heads[((long long)b * nh + h) * Sk + key] = x;
+    }
+  }
+}
+
+template <int D>
+int launch_dkv(const Call& c, cudaStream_t stream) {
+  const BwdShape& a = c.a;
+  const int nh = a.num_heads;
+  if (!pairs_aligned(c.dk, a.dkl) || !pairs_aligned(c.dv, a.dvl))
+    return (int)cudaErrorMisalignedAddress;
+  hopper::TmaMaps<4> maps;
+  const Operand ops[4] = {{c.q, a.Sq, a.ql, kQRows},
+                          {c.k, a.Sk, a.kl, kKeys},
+                          {c.v, a.Sk, a.vl, kKeys},
+                          {c.dout, a.Sq, a.dol, kQRows}};
+  const int err = encode_maps(&maps, ops, D, nh, c.B);
+  if (err) return err;
+  constexpr int smem = kDkvSmem<D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      fa_dkv_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(c.B * nh, (a.Sk + kKeys - 1) / kKeys);
+  fa_dkv_tc_kernel<D><<<grid, kDkvThreads, smem, stream>>>(
+      maps, static_cast<const float*>(c.bias),
+      static_cast<const float*>(c.lse), static_cast<const float*>(c.delta),
+      static_cast<__nv_bfloat16*>(c.dk), static_cast<__nv_bfloat16*>(c.dv),
+      static_cast<float*>(c.dbias_heads), a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace tc
 
-// which: 0 = dK/dV, 1 = dQ.  dtype: 0 = float32, 1 = bfloat16.  dK/dV runs
-// fa_dkv_kernel in both dtypes; dQ runs the tensor-core kernel in bfloat16
-// and fa_dq_kernel in float32.
+// which: 0 = dK/dV, 1 = dQ.  dtype: 0 = float32, 1 = bfloat16.  bfloat16
+// runs the tensor-core kernels (fa_dkv_tc_kernel, fa_dq_tc_kernel), float32
+// the CUDA-core ones (fa_dkv_kernel, fa_dq_kernel).
 int run(const Call& c, int which, int dtype, void* stream) {
   if (c.B <= 0 || c.a.Sq <= 0 || c.a.Sk <= 0 || c.a.num_heads <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (which == 0) {
-    if (dtype == 0 && c.D == 64) return launch_dkv<float, 64>(c, st);
-    if (dtype == 0 && c.D == 128) return launch_dkv<float, 128>(c, st);
-    if (dtype == 1 && c.D == 64) return launch_dkv<__nv_bfloat16, 64>(c, st);
-    if (dtype == 1 && c.D == 128) return launch_dkv<__nv_bfloat16, 128>(c, st);
+    if (dtype == 0 && c.D == 64) return launch_dkv_f32<64>(c, st);
+    if (dtype == 0 && c.D == 128) return launch_dkv_f32<128>(c, st);
+    if (dtype == 1 && c.D == 64) return tc::launch_dkv<64>(c, st);
+    if (dtype == 1 && c.D == 128) return tc::launch_dkv<128>(c, st);
   } else {
     if (dtype == 0 && c.D == 64) return launch_dq_f32<64>(c, st);
     if (dtype == 0 && c.D == 128) return launch_dq_f32<128>(c, st);

@@ -439,7 +439,8 @@ fa_fwd_tc_kernel(const __grid_constant__ hopper::TmaMaps<3> maps,
       lse[((long long)f.b * a.num_heads + f.h) * Sq + row] =
           m[i] + logf(fmaxf(li, 1e-30f));
   }
-  store_bf16<D>(out + f.b * a.ol.b + f.h * a.ol.h, a.ol.s, Sq, f, o, inv);
+  store_bf16<D>(out + f.b * a.ol.b + f.h * a.ol.h, a.ol.s, Sq, row0, quad, o,
+                inv);
 }
 
 template <int D>

@@ -1,25 +1,27 @@
 // Hopper (sm_90a) building blocks of the bf16 tensor-core attention kernels
 // in flash_attention_fwd.cu and flash_attention_bwd.cu: TMA tensor maps and
-// loads, mbarriers, and warpgroup matrix multiplies (wgmma) on bf16 tiles
-// held in 128-byte-swizzled shared memory; then the frame both kernels share
-// (tile sizes, block and thread coordinates, q-tile loads, the bf16
-// epilogue, the launch-side maps).  Raw PTX, no CUTLASS/CuTe, so a source
-// builds in seconds.
+// loads, cp.async, mbarriers, and warpgroup matrix multiplies (wgmma) on
+// bf16 tiles held in 128-byte-swizzled shared memory; then the frame the
+// kernels share (tile sizes, block and thread coordinates, q-tile loads,
+// the bf16 epilogue, the launch-side maps).  Raw PTX, no CUTLASS/CuTe, so
+// a source builds in seconds.
 //
 // Shared-memory tiles.  TMA writes a box of 64 bf16 columns (128 bytes, the
 // swizzle span) x R rows as R rows of 128 bytes, the 16-byte chunks of row r
 // XOR-ed with r % 8: 8-row atoms of 1024 bytes, which is the layout wgmma's
 // 128B-swizzle mode reads.  A D-wide tile (D = 64 or 128) is D/64 such boxes
 // ("halves") one after another.  A tile is read by wgmma in two ways:
-//   * K-major (the contraction runs along the 64 columns): Q, dO and K as
-//     the operands of Q K^T and dO V^T.  Descriptor: SBO = 1024 (next 8
-//     rows); a 16-column k step moves the start address by 32 bytes inside
-//     the atom; the next 64 columns are the next half.
+//   * K-major (the contraction runs along the 64 columns): Q, dO, K and V
+//     as the operands of Q K^T and dO V^T (K Q^T and V dO^T in dK/dV).
+//     Descriptor: SBO = 1024 (next 8 rows); a 16-column k step moves the
+//     start address by 32 bytes inside the atom; the next 64 columns are
+//     the next half.
 //   * MN-major (the contraction runs along the rows, the output columns
-//     along the 64 contiguous columns): V in P V and K in dS K, with the
-//     instruction's transpose bit.  Descriptor: SBO = 1024 (next 8 rows of
-//     the contraction), LBO = the byte distance between halves (next 64
-//     output columns); a 16-row k step moves the start by 2048 bytes.
+//     along the 64 contiguous columns): V in P V, K in dS K, dO in P^T dO
+//     and Q in dS^T Q, with the instruction's transpose bit.  Descriptor:
+//     SBO = 1024 (next 8 rows of the contraction), LBO = the byte distance
+//     between halves (next 64 output columns); a 16-row k step moves the
+//     start by 2048 bytes.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only)
@@ -166,6 +168,22 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// One float from global to shared memory, asynchronously (cp.async); the
+// thread's copies so far count as one arrival on `bar` when they land
+// (cp_async_arrive; .noinc: the barrier's initial count includes it).
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
 // One box of `map` at coordinates (col, head, row, batch) into `dst`,
 // counted against `bar`'s transaction bytes.
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
@@ -180,15 +198,17 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// The K/V ring of a kernel whose consumer warps loop over key tiles of
-// kBN rows: stage s holds a K tile then a V tile, each D/64 halves of
-// kBN x 128 bytes.  Barriers: `q_full` for the tiles loaded once, then
-// full[s] (the producer's arrival and TMA's bytes) and empty[s] (one
-// arrival from each consumer warp) per stage.
+// The tile ring of a kernel whose consumer warps loop over tiles of kBN
+// rows of two maps: K and V tiles (forward, dQ) or Q and dO tiles (dK/dV).
+// Stage s holds a tile of the first map then one of the second, each D/64
+// halves of kBN x 128 bytes.  Barriers: `q_full` for the tiles loaded
+// once, then full[s] (the producers' arrivals and TMA's bytes) and
+// empty[s] (one arrival from each consumer warp) per stage.  Iteration i
+// of a loop uses stage i % kStages, whichever tile it loads.
 template <int D, int kBN, int kStages>
 struct KvRing {
   static constexpr int kHalf = kBN * 128;       // one 64-column half
-  static constexpr int kTile = kBN * D * 2;     // one K or V tile
+  static constexpr int kTile = kBN * D * 2;     // one tile of one map
   static constexpr int kBytes = kStages * 2 * kTile;
   static constexpr int kBarBytes = 8 * (1 + 2 * kStages);
 
@@ -203,46 +223,61 @@ struct KvRing {
         full(q_full + 1),
         empty(q_full + 1 + kStages) {}
 
-  // One thread, before the block's __syncthreads.
-  __device__ void init(int consumer_warps) {
+  // One thread, before the block's __syncthreads.  `producers` arrivals
+  // on full[s] complete a fill: the TMA thread's, and one from each
+  // thread whose cp.async copies fill the rest of the stage.
+  __device__ void init(int consumer_warps, int producers = 1) {
     mbar_init(q_full, 1);
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], 1);
+      mbar_init(&full[s], producers);
       mbar_init(&empty[s], consumer_warps);
     }
     fence_barrier_init();
   }
 
-  __device__ const uint8_t* k(int t) const {
-    return tiles + (t % kStages) * 2 * kTile;
+  __device__ const uint8_t* k(int i) const {
+    return tiles + (i % kStages) * 2 * kTile;
   }
-  __device__ const uint8_t* v(int t) const { return k(t) + kTile; }
+  __device__ const uint8_t* v(int i) const { return k(i) + kTile; }
 
-  // The producer thread: key tiles 0 .. nkt-1 of (head, batch), each into
-  // its stage once the consumers have freed it.
-  __device__ void produce(const CUtensorMap* kmap, const CUtensorMap* vmap,
-                          int nkt, int head, int batch) {
-    for (int t = 0; t < nkt; ++t) {
-      const int s = t % kStages;
-      if (t >= kStages) mbar_wait(&empty[s], (t / kStages - 1) & 1);
-      uint8_t* kt = tiles + s * 2 * kTile;
-      mbar_expect_tx(&full[s], 2 * kTile);
-      for (int c = 0; c < D / 64; ++c) {
-        tma_load(kt + c * kHalf, kmap, &full[s], c * 64, head, t * kBN,
-                 batch);
-        tma_load(kt + kTile + c * kHalf, vmap, &full[s], c * 64, head,
-                 t * kBN, batch);
-      }
+  // A producer thread: wait until iteration i's stage is free again.
+  __device__ void acquire(int i) {
+    if (i >= kStages) mbar_wait(&empty[i % kStages], (i / kStages - 1) & 1);
+  }
+
+  // The TMA thread: rows tile * kBN .. of (head, batch) of both maps into
+  // iteration i's stage, counted on full[s] (its arrival and the bytes).
+  __device__ void load(const CUtensorMap* kmap, const CUtensorMap* vmap,
+                       int i, int tile, int head, int batch) {
+    const int s = i % kStages;
+    uint8_t* kt = tiles + s * 2 * kTile;
+    mbar_expect_tx(&full[s], 2 * kTile);
+    for (int c = 0; c < D / 64; ++c) {
+      tma_load(kt + c * kHalf, kmap, &full[s], c * 64, head, tile * kBN,
+               batch);
+      tma_load(kt + kTile + c * kHalf, vmap, &full[s], c * 64, head,
+               tile * kBN, batch);
     }
   }
 
-  // A consumer warp: wait for tile t, and release it when done with it.
-  __device__ void wait(int t) {
-    mbar_wait(&full[t % kStages], (t / kStages) & 1);
+  // The producer thread: tiles 0 .. n-1 of (head, batch), each into its
+  // stage once the consumers have freed it.
+  __device__ void produce(const CUtensorMap* kmap, const CUtensorMap* vmap,
+                          int n, int head, int batch) {
+    for (int t = 0; t < n; ++t) {
+      acquire(t);
+      load(kmap, vmap, t, t, head, batch);
+    }
   }
-  __device__ void release(int t) {
+
+  // A consumer warp: wait for iteration i's tiles, and release them when
+  // done with them.
+  __device__ void wait(int i) {
+    mbar_wait(&full[i % kStages], (i / kStages) & 1);
+  }
+  __device__ void release(int i) {
     __syncwarp();
-    if (threadIdx.x % 32 == 0) mbar_arrive(&empty[t % kStages]);
+    if (threadIdx.x % 32 == 0) mbar_arrive(&empty[i % kStages]);
   }
 };
 
@@ -292,9 +327,14 @@ __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// Waits until at most N committed wgmma groups are still running (groups
+// finish in the order they were committed).
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
+
+__device__ __forceinline__ void wgmma_wait_all() { wgmma_wait<0>(); }
 
 // Keeps the compiler from moving reads or writes of accumulator registers
 // across the asynchronous wgmma that owns them.
@@ -389,7 +429,15 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
 }
 
 // ---------------------------------------------------------------------------
-// the frame of the tensor-core attention kernels (forward and dQ)
+// the frame of the tensor-core attention kernels.  The forward and dQ use
+// all of it: 288 threads (ptxas gives a block registers by whole
+// warpgroups, so 168 a thread), a 128-row q tile held once, 64-key K/V
+// tiles streamed.  dK/dV (flash_attention_bwd.cu) turns it around: 256
+// threads, two warpgroups that hold dK and dV as well as S^T and dP^T (up
+// to 255 registers a thread), a 128-key K/V tile held once, 64-row Q/dO
+// tiles streamed through the same KvRing by warp 0 between its stages,
+// the keys as every accumulator's rows; it shares the tile ring,
+// store_bf16 and the maps.
 // ---------------------------------------------------------------------------
 
 // Element strides of one [B, heads, rows, D] operand; the last dim is
@@ -449,19 +497,20 @@ __device__ __forceinline__ void load_rows(uint8_t* dst, const CUtensorMap* map,
     tma_load(dst + c * kBM * 128, map, bar, c * 64, f.h, f.q0, f.b);
 }
 
-// This thread's share of a warpgroup's 64 x D fp32 accumulator, row i times
+// This thread's share of a warpgroup's 64 x D fp32 accumulator (its rows
+// row0 and row0 + 8, columns 2 * quad + {0, 1} of every 8), row i times
 // mul[i], as bf16 pairs into the rows of `base` (row stride `ss` elements)
 // below `rows`.
 template <int D>
 __device__ __forceinline__ void store_bf16(__nv_bfloat16* base, long long ss,
-                                           int rows, const Frame& f,
+                                           int rows, int row0, int quad,
                                            const float (&acc)[D / 2],
                                            const float (&mul)[2]) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int row = f.row0 + 8 * i;
+    const int row = row0 + 8 * i;
     if (row >= rows) continue;
-    __nv_bfloat16* r = base + row * ss + 2 * f.quad;
+    __nv_bfloat16* r = base + row * ss + 2 * quad;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(r + 8 * j) = __floats2bfloat162_rn(

@@ -159,15 +159,27 @@ def to_tensor(value, device: torch.device, dtype=None) -> torch.Tensor:
     tdt = dtype_to_torch(dtype) if dtype is not None else None
     if isinstance(value, torch.Tensor):
         return value.to(device=device, dtype=tdt)
-    return torch.as_tensor(np.asarray(value), device=device, dtype=tdt)
+    arr = np.asarray(value)
+    if arr.dtype.name == "bfloat16":  # ml_dtypes, as to_numpy returns it
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(
+            device=device, dtype=tdt)
+    return torch.as_tensor(arr, device=device, dtype=tdt)
 
 
 def to_numpy(t) -> np.ndarray:
+    """A fetch as numpy.  A bfloat16 tensor becomes an ml_dtypes.bfloat16
+    array with the same bits, as the JAX package's np.asarray gives it."""
     if not isinstance(t, torch.Tensor):
         return np.asarray(t)
     if t.dtype == torch.bfloat16:
-        raise TypeError("numpy has no bfloat16; fetch with "
-                        "return_numpy=False")
+        try:
+            import ml_dtypes
+        except ImportError as e:
+            raise ImportError("a bfloat16 fetch as numpy needs the "
+                              "ml_dtypes package; fetch with "
+                              "return_numpy=False instead") from e
+        return t.detach().view(torch.int16).cpu().numpy().view(
+            ml_dtypes.bfloat16)
     return t.detach().cpu().numpy()
 
 

@@ -39,12 +39,11 @@ leave are read in place:
   differentiable in q, k, v and bias.
 
 Each source picks its kernel by dtype: bfloat16 runs the tensor-core
-kernels (wgmma, with TMA loads) for the forward and dQ, float32 the CUDA-
-core kernels; dK/dV runs one CUDA-core kernel in both.  TMA reads its
-operands only at 16-byte-aligned addresses and byte strides: a bfloat16
-operand that is not (``tma_aligned``) is copied to fresh contiguous memory
-first, and each such copy is counted in the launching wrapper's
-``.realigned``, which stays 0 on the model paths.
+kernels (wgmma, with TMA loads), float32 the CUDA-core kernels.  TMA
+reads its operands only at 16-byte-aligned addresses and byte strides: a
+bfloat16 operand that is not (``tma_aligned``) is copied to fresh
+contiguous memory first, and each such copy is counted in the launching
+wrapper's ``.realigned``, which stays 0 on the model paths.
 
 A wrapper takes its plain version only for a tensor on the CPU; on a
 CUDA tensor it launches its kernel (counted in ``.launches``) or raises,
@@ -365,8 +364,10 @@ def flash_attention_packed_dkv(qkv, bias, dout, lse, delta, dqkv,
     [B, S, 3H] in qkv's dtype) and, when `dbias_heads` ([B, num_heads, S]
     float32, only with a bias) is given, each head's bias-gradient row
     sums into it.  `delta` is laid out like lse.  Counts launches in
-    ``.launches``."""
+    ``.launches`` and realigned bfloat16 operands in ``.realigned``."""
     B, S, threeH = qkv.shape
+    qkv = tma_operand(qkv, flash_attention_packed_dkv)
+    dout = tma_operand(dout, flash_attention_packed_dkv)
     lib = _bwd_lib()
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
@@ -382,6 +383,7 @@ def flash_attention_packed_dkv(qkv, bias, dout, lse, delta, dqkv,
 
 
 flash_attention_packed_dkv.launches = 0
+flash_attention_packed_dkv.realigned = 0
 
 
 def flash_attention_packed_dq(qkv, bias, dout, lse, delta, dqkv, num_heads,
@@ -669,8 +671,10 @@ def flash_attention_unpacked_dkv(q, k, v, bias, dout, lse, delta, dk, dv,
     in k's dtype, last dim contiguous) and, when `dbias_heads` ([B,H,Sk]
     float32, only with a bias) is given, each head's bias-gradient row
     sums into it.  `delta` is laid out like lse.  Counts launches in
-    ``.launches``."""
+    ``.launches`` and realigned bfloat16 operands in ``.realigned``."""
     B, H, Sq, D = q.shape
+    q, k, v, dout = (tma_operand(t, flash_attention_unpacked_dkv)
+                     for t in (q, k, v, dout))
     lib = _bwd_lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -685,6 +689,7 @@ def flash_attention_unpacked_dkv(q, k, v, bias, dout, lse, delta, dk, dv,
 
 
 flash_attention_unpacked_dkv.launches = 0
+flash_attention_unpacked_dkv.realigned = 0
 
 
 def flash_attention_unpacked_dq(q, k, v, bias, dout, lse, delta, dq, causal,

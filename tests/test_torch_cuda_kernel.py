@@ -397,8 +397,10 @@ TC_CASES = [
     (1, 32, 2048, 2048, 128, True, False, True),   # the Llama shape
     (2, 2, 128, 384, 128, True, True, True),       # Sq < Sk
     (2, 2, 384, 128, 128, False, True, False),     # Sq > Sk
+    (2, 2, 384, 128, 128, True, False, True),      # Sq > Sk, causal
     (2, 2, 100, 100, 128, True, True, True),       # ragged S 100
     (3, 2, 100, 100, 64, False, True, False),
+    (2, 3, 100, 100, 64, True, True, True),        # ragged S 100, D 64
 ]
 
 
@@ -416,88 +418,106 @@ def _block_rel(got, want, block=128):
     return torch.where(num == 0, torch.zeros_like(num), num / den).max().item()
 
 
+def _tc_counts():
+    return tuple((w.launches, w.realigned) for w in (
+        tfa.flash_attention_unpacked, tfa.flash_attention_unpacked_dkv,
+        tfa.flash_attention_unpacked_dq))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,Sq,Sk,D,causal,with_bias,views", TC_CASES)
 def test_tensor_core_kernels_match_plain_versions(cuda, B, H, Sq, Sk, D,
                                                   causal, with_bias, views):
-    """The bf16 forward (out, lse) and dQ kernels against the plain
-    versions on the same rounded inputs in float32: out atol 2e-2 and dq
-    5e-2 (P and dS are rounded to bf16 before their second product, ~2**-9
-    relative a term, and the outputs to bf16), lse 1e-5 (float32); the
+    """The bf16 forward (out, lse), dK/dV (dk, dv, the bias gradient's
+    per-head partials) and dQ kernels against the plain versions on the
+    same rounded inputs in float32: out atol 2e-2, dq, dk and dv 5e-2 (P
+    and dS are rounded to bf16 before their second product, ~2**-9
+    relative a term, and the outputs to bf16) and per 128-row block 1e-2
+    of their own size, lse and dbias 1e-4 / 1e-5 (float32); the
     all-padding row of out to the bf16 tolerance, its lse to one fp32 ulp
-    at 1e4, its dq to 5e-2.  No operand needs realigning."""
+    at 1e4, its grads to 2**-6.  No operand needs realigning."""
     q, k, v, bias, dout = _unpacked_inputs(B, H, Sq, Sk, D, with_bias,
                                            "bfloat16", cuda, Sq + Sk + D,
                                            views)
-    before = (tfa.flash_attention_unpacked.launches,
-              tfa.flash_attention_unpacked_dq.launches,
-              tfa.flash_attention_unpacked.realigned,
-              tfa.flash_attention_unpacked_dq.realigned)
+    before = _tc_counts()
     out, lse = tfa.flash_attention_unpacked(q, k, v, bias, causal)
     scale = 1.0 / D ** 0.5
     delta = (dout.float() * out.float()).sum(-1).contiguous()
-    dq = torch.empty_like(q)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    db_heads = (torch.empty((B, H, Sk), dtype=torch.float32, device=cuda)
+                if with_bias else None)
+    tfa.flash_attention_unpacked_dkv(q, k, v, bias, dout, lse, delta, dk, dv,
+                                     db_heads, causal, scale)
     tfa.flash_attention_unpacked_dq(q, k, v, bias, dout, lse, delta, dq,
                                     causal, scale)
     torch.cuda.synchronize()
-    assert (tfa.flash_attention_unpacked.launches,
-            tfa.flash_attention_unpacked_dq.launches,
-            tfa.flash_attention_unpacked.realigned,
-            tfa.flash_attention_unpacked_dq.realigned) == (
-                before[0] + 1, before[1] + 1, before[2], before[3])
+    assert _tc_counts() == tuple((n + 1, r) for n, r in before)
     f = [t.float() for t in (q, k, v)]
     ref_out, ref_lse = tfa.flash_attention_reference(*f, bias, causal)
-    ref_dq = tfa.flash_attention_backward_reference(
-        *f, bias, out.float(), lse, dout.float(), causal)[0]
+    ref = tfa.flash_attention_backward_reference(
+        *f, bias, out.float(), lse, dout.float(), causal)
     live = slice(0, B - 1) if with_bias else slice(0, B)
-    assert torch.isfinite(out.float()).all() and torch.isfinite(
-        dq.float()).all()
     assert (out.float() - ref_out)[live].abs().max().item() <= 2e-2
     assert (lse - ref_lse)[live].abs().max().item() <= 1e-5
-    assert (dq.float() - ref_dq)[live].abs().max().item() <= 5e-2
     assert _block_rel(out[live], ref_out[live]) <= 1e-2
-    assert _block_rel(dq[live], ref_dq[live]) <= 1e-2
+    for got, want in zip((dq, dk, dv), ref[:3]):
+        assert torch.isfinite(got.float()).all()
+        assert (got.float() - want)[live].abs().max().item() <= 5e-2
+        assert _block_rel(got[live], want[live]) <= 1e-2
     if with_bias:
+        dbias = db_heads.sum(1)
+        assert (dbias - ref[3])[live].abs().max().item() <= 1e-4
         assert (out.float() - ref_out)[-1].abs().max().item() <= 2e-2
         assert (lse - ref_lse)[-1].abs().max().item() <= 2.0 ** -10
-        assert (dq.float() - ref_dq)[-1].abs().max().item() <= 5e-2
+        for got, want in zip((dq, dk, dv, dbias), ref):
+            assert (got.float() - want)[-1].abs().max().item() <= 5e-2
 
 
 @pytest.mark.cuda
 def test_tensor_core_kernels_at_the_bert_training_shape(cuda):
     """Packed qkv [8, 512, 2304] bf16 (12 heads of 64) with a bias whose
-    last row is all padding: the forward and the dQ columns of d(qkv)
-    against the plain versions, tolerances as above."""
+    last row is all padding, the bias gradient on: the forward, the dq, dk
+    and dv columns of d(qkv) and dbias against the plain versions,
+    tolerances as above."""
     B, S, H, nh = 8, 512, 768, 12
     qkv, bias, out, lse, dout = _bwd_inputs(B, S, H, nh, False, True,
                                             "bfloat16", cuda, seed=5)
     got, got_lse = tfa.flash_attention_packed(qkv, bias, nh)
-    dqkv, _ = tfa.flash_attention_packed_backward(qkv, bias, out, lse, dout,
-                                                  nh)
+    dqkv, dbias = tfa.flash_attention_packed_backward(qkv, bias, out, lse,
+                                                      dout, nh)
     torch.cuda.synchronize()
     ref_out, ref_lse = tfa.flash_attention_packed_reference(qkv.float(),
                                                             bias, nh)
-    ref, _ = tfa.flash_attention_packed_backward_reference(
+    ref, ref_db = tfa.flash_attention_packed_backward_reference(
         qkv.float(), bias, out.float(), lse, dout.float(), nh)
     assert (got.float() - ref_out).abs().max().item() <= 2e-2
     assert (got_lse - ref_lse)[:-1].abs().max().item() <= 1e-5
     assert (got_lse - ref_lse)[-1].abs().max().item() <= 2.0 ** -10
-    assert (dqkv.float() - ref)[..., :H].abs().max().item() <= 5e-2
+    assert (dqkv.float() - ref)[:-1].abs().max().item() <= 5e-2
+    assert (dqkv.float() - ref)[-1].abs().max().item() <= 5e-2
+    assert (dbias - ref_db)[:-1].abs().max().item() <= 1e-4
+    assert (dbias - ref_db)[-1].abs().max().item() <= 2.0 ** -6
 
     def heads(x):  # the live rows of [B, S, H] as [B - 1, nh, S, D]
         return x[:-1].reshape(B - 1, S, nh, H // nh).transpose(1, 2)
 
     assert _block_rel(heads(got), heads(ref_out)) <= 1e-2
-    assert _block_rel(heads(dqkv[..., :H]), heads(ref[..., :H])) <= 1e-2
+    for j in range(3):  # dq, dk, dv
+        cols = slice(j * H, (j + 1) * H)
+        assert _block_rel(heads(dqkv[..., cols]), heads(ref[..., cols])) \
+            <= 1e-2
     assert (tfa.flash_attention_packed.realigned,
-            tfa.flash_attention_packed_dq.realigned) == (0, 0)
+            tfa.flash_attention_packed_dkv.realigned,
+            tfa.flash_attention_packed_dq.realigned) == (0, 0, 0)
 
 
 @pytest.mark.cuda
 def test_misaligned_bf16_operands_are_realigned_and_counted(cuda):
     """A bf16 view 2 bytes into its storage cannot be read by TMA: the
     wrapper copies it to contiguous memory, counts the copy in
-    ``.realigned``, and the result still matches the plain version."""
+    ``.realigned``, and the result still matches the plain version.  The
+    unpacked forward, dK/dV and dQ (a misaligned q), then the packed
+    dK/dV (a misaligned qkv)."""
     B, H, S, D = 2, 2, 128, 64
     n = B * H * S * D
     rng = np.random.RandomState(3)
@@ -507,21 +527,44 @@ def test_misaligned_bf16_operands_are_realigned_and_counted(cuda):
     assert not tfa.tma_aligned(q)
     k, v, dout = (torch.from_numpy(rng.randn(B, H, S, D).astype(
         "float32")).to(cuda, torch.bfloat16) for _ in range(3))
-    before = (tfa.flash_attention_unpacked.realigned,
-              tfa.flash_attention_unpacked_dq.realigned)
+    wrappers = (tfa.flash_attention_unpacked, tfa.flash_attention_unpacked_dkv,
+                tfa.flash_attention_unpacked_dq)
+    before = [w.realigned for w in wrappers]
     out, lse = tfa.flash_attention_unpacked(q, k, v, None, True)
     delta = (dout.float() * out.float()).sum(-1).contiguous()
-    dq = torch.empty_like(k)
+    dq, dk, dv = (torch.empty_like(k) for _ in range(3))
+    tfa.flash_attention_unpacked_dkv(q, k, v, None, dout, lse, delta, dk, dv,
+                                     None, True, D ** -0.5)
     tfa.flash_attention_unpacked_dq(q, k, v, None, dout, lse, delta, dq,
                                     True, D ** -0.5)
     torch.cuda.synchronize()
-    assert (tfa.flash_attention_unpacked.realigned,
-            tfa.flash_attention_unpacked_dq.realigned) == (
-                before[0] + 1, before[1] + 1)
+    assert [w.realigned for w in wrappers] == [r + 1 for r in before]
     f = [t.float() for t in (q, k, v)]
     ref_out, ref_lse = tfa.flash_attention_reference(*f, None, True)
-    ref_dq = tfa.flash_attention_backward_reference(
-        *f, None, out.float(), lse, dout.float(), True)[0]
+    ref = tfa.flash_attention_backward_reference(
+        *f, None, out.float(), lse, dout.float(), True)
     assert (out.float() - ref_out).abs().max().item() <= 2e-2
     assert (lse - ref_lse).abs().max().item() <= 1e-5
-    assert (dq.float() - ref_dq).abs().max().item() <= 5e-2
+    for got, want in zip((dq, dk, dv), ref[:3]):
+        assert (got.float() - want).abs().max().item() <= 5e-2
+
+    Bp, Sp, Hp, nh = 2, 64, 256, 2
+    flat = torch.from_numpy(rng.randn(Bp * Sp * 3 * Hp + 1).astype(
+        "float32")).to(cuda, torch.bfloat16)
+    qkv = flat[1:].view(Bp, Sp, 3 * Hp)
+    assert not tfa.tma_aligned(qkv)
+    out, lse = tfa.flash_attention_packed_reference(qkv.float(), None, nh)
+    out = out.to(torch.bfloat16)
+    dout = torch.from_numpy(rng.randn(Bp, Sp, Hp).astype("float32")).to(
+        cuda, torch.bfloat16)
+    tfa.check_backward_inputs(qkv, None, out, lse, dout, nh)
+    delta = tfa.backward_delta(out, dout, nh)
+    dqkv = torch.zeros_like(qkv)
+    before = tfa.flash_attention_packed_dkv.realigned
+    tfa.flash_attention_packed_dkv(qkv, None, dout, lse, delta, dqkv, None,
+                                   nh, False, (Hp // nh) ** -0.5)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_packed_dkv.realigned == before + 1
+    ref, _ = tfa.flash_attention_packed_backward_reference(
+        qkv.float(), None, out.float(), lse, dout.float(), nh)
+    assert (dqkv.float() - ref)[..., Hp:].abs().max().item() <= 5e-2

@@ -76,10 +76,12 @@ def test_tma_operand_leaves_float32_alone():
 
 
 def test_wrappers_count_realigned_operands():
-    """The four wrappers whose kernels load through TMA carry the count,
-    starting from a plain integer the smoke test resets and reads."""
-    for w in (tfa.flash_attention_packed, tfa.flash_attention_packed_dq,
-              tfa.flash_attention_unpacked, tfa.flash_attention_unpacked_dq):
+    """The six wrappers, whose bf16 kernels all load through TMA, carry the
+    count, starting from a plain integer the smoke test resets and reads."""
+    for w in (tfa.flash_attention_packed, tfa.flash_attention_packed_dkv,
+              tfa.flash_attention_packed_dq, tfa.flash_attention_unpacked,
+              tfa.flash_attention_unpacked_dkv,
+              tfa.flash_attention_unpacked_dq):
         assert isinstance(w.realigned, int) and w.realigned >= 0
 
 
