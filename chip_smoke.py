@@ -16,8 +16,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    cuobjdump's SASS.  Each bfloat16 tensor-core kernel (fa_fwd_tc_kernel,
    fa_dq_tc_kernel, fa_dkv_tc_kernel, at D 64 and 128) must show HGMMA in
    its own code, the proof that the tensor cores run, and spill nothing;
-   a ptxas warning C7508 (setmaxnreg ignored) or C7512 (wgmmas serialised
-   for want of registers) fails the phase.
+   nor may the fp32 forward (fa_fwd_f32_kernel at D 64 and 128, 16- and
+   64-row q tiles); a ptxas warning C7508 (setmaxnreg ignored) or C7512
+   (wgmmas serialised for want of registers) fails the phase.
    Each source picks its kernel by dtype: bfloat16 runs the tensor-core
    kernels, float32 the CUDA-core ones.  So the bf16 cases of phases 3
    and 7 and the bf16 training phases 6 and 9 run the tensor-core
@@ -48,12 +49,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      tensor-core kernels round P (forward), dS (dQ) or P^T and dS^T
      (dK/dV) to bf16 before the second product (~2**-9 relative a term)
      and the output again: ~4e-3.
-   Then times with CUDA events: the forward at BERT-base's serving shape
-   (fp32) and at the flagship training shape (bf16), the backward
-   kernels at the flagship shape (bf16, and fp32), each beside its plain
-   version and a PyTorch yardstick: scaled_dot_product_attention
-   (forward) and its backward through torch.autograd.grad (backward).
-   The timed calls' results are held to the same tolerances.
+   Then times: the fp32 forward at BERT-base serving's batch 1, 4 and 8,
+   at the flagship training shape and at the Llama shape (causal), the
+   bf16 forward at the flagship training shape, the backward kernels at
+   the flagship shape (bf16, and fp32), each beside its plain version and
+   a PyTorch yardstick: scaled_dot_product_attention (forward) and its
+   backward through torch.autograd.grad (backward).  Kernel and yardstick
+   each get two times: CUDA events around back-to-back calls (cuda_ms),
+   which include the host's work between launches and so read the host's
+   pace for a call of ~20 us, and the device's own time (device_ms: the
+   kernels' self device time under torch.profiler over the calls).  The
+   timed calls' results are held to the same tolerances.
 4. serving at full width: BERT-base built as __graft_entry__.entry()
    configures it (hidden 768, 12 layers, 12 heads, intermediate 3072,
    vocab 30522, seq 128, random weights from the startup program), saved
@@ -91,9 +97,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    Tolerances as in phase 3 and for the same reasons: fp32 out 2e-5, lse
    1e-5, grads 1e-4; bf16 out 2e-2, grads 5e-2 (output rounding) and
    1e-2 relative per 128-row block; dbias 1e-4; the all-padding row half /
-   one fp32 ulp at 1e4 (out / lse) and 2**-6 (grads).  Then times with
-   CUDA events at the Llama shape (bf16,
-   causal): the three kernels, their plain versions, and
+   one fp32 ulp at 1e4 (out / lse) and 2**-6 (grads).  Then times
+   (events and device, as in phase 3) at the Llama shape (causal), in
+   bf16 and in fp32: the three kernels, their plain versions, and
    scaled_dot_product_attention(is_causal=True) forward and its backward
    through torch.autograd.grad as the yardstick; the timed results are
    held to the same tolerances.
@@ -210,6 +216,10 @@ LLAMA_LOSS_RTOL = 1e-3
 FP32_GRAD_ATOL, BF16_GRAD_ATOL = 1e-4, 5e-2
 # the bf16 tensor-core kernels, each built at D 64 and 128
 TC_KERNELS = ("fa_fwd_tc_kernel", "fa_dq_tc_kernel", "fa_dkv_tc_kernel")
+# the fp32 forward (template <D, warps a block>), built at D 64 and 128
+# with 16-row (2 warps of 8 rows) and 64-row (8 warps) q tiles
+F32_FWD_KERNELS = tuple(f"fa_fwd_f32_kernel<{D}, {w}>" for D in (64, 128)
+                        for w in (2, 8))
 
 
 def log(msg):
@@ -236,6 +246,44 @@ def cuda_ms(fn, iters, warmup=10):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters, warmup=3):
+    """Device time per call of `fn`: torch.profiler's self device time of
+    each kernel that `iters` back-to-back calls launched, as its mean time
+    a launch times its launches a call (count / iters, rounded: a session
+    now and then drops some of its records), summed over the kernels.
+    The host's work between the launches (wrapper, allocation, ctypes) is
+    not in it, as it is in cuda_ms's event time wherever the host, not the
+    kernel, sets the pace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a session now and then records nothing at all
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total / e.count
+                 * max(1, round(e.count / iters))
+                 for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and e.count > 0)
+        if us > 0:
+            return us / 1e3
+    raise AssertionError("the profiler saw no device time in three tries")
+
+
+def timed(fn, iters, warmup=3, device_iters=None):
+    """(event ms, device ms) per call of `fn`: cuda_ms over `iters`
+    back-to-back calls and device_ms over `device_iters` (default
+    iters)."""
+    return (cuda_ms(fn, iters, warmup),
+            device_ms(fn, device_iters or iters, warmup))
 
 
 def block_rel_err(got, want):
@@ -335,48 +383,99 @@ def check_kernel(fa, device):
                                  f"{name}")
 
 
-def time_kernel(fa, device):
-    """Times at the main path's shape: BERT-base batch 4, fp32, padding
-    bias, not causal."""
+# The fp32 forward's timed shapes: (name, B, heads, S, D, causal, packed,
+# event iterations): BERT-base serving at batch 1, 4 and 8 (packed, seq
+# 128, padding bias), BERT's training shape (B 8, S 512) and the Llama
+# shape (unpacked, causal, [B, H, S, D] views of [B, S, H, D] buffers).
+FWD_F32_SHAPES = (("serving_B1", 1, 12, 128, 64, False, True, 200),
+                  ("serving_B4", 4, 12, 128, 64, False, True, 200),
+                  ("serving_B8", 8, 12, 128, 64, False, True, 200),
+                  ("training", 8, 12, 512, 64, False, True, 20),
+                  ("llama", 1, 32, 2048, 128, True, False, 5))
+
+
+def time_forward_f32(fa, device):
+    """The fp32 forward kernel at FWD_F32_SHAPES, beside its plain version
+    and scaled_dot_product_attention in fp32 (a float mask from the bias,
+    or is_causal): event ms of back-to-back calls and device ms
+    (device_ms) of the kernel and of SDPA; the bound from this run's
+    inputs.  Each timed result is held to the plain version (out 2e-5, lse
+    1e-5).  Returns {shape name: row}."""
     import torch
     import torch.nn.functional as F
 
-    B, S, H, nh = 4, 128, 768, 12
-    D = H // nh
-    qkv, bias = make_inputs(B, S, H, "pad_dead_row", 7, device, "float32")
-    bias[-1] = 0.0  # the main path's shape, not its dead-row stress case
-    kernel_ms = cuda_ms(lambda: fa.flash_attention_packed(qkv, bias, nh),
-                        iters=200)
-    plain_ms = cuda_ms(
-        lambda: fa.flash_attention_packed_reference(qkv, bias, nh),
-        iters=50)
-    x = qkv.view(B, S, 3, nh, D)
-    q, k, v = (x[:, :, j].transpose(1, 2) for j in range(3))
-    mask = bias[:, None, None, :]
-    library_ms = cuda_ms(
-        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
-        iters=200)
-    out, lse = fa.flash_attention_packed(qkv, bias, nh)
-    ref_out, _ = fa.flash_attention_packed_reference(qkv, bias, nh)
-    lib_out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
-    lib_err = (lib_out.transpose(1, 2).reshape(B, S, H) - ref_out).abs()
-    nbytes = (qkv.numel() * qkv.element_size() + bias.numel() * 4
-              + out.numel() * out.element_size() + lse.numel() * 4)
-    flops = 4.0 * B * nh * S * S * D
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOP_PER_S["float32"] * 1e3
-    log(f"  timed at B={B} S={S} H={H} nh={nh} fp32 with bias: kernel "
-        f"{kernel_ms:.5f} ms, plain {plain_ms:.5f} ms, sdpa "
-        f"{library_ms:.5f} ms (sdpa vs plain max|err| "
-        f"{lib_err.max().item():.3e}); {nbytes} bytes, {flops:.0f} flop")
-    err = (out - ref_out).abs().max().item()
-    if not err <= FP32_OUT_ATOL:
-        raise AssertionError(f"forward kernel disagrees with its plain "
-                             f"version at the serving shape: {err:.3e}")
-    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                max_abs_err=err)
+    rows = {}
+    for name, B, nh, S, D, causal, packed, iters in FWD_F32_SHAPES:
+        H = nh * D
+        if packed:
+            qkv, bias = make_inputs(B, S, H, "pad_dead_row", 7, device,
+                                    "float32")
+            bias[-1] = 0.0  # the main path's shape, not its dead-row case
+            x = qkv.view(B, S, 3, nh, D)
+            q, k, v = (x[:, :, j].transpose(1, 2) for j in range(3))
+
+            def call():
+                return fa.flash_attention_packed(qkv, bias, nh)
+
+            def plain():
+                return fa.flash_attention_packed_reference(qkv, bias, nh)
+
+            def lib():
+                return F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=bias[:, None, None, :])
+
+            nbytes = (qkv.numel() + bias.numel() + B * S * H
+                      + B * nh * S) * 4
+            flops = 4.0 * B * nh * S * S * D
+        else:
+            q, k, v, _, _ = unpacked_inputs(B, nh, S, S, D, "none", True, 17,
+                                            device, "float32")
+
+            def call():
+                return fa.flash_attention_unpacked(q, k, v, None, causal)
+
+            def plain():
+                return fa.flash_attention_reference(q, k, v, None, causal)
+
+            def lib():
+                return F.scaled_dot_product_attention(q, k, v,
+                                                      is_causal=causal)
+
+            nbytes = 4 * B * nh * S * D * 4 + B * nh * S * 4
+            flops = 4.0 * B * nh * D * S * (S + 1) / 2  # live pairs
+        ms, dev = timed(call, iters, device_iters=max(5, iters // 4))
+        plain_ms = cuda_ms(plain, max(2, iters // 4), warmup=1)
+        lib_ms, lib_dev = timed(lib, iters, device_iters=max(5, iters // 4))
+        out, lse = call()
+        ref_out, ref_lse = plain()
+        lib_out = lib()
+        if packed:
+            lib_out = lib_out.transpose(1, 2).reshape(B, S, H)
+        err = (out - ref_out).abs().max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        lib_err = (lib_out - ref_out).abs().max().item()
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOP_PER_S["float32"] * 1e3
+        rows[name] = dict(ms=ms, device_ms=dev, plain_ms=plain_ms,
+                          library_ms=lib_ms, library_device_ms=lib_dev,
+                          bound_ms=max(t_bytes, t_ops),
+                          bound_by="bytes" if t_bytes >= t_ops
+                          else "operations", max_abs_err=max(err, lse_err))
+        log(f"  fp32 forward {name} (B={B} S={S} heads={nh} D={D}"
+            f"{' causal' if causal else ', bias'}): kernel {ms:.5f} ms "
+            f"events / {dev:.5f} ms device, sdpa {lib_ms:.5f} / "
+            f"{lib_dev:.5f} ms, plain {plain_ms:.5f} ms, bound "
+            f"{max(t_bytes, t_ops):.5f} ms ({rows[name]['bound_by']}: "
+            f"{flops:.4g} flop, {nbytes} bytes); out max|err| {err:.3e}, "
+            f"lse {lse_err:.3e} (sdpa vs plain {lib_err:.3e})")
+        if not (err <= FP32_OUT_ATOL and lse_err <= FP32_LSE_ATOL):
+            raise AssertionError(f"fp32 forward kernel disagrees with its "
+                                 f"plain version at {name}")
+        del out, lse, ref_out, ref_lse, lib_out, q, k, v
+    torch.cuda.empty_cache()
+    log("  (events: back-to-back calls, wrapper and host work included; "
+        "device: the kernels' own time under torch.profiler)")
+    return rows
 
 
 def backward_inputs(fa, qkv, bias, nh, causal, seed):
@@ -449,12 +548,12 @@ def time_backward(fa, device, dtype):
     delta = fa.backward_delta(out, dout, nh)
     dqkv = torch.empty_like(qkv)
     db_heads = torch.empty((B, nh, S), dtype=torch.float32, device=device)
-    dkv_ms = cuda_ms(lambda: fa.flash_attention_packed_dkv(
+    dkv_ms, dkv_dev = timed(lambda: fa.flash_attention_packed_dkv(
         qkv, bias, dout, lse, delta, dqkv, db_heads, nh, False, scale),
-        iters=20, warmup=3)
-    dq_ms = cuda_ms(lambda: fa.flash_attention_packed_dq(
+        iters=20, device_iters=5)
+    dq_ms, dq_dev = timed(lambda: fa.flash_attention_packed_dq(
         qkv, bias, dout, lse, delta, dqkv, nh, False, scale),
-        iters=20, warmup=3)
+        iters=20, device_iters=5)
     plain_ms = cuda_ms(lambda: fa.flash_attention_packed_backward_reference(
         qkv, bias, out, lse, dout, nh), iters=5, warmup=2)
 
@@ -464,8 +563,8 @@ def time_backward(fa, device, dtype):
     lib_out = F.scaled_dot_product_attention(
         q, k, v, attn_mask=bias[:, None, None, :].to(qkv.dtype))
     g = dout.view(B, S, nh, D).transpose(1, 2)
-    library_ms = cuda_ms(lambda: torch.autograd.grad(
-        lib_out, (q, k, v), g, retain_graph=True), iters=20, warmup=3)
+    library_ms, library_dev = timed(lambda: torch.autograd.grad(
+        lib_out, (q, k, v), g, retain_graph=True), iters=20, device_iters=5)
 
     dqkv, dbias = fa.flash_attention_packed_backward(qkv, bias, out, lse,
                                                      dout, nh)
@@ -486,33 +585,39 @@ def time_backward(fa, device, dtype):
           + bias.numel() * 4)
     work = float(B * nh * S * S * D)
     rows = {}
-    for name, flops, nbytes, ms, e in (
+    for name, flops, nbytes, ms, dev, e in (
             ("dkv", 8 * work, io + 2 * B * S * H * elem + db_heads.numel() * 4,
-             dkv_ms, max(err[..., H:].max().item(), db_err)),
-            ("dq", 6 * work, io + B * S * H * elem, dq_ms,
+             dkv_ms, dkv_dev, max(err[..., H:].max().item(), db_err)),
+            ("dq", 6 * work, io + B * S * H * elem, dq_ms, dq_dev,
              err[..., :H].max().item())):
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_FLOP_PER_S[dtype] * 1e3
-        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        rows[name] = dict(ms=ms, device_ms=dev, plain_ms=plain_ms,
+                          library_ms=library_ms,
+                          library_device_ms=library_dev,
                           bound_ms=max(t_bytes, t_ops),
                           bound_by="bytes" if t_bytes >= t_ops
                           else "operations", max_abs_err=e)
         log(f"  {name} at B={B} S={S} H={H} nh={nh} {dtype} with bias: "
-            f"kernel {ms:.5f} ms, bound {max(t_bytes, t_ops):.5f} ms "
+            f"kernel {ms:.5f} ms events / {dev:.5f} ms device, bound "
+            f"{max(t_bytes, t_ops):.5f} ms "
             f"({rows[name]['bound_by']}: {flops:.4g} flop, {nbytes} bytes), "
             f"max|err| {e:.3e} (atol {tol:g})")
         if not e <= tol:
             raise AssertionError(f"{name} kernel disagrees with its plain "
                                  f"version at the flagship shape ({dtype})")
-    log(f"  dK/dV + dQ {dkv_ms + dq_ms:.5f} ms beside sdpa's whole backward "
-        f"{library_ms:.5f} ms ({(dkv_ms + dq_ms) / library_ms:.2f}x)")
+    log(f"  dK/dV + dQ {dkv_ms + dq_ms:.5f} ms events / "
+        f"{dkv_dev + dq_dev:.5f} ms device beside sdpa's whole backward "
+        f"{library_ms:.5f} / {library_dev:.5f} ms "
+        f"({(dkv_dev + dq_dev) / library_dev:.2f}x on the device)")
     log(f"  dbias max|err| {db_err:.3e} (atol {DBIAS_ATOL:g})")
     if not db_err <= DBIAS_ATOL:
         raise AssertionError(f"dK/dV kernel's bias gradient disagrees with "
                              f"its plain version at the flagship shape "
                              f"({dtype})")
     log(f"  plain backward (dq, dk, dv, dbias in one call) {plain_ms:.5f} "
-        f"ms; sdpa backward (dq, dk, dv) {library_ms:.5f} ms")
+        f"ms; sdpa backward (dq, dk, dv) {library_ms:.5f} ms events / "
+        f"{library_dev:.5f} ms device ({dtype})")
     return rows
 
 
@@ -526,13 +631,13 @@ def time_forward_flagship(fa, device):
     D = H // nh
     qkv, bias = make_inputs(B, S, H, "pad_dead_row", 19, device, "bfloat16")
     bias[-1] = 0.0
-    ms = cuda_ms(lambda: fa.flash_attention_packed(qkv, bias, nh), iters=20,
-                 warmup=3)
+    ms, dev = timed(lambda: fa.flash_attention_packed(qkv, bias, nh),
+                    iters=20, device_iters=10)
     x = qkv.view(B, S, 3, nh, D)
     q, k, v = (x[:, :, j].transpose(1, 2) for j in range(3))
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+    lib_ms, lib_dev = timed(lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=bias[:, None, None, :].to(qkv.dtype)), iters=20,
-        warmup=3)
+        device_iters=10)
     flops = 4.0 * B * nh * S * S * D
     out, lse = fa.flash_attention_packed(qkv, bias, nh)
     ref_out, ref_lse = fa.flash_attention_packed_reference(qkv.float(), bias,
@@ -541,7 +646,8 @@ def time_forward_flagship(fa, device):
     lse_err = (lse - ref_lse).abs().max().item()
     rel, = packed_rel_errs(out, ref_out, nh, H)
     log(f"  forward at B={B} S={S} H={H} nh={nh} bfloat16 with bias: kernel "
-        f"{ms:.5f} ms, sdpa {lib_ms:.5f} ms, bound "
+        f"{ms:.5f} ms events / {dev:.5f} ms device, sdpa {lib_ms:.5f} / "
+        f"{lib_dev:.5f} ms, bound "
         f"{flops / PEAK_FLOP_PER_S['bfloat16'] * 1e3:.5f} ms (operations); "
         f"out max|err| {out_err:.3e} (atol {BF16_OUT_ATOL:g}), rel "
         f"{rel:.3e} (limit {BF16_REL_LIMIT:g}), lse {lse_err:.3e} (atol "
@@ -676,58 +782,61 @@ def check_unpacked(fa, device):
     torch.cuda.empty_cache()
 
 
-def time_unpacked(fa, device):
+def time_unpacked(fa, device, dtype):
     """Times of the three unpacked kernels at the Llama flagship's
-    attention shape (B 1, 32 heads, S 2048, D 128, causal, bf16, views of
-    [B, S, H, D] buffers as rope leaves them), beside their plain
-    versions and scaled_dot_product_attention(is_causal=True) forward and
-    backward (torch.autograd.grad over one forward, grads of q, k, v).
-    The timed results are held to the phase's tolerances.  The work is
-    what the causal mask leaves: S (S + 1) / 2 live (q, k) pairs."""
+    attention shape (B 1, 32 heads, S 2048, D 128, causal, views of
+    [B, S, H, D] buffers as rope leaves them) in `dtype`, beside their
+    plain versions and scaled_dot_product_attention(is_causal=True)
+    forward and backward (torch.autograd.grad over one forward, grads of
+    q, k, v): event ms of back-to-back calls and device ms.  The timed
+    results are held to the phase's tolerances.  The work is what the
+    causal mask leaves: S (S + 1) / 2 live (q, k) pairs."""
     import torch
     import torch.nn.functional as F
 
     B, H, S, D = (LLAMA_FLAGSHIP["batch_size"], LLAMA["num_heads"],
                   LLAMA_FLAGSHIP["seq_len"],
                   LLAMA["hidden"] // LLAMA["num_heads"])
-    dtype = "bfloat16"
     q, k, v, _, dout = unpacked_inputs(B, H, S, S, D, "none", True, 17,
                                        device, dtype)
     scale = 1.0 / math.sqrt(D)
-    fwd_ms = cuda_ms(lambda: fa.flash_attention_unpacked(q, k, v, None, True),
-                     iters=10, warmup=2)
+    fwd_ms, fwd_dev = timed(
+        lambda: fa.flash_attention_unpacked(q, k, v, None, True), iters=10,
+        device_iters=5)
     fwd_plain_ms = cuda_ms(
         lambda: fa.flash_attention_reference(q, k, v, None, True), iters=3,
         warmup=1)
-    fwd_lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True), iters=10, warmup=2)
+    fwd_lib_ms, fwd_lib_dev = timed(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), iters=10, device_iters=5)
 
     out, lse = fa.flash_attention_unpacked(q, k, v, None, True)
     fa.check_unpacked_backward_inputs(q, k, v, None, out, lse, dout)
     delta = (dout.float() * out.float()).sum(-1).contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    dkv_ms = cuda_ms(lambda: fa.flash_attention_unpacked_dkv(
+    dkv_ms, dkv_dev = timed(lambda: fa.flash_attention_unpacked_dkv(
         q, k, v, None, dout, lse, delta, dk, dv, None, True, scale),
-        iters=10, warmup=2)
-    dq_ms = cuda_ms(lambda: fa.flash_attention_unpacked_dq(
+        iters=10, device_iters=5)
+    dq_ms, dq_dev = timed(lambda: fa.flash_attention_unpacked_dq(
         q, k, v, None, dout, lse, delta, dq, True, scale), iters=10,
-        warmup=2)
+        device_iters=5)
     bwd_plain_ms = cuda_ms(lambda: fa.flash_attention_backward_reference(
         q, k, v, None, out, lse, dout, True), iters=3, warmup=1)
     ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
     lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
-    bwd_lib_ms = cuda_ms(lambda: torch.autograd.grad(
-        lib_out, (ql, kl, vl), dout, retain_graph=True), iters=10, warmup=2)
+    bwd_lib_ms, bwd_lib_dev = timed(lambda: torch.autograd.grad(
+        lib_out, (ql, kl, vl), dout, retain_graph=True), iters=10,
+        device_iters=5)
     del lib_out, ql, kl, vl
 
     live, _, rel = unpacked_errors(fa, q, k, v, None, dout, True, out, lse,
                                    (dq, dk, dv, None))
     lim, _ = unpacked_limits(dtype)
-    log("  timed results: rel " + ", ".join(
-        f"{n} {e:.3e}" for n, e in zip(REL_NAMES, rel)) +
-        f" (limit {BF16_REL_LIMIT:g})")
+    if rel is not None:
+        log("  timed results: rel " + ", ".join(
+            f"{n} {e:.3e}" for n, e in zip(REL_NAMES, rel)) +
+            f" (limit {BF16_REL_LIMIT:g})")
     if not (all(e <= t for e, t in zip(live, lim)) and
-            max(rel) <= BF16_REL_LIMIT):
+            (rel is None or max(rel) <= BF16_REL_LIMIT)):
         raise AssertionError(f"unpacked kernels disagree with their plain "
                              f"versions in the timed calls: {live}, rel "
                              f"{rel}")
@@ -736,29 +845,32 @@ def time_unpacked(fa, device):
     rows = B * H * S * 4                         # one [B, H, S] f32 row set
     pairs = B * H * D * S * (S + 1) / 2.0        # live multiply-adds / 2
     rows_out = {}
-    for name, flops, nbytes, ms, plain_ms, lib_ms, err in (
-            ("fwd", 4 * pairs, 4 * tile + rows, fwd_ms, fwd_plain_ms,
-             fwd_lib_ms, max(live[:2])),
-            ("dkv", 8 * pairs, 6 * tile + 2 * rows, dkv_ms, bwd_plain_ms,
-             bwd_lib_ms, max(live[3:5])),
-            ("dq", 6 * pairs, 5 * tile + 2 * rows, dq_ms, bwd_plain_ms,
-             bwd_lib_ms, live[2])):
+    for name, flops, nbytes, ms, dev, plain_ms, lib_ms, lib_dev, err in (
+            ("fwd", 4 * pairs, 4 * tile + rows, fwd_ms, fwd_dev, fwd_plain_ms,
+             fwd_lib_ms, fwd_lib_dev, max(live[:2])),
+            ("dkv", 8 * pairs, 6 * tile + 2 * rows, dkv_ms, dkv_dev,
+             bwd_plain_ms, bwd_lib_ms, bwd_lib_dev, max(live[3:5])),
+            ("dq", 6 * pairs, 5 * tile + 2 * rows, dq_ms, dq_dev,
+             bwd_plain_ms, bwd_lib_ms, bwd_lib_dev, live[2])):
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_FLOP_PER_S[dtype] * 1e3
         rows_out[name] = dict(
-            ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-            bound_ms=max(t_bytes, t_ops),
+            ms=ms, device_ms=dev, plain_ms=plain_ms, library_ms=lib_ms,
+            library_device_ms=lib_dev, bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             max_abs_err=err)
         log(f"  {name} at B={B} H={H} S={S} D={D} causal {dtype}: kernel "
-            f"{ms:.5f} ms, plain {plain_ms:.5f} ms, sdpa {lib_ms:.5f} ms, "
+            f"{ms:.5f} ms events / {dev:.5f} ms device, plain "
+            f"{plain_ms:.5f} ms, sdpa {lib_ms:.5f} / {lib_dev:.5f} ms, "
             f"bound {max(t_bytes, t_ops):.5f} ms "
             f"({rows_out[name]['bound_by']}: {flops:.4g} flop, {nbytes} "
             f"bytes), max|err| {err:.3e}")
     log("  (plain and sdpa backward times each cover dq, dk and dv in one "
         "call)")
-    log(f"  dK/dV + dQ {dkv_ms + dq_ms:.5f} ms beside sdpa's whole backward "
-        f"{bwd_lib_ms:.5f} ms ({(dkv_ms + dq_ms) / bwd_lib_ms:.2f}x)")
+    log(f"  dK/dV + dQ {dkv_ms + dq_ms:.5f} ms events / "
+        f"{dkv_dev + dq_dev:.5f} ms device beside sdpa's whole backward "
+        f"{bwd_lib_ms:.5f} / {bwd_lib_dev:.5f} ms "
+        f"({(dkv_dev + dq_dev) / bwd_lib_dev:.2f}x on the device)")
     del q, k, v, dout, out, lse, delta, dq, dk, dv
     torch.cuda.empty_cache()
     return rows_out
@@ -1223,13 +1335,17 @@ def compare_losses(losses):
 
 def kernel_label(mangled):
     """'fa_dkv_tc_kernel<bf16, 128>' for a kernel's mangled name (the
-    tensor-core kernels are bf16 only and templated on D alone), None for
-    anything else."""
-    m = re.search(r"(fa_\w*?kernel)I(\w*?)Li(\d+)E", mangled)
+    tensor-core kernels are bf16 only and templated on D alone),
+    'fa_fwd_f32_kernel<64, 2>' for the fp32 forward (templated on D and
+    its warps a block), None for anything else."""
+    m = re.search(r"(fa_\w*?kernel)I(\w*?)Li(\d+)E((?:Li\d+E)*)", mangled)
     if m is None:
         return None
-    return (f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'bf16'}, "
-            f"{m.group(3)}>")
+    name, dtype, D, more = m.groups()
+    if more:
+        params = [D] + re.findall(r"Li(\d+)E", more)
+        return f"{name}<{', '.join(params)}>"
+    return f"{name}<{'float' if dtype == 'f' else 'bf16'}, {D}>"
 
 
 def sass_counts(build):
@@ -1267,7 +1383,8 @@ def ptxas_report(build):
 
 def check_build(build):
     """Phase 2's checks on what nvcc made: every tensor-core kernel shows
-    HGMMA (wgmma) in its own SASS at D 64 and 128 and spills nothing;
+    HGMMA (wgmma) in its own SASS at D 64 and 128; neither it nor any
+    instantiation of the fp32 forward spills registers;
     ptxas neither ignored a setmaxnreg (warning C7508) nor serialised a
     kernel's wgmmas for want of registers (C7512)."""
     logs = "\n".join(build.build_logs.values())
@@ -1285,18 +1402,18 @@ def check_build(build):
     counts = sass_counts(build)
     for label, (hgmma, utmaldg) in sorted(counts.items()):
         log(f"  SASS {label}: {hgmma} HGMMA, {utmaldg} UTMALDG")
-    for kernel in TC_KERNELS:
-        for D in (64, 128):
-            label = f"{kernel}<bf16, {D}>"
-            if counts.get(label, (0, 0))[0] == 0:
-                raise AssertionError(f"no wgmma (HGMMA) in {label}'s SASS: "
-                                     f"it does not use the tensor cores")
-            spills = [int(x) for line in report.get(label, ())
-                      for x in re.findall(r"(\d+) bytes spill", line)]
-            if not spills or any(spills):
-                raise AssertionError(f"{label} spills registers (or ptxas "
-                                     f"printed no spill line): "
-                                     f"{report.get(label)}")
+    tc = [f"{kernel}<bf16, {D}>" for kernel in TC_KERNELS for D in (64, 128)]
+    for label in tc:
+        if counts.get(label, (0, 0))[0] == 0:
+            raise AssertionError(f"no wgmma (HGMMA) in {label}'s SASS: it "
+                                 f"does not use the tensor cores")
+    for label in tc + list(F32_FWD_KERNELS):
+        spills = [int(x) for line in report.get(label, ())
+                  for x in re.findall(r"(\d+) bytes spill", line)]
+        if not spills or any(spills):
+            raise AssertionError(f"{label} spills registers (or ptxas "
+                                 f"printed no spill line): "
+                                 f"{report.get(label)}")
 
 
 def profile_step(exe, main, scope, feed, loss):
@@ -1352,7 +1469,7 @@ def main():
     log("[3/9] packed kernels against their plain versions")
     check_kernel(fa, device)
     check_backward(fa, device)
-    timing = time_kernel(fa, device)
+    fwd_f32 = time_forward_f32(fa, device)
     time_forward_flagship(fa, device)
     bwd_timing = time_backward(fa, device, "bfloat16")
     time_backward(fa, device, "float32")
@@ -1375,7 +1492,8 @@ def main():
 
     log("[7/9] unpacked kernels against their plain versions")
     check_unpacked(fa, device)
-    unpacked_timing = time_unpacked(fa, device)
+    unpacked_timing = time_unpacked(fa, device, "bfloat16")
+    time_unpacked(fa, device, "float32")
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
     log("[8/9] Llama-2-7B-width training, card against the CPU (fp32)")
@@ -1392,7 +1510,7 @@ def main():
     kernels = [
         dict(name="flash_attention_packed_fwd", route="cuda",
              source=src + "flash_attention_fwd.cu", replaces=tpu + "513",
-             main_path="training_flagship", **timing),
+             main_path="training_flagship", **fwd_f32["serving_B4"]),
         dict(name="flash_attention_packed_dkv", route="cuda",
              source=src + "flash_attention_bwd.cu", replaces=tpu + "611",
              main_path="training_flagship", **bwd_timing["dkv"]),

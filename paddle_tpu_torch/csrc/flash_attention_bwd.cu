@@ -434,10 +434,9 @@ struct Call {
 template <int D>
 int launch_dkv_f32(const Call& c, cudaStream_t stream) {
   constexpr size_t smem = dkv_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      fa_dkv_kernel<float, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  static const cudaError_t attr = hopper::set_smem_limit(
+      fa_dkv_kernel<float, D>, (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
   dim3 grid((c.a.Sk + kBK - 1) / kBK, c.a.num_heads, c.B);
   fa_dkv_kernel<float, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(c.q), static_cast<const float*>(c.k),
@@ -451,10 +450,9 @@ int launch_dkv_f32(const Call& c, cudaStream_t stream) {
 template <int D>
 int launch_dq_f32(const Call& c, cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      fa_dq_kernel<float, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  static const cudaError_t attr = hopper::set_smem_limit(
+      fa_dq_kernel<float, D>, (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
   dim3 grid((c.a.Sq + kBQ - 1) / kBQ, c.a.num_heads, c.B);
   fa_dq_kernel<float, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(c.q), static_cast<const float*>(c.k),
@@ -602,9 +600,9 @@ int launch_dq(const Call& c, cudaStream_t stream) {
   const int err = encode_maps(&maps, ops, D, nh, c.B);
   if (err) return err;
   constexpr int smem = kDqSmem<D>;
-  cudaError_t e = cudaFuncSetAttribute(
-      fa_dq_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
+  static const cudaError_t attr = hopper::set_smem_limit(
+      fa_dq_tc_kernel<D>, smem);
+  if (attr != cudaSuccess) return (int)attr;
   dim3 grid(c.B * nh, (a.Sq + kBM - 1) / kBM);
   fa_dq_tc_kernel<D><<<grid, kThreads, smem, stream>>>(
       maps, static_cast<const float*>(c.bias),
@@ -841,9 +839,9 @@ int launch_dkv(const Call& c, cudaStream_t stream) {
   const int err = encode_maps(&maps, ops, D, nh, c.B);
   if (err) return err;
   constexpr int smem = kDkvSmem<D>;
-  cudaError_t e = cudaFuncSetAttribute(
-      fa_dkv_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
+  static const cudaError_t attr = hopper::set_smem_limit(
+      fa_dkv_tc_kernel<D>, smem);
+  if (attr != cudaSuccess) return (int)attr;
   dim3 grid(c.B * nh, (a.Sk + kKeys - 1) / kKeys);
   fa_dkv_tc_kernel<D><<<grid, kDkvThreads, smem, stream>>>(
       maps, static_cast<const float*>(c.bias),

@@ -44,21 +44,39 @@
 //     Causal q tiles run longest first (the grid's y index is reversed), so
 //     the short tiles fill the tail.  Shared memory: 32 KB of Q and 2 x 32
 //     KB of K/V at D 128.
-//   * float32: fa_fwd_kernel, fp32 FMAs on the CUDA cores: one block of 256
-//     threads per (64-row q tile, head, batch) looping over 64-row k/v tiles
-//     in shared memory (each thread owns a 4x4 patch of S and 4 rows x D/16
-//     columns of O).  It serves fp32 inference and the fp32 card-vs-CPU
-//     gates, which TF32 tensor cores would not hold.
+//   * float32: fa_fwd_f32_kernel, exact fp32 FMAs on the CUDA cores (no
+//     TF32: the fp32 gates hold the port to the CPU at 2e-5 / 1e-5).  It
+//     stands for `_fp_fwd_kernel` (#1: BERT serving, 12 launches a request,
+//     and the fp32 BERT training gate) and `_fa_fwd_kernel` (#4: the fp32
+//     Llama gate) in float32.  Each warp owns 8 q rows; a block of 2 or 8
+//     warps (16- or 64-row q tile; the launch takes 16 where 64-row tiles
+//     would leave more than half of the SMs without a block, as BERT
+//     serving at batch 1 does) streams 64-key K, V and bias tiles through
+//     a two-stage ring of shared memory filled by 16-byte cp.async copies,
+//     so the next tile lands while this one is computed; one block barrier
+//     a tile.  A warp's lanes are 2 row groups x 16 key groups: a lane
+//     holds a 4-row x 4-key patch of S (max and sum over the key group by
+//     shuffles), then P goes through a warp-private strip to P V, where the
+//     lane holds a 4-row x D/16-column patch of O.  All shared-memory reads
+//     are 16 bytes a lane, from rows padded against bank conflicts; each
+//     float read feeds 2 FMAs (2.7 in P V at D 128).  Operands must be
+//     16-byte aligned (the wrappers copy one that is not); out is written
+//     with 16-byte stores.
 //
 // Bounds on an H100 SXM (data-sheet peaks, which assume its 700 W power
-// limit).  Packed, at BERT-base serving shape (B=4, S=128, 12 heads, D=64,
-// fp32): 4*B*nh*S^2*D = 201 MFLOP, 3.0 us at the 67 TFLOP/s fp32
-// (non-tensor-core) peak, against 6.3 MB moved (1.9 us at 3.35 TB/s).
-// Unpacked, at Llama-2-7B width (B=1, 32 heads, S=2048, D=128, causal,
-// bf16): about half of 4*B*nh*S^2*D, 3.44e10 flop, 34.7 us at the 989
-// TFLOP/s bf16 tensor-core peak, against 67.4 MB (20.1 us).  Both are
-// bound by operations; the bf16 kernel puts its products on the tensor
-// cores, keeps loads off the compute warps and balances the causal grid.
+// limit).  fp32 (67 TFLOP/s outside the tensor cores, 3.35 TB/s): BERT-base
+// serving (B 4, S 128, 12 heads, D 64) is 4*B*nh*S^2*D = 201 MFLOP, 3.0 us,
+// against 6.3 MB moved (1.9 us); B 1: 0.75 us, B 8: 6.0 us.  BERT's
+// training shape (B 8, S 512) 6.44 GFLOP, 96 us.  The Llama shape (B 1, 32
+// heads, S 2048, D 128, causal) about half of 4*B*nh*S^2*D, 3.44e10 flop,
+// 513 us.  All bound by operations; the FMA pipes wait on shared-memory
+// reads (a cycle per float a lane, against 4 FMA instructions a cycle),
+// which the register patches cut, on loads, which the ring keeps in
+// flight, and at serving's size on the card's fill, which the tile choice
+// sets.  bf16 at the Llama shape: 34.7 us at the 989 TFLOP/s tensor-core
+// peak, against 67.4 MB (20.1 us); the bf16 kernel puts its products on
+// the tensor cores, keeps loads off the compute warps and balances the
+// causal grid.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -88,207 +106,326 @@ struct FwdPtrs {
 // float32: CUDA cores
 // ---------------------------------------------------------------------------
 
-constexpr int kBQ = 64;        // q rows per block
-constexpr int kBK = 64;        // k/v rows per tile
-constexpr int kThreads = 256;  // 8 warps; 16 x 16 thread grid
+namespace f32 {
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
+constexpr int kKeys = 64;  // keys per K/V tile
+constexpr float kLog2e = 1.4426950408889634f;
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+// The lanes of a warp as 2 row groups x kKG = 16 key (column) groups:
+// lane (rg, kg) holds 4 q rows, 4 rg .. 4 rg + 3 of the warp's kR = 8,
+// against keys kg + 16 j of a tile (j < 4) in Q K^T and output columns
+// 4 kg + 64 jj .. + 3 (jj < D / 64) in P V.  A shared-memory load costs the
+// SM's load pipe a cycle per float a lane, broadcast or not, against 4 FMA
+// instructions a cycle: a lane's 4 x 4 patch of S gets 16 FMAs from 8
+// floats, its 4 x D/16 patch of O 4 D/16 from 4 + D/16 (2 at D 64, 2.7 at
+// D 128).
+constexpr int kKG = 16;
+constexpr int kR = 4 * 32 / kKG;   // q rows a warp
+constexpr int kKP = kKeys / kKG;   // keys a lane
 
-template <int D>
-constexpr size_t smem_bytes() {
-  // Qs [BQ][D+1], Ks [BK][D+1], Vs [BK][D], Ps [BQ][BK+1], m/l/corr [BQ]
-  return sizeof(float) * (kBQ * (D + 1) + kBK * (D + 1) + kBK * D +
-                          kBQ * (kBK + 1) + 3 * kBQ);
-}
+// Shared memory of a block of W warps, in floats: a two-stage ring whose
+// stage holds a K tile (rows padded to D + 4 floats, so the eight lanes of
+// one phase of a 16-byte load, which read eight consecutive keys, fall in
+// eight different 4-bank groups), a V tile and the tile's bias; then each
+// warp's pre-scaled Q rows and its P strip (rows padded to 68 floats).
+// Every part starts on a 16-byte boundary.
+template <int D, int W>
+struct Smem {
+  static constexpr int kKStride = D + 4;
+  static constexpr int kPStride = kKeys + 4;
+  static constexpr int kK = kKeys * kKStride;
+  static constexpr int kV = kKeys * D;
+  static constexpr int kStage = kK + kV + kKeys;
+  static constexpr int kQ = W * kR * D;
+  static constexpr int kP = W * kR * kPStride;
+  static constexpr int kBytes = 4 * (2 * kStage + kQ + kP);
+};
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-fa_fwd_kernel(const T* __restrict__ q_, const T* __restrict__ k_,
-              const T* __restrict__ v_, const float* __restrict__ bias,
-              T* __restrict__ out, float* __restrict__ lse,
-              const FwdShape a) {
-  extern __shared__ float smem[];
-  float* Qs = smem;                      // [kBQ][D + 1]
-  float* Ks = Qs + kBQ * (D + 1);        // [kBK][D + 1]
-  float* Vs = Ks + kBK * (D + 1);        // [kBK][D]
-  float* Ps = Vs + kBK * D;              // [kBQ][kBK + 1]
-  float* m_s = Ps + kBQ * (kBK + 1);     // running max per row
-  float* l_s = m_s + kBQ;                // running sum per row
-  float* c_s = l_s + kBQ;                // this tile's rescale per row
+// One block of W warps per (8 W-row q tile, head, batch); a warp's rows'
+// scores, softmax state and output stay in its lanes' registers.
+template <int D, int W>
+__global__ void __launch_bounds__(32 * W)
+fa_fwd_f32_kernel(const float* __restrict__ q_, const float* __restrict__ k_,
+                  const float* __restrict__ v_,
+                  const float* __restrict__ bias, float* __restrict__ out,
+                  float* __restrict__ lse, const FwdShape a) {
+  constexpr int R = kR, KG = kKG, KP = kKP;
+  constexpr int CP = D / kKG;  // output columns a lane
+  using S = Smem<D, W>;
+  constexpr int kTile = W * R;    // q rows per block
+  constexpr int kChunks = D / 4;  // 16-byte chunks per row
+  extern __shared__ float4 smem_f4[];
+  float* sm = reinterpret_cast<float*>(smem_f4);
 
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
+  const int h = blockIdx.x % a.num_heads;
+  const int b = blockIdx.x / a.num_heads;
+  // causal: the longest q tiles first, the short ones fill the tail
+  const int qt = a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * kTile;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int rg = lane / KG, kg = lane % KG;
+  const int row0 = q0 + warp * R;  // the warp's first row
+  const int my0 = row0 + 4 * rg;   // the lane's first row
   const int Sq = a.Sq, Sk = a.Sk;
-  const T* qb = q_ + b * a.ql.b + h * a.ql.h;
-  const T* kb = k_ + b * a.kl.b + h * a.kl.h;
-  const T* vb = v_ + b * a.vl.b + h * a.vl.h;
+  const float* kb = k_ + b * a.kl.b + h * a.kl.h;
+  const float* vb = v_ + b * a.vl.b + h * a.vl.h;
   const float* brow = bias ? bias + (long long)b * Sk : nullptr;
+  int nkt = (Sk + kKeys - 1) / kKeys;
+  if (a.causal) nkt = min(nkt, (q0 + kTile - 1) / kKeys + 1);  // later dead
 
-  // q tile, pre-scaled as the TPU kernels do (q * scale, then q . k)
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    const int q = q0 + r;
-    Qs[r * (D + 1) + c] =
-        q < Sq ? to_f32(qb[q * a.ql.s + c]) * a.scale : 0.f;
-  }
-  if (tid < kBQ) {
-    m_s[tid] = -INFINITY;
-    l_s[tid] = 0.f;
-  }
-
-  constexpr int NJ = D / 16;
-  float acc[4][NJ];
+  // Key tile t into stage t % 2, as one cp.async group of this thread's
+  // copies: the same 16-byte column chunk `col` of rows r0, r0 + kStep, ...
+  // (the block's 32 W threads cover kStep rows a pass); keys past Sk read
+  // as zeros (their bias is never read).
+  constexpr int kStep = 32 * W / kChunks;
+  const int col = (tid % kChunks) * 4, r0 = tid / kChunks;
+  const float* kc = kb + (long long)r0 * a.kl.s + col;
+  const float* vc = vb + (long long)r0 * a.vl.s + col;
+  const long long kstep = (long long)kStep * a.kl.s;
+  const long long vstep = (long long)kStep * a.vl.s;
+  auto load = [&](int t) {
+    float* st = sm + (t & 1) * S::kStage;
+    const int k0 = t * kKeys;
+    const float* kp = kc + (long long)k0 * a.kl.s;
+    const float* vp = vc + (long long)k0 * a.vl.s;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-
-  int nkt = (Sk + kBK - 1) / kBK;
-  if (a.causal) nkt = min(nkt, (q0 + kBQ - 1) / kBK + 1);  // later tiles dead
-
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // previous tile's Ps/Vs reads are done
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      const int r = i / D, c = i % D;
-      const int k = k0 + r;
-      float kv = 0.f, vv = 0.f;
-      if (k < Sk) {
-        kv = to_f32(kb[k * a.kl.s + c]);
-        vv = to_f32(vb[k * a.vl.s + c]);
-      }
-      Ks[r * (D + 1) + c] = kv;
-      Vs[r * D + c] = vv;
+    for (int j = 0; j < kKeys / kStep; ++j) {
+      const int r = r0 + j * kStep;
+      const bool in = k0 + r < Sk;
+      hopper::cp_async_16(st + r * S::kKStride + col, in ? kp : kb, in);
+      hopper::cp_async_16(st + S::kK + r * D + col, in ? vp : vb, in);
+      kp += kstep;
+      vp += vstep;
     }
-    __syncthreads();
+    if (brow)
+      for (int i = tid; i < kKeys; i += 32 * W)
+        if (k0 + i < Sk)
+          hopper::cp_async_f32(st + S::kK + S::kV + i, brow + k0 + i);
+    hopper::cp_async_commit();
+  };
+  load(0);
 
-    // scores for rows ty + 16*i, keys tx + 16*j
-    float s[4][4];
+  // the warp's q rows, pre-scaled as the TPU kernels do (q * scale, then
+  // q . k); rows past Sq are zeros and never written out
+  float* qs = sm + 2 * S::kStage + warp * R * D;
+  float* ps = sm + 2 * S::kStage + S::kQ + warp * R * S::kPStride;
+  const float* qb = q_ + b * a.ql.b + h * a.ql.h;
+#pragma unroll
+  for (int i = lane; i < R * kChunks; i += 32) {
+    const int r = i / kChunks, c = (i % kChunks) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < Sq)
+      x = __ldg(reinterpret_cast<const float4*>(
+          qb + (long long)(row0 + r) * a.ql.s + c));
+    x.x *= a.scale;
+    x.y *= a.scale;
+    x.z *= a.scale;
+    x.w *= a.scale;
+    *reinterpret_cast<float4*>(qs + r * D + c) = x;
+  }
+
+  float acc[4][CP], m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;  // this lane's share; the key group sums it at the end
+#pragma unroll
+    for (int c = 0; c < CP; ++c) acc[i][c] = 0.f;
+  }
+  const bool rows_live = row0 < Sq;
+  const int row_last = row0 + R - 1;
+  const float* qr = qs + 4 * rg * D;                // the lane's Q rows
+  float* pr = ps + 4 * rg * S::kPStride;            // and P rows
+
+  for (int t = 0; t < nkt; ++t) {
+    // tile t has landed for every thread, and every warp is done with
+    // tile t - 1, whose stage the next load reuses: the one block barrier
+    hopper::cp_async_wait<0>();
+    __syncthreads();
+    if (t + 1 < nkt) load(t + 1);
+    const int k0 = t * kKeys;
+    if (!rows_live || (a.causal && k0 > row_last)) continue;  // all dead
+    const float* ks = sm + (t & 1) * S::kStage;
+    const float* vs = ks + S::kK;
+    const float* bs = vs + S::kV;
+
+    // S = (q * scale) K^T: rows my0 + i, keys k0 + kg + KG j
+    float s[4][KP];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty + 16 * i) * (D + 1) + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * (D + 1) + d];
+      for (int j = 0; j < KP; ++j) s[i][j] = 0.f;
+    const float* kr = ks + kg * S::kKStride;
+#pragma unroll 2
+    for (int d = 0; d < D; d += 4) {
+      float4 qv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(qr + i * D + d);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
+      for (int j = 0; j < KP; ++j) {
+        const float4 x =
+            *reinterpret_cast<const float4*>(kr + j * KG * S::kKStride + d);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const int k = k0 + c;
-        float v = -INFINITY;
-        if (k < Sk && !(a.causal && k > q0 + r)) {
-          v = s[i][j];
-          if (brow) v += brow[k];
+        for (int i = 0; i < 4; ++i) {
+          s[i][j] = fmaf(qv[i].x, x.x, s[i][j]);
+          s[i][j] = fmaf(qv[i].y, x.y, s[i][j]);
+          s[i][j] = fmaf(qv[i].z, x.z, s[i][j]);
+          s[i][j] = fmaf(qv[i].w, x.w, s[i][j]);
         }
-        Ps[r * (kBK + 1) + c] = v;
       }
     }
-    __syncthreads();
 
-    // online softmax: warp w updates rows 8w .. 8w+7
+    // bias, masks and the online-softmax update, row by row: score and
+    // bias are summed before the max is taken, as the plain version does;
+    // a row's keys lie in the KG lanes of its row group
+    float bv[KP];
 #pragma unroll
-    for (int rr = 0; rr < kBQ / 8; ++rr) {
-      const int r = warp * (kBQ / 8) + rr;
-      float* prow = Ps + r * (kBK + 1);
-      const float v0 = prow[lane], v1 = prow[lane + 32];
-      float mx = fmaxf(v0, v1);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, mx);
-      const float p0 = v0 == -INFINITY ? 0.f : expf(v0 - m_new);
-      const float p1 = v1 == -INFINITY ? 0.f : expf(v1 - m_new);
-      prow[lane] = p0;
-      prow[lane + 32] = p1;
-      float sum = p0 + p1;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (lane == 0) {
-        const float corr = m_old == -INFINITY ? 0.f : expf(m_old - m_new);
-        m_s[r] = m_new;
-        l_s[r] = l_s[r] * corr + sum;
-        c_s[r] = corr;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * corr + P V
+    for (int j = 0; j < KP; ++j) bv[j] = brow ? bs[kg + KG * j] : 0.f;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float corr = c_s[ty + 16 * i];
+      const int row = my0 + i;
+      float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] *= corr;
+      for (int j = 0; j < KP; ++j) {
+        const int key = k0 + kg + KG * j;
+        const bool live = key < Sk && !(a.causal && key > row);
+        s[i][j] = live ? (brow ? s[i][j] + bv[j] : s[i][j]) : -INFINITY;
+        mx = fmaxf(mx, s[i][j]);
+      }
+#pragma unroll
+      for (int off = KG / 2; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      // a row with no live key yet keeps m = -inf: subtract 0, not -inf,
+      // so its masked scores and its (empty) past give exp = 0
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float corr = exp2f((m[i] - m_use) * kLog2e);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < KP; ++j) {
+        const float p = exp2f((s[i][j] - m_use) * kLog2e);
+        sum += p;
+        pr[i * S::kPStride + kg + KG * j] = p;
+      }
+      l[i] = l[i] * corr + sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < CP; ++c) acc[i][c] *= corr;
     }
-    for (int k = 0; k < kBK; ++k) {
-      float pv[4], vv[NJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty + 16 * i) * (kBK + 1) + k];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) vv[j] = Vs[k * D + tx + 16 * j];
+    __syncwarp();  // the warp's P strip is written
+
+    // O += P V: rows my0 + i, columns 4 kg + 4 KG jj .. + 3, four keys a
+    // step
+#pragma unroll 2
+    for (int k = 0; k < kKeys; k += 4) {
+      float4 pv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(pr + i * S::kPStride + k);
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+      for (int u = 0; u < 4; ++u) {
+        const float* vr = vs + (k + u) * D + 4 * kg;
+#pragma unroll
+        for (int jj = 0; jj < CP / 4; ++jj) {
+          const float4 x = *reinterpret_cast<const float4*>(vr + 4 * KG * jj);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float p = u == 0   ? pv[i].x
+                            : u == 1 ? pv[i].y
+                            : u == 2 ? pv[i].z
+                                     : pv[i].w;
+            acc[i][4 * jj + 0] = fmaf(p, x.x, acc[i][4 * jj + 0]);
+            acc[i][4 * jj + 1] = fmaf(p, x.y, acc[i][4 * jj + 1]);
+            acc[i][4 * jj + 2] = fmaf(p, x.z, acc[i][4 * jj + 2]);
+            acc[i][4 * jj + 3] = fmaf(p, x.w, acc[i][4 * jj + 3]);
+          }
+        }
+      }
     }
+    // the strip's next writes follow the next block barrier
   }
-  __syncthreads();
+  if (!rows_live) return;
 
-  T* ob = out + b * a.ol.b + h * a.ol.h;
+  // epilogue: out = acc / l through the strides, lse = m + log(l)
+  float* ob = out + b * a.ol.b + h * a.ol.h;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    const int q = q0 + r;
-    if (q >= Sq) continue;
-    const float l = fmaxf(l_s[r], 1e-30f);
-    T* orow = ob + q * a.ol.s;
+    float li = l[i];
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) orow[tx + 16 * j] = from_f32<T>(acc[i][j] / l);
-  }
-  if (tid < kBQ && q0 + tid < Sq) {
-    lse[((long long)b * a.num_heads + h) * Sq + q0 + tid] =
-        m_s[tid] + logf(fmaxf(l_s[tid], 1e-30f));
+    for (int off = KG / 2; off > 0; off >>= 1)
+      li += __shfl_xor_sync(0xffffffffu, li, off);
+    const int row = my0 + i;
+    if (row >= Sq) continue;
+    const float den = fmaxf(li, 1e-30f);
+    float* orow = ob + (long long)row * a.ol.s + 4 * kg;
+#pragma unroll
+    for (int jj = 0; jj < CP / 4; ++jj)
+      *reinterpret_cast<float4*>(orow + 4 * KG * jj) = make_float4(
+          acc[i][4 * jj] / den, acc[i][4 * jj + 1] / den,
+          acc[i][4 * jj + 2] / den, acc[i][4 * jj + 3] / den);
+    if (kg == 0)
+      lse[((long long)b * a.num_heads + h) * Sq + row] = m[i] + logf(den);
   }
 }
 
-template <int D>
-int launch_f32(const FwdPtrs& p, const FwdShape& a, int B,
-               cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      fa_fwd_kernel<float, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((a.Sq + kBQ - 1) / kBQ, a.num_heads, B);
-  fa_fwd_kernel<float, D><<<grid, kThreads, smem, stream>>>(
+// Whether the kernel's 16-byte copies and stores can take a float32
+// [B, heads, rows, D] operand in place: its address and every stride of a
+// dim longer than 1 are multiples of 16 bytes.
+inline bool aligned16(const void* p, const Layout& l, int B, int heads,
+                      int rows) {
+  auto ok = [](long long stride, int n) { return n == 1 || stride % 4 == 0; };
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && ok(l.b, B) &&
+         ok(l.h, heads) && ok(l.s, rows);
+}
+
+inline int num_sms() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  return n;
+}
+
+template <int D, int W>
+int launch_tiles(const FwdPtrs& p, const FwdShape& a, int B,
+                 cudaStream_t stream) {
+  constexpr int smem = Smem<D, W>::kBytes;
+  // the largest shared-memory carveout, so that three 16-row blocks (77 KB
+  // each at D 64) fit an SM
+  static const cudaError_t attr = hopper::set_smem_limit(
+      fa_fwd_f32_kernel<D, W>, smem, /*max_carveout=*/true);
+  if (attr != cudaSuccess) return (int)attr;
+  const int tiles = (a.Sq + W * kR - 1) / (W * kR);
+  if (tiles > 65535) return (int)cudaErrorInvalidValue;
+  dim3 grid(B * a.num_heads, tiles);
+  fa_fwd_f32_kernel<D, W><<<grid, 32 * W, smem, stream>>>(
       static_cast<const float*>(p.q), static_cast<const float*>(p.k),
       static_cast<const float*>(p.v), static_cast<const float*>(p.bias),
       static_cast<float*>(p.out), static_cast<float*>(p.lse), a);
   return (int)cudaGetLastError();
 }
+
+// 16-row q tiles (2 warps of 8 rows) where 64-row tiles would leave more
+// than half of the card's SMs without a block (BERT serving at batch 1:
+// 12 heads x 2 tiles), else 64-row tiles (8 warps), which read each K/V
+// tile from L2 once for 4x the rows.
+template <int D>
+int launch(const FwdPtrs& p, const FwdShape& a, int B, cudaStream_t stream) {
+  const int nh = a.num_heads;
+  if (!aligned16(p.q, a.ql, B, nh, a.Sq) ||
+      !aligned16(p.k, a.kl, B, nh, a.Sk) ||
+      !aligned16(p.v, a.vl, B, nh, a.Sk) ||
+      !aligned16(p.out, a.ol, B, nh, a.Sq))
+    return (int)cudaErrorMisalignedAddress;
+  static const int sms = num_sms();
+  const long long big = (long long)B * nh * ((a.Sq + 63) / 64);
+  if (2 * big < sms) return launch_tiles<D, 2>(p, a, B, stream);
+  return launch_tiles<D, 8>(p, a, B, stream);
+}
+
+}  // namespace f32
 
 // ---------------------------------------------------------------------------
 // bfloat16: tensor cores (wgmma), TMA loads, warp specialisation
@@ -297,7 +434,6 @@ int launch_f32(const FwdPtrs& p, const FwdShape& a, int B,
 namespace tc {
 
 using namespace hopper::attn;
-using hopper::attn::kThreads;  // not the CUDA-core kernel's, found first
 
 // Shared memory: the Q tile, the K/V ring, its barriers, and slack to align
 // the tiles to 1024 bytes.
@@ -454,9 +590,9 @@ int launch(const FwdPtrs& p, const FwdShape& a, int B, cudaStream_t stream) {
   const int err = encode_maps(&maps, ops, D, nh, B);
   if (err) return err;
   constexpr int smem = kSmem<D>;
-  cudaError_t e = cudaFuncSetAttribute(
-      fa_fwd_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
+  static const cudaError_t attr = hopper::set_smem_limit(
+      fa_fwd_tc_kernel<D>, smem);
+  if (attr != cudaSuccess) return (int)attr;
   dim3 grid(B * nh, (a.Sq + kBM - 1) / kBM);
   fa_fwd_tc_kernel<D><<<grid, kThreads, smem, stream>>>(
       maps, static_cast<const float*>(p.bias),
@@ -472,8 +608,8 @@ int run(int dtype, int D, const FwdPtrs& p, const FwdShape& a, int B,
   if (B <= 0 || a.Sq <= 0 || a.Sk <= 0 || a.num_heads <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64) return launch_f32<64>(p, a, B, st);
-  if (dtype == 0 && D == 128) return launch_f32<128>(p, a, B, st);
+  if (dtype == 0 && D == 64) return f32::launch<64>(p, a, B, st);
+  if (dtype == 0 && D == 128) return f32::launch<128>(p, a, B, st);
   if (dtype == 1 && D == 64) return tc::launch<64>(p, a, B, st);
   if (dtype == 1 && D == 128) return tc::launch<128>(p, a, B, st);
   return (int)cudaErrorInvalidValue;
@@ -482,6 +618,7 @@ int run(int dtype, int D, const FwdPtrs& p, const FwdShape& a, int B,
 }  // namespace
 
 extern "C" {
+
 
 // Packed QKV.  dtype: 0 = float32, 1 = bfloat16.  bias is float32 [B, S]
 // or null.  Returns the cudaError_t of the launch (0 = success).
@@ -505,9 +642,10 @@ int pt_flash_attention_packed_fwd(const void* qkv, const void* bias,
 // Unpacked q [B, nh, Sq, D], k and v [B, nh, Sk, D], out [B, nh, Sq, D].
 // strides: 12 element strides, (batch, head, row) of q, k, v and out in
 // that order; every last dim is contiguous.  bias is float32 [B, Sk] or
-// null; lse float32 [B, nh, Sq].  dtype as above.  In bfloat16, q, k and v
-// are read by TMA: their addresses and byte strides must be multiples of
-// 16 (cudaErrorMisalignedAddress otherwise).
+// null; lse float32 [B, nh, Sq].  dtype as above.  q, k and v are read in
+// 16-byte pieces (TMA in bfloat16, cp.async in float32): their addresses
+// and byte strides must be multiples of 16, and in float32 out's too
+// (cudaErrorMisalignedAddress otherwise).
 int pt_flash_attention_fwd(const void* q, const void* k, const void* v,
                            const void* bias, void* out, void* lse,
                            const long long* strides, int B, int Sq, int Sk,

@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks of the bf16 tensor-core attention kernels
-// in flash_attention_fwd.cu and flash_attention_bwd.cu: TMA tensor maps and
-// loads, cp.async, mbarriers, and warpgroup matrix multiplies (wgmma) on
+// Hopper (sm_90a) building blocks of the attention kernels in
+// flash_attention_fwd.cu and flash_attention_bwd.cu: TMA tensor maps and
+// loads, cp.async (also the fp32 forward's 16-byte copies), mbarriers, the
+// launch-side shared-memory limit, and warpgroup matrix multiplies (wgmma) on
 // bf16 tiles held in 128-byte-swizzled shared memory; then the frame the
 // kernels share (tile sizes, block and thread coordinates, q-tile loads,
 // the bf16 epilogue, the launch-side maps).  Raw PTX, no CUTLASS/CuTe, so
@@ -105,6 +106,22 @@ inline int encode_map(CUtensorMap* map, const void* base, int D, int heads,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidPitchValue;
 }
 
+// Lifts a kernel's dynamic shared-memory limit to `bytes` and, with
+// `max_carveout`, asks for the largest shared-memory share of the SM's
+// L1.  A launch site calls it once per kernel, from a function-local
+// static, not per launch.
+template <typename Kernel>
+inline cudaError_t set_smem_limit(Kernel* kernel, int bytes,
+                                  bool max_carveout = false) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess && max_carveout)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  return e;
+}
+
 // ---------------------------------------------------------------------------
 // device: shared memory, mbarriers, TMA
 // ---------------------------------------------------------------------------
@@ -176,6 +193,29 @@ __device__ __forceinline__ void cp_async_f32(float* dst, const float* src) {
                    smem_u32(dst)),
                "l"(src)
                : "memory");
+}
+
+// 16 bytes from global to shared memory (cp.async.cg: through L2 only);
+// with `full` false nothing is read and the 16 bytes are zero-filled.
+// Both addresses must be 16-byte aligned.  Completion is tracked by
+// cp_async_commit / cp_async_wait, or by cp_async_arrive.
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
+                                            bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+
+// Closes this thread's cp.async copies issued so far into one group.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {

@@ -39,9 +39,11 @@ leave are read in place:
   differentiable in q, k, v and bias.
 
 Each source picks its kernel by dtype: bfloat16 runs the tensor-core
-kernels (wgmma, with TMA loads), float32 the CUDA-core kernels.  TMA
-reads its operands only at 16-byte-aligned addresses and byte strides: a
-bfloat16 operand that is not (``tma_aligned``) is copied to fresh
+kernels (wgmma, with TMA loads), float32 the CUDA-core kernels.  The
+forward reads its operands in 16-byte pieces in both dtypes (TMA in
+bfloat16, cp.async in float32), the backward kernels through TMA in
+bfloat16; both need 16-byte-aligned addresses and byte strides.  An
+operand that is not aligned (``tma_aligned``) is copied to fresh
 contiguous memory first, and each such copy is counted in the launching
 wrapper's ``.realigned``, which stays 0 on the model paths.
 
@@ -225,9 +227,9 @@ def _check_qkv(qkv, num_heads, what):
 
 
 def tma_aligned(t: torch.Tensor) -> bool:
-    """Whether TMA can read `t` in place: its address and every byte
-    stride of a dim longer than 1 (the last dim's stride is 1, the box
-    runs along it) are positive multiples of 16."""
+    """Whether 16-byte loads (TMA, cp.async) can read `t` in place: its
+    address and every byte stride of a dim longer than 1 (the last dim's
+    stride is 1, the loads run along it) are positive multiples of 16."""
     if t.data_ptr() % 16:
         return False
     return all(n == 1 or (st > 0 and st * t.element_size() % 16 == 0)
@@ -235,11 +237,10 @@ def tma_aligned(t: torch.Tensor) -> bool:
 
 
 def tma_operand(t: torch.Tensor, owner) -> torch.Tensor:
-    """`t` as a bfloat16 kernel's TMA loads can read it: itself when
-    ``tma_aligned``, else a fresh contiguous copy (new storage, so aligned),
-    counted in ``owner.realigned``.  float32 operands are read without TMA
-    and pass through."""
-    if t.dtype != torch.bfloat16 or tma_aligned(t):
+    """`t` as a kernel's 16-byte loads can read it, in either dtype:
+    itself when ``tma_aligned``, else a fresh contiguous copy (new
+    storage, so aligned), counted in ``owner.realigned``."""
+    if tma_aligned(t):
         return t
     owner.realigned += 1
     return t.clone(memory_format=torch.contiguous_format)
@@ -364,7 +365,7 @@ def flash_attention_packed_dkv(qkv, bias, dout, lse, delta, dqkv,
     [B, S, 3H] in qkv's dtype) and, when `dbias_heads` ([B, num_heads, S]
     float32, only with a bias) is given, each head's bias-gradient row
     sums into it.  `delta` is laid out like lse.  Counts launches in
-    ``.launches`` and realigned bfloat16 operands in ``.realigned``."""
+    ``.launches`` and realigned operands in ``.realigned``."""
     B, S, threeH = qkv.shape
     qkv = tma_operand(qkv, flash_attention_packed_dkv)
     dout = tma_operand(dout, flash_attention_packed_dkv)
@@ -390,7 +391,7 @@ def flash_attention_packed_dq(qkv, bias, dout, lse, delta, dqkv, num_heads,
                               causal, scale):
     """Launch the dQ kernel on inputs that ``check_backward_inputs``
     passed: writes dq into columns [0, H) of `dqkv`.  Counts launches in
-    ``.launches`` and realigned bfloat16 operands in ``.realigned``."""
+    ``.launches`` and realigned operands in ``.realigned``."""
     B, S, threeH = qkv.shape
     qkv = tma_operand(qkv, flash_attention_packed_dq)
     dout = tma_operand(dout, flash_attention_packed_dq)
@@ -671,7 +672,7 @@ def flash_attention_unpacked_dkv(q, k, v, bias, dout, lse, delta, dk, dv,
     in k's dtype, last dim contiguous) and, when `dbias_heads` ([B,H,Sk]
     float32, only with a bias) is given, each head's bias-gradient row
     sums into it.  `delta` is laid out like lse.  Counts launches in
-    ``.launches`` and realigned bfloat16 operands in ``.realigned``."""
+    ``.launches`` and realigned operands in ``.realigned``."""
     B, H, Sq, D = q.shape
     q, k, v, dout = (tma_operand(t, flash_attention_unpacked_dkv)
                      for t in (q, k, v, dout))
@@ -697,7 +698,7 @@ def flash_attention_unpacked_dq(q, k, v, bias, dout, lse, delta, dq, causal,
     """Launch the dQ kernel on inputs that
     ``check_unpacked_backward_inputs`` passed: writes dq ([B,H,Sq,D] in
     q's dtype, last dim contiguous).  Counts launches in ``.launches`` and
-    realigned bfloat16 operands in ``.realigned``."""
+    realigned operands in ``.realigned``."""
     B, H, Sq, D = q.shape
     q, k, v, dout = (tma_operand(t, flash_attention_unpacked_dq)
                      for t in (q, k, v, dout))

@@ -1,10 +1,11 @@
-"""The TMA alignment check of the bf16 tensor-core kernels' wrappers.
+"""The 16-byte alignment check of the kernels' wrappers.
 
-TMA reads an operand only where its address and every byte stride (of a
-dim longer than 1) are positive multiples of 16.  ``tma_aligned`` says
-whether a tensor meets that; ``tma_operand`` passes such a tensor through
-and copies any other bf16 tensor to fresh contiguous memory, counting the
-copy in its owner's ``.realigned``.  Both are pure Python over a tensor's
+TMA (the bf16 kernels) and 16-byte cp.async (the fp32 forward) read an
+operand only where its address and every byte stride (of a dim longer
+than 1) are positive multiples of 16.  ``tma_aligned`` says whether a
+tensor meets that; ``tma_operand`` passes such a tensor through and
+copies any other to fresh contiguous memory, counting the copy in its
+owner's ``.realigned``.  Both are pure Python over a tensor's
 address and strides, so they are checked here on CPU tensors.
 """
 import pytest
@@ -67,12 +68,55 @@ def test_tma_operand_copies_only_what_tma_cannot_read(case):
     assert torch.equal(got, t)
 
 
+def _f32(*shape):
+    return torch.arange(int(torch.tensor(shape).prod()),
+                        dtype=torch.float32).reshape(shape)
+
+
+# float32 operands: the forward kernel reads them with 16-byte cp.async
+# copies, so the rule is the same in bytes (4 bytes an element)
+F32_CASES = {
+    "contiguous": (lambda: _f32(2, 4, 32, 64), True),
+    "bshd_view": (lambda: _f32(2, 32, 4, 128).transpose(1, 2), True),
+    "packed_qkv": (lambda: _f32(2, 16, 3 * 256), True),
+    "offset_4_bytes": (lambda: _offset(1, (2, 4, 32, 64), torch.float32),
+                       False),
+    "offset_8_bytes": (lambda: _offset(2, (2, 4, 32, 64), torch.float32),
+                       False),
+    "offset_16_bytes": (lambda: _offset(4, (2, 4, 32, 64), torch.float32),
+                        True),
+    "row_stride_264_bytes": (lambda: _f32(2, 4, 32, 66)[..., :64], False),
+    "row_stride_272_bytes": (lambda: _f32(2, 4, 32, 68)[..., :64], True),
+}
+
+
 def test_tma_operand_leaves_float32_alone():
-    """float32 operands go to the CUDA-core kernels, which read them with
-    plain loads: nothing is copied or counted."""
-    t = _offset(1, (2, 4, 32, 64), torch.float32)
+    """Aligned float32 operands, as the model paths hand them to the
+    kernels (contiguous, [B, H, S, D] views of [B, S, H, D] buffers, the
+    packed qkv), are read in place: nothing is copied or counted."""
     owner = _Owner()
-    assert tfa.tma_operand(t, owner) is t and owner.realigned == 0
+    for case in ("contiguous", "bshd_view", "packed_qkv", "offset_16_bytes"):
+        t = F32_CASES[case][0]()
+        assert tfa.tma_operand(t, owner) is t, case
+    assert owner.realigned == 0
+
+
+@pytest.mark.parametrize("case", sorted(F32_CASES))
+def test_tma_operand_copies_misaligned_float32(case):
+    """A float32 view whose address or row stride is not a multiple of 16
+    bytes is copied to contiguous memory and counted, as a bfloat16 one
+    is; an aligned one is not."""
+    make, aligned = F32_CASES[case]
+    t = make()
+    assert tfa.tma_aligned(t) is aligned
+    owner = _Owner()
+    got = tfa.tma_operand(t, owner)
+    if aligned:
+        assert got is t and owner.realigned == 0
+    else:
+        assert got is not t and owner.realigned == 1
+        assert got.is_contiguous() and tfa.tma_aligned(got)
+    assert got.dtype == torch.float32 and torch.equal(got, t)
 
 
 def test_wrappers_count_realigned_operands():
