@@ -17,12 +17,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    fa_dq_tc_kernel, fa_dkv_tc_kernel, at D 64 and 128) must show HGMMA in
    its own code, the proof that the tensor cores run, and spill nothing;
    nor may the fp32 forward (fa_fwd_f32_kernel at D 64 and 128, 16- and
-   64-row q tiles); a ptxas warning C7508 (setmaxnreg ignored) or C7512
-   (wgmmas serialised for want of registers) fails the phase.
+   64-row q tiles) or the fp32 backward (fa_dkv_f32_kernel and
+   fa_dq_f32_kernel, 8-warp blocks of 128 rows at D 64 and 64 at D 128);
+   a ptxas warning
+   C7508 (setmaxnreg ignored) or C7512 (wgmmas serialised for want of
+   registers) fails the phase.
    Each source picks its kernel by dtype: bfloat16 runs the tensor-core
-   kernels, float32 the CUDA-core ones.  So the bf16 cases of phases 3
-   and 7 and the bf16 training phases 6 and 9 run the tensor-core
-   kernels, while the fp32 gates (phases 4, 5, 8) run the CUDA-core ones.
+   kernels, float32 the CUDA-core ones (fa_fwd_f32_kernel,
+   fa_dkv_f32_kernel, fa_dq_f32_kernel: exact fp32 FMAs, no TF32).  So the
+   bf16 cases of phases 3 and 7 and the bf16 training phases 6 and 9 run
+   the tensor-core kernels, while the fp32 gates (phases 4, 5, 8) run the
+   CUDA-core ones.
 3. packed kernels: each against its plain PyTorch version on the card,
    at BERT-base's serving shape (B=4, S=128, H=768, 12 heads), at the
    flagship training shape (B=8, S=512, H=768, 12 heads: 8 kv and 8 q
@@ -80,7 +85,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    (Adam moves an element with a near-zero gradient by ~lr whatever its
    sign) and within 1e-5 on 99.9% of all elements.  Each card step
    launches 24 forward kernels (12 forward, 12 recomputed in the grad
-   ops), 12 dK/dV and 12 dQ.
+   ops), 12 dK/dV and 12 dQ.  Then one fp32 step at bench.py's seq-512
+   shape (BERT-base, batch 8, max_predictions 77, no AMP, dropout 0, the
+   phase's optimizer), after one warm step, under torch.profiler and not
+   counted in the path's launches: device busy and idle share, the fp32
+   backward kernels' device time and share of the step, and exactly 24 /
+   12 / 12 launches.
 6. flagship training: bench.py's seq-512 leg through Executor.run:
    BERT-base, seq 512, batch 8, max_predictions 77, bf16 AMP with the
    bench's extra white list, dropout 0.1, warmup 1e-4 over 10000 steps;
@@ -135,8 +145,11 @@ phase 9 (Llama training) for the unpacked ones.  "launches_by_path" has
 beside it the count of every path, each read from 0: serving (phase 4),
 training_parity (phase 5, card steps), training_flagship (phase 6),
 llama_parity (phase 8, card steps) and llama_flagship (phase 9).  The
-last lines are the card's name and power limit, one {"kernels": ...}
-JSON line, and {"ok": true, "device": {...}}.
+four backward entries also carry "f32": their fp32 kernel's device_ms,
+ms, bound_ms and SDPA's fp32 backward's library_device_ms at the same
+shape (BERT's training shape for the packed, the Llama shape for the
+unpacked ones).  The last lines are the card's name and power limit, one
+{"kernels": ...} JSON line, and {"ok": true, "device": {...}}.
 """
 import json
 import math
@@ -220,6 +233,16 @@ TC_KERNELS = ("fa_fwd_tc_kernel", "fa_dq_tc_kernel", "fa_dkv_tc_kernel")
 # with 16-row (2 warps of 8 rows) and 64-row (8 warps) q tiles
 F32_FWD_KERNELS = tuple(f"fa_fwd_f32_kernel<{D}, {w}>" for D in (64, 128)
                         for w in (2, 8))
+# the fp32 backward (template <D, row groups a warp>), 8-warp blocks built
+# at D 64 with 4 row groups (128 keys for dK/dV, 128 q rows for dQ) and at
+# D 128 with 2 (64 keys, 64 q rows)
+F32_BWD_KERNELS = tuple(f"{k}<{D}, {rg}>" for k in ("fa_dkv_f32_kernel",
+                                                   "fa_dq_f32_kernel")
+                        for D, rg in ((64, 4), (128, 2)))
+# every kernel instantiation phase 2 holds to its checks, by kernel_label
+TC_LABELS = tuple(f"{kernel}<bf16, {D}>" for kernel in TC_KERNELS
+                  for D in (64, 128))
+CHECKED_KERNELS = TC_LABELS + F32_FWD_KERNELS + F32_BWD_KERNELS
 
 
 def log(msg):
@@ -248,14 +271,15 @@ def cuda_ms(fn, iters, warmup=10):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters, warmup=3):
+def device_ms(fn, iters, warmup=3, names=None):
     """Device time per call of `fn`: torch.profiler's self device time of
     each kernel that `iters` back-to-back calls launched, as its mean time
     a launch times its launches a call (count / iters, rounded: a session
     now and then drops some of its records), summed over the kernels.
     The host's work between the launches (wrapper, allocation, ctypes) is
     not in it, as it is in cuda_ms's event time wherever the host, not the
-    kernel, sets the pace."""
+    kernel, sets the pace.  A list given as `names` gets (kernel name, us a
+    call) of each kernel, longest first."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -268,22 +292,32 @@ def device_ms(fn, iters, warmup=3):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total / e.count
-                 * max(1, round(e.count / iters))
-                 for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and e.count > 0)
+        per_call = sorted(
+            ((e.key, e.self_device_time_total / e.count
+              * max(1, round(e.count / iters)))
+             for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and e.count > 0), key=lambda x: -x[1])
+        us = sum(t for _, t in per_call)
         if us > 0:
+            if names is not None:
+                names[:] = per_call
             return us / 1e3
     raise AssertionError("the profiler saw no device time in three tries")
 
 
-def timed(fn, iters, warmup=3, device_iters=None):
+def timed(fn, iters, warmup=3, device_iters=None, names=None):
     """(event ms, device ms) per call of `fn`: cuda_ms over `iters`
     back-to-back calls and device_ms over `device_iters` (default
-    iters)."""
+    iters; `names` as device_ms takes it)."""
     return (cuda_ms(fn, iters, warmup),
-            device_ms(fn, device_iters or iters, warmup))
+            device_ms(fn, device_iters or iters, warmup, names))
+
+
+def log_kernels(what, names, top=3):
+    """One line: the longest kernels of a timed call, with us a call."""
+    log(f"  {what} runs: " + "; ".join(
+        f"{name[:110]} {us:.1f} us" for name, us in names[:top]))
 
 
 def block_rel_err(got, want):
@@ -529,12 +563,13 @@ def check_backward(fa, device):
                                  f"plain version: {name}")
 
 
-def time_backward(fa, device, dtype):
+def time_backward(fa, device, dtype, library_kernels=None):
     """Times of the dK/dV and dQ kernels at the flagship training shape
     (B=8, S=512, 12 heads, padding bias, bias grad on, as the training
     step asks for it), the plain backward, and the backward of
     scaled_dot_product_attention (torch.autograd.grad with retain_graph
-    over one forward, grads of q, k and v) as a yardstick."""
+    over one forward, grads of q, k and v) as a yardstick; a list given as
+    `library_kernels` gets the latter's kernels (device_ms's names)."""
     import torch
     import torch.nn.functional as F
 
@@ -563,8 +598,11 @@ def time_backward(fa, device, dtype):
     lib_out = F.scaled_dot_product_attention(
         q, k, v, attn_mask=bias[:, None, None, :].to(qkv.dtype))
     g = dout.view(B, S, nh, D).transpose(1, 2)
+    lib_kernels = [] if library_kernels is None else library_kernels
     library_ms, library_dev = timed(lambda: torch.autograd.grad(
-        lib_out, (q, k, v), g, retain_graph=True), iters=20, device_iters=5)
+        lib_out, (q, k, v), g, retain_graph=True), iters=20, device_iters=5,
+        names=lib_kernels)
+    log_kernels(f"sdpa's {dtype} backward", lib_kernels)
 
     dqkv, dbias = fa.flash_attention_packed_backward(qkv, bias, out, lse,
                                                      dout, nh)
@@ -782,7 +820,7 @@ def check_unpacked(fa, device):
     torch.cuda.empty_cache()
 
 
-def time_unpacked(fa, device, dtype):
+def time_unpacked(fa, device, dtype, library_kernels=None):
     """Times of the three unpacked kernels at the Llama flagship's
     attention shape (B 1, 32 heads, S 2048, D 128, causal, views of
     [B, S, H, D] buffers as rope leaves them) in `dtype`, beside their
@@ -790,7 +828,8 @@ def time_unpacked(fa, device, dtype):
     forward and backward (torch.autograd.grad over one forward, grads of
     q, k, v): event ms of back-to-back calls and device ms.  The timed
     results are held to the phase's tolerances.  The work is what the
-    causal mask leaves: S (S + 1) / 2 live (q, k) pairs."""
+    causal mask leaves: S (S + 1) / 2 live (q, k) pairs.  A list given as
+    `library_kernels` gets SDPA's backward kernels (device_ms's names)."""
     import torch
     import torch.nn.functional as F
 
@@ -823,9 +862,11 @@ def time_unpacked(fa, device, dtype):
         q, k, v, None, out, lse, dout, True), iters=3, warmup=1)
     ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
     lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    lib_kernels = [] if library_kernels is None else library_kernels
     bwd_lib_ms, bwd_lib_dev = timed(lambda: torch.autograd.grad(
         lib_out, (ql, kl, vl), dout, retain_graph=True), iters=10,
-        device_iters=5)
+        device_iters=5, names=lib_kernels)
+    log_kernels(f"sdpa's {dtype} backward", lib_kernels)
     del lib_out, ql, kl, vl
 
     live, _, rel = unpacked_errors(fa, q, k, v, None, dout, True, out, lse,
@@ -1032,6 +1073,9 @@ def profile_request(pred, feed):
 
 
 def report_profile(prof, wall_us, what):
+    """Logs device busy and idle share of `wall_us`, the top kernels and
+    host ops; returns the device kernels' key_averages rows and their busy
+    us (0 where the profiler saw no kernel)."""
     import torch
 
     kernels = [e for e in prof.key_averages()
@@ -1040,7 +1084,7 @@ def report_profile(prof, wall_us, what):
     if busy_us <= 0:
         log(f"  profile: {what} {wall_us:.0f} us wall; device time not "
             f"measured (the profiler saw no kernels)")
-        return
+        return kernels, 0.0
     log(f"  profile of {what}: {wall_us:.0f} us wall, "
         f"{busy_us:.0f} us device busy ({len(kernels)} kernel names, "
         f"{sum(e.count for e in kernels)} launches), device idle "
@@ -1056,6 +1100,7 @@ def report_profile(prof, wall_us, what):
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:8]:
         log(f"    {e.self_cpu_time_total:9.1f} us x{e.count:<6d} "
             f"{e.key[:60]}")
+    return kernels, busy_us
 
 
 def build_train(tpt, cfg, lr_args, amp, dropout):
@@ -1284,6 +1329,66 @@ def bert_parity(tpt, fa):
                         grads, PARITY_LRS)
 
 
+def bert_fp32_profile(tpt, fa):
+    """One fp32 training step at bench.py's seq-512 shape (BERT-base,
+    batch 8, max_predictions 77; no AMP, dropout 0, the parity phase's
+    Adam, clip and warmup) under torch.profiler, after one warm step; not
+    counted in any path's launches.  Logs device busy and idle share, the
+    fp32 backward kernels' device time and share of the busy time, and
+    holds the step to 24 / 12 / 12 launches, no plain call and no
+    realigned operand."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.ops import registry
+
+    # building a program advances the global op-seed counter, which seeds
+    # the later phases' weights (phase 9's losses are held to values taken
+    # on those seeds): put it back afterwards
+    op_seed = registry._OP_SEED[0]
+    main, startup, loss = build_train(tpt, FLAGSHIP, PARITY_LR, amp=False,
+                                      dropout=0.0)
+    registry.reset_op_seed(op_seed)
+    want = per_step_launches(main)
+    exe = tpt.Executor()
+    scope = tpt.Scope()
+    exe.run(startup, scope=scope)
+    feed = train_batch(FLAGSHIP, seed=650, padding=True)
+    exe.run(main, feed=feed, fetch_list=[loss], scope=scope)  # warm
+    torch.cuda.synchronize()
+    reset_counts(fa)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        wall_us = (time.perf_counter() - t) * 1e6
+    got = read_counts(fa)
+    if got != (want, 0, 0) or not np.isfinite(out[0]).all():
+        raise AssertionError(f"fp32 seq-512 step: (launches, plain calls, "
+                             f"realigned operands) {got}, want {want}, 0, "
+                             f"0; loss {out[0]}")
+    kernels, busy_us = report_profile(
+        prof, wall_us, f"one fp32 step at seq {FLAGSHIP['seq_len']} (batch "
+        f"{FLAGSHIP['batch_size']})")
+    if busy_us <= 0:
+        raise AssertionError("the profiler saw no device time in the fp32 "
+                             "step")
+    parts = []
+    for name in ("fa_dkv_f32_kernel", "fa_dq_f32_kernel",
+                 "fa_fwd_f32_kernel"):
+        rows = [e for e in kernels if name in e.key]
+        us = sum(e.self_device_time_total for e in rows)
+        n = sum(e.count for e in rows)
+        parts.append(us)
+        log(f"  {name}: {us:.1f} us device in {n} launches "
+            f"({100 * us / busy_us:.1f}% of the step's device time)")
+    log(f"  fp32 backward kernels: {parts[0] + parts[1]:.1f} us, "
+        f"{100 * (parts[0] + parts[1]) / busy_us:.1f}% of {busy_us:.0f} us "
+        f"device busy; launches {got[0][:3]} (want {want[:3]}); loss "
+        f"{float(np.ravel(out[0])[0]):.5f}")
+    del scope
+    torch.cuda.empty_cache()
+
+
 def bert_flagship(tpt, fa):
     main, startup, loss = build_train(tpt, FLAGSHIP, FLAGSHIP_LR, amp=True,
                                       dropout=0.1)
@@ -1384,7 +1489,8 @@ def ptxas_report(build):
 def check_build(build):
     """Phase 2's checks on what nvcc made: every tensor-core kernel shows
     HGMMA (wgmma) in its own SASS at D 64 and 128; neither it nor any
-    instantiation of the fp32 forward spills registers;
+    instantiation of the fp32 forward or backward (CHECKED_KERNELS)
+    spills registers;
     ptxas neither ignored a setmaxnreg (warning C7508) nor serialised a
     kernel's wgmmas for want of registers (C7512)."""
     logs = "\n".join(build.build_logs.values())
@@ -1402,12 +1508,11 @@ def check_build(build):
     counts = sass_counts(build)
     for label, (hgmma, utmaldg) in sorted(counts.items()):
         log(f"  SASS {label}: {hgmma} HGMMA, {utmaldg} UTMALDG")
-    tc = [f"{kernel}<bf16, {D}>" for kernel in TC_KERNELS for D in (64, 128)]
-    for label in tc:
+    for label in TC_LABELS:
         if counts.get(label, (0, 0))[0] == 0:
             raise AssertionError(f"no wgmma (HGMMA) in {label}'s SASS: it "
                                  f"does not use the tensor cores")
-    for label in tc + list(F32_FWD_KERNELS):
+    for label in CHECKED_KERNELS:
         spills = [int(x) for line in report.get(label, ())
                   for x in re.findall(r"(\d+) bytes spill", line)]
         if not spills or any(spills):
@@ -1472,7 +1577,7 @@ def main():
     fwd_f32 = time_forward_f32(fa, device)
     time_forward_flagship(fa, device)
     bwd_timing = time_backward(fa, device, "bfloat16")
-    time_backward(fa, device, "float32")
+    bwd_f32 = time_backward(fa, device, "float32")
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
     # each path's launches of the six kernels, each read from 0
@@ -1484,6 +1589,7 @@ def main():
 
     log("[5/9] BERT-base training, card against the CPU (fp32)")
     by_path["training_parity"] = bert_parity(tpt, fa)
+    bert_fp32_profile(tpt, fa)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
     log("[6/9] bench.py's seq-512 training step on the card (bf16 AMP)")
@@ -1493,7 +1599,7 @@ def main():
     log("[7/9] unpacked kernels against their plain versions")
     check_unpacked(fa, device)
     unpacked_timing = time_unpacked(fa, device, "bfloat16")
-    time_unpacked(fa, device, "float32")
+    unpacked_f32 = time_unpacked(fa, device, "float32")
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
     log("[8/9] Llama-2-7B-width training, card against the CPU (fp32)")
@@ -1526,11 +1632,19 @@ def main():
         dict(name="flash_attention_dq", route="cuda",
              source=src + "flash_attention_bwd.cu", replaces=tpu + "292",
              main_path="llama_flagship", **unpacked_timing["dq"])]
+    # the fp32 kernels of the four backward entries, at the same shapes
+    f32_rows = {1: bwd_f32["dkv"], 2: bwd_f32["dq"], 4: unpacked_f32["dkv"],
+                5: unpacked_f32["dq"]}
+    for i, row in f32_rows.items():
+        kernels[i]["f32"] = {x: row[x] for x in (
+            "device_ms", "ms", "bound_ms", "library_device_ms")}
     for i, k in enumerate(kernels):
         k["launches"] = by_path[k.pop("main_path")][i]
         k["launches_by_path"] = {p: n[i] for p, n in by_path.items()}
-        if not all(math.isfinite(k[x]) for x in
-                   ("max_abs_err", "ms", "plain_ms", "bound_ms")):
+        if not all(math.isfinite(x) for x in
+                   [k[x] for x in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms")]
+                   + list(k.get("f32", {}).values())):
             raise AssertionError(f"non-finite measurement in {k}")
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} never launched on the path")

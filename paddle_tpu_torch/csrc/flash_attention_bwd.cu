@@ -6,10 +6,10 @@
 //     packed_bwd_dkv; :611, launched by `_packed_backward` at :745) and
 //     `_fa_dkv_kernel` (pt_flash_attention_bwd_dkv; :226, launched by
 //     `_flash_backward` at :342): fa_dkv_tc_kernel in bfloat16,
-//     fa_dkv_kernel in float32.
+//     fa_dkv_f32_kernel in float32.
 //   * the dQ entries replace `_fp_dq_kernel` (pt_flash_attention_packed_
 //     bwd_dq; :686) and `_fa_dq_kernel` (pt_flash_attention_bwd_dq; :292):
-//     fa_dq_tc_kernel in bfloat16, fa_dq_kernel in float32.
+//     fa_dq_tc_kernel in bfloat16, fa_dq_f32_kernel in float32.
 //
 // All read q [B, nh, Sq, D], k and v [B, nh, Sk, D], dO [B, nh, Sq, D]
 // through per-tensor batch, head and row strides (the last dim contiguous:
@@ -65,13 +65,18 @@
 //     the threads rounded up to whole warpgroups: 168 with a third,
 //     producer warpgroup, setmaxnreg or not), and there it serialised the
 //     wgmmas and spilled; two warpgroups get up to 255, and no spill.
-//   * dK/dV, float32 (fa_dkv_kernel, fp32 FMAs on the CUDA cores): one
-//     block of 256 threads per (64-key tile, head, batch).  Its K and V
-//     tiles stay in shared memory while it loops over the 64-row q tiles
-//     (from the diagonal tile on when causal).  Each thread owns a 4x4 patch
-//     of the 64x64 score tile for P and dS, and 4 key rows x D/16 columns of
-//     the dK and dV accumulators, in float32 registers.  It keeps the fp32
-//     gates bit-equal to the plain version, which TF32 would not.
+//   * dK/dV, float32 (fa_dkv_f32_kernel, exact fp32 FMAs on the CUDA
+//     cores; no TF32: the fp32 gates hold the port to the CPU at 1e-4):
+//     one block of 8 warps per (key tile, head, batch), each warp owning
+//     16 keys at D 64 (128-key tiles) and 8 at D 128 (64-key tiles), whose
+//     k * scale and v rows stay in shared memory; the 64-row Q and dO
+//     tiles with their lse and delta stream through a two-stage ring
+//     filled by 16-byte cp.async copies, one block barrier a tile (from
+//     the diagonal q tile on when causal).  Lanes hold 4-key x 8-row (D
+//     64) or 4 x 4 (D 128) patches of S^T and dP^T, then 4 keys x 8
+//     columns of dK and dV; P^T and dS^T reach the second products through
+//     a warp-private strip.  The bias gradient's sums stay in registers,
+//     reduced by shuffles once at the end.  See namespace f32 below.
 //   * dQ, bfloat16 (fa_dq_tc_kernel, tensor cores): one block of 288
 //     threads per (128-row q tile, head, batch), so each q row is owned by
 //     one block (no atomics, deterministic): two consumer warpgroups of 64
@@ -84,10 +89,13 @@
 //     the same shared tile through the transpose bit).  dQ stays in fp32
 //     registers; the epilogue writes dq * scale in bf16.  Causal q tiles run
 //     longest first.
-//   * dQ, float32 (fa_dq_kernel): one block of 256 threads per (64-row q
-//     tile, head, batch), looping over the 64-key tiles up to the diagonal
-//     when causal; a thread owns 4 q rows x D/16 columns of dQ, in fp32
-//     FMAs (the fp32 gates hold its dq bit-equal to the plain version).
+//   * dQ, float32 (fa_dq_f32_kernel): one block of 8 warps per (q tile,
+//     head, batch), each warp owning 16 q rows at D 64 (128-row tiles) and
+//     8 at D 128 (64-row tiles), whose q * scale and dO rows stay in
+//     shared memory; 64-key K, V and bias tiles stream through the same
+//     kind of ring (up to the diagonal when causal, the longest q tiles
+//     first).  Lanes hold 4-row x 8-key (D 64) or 4 x 4 (D 128) patches of
+//     S and dP, then 4 rows x 8 columns of dQ; dS goes through the strip.
 //
 // Bounds on an H100 SXM (data-sheet peaks at the card's 700 W limit).
 // Packed, at BERT's training shape (B=8, S=512, 12 heads, D=64, bf16):
@@ -95,10 +103,15 @@
 // GFLOP, 13.0 us at the 989 TFLOP/s bf16 tensor-core peak, against about
 // 38 MB moved (11.4 us at 3.35 TB/s); dQ 3 products, 9.7 GFLOP, 9.8 us.
 // Unpacked, at Llama-2-7B width (B=1, 32 heads, S=2048, D=128, causal,
-// bf16): dK/dV 6.87e10 flop (69.5 us), dQ 5.15e10 (52.1 us).  All are
-// bound by operations.  Both bf16 kernels run their products on the tensor
-// cores with loads kept off the compute warps; the fp32 ones run FMAs on
-// the CUDA cores (67 TFLOP/s).
+// bf16): dK/dV 6.87e10 flop (69.5 us), dQ 5.15e10 (52.1 us).  In fp32 (67
+// TFLOP/s outside the tensor cores) the same work takes 192 us and 144 us
+// at BERT's shape, 1026 us and 770 us at the Llama shape.  All are bound
+// by operations.  Both bf16 kernels run their products on the tensor
+// cores with loads kept off the compute warps.  The fp32 FMA pipes wait on
+// shared-memory reads (a cycle per float a lane against 4 FMA instructions
+// a cycle), which the register patches cut to 2-2.7 FMAs a float, and on
+// loads, which the ring keeps in flight.  The fp32 products are exact
+// FMAs (no TF32): the fp32 gates hold the port to the CPU at 1e-4.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -107,10 +120,6 @@
 #include "hopper.cuh"
 
 namespace {
-
-constexpr int kBQ = 64;        // q rows per tile
-constexpr int kBK = 64;        // k/v rows per tile
-constexpr int kThreads = 256;  // 8 warps; 16 x 16 thread grid
 
 using hopper::Layout;
 
@@ -122,307 +131,6 @@ struct BwdShape {
   float scale;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-
-// ---------------------------------------------------------------------------
-// float32: CUDA cores
-// ---------------------------------------------------------------------------
-
-// Rows r0..r0+63 of a [rows, D] matrix with row stride `row_stride`, from
-// `src`, into dst [64][D + 1] as float32 (times `mul`); rows past `rows`
-// read as 0.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
-                                          int rows, long long row_stride,
-                                          float mul, int tid) {
-  for (int i = tid; i < 64 * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    const int g = r0 + r;
-    dst[r * (D + 1) + c] =
-        g < rows ? to_f32(src[g * row_stride + c]) * mul : 0.f;
-  }
-}
-
-// The 64x64 tile of P and dS for q rows q0 + ty + 16 i and keys
-// k0 + tx + 16 j:  s = Qs.Ks^T + bias, p = exp(s - lse) where live,
-// dS = p * (dOs.Vs^T - delta).  Qs is q * scale; b_s the tile's bias.
-template <int D>
-__device__ __forceinline__ void p_and_ds(const float* Qs, const float* dOs,
-                                         const float* Ks, const float* Vs,
-                                         const float* lse_s,
-                                         const float* dlt_s, const float* b_s,
-                                         int q0, int k0, int Sq, int Sk,
-                                         int causal, int tx, int ty,
-                                         float p[4][4], float ds[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) p[i][j] = ds[i][j] = 0.f;
-  for (int d = 0; d < D; ++d) {
-    float qv[4], dov[4], kv[4], vv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qv[i] = Qs[(ty + 16 * i) * (D + 1) + d];
-      dov[i] = dOs[(ty + 16 * i) * (D + 1) + d];
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      kv[j] = Ks[(tx + 16 * j) * (D + 1) + d];
-      vv[j] = Vs[(tx + 16 * j) * (D + 1) + d];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        p[i][j] = fmaf(qv[i], kv[j], p[i][j]);     // score so far
-        ds[i][j] = fmaf(dov[i], vv[j], ds[i][j]);  // dP so far
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    const int q = q0 + r;
-    const float lse = lse_s[r], dlt = dlt_s[r];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tx + 16 * j;
-      const int k = k0 + c;
-      const bool live = q < Sq && k < Sk && !(causal && k > q) &&
-                        lse != -INFINITY;
-      const float pv = live ? expf(p[i][j] + b_s[c] - lse) : 0.f;
-      p[i][j] = pv;
-      ds[i][j] = pv * (ds[i][j] - dlt);
-    }
-  }
-}
-
-template <int D>
-constexpr size_t dkv_smem_bytes() {
-  // Ks, Vs, Qs, dOs [64][D+1]; Ps, dSs [64][65]; lse, delta, bias [64]
-  return sizeof(float) * (4 * 64 * (D + 1) + 2 * 64 * 65 + 3 * 64);
-}
-
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  // Qs, dOs, Ks, Vs [64][D+1]; dSs [64][65]; lse, delta, bias [64]
-  return sizeof(float) * (4 * 64 * (D + 1) + 64 * 65 + 3 * 64);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-fa_dkv_kernel(const T* __restrict__ q_, const T* __restrict__ k_,
-              const T* __restrict__ v_, const T* __restrict__ dout,
-              const float* __restrict__ bias, const float* __restrict__ lse,
-              const float* __restrict__ delta, T* __restrict__ dk,
-              T* __restrict__ dv, float* __restrict__ dbias_heads,
-              const BwdShape a) {
-  extern __shared__ float smem[];
-  float* Ks = smem;                    // [kBK][D + 1]
-  float* Vs = Ks + kBK * (D + 1);      // [kBK][D + 1]
-  float* Qs = Vs + kBK * (D + 1);      // [kBQ][D + 1], q * scale
-  float* dOs = Qs + kBQ * (D + 1);     // [kBQ][D + 1]
-  float* Ps = dOs + kBQ * (D + 1);     // [kBQ][kBK + 1]
-  float* dSs = Ps + kBQ * (kBK + 1);   // [kBQ][kBK + 1]
-  float* lse_s = dSs + kBQ * (kBK + 1);
-  float* dlt_s = lse_s + kBQ;
-  float* b_s = dlt_s + kBQ;
-
-  const int k0 = blockIdx.x * kBK;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int Sq = a.Sq, Sk = a.Sk;
-  const long long row = (long long)b * a.num_heads + h;
-  const float* lse_row = lse + row * Sq;
-  const float* dlt_row = delta + row * Sq;
-  const T* qb = q_ + b * a.ql.b + h * a.ql.h;
-  const T* dob = dout + b * a.dol.b + h * a.dol.h;
-
-  load_tile<T, D>(Ks, k_ + b * a.kl.b + h * a.kl.h, k0, Sk, a.kl.s, 1.f,
-                  tid);
-  load_tile<T, D>(Vs, v_ + b * a.vl.b + h * a.vl.h, k0, Sk, a.vl.s, 1.f,
-                  tid);
-  if (tid < kBK)
-    b_s[tid] = (bias && k0 + tid < Sk)
-                   ? bias[(long long)b * Sk + k0 + tid] : 0.f;
-
-  constexpr int NJ = D / 16;
-  float acc_dk[4][NJ], acc_dv[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc_dk[i][j] = acc_dv[i][j] = 0.f;
-  float db = 0.f;  // this key's bias-grad sum (threads tid < kBK)
-
-  const int nqt = (Sq + kBQ - 1) / kBQ;
-  for (int qt = a.causal ? k0 / kBQ : 0; qt < nqt; ++qt) {
-    const int q0 = qt * kBQ;
-    __syncthreads();  // the previous tile's reads of Qs/dOs/Ps/dSs are done
-    load_tile<T, D>(Qs, qb, q0, Sq, a.ql.s, a.scale, tid);
-    load_tile<T, D>(dOs, dob, q0, Sq, a.dol.s, 1.f, tid);
-    if (tid < kBQ) {
-      lse_s[tid] = q0 + tid < Sq ? lse_row[q0 + tid] : 0.f;
-      dlt_s[tid] = q0 + tid < Sq ? dlt_row[q0 + tid] : 0.f;
-    }
-    __syncthreads();
-
-    float p[4][4], ds[4][4];
-    p_and_ds<D>(Qs, dOs, Ks, Vs, lse_s, dlt_s, b_s, q0, k0, Sq, Sk, a.causal,
-                tx, ty, p, ds);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        Ps[(ty + 16 * i) * (kBK + 1) + tx + 16 * j] = p[i][j];
-        dSs[(ty + 16 * i) * (kBK + 1) + tx + 16 * j] = ds[i][j];
-      }
-    __syncthreads();
-
-    // dV[k] += sum_q P[q][k] dO[q];  dK[k] += sum_q dS[q][k] (q * scale)
-    for (int q = 0; q < kBQ; ++q) {
-      float pv[4], dsv[4], dov[NJ], qv[NJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = Ps[q * (kBK + 1) + ty + 16 * i];
-        dsv[i] = dSs[q * (kBK + 1) + ty + 16 * i];
-      }
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        dov[j] = dOs[q * (D + 1) + tx + 16 * j];
-        qv[j] = Qs[q * (D + 1) + tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          acc_dv[i][j] = fmaf(pv[i], dov[j], acc_dv[i][j]);
-          acc_dk[i][j] = fmaf(dsv[i], qv[j], acc_dk[i][j]);
-        }
-    }
-    if (dbias_heads && tid < kBK) {
-      for (int q = 0; q < kBQ; ++q) db += dSs[q * (kBK + 1) + tid];
-    }
-  }
-
-  T* dkb = dk + b * a.dkl.b + h * a.dkl.h;
-  T* dvb = dv + b * a.dvl.b + h * a.dvl.h;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = k0 + ty + 16 * i;
-    if (k >= Sk) continue;
-    T* dkrow = dkb + k * a.dkl.s;
-    T* dvrow = dvb + k * a.dvl.s;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      dkrow[tx + 16 * j] = from_f32<T>(acc_dk[i][j]);
-      dvrow[tx + 16 * j] = from_f32<T>(acc_dv[i][j]);
-    }
-  }
-  if (dbias_heads && tid < kBK && k0 + tid < Sk)
-    dbias_heads[row * Sk + k0 + tid] = db;
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-fa_dq_kernel(const T* __restrict__ q_, const T* __restrict__ k_,
-             const T* __restrict__ v_, const T* __restrict__ dout,
-             const float* __restrict__ bias, const float* __restrict__ lse,
-             const float* __restrict__ delta, T* __restrict__ dq,
-             const BwdShape a) {
-  extern __shared__ float smem[];
-  float* Qs = smem;                    // [kBQ][D + 1], q * scale
-  float* dOs = Qs + kBQ * (D + 1);     // [kBQ][D + 1]
-  float* Ks = dOs + kBQ * (D + 1);     // [kBK][D + 1]
-  float* Vs = Ks + kBK * (D + 1);      // [kBK][D + 1]
-  float* dSs = Vs + kBK * (D + 1);     // [kBQ][kBK + 1]
-  float* lse_s = dSs + kBQ * (kBK + 1);
-  float* dlt_s = lse_s + kBQ;
-  float* b_s = dlt_s + kBQ;
-
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int Sq = a.Sq, Sk = a.Sk;
-  const long long row = (long long)b * a.num_heads + h;
-  const float* lse_row = lse + row * Sq;
-  const float* dlt_row = delta + row * Sq;
-  const T* kb = k_ + b * a.kl.b + h * a.kl.h;
-  const T* vb = v_ + b * a.vl.b + h * a.vl.h;
-
-  load_tile<T, D>(Qs, q_ + b * a.ql.b + h * a.ql.h, q0, Sq, a.ql.s, a.scale,
-                  tid);
-  load_tile<T, D>(dOs, dout + b * a.dol.b + h * a.dol.h, q0, Sq, a.dol.s,
-                  1.f, tid);
-  if (tid < kBQ) {
-    lse_s[tid] = q0 + tid < Sq ? lse_row[q0 + tid] : 0.f;
-    dlt_s[tid] = q0 + tid < Sq ? dlt_row[q0 + tid] : 0.f;
-  }
-
-  constexpr int NJ = D / 16;
-  float acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-
-  int nkt = (Sk + kBK - 1) / kBK;
-  if (a.causal) nkt = min(nkt, (q0 + kBQ - 1) / kBK + 1);  // later tiles dead
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // the previous tile's reads of Ks/Vs/dSs are done
-    load_tile<T, D>(Ks, kb, k0, Sk, a.kl.s, 1.f, tid);
-    load_tile<T, D>(Vs, vb, k0, Sk, a.vl.s, 1.f, tid);
-    if (tid < kBK)
-      b_s[tid] = (bias && k0 + tid < Sk)
-                     ? bias[(long long)b * Sk + k0 + tid] : 0.f;
-    __syncthreads();
-
-    float p[4][4], ds[4][4];
-    p_and_ds<D>(Qs, dOs, Ks, Vs, lse_s, dlt_s, b_s, q0, k0, Sq, Sk, a.causal,
-                tx, ty, p, ds);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        dSs[(ty + 16 * i) * (kBK + 1) + tx + 16 * j] = ds[i][j];
-    __syncthreads();
-
-    // dQ[q] += sum_k dS[q][k] K[k]
-    for (int k = 0; k < kBK; ++k) {
-      float dsv[4], kv[NJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = dSs[(ty + 16 * i) * (kBK + 1) + k];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) kv[j] = Ks[k * (D + 1) + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(dsv[i], kv[j], acc[i][j]);
-    }
-  }
-
-  T* dqb = dq + b * a.dql.b + h * a.dql.h;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int q = q0 + ty + 16 * i;
-    if (q >= Sq) continue;
-    T* dqrow = dqb + q * a.dql.s;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      dqrow[tx + 16 * j] = from_f32<T>(acc[i][j] * a.scale);
-  }
-}
-
 // Pointers and layouts of one backward call, as the entries receive them.
 struct Call {
   const void *q, *k, *v, *dout, *bias, *lse, *delta;
@@ -431,14 +139,536 @@ struct Call {
   int B, D;
 };
 
-template <int D>
-int launch_dkv_f32(const Call& c, cudaStream_t stream) {
-  constexpr size_t smem = dkv_smem_bytes<D>();
+// ---------------------------------------------------------------------------
+// float32: CUDA cores
+// ---------------------------------------------------------------------------
+
+namespace f32 {
+
+// Both kernels give each warp kR = 4 RG rows of its block's outputs (keys
+// in dK/dV, q rows in dQ) and stream the other side in kTile-row tiles (q
+// rows in dK/dV, keys in dQ) through a two-stage ring of shared memory
+// filled by 16-byte cp.async copies: one block barrier a tile, the next
+// tile landing while this one is computed.  A warp's lanes are RG row
+// groups x kCG = 32 / RG column groups: lane (rg, cg) holds its rows
+// 4 rg .. 4 rg + 3 against the tile's rows cg + kCG j (j < kTile / kCG) in
+// the two score-side products, and against output columns 4 cg + 4 kCG jj
+// .. + 3 (jj < D / (4 kCG)) in the accumulating ones.  The warp's own rows
+// are read as broadcasts, the tile's rows from rows padded to D + 4
+// floats, so the eight lanes of one phase of a 16-byte load fall in eight
+// bank groups.  A shared-memory load costs the SM's load pipe a cycle per
+// float a lane against 4 FMA instructions a cycle, so the patch sizes set
+// the pace: a lane's score-side patches (4 rows x kJ = kTile / kCG) get
+// 32 kJ FMAs from 32 + 8 kJ floats a 4-column step (2 a float at kJ 4,
+// 2.7 at kJ 8), its accumulator patch (4 rows x c = D / kCG columns) 16 c
+// FMAs from 16 + 4 c floats a 4-row step (2 at c 4, 2.7 at c 8).
+constexpr int kTile = 64;              // streamed rows a tile
+constexpr int kPStride = kTile + 4;    // a warp strip's row stride
+constexpr int kWarps = 8;              // warps a block
+
+// A warp's lanes as RG row groups x 32 / RG column groups.
+template <int RG>
+struct Lanes {
+  static constexpr int kR = 4 * RG;      // rows a warp owns
+  static constexpr int kCG = 32 / RG;    // column groups
+  static constexpr int kJ = kTile / kCG; // tile rows a lane holds in S
+};
+
+// Shared memory of a block, in floats: a two-stage ring whose
+// stage holds two padded tiles and kExtra floats (dQ: K, V and the keys'
+// bias; dK/dV: Q, dO and the rows' lse and delta), then each warp's two
+// operand row sets (dQ: q * scale and dO; dK/dV: k * scale and v) and its
+// strip of the tile's P or dS (rows padded to kPStride).  Every part
+// starts on a 16-byte boundary.
+template <int D, int RG, int kExtra>
+struct Smem {
+  static constexpr int kS = D + 4;           // a tile row's stride
+  static constexpr int kT = kTile * kS;      // one padded tile
+  static constexpr int kStage = 2 * kT + kExtra;
+  static constexpr int kOwn = 2 * Lanes<RG>::kR * D;  // a warp's rows
+  static constexpr int kStrip = Lanes<RG>::kR * kPStride;
+  static constexpr int kBytes = 4 * (2 * kStage + kWarps * (kOwn + kStrip));
+};
+
+__device__ __forceinline__ float dot4(const float4& a, const float4& b,
+                                      float c) {
+  c = fmaf(a.x, b.x, c);
+  c = fmaf(a.y, b.y, c);
+  c = fmaf(a.z, b.z, c);
+  return fmaf(a.w, b.w, c);
+}
+
+__device__ __forceinline__ float pick(const float4& v, int u) {
+  return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
+}
+
+// The warp's kR rows r0 .. of two [rows, D] operands (row strides as, bs)
+// into `dst` as [kR][D] each, the first times `mul`; rows past `rows` are
+// zeros.  Read once a block, by __ldg.
+template <int D, int kR>
+__device__ __forceinline__ void load_own(float* dst, const float* a,
+                                         long long as, const float* b,
+                                         long long bs, int r0, int rows,
+                                         float mul, int lane) {
+  constexpr int kChunks = D / 4;
+  for (int i = lane; i < kR * kChunks; i += 32) {
+    const int r = i / kChunks, c = (i % kChunks) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f), y = x;
+    if (r0 + r < rows) {
+      x = __ldg(reinterpret_cast<const float4*>(a + (r0 + r) * as + c));
+      y = __ldg(reinterpret_cast<const float4*>(b + (r0 + r) * bs + c));
+    }
+    x.x *= mul;
+    x.y *= mul;
+    x.z *= mul;
+    x.w *= mul;
+    *reinterpret_cast<float4*>(dst + r * D + c) = x;
+    *reinterpret_cast<float4*>(dst + kR * D + r * D + c) = y;
+  }
+}
+
+// Tile rows t0 .. t0 + kTile - 1 of two [rows, D] operands into a stage's
+// two padded tiles as one thread's share of 16-byte cp.async copies: the
+// same column chunk of rows r0, r0 + kStep, ... (the block's threads
+// cover kStep rows a pass, from `ac` / `bc`, this thread's chunk of row r0
+// of each); rows past `rows` are zero-filled.
+template <int D, int RG, int kExtra>
+__device__ __forceinline__ void load_tiles(float* st, const float* ac,
+                                           const float* a0, long long as,
+                                           const float* bc, const float* b0,
+                                           long long bs, int t0, int rows,
+                                           int r0, int col) {
+  using S = Smem<D, RG, kExtra>;
+  constexpr int kStep = 32 * kWarps / (D / 4);
+  const float* ap = ac + (long long)t0 * as;
+  const float* bp = bc + (long long)t0 * bs;
+#pragma unroll
+  for (int j = 0; j < kTile / kStep; ++j) {
+    const int r = r0 + j * kStep;
+    const bool in = t0 + r < rows;
+    hopper::cp_async_16(st + r * S::kS + col, in ? ap : a0, in);
+    hopper::cp_async_16(st + S::kT + r * S::kS + col, in ? bp : b0, in);
+    ap += kStep * as;
+    bp += kStep * bs;
+  }
+}
+
+// acc += W X over one tile: W the lane's 4 strip rows (kTile weights each,
+// read as float4 broadcasts), X the tile's kTile rows of D columns (row
+// stride kS); the lane's columns 4 cg + 4 kCG jj .. + 3, four rows a step.
+template <int D, int kCG, int kS>
+__device__ __forceinline__ void accumulate(float (&acc)[4][D / kCG],
+                                           const float* pr, const float* x,
+                                           int cg) {
+#pragma unroll 2
+  for (int k = 0; k < kTile; k += 4) {
+    float4 w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      w[i] = *reinterpret_cast<const float4*>(pr + i * kPStride + k);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float* xr = x + (k + u) * kS + 4 * cg;
+#pragma unroll
+      for (int jj = 0; jj < D / (4 * kCG); ++jj) {
+        const float4 y = *reinterpret_cast<const float4*>(xr + 4 * kCG * jj);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float c = pick(w[i], u);
+          acc[i][4 * jj + 0] = fmaf(c, y.x, acc[i][4 * jj + 0]);
+          acc[i][4 * jj + 1] = fmaf(c, y.y, acc[i][4 * jj + 1]);
+          acc[i][4 * jj + 2] = fmaf(c, y.z, acc[i][4 * jj + 2]);
+          acc[i][4 * jj + 3] = fmaf(c, y.w, acc[i][4 * jj + 3]);
+        }
+      }
+    }
+  }
+}
+
+// dK/dV: one block per (4 RG kWarps-key tile, head, batch), so each
+// key row is owned by one block (no atomics, deterministic).  A warp's keys'
+// k * scale and v rows stay in shared memory while the block loops over
+// the 64-row q tiles (from the diagonal tile on when causal), each with its
+// rows' lse and delta.  Per tile a lane computes a 4-key x kJ-row patch of
+// S^T = (k * scale) q^T and dP^T = v dO^T, then P^T = exp(S^T + bias -
+// lse) where live and dS^T = P^T (dP^T - delta); P^T and then dS^T go
+// through the warp's strip to dV += P^T dO and dK += dS^T q, where the
+// lane holds 4 keys x D / kCG columns of each.  The bias gradient's
+// partial sums stay in registers, reduced over the kCG lanes of a row
+// group by shuffles once at the end: one writer per key.
+template <int D, int RG>
+__global__ void __launch_bounds__(32 * kWarps)
+fa_dkv_f32_kernel(const float* __restrict__ q_, const float* __restrict__ k_,
+                  const float* __restrict__ v_,
+                  const float* __restrict__ dout,
+                  const float* __restrict__ bias,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, float* __restrict__ dk,
+                  float* __restrict__ dv, float* __restrict__ dbias_heads,
+                  const BwdShape a) {
+  constexpr int kR = Lanes<RG>::kR, kCG = Lanes<RG>::kCG, kJ = Lanes<RG>::kJ;
+  constexpr int CP = D / kCG;  // output columns a lane
+  using S = Smem<D, RG, 2 * kTile>;
+  constexpr int kKeys = kWarps * kR;  // keys per block
+  extern __shared__ float4 smem_f4[];
+  float* sm = reinterpret_cast<float*>(smem_f4);
+
+  const int nh = a.num_heads, Sq = a.Sq, Sk = a.Sk;
+  const int h = blockIdx.x % nh, b = blockIdx.x / nh;
+  const int k0 = blockIdx.y * kKeys;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int rg = lane / kCG, cg = lane % kCG;
+  const int kw0 = k0 + warp * kR;  // the warp's first key
+  const int my0 = kw0 + 4 * rg;    // the lane's first key
+  // causal: q tiles before the diagonal see no key of this block
+  const int first = a.causal ? k0 / kTile : 0;
+  const int n = max((Sq + kTile - 1) / kTile - first, 0);
+  const long long stats = ((long long)b * nh + h) * Sq;
+  const float* qb = q_ + b * a.ql.b + h * a.ql.h;
+  const float* ob = dout + b * a.dol.b + h * a.dol.h;
+
+  // q tile first + t into stage t % 2: Q and dO by 16-byte copies, the
+  // rows' lse and delta by 4-byte ones (a row past Sq copies row Sq - 1;
+  // the mask drops it); one cp.async group
+  const int col = (tid % (D / 4)) * 4, r0 = tid / (D / 4);
+  const float* qc = qb + (long long)r0 * a.ql.s + col;
+  const float* oc = ob + (long long)r0 * a.dol.s + col;
+  auto load = [&](int t) {
+    float* st = sm + (t & 1) * S::kStage;
+    const int q0 = (first + t) * kTile;
+    load_tiles<D, RG, 2 * kTile>(st, qc, qb, a.ql.s, oc, ob, a.dol.s, q0, Sq,
+                                 r0, col);
+    for (int i = tid; i < 2 * kTile; i += 32 * kWarps) {
+      const long long q = stats + min(q0 + i % kTile, Sq - 1);
+      hopper::cp_async_f32(st + 2 * S::kT + i, (i < kTile ? lse : delta) + q);
+    }
+    hopper::cp_async_commit();
+  };
+  if (n > 0) load(0);
+
+  // the warp's keys: k * scale and v rows, zeros past Sk; the lane's
+  // keys' bias
+  float* kw = sm + 2 * S::kStage + warp * S::kOwn;
+  float* vw = kw + kR * D;
+  float* ps = sm + 2 * S::kStage + kWarps * S::kOwn + warp * S::kStrip;
+  load_own<D, kR>(kw, k_ + b * a.kl.b + h * a.kl.h, a.kl.s,
+              v_ + b * a.vl.b + h * a.vl.h, a.vl.s, kw0, Sk, a.scale, lane);
+  float bk[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    bk[i] = bias ? __ldg(bias + (long long)b * Sk + min(my0 + i, Sk - 1))
+                 : 0.f;
+
+  float dka[4][CP], dva[4][CP], db[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    db[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < CP; ++c) dka[i][c] = dva[i][c] = 0.f;
+  }
+  const bool keys_live = kw0 < Sk;
+  const float* kr = kw + 4 * rg * D;        // the lane's keys' rows
+  const float* vr = vw + 4 * rg * D;
+  float* pr = ps + 4 * rg * kPStride;       // and strip rows
+
+  for (int t = 0; t < n; ++t) {
+    // tile t has landed for every thread, and every warp is done with
+    // tile t - 1, whose stage the next load reuses: the one block barrier
+    hopper::cp_async_wait<0>();
+    __syncthreads();
+    if (t + 1 < n) load(t + 1);
+    const int q0 = (first + t) * kTile;
+    // else the warp's keys all come after the tile's last row
+    if (!keys_live || (a.causal && kw0 > q0 + kTile - 1)) continue;
+    const float* qs = sm + (t & 1) * S::kStage;
+    const float* os = qs + S::kT;
+    const float* ls = os + S::kT;  // lse [kTile], then delta [kTile]
+
+    // S^T = (k * scale) q^T and dP^T = v dO^T: keys my0 + i, q rows
+    // q0 + cg + kCG j
+    float s[4][kJ], dp[4][kJ];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) s[i][j] = dp[i][j] = 0.f;
+    const float* qcol = qs + cg * S::kS;
+    const float* ocol = os + cg * S::kS;
+#pragma unroll 2
+    for (int d = 0; d < D; d += 4) {
+      float4 kx[4], vx[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        kx[i] = *reinterpret_cast<const float4*>(kr + i * D + d);
+        vx[i] = *reinterpret_cast<const float4*>(vr + i * D + d);
+      }
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) {
+        const float4 qx =
+            *reinterpret_cast<const float4*>(qcol + j * kCG * S::kS + d);
+        const float4 ox =
+            *reinterpret_cast<const float4*>(ocol + j * kCG * S::kS + d);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          s[i][j] = dot4(kx[i], qx, s[i][j]);
+          dp[i][j] = dot4(vx[i], ox, dp[i][j]);
+        }
+      }
+    }
+
+    // P^T into the strip, dS^T = P^T (dP^T - delta) in place of dP^T and
+    // its row sums.  Score and bias are summed before lse is taken off, as
+    // the plain version does: an all-padding row's -1e4 rounds alike.
+#pragma unroll
+    for (int j = 0; j < kJ; ++j) {
+      const int ql = cg + kCG * j;
+      const int q = q0 + ql;
+      const float l = ls[ql], dl = ls[kTile + ql];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = my0 + i;
+        const bool live = q < Sq && key < Sk && !(a.causal && key > q) &&
+                          l != -INFINITY;
+        const float p = live ? expf(s[i][j] + bk[i] - l) : 0.f;
+        dp[i][j] = p * (dp[i][j] - dl);
+        db[i] += dp[i][j];
+        pr[i * kPStride + ql] = p;
+      }
+    }
+    __syncwarp();
+
+    // dV += P^T dO, then (the strip refilled with dS^T) dK += dS^T q
+    accumulate<D, kCG, S::kS>(dva, pr, os, cg);
+    __syncwarp();  // every lane has read P^T
+#pragma unroll
+    for (int j = 0; j < kJ; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pr[i * kPStride + cg + kCG * j] = dp[i][j];
+    __syncwarp();
+    accumulate<D, kCG, S::kS>(dka, pr, qs, cg);
+    // the strip's next writes follow the next block barrier
+  }
+
+  // epilogue: dk = acc * scale and dv through the strides; each key's bias
+  // gradient summed over its row group's 16 lanes, written by one
+  float* dkb = dk + b * a.dkl.b + h * a.dkl.h;
+  float* dvb = dv + b * a.dvl.b + h * a.dvl.h;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = my0 + i;
+    float x = db[i];
+#pragma unroll
+    for (int off = kCG / 2; off > 0; off >>= 1)
+      x += __shfl_xor_sync(0xffffffffu, x, off);
+    if (key >= Sk) continue;
+    if (dbias_heads && cg == 0)
+      dbias_heads[((long long)b * nh + h) * Sk + key] = x;
+    float* krow = dkb + (long long)key * a.dkl.s + 4 * cg;
+    float* vrow = dvb + (long long)key * a.dvl.s + 4 * cg;
+#pragma unroll
+    for (int jj = 0; jj < CP / 4; ++jj) {
+      *reinterpret_cast<float4*>(krow + 4 * kCG * jj) = make_float4(
+          dka[i][4 * jj] * a.scale, dka[i][4 * jj + 1] * a.scale,
+          dka[i][4 * jj + 2] * a.scale, dka[i][4 * jj + 3] * a.scale);
+      *reinterpret_cast<float4*>(vrow + 4 * kCG * jj) =
+          make_float4(dva[i][4 * jj], dva[i][4 * jj + 1], dva[i][4 * jj + 2],
+                      dva[i][4 * jj + 3]);
+    }
+  }
+}
+
+// dQ: one block per (4 RG kWarps-row q tile, head, batch), so each q
+// row is owned by one block; causal q tiles run longest first.  A warp's
+// rows' q * scale and dO stay in shared memory while the block loops over
+// the 64-key K, V and bias tiles (up to the diagonal when causal).  Per
+// tile a lane computes a 4-row x kJ-key patch of S = (q * scale) K^T and
+// dP = dO V^T, then dS = P (dP - delta) with P = exp(S + bias - lse) where
+// live; dS goes through the warp's strip to dQ += dS K, where the lane
+// holds 4 rows x D / kCG columns.  The epilogue writes dq = acc * scale.
+template <int D, int RG>
+__global__ void __launch_bounds__(32 * kWarps)
+fa_dq_f32_kernel(const float* __restrict__ q_, const float* __restrict__ k_,
+                 const float* __restrict__ v_, const float* __restrict__ dout,
+                 const float* __restrict__ bias,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, float* __restrict__ dq,
+                 const BwdShape a) {
+  constexpr int kR = Lanes<RG>::kR, kCG = Lanes<RG>::kCG, kJ = Lanes<RG>::kJ;
+  constexpr int CP = D / kCG;
+  using S = Smem<D, RG, kTile>;
+  constexpr int kRows = kWarps * kR;  // q rows per block
+  extern __shared__ float4 smem_f4[];
+  float* sm = reinterpret_cast<float*>(smem_f4);
+
+  const int nh = a.num_heads, Sq = a.Sq, Sk = a.Sk;
+  const int h = blockIdx.x % nh, b = blockIdx.x / nh;
+  // causal: the longest q tiles first, the short ones fill the tail
+  const int qt = a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * kRows;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int rg = lane / kCG, cg = lane % kCG;
+  const int row0 = q0 + warp * kR;  // the warp's first row
+  const int my0 = row0 + 4 * rg;    // the lane's first row
+  const float* kb = k_ + b * a.kl.b + h * a.kl.h;
+  const float* vb = v_ + b * a.vl.b + h * a.vl.h;
+  const float* brow = bias ? bias + (long long)b * Sk : nullptr;
+  int nkt = (Sk + kTile - 1) / kTile;
+  if (a.causal) nkt = min(nkt, (q0 + kRows - 1) / kTile + 1);  // later dead
+
+  // key tile t into stage t % 2: K and V by 16-byte copies, the tile's
+  // bias by 4-byte ones (keys past Sk: never read live); one group
+  const int col = (tid % (D / 4)) * 4, r0 = tid / (D / 4);
+  const float* kc = kb + (long long)r0 * a.kl.s + col;
+  const float* vc = vb + (long long)r0 * a.vl.s + col;
+  auto load = [&](int t) {
+    float* st = sm + (t & 1) * S::kStage;
+    const int k0 = t * kTile;
+    load_tiles<D, RG, kTile>(st, kc, kb, a.kl.s, vc, vb, a.vl.s, k0, Sk, r0,
+                             col);
+    if (brow)
+      for (int i = tid; i < kTile; i += 32 * kWarps)
+        if (k0 + i < Sk)
+          hopper::cp_async_f32(st + 2 * S::kT + i, brow + k0 + i);
+    hopper::cp_async_commit();
+  };
+  load(0);
+
+  // the warp's rows: q * scale and dO, zeros past Sq (as the TPU kernels
+  // do: q * scale, then q . k); the lane's rows' lse and delta, a row
+  // past Sq as one with no live key
+  float* qw = sm + 2 * S::kStage + warp * S::kOwn;
+  float* ow = qw + kR * D;
+  float* ps = sm + 2 * S::kStage + kWarps * S::kOwn + warp * S::kStrip;
+  load_own<D, kR>(qw, q_ + b * a.ql.b + h * a.ql.h, a.ql.s,
+              dout + b * a.dol.b + h * a.dol.h, a.dol.s, row0, Sq, a.scale,
+              lane);
+  const long long stats = ((long long)b * nh + h) * Sq;
+  float lse_r[4], dlt_r[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = my0 + i;
+    lse_r[i] = row < Sq ? lse[stats + row] : -INFINITY;
+    dlt_r[i] = row < Sq ? delta[stats + row] : 0.f;
+  }
+
+  float acc[4][CP];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < CP; ++c) acc[i][c] = 0.f;
+  const bool rows_live = row0 < Sq;
+  const int row_last = row0 + kR - 1;
+  const float* qr = qw + 4 * rg * D;  // the lane's rows
+  const float* orr = ow + 4 * rg * D;
+  float* pr = ps + 4 * rg * kPStride;
+
+  for (int t = 0; t < nkt; ++t) {
+    hopper::cp_async_wait<0>();
+    __syncthreads();  // the one block barrier a tile, as in dK/dV
+    if (t + 1 < nkt) load(t + 1);
+    const int k0 = t * kTile;
+    if (!rows_live || (a.causal && k0 > row_last)) continue;  // all dead
+    const float* ks = sm + (t & 1) * S::kStage;
+    const float* vs = ks + S::kT;
+    const float* bs = vs + S::kT;
+
+    // S = (q * scale) K^T and dP = dO V^T: rows my0 + i, keys k0 + cg +
+    // kCG j
+    float s[4][kJ], dp[4][kJ];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) s[i][j] = dp[i][j] = 0.f;
+    const float* kcol = ks + cg * S::kS;
+    const float* vcol = vs + cg * S::kS;
+#pragma unroll 2
+    for (int d = 0; d < D; d += 4) {
+      float4 qx[4], ox[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        qx[i] = *reinterpret_cast<const float4*>(qr + i * D + d);
+        ox[i] = *reinterpret_cast<const float4*>(orr + i * D + d);
+      }
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) {
+        const float4 kx =
+            *reinterpret_cast<const float4*>(kcol + j * kCG * S::kS + d);
+        const float4 vx =
+            *reinterpret_cast<const float4*>(vcol + j * kCG * S::kS + d);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          s[i][j] = dot4(qx[i], kx, s[i][j]);
+          dp[i][j] = dot4(ox[i], vx, dp[i][j]);
+        }
+      }
+    }
+
+    // dS = P (dP - delta) into the strip; score and bias summed before lse
+    // is taken off, as the plain version does
+    float bv[kJ];
+#pragma unroll
+    for (int j = 0; j < kJ; ++j) bv[j] = brow ? bs[cg + kCG * j] : 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = my0 + i;
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) {
+        const int key = k0 + cg + kCG * j;
+        const bool live = key < Sk && !(a.causal && key > row) &&
+                          lse_r[i] != -INFINITY;
+        const float p = live ? expf(s[i][j] + bv[j] - lse_r[i]) : 0.f;
+        pr[i * kPStride + cg + kCG * j] = p * (dp[i][j] - dlt_r[i]);
+      }
+    }
+    __syncwarp();
+
+    // dQ += dS K
+    accumulate<D, kCG, S::kS>(acc, pr, ks, cg);
+    // the strip's next writes follow the next block barrier
+  }
+  if (!rows_live) return;
+
+  // epilogue: dq = acc * scale through the strides
+  float* dqb = dq + b * a.dql.b + h * a.dql.h;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = my0 + i;
+    if (row >= Sq) continue;
+    float* qrow = dqb + (long long)row * a.dql.s + 4 * cg;
+#pragma unroll
+    for (int jj = 0; jj < CP / 4; ++jj)
+      *reinterpret_cast<float4*>(qrow + 4 * kCG * jj) = make_float4(
+          acc[i][4 * jj] * a.scale, acc[i][4 * jj + 1] * a.scale,
+          acc[i][4 * jj + 2] * a.scale, acc[i][4 * jj + 3] * a.scale);
+  }
+}
+
+// Whether every operand of the call can go through the 16-byte copies and
+// stores (the wrappers copy an input that cannot; outputs are fresh).
+inline bool aligned(const Call& c) {
+  using hopper::aligned16;
+  const BwdShape& a = c.a;
+  const int B = c.B, nh = a.num_heads;
+  return aligned16(c.q, a.ql, B, nh, a.Sq) &&
+         aligned16(c.k, a.kl, B, nh, a.Sk) &&
+         aligned16(c.v, a.vl, B, nh, a.Sk) &&
+         aligned16(c.dout, a.dol, B, nh, a.Sq) &&
+         (!c.dq || aligned16(c.dq, a.dql, B, nh, a.Sq)) &&
+         (!c.dk || aligned16(c.dk, a.dkl, B, nh, a.Sk)) &&
+         (!c.dv || aligned16(c.dv, a.dvl, B, nh, a.Sk));
+}
+
+template <int D, int RG>
+int launch_dkv(const Call& c, cudaStream_t stream) {
+  if (!aligned(c)) return (int)cudaErrorMisalignedAddress;
+  constexpr int smem = Smem<D, RG, 2 * kTile>::kBytes;
+  constexpr int kRows = kWarps * Lanes<RG>::kR;
   static const cudaError_t attr = hopper::set_smem_limit(
-      fa_dkv_kernel<float, D>, (int)smem);
+      fa_dkv_f32_kernel<D, RG>, smem, /*max_carveout=*/true);
   if (attr != cudaSuccess) return (int)attr;
-  dim3 grid((c.a.Sk + kBK - 1) / kBK, c.a.num_heads, c.B);
-  fa_dkv_kernel<float, D><<<grid, kThreads, smem, stream>>>(
+  const int tiles = (c.a.Sk + kRows - 1) / kRows;
+  if (tiles > 65535) return (int)cudaErrorInvalidValue;
+  dim3 grid(c.B * c.a.num_heads, tiles);
+  fa_dkv_f32_kernel<D, RG><<<grid, 32 * kWarps, smem, stream>>>(
       static_cast<const float*>(c.q), static_cast<const float*>(c.k),
       static_cast<const float*>(c.v), static_cast<const float*>(c.dout),
       static_cast<const float*>(c.bias), static_cast<const float*>(c.lse),
@@ -447,14 +677,18 @@ int launch_dkv_f32(const Call& c, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_dq_f32(const Call& c, cudaStream_t stream) {
-  constexpr size_t smem = dq_smem_bytes<D>();
+template <int D, int RG>
+int launch_dq(const Call& c, cudaStream_t stream) {
+  if (!aligned(c)) return (int)cudaErrorMisalignedAddress;
+  constexpr int smem = Smem<D, RG, kTile>::kBytes;
+  constexpr int kRows = kWarps * Lanes<RG>::kR;
   static const cudaError_t attr = hopper::set_smem_limit(
-      fa_dq_kernel<float, D>, (int)smem);
+      fa_dq_f32_kernel<D, RG>, smem, /*max_carveout=*/true);
   if (attr != cudaSuccess) return (int)attr;
-  dim3 grid((c.a.Sq + kBQ - 1) / kBQ, c.a.num_heads, c.B);
-  fa_dq_kernel<float, D><<<grid, kThreads, smem, stream>>>(
+  const int tiles = (c.a.Sq + kRows - 1) / kRows;
+  if (tiles > 65535) return (int)cudaErrorInvalidValue;
+  dim3 grid(c.B * c.a.num_heads, tiles);
+  fa_dq_f32_kernel<D, RG><<<grid, 32 * kWarps, smem, stream>>>(
       static_cast<const float*>(c.q), static_cast<const float*>(c.k),
       static_cast<const float*>(c.v), static_cast<const float*>(c.dout),
       static_cast<const float*>(c.bias), static_cast<const float*>(c.lse),
@@ -462,10 +696,11 @@ int launch_dq_f32(const Call& c, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+}  // namespace f32
+
 namespace tc {
 
 using namespace hopper::attn;
-using hopper::attn::kThreads;  // not the CUDA-core kernels', found first
 
 // Shared memory: the Q and dO tiles, the K/V ring, its barriers, and slack
 // to align the tiles to 1024 bytes.
@@ -855,19 +1090,23 @@ int launch_dkv(const Call& c, cudaStream_t stream) {
 
 // which: 0 = dK/dV, 1 = dQ.  dtype: 0 = float32, 1 = bfloat16.  bfloat16
 // runs the tensor-core kernels (fa_dkv_tc_kernel, fa_dq_tc_kernel), float32
-// the CUDA-core ones (fa_dkv_kernel, fa_dq_kernel).
+// the CUDA-core ones (fa_dkv_f32_kernel, fa_dq_f32_kernel) in blocks of 8
+// warps: at D 64 as 4 row groups x 8 column groups (16 rows a warp, 128 a
+// block), at D 128 as 2 x 16 (8 rows a warp, 64 a block), where 4 x 16
+// spilled (dK/dV) or, in blocks of 4 warps to fit shared memory, ran
+// slower (dQ).
 int run(const Call& c, int which, int dtype, void* stream) {
   if (c.B <= 0 || c.a.Sq <= 0 || c.a.Sk <= 0 || c.a.num_heads <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (which == 0) {
-    if (dtype == 0 && c.D == 64) return launch_dkv_f32<64>(c, st);
-    if (dtype == 0 && c.D == 128) return launch_dkv_f32<128>(c, st);
+    if (dtype == 0 && c.D == 64) return f32::launch_dkv<64, 4>(c, st);
+    if (dtype == 0 && c.D == 128) return f32::launch_dkv<128, 2>(c, st);
     if (dtype == 1 && c.D == 64) return tc::launch_dkv<64>(c, st);
     if (dtype == 1 && c.D == 128) return tc::launch_dkv<128>(c, st);
   } else {
-    if (dtype == 0 && c.D == 64) return launch_dq_f32<64>(c, st);
-    if (dtype == 0 && c.D == 128) return launch_dq_f32<128>(c, st);
+    if (dtype == 0 && c.D == 64) return f32::launch_dq<64, 4>(c, st);
+    if (dtype == 0 && c.D == 128) return f32::launch_dq<128, 2>(c, st);
     if (dtype == 1 && c.D == 64) return tc::launch_dq<64>(c, st);
     if (dtype == 1 && c.D == 128) return tc::launch_dq<128>(c, st);
   }

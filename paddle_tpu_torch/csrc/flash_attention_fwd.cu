@@ -369,16 +369,6 @@ fa_fwd_f32_kernel(const float* __restrict__ q_, const float* __restrict__ k_,
   }
 }
 
-// Whether the kernel's 16-byte copies and stores can take a float32
-// [B, heads, rows, D] operand in place: its address and every stride of a
-// dim longer than 1 are multiples of 16 bytes.
-inline bool aligned16(const void* p, const Layout& l, int B, int heads,
-                      int rows) {
-  auto ok = [](long long stride, int n) { return n == 1 || stride % 4 == 0; };
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && ok(l.b, B) &&
-         ok(l.h, heads) && ok(l.s, rows);
-}
-
 inline int num_sms() {
   int dev = 0, n = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
@@ -414,6 +404,7 @@ int launch_tiles(const FwdPtrs& p, const FwdShape& a, int B,
 template <int D>
 int launch(const FwdPtrs& p, const FwdShape& a, int B, cudaStream_t stream) {
   const int nh = a.num_heads;
+  using hopper::aligned16;
   if (!aligned16(p.q, a.ql, B, nh, a.Sq) ||
       !aligned16(p.k, a.kl, B, nh, a.Sk) ||
       !aligned16(p.v, a.vl, B, nh, a.Sk) ||

@@ -486,6 +486,16 @@ struct Layout {
   long long b, h, s;
 };
 
+// Whether the fp32 kernels' 16-byte copies and stores can take a float32
+// [B, heads, rows, D] operand in place: its address and every stride of a
+// dim longer than 1 are multiples of 16 bytes.
+inline bool aligned16(const void* p, const Layout& l, int B, int heads,
+                      int rows) {
+  auto ok = [](long long stride, int n) { return n == 1 || stride % 4 == 0; };
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && ok(l.b, B) &&
+         ok(l.h, heads) && ok(l.s, rows);
+}
+
 namespace attn {
 
 constexpr int kBM = 128;                   // q rows per block

@@ -39,13 +39,12 @@ leave are read in place:
   differentiable in q, k, v and bias.
 
 Each source picks its kernel by dtype: bfloat16 runs the tensor-core
-kernels (wgmma, with TMA loads), float32 the CUDA-core kernels.  The
-forward reads its operands in 16-byte pieces in both dtypes (TMA in
-bfloat16, cp.async in float32), the backward kernels through TMA in
-bfloat16; both need 16-byte-aligned addresses and byte strides.  An
-operand that is not aligned (``tma_aligned``) is copied to fresh
-contiguous memory first, and each such copy is counted in the launching
-wrapper's ``.realigned``, which stays 0 on the model paths.
+kernels (wgmma, with TMA loads), float32 the CUDA-core kernels (exact
+fp32 FMAs).  Every kernel reads its operands in 16-byte pieces (TMA in
+bfloat16, cp.async in float32), which need 16-byte-aligned addresses and
+byte strides.  An operand that is not aligned (``tma_aligned``) is copied
+to fresh contiguous memory first, and each such copy is counted in the
+launching wrapper's ``.realigned``, which stays 0 on the model paths.
 
 A wrapper takes its plain version only for a tensor on the CPU; on a
 CUDA tensor it launches its kernel (counted in ``.launches``) or raises,

@@ -367,6 +367,85 @@ def test_float32_forward_kernel_matches_plain_version(cuda, B, H, Sq, Sk, D,
         assert (lse - ref_lse)[-1].abs().max().item() <= 2.0 ** -10
 
 
+# The fp32 backward kernels (fa_dkv_f32_kernel, fa_dq_f32_kernel: 8-warp
+# blocks of 128 keys / q rows at D 64 and 64 at D 128, the other side
+# streamed in 64-row tiles) at both D: causal or not, a bias with an
+# all-padding last row or none, S 1, 65, 100 and 129 around the tile edges,
+# Sq != Sk both ways, packed and unpacked, the [B, H, S, D] views rope
+# leaves and contiguous tensors.
+F32_BWD_CASES = [
+    # (packed, B, H, Sq, Sk, D, causal, with_bias, views); packed cases
+    # take H heads of D in one qkv [B, S, 3 H D] (Sq = Sk = S)
+    (True, 8, 12, 512, 512, 64, False, True, False),   # BERT training
+    (True, 2, 2, 65, 65, 128, True, True, False),
+    (True, 3, 12, 1, 1, 64, False, True, False),
+    (False, 1, 32, 2048, 2048, 128, True, False, True),  # the Llama shape
+    (False, 2, 2, 100, 100, 64, True, True, False),
+    (False, 2, 3, 1, 1, 128, False, True, True),
+    (False, 2, 2, 65, 65, 64, True, False, True),
+    (False, 2, 2, 65, 200, 128, True, True, False),    # Sq < Sk
+    (False, 2, 2, 300, 65, 64, False, True, True),     # Sq > Sk
+    (False, 1, 4, 130, 1, 64, True, False, False),     # one key
+    (False, 2, 2, 129, 129, 64, True, True, True),     # 128-row edge
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed,B,H,Sq,Sk,D,causal,with_bias,views",
+                         F32_BWD_CASES)
+def test_float32_backward_kernels_match_plain_version(cuda, packed, B, H, Sq,
+                                                      Sk, D, causal,
+                                                      with_bias, views):
+    """dq, dk, dv and dbias from the fp32 dK/dV and dQ kernels against the
+    plain backward: grads and dbias atol 1e-4 (sums of up to S O(1)
+    products in another order); the all-padding row 2**-6 (p = exp(s -
+    lse) with s and lse near -1e4, each good to an ulp there).  One launch
+    of each kernel, no operand realigned."""
+    seed = 11 * Sq + Sk + D
+    if packed:
+        w = (tfa.flash_attention_packed_dkv, tfa.flash_attention_packed_dq)
+        qkv, bias, out, lse, dout = _bwd_inputs(B, Sq, H * D, H, causal,
+                                                with_bias, "float32", cuda,
+                                                seed)
+    else:
+        w = (tfa.flash_attention_unpacked_dkv,
+             tfa.flash_attention_unpacked_dq)
+        q, k, v, bias, dout = _unpacked_inputs(B, H, Sq, Sk, D, with_bias,
+                                               "float32", cuda, seed, views)
+        out, lse = tfa.flash_attention_reference(q, k, v, bias, causal)
+    before = [(x.launches, x.realigned) for x in w]
+    if packed:
+        dqkv, dbias = tfa.flash_attention_packed_backward(
+            qkv, bias, out, lse, dout, H, causal)
+        ref_qkv, ref_db = tfa.flash_attention_packed_backward_reference(
+            qkv, bias, out, lse, dout, H, causal)
+
+        def split(x):  # dq, dk, dv as [B, H, S, D]
+            return [x[..., j * H * D:(j + 1) * H * D].reshape(
+                B, Sq, H, D).transpose(1, 2) for j in range(3)]
+
+        got, ref = split(dqkv) + [dbias], split(ref_qkv) + [ref_db]
+    else:
+        got = list(tfa.flash_attention_unpacked_backward(
+            q, k, v, bias, out, lse, dout, causal))
+        ref = list(tfa.flash_attention_backward_reference(
+            q, k, v, bias, out, lse, dout, causal))
+    torch.cuda.synchronize()
+    assert [(x.launches, x.realigned) for x in w] == [
+        (n + 1, r) for n, r in before]
+    live = slice(0, B - 1) if with_bias else slice(0, B)
+    for name, g, want in zip(("dq", "dk", "dv", "dbias"), got, ref):
+        if want is None:
+            assert g is None, name
+            continue
+        assert g.dtype == torch.float32 and g.shape == want.shape, name
+        assert torch.isfinite(g).all(), name
+        if B > 1 or not with_bias:
+            assert (g - want)[live].abs().max().item() <= 1e-4, name
+        if with_bias:
+            assert (g - want)[-1].abs().max().item() <= 2.0 ** -6, name
+
+
 @pytest.mark.cuda
 def test_unpacked_wrapper_rejects_what_the_kernels_do_not_take(cuda):
     def t(*shape, dtype=torch.float32):
