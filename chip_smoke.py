@@ -69,9 +69,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    configures it (hidden 768, 12 layers, 12 heads, intermediate 3072,
    vocab 30522, seq 128, random weights from the startup program), saved
    with io.save_inference_model, loaded by inference.Predictor on the
-   card, answering batch 1, 4 and 8 at seq 128 with padding in
-   attn_mask.  Every kernel count is set to 0 just before and read just
-   after: each request must launch the forward kernel exactly 12 times,
+   card, warmed (each signature built and captured as a CUDA graph),
+   answering batch 1, 4 and 8 at seq 128 with padding in attn_mask, each
+   request a replay.  Every kernel count is set to 0 just before and
+   read just after (replay-aware counters): each request must launch the
+   forward kernel exactly 12 times,
    no backward kernel, and never call a plain version.  The batch-4
    request runs again through Predictor(dir, device="cpu"): logits max
    abs diff <= 1e-3 and loss rel diff <= 1e-4 (fp32, TF32 off).
@@ -84,20 +86,34 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    value; parameters after step 3 within 2 * (sum of the LRs) everywhere
    (Adam moves an element with a near-zero gradient by ~lr whatever its
    sign) and within 1e-5 on 99.9% of all elements.  Each card step
-   launches 24 forward kernels (12 forward, 12 recomputed in the grad
-   ops), 12 dK/dV and 12 dQ.  Then one fp32 step at bench.py's seq-512
-   shape (BERT-base, batch 8, max_predictions 77, no AMP, dropout 0, the
-   phase's optimizer), after one warm step, under torch.profiler and not
-   counted in the path's launches: device busy and idle share, the fp32
-   backward kernels' device time and share of the step, and exactly 24 /
-   12 / 12 launches.
+   launches 12 forward kernels (once per attention op: the grad ops
+   differentiate the graph the forward kept), 12 dK/dV and 12 dQ, read
+   through the replay-aware counters.  Then, on the same program:
+   captured = eager, 3 steps through the compiled step (eager, capture +
+   replay, replay) against 3 through FLAGS_check_nan_inf's eager debug
+   run from one startup scope copied, losses and every parameter
+   expected bit-equal and held to the parity limits; the guard, a
+   replayed guarded step on a NaN feed leaves every persistable
+   bit-unchanged and fires its callback with that step's id; dropout
+   0.5 on [1024, 1024] under replay, each run at its keep rate within 5
+   sigma with its grad on its own mask, no two consecutive masks equal.
+   Then one fp32 step at bench.py's seq-512 shape (BERT-base, batch 8,
+   max_predictions 77, no AMP, dropout 0, the phase's optimizer), after
+   two warm steps (eager, capture), replayed under torch.profiler and not
+   counted in the path's launches: wall, device busy and idle share, host
+   launches, the fp32 backward kernels' device time and share of the
+   step, and exactly 12 / 12 / 12 launches.
 6. flagship training: bench.py's seq-512 leg through Executor.run:
    BERT-base, seq 512, batch 8, max_predictions 77, bf16 AMP with the
    bench's extra white list, dropout 0.1, warmup 1e-4 over 10000 steps;
-   6 steps.  Each step's host time (ending in the loss fetch), a finite
-   loss at every step, peak device memory, exactly 24 / 12 / 12 kernel
-   launches per step and no call of a plain version; then a
-   torch.profiler view of one more step (not counted).
+   6 steps (step 1 eager, step 2 captures the CUDA graph and replays
+   it, the rest replay).  Each step's host time (ending in the loss
+   fetch), a finite loss at every step, peak device memory, exactly 12 /
+   12 / 12 kernel launches per step and no call of a plain version; then
+   a window of 20 steps through run_async fenced once at its end (no
+   host sync inside it): ms/step and tokens/s; then a torch.profiler view
+   of one more step (not counted): wall, device busy, idle share and
+   host launches (cudaLaunchKernel, cudaGraphLaunch).
 7. unpacked kernels (the flash_attention op's forward, dK/dV and dQ),
    each against its plain version on the card: at Llama-2-7B's attention
    shape (B 1, 32 heads, S 2048, D 128, causal), at D 64, a ragged S 100,
@@ -120,8 +136,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    copied.  Loss rel diff <= 1e-4 at every step, step-1 gradients within
    1e-3 of their largest value, parameters after step 3 within 2 * (sum
    of the LRs) everywhere and 1e-5 on 99.9% of all elements (as phase
-   5).  Each card step launches the unpacked forward kernel twice (the
-   forward and its recomputation in flash_attention_grad), dK/dV and dQ
+   5).  Each card step launches the unpacked forward kernel, dK/dV and dQ
    once, and no packed kernel.
 9. Llama flagship training: build_llama_train at Llama-2-7B's widths, 4
    layers (all 32 would need ~108 GB of fp32 weights, grads and AdamW
@@ -132,8 +147,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    losses the CUDA-core kernels gave on the same seeds before the
    tensor-core ones replaced them (LLAMA_LOSSES_CUDA_CORES; bf16 rounds at
    other places in the new kernels), peak device memory,
-   exactly 8 / 4 / 4 launches of the unpacked kernels per step, none of the
-   packed ones, no call of a plain version; then a profiled step.
+   exactly 4 / 4 / 4 launches of the unpacked kernels per step, none of the
+   packed ones, no call of a plain version; the run_async window and the
+   profiled step as in phase 6.  Then a second captured entry of the same
+   step (one more one-element fetch makes a second key): the device
+   memory reserved with one captured entry and with two, each graph
+   pool and the peak allocated.
+
+Every profiled replay (phases 4, 5, 6 and 9) also holds the profiler's
+launches of the forward, dK/dV and dQ kernels against what the
+replay-aware counters added over it: a replay runs no wrapper, so this
+is what shows that the counts the per-step gates read are the
+kernels that ran.
 
 On every path (phases 4, 5, 6, 8, 9) no bfloat16 operand is copied to
 meet TMA's 16-byte alignment: the launching wrappers' ".realigned"
@@ -149,7 +174,17 @@ four backward entries also carry "f32": their fp32 kernel's device_ms,
 ms, bound_ms and SDPA's fp32 backward's library_device_ms at the same
 shape (BERT's training shape for the packed, the Llama shape for the
 unpacked ones).  The last lines are the card's name and power limit, one
-{"kernels": ...} JSON line, and {"ok": true, "device": {...}}.
+{"kernels": ...} JSON line, and {"ok": true, "device": {...}}.  Before
+them, one "compiled step:" JSON line holds each profiled path's wall ms,
+device busy ms, idle share and host launches (serving_b4, bert_fp32,
+bert_flagship, llama_flagship), the run_async windows' ms/step and
+tokens/s, whether captured = eager came out bit-equal and the memory
+with two captured Llama entries (llama_two_signatures).
+
+Every phase runs through the executor's compiled step (Executor.run /
+run_async and Predictor.run on the card: the first run of a signature
+eager, the second captured as one CUDA graph, the rest replays), and
+closes its executor (graphs and pools) before the next.
 """
 import json
 import math
@@ -207,6 +242,8 @@ FLAGSHIP = dict(BERT_BASE, batch_size=8, seq_len=512,
 FLAGSHIP_LR = dict(learning_rate=1e-4, warmup_steps=10000, start_lr=0.0,
                    end_lr=1e-4)
 FLAGSHIP_STEPS = 6
+# the run_async window of phases 6 and 9, fenced once at its end
+ASYNC_STEPS = 20
 
 # Llama-2-7B's widths (BASELINE.json's "Llama-2-7B", models/llama.py's
 # defaults): head_dim 128, multi-head (num_kv_heads = num_heads)
@@ -1004,6 +1041,19 @@ def serve(tpt, fa, workdir):
     log(f"  Predictor on {pred.device} loaded in "
         f"{time.perf_counter() - t0:.2f} s")
 
+    t0 = time.perf_counter()
+    warmed = pred.warmup([{n: a.shape for n, a in bert_feed(b, 0).items()}
+                          for b in (1, 4, 8)])
+    info = pred.cache_info()
+    pools = [m for m in info["manifests"].values()]
+    log(f"  warmup built and captured {warmed} signatures in "
+        f"{time.perf_counter() - t0:.2f} s; graph pools "
+        f"{', '.join(f'{m / 2 ** 20:.1f}' for m in pools if m is not None)} "
+        f"MiB")
+    if warmed != 3 or info["compiled"] != 3 or None in pools:
+        raise AssertionError(f"warmup did not capture batch 1, 4 and 8: "
+                             f"{warmed} warmed, cache_info {info}")
+
     requests = [(b, s) for b in (1, 4, 8) for s in range(3)]
     reset_counts(fa)
     results, lat = {}, {}
@@ -1035,8 +1085,8 @@ def serve(tpt, fa, workdir):
                              f"the packed forward only")
     for b, ms in lat.items():
         log(f"  batch {b} x seq {BERT['seq_len']}: request latency on the "
-            f"card {', '.join(f'{x:.3f}' for x in ms)} ms (first includes "
-            f"one-time set-up)")
+            f"card {', '.join(f'{x:.3f}' for x in ms)} ms (replays of the "
+            f"captured signature, numpy fetches included)")
     log(f"  serving: {len(requests)} requests, {launches} kernel launches "
         f"({n_attn} per request), plain version called {plain_calls} times, "
         f"operands realigned {realigned}")
@@ -1053,48 +1103,107 @@ def serve(tpt, fa, workdir):
         f"(limit {LOSS_RTOL:g})")
     if not (logit_diff <= LOGITS_ATOL and loss_rel <= LOSS_RTOL):
         raise AssertionError("card and CPU disagree")
-    profile_request(pred, bert_feed(4, seed=41))
+    profile_request(pred, fa, bert_feed(4, seed=41))
+    pred.close()
+    del pred
+    torch.cuda.empty_cache()
     return counts
 
 
-def profile_request(pred, feed):
+def profile_request(pred, fa, feed):
     """Where one batch-4 request's time goes: torch.profiler's device
-    time by kernel against the request's wall time (after the counted
-    run, so these launches are not in the main path's counts)."""
+    time by kernel against the request's wall time (a replay of the
+    captured signature, after the counted runs, so these launches are not
+    in the main path's counts), and the profiler's kernel launches held
+    against the replay-aware counts."""
     from torch.profiler import ProfilerActivity, profile
 
     pred.run(feed)
+    before = read_counts(fa)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         pred.run(feed)
         wall_us = (time.perf_counter() - t) * 1e6
-    report_profile(prof, wall_us, "one batch-4 request")
+    kernels, _ = report_profile(prof, wall_us, "one batch-4 request",
+                                key="serving_b4")
+    check_profiled_launches(kernels, before, read_counts(fa),
+                            "one batch-4 request")
 
 
-def report_profile(prof, wall_us, what):
-    """Logs device busy and idle share of `wall_us`, the top kernels and
-    host ops; returns the device kernels' key_averages rows and their busy
-    us (0 where the profiler saw no kernel)."""
+# the kernels each pair of wrappers (packed, unpacked) launches, by the
+# part of the name they share: forward, dK/dV, dQ
+KERNEL_FAMILIES = ("fa_fwd_", "fa_dkv_", "fa_dq_")
+
+
+def check_profiled_launches(kernels, before, after, what):
+    """A replay runs no wrapper, so the counts it adds are its capture's.
+    Hold them against what the profiler saw launched in the replay: for
+    each kernel family, the profiler's launches equal the counters'
+    deltas (packed plus unpacked wrapper) between `before` and
+    `after`."""
+    d = [a - b for a, b in zip(after[0], before[0])]
+    want = tuple(d[i] + d[i + 3] for i in range(3))
+    seen = tuple(sum(e.count for e in kernels if fam in e.key)
+                 for fam in KERNEL_FAMILIES)
+    log(f"  {what}: the profiler saw {seen} launches of the forward, "
+        f"dK/dV and dQ kernels; the replay-aware counters added {want}")
+    if seen != want:
+        raise AssertionError(f"{what}: the profiler saw {seen} kernel "
+                             f"launches, the counters added {want}")
+
+
+HOST_KERNEL_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                        "cuLaunchKernel", "cuLaunchKernelEx")
+# each profiled path's numbers, for the summary before the last lines
+PROFILES = {}
+# the same paths run eagerly, op by op, by the executor before the
+# compiled step (one NVIDIA H100 80GB HBM3 at 700 W, PERF.md section 5):
+# wall ms, device busy ms, idle share, host kernel launches
+EAGER_PROFILES = {"serving_b4": ("32.8", "10.63", "67.6%", "396"),
+                  "bert_fp32": ("209.2", "104.5", "50.1%", "5666"),
+                  "bert_flagship": ("142-308", "40.4", "91%", "~7550"),
+                  "llama_flagship": ("108.7-112.9", "96.5", "22%", "~1650")}
+
+
+def report_profile(prof, wall_us, what, key=None):
+    """Logs device busy and idle share of `wall_us`, the host's launches
+    (kernels: cudaLaunchKernel and its variants; CUDA graphs:
+    cudaGraphLaunch), the top kernels and host ops; returns the device
+    kernels' key_averages rows and their busy us (0 where the profiler
+    saw no kernel).  With `key`, PROFILES[key] keeps the numbers."""
     import torch
 
-    kernels = [e for e in prof.key_averages()
+    rows = prof.key_averages()
+    kernels = [e for e in rows
                if e.device_type == torch.autograd.DeviceType.CUDA]
+    host = [e for e in rows
+            if e.device_type == torch.autograd.DeviceType.CPU]
+    kernel_launches = sum(e.count for e in host
+                          if e.key in HOST_KERNEL_LAUNCHES)
+    graph_launches = sum(e.count for e in host
+                         if e.key == "cudaGraphLaunch")
     busy_us = sum(e.self_device_time_total for e in kernels)
+    if key is not None:
+        PROFILES[key] = dict(
+            wall_ms=wall_us / 1e3, busy_ms=busy_us / 1e3,
+            idle=1 - busy_us / wall_us if busy_us > 0 else None,
+            kernel_launches=kernel_launches, graph_launches=graph_launches,
+            device_launches=sum(e.count for e in kernels))
     if busy_us <= 0:
         log(f"  profile: {what} {wall_us:.0f} us wall; device time not "
             f"measured (the profiler saw no kernels)")
         return kernels, 0.0
     log(f"  profile of {what}: {wall_us:.0f} us wall, "
         f"{busy_us:.0f} us device busy ({len(kernels)} kernel names, "
-        f"{sum(e.count for e in kernels)} launches), device idle "
-        f"{100 * (1 - busy_us / wall_us):.1f}% of the wall time")
+        f"{sum(e.count for e in kernels)} kernels ran), device idle "
+        f"{100 * (1 - busy_us / wall_us):.1f}% of the wall time; host "
+        f"launches: {kernel_launches} cudaLaunchKernel, {graph_launches} "
+        f"cudaGraphLaunch")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"    {e.self_device_time_total:9.1f} us "
             f"{100 * e.self_device_time_total / busy_us:5.1f}%  "
             f"x{e.count:<5d} {e.key[:90]}")
-    host = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CPU]
     log(f"  host ops by self CPU time ({sum(e.count for e in host)} calls, "
         f"{sum(e.self_cpu_time_total for e in host):.0f} us):")
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:8]:
@@ -1182,12 +1291,12 @@ def llama_batch(cfg, seed):
 
 def per_step_launches(main):
     """Launches of the six kernels one training step makes: each attention
-    op's forward, and its recomputation inside the auto-derived grad op,
-    then dK/dV and dQ once."""
+    op's forward once (its grad op differentiates the graph the forward
+    kept), then dK/dV and dQ once."""
     ops = main.global_block().ops
     packed = sum(op.type == "flash_attention_qkv" for op in ops)
     unpacked = sum(op.type == "flash_attention" for op in ops)
-    return (2 * packed, packed, packed, 2 * unpacked, unpacked, unpacked)
+    return (packed, packed, packed, unpacked, unpacked, unpacked)
 
 
 def train_parity(tpt, fa, what, main, startup, loss, batches, grads, lrs):
@@ -1204,7 +1313,9 @@ def train_parity(tpt, fa, what, main, startup, loss, batches, grads, lrs):
     card.run(startup, scope=scope)
     cpu_scope = tpt.Scope()
     for n in scope.local_var_names():
-        cpu_scope.set_var(n, scope.find_var(n).cpu())
+        # a copy even where the card path runs on the CPU: both scopes
+        # are updated in place
+        cpu_scope.set_var(n, scope.find_var(n).to("cpu", copy=True))
     cpu = tpt.Executor(tpt.CPUPlace())
     params = [p.name for p in main.all_parameters()]
     n_params = sum(scope.find_var(n).numel() for n in params)
@@ -1258,19 +1369,170 @@ def train_parity(tpt, fa, what, main, startup, loss, batches, grads, lrs):
     if not (worst <= bound and close >= 0.999 * total):
         raise AssertionError(f"{what} parity: parameters disagree after "
                              f"{len(batches)} steps")
+    card.close()
     del scope, cpu_scope
     torch.cuda.empty_cache()
     return tuple(launches)
 
 
-def train_flagship(tpt, fa, what, main, startup, loss, batches, steps,
-                   tokens):
-    """`steps` steps on the card (cycling over `batches`): each step's
-    host time, ending in the loss fetch, and tokens/s; a finite loss;
-    exactly the expected kernel launches every step and no plain call;
-    peak device memory; then one profiled step.  Returns the launches of
-    the six kernels over the counted steps."""
+def captured_vs_eager(tpt, main, startup, loss, batches, lrs):
+    """The same steps through the compiled step (eager, then capture and
+    replay, then replay) and through FLAGS_check_nan_inf's eager debug
+    run, from one startup scope copied (fp32, TF32 off, dropout 0).  Both
+    run the same kernels on the same shapes, so the losses and every
+    parameter are expected bit-equal; otherwise the largest differences
+    are logged and held to the parity limits (loss rel LOSS_RTOL,
+    parameters 2 * (sum of the LRs) and PARITY_PARAM_ATOL on 99.9%)."""
     import torch
+
+    exe, dbg = tpt.Executor(), tpt.Executor()
+    scope, dscope = tpt.Scope(), tpt.Scope()
+    exe.run(startup, scope=scope)
+    for n in scope.local_var_names():
+        dscope.set_var(n, scope.find_var(n).clone())
+    got, want = [], []
+    for feed in batches:
+        got.append(exe.run(main, feed=feed, fetch_list=[loss],
+                           scope=scope)[0])
+        tpt.set_flags({"FLAGS_check_nan_inf": True})
+        try:
+            want.append(dbg.run(main, feed=feed, fetch_list=[loss],
+                                scope=dscope)[0])
+        finally:
+            tpt.set_flags({"FLAGS_check_nan_inf": False})
+    if not exe.cache_info()["entries"][-1]["aot"]:
+        raise AssertionError("the captured path never captured its step")
+    loss_rel = max(float(np.abs(g - w).max() / np.abs(w).max())
+                   for g, w in zip(got, want))
+    worst, close, total, unequal = 0.0, 0, 0, 0
+    for p in main.all_parameters():
+        d = (scope.find_var(p.name) - dscope.find_var(p.name)).abs()
+        worst = max(worst, d.max().item())
+        close += int((d <= PARITY_PARAM_ATOL).sum())
+        total += d.numel()
+        unequal += int((d != 0).sum())
+    exact = loss_rel == 0 and unequal == 0
+    log(f"  captured vs eager debug run, {len(batches)} steps: losses "
+        f"{', '.join(f'{float(np.ravel(g)[0]):.7f}' for g in got)} vs "
+        f"{', '.join(f'{float(np.ravel(w)[0]):.7f}' for w in want)}, "
+        f"largest loss rel diff {loss_rel:.3e}; parameters: "
+        f"{unequal} of {total} elements differ, max|diff| {worst:.3e} "
+        f"({'bit-equal' if exact else 'NOT bit-equal'})")
+    if not (loss_rel <= LOSS_RTOL and worst <= 2 * sum(lrs)
+            and close >= 0.999 * total):
+        raise AssertionError("the captured step and the eager debug run "
+                             "disagree beyond the parity limits")
+    exe.close()
+    dbg.close()
+    del scope, dscope
+    torch.cuda.empty_cache()
+    return exact
+
+
+def guard_on_nan(tpt, main, startup, loss, batches):
+    """The non-finite guard on the card: two finite steps (eager, then
+    capture and replay), then a replayed step whose mlm_weights are NaN
+    (so is its loss).  Every persistable must stay bit-unchanged and the
+    callback must fire with that step's id; a finite step after it must
+    train on."""
+    import torch
+
+    exe, scope, seen = tpt.Executor(), tpt.Scope(), []
+    exe.run(startup, scope=scope)
+    exe.set_nonfinite_guard(loss, seen.append, program=main)
+    for feed in batches[:2]:
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    persist = [v.name for v in main.list_vars() if v.persistable]
+    before = {n: scope.find_var(n).clone() for n in persist}
+    bad = dict(batches[2])
+    bad["mlm_weights"] = np.full_like(bad["mlm_weights"], np.nan)
+    out = exe.run(main, feed=bad, fetch_list=[loss], scope=scope)
+    changed = [n for n in persist
+               if not torch.equal(scope.find_var(n), before[n])]
+    log(f"  guarded step {exe._step} on a NaN feed (a replay: "
+        f"{exe.cache_info()['entries'][-1]['aot']}): loss "
+        f"{float(np.ravel(out[0])[0])}, {len(changed)} of {len(persist)} "
+        f"persistables changed, callback saw {seen}")
+    if np.isfinite(out[0]).all() or changed or seen != [exe._step] or \
+            not exe.cache_info()["entries"][-1]["aot"]:
+        raise AssertionError(f"the guard let a NaN step through: changed "
+                             f"{changed[:5]}, callback {seen}")
+    out = exe.run(main, feed=batches[0], fetch_list=[loss], scope=scope)
+    moved = sum(not torch.equal(scope.find_var(n), before[n])
+                for n in persist)
+    if not np.isfinite(out[0]).all() or moved == 0:
+        raise AssertionError("training did not go on after the guard")
+    exe.close()
+    del scope, before
+    torch.cuda.empty_cache()
+
+
+def dropout_replay(tpt):
+    """Dropout at rate 0.5 under replay: a [1024, 1024] dropout + sum step
+    with x@GRAD fetched runs eagerly, then is captured and replayed three
+    times.  Each run keeps 1 - round(0.5 * 256) / 256 of the elements
+    within 5 sigma, scales them by 2, and its grad is exactly 2 where the
+    mask kept (the grad reads the forward's mask); the replays draw
+    different masks."""
+    from paddle_tpu_torch.framework.backward import append_backward
+    from paddle_tpu_torch.ops import registry
+
+    op_seed = registry._OP_SEED[0]  # see bert_fp32_profile
+    main = tpt.Program()
+    block = main.global_block()
+    block.create_var(name="x", shape=[1024, 1024], dtype="float32",
+                     is_data=True, stop_gradient=False)
+    with tpt.program_guard(main, tpt.Program()):
+        block.append_op("dropout", inputs={"X": ["x"]},
+                        outputs={"Out": ["o"]},
+                        attrs={"dropout_prob": 0.5, "is_test": False,
+                               "seed": 0,
+                               "dropout_implementation": "upscale_in_train"})
+        block.append_op("reduce_sum", inputs={"X": ["o"]},
+                        outputs={"Out": ["loss"]},
+                        attrs={"dim": [0], "reduce_all": True,
+                               "keep_dim": False})
+        append_backward(block.var("loss"))
+    registry.reset_op_seed(op_seed)
+    exe = tpt.Executor()
+    x = np.ones((1024, 1024), "float32")
+    keep_rate = 1.0 - round(256 * 0.5) / 256.0
+    tol = 5 * np.sqrt(keep_rate * (1 - keep_rate) / x.size)
+    masks = []
+    for run in range(4):
+        o, g = exe.run(main, feed={"x": x}, fetch_list=["o", "x@GRAD"],
+                       scope=tpt.Scope())
+        kept = o != 0
+        rate = float(kept.mean())
+        if abs(rate - keep_rate) > tol or not np.all(o[kept] == 2.0) or \
+                not np.array_equal(g, np.where(kept, 2.0, 0.0)):
+            raise AssertionError(f"dropout run {run + 1}: keep rate {rate} "
+                                 f"(want {keep_rate} +- {tol:.2g}) or its "
+                                 f"grad does not follow its mask")
+        masks.append(kept)
+    same = [int(np.array_equal(a, b)) for a, b in zip(masks, masks[1:])]
+    log(f"  dropout 0.5 on [1024, 1024]: keep rates "
+        f"{', '.join(f'{float(m.mean()):.5f}' for m in masks)} (want "
+        f"{keep_rate} +- {tol:.2g}); consecutive masks equal: {same}; "
+        f"captured: {exe.cache_info()['entries'][-1]['aot']}")
+    if any(same) or not exe.cache_info()["entries"][-1]["aot"]:
+        raise AssertionError("replays of the dropout step repeated a mask")
+    exe.close()
+
+
+def train_flagship(tpt, fa, what, main, startup, loss, batches, steps,
+                   tokens, key):
+    """`steps` steps on the card (cycling over `batches`): each step's
+    host time, ending in the loss fetch, and tokens/s (step 1 runs
+    eagerly, step 2 captures the step as a CUDA graph and replays it, the
+    rest replay); a finite loss; exactly the expected kernel launches
+    every step and no plain call; peak device memory.  Then a window of
+    ASYNC_STEPS steps through run_async with one fence at its end (no
+    host sync inside it), as bench.py times its window: ms/step and
+    tokens/s.  Then one profiled step.  Returns the launches of the six
+    kernels over the counted steps, and the losses."""
+    import torch
+    from paddle_tpu_torch import monitor
 
     t0 = time.perf_counter()
     want = per_step_launches(main)
@@ -1303,15 +1565,47 @@ def train_flagship(tpt, fa, what, main, startup, loss, batches, steps,
             raise AssertionError(f"{what} step {step + 1}: loss {out[0]}")
     counts, plain, realigned = read_counts(fa)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    info = exe.cache_info()["entries"][-1]
     log(f"  {steps} steps: losses {', '.join(f'{x:.5f}' for x in losses)}")
     log(f"  step time on the card (host clock, ends in the loss fetch): "
-        f"{', '.join(f'{x:.1f}' for x in times)} ms (first includes "
-        f"one-time set-up); tokens/s "
+        f"{', '.join(f'{x:.1f}' for x in times)} ms (step 1 eager, step 2 "
+        f"captures and replays); tokens/s "
         f"{', '.join(f'{tokens * 1e3 / x:.0f}' for x in times)}; peak "
-        f"device memory {peak:.2f} GiB")
+        f"device memory {peak:.2f} GiB (graph pool "
+        f"{(info['manifest'] or 0) / 2 ** 30:.2f} GiB, captured: "
+        f"{info['aot']})")
     log(f"  launches of the six kernels {counts} ({want} per step); plain "
         f"versions called {plain} times; operands realigned {realigned}")
-    profile_step(exe, main, scope, batches[0], loss)
+    if not info["aot"]:
+        raise AssertionError(f"{what}: the step was never captured")
+
+    before = read_counts(fa)
+    syncs = monitor.stat_get("host_syncs")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for step in range(ASYNC_STEPS):
+        res = exe.run_async(main, feed=batches[step % len(batches)],
+                            fetch_list=[loss], scope=scope)
+    inside = monitor.stat_get("host_syncs") - syncs
+    last = res.sync()
+    ms = (time.perf_counter() - t) * 1e3 / ASYNC_STEPS
+    after = read_counts(fa)
+    got = (tuple(a - b for a, b in zip(after[0], before[0])),
+           after[1] - before[1], after[2] - before[2])
+    PROFILES[key + "_async"] = dict(ms_per_step=ms,
+                                    tokens_per_s=tokens * 1e3 / ms)
+    log(f"  {ASYNC_STEPS} steps through run_async, one fence at the end: "
+        f"{ms:.3f} ms/step, {tokens * 1e3 / ms:.0f} tokens/s; host syncs "
+        f"inside the window {inside}; last loss "
+        f"{float(np.ravel(last[0])[0]):.5f}; launches {got[0]}")
+    if inside or got != (tuple(ASYNC_STEPS * w for w in want), 0, 0) or \
+            not np.isfinite(last[0]).all():
+        raise AssertionError(f"{what}: the run_async window synced {inside} "
+                             f"times or launched {got}")
+    profile_step(exe, fa, main, scope, batches[0], loss, key)
+    if key == "llama_flagship":
+        second_signature(exe, main, scope, batches[0], loss)
+    exe.close()
     del scope
     torch.cuda.empty_cache()
     return counts, losses
@@ -1325,18 +1619,24 @@ def bert_parity(tpt, fa):
              "embedding_0.w_0@GRAD", f"{params[-2]}@GRAD"]
     batches = [train_batch(PARITY, seed=500 + step, padding=True)
                for step in range(3)]
-    return train_parity(tpt, fa, "BERT-base", main, startup, loss, batches,
-                        grads, PARITY_LRS)
+    launches = train_parity(tpt, fa, "BERT-base", main, startup, loss,
+                            batches, grads, PARITY_LRS)
+    PROFILES["captured_vs_eager"] = dict(bit_equal=captured_vs_eager(
+        tpt, main, startup, loss, batches, PARITY_LRS))
+    guard_on_nan(tpt, main, startup, loss, batches)
+    dropout_replay(tpt)
+    return launches
 
 
 def bert_fp32_profile(tpt, fa):
     """One fp32 training step at bench.py's seq-512 shape (BERT-base,
     batch 8, max_predictions 77; no AMP, dropout 0, the parity phase's
-    Adam, clip and warmup) under torch.profiler, after one warm step; not
-    counted in any path's launches.  Logs device busy and idle share, the
-    fp32 backward kernels' device time and share of the busy time, and
-    holds the step to 24 / 12 / 12 launches, no plain call and no
-    realigned operand."""
+    Adam, clip and warmup), a replay of its CUDA graph under
+    torch.profiler after two warm steps (eager, capture); not counted in
+    any path's launches.  Logs wall, device busy and idle share, host
+    launches, the fp32 backward kernels' device time and share of the
+    busy time, and holds the step to 12 / 12 / 12 launches, no plain call
+    and no realigned operand."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.ops import registry
@@ -1353,9 +1653,11 @@ def bert_fp32_profile(tpt, fa):
     scope = tpt.Scope()
     exe.run(startup, scope=scope)
     feed = train_batch(FLAGSHIP, seed=650, padding=True)
-    exe.run(main, feed=feed, fetch_list=[loss], scope=scope)  # warm
+    for _ in range(2):  # warm: the eager first run, then the capture
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
     torch.cuda.synchronize()
     reset_counts(fa)
+    before = read_counts(fa)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
@@ -1368,10 +1670,11 @@ def bert_fp32_profile(tpt, fa):
                              f"0; loss {out[0]}")
     kernels, busy_us = report_profile(
         prof, wall_us, f"one fp32 step at seq {FLAGSHIP['seq_len']} (batch "
-        f"{FLAGSHIP['batch_size']})")
+        f"{FLAGSHIP['batch_size']}), a replay", key="bert_fp32")
     if busy_us <= 0:
         raise AssertionError("the profiler saw no device time in the fp32 "
                              "step")
+    check_profiled_launches(kernels, before, got, "the fp32 step")
     parts = []
     for name in ("fa_dkv_f32_kernel", "fa_dq_f32_kernel",
                  "fa_fwd_f32_kernel"):
@@ -1385,6 +1688,7 @@ def bert_fp32_profile(tpt, fa):
         f"{100 * (parts[0] + parts[1]) / busy_us:.1f}% of {busy_us:.0f} us "
         f"device busy; launches {got[0][:3]} (want {want[:3]}); loss "
         f"{float(np.ravel(out[0])[0]):.5f}")
+    exe.close()
     del scope
     torch.cuda.empty_cache()
 
@@ -1397,7 +1701,7 @@ def bert_flagship(tpt, fa):
     return train_flagship(
         tpt, fa, "bench.py's seq-512 step (bf16 AMP, dropout 0.1)", main,
         startup, loss, batches, FLAGSHIP_STEPS,
-        FLAGSHIP["batch_size"] * FLAGSHIP["seq_len"])
+        FLAGSHIP["batch_size"] * FLAGSHIP["seq_len"], "bert_flagship")
 
 
 def llama_parity(tpt, fa):
@@ -1421,7 +1725,8 @@ def llama_flagship(tpt, fa):
     return train_flagship(
         tpt, fa, "Llama-2-7B-width training (4 layers, bf16 AMP)", main,
         startup, loss, batches, FLAGSHIP_STEPS,
-        LLAMA_FLAGSHIP["batch_size"] * LLAMA_FLAGSHIP["seq_len"])
+        LLAMA_FLAGSHIP["batch_size"] * LLAMA_FLAGSHIP["seq_len"],
+        "llama_flagship")
 
 
 def compare_losses(losses):
@@ -1521,17 +1826,63 @@ def check_build(build):
                                  f"{report.get(label)}")
 
 
-def profile_step(exe, main, scope, feed, loss):
+def profile_step(exe, fa, main, scope, feed, loss, key):
     """Where one flagship step's time goes: torch.profiler's device time
-    by kernel against the step's wall time (after the counted steps)."""
+    by kernel against the step's wall time (a replay, after the counted
+    steps), and the profiler's kernel launches held against the
+    replay-aware counts."""
     from torch.profiler import ProfilerActivity, profile
 
+    before = read_counts(fa)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
         wall_us = (time.perf_counter() - t) * 1e6
-    report_profile(prof, wall_us, "one flagship training step")
+    kernels, _ = report_profile(prof, wall_us, "one flagship training step",
+                                key=key)
+    check_profiled_launches(kernels, before, read_counts(fa),
+                            "one flagship training step")
+
+
+def second_signature(exe, main, scope, feed, loss):
+    """Device memory with two captured entries of one step: the same step
+    with one more (one-element) fetch is a second key, so a second graph
+    with its own pool.  Logs the memory the card holds (reserved) with
+    one captured entry and with two, each entry's pool and the peak
+    allocated; both entries then replay once more."""
+    import torch
+
+    block = main.global_block()
+    read = {n for op in block.ops for n in op.input_arg_names()}
+    extra = next(v.name for v in main.list_vars() if v.name in read
+                 and v.persistable and int(np.prod(v.shape)) == 1)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    one = torch.cuda.memory_reserved()
+    for _ in range(3):  # eager, capture and replay, replay
+        out = exe.run(main, feed=feed, fetch_list=[loss, extra],
+                      scope=scope)
+    out0 = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    two = torch.cuda.memory_reserved()
+    info = exe.cache_info()["entries"]
+    captured = [e for e in info if e["aot"]]
+    PROFILES["llama_two_signatures"] = dict(
+        reserved_one_gib=one / 2 ** 30, reserved_two_gib=two / 2 ** 30,
+        pools_gib=[e["manifest"] / 2 ** 30 for e in captured],
+        peak_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    pools = ", ".join(f"{e['manifest'] / 2 ** 30:.2f}" for e in captured)
+    log(f"  two captured entries of the step (fetch [loss] and [loss, "
+        f"{extra}]): the card holds {two / 2 ** 30:.2f} GiB reserved "
+        f"(one entry: {one / 2 ** 30:.2f} GiB); pools {pools} GiB; peak "
+        f"allocated "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    if len(captured) != 2 or not (np.isfinite(out[0]).all()
+                                  and np.isfinite(out0[0]).all()):
+        raise AssertionError(f"second signature: {len(captured)} captured "
+                             f"entries, losses {out[0]}, {out0[0]}")
 
 
 def main():
@@ -1610,6 +1961,17 @@ def main():
     by_path["llama_flagship"], losses = llama_flagship(tpt, fa)
     compare_losses(losses)
     log(f"  ({time.perf_counter() - t_start:.1f} s in all)")
+    for key, (wall, busy, idle, launches) in EAGER_PROFILES.items():
+        p = PROFILES[key]
+        ours = "not measured" if p["idle"] is None else \
+            f"{100 * p['idle']:.1f}%"
+        log(f"  {key}: wall {p['wall_ms']:.3f} ms (eager before: {wall}), "
+            f"device busy {p['busy_ms']:.3f} ms ({busy}), idle {ours} "
+            f"({idle}), host launches "
+            f"{p['kernel_launches']} cudaLaunchKernel + "
+            f"{p['graph_launches']} cudaGraphLaunch ({launches} "
+            f"cudaLaunchKernel)")
+    log("compiled step: " + json.dumps(PROFILES))
 
     src = "paddle_tpu_torch/csrc/"
     tpu = "paddle_tpu/ops/pallas/flash_attention.py:"

@@ -5,9 +5,11 @@ builders, executor and Predictor as the JAX package, with op lowerings
 written in PyTorch and the TPU's Pallas kernels rewritten by hand for
 Hopper (``csrc/``, built with nvcc at first use).  It serves
 (``inference.Predictor``) and trains (``optimizer.AdamOptimizer``,
-``clip``, ``contrib.mixed_precision``) BERT.  Programs run eagerly, op
-by op, on one device: the card (``cuda:0``) unless the caller passes
-``CPUPlace()`` / ``device="cpu"``.
+``clip``, ``contrib.mixed_precision``) BERT and Llama.  Programs run on
+one device, the card (``cuda:0``) unless the caller passes
+``CPUPlace()`` / ``device="cpu"``; on the card each feed signature's
+step is captured once as a CUDA graph and replayed
+(framework/executor.py).
 
 The port imports neither jax nor ``paddle_tpu``.
 """
@@ -19,7 +21,9 @@ from .framework.core import (Program, Variable, Parameter, OpRole,  # noqa
                              program_guard, unique_name, reset_unique_name,
                              convert_dtype, grad_var_name)
 from .framework.executor import (Executor, Scope, global_scope,  # noqa
-                                 scope_guard)
+                                 scope_guard, FetchHandle, AsyncRunResult)
+from .flags import set_flags, get_flags  # noqa
+from . import flags, monitor  # noqa
 from .framework.layer_helper import ParamAttr  # noqa
 from .framework import initializer  # noqa
 from . import layers  # noqa

@@ -3,8 +3,8 @@
 Counterpart of ``paddle_tpu/framework/core.py``: the same build-time IR,
 the same names and the same ``to_dict`` layout, so a program built here
 serialises to the JSON the JAX package writes.  The difference is how it
-runs: the port's Executor walks a block op by op, eagerly, on one torch
-device (see framework/executor.py).
+runs: the port's Executor lowers a block into torch ops on one device
+and, on the card, replays it as a CUDA graph (see framework/executor.py).
 
 Shape/dtype inference runs at op-append time, as in the JAX package, so
 graph construction errors surface where the op is appended.
@@ -12,6 +12,7 @@ graph construction errors surface where the op is appended.
 from __future__ import annotations
 
 import copy
+import itertools
 import threading
 from typing import Any, Dict, Iterator, List, Optional
 
@@ -321,6 +322,7 @@ class Block:
         op = Operator(self, type, inputs, outputs, attrs)
         op.idx = len(self.ops)
         self.ops.append(op)
+        self.program.bump()
         if infer_shape:
             from ..ops.registry import infer_op_shape
             infer_op_shape(op, self)
@@ -346,14 +348,19 @@ class Block:
 class Program:
     """A whole computation: list of blocks, block 0 global."""
 
+    _uid_counter = itertools.count()
+
     def __init__(self):
         self.blocks: List[Block] = [Block(self, 0)]
         self._current_block_idx = 0
         self.random_seed = 0
         self._version = 1
-        # bumped by every mutation helper (append_backward, optimizers);
-        # the eager executor caches nothing, so nothing reads it yet
+        # cache token: executors key compiled steps on (_uid, _mod_count);
+        # every mutation helper (append_op, append_backward, optimizers)
+        # bumps _mod_count.  _uid is monotonic, never reused (unlike id(),
+        # which can alias after GC).
         self._mod_count = 0
+        self._uid = next(Program._uid_counter)
         self._is_startup = False
 
     def global_block(self) -> Block:
@@ -370,6 +377,7 @@ class Program:
 
     def clone(self, for_test: bool = False) -> "Program":
         p = copy.deepcopy(self)
+        p._uid = next(Program._uid_counter)  # distinct cache identity
         if for_test:
             for blk in p.blocks:
                 for op in blk.ops:

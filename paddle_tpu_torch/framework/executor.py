@@ -1,31 +1,189 @@
-"""Executor: eager op-by-op execution of a block on one torch device.
+"""Executor: a block built once per feed signature, replayed on the card as
+one CUDA graph.
 
 Counterpart of ``paddle_tpu/framework/executor.py``.  The JAX executor
-traces a whole block into one XLA program; here ``Executor.run`` walks the
-block's ops in order and runs each op's PyTorch lowering on the
-executor's device, under ``torch.no_grad()`` (the auto-derived grad ops
-turn autograd on for themselves).  The Scope holds torch tensors on that
-device.  A persistable var that an op writes (an optimizer's ParamOut,
-the LR counter) goes back into the scope as a new tensor after the run:
-nothing is updated in place.
+jit-compiles each ``(program uid, mod count, feed signature, fetch
+names, guard loss)`` into one XLA program and donates the state it
+rebinds.  Here each such key gets a ``CompiledStep``:
 
-The JAX executor's telemetry, non-finite guard, compile cache and
-pipelines wait for later slices.
+1. Its first run analyses the block once (state in / out, the fetch
+   checks, the grad ops' kept forwards and dead outputs, the order in
+   which intermediates can be freed) and then runs eagerly, op by op:
+   a real step, which also builds the kernels, sets their shared-memory
+   limits and sets up cuBLAS and the allocator on the entry's stream.
+2. On the card its second run captures the step with
+   ``torch.cuda.graph`` into a private memory pool, reading static feed
+   buffers and the scope's own state tensors, and replays it.
+3. Every later run copies its feeds into the static buffers and replays:
+   one ``cudaGraphLaunch``, no per-op host work.
+
+On the CPU every run takes path 1.  Persistable state is updated in
+place: an op that rebinds a persistable writes into its input's storage
+(``LowerContext.set_state``) or the step copies into it, so a parameter
+keeps its tensor and ``data_ptr()`` from run to run.  A failure to
+capture raises, naming the op where one failed; nothing falls back to
+eager.  The only eager path on the card besides the first run is
+``FLAGS_check_nan_inf``'s debug run.
+
+Fetches come back as numpy arrays (one host fence a run) or as lazy
+``FetchHandle``s (``return_numpy=False``, ``run_async``).  The deferred
+non-finite guard (``set_nonfinite_guard``) computes ``isfinite(loss)``
+inside the step, keeps the old state where it is not, and resolves its
+verdicts on the host lazily.  The reference's telemetry spans, auto
+checkpoints, dataset training, pipelines and persistent compile cache
+wait for later slices.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence
+import contextlib
+import threading
+import time
+from collections import OrderedDict
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops.registry import LowerContext, lower_op
+from ..flags import flag_value
+from ..monitor import monitor as _monitor
+from ..ops.registry import LowerContext, lower_op, plan_grads
 from .core import (Block, Program, Variable, default_main_program,
                    dtype_to_np, dtype_to_torch)
 
-__all__ = ["Executor", "Scope", "global_scope", "scope_guard",
-           "analyze_block", "lower_block"]
+__all__ = ["Executor", "FetchHandle", "AsyncRunResult", "CompiledStep",
+           "Scope", "global_scope", "scope_guard", "analyze_block"]
+
+_STEP_STAT = _monitor.get("executor_run_steps")
+_JIT_STAT = _monitor.get("executor_jit_builds")
+_SKIP_STAT = _monitor.get("skipped_nonfinite_steps")
+_HOST_SYNC_STAT = _monitor.get("host_syncs")
+_GUARD_RES_STAT = _monitor.get("guard_resolutions")
+
+# Eager runs and captures on the card, one at a time in the process: a
+# capture must not meet another thread's kernels or allocations, nor
+# another capture.  Replays of captured entries run beside them.
+_BUILD_LOCK = threading.RLock()
+# A capture reads the kernel counts and puts them back, and a replay adds
+# its capture's deltas: the two do not interleave.
+_COUNTS_LOCK = threading.Lock()
+# Compiled steps an Executor or Predictor keeps: on the card each holds
+# its CUDA graph's private memory pool for as long as it is cached.
+MAX_CACHED_STEPS = 4
+
+
+# ---------------------------------------------------------------------------
+# Lazy fetches
+# ---------------------------------------------------------------------------
+class FetchHandle:
+    """A fetch that stays on the device until its first host read.
+
+    ``Executor.run(..., return_numpy=False)`` and ``run_async`` return
+    these.  The tensor is the step's own copy (a later run or replay does
+    not overwrite it).  ``value``, ``shape``, ``dtype`` (a torch dtype)
+    and ``ndim`` never fence; the first ``numpy()`` / ``np.asarray`` /
+    ``float()`` / ``block()`` counts one ``host_syncs`` and resolves
+    every pending non-finite-guard verdict up to the handle's step, and a
+    second read is free.
+    """
+
+    __slots__ = ("_value", "_exe", "_step", "_np")
+
+    def __init__(self, value: torch.Tensor, exe: Optional["Executor"] = None,
+                 step: int = 0):
+        self._value = value
+        self._exe = exe
+        self._step = step
+        self._np = None
+
+    # -- device-side (never syncs) ------------------------------------------
+    @property
+    def value(self) -> torch.Tensor:
+        return self._value
+
+    @property
+    def shape(self):
+        return tuple(self._value.shape)
+
+    @property
+    def dtype(self):
+        return self._value.dtype
+
+    @property
+    def ndim(self):
+        return self._value.dim()
+
+    def __len__(self):
+        return self.shape[0]
+
+    def __getitem__(self, idx):
+        return self._value[idx]
+
+    def __repr__(self):
+        state = "read" if self._np is not None else "pending"
+        return (f"FetchHandle(step={self._step}, shape={self.shape}, "
+                f"dtype={self.dtype}, {state})")
+
+    # -- host-side (first call fences) --------------------------------------
+    def numpy(self) -> np.ndarray:
+        if self._np is None:
+            _HOST_SYNC_STAT.increase()
+            self._np = to_numpy(self._value)
+            if self._exe is not None:
+                self._exe._resolve_guard(upto=self._step)
+        return self._np
+
+    def block(self) -> "FetchHandle":
+        """Fence without copying to the host."""
+        if self._np is None:
+            _HOST_SYNC_STAT.increase()
+            if self._value.is_cuda:
+                torch.cuda.synchronize(self._value.device)
+            if self._exe is not None:
+                self._exe._resolve_guard(upto=self._step)
+        return self
+
+    def __array__(self, dtype=None, copy=None):
+        a = self.numpy()
+        return a if dtype is None else a.astype(dtype, copy=False)
+
+    def __float__(self):
+        return float(self.numpy())
+
+    def __int__(self):
+        return int(self.numpy())
+
+    def __bool__(self):
+        return bool(self.numpy())
+
+
+class AsyncRunResult:
+    """What ``Executor.run_async`` hands back: the step's lazy fetches plus
+    a ``sync()`` fence.  Indexes and iterates like the list
+    ``Executor.run`` returns."""
+
+    __slots__ = ("fetches", "_exe", "_step")
+
+    def __init__(self, fetches: List[FetchHandle], exe: "Executor",
+                 step: int):
+        self.fetches = fetches
+        self._exe = exe
+        self._step = step
+
+    def __len__(self):
+        return len(self.fetches)
+
+    def __iter__(self):
+        return iter(self.fetches)
+
+    def __getitem__(self, i):
+        return self.fetches[i]
+
+    def sync(self) -> List[np.ndarray]:
+        """Block until this step (and its guard verdict) has landed;
+        returns the fetches as numpy."""
+        self._exe.sync(upto=self._step)
+        return [h.numpy() for h in self.fetches]
 
 
 # ---------------------------------------------------------------------------
@@ -136,30 +294,16 @@ def analyze_block(block: Block, feed_names: Sequence[str]):
     return state_in, state_out
 
 
-def lower_block(block: Block, env: Dict[str, Any], device,
-                random_seed: int = 0, is_test: bool = False,
-                step: int = 0) -> LowerContext:
-    """Run every op of `block` eagerly on `device`; `env` (name -> tensor)
-    receives the outputs.  `step` is the executor's run count, which
-    seeds stochastic ops together with `random_seed`; the program's
-    ``_amp_lowering`` turns on the AMP autocast."""
-    ctx = LowerContext(block, env, device, random_seed=random_seed,
-                       is_test=is_test, step=step,
-                       amp=getattr(block.program, "_amp_lowering", None))
-    for op in block.ops:
-        if op.type in ("feed", "fetch"):
-            continue
-        lower_op(ctx, op)
-    return ctx
-
-
 def to_tensor(value, device: torch.device, dtype=None) -> torch.Tensor:
     """numpy array / Python scalar / tensor -> tensor on `device` (and
-    `dtype`, a canonical string, when given)."""
+    `dtype`, a canonical string, when given).  A numpy value is copied,
+    never aliased: the executor updates state tensors in place, which
+    must not write into the caller's array.  A tensor already on `device`
+    in `dtype` is returned as it is."""
     tdt = dtype_to_torch(dtype) if dtype is not None else None
     if isinstance(value, torch.Tensor):
         return value.to(device=device, dtype=tdt)
-    arr = np.asarray(value)
+    arr = np.array(value)
     if arr.dtype.name == "bfloat16":  # ml_dtypes, as to_numpy returns it
         return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(
             device=device, dtype=tdt)
@@ -183,19 +327,334 @@ def to_numpy(t) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
-def _scope_value(scope: Scope, name: str, device: torch.device):
-    val = scope.find_var(name)
-    if val is None:
-        raise RuntimeError(
-            f"variable {name!r} has no value in scope; did you run "
-            f"the startup program first?")
-    if isinstance(val, torch.Tensor):
-        if val.device != device:
+def fetch_to_numpy(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
+    """Fetched tensors as numpy with one host fence: CUDA tensors copy
+    into pinned host buffers without blocking, then the stream is
+    synchronised once."""
+    devices = {t.device for t in tensors if t.is_cuda}
+    if devices:
+        host = []
+        for t in tensors:
+            if t.is_cuda:
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                t = h
+            host.append(t)
+        for dev in devices:
+            torch.cuda.current_stream(dev).synchronize()
+        tensors = host
+    return [to_numpy(t) for t in tensors]
+
+
+def _counters():
+    """(owner, attribute) of every kernel count: the attention wrappers'
+    ``.launches`` / ``.realigned`` and the plain versions' ``.calls``."""
+    from ..ops.cuda.flash_attention import counters
+
+    return counters()
+
+
+@contextlib.contextmanager
+def _on_stream(stream: Optional[torch.cuda.Stream], device: torch.device):
+    """Eager work on the card runs on the entry's stream (the one its graph
+    is captured on, so cuBLAS and the allocator are set up for it),
+    ordered after and before the caller's stream; on the CPU, as is."""
+    if stream is None:
+        yield
+        return
+    caller = torch.cuda.current_stream(device)
+    stream.wait_stream(caller)
+    try:
+        with torch.cuda.stream(stream):
+            yield
+    finally:
+        caller.wait_stream(stream)
+
+
+def _check_outputs(op, env, block):
+    """FLAGS_check_nan_inf: the op's outputs must have the shapes shape
+    inference declared and, if float, be finite."""
+    for name in op.output_arg_names():
+        val = env.get(name)
+        if not isinstance(val, torch.Tensor):
+            continue
+        v = block._find_var_recursive(name)
+        decl = getattr(v, "shape", None) if v is not None else None
+        run_shape = tuple(val.shape)
+        if (decl is not None and len(decl) == len(run_shape)
+                and all(int(d) >= 0 for d in decl)
+                and tuple(int(d) for d in decl) != run_shape):
             raise RuntimeError(
-                f"variable {name!r} lives on {val.device}, but this run is "
-                f"on {device}")
-        return val
-    return to_tensor(val, device)
+                f"shape-inference drift: op {op.type!r} output {name!r} "
+                f"declared {tuple(decl)} but lowered to {run_shape} (op "
+                f"index {op.idx})")
+        if val.is_floating_point() and not bool(torch.isfinite(val).all()):
+            raise FloatingPointError(
+                f"FLAGS_check_nan_inf: non-finite value in output {name!r} "
+                f"of op {op.type!r} (op index {op.idx})")
+
+
+# ---------------------------------------------------------------------------
+# The compiled step
+# ---------------------------------------------------------------------------
+class CompiledStep:
+    """One cache entry: a block analysed once for a feed signature, run
+    eagerly the first time and, on the card, captured as a CUDA graph the
+    second time and replayed after that.
+
+    `seed_step` (the executor's run count at the entry's first run) seeds
+    the entry's generators with the program's random seed and each op's
+    ``__op_seed__``; they advance with every run and are registered with
+    the graph, so every replay draws anew.  With `guard_loss`, the step
+    computes ``ok = isfinite(loss).all()`` on the device and writes each
+    rebound state as ``where(ok, new, old)``.  `is_test` lowers for
+    inference (Predictor).
+
+    On the card the entry has a stream of its own for its eager runs and
+    its capture, and these run under a process-wide lock, so threads that
+    serve different entries never capture into one another's graphs.
+    The kernel counts are exact while the runs that launch kernels
+    eagerly do not overlap replays in other threads.
+    """
+
+    def __init__(self, program: Program, feed_names: Sequence[str],
+                 fetch_names: Sequence[str], device: torch.device, *,
+                 guard_loss: Optional[str] = None, is_test: bool = False,
+                 seed_step: int = 0, sig=None):
+        block = program.global_block()
+        state_in, state_out = analyze_block(block, feed_names)
+        for n in fetch_names:
+            block.var(n)  # raises if unknown
+        self.block = block
+        self.device = device
+        self.stream = torch.cuda.Stream(device) \
+            if device.type == "cuda" else None
+        self.sig = sig
+        self.fetch_names = list(fetch_names)
+        self.state_in = state_in
+        self.mut_in = [n for n in state_in if n in state_out]
+        self.new_out = [n for n in state_out if n not in state_in]
+        self.state_names = set(state_in) | set(state_out)
+        self.guard_loss = guard_loss
+        self.is_test = is_test
+        self.random_seed = program.random_seed or 0
+        self.seed_step = seed_step
+        self.amp = getattr(program, "_amp_lowering", None)
+        ops = [(i, op) for i, op in enumerate(block.ops)
+               if op.type not in ("feed", "fetch")]
+        reads, last = set(), {}
+        for i, op in ops:
+            r, w = _op_io(op, block)
+            reads.update(r)
+            for n in r + w:
+                last[n] = i
+        kept = set(self.fetch_names) | self.state_names | \
+            {v.name for v in program.list_vars() if v.persistable}
+        if guard_loss is not None:
+            kept.add(guard_loss)
+        self.keep, self.grad_source, self.dead = plan_grads(ops,
+                                                            reads | kept)
+        free_after: Dict[int, List[str]] = {}
+        for n, i in last.items():
+            if n not in kept:
+                free_after.setdefault(i, []).append(n)
+        self.ops = [(i, op, tuple(free_after.get(i, ()))) for i, op in ops]
+        self.generators: Dict[int, torch.Generator] = {}
+        self.counters = _counters()
+        self.runs = 0
+        # the captured graph and what it reads and writes in place
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.bound: Dict[str, torch.Tensor] = {}
+        self.static_feeds: Dict[str, torch.Tensor] = {}
+        self.outputs: Tuple = ()
+        self.deltas: List[int] = []
+        self.pool_bytes: Optional[int] = None
+        self._ring: Dict[str, list] = {}
+
+    @property
+    def ready(self) -> bool:
+        """Whether the next run takes the entry's steady path: a replay on
+        the card, any run after the first on the CPU."""
+        return self.graph is not None if self.stream is not None \
+            else self.runs > 0
+
+    # -- the step ------------------------------------------------------------
+    def _lower(self, env: Dict[str, Any], state: Dict[str, torch.Tensor],
+               check: bool = False):
+        """Lower every op into `env`, write the rebound state into `state`'s
+        tensors; returns (fetches, new state outputs, ok)."""
+        guarded = self.guard_loss is not None
+        ctx = LowerContext(self.block, env, self.device,
+                           random_seed=self.random_seed,
+                           is_test=self.is_test, step=self.seed_step,
+                           amp=self.amp, keep=self.keep,
+                           grad_source=self.grad_source, dead=self.dead,
+                           generators=self.generators,
+                           in_place=() if guarded else self.mut_in)
+        with torch.no_grad():
+            for i, op, free in self.ops:
+                lower_op(ctx, op, i)
+                if check:
+                    _check_outputs(op, env, self.block)
+                for n in free:
+                    ctx.free(n)
+            ok = None
+            if guarded:
+                loss = env.get(self.guard_loss)
+                ok = torch.isfinite(loss).all() if loss is not None else \
+                    torch.ones((), dtype=torch.bool, device=self.device)
+            for n in self.mut_in:
+                old, new = state[n], env[n]
+                if ok is not None:
+                    # a non-finite step leaves the old state bit-unchanged
+                    old.copy_(torch.where(ok, new, old))
+                elif new is not old:
+                    old.copy_(new)
+        fetches = tuple(env[n].detach() for n in self.fetch_names)
+        return fetches, tuple(env[n] for n in self.new_out), ok
+
+    def _state(self, scope: "Scope") -> Dict[str, torch.Tensor]:
+        """The scope's state tensors this step reads, by name; a value that
+        is not yet a tensor is converted once and put back."""
+        state = {}
+        for n in self.state_in:
+            v = scope.find_var(n)
+            if v is None:
+                raise RuntimeError(
+                    f"variable {n!r} has no value in scope; did you run "
+                    f"the startup program first?")
+            if not isinstance(v, torch.Tensor):
+                v = to_tensor(v, self.device)
+                scope.set_var(n, v)
+            elif v.device != self.device:
+                raise RuntimeError(
+                    f"variable {n!r} lives on {v.device}, but this run is "
+                    f"on {self.device}")
+            state[n] = v
+        return state
+
+    def _finish(self, scope, fetches, new, ok, aliased):
+        """Put the new state into the scope; copy every fetch that the next
+        run overwrites (`aliased`: all of them, or the state ones)."""
+        for n, v in zip(self.new_out, new):
+            scope.set_var(n, v)
+        fetches = [f.clone() if aliased or n in self.state_names else f
+                   for n, f in zip(self.fetch_names, fetches)]
+        if ok is not None and aliased:
+            ok = ok.clone()
+        return fetches, ok
+
+    def run(self, feeds: Dict[str, torch.Tensor], scope: "Scope",
+            check: bool = False):
+        """One step on `feeds` (name -> tensor, in this entry's signature);
+        returns (fetch tensors the next run does not overwrite, the guard's
+        on-device ok or None)."""
+        if self.stream is None:
+            return self._run_eager(feeds, scope, check)
+        if check or self.runs == 0:
+            with _BUILD_LOCK:
+                return self._run_eager(feeds, scope, check)
+        if self.graph is None or any(scope.find_var(n) is not t
+                                     for n, t in self.bound.items()):
+            # the first capture, or the scope's state moved
+            with _BUILD_LOCK:
+                self._capture(feeds, self._state(scope))
+        else:
+            self._copy_feeds(feeds)
+        self.graph.replay()
+        with _COUNTS_LOCK:
+            for (owner, attr), d in zip(self.counters, self.deltas):
+                setattr(owner, attr, getattr(owner, attr) + d)
+        self.runs += 1
+        fetches, new, ok = self.outputs
+        return self._finish(scope, fetches, new, ok, aliased=True)
+
+    def _run_eager(self, feeds, scope, check):
+        state = self._state(scope)
+        with _on_stream(self.stream, self.device):
+            env = {n: t.to(self.device) for n, t in feeds.items()}
+            env.update(state)
+            fetches, new, ok = self._lower(env, state, check)
+        self.runs += 1
+        return self._finish(scope, fetches, new, ok, aliased=False)
+
+    # -- capture and replay --------------------------------------------------
+    def _capture(self, feeds, state):
+        """Capture the step into a new graph over static feed buffers and
+        the scope's state tensors; nothing runs until the replay."""
+        torch.cuda.synchronize(self.device)
+        if self.graph is not None:
+            self.graph.reset()
+        self.static_feeds = {n: torch.empty(t.shape, dtype=t.dtype,
+                                            device=self.device)
+                             for n, t in feeds.items()}
+        self._copy_feeds(feeds)
+        graph = torch.cuda.CUDAGraph()
+        for g in self.generators.values():
+            graph.register_generator_state(g)
+        counters = self.counters
+        torch.cuda.empty_cache()  # so the pool's growth shows in reserved
+        reserved = torch.cuda.memory_reserved(self.device)
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        failure = None
+        _COUNTS_LOCK.acquire()
+        before = [getattr(o, a) for o, a in counters]
+        try:
+            with torch.cuda.graph(graph, stream=self.stream,
+                                  capture_error_mode="thread_local"):
+                try:
+                    env = dict(self.static_feeds)
+                    env.update(state)
+                    self.outputs = self._lower(env, state)
+                except Exception as e:
+                    failure = e
+                    raise
+        except Exception as e:
+            raise RuntimeError(
+                f"capturing the step as a CUDA graph failed (a host sync, "
+                f"such as .item() or .tolist(), cannot be captured): "
+                f"{failure or e}") from (failure or e)
+        finally:
+            # the capture launched nothing: each replay adds what it counted
+            after = [getattr(o, a) for o, a in counters]
+            for (o, a), v in zip(counters, before):
+                setattr(o, a, v)
+            _COUNTS_LOCK.release()
+        self.deltas = [x - y for x, y in zip(after, before)]
+        self.graph = graph
+        self.bound = state
+        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+
+    def _copy_feeds(self, feeds):
+        """Copy this run's feeds into the static buffers.  A host feed goes
+        through a ring of two pinned buffers, so the copy does not block
+        and the buffer a copy still reads is not overwritten."""
+        for n, t in feeds.items():
+            dst = self.static_feeds[n]
+            if t.is_cuda:
+                dst.copy_(t)
+                continue
+            ring = self._ring.get(n)
+            if ring is None:
+                ring = self._ring[n] = [
+                    [torch.empty(t.shape, dtype=t.dtype, pin_memory=True),
+                     torch.cuda.Event()] for _ in range(2)]
+            buf, done = ring[self.runs % 2]
+            done.synchronize()  # the copy two runs ago has read it
+            buf.copy_(t)
+            dst.copy_(buf, non_blocking=True)
+            done.record()
+
+    def close(self):
+        """Free the graph and its pool once its work is done; a later run
+        starts over with an eager run."""
+        if self.graph is not None:
+            torch.cuda.synchronize(self.device)
+            self.graph.reset()
+        self.graph = None
+        self.bound, self.static_feeds, self.outputs = {}, {}, ()
+        self._ring.clear()
+        self.runs = 0
 
 
 # ---------------------------------------------------------------------------
@@ -204,39 +663,216 @@ def _scope_value(scope: Scope, name: str, device: torch.device):
 class Executor:
     """``Executor(place)``: ``place`` None means the card (``cuda:0``);
     ``CPUPlace()`` the CPU.  API mirrors the JAX package's
-    run(program, feed, fetch_list, scope, return_numpy)."""
+    run(program, feed, fetch_list, scope, return_numpy,
+    use_program_cache), plus run_async / sync, the deferred non-finite
+    guard, cache_info and close.
+
+    It keeps up to MAX_CACHED_STEPS compiled steps (least recently used
+    first out, closed, which frees a graph's memory pool); a key run
+    again after that is built anew.
+    """
 
     def __init__(self, place=None):
         self.place = place
         self.device = resolve_device(place)
-        self._step = 0  # runs so far; each run draws fresh random numbers
+        self._cache: "OrderedDict[Tuple, CompiledStep]" = OrderedDict()
+        self._step = 0  # runs so far
+        # deferred non-finite guard: (step, on-device ok) verdicts awaiting
+        # host resolution (see _resolve_guard)
+        self._pending_guard: List[Tuple[int, torch.Tensor]] = []
+        self._guard_loss: Optional[str] = None
+        self._guard_cb = None
+        self._guard_program = None
+        self._dispatched = False
 
+    # -- public API ---------------------------------------------------------
     def run(self, program: Optional[Program] = None,
             feed: Optional[Dict[str, Any]] = None,
             fetch_list: Optional[Sequence] = None,
             scope: Optional[Scope] = None,
-            return_numpy: bool = True):
+            return_numpy: bool = True,
+            use_program_cache: bool = True):
         program = program or default_main_program()
         fetch_names = _fetch_names(fetch_list)
         scope = scope or global_scope()
+        if flag_value("FLAGS_check_nan_inf"):
+            return self._run_debug(program, dict(feed or {}), fetch_names,
+                                   scope, return_numpy)
         block = program.global_block()
-        feed_vals = _prepare_feed(block, dict(feed or {}), self.device)
-        state_in, state_out = analyze_block(block, list(feed_vals))
-        env: Dict[str, Any] = dict(feed_vals)
-        for n in state_in:
-            env[n] = _scope_value(scope, n, self.device)
-        for n in fetch_names:
-            block.var(n)  # raises if unknown
+        feeds = _prepare_feed(block, dict(feed or {}))
+        sig = tuple((n, tuple(t.shape), str(t.dtype))
+                    for n, t in feeds.items())
+        # guard every run of the bound training program that produces the
+        # loss; other programs (startup, an eval clone) run unguarded
+        guard_loss = self._guard_loss
+        if guard_loss is not None and (
+                (self._guard_program is not None
+                 and program is not self._guard_program)
+                or not block.has_var(guard_loss)):
+            guard_loss = None
+        key = (program._uid, program._mod_count, sig, tuple(fetch_names),
+               guard_loss)
+        entry = self._cache.get(key) if use_program_cache else None
+        if entry is not None:
+            self._cache.move_to_end(key)
+        else:
+            _JIT_STAT.increase()
+            entry = CompiledStep(program, list(feeds), fetch_names,
+                                 self.device, guard_loss=guard_loss,
+                                 seed_step=self._step + 1, sig=sig)
+            if use_program_cache:
+                self._cache[key] = entry
+                while len(self._cache) > MAX_CACHED_STEPS:
+                    self._cache.popitem(last=False)[1].close()
         self._step += 1
-        with torch.no_grad():
-            lower_block(block, env, self.device,
-                        random_seed=program.random_seed, step=self._step)
-        for n in state_out:
-            scope.set_var(n, env[n])
-        fetches = [env[n] for n in fetch_names]
-        if return_numpy:
-            return [to_numpy(f) for f in fetches]
-        return fetches
+        _STEP_STAT.increase()
+        bench = flag_value("FLAGS_benchmark")
+        if bench:
+            self._fence()
+            t0 = time.perf_counter()
+        fetches, ok = entry.run(feeds, scope)
+        self._dispatched = True
+        if bench:
+            t_dispatch = time.perf_counter() - t0
+            self._fence()
+            print(f"[FLAGS_benchmark] step {self._step}: "
+                  f"{(time.perf_counter() - t0) * 1e3:.3f} ms "
+                  f"(host dispatch {t_dispatch * 1e3:.3f} ms)")
+        if ok is not None:
+            # deferred verdict: the host learns about a skipped step on a
+            # fetch read, at the resolve interval, or at sync / close
+            self._pending_guard.append((self._step, ok))
+            interval = int(flag_value("FLAGS_guard_resolve_interval") or 0)
+            if interval > 0 and len(self._pending_guard) >= interval:
+                self._resolve_guard()
+        return self._finish_fetches(fetches, return_numpy,
+                                    resolve_guard=True)
+
+    def run_async(self, program: Optional[Program] = None,
+                  feed: Optional[Dict[str, Any]] = None,
+                  fetch_list: Optional[Sequence] = None,
+                  scope: Optional[Scope] = None,
+                  use_program_cache: bool = True) -> AsyncRunResult:
+        """Dispatch the step and return at once, with no device->host
+        fence on the path: lazy FetchHandles plus a ``sync()`` fence."""
+        handles = self.run(program, feed, fetch_list, scope,
+                           return_numpy=False,
+                           use_program_cache=use_program_cache)
+        return AsyncRunResult(list(handles), self, self._step)
+
+    def sync(self, upto: Optional[int] = None):
+        """Host fence: block until dispatched work has completed and
+        resolve pending non-finite-guard verdicts (all of them, or those
+        up to step `upto`)."""
+        if self._dispatched:
+            self._fence()
+            self._dispatched = False
+        self._resolve_guard(upto=upto)
+        return self
+
+    def cache_info(self) -> dict:
+        """Compiled-step inventory: one record per entry with its feed
+        signature, whether its CUDA graph is captured (``aot``) and the
+        device memory its capture reserved (``manifest``, bytes; None
+        before a capture; the XLA cost manifest has no counterpart)."""
+        entries = [{"signature": None if e.sig is None else str(e.sig),
+                    "aot": e.graph is not None,
+                    "manifest": e.pool_bytes}
+                   for e in self._cache.values()]
+        return {"compiled": len(entries), "entries": entries}
+
+    def close(self):
+        """Resolve pending guard verdicts and free every entry's graph and
+        memory pool."""
+        self._resolve_guard()
+        for e in self._cache.values():
+            e.close()
+        self._cache.clear()
+        self._dispatched = False
+
+    # -- non-finite guard ---------------------------------------------------
+    def set_nonfinite_guard(self, loss, callback=None, program=None):
+        """Always-on skip-step: whenever `loss` comes out non-finite the
+        step keeps the old state (selected on the device, no host round
+        trip before the optimizer).  `callback(step)` fires, with that
+        step's id, when the verdict is resolved.  With `program` given,
+        only runs of that program are guarded."""
+        self._guard_loss = loss if isinstance(loss, str) else loss.name
+        self._guard_cb = callback
+        self._guard_program = program
+
+    def clear_nonfinite_guard(self):
+        # resolve BEFORE dropping the callback: verdicts still in flight
+        # must fire their skip bookkeeping, not vanish
+        self._resolve_guard()
+        self._guard_loss = None
+        self._guard_cb = None
+        self._guard_program = None
+
+    def resolve_nonfinite_guard(self):
+        """Public fence for the deferred guard only."""
+        self._resolve_guard()
+
+    def _resolve_guard(self, upto: Optional[int] = None):
+        """Pull pending on-device verdicts to the host (oldest first, one
+        fence for the batch) and fire the skip bookkeeping —
+        ``skipped_nonfinite_steps`` and the callback with the ORIGINAL
+        step id — as if each had been checked at its own step."""
+        pending = self._pending_guard
+        if not pending:
+            return
+        if upto is None:
+            take, rest = pending, []
+        else:
+            take = [p for p in pending if p[0] <= upto]
+            if not take:
+                return
+            rest = [p for p in pending if p[0] > upto]
+        self._pending_guard = rest
+        _GUARD_RES_STAT.increase()
+        _HOST_SYNC_STAT.increase()
+        oks = torch.stack([ok for _, ok in take]).cpu().tolist()
+        for (step_id, _), okv in zip(take, oks):
+            if not okv:
+                _SKIP_STAT.increase()
+                if self._guard_cb is not None:
+                    self._guard_cb(step_id)
+
+    # -- helpers ------------------------------------------------------------
+    def _fence(self):
+        _HOST_SYNC_STAT.increase()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _finish_fetches(self, fetches, return_numpy: bool,
+                        resolve_guard: bool = False):
+        """Blocking numpy fetches (one fence a run) or lazy FetchHandles.
+        `resolve_guard` marks the paths where a blocking read doubles as
+        a guard-resolution point."""
+        if not return_numpy:
+            return [FetchHandle(f, self, self._step) for f in fetches]
+        if not fetches:
+            return []
+        _HOST_SYNC_STAT.increase()
+        out = fetch_to_numpy(fetches)
+        if resolve_guard:
+            self._resolve_guard(upto=self._step)
+        return out
+
+    def _run_debug(self, program, feed, fetch_names, scope, return_numpy):
+        """FLAGS_check_nan_inf: run the block eagerly, op by op (an entry
+        of its own, never cached or captured) and raise, naming the op, on
+        the first non-finite float output or on an output whose shape
+        differs from the one shape inference declared."""
+        block = program.global_block()
+        feeds = _prepare_feed(block, feed)
+        entry = CompiledStep(program, list(feeds), fetch_names, self.device,
+                             seed_step=self._step + 1)
+        self._step += 1
+        _STEP_STAT.increase()
+        fetches, _ = entry.run(feeds, scope, check=True)
+        self._dispatched = True
+        return self._finish_fetches(fetches, return_numpy)
 
 
 def _fetch_names(fetch_list) -> List[str]:
@@ -251,25 +887,29 @@ def _fetch_names(fetch_list) -> List[str]:
     return names
 
 
-def _prepare_feed(block: Block, feed: Dict[str, Any],
-                  device: torch.device) -> Dict[str, torch.Tensor]:
-    """Feeds as tensors on `device`, in the var's dtype, in sorted-name
-    order (the JAX executor's canonical feed order)."""
+def _prepare_feed(block: Block, feed: Dict[str, Any]
+                  ) -> Dict[str, torch.Tensor]:
+    """Feeds as tensors in the var's dtype, where they are (a host feed on
+    the CPU, aliasing a numpy array where it can), in sorted-name order
+    (the JAX executor's canonical feed order, which the cache key and
+    the static buffers follow)."""
     out = {}
     for name, value in sorted(feed.items()):
-        dtype = None
-        shape = None
+        dtype = shape = None
         if block.has_var(name):
             v = block.var(name)
             dtype, shape = v.dtype, v.shape
         if isinstance(value, torch.Tensor):
-            t = to_tensor(value, device, dtype)
+            t = value
         else:
             arr = np.asarray(value)
             if dtype is not None and dtype != "bfloat16" \
                     and arr.dtype != dtype_to_np(dtype):
                 arr = arr.astype(dtype_to_np(dtype))
-            t = to_tensor(arr, device, dtype)
+            t = (torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+                 if arr.dtype.name == "bfloat16" else torch.as_tensor(arr))
+        if dtype is not None:
+            t = t.to(dtype_to_torch(dtype))
         if shape is not None and len(shape) == t.dim() + 1 and \
                 shape[-1] == 1:
             # labels fed as (N,) for (N,1) vars, as the reference allows

@@ -3,12 +3,12 @@ counter).
 
 Counterpart of ``paddle_tpu/ops/control_flow_ops.py:162``, the
 registration of ``increment`` that wins in the JAX package (it is
-imported after math_ops there): no grad, ``Out`` aliases ``X``.  The
-conditional blocks and loops wait for a later slice.
+imported after math_ops there): no grad, ``Out`` aliases ``X`` and is
+written into X's storage where the run updates state in place.  The step
+is a Python number, not a host tensor, so a captured step copies nothing
+from the host.  The conditional blocks and loops wait for a later slice.
 """
 from __future__ import annotations
-
-import torch
 
 from .registry import register_op
 
@@ -17,5 +17,7 @@ from .registry import register_op
              stateful_outputs=("Out",))
 def _increment(ctx, op):
     x = ctx.get_input(op, "X")
-    ctx.set_output(op, "Out", x + torch.tensor(op.attr("step", 1.0),
-                                               dtype=x.dtype, device=x.device))
+    step = op.attr("step", 1.0)
+    if not (x.is_floating_point() or x.is_complex()):
+        step = int(step)  # as a tensor of x's dtype would round it
+    ctx.set_state(op, "Out", "X", x + step)

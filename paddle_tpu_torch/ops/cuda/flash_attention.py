@@ -788,3 +788,18 @@ def flash_attention_autograd(q: torch.Tensor, k: torch.Tensor,
     (plain versions on the CPU).  The bias grad is computed only when
     autograd asks for it."""
     return _FlashAttention.apply(q, k, v, bias, causal, sm_scale)
+
+
+def counters():
+    """(owner, attribute) of every count kept here: ``.launches`` and
+    ``.realigned`` of the six launching wrappers, ``.calls`` of the four
+    plain versions.  A replayed CUDA graph runs none of this Python, so
+    the executor adds what its capture counted on every replay."""
+    wrappers = (flash_attention_packed, flash_attention_packed_dkv,
+                flash_attention_packed_dq, flash_attention_unpacked,
+                flash_attention_unpacked_dkv, flash_attention_unpacked_dq)
+    plain = (flash_attention_packed_reference,
+             flash_attention_packed_backward_reference,
+             flash_attention_reference, flash_attention_backward_reference)
+    return (tuple((w, a) for w in wrappers for a in ("launches", "realigned"))
+            + tuple((p, "calls") for p in plain))

@@ -112,8 +112,9 @@ def _dropout(ctx, op):
     """Keeps an element where a uniform uint8 draw is >= round(p * 256),
     as the JAX package does (keep probability 1 - round(256 p) / 256);
     ``upscale_in_train`` scales the kept ones by 1 / (1 - p).  The bits
-    come from ``ctx.rng(op)``: the auto-derived ``dropout_grad``
-    re-lowers this op in the same run and so replays the mask."""
+    come from ``ctx.rng(op)``, anew each run; the auto-derived
+    ``dropout_grad`` differentiates the graph this op kept, mask and
+    all."""
     x = ctx.get_input(op, "X")
     p = op.attr("dropout_prob", 0.5)
     impl = op.attr("dropout_implementation", "downgrade_in_infer")

@@ -4,15 +4,17 @@ Counterpart of ``paddle_tpu/ops/registry.py``.  Each op type registers
 ``infer`` (build-time shape/dtype inference, run at op-append time),
 ``lower`` (a function from a LowerContext, name -> torch tensor, to the
 op's outputs) and ``grad``: ``'auto'`` (default) makes backward emit a
-generic ``<type>_grad`` op whose lowering re-runs the forward lowering
-under autograd and calls ``torch.autograd.grad`` (the JAX package calls
-``jax.vjp``), a callable builds custom grad op descs, None marks a
-non-differentiable op.  The JAX package composes the lowerings of a
-block into one traced XLA program; the port runs them one by one,
-eagerly, on the context's device.
+generic ``<type>_grad`` op whose lowering calls ``torch.autograd.grad``
+on the autograd graph its forward op kept (the JAX package calls
+``jax.vjp`` on a re-lowered forward, and XLA's CSE drops the second
+forward), a callable builds custom grad op descs, None marks a
+non-differentiable op.  The executor lowers a block's ops in order on
+the context's device (framework/executor.py), on the card inside one
+captured CUDA graph.
 """
 from __future__ import annotations
 
+import copy
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
@@ -23,19 +25,42 @@ from ..framework.core import (Block, Operator, Variable, convert_dtype,
 
 __all__ = [
     "OpDef", "register_op", "get_op_def", "has_op", "infer_op_shape",
-    "LowerContext", "lower_op", "all_registered_ops",
+    "LowerContext", "lower_op", "all_registered_ops", "plan_grads",
 ]
 
 
 class LowerContext:
     """Environment for lowering a block: var name -> torch tensor on
     ``device``; the program's random seed and the executor's run count
-    (``step``) for stochastic ops; ``amp``, the program's
-    ``_amp_lowering`` ({"dtype", "white", "black"}) or None."""
+    (``step``) that seed stochastic ops; ``amp``, the program's
+    ``_amp_lowering`` ({"dtype", "white", "black"}) or None.
+
+    What the executor's compiled step adds (``plan_grads`` builds the
+    first three):
+
+    * ``keep``: forward op index -> the input names its grad op
+      differentiates.  Such an op runs under autograd on detached leaves
+      of those inputs, and its graph is kept in ``saved`` for its grad op
+      (no forward recompute).
+    * ``grad_source``: grad op index -> (its forward's index, whether this
+      grad op is the last to read the kept graph).
+    * ``dead``: grad outputs that no op reads, no fetch names and no
+      state holds; they are not computed.
+    * ``generators``: op seed -> torch.Generator, owned by the caller so
+      that they advance from run to run (see ``rng``).
+    * ``in_place``: the scope state this run may write into (the
+      entry's state read and rebound; empty under the non-finite guard).
+      A state output (``set_state``) whose input is one of them is
+      written into that input's storage, the port's counterpart of the
+      reference's donated buffers; any other input (a feed, say) is
+      never written.
+    """
 
     def __init__(self, block: Block, env: Dict[str, Any],
                  device: torch.device, random_seed: int = 0,
-                 is_test: bool = False, step: int = 0, amp=None):
+                 is_test: bool = False, step: int = 0, amp=None,
+                 keep=None, grad_source=None, dead=(), generators=None,
+                 in_place=()):
         self.block = block
         self.env = env
         self.device = torch.device(device)
@@ -43,6 +68,21 @@ class LowerContext:
         self.is_test = is_test
         self.step = int(step)
         self.amp = amp
+        self.keep: Dict[int, Sequence[str]] = keep or {}
+        self.grad_source: Dict[int, tuple] = grad_source or {}
+        self.dead = frozenset(dead)
+        self.generators: Dict[int, torch.Generator] = \
+            {} if generators is None else generators
+        self.in_place = frozenset(in_place)
+        self.op_index = -1  # the index in block.ops of the op lowering now
+        # (name, dtype) -> (source tensor, cast): one AMP cast per tensor
+        # per run, whichever ops read it
+        self.casts: Dict[tuple, tuple] = {}
+        # id(value) -> (value, detached leaf) shared by the kept forwards
+        # that differentiate the same value
+        self.leaves: Dict[int, tuple] = {}
+        # forward op index -> (leaf by input name, output by name)
+        self.saved: Dict[int, tuple] = {}
 
     def get(self, name: str):
         if name not in self.env:
@@ -63,16 +103,50 @@ class LowerContext:
         if name is not None:
             self.env[name] = value
 
+    def set_state(self, op: Operator, out_slot: str, in_slot: str, value):
+        """Bind `value` to the state output `out_slot`, which aliases the
+        input `in_slot` (an op's ``stateful_outputs``).  Where the input
+        is state in ``in_place`` it is written into the input tensor's
+        storage and the output binds that tensor; otherwise the output
+        binds `value` (the non-finite guard needs the old state until it
+        has chosen, and a fed value is the caller's)."""
+        name = op.single_output(out_slot)
+        if name is None:
+            return
+        dst = self.get_input(op, in_slot)
+        if name in self.in_place and name == op.single_input(in_slot) and \
+                isinstance(dst, torch.Tensor) and dst.shape == value.shape:
+            if value is not dst:
+                dst.copy_(value)
+            value = dst
+        self.env[name] = value
+
+    def free(self, name: str):
+        """Drop `name`'s value (after its last reader) and the casts and
+        leaves made from it."""
+        v = self.env.pop(name, None)
+        self.leaves.pop(id(v), None)
+        for dt in _AMP_CASTABLE:
+            hit = self.casts.pop((name, dt), None)
+            if hit is not None:
+                self.leaves.pop(id(hit[1]), None)
+
     def rng(self, op: Operator) -> torch.Generator:
-        """Per-op generator on the context's device, seeded from the
-        program's random seed, the run count and the op's build-time
-        ``__op_seed__`` (the JAX package folds the same three into its
-        key).  Lowering the same op again within one run, as its
-        auto-derived grad does, draws the same numbers; the next run
-        draws new ones."""
-        g = torch.Generator(device=self.device)
-        key = (self.random_seed, self.step, int(op.attr("__op_seed__", 0)))
-        g.manual_seed(hash(key) % (1 << 63))
+        """The op's generator on the context's device: made at its first
+        draw in ``generators`` and seeded from the program's random seed,
+        the run count then and the op's build-time ``__op_seed__`` (the
+        JAX package folds the same three into its key).  Each draw
+        advances it.  The executor keeps an entry's generators from run
+        to run (and registers them with its CUDA graph), so every run or
+        replay draws anew and a new executor replays the same sequence;
+        a grad op reads its forward's mask from the kept graph."""
+        seed = int(op.attr("__op_seed__", 0))
+        g = self.generators.get(seed)
+        if g is None:
+            g = torch.Generator(device=self.device)
+            g.manual_seed(hash((self.random_seed, self.step, seed))
+                          % (1 << 63))
+            self.generators[seed] = g
         return g
 
 
@@ -148,29 +222,51 @@ def infer_op_shape(op: Operator, block: Block):
 _AMP_CASTABLE = (torch.float16, torch.bfloat16, torch.float32)
 
 
+def _amp_target(ctx: LowerContext, op: Operator) -> Optional[torch.dtype]:
+    """The dtype AMP gives `op`'s float inputs: low precision for the
+    white list, float32 for the black list, None otherwise; a grad op
+    casts like its forward."""
+    amp = ctx.amp
+    if amp is None:
+        return None
+    base = op.type[:-5] if op.type.endswith("_grad") else op.type
+    if base in amp["white"]:
+        return dtype_to_torch(amp["dtype"])
+    if base in amp["black"]:
+        return torch.float32
+    return None
+
+
+def _cast(ctx: LowerContext, name: str, v, target):
+    """`v` (the value of `name`) in `target`, cast once per run: later
+    readers of the same value get the same cast."""
+    if not (isinstance(v, torch.Tensor) and v.dtype in _AMP_CASTABLE
+            and v.dtype != target):
+        return v
+    hit = ctx.casts.get((name, target))
+    if hit is not None and hit[0] is v:
+        return hit[1]
+    c = v.to(target)
+    ctx.casts[(name, target)] = (v, c)
+    return c
+
+
 def _lower_with_amp(ctx: LowerContext, opdef: "OpDef", op: Operator):
     """Autocast wrapper: white-list ops see low-precision float inputs,
-    black-list ops see float32; a grad op casts like its forward.  The
-    env bindings are restored afterwards, so other consumers keep the
-    original precision (master weights stay float32 in the scope)."""
-    amp = ctx.amp
-    target = None
-    if amp is not None:
-        base = op.type[:-5] if op.type.endswith("_grad") else op.type
-        if base in amp["white"]:
-            target = dtype_to_torch(amp["dtype"])
-        elif base in amp["black"]:
-            target = torch.float32
+    black-list ops see float32.  The env bindings are restored
+    afterwards, so other consumers keep the original precision (master
+    weights stay float32 in the scope)."""
+    target = _amp_target(ctx, op)
     if target is None:
         opdef.lower(ctx, op)
         return
     saved = {}
     for name in op.input_arg_names():
         v = ctx.env.get(name)
-        if isinstance(v, torch.Tensor) and v.dtype in _AMP_CASTABLE \
-                and v.dtype != target:
+        c = _cast(ctx, name, v, target)
+        if c is not v:
             saved[name] = v
-            ctx.env[name] = v.to(target)
+            ctx.env[name] = c
     opdef.lower(ctx, op)
     written = set(op.output_arg_names())
     for n, v in saved.items():
@@ -178,12 +274,52 @@ def _lower_with_amp(ctx: LowerContext, opdef: "OpDef", op: Operator):
             ctx.env[n] = v
 
 
-def lower_op(ctx: LowerContext, op: Operator):
+def _lower_kept(ctx: LowerContext, opdef: "OpDef", op: Operator,
+                primals: Sequence[str]):
+    """Lower a forward op whose grad op is in the block under autograd:
+    its `primals` inputs (AMP-cast first, as the grad op would see them)
+    become detached leaves, and the leaves and the op's outputs are kept
+    in ``ctx.saved`` until the grad op has read them."""
+    target = _amp_target(ctx, op)
+    env = {}
+    for name in op.input_arg_names():
+        v = ctx.get(name)
+        if target is not None:
+            v = _cast(ctx, name, v, target)
+        if name in primals:
+            hit = ctx.leaves.get(id(v))
+            if hit is None or hit[0] is not v:
+                hit = (v, v.detach().requires_grad_(True))
+                ctx.leaves[id(v)] = hit
+            v = hit[1]
+        env[name] = v
+    sub = copy.copy(ctx)  # shares generators, casts, leaves, saved
+    sub.env = env
+    with torch.enable_grad():
+        opdef.lower(sub, op)
+    outs = {n: env[n] for n in op.output_arg_names() if n in env}
+    ctx.env.update(outs)
+    ctx.saved[ctx.op_index] = ({n: env[n] for n in primals}, outs)
+
+
+def lower_op(ctx: LowerContext, op: Operator, index: int = -1):
+    """Lower `op`, the `index`-th op of ``ctx.block`` (the key of the
+    context's ``keep`` / ``grad_source`` plans)."""
     opdef = _REGISTRY.get(op.type)
     if opdef is None or opdef.lower is None:
         raise UnimplementedError(f"no lowering for op {op.type!r}")
+    ctx.op_index = index
     with op_error_context(op, ctx.block, phase="lowering"):
-        _lower_with_amp(ctx, opdef, op)
+        primals = ctx.keep.get(index)
+        if primals is not None:
+            _lower_kept(ctx, opdef, op, primals)
+        elif opdef.lower is _lower_auto_grad:
+            opdef.lower(ctx, op)  # casts nothing: its forward already did
+        else:
+            _lower_with_amp(ctx, opdef, op)
+    for name in op.output_arg_names():  # a write ends the casts of the old
+        for dt in _AMP_CASTABLE:       # value, in place or not
+            ctx.casts.pop((name, dt), None)
 
 
 # ---------------------------------------------------------------------------
@@ -284,55 +420,46 @@ def build_auto_grad_specs(fwd_op: Operator, block: Block,
                  attrs=attrs)]
 
 
-def _lower_auto_grad(ctx: LowerContext, gop: Operator):
-    """Lowering of an auto-derived ``<type>_grad`` op.
-
-    Re-lowers the forward op under ``torch.enable_grad()`` (the executor
-    runs under no_grad) on detached copies of its differentiable inputs,
-    then ``torch.autograd.grad`` with the recorded cotangents.  The
-    re-lowering uses this run's generator seeds, so a stochastic op
-    replays its forward's draw.
-    """
-    fwd_type = gop.attr("__fwd_type__")
-    fwd_inputs: Dict[str, List[str]] = gop.attr("__fwd_inputs__")
-    fwd_outputs: Dict[str, List[str]] = gop.attr("__fwd_outputs__")
-    opdef = get_op_def(fwd_type)
-
-    # which (slot, idx) need grads, in a stable order
-    wanted: List[tuple] = []
+def _grad_slots(gop: Operator, dead=frozenset()) -> List[tuple]:
+    """(forward input slot, index, grad name) of every grad `gop` writes,
+    in a stable order, leaving out the names in `dead`."""
+    wanted = []
     for gslot, gnames in gop.outputs.items():
         slot = gslot[:-len("@GRAD")]
         for i, gname in enumerate(gnames):
-            if gname:
+            if gname and gname not in dead:
                 wanted.append((slot, i, gname))
+    return wanted
+
+
+def _lower_auto_grad(ctx: LowerContext, gop: Operator):
+    """Lowering of an auto-derived ``<type>_grad`` op:
+    ``torch.autograd.grad`` of the outputs its forward op kept
+    (``ctx.saved``, see ``_lower_kept``) against the forward's leaves,
+    with the recorded cotangents.  Nothing is lowered again: a
+    stochastic forward's draw is in the kept graph.  Grad outputs in
+    ``ctx.dead`` are not computed."""
+    fwd_inputs: Dict[str, List[str]] = gop.attr("__fwd_inputs__")
+    fwd_outputs: Dict[str, List[str]] = gop.attr("__fwd_outputs__")
+    wanted = _grad_slots(gop, ctx.dead)
+    if not wanted:
+        return
+    source = ctx.grad_source.get(ctx.op_index)
+    saved = None if source is None else ctx.saved.get(source[0])
+    if saved is None:
+        raise RuntimeError(
+            f"{gop.type}: its forward {gop.attr('__fwd_type__')!r} op (outputs "
+            f"{fwd_outputs}) was not lowered with its autograd graph kept in "
+            f"this run; a grad op needs its forward earlier in the same block")
+    leaves, outputs = saved
+    if source[1]:  # the last grad op of this forward: free its graph
+        del ctx.saved[source[0]]
     diff_names: List[str] = []
     for slot, i, _ in wanted:
         n = fwd_inputs[slot][i]
         if n not in diff_names:
             diff_names.append(n)
-    out_order: List[str] = []
-    for names in fwd_outputs.values():
-        for n in names:
-            if n not in out_order:
-                out_order.append(n)
-
-    desc = gop.attr("__fwd_desc__")
-    if desc is not None:
-        fwd_attrs = dict(desc["attrs"])
-    else:
-        fwd_attrs = {k: v for k, v in gop.attrs.items()
-                     if not k.startswith("__fwd_")}
-    fwd_op = Operator(ctx.block, fwd_type, fwd_inputs, fwd_outputs, fwd_attrs)
-
-    env = {n: ctx.get(n) for ns in fwd_inputs.values() for n in ns
-           if n not in diff_names}
-    primals = [ctx.get(n).detach().requires_grad_(True) for n in diff_names]
-    env.update(zip(diff_names, primals))
-    sub = LowerContext(ctx.block, env, ctx.device,
-                       random_seed=ctx.random_seed, is_test=ctx.is_test,
-                       step=ctx.step, amp=ctx.amp)
-    with torch.enable_grad():
-        _lower_with_amp(sub, opdef, fwd_op)
+    primals = [leaves[n] for n in diff_names]
 
     # cotangent names were recorded in the op's <slot>@GRAD inputs at
     # build time; a missing cotangent counts as zeros
@@ -342,16 +469,21 @@ def _lower_auto_grad(ctx: LowerContext, gop: Operator):
         for i, n in enumerate(names):
             if i < len(gnames) and gnames[i]:
                 cot_name[n] = gnames[i]
-    outs, cots = [], []
-    for n in out_order:
-        ov = env.get(n)
-        g = ctx.env.get(cot_name.get(n, grad_var_name(n)))
-        if not isinstance(ov, torch.Tensor) or not ov.requires_grad \
-                or g is None:
-            continue  # not connected to the inputs, or a zero cotangent
-        outs.append(ov)
-        cots.append(g.to(ov.dtype).reshape(ov.shape))
-    grads = (torch.autograd.grad(outs, primals, cots, allow_unused=True)
+    outs, cots, seen = [], [], set()
+    for names in fwd_outputs.values():
+        for n in names:
+            ov = outputs.get(n)
+            g = ctx.env.get(cot_name.get(n, grad_var_name(n)))
+            if n in seen or not isinstance(ov, torch.Tensor) or \
+                    not ov.requires_grad or g is None:
+                continue  # not connected to the inputs, or a zero cotangent
+            seen.add(n)
+            outs.append(ov)
+            cots.append(g.to(ov.dtype).reshape(ov.shape))
+    # retain_graph: leaves (and their casts) are shared by the kept
+    # forwards that read the same value; each graph goes with its outputs
+    grads = (torch.autograd.grad(outs, primals, cots, allow_unused=True,
+                                 retain_graph=True)
              if outs else [None] * len(primals))
     grad_by_name = {n: torch.zeros_like(p) if g is None else g
                     for n, p, g in zip(diff_names, primals, grads)}
@@ -368,6 +500,50 @@ def _lower_auto_grad(ctx: LowerContext, gop: Operator):
             val = ctx.env[gname] + val
         ctx.env[gname] = val
         written.add(gname)
+
+
+def _frozen(slots: Dict[str, List[str]]) -> tuple:
+    return tuple(sorted((k, tuple(v)) for k, v in slots.items()))
+
+
+def plan_grads(ops: Sequence[tuple], live: set) -> tuple:
+    """The grad side of a compiled step over `ops` ((index, op) pairs of
+    one block): (keep, grad_source, dead) as ``LowerContext`` takes
+    them.  `live` holds every name some op reads, a fetch names or the
+    state holds; an auto-derived grad op's output outside it is dead.
+    Each auto-derived grad op with a live output is paired with its
+    forward op (same type, inputs and outputs, earlier in the block),
+    which then keeps its graph for the inputs whose grads are live.
+    Raises for a grad op whose forward is not in the block."""
+    forward_at = {(op.type, _frozen(op.inputs), _frozen(op.outputs)): i
+                  for i, op in ops}
+    keep: Dict[int, set] = {}
+    pairs = []
+    dead = set()
+    for i, op in ops:
+        opdef = _REGISTRY.get(op.type)
+        if opdef is None or opdef.lower is not _lower_auto_grad:
+            continue
+        dead.update(n for n in op.output_arg_names()
+                    if n and n not in live)
+        wanted = _grad_slots(op, dead)
+        if not wanted:
+            continue
+        fwd_inputs = op.attr("__fwd_inputs__")
+        f = forward_at.get((op.attr("__fwd_type__"), _frozen(fwd_inputs),
+                            _frozen(op.attr("__fwd_outputs__"))))
+        if f is None or f >= i:
+            raise RuntimeError(
+                f"grad op {op.type!r} (index {i}) has no forward op before "
+                f"it in its block; the port differentiates the autograd "
+                f"graph its forward kept")
+        keep.setdefault(f, set()).update(fwd_inputs[slot][j]
+                                          for slot, j, _ in wanted)
+        pairs.append((i, f))
+    last = {f: i for i, f in pairs}
+    grad_source = {i: (f, last[f] == i) for i, f in pairs}
+    return ({f: frozenset(names) for f, names in keep.items()},
+            grad_source, frozenset(dead))
 
 
 def infer_auto_grad(gop: Operator, block: Block):

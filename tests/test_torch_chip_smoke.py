@@ -65,3 +65,24 @@ def test_ptxas_report_finds_every_checked_instantiation(label):
     report = smoke.ptxas_report(FakeBuild)
     assert list(report) == [label]
     assert any("0 bytes spill stores" in line for line in report[label])
+
+
+def test_profiled_launches_are_held_to_the_replay_aware_counts():
+    """A profiled replay passes when the profiler's launches of each kernel
+    family (mangled or demangled names) equal the counters' deltas, packed
+    plus unpacked wrapper, and fails on any other count."""
+    import collections
+
+    row = collections.namedtuple("row", "key count")
+    kernels = [row("void (anonymous namespace)::f32::fa_fwd_f32_kernel"
+                   "<64, 2>(float const*)", 12),
+               row(_mangle("fa_dkv_tc_kernel<bf16, 128>"), 4),
+               row(_mangle("fa_dq_tc_kernel<bf16, 128>"), 4),
+               row("sm90_xmma_gemm_bf16bf16_bf16f32", 40)]
+    before = ((1, 2, 3, 4, 5, 6), 0, 0)
+    after = ((13, 2, 3, 4, 9, 10), 0, 0)
+    smoke.check_profiled_launches(kernels, before, after, "a replay")
+    with pytest.raises(AssertionError, match="the counters added"):
+        smoke.check_profiled_launches(kernels[1:], before, after, "a replay")
+    with pytest.raises(AssertionError, match="the counters added"):
+        smoke.check_profiled_launches(kernels, before, before, "a replay")

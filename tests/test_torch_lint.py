@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: no module under paddle_tpu_torch/, and
-not chip_smoke.py or time_fp32.py, imports jax or the JAX
-package paddle_tpu."""
+not chip_smoke.py, time_fp32.py or time_step.py, imports jax or the
+JAX package paddle_tpu."""
 import ast
 import os
 
@@ -12,7 +12,8 @@ FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
 
 def _port_files():
     files = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "time_fp32.py")]
+             os.path.join(REPO, "time_fp32.py"),
+             os.path.join(REPO, "time_step.py")]
     for root, _dirs, names in os.walk(os.path.join(REPO, "paddle_tpu_torch")):
         files.extend(os.path.join(root, n) for n in sorted(names)
                      if n.endswith(".py"))
