@@ -55,7 +55,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      (dK/dV) to bf16 before the second product (~2**-9 relative a term)
      and the output again: ~4e-3.
    Then times: the fp32 forward at BERT-base serving's batch 1, 4 and 8,
-   at the flagship training shape and at the Llama shape (causal), the
+   at the flagship training shape, at the Llama shape (causal) and at
+   generation's largest prefill bucket ([1, 32, 512, 128] causal), the
    bf16 forward at the flagship training shape, the backward kernels at
    the flagship shape (bf16, and fp32), each beside its plain version and
    a PyTorch yardstick: scaled_dot_product_attention (forward) and its
@@ -153,6 +154,39 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    step (one more one-element fetch makes a second key): the device
    memory reserved with one captured entry and with two, each graph
    pool and the peak allocated.
+10. generation serving (serving.GenerationEngine, dense KV cache, greedy):
+   a. parity at 2 layers of Llama-2-7B's widths (2 slots, 128 positions,
+      buckets 32 / 64, two concurrent requests of 20 and 50 prompt
+      tokens, 24 new tokens each, keep_logits), no warmup, so prefill
+      runs eagerly and decode is captured at its second step:
+      (a) attn_impl "auto" (prefill on the fp32 forward kernel, num_layers
+      launches a prefill, decode through cached_attention) against the
+      port's uncached forward on the CPU over the card's own tokens
+      (teacher-forced, attn_impl "xla"): every step's logits within 1e-3
+      (fp32, TF32 off, as phase 4), every greedy token equal; (b) the same
+      requests with attn_impl "xla" against the card's own uncached "xla"
+      forward at max_seq_len: max |d| reported (bit-equal on the CPU;
+      here held to 1e-3 only to catch a broken path), beside each decode
+      product's row consistency on the card (x[:2] @ W against the first
+      rows of x[:128] @ W at the block's and the head's shapes).
+   b. the flagship: Llama-2-7B (32 layers, fp32 weights from the startup
+      program, 6.74 B parameters), 4 slots x 1024 positions (4 GiB of
+      caches), buckets 64 / 128 / 256 / 512, attn_impl "auto"; warmup
+      runs each program twice (eager, then captured) and each must be
+      captured exactly once; then 8 requests of 20-500 prompt tokens
+      (every bucket), 64 new tokens each, queued before the scheduler
+      starts (continuous batching).  Gates: kernel #4 launched num_layers
+      times a prefill (the replay-aware counts), no other kernel, no
+      plain call, nothing realigned; every request ends 'length' with
+      its 64 tokens; the caches keep their data_ptr and every program
+      its one capture; one profiled decode replay and one prefill replay
+      each show 0 cudaLaunchKernel and 1 cudaGraphLaunch and no
+      device-to-device copy of a cache's size (the trace's memcpy
+      bytes).  Printed: tokens/s, TTFT, inter-token and decode-step
+      times, the decode step's bound (weights and caches read once at
+      the card's HBM rate), each profiled replay's busy / idle, peak and
+      reserved memory, the captures per program ("generation:" JSON
+      line).
 
 Every profiled replay (phases 4, 5, 6 and 9) also holds the profiler's
 launches of the forward, dK/dV and dQ kernels against what the
@@ -160,7 +194,7 @@ replay-aware counters added over it: a replay runs no wrapper, so this
 is what shows that the counts the per-step gates read are the
 kernels that ran.
 
-On every path (phases 4, 5, 6, 8, 9) no bfloat16 operand is copied to
+On every path (phases 4, 5, 6, 8, 9, 10) no bfloat16 operand is copied to
 meet TMA's 16-byte alignment: the launching wrappers' ".realigned"
 counts stay 0.
 
@@ -169,7 +203,10 @@ slice's main path: phase 6 (BERT training) for the packed kernels,
 phase 9 (Llama training) for the unpacked ones.  "launches_by_path" has
 beside it the count of every path, each read from 0: serving (phase 4),
 training_parity (phase 5, card steps), training_flagship (phase 6),
-llama_parity (phase 8, card steps) and llama_flagship (phase 9).  The
+llama_parity (phase 8, card steps), llama_flagship (phase 9),
+generation_parity (phase 10a, card requests) and generation (phase
+10b's traffic).  Kernel #4's entry also carries "f32_prefill": the fp32
+forward at the largest prefill bucket, [1, 32, 512, 128] causal.  The
 four backward entries also carry "f32": their fp32 kernel's device_ms,
 ms, bound_ms and SDPA's fp32 backward's library_device_ms at the same
 shape (BERT's training shape for the packed, the Llama shape for the
@@ -179,7 +216,8 @@ them, one "compiled step:" JSON line holds each profiled path's wall ms,
 device busy ms, idle share and host launches (serving_b4, bert_fp32,
 bert_flagship, llama_flagship), the run_async windows' ms/step and
 tokens/s, whether captured = eager came out bit-equal and the memory
-with two captured Llama entries (llama_two_signatures).
+with two captured Llama entries (llama_two_signatures), and phase 10's
+profiled replays (generation_decode, generation_prefill).
 
 Every phase runs through the executor's compiled step (Executor.run /
 run_async and Predictor.run on the card: the first run of a signature
@@ -262,6 +300,23 @@ LLAMA_FLAGSHIP_LR = 1e-4
 LLAMA_LOSSES_CUDA_CORES = (10.49620, 10.48460, 10.48037, 9.89279, 9.86580,
                            9.88604)
 LLAMA_LOSS_RTOL = 1e-3
+# phase 10: greedy generation at Llama-2-7B's widths and depth, fp32
+# weights, a dense KV cache of 4 slots x 1024 positions, prefill buckets
+# 64-512, 8 requests of 20-500 prompt tokens and 64 new tokens each
+GEN = dict(LLAMA, num_layers=32)
+GEN_ENGINE = dict(num_slots=4, max_seq_len=1024,
+                  prefill_buckets=(64, 128, 256, 512), max_new_tokens=64,
+                  deadline_ms=600000.0)
+GEN_PROMPTS = (20, 100, 500, 64, 200, 300, 130, 450)
+GEN_NEW_TOKENS = 64
+# gates (a) and (b) at 2 layers of the same widths: 2 slots, 128
+# positions, two concurrent requests
+GEN_PARITY = dict(LLAMA, num_layers=2)
+GEN_PARITY_ENGINE = dict(num_slots=2, max_seq_len=128,
+                         prefill_buckets=(32, 64), keep_logits=True,
+                         deadline_ms=600000.0)
+GEN_PARITY_PROMPTS = (20, 50)
+GEN_PARITY_NEW_TOKENS = 24
 # the unpacked kernels' grads in fp32 and bf16 (as the packed ones')
 FP32_GRAD_ATOL, BF16_GRAD_ATOL = 1e-4, 5e-2
 # the bf16 tensor-core kernels, each built at D 64 and 128
@@ -462,7 +517,8 @@ FWD_F32_SHAPES = (("serving_B1", 1, 12, 128, 64, False, True, 200),
                   ("serving_B4", 4, 12, 128, 64, False, True, 200),
                   ("serving_B8", 8, 12, 128, 64, False, True, 200),
                   ("training", 8, 12, 512, 64, False, True, 20),
-                  ("llama", 1, 32, 2048, 128, True, False, 5))
+                  ("llama", 1, 32, 2048, 128, True, False, 5),
+                  ("prefill", 1, 32, 512, 128, True, False, 20))
 
 
 def time_forward_f32(fa, device):
@@ -1885,6 +1941,315 @@ def second_signature(exe, main, scope, feed, loss):
                              f"entries, losses {out[0]}, {out0[0]}")
 
 
+def gen_prompts(lens, vocab, seed):
+    """Prompts of the given lengths: random token ids from a numpy
+    seed."""
+    rng = np.random.RandomState(seed)
+    return [rng.randint(1, vocab, size=n).astype("int64") for n in lens]
+
+
+def uncached_logits(tpt, scope, model, max_seq_len, tokens, place,
+                    attn_impl):
+    """The uncached forward (build_llama_forward at max_seq_len, batch 1)
+    over `tokens`, right-padded, on `place` with `scope`'s weights:
+    [max_seq_len, vocab] logits."""
+    from paddle_tpu_torch.models import build_llama_forward
+
+    main, startup = tpt.Program(), tpt.Program()
+    startup._is_startup = True
+    with tpt.program_guard(main, startup):
+        _, fetches = build_llama_forward(1, max_seq_len, name="llama",
+                                         attn_impl=attn_impl, **model)
+    ids = np.zeros((1, max_seq_len), "int64")
+    ids[0, :len(tokens)] = tokens
+    exe = tpt.Executor(place)
+    out = exe.run(main, feed={"input_ids": ids},
+                  fetch_list=[fetches["logits"]], scope=scope)[0][0]
+    exe.close()
+    return out
+
+
+def stream_errors(results, prompts, reference):
+    """(max |cached - uncached| over every step of every request, whether
+    every greedy token is the uncached logits' argmax): `reference(seq)`
+    gives the uncached logits over a request's prompt and tokens."""
+    worst, greedy = 0.0, True
+    for prompt, res in zip(prompts, results):
+        ref = reference(list(prompt) + res["tokens"][:-1])
+        for i, got in enumerate(res["logits"]):
+            want = ref[len(prompt) - 1 + i]
+            worst = max(worst, float(np.abs(got - want).max()))
+            greedy &= res["tokens"][i] == int(np.argmax(want))
+    return worst, greedy
+
+
+def run_requests(eng, prompts, new_tokens):
+    """Submit every prompt (queued before the scheduler starts, so the
+    claim order is the submission order), start, and wait: (results,
+    wall seconds, each request's token times)."""
+    times = [[] for _ in prompts]
+    futs = [eng.submit(p, new_tokens,
+                       on_token=lambda tok, ts, t=t: t.append(ts))
+            for p, t in zip(prompts, times)]
+    t0 = time.perf_counter()
+    eng.start()
+    results = [f.result(600) for f in futs]
+    return results, time.perf_counter() - t0, times
+
+
+def row_consistency(device):
+    """max |x[:M] @ W - (x @ W)[:M]| on the card for the decode step's
+    products (M = the parity engine's 2 slots against 128 forward rows):
+    0 where cuBLAS gives the short product the long one's rows."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(5)
+    H, I, V = LLAMA["hidden"], LLAMA["intermediate"], LLAMA["vocab_size"]
+    out = {}
+    for what, K, N in (("qkv", H, 3 * H), ("attn_out", H, H),
+                       ("gate_up", H, 2 * I), ("ffn_out", I, H),
+                       ("head", H, V)):
+        x = torch.randn(128, K, device=device, generator=g)
+        w = torch.randn(K, N, device=device, generator=g)
+        M = GEN_PARITY_ENGINE["num_slots"]
+        out[what] = float((torch.matmul(x[:M], w)
+                           - torch.matmul(x, w)[:M]).abs().max())
+    return out
+
+
+def generation_parity(tpt, fa):
+    """Gates (a) and (b) at 2 layers of Llama-2-7B's widths.  (a) The
+    engine on the card (attn_impl "auto": prefill on the fp32 forward
+    kernel, decode through cached_attention; the first runs eager, then
+    captured graphs) against the port's uncached forward on the CPU over
+    the card's own tokens: every step's logits within LOGITS_ATOL (fp32,
+    TF32 off, as phase 4), every greedy token equal.  (b) The same
+    requests with attn_impl "xla" against the card's own uncached "xla"
+    forward: max |d| reported (0 on the CPU) beside each decode
+    product's row consistency; LOGITS_ATOL here only catches a broken
+    path, it does not stand for tolerance 0.
+    Returns the card steps' launches of the six kernels."""
+    import torch
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    eng = GenerationEngine(GEN_PARITY, autostart=False, seed=23,
+                           attn_impl="auto", **GEN_PARITY_ENGINE)
+    prompts = gen_prompts(GEN_PARITY_PROMPTS, GEN_PARITY["vocab_size"], 24)
+    reset_counts(fa)
+    results, wall, _ = run_requests(eng, prompts, GEN_PARITY_NEW_TOKENS)
+    counts, plain, realigned = read_counts(fa)
+    want = (0, 0, 0, len(prompts) * GEN_PARITY["num_layers"], 0, 0)
+    log(f"  2 layers: {len(prompts)} requests of {GEN_PARITY_PROMPTS} "
+        f"prompt tokens, {GEN_PARITY_NEW_TOKENS} new tokens each, in "
+        f"{wall:.2f} s; launches {counts}, {plain} plain calls, "
+        f"{realigned} realigned operands")
+    if (counts, plain, realigned) != (want, 0, 0):
+        raise AssertionError(f"generation parity: launches {counts}, "
+                             f"{plain} plain calls, {realigned} realigned, "
+                             f"want {want}, 0, 0")
+    eng.close()
+    weights = {n: eng.scope.find_var(n).to("cpu", copy=True)
+               for n in eng.scope.local_var_names()
+               if n not in eng.cache_names}
+    cpu_scope = tpt.Scope()
+    for n, t in weights.items():
+        cpu_scope.set_var(n, t)
+    S = GEN_PARITY_ENGINE["max_seq_len"]
+    t0 = time.perf_counter()
+    err, greedy = stream_errors(results, prompts, lambda seq: uncached_logits(
+        tpt, cpu_scope, GEN_PARITY, S, seq, tpt.CPUPlace(), "xla"))
+    log(f"  (a) card cached decode vs the CPU's uncached forward "
+        f"({time.perf_counter() - t0:.1f} s on the CPU): logits max|diff| "
+        f"{err:.3e} (limit {LOGITS_ATOL:g}), greedy tokens equal: "
+        f"{greedy}")
+    if not (err <= LOGITS_ATOL and greedy):
+        raise AssertionError("generation parity (a): the card's cached "
+                             "decode disagrees with the CPU's uncached "
+                             "forward")
+    del cpu_scope, weights
+
+    xla = GenerationEngine(GEN_PARITY, eng.scope, autostart=False,
+                           attn_impl="xla", **GEN_PARITY_ENGINE)
+    results, _, _ = run_requests(xla, prompts, GEN_PARITY_NEW_TOKENS)
+    xla.close()
+    err, greedy = stream_errors(results, prompts, lambda seq: uncached_logits(
+        tpt, xla.scope, GEN_PARITY, S, seq, None, "xla"))
+    rows = row_consistency(torch.device("cuda", 0))
+    GENERATION["cached_vs_uncached_card"] = err
+    GENERATION["row_consistency"] = rows
+    log(f"  (b) card cached decode vs the card's uncached forward (attn "
+        f"'xla' both): logits max|diff| {err:.3e} (0 on the CPU; limit "
+        f"{LOGITS_ATOL:g}), greedy tokens equal: {greedy}; decode "
+        f"products M=2 against rows of M=128, max|diff|: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in rows.items()))
+    if not (err <= LOGITS_ATOL and greedy):
+        raise AssertionError("generation parity (b): the card's cached "
+                             "decode drifted from its uncached forward")
+    del eng, xla
+    torch.cuda.empty_cache()
+    return counts
+
+
+# phase 10's numbers, for the summary line before the last lines
+GENERATION = {}
+
+
+def memcpy_report(prof, cache_bytes):
+    """(device-to-device copies, their bytes, the largest) in a profile,
+    read from its trace's memcpy records; raises where one copy moves a
+    cache's worth of bytes or more."""
+    with tempfile.NamedTemporaryFile(suffix=".json") as f:
+        prof.export_chrome_trace(f.name)
+        with open(f.name) as g:
+            events = json.load(g).get("traceEvents", [])
+    sizes = [int((e.get("args") or {}).get("bytes", -1)) for e in events
+             if "DtoD" in str(e.get("name", ""))]
+    largest = max(sizes, default=0)
+    if largest >= cache_bytes:
+        raise AssertionError(f"a device-to-device copy of {largest} bytes "
+                             f"(a cache is {cache_bytes}): the caches are "
+                             f"not written in place")
+    return len(sizes), sum(x for x in sizes if x > 0), largest
+
+
+def profile_generation(fn, what, key, cache_bytes):
+    """One profiled call of `fn` (a replay of a captured program): device
+    busy / idle, host launches, and the device-to-device copies."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        wall_us = (time.perf_counter() - t) * 1e6
+    report_profile(prof, wall_us, what, key=key)
+    n, total, largest = memcpy_report(prof, cache_bytes)
+    PROFILES[key]["dtod_copies"] = n
+    PROFILES[key]["dtod_bytes"] = total
+    log(f"  {what}: {n} device-to-device copies, {total} bytes, the "
+        f"largest {largest} (a cache is {cache_bytes})")
+    if PROFILES[key]["kernel_launches"] != 0 or \
+            PROFILES[key]["graph_launches"] != 1:
+        raise AssertionError(f"{what}: {PROFILES[key]['kernel_launches']} "
+                             f"cudaLaunchKernel and "
+                             f"{PROFILES[key]['graph_launches']} "
+                             f"cudaGraphLaunch, want 0 and 1 (a replay)")
+
+
+def generation_flagship(tpt, fa):
+    """Greedy generation at Llama-2-7B's widths and depth through
+    serving.GenerationEngine on the card: warmup (each prefill bucket and
+    the decode step run twice: eager, then captured), then 8 requests
+    with continuous batching.  Gates: kernel #4 launched num_layers
+    times a prefill, no plain call, nothing realigned; every program
+    captured once; the caches keep their storage; every request ends
+    'length' with its 64 tokens; a profiled decode replay and prefill
+    replay launch no kernel from the host and copy no cache.  Returns
+    the traffic's launches of the six kernels."""
+    import torch
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = GenerationEngine(GEN, autostart=False, seed=31, attn_impl="auto",
+                           **GEN_ENGINE)
+    torch.cuda.synchronize()
+    weight_bytes = sum(eng.scope.find_var(n).numel() * 4
+                       for n in eng.scope.local_var_names()
+                       if n not in eng.cache_names)
+    cache_bytes = eng.kv_cache_bytes // len(eng.cache_names)
+    log(f"  built and initialised on the card in "
+        f"{time.perf_counter() - t0:.1f} s: {weight_bytes / 4} parameters "
+        f"({weight_bytes / 2 ** 30:.2f} GiB fp32), KV caches "
+        f"{eng.kv_cache_bytes / 2 ** 30:.2f} GiB ({len(eng.cache_names)} "
+        f"of {cache_bytes} bytes)")
+    ptrs = {n: eng.scope.find_var(n).data_ptr() for n in eng.cache_names}
+    t0 = time.perf_counter()
+    warmed = eng.warmup()
+    torch.cuda.synchronize()
+    captures = eng.introspect()["captures"]
+    log(f"  warmup: {warmed} programs in {time.perf_counter() - t0:.1f} s; "
+        f"captures per program {captures}")
+    if warmed != len(GEN_ENGINE["prefill_buckets"]) + 1 or \
+            any(c != [1] for c in captures.values()):
+        raise AssertionError(f"warmup did not capture every program once: "
+                             f"{captures}")
+
+    prompts = gen_prompts(GEN_PROMPTS, GEN["vocab_size"], 32)
+    reset_counts(fa)
+    results, wall, times = run_requests(eng, prompts, GEN_NEW_TOKENS)
+    counts, plain, realigned = read_counts(fa)
+    stats = eng.stats()
+    prefills = stats["counters"]["prefills"]
+    want = (0, 0, 0, prefills * GEN["num_layers"], 0, 0)
+    log(f"  {len(prompts)} requests, prompts {GEN_PROMPTS}: launches "
+        f"{counts} ({prefills} prefills x {GEN['num_layers']} layers of "
+        f"kernel #4), {plain} plain calls, {realigned} realigned operands")
+    if (counts, plain, realigned) != (want, 0, 0) or \
+            prefills != len(prompts):
+        raise AssertionError(f"generation: launches {counts}, {plain} "
+                             f"plain calls, {realigned} realigned, want "
+                             f"{want}, 0, 0")
+    bad = [r for r in results if r["finish"] != "length"
+           or len(r["tokens"]) != GEN_NEW_TOKENS
+           or not all(0 <= t < GEN["vocab_size"] for t in r["tokens"])]
+    if bad:
+        raise AssertionError(f"generation: bad results {bad[:2]}")
+    moved = [n for n, p in ptrs.items()
+             if eng.scope.find_var(n).data_ptr() != p]
+    captures = eng.introspect()["captures"]
+    if moved or any(c != [1] for c in captures.values()):
+        raise AssertionError(f"generation: caches moved {moved[:4]}, "
+                             f"captures {captures}")
+    tokens = sum(len(r["tokens"]) for r in results)
+    gaps = np.concatenate([np.diff(t) for t in times]) * 1e3
+    ttft = np.asarray([r["ttft_ms"] for r in results])
+    step_ms = stats["decode_step_ms"]
+    bound_ms = (weight_bytes + eng.kv_cache_bytes) / PEAK_BYTES_PER_S * 1e3
+    GENERATION.update(
+        requests=len(results), tokens=tokens, wall_s=wall,
+        tokens_per_s=tokens / wall, ttft_ms_p50=float(np.median(ttft)),
+        ttft_ms_max=float(ttft.max()),
+        prefill_ms={int(n): r["prefill_ms"]
+                    for n, r in zip(GEN_PROMPTS, results)},
+        inter_token_ms_p50=float(np.median(gaps)),
+        inter_token_ms_p99=float(np.percentile(gaps, 99)),
+        decode_step_ms_p50=step_ms["p50"], decode_steps=step_ms["count"],
+        decode_bound_ms=bound_ms, captures=captures)
+    log(f"  {tokens} tokens in {wall:.2f} s: {tokens / wall:.1f} tokens/s; "
+        f"TTFT p50 {np.median(ttft):.1f} ms, max {ttft.max():.1f} ms (queue "
+        f"wait included); inter-token p50 {np.median(gaps):.2f} ms, p99 "
+        f"{np.percentile(gaps, 99):.2f} ms; decode step p50 "
+        f"{step_ms['p50']:.2f} ms over {step_ms['count']} steps; the "
+        f"step's bound (weights and caches read once, "
+        f"{(weight_bytes + eng.kv_cache_bytes) / 1e9:.2f} GB at "
+        f"{PEAK_BYTES_PER_S / 1e12:g} TB/s) {bound_ms:.2f} ms; prefill ms "
+        f"by prompt length {GENERATION['prefill_ms']}")
+
+    ids = np.zeros((eng.num_slots, 1), "int64")
+    pos = np.arange(eng.num_slots, dtype="int32") * 100
+    profile_generation(lambda: eng._run_decode_program(ids, pos),
+                       "one decode replay (4 slots)", "generation_decode",
+                       cache_bytes)
+    prompt = prompts[2]
+    bucket = max(GEN_ENGINE["prefill_buckets"])
+    profile_generation(
+        lambda: eng._run_prefill_program(prompt, bucket, 0)[0].numpy(),
+        f"one prefill replay ({prompt.size} tokens, bucket {bucket})",
+        "generation_prefill", cache_bytes)
+    GENERATION["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    GENERATION["reserved_gib"] = torch.cuda.memory_reserved() / 2 ** 30
+    log(f"  device memory: peak allocated {GENERATION['peak_gib']:.2f} GiB, "
+        f"reserved {GENERATION['reserved_gib']:.2f} GiB")
+    eng.close()
+    del eng
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main():
     import torch
 
@@ -1904,7 +2269,7 @@ def main():
 
     t_start = time.perf_counter()
     card = card_line()
-    log(f"[1/9] device: {card}; torch {torch.__version__}, CUDA "
+    log(f"[1/10] device: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1919,10 +2284,10 @@ def main():
     built = build.build_all()
     fa._lib()
     fa._bwd_lib()
-    log(f"[2/9] built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
+    log(f"[2/10] built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
     check_build(build)
 
-    log("[3/9] packed kernels against their plain versions")
+    log("[3/10] packed kernels against their plain versions")
     check_kernel(fa, device)
     check_backward(fa, device)
     fwd_f32 = time_forward_f32(fa, device)
@@ -1933,33 +2298,39 @@ def main():
 
     # each path's launches of the six kernels, each read from 0
     by_path = {}
-    log("[4/9] BERT-base serving through Predictor on the card")
+    log("[4/10] BERT-base serving through Predictor on the card")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         by_path["serving"] = serve(tpt, fa, workdir)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[5/9] BERT-base training, card against the CPU (fp32)")
+    log("[5/10] BERT-base training, card against the CPU (fp32)")
     by_path["training_parity"] = bert_parity(tpt, fa)
     bert_fp32_profile(tpt, fa)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[6/9] bench.py's seq-512 training step on the card (bf16 AMP)")
+    log("[6/10] bench.py's seq-512 training step on the card (bf16 AMP)")
     by_path["training_flagship"], _ = bert_flagship(tpt, fa)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[7/9] unpacked kernels against their plain versions")
+    log("[7/10] unpacked kernels against their plain versions")
     check_unpacked(fa, device)
     unpacked_timing = time_unpacked(fa, device, "bfloat16")
     unpacked_f32 = time_unpacked(fa, device, "float32")
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[8/9] Llama-2-7B-width training, card against the CPU (fp32)")
+    log("[8/10] Llama-2-7B-width training, card against the CPU (fp32)")
     by_path["llama_parity"] = llama_parity(tpt, fa)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[9/9] Llama-2-7B-width training on the card (4 layers, bf16 AMP)")
+    log("[9/10] Llama-2-7B-width training on the card (4 layers, bf16 AMP)")
     by_path["llama_flagship"], losses = llama_flagship(tpt, fa)
     compare_losses(losses)
+    log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
+
+    log("[10/10] Llama generation serving on the card (dense KV cache)")
+    by_path["generation_parity"] = generation_parity(tpt, fa)
+    by_path["generation"] = generation_flagship(tpt, fa)
+    log("generation: " + json.dumps(GENERATION))
     log(f"  ({time.perf_counter() - t_start:.1f} s in all)")
     for key, (wall, busy, idle, launches) in EAGER_PROFILES.items():
         p = PROFILES[key]
@@ -2000,13 +2371,18 @@ def main():
     for i, row in f32_rows.items():
         kernels[i]["f32"] = {x: row[x] for x in (
             "device_ms", "ms", "bound_ms", "library_device_ms")}
+    # the fp32 forward at generation's largest prefill bucket
+    kernels[3]["f32_prefill"] = {x: fwd_f32["prefill"][x] for x in (
+        "device_ms", "ms", "plain_ms", "bound_ms", "library_device_ms",
+        "max_abs_err")}
     for i, k in enumerate(kernels):
         k["launches"] = by_path[k.pop("main_path")][i]
         k["launches_by_path"] = {p: n[i] for p, n in by_path.items()}
         if not all(math.isfinite(x) for x in
                    [k[x] for x in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms")]
-                   + list(k.get("f32", {}).values())):
+                   + list(k.get("f32", {}).values())
+                   + list(k.get("f32_prefill", {}).values())):
             raise AssertionError(f"non-finite measurement in {k}")
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} never launched on the path")

@@ -5,7 +5,8 @@ builders, executor and Predictor as the JAX package, with op lowerings
 written in PyTorch and the TPU's Pallas kernels rewritten by hand for
 Hopper (``csrc/``, built with nvcc at first use).  It serves
 (``inference.Predictor``) and trains (``optimizer.AdamOptimizer``,
-``clip``, ``contrib.mixed_precision``) BERT and Llama.  Programs run on
+``clip``, ``contrib.mixed_precision``) BERT and Llama, and generates
+with Llama over a dense KV cache (``serving.GenerationEngine``).  Programs run on
 one device, the card (``cuda:0``) unless the caller passes
 ``CPUPlace()`` / ``device="cpu"``; on the card each feed signature's
 step is captured once as a CUDA graph and replayed
@@ -36,6 +37,8 @@ from . import optimizer  # noqa
 from . import clip  # noqa
 from . import regularizer  # noqa
 from . import contrib  # noqa
+from . import fault  # noqa
+from . import serving  # noqa
 from .framework.backward import append_backward  # noqa
 
 __version__ = "0.1.0"

@@ -2,9 +2,11 @@
 
 The port's copy of ``paddle_tpu/flags.py``'s registry (importing the JAX
 package's module would import jax), holding only the flags the port
-reads: ``FLAGS_check_nan_inf``, ``FLAGS_benchmark`` and
-``FLAGS_guard_resolve_interval``, all read by the executor, with the
-reference's help strings.  ``set_flags`` raises on any other name, so a
+reads, with the reference's defaults and help strings: the executor's
+``FLAGS_check_nan_inf``, ``FLAGS_benchmark`` and
+``FLAGS_guard_resolve_interval``; fault.py's ``FLAGS_fault_inject`` and
+``FLAGS_fault_seed``; and the generation engine's ``FLAGS_serving_*``
+(serving/generation.py).  ``set_flags`` raises on any other name, so a
 flag the port would ignore is an error, not a silent no-op; a later
 slice registers a flag with the module that reads it.
 
@@ -78,3 +80,60 @@ register_flag("FLAGS_guard_resolve_interval", 64,
               "else (a fetch read, a checkpoint, close) forces it; "
               "1 restores the synchronous per-step host check, 0 defers "
               "indefinitely (fetch/checkpoint/close only)")
+register_flag("FLAGS_fault_inject", "",
+              "deterministic fault-injection spec: comma-separated "
+              "site:kind@N / site:kind@N+ / site:kind~p entries "
+              "(fault.py; e.g. 'prefill:fail@2,decode_step:fail@5')")
+register_flag("FLAGS_fault_seed", 0,
+              "seed for probabilistic (~p) fault-injection triggers")
+register_flag("FLAGS_serving_queue_cap", 256,
+              "serving engine: bounded admission queue; submit() on a "
+              "full queue sheds with an explicit OverloadedError instead "
+              "of queuing unbounded latency")
+register_flag("FLAGS_serving_deadline_ms", 1000.0,
+              "serving engine: requests that waited longer than this in "
+              "the queue are shed (OverloadedError) when a worker picks "
+              "them up — bounds admission-latency p99 under overload")
+register_flag("FLAGS_serving_decode_slots", 8,
+              "generation engine: decode-slot grid size — the whole "
+              "grid runs every decode iteration, finished sequences "
+              "free their slot to the next queued request immediately "
+              "(serving/generation.py)")
+register_flag("FLAGS_serving_max_seq_len", 256,
+              "generation engine: per-slot KV-cache sequence capacity "
+              "(prompt + generated tokens); the cache footprint is "
+              "slots * layers * 2 * n_kv_heads * max_seq_len * head_dim "
+              "* 4 bytes")
+register_flag("FLAGS_serving_prefill_buckets", "",
+              "comma-separated prefill sequence-length buckets "
+              "(prompts pad up to the smallest fitting bucket, one "
+              "compiled step per bucket); empty = powers of two "
+              "from 8 up to FLAGS_serving_max_seq_len")
+register_flag("FLAGS_serving_max_new_tokens", 64,
+              "generation engine: default per-request cap on generated "
+              "tokens (a request's own max_new_tokens wins; a budget "
+              "beyond the cache capacity left after the prompt decodes "
+              "until the slot cache fills and finishes 'cache_full')")
+register_flag("FLAGS_serving_paged", False,
+              "generation engine: block-paged KV cache instead of the "
+              "dense per-slot [slots, n_kv, max_seq_len, D] reservation; "
+              "not ported yet (True raises), 0 keeps the dense cache")
+register_flag("FLAGS_serving_prefill_chunk", 0,
+              "paged generation: feed long prompts in slices of this "
+              "many tokens, one slice per scheduler iteration "
+              "interleaved with decode steps; not ported yet (a positive "
+              "value raises), 0 = whole-prompt prefill")
+register_flag("FLAGS_serving_speculate", False,
+              "paged generation: speculative decoding (prompt-lookup "
+              "n-gram drafts verified in one chunk-shaped program); not "
+              "ported yet (True raises)")
+register_flag("FLAGS_serving_role", "both",
+              "disaggregated serving role of this GenerationEngine: "
+              "'both' (colocated prefill+decode, the default); 'prefill' "
+              "and 'decode' are not ported yet and raise")
+register_flag("FLAGS_serving_poison_value", "",
+              "chaos/testing hook: a float sentinel; a generation prompt "
+              "containing a token exactly equal to it raises "
+              "PoisonedInput at prefill — a deterministic stand-in for an "
+              "input that crashes the model; empty disables (the serve "
+              "path pays nothing)")

@@ -469,6 +469,7 @@ class CompiledStep:
         self.outputs: Tuple = ()
         self.deltas: List[int] = []
         self.pool_bytes: Optional[int] = None
+        self.captures = 0  # CUDA graphs captured for this entry
         self._ring: Dict[str, list] = {}
 
     @property
@@ -622,6 +623,7 @@ class CompiledStep:
             _COUNTS_LOCK.release()
         self.deltas = [x - y for x, y in zip(after, before)]
         self.graph = graph
+        self.captures += 1
         self.bound = state
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
 
@@ -780,6 +782,12 @@ class Executor:
                     "manifest": e.pool_bytes}
                    for e in self._cache.values()]
         return {"compiled": len(entries), "entries": entries}
+
+    def captures(self) -> List[int]:
+        """How many times each cached entry was captured as a CUDA graph,
+        oldest entry first: 1 once warm, more where the scope's state
+        moved and the entry captured again."""
+        return [e.captures for e in self._cache.values()]
 
     def close(self):
         """Resolve pending guard verdicts and free every entry's graph and

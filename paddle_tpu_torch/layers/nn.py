@@ -1,6 +1,7 @@
 """Graph-building NN layers: the subset of ``paddle_tpu/layers/nn.py`` on
-the BERT and Llama paths, with the same arguments, ops and attrs (static
-graph only)."""
+the BERT and Llama paths (Llama generation's dense KV-cache ops
+included), with the same arguments, ops and attrs (static graph
+only)."""
 from __future__ import annotations
 
 import numpy as np
@@ -10,7 +11,8 @@ from ..framework.layer_helper import LayerHelper
 
 __all__ = ["fc", "layer_norm", "embedding", "flash_attention",
            "flash_attention_qkv", "dropout", "sqrt", "silu", "mean",
-           "rms_norm", "rope"]
+           "rms_norm", "rope", "kv_cache_write", "kv_cache_insert",
+           "cached_attention"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -91,8 +93,8 @@ def flash_attention(q, k, v, bias=None, causal=False, scale=None,
 
     bias: optional additive score bias [B, Sk] (or [B, 1, 1, Sk]), the
     padding mask.  On the card it runs the Hopper kernels
-    (ops/attention_ops.py); ``impl="xla"`` is not ported and raises when
-    the program runs.
+    (ops/attention_ops.py); ``impl="xla"`` runs the einsum formulation
+    (layouts ``bhsd`` / ``bshd``, in-op probability dropout).
     """
     helper = LayerHelper("flash_attention", name=name)
     out = helper.create_variable_for_type_inference(q.dtype)
@@ -192,4 +194,49 @@ def rope(x, base=10000.0, position_offset=0, offset=None, name=None):
     helper.append_op("rope", inputs=inputs, outputs={"Out": [out]},
                      attrs={"base": base,
                             "position_offset": position_offset})
+    return out
+
+
+def kv_cache_write(cache, new, positions, name=None):
+    """Write the step's fresh K/V rows into a persistent decode cache in
+    place: ``cache`` [B, Hkv, S_max, D] gets ``new`` [B, Hkv, T, D] at
+    per-row sequence offset ``positions`` [B].  The op's output is the
+    cache variable itself, so the executor treats the cache as state the
+    step updates (in its own storage).  Returns the cache Variable."""
+    helper = LayerHelper("kv_cache_write", name=name)
+    helper.append_op("kv_cache_write",
+                     inputs={"Cache": [cache], "New": [new],
+                             "Positions": [positions]},
+                     outputs={"Out": [cache]})
+    return cache
+
+
+def kv_cache_insert(cache, new, slot, name=None):
+    """Prefill-time cache population, in place: ``cache`` [slots, Hkv,
+    S_max, D] gets ``new`` [1, Hkv, S_b, D] at slot index ``slot`` ([1]
+    int32 Variable), sequence offset 0.  Returns the cache Variable."""
+    helper = LayerHelper("kv_cache_insert", name=name)
+    helper.append_op("kv_cache_insert",
+                     inputs={"Cache": [cache], "New": [new],
+                             "Slot": [slot]},
+                     outputs={"Out": [cache]})
+    return cache
+
+
+def cached_attention(q, cache_k, cache_v, positions, scale=None,
+                     name=None):
+    """Decode-step attention over a KV cache: ``q`` [B, H, T, D] attends
+    ``cache_k`` / ``cache_v`` [B, Hkv, S_max, D] with per-row validity
+    ``j <= positions[b] + t`` (``positions`` [B] = pre-step sequence
+    length).  GQA caches pair query head h with kv head h // (H / Hkv).
+    Returns [B, H, T, D]."""
+    helper = LayerHelper("cached_attention", name=name)
+    out = helper.create_variable_for_type_inference(q.dtype)
+    attrs = {}
+    if scale is not None:
+        attrs["scale"] = float(scale)
+    helper.append_op("cached_attention",
+                     inputs={"Q": [q], "K": [cache_k], "V": [cache_v],
+                             "Positions": [positions]},
+                     outputs={"Out": [out]}, attrs=attrs)
     return out

@@ -10,7 +10,7 @@ from ..framework.layer_helper import LayerHelper
 __all__ = [
     "data", "fill_constant", "create_global_var", "cast", "sums",
     "reshape", "transpose", "squeeze", "unsqueeze", "stack", "slice",
-    "gather_nd", "expand", "tile", "range",
+    "gather_nd", "expand", "tile", "range", "argmax", "argmin",
     "reduce_sum", "elementwise_add", "elementwise_mul", "elementwise_div",
     "elementwise_max", "less_than", "scale", "increment", "where",
 ]
@@ -236,4 +236,20 @@ def range(start, end, step, dtype, name=None):
     helper.append_op("range", outputs={"Out": [out]},
                      attrs={"start": start, "end": end, "step": step,
                             "dtype": dtype})
+    return out
+
+
+def argmax(x, axis=0, name=None):
+    helper = LayerHelper("arg_max", name=name)
+    out = helper.create_variable_for_type_inference("int64")
+    helper.append_op("arg_max", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"axis": axis})
+    return out
+
+
+def argmin(x, axis=0, name=None):
+    helper = LayerHelper("arg_min", name=name)
+    out = helper.create_variable_for_type_inference("int64")
+    helper.append_op("arg_min", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"axis": axis})
     return out

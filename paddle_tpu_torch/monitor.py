@@ -13,7 +13,13 @@ compiled-step entry), ``host_syncs`` (every device->host fence the
 executor pays: a numpy fetch, a guard resolution, ``sync``; an async
 50-step run books O(1), not O(steps)), ``guard_resolutions`` (batched
 resolutions of the deferred non-finite guard's verdicts) and
-``skipped_nonfinite_steps``.
+``skipped_nonfinite_steps``.  The generation engine
+(serving/generation.py) books ``serving_generate_requests``,
+``serving_generate_shed``, ``requests_shed_deadline``,
+``serving_prefills``, ``serving_prefill_tokens``,
+``serving_decode_steps``, ``serving_decode_failures``,
+``serving_generated_tokens`` and ``serving_slot_reclaims``; fault.py
+books ``faults_injected`` and ``fault_<site>_<kind>``.
 """
 from __future__ import annotations
 

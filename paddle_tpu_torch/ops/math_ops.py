@@ -5,7 +5,9 @@ and Llama paths: ``elementwise_add/mul/div/max`` with Paddle ``axis``
 broadcasting, ``less_than``, ``scale``, ``mul``, ``gelu``, ``silu``,
 ``sqrt``, ``cast``, ``reduce_sum``, ``mean`` and ``sum``.  The plain
 matrix product of ``mul`` stays ``torch.matmul``, as the JAX package
-leaves it to XLA.
+leaves it to XLA; a one-row product is computed as two rows, so its row
+equals the same row of any longer product (generation's cached decode
+against the uncached forward).
 
 Binary ops promote their operands as jax.numpy does: a bfloat16 and a
 float32 operand give float32 whatever their ranks (torch alone would
@@ -158,7 +160,14 @@ def _mul(ctx: LowerContext, op: Operator):
     xs, ys = tuple(x.shape), tuple(y.shape)
     x2 = x.reshape(math.prod(xs[:xd]), -1)
     y2 = y.reshape(math.prod(ys[:yd]), -1)
-    ctx.set_output(op, "Out", torch.matmul(x2, y2).reshape(xs[:xd] + ys[yd:]))
+    if x2.shape[0] == 1:
+        # one row takes a GEMV path that sums in another order than the
+        # rows of a longer product (the uncached forward's); a decode
+        # step over one slot computes it as the first of two rows
+        out = torch.matmul(torch.cat([x2, x2]), y2)[:1]
+    else:
+        out = torch.matmul(x2, y2)
+    ctx.set_output(op, "Out", out.reshape(xs[:xd] + ys[yd:]))
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,9 @@
 Counterpart of ``paddle_tpu/ops/tensor_ops.py`` for the ops on the BERT
 and Llama paths: ``fill_constant``, ``fill_any_like``, ``uniform_random``,
 ``range``, ``reshape2``/``transpose2``, ``squeeze2``/``unsqueeze2``,
-``slice``, ``tile``, ``lookup_table_v2``, ``where`` and, for the
-masked-gather MLM head, ``expand``, ``stack`` and ``gather_nd``.
+``slice``, ``tile``, ``lookup_table_v2``, ``where``, ``arg_max`` /
+``arg_min`` (generation's greedy pick) and, for the masked-gather MLM
+head, ``expand``, ``stack`` and ``gather_nd``.
 Reshape, transpose and slice return views where PyTorch can, as the JAX
 package leaves layout to XLA.  Randomness comes from a per-op ``torch.Generator`` (LowerContext.rng); it
 draws other numbers than jax.random from the same seed.
@@ -341,3 +342,34 @@ def _where(ctx, op):
     cond = ctx.get_input(op, "Condition")
     x, y = ctx.get_input(op, "X"), ctx.get_input(op, "Y")
     ctx.set_output(op, "Out", torch.where(cond, x, y))
+
+
+def _argminmax_infer(op, block):
+    x = in_var(op, block, "X")
+    axis = op.attr("axis", -1)
+    keep = op.attr("keepdims", False)
+    if op.attr("flatten", False):
+        shape = []
+    else:
+        axis = axis % len(x.shape)
+        shape = [(1 if i == axis else s) for i, s in enumerate(x.shape)
+                 if keep or i != axis]
+    set_out(op, block, "Out", shape, op.attr("dtype", "int64"))
+
+
+def _make_argminmax(op_type, fn):
+    """``arg_max`` / ``arg_min``: the first index of the extreme value on
+    ties, as jnp.argmax / argmin give it (torch does the same)."""
+    def lower(ctx, op):
+        x = ctx.get_input(op, "X")
+        if op.attr("flatten", False):
+            out = fn(x.reshape(-1), 0, False)
+        else:
+            out = fn(x, op.attr("axis", -1), op.attr("keepdims", False))
+        ctx.set_output(op, "Out",
+                       out.to(dtype_to_torch(op.attr("dtype", "int64"))))
+    register_op(op_type, infer=_argminmax_infer, lower=lower, grad=None)
+
+
+_make_argminmax("arg_max", lambda x, a, k: torch.argmax(x, dim=a, keepdim=k))
+_make_argminmax("arg_min", lambda x, a, k: torch.argmin(x, dim=a, keepdim=k))

@@ -9,6 +9,7 @@ import importlib.util
 import os
 import re
 
+import numpy as np
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -86,3 +87,79 @@ def test_profiled_launches_are_held_to_the_replay_aware_counts():
         smoke.check_profiled_launches(kernels[1:], before, after, "a replay")
     with pytest.raises(AssertionError, match="the counters added"):
         smoke.check_profiled_launches(kernels, before, before, "a replay")
+
+
+# ---------------------------------------------------------------------------
+# phase 10: generation serving
+# ---------------------------------------------------------------------------
+
+def test_generation_phase_runs_llama_2_7b_at_the_card_configuration():
+    """The flagship engine: Llama-2-7B's widths and 32 layers, 4 slots of
+    1024 positions, buckets 64-512; 8 prompts of 20-500 tokens that land
+    in every bucket, each with its 64 new tokens inside the cache (so
+    every request ends 'length'); the parity config keeps the widths."""
+    assert smoke.GEN == dict(vocab_size=32000, hidden=4096, num_heads=32,
+                             intermediate=11008, num_layers=32)
+    eng = smoke.GEN_ENGINE
+    assert (eng["num_slots"], eng["max_seq_len"]) == (4, 1024)
+    assert eng["prefill_buckets"] == (64, 128, 256, 512)
+    prompts = smoke.GEN_PROMPTS
+    assert len(prompts) == 8 and min(prompts) == 20 and max(prompts) == 500
+    buckets = {min(b for b in eng["prefill_buckets"] if b >= n)
+               for n in prompts}
+    assert buckets == set(eng["prefill_buckets"])
+    assert max(prompts) + smoke.GEN_NEW_TOKENS <= eng["max_seq_len"]
+    assert {k: v for k, v in smoke.GEN_PARITY.items()
+            if k != "num_layers"} == smoke.LLAMA
+    par = smoke.GEN_PARITY_ENGINE
+    assert max(smoke.GEN_PARITY_PROMPTS) <= max(par["prefill_buckets"])
+    assert max(smoke.GEN_PARITY_PROMPTS) + smoke.GEN_PARITY_NEW_TOKENS \
+        <= par["max_seq_len"]
+
+
+def test_gen_prompts_are_seeded_token_ids():
+    a = smoke.gen_prompts((3, 7), 50, seed=1)
+    b = smoke.gen_prompts((3, 7), 50, seed=1)
+    assert [p.size for p in a] == [3, 7] and all(p.dtype == np.int64
+                                                 for p in a)
+    assert all(np.array_equal(x, y) for x, y in zip(a, b))
+    assert all(1 <= p.min() and p.max() < 50 for p in a)
+
+
+def test_stream_errors_reads_every_step_against_the_uncached_logits():
+    """The worst |cached - uncached| over every step of every request, and
+    whether each greedy token is the uncached logits' argmax."""
+    V = 5
+    ref = np.zeros((16, V), "float32")
+    ref[2:6, :] = np.eye(V, dtype="float32")[[1, 3, 0, 2]]
+    prompt = [4, 4, 4]  # step i reads row len(prompt) - 1 + i
+    logits = [ref[2 + i].copy() for i in range(4)]
+    logits[1][0] += 0.25
+    res = {"tokens": [1, 3, 0, 2], "logits": logits}
+    err, greedy = smoke.stream_errors([res], [prompt], lambda seq: ref)
+    assert err == 0.25 and greedy
+    res["tokens"] = [1, 3, 0, 4]
+    assert smoke.stream_errors([res], [prompt], lambda seq: ref)[1] is False
+
+
+def _fake_profile(events):
+    import json as _json
+
+    class Prof:
+        def export_chrome_trace(self, path):
+            with open(path, "w") as f:
+                _json.dump({"traceEvents": events}, f)
+    return Prof()
+
+
+def test_memcpy_report_fails_a_cache_sized_copy():
+    events = [{"name": "Memcpy DtoD (Device -> Device)",
+               "args": {"bytes": 32}},
+              {"name": "Memcpy HtoD (Pageable -> Device)",
+               "args": {"bytes": 1 << 30}},
+              {"name": "fa_fwd_f32_kernel", "args": {}}]
+    assert smoke.memcpy_report(_fake_profile(events), 1 << 20) == (1, 32, 32)
+    events.append({"name": "Memcpy DtoD (Device -> Device)",
+                   "args": {"bytes": 1 << 20}})
+    with pytest.raises(AssertionError, match="not written in place"):
+        smoke.memcpy_report(_fake_profile(events), 1 << 20)

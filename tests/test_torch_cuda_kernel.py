@@ -476,7 +476,8 @@ def test_flash_attention_op_on_the_card(cuda):
     """The flash_attention op launches the forward kernel once and its
     grad op both backward kernels (on the graph the forward kept, with no
     second forward), on the card (fp32 against the CPU: atol 1e-4);
-    head_dim 96 and impl='xla' raise."""
+    head_dim 96 raises; impl='xla' (the einsum formulation) launches no
+    kernel and matches the CPU's."""
     import paddle_tpu_torch as tpt
 
     def run(place, D, impl="auto"):
@@ -513,8 +514,11 @@ def test_flash_attention_op_on_the_card(cuda):
     # the op's lowering wraps the wrapper's ValueError with its context
     with pytest.raises(tpt.errors.EnforceNotMet, match="head_dim"):
         run(None, 96)
-    with pytest.raises(NotImplementedError, match="xla"):
-        run(None, 64, impl="xla")
+    before = tfa.flash_attention_unpacked.launches
+    got = run(None, 64, impl="xla")
+    assert tfa.flash_attention_unpacked.launches == before
+    for g, w in zip(got, run(tpt.CPUPlace(), 64, impl="xla")):
+        np.testing.assert_allclose(g, w, atol=1e-4, rtol=0)
 
 
 # ---------------------------------------------------------------------------

@@ -17,7 +17,7 @@ step built as the flagship builds it: ``build_llama_train`` and
 * bf16 AMP: the loss follows the JAX package's within 1% at each of 3
   steps (bf16 keeps 8 mantissa bits, 0.4% per rounding; the two packages
   round at the same ops but sum in other orders).
-* The KV-cache modes of llama_block (generation) raise.
+* The block-paged KV-cache modes (paged generation) raise.
 """
 import importlib
 import json
@@ -184,10 +184,25 @@ def test_bf16_amp_loss_follows_jax():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(kv_cache=("ck", "cv"), positions="pos"), dict(collect_kv=True),
-    dict(block_table="bt", kv_lengths="len")],
+    dict(kv_cache=("ck", "cv"), positions="pos", block_table="bt",
+         kv_lengths="len"),
+    dict(collect_kv=True, paged=True),
+    dict(block_table="bt", kv_lengths="len", paged=True)],
     ids=["kv_cache", "collect_kv", "block_table"])
 def test_cache_modes_raise(kw):
-    x = tpt.layers.data("x", [B, S, 64], append_batch_size=False)
-    with pytest.raises(NotImplementedError, match="generation"):
-        t_llama.llama_block(x, 64, 4, 2, S, 16, 128, **kw)
+    """The dense cache modes are ported (tests/test_torch_generation.py);
+    the block-paged ones still raise: paged decode in llama_block, and
+    the paged prefill and decode builders."""
+    kw = dict(kw)
+    with pytest.raises(NotImplementedError, match="paged"):
+        if kw.pop("paged", False):
+            if "collect_kv" in kw:
+                t_llama.build_llama_prefill(1, S, cache_slots=2,
+                                            max_seq_len=S, paged=True,
+                                            num_pages=9, page_tokens=8)
+            else:
+                t_llama.build_llama_decode(2, S, paged=True, num_pages=9,
+                                           page_tokens=8)
+        else:
+            x = tpt.layers.data("x", [B, S, 64], append_batch_size=False)
+            t_llama.llama_block(x, 64, 4, 2, S, 16, 128, **kw)

@@ -608,10 +608,22 @@ def test_ported_op_set_covers_the_llama_training_step():
 
 
 def test_flash_attention_xla_impl_raises():
-    """impl='xla' (the einsum formulation) is not ported: it raises
+    """impl='xla' (the einsum formulation) is ported; under the 'sp' mesh
+    axis it would attend over the local shard only, so there it raises
     instead of running another formulation."""
-    q = _f(1, 2, 8, 16)
-    with pytest.raises(NotImplementedError, match="xla"):
-        _run(tpt, "flash_attention", {"Q": {"q": q}, "K": {"k": q},
-                                      "V": {"v": q}},
-             {"Out": ["o"]}, {"impl": "xla"}, ["o"])
+    from paddle_tpu_torch.ops.registry import LowerContext, lower_op
+
+    q = torch.from_numpy(_f(1, 2, 8, 16))
+    main = tpt.Program()
+    block = main.global_block()
+    for n in "qkv":
+        block.create_var(name=n, shape=[1, 2, 8, 16], dtype="float32")
+    op = block.append_op("flash_attention",
+                         inputs={"Q": ["q"], "K": ["k"], "V": ["v"]},
+                         outputs={"Out": ["o"]}, attrs={"impl": "xla"})
+    ctx = LowerContext(block, {"q": q, "k": q, "v": q}, torch.device("cpu"))
+    lower_op(ctx, op, 0)
+    assert ctx.env["o"].shape == (1, 2, 8, 16)
+    ctx.axis_names = ("sp",)
+    with pytest.raises(NotImplementedError, match="sequence parallel"):
+        lower_op(ctx, op, 0)
