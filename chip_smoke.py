@@ -22,6 +22,26 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    a ptxas warning
    C7508 (setmaxnreg ignored) or C7512 (wgmmas serialised for want of
    registers) fails the phase.
+   Then the fp32 product kernel whose rows do not depend on M
+   (csrc/gemm_f32.cu, ops/cuda/gemm.py; every forward-only fp32 product
+   on the card): no function of it spills; at Llama-2-7B's decode and
+   prefill shapes (K x N = 4096 x 12288, 4096 x 4096, 4096 x 22016, 11008
+   x 4096, 4096 x 32000) and BERT's 768 x 2304, every row of an M-row
+   product (M 1, 2, 3, 4, 7, 16, 17, 64, 128, 500, 1024) bit-equal to the
+   same row of the 1024-row product and of a row-permuted one, and the
+   same for decode attention's batched Q K^T (K^T read from the cache)
+   and P V; each within gemm.tolerance of its plain version (|d| <= 8
+   sqrt(K) 2**-24 sqrt((x x) @ (w w)): eight spreads of a K-term fp32
+   sum's rounding error), which two controls must fail at every shape:
+   torch.matmul with TF32 allowed, and the exact product of operands
+   rounded to bf16; then its event and device time beside torch.matmul's
+   and its bound at M 4 (decode) and 512 (prefill).  Then
+   the fp32 RMSNorm kernel whose rows do not depend on the row count
+   (csrc/rms_norm_f32.cu, ops/cuda/rms_norm.py: every forward-only fp32
+   rms_norm on the card): at width 4096, every row of an M-row norm (M 1
+   to 1024) bit-equal to the same row of the 1024-row one and of a
+   row-permuted one, within 2e-6 (relative to the largest output) of
+   the op's PyTorch formulation, and its times at 4 and 512 rows.
    Each source picks its kernel by dtype: bfloat16 runs the tensor-core
    kernels, float32 the CUDA-core ones (fa_fwd_f32_kernel,
    fa_dkv_f32_kernel, fa_dq_f32_kernel: exact fp32 FMAs, no TF32).  So the
@@ -74,10 +94,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    answering batch 1, 4 and 8 at seq 128 with padding in attn_mask, each
    request a replay.  Every kernel count is set to 0 just before and
    read just after (replay-aware counters): each request must launch the
-   forward kernel exactly 12 times,
-   no backward kernel, and never call a plain version.  The batch-4
-   request runs again through Predictor(dir, device="cpu"): logits max
-   abs diff <= 1e-3 and loss rel diff <= 1e-4 (fp32, TF32 off).
+   forward kernel exactly 12 times and the product kernel once a mul op,
+   no backward kernel, and never call a plain version.  Then 40 batch-4
+   requests whose caller keeps every response against 40 that drop it,
+   in turns: the median ms of each and of each turn (printed), no pinned
+   host memory allocated while keeping them (where PyTorch reports it),
+   every kept response unchanged.  The batch-4 request runs again
+   through Predictor(dir, device="cpu"): logits max abs diff <= 1e-3 and
+   loss rel diff <= 1e-4 (fp32, TF32 off).
 5. training parity at full width: BERT-base (seq 128, batch 2,
    max_predictions 19), fp32 with TF32 off, dropout 0, bench.py's Adam
    and global-norm clip with a short warmup (lr 0, 5e-4, 1e-3) so the
@@ -165,10 +189,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
       (teacher-forced, attn_impl "xla"): every step's logits within 1e-3
       (fp32, TF32 off, as phase 4), every greedy token equal; (b) the same
       requests with attn_impl "xla" against the card's own uncached "xla"
-      forward at max_seq_len: max |d| reported (bit-equal on the CPU;
-      here held to 1e-3 only to catch a broken path), beside each decode
-      product's row consistency on the card (x[:2] @ W against the first
-      rows of x[:128] @ W at the block's and the head's shapes).
+      forward at max_seq_len: max |d| exactly 0 (every product on the
+      product kernel), printed beside cuBLAS's row consistency (x[:2] @ W
+      against the first rows of x[:128] @ W at the block's and the head's
+      shapes); (c) a paged engine (page 16, prefix reuse and chunking
+      off) on the same weights: tokens and every step's logits bit-equal
+      to (a)'s; (d) a shared-prefix batch (a donor, then two borrowers
+      of its 32-token header) and (e) a chunked batch (chunk 16), each
+      against the card's uncached forward within 1e-3 with greedy tokens
+      equal, (d) with prefix hits and the shared pages' bytes unchanged.
+      Each engine: kernel #4 num_layers times a whole-prompt prefill, the
+      product kernel once a product of its programs (6 L + 1 a decode
+      step or chunk, 4 L + 1 a prefill on kernel #4) and the RMSNorm
+      kernel 2 L + 1 times a program's run, read through the
+      replay-aware counters.
    b. the flagship: Llama-2-7B (32 layers, fp32 weights from the startup
       program, 6.74 B parameters), 4 slots x 1024 positions (4 GiB of
       caches), buckets 64 / 128 / 256 / 512, attn_impl "auto"; warmup
@@ -186,38 +220,61 @@ Phases (any failure raises and exits non-zero; nothing is caught):
       times, the decode step's bound (weights and caches read once at
       the card's HBM rate), each profiled replay's busy / idle, peak and
       reserved memory, the captures per program ("generation:" JSON
-      line).
+      line).  Then the dense engine closes and its caches go, and two
+      paged engines share its weights (page 16, pools auto-sized to 257
+      pages): (i) the same 8 requests with prefix reuse on (the prompts
+      distinct) and chunking off: the dense run's tokens, the launches
+      as above, each program captured once, the pools keep their
+      data_ptr, one profiled paged decode replay with 0 cudaLaunchKernel,
+      1 cudaGraphLaunch and no copy of a pool's size; (ii) 8 requests
+      sharing a 256-token header (16 pages), tails of 20-200 tokens, 64
+      new tokens each, prefill_chunk 128: every request 'length', at
+      least one prefix hit; printed: hits, TTFT p50 and inter-token p99
+      against the dense run's.
 
 Every profiled replay (phases 4, 5, 6 and 9) also holds the profiler's
 launches of the forward, dK/dV and dQ kernels against what the
 replay-aware counters added over it: a replay runs no wrapper, so this
 is what shows that the counts the per-step gates read are the
-kernels that ran.
+kernels that ran.  torch.profiler now and then loses kernel records;
+while the two disagree the replay is profiled again, up to 3 in all,
+each profile's kernel records and launches logged.  A disagreement is
+put down to lost records only in a profile with fewer kernel records
+than another of the same replay; the profile with the most records
+must agree (phase 4 and the flagships' profiled steps).
 
 On every path (phases 4, 5, 6, 8, 9, 10) no bfloat16 operand is copied to
 meet TMA's 16-byte alignment: the launching wrappers' ".realigned"
 counts stay 0.
 
 The "launches" of each kernel in the kernels line is its count on its
-slice's main path: phase 6 (BERT training) for the packed kernels,
-phase 9 (Llama training) for the unpacked ones.  "launches_by_path" has
-beside it the count of every path, each read from 0: serving (phase 4),
+slice's main path: phase 6 (BERT training) for the packed kernels, phase
+9 (Llama training) for the unpacked ones. "launches_by_path" has beside
+it the count of every path, each read from 0: serving (phase 4),
 training_parity (phase 5, card steps), training_flagship (phase 6),
 llama_parity (phase 8, card steps), llama_flagship (phase 9),
-generation_parity (phase 10a, card requests) and generation (phase
-10b's traffic).  Kernel #4's entry also carries "f32_prefill": the fp32
-forward at the largest prefill bucket, [1, 32, 512, 128] causal.  The
+generation_parity (phase 10a, card requests), generation (phase 10b's
+dense traffic), generation_paged and generation_shared_prefix (its two
+paged runs). Kernel #4's entry also carries "f32_prefill": the fp32
+forward at the largest prefill bucket, [1, 32, 512, 128] causal. The
 four backward entries also carry "f32": their fp32 kernel's device_ms,
 ms, bound_ms and SDPA's fp32 backward's library_device_ms at the same
 shape (BERT's training shape for the packed, the Llama shape for the
-unpacked ones).  The last lines are the card's name and power limit, one
-{"kernels": ...} JSON line, and {"ok": true, "device": {...}}.  Before
-them, one "compiled step:" JSON line holds each profiled path's wall ms,
-device busy ms, idle share and host launches (serving_b4, bert_fp32,
-bert_flagship, llama_flagship), the run_async windows' ms/step and
-tokens/s, whether captured = eager came out bit-equal and the memory
-with two captured Llama entries (llama_two_signatures), and phase 10's
-profiled replays (generation_decode, generation_prefill).
+unpacked ones). The seventh entry is the product kernel (gemm_f32): its
+row the decode step's qkv product (M 4, K 4096, N 12288), its "launches"
+phase 10b's dense traffic's, "tolerance_ratio" the largest |kernel -
+plain| / gemm.tolerance of phase 2 and the smallest of its TF32 and bf16
+controls, "shapes" every shape phase 2 timed; the eighth the RMSNorm
+kernel (rms_norm_f32): its row the decode step's [4, 4096], "library_ms"
+torch.nn.functional.rms_norm's. The last lines are the card's name and
+power limit, one {"kernels": ...} JSON line, and {"ok": true, "device":
+{...}}. Before them, one "compiled step:" JSON line holds each profiled
+path's wall ms, device busy ms, idle share and host launches
+(serving_b4, bert_fp32, bert_flagship, llama_flagship), the run_async
+windows' ms/step and tokens/s, whether captured = eager came out
+bit-equal and the memory with two captured Llama entries
+(llama_two_signatures), and phase 10's profiled replays
+(generation_decode, generation_prefill).
 
 Every phase runs through the executor's compiled step (Executor.run /
 run_async and Predictor.run on the card: the first run of a signature
@@ -309,6 +366,10 @@ GEN_ENGINE = dict(num_slots=4, max_seq_len=1024,
                   deadline_ms=600000.0)
 GEN_PROMPTS = (20, 100, 500, 64, 200, 300, 130, 450)
 GEN_NEW_TOKENS = 64
+# phase 10b (ii): a 256-token header (16 pages) shared by 8 requests, each
+# with its own tail
+GEN_SHARED_HEADER = 256
+GEN_SHARED_TAILS = (20, 45, 70, 95, 120, 150, 175, 200)
 # gates (a) and (b) at 2 layers of the same widths: 2 slots, 128
 # positions, two concurrent requests
 GEN_PARITY = dict(LLAMA, num_layers=2)
@@ -317,6 +378,8 @@ GEN_PARITY_ENGINE = dict(num_slots=2, max_seq_len=128,
                          deadline_ms=600000.0)
 GEN_PARITY_PROMPTS = (20, 50)
 GEN_PARITY_NEW_TOKENS = 24
+# the paged cache's page (FLAGS_serving_kv_page_tokens' default)
+GEN_PAGE = 16
 # the unpacked kernels' grads in fp32 and bf16 (as the packed ones')
 FP32_GRAD_ATOL, BF16_GRAD_ATOL = 1e-4, 5e-2
 # the bf16 tensor-core kernels, each built at D 64 and 128
@@ -1034,10 +1097,13 @@ def kernel_wrappers(fa):
 
 
 def plain_versions(fa):
+    from paddle_tpu_torch.ops.cuda import gemm, rms_norm
+
     return (fa.flash_attention_packed_reference,
             fa.flash_attention_packed_backward_reference,
             fa.flash_attention_reference,
-            fa.flash_attention_backward_reference)
+            fa.flash_attention_backward_reference, gemm.matmul_reference,
+            rms_norm.rms_norm_rows_reference)
 
 
 def tma_wrappers(fa):
@@ -1047,8 +1113,18 @@ def tma_wrappers(fa):
     return kernel_wrappers(fa)
 
 
+class Launches(tuple):
+    """The six attention kernels' launches (a tuple, as the gates compare
+    it), with the product kernel's and the RMSNorm kernel's beside them
+    in ``.gemm`` and ``.rms_norm``."""
+    gemm = 0
+    rms_norm = 0
+
+
 def reset_counts(fa):
-    for w in kernel_wrappers(fa):
+    from paddle_tpu_torch.ops.cuda import gemm, rms_norm
+
+    for w in kernel_wrappers(fa) + (gemm.matmul, rms_norm.rms_norm_rows):
         w.launches = 0
     for w in tma_wrappers(fa):
         w.realigned = 0
@@ -1057,11 +1133,59 @@ def reset_counts(fa):
 
 
 def read_counts(fa):
-    """(launches of the six kernels, plain-version calls, operands
-    realigned for TMA): a path must leave the last two at 0."""
-    return (tuple(w.launches for w in kernel_wrappers(fa)),
-            sum(p.calls for p in plain_versions(fa)),
+    """(launches of the six kernels, with the product kernel's in
+    ``.gemm`` and the RMSNorm kernel's in ``.rms_norm``; plain-version
+    calls; operands realigned for TMA): a path must leave the last two at
+    0."""
+    from paddle_tpu_torch.ops.cuda import gemm, rms_norm
+
+    counts = Launches(w.launches for w in kernel_wrappers(fa))
+    counts.gemm = gemm.matmul.launches
+    counts.rms_norm = rms_norm.rms_norm_rows.launches
+    return (counts, sum(p.calls for p in plain_versions(fa)),
             sum(w.realigned for w in tma_wrappers(fa)))
+
+
+def pinned_host_allocs():
+    """Pinned host allocations made so far (PyTorch's caching host
+    allocator), or None where this PyTorch does not report them."""
+    import torch
+
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    if stats is None:
+        return None
+    return stats().get("num_host_alloc")
+
+
+def kept_vs_dropped(pred, feed, n=20):
+    """Batch-4 requests whose caller keeps every response against ones
+    whose caller drops it, in turns of n (dropped, kept, kept, dropped):
+    the median ms of each kind and ("turns") of each turn, so that two
+    turns of one kind show the run-to-run noise; the pinned host
+    allocations the kept ones made; whether every kept response still
+    equals its first fetch."""
+    first = pred.run(feed)
+    times = {"kept": [], "dropped": []}
+    turns = []
+    kept = []
+    allocs = None
+    for turn in ("dropped", "kept", "kept", "dropped"):
+        before = pinned_host_allocs()
+        ms = []
+        for _ in range(n):
+            t = time.perf_counter()
+            out = pred.run(feed)
+            ms.append((time.perf_counter() - t) * 1e3)
+            if turn == "kept":
+                kept.append(out)
+        after = pinned_host_allocs()
+        if turn == "kept" and before is not None:
+            allocs = (allocs or 0) + after - before
+        times[turn] += ms
+        turns.append(float(np.median(ms)))
+    equal = all(np.array_equal(o[0], first[0]) for o in kept)
+    return (dict({k: float(np.median(v)) for k, v in times.items()},
+                 turns=turns), allocs, equal)
 
 
 def serve(tpt, fa, workdir):
@@ -1077,6 +1201,7 @@ def serve(tpt, fa, workdir):
     loss = outs["loss"].name
     n_attn = sum(op.type == "flash_attention_qkv"
                  for op in main.global_block().ops)
+    n_mul = sum(op.type == "mul" for op in main.global_block().ops)
     exe = tpt.Executor()  # the card
     scope = tpt.Scope()
     with tpt.scope_guard(scope):
@@ -1114,15 +1239,18 @@ def serve(tpt, fa, workdir):
     reset_counts(fa)
     results, lat = {}, {}
     for b, s in requests:
-        before = fa.flash_attention_packed.launches
+        before = read_counts(fa)[0]
         feed = bert_feed(b, seed=10 * b + s)
         t = time.perf_counter()
         out = pred.run(feed)  # numpy fetches: ends in a device sync
         lat.setdefault(b, []).append((time.perf_counter() - t) * 1e3)
-        launched = fa.flash_attention_packed.launches - before
-        if launched != n_attn:
-            raise AssertionError(f"batch {b}: {launched} kernel launches, "
-                                 f"expected {n_attn}")
+        after = read_counts(fa)[0]
+        launched = after[0] - before[0]
+        if launched != n_attn or after.gemm - before.gemm != n_mul:
+            raise AssertionError(f"batch {b}: {launched} attention and "
+                                 f"{after.gemm - before.gemm} product "
+                                 f"kernel launches, expected {n_attn} and "
+                                 f"{n_mul}")
         if out[0].shape != (b, BERT["seq_len"], BERT["vocab_size"]) or \
                 not (np.isfinite(out[0]).all() and np.isfinite(out[1]).all()):
             raise AssertionError(f"batch {b}: bad output {out[0].shape}")
@@ -1144,8 +1272,21 @@ def serve(tpt, fa, workdir):
             f"card {', '.join(f'{x:.3f}' for x in ms)} ms (replays of the "
             f"captured signature, numpy fetches included)")
     log(f"  serving: {len(requests)} requests, {launches} kernel launches "
-        f"({n_attn} per request), plain version called {plain_calls} times, "
-        f"operands realigned {realigned}")
+        f"({n_attn} per request), {counts.gemm} of the product kernel (every "
+        f"one of the {n_mul} mul ops a request), plain versions called "
+        f"{plain_calls} times, operands realigned {realigned}")
+    medians, allocs, equal = kept_vs_dropped(pred, bert_feed(4, seed=42))
+    FETCH.update(medians, pinned_allocs_kept=allocs, kept_equal=equal)
+    log(f"  batch-4 requests, caller keeps every response: "
+        f"{medians['kept']:.3f} ms (median of 40), drops it: "
+        f"{medians['dropped']:.3f} ms (turns dropped, kept, kept, dropped: "
+        f"{', '.join(f'{x:.3f}' for x in medians['turns'])}); pinned host "
+        f"allocations while "
+        f"keeping: {'not measured' if allocs is None else allocs}; kept "
+        f"responses unchanged: {equal}")
+    if not equal or allocs:
+        raise AssertionError(f"kept fetches: unchanged {equal}, pinned "
+                             f"allocations {allocs}")
 
     t0 = time.perf_counter()
     cpu = tpt.inference.Predictor(workdir, device="cpu")
@@ -1166,30 +1307,92 @@ def serve(tpt, fa, workdir):
     return counts
 
 
+# phase 4's kept / dropped batch-4 requests, for the summary line
+FETCH = {}
+
+
 def profile_request(pred, fa, feed):
     """Where one batch-4 request's time goes: torch.profiler's device
     time by kernel against the request's wall time (a replay of the
     captured signature, after the counted runs, so these launches are not
     in the main path's counts), and the profiler's kernel launches held
     against the replay-aware counts."""
+    pred.run(feed)
+    profiled_launches(lambda: pred.run(feed), fa, "one batch-4 request",
+                      "serving_b4")
+
+
+# profiles of one replay taken at most, while the profiler's launches
+# differ from the counters'
+PROFILE_TRIES = 3
+
+
+def profiled_launches(call, fa, what, key):
+    """One profiled call of `call` (a replay): report_profile's numbers,
+    and the profiler's launches held to the replay-aware counts
+    (check_profiled_launches).  torch.profiler now and then loses kernel
+    records; so while the two disagree the replay is profiled again, up
+    to PROFILE_TRIES in all, each reading logged, and gated_profile
+    decides which profile the gate holds."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
-    pred.run(feed)
-    before = read_counts(fa)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        pred.run(feed)
-        wall_us = (time.perf_counter() - t) * 1e6
-    kernels, _ = report_profile(prof, wall_us, "one batch-4 request",
-                                key="serving_b4")
-    check_profiled_launches(kernels, before, read_counts(fa),
-                            "one batch-4 request")
+    readings, runs = [], []
+    for attempt in range(1, PROFILE_TRIES + 1):
+        before = read_counts(fa)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t) * 1e6
+        kernels, _ = report_profile(prof, wall_us, what, key=key)
+        after = read_counts(fa)
+        total = sum(e.count for e in kernels)
+        seen, want = launch_deltas(kernels, before, after)
+        log(f"  {what}, profile {attempt}: {total} kernel records; the "
+            f"profiler saw {seen} launches of the forward, dK/dV and dQ "
+            f"kernels, the counters added {want}")
+        readings.append((total, seen, want))
+        runs.append((kernels, before, after, dict(PROFILES[key])))
+        if seen == want:
+            break
+    kernels, before, after, PROFILES[key] = runs[gated_profile(readings,
+                                                               what)]
+    check_profiled_launches(kernels, before, after, what)
+
+
+def gated_profile(readings, what):
+    """Which of one replay's profiles, readings (kernel records in all,
+    the profiler's launches, the counters'), the launch gate holds: the
+    one with the most kernel records.  The replay launches the same
+    graph every time, so a profile with fewer records than another lost
+    some, and its launches may fall short of the counters'; any profile
+    with the most records whose launches differ fails here."""
+    top = max(total for total, _, _ in readings)
+    if any(total == top and seen != want
+           for total, seen, want in readings):
+        raise AssertionError(
+            f"{what}: the profiler's launches differ from the counters' in "
+            f"a profile that lost no records (the most kernel records, "
+            f"{top}); every profile's (records, profiler, counters): "
+            f"{readings}")
+    return max(i for i, r in enumerate(readings) if r[0] == top)
 
 
 # the kernels each pair of wrappers (packed, unpacked) launches, by the
 # part of the name they share: forward, dK/dV, dQ
 KERNEL_FAMILIES = ("fa_fwd_", "fa_dkv_", "fa_dq_")
+
+
+def launch_deltas(kernels, before, after):
+    """(the profiler's launches of each kernel family in `kernels`, the
+    counters' deltas of each family, packed plus unpacked wrapper,
+    between `before` and `after`)."""
+    d = [a - b for a, b in zip(after[0], before[0])]
+    return (tuple(sum(e.count for e in kernels if fam in e.key)
+                  for fam in KERNEL_FAMILIES),
+            tuple(d[i] + d[i + 3] for i in range(3)))
 
 
 def check_profiled_launches(kernels, before, after, what):
@@ -1198,10 +1401,7 @@ def check_profiled_launches(kernels, before, after, what):
     each kernel family, the profiler's launches equal the counters'
     deltas (packed plus unpacked wrapper) between `before` and
     `after`."""
-    d = [a - b for a, b in zip(after[0], before[0])]
-    want = tuple(d[i] + d[i + 3] for i in range(3))
-    seen = tuple(sum(e.count for e in kernels if fam in e.key)
-                 for fam in KERNEL_FAMILIES)
+    seen, want = launch_deltas(kernels, before, after)
     log(f"  {what}: the profiler saw {seen} launches of the forward, "
         f"dK/dV and dQ kernels; the replay-aware counters added {want}")
     if seen != want:
@@ -1882,23 +2082,252 @@ def check_build(build):
                                  f"{report.get(label)}")
 
 
+# the product kernel (csrc/gemm_f32.cu): the decode and prefill shapes K x
+# N of Llama-2-7B's products (qkv, attn_out, gate_up, ffn_out, head) and
+# BERT-base's qkv, each row held bit-equal across these M
+GEMM_SHAPES = ((4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096),
+               (4096, 32000), (768, 2304))
+GEMM_MS = (1, 2, 3, 4, 7, 16, 17, 64, 128, 500, 1024)
+# decode attention's batched products (4 slots x 32 heads over 1024 keys,
+# D 128): Q K^T with K^T read from the cache [.., keys, D], and P V
+GEMM_ATTN = (("qk", 128, 128, 1024), ("pv", 128, 1024, 128))
+# timed at the decode step's M (4 slots) and a prefill bucket's (512)
+GEMM_TIME_MS = (4, 512)
+
+
+def gemm_label(mangled):
+    """'gemm_skinny_kernel<4, 1, 1>' for a product kernel's mangled name,
+    None for anything else."""
+    m = re.search(r"(gemm_(?:skinny|tiled|fold)_kernel)(I\w*?E)?E", mangled)
+    if m is None:
+        return None
+    params = re.findall(r"L[ib](\d+)E", m.group(2) or "")
+    return f"{m.group(1)}<{', '.join(params)}>" if params else m.group(1)
+
+
+def gemm_bound(M, N, K):
+    """(bound ms, 'bytes' or 'operations') of one M x K @ K x N fp32
+    product: each operand read once and the output written once at the
+    HBM peak, against 2 M N K at the fp32 peak."""
+    t_bytes = 4.0 * (M * K + K * N + M * N) / PEAK_BYTES_PER_S * 1e3
+    t_ops = 2.0 * M * N * K / PEAK_FLOP_PER_S["float32"] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_gemm(gemm, build, device):
+    """The product kernel: no spill in ptxas's report for any of its
+    functions; at each GEMM_SHAPES K x N, every row of an M-row product
+    (GEMM_MS) bit-equal to the same row of the 1024-row product and of a
+    row-permuted one; the same for decode attention's batched products
+    (GEMM_ATTN, M 1-16 against 1024 rows); each product at M 4 and 512
+    within gemm.tolerance of the plain version's (chunk partials by
+    torch.matmul, folded in the same order), and two controls over it at
+    each shape (torch.matmul with TF32 allowed; the exact product of
+    operands rounded to bf16), so the limit is shown to catch reduced
+    precision.  Then the kernel's event and device time beside
+    torch.matmul's and the plain version's at M 4 and 512 of each shape.
+    Returns the timing rows and the largest |got - plain| / tolerance of
+    the kernel and the smallest of each control."""
+    import torch
+
+    lines = []
+    for text in build.build_logs.values():
+        label = None
+        for line in text.splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?(\w+)", line)
+            if m:
+                label = gemm_label(m.group(1))
+            elif label and "spill" in line:
+                lines.append((label, line.strip()))
+    labels = sorted({label for label, _ in lines})
+    log(f"  product kernel functions: {len(labels)} ({', '.join(labels)})")
+    for label, line in lines:
+        if re.search(r"[1-9]\d* bytes spill", line):
+            raise AssertionError(f"{label} spills registers: {line}")
+    if not any(label.startswith("gemm_tiled") for label in labels) or \
+            not any(label.startswith("gemm_skinny") for label in labels):
+        raise AssertionError(f"no ptxas report of the product kernels: "
+                             f"{labels}")
+    g = torch.Generator(device=device).manual_seed(3)
+    # the largest |got - plain| / gemm.tolerance of the kernel and of each
+    # control: the kernel's must stay <= 1, each control's must pass 1
+    ratios = {"kernel": 0.0, "tf32": math.inf, "bf16": math.inf}
+
+    def err_ratio(x, w, got):
+        """(max |got - plain|, the largest |got - plain| / tolerance)."""
+        d = (got - gemm.matmul_reference(x, w)).abs()
+        return float(d.max()), float((d / gemm.tolerance(x, w)).max())
+
+    def controls(x, w, what):
+        """The two controls' ratios at x @ w; each must exceed 1."""
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = torch.matmul(x, w)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        bf16 = gemm.matmul_reference(x.bfloat16().float(),
+                                     w.bfloat16().float())
+        for name, got in (("tf32", tf32), ("bf16", bf16)):
+            r = err_ratio(x, w, got)[1]
+            ratios[name] = min(ratios[name], r)
+            if not r > 1:
+                raise AssertionError(f"gemm {what}: the {name} control is "
+                                     f"within the tolerance ({r:.3g} of "
+                                     f"it): the limit cannot catch {name}")
+
+    worst = 0.0
+    for K, N in GEMM_SHAPES:
+        x = torch.randn(max(GEMM_MS), K, device=device, generator=g)
+        w = torch.randn(K, N, device=device, generator=g)
+        full = gemm.matmul(x, w)
+        perm = torch.randperm(x.shape[0], device=device, generator=g)
+        if not torch.equal(gemm.matmul(x[perm], w), full[perm]):
+            raise AssertionError(f"gemm {K}x{N}: a row-permuted product's "
+                                 f"rows differ")
+        for M in GEMM_MS:
+            if not torch.equal(gemm.matmul(x[:M], w), full[:M]):
+                raise AssertionError(f"gemm {K}x{N}: rows of M={M} differ "
+                                     f"from the same rows of M=1024")
+        for M in (4, 512):
+            err, ratio = err_ratio(x[:M], w, full[:M])
+            worst = max(worst, err)
+            ratios["kernel"] = max(ratios["kernel"], ratio)
+            if ratio > 1:
+                raise AssertionError(f"gemm {K}x{N} M={M}: max|err| {err} "
+                                     f"is {ratio:.3g} of the tolerance")
+            controls(x[:M], w, f"{K}x{N} M={M}")
+        log(f"  gemm {K} x {N}: rows bit-equal across M {GEMM_MS} and a "
+            f"permutation; within the tolerance of the plain version, "
+            f"the TF32 and bf16 controls over it")
+        del x, w, full
+    for what, batch, K, N in GEMM_ATTN:
+        x = torch.randn(batch, 1024, K, device=device, generator=g)
+        if what == "qk":  # the cache [.., keys, D] read as K^T
+            w = torch.randn(batch, N, K, device=device,
+                            generator=g).transpose(1, 2)
+        else:
+            w = torch.randn(batch, K, N, device=device, generator=g)
+        full = gemm.matmul(x, w)
+        for M in (1, 2, 4, 16, 17, 128):
+            if not torch.equal(gemm.matmul(x[:, :M], w), full[:, :M]):
+                raise AssertionError(f"gemm attention {what}: rows of M={M} "
+                                     f"differ from M=1024")
+        err, ratio = err_ratio(x[:, :4], w, full[:, :4])
+        ratios["kernel"] = max(ratios["kernel"], ratio)
+        if ratio > 1:
+            raise AssertionError(f"gemm attention {what}: max|err| {err} is "
+                                 f"{ratio:.3g} of the tolerance")
+        controls(x[:, :4], w, f"attention {what}")
+        log(f"  gemm attention {what} [{batch}] x {K} x {N}: rows bit-equal "
+            f"across M 1-1024; max|err| vs plain {err:.3e}")
+        del x, w, full
+    log(f"  gemm against its plain version: max|err| {worst:.3e}, at most "
+        f"{ratios['kernel']:.4f} of gemm.tolerance; the controls at least "
+        f"{ratios['tf32']:.2f} (TF32) and {ratios['bf16']:.2f} (bf16) of it")
+    rows = {}
+    for K, N in GEMM_SHAPES:
+        w = torch.randn(K, N, device=device, generator=g)
+        for M in GEMM_TIME_MS:
+            x = torch.randn(M, K, device=device, generator=g)
+            iters = 20 if M <= 16 else 5
+            ms, dev = timed(lambda: gemm.matmul(x, w), iters)
+            lib_ms, lib_dev = timed(lambda: torch.matmul(x, w), iters)
+            plain_ms = cuda_ms(lambda: gemm.matmul_reference(x, w), 3,
+                               warmup=1)
+            bound, by = gemm_bound(M, N, K)
+            err, _ = err_ratio(x, w, gemm.matmul(x, w))
+            rows[f"M{M}_K{K}_N{N}"] = dict(
+                ms=ms, device_ms=dev, plain_ms=plain_ms, library_ms=lib_ms,
+                library_device_ms=lib_dev, bound_ms=bound, bound_by=by,
+                max_abs_err=err)
+            log(f"  gemm M={M} K={K} N={N}: kernel {ms:.4f} ms events / "
+                f"{dev:.4f} ms device, torch.matmul {lib_ms:.4f} / "
+                f"{lib_dev:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                f"{bound:.4f} ms ({by}): {100 * bound / dev:.1f}% of it")
+            del x
+        del w
+    torch.cuda.empty_cache()
+    return rows, ratios
+
+
+# the RMSNorm kernel (csrc/rms_norm_f32.cu): Llama-2-7B's hidden width,
+# rows held bit-equal across these row counts
+NORM_WIDTH = 4096
+NORM_ROWS = (1, 2, 3, 4, 16, 128, 500, 1024)
+# its shapes on the main path, (rows, width): the decode step's 4 slots
+# and a 512-token prefill's rows
+NORM_SHAPES = ((4, 4096), (512, 4096))
+# against the op's PyTorch formulation: each output within 2e-6 relative
+# to the largest (a few float32 ulps of the mean of squares over 4096
+# terms summed in another order, then one sqrt and one division)
+NORM_RTOL = 2e-6
+
+
+def check_rms_norm(rms_norm, device):
+    """The RMSNorm kernel: every row of an M-row norm (NORM_ROWS) bit-equal
+    to the same row of the 1024-row one and of a row-permuted one; within
+    NORM_RTOL of its plain version (the op's PyTorch formulation); then
+    its event and device time beside the plain version's and its bound (x
+    read and y written once at the HBM peak) and beside
+    torch.nn.functional.rms_norm's (the library call) at NORM_SHAPES.
+    Returns the timing rows."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(9)
+    x = torch.randn(max(NORM_ROWS), NORM_WIDTH, device=device,
+                    generator=g) * 3
+    scale = torch.rand(NORM_WIDTH, device=device, generator=g) + 0.5
+    eps = 1e-6
+    full = rms_norm.rms_norm_rows(x, scale, eps)
+    perm = torch.randperm(x.shape[0], device=device, generator=g)
+    if not torch.equal(rms_norm.rms_norm_rows(x[perm], scale, eps),
+                       full[perm]):
+        raise AssertionError("RMSNorm: a row-permuted norm's rows differ")
+    for M in NORM_ROWS:
+        if not torch.equal(rms_norm.rms_norm_rows(x[:M], scale, eps),
+                           full[:M]):
+            raise AssertionError(f"RMSNorm: rows of M={M} differ from the "
+                                 f"same rows of M=1024")
+    ref = rms_norm.rms_norm_rows_reference(x, scale, eps)
+    err = float((full - ref).abs().max() / ref.abs().max())
+    log(f"  RMSNorm kernel: rows bit-equal across M {NORM_ROWS} and a "
+        f"permutation; max|err| vs plain {err:.3e} of the largest (limit "
+        f"{NORM_RTOL:g})")
+    if err > NORM_RTOL:
+        raise AssertionError(f"RMSNorm kernel vs plain: {err}")
+    rows = {}
+    for n_rows, n in NORM_SHAPES:
+        xs = x[:n_rows, :n].contiguous()
+        ms, dev = timed(lambda: rms_norm.rms_norm_rows(xs, scale, eps), 20)
+        plain_ms, plain_dev = timed(
+            lambda: rms_norm.rms_norm_rows_reference(xs, scale, eps), 20)
+        lib_ms, lib_dev = timed(lambda: torch.nn.functional.rms_norm(
+            xs, (n,), weight=scale, eps=eps), 20)
+        e = float((rms_norm.rms_norm_rows(xs, scale, eps)
+                   - rms_norm.rms_norm_rows_reference(xs, scale, eps)
+                   ).abs().max())
+        bound = (8.0 * n_rows * n + 4.0 * n) / PEAK_BYTES_PER_S * 1e3
+        rows[f"rows{n_rows}_n{n}"] = dict(
+            ms=ms, device_ms=dev, plain_ms=plain_ms,
+            plain_device_ms=plain_dev, library_ms=lib_ms,
+            library_device_ms=lib_dev, bound_ms=bound, bound_by="bytes",
+            max_abs_err=e)
+        log(f"  RMSNorm [{n_rows}, {n}]: kernel {ms:.4f} ms events / "
+            f"{dev:.4f} ms device, plain (PyTorch ops) {plain_ms:.4f} / "
+            f"{plain_dev:.4f} ms, F.rms_norm {lib_ms:.4f} / {lib_dev:.4f} "
+            f"ms, bound {bound:.5f} ms (bytes); max|err| {e:.3e}")
+    return rows
+
+
 def profile_step(exe, fa, main, scope, feed, loss, key):
     """Where one flagship step's time goes: torch.profiler's device time
     by kernel against the step's wall time (a replay, after the counted
     steps), and the profiler's kernel launches held against the
     replay-aware counts."""
-    from torch.profiler import ProfilerActivity, profile
-
-    before = read_counts(fa)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
-        wall_us = (time.perf_counter() - t) * 1e6
-    kernels, _ = report_profile(prof, wall_us, "one flagship training step",
-                                key=key)
-    check_profiled_launches(kernels, before, read_counts(fa),
-                            "one flagship training step")
+    profiled_launches(lambda: exe.run(main, feed=feed, fetch_list=[loss],
+                                      scope=scope),
+                      fa, "one flagship training step", key)
 
 
 def second_signature(exe, main, scope, feed, loss):
@@ -2017,18 +2446,88 @@ def row_consistency(device):
     return out
 
 
+def gemm_launches(eng, counters, xla_prefill):
+    """The product kernel's launches a generation engine's traffic must
+    show (every product of its programs, nothing else): a decode step or
+    a prefill chunk runs 4 L + 1 mul ops and cached_attention's 2 L
+    products; a whole prefill 4 L + 1, plus 2 L where its attention is
+    the einsum formulation ("xla") rather than kernel #4."""
+    L = eng.model["num_layers"]
+    whole = whole_prefills(eng, counters)
+    return ((counters["decode_steps"] + counters["prefill_chunks"])
+            * (6 * L + 1) + whole * (4 * L + 1 + (2 * L if xla_prefill
+                                                 else 0)))
+
+
+def whole_prefills(eng, counters):
+    """Prefills that ran the whole-prompt program (dense, or paged with
+    chunking off and no prefix hit): each launches kernel #4 num_layers
+    times.  With chunking off, a request that ran a chunk (a prefix
+    hit's tail) ran exactly one."""
+    if eng.paged and eng.prefill_chunk > 0:
+        return 0
+    return counters["prefills"] - counters["prefill_chunks"]
+
+
+def rms_norm_launches(eng, counters):
+    """The RMSNorm kernel's launches a generation engine's traffic must
+    show: 2 L + 1 a run of each program (decode step, chunk, whole
+    prefill)."""
+    return (2 * eng.model["num_layers"] + 1) * (
+        counters["decode_steps"] + counters["prefill_chunks"]
+        + whole_prefills(eng, counters))
+
+
+def check_engine_counts(eng, counts, plain, realigned, what, xla_prefill):
+    """Kernel #4 launched num_layers times a whole prefill and no other
+    attention kernel; the product kernel exactly gemm_launches and the
+    RMSNorm kernel rms_norm_launches; no plain call; nothing
+    realigned."""
+    n = eng.stats()["counters"]
+    want = (0, 0, 0, whole_prefills(eng, n) * eng.model["num_layers"]
+            if not xla_prefill else 0, 0, 0)
+    want_rows = (gemm_launches(eng, n, xla_prefill),
+                 rms_norm_launches(eng, n))
+    log(f"  {what}: launches {counts}, product kernel {counts.gemm}, "
+        f"RMSNorm kernel {counts.rms_norm} (want {want}, {want_rows}), "
+        f"{plain} plain calls, {realigned} realigned operands")
+    if (counts, (counts.gemm, counts.rms_norm), plain, realigned) != \
+            (want, want_rows, 0, 0):
+        raise AssertionError(f"{what}: launches {counts}, product kernel "
+                             f"{counts.gemm}, RMSNorm {counts.rms_norm}, "
+                             f"{plain} plain calls, {realigned} realigned, "
+                             f"want {want}, {want_rows}, 0, 0")
+
+
+def shared_pages(eng, pages=None):
+    """(`pages`, by default those the prefix index holds now; their
+    bytes in every layer's K and V pools)."""
+    import torch
+
+    if pages is None:
+        pages = [p for p in range(1, eng.num_pages)
+                 if eng._pool.refcount(p) > 0]
+    idx = torch.tensor(pages, device=eng.device)
+    return pages, torch.stack([eng.scope.find_var(n)[idx]
+                               for n in eng.cache_names])
+
+
 def generation_parity(tpt, fa):
-    """Gates (a) and (b) at 2 layers of Llama-2-7B's widths.  (a) The
-    engine on the card (attn_impl "auto": prefill on the fp32 forward
-    kernel, decode through cached_attention; the first runs eager, then
-    captured graphs) against the port's uncached forward on the CPU over
-    the card's own tokens: every step's logits within LOGITS_ATOL (fp32,
-    TF32 off, as phase 4), every greedy token equal.  (b) The same
-    requests with attn_impl "xla" against the card's own uncached "xla"
-    forward: max |d| reported (0 on the CPU) beside each decode
-    product's row consistency; LOGITS_ATOL here only catches a broken
-    path, it does not stand for tolerance 0.
-    Returns the card steps' launches of the six kernels."""
+    """Gates at 2 layers of Llama-2-7B's widths.  (a) The engine on the
+    card (attn_impl "auto": prefill on the fp32 forward kernel, decode
+    through cached_attention; the first runs eager, then captured graphs)
+    against the port's uncached forward on the CPU over the card's own
+    tokens: every step's logits within LOGITS_ATOL (fp32, TF32 off, as
+    phase 4), every greedy token equal.  (b) The same requests with
+    attn_impl "xla" against the card's own uncached "xla" forward: max
+    |d| exactly 0 (every product runs the kernel whose rows do not
+    depend on M).  (c) A paged engine (prefix reuse off, chunking off)
+    on the same weights: logits bit-equal to (a)'s dense ones.  (d) A
+    shared-prefix batch (a 32-token header, two pages) and (e) a chunked
+    batch (chunk 16), each against the card's uncached forward within
+    LOGITS_ATOL, greedy tokens equal; (d) with prefix hits whose shared
+    pages keep their bytes.  Each engine's launches as
+    check_engine_counts holds them.  Returns (a)'s launches."""
     import torch
     from paddle_tpu_torch.serving import GenerationEngine
 
@@ -2038,15 +2537,10 @@ def generation_parity(tpt, fa):
     reset_counts(fa)
     results, wall, _ = run_requests(eng, prompts, GEN_PARITY_NEW_TOKENS)
     counts, plain, realigned = read_counts(fa)
-    want = (0, 0, 0, len(prompts) * GEN_PARITY["num_layers"], 0, 0)
     log(f"  2 layers: {len(prompts)} requests of {GEN_PARITY_PROMPTS} "
         f"prompt tokens, {GEN_PARITY_NEW_TOKENS} new tokens each, in "
-        f"{wall:.2f} s; launches {counts}, {plain} plain calls, "
-        f"{realigned} realigned operands")
-    if (counts, plain, realigned) != (want, 0, 0):
-        raise AssertionError(f"generation parity: launches {counts}, "
-                             f"{plain} plain calls, {realigned} realigned, "
-                             f"want {want}, 0, 0")
+        f"{wall:.2f} s")
+    check_engine_counts(eng, counts, plain, realigned, "dense", False)
     eng.close()
     weights = {n: eng.scope.find_var(n).to("cpu", copy=True)
                for n in eng.scope.local_var_names()
@@ -2058,6 +2552,7 @@ def generation_parity(tpt, fa):
     t0 = time.perf_counter()
     err, greedy = stream_errors(results, prompts, lambda seq: uncached_logits(
         tpt, cpu_scope, GEN_PARITY, S, seq, tpt.CPUPlace(), "xla"))
+    GENERATION["card_vs_cpu"] = err
     log(f"  (a) card cached decode vs the CPU's uncached forward "
         f"({time.perf_counter() - t0:.1f} s on the CPU): logits max|diff| "
         f"{err:.3e} (limit {LOGITS_ATOL:g}), greedy tokens equal: "
@@ -2068,24 +2563,104 @@ def generation_parity(tpt, fa):
                              "forward")
     del cpu_scope, weights
 
+    def card_forward(seq):
+        return uncached_logits(tpt, eng.scope, GEN_PARITY, S, seq, None,
+                               "xla")
+
     xla = GenerationEngine(GEN_PARITY, eng.scope, autostart=False,
                            attn_impl="xla", **GEN_PARITY_ENGINE)
-    results, _, _ = run_requests(xla, prompts, GEN_PARITY_NEW_TOKENS)
+    reset_counts(fa)
+    xla_results, _, _ = run_requests(xla, prompts, GEN_PARITY_NEW_TOKENS)
+    check_engine_counts(xla, *read_counts(fa), "xla", True)
     xla.close()
-    err, greedy = stream_errors(results, prompts, lambda seq: uncached_logits(
-        tpt, xla.scope, GEN_PARITY, S, seq, None, "xla"))
+    err, greedy = stream_errors(xla_results, prompts, card_forward)
     rows = row_consistency(torch.device("cuda", 0))
     GENERATION["cached_vs_uncached_card"] = err
-    GENERATION["row_consistency"] = rows
+    GENERATION["cublas_row_consistency"] = rows
     log(f"  (b) card cached decode vs the card's uncached forward (attn "
-        f"'xla' both): logits max|diff| {err:.3e} (0 on the CPU; limit "
-        f"{LOGITS_ATOL:g}), greedy tokens equal: {greedy}; decode "
-        f"products M=2 against rows of M=128, max|diff|: "
+        f"'xla' both): logits max|diff| {err:.3e} (limit 0), greedy tokens "
+        f"equal: {greedy}; cuBLAS's rows for comparison (M=2 against the "
+        f"rows of M=128), max|diff|: "
         + ", ".join(f"{k} {v:.3e}" for k, v in rows.items()))
-    if not (err <= LOGITS_ATOL and greedy):
+    if not (err == 0 and greedy):
         raise AssertionError("generation parity (b): the card's cached "
-                             "decode drifted from its uncached forward")
-    del eng, xla
+                             "decode is not bit-equal to its uncached "
+                             "forward")
+
+    paged = GenerationEngine(GEN_PARITY, eng.scope, autostart=False,
+                             attn_impl="auto", paged=True,
+                             page_tokens=GEN_PAGE, prefix_reuse=False,
+                             prefill_chunk=0, **GEN_PARITY_ENGINE)
+    reset_counts(fa)
+    paged_results, _, _ = run_requests(paged, prompts, GEN_PARITY_NEW_TOKENS)
+    check_engine_counts(paged, *read_counts(fa), "paged", False)
+    paged.close()
+    same = all(a["tokens"] == b["tokens"] and all(
+        np.array_equal(x, y) for x, y in zip(a["logits"], b["logits"]))
+        for a, b in zip(results, paged_results))
+    GENERATION["paged_equals_dense"] = same
+    log(f"  (c) paged (page {GEN_PAGE}, prefix reuse and chunking off) vs "
+        f"dense on the card: tokens and every step's logits bit-equal: "
+        f"{same}")
+    if not same:
+        raise AssertionError("generation parity (c): paged logits differ "
+                             "from dense ones on the card")
+    del paged
+    torch.cuda.empty_cache()
+
+    header = gen_prompts((2 * GEN_PAGE,), GEN_PARITY["vocab_size"], 25)[0]
+    tails = gen_prompts((7, 30, 12), GEN_PARITY["vocab_size"], 26)
+    shared = GenerationEngine(GEN_PARITY, eng.scope, autostart=False,
+                              attn_impl="auto", paged=True,
+                              page_tokens=GEN_PAGE, prefix_reuse=True,
+                              prefill_chunk=0, **GEN_PARITY_ENGINE)
+    donor = np.concatenate([header, tails[0]])
+    borrowers = [np.concatenate([header, t]) for t in tails[1:]]
+    reset_counts(fa)
+    donor_res, _, _ = run_requests(shared, [donor], GEN_PARITY_NEW_TOKENS)
+    pages, before = shared_pages(shared)
+    futs = [shared.submit(p, GEN_PARITY_NEW_TOKENS) for p in borrowers]
+    shared_res = donor_res + [f.result(600) for f in futs]
+    check_engine_counts(shared, *read_counts(fa), "shared prefix", False)
+    shared.close()
+    _, after = shared_pages(shared, pages)
+    hits = shared.stats()["counters"]["prefix_hits"]
+    unchanged = bool(torch.equal(before, after))
+    err, greedy = stream_errors(shared_res, [donor] + borrowers,
+                                card_forward)
+    GENERATION["shared_prefix_parity"] = dict(
+        max_abs_diff=err, greedy_equal=greedy, prefix_hits=hits,
+        shared_pages=len(pages), shared_bytes_unchanged=unchanged)
+    log(f"  (d) shared prefix ({len(header)}-token header, then tails of "
+        f"{[len(t) for t in tails]}): {hits} prefix hits over "
+        f"{len(pages)} shared pages, their bytes unchanged: {unchanged}; "
+        f"vs the card's uncached forward: max|diff| {err:.3e} (limit "
+        f"{LOGITS_ATOL:g}), greedy tokens equal: {greedy}")
+    if not (hits >= 1 and unchanged and err <= LOGITS_ATOL and greedy):
+        raise AssertionError("generation parity (d): shared prefix")
+    del shared
+    torch.cuda.empty_cache()
+
+    chunked = GenerationEngine(GEN_PARITY, eng.scope, autostart=False,
+                               attn_impl="auto", paged=True,
+                               page_tokens=GEN_PAGE, prefix_reuse=False,
+                               prefill_chunk=16, **GEN_PARITY_ENGINE)
+    reset_counts(fa)
+    chunk_res, _, _ = run_requests(chunked, prompts, GEN_PARITY_NEW_TOKENS)
+    check_engine_counts(chunked, *read_counts(fa), "chunked", False)
+    chunked.close()
+    n_chunks = chunked.stats()["counters"]["prefill_chunks"]
+    err, greedy = stream_errors(chunk_res, prompts, card_forward)
+    GENERATION["chunked_parity"] = dict(max_abs_diff=err,
+                                        greedy_equal=greedy,
+                                        chunks=n_chunks)
+    log(f"  (e) chunked prefill (chunk 16): {n_chunks} chunks; vs the "
+        f"card's uncached forward: max|diff| {err:.3e} (limit "
+        f"{LOGITS_ATOL:g}), greedy tokens equal: {greedy}")
+    if not (err <= LOGITS_ATOL and greedy and n_chunks == sum(
+            -(-n // 16) for n in GEN_PARITY_PROMPTS)):
+        raise AssertionError("generation parity (e): chunked prefill")
+    del eng, xla, chunked
     torch.cuda.empty_cache()
     return counts
 
@@ -2147,8 +2722,10 @@ def generation_flagship(tpt, fa):
     times a prefill, no plain call, nothing realigned; every program
     captured once; the caches keep their storage; every request ends
     'length' with its 64 tokens; a profiled decode replay and prefill
-    replay launch no kernel from the host and copy no cache.  Returns
-    the traffic's launches of the six kernels."""
+    replay launch no kernel from the host and copy no cache.  Then the
+    two paged runs.  Returns the launches of the dense run's traffic and
+    {path: launches} of the paged runs' (each as read_counts gives
+    them)."""
     import torch
     from paddle_tpu_torch.serving import GenerationEngine
 
@@ -2184,15 +2761,12 @@ def generation_flagship(tpt, fa):
     counts, plain, realigned = read_counts(fa)
     stats = eng.stats()
     prefills = stats["counters"]["prefills"]
-    want = (0, 0, 0, prefills * GEN["num_layers"], 0, 0)
-    log(f"  {len(prompts)} requests, prompts {GEN_PROMPTS}: launches "
-        f"{counts} ({prefills} prefills x {GEN['num_layers']} layers of "
-        f"kernel #4), {plain} plain calls, {realigned} realigned operands")
-    if (counts, plain, realigned) != (want, 0, 0) or \
-            prefills != len(prompts):
-        raise AssertionError(f"generation: launches {counts}, {plain} "
-                             f"plain calls, {realigned} realigned, want "
-                             f"{want}, 0, 0")
+    check_engine_counts(eng, counts, plain, realigned,
+                        f"{len(prompts)} requests, prompts {GEN_PROMPTS} "
+                        f"({prefills} prefills x {GEN['num_layers']} "
+                        f"layers of kernel #4)", False)
+    if prefills != len(prompts):
+        raise AssertionError(f"generation: {prefills} prefills")
     bad = [r for r in results if r["finish"] != "length"
            or len(r["tokens"]) != GEN_NEW_TOKENS
            or not all(0 <= t < GEN["vocab_size"] for t in r["tokens"])]
@@ -2245,8 +2819,140 @@ def generation_flagship(tpt, fa):
     log(f"  device memory: peak allocated {GENERATION['peak_gib']:.2f} GiB, "
         f"reserved {GENERATION['reserved_gib']:.2f} GiB")
     eng.close()
+    scope, dense_tokens = eng.scope, [r["tokens"] for r in results]
+    dense_itl = GENERATION["inter_token_ms_p99"]
+    for n in eng.cache_names:  # the dense caches go before the pools come
+        scope.set_var(n, None)
     del eng
     torch.cuda.empty_cache()
+    return counts, {
+        "generation_paged": paged_same_requests(tpt, fa, scope, prompts,
+                                                dense_tokens),
+        "generation_shared_prefix": paged_shared_prefix(tpt, fa, scope,
+                                                        dense_itl)}
+
+
+def traffic_numbers(results, wall, times):
+    """tokens/s, TTFT p50 and inter-token p50 / p99 of one run."""
+    tokens = sum(len(r["tokens"]) for r in results)
+    gaps = np.concatenate([np.diff(t) for t in times]) * 1e3
+    ttft = np.asarray([r["ttft_ms"] for r in results])
+    return dict(tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
+                ttft_ms_p50=float(np.median(ttft)),
+                inter_token_ms_p50=float(np.median(gaps)),
+                inter_token_ms_p99=float(np.percentile(gaps, 99)))
+
+
+def paged_engine(scope, **kw):
+    """A paged Llama-2-7B engine on `scope`'s weights, warmed: each
+    program run twice (eager, capture) and captured exactly once."""
+    import torch
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    eng = GenerationEngine(GEN, scope, autostart=False, attn_impl="auto",
+                           paged=True, page_tokens=GEN_PAGE, **kw,
+                           **GEN_ENGINE)
+    t0 = time.perf_counter()
+    warmed = eng.warmup()
+    torch.cuda.synchronize()
+    captures = eng.introspect()["captures"]
+    log(f"  paged engine ({kw}): {eng.num_pages} pages of {GEN_PAGE} "
+        f"tokens, pools {eng.kv_cache_bytes / 2 ** 30:.2f} GiB; warmup: "
+        f"{warmed} programs in {time.perf_counter() - t0:.1f} s, captures "
+        f"per program {captures}")
+    if any(c != [1] for c in captures.values()) or \
+            warmed != len(captures):
+        raise AssertionError(f"paged warmup did not capture every program "
+                             f"once: {captures}")
+    return eng
+
+
+def release(eng):
+    """Close `eng` and drop its pools from the scope."""
+    import torch
+
+    eng.close()
+    for n in eng.cache_names:
+        eng.scope.set_var(n, None)
+    torch.cuda.empty_cache()
+
+
+def paged_same_requests(tpt, fa, scope, prompts, dense_tokens):
+    """Phase 10b (i): the dense run's 8 requests through a paged engine
+    (prefix reuse on, the prompts distinct; chunking off).  Gates: the
+    dense run's tokens; the launches of check_engine_counts; every
+    program captured once; the pools keep their data_ptr; one profiled
+    paged decode replay launches no kernel from the host and copies
+    nothing of a pool's size.  Returns the traffic's launches, as
+    read_counts gives them."""
+    eng = paged_engine(scope, prefix_reuse=True, prefill_chunk=0)
+    ptrs = {n: eng.scope.find_var(n).data_ptr() for n in eng.cache_names}
+    reset_counts(fa)
+    results, wall, times = run_requests(eng, prompts, GEN_NEW_TOKENS)
+    counts, plain, realigned = read_counts(fa)
+    check_engine_counts(eng, counts, plain, realigned, "paged (i)", False)
+    same = [r["tokens"] for r in results] == dense_tokens
+    moved = [n for n, p in ptrs.items()
+             if eng.scope.find_var(n).data_ptr() != p]
+    captures = eng.introspect()["captures"]
+    stats = eng.stats()
+    GENERATION["paged"] = dict(
+        traffic_numbers(results, wall, times), tokens_equal_dense=same,
+        decode_step_ms_p50=stats["decode_step_ms"]["p50"],
+        prefill_ms={int(len(p)): r["prefill_ms"]
+                    for p, r in zip(prompts, results)},
+        pages=eng.num_pages, pool_gib=eng.kv_cache_bytes / 2 ** 30)
+    log(f"  (i) the same {len(prompts)} requests, paged: tokens equal the "
+        f"dense run's: {same}; " + json.dumps(GENERATION["paged"]))
+    if not same or moved or any(c != [1] for c in captures.values()):
+        raise AssertionError(f"paged (i): tokens equal {same}, pools moved "
+                             f"{moved[:4]}, captures {captures}")
+    pool_bytes = eng.kv_cache_bytes // len(eng.cache_names)
+    ids = np.zeros((eng.num_slots, 1), "int64")
+    pos = np.arange(eng.num_slots, dtype="int32") * 100
+    bt = (1 + np.arange(eng.num_slots * eng.pages_per_slot, dtype="int32")
+          ).reshape(eng.num_slots, eng.pages_per_slot)
+    live = np.ones((eng.num_slots,), "int32")
+    profile_generation(lambda: eng._run_decode_program(ids, pos, bt, live),
+                       "one paged decode replay (4 slots)",
+                       "generation_paged_decode", pool_bytes)
+    release(eng)
+    return counts
+
+
+def paged_shared_prefix(tpt, fa, scope, dense_itl):
+    """Phase 10b (ii): 8 requests sharing a 256-token header (16 pages),
+    each with its own tail of 20-200 tokens, 64 new tokens each, through
+    a paged engine with prefix reuse and prefill_chunk 128.  Gates: the
+    launches of check_engine_counts (no whole prefill: kernel #4 never
+    runs, every prompt goes through the chunk program); every request
+    ends 'length' with 64 valid tokens; at least one prefix hit.
+    Returns the traffic's launches, as read_counts gives them."""
+    eng = paged_engine(scope, prefix_reuse=True, prefill_chunk=128)
+    header = gen_prompts((GEN_SHARED_HEADER,), GEN["vocab_size"], 33)[0]
+    prompts = [np.concatenate([header, t]) for t in
+               gen_prompts(GEN_SHARED_TAILS, GEN["vocab_size"], 34)]
+    reset_counts(fa)
+    results, wall, times = run_requests(eng, prompts, GEN_NEW_TOKENS)
+    counts, plain, realigned = read_counts(fa)
+    check_engine_counts(eng, counts, plain, realigned, "shared prefix (ii)",
+                        False)
+    n = eng.stats()["counters"]
+    bad = [r for r in results if r["finish"] != "length"
+           or len(r["tokens"]) != GEN_NEW_TOKENS
+           or not all(0 <= t < GEN["vocab_size"] for t in r["tokens"])]
+    GENERATION["shared_prefix"] = dict(
+        traffic_numbers(results, wall, times), prefix_hits=n["prefix_hits"],
+        prefix_tokens_saved=n["prefix_tokens_saved"],
+        prefill_chunks=n["prefill_chunks"],
+        dense_inter_token_ms_p99=dense_itl)
+    log(f"  (ii) {len(prompts)} requests sharing a {GEN_SHARED_HEADER}-token "
+        f"header, tails {GEN_SHARED_TAILS}, chunk 128: "
+        + json.dumps(GENERATION["shared_prefix"]))
+    if bad or n["prefix_hits"] < 1:
+        raise AssertionError(f"shared prefix (ii): {n['prefix_hits']} hits, "
+                             f"bad results {bad[:2]}")
+    release(eng)
     return counts
 
 
@@ -2259,7 +2965,7 @@ def main():
         return 2
     sys.path.insert(0, HERE)
     import paddle_tpu_torch as tpt
-    from paddle_tpu_torch.ops.cuda import build
+    from paddle_tpu_torch.ops.cuda import build, gemm, rms_norm
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
 
     pkg_dir = os.path.dirname(os.path.abspath(tpt.__file__))
@@ -2284,8 +2990,12 @@ def main():
     built = build.build_all()
     fa._lib()
     fa._bwd_lib()
+    gemm._lib()
+    rms_norm._lib()
     log(f"[2/10] built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
     check_build(build)
+    gemm_rows, gemm_ratios = check_gemm(gemm, build, device)
+    norm_rows = check_rms_norm(rms_norm, device)
 
     log("[3/10] packed kernels against their plain versions")
     check_kernel(fa, device)
@@ -2327,10 +3037,13 @@ def main():
     compare_losses(losses)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[10/10] Llama generation serving on the card (dense KV cache)")
+    log("[10/10] Llama generation serving on the card (dense and paged KV "
+        "cache)")
     by_path["generation_parity"] = generation_parity(tpt, fa)
-    by_path["generation"] = generation_flagship(tpt, fa)
+    by_path["generation"], paged_paths = generation_flagship(tpt, fa)
+    by_path.update(paged_paths)
     log("generation: " + json.dumps(GENERATION))
+    log("fetch: " + json.dumps(FETCH))
     log(f"  ({time.perf_counter() - t_start:.1f} s in all)")
     for key, (wall, busy, idle, launches) in EAGER_PROFILES.items():
         p = PROFILES[key]
@@ -2378,6 +3091,26 @@ def main():
     for i, k in enumerate(kernels):
         k["launches"] = by_path[k.pop("main_path")][i]
         k["launches_by_path"] = {p: n[i] for p, n in by_path.items()}
+    # the product kernel: its row is the decode step's qkv product (M 4),
+    # its "shapes" every timed decode (M 4) and prefill (M 512) shape
+    kernels.append(dict(
+        name="gemm_f32", route="cuda", source=src + "gemm_f32.cu",
+        replaces="paddle_tpu/ops/math_ops.py:365",
+        **gemm_rows["M4_K4096_N12288"],
+        launches=by_path["generation"].gemm,
+        launches_by_path={p: getattr(n, "gemm", None)
+                          for p, n in by_path.items()},
+        tolerance_ratio=gemm_ratios, shapes=gemm_rows))
+    # the RMSNorm kernel: its row the decode step's [4, 4096]
+    kernels.append(dict(
+        name="rms_norm_f32", route="cuda", source=src + "rms_norm_f32.cu",
+        replaces="paddle_tpu/ops/nn_ops.py:772",
+        **norm_rows["rows4_n4096"],
+        launches=by_path["generation"].rms_norm,
+        launches_by_path={p: getattr(n, "rms_norm", None)
+                          for p, n in by_path.items()},
+        shapes=norm_rows))
+    for k in kernels:
         if not all(math.isfinite(x) for x in
                    [k[x] for x in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms")]

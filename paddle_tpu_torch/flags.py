@@ -6,7 +6,7 @@ reads, with the reference's defaults and help strings: the executor's
 ``FLAGS_check_nan_inf``, ``FLAGS_benchmark`` and
 ``FLAGS_guard_resolve_interval``; fault.py's ``FLAGS_fault_inject`` and
 ``FLAGS_fault_seed``; and the generation engine's ``FLAGS_serving_*``
-(serving/generation.py).  ``set_flags`` raises on any other name, so a
+(serving/generation.py registers its paged-cache flags itself).  ``set_flags`` raises on any other name, so a
 flag the port would ignore is an error, not a silent no-op; a later
 slice registers a flag with the module that reads it.
 
@@ -115,14 +115,14 @@ register_flag("FLAGS_serving_max_new_tokens", 64,
               "beyond the cache capacity left after the prompt decodes "
               "until the slot cache fills and finishes 'cache_full')")
 register_flag("FLAGS_serving_paged", False,
-              "generation engine: block-paged KV cache instead of the "
-              "dense per-slot [slots, n_kv, max_seq_len, D] reservation; "
-              "not ported yet (True raises), 0 keeps the dense cache")
+              "generation engine: block-paged KV cache (a shared page "
+              "pool + per-slot block tables) instead of the dense "
+              "per-slot [slots, n_kv, max_seq_len, D] reservation; 0 "
+              "keeps the dense cache")
 register_flag("FLAGS_serving_prefill_chunk", 0,
               "paged generation: feed long prompts in slices of this "
               "many tokens, one slice per scheduler iteration "
-              "interleaved with decode steps; not ported yet (a positive "
-              "value raises), 0 = whole-prompt prefill")
+              "interleaved with decode steps; 0 = whole-prompt prefill")
 register_flag("FLAGS_serving_speculate", False,
               "paged generation: speculative decoding (prompt-lookup "
               "n-gram drafts verified in one chunk-shaped program); not "

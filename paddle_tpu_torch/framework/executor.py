@@ -36,6 +36,7 @@ wait for later slices.
 from __future__ import annotations
 
 import contextlib
+import mmap
 import threading
 import time
 from collections import OrderedDict
@@ -327,31 +328,55 @@ def to_numpy(t) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
+# A fetch this large gets pages faulted in by one mmap call, not one
+# fault a page as the device-to-host copy first writes each page.
+_POPULATE_BYTES = 1 << 20
+
+
+def _host_array(shape, dtype) -> np.ndarray:
+    """A fresh numpy array in ordinary (pageable) host memory; a large
+    one's pages faulted in at once by an anonymous mmap(MAP_POPULATE)."""
+    n = int(np.prod(shape))
+    nbytes = n * np.dtype(dtype).itemsize
+    if nbytes < _POPULATE_BYTES:
+        return np.empty(shape, dtype)
+    mm = mmap.mmap(-1, nbytes, flags=mmap.MAP_PRIVATE | mmap.MAP_ANONYMOUS
+                   | getattr(mmap, "MAP_POPULATE", 0))
+    return np.frombuffer(mm, dtype=dtype, count=n).reshape(shape)
+
+
 def fetch_to_numpy(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
-    """Fetched tensors as numpy with one host fence: CUDA tensors copy
-    into pinned host buffers without blocking, then the stream is
-    synchronised once."""
-    devices = {t.device for t in tensors if t.is_cuda}
-    if devices:
-        host = []
-        for t in tensors:
-            if t.is_cuda:
-                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                h.copy_(t, non_blocking=True)
-                t = h
-            host.append(t)
-        for dev in devices:
-            torch.cuda.current_stream(dev).synchronize()
-        tensors = host
-    return [to_numpy(t) for t in tensors]
+    """Fetched tensors as numpy arrays in ordinary host memory, as the JAX
+    package's np.asarray gives them: each CUDA tensor is copied by a
+    blocking device-to-host copy (the first one waits for the step) into
+    a fresh array (``_host_array``).  Nothing is pinned, so a caller that
+    keeps its arrays holds no pinned memory, the next fetch allocates
+    none, and no later fetch writes into an array handed out before."""
+    out = []
+    for t in tensors:
+        if not (isinstance(t, torch.Tensor) and t.is_cuda):
+            out.append(to_numpy(t))
+            continue
+        a = _host_array(tuple(t.shape),
+                        to_numpy(torch.empty(0, dtype=t.dtype)).dtype)
+        src = t.detach()
+        if t.dtype == torch.bfloat16:  # numpy's view is ml_dtypes'
+            torch.from_numpy(a.view(np.int16)).copy_(src.view(torch.int16))
+        else:
+            torch.from_numpy(a).copy_(src)
+        out.append(a)
+    return out
 
 
 def _counters():
-    """(owner, attribute) of every kernel count: the attention wrappers'
-    ``.launches`` / ``.realigned`` and the plain versions' ``.calls``."""
-    from ..ops.cuda.flash_attention import counters
+    """(owner, attribute) of every kernel count: the attention wrappers',
+    the product kernel's and the RMSNorm kernel's ``.launches``, the
+    attention wrappers' ``.realigned`` and the plain versions'
+    ``.calls``."""
+    from ..ops.cuda import flash_attention, gemm, rms_norm
 
-    return counters()
+    return flash_attention.counters() + gemm.counters() + \
+        rms_norm.counters()
 
 
 @contextlib.contextmanager

@@ -1,6 +1,6 @@
 """Graph-building NN layers: the subset of ``paddle_tpu/layers/nn.py`` on
-the BERT and Llama paths (Llama generation's dense KV-cache ops
-included), with the same arguments, ops and attrs (static graph
+the BERT and Llama paths (Llama generation's dense and paged KV-cache
+ops included), with the same arguments, ops and attrs (static graph
 only)."""
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ from ..framework.layer_helper import LayerHelper
 __all__ = ["fc", "layer_norm", "embedding", "flash_attention",
            "flash_attention_qkv", "dropout", "sqrt", "silu", "mean",
            "rms_norm", "rope", "kv_cache_write", "kv_cache_insert",
-           "cached_attention"]
+           "kv_pool_write", "kv_pool_gather", "cached_attention"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -221,6 +221,36 @@ def kv_cache_insert(cache, new, slot, name=None):
                              "Slot": [slot]},
                      outputs={"Out": [cache]})
     return cache
+
+
+def kv_pool_write(pool, new, positions, block_table, lengths, name=None):
+    """Paged-cache write, in place: ``pool`` [P, Hkv, pt, D] gets row
+    (b, t) of ``new`` [B, Hkv, T, D] at logical position
+    ``positions[b] + t`` of slot b, routed through ``block_table``
+    [B, NP] to a physical page; rows with ``t >= lengths[b]`` go to the
+    reserved trash page 0.  The output is the pool variable itself, as
+    :func:`kv_cache_write`'s is the cache.  Returns the pool Variable."""
+    helper = LayerHelper("kv_pool_write", name=name)
+    helper.append_op("kv_pool_write",
+                     inputs={"Pool": [pool], "New": [new],
+                             "Positions": [positions],
+                             "BlockTable": [block_table],
+                             "Lengths": [lengths]},
+                     outputs={"Out": [pool]})
+    return pool
+
+
+def kv_pool_gather(pool, block_table, name=None):
+    """A slot's pages back in the dense logical cache layout: ``pool``
+    [P, Hkv, pt, D] through ``block_table`` [B, NP] -> [B, Hkv, NP*pt, D]
+    (column j = logical position j, what :func:`cached_attention` reads
+    from a dense cache)."""
+    helper = LayerHelper("kv_pool_gather", name=name)
+    out = helper.create_variable_for_type_inference(pool.dtype)
+    helper.append_op("kv_pool_gather",
+                     inputs={"Pool": [pool], "BlockTable": [block_table]},
+                     outputs={"Out": [out]})
+    return out
 
 
 def cached_attention(q, cache_k, cache_v, positions, scale=None,

@@ -1,23 +1,24 @@
 """Llama-style decoder LM (BASELINE config "Llama-2-7B"): training, the
-uncached full forward, and generation's prefill and cached decode with a
-dense per-slot KV cache.
+uncached full forward, and generation's prefill, cached decode and
+prefill chunk over a dense per-slot KV cache or block-paged pools.
 
-Counterpart of ``paddle_tpu/models/llama.py:39-392``, built with the same
+Counterpart of ``paddle_tpu/models/llama.py:39-464``, built with the same
 layers, op types, attrs and parameter names.  Architecture: pre-RMSNorm,
 fused QKV with GQA (K/V expanded by ``tile``), RoPE, causal
 ``flash_attention`` (the Hopper kernels on the card), SwiGLU MLP, untied
 LM head.  Weights stay float32 in the scope; bf16 AMP lowers the matmuls
 and the attention to bfloat16.
 
-``llama_block`` also runs in the dense cache modes: ``collect_kv=True``
+``llama_block`` also runs in the cache modes: ``collect_kv=True``
 (prefill: the post-RoPE, pre-expansion K/V come back as outputs) and
 ``kv_cache=(cache_k, cache_v)`` with ``positions`` (cached decode:
-``kv_cache_write`` then ``cached_attention``).  With a ``name`` prefix
-every parameter gets a deterministic name, so the forward, prefill and
-decode programs built in one process bind the same scope weights.  The
-block-paged cache (``block_table`` / ``kv_lengths``, ``paged=True``),
-chunked prefill and speculative verify are not ported: they raise
-NotImplementedError.
+``kv_cache_write`` then ``cached_attention``; with ``block_table`` /
+``kv_lengths`` the caches are paged pools: ``kv_pool_write``, then
+``kv_pool_gather`` into the dense layout, then ``cached_attention``).
+With a ``name`` prefix every parameter gets a deterministic name, so the
+forward, prefill, decode and chunk programs built in one process bind
+the same scope weights.  Speculative verify (``build_llama_verify``) is
+not ported (ROADMAP.md queue 1 item 2c).
 """
 from __future__ import annotations
 
@@ -26,11 +27,7 @@ from ..framework.core import default_main_program
 
 __all__ = ["llama_block", "llama", "build_llama_train",
            "build_llama_forward", "build_llama_prefill",
-           "build_llama_decode"]
-
-_PAGED = ("the block-paged KV cache (kv_pool_write / kv_pool_gather, "
-          "block tables) is not ported yet; use the dense cache "
-          "(ROADMAP.md queue 1 item 2)")
+           "build_llama_decode", "build_llama_prefill_chunk"]
 
 
 def _linear(x, size, pname=None, name=None):
@@ -52,13 +49,17 @@ def llama_block(x, hidden, num_heads, num_kv_heads, seq_len, head_dim,
       * ``kv_cache=(cache_k, cache_v)`` with ``positions`` [B] int32 —
         cached decode: writes the step's K/V into the caches
         (``kv_cache_write``, in place) and attends over them
-        (``cached_attention``); returns x.  ``block_table`` /
-        ``kv_lengths`` (the paged pools) raise NotImplementedError.
+        (``cached_attention``); returns x.  With ``block_table`` [B, NP]
+        and ``kv_lengths`` [B] the caches are block-paged pools [P, n_kv,
+        page_tokens, D]: the K/V scatter into the slots' pages
+        (``kv_pool_write``) and attention runs over the gathered logical
+        view (``kv_pool_gather`` -> ``cached_attention``, the products
+        the dense path runs).  ``seq_len`` > 1 there is a prefill chunk:
+        S new tokens from ``positions[b]`` attend the cache and
+        themselves causally.
       * ``collect_kv=True`` — prefill: returns ``(x, k, v)`` where k/v
         are the post-RoPE [B, n_kv, S, D] cache rows.
     """
-    if block_table is not None or kv_lengths is not None:
-        raise NotImplementedError(f"llama_block: {_PAGED}")
     q_size = num_heads * head_dim
     kv_size = num_kv_heads * head_dim
     p = (lambda s: f"{name}.{s}") if name else (lambda s: None)
@@ -83,8 +84,18 @@ def llama_block(x, hidden, num_heads, num_kv_heads, seq_len, head_dim,
         # cached decode: write this step's K/V at each slot's position,
         # then attend the new token(s) over the whole (updated) cache;
         # GQA pairs heads inside cached_attention
-        cache_k = layers.kv_cache_write(kv_cache[0], k, positions)
-        cache_v = layers.kv_cache_write(kv_cache[1], v, positions)
+        if block_table is not None:
+            # paged: write first, then gather, so the fresh rows are in
+            # the view (the mask admits j <= positions[b] + t)
+            pool_k = layers.kv_pool_write(kv_cache[0], k, positions,
+                                          block_table, kv_lengths)
+            pool_v = layers.kv_pool_write(kv_cache[1], v, positions,
+                                          block_table, kv_lengths)
+            cache_k = layers.kv_pool_gather(pool_k, block_table)
+            cache_v = layers.kv_pool_gather(pool_v, block_table)
+        else:
+            cache_k = layers.kv_cache_write(kv_cache[0], k, positions)
+            cache_v = layers.kv_cache_write(kv_cache[1], v, positions)
         attn = layers.cached_attention(q, cache_k, cache_v, positions)
     else:
         new_k, new_v = k, v  # pre-expansion rows are what a cache stores
@@ -176,6 +187,12 @@ def _cache_var(block, name, shape):
                             dtype="float32", stop_gradient=True)
 
 
+def _pool_var(block, name, num_pages, num_kv_heads, page_tokens,
+              head_dim):
+    return _cache_var(block, name, [num_pages, num_kv_heads, page_tokens,
+                                    head_dim])
+
+
 def build_llama_prefill(batch_size, seq_len, vocab_size=32000,
                         hidden=4096, num_layers=32, num_heads=32,
                         num_kv_heads=None, intermediate=11008,
@@ -192,16 +209,19 @@ def build_llama_prefill(batch_size, seq_len, vocab_size=32000,
     * ``cache_slots`` / ``max_seq_len`` given (the serving engine's path;
       ``batch_size`` 1): the per-layer post-RoPE K/V go in-graph into
       the shared decode caches ``<name>.cache_{k,v}_<i>`` at slot
-      ``slot`` [1] int32 (``kv_cache_insert``, in place).
+      ``slot`` [1] int32 (``kv_cache_insert``, in place).  With
+      ``paged=True`` they go into the pools ``<name>.pool_{k,v}_<i>``
+      [num_pages, n_kv, page_tokens, D] instead, from logical position 0
+      through ``block_table`` [1, NP] int32, with ``prompt_len`` [1]
+      int32 in place of ``slot``: rows at or past it go to the trash
+      page.  The forward is the same graph either way, so paged prefill
+      logits equal dense ones bit for bit.
     * omitted: per-layer ``k_i`` / ``v_i`` [B, n_kv, S, D] come back as
       extra fetches.
-    ``paged=True`` (the block-paged pools) raises NotImplementedError.
 
     Causal attention keeps pad-tail rows from touching the real ones;
     the engine masks them out of the cache through per-slot positions.
     """
-    if paged:
-        raise NotImplementedError(f"build_llama_prefill: {_PAGED}")
     num_kv_heads = num_kv_heads or num_heads
     head_dim = hidden // num_heads
     input_ids = layers.data("input_ids", [batch_size, seq_len],
@@ -209,7 +229,7 @@ def build_llama_prefill(batch_size, seq_len, vocab_size=32000,
     last_pos = layers.data("last_pos", [batch_size], dtype="int64",
                            append_batch_size=False)
     feeds = ["input_ids", "last_pos"]
-    slot = None
+    slot = block_table = prompt_len = zero_pos = None
     if cache_slots is not None:
         if batch_size != 1:
             raise ValueError("in-graph cache insert prefills one "
@@ -217,9 +237,21 @@ def build_llama_prefill(batch_size, seq_len, vocab_size=32000,
         if max_seq_len is None or seq_len > max_seq_len:
             raise ValueError(f"prefill bucket {seq_len} exceeds cache "
                              f"max_seq_len {max_seq_len}")
-        slot = layers.data("slot", [1], dtype="int32",
-                           append_batch_size=False)
-        feeds.append("slot")
+        if paged:
+            if not num_pages or not page_tokens:
+                raise ValueError("paged prefill needs num_pages and "
+                                 "page_tokens")
+            block_table = layers.data(
+                "block_table", [1, max_seq_len // page_tokens],
+                dtype="int32", append_batch_size=False)
+            prompt_len = layers.data("prompt_len", [1], dtype="int32",
+                                     append_batch_size=False)
+            feeds += ["block_table", "prompt_len"]
+            zero_pos = layers.fill_constant([1], "int32", 0)
+        else:
+            slot = layers.data("slot", [1], dtype="int32",
+                               append_batch_size=False)
+            feeds.append("slot")
     x = layers.embedding(input_ids, size=[vocab_size, hidden],
                          param_attr=f"{name}.embed")
     kvs = []
@@ -229,7 +261,14 @@ def build_llama_prefill(batch_size, seq_len, vocab_size=32000,
                               seq_len, head_dim, intermediate,
                               name=f"{name}.blk{i}", attn_impl=attn_impl,
                               collect_kv=True)
-        if slot is not None:
+        if block_table is not None:
+            for kind, t in (("k", k), ("v", v)):
+                pool = _pool_var(block, f"{name}.pool_{kind}_{i}",
+                                 num_pages, num_kv_heads, page_tokens,
+                                 head_dim)
+                layers.kv_pool_write(pool, t, zero_pos, block_table,
+                                     prompt_len)
+        elif slot is not None:
             for kind, t in (("k", k), ("v", v)):
                 cache = _cache_var(block, f"{name}.cache_{kind}_{i}",
                                    [cache_slots, num_kv_heads, max_seq_len,
@@ -237,20 +276,24 @@ def build_llama_prefill(batch_size, seq_len, vocab_size=32000,
                 layers.kv_cache_insert(cache, t, slot)
         else:
             kvs.append((k, v))
+    fetches = _head(x, vocab_size, name, batch_size, last_pos)
+    for i, (k, v) in enumerate(kvs):
+        fetches[f"k_{i}"] = k
+        fetches[f"v_{i}"] = v
+    return feeds, fetches
+
+
+def _head(x, vocab_size, name, batch_size, last_pos):
+    """Final norm, the LM head over every row, then each row's last real
+    position: the head's product has the uncached forward's rows.
+    {"logits": [B, V], "next_token": [B] int64}."""
     x = layers.rms_norm(x, param_attr=f"{name}.ln_f")
-    # the LM head over every row, then each row's last real position: the
-    # head's product has the uncached forward's rows (a one-row product
-    # would sum in another order, see ops/decode_ops.py)
     all_logits = _linear(x, vocab_size, pname=f"{name}.head.w")
     rows = layers.range(0, batch_size, 1, dtype="int64")     # [B]
     coords = layers.stack([rows, last_pos], axis=1)          # [B, 2]
     logits = layers.gather_nd(all_logits, coords)            # [B, V]
     next_token = layers.argmax(logits, axis=-1)              # [B] int64
-    fetches = {"logits": logits, "next_token": next_token}
-    for i, (k, v) in enumerate(kvs):
-        fetches[f"k_{i}"] = k
-        fetches[f"v_{i}"] = v
-    return feeds, fetches
+    return {"logits": logits, "next_token": next_token}
 
 
 def build_llama_decode(num_slots, max_seq_len, vocab_size=32000,
@@ -266,23 +309,42 @@ def build_llama_decode(num_slots, max_seq_len, vocab_size=32000,
     ``<name>.cache_k_<i>`` / ``.cache_v_<i>`` [slots, n_kv, S_max, D] are
     persistable state the step reads and updates in place.  Fetches:
     ``logits`` [slots, V] and greedy ``next_token`` [slots] int64.
-    ``paged=True`` raises NotImplementedError.
+
+    ``paged=True`` reads and writes the pools ``<name>.pool_{k,v}_<i>``
+    [num_pages, n_kv, page_tokens, D] instead, with two more feeds:
+    ``block_tables`` [slots, NP] int32 (NP = max_seq_len // page_tokens)
+    and ``live`` [slots] int32 (1: the slot decodes this step; 0: idle,
+    its write goes to the trash page).
 
     Returns ``(feed_names, fetches, cache_names)``."""
-    if paged:
-        raise NotImplementedError(f"build_llama_decode: {_PAGED}")
     num_kv_heads = num_kv_heads or num_heads
     head_dim = hidden // num_heads
     tokens = layers.data("tokens", [num_slots, 1], dtype="int64",
                          append_batch_size=False)
     positions = layers.data("positions", [num_slots], dtype="int32",
                             append_batch_size=False)
+    feeds = ["tokens", "positions"]
+    block_tables = live = None
+    if paged:
+        if not num_pages or not page_tokens:
+            raise ValueError("paged decode needs num_pages and page_tokens")
+        block_tables = layers.data(
+            "block_tables", [num_slots, max_seq_len // page_tokens],
+            dtype="int32", append_batch_size=False)
+        live = layers.data("live", [num_slots], dtype="int32",
+                           append_batch_size=False)
+        feeds += ["block_tables", "live"]
     block = default_main_program().global_block()
-    shape = [num_slots, num_kv_heads, max_seq_len, head_dim]
     caches, cache_names = [], []
     for i in range(num_layers):
-        ck = _cache_var(block, f"{name}.cache_k_{i}", shape)
-        cv = _cache_var(block, f"{name}.cache_v_{i}", shape)
+        if paged:
+            ck, cv = (_pool_var(block, f"{name}.pool_{kind}_{i}", num_pages,
+                                num_kv_heads, page_tokens, head_dim)
+                      for kind in ("k", "v"))
+        else:
+            shape = [num_slots, num_kv_heads, max_seq_len, head_dim]
+            ck = _cache_var(block, f"{name}.cache_k_{i}", shape)
+            cv = _cache_var(block, f"{name}.cache_v_{i}", shape)
         caches.append((ck, cv))
         cache_names += [ck.name, cv.name]
     x = layers.embedding(tokens, size=[vocab_size, hidden],
@@ -290,10 +352,63 @@ def build_llama_decode(num_slots, max_seq_len, vocab_size=32000,
     for i, (ck, cv) in enumerate(caches):
         x = llama_block(x, hidden, num_heads, num_kv_heads, 1, head_dim,
                         intermediate, name=f"{name}.blk{i}",
-                        kv_cache=(ck, cv), positions=positions)
+                        kv_cache=(ck, cv), positions=positions,
+                        block_table=block_tables, kv_lengths=live)
     x = layers.rms_norm(x, param_attr=f"{name}.ln_f")
     logits = _linear(x, vocab_size, pname=f"{name}.head.w")  # [slots,1,V]
     logits = layers.squeeze(logits, [1])                     # [slots, V]
     next_token = layers.argmax(logits, axis=-1)              # [slots]
-    return ["tokens", "positions"], \
-        {"logits": logits, "next_token": next_token}, cache_names
+    return feeds, {"logits": logits, "next_token": next_token}, cache_names
+
+
+def build_llama_prefill_chunk(chunk_len, max_seq_len, num_pages,
+                              page_tokens, vocab_size=32000,
+                              hidden=4096, num_layers=32, num_heads=32,
+                              num_kv_heads=None, intermediate=11008,
+                              name="llama"):
+    """Paged prefill continuation: one slice of a prompt attends the
+    slot's pages so far plus itself causally.  The program behind both
+    chunked prefill (a long prompt fed in slices, decode steps between
+    them) and prefix reuse (a prefix hit maps the shared pages and only
+    the prompt's tail runs here).
+
+    Feeds: ``chunk_ids`` [1, C] int64 (right-padded slice), ``base`` [1]
+    int32 (tokens already in the slot's pages: the chunk's first logical
+    position), ``block_table`` [1, NP] int32, ``chunk_len`` [1] int32
+    (real rows; the pad tail writes to the trash page) and ``last_off``
+    [1] int64 (the last real row).  Fetches: ``logits`` [1, V] at
+    ``last_off`` and greedy ``next_token`` [1], which mean something
+    only for a prompt's last chunk.
+
+    Returns ``(feed_names, fetches, cache_names)``."""
+    num_kv_heads = num_kv_heads or num_heads
+    head_dim = hidden // num_heads
+    chunk_ids = layers.data("chunk_ids", [1, chunk_len], dtype="int64",
+                            append_batch_size=False)
+    base = layers.data("base", [1], dtype="int32", append_batch_size=False)
+    block_table = layers.data("block_table",
+                              [1, max_seq_len // page_tokens],
+                              dtype="int32", append_batch_size=False)
+    ck_len = layers.data("chunk_len", [1], dtype="int32",
+                         append_batch_size=False)
+    last_off = layers.data("last_off", [1], dtype="int64",
+                           append_batch_size=False)
+    block = default_main_program().global_block()
+    caches, cache_names = [], []
+    for i in range(num_layers):
+        ck, cv = (_pool_var(block, f"{name}.pool_{kind}_{i}", num_pages,
+                            num_kv_heads, page_tokens, head_dim)
+                  for kind in ("k", "v"))
+        caches.append((ck, cv))
+        cache_names += [ck.name, cv.name]
+    x = layers.embedding(chunk_ids, size=[vocab_size, hidden],
+                         param_attr=f"{name}.embed")
+    for i, (ck, cv) in enumerate(caches):
+        # rope offset = base; cached_attention's mask (j <= base + t) is
+        # causal over the pages so far and the chunk
+        x = llama_block(x, hidden, num_heads, num_kv_heads, chunk_len,
+                        head_dim, intermediate, name=f"{name}.blk{i}",
+                        kv_cache=(ck, cv), positions=base,
+                        block_table=block_table, kv_lengths=ck_len)
+    return (["chunk_ids", "base", "block_table", "chunk_len", "last_off"],
+            _head(x, vocab_size, name, 1, last_off), cache_names)

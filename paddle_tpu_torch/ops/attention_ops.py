@@ -14,14 +14,17 @@ a ``torch.autograd.Function`` whose backward is what its auto-derived
   * a CUDA tensor of any other shape or dtype raises: nothing falls back.
 
 ``flash_attention`` with ``impl="xla"`` is the JAX package's einsum
-formulation in plain PyTorch on any device (no kernel): the uncached
-side of the generation contract, which ``cached_attention``
-(ops/decode_ops.py) mirrors product for product.
+formulation in plain PyTorch on any device (no attention kernel): the
+uncached side of the generation contract, which ``cached_attention``
+(ops/decode_ops.py) mirrors product for product.  Its two products run
+the product kernel on the card where nothing differentiates them
+(ops/cuda/gemm.py), as cached_attention's do.
 """
 from __future__ import annotations
 
 import torch
 
+from .cuda import gemm
 from .cuda.flash_attention import (flash_attention_autograd,
                                    flash_attention_packed_autograd)
 from .registry import in_var, register_op, set_out
@@ -96,7 +99,7 @@ def _xla_attention(ctx, op):
     scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
     Sq, Sk = q.shape[-2], k.shape[-2]
     k, v = pad_keys(k, v)
-    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    s = gemm.product(q, k.transpose(-1, -2)) * scale
     if bias is not None:
         bias = torch.nn.functional.pad(bias, (0, s.shape[-1] - Sk))
         s = s + bias[:, None, None, :].to(s.dtype)
@@ -115,7 +118,7 @@ def _xla_attention(ctx, op):
         keep = torch.rand(p.shape, generator=ctx.rng(op),
                           device=p.device) < 1.0 - prob
         p = torch.where(keep, p / (1.0 - prob), torch.zeros_like(p))
-    out = torch.matmul(p, v)
+    out = gemm.product(p, v)
     return out.transpose(1, 2) if bshd else out
 
 

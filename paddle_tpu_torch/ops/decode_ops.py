@@ -1,12 +1,20 @@
-"""Autoregressive-decode ops: per-slot KV-cache writes and cached attention.
+"""Autoregressive-decode ops: KV-cache writes, paged pools and cached
+attention.
 
-Counterpart of ``paddle_tpu/ops/decode_ops.py`` (dense cache only; the
-paged ``kv_pool_write`` / ``kv_pool_gather`` are not ported yet):
+Counterpart of ``paddle_tpu/ops/decode_ops.py``:
 
 * ``kv_cache_write`` — the step's fresh K/V rows go into a persistent
   per-slot cache [B, Hkv, S_max, D] at per-row offsets ``Positions``;
 * ``kv_cache_insert`` — a prefill's K/V [1, Hkv, S_b, D] go into slot
   ``Slot`` of the cache, from sequence offset 0;
+* ``kv_pool_write`` — the block-paged cache's write: row (b, t) lands in
+  a pool [P, Hkv, page_tokens, D] at logical position
+  ``positions[b] + t``, on the physical page ``BlockTable[b]`` maps it
+  to; rows at or past ``Lengths[b]`` go to the trash page 0;
+* ``kv_pool_gather`` — a slot's pages gathered back into the dense
+  logical layout [B, Hkv, NP * page_tokens, D], so that
+  ``cached_attention`` runs the dense path's products at the dense
+  contraction length (paged ≡ dense);
 * ``cached_attention`` — the new token(s) attend over the whole cache
   with the per-row validity mask ``j <= positions[b] + t``.
 
@@ -20,7 +28,11 @@ indices are computed on the device from ``Positions`` / ``Slot`` (no
 host read), so a step with these ops can be captured as a CUDA graph.
 A write starts at ``min(position, S_max - T)``, the clamp of
 ``jax.lax.dynamic_update_slice``; the generation engine finishes a
-sequence ``cache_full`` before a write would clamp.
+sequence ``cache_full`` before a write would clamp.  The pool ops clip
+as the JAX package's ``take`` does: a logical page past the table reads
+and writes the table's last entry, a table entry past the pool the
+pool's last page on a gather; a write whose table entry is outside the
+pool goes to the trash page (the JAX package's scatter drops it).
 
 ``cached_attention`` keeps the reference's math (the ``-1e30`` mask, the
 softmax over the full cache width, repeat-interleave GQA) and its
@@ -32,15 +44,18 @@ head are stacked into one [rep * T, D] operand, and a lone row is
 duplicated (the JAX package duplicates its Q = 1 row for XLA's sake).
 GQA heads read the cache through that stacking instead of expanding it.
 A cache narrower than ``attention_ops.MIN_KEYS`` is padded with masked
-columns as the uncached forward pads its keys.
+columns as the uncached forward pads its keys.  On the card its products
+run the kernel whose rows do not depend on M (ops/cuda/gemm.py), which
+is what holds the contract there.
 
-All three are inference-only (``grad=None``).
+All are inference-only (``grad=None``).
 """
 from __future__ import annotations
 
 import torch
 
 from .attention_ops import pad_keys
+from .cuda import gemm
 from .registry import in_var, register_op, set_out
 
 
@@ -49,12 +64,12 @@ def _kv_write_infer(op, block):
     set_out(op, block, "Out", c.shape, c.dtype)
 
 
-def _write_target(ctx, op) -> torch.Tensor:
-    """The tensor the op writes into: the cache itself where this run
-    may update it in place, else a copy of it."""
-    cache = ctx.get_input(op, "Cache")
+def _write_target(ctx, op, slot="Cache") -> torch.Tensor:
+    """The tensor the op writes into: the cache (or pool) itself where
+    this run may update it in place, else a copy of it."""
+    cache = ctx.get_input(op, slot)
     name = op.single_output("Out")
-    if name in ctx.in_place and name == op.single_input("Cache"):
+    if name in ctx.in_place and name == op.single_input(slot):
         return cache
     return cache.clone()
 
@@ -92,15 +107,77 @@ def _kv_cache_insert(ctx, op):
     ctx.set_output(op, "Out", out)
 
 
+def _kv_pool_write_infer(op, block):
+    p = in_var(op, block, "Pool")
+    set_out(op, block, "Out", p.shape, p.dtype)
+
+
+@register_op("kv_pool_write", infer=_kv_pool_write_infer, grad=None,
+             stateful_outputs=("Out",))
+def _kv_pool_write(ctx, op):
+    """Pool [P, Hkv, pt, D], New [B, Hkv, T, D], Positions [B] (each
+    row's logical base), BlockTable [B, NP] (logical page -> physical
+    page), Lengths [B] (live rows of each batch row).  Row (b, t) lands
+    on page BlockTable[b, (positions[b] + t) // pt] (the index clipped
+    to the table) at offset (positions[b] + t) % pt; rows with t >=
+    lengths[b] (idle slots, a chunk's pad tail) land on the trash page
+    0 at offset 0.  One scatter, no branch."""
+    out = _write_target(ctx, op, "Pool")
+    new = ctx.get_input(op, "New")
+    pos = ctx.get_input(op, "Positions").to(torch.long)
+    bt = ctx.get_input(op, "BlockTable").to(torch.long)
+    length = ctx.get_input(op, "Lengths").to(torch.long)
+    P, _, pt, _ = out.shape
+    B, Hkv, T, D = new.shape
+    t = torch.arange(T, device=out.device)[None, :]
+    logical = pos[:, None] + t                              # [B, T]
+    page = (logical // pt).clamp(0, bt.shape[1] - 1)
+    phys = torch.gather(bt, 1, page)
+    valid = (t < length[:, None]) & (phys >= 0) & (phys < P)
+    phys = torch.where(valid, phys, torch.zeros_like(phys))
+    off = torch.where(valid, logical % pt, torch.zeros_like(logical))
+    rows = new.to(out.dtype).permute(0, 2, 1, 3).reshape(B * T, Hkv, D)
+    # two index tensors around a slice: the indexed view is [B*T, Hkv, D]
+    out[phys.reshape(-1), :, off.reshape(-1)] = rows
+    ctx.set_output(op, "Out", out)
+
+
+def _kv_pool_gather_infer(op, block):
+    pool = in_var(op, block, "Pool")
+    bt = in_var(op, block, "BlockTable")
+    _, hkv, pt, d = pool.shape
+    b, np_ = bt.shape
+    set_out(op, block, "Out", (b, hkv, np_ * pt, d), pool.dtype)
+
+
+@register_op("kv_pool_gather", infer=_kv_pool_gather_infer, grad=None)
+def _kv_pool_gather(ctx, op):
+    """Pool [P, Hkv, pt, D] gathered through BlockTable [B, NP] (entries
+    clipped to the pool) -> [B, Hkv, NP * pt, D]: column j is logical
+    position j of slot b, the dense cache's layout.  Unmapped entries
+    read the trash page, whose columns lie past the slot's validity
+    limit and are masked."""
+    pool = ctx.get_input(op, "Pool")
+    bt = ctx.get_input(op, "BlockTable").to(torch.long)
+    P, Hkv, pt, D = pool.shape
+    B, NP = bt.shape
+    pages = pool[bt.clamp(0, P - 1)]                  # [B, NP, Hkv, pt, D]
+    ctx.set_output(op, "Out", pages.permute(0, 2, 1, 3, 4).reshape(
+        B, Hkv, NP * pt, D))
+
+
 def _cached_attn_infer(op, block):
     q = in_var(op, block, "Q")
     set_out(op, block, "Out", q.shape, q.dtype)
 
 
 def _grouped_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a [..., M, K] @ b [..., K, N], with a lone row (M = 1) computed as
-    the first row of a two-row product: the GEMM path every row of a
-    longer product takes."""
+    """a [..., M, K] @ b [..., K, N] whose rows equal the same rows of a
+    longer product: on the card the product kernel (ops/cuda/gemm.py),
+    on the CPU a lone row (M = 1) computed as the first row of a two-row
+    product, the GEMM path every row of a longer product takes."""
+    if gemm.routes(a, b):
+        return gemm.matmul(a, b)
     if a.shape[-2] == 1:
         return torch.matmul(torch.cat([a, a], dim=-2), b)[..., :1, :]
     return torch.matmul(a, b)

@@ -3,11 +3,14 @@
 Counterpart of ``paddle_tpu/ops/math_ops.py`` for the ops on the BERT
 and Llama paths: ``elementwise_add/mul/div/max`` with Paddle ``axis``
 broadcasting, ``less_than``, ``scale``, ``mul``, ``gelu``, ``silu``,
-``sqrt``, ``cast``, ``reduce_sum``, ``mean`` and ``sum``.  The plain
-matrix product of ``mul`` stays ``torch.matmul``, as the JAX package
-leaves it to XLA; a one-row product is computed as two rows, so its row
-equals the same row of any longer product (generation's cached decode
-against the uncached forward).
+``sqrt``, ``cast``, ``reduce_sum``, ``mean`` and ``sum``.  ``mul``'s
+row results must not depend on how many rows it has (generation's cached
+decode against the uncached forward, tolerance 0).  On the card a
+float32 product that no grad op differentiates runs the hand-written
+product kernel whose rows do not depend on M (ops/cuda/gemm.py); a
+differentiated (training) or bfloat16 product keeps ``torch.matmul``.
+On the CPU a one-row product is computed as two rows: MKL's one-row GEMV
+sums in another order than the rows of a longer product.
 
 Binary ops promote their operands as jax.numpy does: a bfloat16 and a
 float32 operand give float32 whatever their ranks (torch alone would
@@ -21,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..framework.core import Block, Operator, dtype_to_torch
+from .cuda import gemm
 from .registry import (LowerContext, broadcast_shapes, in_var, register_op,
                        same_as_input, set_out)
 
@@ -160,7 +164,9 @@ def _mul(ctx: LowerContext, op: Operator):
     xs, ys = tuple(x.shape), tuple(y.shape)
     x2 = x.reshape(math.prod(xs[:xd]), -1)
     y2 = y.reshape(math.prod(ys[:yd]), -1)
-    if x2.shape[0] == 1:
+    if gemm.routes(x2, y2):
+        out = gemm.matmul(x2, y2)
+    elif x2.shape[0] == 1:
         # one row takes a GEMV path that sums in another order than the
         # rows of a longer product (the uncached forward's); a decode
         # step over one slot computes it as the first of two rows

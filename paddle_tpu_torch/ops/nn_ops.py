@@ -4,13 +4,16 @@
 Counterpart of the same ops in ``paddle_tpu/ops/nn_ops.py``, with the
 same formulas: normalisation statistics in float32, the loss as
 ``logsumexp(logits) - logits[label]`` (the numerically stable form), and
-dropout's keep test on uint8 random bits.
+dropout's keep test on uint8 random bits.  On the card a float32
+``rms_norm`` that no grad op differentiates runs a hand-written kernel
+whose rows do not depend on the number of rows (ops/cuda/rms_norm.py).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .cuda import rms_norm
 from .registry import in_var, register_op, set_out
 
 
@@ -54,10 +57,15 @@ def _layer_norm(ctx, op):
     in_var(op, block, "X").dtype))
 def _rms_norm(ctx, op):
     """RMSNorm over the last dim: statistics in float32, output in X's
-    dtype."""
+    dtype.  On the card a float32 norm no grad op differentiates runs the
+    kernel whose rows do not depend on the number of rows
+    (ops/cuda/rms_norm.py), as generation's contract needs."""
     x = ctx.get_input(op, "X")
     scale = ctx.get_input(op, "Scale")
     eps = op.attr("epsilon", 1e-6)
+    if rms_norm.routes(x, scale):
+        ctx.set_output(op, "Y", rms_norm.rms_norm_rows(x, scale, eps))
+        return
     xf = x.float()
     y = xf / torch.sqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
     if scale is not None:

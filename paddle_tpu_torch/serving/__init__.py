@@ -2,7 +2,8 @@
 
 Counterpart of ``paddle_tpu/serving``.  Ported so far: ``batcher`` (shape
 and prompt buckets, padding, bit-exact split), the request errors and
-futures of ``engine``, and ``GenerationEngine`` with the dense KV cache
+futures of ``engine``, and ``GenerationEngine`` with the dense or the
+block-paged KV cache, prefix reuse and chunked prefill
 (serving/generation.py)::
 
     from paddle_tpu_torch.serving import GenerationEngine
@@ -14,9 +15,11 @@ futures of ``engine``, and ``GenerationEngine`` with the dense KV cache
     gen.warmup()
     out = gen.generate([1, 15043, 29892], max_new_tokens=64)
 
-The dynamic-batching ``ServingEngine``, the HTTP front end, the router
-and fleet, and the paged / disaggregated / speculative generation paths
-are not ported yet (ROADMAP.md queue 1 items 2 and 6).
+``paged=True`` (``page_tokens``, ``num_pages``, ``prefix_reuse``,
+``prefill_chunk``) serves from a page pool.  The dynamic-batching
+``ServingEngine``, the HTTP front end, the router and fleet, and the
+disaggregated / speculative generation paths are not ported yet
+(ROADMAP.md queue 1 items 2 and 6).
 """
 from . import batcher  # noqa
 from .engine import (OverloadedError, PoisonedInput, RequestFailed,  # noqa

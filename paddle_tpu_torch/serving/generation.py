@@ -1,8 +1,9 @@
-"""Slot-based continuous batching for autoregressive decode, dense KV cache.
+"""Slot-based continuous batching for autoregressive decode over a dense or
+block-paged KV cache.
 
-Counterpart of ``paddle_tpu/serving/generation.py`` with ``paged=False``.
-One request is a *prefill* (one causal pass over the prompt) followed by
-decode steps (one token each over a KV cache):
+Counterpart of ``paddle_tpu/serving/generation.py``.  One request is a
+*prefill* (one causal pass over the prompt) followed by decode steps (one
+token each over a KV cache):
 
 * **Fixed slot grid** — ``num_slots`` decode slots share per-layer KV
   caches ``[slots, n_kv, max_seq_len, D]`` held as persistable state in
@@ -11,10 +12,30 @@ decode steps (one token each over a KV cache):
   offset in place (``kv_cache_write``), so no step copies a cache; the
   prefill program inserts a prompt's K/V into its slot the same way
   (``kv_cache_insert``).
+* **Block-paged cache** (``paged=True``) — per-layer pools ``[num_pages,
+  n_kv, page_tokens, D]`` replace the per-slot reservation; each slot
+  maps logical pages to physical ones through a block table the host
+  feeds every step (``PagePool``: refcounts, a free list, page 0 the
+  trash page that garbage rows are written to).  The programs write the
+  pools in place (``kv_pool_write``) and attend over the gathered dense
+  view (``kv_pool_gather``), so paged logits equal dense ones bit for
+  bit.  A pool with no free page evicts an index-only prefix page, else
+  a decoding slot finishes ``cache_full`` and a prefilling request goes
+  back to the queue head while other slots hold pages.
+* **Prefix reuse** (``prefix_reuse``, on by default with paging) — a
+  prompt's fully covered pages are published under their exact token
+  prefix (``PrefixIndex``); a later prompt with the same page-aligned
+  prefix maps those pages (refcounted, never written again: the shared
+  pages' bytes stay as they are) and prefills only its tail through the
+  chunk program.
+* **Chunked prefill** (``prefill_chunk`` > 0) — a prompt goes through
+  the chunk program in slices of that many tokens, one slice a scheduler
+  iteration, decode steps of the other slots in between.
 * **Compiled steps** — the decode step runs through one executor and
-  each prefill bucket through an executor of its own, so the buckets
-  never evict one another from an executor's ``MAX_CACHED_STEPS``
-  entries.  On the card each program is captured once as a CUDA graph
+  each prefill (or chunk) bucket through an executor of its own, so the
+  buckets never evict one another from an executor's ``MAX_CACHED_STEPS``
+  entries.  The block tables reach a captured step through its static
+  feed buffers.  On the card each program is captured once as a CUDA graph
   (its second run) and replayed after that (framework/executor.py);
   ``warmup()`` runs each program twice, which brings it there.
 * **Prefill/decode split** — prompts pad up to shape buckets; decode
@@ -37,13 +58,16 @@ decoding; a *decode-step* failure fails the requests active in the grid
 scheduler.
 
 Cached decode logits equal the uncached ``build_llama_forward(...,
-attn_impl="xla")`` at ``max_seq_len`` bit for bit on the CPU, with
-ragged prompts decoding concurrently (``tests/test_torch_generation.py``).
+attn_impl="xla")`` at ``max_seq_len`` bit for bit, with ragged prompts
+decoding concurrently, on the CPU (``tests/test_torch_generation.py``)
+and on the card (its products run a kernel whose rows do not depend on
+M, ops/cuda/gemm.py); paged equals dense the same way
+(``tests/test_torch_paged_generation.py``).
 
 Not ported yet, each raising NotImplementedError where asked for
-(ROADMAP.md queue 1 item 2): the block-paged cache, prefix reuse,
-chunked prefill, speculative decoding, the prefill / decode roles and
-``adopt``, mesh-sharded serving and ``swap_weights``.  The reference's
+(ROADMAP.md queue 1 item 2): speculative decoding, the prefill / decode
+roles and ``adopt``, mesh-sharded serving and ``swap_weights``.  The
+reference's
 telemetry spans and timelines, flight recorder, usage ledger and cost
 manifest are left out until those modules are ported (ROADMAP.md queue 1
 item 6).
@@ -52,9 +76,12 @@ Stats (``monitor``): counters ``serving_generate_requests``,
 ``serving_generate_shed``, ``requests_shed_deadline``,
 ``serving_prefills``, ``serving_prefill_tokens``,
 ``serving_decode_steps``, ``serving_decode_failures``,
-``serving_generated_tokens``, ``serving_slot_reclaims``; ``stats()``
-adds the engine's own counters and latency summaries (generate,
-prefill, decode step, TTFT, inter-token).
+``serving_generated_tokens``, ``serving_slot_reclaims``; paged:
+``serving_prefix_hits``, ``serving_prefix_tokens_saved``,
+``serving_prefill_chunks``, ``serving_kv_page_evictions``,
+``serving_kv_pool_stalls``; ``stats()`` adds the engine's own counters,
+the pool's state (``"paged"``) and latency summaries (generate, prefill,
+decode step, TTFT, inter-token).
 """
 from __future__ import annotations
 
@@ -69,20 +96,40 @@ import torch
 
 from .. import fault
 from ..device import resolve_device
-from ..flags import flag_value
+from ..flags import flag_value, register_flag
 from ..framework.core import Program, program_guard
 from ..framework.executor import Executor, Scope
-from ..models.llama import build_llama_decode, build_llama_prefill
+from ..models.llama import (build_llama_decode, build_llama_prefill,
+                            build_llama_prefill_chunk)
 from ..monitor import stat_add
 from . import batcher
 from .engine import (OverloadedError, PoisonedInput, RequestFailed,
                      ServingFuture, poison_sentinel_matches)
 
-__all__ = ["GenerationEngine", "GenRequest"]
+__all__ = ["GenerationEngine", "GenRequest", "PagePool", "PrefixIndex",
+           "PoolExhausted"]
 
 logger = logging.getLogger("paddle_tpu_torch.serving.generation")
 
 _ROADMAP = "not ported yet (ROADMAP.md queue 1 item 2)"
+
+register_flag("FLAGS_serving_kv_page_tokens", 16,
+              "paged KV cache: tokens per page (power of two dividing "
+              "FLAGS_serving_max_seq_len); smaller pages waste less on "
+              "short sequences but deepen the per-slot block table")
+register_flag("FLAGS_serving_kv_pages", 0,
+              "paged KV cache: physical pages in the per-layer pool "
+              "(page 0 is the reserved trash page garbage writes are "
+              "redirected to); 0 = auto-size to the dense capacity "
+              "(slots * max_seq_len / page_tokens + 1) — the pool "
+              "footprint is pages * layers * 2 * n_kv_heads * "
+              "page_tokens * head_dim * 4 bytes")
+register_flag("FLAGS_serving_prefix_reuse", True,
+              "paged generation: index page-aligned prompt-prefix chunks "
+              "(system prompts, few-shot headers) and map index hits "
+              "into new slots copy-on-write — their prefill is skipped "
+              "and the pages are shared refcounted until every "
+              "referencing slot finishes; 0 disables the prefix index")
 
 
 class _Latency:
@@ -114,6 +161,129 @@ class _Latency:
         return out
 
 
+class PoolExhausted(Exception):
+    """The paged KV pool has no free page and nothing evictable."""
+
+
+class PagePool:
+    """Host-side allocator of the paged KV cache's physical pages.
+
+    Page 0 is the reserved trash page (idle slots' and pad tails' rows
+    are written there in-graph) and is never handed out.  Pages are
+    refcounted: a slot holds one reference a mapped page, the prefix
+    index one a registered page; a page goes back to the free list when
+    its count reaches 0.  Not thread-safe: the engine touches it only
+    from the scheduler thread."""
+
+    def __init__(self, num_pages: int):
+        if num_pages < 2:
+            raise ValueError(f"paged KV pool needs >= 2 pages (one is "
+                             f"the reserved trash page), got {num_pages}")
+        self.num_pages = int(num_pages)
+        self._free: collections.deque = collections.deque(
+            range(1, num_pages))
+        self._ref = [0] * num_pages
+
+    def alloc(self) -> Optional[int]:
+        """One free page at refcount 1, or None when none is free."""
+        if not self._free:
+            return None
+        p = self._free.popleft()
+        self._ref[p] = 1
+        return p
+
+    def incref(self, pages: Sequence[int]):
+        for p in pages:
+            self._ref[p] += 1
+
+    def decref(self, pages: Sequence[int]):
+        for p in pages:
+            self._ref[p] -= 1
+            if self._ref[p] < 0:
+                raise AssertionError(f"page {p} refcount underflow")
+            if self._ref[p] == 0:
+                self._free.append(p)
+
+    def refcount(self, page: int) -> int:
+        return self._ref[page]
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def live_pages(self) -> int:
+        return (self.num_pages - 1) - len(self._free)
+
+
+class PrefixIndex:
+    """Page-aligned prompt prefix -> the physical page holding its K/V.
+
+    Keys are the exact token bytes of a prompt's first ``(i + 1) *
+    page_tokens`` tokens, so a hit is an exact prefix match chained from
+    position 0 (no hash collisions, no partial pages).  A lookup stops
+    one token short of the whole prompt: at least one token must
+    prefill to give the first next-token logits.  Each entry holds one
+    pool reference; ``evict_one`` drops the least recently used entry
+    whose page only the index still holds (a page mapped into a live
+    slot is never evicted)."""
+
+    def __init__(self, pool: PagePool, page_tokens: int):
+        self._pool = pool
+        self._pt = int(page_tokens)
+        self._entries: "collections.OrderedDict[bytes, int]" = \
+            collections.OrderedDict()
+
+    def lookup(self, prompt: np.ndarray) -> List[int]:
+        """The longest indexed page chain prefixing ``prompt`` (shorter
+        than the prompt); hits move to the recent end."""
+        max_pages = max(0, (int(prompt.size) - 1) // self._pt)
+        pages = []
+        for i in range(max_pages):
+            key = prompt[:(i + 1) * self._pt].tobytes()
+            p = self._entries.get(key)
+            if p is None:
+                break
+            self._entries.move_to_end(key)
+            pages.append(p)
+        return pages
+
+    def register(self, prompt: np.ndarray, pages: Sequence[int]):
+        """Publish a prefilled prompt's fully covered pages.  A key
+        another slot registered first keeps its page (this slot's copy
+        stays private and frees with the slot)."""
+        for i, p in enumerate(pages):
+            key = prompt[:(i + 1) * self._pt].tobytes()
+            if key in self._entries:
+                self._entries.move_to_end(key)
+                continue
+            self._entries[key] = p
+            self._pool.incref([p])
+
+    def evict_one(self) -> bool:
+        """Free the least recently used page only the index holds; False
+        when every indexed page is mapped into a live slot."""
+        for key, p in list(self._entries.items()):
+            if self._pool.refcount(p) == 1:
+                del self._entries[key]
+                self._pool.decref([p])
+                return True
+        return False
+
+    def flush(self) -> int:
+        """Drop every entry (and its page reference); returns how many.
+        After a decode step fails midway, no indexed page's K/V can be
+        trusted."""
+        n = len(self._entries)
+        for p in self._entries.values():
+            self._pool.decref([p])
+        self._entries.clear()
+        return n
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+
 class GenRequest:
     """One queued generation request."""
 
@@ -135,10 +305,11 @@ class GenRequest:
 
 
 class _Slot:
-    """Per-slot decode state: cache offset, step count, tokens."""
+    """Per-slot decode state: cache offset, step count, tokens; paged:
+    the block table, the next position to prefill, the prefix hit."""
 
     __slots__ = ("idx", "req", "position", "steps", "tokens", "logits",
-                 "decoding")
+                 "decoding", "pages", "prefill_pos", "hit_tokens")
 
     def __init__(self, idx: int):
         self.idx = idx
@@ -148,6 +319,9 @@ class _Slot:
         self.tokens: List[int] = []
         self.logits: List[np.ndarray] = []  # keep_logits only
         self.decoding = False  # prefill complete, in the grid
+        self.pages: List[int] = []  # paged: block table, logical order
+        self.prefill_pos = 0        # paged: next position to prefill
+        self.hit_tokens = 0         # paged: tokens the prefix index gave
 
     @property
     def active(self) -> bool:
@@ -163,7 +337,10 @@ class GenerationEngine:
     ``name`` prefix (the engine shares them); omitted, the engine runs
     the decode program's startup with random weights from ``seed``.
     ``device``: None for the card (``cuda:0``), ``"cpu"`` /
-    ``CPUPlace()`` for the CPU.
+    ``CPUPlace()`` for the CPU.  ``paged``, ``page_tokens``,
+    ``num_pages``, ``prefill_chunk`` and ``prefix_reuse`` (None: their
+    ``FLAGS_serving_*``) configure the block-paged cache; the last three
+    are read only with ``paged``.
 
     In-process API: :meth:`submit` (future) / :meth:`generate`
     (blocking), :meth:`warmup`, :meth:`drain`, :meth:`close`,
@@ -175,15 +352,9 @@ class GenerationEngine:
                  max_new_tokens=None, queue_cap=None, deadline_ms=None,
                  continuous=True, autostart=True, name="llama",
                  attn_impl="auto", seed=0, keep_logits=False, mesh=None,
-                 paged=None, prefill_chunk=None, prefix_reuse=None,
-                 role=None, speculate=None, device=None):
-        if paged if paged is not None else flag_value("FLAGS_serving_paged"):
-            raise NotImplementedError(f"paged KV cache: {_ROADMAP}")
-        if prefix_reuse:
-            raise NotImplementedError(f"prefix reuse: {_ROADMAP}")
-        if int(prefill_chunk if prefill_chunk is not None
-               else flag_value("FLAGS_serving_prefill_chunk")) > 0:
-            raise NotImplementedError(f"chunked prefill: {_ROADMAP}")
+                 paged=None, page_tokens=None, num_pages=None,
+                 prefill_chunk=None, prefix_reuse=None, role=None,
+                 speculate=None, device=None):
         if speculate if speculate is not None \
                 else flag_value("FLAGS_serving_speculate"):
             raise NotImplementedError(f"speculative decoding: {_ROADMAP}")
@@ -234,12 +405,15 @@ class GenerationEngine:
         self._n_kv = self.model.get("num_kv_heads") or heads
         self._head_dim = self.model["hidden"] // heads
         self._seed = seed
+        self._configure_pages(paged, page_tokens, num_pages, prefill_chunk,
+                              prefix_reuse)
         self.device = resolve_device(device)
         self.scope = scope if scope is not None else Scope()
-        # the decode step's executor; one executor a prefill bucket
+        # one executor for the decode step and one for each prefill or
+        # chunk bucket: key -> (program, fetches, executor)
         self._decode_exe = Executor(self.device)
-        self._prefill_exes: Dict[int, Executor] = {}
-        self._prefill_progs: Dict[int, tuple] = {}  # bucket -> (prog, fetches)
+        self._progs: Dict[tuple, tuple] = {}
+        self._prefill_rr = 0  # chunked-prefill round-robin cursor
         self._build_decode(scope_ready=scope is not None)
         self._init_caches()
 
@@ -252,7 +426,10 @@ class GenerationEngine:
         self._thread: Optional[threading.Thread] = None
         self._n = {"requests": 0, "shed": 0, "served": 0, "prefills": 0,
                    "decode_steps": 0, "generated_tokens": 0,
-                   "prefill_tokens": 0, "slot_reclaims": 0, "failed": 0}
+                   "prefill_tokens": 0, "slot_reclaims": 0, "failed": 0,
+                   "prefix_hits": 0, "prefix_tokens_saved": 0,
+                   "prefill_chunks": 0, "page_evictions": 0,
+                   "pool_stalls": 0}
         self._n_lock = threading.Lock()
         self._h_gen = _Latency()
         self._h_prefill = _Latency()
@@ -263,6 +440,46 @@ class GenerationEngine:
         self._t_decode_total = 0.0
         if autostart:
             self.start()
+
+    def _configure_pages(self, paged, page_tokens, num_pages, prefill_chunk,
+                         prefix_reuse):
+        """The paged cache's configuration (None: the flag's value):
+        ``page_tokens`` a power of two dividing ``max_seq_len`` (the
+        gathered view must be exactly max_seq_len wide, the dense
+        contraction length), ``num_pages`` 0 / None for slots x
+        pages_per_slot + 1 (the trash page)."""
+        self.paged = bool(flag_value("FLAGS_serving_paged")
+                          if paged is None else paged)
+        self.page_tokens = self.num_pages = self.pages_per_slot = 0
+        self.prefill_chunk = 0
+        self.prefix_reuse = False
+        self._pool: Optional[PagePool] = None
+        self._prefix: Optional[PrefixIndex] = None
+        if not self.paged:
+            return
+        pt = int(page_tokens if page_tokens is not None
+                 else flag_value("FLAGS_serving_kv_page_tokens"))
+        if pt < 1 or (pt & (pt - 1)):
+            raise ValueError(f"FLAGS_serving_kv_page_tokens must be a "
+                             f"power of two, got {pt}")
+        if self.max_seq_len % pt:
+            raise ValueError(f"max_seq_len {self.max_seq_len} is not a "
+                             f"multiple of page_tokens {pt}")
+        self.page_tokens = pt
+        self.pages_per_slot = self.max_seq_len // pt
+        auto = self.num_slots * self.pages_per_slot + 1
+        self.num_pages = int(num_pages if num_pages is not None
+                             else (flag_value("FLAGS_serving_kv_pages")
+                                   or auto))
+        self.prefill_chunk = int(
+            prefill_chunk if prefill_chunk is not None
+            else flag_value("FLAGS_serving_prefill_chunk"))
+        self.prefix_reuse = bool(
+            prefix_reuse if prefix_reuse is not None
+            else flag_value("FLAGS_serving_prefix_reuse"))
+        self._pool = PagePool(self.num_pages)
+        if self.prefix_reuse:
+            self._prefix = PrefixIndex(self._pool, pt)
 
     # -- build --------------------------------------------------------------
     def _program(self, build):
@@ -277,8 +494,10 @@ class GenerationEngine:
 
     def _build_decode(self, scope_ready: bool):
         main, startup, (_feeds, fetches, cache_names) = self._program(
-            lambda: build_llama_decode(self.num_slots, self.max_seq_len,
-                                       name=self.name, **self.model))
+            lambda: build_llama_decode(
+                self.num_slots, self.max_seq_len, name=self.name,
+                paged=self.paged, num_pages=self.num_pages or None,
+                page_tokens=self.page_tokens or None, **self.model))
         self._decode_prog = main
         self._decode_fetches = fetches
         self.cache_names = cache_names
@@ -290,44 +509,100 @@ class GenerationEngine:
             exe.close()
 
     def _init_caches(self):
-        shape = (self.num_slots, self._n_kv, self.max_seq_len,
-                 self._head_dim)
+        if self.paged:
+            shape = (self.num_pages, self._n_kv, self.page_tokens,
+                     self._head_dim)
+        else:
+            shape = (self.num_slots, self._n_kv, self.max_seq_len,
+                     self._head_dim)
         for n in self.cache_names:
-            # one distinct zero tensor per cache: each is state its
-            # steps update in place
+            # one distinct zero tensor per cache or pool: each is state
+            # its steps update in place
             self.scope.set_var(n, torch.zeros(shape, dtype=torch.float32,
                                               device=self.device))
+        # the bytes allocated: the pools when paged, else the caches
         self.kv_cache_bytes = len(self.cache_names) * int(np.prod(shape)) * 4
+        # one page across every layer's K and V pools
+        self.page_bytes = (len(self.cache_names) * self._n_kv
+                           * self.page_tokens * self._head_dim * 4)
 
-    def _prefill_prog_for(self, bucket: int):
-        entry = self._prefill_progs.get(bucket)
-        if entry is None:
-            main, _startup, (_feeds, fetches) = self._program(
-                lambda: build_llama_prefill(
-                    1, bucket, name=self.name, attn_impl=self.attn_impl,
+    @property
+    def kv_live_bytes(self) -> int:
+        """Bytes of the pages live sequences or the prefix index hold now
+        (the dense cache: all of it, always)."""
+        if self._pool is None:
+            return self.kv_cache_bytes
+        return self._pool.live_pages * self.page_bytes
+
+    def _prog_for(self, kind: str, bucket: int):
+        """(program, fetches, executor) of a prefill bucket (``kind``
+        "prefill": dense or paged with the engine) or a chunk bucket
+        ("chunk"), each with an executor of its own."""
+        entry = self._progs.get((kind, bucket))
+        if entry is not None:
+            return entry
+        common = dict(name=self.name, **self.model)
+        if kind == "chunk":
+            def build():
+                return build_llama_prefill_chunk(
+                    bucket, self.max_seq_len, self.num_pages,
+                    self.page_tokens, **common)[:2]
+        else:
+            def build():
+                return build_llama_prefill(
+                    1, bucket, attn_impl=self.attn_impl,
                     cache_slots=self.num_slots,
-                    max_seq_len=self.max_seq_len, **self.model))
-            entry = self._prefill_progs[bucket] = (main, fetches)
-            self._prefill_exes[bucket] = Executor(self.device)
+                    max_seq_len=self.max_seq_len, paged=self.paged,
+                    num_pages=self.num_pages or None,
+                    page_tokens=self.page_tokens or None, **common)
+        main, _startup, (_feeds, fetches) = self._program(build)
+        entry = self._progs[(kind, bucket)] = (main, fetches,
+                                               Executor(self.device))
         return entry
 
+    def _chunk_buckets(self) -> List[int]:
+        """The buckets the chunk program can be asked for: with chunking
+        on, every slice (prefix-hit tails too) is at most the chunk, so
+        only the buckets up to its own; with it off, a prefix-hit tail
+        can be any prefill bucket."""
+        if self.prefill_chunk > 0:
+            cap = batcher.prompt_bucket_for(
+                min(self.prefill_chunk, self.max_prompt_len),
+                self.prefill_buckets)
+            return [b for b in self.prefill_buckets if b <= cap]
+        return list(self.prefill_buckets)
+
     def warmup(self) -> int:
-        """Build every prefill bucket and the decode step now, off the
-        request path, running each twice: the first run builds its
-        kernels, the second (on the card) captures its CUDA graph.
-        Returns the number of programs warmed.  The runs write slot 0's
-        cache and every slot's position 0, which no request reads
-        before writing them itself."""
-        warmed = 0
-        for b in self.prefill_buckets:
+        """Build every program the engine can run now, off the request
+        path, running each twice: the first run builds its kernels, the
+        second (on the card) captures its CUDA graph.  Returns the number
+        of programs warmed.  Dense: the runs write slot 0's cache and
+        every slot's position 0, which no request reads before writing
+        it itself; paged: all-zero block tables and lengths send every
+        write to the trash page."""
+        runs = []
+        if not self.paged or self.prefill_chunk <= 0:
+            runs += [("prefill", b) for b in self.prefill_buckets]
+        if self.paged and (self.prefill_chunk > 0 or self.prefix_reuse):
+            runs += [("chunk", b) for b in self._chunk_buckets()]
+        zeros = np.zeros((1,), "int64")
+        for kind, b in runs:
             for _ in range(2):
-                self._run_prefill_program(np.zeros((1,), "int64"), b, 0)
-            warmed += 1
+                if kind == "chunk":
+                    self._run_chunk_program(zeros, b, 0, 0,
+                                            np.zeros((self.pages_per_slot,),
+                                                     "int32"))
+                elif self.paged:
+                    self._run_paged_prefill_program(
+                        zeros, b, 0, np.zeros((self.pages_per_slot,),
+                                              "int32"))
+                else:
+                    self._run_prefill_program(zeros, b, 0)
         for _ in range(2):
             self._run_decode_program(
                 np.zeros((self.num_slots, 1), "int64"),
                 np.zeros((self.num_slots,), "int32"))
-        return warmed + 1
+        return len(runs) + 1
 
     # -- lifecycle ----------------------------------------------------------
     def start(self):
@@ -361,7 +636,8 @@ class GenerationEngine:
         if self._thread is not None:
             self._thread.join(timeout)
         if self._thread is None or not self._thread.is_alive():
-            for exe in [self._decode_exe, *self._prefill_exes.values()]:
+            self._decode_exe.close()
+            for _prog, _fetches, exe in self._progs.values():
                 exe.close()
 
     # -- admission ----------------------------------------------------------
@@ -373,7 +649,9 @@ class GenerationEngine:
         (1 <= len <= the largest prefill bucket, and below
         ``max_seq_len``).  Returns a future whose ``result()`` is
         ``{"tokens", "prompt_len", "steps", "finish", "queue_wait_ms",
-        "prefill_ms", "ttft_ms", "total_ms", "logits"?}``.  A budget
+        "prefill_ms", "ttft_ms", "total_ms", "logits"?,
+        "prefix_hit_tokens"?}`` (the last where a prefix hit served
+        part of the prompt).  A budget
         larger than the cache capacity left after the prompt is honoured
         until the slot's cache fills, finishing ``"cache_full"``.  Sheds
         with :class:`OverloadedError` (``queue_full`` / ``draining`` /
@@ -484,6 +762,9 @@ class GenerationEngine:
             slot.steps = 0
             slot.tokens = []
             slot.decoding = False
+            slot.pages = []
+            slot.prefill_pos = 0
+            slot.hit_tokens = 0
             claimed.append((slot, req))
             if busy_before:
                 # the continuous-batching event: a new sequence enters a
@@ -494,6 +775,9 @@ class GenerationEngine:
 
     def _decoding_slots(self) -> List[_Slot]:
         return [s for s in self._slots if s.active and s.decoding]
+
+    def _prefilling_slots(self) -> List[_Slot]:
+        return [s for s in self._slots if s.active and not s.decoding]
 
     def _loop(self):
         while True:
@@ -509,13 +793,26 @@ class GenerationEngine:
                 claimed = self._claim_locked()
             for slot, req in claimed:
                 try:
-                    self._prefill(slot, req)
-                    if slot.active:
-                        slot.decoding = True
+                    self._begin(slot, req)
                 except Exception as e:  # noqa: BLE001 — a prefill failure
                     # must not kill the scheduler: exactly this request
                     # errors, the grid keeps decoding
                     self._fail_request(slot, req, "prefill", e)
+            # paged: advance ONE pending prefill slice an iteration
+            # (round-robin over the prefilling slots), so a long prompt
+            # pays out between decode steps instead of stalling the grid
+            pending = self._prefilling_slots()
+            if pending:
+                slot = pending[self._prefill_rr % len(pending)]
+                self._prefill_rr += 1
+                try:
+                    self._prefill_advance(slot)
+                except PoolExhausted as e:
+                    # transient while other sequences hold pages: back to
+                    # the queue head (its deadline still bounds the wait)
+                    self._requeue_or_fail(slot, e)
+                except Exception as e:  # noqa: BLE001 — this request only
+                    self._fail_request(slot, slot.req, "prefill", e)
             if self._decoding_slots():
                 try:
                     self._decode_step()
@@ -524,10 +821,57 @@ class GenerationEngine:
                     # is unknowable) but never the scheduler
                     self._decode_failed(e)
 
+    def _begin(self, slot: _Slot, req: GenRequest):
+        """After the claim.  Dense: the whole prefill, here and now.
+        Paged: the fault and poison checks and the prefix lookup only;
+        the prompt pays out through ``_prefill_advance``, one slice a
+        scheduler iteration."""
+        if not self.paged:
+            self._prefill(slot, req)
+            return
+        kind = fault.fire("prefill")
+        fault.maybe_delay(kind)
+        if kind == "fail":
+            raise fault.InjectedFault("injected prefill failure")
+        # poison fails the request before any page is mapped, so it never
+        # touches the pages other slots share
+        self._poison_check(req.prompt)
+        if self._prefix is not None:
+            hit = self._prefix.lookup(req.prompt)
+            if hit:
+                self._pool.incref(hit)
+                slot.pages = list(hit)
+                slot.hit_tokens = len(hit) * self.page_tokens
+                self._count("prefix_hits")
+                stat_add("serving_prefix_hits")
+                self._count("prefix_tokens_saved", slot.hit_tokens)
+                stat_add("serving_prefix_tokens_saved", slot.hit_tokens)
+        slot.prefill_pos = slot.hit_tokens
+
+    def _requeue_or_fail(self, slot: _Slot, e: Exception):
+        """The pool ran out mid-prefill.  With other sequences live that
+        is transient: release this slot's pages and put the request back
+        at the queue head.  With the grid otherwise empty the pool cannot
+        hold the prompt at all: fail it."""
+        req = slot.req
+        if not [s for s in self._slots if s.active and s is not slot]:
+            self._fail_request(slot, req, "prefill", e)
+            return
+        self._count("pool_stalls")
+        stat_add("serving_kv_pool_stalls")
+        self._release_pages(slot)
+        slot.req = None
+        slot.decoding = False
+        slot.logits = []
+        with self._cv:
+            self._queue.appendleft(req)
+            self._cv.notify_all()
+
     def _fail_request(self, slot: _Slot, req: GenRequest, phase: str,
                       e: Exception):
         self._count("failed")
         logger.warning("%s failed: %s", phase, e)
+        self._release_pages(slot)
         req.future._resolve(error=RequestFailed(
             f"{phase} failed: {type(e).__name__}: {e}"))
         slot.req = None
@@ -535,6 +879,8 @@ class GenerationEngine:
         slot.logits = []
 
     def _decode_failed(self, e: Exception):
+        # every active slot fails, mid-prefill ones too: the step wrote
+        # the pools a chunked prefill also writes
         active = self._active()
         self._count("failed", len(active))
         stat_add("serving_decode_failures")
@@ -544,23 +890,63 @@ class GenerationEngine:
         for s in active:
             req, s.req, s.logits = s.req, None, []
             s.decoding = False
+            self._release_pages(s)
             req.future._resolve(error=err)
+        if self._prefix is not None:
+            # no indexed page's K/V can be trusted after a failed step
+            dropped = self._prefix.flush()
+            if dropped:
+                logger.warning("flushed %d prefix-index entries after a "
+                               "decode-step failure", dropped)
 
     # -- prefill ------------------------------------------------------------
     def _run_prefill_program(self, ids: np.ndarray, bucket: int,
                              slot: int):
-        """One causal pass over the padded prompt; the per-layer K/V land
-        in the slot's caches in-graph, in place."""
-        prog, fetches = self._prefill_prog_for(bucket)
-        fetch = [fetches["next_token"]]
-        if self.keep_logits:
-            fetch.append(fetches["logits"])
-        return self._prefill_exes[bucket].run(
+        """Dense: one causal pass over the padded prompt; the per-layer
+        K/V land in the slot's caches in-graph, in place."""
+        prog, fetches, exe = self._prog_for("prefill", bucket)
+        return exe.run(
             prog,
             feed={"input_ids": batcher.pad_prompt(ids, bucket)[None],
                   "last_pos": np.asarray([ids.size - 1], "int64"),
                   "slot": np.asarray([slot], "int32")},
-            fetch_list=fetch, scope=self.scope, return_numpy=False)
+            fetch_list=self._fetch(fetches), scope=self.scope,
+            return_numpy=False)
+
+    def _run_paged_prefill_program(self, ids: np.ndarray, bucket: int,
+                                   prompt_len: int, block_table: np.ndarray):
+        """Paged: the dense prefill's forward, its K/V written to the
+        slot's pages from position 0 (rows at or past `prompt_len` to the
+        trash page)."""
+        prog, fetches, exe = self._prog_for("prefill", bucket)
+        return exe.run(
+            prog,
+            feed={"input_ids": batcher.pad_prompt(ids, bucket)[None],
+                  "last_pos": np.asarray([ids.size - 1], "int64"),
+                  "block_table": block_table[None],
+                  "prompt_len": np.asarray([prompt_len], "int32")},
+            fetch_list=self._fetch(fetches), scope=self.scope,
+            return_numpy=False)
+
+    def _run_chunk_program(self, ids: np.ndarray, bucket: int, base: int,
+                           n: int, block_table: np.ndarray):
+        """`n` prompt tokens from logical position `base` (padded to
+        `bucket`) attend the slot's pages and themselves causally; their
+        K/V go to the pages."""
+        prog, fetches, exe = self._prog_for("chunk", bucket)
+        return exe.run(
+            prog,
+            feed={"chunk_ids": batcher.pad_prompt(ids, bucket)[None],
+                  "base": np.asarray([base], "int32"),
+                  "block_table": block_table[None],
+                  "chunk_len": np.asarray([n], "int32"),
+                  "last_off": np.asarray([max(n - 1, 0)], "int64")},
+            fetch_list=self._fetch(fetches), scope=self.scope,
+            return_numpy=False)
+
+    def _fetch(self, fetches) -> list:
+        return [fetches["next_token"]] + (
+            [fetches["logits"]] if self.keep_logits else [])
 
     def _poison_check(self, prompt: np.ndarray):
         """A prompt carrying the ``FLAGS_serving_poison_value`` sentinel
@@ -580,31 +966,117 @@ class GenerationEngine:
         bucket = batcher.prompt_bucket_for(req.prompt.size,
                                            self.prefill_buckets)
         outs = self._run_prefill_program(req.prompt, bucket, slot.idx)
+        self._complete_prefill(slot, req, outs, t0)
+
+    # -- paged prefill ------------------------------------------------------
+    def _release_pages(self, slot: _Slot):
+        """Drop the slot's references on its pages (shared prefix pages
+        fall back to the index's; private ones free)."""
+        if self._pool is not None and slot.pages:
+            self._pool.decref(slot.pages)
+        slot.pages = []
+        slot.hit_tokens = 0
+        slot.prefill_pos = 0
+
+    def _ensure_pages(self, slot: _Slot, n_tokens: int):
+        """Grow the slot's block table to cover `n_tokens` logical
+        tokens, evicting index-only prefix pages when no page is free.
+        Raises PoolExhausted when nothing is left to evict."""
+        needed = -(-int(n_tokens) // self.page_tokens)
+        while len(slot.pages) < needed:
+            p = self._pool.alloc()
+            if p is None:
+                if self._prefix is not None and self._prefix.evict_one():
+                    self._count("page_evictions")
+                    stat_add("serving_kv_page_evictions")
+                    continue
+                raise PoolExhausted(
+                    f"kv page pool exhausted ({self._pool.live_pages}/"
+                    f"{self.num_pages - 1} pages live, nothing evictable)")
+            slot.pages.append(p)
+
+    def _slot_block_table(self, slot: _Slot) -> np.ndarray:
+        bt = np.zeros((self.pages_per_slot,), "int32")
+        bt[:len(slot.pages)] = slot.pages
+        return bt
+
+    def _prefill_advance(self, slot: _Slot):
+        """One prefill slice of one paged slot: the whole prompt through
+        the paged prefill program (chunking off, no prefix hit: the path
+        bit-equal to dense), or the next ``prefill_chunk`` tokens (or the
+        whole prefix-hit tail) through the chunk program.  The last slice
+        gives the first token and puts the slot into the decode grid."""
+        req = slot.req
+        prompt = req.prompt
+        t0 = time.monotonic()
+        n_prompt = int(prompt.size)
+        if slot.prefill_pos == 0 and self.prefill_chunk <= 0:
+            bucket = batcher.prompt_bucket_for(n_prompt,
+                                               self.prefill_buckets)
+            self._ensure_pages(slot, n_prompt)
+            outs = self._run_paged_prefill_program(
+                prompt, bucket, n_prompt, self._slot_block_table(slot))
+            self._complete_prefill(slot, req, outs, t0)
+            return
+        # the first span still to prefill; later spans run on later
+        # iterations, decode steps between them
+        start, end = batcher.chunk_spans(slot.prefill_pos, n_prompt,
+                                         self.prefill_chunk)[0]
+        n = end - start
+        bucket = batcher.prompt_bucket_for(n, self.prefill_buckets)
+        self._ensure_pages(slot, end)
+        outs = self._run_chunk_program(prompt[start:end], bucket, start, n,
+                                       self._slot_block_table(slot))
+        self._count("prefill_chunks")
+        stat_add("serving_prefill_chunks")
+        slot.prefill_pos = end
+        if end >= n_prompt:
+            self._complete_prefill(slot, req, outs, t0)
+        else:  # the launch only: the last chunk's read waits for the rest
+            req.prefill_ms += (time.monotonic() - t0) * 1e3
+
+    def _complete_prefill(self, slot: _Slot, req: GenRequest, outs,
+                          t0: float):
+        """Every prefill path's tail: read the first token (which waits
+        for the program; `t0` is when its run began), book it, publish the
+        prompt's fully covered pages to the prefix index (paged), and
+        enter the decode grid."""
         first = int(np.asarray(outs[0].numpy())[0])
         slot.logits = [np.asarray(outs[1].numpy())[0]] \
             if self.keep_logits else []
-        now = time.monotonic()
-        ms = (now - t0) * 1e3
-        req.prefill_ms = ms
-        self._t_prefill_total += ms
-        self._h_prefill.observe(ms)
+        req.prefill_ms += (time.monotonic() - t0) * 1e3
+        n_prompt = int(req.prompt.size)
+        self._t_prefill_total += req.prefill_ms
+        self._h_prefill.observe(req.prefill_ms)
         self._count("prefills")
-        self._count("prefill_tokens", int(req.prompt.size))
+        # tokens a prefix hit served never ran a prefill
+        self._count("prefill_tokens", n_prompt - slot.hit_tokens)
         stat_add("serving_prefills")
-        stat_add("serving_prefill_tokens", int(req.prompt.size))
-        slot.position = int(req.prompt.size)
+        stat_add("serving_prefill_tokens", n_prompt - slot.hit_tokens)
+        if self._prefix is not None:
+            full = n_prompt // self.page_tokens
+            if full:
+                self._prefix.register(req.prompt, slot.pages[:full])
+        slot.prefill_pos = n_prompt
+        slot.position = n_prompt
         slot.tokens = [first]
-        self._book_token(slot, first, now)
+        slot.decoding = True
+        self._book_token(slot, first, time.monotonic())
 
     # -- decode -------------------------------------------------------------
-    def _run_decode_program(self, tokens: np.ndarray, positions: np.ndarray):
-        fetch = [self._decode_fetches["next_token"]]
-        if self.keep_logits:
-            fetch.append(self._decode_fetches["logits"])
+    def _run_decode_program(self, tokens: np.ndarray, positions: np.ndarray,
+                            block_tables: Optional[np.ndarray] = None,
+                            live: Optional[np.ndarray] = None):
+        feed = {"tokens": tokens, "positions": positions}
+        if self.paged:
+            feed["block_tables"] = block_tables if block_tables is not None \
+                else np.zeros((self.num_slots, self.pages_per_slot), "int32")
+            feed["live"] = live if live is not None \
+                else np.zeros((self.num_slots,), "int32")
         outs = self._decode_exe.run(
-            self._decode_prog, feed={"tokens": tokens,
-                                     "positions": positions},
-            fetch_list=fetch, scope=self.scope, return_numpy=False)
+            self._decode_prog, feed=feed,
+            fetch_list=self._fetch(self._decode_fetches), scope=self.scope,
+            return_numpy=False)
         next_tokens = np.asarray(outs[0].numpy())
         logits = np.asarray(outs[1].numpy()) if self.keep_logits else None
         return next_tokens, logits
@@ -615,13 +1087,32 @@ class GenerationEngine:
         fault.maybe_delay(kind)
         if kind == "fail":
             raise fault.InjectedFault("injected decode_step failure")
+        if self.paged:
+            # a slot about to write into an unmapped page gets one before
+            # the step; one the pool cannot serve, even after evicting,
+            # finishes cache_full with what it generated so far
+            for s in self._decoding_slots():
+                try:
+                    self._ensure_pages(s, s.position + 1)
+                except PoolExhausted:
+                    self._finish(s, "cache_full")
         active = self._decoding_slots()
+        if not active:
+            return
         tokens = np.zeros((self.num_slots, 1), "int64")
         positions = np.zeros((self.num_slots,), "int32")
+        bt = live = None
+        if self.paged:
+            bt = np.zeros((self.num_slots, self.pages_per_slot), "int32")
+            live = np.zeros((self.num_slots,), "int32")
         for s in active:
             tokens[s.idx, 0] = s.tokens[-1]
             positions[s.idx] = s.position
-        next_tokens, logits = self._run_decode_program(tokens, positions)
+            if self.paged:
+                bt[s.idx] = self._slot_block_table(s)
+                live[s.idx] = 1
+        next_tokens, logits = self._run_decode_program(tokens, positions,
+                                                       bt, live)
         t1 = time.monotonic()
         ms = (t1 - t0) * 1e3
         self._t_decode_total += ms
@@ -693,8 +1184,11 @@ class GenerationEngine:
         if self.keep_logits:
             result["logits"] = slot.logits
             slot.logits = []
+        if slot.hit_tokens:
+            result["prefix_hit_tokens"] = slot.hit_tokens
         slot.req = None
         slot.decoding = False
+        self._release_pages(slot)
         req.future._resolve(outputs=result)
 
     # -- introspection ------------------------------------------------------
@@ -715,6 +1209,21 @@ class GenerationEngine:
             "max_seq_len": self.max_seq_len,
             "prefill_buckets": list(self.prefill_buckets),
             "kv_cache_bytes": self.kv_cache_bytes,
+            "kv_live_bytes": self.kv_live_bytes,
+            "paged": None if not self.paged else {
+                "page_tokens": self.page_tokens,
+                "num_pages": self.num_pages,
+                "pages_per_slot": self.pages_per_slot,
+                "pages_free": self._pool.free_pages,
+                "pages_live": self._pool.live_pages,
+                "page_bytes": self.page_bytes,
+                "prefill_chunk": self.prefill_chunk,
+                "prefix_reuse": self.prefix_reuse,
+                "prefix_index_entries":
+                    len(self._prefix) if self._prefix else 0,
+                "prefix_hit_rate": round(
+                    n["prefix_hits"] / max(n["prefills"], 1), 4),
+            },
             "draining": draining,
             "counters": n,
             "tokens_per_request": round(
@@ -730,16 +1239,21 @@ class GenerationEngine:
 
     def introspect(self) -> dict:
         """Stats plus the compiled-step inventories of the decode step's
-        executor and each prefill bucket's (``cache_info``: signature,
-        whether captured, graph pool bytes) and the CUDA graph captures
-        of each program (``captures``: "decode" and each bucket)."""
-        prefill = sorted(self._prefill_exes.items())
+        executor and each prefill and chunk bucket's (``cache_info``:
+        signature, whether captured, graph pool bytes) and the CUDA graph
+        captures of each program (``captures``: "decode", each prefill
+        bucket by its length, each chunk bucket as "chunk<length>")."""
+        def label(kind, b):
+            return b if kind == "prefill" else f"{kind}{b}"
+
+        progs = sorted(self._progs.items())
         captures = {"decode": self._decode_exe.captures()}
-        captures.update({b: exe.captures() for b, exe in prefill})
+        captures.update({label(*key): exe.captures()
+                         for key, (_p, _f, exe) in progs})
         return {
             "stats": self.stats(),
             "decode_executables": self._decode_exe.cache_info(),
-            "prefill_executables": {b: exe.cache_info()
-                                    for b, exe in prefill},
+            "prefill_executables": {label(*key): exe.cache_info()
+                                    for key, (_p, _f, exe) in progs},
             "captures": captures,
         }

@@ -1,0 +1,219 @@
+#!/usr/bin/env python3
+"""Which op makes the cached decode's (or a prefill's) rows differ from
+the uncached forward's rows on one device.
+
+    python3 probe_decode_rows.py [--layers 2] [--products {as_is,f64}]
+                                 [--program {decode,prefill}]
+                                 [--device cuda|cpu] [--tiny]
+
+Builds Llama at Llama-2-7B's widths (``--tiny``: a 2-layer toy) with
+``attn_impl="xla"``: the uncached forward (``build_llama_forward``, batch
+2 at max_seq_len 128) and the dense decode step (``build_llama_decode``,
+2 slots), both over one scope with random weights from a seed.  Every op
+of both programs is lowered in order with its outputs kept.  The decode
+caches hold the forward's own post-RoPE K/V, and slot b decodes token
+``ids[b, p_b]`` at position ``p_b``, so each decode intermediate has a
+counterpart: the forward's same op (matched by type and occurrence;
+``cached_attention`` against ``flash_attention``) at row ``p_b`` of
+batch b.  Prints max |decode - forward| of each op's output over those
+rows, and the first op whose rows differ.
+
+``--program prefill`` compares a prefill instead (``build_llama_prefill``
+at bucket 64 over the first PREFILL_LEN tokens of batch row 0, the K/V
+fetched): each op's rows 0..PREFILL_LEN-1 against the forward's.
+
+``--products f64`` computes every torch.matmul in float64 and rounds it
+to float32, so that no product's rows depend on how many rows it has
+(the rounding hides the float64 sums' order almost always); the first op
+that differs then is one that is not a product.  Prints one JSON line at
+the end.  Needs the card unless ``--device cpu``.
+"""
+import argparse
+import json
+import os
+import sys
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+LLAMA = dict(vocab_size=32000, hidden=4096, num_heads=32,
+             intermediate=11008)
+TINY = dict(vocab_size=97, hidden=64, num_heads=4, intermediate=96)
+SEQ = 128
+POSITIONS = (37, 101)
+BUCKET, PREFILL_LEN = 64, 50
+
+
+def lower_all(block, env, device):
+    """Lower every op of `block` into `env`, keeping every output;
+    returns [(op, {output name: tensor})]."""
+    import torch
+    from paddle_tpu_torch.ops.registry import LowerContext, lower_op
+
+    ctx = LowerContext(block, env, device, is_test=True)
+    done = []
+    with torch.no_grad():
+        for i, op in enumerate(block.ops):
+            if op.type in ("feed", "fetch"):
+                continue
+            lower_op(ctx, op, i)
+            done.append((op, {n: env[n] for n in op.output_arg_names()
+                              if n in env}))
+    return done
+
+
+def state_env(block, scope, feeds, device):
+    from paddle_tpu_torch.framework.executor import analyze_block
+
+    state_in, _ = analyze_block(block, list(feeds))
+    env = {n: scope.find_var(n) for n in state_in}
+    env.update(feeds)
+    return env
+
+
+def rows_of(fwd, dec, prefill):
+    """(the decode's (prefill's) rows, the forward's rows at the same
+    positions): along the axis where the decode has 1 (the prefill
+    BUCKET) and the forward SEQ, the first such after the batch axis;
+    None where the shapes do not pair so."""
+    import torch
+
+    if fwd.dim() != dec.dim() or dec.dim() < 2:
+        return None
+    width = BUCKET if prefill else 1
+    for a in range(1, fwd.dim()):
+        if dec.shape[a] == width and fwd.shape[a] == SEQ and \
+                fwd.shape[1:a] == dec.shape[1:a] and \
+                fwd.shape[a + 1:] == dec.shape[a + 1:]:
+            if prefill:
+                return (dec[:1].narrow(a, 0, PREFILL_LEN),
+                        fwd[:1].narrow(a, 0, PREFILL_LEN))
+            if fwd.shape[0] != dec.shape[0]:
+                return None
+            return dec, torch.cat([fwd[b:b + 1].narrow(a, p, 1)
+                                   for b, p in enumerate(POSITIONS)])
+    return None
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--layers", type=int, default=2)
+    ap.add_argument("--products", choices=("as_is", "f64"), default="as_is")
+    ap.add_argument("--program", choices=("decode", "prefill"),
+                    default="decode")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--tiny", action="store_true")
+    args = ap.parse_args()
+
+    import torch
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("probe: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch.models.llama import (build_llama_decode,
+                                               build_llama_forward,
+                                               build_llama_prefill)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device(args.device)
+    if args.products == "f64":
+        matmul = torch.matmul
+
+        def matmul_f64(a, b, **kw):
+            if a.dtype == torch.float32 and b.dtype == torch.float32:
+                return matmul(a.double(), b.double()).float()
+            return matmul(a, b, **kw)
+        torch.matmul = matmul_f64
+
+    model = dict(TINY if args.tiny else LLAMA, num_layers=args.layers)
+    place = tpt.CPUPlace() if device.type == "cpu" else None
+    scope = tpt.Scope()
+    dec_main, dec_start = tpt.Program(), tpt.Program()
+    dec_start._is_startup = True
+    dec_start.random_seed = dec_main.random_seed = 7
+    with tpt.program_guard(dec_main, dec_start):
+        _, dec_fetch, cache_names = build_llama_decode(
+            len(POSITIONS), SEQ, name="llama", **model)
+    exe = tpt.Executor(place)
+    exe.run(dec_start, scope=scope)
+    exe.close()
+    fwd_main, fwd_start = tpt.Program(), tpt.Program()
+    with tpt.program_guard(fwd_main, fwd_start):
+        build_llama_forward(len(POSITIONS), SEQ, name="llama",
+                            attn_impl="xla", **model)
+
+    rng = np.random.RandomState(11)
+    ids = rng.randint(1, model["vocab_size"], size=(len(POSITIONS), SEQ))
+    fwd = lower_all(fwd_main.global_block(), state_env(
+        fwd_main.global_block(), scope,
+        {"input_ids": torch.as_tensor(ids, device=device)}, device), device)
+    # the caches hold the forward's post-RoPE K / V (each flash_attention's
+    # inputs), layer by layer
+    attn = [op for op, _ in fwd if op.type == "flash_attention"]
+    env = {}
+    for op, outs in fwd:
+        env.update(outs)
+    for i, op in enumerate(attn):
+        for kind, slot in (("k", "K"), ("v", "V")):
+            scope.set_var(f"llama.cache_{kind}_{i}",
+                          env[op.single_input(slot)].clone())
+    feeds = {"tokens": torch.as_tensor(
+                 [[ids[b, p]] for b, p in enumerate(POSITIONS)],
+                 device=device),
+             "positions": torch.as_tensor(POSITIONS, dtype=torch.int32,
+                                          device=device)}
+    prefill = args.program == "prefill"
+    if prefill:
+        dec_main = tpt.Program()
+        with tpt.program_guard(dec_main, tpt.Program()):
+            build_llama_prefill(1, BUCKET, name="llama", attn_impl="xla",
+                                **model)
+        padded = np.zeros((1, BUCKET), "int64")
+        padded[0, :PREFILL_LEN] = ids[0, :PREFILL_LEN]
+        feeds = {"input_ids": torch.as_tensor(padded, device=device),
+                 "last_pos": torch.as_tensor([PREFILL_LEN - 1],
+                                             device=device)}
+    dec = lower_all(dec_main.global_block(), state_env(
+        dec_main.global_block(), scope, feeds, device), device)
+
+    by_type = {}
+    for op, outs in fwd:
+        by_type.setdefault(op.type, []).append(outs)
+    seen, report, first = {}, [], None
+    for op, outs in dec:
+        kind = "flash_attention" if op.type == "cached_attention" \
+            else op.type
+        n = seen.get(kind, 0)
+        seen[kind] = n + 1
+        pool = by_type.get(kind, [])
+        if n >= len(pool) or op.type in ("kv_cache_write",):
+            continue
+        for name, got in outs.items():
+            want = list(pool[n].values())[list(outs).index(name)] \
+                if len(pool[n]) == len(outs) else None
+            if not isinstance(got, torch.Tensor) or want is None:
+                continue
+            rows = rows_of(want, got, prefill)
+            if rows is None or not got.is_floating_point():
+                continue
+            d = float((rows[0].double() - rows[1].double()).abs().max())
+            report.append({"op": op.type, "index": n, "out": name,
+                           "max_abs_diff": d})
+            if d > 0 and first is None:
+                first = report[-1]
+    for r in report:
+        print(f"  {r['op']:>18} #{r['index']:<3} {r['out']:<40} "
+              f"max|d| {r['max_abs_diff']:.3e}")
+    print(f"first op whose rows differ ({args.program}, {args.products} "
+          f"products): {first}")
+    print(json.dumps({"products": args.products, "program": args.program,
+                      "device": str(device),
+                      "kind": torch.cuda.get_device_name(0)
+                      if device.type == "cuda" else "cpu",
+                      "first": first, "ops": report}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -362,13 +362,35 @@ def test_decode_step_failure_fails_the_active_requests():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(paged=True), dict(prefill_chunk=16), dict(prefix_reuse=True),
     dict(speculate=True), dict(role="prefill"), dict(mesh="mesh")],
-    ids=["paged", "prefill_chunk", "prefix_reuse", "speculate", "role",
-         "mesh"])
+    ids=["speculate", "role", "mesh"])
 def test_options_not_ported_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _engine(num_slots=1, autostart=False, **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(paged=True), dict(paged=True, prefill_chunk=16),
+    dict(paged=True, prefix_reuse=True)],
+    ids=["paged", "prefill_chunk", "prefix_reuse"])
+def test_paged_options_generate(gen_engine, kw):
+    """The paged cache, chunked prefill and prefix reuse, which raised
+    before they were ported, now generate: on gen_engine's weights, the
+    same streams as the dense engine, each step's logits bit-equal to
+    the uncached forward's (tests/test_torch_paged_generation.py holds
+    the rest)."""
+    eng = _engine(num_slots=2, scope=gen_engine.scope, page_tokens=16,
+                  **kw)
+    try:
+        prompts = _prompts((20, 5), seed=31)
+        got = [f.result(120) for f in [eng.submit(p, 5) for p in prompts]]
+        assert eng.stats()["paged"]["page_tokens"] == 16
+    finally:
+        eng.close()
+    for prompt, res in zip(prompts, got):
+        assert res["finish"] == "length"
+        assert res["tokens"] == gen_engine.generate(prompt, 5)["tokens"]
+        _assert_bitexact(eng, prompt, res)
 
 
 def test_adopt_and_swap_weights_raise(gen_engine):

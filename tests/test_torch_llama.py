@@ -183,26 +183,46 @@ def test_bf16_amp_loss_follows_jax():
     assert g.dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("kw", [
-    dict(kv_cache=("ck", "cv"), positions="pos", block_table="bt",
-         kv_lengths="len"),
-    dict(collect_kv=True, paged=True),
-    dict(block_table="bt", kv_lengths="len", paged=True)],
-    ids=["kv_cache", "collect_kv", "block_table"])
-def test_cache_modes_raise(kw):
-    """The dense cache modes are ported (tests/test_torch_generation.py);
-    the block-paged ones still raise: paged decode in llama_block, and
-    the paged prefill and decode builders."""
-    kw = dict(kw)
-    with pytest.raises(NotImplementedError, match="paged"):
-        if kw.pop("paged", False):
-            if "collect_kv" in kw:
-                t_llama.build_llama_prefill(1, S, cache_slots=2,
-                                            max_seq_len=S, paged=True,
-                                            num_pages=9, page_tokens=8)
+@pytest.mark.parametrize("mode", ["kv_cache", "collect_kv", "block_table"])
+def test_cache_modes_build(mode):
+    """The block-paged modes, which raised before they were ported, build
+    the same programs in both packages (op for op): llama_block over
+    pools with a block table (kv_cache), the paged prefill (collect_kv)
+    and the paged decode (block_table)."""
+    small = dict(vocab_size=V, hidden=64, num_layers=2, num_heads=4,
+                 num_kv_heads=2, intermediate=128)
+
+    def build(pkg, llama):
+        main, startup = pkg.Program(), pkg.Program()
+        with pkg.program_guard(main, startup):
+            if mode == "collect_kv":
+                llama.build_llama_prefill(1, S, cache_slots=2,
+                                          max_seq_len=S, paged=True,
+                                          num_pages=9, page_tokens=8,
+                                          **small)
+            elif mode == "block_table":
+                llama.build_llama_decode(2, S, paged=True, num_pages=9,
+                                         page_tokens=8, **small)
             else:
-                t_llama.build_llama_decode(2, S, paged=True, num_pages=9,
-                                           page_tokens=8)
-        else:
-            x = tpt.layers.data("x", [B, S, 64], append_batch_size=False)
-            t_llama.llama_block(x, 64, 4, 2, S, 16, 128, **kw)
+                block = main.global_block()
+                x = pkg.layers.data("x", [B, S, 64],
+                                    append_batch_size=False)
+                pos = pkg.layers.data("pos", [B], dtype="int32",
+                                      append_batch_size=False)
+                bt = pkg.layers.data("bt", [B, S // 8], dtype="int32",
+                                     append_batch_size=False)
+                ln = pkg.layers.data("len", [B], dtype="int32",
+                                     append_batch_size=False)
+                pools = [block.create_var(name=n, persistable=True,
+                                          shape=[9, 2, 8, 16],
+                                          dtype="float32")
+                         for n in ("pk", "pv")]
+                llama.llama_block(x, 64, 4, 2, S, 16, 128,
+                                  kv_cache=tuple(pools), positions=pos,
+                                  block_table=bt, kv_lengths=ln)
+        return [op.type for op in main.global_block().ops]
+
+    got, want = build(tpt, t_llama), build(jpt, j_llama)
+    assert got == want
+    assert "kv_pool_write" in got
+    assert ("kv_pool_gather" in got) == (mode != "collect_kv")

@@ -10,7 +10,9 @@ script's directory), so two checkouts run the same work on the same
 weights.  The paths (all by default):
 
 * ``serving_b4``: BERT-base serving (chip_smoke phase 4), one batch-4
-  request at seq 128 through ``Predictor.run`` (numpy fetches);
+  request at seq 128 through ``Predictor.run`` (numpy fetches), the
+  caller dropping each response;
+* ``serving_b4_kept``: the same, the caller keeping every response;
 * ``bert_fp32``: the fp32 BERT-base step at seq 512, batch 8 (phase 5's
   profiled step);
 * ``bert_flagship``: bench.py's bf16 seq-512 step (phase 6);
@@ -36,10 +38,41 @@ import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PATHS = ("serving_b4", "bert_fp32", "bert_flagship", "llama_flagship")
+PATHS = ("serving_b4", "serving_b4_kept", "bert_fp32", "bert_flagship",
+         "llama_flagship")
 WARM = 3
-WINDOW = {"serving_b4": 20, "bert_fp32": 5, "bert_flagship": 10,
-          "llama_flagship": 10}
+WINDOW = {"serving_b4": 20, "serving_b4_kept": 20, "bert_fp32": 5,
+          "bert_flagship": 10, "llama_flagship": 10}
+
+
+def load_chip_smoke():
+    """chip_smoke.py of this script's directory, as a module."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def serving_predictor(tpt, smoke):
+    """chip_smoke phase 4's BERT-base serving model, saved and loaded as
+    an inference.Predictor on the card (random weights, seeded)."""
+    from paddle_tpu_torch.models import build_bert_pretrain
+
+    main, startup = tpt.Program(), tpt.Program()
+    with tpt.program_guard(main, startup):
+        feeds, outs = build_bert_pretrain(is_test=True, **smoke.BERT)
+    logits = [op for op in main.global_block().ops
+              if op.type == "softmax_with_cross_entropy"][0].input(
+                  "Logits")[0]
+    with tempfile.TemporaryDirectory(prefix="time_step_") as d:
+        exe, scope = tpt.Executor(), tpt.Scope()
+        with tpt.scope_guard(scope):
+            exe.run(startup)
+            tpt.io.save_inference_model(d, feeds, [logits, outs["loss"]],
+                                        exe, main_program=main)
+        del scope
+        return tpt.inference.Predictor(d)
 
 
 def profiled(smoke, key, call):
@@ -114,35 +147,20 @@ def main():
     if not os.path.abspath(tpt.__file__).startswith(checkout + os.sep):
         raise RuntimeError(f"paddle_tpu_torch imported from {tpt.__file__}, "
                            f"not from {checkout}")
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    smoke = load_chip_smoke()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smoke.log(f"timing the steps of {checkout}")
     rows = {}
     for key in args.paths.split(","):
-        if key == "serving_b4":
-            from paddle_tpu_torch.models import build_bert_pretrain
-
-            main, startup = tpt.Program(), tpt.Program()
-            with tpt.program_guard(main, startup):
-                feeds, outs = build_bert_pretrain(is_test=True, **smoke.BERT)
-            logits = [op for op in main.global_block().ops
-                      if op.type == "softmax_with_cross_entropy"][0].input(
-                          "Logits")[0]
-            with tempfile.TemporaryDirectory(prefix="time_step_") as d:
-                exe, scope = tpt.Executor(), tpt.Scope()
-                with tpt.scope_guard(scope):
-                    exe.run(startup)
-                    tpt.io.save_inference_model(d, feeds,
-                                                [logits, outs["loss"]],
-                                                exe, main_program=main)
-                del scope
-                pred = tpt.inference.Predictor(d)
+        if key in ("serving_b4", "serving_b4_kept"):
+            pred = serving_predictor(tpt, smoke)
             feed = smoke.bert_feed(4, seed=41)
-            rows[key] = measure(smoke, key, lambda: pred.run(feed))
+            kept = []
+            rows[key] = measure(smoke, key, lambda: pred.run(feed)
+                                if key == "serving_b4"
+                                else kept.append(pred.run(feed)))
+            del kept
             close(pred)
             del pred
         elif key == "bert_fp32":
