@@ -24,24 +24,31 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    registers) fails the phase.
    Then the fp32 product kernel whose rows do not depend on M
    (csrc/gemm_f32.cu, ops/cuda/gemm.py; every forward-only fp32 product
-   on the card): no function of it spills; at Llama-2-7B's decode and
+   on the card): no function of it or of the RMSNorm source spills; at
+   Llama-2-7B's decode and
    prefill shapes (K x N = 4096 x 12288, 4096 x 4096, 4096 x 22016, 11008
    x 4096, 4096 x 32000) and BERT's 768 x 2304, every row of an M-row
    product (M 1, 2, 3, 4, 7, 16, 17, 64, 128, 500, 1024) bit-equal to the
    same row of the 1024-row product and of a row-permuted one, and the
-   same for decode attention's batched Q K^T (K^T read from the cache)
-   and P V; each within gemm.tolerance of its plain version (|d| <= 8
+   same for decode attention's batched Q K^T (K^T read from the cache,
+   and from a copy of it one float off 16-byte alignment) and P V; each
+   within gemm.tolerance of its plain version (|d| <= 8
    sqrt(K) 2**-24 sqrt((x x) @ (w w)): eight spreads of a K-term fp32
    sum's rounding error), which two controls must fail at every shape:
    torch.matmul with TF32 allowed, and the exact product of operands
    rounded to bf16; then its event and device time beside torch.matmul's
-   and its bound at M 4 (decode) and 512 (prefill).  Then
+   and its bound at M 4 (decode) and 512 (prefill) and at decode
+   attention's two products (M 1, 128 slot-heads), with the sha256 of
+   each output on inputs from fixed seeds (time_fp32.py --what gemm
+   prints the same rows for another checkout: equal hashes, equal bits).
+   Then
    the fp32 RMSNorm kernel whose rows do not depend on the row count
    (csrc/rms_norm_f32.cu, ops/cuda/rms_norm.py: every forward-only fp32
    rms_norm on the card): at width 4096, every row of an M-row norm (M 1
    to 1024) bit-equal to the same row of the 1024-row one and of a
    row-permuted one, within 2e-6 (relative to the largest output) of
-   the op's PyTorch formulation, and its times at 4 and 512 rows.
+   the op's PyTorch formulation, and its times and output hashes at 4
+   and 512 rows.
    Each source picks its kernel by dtype: bfloat16 runs the tensor-core
    kernels, float32 the CUDA-core ones (fa_fwd_f32_kernel,
    fa_dkv_f32_kernel, fa_dq_f32_kernel: exact fp32 FMAs, no TF32).  So the
@@ -264,7 +271,8 @@ unpacked ones). The seventh entry is the product kernel (gemm_f32): its
 row the decode step's qkv product (M 4, K 4096, N 12288), its "launches"
 phase 10b's dense traffic's, "tolerance_ratio" the largest |kernel -
 plain| / gemm.tolerance of phase 2 and the smallest of its TF32 and bf16
-controls, "shapes" every shape phase 2 timed; the eighth the RMSNorm
+controls, "shapes" every shape phase 2 timed (decode attention's
+products among them); the eighth the RMSNorm
 kernel (rms_norm_f32): its row the decode step's [4, 4096], "library_ms"
 torch.nn.functional.rms_norm's. The last lines are the card's name and
 power limit, one {"kernels": ...} JSON line, and {"ok": true, "device":
@@ -2091,45 +2099,37 @@ GEMM_MS = (1, 2, 3, 4, 7, 16, 17, 64, 128, 500, 1024)
 # decode attention's batched products (4 slots x 32 heads over 1024 keys,
 # D 128): Q K^T with K^T read from the cache [.., keys, D], and P V
 GEMM_ATTN = (("qk", 128, 128, 1024), ("pv", 128, 1024, 128))
-# timed at the decode step's M (4 slots) and a prefill bucket's (512)
+# timed at the decode step's M (4 slots) and a prefill bucket's (512);
+# decode attention's products at the decode step's M, one query row a
+# (slot, head)
 GEMM_TIME_MS = (4, 512)
+GEMM_ATTN_M = 1
 
 
 def gemm_label(mangled):
-    """'gemm_skinny_kernel<4, 1, 1>' for a product kernel's mangled name,
-    None for anything else."""
-    m = re.search(r"(gemm_(?:skinny|tiled|fold)_kernel)(I\w*?E)?E", mangled)
+    """'gemm_skinny_kernel<4, 4, 1, 1>' for a product or RMSNorm kernel's
+    mangled name (its template arguments in order), None for anything
+    else."""
+    m = re.search(r"((?:gemm_(?:skinny|tiled|fold)|rms_norm_rows(?:_loop)?)"
+                  r"_kernel)(I\w*?E)?E", mangled)
     if m is None:
         return None
     params = re.findall(r"L[ib](\d+)E", m.group(2) or "")
     return f"{m.group(1)}<{', '.join(params)}>" if params else m.group(1)
 
 
-def gemm_bound(M, N, K):
-    """(bound ms, 'bytes' or 'operations') of one M x K @ K x N fp32
-    product: each operand read once and the output written once at the
-    HBM peak, against 2 M N K at the fp32 peak."""
-    t_bytes = 4.0 * (M * K + K * N + M * N) / PEAK_BYTES_PER_S * 1e3
-    t_ops = 2.0 * M * N * K / PEAK_FLOP_PER_S["float32"] * 1e3
+def gemm_bound(M, N, K, batch=1):
+    """(bound ms, 'bytes' or 'operations') of `batch` M x K @ K x N fp32
+    products: each operand read once and the output written once at the
+    HBM peak, against 2 M N K a product at the fp32 peak."""
+    t_bytes = 4.0 * batch * (M * K + K * N + M * N) / PEAK_BYTES_PER_S * 1e3
+    t_ops = 2.0 * batch * M * N * K / PEAK_FLOP_PER_S["float32"] * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def check_gemm(gemm, build, device):
-    """The product kernel: no spill in ptxas's report for any of its
-    functions; at each GEMM_SHAPES K x N, every row of an M-row product
-    (GEMM_MS) bit-equal to the same row of the 1024-row product and of a
-    row-permuted one; the same for decode attention's batched products
-    (GEMM_ATTN, M 1-16 against 1024 rows); each product at M 4 and 512
-    within gemm.tolerance of the plain version's (chunk partials by
-    torch.matmul, folded in the same order), and two controls over it at
-    each shape (torch.matmul with TF32 allowed; the exact product of
-    operands rounded to bf16), so the limit is shown to catch reduced
-    precision.  Then the kernel's event and device time beside
-    torch.matmul's and the plain version's at M 4 and 512 of each shape.
-    Returns the timing rows and the largest |got - plain| / tolerance of
-    the kernel and the smallest of each control."""
-    import torch
-
+def check_own_kernel_spills(build):
+    """ptxas's report of the product and RMSNorm sources: every function
+    of both is in it, and none spills."""
     lines = []
     for text in build.build_logs.values():
         label = None
@@ -2141,14 +2141,102 @@ def check_gemm(gemm, build, device):
             elif label and "spill" in line:
                 lines.append((label, line.strip()))
     labels = sorted({label for label, _ in lines})
-    log(f"  product kernel functions: {len(labels)} ({', '.join(labels)})")
+    log(f"  product and RMSNorm kernel functions: {len(labels)} "
+        f"({', '.join(labels)})")
+    for prefix in ("gemm_tiled", "gemm_skinny", "gemm_fold", "rms_norm_rows"):
+        if not any(label.startswith(prefix) for label in labels):
+            raise AssertionError(f"no ptxas report of {prefix}*: {labels}")
     for label, line in lines:
         if re.search(r"[1-9]\d* bytes spill", line):
             raise AssertionError(f"{label} spills registers: {line}")
-    if not any(label.startswith("gemm_tiled") for label in labels) or \
-            not any(label.startswith("gemm_skinny") for label in labels):
-        raise AssertionError(f"no ptxas report of the product kernels: "
-                             f"{labels}")
+
+
+def seeded(shape, seed, device):
+    """A standard normal float32 tensor on `device` from its own seed, the
+    same in every checkout and run."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(*shape, device=device, generator=g)
+
+
+def sha256(t):
+    import hashlib
+
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy()
+                          .tobytes()).hexdigest()
+
+
+def gemm_cases(device):
+    """(name, x, w) of every timed product from fixed seeds: each
+    GEMM_SHAPES K x N at each GEMM_TIME_MS, and decode attention's
+    GEMM_ATTN at GEMM_ATTN_M rows (Q K^T's w a transposed view of a
+    [batch, keys, D] cache)."""
+    seed = 100
+    for K, N in GEMM_SHAPES:
+        w = seeded((K, N), seed, device)
+        for M in GEMM_TIME_MS:
+            yield f"M{M}_K{K}_N{N}", seeded((M, K), seed + M, device), w
+        seed += 1000
+    for what, batch, K, N in GEMM_ATTN:
+        x = seeded((batch, GEMM_ATTN_M, K), seed, device)
+        if what == "qk":
+            w = seeded((batch, N, K), seed + 1, device).transpose(1, 2)
+        else:
+            w = seeded((batch, K, N), seed + 1, device)
+        yield f"attn_{what}_B{batch}_M{GEMM_ATTN_M}_K{K}_N{N}", x, w
+        seed += 1000
+
+
+def time_gemm(gemm, device):
+    """The product kernel's event and device time at every gemm_cases
+    product beside torch.matmul's (the library call, TF32 off), the plain
+    version's and the bound; its max |d| to the plain version and the
+    sha256 of its output (the same in every checkout whose kernel keeps
+    the arithmetic).  Returns {case: row}."""
+    import torch
+
+    rows = {}
+    for name, x, w in gemm_cases(device):
+        batch = x.shape[0] if x.dim() == 3 else 1
+        M, K, N = x.shape[-2], x.shape[-1], w.shape[-1]
+        iters = 20 if M <= 16 else 5
+        ms, dev = timed(lambda: gemm.matmul(x, w), iters)
+        lib_ms, lib_dev = timed(lambda: torch.matmul(x, w), iters)
+        plain_ms = cuda_ms(lambda: gemm.matmul_reference(x, w), 3, warmup=1)
+        bound, by = gemm_bound(M, N, K, batch)
+        got = gemm.matmul(x, w)
+        err = float((got - gemm.matmul_reference(x, w)).abs().max())
+        rows[name] = dict(
+            ms=ms, device_ms=dev, plain_ms=plain_ms, library_ms=lib_ms,
+            library_device_ms=lib_dev, bound_ms=bound, bound_by=by,
+            max_abs_err=err, sha256=sha256(got))
+        log(f"  gemm {name}: kernel {ms:.4f} ms events / {dev:.4f} ms "
+            f"device, torch.matmul {lib_ms:.4f} / {lib_dev:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}): "
+            f"{100 * bound / dev:.1f}% of it; sha256 {rows[name]['sha256']}")
+        del x, w, got
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_gemm(gemm, build, device):
+    """The product kernel: no spill in ptxas's report for any function of
+    it or of the RMSNorm source; at each GEMM_SHAPES K x N, every row of
+    an M-row product (GEMM_MS) bit-equal to the same row of the 1024-row
+    product and of a row-permuted one; the same for decode attention's
+    batched products (GEMM_ATTN, M 1-16 against 1024 rows, and Q K^T
+    through a misaligned view of the cache as through an aligned one);
+    each product at M 4 and 512 within gemm.tolerance of the plain
+    version's (chunk partials by torch.matmul, folded in the same order),
+    and two controls over it at each shape (torch.matmul with TF32
+    allowed; the exact product of operands rounded to bf16), so the limit
+    is shown to catch reduced precision.  Then time_gemm.  Returns its
+    rows and the largest |got - plain| / tolerance of the kernel and the
+    smallest of each control."""
+    import torch
+
+    check_own_kernel_spills(build)
     g = torch.Generator(device=device).manual_seed(3)
     # the largest |got - plain| / gemm.tolerance of the kernel and of each
     # control: the kernel's must stay <= 1, each control's must pass 1
@@ -2213,6 +2301,15 @@ def check_gemm(gemm, build, device):
             if not torch.equal(gemm.matmul(x[:, :M], w), full[:, :M]):
                 raise AssertionError(f"gemm attention {what}: rows of M={M} "
                                      f"differ from M=1024")
+        if what == "qk":  # the same cache one float off 16-byte alignment
+            off = torch.empty(batch * N * K + 1, device=device)[1:]
+            wm = off.view(batch, N, K).copy_(w.transpose(1, 2))
+            for M in (1, 4, 128):
+                if not torch.equal(gemm.matmul(x[:, :M], wm.transpose(1, 2)),
+                                   full[:, :M]):
+                    raise AssertionError(f"gemm attention qk: rows of M={M} "
+                                         f"through a misaligned cache differ")
+            del off, wm
         err, ratio = err_ratio(x[:, :4], w, full[:, :4])
         ratios["kernel"] = max(ratios["kernel"], ratio)
         if ratio > 1:
@@ -2225,30 +2322,7 @@ def check_gemm(gemm, build, device):
     log(f"  gemm against its plain version: max|err| {worst:.3e}, at most "
         f"{ratios['kernel']:.4f} of gemm.tolerance; the controls at least "
         f"{ratios['tf32']:.2f} (TF32) and {ratios['bf16']:.2f} (bf16) of it")
-    rows = {}
-    for K, N in GEMM_SHAPES:
-        w = torch.randn(K, N, device=device, generator=g)
-        for M in GEMM_TIME_MS:
-            x = torch.randn(M, K, device=device, generator=g)
-            iters = 20 if M <= 16 else 5
-            ms, dev = timed(lambda: gemm.matmul(x, w), iters)
-            lib_ms, lib_dev = timed(lambda: torch.matmul(x, w), iters)
-            plain_ms = cuda_ms(lambda: gemm.matmul_reference(x, w), 3,
-                               warmup=1)
-            bound, by = gemm_bound(M, N, K)
-            err, _ = err_ratio(x, w, gemm.matmul(x, w))
-            rows[f"M{M}_K{K}_N{N}"] = dict(
-                ms=ms, device_ms=dev, plain_ms=plain_ms, library_ms=lib_ms,
-                library_device_ms=lib_dev, bound_ms=bound, bound_by=by,
-                max_abs_err=err)
-            log(f"  gemm M={M} K={K} N={N}: kernel {ms:.4f} ms events / "
-                f"{dev:.4f} ms device, torch.matmul {lib_ms:.4f} / "
-                f"{lib_dev:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                f"{bound:.4f} ms ({by}): {100 * bound / dev:.1f}% of it")
-            del x
-        del w
-    torch.cuda.empty_cache()
-    return rows, ratios
+    return time_gemm(gemm, device), ratios
 
 
 # the RMSNorm kernel (csrc/rms_norm_f32.cu): Llama-2-7B's hidden width,
@@ -2264,14 +2338,46 @@ NORM_SHAPES = ((4, 4096), (512, 4096))
 NORM_RTOL = 2e-6
 
 
+def time_rms_norm(rms_norm, device):
+    """The RMSNorm kernel's event and device time at NORM_SHAPES (inputs
+    from fixed seeds) beside the plain version's, its bound (x read and y
+    written once at the HBM peak) and torch.nn.functional.rms_norm's (the
+    library call); its max |d| to the plain version and the sha256 of its
+    output.  Returns {shape: row}."""
+    import torch
+
+    eps = 1e-6
+    scale = seeded((NORM_WIDTH,), 7, device).abs() + 0.5
+    rows = {}
+    for n_rows, n in NORM_SHAPES:
+        xs = seeded((n_rows, n), 8 + n_rows, device) * 3
+        ms, dev = timed(lambda: rms_norm.rms_norm_rows(xs, scale, eps), 20)
+        plain_ms, plain_dev = timed(
+            lambda: rms_norm.rms_norm_rows_reference(xs, scale, eps), 20)
+        lib_ms, lib_dev = timed(lambda: torch.nn.functional.rms_norm(
+            xs, (n,), weight=scale, eps=eps), 20)
+        got = rms_norm.rms_norm_rows(xs, scale, eps)
+        e = float((got - rms_norm.rms_norm_rows_reference(xs, scale, eps)
+                   ).abs().max())
+        bound = (8.0 * n_rows * n + 4.0 * n) / PEAK_BYTES_PER_S * 1e3
+        rows[f"rows{n_rows}_n{n}"] = dict(
+            ms=ms, device_ms=dev, plain_ms=plain_ms,
+            plain_device_ms=plain_dev, library_ms=lib_ms,
+            library_device_ms=lib_dev, bound_ms=bound, bound_by="bytes",
+            max_abs_err=e, sha256=sha256(got))
+        log(f"  RMSNorm [{n_rows}, {n}]: kernel {ms:.4f} ms events / "
+            f"{dev:.4f} ms device, plain (PyTorch ops) {plain_ms:.4f} / "
+            f"{plain_dev:.4f} ms, F.rms_norm {lib_ms:.4f} / {lib_dev:.4f} "
+            f"ms, bound {bound:.5f} ms (bytes); max|err| {e:.3e}; sha256 "
+            f"{rows[f'rows{n_rows}_n{n}']['sha256']}")
+    return rows
+
+
 def check_rms_norm(rms_norm, device):
     """The RMSNorm kernel: every row of an M-row norm (NORM_ROWS) bit-equal
     to the same row of the 1024-row one and of a row-permuted one; within
     NORM_RTOL of its plain version (the op's PyTorch formulation); then
-    its event and device time beside the plain version's and its bound (x
-    read and y written once at the HBM peak) and beside
-    torch.nn.functional.rms_norm's (the library call) at NORM_SHAPES.
-    Returns the timing rows."""
+    time_rms_norm.  Returns its rows."""
     import torch
 
     g = torch.Generator(device=device).manual_seed(9)
@@ -2296,28 +2402,7 @@ def check_rms_norm(rms_norm, device):
         f"{NORM_RTOL:g})")
     if err > NORM_RTOL:
         raise AssertionError(f"RMSNorm kernel vs plain: {err}")
-    rows = {}
-    for n_rows, n in NORM_SHAPES:
-        xs = x[:n_rows, :n].contiguous()
-        ms, dev = timed(lambda: rms_norm.rms_norm_rows(xs, scale, eps), 20)
-        plain_ms, plain_dev = timed(
-            lambda: rms_norm.rms_norm_rows_reference(xs, scale, eps), 20)
-        lib_ms, lib_dev = timed(lambda: torch.nn.functional.rms_norm(
-            xs, (n,), weight=scale, eps=eps), 20)
-        e = float((rms_norm.rms_norm_rows(xs, scale, eps)
-                   - rms_norm.rms_norm_rows_reference(xs, scale, eps)
-                   ).abs().max())
-        bound = (8.0 * n_rows * n + 4.0 * n) / PEAK_BYTES_PER_S * 1e3
-        rows[f"rows{n_rows}_n{n}"] = dict(
-            ms=ms, device_ms=dev, plain_ms=plain_ms,
-            plain_device_ms=plain_dev, library_ms=lib_ms,
-            library_device_ms=lib_dev, bound_ms=bound, bound_by="bytes",
-            max_abs_err=e)
-        log(f"  RMSNorm [{n_rows}, {n}]: kernel {ms:.4f} ms events / "
-            f"{dev:.4f} ms device, plain (PyTorch ops) {plain_ms:.4f} / "
-            f"{plain_dev:.4f} ms, F.rms_norm {lib_ms:.4f} / {lib_dev:.4f} "
-            f"ms, bound {bound:.5f} ms (bytes); max|err| {e:.3e}")
-    return rows
+    return time_rms_norm(rms_norm, device)
 
 
 def profile_step(exe, fa, main, scope, feed, loss, key):

@@ -21,6 +21,13 @@ differentiates, and every bfloat16 product keep ``torch.matmul``; so
 does every CPU product, whose callers keep their own CPU rules
 (``ops/math_ops.py`` ``_mul``).
 
+The launch is chosen here (``plan``, cached by shape) and passed to the
+kernel: for M <= ``SKINNY_MAX_M`` the skinny kernel's columns a lane and
+blocks a cluster (a warp a chunk, the partials folded in the cluster);
+above it the tiled kernel's K split, from a model of the card's 132 SMs
+(``tiled_time``).  A split falls on chunk boundaries only
+(``split_ranges``), so every launch gives the same bits.
+
 ``matmul`` launches the kernel for a CUDA tensor (counted in
 ``.launches``) or raises; for a CPU tensor it takes the plain version
 ``matmul_reference`` (counted in ``.calls``), which computes the same
@@ -30,13 +37,38 @@ The two agree within ``tolerance``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import List, NamedTuple, Tuple
 
 import torch
 
 K_CHUNK = 256
 SKINNY_MAX_M = 16
+# the skinny kernel's cluster of blocks a column tile (one chunk range a
+# block; 8 is the portable cluster size) and warps a block: the fewest
+# blocks that give each chunk a warp; its wide lanes (4 columns each)
+# where they still leave this many warps (one a chunk) on the card, else
+# one column a lane
+SKINNY_MAX_CLUSTER = 8
+SKINNY_MAX_WARPS = 8
+SKINNY_WIDE_WARPS = 4 * 132
+# shared memory a skinny block may hold its chunk partials and x rows in
+SKINNY_MAX_SMEM = 227 * 1024
 _KERNEL = "gemm_f32"
+# the card the launch model describes: an H100's SMs, its fp32 FMA rate
+# an SM (67 TFLOP/s / 2 / 132) and its memory rate
+SMS = 132
+FMA_PER_S_SM = 67e12 / 2 / SMS
+BYTES_PER_S = 3.35e12
+# the tiled kernel's output tile (64 x 64, 64 threads of 8 x 8), how many
+# of its blocks an SM holds at once (shared memory), and the threads an
+# SM needs to run at its full rate (fitted to every launch's device time
+# at the main path's shapes, time_fp32.py --what gemm_plans, one H100)
+TILE = 64
+TILE_BLOCKS_PER_SM = 4
+SATURATING_THREADS = 256
+MAX_SPLIT = 16
 # tolerance's width, in units of the spread of a K-term fp32 sum's
 # rounding error
 ERR_SPREADS = 8
@@ -99,17 +131,103 @@ def _lib():
     fn = lib.pt_gemm_f32
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-            ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
+            ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int),
+            ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.pt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.pt_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def scratch_elems(batch: int, M: int, N: int, K: int) -> int:
-    """Floats of chunk partials the skinny kernel folds (0: none)."""
-    chunks = -(-K // K_CHUNK)
-    return batch * chunks * M * N if M <= SKINNY_MAX_M and chunks > 1 else 0
+class Plan(NamedTuple):
+    """A launch of ``csrc/gemm_f32.cu``: ``kind`` 0 (skinny: ``a``
+    columns a lane, ``b`` blocks a cluster) or 1 (tiled: ``a`` the K
+    split, ``b`` 0)."""
+    kind: int
+    a: int
+    b: int
+
+
+def chunks(K: int) -> int:
+    return -(-K // K_CHUNK)
+
+
+def split_ranges(K: int, split: int) -> List[Tuple[int, int]]:
+    """The k range [begin, end) of each of `split` blocks along K, as the
+    tiled kernel computes them: split s takes chunks [s C / S, (s + 1) C
+    / S), so every boundary is a chunk boundary."""
+    c = chunks(K)
+    return [(s * c // split * K_CHUNK, min((s + 1) * c // split * K_CHUNK, K))
+            for s in range(split)]
+
+
+def skinny_blocks(M: int, K: int, launch: Plan) -> Tuple[int, int, int]:
+    """(chunks a block, warps a block, bytes of shared memory) of a
+    skinny launch: the cluster's blocks share the chunks evenly, a block
+    has a warp a chunk up to SKINNY_MAX_WARPS, and it keeps every chunk
+    partial of its rows (M rounded up to a power of two) and 32 x
+    columns-a-lane columns, and each warp's chunk of x rows."""
+    per_block = -(-chunks(K) // launch.b)
+    warps = min(per_block, SKINNY_MAX_WARPS)
+    rows = 1 << max(0, M - 1).bit_length()
+    return (per_block, warps,
+            4 * rows * (per_block * 32 * launch.a + warps * K_CHUNK))
+
+
+def tiled_time(batch: int, M: int, N: int, K: int, split: int) -> float:
+    """The launch model's seconds for a tiled launch: the blocks dealt
+    round-robin over the SMs, each SM running them TILE_BLOCKS_PER_SM at
+    a time at a rate that grows with its threads up to
+    SATURATING_THREADS; a block's time its deepest FMAs; for a split, its
+    partials written and read once at the memory rate."""
+    blocks = -(-M // TILE) * -(-N // TILE) * batch * split
+    depth = max(e - b for b, e in split_ranges(K, split))
+    block = TILE * TILE * depth / FMA_PER_S_SM
+    full, rest = divmod(-(-blocks // SMS), TILE_BLOCKS_PER_SM)
+
+    def round_time(n):
+        return n * block / min(1.0, n * TILE * TILE / 64
+                               / SATURATING_THREADS)
+
+    t = full * round_time(TILE_BLOCKS_PER_SM) + (
+        round_time(rest) if rest else 0.0)
+    if split > 1:
+        t += (8.0 * scratch_elems(batch, M, N, K, Plan(1, split, 0))
+              + 8.0 * batch * M * N) / BYTES_PER_S
+    return t
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(batch: int, M: int, N: int, K: int) -> Plan:
+    """The launch for a [batch, M, K] @ [batch, K, N] product.  Skinny (M
+    <= SKINNY_MAX_M): a cluster of as many blocks a column tile as give
+    each chunk one of SKINNY_MAX_WARPS warps (at most
+    SKINNY_MAX_CLUSTER), 4 columns a lane where M <= 4 and one
+    warp a chunk still makes SKINNY_WIDE_WARPS warps (and the partials
+    fit), else 1.  Tiled: the K split of least ``tiled_time``."""
+    c = chunks(K)
+    if M <= SKINNY_MAX_M:
+        cluster = min(-(-c // SKINNY_MAX_WARPS), SKINNY_MAX_CLUSTER)
+        wide = Plan(0, 4, cluster)
+        if (M <= 4 and -(-N // 128) * batch * c >= SKINNY_WIDE_WARPS
+                and skinny_blocks(M, K, wide)[2] <= SKINNY_MAX_SMEM):
+            return wide
+        return Plan(0, 1, cluster)
+    splits = range(1, min(c, MAX_SPLIT, 65535 // batch) + 1)
+    return Plan(1, min(splits, key=lambda sp: tiled_time(batch, M, N, K,
+                                                         sp)), 0)
+
+
+def scratch_elems(batch: int, M: int, N: int, K: int,
+                  launch: Plan = None) -> int:
+    """Floats of chunk partials the launch (default ``plan``) writes for
+    the fold: a tiled split S > 1 writes those of every chunk after split
+    0's, C - C / S a product (0: none)."""
+    launch = launch or plan(batch, M, N, K)
+    if launch.kind == 0 or launch.a == 1:
+        return 0
+    c = chunks(K)
+    return batch * (c - c // launch.a) * M * N
 
 
 def _operands(a: torch.Tensor, b: torch.Tensor):
@@ -135,14 +253,16 @@ def _operands(a: torch.Tensor, b: torch.Tensor):
     return a3, b3, lead
 
 
-def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def matmul(a: torch.Tensor, b: torch.Tensor,
+           launch: Plan = None) -> torch.Tensor:
     """a [..., M, K] @ b [..., K, N] -> [..., M, N] float32.
 
-    A CUDA tensor launches the kernel (counted in ``.launches``); a CPU
-    tensor takes the plain version.  b may be a transposed view (K^T of
-    a [..., N, K] tensor is read in place).  Raises on anything the
-    kernel does not take: another dtype than float32, operands on two
-    devices, shapes that do not pair."""
+    A CUDA tensor launches the kernel (counted in ``.launches``) as
+    ``plan`` chooses, or as `launch` says (a timing script's
+    comparison); a CPU tensor takes the plain version.  b may be a
+    transposed view (K^T of a [..., N, K] tensor is read in place).
+    Raises on anything the kernel does not take: another dtype than
+    float32, operands on two devices, shapes that do not pair."""
     if a.device.type == "cpu" and b.device.type == "cpu":
         return matmul_reference(a, b)
     if a.dtype != torch.float32 or b.dtype != torch.float32:
@@ -156,19 +276,24 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty((batch, M, N), dtype=torch.float32, device=a.device)
     if min(batch, M, N, K) == 0:
         return out.zero_().reshape(*lead, M, N)
-    n_scratch = scratch_elems(batch, M, N, K)
+    launch = launch or plan(batch, M, N, K)
+    if launch.kind == 0 and skinny_blocks(M, K, launch)[2] > SKINNY_MAX_SMEM:
+        raise ValueError(f"gemm: K {K} needs more than {SKINNY_MAX_SMEM} "
+                         f"bytes of chunk partials a skinny block")
+    n_scratch = scratch_elems(batch, M, N, K, launch)
     scratch = torch.empty((n_scratch,), dtype=torch.float32,
                           device=a.device) if n_scratch else None
     strides = (ctypes.c_longlong * 7)(
         a3.stride(0), a3.stride(1), b3.stride(0), b3.stride(1),
         b3.stride(2), out.stride(0), out.stride(1))
+    launch_args = (ctypes.c_int * 3)(*launch)
     lib = _lib()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = lib.pt_gemm_f32(
             a3.data_ptr(), b3.data_ptr(), out.data_ptr(),
             scratch.data_ptr() if scratch is not None else None,
-            batch, M, N, K, strides, stream)
+            batch, M, N, K, strides, launch_args, stream)
     if err != 0:
         raise RuntimeError(
             f"gemm_f32 kernel launch failed: "

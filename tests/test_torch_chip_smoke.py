@@ -189,8 +189,11 @@ def test_memcpy_report_fails_a_cache_sized_copy():
         smoke.memcpy_report(_fake_profile(events), 1 << 20)
 
 
-# the product kernel's functions as nvcc names them (a file-specific
-# anonymous namespace), and what phase 2's spill check calls them
+# the product and RMSNorm kernels' functions as nvcc names them (a
+# file-specific anonymous namespace), and what phase 2's spill check calls
+# them: PR 11's launches, then the redesigned ones (skinny <rows, columns
+# a lane, n-major, 16-byte>; tiled <n-major, 16-byte>, and an earlier
+# tiled <rows, columns, n-major, 16-byte>)
 GEMM_NAMES = {
     "_ZN44_GLOBAL__N__e3653ecc_11_gemm_f32_cu_f20cb11418gemm_skinny_kernel"
     "ILi16ELb1ELb0EEEvPKfS2_PfiiiNS_7StridesExxx":
@@ -201,6 +204,18 @@ GEMM_NAMES = {
     "_ZN44_GLOBAL__N__e3653ecc_11_gemm_f32_cu_f20cb11416gemm_fold_kernel"
     "EPKfPfiiiixx": "gemm_fold_kernel",
     "_ZN12_GLOBAL__N_13f3217fa_fwd_f32_kernelILi64ELi2EEEvPKfS3_": None,
+    "_ZN44_GLOBAL__N__e3653ecc_11_gemm_f32_cu_f20cb11418gemm_skinny_kernel"
+    "ILi4ELi4ELb1ELb1EEEvPKfS2_PfiiiNS_7StridesE":
+        "gemm_skinny_kernel<4, 4, 1, 1>",
+    "_ZN44_GLOBAL__N__e3653ecc_11_gemm_f32_cu_f20cb11417gemm_tiled_kernel"
+    "ILi128ELi128ELb0ELb1EEEvPKfS2_PfS3_iiiiNS_7StridesE":
+        "gemm_tiled_kernel<128, 128, 0, 1>",
+    "_ZN44_GLOBAL__N__e3653ecc_11_gemm_f32_cu_f20cb11417gemm_tiled_kernel"
+    "ILb1ELb0EEEvPKfS2_PfS3_iiiiNS_7StridesE": "gemm_tiled_kernel<1, 0>",
+    "_ZN45_GLOBAL__N__0b5f2e1a_15_rms_norm_f32_cu_5c1d2e3f20rms_norm_rows"
+    "_kernelILi16EEEvPKfS2_Pfif": "rms_norm_rows_kernel<16>",
+    "_ZN45_GLOBAL__N__0b5f2e1a_15_rms_norm_f32_cu_5c1d2e3f25rms_norm_rows"
+    "_loop_kernelEPKfS1_Pfif": "rms_norm_rows_loop_kernel",
 }
 
 
@@ -217,6 +232,17 @@ def test_gemm_bound_by_bytes_at_decode_and_by_operations_at_prefill():
     ms, by = smoke.gemm_bound(512, 12288, 4096)
     assert by == "operations"
     assert ms == pytest.approx(2 * 512 * 12288 * 4096 / 67e12 * 1e3)
+
+
+def test_gemm_bound_of_batched_attention_counts_every_batch():
+    """Decode attention's P V (128 slot-heads, M 1, 1024 keys, D 128):
+    the values are read once, 128 x 1024 x 128 floats."""
+    ms, by = smoke.gemm_bound(1, 128, 1024, batch=128)
+    assert by == "bytes"
+    assert ms == pytest.approx(
+        4 * 128 * (1024 + 1024 * 128 + 128) / 3.35e12 * 1e3)
+    assert smoke.gemm_bound(4, 12288, 4096, batch=1) == \
+        smoke.gemm_bound(4, 12288, 4096)
 
 
 class _Engine:

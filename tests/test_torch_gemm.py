@@ -110,9 +110,109 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(a, b, err):
 
 
 def test_scratch_only_for_skinny_multi_chunk_products():
+    """Since the skinny kernel folds its chunks inside the block, only a
+    tiled launch split along K has partials to fold: those of every
+    chunk after split 0's."""
     assert gemm.scratch_elems(1, 4, 10, 256) == 0       # one chunk
-    assert gemm.scratch_elems(2, 4, 10, 600) == 2 * 3 * 4 * 10
-    assert gemm.scratch_elems(1, 17, 10, 600) == 0      # tiled launch
+    assert gemm.scratch_elems(2, 4, 10, 600) == 0       # skinny folds
+    assert gemm.scratch_elems(1, 17, 10, 600, gemm.Plan(1, 1, 0)) == 0
+    # 3 chunks split in 3: split 0 takes chunk 0, the others write 1, 2
+    assert gemm.scratch_elems(2, 17, 10, 600, gemm.Plan(1, 3, 0)) == \
+        2 * 2 * 17 * 10
+    # 43 chunks split in 2: chunks 21-42 to scratch
+    assert gemm.scratch_elems(1, 64, 8, 11008, gemm.Plan(1, 2, 0)) == \
+        22 * 64 * 8
+
+
+@pytest.mark.parametrize("K,split", [
+    (K, s) for K in (1, 255, 256, 600, 768, 3072, 4096, 11008)
+    for s in (1, 2, 3, 4, 8, 16) if s <= -(-K // 256)])
+def test_splits_fall_on_chunk_boundaries(K, split):
+    """A K split covers K once, in order, and every boundary inside it is
+    a multiple of the chunk: each chunk's chain stays whole, so a split
+    launch adds the same partials in the same order."""
+    ranges = gemm.split_ranges(K, split)
+    assert ranges[0][0] == 0 and ranges[-1][1] == K
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert all(b > a and a % gemm.K_CHUNK == 0 for a, b in ranges)
+
+
+# the main path's products, (batch, M, N, K): Llama-2-7B's at a 512- and a
+# 64-token prefill bucket and a 128-token chunk (with its attention's),
+# BERT-base serving's at batch 4 and 1, the decode step's and decode
+# attention's
+MAIN_PATH = (
+    [(1, M, n, k) for M in (512, 64, 128)
+     for n, k in ((12288, 4096), (4096, 4096), (22016, 4096),
+                  (4096, 11008), (32000, 4096))]
+    + [(32, 128, 1024, 128), (32, 128, 128, 1024)]
+    + [(1, M, n, k) for M in (512, 128)
+       for n, k in ((2304, 768), (768, 768), (3072, 768), (768, 3072))]
+    + [(1, 4, n, k) for n, k in ((12288, 4096), (4096, 4096),
+                                 (22016, 4096), (4096, 11008),
+                                 (32000, 4096), (2304, 768))]
+    + [(128, 1, 1024, 128), (128, 1, 128, 1024)])
+
+
+@pytest.mark.parametrize("shape", MAIN_PATH, ids=lambda s: "x".join(
+    map(str, s)))
+def test_plan_is_a_launch_the_kernel_takes(shape):
+    """What the C entry accepts: skinny for M <= 16 with 1 or 4 columns
+    a lane (4 only for M <= 4) and a cluster of 1-8 blocks, no more than
+    the chunks, whose partials fit a block's shared memory and need no
+    scratch; tiled above it, a split of 1 to the chunk count with its
+    scratch."""
+    batch, M, N, K = shape
+    p = gemm.plan(*shape)
+    c = gemm.chunks(K)
+    if M <= gemm.SKINNY_MAX_M:
+        assert p.kind == 0 and p.a in (1, 4) and (p.a == 1 or M <= 4)
+        assert 1 <= p.b <= min(c, gemm.SKINNY_MAX_CLUSTER)
+        per_block, warps, smem = gemm.skinny_blocks(M, K, p)
+        assert per_block * p.b >= c > (per_block - 1) * p.b
+        assert 1 <= warps <= gemm.SKINNY_MAX_WARPS
+        assert smem <= gemm.SKINNY_MAX_SMEM
+        assert gemm.scratch_elems(*shape) == 0
+    else:
+        assert p.kind == 1 and p.b == 0
+        assert 1 <= p.a <= c and batch * p.a <= 65535
+        assert gemm.scratch_elems(*shape) == (
+            batch * (c - c // p.a) * M * N if p.a > 1 else 0)
+
+
+@pytest.mark.parametrize("shape", [s for s in MAIN_PATH
+                                   if 768 not in s[2:]],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_plan_fills_the_card(shape):
+    """Every Llama main-path launch keeps the 132 SMs busy: at least 128
+    blocks (Llama-2-7B's 128 x 128 tiles of a 512 x 4096 output), or,
+    where the product has fewer, every block that one tile or column
+    tile, chunk by chunk, can give it.  (BERT's products, 768 wide on one
+    side, are left to the model: on the card fewer, deeper
+    blocks beat a split's scratch there, as ffn1's 96 unsplit tiles at
+    M 512 beat its 288 split ones.)"""
+    batch, M, N, K = shape
+    p = gemm.plan(*shape)
+    c = gemm.chunks(K)
+    if p.kind == 0:
+        tiles = -(-N // (32 * p.a)) * batch
+        blocks, most = tiles * p.b, tiles * min(c, gemm.SKINNY_MAX_CLUSTER)
+    else:
+        tiles = -(-M // gemm.TILE) * -(-N // gemm.TILE) * batch
+        blocks = tiles * p.a
+        most = tiles * min(c, gemm.MAX_SPLIT)
+    assert blocks >= min(128, most), (p, blocks, most)
+
+
+def test_skinny_shared_memory_bounds_k():
+    """A skinny block keeps every partial of its chunks and each warp's
+    x rows: at 8 blocks a cluster, 16 rows and one column a lane, K past
+    8 x 49 chunks does not fit (the wrapper raises on it)."""
+    fits, over = 8 * 49 * 256, 8 * 50 * 256
+    p = gemm.plan(1, 16, 64, fits)
+    assert p == gemm.Plan(0, 1, 8)
+    assert gemm.skinny_blocks(16, fits, p)[2] <= gemm.SKINNY_MAX_SMEM
+    assert gemm.skinny_blocks(16, over, p)[2] > gemm.SKINNY_MAX_SMEM
 
 
 def test_mul_on_the_cpu_keeps_its_rules():
@@ -174,6 +274,51 @@ def test_kernel_batched_n_major_rows_do_not_depend_on_m(cuda):
     ref = gemm.matmul_reference(q[:, :2], k.transpose(1, 2))
     assert bool(((full[:, :2] - ref).abs()
                  <= gemm.tolerance(q[:, :2], k.transpose(1, 2))).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,M,K,N", [(1, 128, 768, 768),
+                                         (1, 64, 600, 10),
+                                         (128, 4, 1024, 128),
+                                         (32, 128, 1024, 128),
+                                         (1, 40, 11008, 4096)],
+                         ids=["bert_batch1", "k600", "decode_pv_n128",
+                              "chunk_pv", "ffn_out_split"])
+def test_kernel_every_launch_gives_the_same_bits(cuda, batch, M, K, N):
+    """Every launch the kernel takes (each K split, or each lane
+    width) gives the chosen launch's bits, and its rows are those of the
+    same rows in a longer product; within the tolerance of the plain
+    version."""
+    x = _t(batch, M, K).to(cuda)
+    w = _t(batch, K, N).to(cuda)
+    want = gemm.matmul(x, w)
+    if M <= gemm.SKINNY_MAX_M:
+        launches = [gemm.Plan(0, cpt, cl) for cpt in (1, 4)
+                    for cl in range(1, min(gemm.chunks(K), 8) + 1)
+                    if cpt == 1 or M <= 4]
+    else:
+        launches = [gemm.Plan(1, sp, 0) for sp in (1, 2, 3, 5)
+                    if sp <= gemm.chunks(K)]
+    for launch in launches:
+        assert torch.equal(gemm.matmul(x, w, launch), want), launch
+    longer = torch.cat([x, _t(batch, 24, K).to(cuda)], dim=1)
+    assert torch.equal(gemm.matmul(longer, w)[:, :M], want)
+    assert bool(((want - gemm.matmul_reference(x, w)).abs()
+                 <= gemm.tolerance(x, w)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 17, 128])
+def test_kernel_reads_a_misaligned_transposed_cache(cuda, M):
+    """K^T read through a [batch, N, K] view one float off 16-byte
+    alignment (the 4-byte path) gives the aligned view's bits."""
+    q = _t(8, M, 128).to(cuda)
+    k = _t(8, 300, 128).to(cuda)
+    flat = torch.empty(k.numel() + 1, device=cuda)[1:]
+    km = flat.view(8, 300, 128).copy_(k)
+    assert km.data_ptr() % 16 != 0
+    assert torch.equal(gemm.matmul(q, km.transpose(1, 2)),
+                       gemm.matmul(q, k.transpose(1, 2)))
 
 
 @pytest.mark.cuda

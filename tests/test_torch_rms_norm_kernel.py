@@ -84,8 +84,9 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [64, 4096, 11008, 100],
-                         ids=["tiny", "llama_hidden", "wide", "ragged"])
+@pytest.mark.parametrize("n", [64, 4096, 11008, 100, 300, 8192],
+                         ids=["tiny", "llama_hidden", "wide", "ragged",
+                              "two_a_thread", "widest_in_registers"])
 def test_kernel_rows_do_not_depend_on_m(cuda, n):
     x = torch.from_numpy(R.randn(512, n).astype("float32") * 3).to(cuda)
     scale = torch.from_numpy(R.rand(n).astype("float32") + 0.5).to(cuda)

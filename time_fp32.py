@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Times the fp32 attention kernels of one checkout on one card.
+"""Times the fp32 kernels of one checkout on one card.
 
-    python3 time_fp32.py [--what {forward,backward}] [--checkout DIR]
+    python3 time_fp32.py [--what {forward,backward,gemm,rms_norm,
+                                  gemm_plans}] [--checkout DIR]
                          [--sdpa-sass]
 
 Imports ``paddle_tpu_torch`` from DIR (default: the directory of this
@@ -14,7 +15,17 @@ packed, bias and bias gradient) and at the Llama shape (the dK/dV and dQ
 rows of ``time_unpacked``, causal).  Each row holds the kernel's event
 time of back-to-back calls and its device time under torch.profiler,
 beside scaled_dot_product_attention's and the bound, each result held to
-the plain version.  Prints the card's name and power limit, then one
+the plain version.  ``gemm``: the product kernel (``time_gemm``) at
+Llama-2-7B's and BERT's product shapes at M 4 and 512 and at decode
+attention's Q K^T and P V; ``rms_norm``: the RMSNorm kernel
+(``time_rms_norm``) at [4, 4096] and [512, 4096].  Their rows hold the
+kernel's event and device time beside the library call's and the bound,
+and the sha256 of its output on inputs from fixed seeds: equal hashes
+across checkouts show equal bits.  ``gemm_plans`` (this checkout's
+wrapper only): the device time of every tiled launch (K split) and
+skinny launch (lane width x cluster) at the main path's shapes, each
+output held bit-equal to the chosen launch's, beside the launch model's
+time (``gemm.tiled_time``).  Prints the card's name and power limit, then one
 JSON line {"checkout": DIR, "what": ..., "rows": ...}.  With --sdpa-sass
 (backward only) it also prints, for the longest kernel of
 scaled_dot_product_attention's backward at each shape, the count of
@@ -78,12 +89,80 @@ def sass_ops(names, cuobjdump):
     return counts
 
 
+# (name, batch, M, N, K) of the products whose launches gemm_plans
+# compares: a 512-token prefill's and a 64-token one's Llama products, a
+# 128-token chunk's, BERT serving's at batch 4 and 1 (M 512, 128), decode
+# attention's over a 128-token chunk, and the decode step's
+PLAN_SHAPES = (
+    [(f"llama_M{M}_{k}", 1, M, n, kk) for M in (512, 64)
+     for k, n, kk in (("qkv", 12288, 4096), ("attn_out", 4096, 4096),
+                      ("gate_up", 22016, 4096), ("ffn_out", 4096, 11008))]
+    + [("llama_M128_attn_out", 1, 128, 4096, 4096)]
+    + [(f"bert_M{M}_{k}", 1, M, n, kk) for M in (512, 128)
+       for k, n, kk in (("qkv", 2304, 768), ("attn_out", 768, 768),
+                        ("ffn1", 3072, 768), ("ffn2", 768, 3072))]
+    + [("chunk_pv", 32, 128, 128, 1024)]
+    + [(f"decode_{k}", 1, 4, n, kk)
+       for k, n, kk in (("qkv", 12288, 4096), ("attn_out", 4096, 4096),
+                        ("gate_up", 22016, 4096), ("ffn_out", 4096, 11008),
+                        ("head", 32000, 4096), ("bert_qkv", 2304, 768))]
+    + [("decode_qk", 128, 1, 1024, 128), ("decode_pv", 128, 1, 128, 1024)])
+
+
+def time_plans(gemm, smoke, device, only=""):
+    """{shape: {launch: device ms}} of every launch of PLAN_SHAPES (those
+    whose name matches the regular expression `only`), with the launch
+    model's ms and the chosen launch; raises if any launch's output
+    differs from the chosen one's in any bit."""
+    import torch
+
+    rows = {}
+    for name, batch, M, N, K in PLAN_SHAPES:
+        if not re.search(only, name):
+            continue
+        x = smoke.seeded((batch, M, K), 1, device)
+        w = smoke.seeded((batch, K, N), 2, device)
+        chosen = gemm.plan(batch, M, N, K)
+        want = gemm.matmul(x, w)
+        if chosen.kind == 0:
+            launches = [gemm.Plan(0, cpt, cl) for cpt in (1, 4)
+                        for cl in range(1, 9)
+                        if (cpt == 1 or M <= 4) and cl <= gemm.chunks(K)]
+        else:
+            launches = [gemm.Plan(1, sp, 0) for sp in (1, 2, 3, 4, 8, 16)
+                        if sp <= gemm.chunks(K)]
+        launches += [chosen] * (chosen not in launches)
+        got = {}
+        for launch in launches:
+            out = gemm.matmul(x, w, launch)
+            if not torch.equal(out, want):
+                raise AssertionError(f"{name}: launch {tuple(launch)} "
+                                     f"differs from {tuple(chosen)}")
+            ms = smoke.device_ms(lambda: gemm.matmul(x, w, launch), 3)
+            model = (gemm.tiled_time(batch, M, N, K, launch.a) * 1e3
+                     if launch.kind == 1 else None)
+            got[str(tuple(launch))] = dict(device_ms=ms, model_ms=model)
+        best = min(got, key=lambda k: got[k]["device_ms"])
+        rows[name] = dict(chosen=str(tuple(chosen)), fastest=best,
+                          launches=got)
+        smoke.log(f"  {name} [{batch}, {M}, {N}, {K}]: chosen "
+                  f"{tuple(chosen)} {got[str(tuple(chosen))]['device_ms']:.4f}"
+                  f" ms, fastest {best} {got[best]['device_ms']:.4f} ms; "
+                  + ", ".join(f"{k} {v['device_ms']:.4f}"
+                              for k, v in got.items()))
+        del x, w, want, out
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--what", choices=("forward", "backward"),
+    ap.add_argument("--what", choices=("forward", "backward", "gemm",
+                                       "rms_norm", "gemm_plans"),
                     default="forward", help="which fp32 kernels to time")
     ap.add_argument("--checkout", default=HERE,
                     help="directory holding the paddle_tpu_torch to time")
+    ap.add_argument("--only", default="",
+                    help="gemm_plans: only the shapes matching this regex")
     ap.add_argument("--sdpa-sass", action="store_true",
                     help="count FFMA / HMMA in SDPA's backward kernels")
     args = ap.parse_args()
@@ -109,6 +188,18 @@ def main():
     smoke.log(f"timing the fp32 {args.what} of {checkout}")
     if args.what == "forward":
         rows = smoke.time_forward_f32(fa, device)
+    elif args.what == "gemm":
+        from paddle_tpu_torch.ops.cuda import gemm
+
+        rows = smoke.time_gemm(gemm, device)
+    elif args.what == "rms_norm":
+        from paddle_tpu_torch.ops.cuda import rms_norm
+
+        rows = smoke.time_rms_norm(rms_norm, device)
+    elif args.what == "gemm_plans":
+        from paddle_tpu_torch.ops.cuda import gemm
+
+        rows = time_plans(gemm, smoke, device, args.only)
     else:
         lib = {"training": [], "llama": []}
         packed = smoke.time_backward(fa, device, "float32", lib["training"])
