@@ -238,6 +238,45 @@ Phases (any failure raises and exits non-zero; nothing is caught):
       new tokens each, prefill_chunk 128: every request 'length', at
       least one prefix hit; printed: hits, TTFT p50 and inter-token p99
       against the dense run's.
+   c. speculative decoding at full width, on the same weights: a plain
+      paged engine, then a speculating one (spec_tokens 4, spec_ngram 3),
+      one after the other, each page 16, 257 pages, 4 slots x 1024,
+      buckets 8 / 64 / 128 / 256 / 512 (bucket 8 so that a verify of at
+      most 5 rows runs 8 rows, not 64), prefix reuse and chunking off,
+      keep_logits; 8 requests of 64 new tokens: four prompts repeating
+      one 8-token pattern (64, 100, 200, 300 tokens) and the first four
+      of 10b's, one of each kind submitted with speculate=False.  Gates:
+      every token and every step's logits bit-equal (torch.equal on the
+      stacked logits; a verify row is the decode step's forward, every
+      product and norm on the kernels whose rows do not depend on M);
+      drafts > 0 and accepted <= proposed; the pool back to 0 live
+      pages; each program (verify8 among them) captured once; the pools
+      keep their data_ptr; the launches as in (b), a verify counted as a
+      chunk (6 L + 1 products, 2 L + 1 norms).  Printed: tokens/s of
+      both, acceptance, verify ms p50 / p99 beside the decode step's
+      p50, one profiled verify replay (busy, idle, 1 cudaGraphLaunch, 0
+      cudaLaunchKernel), the ms of a verify run at bucket 8 and at 64,
+      and the first repetitive request alone in the grid (one slot live),
+      plain against speculating.  No speed gate: the reference verifies
+      one slot a replay, so at 4 slots speculation may well be slower.
+   d. the prefill / decode roles at full width: a colocated paged engine
+      (page 16, buckets 64-512, prefix reuse and chunking off,
+      keep_logits) runs 10b's 8 requests; then a DisaggPair of a
+      prefill-role and a decode-role engine, each over a child scope of
+      the weights' scope (its own pools of 257 pages, one copy of the
+      25.10 GiB of weights), runs them through HostBytesTransport (each
+      segment through host memory: 16 MiB a page, a 500-token prompt's
+      512 MiB) and then through DeviceTransport (a copy on the card).
+      Gates: tokens and every step's logits bit-equal to the colocated
+      run's, through each transport; 8 segments exported and 8 adopted
+      a run; both pools back to 0 live pages and keeping their data_ptr
+      (the adopt scatter is index_copy_ into the pool); each program
+      captured once; the launches summed over both engines; a segment
+      whose fingerprint is changed refused with SegmentMismatch.
+      Printed: handoff ms p50 / p99 (and the send alone) and adopt ms by
+      transport, segment bytes, tokens/s, TTFT p50 (submit to the first
+      token, which the decode engine replays at adoption) beside the
+      colocated run's.
 
 Every profiled replay (phases 4, 5, 6 and 9) also holds the profiler's
 launches of the forward, dK/dV and dQ kernels against what the
@@ -262,7 +301,8 @@ training_parity (phase 5, card steps), training_flagship (phase 6),
 llama_parity (phase 8, card steps), llama_flagship (phase 9),
 generation_parity (phase 10a, card requests), generation (phase 10b's
 dense traffic), generation_paged and generation_shared_prefix (its two
-paged runs). Kernel #4's entry also carries "f32_prefill": the fp32
+paged runs), generation_spec (10c's speculating run) and
+generation_disagg (10d's pair, both transports). Kernel #4's entry also carries "f32_prefill": the fp32
 forward at the largest prefill bucket, [1, 32, 512, 128] causal. The
 four backward entries also carry "f32": their fp32 kernel's device_ms,
 ms, bound_ms and SDPA's fp32 backward's library_device_ms at the same
@@ -282,7 +322,9 @@ path's wall ms, device busy ms, idle share and host launches
 windows' ms/step and tokens/s, whether captured = eager came out
 bit-equal and the memory with two captured Llama entries
 (llama_two_signatures), and phase 10's profiled replays
-(generation_decode, generation_prefill).
+(generation_decode, generation_prefill, generation_paged_decode,
+generation_verify).  The "generation:" JSON line holds phase 10's
+numbers, 10c's under "spec" and 10d's under "disagg".
 
 Every phase runs through the executor's compiled step (Executor.run /
 run_async and Predictor.run on the card: the first run of a signature
@@ -388,6 +430,16 @@ GEN_PARITY_PROMPTS = (20, 50)
 GEN_PARITY_NEW_TOKENS = 24
 # the paged cache's page (FLAGS_serving_kv_page_tokens' default)
 GEN_PAGE = 16
+# phase 10c: speculative decoding at full width.  Bucket 8 first, so that
+# a verify ([pending, draft...], at most spec_tokens + 1 = 5 rows) runs 8
+# rows, not 64; 8 requests: four prompts repeating an 8-token pattern,
+# four of GEN_PROMPTS, two of the eight (one of each kind) opted out
+GEN_SPEC_ENGINE = dict(GEN_ENGINE, prefill_buckets=(8, 64, 128, 256, 512),
+                       keep_logits=True)
+GEN_SPEC = dict(spec_tokens=4, spec_ngram=3)
+GEN_SPEC_PATTERN = 8
+GEN_SPEC_REPEATS = (64, 100, 200, 300)
+GEN_SPEC_OPT_OUT = (1, 5)
 # the unpacked kernels' grads in fp32 and bf16 (as the packed ones')
 FP32_GRAD_ATOL, BF16_GRAD_ATOL = 1e-4, 5e-2
 # the bf16 tensor-core kernels, each built at D 64 and 128
@@ -2497,14 +2549,16 @@ def stream_errors(results, prompts, reference):
     return worst, greedy
 
 
-def run_requests(eng, prompts, new_tokens):
+def run_requests(eng, prompts, new_tokens, opt_out=()):
     """Submit every prompt (queued before the scheduler starts, so the
-    claim order is the submission order), start, and wait: (results,
-    wall seconds, each request's token times)."""
+    claim order is the submission order; those whose index is in
+    `opt_out` with speculate=False), start, and wait: (results, wall
+    seconds, each request's token times)."""
     times = [[] for _ in prompts]
     futs = [eng.submit(p, new_tokens,
-                       on_token=lambda tok, ts, t=t: t.append(ts))
-            for p, t in zip(prompts, times)]
+                       on_token=lambda tok, ts, t=t: t.append(ts),
+                       speculate=False if i in opt_out else None)
+            for i, (p, t) in enumerate(zip(prompts, times))]
     t0 = time.perf_counter()
     eng.start()
     results = [f.result(600) for f in futs]
@@ -2531,17 +2585,23 @@ def row_consistency(device):
     return out
 
 
+def cached_runs(counters):
+    """Runs of the programs that attend through cached_attention: decode
+    steps, prefill chunks and speculative verifies."""
+    return (counters["decode_steps"] + counters["prefill_chunks"]
+            + counters.get("spec_drafts", 0))
+
+
 def gemm_launches(eng, counters, xla_prefill):
     """The product kernel's launches a generation engine's traffic must
-    show (every product of its programs, nothing else): a decode step or
-    a prefill chunk runs 4 L + 1 mul ops and cached_attention's 2 L
-    products; a whole prefill 4 L + 1, plus 2 L where its attention is
-    the einsum formulation ("xla") rather than kernel #4."""
+    show (every product of its programs, nothing else): a decode step, a
+    prefill chunk or a verify runs 4 L + 1 mul ops and cached_attention's
+    2 L products; a whole prefill 4 L + 1, plus 2 L where its attention
+    is the einsum formulation ("xla") rather than kernel #4."""
     L = eng.model["num_layers"]
     whole = whole_prefills(eng, counters)
-    return ((counters["decode_steps"] + counters["prefill_chunks"])
-            * (6 * L + 1) + whole * (4 * L + 1 + (2 * L if xla_prefill
-                                                 else 0)))
+    return cached_runs(counters) * (6 * L + 1) + whole * (
+        4 * L + 1 + (2 * L if xla_prefill else 0))
 
 
 def whole_prefills(eng, counters):
@@ -2556,23 +2616,28 @@ def whole_prefills(eng, counters):
 
 def rms_norm_launches(eng, counters):
     """The RMSNorm kernel's launches a generation engine's traffic must
-    show: 2 L + 1 a run of each program (decode step, chunk, whole
-    prefill)."""
+    show: 2 L + 1 a run of each program (decode step, chunk, verify,
+    whole prefill)."""
     return (2 * eng.model["num_layers"] + 1) * (
-        counters["decode_steps"] + counters["prefill_chunks"]
-        + whole_prefills(eng, counters))
+        cached_runs(counters) + whole_prefills(eng, counters))
 
 
 def check_engine_counts(eng, counts, plain, realigned, what, xla_prefill):
     """Kernel #4 launched num_layers times a whole prefill and no other
     attention kernel; the product kernel exactly gemm_launches and the
-    RMSNorm kernel rms_norm_launches; no plain call; nothing
-    realigned."""
-    n = eng.stats()["counters"]
-    want = (0, 0, 0, whole_prefills(eng, n) * eng.model["num_layers"]
-            if not xla_prefill else 0, 0, 0)
-    want_rows = (gemm_launches(eng, n, xla_prefill),
-                 rms_norm_launches(eng, n))
+    RMSNorm kernel rms_norm_launches; no plain call; nothing realigned.
+    `eng` may be a tuple of engines that ran together (a DisaggPair's
+    two): the sums of their wants."""
+    engines = eng if isinstance(eng, tuple) else (eng,)
+    want = [0, 0, 0, 0, 0, 0]
+    want_rows = [0, 0]
+    for e in engines:
+        n = e.stats()["counters"]
+        if not xla_prefill:
+            want[3] += whole_prefills(e, n) * e.model["num_layers"]
+        want_rows[0] += gemm_launches(e, n, xla_prefill)
+        want_rows[1] += rms_norm_launches(e, n)
+    want, want_rows = tuple(want), tuple(want_rows)
     log(f"  {what}: launches {counts}, product kernel {counts.gemm}, "
         f"RMSNorm kernel {counts.rms_norm} (want {want}, {want_rows}), "
         f"{plain} plain calls, {realigned} realigned operands")
@@ -2914,7 +2979,9 @@ def generation_flagship(tpt, fa):
         "generation_paged": paged_same_requests(tpt, fa, scope, prompts,
                                                 dense_tokens),
         "generation_shared_prefix": paged_shared_prefix(tpt, fa, scope,
-                                                        dense_itl)}
+                                                        dense_itl),
+        "generation_spec": generation_spec(fa, scope),
+        "generation_disagg": generation_disagg(tpt, fa, scope)}
 
 
 def traffic_numbers(results, wall, times):
@@ -2928,15 +2995,15 @@ def traffic_numbers(results, wall, times):
                 inter_token_ms_p99=float(np.percentile(gaps, 99)))
 
 
-def paged_engine(scope, **kw):
+def paged_engine(scope, engine=GEN_ENGINE, **kw):
     """A paged Llama-2-7B engine on `scope`'s weights, warmed: each
-    program run twice (eager, capture) and captured exactly once."""
+    program run twice (eager, capture) and captured exactly once (a
+    prefill-role engine has no decode step)."""
     import torch
     from paddle_tpu_torch.serving import GenerationEngine
 
     eng = GenerationEngine(GEN, scope, autostart=False, attn_impl="auto",
-                           paged=True, page_tokens=GEN_PAGE, **kw,
-                           **GEN_ENGINE)
+                           paged=True, page_tokens=GEN_PAGE, **kw, **engine)
     t0 = time.perf_counter()
     warmed = eng.warmup()
     torch.cuda.synchronize()
@@ -2945,11 +3012,24 @@ def paged_engine(scope, **kw):
         f"tokens, pools {eng.kv_cache_bytes / 2 ** 30:.2f} GiB; warmup: "
         f"{warmed} programs in {time.perf_counter() - t0:.1f} s, captures "
         f"per program {captures}")
+    if eng.role == "prefill" and captures.get("decode") == []:
+        captures = {k: c for k, c in captures.items() if k != "decode"}
     if any(c != [1] for c in captures.values()) or \
             warmed != len(captures):
         raise AssertionError(f"paged warmup did not capture every program "
                              f"once: {captures}")
     return eng
+
+
+def captured_once(eng):
+    """Whether every program `eng` runs was captured exactly once (a
+    prefill-role engine's decode step never)."""
+    return all(c == [1] for k, c in eng.introspect()["captures"].items()
+               if not (eng.role == "prefill" and k == "decode"))
+
+
+def pool_ptrs(eng):
+    return {n: eng.scope.find_var(n).data_ptr() for n in eng.cache_names}
 
 
 def release(eng):
@@ -2971,7 +3051,7 @@ def paged_same_requests(tpt, fa, scope, prompts, dense_tokens):
     nothing of a pool's size.  Returns the traffic's launches, as
     read_counts gives them."""
     eng = paged_engine(scope, prefix_reuse=True, prefill_chunk=0)
-    ptrs = {n: eng.scope.find_var(n).data_ptr() for n in eng.cache_names}
+    ptrs = pool_ptrs(eng)
     reset_counts(fa)
     results, wall, times = run_requests(eng, prompts, GEN_NEW_TOKENS)
     counts, plain, realigned = read_counts(fa)
@@ -2979,7 +3059,6 @@ def paged_same_requests(tpt, fa, scope, prompts, dense_tokens):
     same = [r["tokens"] for r in results] == dense_tokens
     moved = [n for n, p in ptrs.items()
              if eng.scope.find_var(n).data_ptr() != p]
-    captures = eng.introspect()["captures"]
     stats = eng.stats()
     GENERATION["paged"] = dict(
         traffic_numbers(results, wall, times), tokens_equal_dense=same,
@@ -2989,9 +3068,10 @@ def paged_same_requests(tpt, fa, scope, prompts, dense_tokens):
         pages=eng.num_pages, pool_gib=eng.kv_cache_bytes / 2 ** 30)
     log(f"  (i) the same {len(prompts)} requests, paged: tokens equal the "
         f"dense run's: {same}; " + json.dumps(GENERATION["paged"]))
-    if not same or moved or any(c != [1] for c in captures.values()):
+    if not same or moved or not captured_once(eng):
         raise AssertionError(f"paged (i): tokens equal {same}, pools moved "
-                             f"{moved[:4]}, captures {captures}")
+                             f"{moved[:4]}, captures "
+                             f"{eng.introspect()['captures']}")
     pool_bytes = eng.kv_cache_bytes // len(eng.cache_names)
     ids = np.zeros((eng.num_slots, 1), "int64")
     pos = np.arange(eng.num_slots, dtype="int32") * 100
@@ -3038,6 +3118,249 @@ def paged_shared_prefix(tpt, fa, scope, dense_itl):
         raise AssertionError(f"shared prefix (ii): {n['prefix_hits']} hits, "
                              f"bad results {bad[:2]}")
     release(eng)
+    return counts
+
+
+def streams_equal(want, got):
+    """Whether every request's tokens and its stacked per-step logits are
+    bit-equal (torch.equal)."""
+    import torch
+
+    return len(want) == len(got) and all(
+        a["tokens"] == b["tokens"] and len(a["logits"]) == len(b["logits"])
+        and torch.equal(torch.from_numpy(np.stack(a["logits"])),
+                        torch.from_numpy(np.stack(b["logits"])))
+        for a, b in zip(want, got))
+
+
+def spec_prompts():
+    """Phase 10c's 8 prompts: four repeating one 8-token pattern
+    (GEN_SPEC_REPEATS long), then the first four of GEN_PROMPTS (10b's
+    token ids)."""
+    pattern = gen_prompts((GEN_SPEC_PATTERN,), GEN["vocab_size"], 35)[0]
+    return ([np.resize(pattern, n) for n in GEN_SPEC_REPEATS]
+            + gen_prompts(GEN_PROMPTS, GEN["vocab_size"], 32)[:4])
+
+
+def time_verify(eng, bucket, chunk, base, table, n=5):
+    """Host ms of one verify run at `bucket` (each ending in its tokens'
+    fetch), median of `n` after two warm runs (eager, capture)."""
+    times = []
+    for i in range(n + 2):
+        t0 = time.perf_counter()
+        eng._run_verify_program(chunk, bucket, base, chunk.size,
+                                table)[0].numpy()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times[2:]))
+
+
+def generation_spec(fa, scope):
+    """Phase 10c: speculative decoding at full width.  The 8 requests of
+    spec_prompts (two opted out) through a plain paged engine, then a
+    speculating one, on `scope`'s weights, one after the other.  Gates:
+    every token and every step's logits bit-equal; drafts fired,
+    accepted <= proposed; the pool back to 0 live pages; each program
+    captured once; the pools keep their data_ptr; the launches of
+    check_engine_counts (a verify runs as a chunk does).  Printed:
+    tokens/s of both, acceptance, verify ms beside the decode step's, one
+    profiled verify replay, a 64-row verify's ms beside the 8-row one's,
+    and the first repetitive request alone in the grid, plain against
+    speculating.  Returns the speculating run's launches."""
+    prompts = spec_prompts()
+    runs = {}
+    for speculate in (False, True):
+        what = "speculating" if speculate else "plain"
+        eng = paged_engine(scope, engine=GEN_SPEC_ENGINE,
+                           prefix_reuse=False, prefill_chunk=0,
+                           speculate=speculate, **GEN_SPEC)
+        ptrs = pool_ptrs(eng)
+        reset_counts(fa)
+        results, wall, times = run_requests(eng, prompts, GEN_NEW_TOKENS,
+                                            opt_out=GEN_SPEC_OPT_OUT)
+        counts, plain, realigned = read_counts(fa)
+        check_engine_counts(eng, counts, plain, realigned, f"10c {what}",
+                            False)
+        stats = eng.stats()
+        moved = [n for n, p in ptrs.items()
+                 if eng.scope.find_var(n).data_ptr() != p]
+        live = eng._pool.live_pages
+        if moved or live or not captured_once(eng) or any(
+                r["finish"] != "length" for r in results):
+            raise AssertionError(
+                f"10c {what}: pools moved {moved[:4]}, {live} live pages, "
+                f"captures {eng.introspect()['captures']}, finishes "
+                f"{[r['finish'] for r in results]}")
+        lone, lone_wall, _ = run_requests(eng, prompts[:1], GEN_NEW_TOKENS)
+        run = dict(traffic_numbers(results, wall, times),
+                   decode_step_ms_p50=stats["decode_step_ms"]["p50"],
+                   decode_steps=stats["decode_step_ms"]["count"],
+                   lone_tokens_per_s=len(lone[0]["tokens"]) / lone_wall,
+                   lone_ms=lone_wall * 1e3)
+        if speculate:
+            sp, ver = stats["speculate"], stats["spec_verify_ms"]
+            run.update(drafts=sp["drafts"],
+                       tokens_proposed=sp["tokens_proposed"],
+                       tokens_accepted=sp["tokens_accepted"],
+                       rollbacks=sp["rollbacks"],
+                       acceptance_rate=sp["acceptance_rate"],
+                       verify_ms_p50=ver["p50"], verify_ms_p99=ver["p99"],
+                       verifies=ver["count"])
+            if not (sp["drafts"] > 0
+                    and sp["tokens_accepted"] <= sp["tokens_proposed"]):
+                raise AssertionError(f"10c: drafts {sp}")
+            table = 1 + np.arange(eng.pages_per_slot, dtype="int32")
+            chunk = prompts[0][:GEN_SPEC["spec_tokens"] + 1]
+            pool_bytes = eng.kv_cache_bytes // len(eng.cache_names)
+            profile_generation(
+                lambda: eng._run_verify_program(chunk, 8, 500, chunk.size,
+                                                table)[0].numpy(),
+                "one verify replay (5 rows, bucket 8)", "generation_verify",
+                pool_bytes)
+            run["verify_replay_ms"] = {b: time_verify(eng, b, chunk, 500,
+                                                      table)
+                                       for b in (8, 64)}
+            spec_counts = counts
+        runs[what] = (results, run)
+        release(eng)
+    same = streams_equal(runs["plain"][0], runs["speculating"][0])
+    GENERATION["spec"] = dict(
+        plain=runs["plain"][1], speculating=runs["speculating"][1],
+        bit_equal=same, opted_out=list(GEN_SPEC_OPT_OUT))
+    log("  10c speculative decoding (plain, then speculating; tokens and "
+        f"every step's logits bit-equal: {same}): "
+        + json.dumps(GENERATION["spec"]))
+    if not same:
+        raise AssertionError("10c: the speculating engine's streams are "
+                             "not bit-equal to the plain engine's")
+    return spec_counts
+
+
+def run_pair(pair, prompts, new_tokens):
+    """run_requests through a DisaggPair (its engines started after every
+    prompt is queued): (results, wall seconds, token times, TTFT ms from
+    submit to the first token, which the decode engine replays at
+    adoption)."""
+    times = [[] for _ in prompts]
+    t_submit, futs = [], []
+    for p, t in zip(prompts, times):
+        t_submit.append(time.monotonic())
+        futs.append(pair.submit(p, new_tokens,
+                                on_token=lambda tok, ts, t=t: t.append(ts)))
+    t0 = time.perf_counter()
+    pair.prefill.start()
+    pair.decode.start()
+    results = [f.result(600) for f in futs]
+    wall = time.perf_counter() - t0
+    return results, wall, times, [(t[0] - s) * 1e3
+                                  for t, s in zip(times, t_submit)]
+
+
+class TimedTransport:
+    """A transport whose ``send`` host time is kept (``ms``): the part of
+    a handoff that is the transport's."""
+
+    def __init__(self, inner):
+        self.inner, self.ms = inner, []
+
+    def send(self, segment):
+        t0 = time.perf_counter()
+        out = self.inner.send(segment)
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+
+def generation_disagg(tpt, fa, scope):
+    """Phase 10d: the prefill and decode roles at full width.  A
+    colocated paged engine runs GEN_PROMPTS (64 new tokens each,
+    keep_logits); then a DisaggPair of a prefill-role and a decode-role
+    engine, each over its own child scope of `scope` (its own pools, one
+    copy of the weights), runs the same requests through
+    HostBytesTransport, then through DeviceTransport.  Gates: tokens and
+    every step's logits bit-equal to the colocated run's, each time; 8
+    segments exported and 8 adopted a run; both pools back to 0 live
+    pages and keeping their data_ptr; each program captured once; the
+    launches of check_engine_counts over both engines; a segment whose
+    fingerprint is changed refused with SegmentMismatch.  Printed:
+    handoff ms p50 / p99 (the transport's send alone beside them) and
+    adopt ms by transport, segment bytes,
+    tokens/s, TTFT p50 beside the colocated run's.  Returns the pair's
+    launches over both runs."""
+    from paddle_tpu_torch.serving import (DeviceTransport, DisaggPair,
+                                          HostBytesTransport, KVSegment,
+                                          SegmentMismatch)
+
+    prompts = gen_prompts(GEN_PROMPTS, GEN["vocab_size"], 32)
+    engine = dict(GEN_ENGINE, keep_logits=True)
+    col = paged_engine(scope, engine=engine, prefix_reuse=False,
+                       prefill_chunk=0)
+    want, wall, times = run_requests(col, prompts, GEN_NEW_TOKENS)
+    colocated = traffic_numbers(want, wall, times)
+    release(col)
+    pre, dec = (paged_engine(tpt.Scope(parent=scope), engine=engine,
+                             prefix_reuse=False, prefill_chunk=0, role=role)
+                for role in ("prefill", "decode"))
+    ptrs = [pool_ptrs(pre), pool_ptrs(dec)]
+    pair = DisaggPair(pre, dec)
+    out = {"colocated": colocated}
+    reset_counts(fa)
+    for transport in (HostBytesTransport, DeviceTransport):
+        pair.transport = TimedTransport(transport())
+        before = (pre.stats()["counters"]["segments_exported"],
+                  dec.stats()["counters"]["segments_adopted"],
+                  len(dec._h_adopt._v))
+        results, wall, times, ttft = run_pair(pair, prompts, GEN_NEW_TOKENS)
+        n_exp = pre.stats()["counters"]["segments_exported"] - before[0]
+        n_adopt = dec.stats()["counters"]["segments_adopted"] - before[1]
+        live = (pre._pool.live_pages, dec._pool.live_pages)
+        same = streams_equal(want, results)
+        hand = np.asarray([r["handoff_ms"] for r in results])
+        adopt_ms = list(dec._h_adopt._v)[before[2]:]
+        name = transport.__name__
+        out[name] = dict(
+            traffic_numbers(results, wall, times),
+            ttft_ms_p50=float(np.median(ttft)),
+            handoff_ms_p50=float(np.median(hand)),
+            handoff_ms_p99=float(np.percentile(hand, 99)),
+            send_ms_p50=float(np.median(pair.transport.ms)),
+            send_ms_p99=float(np.percentile(pair.transport.ms, 99)),
+            adopt_ms_p50=float(np.median(adopt_ms)),
+            adopt_ms_max=float(max(adopt_ms)),
+            segment_bytes=[int(r["segment_bytes"]) for r in results],
+            bit_equal=same, exported=n_exp, adopted=n_adopt)
+        log(f"  10d {name}: bit-equal to colocated: {same}; "
+            + json.dumps(out[name]))
+        if not (same and n_exp == n_adopt == len(prompts)
+                and live == (0, 0)):
+            raise AssertionError(f"10d {name}: bit-equal {same}, exported "
+                                 f"{n_exp}, adopted {n_adopt}, live pages "
+                                 f"{live}")
+    counts, plain, realigned = read_counts(fa)
+    check_engine_counts((pre, dec), counts, plain, realigned,
+                        "10d prefill + decode roles", False)
+    moved = [n for e, p in zip((pre, dec), ptrs) for n, ptr in p.items()
+             if e.scope.find_var(n).data_ptr() != ptr]
+    if moved or not (captured_once(pre) and captured_once(dec)):
+        raise AssertionError(f"10d: pools moved {moved[:4]}, captures "
+                             f"{pre.introspect()['captures']}, "
+                             f"{dec.introspect()['captures']}")
+    seg = pre.generate(prompts[0], 1, timeout=600)["segment"]
+    bad = KVSegment("0" * 24, seg.prompt_len, seg.position, seg.tokens,
+                    seg.page_tokens, seg.layers, ready=seg.ready)
+    try:
+        dec.adopt(bad)
+        refused = False
+    except SegmentMismatch:
+        refused = True
+    out["changed_fingerprint_refused"] = refused
+    if not refused:
+        raise AssertionError("10d: a segment with a changed fingerprint "
+                             "was adopted")
+    del seg, bad
+    pair.close()
+    release(pre)
+    release(dec)
+    GENERATION["disagg"] = out
+    log("  10d disaggregated: " + json.dumps(out))
     return counts
 
 
@@ -3123,7 +3446,7 @@ def main():
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
     log("[10/10] Llama generation serving on the card (dense and paged KV "
-        "cache)")
+        "cache, speculative decoding, prefill / decode roles)")
     by_path["generation_parity"] = generation_parity(tpt, fa)
     by_path["generation"], paged_paths = generation_flagship(tpt, fa)
     by_path.update(paged_paths)

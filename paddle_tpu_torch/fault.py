@@ -31,6 +31,7 @@ package's module would import jax); the sites wired in the port so far:
     ================  ================================  ===================
     prefill           serving/generation.py _prefill    fail | delay:ms | hang
     decode_step       serving/generation.py decode      fail | delay:ms | hang
+    adopt             serving/generation.py adopt       fail | delay:ms | hang
     ================  ================================  ===================
 
 Every fired fault bumps ``faults_injected`` plus a per-site/kind

@@ -6,7 +6,8 @@ reads, with the reference's defaults and help strings: the executor's
 ``FLAGS_check_nan_inf``, ``FLAGS_benchmark`` and
 ``FLAGS_guard_resolve_interval``; fault.py's ``FLAGS_fault_inject`` and
 ``FLAGS_fault_seed``; and the generation engine's ``FLAGS_serving_*``
-(serving/generation.py registers its paged-cache flags itself).  ``set_flags`` raises on any other name, so a
+(serving/generation.py registers its paged-cache and draft-size flags
+itself, serving/disagg.py ``FLAGS_disagg_transport``).  ``set_flags`` raises on any other name, so a
 flag the port would ignore is an error, not a silent no-op; a later
 slice registers a flag with the module that reads it.
 
@@ -124,13 +125,25 @@ register_flag("FLAGS_serving_prefill_chunk", 0,
               "many tokens, one slice per scheduler iteration "
               "interleaved with decode steps; 0 = whole-prompt prefill")
 register_flag("FLAGS_serving_speculate", False,
-              "paged generation: speculative decoding (prompt-lookup "
-              "n-gram drafts verified in one chunk-shaped program); not "
-              "ported yet (True raises)")
+              "paged generation: speculative decoding — a prompt-lookup "
+              "n-gram drafter proposes up to FLAGS_serving_spec_tokens "
+              "tokens per slot per scheduler iteration from the "
+              "sequence's OWN prompt+generated history (no second "
+              "model), a single chunk-shaped verify program scores the "
+              "draft against the paged cache, and the longest "
+              "argmax-agreeing prefix (plus the one bonus token) is "
+              "accepted — bit-exact vs plain greedy decode, token-for-"
+              "token and logit-for-logit.  Rejected draft tokens roll "
+              "their provisionally-written KV pages back through the "
+              "refcounted pool.  Requires FLAGS_serving_paged=1")
 register_flag("FLAGS_serving_role", "both",
-              "disaggregated serving role of this GenerationEngine: "
-              "'both' (colocated prefill+decode, the default); 'prefill' "
-              "and 'decode' are not ported yet and raise")
+              "disaggregated serving role of this GenerationEngine / "
+              "replica: 'both' (colocated prefill+decode, the default), "
+              "'prefill' (runs paged prefill and exports each prompt's "
+              "populated pages as a KVSegment, never occupies a decode "
+              "slot), 'decode' (accepts segments via adopt()/POST "
+              "/adopt and runs only the decode grid).  Non-'both' "
+              "roles require FLAGS_serving_paged=1")
 register_flag("FLAGS_serving_poison_value", "",
               "chaos/testing hook: a float sentinel; a generation prompt "
               "containing a token exactly equal to it raises "

@@ -17,8 +17,9 @@ and the attention to bfloat16.
 ``kv_pool_gather`` into the dense layout, then ``cached_attention``).
 With a ``name`` prefix every parameter gets a deterministic name, so the
 forward, prefill, decode and chunk programs built in one process bind
-the same scope weights.  Speculative verify (``build_llama_verify``) is
-not ported (ROADMAP.md queue 1 item 2c).
+the same scope weights.  ``build_llama_verify`` is the chunk's forward
+fetching every row's argmax and logits: speculative decoding scores a
+draft with it.
 """
 from __future__ import annotations
 
@@ -27,7 +28,8 @@ from ..framework.core import default_main_program
 
 __all__ = ["llama_block", "llama", "build_llama_train",
            "build_llama_forward", "build_llama_prefill",
-           "build_llama_decode", "build_llama_prefill_chunk"]
+           "build_llama_decode", "build_llama_prefill_chunk",
+           "build_llama_verify"]
 
 
 def _linear(x, size, pname=None, name=None):
@@ -283,12 +285,17 @@ def build_llama_prefill(batch_size, seq_len, vocab_size=32000,
     return feeds, fetches
 
 
+def _all_logits(x, vocab_size, name):
+    """Final norm and the LM head over every row: [B, S, V]."""
+    x = layers.rms_norm(x, param_attr=f"{name}.ln_f")
+    return _linear(x, vocab_size, pname=f"{name}.head.w")
+
+
 def _head(x, vocab_size, name, batch_size, last_pos):
     """Final norm, the LM head over every row, then each row's last real
     position: the head's product has the uncached forward's rows.
     {"logits": [B, V], "next_token": [B] int64}."""
-    x = layers.rms_norm(x, param_attr=f"{name}.ln_f")
-    all_logits = _linear(x, vocab_size, pname=f"{name}.head.w")
+    all_logits = _all_logits(x, vocab_size, name)
     rows = layers.range(0, batch_size, 1, dtype="int64")     # [B]
     coords = layers.stack([rows, last_pos], axis=1)          # [B, 2]
     logits = layers.gather_nd(all_logits, coords)            # [B, V]
@@ -361,6 +368,42 @@ def build_llama_decode(num_slots, max_seq_len, vocab_size=32000,
     return feeds, {"logits": logits, "next_token": next_token}, cache_names
 
 
+def _chunk_forward(chunk_len, max_seq_len, num_pages, page_tokens,
+                   vocab_size, hidden, num_layers, num_heads, num_kv_heads,
+                   intermediate, name):
+    """The chunk's feeds (``chunk_ids``, ``base``, ``block_table``,
+    ``chunk_len``), pools and blocks: (feed names, hidden rows [1, C, H]
+    before the final norm, cache names)."""
+    num_kv_heads = num_kv_heads or num_heads
+    head_dim = hidden // num_heads
+    chunk_ids = layers.data("chunk_ids", [1, chunk_len], dtype="int64",
+                            append_batch_size=False)
+    base = layers.data("base", [1], dtype="int32", append_batch_size=False)
+    block_table = layers.data("block_table",
+                              [1, max_seq_len // page_tokens],
+                              dtype="int32", append_batch_size=False)
+    ck_len = layers.data("chunk_len", [1], dtype="int32",
+                         append_batch_size=False)
+    block = default_main_program().global_block()
+    caches, cache_names = [], []
+    for i in range(num_layers):
+        ck, cv = (_pool_var(block, f"{name}.pool_{kind}_{i}", num_pages,
+                            num_kv_heads, page_tokens, head_dim)
+                  for kind in ("k", "v"))
+        caches.append((ck, cv))
+        cache_names += [ck.name, cv.name]
+    x = layers.embedding(chunk_ids, size=[vocab_size, hidden],
+                         param_attr=f"{name}.embed")
+    for i, (ck, cv) in enumerate(caches):
+        # rope offset = base; cached_attention's mask (j <= base + t) is
+        # causal over the pages so far and the chunk
+        x = llama_block(x, hidden, num_heads, num_kv_heads, chunk_len,
+                        head_dim, intermediate, name=f"{name}.blk{i}",
+                        kv_cache=(ck, cv), positions=base,
+                        block_table=block_table, kv_lengths=ck_len)
+    return ["chunk_ids", "base", "block_table", "chunk_len"], x, cache_names
+
+
 def build_llama_prefill_chunk(chunk_len, max_seq_len, num_pages,
                               page_tokens, vocab_size=32000,
                               hidden=4096, num_layers=32, num_heads=32,
@@ -381,34 +424,42 @@ def build_llama_prefill_chunk(chunk_len, max_seq_len, num_pages,
     only for a prompt's last chunk.
 
     Returns ``(feed_names, fetches, cache_names)``."""
-    num_kv_heads = num_kv_heads or num_heads
-    head_dim = hidden // num_heads
-    chunk_ids = layers.data("chunk_ids", [1, chunk_len], dtype="int64",
-                            append_batch_size=False)
-    base = layers.data("base", [1], dtype="int32", append_batch_size=False)
-    block_table = layers.data("block_table",
-                              [1, max_seq_len // page_tokens],
-                              dtype="int32", append_batch_size=False)
-    ck_len = layers.data("chunk_len", [1], dtype="int32",
-                         append_batch_size=False)
+    feeds, x, cache_names = _chunk_forward(
+        chunk_len, max_seq_len, num_pages, page_tokens, vocab_size, hidden,
+        num_layers, num_heads, num_kv_heads, intermediate, name)
     last_off = layers.data("last_off", [1], dtype="int64",
                            append_batch_size=False)
-    block = default_main_program().global_block()
-    caches, cache_names = [], []
-    for i in range(num_layers):
-        ck, cv = (_pool_var(block, f"{name}.pool_{kind}_{i}", num_pages,
-                            num_kv_heads, page_tokens, head_dim)
-                  for kind in ("k", "v"))
-        caches.append((ck, cv))
-        cache_names += [ck.name, cv.name]
-    x = layers.embedding(chunk_ids, size=[vocab_size, hidden],
-                         param_attr=f"{name}.embed")
-    for i, (ck, cv) in enumerate(caches):
-        # rope offset = base; cached_attention's mask (j <= base + t) is
-        # causal over the pages so far and the chunk
-        x = llama_block(x, hidden, num_heads, num_kv_heads, chunk_len,
-                        head_dim, intermediate, name=f"{name}.blk{i}",
-                        kv_cache=(ck, cv), positions=base,
-                        block_table=block_table, kv_lengths=ck_len)
-    return (["chunk_ids", "base", "block_table", "chunk_len", "last_off"],
-            _head(x, vocab_size, name, 1, last_off), cache_names)
+    return (feeds + ["last_off"], _head(x, vocab_size, name, 1, last_off),
+            cache_names)
+
+
+def build_llama_verify(chunk_len, max_seq_len, num_pages, page_tokens,
+                       vocab_size=32000, hidden=4096, num_layers=32,
+                       num_heads=32, num_kv_heads=None, intermediate=11008,
+                       name="llama"):
+    """Speculative decoding's verifier: the chunk forward of
+    :func:`build_llama_prefill_chunk` fetching every row's greedy argmax
+    and logits instead of one gathered row.
+
+    The chunk holds ``[pending token, draft_1 .. draft_K]`` at ``base`` =
+    the slot's committed position; row t's argmax is the token a decode
+    step would emit after the chunk's first t + 1 tokens, so the longest
+    prefix with ``draft_{t+1} == argmax(row t)``, plus the token the row
+    after it gives, is the plain greedy stream.  Rows write their K/V to
+    the slot's pages as a chunk does (``chunk_len`` sends the pad tail to
+    the trash page); a rejected row's K/V lies past the committed
+    position, outside every later step's validity mask (``j <= base +
+    t``), until the next real write there replaces it.
+
+    Feeds: ``chunk_ids`` [1, C] int64, ``base`` [1] int32,
+    ``block_table`` [1, NP] int32, ``chunk_len`` [1] int32.  Fetches:
+    ``tokens`` [1, C] int64 and ``logits`` [1, C, V].  The head projects
+    every row before the argmax, as the decode step's head does.
+
+    Returns ``(feed_names, fetches, cache_names)``."""
+    feeds, x, cache_names = _chunk_forward(
+        chunk_len, max_seq_len, num_pages, page_tokens, vocab_size, hidden,
+        num_layers, num_heads, num_kv_heads, intermediate, name)
+    all_logits = _all_logits(x, vocab_size, name)
+    tokens = layers.argmax(all_logits, axis=-1)              # [1, C]
+    return feeds, {"logits": all_logits, "tokens": tokens}, cache_names

@@ -2,9 +2,10 @@
 
 Counterpart of ``paddle_tpu/serving``.  Ported so far: ``batcher`` (shape
 and prompt buckets, padding, bit-exact split), the request errors and
-futures of ``engine``, and ``GenerationEngine`` with the dense or the
-block-paged KV cache, prefix reuse and chunked prefill
-(serving/generation.py)::
+futures of ``engine``, ``GenerationEngine`` with the dense or the
+block-paged KV cache, prefix reuse, chunked prefill, speculative decoding
+and the prefill / decode roles (serving/generation.py), and the KV-segment
+handoff between those roles (serving/disagg.py)::
 
     from paddle_tpu_torch.serving import GenerationEngine
 
@@ -16,15 +17,21 @@ block-paged KV cache, prefix reuse and chunked prefill
     out = gen.generate([1, 15043, 29892], max_new_tokens=64)
 
 ``paged=True`` (``page_tokens``, ``num_pages``, ``prefix_reuse``,
-``prefill_chunk``) serves from a page pool.  The dynamic-batching
-``ServingEngine``, the HTTP front end, the router and fleet, and the
-disaggregated / speculative generation paths are not ported yet
-(ROADMAP.md queue 1 items 2 and 6).
+``prefill_chunk``) serves from a page pool; ``speculate=True`` drafts and
+verifies; ``DisaggPair(GenerationEngine(..., role="prefill"),
+GenerationEngine(..., role="decode"))`` splits the roles.  The
+dynamic-batching ``ServingEngine``, the HTTP front end, the router and
+fleet are not ported yet (ROADMAP.md queue 1 item 6).
 """
 from . import batcher  # noqa
+from .disagg import (DeviceTransport, DisaggPair,  # noqa
+                     HostBytesTransport, KVSegment, SegmentMismatch,
+                     SegmentTransport)
 from .engine import (OverloadedError, PoisonedInput, RequestFailed,  # noqa
                      ServingError, ServingFuture)
 from .generation import GenerationEngine  # noqa
 
 __all__ = ["GenerationEngine", "OverloadedError", "PoisonedInput",
-           "RequestFailed", "ServingError", "ServingFuture", "batcher"]
+           "RequestFailed", "ServingError", "ServingFuture", "batcher",
+           "KVSegment", "SegmentMismatch", "SegmentTransport",
+           "DeviceTransport", "HostBytesTransport", "DisaggPair"]

@@ -38,6 +38,31 @@ token each over a KV cache):
   feed buffers.  On the card each program is captured once as a CUDA graph
   (its second run) and replayed after that (framework/executor.py);
   ``warmup()`` runs each program twice, which brings it there.
+* **Speculative decoding** (``speculate``, paged only) — a prompt-lookup
+  drafter (:func:`ngram_draft`: the longest suffix n-gram of the
+  sequence's own prompt and tokens matched against an earlier
+  occurrence) proposes up to ``spec_tokens`` tokens a slot an
+  iteration; the verify program (``build_llama_verify``, one executor a
+  bucket) scores ``[pending, draft...]`` against the slot's pages in one
+  chunk-shaped run, and the longest prefix agreeing with its argmax
+  rows, plus the token the next row gives, is booked.  A verify row is
+  the decode step's forward at that position, so the streams and every
+  step's logits equal the plain engine's bit for bit.  A rejected row's
+  K/V stays in the pages past the committed position, outside every
+  later step's validity mask until a real write replaces it: rollback
+  is page accounting only.  A slot with no draft, or a request submitted
+  with ``speculate=False``, rides the plain grid step.
+* **Disaggregated roles** (``role``, paged only) — a ``"prefill"``
+  engine prefills and exports each prompt's pages as a
+  :class:`~paddle_tpu_torch.serving.disagg.KVSegment` (an ``index_select``
+  of the slot's pages on the scheduler thread's stream, after the prefill
+  run that wrote them) instead of decoding; a ``"decode"`` engine takes
+  segments through :meth:`GenerationEngine.adopt` and scatters them into
+  its own pages with ``index_copy_`` on the pool tensors (their
+  ``data_ptr`` kept for the captured graphs), on its scheduler thread's
+  stream, which the next decode replay is launched on.  Adopted
+  sequences decode the colocated engine's streams bit for bit
+  (serving/disagg.py).
 * **Prefill/decode split** — prompts pad up to shape buckets; decode
   steps run the whole slot grid every iteration.  Idle slots compute
   rows that no live slot reads.
@@ -53,24 +78,25 @@ token each over a KV cache):
 Fault containment: a *prefill* failure (a prompt carrying the
 ``FLAGS_serving_poison_value`` sentinel token, an injected ``prefill``
 fault, a real crash) fails exactly that request while the grid keeps
-decoding; a *decode-step* failure fails the requests active in the grid
-(their cache state is unknowable after a mid-step crash) but never the
-scheduler.
+decoding, as does an *adopt* failure; a *decode-step* failure (a verify
+included: it writes the same pools) fails the requests active in the
+grid (their cache state is unknowable after a mid-step crash) but never
+the scheduler.
 
 Cached decode logits equal the uncached ``build_llama_forward(...,
 attn_impl="xla")`` at ``max_seq_len`` bit for bit, with ragged prompts
 decoding concurrently, on the CPU (``tests/test_torch_generation.py``)
 and on the card (its products run a kernel whose rows do not depend on
 M, ops/cuda/gemm.py); paged equals dense the same way
-(``tests/test_torch_paged_generation.py``).
+(``tests/test_torch_paged_generation.py``), speculative equals plain
+(``tests/test_torch_spec_decode.py``) and disaggregated equals colocated
+(``tests/test_torch_disagg.py``).
 
-Not ported yet, each raising NotImplementedError where asked for
-(ROADMAP.md queue 1 item 2): speculative decoding, the prefill / decode
-roles and ``adopt``, mesh-sharded serving and ``swap_weights``.  The
-reference's
-telemetry spans and timelines, flight recorder, usage ledger and cost
-manifest are left out until those modules are ported (ROADMAP.md queue 1
-item 6).
+Not ported yet: mesh-sharded serving (ROADMAP.md queue 1 item 9) and
+``swap_weights`` (item 6), each raising NotImplementedError where asked
+for.  The reference's telemetry spans and timelines, flight recorder,
+usage ledger and cost manifest are left out until those modules are
+ported (ROADMAP.md queue 1 item 6).
 
 Stats (``monitor``): counters ``serving_generate_requests``,
 ``serving_generate_shed``, ``requests_shed_deadline``,
@@ -79,9 +105,14 @@ Stats (``monitor``): counters ``serving_generate_requests``,
 ``serving_generated_tokens``, ``serving_slot_reclaims``; paged:
 ``serving_prefix_hits``, ``serving_prefix_tokens_saved``,
 ``serving_prefill_chunks``, ``serving_kv_page_evictions``,
-``serving_kv_pool_stalls``; ``stats()`` adds the engine's own counters,
-the pool's state (``"paged"``) and latency summaries (generate, prefill,
-decode step, TTFT, inter-token).
+``serving_kv_pool_stalls``; speculative: ``serving_spec_drafts``,
+``serving_spec_tokens_proposed``, ``serving_spec_tokens_accepted``,
+``serving_spec_rollbacks``; roles: ``serving_segments_exported``,
+``serving_segments_adopted``, ``serving_segment_export_bytes``,
+``serving_segment_adopt_bytes``, ``serving_adopt_rejects``.  ``stats()``
+adds the engine's own counters, the pool's state (``"paged"``), the
+drafts' (``"speculate"``) and latency summaries (generate, prefill,
+decode step, verify, TTFT, inter-token, segment export and adopt).
 """
 from __future__ import annotations
 
@@ -89,6 +120,7 @@ import collections
 import logging
 import threading
 import time
+import warnings
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -100,18 +132,17 @@ from ..flags import flag_value, register_flag
 from ..framework.core import Program, program_guard
 from ..framework.executor import Executor, Scope
 from ..models.llama import (build_llama_decode, build_llama_prefill,
-                            build_llama_prefill_chunk)
+                            build_llama_prefill_chunk, build_llama_verify)
 from ..monitor import stat_add
 from . import batcher
+from .disagg import KVSegment, SegmentMismatch, config_fingerprint, wait_ready
 from .engine import (OverloadedError, PoisonedInput, RequestFailed,
                      ServingFuture, poison_sentinel_matches)
 
 __all__ = ["GenerationEngine", "GenRequest", "PagePool", "PrefixIndex",
-           "PoolExhausted"]
+           "PoolExhausted", "ngram_draft"]
 
 logger = logging.getLogger("paddle_tpu_torch.serving.generation")
-
-_ROADMAP = "not ported yet (ROADMAP.md queue 1 item 2)"
 
 register_flag("FLAGS_serving_kv_page_tokens", 16,
               "paged KV cache: tokens per page (power of two dividing "
@@ -130,6 +161,17 @@ register_flag("FLAGS_serving_prefix_reuse", True,
               "into new slots copy-on-write — their prefill is skipped "
               "and the pages are shared refcounted until every "
               "referencing slot finishes; 0 disables the prefix index")
+register_flag("FLAGS_serving_spec_tokens", 4,
+              "speculative decoding: maximum draft tokens proposed per "
+              "slot per verify (the verify chunk scores draft+1 rows); "
+              "larger drafts amortize more grid steps on repetitive "
+              "text but waste verify compute when acceptance is low")
+register_flag("FLAGS_serving_spec_ngram", 3,
+              "speculative decoding: longest n-gram suffix the prompt-"
+              "lookup drafter matches against the sequence history "
+              "(falls back to shorter n-grams down to 1; a slot with "
+              "no match this iteration takes the plain one-token grid "
+              "step)")
 
 
 class _Latency:
@@ -163,6 +205,31 @@ class _Latency:
 
 class PoolExhausted(Exception):
     """The paged KV pool has no free page and nothing evictable."""
+
+
+def ngram_draft(history: np.ndarray, k: int, max_ngram: int) -> List[int]:
+    """Prompt-lookup drafter: up to ``k`` tokens proposed by matching the
+    longest suffix n-gram of ``history`` (``max_ngram`` down to 1)
+    against an earlier occurrence in ``history`` itself and reading off
+    the tokens that followed it (self-speculation, no second model).
+    The last earlier occurrence wins.  ``[]`` on a miss: the slot takes
+    the plain one-token step, so a bad draft costs a verify, never
+    correctness."""
+    h = np.asarray(history).ravel()
+    n = int(h.size)
+    k = int(k)
+    if k < 1 or n < 2:
+        return []
+    for g in range(min(int(max_ngram), n - 1), 0, -1):
+        suffix = h[n - g:]
+        # an earlier occurrence must end before the last token, so that
+        # at least one token follows it
+        for start in range(n - g - 1, -1, -1):
+            if np.array_equal(h[start:start + g], suffix):
+                follow = h[start + g:start + g + k]
+                if follow.size:
+                    return [int(t) for t in follow]
+    return []
 
 
 class PagePool:
@@ -289,7 +356,7 @@ class GenRequest:
 
     __slots__ = ("prompt", "max_new_tokens", "future", "t_submit",
                  "t_claimed", "t_deadline", "prefill_ms", "on_token",
-                 "t_first", "t_last")
+                 "t_first", "t_last", "segment", "speculate")
 
     def __init__(self, prompt: np.ndarray, max_new_tokens: int):
         self.prompt = prompt
@@ -302,6 +369,24 @@ class GenRequest:
         self.on_token = None  # callable(token_id, monotonic_ts)
         self.t_first: Optional[float] = None
         self.t_last: Optional[float] = None
+        self.segment: Optional[KVSegment] = None  # adopt(): decode role
+        self.speculate: Optional[bool] = None  # False opts out of drafts
+
+
+def _phase(req: GenRequest) -> str:
+    """The phase a failure before decoding names: "adopt" or "prefill"."""
+    return "adopt" if req.segment is not None else "prefill"
+
+
+def _block_tensor(blk, pool: torch.Tensor) -> torch.Tensor:
+    """A segment's block as a tensor on `pool`'s device and dtype (a host
+    array is read in place: ``from_bytes`` gives read-only views, and
+    nothing writes through this one)."""
+    if not isinstance(blk, torch.Tensor):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            blk = torch.from_numpy(np.asarray(blk))
+    return blk.to(pool.device, pool.dtype)
 
 
 class _Slot:
@@ -340,11 +425,14 @@ class GenerationEngine:
     ``CPUPlace()`` for the CPU.  ``paged``, ``page_tokens``,
     ``num_pages``, ``prefill_chunk`` and ``prefix_reuse`` (None: their
     ``FLAGS_serving_*``) configure the block-paged cache; the last three
-    are read only with ``paged``.
+    are read only with ``paged``.  ``speculate`` / ``spec_tokens`` /
+    ``spec_ngram`` and ``role`` ("both", "prefill", "decode") need the
+    paged cache.
 
     In-process API: :meth:`submit` (future) / :meth:`generate`
-    (blocking), :meth:`warmup`, :meth:`drain`, :meth:`close`,
-    :meth:`stats`, :meth:`introspect`.
+    (blocking), :meth:`adopt` (decode role), :meth:`warmup`,
+    :meth:`drain`, :meth:`close`, :meth:`stats`, :meth:`introspect`,
+    :meth:`fingerprint`.
     """
 
     def __init__(self, model: Dict, scope=None, *, num_slots=None,
@@ -354,15 +442,8 @@ class GenerationEngine:
                  attn_impl="auto", seed=0, keep_logits=False, mesh=None,
                  paged=None, page_tokens=None, num_pages=None,
                  prefill_chunk=None, prefix_reuse=None, role=None,
-                 speculate=None, device=None):
-        if speculate if speculate is not None \
-                else flag_value("FLAGS_serving_speculate"):
-            raise NotImplementedError(f"speculative decoding: {_ROADMAP}")
-        role = role if role is not None else flag_value("FLAGS_serving_role")
-        if role != "both":
-            raise NotImplementedError(
-                f"role={role!r} (disaggregated prefill / decode): "
-                f"{_ROADMAP}")
+                 speculate=None, spec_tokens=None, spec_ngram=None,
+                 device=None):
         if mesh is not None:
             raise NotImplementedError(
                 "mesh-sharded generation is not ported yet (ROADMAP.md "
@@ -407,6 +488,7 @@ class GenerationEngine:
         self._seed = seed
         self._configure_pages(paged, page_tokens, num_pages, prefill_chunk,
                               prefix_reuse)
+        self._configure_roles(role, speculate, spec_tokens, spec_ngram)
         self.device = resolve_device(device)
         self.scope = scope if scope is not None else Scope()
         # one executor for the decode step and one for each prefill or
@@ -429,13 +511,19 @@ class GenerationEngine:
                    "prefill_tokens": 0, "slot_reclaims": 0, "failed": 0,
                    "prefix_hits": 0, "prefix_tokens_saved": 0,
                    "prefill_chunks": 0, "page_evictions": 0,
-                   "pool_stalls": 0}
+                   "pool_stalls": 0, "segments_exported": 0,
+                   "segments_adopted": 0, "adopt_rejects": 0,
+                   "spec_drafts": 0, "spec_tokens_proposed": 0,
+                   "spec_tokens_accepted": 0, "spec_rollbacks": 0}
         self._n_lock = threading.Lock()
         self._h_gen = _Latency()
         self._h_prefill = _Latency()
         self._h_step = _Latency()
+        self._h_verify = _Latency()
         self._h_ttft = _Latency()
         self._h_itl = _Latency()
+        self._h_export = _Latency()
+        self._h_adopt = _Latency()
         self._t_prefill_total = 0.0
         self._t_decode_total = 0.0
         if autostart:
@@ -480,6 +568,43 @@ class GenerationEngine:
         self._pool = PagePool(self.num_pages)
         if self.prefix_reuse:
             self._prefix = PrefixIndex(self._pool, pt)
+
+    def _configure_roles(self, role, speculate, spec_tokens, spec_ngram):
+        """The disaggregated role ("both": prefill and decode here;
+        "prefill": export each prompt's pages as a KVSegment instead of
+        decoding; "decode": take segments through adopt(), never
+        prefill) and speculative decoding; both need the paged cache
+        (None: the flag's value)."""
+        self.role = str(role if role is not None
+                        else flag_value("FLAGS_serving_role") or "both")
+        if self.role not in ("both", "prefill", "decode"):
+            raise ValueError(f"role must be both|prefill|decode, got "
+                             f"{self.role!r}")
+        if self.role != "both" and not self.paged:
+            raise ValueError(
+                f"role={self.role!r} requires the paged KV cache "
+                f"(paged=True / FLAGS_serving_paged=1): the KV-segment "
+                f"handoff is page-block-based")
+        self.speculate = bool(flag_value("FLAGS_serving_speculate")
+                              if speculate is None else speculate)
+        self.spec_tokens = int(spec_tokens if spec_tokens is not None
+                               else flag_value("FLAGS_serving_spec_tokens"))
+        self.spec_ngram = int(spec_ngram if spec_ngram is not None
+                              else flag_value("FLAGS_serving_spec_ngram"))
+        if self.speculate:
+            if not self.paged:
+                raise ValueError(
+                    "speculate=True requires the paged KV cache "
+                    "(paged=True / FLAGS_serving_paged=1): the verify "
+                    "chunk scores drafts against the slot's pages and "
+                    "rejected tokens roll back through the page pool")
+            if self.spec_tokens < 1:
+                raise ValueError(f"spec_tokens must be >= 1, got "
+                                 f"{self.spec_tokens}")
+            if self.spec_ngram < 1:
+                raise ValueError(f"spec_ngram must be >= 1, got "
+                                 f"{self.spec_ngram}")
+        self._fingerprint: Optional[str] = None
 
     # -- build --------------------------------------------------------------
     def _program(self, build):
@@ -536,17 +661,20 @@ class GenerationEngine:
 
     def _prog_for(self, kind: str, bucket: int):
         """(program, fetches, executor) of a prefill bucket (``kind``
-        "prefill": dense or paged with the engine) or a chunk bucket
-        ("chunk"), each with an executor of its own."""
+        "prefill": dense or paged with the engine), a chunk bucket
+        ("chunk") or a verify bucket ("verify"), each with an executor of
+        its own."""
         entry = self._progs.get((kind, bucket))
         if entry is not None:
             return entry
         common = dict(name=self.name, **self.model)
-        if kind == "chunk":
+        if kind in ("chunk", "verify"):
+            build_fn = build_llama_prefill_chunk if kind == "chunk" \
+                else build_llama_verify
+
             def build():
-                return build_llama_prefill_chunk(
-                    bucket, self.max_seq_len, self.num_pages,
-                    self.page_tokens, **common)[:2]
+                return build_fn(bucket, self.max_seq_len, self.num_pages,
+                                self.page_tokens, **common)[:2]
         else:
             def build():
                 return build_llama_prefill(
@@ -572,6 +700,15 @@ class GenerationEngine:
             return [b for b in self.prefill_buckets if b <= cap]
         return list(self.prefill_buckets)
 
+    def _verify_buckets(self) -> List[int]:
+        """The buckets the verify program can be asked for: its chunk
+        ``[pending, draft...]`` has at most ``spec_tokens + 1`` rows, so
+        the buckets up to that length's own (one with the default 4)."""
+        cap = batcher.prompt_bucket_for(
+            min(self.spec_tokens + 1, self.max_prompt_len),
+            self.prefill_buckets)
+        return [b for b in self.prefill_buckets if b <= cap]
+
     def warmup(self) -> int:
         """Build every program the engine can run now, off the request
         path, running each twice: the first run builds its kernels, the
@@ -579,25 +716,30 @@ class GenerationEngine:
         of programs warmed.  Dense: the runs write slot 0's cache and
         every slot's position 0, which no request reads before writing
         it itself; paged: all-zero block tables and lengths send every
-        write to the trash page."""
+        write to the trash page.  A decode-role engine runs no prefill
+        program and a prefill-role engine no decode or verify program."""
         runs = []
-        if not self.paged or self.prefill_chunk <= 0:
-            runs += [("prefill", b) for b in self.prefill_buckets]
-        if self.paged and (self.prefill_chunk > 0 or self.prefix_reuse):
-            runs += [("chunk", b) for b in self._chunk_buckets()]
+        if self.role != "decode":
+            if not self.paged or self.prefill_chunk <= 0:
+                runs += [("prefill", b) for b in self.prefill_buckets]
+            if self.paged and (self.prefill_chunk > 0 or self.prefix_reuse):
+                runs += [("chunk", b) for b in self._chunk_buckets()]
+        if self.role != "prefill" and self.speculate:
+            runs += [("verify", b) for b in self._verify_buckets()]
         zeros = np.zeros((1,), "int64")
+        no_pages = np.zeros((self.pages_per_slot,), "int32")
         for kind, b in runs:
             for _ in range(2):
                 if kind == "chunk":
-                    self._run_chunk_program(zeros, b, 0, 0,
-                                            np.zeros((self.pages_per_slot,),
-                                                     "int32"))
+                    self._run_chunk_program(zeros, b, 0, 0, no_pages)
+                elif kind == "verify":
+                    self._run_verify_program(zeros, b, 0, 0, no_pages)
                 elif self.paged:
-                    self._run_paged_prefill_program(
-                        zeros, b, 0, np.zeros((self.pages_per_slot,),
-                                              "int32"))
+                    self._run_paged_prefill_program(zeros, b, 0, no_pages)
                 else:
                     self._run_prefill_program(zeros, b, 0)
+        if self.role == "prefill":
+            return len(runs)
         for _ in range(2):
             self._run_decode_program(
                 np.zeros((self.num_slots, 1), "int64"),
@@ -644,7 +786,8 @@ class GenerationEngine:
     def submit(self, prompt: Sequence[int],
                max_new_tokens: Optional[int] = None,
                deadline_ms: Optional[float] = None,
-               on_token=None) -> ServingFuture:
+               on_token=None,
+               speculate: Optional[bool] = None) -> ServingFuture:
         """Admit one generation request.  ``prompt``: 1-D int token ids
         (1 <= len <= the largest prefill bucket, and below
         ``max_seq_len``).  Returns a future whose ``result()`` is
@@ -660,7 +803,15 @@ class GenerationEngine:
 
         ``on_token(token_id, monotonic_ts)`` runs on the scheduler
         thread as each token is booked (exceptions are contained and
-        logged)."""
+        logged).  ``speculate=False`` keeps this request out of the
+        drafts of a speculating engine (it rides the plain grid step:
+        the same stream either way); True or None follow the engine.
+        A prefill-role engine resolves the request with
+        ``finish="exported"`` and its ``segment``; a decode-role engine
+        takes no prompts (:meth:`adopt`)."""
+        if self.role == "decode":
+            raise ValueError("decode-role engine accepts KV segments "
+                             "via adopt(), not prompts (role=decode)")
         ids = np.asarray(prompt)
         if ids.ndim != 1 or ids.size < 1:
             raise ValueError(f"prompt must be a non-empty 1-D token id "
@@ -677,6 +828,11 @@ class GenerationEngine:
         mnt = max(1, int(max_new_tokens if max_new_tokens is not None
                          else self.max_new_tokens))
         req = GenRequest(ids.astype("int64"), mnt)
+        req.speculate = speculate
+        return self._admit(req, deadline_ms, on_token)
+
+    def _admit(self, req: GenRequest, deadline_ms, on_token) -> ServingFuture:
+        """Queue `req` (a prompt or a segment to adopt), or shed it."""
         req.on_token = on_token
         budget_s = self._deadline_s
         if deadline_ms is not None:
@@ -702,9 +858,78 @@ class GenerationEngine:
         """Blocking one-shot: ``submit(...).result(timeout)``."""
         return self.submit(prompt, max_new_tokens).result(timeout)
 
-    def adopt(self, segment, max_new_tokens=None):
-        raise NotImplementedError(
-            f"adopting a KV segment (disaggregated decode): {_ROADMAP}")
+    # -- disaggregated handoff (KV segments) --------------------------------
+    def fingerprint(self) -> str:
+        """The segment-compatibility fingerprint (model sizes, page
+        geometry, name prefix, weight seed): equal fingerprints mean a
+        segment exported here adopts bit for bit there."""
+        if self._fingerprint is None:
+            self._fingerprint = config_fingerprint(
+                self.model, self.page_tokens, self.max_seq_len, self.name,
+                self._seed)
+        return self._fingerprint
+
+    def _reject(self, msg: str) -> SegmentMismatch:
+        self._count("adopt_rejects")
+        stat_add("serving_adopt_rejects")
+        return SegmentMismatch(msg)
+
+    def _check_segment(self, seg: KVSegment):
+        """adopt()'s structure and fingerprint check: a segment that
+        fails it could only decode garbage (other weights, other page
+        geometry, a truncated payload)."""
+        if seg.fingerprint != self.fingerprint():
+            raise self._reject(
+                f"segment fingerprint {seg.fingerprint} != engine "
+                f"{self.fingerprint()} (model/page-geometry/seed drift)")
+        n_layers = len(self.cache_names) // 2
+        needed = -(-seg.position // self.page_tokens)
+        if (seg.page_tokens != self.page_tokens
+                or seg.n_layers != n_layers
+                or seg.n_pages != needed
+                or not seg.tokens
+                or seg.position < 1
+                or seg.position > self.max_seq_len
+                # prompt_len sizes a host allocation and the result: a
+                # crafted header must not exhaust the host's memory
+                or seg.prompt_len < 1
+                or seg.prompt_len > seg.position):
+            raise self._reject(
+                f"segment structure invalid: page_tokens="
+                f"{seg.page_tokens}/{self.page_tokens}, layers="
+                f"{seg.n_layers}/{n_layers}, pages={seg.n_pages} "
+                f"(need {needed} for position {seg.position}), "
+                f"tokens={len(seg.tokens)}")
+
+    def adopt(self, segment: KVSegment,
+              max_new_tokens: Optional[int] = None,
+              deadline_ms: Optional[float] = None,
+              on_token=None) -> ServingFuture:
+        """Adopt an exported :class:`~paddle_tpu_torch.serving.disagg.
+        KVSegment` into this engine's pool and decode it to the end: the
+        decode half of the disaggregated pipeline.
+
+        Admission as :meth:`submit` (the same sheds); the pages are taken
+        at claim time (evicting idle prefix pages, or back to the queue
+        head while other slots hold pages, as a local prefill).  A
+        fingerprint or structure mismatch raises :class:`~paddle_tpu_torch.
+        serving.disagg.SegmentMismatch` here and is never queued.  The
+        result's ``tokens`` are the whole stream: the segment's tokens
+        (replayed through ``on_token``), then every token decoded
+        here."""
+        if self.role == "prefill":
+            raise ValueError("prefill-role engine cannot adopt "
+                             "segments (it has no decode grid)")
+        if not self.paged:
+            raise ValueError("adopt() requires the paged KV cache")
+        self._check_segment(segment)
+        mnt = max(1, int(max_new_tokens if max_new_tokens is not None
+                         else self.max_new_tokens))
+        # the zero prompt only carries the length into the result: the
+        # segment's pages hold the K/V
+        req = GenRequest(np.zeros((segment.prompt_len,), "int64"), mnt)
+        req.segment = segment
+        return self._admit(req, deadline_ms, on_token)
 
     def swap_weights(self, checkpoint, **kwargs):
         raise NotImplementedError(
@@ -794,10 +1019,14 @@ class GenerationEngine:
             for slot, req in claimed:
                 try:
                     self._begin(slot, req)
-                except Exception as e:  # noqa: BLE001 — a prefill failure
-                    # must not kill the scheduler: exactly this request
-                    # errors, the grid keeps decoding
-                    self._fail_request(slot, req, "prefill", e)
+                except PoolExhausted as e:
+                    # an adopted segment takes its pages at claim time:
+                    # the same transient a prefill meets
+                    self._requeue_or_fail(slot, e)
+                except Exception as e:  # noqa: BLE001 — a prefill or
+                    # adopt failure must not kill the scheduler: exactly
+                    # this request errors, the grid keeps decoding
+                    self._fail_request(slot, req, _phase(req), e)
             # paged: advance ONE pending prefill slice an iteration
             # (round-robin over the prefilling slots), so a long prompt
             # pays out between decode steps instead of stalling the grid
@@ -813,19 +1042,32 @@ class GenerationEngine:
                     self._requeue_or_fail(slot, e)
                 except Exception as e:  # noqa: BLE001 — this request only
                     self._fail_request(slot, slot.req, "prefill", e)
+            # the speculative round first: a slot whose draft was
+            # verified this iteration has advanced (often by several
+            # tokens) and skips the grid step; the others ride it
+            served = frozenset()
+            if self.speculate and self._decoding_slots():
+                try:
+                    served = self._speculate_round()
+                except Exception as e:  # noqa: BLE001 — a verify writes
+                    # the pools the grid step writes: contained the same
+                    self._decode_failed(e)
             if self._decoding_slots():
                 try:
-                    self._decode_step()
+                    self._decode_step(skip=served)
                 except Exception as e:  # noqa: BLE001 — a decode-step
                     # failure fails the ACTIVE requests (their cache state
                     # is unknowable) but never the scheduler
                     self._decode_failed(e)
 
     def _begin(self, slot: _Slot, req: GenRequest):
-        """After the claim.  Dense: the whole prefill, here and now.
-        Paged: the fault and poison checks and the prefix lookup only;
-        the prompt pays out through ``_prefill_advance``, one slice a
-        scheduler iteration."""
+        """After the claim.  An adopted segment: its pages, here and now.
+        Dense: the whole prefill, here and now.  Paged: the fault and
+        poison checks and the prefix lookup only; the prompt pays out
+        through ``_prefill_advance``, one slice a scheduler iteration."""
+        if req.segment is not None:
+            self._adopt_begin(slot, req)
+            return
         if not self.paged:
             self._prefill(slot, req)
             return
@@ -855,7 +1097,7 @@ class GenerationEngine:
         hold the prompt at all: fail it."""
         req = slot.req
         if not [s for s in self._slots if s.active and s is not slot]:
-            self._fail_request(slot, req, "prefill", e)
+            self._fail_request(slot, req, _phase(req), e)
             return
         self._count("pool_stalls")
         stat_add("serving_kv_pool_stalls")
@@ -944,6 +1186,22 @@ class GenerationEngine:
             fetch_list=self._fetch(fetches), scope=self.scope,
             return_numpy=False)
 
+    def _run_verify_program(self, ids: np.ndarray, bucket: int, base: int,
+                            n: int, block_table: np.ndarray):
+        """`n` chunk rows (the pending token, then the draft) from logical
+        position `base`, padded to `bucket`, through the verify program:
+        every row's argmax (and logits with keep_logits)."""
+        prog, fetches, exe = self._prog_for("verify", bucket)
+        return exe.run(
+            prog,
+            feed={"chunk_ids": batcher.pad_prompt(ids, bucket)[None],
+                  "base": np.asarray([base], "int32"),
+                  "block_table": block_table[None],
+                  "chunk_len": np.asarray([n], "int32")},
+            fetch_list=[fetches["tokens"]] + (
+                [fetches["logits"]] if self.keep_logits else []),
+            scope=self.scope, return_numpy=False)
+
     def _fetch(self, fetches) -> list:
         return [fetches["next_token"]] + (
             [fetches["logits"]] if self.keep_logits else [])
@@ -999,6 +1257,32 @@ class GenerationEngine:
         bt = np.zeros((self.pages_per_slot,), "int32")
         bt[:len(slot.pages)] = slot.pages
         return bt
+
+    def _acquire_draft_pages(self, slot: _Slot, n_tokens: int) -> int:
+        """Grow the slot's block table to hold a draft's verify rows.
+        Returns the page count to keep on rollback (the table's length
+        before the draft).  On exhaustion the partial growth is rolled
+        back here and PoolExhausted raised again: the table is as it
+        was."""
+        keep = len(slot.pages)
+        try:
+            self._ensure_pages(slot, n_tokens)
+        except PoolExhausted:
+            self._rollback_draft_pages(slot, keep)
+            raise
+        return keep
+
+    def _rollback_draft_pages(self, slot: _Slot, keep_pages: int) -> int:
+        """Drop the slot's references on pages past ``keep_pages``: the
+        accounting half of a rejected draft.  Its rows' K/V needs no undo
+        on the device: they lie past the committed position, outside
+        every later step's validity mask (``j <= base + t``), and the
+        next real write there replaces them."""
+        dropped = slot.pages[keep_pages:]
+        if dropped:
+            self._pool.decref(dropped)
+            del slot.pages[keep_pages:]
+        return len(dropped)
 
     def _prefill_advance(self, slot: _Slot):
         """One prefill slice of one paged slot: the whole prompt through
@@ -1060,8 +1344,136 @@ class GenerationEngine:
         slot.prefill_pos = n_prompt
         slot.position = n_prompt
         slot.tokens = [first]
+        if self.role == "prefill":
+            # disaggregated: the pages leave as a segment and the slot
+            # frees for the next prompt instead of decoding
+            self._export_segment(slot, req)
+            return
         slot.decoding = True
         self._book_token(slot, first, time.monotonic())
+
+    # -- segments -----------------------------------------------------------
+    def _pool_pair(self, layer: int):
+        return (self.scope.find_var(f"{self.name}.pool_k_{layer}"),
+                self.scope.find_var(f"{self.name}.pool_v_{layer}"))
+
+    def _export_segment(self, slot: _Slot, req: GenRequest):
+        """Gather the slot's populated pages into a detached KVSegment
+        (``index_select``: new tensors, on this thread's stream, after
+        the prefill run that wrote the pages) and resolve the request
+        with it (``finish="exported"``).  The gather copies, so the
+        slot's pages release at once; shared prefix pages fall back to
+        the index's reference."""
+        t0 = time.monotonic()
+        n_prompt = slot.position
+        needed = -(-n_prompt // self.page_tokens)
+        idx = torch.tensor(slot.pages[:needed], dtype=torch.long,
+                           device=self.device)
+        layers = [tuple(pool.index_select(0, idx)
+                        for pool in self._pool_pair(i))
+                  for i in range(len(self.cache_names) // 2)]
+        ready = None
+        if self.device.type == "cuda":
+            # readers on other threads wait on this before the blocks
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self.device))
+        seg = KVSegment(self.fingerprint(), n_prompt, n_prompt,
+                        list(slot.tokens), self.page_tokens, layers,
+                        logits=np.stack(slot.logits)
+                        if self.keep_logits and slot.logits else None,
+                        ready=ready)
+        now = time.monotonic()
+        # the prefill's first token was generated here; the adopter
+        # replays it
+        self._count("generated_tokens")
+        stat_add("serving_generated_tokens")
+        self._count("segments_exported")
+        stat_add("serving_segments_exported")
+        stat_add("serving_segment_export_bytes", seg.nbytes)
+        self._h_export.observe((now - t0) * 1e3)
+        total_ms = (now - req.t_submit) * 1e3
+        self._count("served")
+        self._h_gen.observe(total_ms)
+        result = {
+            "tokens": [int(t) for t in slot.tokens],
+            "prompt_len": n_prompt,
+            "steps": 0,
+            "finish": "exported",
+            "queue_wait_ms": round(
+                ((req.t_claimed or now) - req.t_submit) * 1e3, 3),
+            "prefill_ms": round(req.prefill_ms, 3),
+            "ttft_ms": None,
+            "total_ms": round(total_ms, 3),
+            "segment": seg,
+            "segment_bytes": seg.nbytes,
+        }
+        if slot.hit_tokens:
+            result["prefix_hit_tokens"] = slot.hit_tokens
+        slot.req = None
+        slot.decoding = False
+        slot.logits = []
+        self._release_pages(slot)
+        req.future._resolve(outputs=result)
+
+    def _adopt_begin(self, slot: _Slot, req: GenRequest):
+        """Put an adopted segment into this pool: take the pages (as a
+        local prefill would: evicting, or PoolExhausted for the
+        scheduler's requeue), scatter the segment's blocks into them in
+        place, replay its tokens, and enter the decode grid at its
+        position.
+
+        The scatter is ``index_copy_`` on each pool tensor, so no pool
+        changes its ``data_ptr`` (the captured graphs hold them).  It
+        runs on this thread's current stream, after the segment's
+        ``ready`` event; the next decode replay is launched on the same
+        stream, so it reads the pages after the scatter wrote them."""
+        seg = req.segment
+        t0 = time.monotonic()
+        kind = fault.fire("adopt")
+        fault.maybe_delay(kind)
+        if kind == "fail":
+            raise fault.InjectedFault("injected adopt failure")
+        self._ensure_pages(slot, seg.position)  # may raise PoolExhausted
+        idx = torch.tensor(slot.pages[:seg.n_pages], dtype=torch.long,
+                           device=self.device)
+        wait_ready(seg)
+        for i, blocks in enumerate(seg.layers):
+            for pool, blk in zip(self._pool_pair(i), blocks):
+                pool.index_copy_(0, idx, _block_tensor(blk, pool))
+        slot.position = seg.position
+        slot.prefill_pos = seg.position
+        slot.tokens = list(seg.tokens)
+        slot.steps = 0
+        slot.logits = list(np.array(seg.logits, dtype=np.float32)) \
+            if self.keep_logits and seg.logits is not None else []
+        slot.decoding = True
+        now = time.monotonic()
+        self._count("segments_adopted")
+        stat_add("serving_segments_adopted")
+        stat_add("serving_segment_adopt_bytes", seg.nbytes)
+        self._h_adopt.observe((now - t0) * 1e3)
+        # replay the tokens generated elsewhere: a stream consumer sees
+        # one sequence, and TTFT is adopt admission to the first token
+        for tok in seg.tokens:
+            if req.t_first is None:
+                req.t_first = now
+                self._h_ttft.observe((now - req.t_submit) * 1e3)
+            if req.on_token is not None:
+                try:
+                    req.on_token(tok, now)
+                except Exception as e:  # noqa: BLE001 — as _book_token
+                    logger.warning("on_token callback failed (token "
+                                   "dropped from stream): %s", e)
+                    req.on_token = None
+        req.t_last = now
+        # a segment may arrive finished (EOS at prefill, or a budget the
+        # replay meets): eos before length before cache_full
+        if slot.tokens[-1] == self.eos_id:
+            self._finish(slot, "eos")
+        elif len(slot.tokens) >= req.max_new_tokens:
+            self._finish(slot, "length")
+        elif slot.position >= self.max_seq_len:
+            self._finish(slot, "cache_full")
 
     # -- decode -------------------------------------------------------------
     def _run_decode_program(self, tokens: np.ndarray, positions: np.ndarray,
@@ -1081,7 +1493,95 @@ class GenerationEngine:
         logits = np.asarray(outs[1].numpy()) if self.keep_logits else None
         return next_tokens, logits
 
-    def _decode_step(self):
+    def _speculate_round(self) -> frozenset:
+        """One draft and verify for each decoding slot that can take one;
+        returns the indices of the slots that advanced (by one token at
+        least), which this iteration's grid step skips.  A slot opted out
+        (``speculate=False``), with no n-gram match, without room for a
+        draft in its budget or cache, or whose draft the pool cannot
+        hold, rides the grid step unchanged.
+
+        A slot's verify chunk ``[pending, draft...]`` runs at ``base =
+        position`` (row 0 writes the pending token's K/V where the plain
+        step would); ``a`` = the longest prefix with ``draft[i] ==
+        argmax(row i)``, and rows 0..a book ``a + 1`` tokens in order
+        through ``_book_token``.  Draft pages past the new position
+        roll back."""
+        served = set()
+        for slot in list(self._decoding_slots()):
+            req = slot.req
+            if req.speculate is False:
+                continue
+            cap = min(self.spec_tokens,
+                      req.max_new_tokens - len(slot.tokens) - 1,
+                      self.max_seq_len - slot.position - 1)
+            if cap < 1:
+                continue
+            history = np.concatenate(
+                [req.prompt, np.asarray(slot.tokens, "int64")])
+            draft = ngram_draft(history, cap, self.spec_ngram)
+            if not draft:
+                continue
+            t0 = time.monotonic()
+            # the verify writes the pools a grid step writes: it shares
+            # the decode_step fault site
+            kind = fault.fire("decode_step")
+            fault.maybe_delay(kind)
+            if kind == "fail":
+                raise fault.InjectedFault(
+                    "injected decode_step failure (spec verify)")
+            c = len(draft) + 1
+            try:
+                keep = self._acquire_draft_pages(slot, slot.position + c)
+            except PoolExhausted:
+                # transient: the slot rides the plain step, whose own
+                # cache_full path governs a pool that stays full
+                continue
+            self._count("spec_drafts")
+            stat_add("serving_spec_drafts")
+            self._count("spec_tokens_proposed", len(draft))
+            stat_add("serving_spec_tokens_proposed", len(draft))
+            bucket = batcher.prompt_bucket_for(c, self.prefill_buckets)
+            chunk = np.asarray([slot.tokens[-1]] + draft, "int64")
+            outs = self._run_verify_program(chunk, bucket, slot.position, c,
+                                            self._slot_block_table(slot))
+            m = np.asarray(outs[0].numpy())[0]
+            rows = np.asarray(outs[1].numpy())[0] if self.keep_logits \
+                else None
+            a = 0
+            while a < len(draft) and int(draft[a]) == int(m[a]):
+                a += 1
+            t1 = time.monotonic()
+            ms = (t1 - t0) * 1e3
+            self._t_decode_total += ms
+            self._h_verify.observe(ms)
+            self._count("spec_tokens_accepted", a)
+            stat_add("serving_spec_tokens_accepted", a)
+            if a < len(draft):
+                self._count("spec_rollbacks")
+                stat_add("serving_spec_rollbacks")
+            # row j's argmax is what a plain step emits after the chunk's
+            # first j + 1 tokens: the plain stream, several steps at once,
+            # booked with one timestamp
+            for j in range(a + 1):
+                tok = int(m[j])
+                slot.position += 1
+                slot.steps += 1
+                slot.tokens.append(tok)
+                if rows is not None:
+                    slot.logits.append(rows[j])
+                self._book_token(slot, tok, t1)
+                if slot.req is None:
+                    break  # finished mid-burst; _finish freed the pages
+            if slot.req is not None:
+                self._rollback_draft_pages(
+                    slot, max(keep, -(-slot.position // self.page_tokens)))
+            served.add(slot.idx)
+        return frozenset(served)
+
+    def _decode_step(self, skip: frozenset = frozenset()):
+        """One grid step for the decoding slots not in `skip` (the slots
+        the speculative round advanced this iteration)."""
         t0 = time.monotonic()
         kind = fault.fire("decode_step")
         fault.maybe_delay(kind)
@@ -1092,11 +1592,13 @@ class GenerationEngine:
             # the step; one the pool cannot serve, even after evicting,
             # finishes cache_full with what it generated so far
             for s in self._decoding_slots():
+                if s.idx in skip:
+                    continue
                 try:
                     self._ensure_pages(s, s.position + 1)
                 except PoolExhausted:
                     self._finish(s, "cache_full")
-        active = self._decoding_slots()
+        active = [s for s in self._decoding_slots() if s.idx not in skip]
         if not active:
             return
         tokens = np.zeros((self.num_slots, 1), "int64")
@@ -1202,6 +1704,7 @@ class GenerationEngine:
         return {
             "queue_depth": depth,
             "queue_cap": self.queue_cap,
+            "role": self.role,
             "slots": self.num_slots,
             "slots_active": active,
             "slot_occupancy": round(active / self.num_slots, 4),
@@ -1224,6 +1727,17 @@ class GenerationEngine:
                 "prefix_hit_rate": round(
                     n["prefix_hits"] / max(n["prefills"], 1), 4),
             },
+            "speculate": None if not self.speculate else {
+                "spec_tokens": self.spec_tokens,
+                "spec_ngram": self.spec_ngram,
+                "drafts": n["spec_drafts"],
+                "tokens_proposed": n["spec_tokens_proposed"],
+                "tokens_accepted": n["spec_tokens_accepted"],
+                "rollbacks": n["spec_rollbacks"],
+                "acceptance_rate": round(
+                    n["spec_tokens_accepted"]
+                    / max(n["spec_tokens_proposed"], 1), 4),
+            },
             "draining": draining,
             "counters": n,
             "tokens_per_request": round(
@@ -1233,16 +1747,20 @@ class GenerationEngine:
             "generate_ms": self._h_gen.summary(),
             "prefill_ms": self._h_prefill.summary(),
             "decode_step_ms": self._h_step.summary(),
+            "spec_verify_ms": self._h_verify.summary(),
             "ttft_ms": self._h_ttft.summary(),
             "inter_token_ms": self._h_itl.summary(),
+            "segment_export_ms": self._h_export.summary(),
+            "segment_adopt_ms": self._h_adopt.summary(),
         }
 
     def introspect(self) -> dict:
         """Stats plus the compiled-step inventories of the decode step's
-        executor and each prefill and chunk bucket's (``cache_info``:
-        signature, whether captured, graph pool bytes) and the CUDA graph
-        captures of each program (``captures``: "decode", each prefill
-        bucket by its length, each chunk bucket as "chunk<length>")."""
+        executor and each prefill, chunk and verify bucket's
+        (``cache_info``: signature, whether captured, graph pool bytes)
+        and the CUDA graph captures of each program (``captures``:
+        "decode", each prefill bucket by its length, each chunk bucket as
+        "chunk<length>", each verify bucket as "verify<length>")."""
         def label(kind, b):
             return b if kind == "prefill" else f"{kind}{b}"
 

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Which op makes the cached decode's (or a prefill's) rows differ from
-the uncached forward's rows on one device.
+the uncached forward's rows on one device, or a speculative verify's rows
+from the decode step's.
 
     python3 probe_decode_rows.py [--layers 2] [--products {as_is,f64}]
-                                 [--program {decode,prefill}]
+                                 [--program {decode,prefill,verify}]
                                  [--device cuda|cpu] [--tiny]
 
 Builds Llama at Llama-2-7B's widths (``--tiny``: a 2-layer toy) with
@@ -21,6 +22,17 @@ rows, and the first op whose rows differ.
 ``--program prefill`` compares a prefill instead (``build_llama_prefill``
 at bucket 64 over the first PREFILL_LEN tokens of batch row 0, the K/V
 fetched): each op's rows 0..PREFILL_LEN-1 against the forward's.
+
+``--program verify`` holds the speculative verify program against the
+paged decode step instead (``verify_rows``): both over one scope whose
+pools hold random K/V from a seed (page 16, slot 0 mapped to pages
+1..8), the verify's VERIFY_ROWS-row chunk (bucket VERIFY_BUCKET) at
+position VERIFY_BASE first, then one decode step (2 slots, slot 1 idle)
+for each of its rows in turn, each writing the pools the next run reads.
+Row t of each verify op's output is compared with slot 0's row of the
+same op in the decode step at position VERIFY_BASE + t (outputs without
+a row axis, such as ``kv_pool_gather``'s view, whole; the pool writes
+through that view).
 
 ``--products f64`` computes every torch.matmul in float64 and rounds it
 to float32, so that no product's rows depend on how many rows it has
@@ -42,6 +54,7 @@ TINY = dict(vocab_size=97, hidden=64, num_heads=4, intermediate=96)
 SEQ = 128
 POSITIONS = (37, 101)
 BUCKET, PREFILL_LEN = 64, 50
+VERIFY_PAGE, VERIFY_BASE, VERIFY_ROWS, VERIFY_BUCKET = 16, 37, 5, 8
 
 
 def lower_all(block, env, device):
@@ -95,11 +108,123 @@ def rows_of(fwd, dec, prefill):
     return None
 
 
+def verify_pair(ver, dec, t):
+    """(the verify's row t, the decode step's slot-0 row) of one op's
+    outputs: along the first axis where the verify has VERIFY_BUCKET rows
+    and the decode step 1 (or none, where the decode squeezed it); the
+    whole of both where their shapes agree after taking slot 0; None
+    where they do not pair so."""
+    if dec.dim() < 1 or ver.dim() < 1:
+        return None
+    d0 = dec[:1]
+    if ver.shape == d0.shape:
+        return ver, d0
+    for a in range(1, ver.dim()):
+        if ver.shape[a] != VERIFY_BUCKET:
+            continue
+        rest = ver.shape[:a] + ver.shape[a + 1:]
+        if d0.dim() == ver.dim() and d0.shape[a] == 1 and \
+                d0.shape[:a] + d0.shape[a + 1:] == rest:
+            return ver.narrow(a, t, 1), d0
+        if d0.shape == rest:
+            return ver.narrow(a, t, 1).squeeze(a), d0
+    return None
+
+
+def verify_rows(model, device, seed=13):
+    """Every op's rows of the verify program (``build_llama_verify``)
+    against the paged decode step's at the same positions, on `device`
+    with `model`'s sizes and random weights: [{"op", "index", "out",
+    "row", "max_abs_diff"}] in op order, one a row."""
+    import torch
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch.models.llama import (build_llama_decode,
+                                               build_llama_verify)
+
+    np_slot = SEQ // VERIFY_PAGE
+    num_pages = 2 * np_slot + 1
+    place = tpt.CPUPlace() if device.type == "cpu" else None
+    scope = tpt.Scope()
+    dec_main, dec_start = tpt.Program(), tpt.Program()
+    dec_start._is_startup = True
+    dec_start.random_seed = dec_main.random_seed = 7
+    with tpt.program_guard(dec_main, dec_start):
+        _, _, cache_names = build_llama_decode(
+            2, SEQ, name="llama", paged=True, num_pages=num_pages,
+            page_tokens=VERIFY_PAGE, **model)
+    exe = tpt.Executor(place)
+    exe.run(dec_start, scope=scope)
+    exe.close()
+    ver_main = tpt.Program()
+    with tpt.program_guard(ver_main, tpt.Program()):
+        build_llama_verify(VERIFY_BUCKET, SEQ, num_pages, VERIFY_PAGE,
+                           name="llama", **model)
+    rng = np.random.RandomState(seed)
+    heads = model["num_heads"]
+    n_kv = model.get("num_kv_heads") or heads
+    shape = (num_pages, n_kv, VERIFY_PAGE, model["hidden"] // heads)
+    for n in cache_names:
+        scope.set_var(n, torch.as_tensor(
+            rng.standard_normal(shape).astype("float32"), device=device))
+    ids = rng.randint(1, model["vocab_size"], size=VERIFY_ROWS)
+    table = np.arange(1, np_slot + 1, dtype="int32")
+
+    def run(main, feeds):
+        block = main.global_block()
+        feeds = {n: torch.as_tensor(v, device=device)
+                 for n, v in feeds.items()}
+        done = lower_all(block, state_env(block, scope, feeds, device),
+                         device)
+        for op, outs in done:  # the pool writes land in the scope
+            for n, v in outs.items():
+                if n in cache_names:
+                    scope.set_var(n, v)
+        return done
+
+    chunk = np.zeros((1, VERIFY_BUCKET), "int64")
+    chunk[0, :VERIFY_ROWS] = ids
+    ver = run(ver_main, {"chunk_ids": chunk,
+                         "base": np.asarray([VERIFY_BASE], "int32"),
+                         "block_table": table[None],
+                         "chunk_len": np.asarray([VERIFY_ROWS], "int32")})
+    tables = np.zeros((2, np_slot), "int32")
+    tables[0] = table
+    report = []
+    for t in range(VERIFY_ROWS):
+        dec = run(dec_main, {
+            "tokens": np.asarray([[ids[t]], [0]], "int64"),
+            "positions": np.asarray([VERIFY_BASE + t, 0], "int32"),
+            "block_tables": tables, "live": np.asarray([1, 0], "int32")})
+        by_type = {}
+        for op, outs in dec:
+            by_type.setdefault(op.type, []).append(outs)
+        seen = {}
+        for op, outs in ver:
+            n = seen.get(op.type, 0)
+            seen[op.type] = n + 1
+            pool = by_type.get(op.type, [])
+            if n >= len(pool) or op.type == "kv_pool_write":
+                continue
+            for i, (name, got) in enumerate(outs.items()):
+                want = list(pool[n].values())[i] \
+                    if len(pool[n]) == len(outs) else None
+                if not isinstance(got, torch.Tensor) or want is None or \
+                        not got.is_floating_point() or not got.numel():
+                    continue
+                rows = verify_pair(got, want, t)
+                if rows is None:
+                    continue
+                d = float((rows[0].double() - rows[1].double()).abs().max())
+                report.append({"op": op.type, "index": n, "out": name,
+                               "row": t, "max_abs_diff": d})
+    return report
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=2)
     ap.add_argument("--products", choices=("as_is", "f64"), default="as_is")
-    ap.add_argument("--program", choices=("decode", "prefill"),
+    ap.add_argument("--program", choices=("decode", "prefill", "verify"),
                     default="decode")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--tiny", action="store_true")
@@ -127,6 +252,25 @@ def main():
         torch.matmul = matmul_f64
 
     model = dict(TINY if args.tiny else LLAMA, num_layers=args.layers)
+    if args.program == "verify":
+        report = verify_rows(model, device)
+        first = next((r for r in report if r["max_abs_diff"] > 0), None)
+        worst = {}
+        for r in report:
+            key = (r["op"], r["index"], r["out"])
+            worst[key] = max(worst.get(key, 0.0), r["max_abs_diff"])
+        for (op, i, out), d in worst.items():
+            print(f"  {op:>18} #{i:<3} {out:<40} max|d| over rows {d:.3e}")
+        print(f"first op whose rows differ (verify against decode, "
+              f"{args.products} products): {first}")
+        print(json.dumps({"products": args.products, "program": "verify",
+                          "device": str(device),
+                          "kind": torch.cuda.get_device_name(0)
+                          if device.type == "cuda" else "cpu",
+                          "rows": VERIFY_ROWS, "compared": len(report),
+                          "first": first,
+                          "max_abs_diff": max(worst.values(), default=0.0)}))
+        return 0
     place = tpt.CPUPlace() if device.type == "cpu" else None
     scope = tpt.Scope()
     dec_main, dec_start = tpt.Program(), tpt.Program()

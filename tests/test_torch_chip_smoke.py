@@ -293,3 +293,70 @@ def test_read_counts_carries_the_product_kernel():
     smoke.reset_counts(fa)
     assert gemm.matmul.launches == 0 and gemm.matmul_reference.calls == 0
     assert rms_norm.rms_norm_rows.launches == 0
+
+
+def test_generation_launch_counts_with_verifies():
+    """A verify runs as a chunk does: 6 L + 1 products and 2 L + 1 norms
+    (L = 2: 13 and 5)."""
+    eng = _Engine(True, 0)
+    n = dict(prefills=2, prefill_chunks=0, decode_steps=5, spec_drafts=3)
+    assert smoke.cached_runs(n) == 8
+    assert smoke.gemm_launches(eng, n, xla_prefill=False) == 8 * 13 + 2 * 9
+    assert smoke.rms_norm_launches(eng, n) == 5 * (8 + 2)
+
+
+def test_spec_phase_configuration():
+    """Phase 10c: bucket 8 below the flagship's buckets, so that a verify
+    of spec_tokens + 1 rows runs 8 rows; four prompts repeating one
+    8-token pattern and four of GEN_PROMPTS (10b's ids), one of each kind
+    opted out; every request fits its 64 tokens in the cache."""
+    eng = smoke.GEN_SPEC_ENGINE
+    assert eng["prefill_buckets"] == (8,) + smoke.GEN_ENGINE["prefill_buckets"]
+    assert smoke.GEN_SPEC["spec_tokens"] + 1 <= 8
+    prompts = smoke.spec_prompts()
+    assert [p.size for p in prompts] == list(smoke.GEN_SPEC_REPEATS) + \
+        list(smoke.GEN_PROMPTS[:4])
+    for p in prompts[:4]:
+        assert np.array_equal(p[8:], p[:-8])  # period 8
+    assert all(np.array_equal(a, b) for a, b in zip(
+        prompts[4:], smoke.gen_prompts(smoke.GEN_PROMPTS, 32000, 32)))
+    assert sorted(i // 4 for i in smoke.GEN_SPEC_OPT_OUT) == [0, 1]
+    assert max(p.size for p in prompts) + smoke.GEN_NEW_TOKENS \
+        <= eng["max_seq_len"]
+
+
+def test_streams_equal_is_bit_equality():
+    a = [{"tokens": [1, 2], "logits": [np.zeros(3, "float32"),
+                                       np.ones(3, "float32")]}]
+    b = [{"tokens": [1, 2], "logits": [np.zeros(3, "float32"),
+                                       np.ones(3, "float32")]}]
+    assert smoke.streams_equal(a, b)
+    b[0]["logits"][1] = np.nextafter(np.ones(3, "float32"), 2)
+    assert not smoke.streams_equal(a, b)
+    assert not smoke.streams_equal(a, [{"tokens": [1, 3],
+                                        "logits": a[0]["logits"]}])
+    assert not smoke.streams_equal(a, [])
+
+
+class _Counted:
+    def __init__(self, layers, **counters):
+        self.paged, self.prefill_chunk = True, 0
+        self.model = {"num_layers": layers}
+        self._counters = dict(dict(prefills=0, prefill_chunks=0,
+                                   decode_steps=0, spec_drafts=0),
+                              **counters)
+
+    def stats(self):
+        return {"counters": self._counters}
+
+
+def test_check_engine_counts_sums_a_pair():
+    """A DisaggPair's two engines launched together: the wants add up
+    (the prefill role's whole prefills, the decode role's steps)."""
+    pre, dec = _Counted(2, prefills=3), _Counted(2, decode_steps=7)
+    counts = smoke.Launches((0, 0, 0, 3 * 2, 0, 0))
+    counts.gemm, counts.rms_norm = 3 * 9 + 7 * 13, 5 * (3 + 7)
+    smoke.check_engine_counts((pre, dec), counts, 0, 0, "pair", False)
+    counts.gemm -= 1
+    with pytest.raises(AssertionError):
+        smoke.check_engine_counts((pre, dec), counts, 0, 0, "pair", False)

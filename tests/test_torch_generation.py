@@ -361,12 +361,48 @@ def test_decode_step_failure_fails_the_active_requests():
         eng.close()
 
 
-@pytest.mark.parametrize("kw", [
-    dict(speculate=True), dict(role="prefill"), dict(mesh="mesh")],
-    ids=["speculate", "role", "mesh"])
+@pytest.mark.parametrize("kw", [dict(mesh="mesh")], ids=["mesh"])
 def test_options_not_ported_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _engine(num_slots=1, autostart=False, **kw)
+
+
+@pytest.mark.parametrize("option", ["speculate", "role"])
+def test_spec_and_role_options_generate(gen_engine, option):
+    """Speculative decoding and the prefill / decode roles, which raised
+    before they were ported, now generate gen_engine's streams, each
+    step's logits bit-equal to the uncached forward's
+    (tests/test_torch_spec_decode.py and tests/test_torch_disagg.py hold
+    the rest)."""
+    from paddle_tpu_torch.serving import DisaggPair, HostBytesTransport
+
+    paged = dict(num_slots=2, page_tokens=16, paged=True, prefill_chunk=0,
+                 prefix_reuse=False)
+    if option == "speculate":
+        eng = _engine(scope=gen_engine.scope, speculate=True, **paged)
+    else:
+        eng = DisaggPair(
+            _engine(scope=tpt.Scope(parent=gen_engine.scope),
+                    role="prefill", **paged),
+            _engine(scope=tpt.Scope(parent=gen_engine.scope),
+                    role="decode", **paged),
+            transport=HostBytesTransport())
+    rng = np.random.RandomState(37)
+    pattern = rng.randint(1, MODEL["vocab_size"], size=3).tolist()
+    prompts = [(pattern * 7)[:20], _prompts((5,), seed=31)[0]]
+    try:
+        got = [f.result(120) for f in [eng.submit(p, 6) for p in prompts]]
+        stats = eng.stats()
+    finally:
+        eng.close()
+    if option == "speculate":
+        assert stats["speculate"]["drafts"] > 0
+    else:
+        assert stats["handoffs"] == 2
+    for prompt, res in zip(prompts, got):
+        assert res["finish"] == "length"
+        assert res["tokens"] == gen_engine.generate(prompt, 6)["tokens"]
+        _assert_bitexact(gen_engine, prompt, res)
 
 
 @pytest.mark.parametrize("kw", [
@@ -394,7 +430,8 @@ def test_paged_options_generate(gen_engine, kw):
 
 
 def test_adopt_and_swap_weights_raise(gen_engine):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # adopt is ported; a dense engine has no pages to adopt into
+    with pytest.raises(ValueError, match="requires the paged KV cache"):
         gen_engine.adopt(None)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         gen_engine.swap_weights({})
