@@ -277,6 +277,45 @@ Phases (any failure raises and exits non-zero; nothing is caught):
       transport, segment bytes, tokens/s, TTFT p50 (submit to the first
       token, which the decode engine replays at adoption) beside the
       colocated run's.
+11. the serving stack (the phase's seconds and the run's are printed):
+   a. BERT-base at its published widths (seq 128, fp32), saved with
+      row-shaped fetches (models.build_bert_serving: the last encoder
+      layer's output and the MLM head's argmax), served by ServingEngine
+      (max batch 8, buckets 1 / 2 / 4 / 8, max delay 5 ms; warmup
+      captures every bucket on every worker): 64 requests of 1-3 rows from
+      a seed, 16 client threads in a closed loop, at 1 and at 2 workers.
+      Gates (tolerance 0): every answer equals the same rows run alone
+      through Predictor.run; kernel #1 12 times and the product kernel
+      once a mul a dispatched batch, no plain call, nothing realigned;
+      serve_batch:fail's batch bisected with every rider bit-equal; under
+      the poison sentinel only the poisoned request fails and its
+      batchmates are bit-equal; a full queue sheds queue_full; a swap to
+      a second seed's weights (an in-memory dict) answers as a fresh
+      Predictor on them, with no capture and every data_ptr kept, and
+      the revert brings the first answers back.  Printed: requests/s and
+      rows/s at 1 and 2 workers, latency p50 / p99, batch fill, bucket
+      hit rate, the device idle share of one profiled window, swap_ms.
+   b. a ServingServer on 127.0.0.1 over a's engine with a paged,
+      speculating Llama-2-7B engine attached (32 layers, fp32, 4 slots x
+      1024, phase 10's weights).  Gates (tolerance 0): /predict at batch
+      1 equals the in-process answer; /healthz, /statusz (cost manifests,
+      the H100's peaks), /tracez and /metrics (Prometheus text lines)
+      answer; /generate for the 8 GEN_PROMPTS, plain and streamed, gives
+      phase 10b's tokens, and a repetitive prompt with "speculate": true
+      (drafts fire) gives the engine's plain stream for it;
+      /adopt of a prefill-role server's segments gives them too; the
+      launches of check_engine_counts over both engines; /swap "target":
+      "generate" to a second set of weights (a checkpoint written to
+      disk, 25.10 GiB): every live weight then equals the second set, and
+      a prompt's stream equals a fresh engine's over the swapped storage
+      and differs from the first weights'; the revert, the streams after
+      it bit-equal, no weight moved, nothing recaptured; a drifted /swap
+      gets 409;
+      close(drain=True) answers every queued request and leaves no
+      worker or scheduler thread.  Printed: TTFT and inter-token p50 /
+      p99 as the client reads the stream beside the server's, the
+      /adopt handoff, the generation swap_ms.  The "serving:" JSON line
+      holds a's and b's numbers.
 
 Every profiled replay (phases 4, 5, 6 and 9) also holds the profiler's
 launches of the forward, dK/dV and dQ kernels against what the
@@ -302,7 +341,8 @@ llama_parity (phase 8, card steps), llama_flagship (phase 9),
 generation_parity (phase 10a, card requests), generation (phase 10b's
 dense traffic), generation_paged and generation_shared_prefix (its two
 paged runs), generation_spec (10c's speculating run) and
-generation_disagg (10d's pair, both transports). Kernel #4's entry also carries "f32_prefill": the fp32
+generation_disagg (10d's pair, both transports), serving_engine (11a's
+2-worker traffic) and serving_http (11b's generation traffic). Kernel #4's entry also carries "f32_prefill": the fp32
 forward at the largest prefill bucket, [1, 32, 512, 128] causal. The
 four backward entries also carry "f32": their fp32 kernel's device_ms,
 ms, bound_ms and SDPA's fp32 backward's library_device_ms at the same
@@ -440,6 +480,29 @@ GEN_SPEC = dict(spec_tokens=4, spec_ngram=3)
 GEN_SPEC_PATTERN = 8
 GEN_SPEC_REPEATS = (64, 100, 200, 300)
 GEN_SPEC_OPT_OUT = (1, 5)
+# phase 11: the serving stack.  11a: BERT-base at its published widths,
+# seq 128, fp32, saved with row-shaped fetches; ServingEngine at max batch
+# 8 (buckets 1 / 2 / 4 / 8), max delay 5 ms; 64 requests of 1-3 rows from
+# a seed, 16 client threads in a closed loop, at 1 and at 2 workers; the
+# weights of the first seed, then the second's by hot-swap
+SERVE_BERT = dict(BERT_BASE, seq_len=128)
+SERVE_ENGINE = dict(max_batch=8, max_delay_ms=5.0, queue_cap=256,
+                    deadline_ms=600000.0)
+SERVE_REQUESTS = 64
+SERVE_ROWS = (1, 3)
+SERVE_CLIENTS = 16
+SERVE_SEEDS = (41, 42)
+# the poison sentinel: the last token id, which no other request holds
+SERVE_POISON_ID = 30521
+SERVE_SWAP_REQUESTS = 16
+# the closed loop runs the 64 requests this many times a worker count
+# (every round gated; the median round's rates reported)
+SERVE_ROUNDS = 5
+SERVE_PROFILE_REQUESTS = 32
+# 11b: the GEN_PROMPTS handed from a prefill-role server to /adopt
+SERVE_ADOPT = (0, 3, 1)
+# phase 11's numbers, for the "serving:" line
+SERVING = {}
 # the unpacked kernels' grads in fp32 and bf16 (as the packed ones')
 FP32_GRAD_ATOL, BF16_GRAD_ATOL = 1e-4, 5e-2
 # the bf16 tensor-core kernels, each built at D 64 and 128
@@ -2873,9 +2936,10 @@ def generation_flagship(tpt, fa):
     captured once; the caches keep their storage; every request ends
     'length' with its 64 tokens; a profiled decode replay and prefill
     replay launch no kernel from the host and copy no cache.  Then the
-    two paged runs.  Returns the launches of the dense run's traffic and
+    two paged runs.  Returns the launches of the dense run's traffic,
     {path: launches} of the paged runs' (each as read_counts gives
-    them)."""
+    them), the weights' scope and the dense run's token streams (phase
+    11 serves them)."""
     import torch
     from paddle_tpu_torch.serving import GenerationEngine
 
@@ -2981,7 +3045,8 @@ def generation_flagship(tpt, fa):
         "generation_shared_prefix": paged_shared_prefix(tpt, fa, scope,
                                                         dense_itl),
         "generation_spec": generation_spec(fa, scope),
-        "generation_disagg": generation_disagg(tpt, fa, scope)}
+        "generation_disagg": generation_disagg(tpt, fa, scope)}, \
+        scope, dense_tokens
 
 
 def traffic_numbers(results, wall, times):
@@ -3364,6 +3429,669 @@ def generation_disagg(tpt, fa, scope):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the serving stack at full width
+# ---------------------------------------------------------------------------
+
+def closed_loop(eng, feeds, clients=SERVE_CLIENTS):
+    """Each of `clients` threads submits the next feed once its last answer
+    is back (a closed loop): (the outputs by request, latencies in ms,
+    wall seconds).  Any failure raises."""
+    import threading
+
+    outs, lat = [None] * len(feeds), [None] * len(feeds)
+    nxt, lock, errors = [0], threading.Lock(), []
+
+    def client():
+        while True:
+            with lock:
+                i = nxt[0]
+                nxt[0] += 1
+            if i >= len(feeds):
+                return
+            t = time.perf_counter()
+            try:
+                outs[i] = eng.submit(feeds[i]).result(600)
+            except Exception as e:  # noqa: BLE001 — raised below
+                errors.append((i, e))
+                return
+            lat[i] = (time.perf_counter() - t) * 1e3
+
+    threads = [threading.Thread(target=client) for _ in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"closed loop: {errors[:3]}")
+    return outs, np.asarray(lat), wall
+
+
+def serving_feeds(n, seed):
+    """`n` BERT serving requests of SERVE_ROWS rows each (from a seed),
+    token ids below SERVE_POISON_ID."""
+    rng = np.random.RandomState(seed)
+    S = SERVE_BERT["seq_len"]
+    feeds = []
+    for _ in range(n):
+        rows = int(rng.randint(SERVE_ROWS[0], SERVE_ROWS[1] + 1))
+        mask = np.ones((rows, S), "float32")
+        for b in range(rows):
+            mask[b, S - int(rng.randint(0, S // 2)):] = 0.0
+        feeds.append({
+            "input_ids": rng.randint(0, SERVE_POISON_ID, (rows, S)
+                                     ).astype("int64"),
+            "token_type_ids": (rng.rand(rows, S) > 0.5).astype("int64"),
+            "attn_mask": mask})
+    return feeds
+
+
+def same_outputs(got, want):
+    return len(got) == len(want) and all(
+        g.dtype == w.dtype and np.array_equal(g, w)
+        for g, w in zip(got, want))
+
+
+def device_busy_union(prof):
+    """Device time the profile's kernels and copies covered, as a union of
+    their intervals (two workers' streams overlap), in us."""
+    import torch
+
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy
+
+
+def pool_captures(eng):
+    return sum(e.captures for p in eng._pool for e, _ in p._cache.values())
+
+
+def engine_traffic(eng, feeds, want, fa, n_attn, n_mul, what):
+    """The closed loop of `feeds` through `eng`, SERVE_ROUNDS times, its
+    launches read from 0: every answer equal to `want` (tolerance 0),
+    kernel #1 n_attn times and the product kernel n_mul times a
+    dispatched batch, no plain call, nothing realigned.  Returns the
+    traffic's numbers (the median round's rates, every round's) and
+    launches."""
+    before = dict(eng.stats()["counters"])
+    reset_counts(fa)
+    rounds, lats, bad = [], [], []
+    for _ in range(SERVE_ROUNDS):
+        outs, lat, wall = closed_loop(eng, feeds)
+        rounds.append(wall)
+        lats.append(lat)
+        bad += [i for i, (o, w) in enumerate(zip(outs, want))
+                if not same_outputs(o, w)]
+    counts, plain, realigned = read_counts(fa)
+    stats = eng.stats()
+    batches = stats["counters"]["batches"] - before["batches"]
+    rows = sum(f["input_ids"].shape[0] for f in feeds)
+    lat = np.concatenate(lats)
+    wall = float(np.median(rounds))
+    fill = stats["batch_fill_pct"]
+    out = dict(requests=len(feeds), rows=rows, rounds=SERVE_ROUNDS,
+               wall_s=wall, round_walls_s=rounds,
+               requests_per_s=len(feeds) / wall, rows_per_s=rows / wall,
+               latency_ms_p50=float(np.percentile(lat, 50)),
+               latency_ms_p99=float(np.percentile(lat, 99)),
+               batches=batches, batch_fill_pct_mean=fill.get("mean"),
+               bucket_hit_rate=stats["bucket_hit_rate"])
+    log(f"  11a {what}: " + json.dumps(out))
+    want_counts = (n_attn * batches, 0, 0, 0, 0, 0)
+    if bad or counts != want_counts or counts.gemm != n_mul * batches \
+            or plain or realigned:
+        raise AssertionError(
+            f"11a {what}: requests not bit-equal {bad[:5]}; launches "
+            f"{counts} (want {want_counts}), product kernel {counts.gemm} "
+            f"(want {n_mul * batches}), plain {plain}, realigned "
+            f"{realigned}")
+    return out, counts
+
+
+def serving_engine_flagship(tpt, fa, workdir):
+    """Phase 11a: BERT-base at its published widths (seq 128, fp32) saved
+    with row-shaped fetches (models.build_bert_serving) and served by
+    ServingEngine.  Gates (tolerance 0): every response of SERVE_REQUESTS
+    requests of 1-3 rows, sent by SERVE_CLIENTS client threads in a closed
+    loop at 1 and at 2 workers (every bucket captured on every worker),
+    equals the same rows run alone through Predictor.run; kernel #1 12
+    times and the product kernel once a mul a dispatched batch, no plain
+    call, nothing realigned; a batch failed by serve_batch:fail is
+    bisected and every rider served bit-equal; under the poison sentinel
+    only the poisoned request fails and its batchmates are bit-equal; a
+    full queue sheds queue_full; a swap to a second seed's weights (an
+    in-memory dict) answers as a fresh Predictor on them does, with no
+    capture and every weight's data_ptr kept, and the revert brings the
+    first answers back.  Returns (the 2-worker engine, left running for
+    11b, its base predictor, the feeds, their answers, the 2-worker
+    traffic's launches)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch import fault
+    from paddle_tpu_torch.inference import Predictor
+    from paddle_tpu_torch.models import build_bert_serving
+    from paddle_tpu_torch.ops import registry
+    from paddle_tpu_torch.serving import (OverloadedError, RequestFailed,
+                                          ServingEngine)
+
+    t0 = time.perf_counter()
+    op_seed = registry._OP_SEED[0]
+    main, startup = tpt.Program(), tpt.Program()
+    startup._is_startup = True
+    with tpt.program_guard(main, startup):
+        feed_names, outs = build_bert_serving(**SERVE_BERT)
+    registry.reset_op_seed(op_seed)
+    ops = [op.type for op in main.global_block().ops]
+    n_attn, n_mul = ops.count("flash_attention_qkv"), ops.count("mul")
+    exe = tpt.Executor()
+    weights = {}
+    for seed in (SERVE_SEEDS[1], SERVE_SEEDS[0]):
+        scope = tpt.Scope()
+        startup.random_seed = seed
+        with tpt.scope_guard(scope):
+            exe.run(startup)
+            if seed == SERVE_SEEDS[0]:
+                tpt.io.save_inference_model(
+                    workdir, feed_names,
+                    [outs["encoder_out"], outs["mlm_argmax"]], exe,
+                    main_program=main)
+        weights[seed] = {n: scope.find_var(n)
+                         for n in scope.local_var_names()}
+    exe.close()
+    pred = Predictor(workdir)
+    second = Predictor(workdir)
+    for n, t in weights[SERVE_SEEDS[1]].items():
+        second.scope.set_var(n, t)
+    n_params = sum(t.numel() for t in weights[SERVE_SEEDS[0]].values())
+    feeds = serving_feeds(SERVE_REQUESTS, seed=1100)
+    want = [pred.run(f) for f in feeds]
+    want_second = [second.run(f) for f in feeds[:SERVE_SWAP_REQUESTS]]
+    second.close()
+    torch.cuda.synchronize()
+    log(f"  BERT-base serving model: {n_params} parameters, {n_attn} "
+        f"flash_attention_qkv and {n_mul} mul ops, fetches encoder_out "
+        f"[B, 128, 768] and mlm_argmax [B, 128]; {len(feeds)} requests "
+        f"answered alone ({time.perf_counter() - t0:.1f} s)")
+    per_row = {n: (SERVE_BERT["seq_len"],) for n in feed_names}
+    numbers = {}
+    for workers in (1, 2):
+        t0 = time.perf_counter()
+        eng = ServingEngine(pred, workers=workers,
+                            warmup_shapes=per_row, **SERVE_ENGINE)
+        torch.cuda.synchronize()
+        caps = pool_captures(eng)
+        pools = [m for p in eng._pool
+                 for m in p.cache_info()["manifests"].values()]
+        log(f"  {workers} worker(s): warmup captured {caps} graphs in "
+            f"{time.perf_counter() - t0:.1f} s, pools "
+            f"{sum(pools) / 2 ** 20:.1f} MiB "
+            f"({', '.join(f'{m / 2 ** 20:.1f}' for m in pools)} MiB)")
+        if caps != workers * len(eng.buckets) or None in pools:
+            raise AssertionError(f"11a: {caps} captures for {workers} "
+                                 f"workers, pools {pools}")
+        numbers[f"workers_{workers}"], counts = engine_traffic(
+            eng, feeds, want, fa, n_attn, n_mul, f"{workers} worker(s)")
+        numbers[f"workers_{workers}"]["pool_mib"] = sum(pools) / 2 ** 20
+        if workers == 1:
+            eng.close()
+    numbers["speedup_2_over_1"] = (
+        numbers["workers_2"]["requests_per_s"]
+        / numbers["workers_1"]["requests_per_s"])
+
+    # one profiled window of the 2-worker engine's traffic
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        closed_loop(eng, feeds[:SERVE_PROFILE_REQUESTS])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    busy = device_busy_union(prof)
+    numbers["profile"] = dict(requests=SERVE_PROFILE_REQUESTS,
+                              wall_ms=wall_us / 1e3, busy_ms=busy / 1e3,
+                              idle=None if busy <= 0 else 1 - busy / wall_us)
+    log(f"  profiled window ({SERVE_PROFILE_REQUESTS} requests, 2 "
+        f"workers): {json.dumps(numbers['profile'])}")
+
+    # serve_batch:fail: the first batch (requests queued before a one-
+    # worker engine starts, so it has riders) fails, is bisected, and
+    # every rider is served bit-equal
+    engf = ServingEngine(pred, workers=1, warmup_shapes=per_row,
+                         autostart=False, **SERVE_ENGINE)
+    try:
+        futs = [engf.submit(f) for f in feeds[:6]]
+        fault.configure("serve_batch:fail@1")
+        engf.start()
+        same = all(same_outputs(f.result(600), w)
+                   for f, w in zip(futs, want))
+        n1 = engf.stats()["counters"]
+    finally:
+        fault.reset()
+        engf.close()
+    numbers["serve_batch_fail"] = dict(
+        bit_equal=same, bisections=n1["bisections"],
+        batch_failures=n1["batch_failures"], batches=n1["batches"])
+    log(f"  serve_batch:fail@1: {json.dumps(numbers['serve_batch_fail'])}")
+    if not (same and n1["batch_failures"] == 1 and n1["bisections"] == 1):
+        raise AssertionError(f"11a serve_batch:fail: "
+                             f"{numbers['serve_batch_fail']}")
+
+    # the poison sentinel: only the poisoned request fails; a full queue
+    # sheds (a one-worker engine whose queue fills before it starts)
+    tpt.set_flags({"FLAGS_serving_poison_value": str(SERVE_POISON_ID)})
+    engp = ServingEngine(pred, workers=1, warmup_shapes=per_row,
+                         autostart=False,
+                         **dict(SERVE_ENGINE, queue_cap=6))
+    try:
+        bad = {n: a.copy() for n, a in feeds[5].items()}
+        bad["input_ids"][0, 7] = SERVE_POISON_ID
+        group = [feeds[0], feeds[1], feeds[2], bad, feeds[3], feeds[4]]
+        futs = [engp.submit(f) for f in group]
+        try:
+            engp.submit(feeds[6])
+            shed = None
+        except OverloadedError as e:
+            shed = e.reason
+        engp.start()
+        poisoned, mates = None, []
+        for i, f in enumerate(futs):
+            try:
+                out = f.result(600)
+                mates.append(same_outputs(out, want[[0, 1, 2, None, 3,
+                                                     4][i]]))
+            except RequestFailed as e:
+                poisoned = (i, str(e)[:60])
+        n = engp.stats()["counters"]
+    finally:
+        tpt.set_flags({"FLAGS_serving_poison_value": ""})
+        engp.close()
+    numbers["poison"] = dict(failed=poisoned, batchmates_bit_equal=all(mates),
+                             batchmates=len(mates), queue_full_shed=shed,
+                             bisections=n["bisections"],
+                             poison_rows=n["poison_rows"])
+    log(f"  poison and queue_full: {json.dumps(numbers['poison'])}")
+    if not (poisoned is not None and poisoned[0] == 3 and all(mates)
+            and len(mates) == 5 and shed == "queue_full"
+            and n["bisections"] >= 1):
+        raise AssertionError(f"11a poison / shed: {numbers['poison']}")
+
+    # hot-swap to the second seed's weights (an in-memory dict of tensors
+    # on the card, exchanged in place: they come back holding the first)
+    names = pred._weight_names()
+    ptrs = {n: eng._pool[0].scope.find_var(n).data_ptr() for n in names}
+    caps = pool_captures(eng)
+    res = eng.swap_weights({n: weights[SERVE_SEEDS[1]][n] for n in names})
+    outs_s, _, _ = closed_loop(eng, feeds[:SERVE_SWAP_REQUESTS])
+    fresh = all(same_outputs(o, w) for o, w in zip(outs_s, want_second))
+    res2 = eng.revert_weights()
+    outs_r, _, _ = closed_loop(eng, feeds[:SERVE_SWAP_REQUESTS])
+    back = all(same_outputs(o, w) for o, w in zip(outs_r, want))
+    moved = [n for n in names
+             if eng._pool[0].scope.find_var(n).data_ptr() != ptrs[n]]
+    numbers["swap"] = dict(swap_ms=res["swap_ms"], revert_ms=res2["swap_ms"],
+                           weights_version=res2["weights_version"],
+                           equal_to_fresh_predictor=fresh,
+                           revert_equal=back,
+                           captures_added=pool_captures(eng) - caps,
+                           data_ptr_moved=len(moved))
+    log(f"  swap: {json.dumps(numbers['swap'])}")
+    if not (fresh and back and not moved and pool_captures(eng) == caps):
+        raise AssertionError(f"11a swap: {numbers['swap']}")
+    del weights
+    SERVING["engine"] = numbers
+    return eng, pred, feeds, want, counts
+
+
+def post(url, payload, headers=None, timeout=600):
+    """(status, body bytes, headers) of a POST; a JSON payload unless
+    bytes; an HTTP error status is returned, not raised."""
+    import urllib.error
+    import urllib.request
+
+    data = payload if isinstance(payload, bytes) else \
+        json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, headers=dict(
+        {"Content-Type": "application/json"}, **(headers or {})))
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read(), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), dict(e.headers)
+
+
+def get(url, timeout=600):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.status, r.read()
+
+
+def stream_tokens(url, payload):
+    """POST a streamed /generate (or /adopt): (tokens, the final record,
+    the client's clock at the request and at each token line)."""
+    import urllib.request
+
+    req = urllib.request.Request(url, data=payload if isinstance(
+        payload, bytes) else json.dumps(payload).encode())
+    t0 = time.monotonic()
+    toks, times, final = [], [], None
+    with urllib.request.urlopen(req, timeout=600) as r:
+        for line in r:
+            rec = json.loads(line)
+            if rec.get("done"):
+                final = rec
+                break
+            times.append(time.monotonic())
+            toks.append(rec["token"])
+    return toks, final, t0, times
+
+
+PROM_LINE = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? '
+                       r'(-?[0-9.eE+-]+|[+-]?Inf|NaN)$')
+
+
+def concurrently(fn, args):
+    """fn(*a) for each a in `args`, each on a thread of its own: the
+    results in order."""
+    import threading
+
+    out, errors = [None] * len(args), []
+
+    def run(i, a):
+        try:
+            out[i] = fn(*a)
+        except Exception as e:  # noqa: BLE001 — raised below
+            errors.append((i, e))
+
+    threads = [threading.Thread(target=run, args=(i, a))
+               for i, a in enumerate(args)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"concurrent requests failed: {errors[:2]}")
+    return out
+
+
+def serving_http_flagship(tpt, fa, eng, pred, feeds, want, scope,
+                          dense_tokens):
+    """Phase 11b: a ServingServer on 127.0.0.1 over 11a's engine, with a
+    paged, speculating Llama-2-7B engine attached (32 layers, fp32, 4
+    slots x 1024, on `scope`'s weights).  Gates (tolerance 0): /predict at
+    batch 1 equals the in-process answer; /healthz, /statusz (cost
+    manifests, the H100's peaks), /tracez and /metrics (Prometheus text)
+    answer; /generate for the GEN_PROMPTS, plain and streamed, gives the
+    in-process engine's tokens (phase 10b's `dense_tokens`), and so does
+    one prompt with "speculate": true; /adopt of a prefill-role server's
+    segments gives the colocated tokens; the launches of
+    check_engine_counts over both engines; /swap "target": "generate" to a
+    second set of weights written as a checkpoint: every live weight then
+    equals the second set, and a prompt's stream differs from the first
+    weights' and equals a fresh engine's over the swapped storage; then
+    the revert, with the streams after it bit-equal and no weight moved
+    or recaptured; a
+    drifted /swap gets 409; close(drain=True) answers every queued
+    request and leaves no worker or scheduler thread.  Returns the
+    generation traffic's launches."""
+    import pickle
+    import threading
+
+    import torch
+    from paddle_tpu_torch.serving import ServingEngine, serve
+
+    numbers = {}
+    prompts = gen_prompts(GEN_PROMPTS, GEN["vocab_size"], 32)
+    t0 = time.perf_counter()
+    gen = paged_engine(tpt.Scope(parent=scope), engine=dict(
+        GEN_SPEC_ENGINE, keep_logits=False), prefix_reuse=False,
+        prefill_chunk=0, speculate=True, **GEN_SPEC)
+    gen.start()
+    eng.attach_generator(gen)
+    srv = serve(eng)
+    url = srv.url
+    log(f"  server at {url}: 11a's engine with a paged, speculating "
+        f"Llama-2-7B engine attached ({time.perf_counter() - t0:.1f} s)")
+
+    one = next(i for i, f in enumerate(feeds)
+               if f["input_ids"].shape[0] == 1)
+    status, body, hdr = post(url + "/predict", {"inputs": {
+        n: a.tolist() for n, a in feeds[one].items()}})
+    doc = json.loads(body)
+    got = [np.asarray(o, dtype=w.dtype).reshape(w.shape)
+           for o, w in zip(doc["outputs"], want[one])]
+    ok_predict = status == 200 and same_outputs(got, want[one])
+    checks = {"predict_bit_equal": ok_predict}
+    for path in ("/healthz", "/statusz", "/tracez", "/metrics"):
+        status, body = get(url + path)
+        checks[path] = status
+        if path == "/statusz":
+            st = json.loads(body)
+            peaks = st["device"]["peaks"]
+            costs = [c for ex in st["engine"]["executables"]
+                     for c in (ex.get("costs") or {}).values()]
+            checks["statusz_peaks"] = peaks
+            checks["statusz_costs"] = costs[:1]
+            ok_statusz = (peaks["peak_flops"] == 989e12
+                          and peaks["peak_bw"] == 3.35e12
+                          and costs and all(c["flops"] > 0 for c in costs))
+        if path == "/metrics":
+            text = body.decode()
+            bad_lines = [x for x in text.splitlines()
+                         if x and not x.startswith("#")
+                         and not PROM_LINE.match(x)]
+            checks["metrics_lines"] = len(text.splitlines())
+            checks["metrics_bad_lines"] = bad_lines[:3]
+    log(f"  /predict and the introspection plane: {json.dumps(checks)}")
+    if not (ok_predict and ok_statusz and not checks["metrics_bad_lines"]
+            and all(checks[p] == 200 for p in ("/healthz", "/statusz",
+                                                "/tracez", "/metrics"))):
+        raise AssertionError(f"11b: {checks}")
+
+    # the prefill-role server /adopt will take segments from, warmed
+    # before the launches are read from 0 (warmup runs each program twice)
+    pre = paged_engine(tpt.Scope(parent=scope), engine=GEN_ENGINE,
+                       prefix_reuse=False, prefill_chunk=0, role="prefill")
+    pre.start()
+    pre_eng = ServingEngine(pred, workers=1, **SERVE_ENGINE)
+    pre_eng.attach_generator(pre)
+    pre_srv = serve(pre_eng)
+
+    # /generate, plain then streamed, all eight at once (4 slots)
+    reset_counts(fa)
+    n_new = GEN_NEW_TOKENS
+
+    def plain(p):
+        status, body, _ = post(url + "/generate", {
+            "prompt": p.tolist(), "max_new_tokens": n_new,
+            "speculate": False})
+        return status, json.loads(body)
+
+    t = time.perf_counter()
+    plain_out = concurrently(plain, [(p,) for p in prompts])
+    plain_wall = time.perf_counter() - t
+    t = time.perf_counter()
+    streamed = concurrently(stream_tokens, [
+        (url + "/generate", {"prompt": p.tolist(), "max_new_tokens": n_new,
+                             "stream": True, "speculate": False})
+        for p in prompts])
+    stream_wall = time.perf_counter() - t
+    ok_plain = all(s == 200 and d["tokens"] == w
+                   for (s, d), w in zip(plain_out, dense_tokens))
+    ok_stream = all(toks == w and fin["tokens"] == w
+                    for (toks, fin, _, _), w in zip(streamed, dense_tokens))
+    ttft = np.asarray([(ts[0] - t0s) * 1e3
+                       for _, _, t0s, ts in streamed])
+    gaps = np.concatenate([np.diff(ts) for _, _, _, ts in streamed]) * 1e3
+    server_ttft = np.asarray([fin["ttft_ms"] for _, fin, _, _ in streamed])
+    server_itl = np.concatenate([
+        np.diff(fin["timeline"]["token_ms"]) for _, fin, _, _ in streamed])
+    # one repetitive prompt (the drafter fires on it) with "speculate":
+    # true against the same engine's plain stream for it, in process
+    rep = spec_prompts()[0]
+    drafts = gen.stats()["counters"]["spec_drafts"]
+    plain_rep = gen.submit(rep, n_new, speculate=False).result(600)["tokens"]
+    s_status, s_body, _ = post(url + "/generate", {
+        "prompt": rep.tolist(), "max_new_tokens": n_new, "speculate": True})
+    ok_spec = s_status == 200 and json.loads(s_body)["tokens"] == plain_rep
+    drafts = gen.stats()["counters"]["spec_drafts"] - drafts
+    numbers["generate"] = dict(
+        plain_bit_equal=ok_plain, stream_bit_equal=ok_stream,
+        speculate_bit_equal=ok_spec, plain_wall_s=plain_wall,
+        stream_wall_s=stream_wall,
+        tokens_per_s_stream=len(prompts) * n_new / stream_wall,
+        client_ttft_ms_p50=float(np.median(ttft)),
+        client_ttft_ms_p99=float(np.percentile(ttft, 99)),
+        client_inter_token_ms_p50=float(np.median(gaps)),
+        client_inter_token_ms_p99=float(np.percentile(gaps, 99)),
+        server_ttft_ms_p50=float(np.median(server_ttft)),
+        server_ttft_ms_p99=float(np.percentile(server_ttft, 99)),
+        server_inter_token_ms_p50=float(np.median(server_itl)),
+        server_inter_token_ms_p99=float(np.percentile(server_itl, 99)),
+        speculate_drafts=drafts)
+    log(f"  /generate: {json.dumps(numbers['generate'])}")
+    if not (ok_plain and ok_stream and ok_spec and drafts > 0):
+        raise AssertionError(f"11b /generate: {numbers['generate']}")
+
+    # /adopt: the prefill-role server's segments into the attached engine
+    adopt = []
+    for i in SERVE_ADOPT:
+        t = time.perf_counter()
+        status, seg, hdr = post(pre_srv.url + "/generate", {
+            "prompt": prompts[i].tolist(), "max_new_tokens": n_new})
+        t_pre = time.perf_counter() - t
+        t = time.perf_counter()
+        toks, fin, t0s, ts = stream_tokens(
+            url + f"/adopt?max_new_tokens={n_new}&stream=1", seg)
+        adopt.append(dict(prompt=len(prompts[i]), segment_bytes=len(seg),
+                          prefill_hop_ms=t_pre * 1e3,
+                          adopt_first_token_ms=(ts[0] - t0s) * 1e3,
+                          adopt_total_ms=(time.perf_counter() - t) * 1e3,
+                          bit_equal=toks == dense_tokens[i]
+                          and status == 200))
+    counts, plain_calls, realigned = read_counts(fa)
+    pre_srv.close(timeout=600)
+    release(pre)
+    numbers["adopt"] = adopt
+    log(f"  /adopt: {json.dumps(adopt)}")
+    if not all(a["bit_equal"] for a in adopt):
+        raise AssertionError(f"11b /adopt: {adopt}")
+    check_engine_counts((gen, pre), counts, plain_calls, realigned,
+                        "11b HTTP generation (/generate and /adopt)", False)
+    if not captured_once(gen):
+        raise AssertionError(f"11b: captures {gen.introspect()['captures']}")
+
+    # /swap at full width: a second set of weights written as a checkpoint
+    # (pickled numpy, as io.save writes them), swapped in over HTTP, then
+    # reverted; a drifted checkpoint first
+    names = gen._weight_names()
+    ptrs = {n: gen.scope.find_var(n).data_ptr() for n in names}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_swap_") as d:
+        drift = os.path.join(d, "drift")
+        os.makedirs(drift)
+        with open(os.path.join(drift, "__params__"), "wb") as f:
+            pickle.dump({names[0]: np.zeros((3, 3), "float32")}, f)
+        status, body, _ = post(url + "/swap", {"dir": drift,
+                                               "target": "generate"})
+        drift_code = status
+        t = time.perf_counter()
+        g = torch.Generator(device=gen.device).manual_seed(SERVE_SEEDS[1])
+        second = {}
+        for n in names:
+            live = gen.scope.find_var(n)
+            second[n] = (torch.randn(live.shape, generator=g,
+                                     device=live.device) * 0.02).cpu(
+                ).numpy()
+        good = os.path.join(d, "good")
+        os.makedirs(good)
+        with open(os.path.join(good, "__params__"), "wb") as f:
+            pickle.dump(second, f, protocol=5)
+        del second
+        write_s = time.perf_counter() - t
+        t = time.perf_counter()
+        status, body, _ = post(url + "/swap", {"dir": good,
+                                               "target": "generate"})
+        swap_wall = time.perf_counter() - t
+        swap = json.loads(body)
+    # the swap took effect: the live storage holds the second set bit
+    # for bit (drawn again from its seed), and the swapped engine's
+    # stream equals a fresh engine's over that storage
+    g = torch.Generator(device=gen.device).manual_seed(SERVE_SEEDS[1])
+    stale = []
+    for n in names:
+        live = gen.scope.find_var(n)
+        if not torch.equal(live, torch.randn(live.shape, generator=g,
+                                             device=live.device) * 0.02):
+            stale.append(n)
+    s_status, s_body, _ = post(url + "/generate", {
+        "prompt": prompts[0].tolist(), "max_new_tokens": 16,
+        "speculate": False})
+    swapped_tokens = json.loads(s_body)["tokens"] if s_status == 200 \
+        else None
+    fresh = paged_engine(tpt.Scope(parent=scope), engine=GEN_ENGINE,
+                         prefix_reuse=False, prefill_chunk=0)
+    fresh.start()
+    fresh_tokens = fresh.generate(prompts[0], 16, timeout=600)["tokens"]
+    release(fresh)
+    t = time.perf_counter()
+    r_status, r_body, _ = post(url + "/swap", {"revert": True,
+                                               "target": "generate"})
+    revert_wall = time.perf_counter() - t
+    revert = json.loads(r_body)
+    gen._prev_weights = {}  # the host copy of the second set goes
+    after = concurrently(stream_tokens, [
+        (url + "/generate", {"prompt": p.tolist(), "max_new_tokens": n_new,
+                             "stream": True, "speculate": False})
+        for p in prompts])
+    ok_after = all(toks == w for (toks, _, _, _), w
+                   in zip(after, dense_tokens))
+    moved = [n for n in names if gen.scope.find_var(n).data_ptr() != ptrs[n]]
+    numbers["swap"] = dict(
+        drift_status=drift_code, swap_status=status,
+        swap_ms=swap.get("swap_ms"), swap_wall_ms=swap_wall * 1e3,
+        checkpoint_write_s=write_s, revert_status=r_status,
+        revert_ms=revert.get("swap_ms"), revert_wall_ms=revert_wall * 1e3,
+        weights_version=revert.get("weights_version"),
+        weights_not_swapped=len(stale),
+        swapped_tokens_equal_fresh_engine=swapped_tokens == fresh_tokens,
+        swapped_tokens_differ=swapped_tokens != dense_tokens[0][:16],
+        streams_after_revert_bit_equal=ok_after,
+        data_ptr_moved=len(moved), captured_once=captured_once(gen))
+    log(f"  /swap at full width: {json.dumps(numbers['swap'])}")
+    if not (drift_code == 409 and status == 200 and r_status == 200
+            and not stale and swapped_tokens == fresh_tokens
+            and swapped_tokens != dense_tokens[0][:16]
+            and ok_after and not moved and captured_once(gen)):
+        raise AssertionError(f"11b /swap: {numbers['swap']}")
+
+    # close(drain=True): every queued request answered, no thread left
+    futs = [eng.submit(f) for f in feeds[:16]]
+    srv.close(timeout=600)
+    drained = all(f.done() and same_outputs(f.result(0), w)
+                  for f, w in zip(futs, want))
+    left = [t.name for t in threading.enumerate()
+            if t.name.startswith(("serving-worker", "generation-scheduler"))]
+    numbers["drain"] = dict(answered_bit_equal=drained, threads_left=left)
+    log(f"  close(drain=True): {json.dumps(numbers['drain'])}")
+    if not drained or left:
+        raise AssertionError(f"11b drain: {numbers['drain']}")
+    release(gen)
+    pred.close()
+    SERVING["http"] = numbers
+    return counts
+
+
 def main():
     import torch
 
@@ -3383,7 +4111,7 @@ def main():
 
     t_start = time.perf_counter()
     card = card_line()
-    log(f"[1/10] device: {card}; torch {torch.__version__}, CUDA "
+    log(f"[1/11] device: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3400,12 +4128,12 @@ def main():
     fa._bwd_lib()
     gemm._lib()
     rms_norm._lib()
-    log(f"[2/10] built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
+    log(f"[2/11] built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
     check_build(build)
     gemm_rows, gemm_ratios = check_gemm(gemm, build, device)
     norm_rows = check_rms_norm(rms_norm, device)
 
-    log("[3/10] packed kernels against their plain versions")
+    log("[3/11] packed kernels against their plain versions")
     check_kernel(fa, device)
     check_backward(fa, device)
     fwd_f32 = time_forward_f32(fa, device)
@@ -3416,43 +4144,59 @@ def main():
 
     # each path's launches of the six kernels, each read from 0
     by_path = {}
-    log("[4/10] BERT-base serving through Predictor on the card")
+    log("[4/11] BERT-base serving through Predictor on the card")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         by_path["serving"] = serve(tpt, fa, workdir)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[5/10] BERT-base training, card against the CPU (fp32)")
+    log("[5/11] BERT-base training, card against the CPU (fp32)")
     by_path["training_parity"] = bert_parity(tpt, fa)
     bert_fp32_profile(tpt, fa)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[6/10] bench.py's seq-512 training step on the card (bf16 AMP)")
+    log("[6/11] bench.py's seq-512 training step on the card (bf16 AMP)")
     by_path["training_flagship"], _ = bert_flagship(tpt, fa)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[7/10] unpacked kernels against their plain versions")
+    log("[7/11] unpacked kernels against their plain versions")
     check_unpacked(fa, device)
     unpacked_timing = time_unpacked(fa, device, "bfloat16")
     unpacked_f32 = time_unpacked(fa, device, "float32")
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[8/10] Llama-2-7B-width training, card against the CPU (fp32)")
+    log("[8/11] Llama-2-7B-width training, card against the CPU (fp32)")
     by_path["llama_parity"] = llama_parity(tpt, fa)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[9/10] Llama-2-7B-width training on the card (4 layers, bf16 AMP)")
+    log("[9/11] Llama-2-7B-width training on the card (4 layers, bf16 AMP)")
     by_path["llama_flagship"], losses = llama_flagship(tpt, fa)
     compare_losses(losses)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[10/10] Llama generation serving on the card (dense and paged KV "
+    log("[10/11] Llama generation serving on the card (dense and paged KV "
         "cache, speculative decoding, prefill / decode roles)")
     by_path["generation_parity"] = generation_parity(tpt, fa)
-    by_path["generation"], paged_paths = generation_flagship(tpt, fa)
+    by_path["generation"], paged_paths, gen_scope, dense_tokens = \
+        generation_flagship(tpt, fa)
     by_path.update(paged_paths)
     log("generation: " + json.dumps(GENERATION))
     log("fetch: " + json.dumps(FETCH))
-    log(f"  ({time.perf_counter() - t_start:.1f} s in all)")
+    log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
+
+    t11 = time.perf_counter()
+    log("[11/11] the serving stack: BERT-base through ServingEngine, then "
+        "HTTP with Llama-2-7B generation attached")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serving_") as wd:
+        eng, pred, feeds, want, by_path["serving_engine"] = \
+            serving_engine_flagship(tpt, fa, wd)
+        by_path["serving_http"] = serving_http_flagship(
+            tpt, fa, eng, pred, feeds, want, gen_scope, dense_tokens)
+    del gen_scope
+    SERVING["phase_s"] = time.perf_counter() - t11
+    SERVING["card"] = card
+    log("serving: " + json.dumps(SERVING))
+    log(f"  (phase 11 took {SERVING['phase_s']:.1f} s; "
+        f"{time.perf_counter() - t_start:.1f} s in all)")
     for key, (wall, busy, idle, launches) in EAGER_PROFILES.items():
         p = PROFILES[key]
         ours = "not measured" if p["idle"] is None else \

@@ -5,8 +5,10 @@ builders, executor and Predictor as the JAX package, with op lowerings
 written in PyTorch and the TPU's Pallas kernels rewritten by hand for
 Hopper (``csrc/``, built with nvcc at first use).  It serves
 (``inference.Predictor``) and trains (``optimizer.AdamOptimizer``,
-``clip``, ``contrib.mixed_precision``) BERT and Llama, and generates
-with Llama over a dense KV cache (``serving.GenerationEngine``).  Programs run on
+``clip``, ``contrib.mixed_precision``) BERT and Llama, generates with
+Llama over a dense or paged KV cache (``serving.GenerationEngine``), and
+serves both behind the dynamic-batching ``serving.ServingEngine`` and its
+HTTP front end (``serving.serve``).  Programs run on
 one device, the card (``cuda:0``) unless the caller passes
 ``CPUPlace()`` / ``device="cpu"``; on the card each feed signature's
 step is captured once as a CUDA graph and replayed

@@ -168,3 +168,38 @@ def build_bert_pretrain(batch_size=None, seq_len=128, vocab_size=30522,
     feeds = ["input_ids", "token_type_ids", "attn_mask", "mlm_mask",
              "mlm_labels"]
     return feeds, {"loss": mean_loss}
+
+
+def build_bert_serving(seq_len=128, vocab_size=30522, hidden=768,
+                       num_layers=12, num_heads=12, intermediate=3072,
+                       use_flash=True):
+    """BERT's MLM forward for serving, with fetches that split by row.
+
+    ``build_bert_pretrain``'s loss is a batch mean and its [B, S, V]
+    logits are 15.6 MB a row at BERT-base's widths, so a serving model
+    fetches per-row outputs instead: the last encoder layer's output
+    ``encoder_out`` [B, S, H] float32 and ``mlm_argmax`` [B, S] int64,
+    the MLM head's most likely token at each position (the head's vocab
+    projection still runs).  Feeds: input_ids, token_type_ids [B, S]
+    int64 and attn_mask [B, S] float32; B is free.  No dropout.
+
+    Returns (feed_names, {"encoder_out": ..., "mlm_argmax": ...}).
+    """
+    input_ids = layers.data("input_ids", [-1, seq_len], dtype="int64",
+                            append_batch_size=False)
+    token_type_ids = layers.data("token_type_ids", [-1, seq_len],
+                                 dtype="int64", append_batch_size=False)
+    attn_mask = layers.data("attn_mask", [-1, seq_len], dtype="float32",
+                            append_batch_size=False)
+    enc = bert_encoder(input_ids, token_type_ids, attn_mask,
+                       vocab_size=vocab_size, hidden=hidden,
+                       num_layers=num_layers, num_heads=num_heads,
+                       seq_len=seq_len, intermediate=intermediate,
+                       max_position=max(512, seq_len), dropout=0.0,
+                       is_test=True, use_flash=use_flash)
+    h = layers.fc(enc, size=hidden, num_flatten_dims=2, act="gelu")
+    h = layers.layer_norm(h, begin_norm_axis=2)
+    logits = layers.fc(h, size=vocab_size, num_flatten_dims=2)
+    return (["input_ids", "token_type_ids", "attn_mask"],
+            {"encoder_out": enc, "mlm_argmax": layers.argmax(logits,
+                                                             axis=2)})

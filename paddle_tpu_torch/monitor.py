@@ -5,8 +5,11 @@ StatRegistry: named thread-safe counters any subsystem bumps;
 `publish()` snapshots (optionally resetting) for logging/metrics export.
 
 The port's copy of ``paddle_tpu/monitor.py``'s registry (importing the
-JAX package's module would import jax), without the parts no ported
-module uses yet (uptime, per-device stats, the graphviz program dump).
+JAX package's module would import jax), with the process epoch that
+every uptime the serving surfaces report is measured from
+(``process_start_time`` / ``process_uptime_s``) and the per-device
+stat siblings (``stat_add_per_device``); the graphviz program dump is
+left out.
 The port's executor books the reference's stat names:
 ``executor_run_steps``, ``executor_jit_builds`` (builds of a
 compiled-step entry), ``host_syncs`` (every device->host fence the
@@ -24,9 +27,25 @@ books ``faults_injected`` and ``fault_<site>_<kind>``.
 from __future__ import annotations
 
 import threading
+import time
 from typing import Dict, List, Tuple
 
-__all__ = ["StatValue", "StatRegistry", "monitor", "stat_add", "stat_get"]
+__all__ = ["StatValue", "StatRegistry", "monitor", "stat_add", "stat_get",
+           "stat_add_per_device", "process_start_time", "process_uptime_s"]
+
+# one process-wide epoch for every "uptime" the system reports: the
+# telemetry heartbeat, serving /healthz and /statusz agree on it
+_PROCESS_START = time.time()
+
+
+def process_start_time() -> float:
+    """Wall-clock time this module was imported (the shared epoch for
+    uptime reporting across the telemetry and serving surfaces)."""
+    return _PROCESS_START
+
+
+def process_uptime_s() -> float:
+    return round(time.time() - _PROCESS_START, 3)
 
 
 class StatValue:
@@ -118,3 +137,11 @@ def stat_add(name: str, n: int = 1) -> int:
 
 def stat_get(name: str) -> int:
     return monitor.get(name).get()
+
+
+def stat_add_per_device(name: str, n_devices: int, n: int = 1):
+    """Bump ``<name>_dev<i>`` for each participating device index, beside
+    the caller's own aggregate ``stat_add(name, ...)``: the per-device
+    series of a stat that every device of a group books."""
+    for i in range(max(int(n_devices), 0)):
+        monitor.get(f"{name}_dev{i}").increase(n)

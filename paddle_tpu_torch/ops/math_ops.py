@@ -156,6 +156,21 @@ def _mul_infer(op: Operator, block: Block):
             x.dtype)
 
 
+def _cpu_product(x2: torch.Tensor, y2: torch.Tensor) -> torch.Tensor:
+    """A product the kernel does not take.  On the CPU a float32 one that
+    no grad op differentiates and whose K spans more than one of the
+    kernel's chunks is summed as the kernel sums it, chunk partials
+    folded in order (``gemm.matmul_reference``): MKL splits a long K
+    across threads by the whole problem's size (BERT-base's K = 3072
+    product at M = 512 rows gives other bits than at M = 128), so a
+    serving batch's rows would depend on its batchmates."""
+    if (x2.device.type == "cpu" and x2.dtype == torch.float32
+            and y2.dtype == torch.float32 and x2.shape[-1] > gemm.K_CHUNK
+            and not (x2.requires_grad or y2.requires_grad)):
+        return gemm.matmul(x2, y2)
+    return torch.matmul(x2, y2)
+
+
 @register_op("mul", infer=_mul_infer)
 def _mul(ctx: LowerContext, op: Operator):
     x, y = ctx.get_input(op, "X"), ctx.get_input(op, "Y")
@@ -170,9 +185,9 @@ def _mul(ctx: LowerContext, op: Operator):
         # one row takes a GEMV path that sums in another order than the
         # rows of a longer product (the uncached forward's); a decode
         # step over one slot computes it as the first of two rows
-        out = torch.matmul(torch.cat([x2, x2]), y2)[:1]
+        out = _cpu_product(torch.cat([x2, x2]), y2)[:1]
     else:
-        out = torch.matmul(x2, y2)
+        out = _cpu_product(x2, y2)
     ctx.set_output(op, "Out", out.reshape(xs[:xd] + ys[yd:]))
 
 

@@ -68,10 +68,13 @@ from .engine import ServingFuture
 __all__ = ["KVSegment", "SegmentMismatch", "SegmentTransport",
            "DeviceTransport", "HostBytesTransport", "DisaggPair",
            "config_fingerprint", "default_transport", "SEGMENT_VERSION",
-           "SEGMENT_MAGIC"]
+           "SEGMENT_MAGIC", "SEGMENT_CONTENT_TYPE"]
 
 SEGMENT_VERSION = 1
 SEGMENT_MAGIC = b"PTKVSEG1"
+# HTTP content type of a serialized segment (a prefill-role server's
+# /generate reply, a decode-role server's /adopt body)
+SEGMENT_CONTENT_TYPE = "application/x-paddletpu-kvsegment"
 
 register_flag("FLAGS_disagg_transport", "device",
               "in-process KV-segment handoff transport (DisaggPair "

@@ -92,11 +92,31 @@ M, ops/cuda/gemm.py); paged equals dense the same way
 (``tests/test_torch_spec_decode.py``) and disaggregated equals colocated
 (``tests/test_torch_disagg.py``).
 
-Not ported yet: mesh-sharded serving (ROADMAP.md queue 1 item 9) and
-``swap_weights`` (item 6), each raising NotImplementedError where asked
-for.  The reference's telemetry spans and timelines, flight recorder,
-usage ledger and cost manifest are left out until those modules are
-ported (ROADMAP.md queue 1 item 6).
+**Traces, timelines, tenants** — every request carries a trace id (the
+caller's, e.g. an HTTP hop's, or a fresh one while telemetry is on), a
+``generation/sequence`` span from claim to finish with its prefill,
+chunk, segment export and adopt spans under it, and (``timeline``,
+default on with telemetry) a per-sequence record of its phases and
+every token's time, kept for ``tracez`` (recent ring and slowest
+tail).  The TTFT / inter-token / generate / prefill / decode-step
+latencies also feed telemetry histograms whose exemplars name trace ids.
+With ``FLAGS_usage`` each request books its cost vector to its tenant
+(requests, tokens in and out, prefill and decode steps, prefix hits,
+sheds, failures, and the KV page-seconds its slot held, booked as the
+pages are released); the flight recorder holds each request's last
+words.
+
+**Weight hot-swap** — :meth:`GenerationEngine.swap_weights` validates a
+checkpoint against the live weights (every parameter; the caches and
+pools are not weights) and hands it to the scheduler thread, which
+applies it between grid steps: the contents of the live weight tensors
+are exchanged in place with the incoming ones (the captured graphs keep
+their addresses; inference.exchange_weights), the caches untouched, so
+in-flight sequences keep their pages and decode their next token under
+the new weights.  :meth:`revert_weights` exchanges back.
+
+Not ported yet: mesh-sharded serving (ROADMAP.md queue 1 item 9),
+raising NotImplementedError where asked for.
 
 Stats (``monitor``): counters ``serving_generate_requests``,
 ``serving_generate_shed``, ``requests_shed_deadline``,
@@ -118,6 +138,7 @@ from __future__ import annotations
 
 import collections
 import logging
+import os
 import threading
 import time
 import warnings
@@ -126,7 +147,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from .. import fault
+from .. import blackbox, fault, telemetry
 from ..device import resolve_device
 from ..flags import flag_value, register_flag
 from ..framework.core import Program, program_guard
@@ -134,7 +155,7 @@ from ..framework.executor import Executor, Scope
 from ..models.llama import (build_llama_decode, build_llama_prefill,
                             build_llama_prefill_chunk, build_llama_verify)
 from ..monitor import stat_add
-from . import batcher
+from . import batcher, usage
 from .disagg import KVSegment, SegmentMismatch, config_fingerprint, wait_ready
 from .engine import (OverloadedError, PoisonedInput, RequestFailed,
                      ServingFuture, poison_sentinel_matches)
@@ -176,18 +197,28 @@ register_flag("FLAGS_serving_spec_ngram", 3,
 
 class _Latency:
     """Latency summary over the most recent 4096 observations (count,
-    mean, min, max, p50 / p95 / p99), in place of the reference's
-    telemetry histograms."""
+    mean, min, max and exact p50 / p95 / p99), beside an engine-local
+    telemetry histogram of the same name that keeps the exemplars
+    (the slowest observations' trace ids) and the process-wide one that
+    ``/metrics`` exports."""
 
-    def __init__(self):
+    def __init__(self, name: str):
+        self.name = name
         self._v: collections.deque = collections.deque(maxlen=4096)
         self._count = 0
         self._lock = threading.Lock()
+        self._hist = telemetry.Histogram(name)
 
-    def observe(self, ms: float):
+    def observe(self, ms: float, trace_id: Optional[str] = None):
         with self._lock:
             self._v.append(float(ms))
             self._count += 1
+        if telemetry.enabled():
+            self._hist.observe(ms, trace_id=trace_id)
+            telemetry.histogram_observe(self.name, ms, trace_id=trace_id)
+
+    def exemplars(self) -> List[dict]:
+        return self._hist.exemplars()
 
     def summary(self) -> dict:
         with self._lock:
@@ -200,6 +231,9 @@ class _Latency:
                "max": round(float(v.max()), 4)}
         for p in (50, 95, 99):
             out[f"p{p}"] = round(float(np.percentile(v, p)), 4)
+        ex = self.exemplars()
+        if ex:
+            out["exemplars"] = ex
         return out
 
 
@@ -356,7 +390,8 @@ class GenRequest:
 
     __slots__ = ("prompt", "max_new_tokens", "future", "t_submit",
                  "t_claimed", "t_deadline", "prefill_ms", "on_token",
-                 "t_first", "t_last", "segment", "speculate")
+                 "t_first", "t_last", "segment", "speculate", "trace_id",
+                 "record_timeline", "events", "t_tokens", "bb", "tenant")
 
     def __init__(self, prompt: np.ndarray, max_new_tokens: int):
         self.prompt = prompt
@@ -371,6 +406,17 @@ class GenRequest:
         self.t_last: Optional[float] = None
         self.segment: Optional[KVSegment] = None  # adopt(): decode role
         self.speculate: Optional[bool] = None  # False opts out of drafts
+        self.trace_id: Optional[str] = None
+        # the timeline (record_timeline off: no per-token appends)
+        self.record_timeline = False
+        self.events: List[tuple] = []  # (label, monotonic ts, extra)
+        self.t_tokens: List[float] = []  # each generated token's time
+        self.bb: Optional[int] = None  # flight-recorder last-words token
+        self.tenant: Optional[str] = None  # usage ledger key (FLAGS_usage)
+
+    def note(self, label: str, ts: float, extra=None):
+        if self.record_timeline:
+            self.events.append((label, ts, extra))
 
 
 def _phase(req: GenRequest) -> str:
@@ -394,7 +440,8 @@ class _Slot:
     the block table, the next position to prefill, the prefix hit."""
 
     __slots__ = ("idx", "req", "position", "steps", "tokens", "logits",
-                 "decoding", "pages", "prefill_pos", "hit_tokens")
+                 "decoding", "pages", "prefill_pos", "hit_tokens", "span",
+                 "page_us", "page_t", "page_tenant", "weights_version")
 
     def __init__(self, idx: int):
         self.idx = idx
@@ -407,6 +454,15 @@ class _Slot:
         self.pages: List[int] = []  # paged: block table, logical order
         self.prefill_pos = 0        # paged: next position to prefill
         self.hit_tokens = 0         # paged: tokens the prefix index gave
+        self.span = None  # the generation/sequence span (telemetry on)
+        # KV page-seconds (us x pages held) booked to page_tenant when
+        # the pages are released; page_t the last integration instant
+        self.page_us = 0
+        self.page_t = 0.0
+        self.page_tenant: Optional[str] = None
+        # the weights the sequence's prompt began under: its pages go to
+        # the prefix index only if no swap came in between
+        self.weights_version = 0
 
     @property
     def active(self) -> bool:
@@ -516,16 +572,28 @@ class GenerationEngine:
                    "spec_drafts": 0, "spec_tokens_proposed": 0,
                    "spec_tokens_accepted": 0, "spec_rollbacks": 0}
         self._n_lock = threading.Lock()
-        self._h_gen = _Latency()
-        self._h_prefill = _Latency()
-        self._h_step = _Latency()
-        self._h_verify = _Latency()
-        self._h_ttft = _Latency()
-        self._h_itl = _Latency()
-        self._h_export = _Latency()
-        self._h_adopt = _Latency()
+        self._h_gen = _Latency("serving_generate_ms")
+        self._h_prefill = _Latency("serving_prefill_ms")
+        self._h_step = _Latency("serving_decode_step_ms")
+        self._h_verify = _Latency("serving_spec_verify_ms")
+        self._h_ttft = _Latency("serving_ttft_ms")
+        self._h_itl = _Latency("serving_inter_token_ms")
+        self._h_export = _Latency("serving_segment_export_ms")
+        self._h_adopt = _Latency("serving_segment_adopt_ms")
         self._t_prefill_total = 0.0
         self._t_decode_total = 0.0
+        # weight hot-swap: a validated swap waits here for the scheduler
+        # thread's next grid-step boundary (arrays, Event, result box)
+        self._pending_swap = None
+        self._prev_weights: Dict[str, torch.Tensor] = {}
+        self.weights_version = 1
+        # finished-sequence timelines for tracez: recent ring + slowest
+        self._timeline_lock = threading.Lock()
+        self._timelines_recent: collections.deque = collections.deque(
+            maxlen=max(1, int(flag_value("FLAGS_tracez_recent") or 32)))
+        self._timelines_slow: List[dict] = []
+        self._tail_keep = max(0, int(
+            flag_value("FLAGS_trace_tail_keep") or 0))
         if autostart:
             self.start()
 
@@ -785,22 +853,30 @@ class GenerationEngine:
     # -- admission ----------------------------------------------------------
     def submit(self, prompt: Sequence[int],
                max_new_tokens: Optional[int] = None,
+               trace_id: Optional[str] = None,
                deadline_ms: Optional[float] = None,
                on_token=None,
-               speculate: Optional[bool] = None) -> ServingFuture:
+               timeline: Optional[bool] = None,
+               speculate: Optional[bool] = None,
+               tenant: Optional[str] = None) -> ServingFuture:
         """Admit one generation request.  ``prompt``: 1-D int token ids
         (1 <= len <= the largest prefill bucket, and below
         ``max_seq_len``).  Returns a future whose ``result()`` is
-        ``{"tokens", "prompt_len", "steps", "finish", "queue_wait_ms",
-        "prefill_ms", "ttft_ms", "total_ms", "logits"?,
-        "prefix_hit_tokens"?}`` (the last where a prefix hit served
-        part of the prompt).  A budget
+        ``{"tokens", "prompt_len", "steps", "finish", "trace_id",
+        "queue_wait_ms", "prefill_ms", "ttft_ms", "total_ms",
+        "timeline"?, "logits"?, "prefix_hit_tokens"?}`` (the last where a
+        prefix hit served part of the prompt).  A budget
         larger than the cache capacity left after the prompt is honoured
         until the slot's cache fills, finishing ``"cache_full"``.  Sheds
         with :class:`OverloadedError` (``queue_full`` / ``draining`` /
         ``deadline``; ``deadline_ms`` is the request's remaining budget,
         a spent one sheds here).
 
+        ``trace_id`` adopts a caller's trace identity (an HTTP hop's
+        header); with telemetry on a fresh one is minted otherwise.
+        ``timeline`` forces the per-sequence timeline record on or off
+        (None: on with telemetry).  ``tenant`` books the request's cost
+        vector with ``FLAGS_usage`` (None: the default tenant).
         ``on_token(token_id, monotonic_ts)`` runs on the scheduler
         thread as each token is booked (exceptions are contained and
         logged).  ``speculate=False`` keeps this request out of the
@@ -829,26 +905,49 @@ class GenerationEngine:
                          else self.max_new_tokens))
         req = GenRequest(ids.astype("int64"), mnt)
         req.speculate = speculate
-        return self._admit(req, deadline_ms, on_token)
+        return self._admit(req, deadline_ms, on_token, trace_id, timeline,
+                           tenant)
 
-    def _admit(self, req: GenRequest, deadline_ms, on_token) -> ServingFuture:
+    def _admit(self, req: GenRequest, deadline_ms, on_token, trace_id,
+               timeline, tenant) -> ServingFuture:
         """Queue `req` (a prompt or a segment to adopt), or shed it."""
         req.on_token = on_token
         budget_s = self._deadline_s
         if deadline_ms is not None:
             budget_s = min(budget_s, float(deadline_ms) / 1e3)
         req.t_deadline = req.t_submit + budget_s
+        if telemetry.enabled():
+            req.trace_id = trace_id or telemetry.new_trace_id()
+        else:
+            req.trace_id = trace_id
+        req.record_timeline = bool(telemetry.enabled() if timeline is None
+                                   else timeline)
+        req.note("admit", req.t_submit)
+        kind = "adopt" if req.segment is not None else "generate"
+        fields = {"prompt_len": int(req.prompt.size)}
+        if usage.enabled():
+            req.tenant = usage.normalize_tenant(tenant)
+            fields["tenant"] = req.tenant
+        req.bb = blackbox.request_begin(req.trace_id, kind, **fields)
         self._count("requests")
         stat_add("serving_generate_requests")
+        if req.tenant is not None:
+            # booked where the global counter is: per-tenant sums stay
+            # equal to it at tolerance 0 (an adopted prompt's tokens were
+            # booked by the prefill side)
+            usage.ledger().book(req.tenant, requests=1, tokens_in=0
+                                if req.segment is not None
+                                else int(req.prompt.size))
         with self._cv:
             if self._draining:
-                raise self._shed_err("draining")
+                raise self._shed_err("draining", req=req)
             if budget_s <= 0:
-                raise self._shed_err("deadline", "budget exhausted upstream")
+                raise self._shed_err("deadline", "budget exhausted upstream",
+                                     req=req)
             if len(self._queue) >= self.queue_cap:
                 raise self._shed_err(
                     "queue_full",
-                    f"{len(self._queue)}/{self.queue_cap} queued")
+                    f"{len(self._queue)}/{self.queue_cap} queued", req=req)
             self._queue.append(req)
             self._cv.notify_all()
         return req.future
@@ -857,6 +956,16 @@ class GenerationEngine:
                  timeout: Optional[float] = None) -> dict:
         """Blocking one-shot: ``submit(...).result(timeout)``."""
         return self.submit(prompt, max_new_tokens).result(timeout)
+
+    def retry_after_s(self) -> float:
+        """Backoff hint for 503 sheds (the ``Retry-After`` header): the
+        queued requests over the slot grid at the measured per-request
+        p50 generation time, bounded to [0.5, 30] s."""
+        with self._cv:
+            depth = len(self._queue)
+        per_req_s = (self._h_gen.summary().get("p50") or 250.0) / 1e3
+        est = (depth / max(1, self.num_slots) + 1) * per_req_s
+        return min(30.0, max(0.5, est))
 
     # -- disaggregated handoff (KV segments) --------------------------------
     def fingerprint(self) -> str:
@@ -903,8 +1012,11 @@ class GenerationEngine:
 
     def adopt(self, segment: KVSegment,
               max_new_tokens: Optional[int] = None,
+              trace_id: Optional[str] = None,
               deadline_ms: Optional[float] = None,
-              on_token=None) -> ServingFuture:
+              on_token=None,
+              timeline: Optional[bool] = None,
+              tenant: Optional[str] = None) -> ServingFuture:
         """Adopt an exported :class:`~paddle_tpu_torch.serving.disagg.
         KVSegment` into this engine's pool and decode it to the end: the
         decode half of the disaggregated pipeline.
@@ -929,22 +1041,148 @@ class GenerationEngine:
         # segment's pages hold the K/V
         req = GenRequest(np.zeros((segment.prompt_len,), "int64"), mnt)
         req.segment = segment
-        return self._admit(req, deadline_ms, on_token)
+        return self._admit(req, deadline_ms, on_token,
+                           trace_id or segment.trace_id, timeline, tenant)
 
-    def swap_weights(self, checkpoint, **kwargs):
-        raise NotImplementedError(
-            "in-place weight hot-swap is not ported yet (ROADMAP.md queue "
-            "1 item 6)")
+    # -- in-place weight hot-swap -------------------------------------------
+    def _weight_names(self) -> List[str]:
+        """Every parameter the programs read: the decode program's
+        persistable vars other than the caches (which hold live sequence
+        state and ride through a swap untouched)."""
+        caches = set(self.cache_names)
+        return sorted(v.name for v in self._decode_prog.list_vars()
+                      if v.persistable and v.name not in caches)
 
-    def _shed_err(self, reason: str, detail: str = "") -> OverloadedError:
+    def swap_weights(self, checkpoint, *,
+                     timeout_s: Optional[float] = None) -> dict:
+        """Hot-swap the weights in place at a decode-grid-step boundary.
+
+        ``checkpoint``: a directory with ``__params__`` or a ``{name:
+        array or tensor}`` dict.  Validated here, on the caller's thread,
+        against the live weights (a missing name, a shape or a dtype
+        drift raises :class:`~paddle_tpu_torch.inference.SwapMismatch`
+        before anything moves); then the scheduler thread exchanges the
+        contents between grid steps (``inference.exchange_weights``: the
+        incoming buffers end up holding the old weights, the live tensors
+        keep their ``data_ptr``, the captured graphs replay on), so
+        in-flight sequences keep their pages and token streams and decode
+        their next token under the new weights.  The prefix index is
+        flushed, and a prompt begun before the swap publishes no pages, so
+        no later request reads K/V of the replaced weights.  A failed
+        exchange rolls back.  Bounded by ``FLAGS_swap_timeout_s``."""
+        from ..inference import SwapMismatch, check_swap, weights_doc
+
+        if timeout_s is None:
+            timeout_s = float(flag_value("FLAGS_swap_timeout_s") or 30.0)
+        if isinstance(checkpoint, dict):
+            new = dict(checkpoint)
+        else:
+            path = os.path.join(str(checkpoint), "__params__")
+            if not os.path.exists(path):
+                raise SwapMismatch(f"swap checkpoint {str(checkpoint)!r} "
+                                   f"has no __params__")
+            from .. import io
+            new = io._read(path)
+        names = self._weight_names()
+        check_swap(weights_doc((n, self.scope.find_var(n)) for n in names),
+                   new)
+        arrays = {n: new[n] for n in names}
+        if self._thread is None:
+            # no scheduler running: every instant is a step boundary
+            return self._commit_swap(arrays)
+        ev = threading.Event()
+        box: Dict[str, object] = {}
+        with self._cv:
+            if self._draining or self._closed:
+                raise SwapMismatch("no weight swap during drain")
+            if self._pending_swap is not None:
+                raise SwapMismatch("another weight swap is mid-flight")
+            self._pending_swap = (arrays, ev, box)
+            self._cv.notify_all()
+        if not ev.wait(timeout_s):
+            with self._cv:
+                if self._pending_swap is not None \
+                        and self._pending_swap[1] is ev:
+                    self._pending_swap = None  # withdrawn: never applied
+                    raise SwapMismatch(
+                        f"swap not committed within {timeout_s}s "
+                        f"(the scheduler never reached a step boundary)")
+            ev.wait()  # it started in the meantime: wait for its end
+        if "error" in box:
+            raise box["error"]
+        return box["result"]
+
+    def _apply_pending_swap(self):
+        """Scheduler-thread half: commit the handed-off swap at the
+        grid-step boundary and wake the caller."""
+        with self._cv:
+            pending = self._pending_swap
+        if pending is None:
+            return
+        arrays, ev, box = pending
+        try:
+            box["result"] = self._commit_swap(arrays)
+        except BaseException as e:  # noqa: BLE001 — hand the caller the
+            # failure; the scheduler itself keeps decoding
+            box["error"] = e
+        finally:
+            with self._cv:
+                self._pending_swap = None
+            ev.set()
+
+    def _commit_swap(self, arrays: Dict[str, object]) -> dict:
+        """Exchange every weight's contents with `arrays` (validated
+        upstream); atomic: a failure exchanges back what had moved."""
+        from ..inference import exchange_weights
+
+        t0 = time.monotonic()
+        try:
+            retained = exchange_weights(
+                {n: self.scope.find_var(n) for n in arrays}, arrays)
+        except BaseException:
+            stat_add("serving_weight_swap_failures")
+            raise
+        self._prev_weights = retained
+        self.weights_version += 1
+        stat_add("serving_weight_swaps")
+        if self._prefix is not None:
+            # indexed pages hold K/V of the weights just replaced: a later
+            # prompt must not read them under the new ones
+            self._prefix.flush()
+        ms = round((time.monotonic() - t0) * 1e3, 3)
+        telemetry.log_event("generation_weight_swap",
+                            version=self.weights_version, swap_ms=ms,
+                            replaced=len(arrays))
+        return {"weights_version": self.weights_version, "swap_ms": ms,
+                "replaced": len(arrays)}
+
+    def revert_weights(self) -> dict:
+        """Exchange back the weights the last successful swap replaced
+        (held in the buffers it was handed)."""
+        from ..inference import SwapMismatch
+
+        if not self._prev_weights:
+            raise SwapMismatch("no previous weights retained (nothing "
+                               "swapped yet)")
+        return self.swap_weights(self._prev_weights)
+
+    def _shed_err(self, reason: str, detail: str = "",
+                  req: Optional[GenRequest] = None) -> OverloadedError:
         self._count("shed")
         stat_add("serving_generate_shed")
         if reason == "deadline":
             stat_add("requests_shed_deadline")
-        return OverloadedError(reason, detail)
+        err = OverloadedError(reason, detail)
+        if req is not None:
+            if req.tenant is not None:
+                usage.ledger().book(req.tenant, sheds=1)
+            blackbox.request_end(req.bb)
+            req.bb = None
+            err.trace_id = req.trace_id
+        return err
 
     def _shed(self, req: GenRequest, reason: str):
-        req.future._resolve(error=self._shed_err(reason))
+        req.future._resolve(error=self._shed_err(reason, req=req))
 
     # -- scheduler ----------------------------------------------------------
     def _count(self, key: str, n: int = 1):
@@ -982,6 +1220,7 @@ class GenerationEngine:
             if req is None:
                 break
             req.t_claimed = now
+            req.note("claim", now, {"slot": slot.idx})
             slot.req = req
             slot.position = 0
             slot.steps = 0
@@ -990,6 +1229,16 @@ class GenerationEngine:
             slot.pages = []
             slot.prefill_pos = 0
             slot.hit_tokens = 0
+            slot.page_us, slot.page_t = 0, now
+            slot.page_tenant = req.tenant
+            if telemetry.enabled() and req.trace_id is not None:
+                # the sequence's span: claim to finish, its prefill and
+                # handoff spans under it
+                slot.span = telemetry.span_begin(
+                    "generation/sequence", detached=True,
+                    trace_id=req.trace_id, slot=slot.idx,
+                    prompt_len=int(req.prompt.size))
+            blackbox.request_phase(req.bb, "claimed", slot=slot.idx)
             claimed.append((slot, req))
             if busy_before:
                 # the continuous-batching event: a new sequence enters a
@@ -1005,9 +1254,23 @@ class GenerationEngine:
         return [s for s in self._slots if s.active and not s.decoding]
 
     def _loop(self):
+        try:
+            self._schedule()
+        except BaseException as e:
+            # the scheduler thread itself is dying (each request's own
+            # failure is contained below): leave the flight recorder's
+            # dump behind
+            blackbox.dump_exception("generation_scheduler", e)
+            raise
+
+    def _schedule(self):
         while True:
+            # a pending weight swap commits here, between grid steps
+            self._apply_pending_swap()
             with self._cv:
                 while True:
+                    if self._pending_swap is not None:
+                        break
                     if self._queue and self._can_claim_locked():
                         break
                     if self._active():
@@ -1015,6 +1278,8 @@ class GenerationEngine:
                     if self._draining and not self._queue:
                         return
                     self._cv.wait(0.02)
+                if self._pending_swap is not None:
+                    continue
                 claimed = self._claim_locked()
             for slot, req in claimed:
                 try:
@@ -1065,6 +1330,7 @@ class GenerationEngine:
         Dense: the whole prefill, here and now.  Paged: the fault and
         poison checks and the prefix lookup only; the prompt pays out
         through ``_prefill_advance``, one slice a scheduler iteration."""
+        slot.weights_version = self.weights_version
         if req.segment is not None:
             self._adopt_begin(slot, req)
             return
@@ -1082,10 +1348,15 @@ class GenerationEngine:
             hit = self._prefix.lookup(req.prompt)
             if hit:
                 self._pool.incref(hit)
+                self._mark_pages(slot)
                 slot.pages = list(hit)
                 slot.hit_tokens = len(hit) * self.page_tokens
                 self._count("prefix_hits")
                 stat_add("serving_prefix_hits")
+                req.note("prefix_hit", time.monotonic(),
+                         {"tokens": slot.hit_tokens})
+                if req.tenant is not None:
+                    usage.ledger().book(req.tenant, prefix_hits=1)
                 self._count("prefix_tokens_saved", slot.hit_tokens)
                 stat_add("serving_prefix_tokens_saved", slot.hit_tokens)
         slot.prefill_pos = slot.hit_tokens
@@ -1101,6 +1372,8 @@ class GenerationEngine:
             return
         self._count("pool_stalls")
         stat_add("serving_kv_pool_stalls")
+        self._end_span(slot, "requeued")
+        req.note("requeue", time.monotonic())
         self._release_pages(slot)
         slot.req = None
         slot.decoding = False
@@ -1109,11 +1382,24 @@ class GenerationEngine:
             self._queue.appendleft(req)
             self._cv.notify_all()
 
+    def _end_span(self, slot: _Slot, outcome: str):
+        """Close the slot's generation/sequence span (none with telemetry
+        off)."""
+        if slot.span is not None:
+            slot.span.attrs["outcome"] = outcome
+            slot.span.attrs["steps"] = slot.steps
+            telemetry.span_end(slot.span)
+            slot.span = None
+
     def _fail_request(self, slot: _Slot, req: GenRequest, phase: str,
                       e: Exception):
         self._count("failed")
+        if req.tenant is not None:
+            usage.ledger().book(req.tenant, failures=1)
         logger.warning("%s failed: %s", phase, e)
+        self._end_span(slot, f"failed:{phase}")
         self._release_pages(slot)
+        blackbox.request_end(req.bb)
         req.future._resolve(error=RequestFailed(
             f"{phase} failed: {type(e).__name__}: {e}"))
         slot.req = None
@@ -1130,9 +1416,14 @@ class GenerationEngine:
                        "request(s): %s", len(active), e)
         err = RequestFailed(f"decode step failed: {type(e).__name__}: {e}")
         for s in active:
-            req, s.req, s.logits = s.req, None, []
+            req = s.req
+            if req.tenant is not None:
+                usage.ledger().book(req.tenant, failures=1)
+            self._end_span(s, "failed:decode")
+            s.req, s.logits = None, []
             s.decoding = False
             self._release_pages(s)
+            blackbox.request_end(req.bb)
             req.future._resolve(error=err)
         if self._prefix is not None:
             # no indexed page's K/V can be trusted after a failed step
@@ -1223,15 +1514,44 @@ class GenerationEngine:
         self._poison_check(req.prompt)
         bucket = batcher.prompt_bucket_for(req.prompt.size,
                                            self.prefill_buckets)
-        outs = self._run_prefill_program(req.prompt, bucket, slot.idx)
+        with self._span(slot, "generation/prefill", bucket=bucket):
+            outs = self._run_prefill_program(req.prompt, bucket, slot.idx)
         self._complete_prefill(slot, req, outs, t0)
 
+    def _span(self, slot: _Slot, name: str, **attrs):
+        """A span under the slot's sequence span (a plain span when it has
+        none; nothing with telemetry off)."""
+        parent = slot.span.context() if slot.span is not None else None
+        return telemetry.trace_span(name, parent=parent, **attrs)
+
     # -- paged prefill ------------------------------------------------------
+    def _mark_pages(self, slot: _Slot):
+        """Advance the slot's KV page-second integral (us x pages held) to
+        now: called before every change of its block table, so the
+        integral prices what the pool held.  Nothing when the slot
+        books no tenant (usage off)."""
+        if slot.page_tenant is None:
+            return
+        t = time.monotonic()
+        if slot.pages and slot.page_t:
+            slot.page_us += int((t - slot.page_t) * 1e6) * len(slot.pages)
+        slot.page_t = t
+
     def _release_pages(self, slot: _Slot):
         """Drop the slot's references on its pages (shared prefix pages
-        fall back to the index's; private ones free)."""
+        fall back to the index's; private ones free) and book the
+        sequence's KV page-seconds to its tenant: every path that lets
+        go of a slot's pages (finish, failure, requeue, export, a failed
+        step) comes through here."""
         if self._pool is not None and slot.pages:
+            self._mark_pages(slot)
             self._pool.decref(slot.pages)
+        if slot.page_tenant is not None:
+            if slot.page_us:
+                usage.ledger().book(slot.page_tenant, page_us=slot.page_us)
+            slot.page_tenant = None
+        slot.page_us = 0
+        slot.page_t = 0.0
         slot.pages = []
         slot.hit_tokens = 0
         slot.prefill_pos = 0
@@ -1241,6 +1561,8 @@ class GenerationEngine:
         tokens, evicting index-only prefix pages when no page is free.
         Raises PoolExhausted when nothing is left to evict."""
         needed = -(-int(n_tokens) // self.page_tokens)
+        if len(slot.pages) < needed:
+            self._mark_pages(slot)
         while len(slot.pages) < needed:
             p = self._pool.alloc()
             if p is None:
@@ -1280,6 +1602,7 @@ class GenerationEngine:
         next real write there replaces them."""
         dropped = slot.pages[keep_pages:]
         if dropped:
+            self._mark_pages(slot)
             self._pool.decref(dropped)
             del slot.pages[keep_pages:]
         return len(dropped)
@@ -1298,8 +1621,9 @@ class GenerationEngine:
             bucket = batcher.prompt_bucket_for(n_prompt,
                                                self.prefill_buckets)
             self._ensure_pages(slot, n_prompt)
-            outs = self._run_paged_prefill_program(
-                prompt, bucket, n_prompt, self._slot_block_table(slot))
+            with self._span(slot, "generation/prefill", bucket=bucket):
+                outs = self._run_paged_prefill_program(
+                    prompt, bucket, n_prompt, self._slot_block_table(slot))
             self._complete_prefill(slot, req, outs, t0)
             return
         # the first span still to prefill; later spans run on later
@@ -1309,10 +1633,14 @@ class GenerationEngine:
         n = end - start
         bucket = batcher.prompt_bucket_for(n, self.prefill_buckets)
         self._ensure_pages(slot, end)
-        outs = self._run_chunk_program(prompt[start:end], bucket, start, n,
-                                       self._slot_block_table(slot))
+        with self._span(slot, "generation/prefill_chunk", bucket=bucket,
+                        start=start, tokens=n):
+            outs = self._run_chunk_program(prompt[start:end], bucket, start,
+                                           n, self._slot_block_table(slot))
         self._count("prefill_chunks")
         stat_add("serving_prefill_chunks")
+        req.note("prefill_chunk", time.monotonic(),
+                 {"start": start, "tokens": n})
         slot.prefill_pos = end
         if end >= n_prompt:
             self._complete_prefill(slot, req, outs, t0)
@@ -1328,16 +1656,21 @@ class GenerationEngine:
         first = int(np.asarray(outs[0].numpy())[0])
         slot.logits = [np.asarray(outs[1].numpy())[0]] \
             if self.keep_logits else []
-        req.prefill_ms += (time.monotonic() - t0) * 1e3
+        now = time.monotonic()
+        req.prefill_ms += (now - t0) * 1e3
         n_prompt = int(req.prompt.size)
         self._t_prefill_total += req.prefill_ms
-        self._h_prefill.observe(req.prefill_ms)
+        self._h_prefill.observe(req.prefill_ms, trace_id=req.trace_id)
+        req.note("prefill", now, {"ms": round(req.prefill_ms, 3)})
+        if req.tenant is not None:
+            usage.ledger().book(req.tenant, prefill_steps=1)
         self._count("prefills")
         # tokens a prefix hit served never ran a prefill
         self._count("prefill_tokens", n_prompt - slot.hit_tokens)
         stat_add("serving_prefills")
         stat_add("serving_prefill_tokens", n_prompt - slot.hit_tokens)
-        if self._prefix is not None:
+        if self._prefix is not None \
+                and slot.weights_version == self.weights_version:
             full = n_prompt // self.page_tokens
             if full:
                 self._prefix.register(req.prompt, slot.pages[:full])
@@ -1350,6 +1683,7 @@ class GenerationEngine:
             self._export_segment(slot, req)
             return
         slot.decoding = True
+        blackbox.request_phase(req.bb, "decoding")
         self._book_token(slot, first, time.monotonic())
 
     # -- segments -----------------------------------------------------------
@@ -1369,9 +1703,10 @@ class GenerationEngine:
         needed = -(-n_prompt // self.page_tokens)
         idx = torch.tensor(slot.pages[:needed], dtype=torch.long,
                            device=self.device)
-        layers = [tuple(pool.index_select(0, idx)
-                        for pool in self._pool_pair(i))
-                  for i in range(len(self.cache_names) // 2)]
+        with self._span(slot, "generation/segment_export", pages=needed):
+            layers = [tuple(pool.index_select(0, idx)
+                            for pool in self._pool_pair(i))
+                      for i in range(len(self.cache_names) // 2)]
         ready = None
         if self.device.type == "cuda":
             # readers on other threads wait on this before the blocks
@@ -1381,7 +1716,7 @@ class GenerationEngine:
                         list(slot.tokens), self.page_tokens, layers,
                         logits=np.stack(slot.logits)
                         if self.keep_logits and slot.logits else None,
-                        ready=ready)
+                        trace_id=req.trace_id, ready=ready)
         now = time.monotonic()
         # the prefill's first token was generated here; the adopter
         # replays it
@@ -1390,15 +1725,21 @@ class GenerationEngine:
         self._count("segments_exported")
         stat_add("serving_segments_exported")
         stat_add("serving_segment_export_bytes", seg.nbytes)
-        self._h_export.observe((now - t0) * 1e3)
+        self._h_export.observe((now - t0) * 1e3, trace_id=req.trace_id)
         total_ms = (now - req.t_submit) * 1e3
         self._count("served")
-        self._h_gen.observe(total_ms)
+        self._h_gen.observe(total_ms, trace_id=req.trace_id)
+        req.note("export", now, {"bytes": seg.nbytes})
+        if req.tenant is not None:
+            led = usage.ledger()
+            led.book(req.tenant, tokens_out=1, served=1)
+            led.observe_latency(req.tenant, total_ms)
         result = {
             "tokens": [int(t) for t in slot.tokens],
             "prompt_len": n_prompt,
             "steps": 0,
             "finish": "exported",
+            "trace_id": req.trace_id,
             "queue_wait_ms": round(
                 ((req.t_claimed or now) - req.t_submit) * 1e3, 3),
             "prefill_ms": round(req.prefill_ms, 3),
@@ -1409,10 +1750,15 @@ class GenerationEngine:
         }
         if slot.hit_tokens:
             result["prefix_hit_tokens"] = slot.hit_tokens
+        if req.record_timeline:
+            result["timeline"] = self._timeline_record(req, result)
+            self._store_timeline(result)
+        self._end_span(slot, "exported")
         slot.req = None
         slot.decoding = False
         slot.logits = []
         self._release_pages(slot)
+        blackbox.request_end(req.bb)
         req.future._resolve(outputs=result)
 
     def _adopt_begin(self, slot: _Slot, req: GenRequest):
@@ -1437,9 +1783,11 @@ class GenerationEngine:
         idx = torch.tensor(slot.pages[:seg.n_pages], dtype=torch.long,
                            device=self.device)
         wait_ready(seg)
-        for i, blocks in enumerate(seg.layers):
-            for pool, blk in zip(self._pool_pair(i), blocks):
-                pool.index_copy_(0, idx, _block_tensor(blk, pool))
+        with self._span(slot, "generation/segment_adopt",
+                        pages=seg.n_pages):
+            for i, blocks in enumerate(seg.layers):
+                for pool, blk in zip(self._pool_pair(i), blocks):
+                    pool.index_copy_(0, idx, _block_tensor(blk, pool))
         slot.position = seg.position
         slot.prefill_pos = seg.position
         slot.tokens = list(seg.tokens)
@@ -1451,13 +1799,20 @@ class GenerationEngine:
         self._count("segments_adopted")
         stat_add("serving_segments_adopted")
         stat_add("serving_segment_adopt_bytes", seg.nbytes)
-        self._h_adopt.observe((now - t0) * 1e3)
+        self._h_adopt.observe((now - t0) * 1e3, trace_id=req.trace_id)
+        req.note("adopt", now, {"tokens": len(seg.tokens),
+                                "position": seg.position,
+                                "bytes": seg.nbytes})
+        blackbox.request_phase(req.bb, "decoding")
         # replay the tokens generated elsewhere: a stream consumer sees
         # one sequence, and TTFT is adopt admission to the first token
         for tok in seg.tokens:
+            if req.record_timeline:
+                req.t_tokens.append(now)
             if req.t_first is None:
                 req.t_first = now
-                self._h_ttft.observe((now - req.t_submit) * 1e3)
+                self._h_ttft.observe((now - req.t_submit) * 1e3,
+                                     trace_id=req.trace_id)
             if req.on_token is not None:
                 try:
                     req.on_token(tok, now)
@@ -1621,6 +1976,11 @@ class GenerationEngine:
         self._h_step.observe(ms)
         self._count("decode_steps")
         stat_add("serving_decode_steps")
+        if usage.enabled():
+            led = usage.ledger()
+            for s in active:
+                if s.req.tenant is not None:
+                    led.book(s.req.tenant, decode_steps=1)
         for s in active:
             tok = int(next_tokens[s.idx])
             s.position += 1
@@ -1638,11 +1998,17 @@ class GenerationEngine:
         self._count("generated_tokens")
         stat_add("serving_generated_tokens")
         req = slot.req
+        if req.tenant is not None:
+            usage.ledger().book(req.tenant, tokens_out=1)
+        if req.record_timeline:
+            req.t_tokens.append(now)
         if req.t_first is None:
             req.t_first = now
-            self._h_ttft.observe((now - req.t_submit) * 1e3)
+            self._h_ttft.observe((now - req.t_submit) * 1e3,
+                                 trace_id=req.trace_id)
         else:
-            self._h_itl.observe((now - req.t_last) * 1e3)
+            self._h_itl.observe((now - req.t_last) * 1e3,
+                                trace_id=req.trace_id)
         req.t_last = now
         if req.on_token is not None:
             try:
@@ -1669,13 +2035,19 @@ class GenerationEngine:
         req = slot.req
         now = time.monotonic()
         total_ms = (now - req.t_submit) * 1e3
+        req.note("finish", now, {"reason": finish})
         self._count("served")
-        self._h_gen.observe(total_ms)
+        self._h_gen.observe(total_ms, trace_id=req.trace_id)
+        if req.tenant is not None:
+            led = usage.ledger()
+            led.book(req.tenant, served=1)
+            led.observe_latency(req.tenant, total_ms)
         result = {
             "tokens": [int(t) for t in slot.tokens],
             "prompt_len": int(req.prompt.size),
             "steps": slot.steps,
             "finish": finish,
+            "trace_id": req.trace_id,
             "queue_wait_ms": round(
                 ((req.t_claimed or now) - req.t_submit) * 1e3, 3),
             "prefill_ms": round(req.prefill_ms, 3),
@@ -1688,10 +2060,68 @@ class GenerationEngine:
             slot.logits = []
         if slot.hit_tokens:
             result["prefix_hit_tokens"] = slot.hit_tokens
+        if req.record_timeline:
+            result["timeline"] = self._timeline_record(req, result)
+            self._store_timeline(result)
+        self._end_span(slot, finish)
         slot.req = None
         slot.decoding = False
         self._release_pages(slot)
+        blackbox.request_end(req.bb)
         req.future._resolve(outputs=result)
+
+    def _timeline_record(self, req: GenRequest, result: dict) -> dict:
+        """The sequence's timeline in ms from admission: every phase
+        boundary (claim, prefix hit, prefill slices, export or adopt,
+        finish) and every token, as the caller's clock saw them."""
+        t0 = req.t_submit
+
+        def rel(t):
+            return round((t - t0) * 1e3, 3)
+
+        events = []
+        for label, t, extra in req.events:
+            ev = {"at_ms": rel(t), "event": label}
+            if extra:
+                ev.update(extra)
+            events.append(ev)
+        token_ms = [rel(t) for t in req.t_tokens]
+        tl = {"trace_id": req.trace_id, "events": events,
+              "token_ms": token_ms, "ttft_ms": result.get("ttft_ms")}
+        if len(token_ms) >= 2:
+            gaps = sorted(round(b - a, 3)
+                          for a, b in zip(token_ms, token_ms[1:]))
+            tl["inter_token_ms"] = {"p50": gaps[len(gaps) // 2],
+                                    "max": gaps[-1],
+                                    "mean": round(sum(gaps) / len(gaps), 3)}
+        return tl
+
+    def _store_timeline(self, result: dict):
+        """The bounded finished-sequence store behind ``tracez``: recent
+        ring and the slowest ``FLAGS_trace_tail_keep`` by total time."""
+        rec = {k: result[k] for k in ("trace_id", "finish", "steps",
+                                      "prompt_len", "queue_wait_ms",
+                                      "prefill_ms", "ttft_ms", "total_ms")
+               if k in result}
+        rec["timeline"] = result.get("timeline")
+        with self._timeline_lock:
+            self._timelines_recent.append(rec)
+            if self._tail_keep:
+                self._timelines_slow.append(rec)
+                self._timelines_slow.sort(
+                    key=lambda r: -(r.get("total_ms") or 0.0))
+                del self._timelines_slow[self._tail_keep:]
+
+    def tracez(self) -> dict:
+        """The ``/tracez`` ``generation`` block: recent finished sequence
+        timelines (newest first), the slowest tail, and the TTFT /
+        inter-token exemplars (whose trace ids resolve here)."""
+        with self._timeline_lock:
+            recent = list(self._timelines_recent)
+            slow = list(self._timelines_slow)
+        return {"recent": recent[::-1], "slowest": slow,
+                "ttft_exemplars": self._h_ttft.exemplars(),
+                "inter_token_exemplars": self._h_itl.exemplars()}
 
     # -- introspection ------------------------------------------------------
     def stats(self) -> dict:
@@ -1739,6 +2169,7 @@ class GenerationEngine:
                     / max(n["spec_tokens_proposed"], 1), 4),
             },
             "draining": draining,
+            "weights_version": self.weights_version,
             "counters": n,
             "tokens_per_request": round(
                 n["generated_tokens"] / max(n["served"], 1), 2),
@@ -1755,8 +2186,9 @@ class GenerationEngine:
         }
 
     def introspect(self) -> dict:
-        """Stats plus the compiled-step inventories of the decode step's
-        executor and each prefill, chunk and verify bucket's
+        """Stats, the decode step's cost manifest, plus the compiled-step
+        inventories of the decode step's executor and each prefill, chunk
+        and verify bucket's
         (``cache_info``: signature, whether captured, graph pool bytes)
         and the CUDA graph captures of each program (``captures``:
         "decode", each prefill bucket by its length, each chunk bucket as
@@ -1768,8 +2200,13 @@ class GenerationEngine:
         captures = {"decode": self._decode_exe.captures()}
         captures.update({label(*key): exe.captures()
                          for key, (_p, _f, exe) in progs})
+        from ..costmodel import step_manifest
+
+        decode = list(self._decode_exe._cache.values())
         return {
             "stats": self.stats(),
+            # the decode step's cost manifest (flops, bytes, graph pool)
+            "decode_manifest": step_manifest(decode[-1]) if decode else None,
             "decode_executables": self._decode_exe.cache_info(),
             "prefill_executables": {label(*key): exe.cache_info()
                                     for key, (_p, _f, exe) in progs},

@@ -4,7 +4,7 @@ the uncached forward's rows on one device, or a speculative verify's rows
 from the decode step's.
 
     python3 probe_decode_rows.py [--layers 2] [--products {as_is,f64}]
-                                 [--program {decode,prefill,verify}]
+                                 [--program {decode,prefill,verify,serving}]
                                  [--device cuda|cpu] [--tiny]
 
 Builds Llama at Llama-2-7B's widths (``--tiny``: a 2-layer toy) with
@@ -34,6 +34,15 @@ same op in the decode step at position VERIFY_BASE + t (outputs without
 a row axis, such as ``kv_pool_gather``'s view, whole; the pool writes
 through that view).
 
+``--program serving`` holds BERT's serving program (``build_bert_serving``
+at BERT-base's widths, ``--tiny``: hidden 128, 2 heads; ``--layers``
+encoder layers, seq SERVING_SEQ, fp32) at batch 1 against the same
+request at row SERVING_ROW of a batch of SERVING_BATCH (``serving_rows``):
+every op's output row of the batch-1 run against that row of the
+batch-8 run (outputs without a batch axis, such as the position ids,
+whole).  This is the serving engine's batched = single invariant, op by
+op: a difference names the op whose rows depend on their batchmates.
+
 ``--products f64`` computes every torch.matmul in float64 and rounds it
 to float32, so that no product's rows depend on how many rows it has
 (the rounding hides the float64 sums' order almost always); the first op
@@ -55,6 +64,10 @@ SEQ = 128
 POSITIONS = (37, 101)
 BUCKET, PREFILL_LEN = 64, 50
 VERIFY_PAGE, VERIFY_BASE, VERIFY_ROWS, VERIFY_BUCKET = 16, 37, 5, 8
+BERT_BASE = dict(vocab_size=30522, hidden=768, num_heads=12,
+                 intermediate=3072)
+BERT_TINY = dict(vocab_size=97, hidden=128, num_heads=2, intermediate=256)
+SERVING_SEQ, SERVING_BATCH, SERVING_ROW = 128, 8, 3
 
 
 def lower_all(block, env, device):
@@ -220,11 +233,78 @@ def verify_rows(model, device, seed=13):
     return report
 
 
+def serving_feed(batch, seq_len, vocab, seed):
+    """BERT serving feeds: random ids and types, each row's attention
+    mask padded at a length of its own (row 0 full)."""
+    rng = np.random.RandomState(seed)
+    mask = np.ones((batch, seq_len), "float32")
+    for b in range(batch):
+        mask[b, seq_len - (b * 13) % (seq_len // 2):] = 0.0
+    return {"input_ids": rng.randint(0, vocab, (batch, seq_len)
+                                     ).astype("int64"),
+            "token_type_ids": (rng.rand(batch, seq_len) > 0.5
+                               ).astype("int64"),
+            "attn_mask": mask}
+
+
+def serving_rows(model, device, seq_len=SERVING_SEQ, seed=5):
+    """Every op's output of BERT's serving program run on one request
+    alone against the same op's row SERVING_ROW of a SERVING_BATCH-row
+    batch holding that request there, on `device` with `model`'s sizes
+    (``num_layers`` among them) and random weights: [{"op", "index",
+    "out", "max_abs_diff"}] in op order."""
+    import torch
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch.models import build_bert_serving
+
+    place = tpt.CPUPlace() if device.type == "cpu" else None
+    main, startup = tpt.Program(), tpt.Program()
+    startup._is_startup = True
+    startup.random_seed = main.random_seed = 9
+    with tpt.program_guard(main, startup):
+        build_bert_serving(seq_len=seq_len, **model)
+    scope = tpt.Scope()
+    exe = tpt.Executor(place)
+    exe.run(startup, scope=scope)
+    exe.close()
+    feed = serving_feed(SERVING_BATCH, seq_len, model["vocab_size"], seed)
+    block = main.global_block()
+
+    def run(rows):
+        feeds = {n: torch.as_tensor(v[rows], device=device)
+                 for n, v in feed.items()}
+        return lower_all(block, state_env(block, scope, feeds, device),
+                         device)
+
+    one = run(slice(SERVING_ROW, SERVING_ROW + 1))
+    many = run(slice(0, SERVING_BATCH))
+    seen, report = {}, []
+    for (op, got), (_op, want) in zip(one, many):
+        n = seen.get(op.type, 0)
+        seen[op.type] = n + 1
+        for name, a in got.items():
+            b = want.get(name)
+            if not isinstance(a, torch.Tensor) or b is None or \
+                    not a.numel():
+                continue
+            if a.shape != b.shape:
+                k = a.shape[0]  # rows of one request on the batch axis
+                if a.dim() != b.dim() or b.shape[0] != SERVING_BATCH * k \
+                        or a.shape[1:] != b.shape[1:]:
+                    continue
+                b = b[SERVING_ROW * k:(SERVING_ROW + 1) * k]
+            d = float((a.double() - b.double()).abs().max())
+            report.append({"op": op.type, "index": n, "out": name,
+                           "max_abs_diff": d})
+    return report
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=2)
     ap.add_argument("--products", choices=("as_is", "f64"), default="as_is")
-    ap.add_argument("--program", choices=("decode", "prefill", "verify"),
+    ap.add_argument("--program",
+                    choices=("decode", "prefill", "verify", "serving"),
                     default="decode")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--tiny", action="store_true")
@@ -251,6 +331,27 @@ def main():
             return matmul(a, b, **kw)
         torch.matmul = matmul_f64
 
+    if args.program == "serving":
+        model = dict(BERT_TINY if args.tiny else BERT_BASE,
+                     num_layers=args.layers)
+        report = serving_rows(model, device)
+        first = next((r for r in report if r["max_abs_diff"] > 0), None)
+        for r in report:
+            print(f"  {r['op']:>20} #{r['index']:<3} {r['out']:<40} "
+                  f"max|d| {r['max_abs_diff']:.3e}")
+        print(f"first op whose rows differ (batch 1 against row "
+              f"{SERVING_ROW} of {SERVING_BATCH}, {args.products} "
+              f"products): {first}")
+        print(json.dumps({"products": args.products, "program": "serving",
+                          "device": str(device),
+                          "kind": torch.cuda.get_device_name(0)
+                          if device.type == "cuda" else "cpu",
+                          "rows": SERVING_BATCH, "compared": len(report),
+                          "first": first,
+                          "max_abs_diff": max(
+                              (r["max_abs_diff"] for r in report),
+                              default=0.0)}))
+        return 0
     model = dict(TINY if args.tiny else LLAMA, num_layers=args.layers)
     if args.program == "verify":
         report = verify_rows(model, device)

@@ -360,3 +360,72 @@ def test_check_engine_counts_sums_a_pair():
     counts.gemm -= 1
     with pytest.raises(AssertionError):
         smoke.check_engine_counts((pre, dec), counts, 0, 0, "pair", False)
+
+
+def test_serving_phase_configuration():
+    """Phase 11: BERT-base at its published widths behind an engine at
+    the reference's serving defaults (max batch 8, max delay 5 ms), 64
+    requests of 1-3 rows from a seed whose ids stay below the poison
+    sentinel, and the /adopt prompts among 10b's."""
+    assert smoke.SERVE_BERT == dict(smoke.BERT_BASE, seq_len=128)
+    assert smoke.SERVE_ENGINE["max_batch"] == 8
+    assert smoke.SERVE_ENGINE["max_delay_ms"] == 5.0
+    assert (smoke.SERVE_REQUESTS, smoke.SERVE_CLIENTS) == (64, 16)
+    assert smoke.SERVE_POISON_ID == smoke.SERVE_BERT["vocab_size"] - 1
+    feeds = smoke.serving_feeds(smoke.SERVE_REQUESTS, seed=1100)
+    again = smoke.serving_feeds(smoke.SERVE_REQUESTS, seed=1100)
+    assert all(smoke.same_outputs(list(a.values()), list(b.values()))
+               for a, b in zip(feeds, again))
+    rows = [f["input_ids"].shape[0] for f in feeds]
+    assert set(rows) == {1, 2, 3}
+    for f in feeds:
+        assert f["input_ids"].max() < smoke.SERVE_POISON_ID
+        assert f["input_ids"].shape[1] == smoke.SERVE_BERT["seq_len"]
+        assert (f["attn_mask"][:, 0] == 1).all()
+    assert all(i < len(smoke.GEN_PROMPTS) for i in smoke.SERVE_ADOPT)
+
+
+def test_same_outputs_needs_equal_bits_and_dtypes():
+    a = [np.arange(4, dtype="float32"), np.arange(2)]
+    assert smoke.same_outputs(a, [x.copy() for x in a])
+    assert not smoke.same_outputs(a, [a[0].astype("float64"), a[1]])
+    b = a[0].copy()
+    b[1] = np.nextafter(b[1], 2)
+    assert not smoke.same_outputs(a, [b, a[1]])
+    assert not smoke.same_outputs(a, a[:1])
+
+
+class _Ev:
+    def __init__(self, start, end, cuda=True):
+        self.device_type = (torch.autograd.DeviceType.CUDA if cuda
+                            else torch.autograd.DeviceType.CPU)
+        self.time_range = type("R", (), {"start": start, "end": end})()
+
+
+class _Prof:
+    def __init__(self, events):
+        self._events = events
+
+    def events(self):
+        return self._events
+
+
+@pytest.mark.parametrize("spans,busy", [
+    ([(0, 10), (5, 15), (20, 30)], 25.0),   # two streams overlapping
+    ([(0, 10), (10, 20)], 20.0),             # back to back
+    ([(0, 100), (10, 20), (30, 40)], 100.0),  # nested
+    ([], 0.0)])
+def test_device_busy_union_counts_overlaps_once(spans, busy):
+    events = [_Ev(a, b) for a, b in spans] + [_Ev(0, 1000, cuda=False)]
+    assert smoke.device_busy_union(_Prof(events)) == busy
+
+
+def test_prom_line_reads_the_ports_metrics_text():
+    from paddle_tpu_torch import telemetry
+
+    telemetry.metrics.gauge("smoke_gauge").set(1.5)
+    telemetry.metrics.histogram("smoke_hist_ms").observe(2.0)
+    lines = [x for x in telemetry.prometheus_text().splitlines()
+             if x and not x.startswith("#")]
+    assert lines and all(smoke.PROM_LINE.match(x) for x in lines)
+    assert not smoke.PROM_LINE.match("bad line with spaces 1")

@@ -433,8 +433,29 @@ def test_adopt_and_swap_weights_raise(gen_engine):
     # adopt is ported; a dense engine has no pages to adopt into
     with pytest.raises(ValueError, match="requires the paged KV cache"):
         gen_engine.adopt(None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # swap_weights is ported: an empty checkpoint is refused before
+    # anything moves, a whole one swaps in place and reverts
+    from paddle_tpu_torch.inference import SwapMismatch
+
+    names = gen_engine._weight_names()
+    live = {n: gen_engine.scope.find_var(n) for n in names}
+    before = {n: t.clone() for n, t in live.items()}
+    ptrs = {n: t.data_ptr() for n, t in live.items()}
+    with pytest.raises(SwapMismatch, match="missing from checkpoint"):
         gen_engine.swap_weights({})
+    version = gen_engine.weights_version
+    res = gen_engine.swap_weights({n: (t * 0.5).numpy()
+                                   for n, t in before.items()})
+    assert res["weights_version"] == version + 1
+    assert res["replaced"] == len(names)
+    for n, t in live.items():
+        assert gen_engine.scope.find_var(n) is t
+        assert t.data_ptr() == ptrs[n]
+        assert torch.equal(t, before[n] * 0.5)
+    gen_engine.revert_weights()
+    assert gen_engine.weights_version == version + 2
+    for n, t in live.items():
+        assert torch.equal(t, before[n]) and t.data_ptr() == ptrs[n]
 
 
 def test_engine_without_cuda_and_without_cpu_raises(monkeypatch):

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module under paddle_tpu_torch/, and
-not chip_smoke.py, time_fp32.py, time_step.py, probe_decode_rows.py or
-probe_fetch.py, imports jax or the JAX package paddle_tpu."""
+not chip_smoke.py, time_fp32.py, time_step.py, probe_decode_rows.py,
+probe_fetch.py or probe_serving_host.py, imports jax or the JAX package
+paddle_tpu."""
 import ast
 import os
 
@@ -15,7 +16,8 @@ def _port_files():
              os.path.join(REPO, "time_fp32.py"),
              os.path.join(REPO, "time_step.py"),
              os.path.join(REPO, "probe_decode_rows.py"),
-             os.path.join(REPO, "probe_fetch.py")]
+             os.path.join(REPO, "probe_fetch.py"),
+             os.path.join(REPO, "probe_serving_host.py")]
     for root, _dirs, names in os.walk(os.path.join(REPO, "paddle_tpu_torch")):
         files.extend(os.path.join(root, n) for n in sorted(names)
                      if n.endswith(".py"))
