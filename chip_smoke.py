@@ -306,7 +306,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
       /adopt of a prefill-role server's segments gives them too; the
       launches of check_engine_counts over both engines; /swap "target":
       "generate" to a second set of weights (a checkpoint written to
-      disk, 25.10 GiB): every live weight then equals the second set, and
+      disk, 25.10 GiB, kept for phase 12b): every live weight then
+      equals the second set, and
       a prompt's stream equals a fresh engine's over the swapped storage
       and differs from the first weights'; the revert, the streams after
       it bit-equal, no weight moved, nothing recaptured; a drifted /swap
@@ -316,6 +317,61 @@ Phases (any failure raises and exits non-zero; nothing is caught):
       p99 as the client reads the stream beside the server's, the
       /adopt handoff, the generation swap_ms.  The "serving:" JSON line
       holds a's and b's numbers.
+12. the fleet (python -m paddle_tpu_torch.serving.replica processes on
+   the card under serving.FleetSupervisor, behind serving.Router and
+   RouterServer on 127.0.0.1; the phase's seconds and the run's are
+   printed).  First phases 10 and 11 are released in this process (the
+   weights' scope, the engines, their graphs and pools; the memory still
+   reserved is printed).
+   a. 11a's saved BERT-base (and its second seed's weights, saved beside
+      it) served by two replicas (--workers 1 --max-batch 8
+      --max-delay-ms 5): 11a's 64 requests through the router's
+      /predict, 16 closed-loop clients, five rounds.  Gates (tolerance
+      0): every answer equals Predictor.run of its rows alone; every
+      replica's /statusz names the card; a /profilez trace of a replica
+      during traffic holds the fp32 forward's (kernel #1) and the product
+      kernel's device records and no other attention or product kernel's,
+      and every graph replay in it but the last holds one batch's: 12
+      of kernel #1, 48 products at least (FLEET_DISPATCH); SIGKILL
+      of a replica mid-traffic: respawned at the same URL, ejected and
+      recovered by the router, attributed signal:SIGKILL, no request
+      failed except by shedding, every answer bit-equal; a rolling
+      restart under traffic: every exit code 0, every successor ready,
+      no non-shed failure; a hot swap to the second weights: converged,
+      every replica on the new weights_version, the answers (routed and
+      each replica's) equal a fresh Predictor on them; every replica
+      exits 0 at close.  Printed: requests/s and rows/s beside 11a's 2
+      in-process workers, client and replica latency p50 / p99 and the
+      router hop between them, the mean reply's MiB and its parse ms;
+      16 requests one at a time, straight to a replica and through the
+      router: the replica's own ms, what the reply adds (its JSON and
+      the socket) and what the router adds; spawn-to-ready, respawn,
+      rolling-restart
+      and hot-swap seconds, the longest /healthz gap while replicas start
+      and during the swap.
+   b. Llama-2-7B (32 layers, MHA, fp32, 4 slots x 1024, 257 pages of 16,
+      phase 10's buckets, random weights from the replica's --seed): a
+      one-replica fleet in role "both" answers the 8 GEN_PROMPTS through
+      the router's /generate, 64 new tokens each (the colocated
+      reference); FleetSupervisor.hot_swap(target="generate") swaps it
+      to 11b's second weights, /healthz polled every 100 ms meanwhile
+      (swapped in place: no restart fallback, no liveness kill, the
+      generation weights_version 2; the first prompt's 16 tokens through
+      the router equal 11b's fresh engine's on those weights, tolerance
+      0); it closes.  Then a prefill-role and a decode-role
+      replica: the same prompts, plain then streamed, through the
+      router's prefill -> /adopt -> decode pipeline.  Gates (tolerance
+      0): every token equals the colocated run's; disagg_generations 16,
+      affinity_lost 0; a /profilez trace of the prefill replica during
+      prefills holds the fp32 forward's (kernel #4), the product and
+      RMSNorm kernels' records and no other attention or product
+      kernel's, every graph replay in it but the last one prefill's: 32
+      of kernel #4, 128 products at least, 65 RMSNorms; every replica
+      exits 0 at close.  Printed: tokens/s, client TTFT and inter-token
+      p50 / p99 beside the decode replica's own, the export and adopt
+      ms, spawn-to-ready seconds of the both / prefill / decode
+      replicas, the swap's seconds and its longest /healthz gap.  The
+      "fleet:" JSON line holds a's and b's numbers.
 
 Every profiled replay (phases 4, 5, 6 and 9) also holds the profiler's
 launches of the forward, dK/dV and dQ kernels against what the
@@ -342,7 +398,11 @@ generation_parity (phase 10a, card requests), generation (phase 10b's
 dense traffic), generation_paged and generation_shared_prefix (its two
 paged runs), generation_spec (10c's speculating run) and
 generation_disagg (10d's pair, both transports), serving_engine (11a's
-2-worker traffic) and serving_http (11b's generation traffic). Kernel #4's entry also carries "f32_prefill": the fp32
+2-worker traffic) and serving_http (11b's generation traffic); and
+fleet_serving and fleet_generation (12a, 12b), which count kernel
+records in a replica's /profilez trace instead (the replicas' counters
+live in their processes): each kernel's "trace_record_paths" names
+them. Kernel #4's entry also carries "f32_prefill": the fp32
 forward at the largest prefill bucket, [1, 32, 512, 128] causal. The
 four backward entries also carry "f32": their fp32 kernel's device_ms,
 ms, bound_ms and SDPA's fp32 backward's library_device_ms at the same
@@ -549,6 +609,9 @@ def cuda_ms(fn, iters, warmup=10):
     return start.elapsed_time(end) / iters
 
 
+DEVICE_MS_TRIES = 6
+
+
 def device_ms(fn, iters, warmup=3, names=None):
     """Device time per call of `fn`: torch.profiler's self device time of
     each kernel that `iters` back-to-back calls launched, as its mean time
@@ -564,7 +627,11 @@ def device_ms(fn, iters, warmup=3, names=None):
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a session now and then records nothing at all
+    for attempt in range(DEVICE_MS_TRIES):
+        # a session now and then records nothing at all (three in a row
+        # once, in phase 7): try again after a pause
+        if attempt:
+            time.sleep(0.5)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -581,7 +648,8 @@ def device_ms(fn, iters, warmup=3, names=None):
             if names is not None:
                 names[:] = per_call
             return us / 1e3
-    raise AssertionError("the profiler saw no device time in three tries")
+    raise AssertionError(f"the profiler saw no device time in "
+                         f"{DEVICE_MS_TRIES} tries")
 
 
 def timed(fn, iters, warmup=3, device_iters=None, names=None):
@@ -3559,7 +3627,7 @@ def engine_traffic(eng, feeds, want, fa, n_attn, n_mul, what):
     return out, counts
 
 
-def serving_engine_flagship(tpt, fa, workdir):
+def serving_engine_flagship(tpt, fa, workdir, second_dir):
     """Phase 11a: BERT-base at its published widths (seq 128, fp32) saved
     with row-shaped fetches (models.build_bert_serving) and served by
     ServingEngine.  Gates (tolerance 0): every response of SERVE_REQUESTS
@@ -3573,9 +3641,11 @@ def serving_engine_flagship(tpt, fa, workdir):
     full queue sheds queue_full; a swap to a second seed's weights (an
     in-memory dict) answers as a fresh Predictor on them does, with no
     capture and every weight's data_ptr kept, and the revert brings the
-    first answers back.  Returns (the 2-worker engine, left running for
-    11b, its base predictor, the feeds, their answers, the 2-worker
-    traffic's launches)."""
+    first answers back.  The model is saved to `workdir` and, with the
+    second seed's weights, to `second_dir` (phase 12 serves and swaps
+    them).  Returns (the 2-worker engine, left running for 11b, its base
+    predictor, the feeds, their answers, the first SERVE_SWAP_REQUESTS'
+    answers on the second weights, the 2-worker traffic's launches)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch import fault
@@ -3601,11 +3671,10 @@ def serving_engine_flagship(tpt, fa, workdir):
         startup.random_seed = seed
         with tpt.scope_guard(scope):
             exe.run(startup)
-            if seed == SERVE_SEEDS[0]:
-                tpt.io.save_inference_model(
-                    workdir, feed_names,
-                    [outs["encoder_out"], outs["mlm_argmax"]], exe,
-                    main_program=main)
+            tpt.io.save_inference_model(
+                workdir if seed == SERVE_SEEDS[0] else second_dir,
+                feed_names, [outs["encoder_out"], outs["mlm_argmax"]], exe,
+                main_program=main)
         weights[seed] = {n: scope.find_var(n)
                          for n in scope.local_var_names()}
     exe.close()
@@ -3750,7 +3819,7 @@ def serving_engine_flagship(tpt, fa, workdir):
         raise AssertionError(f"11a swap: {numbers['swap']}")
     del weights
     SERVING["engine"] = numbers
-    return eng, pred, feeds, want, counts
+    return eng, pred, feeds, want, want_second, counts
 
 
 def post(url, payload, headers=None, timeout=600):
@@ -3826,7 +3895,7 @@ def concurrently(fn, args):
 
 
 def serving_http_flagship(tpt, fa, eng, pred, feeds, want, scope,
-                          dense_tokens):
+                          dense_tokens, gen_second_dir):
     """Phase 11b: a ServingServer on 127.0.0.1 over 11a's engine, with a
     paged, speculating Llama-2-7B engine attached (32 layers, fp32, 4
     slots x 1024, on `scope`'s weights).  Gates (tolerance 0): /predict at
@@ -3837,14 +3906,16 @@ def serving_http_flagship(tpt, fa, eng, pred, feeds, want, scope,
     one prompt with "speculate": true; /adopt of a prefill-role server's
     segments gives the colocated tokens; the launches of
     check_engine_counts over both engines; /swap "target": "generate" to a
-    second set of weights written as a checkpoint: every live weight then
+    second set of weights written as a checkpoint to `gen_second_dir`
+    (phase 12b swaps a replica to it): every live weight then
     equals the second set, and a prompt's stream differs from the first
     weights' and equals a fresh engine's over the swapped storage; then
     the revert, with the streams after it bit-equal and no weight moved
     or recaptured; a
     drifted /swap gets 409; close(drain=True) answers every queued
     request and leaves no worker or scheduler thread.  Returns the
-    generation traffic's launches."""
+    generation traffic's launches and the fresh engine's 16 tokens of the
+    first prompt on the second weights."""
     import pickle
     import threading
 
@@ -4013,7 +4084,7 @@ def serving_http_flagship(tpt, fa, eng, pred, feeds, want, scope,
             second[n] = (torch.randn(live.shape, generator=g,
                                      device=live.device) * 0.02).cpu(
                 ).numpy()
-        good = os.path.join(d, "good")
+        good = gen_second_dir
         os.makedirs(good)
         with open(os.path.join(good, "__params__"), "wb") as f:
             pickle.dump(second, f, protocol=5)
@@ -4089,7 +4160,811 @@ def serving_http_flagship(tpt, fa, eng, pred, feeds, want, scope,
     release(gen)
     pred.close()
     SERVING["http"] = numbers
-    return counts
+    return counts, fresh_tokens
+
+
+# -- phase 12: the fleet ----------------------------------------------------
+
+FLEET_SERVE_ARGV = ("--workers", "1", "--max-batch", "8", "--max-delay-ms",
+                    "5", "--queue-cap", "256", "--deadline-ms", "600000",
+                    "--device", "cuda")
+FLEET_GEN_ARGV = ("--generate", "--gen-paged", "--gen-vocab", "32000",
+                  "--gen-hidden", "4096", "--gen-layers", "32",
+                  "--gen-heads", "32", "--gen-intermediate", "11008",
+                  "--gen-slots", "4", "--gen-max-seq", "1024",
+                  "--gen-max-new", "64", "--gen-page-tokens", "16",
+                  "--gen-pages", "257", "--deadline-ms", "600000",
+                  "--device", "cuda")
+# phase 10's prefill buckets (the replica reads the flag's env var)
+FLEET_GEN_ENV = {"FLAGS_serving_prefill_buckets": "64,128,256,512"}
+# 12b's two fleets: the colocated reference, then the pair (the
+# supervisor pins each replica's role across respawns)
+FLEET_GEN_ROLES = {"colocated": ("both",), "pair": ("prefill", "decode")}
+FLEET_READY_S = 600.0
+FLEET_PROFILE_S = 2.0
+FLEET_PROFILE_CLIENTS = 3
+SERVE_SERIAL = 16
+# kernel records in a replica's /profilez trace, by family: the fp32
+# forward (kernel #1 in a BERT replica, #4 in a prefill replica), the
+# product kernel and the RMSNorm kernel; any other attention kernel
+# (tensor-core, backward) must not appear on a forward-only fp32 path
+# (tensor-core, backward, the library's) must not appear on a
+# forward-only fp32 path, nor any product of the library's
+TRACE_FAMILIES = {"fa_fwd_f32": ("fa_fwd_f32_kernel",),
+                  "gemm_f32": ("gemm_skinny_kernel", "gemm_tiled_kernel",
+                               "gemm_fold_kernel"),
+                  "rms_norm_f32": ("rms_norm_rows",),
+                  "other_attention": ("fa_fwd_tc_kernel", "fa_dkv_",
+                                      "fa_dq_", "flash_fwd", "fmha",
+                                      "efficient_attention"),
+                  "other_product": ("sgemm", "xmma_gemm", "cutlass",
+                                    "gemv", "gemmSN", "gemmk1", "nvjet",
+                                    "splitKreduce")}
+# what one graph replay of a fleet path holds: the fp32 forward once a
+# layer, four products a layer at least (a product may add a fold
+# kernel), RMSNorm twice a layer and once before the head (Llama) or not
+# at all (BERT)
+FLEET_DISPATCH = {"fleet_serving": dict(fa_fwd_f32=12, gemm_f32=4 * 12,
+                                        rms_norm_f32=0),
+                  "fleet_generation": dict(fa_fwd_f32=32, gemm_f32=4 * 32,
+                                           rms_norm_f32=2 * 32 + 1)}
+FLEET = {}
+# the paths of the kernels line whose "launches_by_path" counts are kernel
+# records in the replicas' /profilez traces, not wrapper counts
+TRACE_PATHS = ("fleet_serving", "fleet_generation")
+
+
+def trace_family(event):
+    """The TRACE_FAMILIES family of a Chrome trace event that is a kernel
+    record, else None."""
+    if str(event.get("cat", "")).lower() != "kernel":
+        return None
+    name = str(event.get("name", ""))
+    return next((fam for fam, keys in TRACE_FAMILIES.items()
+                 if any(k in name for k in keys)), None)
+
+
+def trace_records(events):
+    """Kernel records of a Chrome trace's events, by TRACE_FAMILIES."""
+    out = dict.fromkeys(TRACE_FAMILIES, 0)
+    for e in events:
+        fam = trace_family(e)
+        if fam is not None:
+            out[fam] += 1
+    return out
+
+
+def trace_dispatches(events):
+    """The kernel records by family of each CUDA graph replay whose
+    cudaGraphLaunch call is in the trace, in launch order: a graph's
+    kernels carry its launch call's correlation id."""
+    launches = {e.get("args", {}).get("correlation"): e.get("ts", 0)
+                for e in events
+                if str(e.get("cat", "")).lower() == "cuda_runtime"
+                and "GraphLaunch" in str(e.get("name", ""))}
+    launches.pop(None, None)
+    groups = {c: dict.fromkeys(TRACE_FAMILIES, 0) for c in launches}
+    for e in events:
+        fam = trace_family(e)
+        corr = e.get("args", {}).get("correlation")
+        if fam is not None and corr in groups:
+            groups[corr][fam] += 1
+    return [groups[c] for c in sorted(launches, key=launches.get)
+            if any(groups[c].values())]
+
+
+def dispatch_gate(events, path, what):
+    """Every graph replay of the trace but the last (the profiler may
+    stop inside it) holds what one dispatch of `path` must hold
+    (FLEET_DISPATCH): the fp32 forward once a layer, at least its
+    products, its RMSNorms, and no other attention or product kernel; at
+    least two replays.  Returns the replays' records."""
+    want = FLEET_DISPATCH[path]
+    dispatches = trace_dispatches(events)
+    bad = [d for d in dispatches[:-1]
+           if d["fa_fwd_f32"] != want["fa_fwd_f32"]
+           or d["gemm_f32"] < want["gemm_f32"]
+           or d["rms_norm_f32"] != want["rms_norm_f32"]
+           or d["other_attention"] or d["other_product"]]
+    if len(dispatches) < 2 or bad:
+        raise AssertionError(
+            f"{what}: {len(dispatches)} graph replays in the trace, "
+            f"{len(bad)} of them short of {want}: {bad[:3]}; "
+            f"first kernel events "
+            f"{[e for e in events if trace_family(e)][:2]}")
+    return dispatches
+
+
+def profilez_events(url, sec=FLEET_PROFILE_S):
+    """GET `url`/profilez?sec=N on a replica (its handler thread traces
+    the whole process with torch.profiler for N seconds and writes
+    trace.json into the replica's metrics dir): the trace's events."""
+    status, body = get(f"{url}/profilez?sec={sec}", timeout=300)
+    doc = json.loads(body)
+    if status != 200 or "trace.json" not in doc.get("files", []):
+        raise AssertionError(f"/profilez on {url}: {status} {doc}")
+    with open(os.path.join(doc["dir"], "trace.json")) as f:
+        return json.load(f).get("traceEvents", [])
+
+
+class HealthGaps:
+    """Polls each added URL's /healthz every 100 ms on a thread of its
+    own and keeps, per URL, the longest gap between two answers (after
+    its first): what the supervisor's liveness deadline would see."""
+
+    def __init__(self, urls=()):
+        import threading
+
+        self.last, self.gap_s = {}, {}
+        for u in urls:
+            self.add(u)
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._run, daemon=True)
+        self._t.start()
+
+    def add(self, url):
+        self.last.setdefault(url, None)
+        self.gap_s.setdefault(url, 0.0)
+
+    def _run(self):
+        while not self._stop.is_set():
+            for u in list(self.last):
+                try:
+                    get(u + "/healthz", timeout=10)
+                except OSError:
+                    continue
+                now = time.monotonic()
+                if self.last[u] is not None:
+                    self.gap_s[u] = max(self.gap_s[u], now - self.last[u])
+                self.last[u] = now
+            self._stop.wait(0.1)
+
+    def stop(self):
+        self._stop.set()
+        self._t.join(30)
+        return max(self.gap_s.values(), default=None)
+
+
+def spawn_fleet(what, **kw):
+    """A FleetSupervisor (liveness deadline at its default) and, per
+    replica, the seconds from spawn to its first ready /healthz; the
+    longest /healthz gap of any replica while they started."""
+    from paddle_tpu_torch.serving import FleetSupervisor
+
+    t0 = time.monotonic()
+    sup = FleetSupervisor(**kw)
+    ready, gaps = {}, HealthGaps()
+    deadline = t0 + FLEET_READY_S
+    while len(ready) < sup.n and time.monotonic() < deadline:
+        for rep in sup._replicas:
+            if rep.proc is not None and rep.proc.poll() is not None:
+                raise AssertionError(f"{what}: replica {rep.idx} exited "
+                                     f"rc={rep.proc.poll()} while starting")
+            if rep.idx in ready or not os.path.exists(rep.endpoint_file):
+                continue
+            try:
+                with open(rep.endpoint_file) as f:
+                    url = json.load(f)["url"]
+                doc = json.loads(get(url + "/healthz", timeout=10)[1])
+            except (OSError, ValueError, KeyError):
+                continue
+            gaps.add(url)
+            if doc.get("ready"):
+                ready[rep.idx] = time.monotonic() - t0
+        time.sleep(0.1)
+    urls = sup.wait_ready(timeout_s=max(1.0, deadline - time.monotonic()))
+    gap = gaps.stop()
+    log(f"  {what}: {sup.n} replica(s) at {urls}, spawn to ready "
+        f"{json.dumps(ready)} s, longest /healthz gap while starting "
+        f"{gap} s")
+    return sup, urls, ready, gap
+
+
+def routed(sup, **kw):
+    from paddle_tpu_torch.serving import Router, RouterServer
+
+    router = Router(sup.endpoints(), **dict(dict(poll_interval_ms=100.0),
+                                            **kw))
+    server = RouterServer(router, host="127.0.0.1").start()
+    deadline = time.monotonic() + 60
+    while router.stats()["routable"] < sup.n:
+        if time.monotonic() > deadline:
+            raise AssertionError(f"fleet never routable: {router.stats()}")
+        router.poll_once()
+        time.sleep(0.05)
+    return router, server
+
+
+def closed_rows(eng_outs, want):
+    """A /predict answer's outputs (JSON lists) against `want` (the
+    arrays Predictor.run gave for the same rows alone): tolerance 0."""
+    return len(eng_outs) == len(want) and all(
+        np.array_equal(np.asarray(o, dtype=w.dtype), w) and
+        np.asarray(o).shape == w.shape for o, w in zip(eng_outs, want))
+
+
+def http_closed_loop(url, feeds, want, clients=SERVE_CLIENTS, rounds=1,
+                     stop=None):
+    """Passes of the closed loop of `feeds` through POST `url`/predict by
+    `clients` threads, `rounds` of them or, with `stop` (an Event), until
+    it is set after a pass: per request the status, whether a 200's
+    outputs equal `want` (tolerance 0), the client's and the replica's
+    latency (its "ms"); the walls of the passes."""
+    import threading
+
+    bodies = [json.dumps({"inputs": {n: a.tolist() for n, a in f.items()}}
+                         ).encode() for f in feeds]
+    recs, walls = [], []
+    while True:
+        nxt, lock = [0], threading.Lock()
+        got = [None] * len(feeds)
+
+        def client():
+            while True:
+                with lock:
+                    i = nxt[0]
+                    nxt[0] += 1
+                if i >= len(feeds):
+                    return
+                t = time.perf_counter()
+                try:
+                    status, body, _ = post(url + "/predict", bodies[i])
+                except OSError as e:
+                    got[i] = dict(status=None, error=str(e))
+                    continue
+                ms = (time.perf_counter() - t) * 1e3
+                t = time.perf_counter()
+                doc = json.loads(body)
+                parse_ms = (time.perf_counter() - t) * 1e3
+                got[i] = dict(status=status, client_ms=ms, bytes=len(body),
+                              parse_ms=parse_ms,
+                              replica_ms=doc.get("ms"),
+                              equal=status == 200 and closed_rows(
+                                  doc["outputs"], want[i]),
+                              reason=doc.get("reason"))
+
+        threads = [threading.Thread(target=client) for _ in range(clients)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(900)
+        walls.append(time.perf_counter() - t0)
+        recs += got
+        if (stop.is_set() if stop is not None else len(walls) >= rounds):
+            return recs, walls
+
+
+def traffic_gate(recs, what):
+    """Every request answered or shed (503), every answer bit-equal;
+    returns the sheds."""
+    bad = [r for r in recs if r is None or (r["status"] != 503 and not (
+        r["status"] == 200 and r["equal"]))]
+    if bad:
+        raise AssertionError(f"12a {what}: {len(bad)} of {len(recs)} "
+                             f"requests failed or differ: {bad[:3]}")
+    return sum(1 for r in recs if r["status"] == 503)
+
+
+def in_background(fn, *args, **kw):
+    """Run fn(*args, **kw) on a thread; the returned join() gives its
+    result (or raises its exception)."""
+    import threading
+
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn(*args, **kw)
+        except BaseException as e:  # noqa: BLE001 — re-raised in join
+            box["err"] = e
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+
+    def join():
+        t.join(900)
+        if "err" in box:
+            raise box["err"]
+        return box["out"]
+
+    return join
+
+
+def background_traffic(url, feeds, want):
+    """Closed-loop traffic on a thread until the returned stop() is
+    called; stop() gives its records."""
+    import threading
+
+    ev = threading.Event()
+    join = in_background(http_closed_loop, url, feeds, want, stop=ev)
+
+    def stop():
+        ev.set()
+        return join()[0]
+
+    return stop
+
+
+def wait_ready_again(rep, old_pid, t0):
+    """Seconds from `t0` until slot `rep` runs a new life answering
+    ready."""
+    while True:
+        h = None
+        if rep.proc.pid != old_pid and rep.url:
+            try:
+                h = json.loads(get(rep.url + "/healthz", timeout=5)[1])
+            except OSError:
+                h = None
+        if h and h.get("ready"):
+            return time.monotonic() - t0
+        if time.monotonic() - t0 > FLEET_READY_S:
+            raise AssertionError(f"replica {rep.idx} never came back ready")
+        time.sleep(0.1)
+
+
+def close_fleet(sup, router, server, what):
+    """Close the router tier and the fleet; every replica must exit 0
+    (a planned exit)."""
+    server.close()
+    router.close()
+    sup.close(timeout_s=120)
+    rcs = [r.proc.returncode for r in sup._replicas]
+    if rcs != [0] * sup.n:
+        raise AssertionError(f"{what}: replicas exited {rcs} at close")
+    return rcs
+
+
+def serial_hops(router_url, replica_url, feeds, want):
+    """One request at a time, each straight to a replica and then
+    through the router: p50 of the replica's own ms, of what the direct
+    request adds to it (the reply's JSON and the socket) and of what
+    the router adds to the direct request (its hop)."""
+    direct, routed = (http_closed_loop(u, feeds, want, clients=1)[0]
+                      for u in (replica_url, router_url))
+    for recs, what in ((direct, "straight to a replica"),
+                       (routed, "through the router")):
+        traffic_gate(recs, f"one at a time, {what}")
+    med = lambda xs: float(np.median(xs))  # noqa: E731
+    return dict(requests=len(feeds),
+                replica_ms_p50=med([r["replica_ms"] for r in direct]),
+                reply_ms_p50=med([r["client_ms"] - r["replica_ms"]
+                                  for r in direct]),
+                router_hop_ms_p50=med([b["client_ms"] - a["client_ms"]
+                                       for a, b in zip(direct, routed)]),
+                parse_ms_p50=med([r["parse_ms"] for r in direct]),
+                mb_p50=med([r["bytes"] / 2 ** 20 for r in direct]))
+
+
+def fleet_serving(workdir, second_dir, feeds, want, want_second,
+                  in_process):
+    """Phase 12a: 11a's saved BERT-base served by two replica processes
+    behind the router.  Gates (tolerance 0): every routed answer equals
+    Predictor.run of its rows alone; every replica's /statusz names the
+    card; a /profilez trace during traffic holds kernel #1's and the
+    product kernel's records; a SIGKILLed replica is respawned at its
+    URL, ejected and recovered by the router, no request failing except
+    by shedding; a rolling restart under traffic with zero non-shed
+    failures and every exit code 0; a hot swap to the second seed's
+    weights answered as a fresh Predictor on them; every replica exits
+    0 at close.  Returns the trace's kernel records."""
+    import torch
+
+    argv = ["--model-dir", workdir]
+    for n in feeds[0]:
+        argv += ["--shape", f"{n}={SERVE_BERT['seq_len']}"]
+    argv += list(FLEET_SERVE_ARGV)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as fd:
+        sup, urls, ready, gap = spawn_fleet(
+            "12a BERT-base", replicas=2, replica_argv=argv, workdir=fd)
+        out["startup_s"], out["startup_healthz_gap_s"] = ready, gap
+        router = server = None
+        try:
+            router, server = routed(sup)
+            card = torch.cuda.get_device_name(0)
+            for u in urls:
+                if card not in get(u + "/statusz")[1].decode():
+                    raise AssertionError(f"12a: {u}/statusz does not name "
+                                         f"{card}")
+
+            recs, walls = http_closed_loop(server.url, feeds, want,
+                                           rounds=SERVE_ROUNDS)
+            shed = traffic_gate(recs, "traffic")
+            rows = sum(f["input_ids"].shape[0] for f in feeds)
+            wall = float(np.median(walls))
+            client = np.asarray([r["client_ms"] for r in recs])
+            replica = np.asarray([r["replica_ms"] for r in recs])
+            hop = client - replica
+            out["traffic"] = dict(
+                requests=len(feeds), rows=rows, rounds=SERVE_ROUNDS,
+                shed=shed, wall_s=wall, round_walls_s=walls,
+                requests_per_s=len(feeds) / wall, rows_per_s=rows / wall,
+                in_process_2_workers=dict(
+                    requests_per_s=in_process["requests_per_s"],
+                    rows_per_s=in_process["rows_per_s"]),
+                client_ms_p50=float(np.percentile(client, 50)),
+                client_ms_p99=float(np.percentile(client, 99)),
+                replica_ms_p50=float(np.percentile(replica, 50)),
+                replica_ms_p99=float(np.percentile(replica, 99)),
+                router_hop_ms_p50=float(np.percentile(hop, 50)),
+                router_hop_ms_p99=float(np.percentile(hop, 99)),
+                response_mb_mean=float(np.mean([r["bytes"] for r in recs])
+                                       / 2 ** 20),
+                client_parse_ms_p50=float(np.percentile(
+                    [r["parse_ms"] for r in recs], 50)))
+            log("  12a traffic: " + json.dumps(out["traffic"]))
+            out["serial"] = serial_hops(server.url, urls[0],
+                                        feeds[:SERVE_SERIAL], want)
+            log("  12a one request at a time: " + json.dumps(out["serial"]))
+
+            # a /profilez trace of replica 0 while traffic runs
+            stop = background_traffic(server.url, feeds, want)
+            time.sleep(0.3)
+            events = profilez_events(urls[0])
+            traffic_gate(stop(), "traffic while profiling")
+            records = trace_records(events)
+            out["trace_records"] = records
+            dispatches = dispatch_gate(events, "fleet_serving",
+                                       "12a /profilez trace")
+            out["trace_dispatches"] = len(dispatches)
+            log(f"  12a /profilez trace of replica 0: kernel records "
+                f"{records}; {len(dispatches)} graph replays, each but "
+                f"the last holding one dispatch's "
+                f"{FLEET_DISPATCH['fleet_serving']} at least: "
+                f"{dispatches}")
+            if records["other_attention"] or records["other_product"]:
+                raise AssertionError(f"12a trace records {records}")
+
+            # SIGKILL replica 0 mid-traffic
+            before = dict(router.stats()["counters"])
+            victim = sup._replicas[0]
+            old_pid = victim.proc.pid
+            stop = background_traffic(server.url, feeds, want)
+            time.sleep(0.5)
+            t_kill = time.monotonic()
+            os.kill(old_pid, 9)
+            respawn_s = wait_ready_again(victim, old_pid, t_kill)
+            deadline = time.monotonic() + 60
+            while router.stats()["routable"] < 2:
+                if time.monotonic() > deadline:
+                    raise AssertionError("12a: the respawned replica was "
+                                         "never recovered")
+                time.sleep(0.1)
+            time.sleep(0.5)  # some traffic through the recovered fleet
+            recs = stop()
+            after = router.stats()["counters"]
+            out["sigkill"] = dict(
+                requests=len(recs),
+                shed=traffic_gate(recs, "traffic through a SIGKILL"),
+                respawn_s=respawn_s, url_kept=victim.url == urls[0],
+                attribution=victim.last_death["attribution"],
+                ejections=after["ejections"] - before["ejections"],
+                recoveries=after["recoveries"] - before["recoveries"],
+                retries=after["retries"] - before["retries"])
+            log("  12a SIGKILL: " + json.dumps(out["sigkill"]))
+            if not (out["sigkill"]["url_kept"]
+                    and out["sigkill"]["ejections"] >= 1
+                    and out["sigkill"]["recoveries"] >= 1
+                    and out["sigkill"]["attribution"] == "signal:SIGKILL"):
+                raise AssertionError(f"12a SIGKILL: {out['sigkill']}")
+
+            # rolling restart under traffic
+            stop = background_traffic(server.url, feeds, want)
+            t0 = time.monotonic()
+            report = sup.rolling_restart(ready_timeout_s=FLEET_READY_S)
+            rolling_s = time.monotonic() - t0
+            recs = stop()
+            rcs = [e.get("exit_rc") for e in report["replicas"]]
+            out["rolling_restart"] = dict(
+                seconds=rolling_s, exit_rcs=rcs, requests=len(recs),
+                shed=traffic_gate(recs, "traffic through the rolling "
+                                  "restart"),
+                successors_ready=[e.get("successor_ready")
+                                  for e in report["replicas"]])
+            log("  12a rolling restart: "
+                + json.dumps(out["rolling_restart"]))
+            if rcs != [0, 0] or not all(
+                    out["rolling_restart"]["successors_ready"]):
+                raise AssertionError(f"12a rolling restart: {report}")
+
+            # hot swap to the second seed's weights
+            t0 = time.monotonic()
+            gaps = HealthGaps(sup.endpoints())
+            rep = sup.hot_swap(second_dir, ready_timeout_s=FLEET_READY_S)
+            swap_s = time.monotonic() - t0
+            swap_gap = gaps.stop()
+            versions = [json.loads(get(u + "/healthz")[1])[
+                "weights_version"] for u in sup.endpoints()]
+            if not rep["converged"] or len(set(versions)) != 1 \
+                    or versions[0] < 2:
+                raise AssertionError(f"12a hot swap: {rep}, versions "
+                                     f"{versions}")
+            sub = feeds[:SERVE_SWAP_REQUESTS]
+            recs, _ = http_closed_loop(server.url, sub, want_second)
+            traffic_gate(recs, "answers after the hot swap")
+            for u in sup.endpoints():
+                traffic_gate(http_closed_loop(u, sub[:4], want_second[:4],
+                                              clients=4)[0],
+                             f"{u} after the hot swap")
+            out["hot_swap"] = dict(
+                seconds=swap_s, converged=rep["converged"],
+                weights_versions=versions,
+                fallbacks=[r.get("fallback") for r in rep["replicas"]],
+                longest_healthz_gap_s=swap_gap)
+            log("  12a hot swap (answers equal a fresh Predictor on the "
+                "second weights): " + json.dumps(out["hot_swap"]))
+            out["close_exit_rcs"] = close_fleet(sup, router, server, "12a")
+        finally:
+            if server is not None:
+                server.close()
+                router.close()
+            sup.close(timeout_s=120)
+    FLEET["serving"] = out
+    return out["trace_records"]
+
+
+def generate_http(url, prompt, stream):
+    """One /generate of GEN_NEW_TOKENS through `url`: (tokens, finish,
+    the client's TTFT ms and inter-token ms list for a stream)."""
+    body = {"prompt": [int(t) for t in prompt],
+            "max_new_tokens": GEN_NEW_TOKENS}
+    if not stream:
+        status, raw, _ = post(url + "/generate", body)
+        doc = json.loads(raw)
+        if status != 200:
+            raise AssertionError(f"/generate: {status} {doc}")
+        return doc["tokens"], doc["finish"], None, None
+    body["stream"] = True
+    toks, final, t0, times = stream_tokens(url + "/generate", body)
+    if final is None or final.get("error"):
+        raise AssertionError(f"streamed /generate ended {final}")
+    return (toks, final.get("finish"), (times[0] - t0) * 1e3,
+            list(np.diff(times) * 1e3))
+
+
+def generate_all(url, prompts, stream):
+    """The prompts' /generate requests, all at once: (tokens by prompt,
+    finishes, wall seconds, TTFTs, inter-token ms)."""
+    t0 = time.perf_counter()
+    res = concurrently(generate_http, [(url, p, stream) for p in prompts])
+    wall = time.perf_counter() - t0
+    return ([r[0] for r in res], [r[1] for r in res], wall,
+            [r[2] for r in res if r[2] is not None],
+            [x for r in res if r[3] for x in r[3]])
+
+
+def brief(summary):
+    """A latency summary's count, p50 and p99."""
+    return {k: summary.get(k) for k in ("count", "p50", "p99")}
+
+
+def pct(xs, q):
+    return float(np.percentile(np.asarray(xs), q)) if len(xs) else None
+
+
+def disagg_counters_ok(counters, n_prompts):
+    """The router's counters after 12b's pair served the prompts plain
+    and streamed: every one of the 2 n generations went through the
+    prefill -> /adopt -> decode pipeline, none lost its decode replica."""
+    return (counters["disagg_generations"] == 2 * n_prompts
+            and counters["affinity_lost"] == 0)
+
+
+def generation_swap(sup, router_url, checkpoint_dir, prompt,
+                    want_swapped, want_first):
+    """12b's hot swap: FleetSupervisor.hot_swap(target="generate") of the
+    colocated replica to the second weights phase 11b wrote (25.10 GiB,
+    read by the replica inside its POST /swap), /healthz polled every
+    100 ms meanwhile.  Gates: swapped in place (200, no restart fallback,
+    no liveness kill), the generation engine at weights_version 2, and
+    the prompt's tokens through the router equal phase 11b's fresh
+    engine's on the second weights (tolerance 0) and differ from the
+    first weights'."""
+    victim = sup._replicas[0]
+    kills = victim.hung_kills
+    gaps = HealthGaps(sup.endpoints())
+    t0 = time.monotonic()
+    res = sup.hot_swap(checkpoint_dir, ready_timeout_s=FLEET_READY_S,
+                       target="generate")
+    seconds = time.monotonic() - t0
+    gap = gaps.stop()
+    (entry,) = res["replicas"]
+    health = json.loads(get(sup.endpoints()[0] + "/healthz")[1])
+    status, body, _ = post(router_url + "/generate", {
+        "prompt": [int(t) for t in prompt],
+        "max_new_tokens": len(want_swapped)})
+    tokens = json.loads(body).get("tokens") if status == 200 else None
+    out = dict(seconds=seconds, swap_ms=entry.get("swap_ms"),
+               swap_status=entry.get("swap_status"),
+               fallback=entry.get("fallback"), converged=res["converged"],
+               weights_version=health["generation"]["weights_version"],
+               hung_kills=victim.hung_kills - kills,
+               longest_healthz_gap_s=gap,
+               liveness_timeout_s=sup._liveness_s,
+               tokens_equal_fresh_engine=tokens == list(want_swapped),
+               tokens_differ_from_first=tokens != list(
+                   want_first[:len(want_swapped)]))
+    log("  12b hot swap of the generation weights (25.10 GiB): "
+        + json.dumps(out))
+    if not (res["converged"] and out["swap_status"] == 200
+            and not out["fallback"] and out["hung_kills"] == 0
+            and out["weights_version"] == 2
+            and out["tokens_equal_fresh_engine"]
+            and out["tokens_differ_from_first"]):
+        raise AssertionError(f"12b hot swap: {out} {res}")
+    return out
+
+
+def fleet_generation(gen_second_dir, swapped_tokens):
+    """Phase 12b: Llama-2-7B (32 layers, fp32, 4 slots x 1024, 257 pages
+    of 16) in replica processes behind the router.  A one-replica fleet
+    in role "both" answers GEN_PROMPTS through /generate (the colocated
+    reference), is hot-swapped to phase 11b's second weights
+    (`gen_second_dir`; generation_swap) and closes; then a prefill-role
+    and a decode-role replica serve the prompts through the router's
+    prefill -> /adopt -> decode pipeline.  Gates (tolerance 0): the
+    swap's (generation_swap: the first prompt's tokens equal
+    `swapped_tokens`); the disaggregated tokens, plain and streamed,
+    equal the colocated ones; disagg_generations 16 and affinity_lost 0;
+    a /profilez trace of the prefill replica during prefills holds kernel
+    #4's fp32 forward and the product and RMSNorm kernels' records, every
+    graph replay but the last one whole prefill's (dispatch_gate); every
+    replica exits 0 at close.  Returns the trace's kernel records."""
+    prompts = gen_prompts(GEN_PROMPTS, GEN["vocab_size"], 32)
+    n_tokens = len(prompts) * GEN_NEW_TOKENS
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_genfleet_") as fd:
+        sup, urls, ready, gap = spawn_fleet(
+            "12b colocated", roles=list(FLEET_GEN_ROLES["colocated"]),
+            replica_argv=FLEET_GEN_ARGV, env=FLEET_GEN_ENV,
+            workdir=os.path.join(fd, "both"))
+        router = server = None
+        try:
+            router, server = routed(sup)
+            want, finish, wall, _, _ = generate_all(server.url, prompts,
+                                                    False)
+            if any(f != "length" or len(t) != GEN_NEW_TOKENS
+                   for t, f in zip(want, finish)):
+                raise AssertionError(f"12b colocated: finishes {finish}")
+            out["colocated"] = dict(startup_s=ready[0],
+                                    startup_healthz_gap_s=gap,
+                                    tokens=n_tokens, wall_s=wall,
+                                    tokens_per_s=n_tokens / wall)
+            log("  12b colocated through the router: "
+                + json.dumps(out["colocated"]))
+            out["hot_swap"] = generation_swap(
+                sup, server.url, gen_second_dir, prompts[0],
+                swapped_tokens, want[0])
+            close_fleet(sup, router, server, "12b colocated")
+        finally:
+            if server is not None:
+                server.close()
+                router.close()
+            sup.close(timeout_s=120)
+
+        sup, urls, ready, gap = spawn_fleet(
+            "12b prefill / decode", roles=list(FLEET_GEN_ROLES["pair"]),
+            replica_argv=FLEET_GEN_ARGV, env=FLEET_GEN_ENV,
+            workdir=os.path.join(fd, "pair"))
+        router = server = None
+        try:
+            router, server = routed(sup)
+            if not router.disagg_active():
+                raise AssertionError("12b: the router sees no prefill / "
+                                     "decode pair")
+            got, finish, wall, _, _ = generate_all(server.url, prompts,
+                                                   False)
+            plain_equal = got == want
+            got_s, _, wall_s, ttft, itl = generate_all(server.url, prompts,
+                                                       True)
+            stream_equal = got_s == want
+            counters = router.stats()["counters"]
+            pre, dec = (json.loads(get(u + "/healthz")[1])["generation"]
+                        for u in urls)
+
+            # a /profilez trace of the prefill replica while prompts of
+            # the longest length, each new (no prefix hit), are prefilled
+            records, n_dispatches = profile_prefills(server.url, urls[0])
+            out["pair"] = dict(
+                startup_s={"prefill": ready[0], "decode": ready[1]},
+                startup_healthz_gap_s=gap,
+                plain_bit_equal=plain_equal, stream_bit_equal=stream_equal,
+                tokens=n_tokens, plain_wall_s=wall,
+                tokens_per_s=n_tokens / wall, stream_wall_s=wall_s,
+                tokens_per_s_stream=n_tokens / wall_s,
+                client_ttft_ms_p50=pct(ttft, 50),
+                client_ttft_ms_p99=pct(ttft, 99),
+                client_inter_token_ms_p50=pct(itl, 50),
+                client_inter_token_ms_p99=pct(itl, 99),
+                decode_replica_ttft_ms=brief(dec["ttft_ms"]),
+                decode_replica_inter_token_ms=brief(dec["inter_token_ms"]),
+                prefill_replica_prefill_ms=brief(pre["prefill_ms"]),
+                export_ms=brief(pre["segment_export_ms"]),
+                adopt_ms=brief(dec["segment_adopt_ms"]),
+                disagg_generations=counters["disagg_generations"],
+                affinity_lost=counters["affinity_lost"],
+                trace_records=records, trace_dispatches=n_dispatches)
+            log("  12b prefill / decode through the router: "
+                + json.dumps(out["pair"]))
+            if not (plain_equal and stream_equal
+                    and disagg_counters_ok(counters, len(prompts))):
+                raise AssertionError(f"12b: {out['pair']}")
+            if records["other_attention"] or records["other_product"]:
+                raise AssertionError(f"12b trace records {records}")
+            close_fleet(sup, router, server, "12b prefill / decode")
+        finally:
+            if server is not None:
+                server.close()
+                router.close()
+            sup.close(timeout_s=120)
+    FLEET["generation"] = out
+    return out["pair"]["trace_records"]
+
+
+def profile_prefills(url, prefill_url):
+    """The kernel records of a /profilez trace of the prefill replica
+    taken while FLEET_PROFILE_CLIENTS clients send /generate requests
+    through the router at `url`, each a new prompt of the longest
+    GEN_PROMPTS length (a new prompt has no prefix hit, so its whole
+    prefill runs on kernel #4), held to one prefill a graph replay
+    (dispatch_gate); and the number of replays."""
+    import threading
+
+    stop, n = threading.Event(), [0]
+    lock = threading.Lock()
+
+    def client():
+        while not stop.is_set():
+            with lock:
+                i = n[0]
+                n[0] += 1
+            prompt = gen_prompts((max(GEN_PROMPTS),), GEN["vocab_size"],
+                                 4000 + i)[0]
+            generate_http(url, prompt, False)
+
+    joins = [in_background(client) for _ in range(FLEET_PROFILE_CLIENTS)]
+    time.sleep(0.5)
+    events = profilez_events(prefill_url, sec=2 * FLEET_PROFILE_S)
+    stop.set()
+    for j in joins:
+        j()
+    records = trace_records(events)
+    dispatches = dispatch_gate(events, "fleet_generation",
+                               "12b /profilez trace")
+    log(f"  12b /profilez trace of the prefill replica ({n[0]} prompts "
+        f"of {max(GEN_PROMPTS)} tokens sent meanwhile): kernel records "
+        f"{records}; {len(dispatches)} graph replays, each but the last "
+        f"holding one prefill's {FLEET_DISPATCH['fleet_generation']} at "
+        f"least: {dispatches}")
+    return records, len(dispatches)
+
+
+def trace_launches(records, index):
+    """A fleet path's Launches: the fp32 forward's trace records at
+    `index` of the six attention kernels, the product and RMSNorm
+    kernels' beside them."""
+    counts = [0] * 6
+    counts[index] = records["fa_fwd_f32"]
+    out = Launches(counts)
+    out.gemm, out.rms_norm = records["gemm_f32"], records["rms_norm_f32"]
+    return out
+
+
+def release_card(what):
+    """Free what the process's caching allocator holds; print what stays
+    reserved."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved() / 2 ** 30
+    log(f"  {what}: {reserved:.2f} GiB reserved, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    return reserved
 
 
 def main():
@@ -4111,7 +4986,7 @@ def main():
 
     t_start = time.perf_counter()
     card = card_line()
-    log(f"[1/11] device: {card}; torch {torch.__version__}, CUDA "
+    log(f"[1/12] device: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4128,12 +5003,12 @@ def main():
     fa._bwd_lib()
     gemm._lib()
     rms_norm._lib()
-    log(f"[2/11] built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
+    log(f"[2/12] built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
     check_build(build)
     gemm_rows, gemm_ratios = check_gemm(gemm, build, device)
     norm_rows = check_rms_norm(rms_norm, device)
 
-    log("[3/11] packed kernels against their plain versions")
+    log("[3/12] packed kernels against their plain versions")
     check_kernel(fa, device)
     check_backward(fa, device)
     fwd_f32 = time_forward_f32(fa, device)
@@ -4144,36 +5019,36 @@ def main():
 
     # each path's launches of the six kernels, each read from 0
     by_path = {}
-    log("[4/11] BERT-base serving through Predictor on the card")
+    log("[4/12] BERT-base serving through Predictor on the card")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         by_path["serving"] = serve(tpt, fa, workdir)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[5/11] BERT-base training, card against the CPU (fp32)")
+    log("[5/12] BERT-base training, card against the CPU (fp32)")
     by_path["training_parity"] = bert_parity(tpt, fa)
     bert_fp32_profile(tpt, fa)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[6/11] bench.py's seq-512 training step on the card (bf16 AMP)")
+    log("[6/12] bench.py's seq-512 training step on the card (bf16 AMP)")
     by_path["training_flagship"], _ = bert_flagship(tpt, fa)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[7/11] unpacked kernels against their plain versions")
+    log("[7/12] unpacked kernels against their plain versions")
     check_unpacked(fa, device)
     unpacked_timing = time_unpacked(fa, device, "bfloat16")
     unpacked_f32 = time_unpacked(fa, device, "float32")
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[8/11] Llama-2-7B-width training, card against the CPU (fp32)")
+    log("[8/12] Llama-2-7B-width training, card against the CPU (fp32)")
     by_path["llama_parity"] = llama_parity(tpt, fa)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[9/11] Llama-2-7B-width training on the card (4 layers, bf16 AMP)")
+    log("[9/12] Llama-2-7B-width training on the card (4 layers, bf16 AMP)")
     by_path["llama_flagship"], losses = llama_flagship(tpt, fa)
     compare_losses(losses)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[10/11] Llama generation serving on the card (dense and paged KV "
+    log("[10/12] Llama generation serving on the card (dense and paged KV "
         "cache, speculative decoding, prefill / decode roles)")
     by_path["generation_parity"] = generation_parity(tpt, fa)
     by_path["generation"], paged_paths, gen_scope, dense_tokens = \
@@ -4184,18 +5059,42 @@ def main():
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
     t11 = time.perf_counter()
-    log("[11/11] the serving stack: BERT-base through ServingEngine, then "
+    log("[11/12] the serving stack: BERT-base through ServingEngine, then "
         "HTTP with Llama-2-7B generation attached")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_serving_") as wd:
-        eng, pred, feeds, want, by_path["serving_engine"] = \
-            serving_engine_flagship(tpt, fa, wd)
-        by_path["serving_http"] = serving_http_flagship(
-            tpt, fa, eng, pred, feeds, want, gen_scope, dense_tokens)
-    del gen_scope
-    SERVING["phase_s"] = time.perf_counter() - t11
-    SERVING["card"] = card
-    log("serving: " + json.dumps(SERVING))
-    log(f"  (phase 11 took {SERVING['phase_s']:.1f} s; "
+        model_dir, second_dir, gen_second_dir = (
+            os.path.join(wd, "model"), os.path.join(wd, "second"),
+            os.path.join(wd, "gen_second"))
+        eng, pred, feeds, want, want_second, by_path["serving_engine"] = \
+            serving_engine_flagship(tpt, fa, model_dir, second_dir)
+        by_path["serving_http"], gen_swapped_tokens = serving_http_flagship(
+            tpt, fa, eng, pred, feeds, want, gen_scope, dense_tokens,
+            gen_second_dir)
+        SERVING["phase_s"] = time.perf_counter() - t11
+        SERVING["card"] = card
+        log("serving: " + json.dumps(SERVING))
+        log(f"  (phase 11 took {SERVING['phase_s']:.1f} s; "
+            f"{time.perf_counter() - t_start:.1f} s in all)")
+
+        # phase 12 spawns replicas that need the card's memory: release
+        # phases 10 and 11 (the weights' scope, the engines, their graphs
+        # and private pools) first
+        pred.close()
+        del eng, pred, gen_scope
+        t12 = time.perf_counter()
+        log("[12/12] the fleet: BERT-base and Llama-2-7B in replica "
+            "processes behind the router")
+        FLEET["reserved_gib_before"] = release_card(
+            "released phases 10 and 11")
+        by_path["fleet_serving"] = trace_launches(fleet_serving(
+            model_dir, second_dir, feeds, want, want_second,
+            SERVING["engine"]["workers_2"]), 0)
+        by_path["fleet_generation"] = trace_launches(fleet_generation(
+            gen_second_dir, gen_swapped_tokens), 3)
+    FLEET["phase_s"] = time.perf_counter() - t12
+    FLEET["card"] = card
+    log("fleet: " + json.dumps(FLEET))
+    log(f"  (phase 12 took {FLEET['phase_s']:.1f} s; "
         f"{time.perf_counter() - t_start:.1f} s in all)")
     for key, (wall, busy, idle, launches) in EAGER_PROFILES.items():
         p = PROFILES[key]
@@ -4243,6 +5142,7 @@ def main():
     for i, k in enumerate(kernels):
         k["launches"] = by_path[k.pop("main_path")][i]
         k["launches_by_path"] = {p: n[i] for p, n in by_path.items()}
+        k["trace_record_paths"] = list(TRACE_PATHS)
     # the product kernel: its row is the decode step's qkv product (M 4),
     # its "shapes" every timed decode (M 4) and prefill (M 512) shape
     kernels.append(dict(
@@ -4252,7 +5152,7 @@ def main():
         launches=by_path["generation"].gemm,
         launches_by_path={p: getattr(n, "gemm", None)
                           for p, n in by_path.items()},
-        tolerance_ratio=gemm_ratios, shapes=gemm_rows))
+        trace_record_paths=list(TRACE_PATHS), tolerance_ratio=gemm_ratios, shapes=gemm_rows))
     # the RMSNorm kernel: its row the decode step's [4, 4096]
     kernels.append(dict(
         name="rms_norm_f32", route="cuda", source=src + "rms_norm_f32.cu",
@@ -4261,7 +5161,7 @@ def main():
         launches=by_path["generation"].rms_norm,
         launches_by_path={p: getattr(n, "rms_norm", None)
                           for p, n in by_path.items()},
-        shapes=norm_rows))
+        trace_record_paths=list(TRACE_PATHS), shapes=norm_rows))
     for k in kernels:
         if not all(math.isfinite(x) for x in
                    [k[x] for x in ("max_abs_err", "ms", "plain_ms",

@@ -16,6 +16,12 @@ step is captured once as a CUDA graph and replayed
 
 The port imports neither jax nor ``paddle_tpu``.
 """
+# the lock-order sanitizer must patch threading BEFORE any module
+# constructs its locks, so this hook runs first (no-op unless
+# FLAGS_debug_lock_order is set in the environment)
+from . import locksan as _locksan  # noqa: E402
+_locksan.install_from_flag()
+
 from . import framework  # noqa  (before ops: the executor imports the registry)
 from . import ops  # noqa  (registers the operator library)
 from .device import CPUPlace, CUDAPlace  # noqa

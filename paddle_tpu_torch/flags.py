@@ -11,7 +11,12 @@ itself, serving/disagg.py ``FLAGS_disagg_transport``); the serving
 engine's and the HTTP front end's (``FLAGS_serving_max_batch``,
 ``_max_delay_ms``, ``_workers``, ``_bisect``, ``_worker_stuck_ms``,
 ``_access_log``, ``FLAGS_swap_timeout_s``); and those of telemetry.py, tsdb.py,
-observatory.py, blackbox.py, costmodel.py and serving/usage.py.
+observatory.py, blackbox.py, costmodel.py and serving/usage.py
+(``FLAGS_router_slo_p99_ms`` among them: ``FLAGS_slo_p99_ms`` = 0
+inherits it), locksan.py's ``FLAGS_debug_lock_order`` and the serving
+engine's ``FLAGS_serving_check_outputs``; serving/router.py and
+serving/fleet.py register the router's, the canary's and the
+supervisor's flags themselves.
 ``set_flags`` raises on any other name, so a flag the port would ignore
 is an error, not a silent no-op; a later slice registers a flag with the
 module that reads it.  ``all_flags`` is ``/statusz``'s view.
@@ -92,6 +97,21 @@ register_flag("FLAGS_guard_resolve_interval", 64,
               "else (a fetch read, a checkpoint, close) forces it; "
               "1 restores the synchronous per-step host check, 0 defers "
               "indefinitely (fetch/checkpoint/close only)")
+register_flag("FLAGS_debug_lock_order", False,
+              "runtime lock-order sanitizer (paddle_tpu_torch/locksan.py): "
+              "wrap every threading.Lock/RLock constructed after "
+              "import in an order-recording shim, assert the observed "
+              "per-thread acquisition graph stays acyclic, and record "
+              "inversions in locksan.violations().  Debug/test only: "
+              "costs a thread-local append per acquire plus a graph "
+              "check on nested acquires; 0 (default) patches nothing "
+              "and costs nothing")
+register_flag("FLAGS_serving_check_outputs", False,
+              "serving engine: reject batches whose outputs contain "
+              "non-finite values (RequestFailed for the batch's rows) "
+              "— the bad-checkpoint tripwire the canary burn-rate "
+              "judge feeds on.  Off by default: costs one isfinite "
+              "scan per batch on the serve path")
 register_flag("FLAGS_fault_inject", "",
               "deterministic fault-injection spec: comma-separated "
               "site:kind@N / site:kind@N+ / site:kind~p entries "
@@ -260,10 +280,16 @@ register_flag("FLAGS_slo_availability_pct", 99.0,
               "against: the error budget is (100 - this)% of requests "
               "over the alerting windows (SRE-workbook multi-window "
               "burn rate; paddle_tpu_torch/tsdb.py BurnRateMonitor)")
+register_flag("FLAGS_router_slo_p99_ms", 250.0,
+              "fleet router: the served-latency SLO the autoscaling "
+              "signal is derived from — fleet_wanted_replicas scales "
+              "live replicas by max(p99/SLO, queue-depth pressure) "
+              "(paddle_tpu_torch/serving/router.py)")
 register_flag("FLAGS_slo_p99_ms", 0.0,
               "latency SLO threshold for the burn-rate monitor's p99 "
               "spec: the budget is 1% of requests above this many ms. "
-              "0 means 250 ms (serving/usage.py DEFAULT_SLO_P99_MS)")
+              "0 inherits FLAGS_router_slo_p99_ms (one knob for the "
+              "autoscale signal and the alert by default)")
 register_flag("FLAGS_slo_fast_window_s", 60.0,
               "burn-rate FAST window: an alert needs this window's "
               "burn over threshold too (proves the problem is still "

@@ -2,7 +2,7 @@
 
 Counterpart of ``paddle_tpu/ops/math_ops.py`` for the ops on the BERT
 and Llama paths: ``elementwise_add/mul/div/max`` with Paddle ``axis``
-broadcasting, ``less_than``, ``scale``, ``mul``, ``gelu``, ``silu``,
+broadcasting, ``less_than``, ``scale``, ``mul``, ``gelu``, ``relu``, ``silu``,
 ``sqrt``, ``cast``, ``reduce_sum``, ``mean`` and ``sum``.  ``mul``'s
 row results must not depend on how many rows it has (generation's cached
 decode against the uncached forward, tolerance 0).  On the card a
@@ -107,6 +107,11 @@ def _gelu(ctx: LowerContext, op: Operator):
     approx = "tanh" if op.attr("approximate", False) else "none"
     ctx.set_output(op, "Out", F.gelu(ctx.get_input(op, "X"),
                                      approximate=approx))
+
+
+@register_op("relu", infer=same_as_input())
+def _relu(ctx: LowerContext, op: Operator):
+    ctx.set_output(op, "Out", torch.relu(ctx.get_input(op, "X")))
 
 
 @register_op("silu", infer=same_as_input())

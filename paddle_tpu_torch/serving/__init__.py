@@ -36,9 +36,24 @@ BERT and Llama over HTTP::
     eng.attach_generator(gen)
     srv = serve(eng, port=8000)   # POST /predict, /generate, ...
 
-Not ported yet (ROADMAP.md queue 1 item 6's second half): the router,
-the fleet supervisor, the replica entry point, the lock-order sanitizer
-and the Prometheus text parser; the embedding tier (item 8) and
+The fleet tier above them: ``python -m paddle_tpu_torch.serving.replica``
+(one server process: a ``--model-dir`` model or the synthetic MLP, and
+with ``--generate`` a Llama generator in role ``--role``; on the card
+unless ``--device cpu``), ``FleetSupervisor`` (serving/fleet.py: spawns
+and respawns the replicas, rolling restart, fleet hot swap, postmortem
+attribution) and ``Router`` / ``RouterServer`` / ``serve_router``
+(serving/router.py: least-loaded routing by live ``/healthz``, retry,
+deadlines, canary rollouts, the prefill -> ``/adopt`` -> decode
+pipeline, metrics federation on ``/fleetz`` and burn-rate alerts)::
+
+    from paddle_tpu_torch.serving import FleetSupervisor, Router, RouterServer
+
+    sup = FleetSupervisor(replicas=2, replica_argv=[
+        "--model-dir", model_dir, "--shape", "x=64"])
+    router = Router(sup.wait_ready())
+    srv = RouterServer(router).start()   # POST srv.url + "/predict"
+
+Not ported yet: the embedding tier (ROADMAP.md queue 1 item 8) and
 mesh-sharded serving (item 9).
 """
 from . import batcher  # noqa
@@ -50,9 +65,12 @@ from .engine import (OverloadedError, PoisonedInput, RequestFailed,  # noqa
                      ServingEngine, ServingError, ServingFuture)
 from .generation import GenerationEngine  # noqa
 from .server import ServingServer, serve  # noqa
+from .router import Router, RouterServer, serve_router  # noqa
+from .fleet import FleetSupervisor  # noqa
 
 __all__ = ["GenerationEngine", "OverloadedError", "PoisonedInput",
            "RequestFailed", "ServingError", "ServingFuture", "batcher",
            "ServingEngine", "ServingServer", "serve", "usage",
            "KVSegment", "SegmentMismatch", "SegmentTransport",
-           "DeviceTransport", "HostBytesTransport", "DisaggPair"]
+           "DeviceTransport", "HostBytesTransport", "DisaggPair",
+           "FleetSupervisor", "Router", "RouterServer", "serve_router"]

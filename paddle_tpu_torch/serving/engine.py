@@ -288,7 +288,8 @@ class ServingEngine:
                  max_delay_ms: Optional[float] = None,
                  queue_cap: Optional[int] = None,
                  deadline_ms: Optional[float] = None,
-                 warmup_shapes=None, autostart: bool = True):
+                 warmup_shapes=None, autostart: bool = True,
+                 ready_requires_warmup: bool = False):
         from ..inference import Predictor
 
         if not isinstance(predictor, Predictor):
@@ -396,6 +397,13 @@ class ServingEngine:
         # optional slot-based generation scheduler (attach_generator):
         # generation requests route to it, the one-shot path is untouched
         self.generator = None
+        # readiness gating (fleet scale-out): with ready_requires_warmup
+        # the /healthz `ready` field stays False until warmup() has
+        # built and captured the shape buckets, so a router never sends
+        # the first-request build to a cold replica.  Default False: a
+        # standalone engine is routable the moment it is constructed.
+        self._ready_requires_warmup = bool(ready_requires_warmup)
+        self._warmed = False
 
         if warmup_shapes is not None:
             self.warmup(warmup_shapes)
@@ -427,13 +435,27 @@ class ServingEngine:
             for p in self._pool:
                 p.max_cached = max(p.max_cached, len(sigs))
                 compiled += p.warmup(sigs)
+        self._warmed = True
         return compiled
 
     def ready(self) -> bool:
-        """Routable: accepting requests (not draining, not closed).
-        Surfaces as the ``ready`` field in ``/healthz``."""
+        """Routable: accepting requests AND (when readiness is gated on
+        warmup) the shape buckets are built and captured.  Surfaces as
+        the ``ready`` field in ``/healthz`` — the fleet router refuses
+        to place traffic on a replica until this flips true."""
         with self._cv:  # _draining/_closed are written under _cv
-            return not (self._draining or self._closed)
+            if self._draining or self._closed:
+                return False
+        return self._warmed or not self._ready_requires_warmup
+
+    def warming(self) -> bool:
+        """True while readiness is gated on a warmup that has not yet
+        finished.  The HTTP front door sheds data-plane work in this
+        state: warmup runs the generator's programs directly (outside
+        the scheduler's decode-grid step boundary) and captures graphs
+        one at a time in the process, so a request admitted mid-warmup
+        would race the warmup pass on the cache buffers."""
+        return self._ready_requires_warmup and not self._warmed
 
     def start(self):
         if self._threads:
@@ -1073,6 +1095,23 @@ class ServingEngine:
                     raise PoisonedInput(
                         f"batch contains poisoned input (sentinel {pv})")
 
+    def _check_outputs(self, outs):
+        """``FLAGS_serving_check_outputs``: reject a dispatch whose
+        float outputs contain non-finite values — the bad-checkpoint
+        tripwire (a NaN weight rollout fails its requests loudly here,
+        which is the failure evidence the canary burn-rate judge feeds
+        on) instead of silently returning garbage.  Off by default:
+        the scan costs a pass over every output."""
+        if not flag_value("FLAGS_serving_check_outputs"):
+            return
+        for o in outs:
+            a = np.asarray(o)
+            if np.issubdtype(a.dtype, np.floating) \
+                    and not np.all(np.isfinite(a)):
+                raise RequestFailed(
+                    "non-finite value in model output "
+                    "(bad checkpoint / numerical blowup)")
+
     def _execute(self, predictor, batch: List[_Request]
                  ) -> List[List[np.ndarray]]:
         """Execute ``batch`` as one padded dispatch (or the chunked
@@ -1093,6 +1132,7 @@ class ServingEngine:
         padded, _real = batcher.pad_stack([r.arrays for r in batch],
                                           bucket)
         outs = predictor.run(padded)
+        self._check_outputs(outs)
         per_req = batcher.split_rows(outs, [r.rows for r in batch])
         self._book_batch(rows, bucket)
         if usage.enabled():
@@ -1317,6 +1357,7 @@ class ServingEngine:
             bucket = batcher.bucket_for(part[0].shape[0], self.buckets)
             padded, real = batcher.pad_stack([part], bucket)
             outs = predictor.run(padded)
+            self._check_outputs(outs)
             chunks.append([np.asarray(o)[:real] for o in outs])
             self._book_batch(real, bucket)
         return [np.concatenate([c[i] for c in chunks], axis=0)
@@ -1485,7 +1526,8 @@ class ServingEngine:
             status = "closed"
         # ready computed from the SAME snapshot as status (a second
         # ready() would re-take _cv and could disagree mid-close)
-        ready = not (draining or closed)
+        ready = not (draining or closed) and (
+            self._warmed or not self._ready_requires_warmup)
         with self._n_lock:
             version = self.weights_version
         out = {

@@ -502,6 +502,21 @@ class _Handler(_JsonHandler):
             self._reply(404, {"error": "not found", "path": self.path})
             return
         stat_add("serving_http_requests")
+        if self.engine.warming():
+            # a warming replica must not admit work: warmup runs the
+            # generator's programs directly, outside the scheduler's
+            # step boundary, and captures graphs one at a time, so an
+            # early request would race it on the cache buffers.  The
+            # router never places traffic here pre-ready; direct
+            # clients get explicit backpressure.
+            stat_add("serving_http_warming_shed")
+            self._reply(503, {"error": "overloaded",
+                              "reason": "warming",
+                              "retry_after_s": 1.0},
+                        headers={"Retry-After": "1",
+                                 VERSION_HEADER:
+                                 str(self.engine.weights_version)})
+            return
         t0 = time.monotonic()
         hop_trace = parse_trace_header(self.headers.get(TRACE_HEADER))
         deadline_ms = parse_deadline_header(

@@ -104,15 +104,12 @@ OTHER_TENANT = "~other"
 TENANT_RE = re.compile(r"^[A-Za-z0-9._:~-]{1,64}$")
 
 
-#: the latency SLO (ms) the burn-rate monitors hold p99 to when
-#: ``FLAGS_slo_p99_ms`` is 0
-DEFAULT_SLO_P99_MS = 250.0
-
-
 def slo_p99_ms() -> float:
-    """``FLAGS_slo_p99_ms``, or :data:`DEFAULT_SLO_P99_MS` when it is 0."""
+    """The latency SLO (ms) the burn-rate monitors hold p99 to:
+    ``FLAGS_slo_p99_ms``, or ``FLAGS_router_slo_p99_ms`` when it is 0
+    (one knob for the autoscale signal and the alert by default)."""
     return float(flag_value("FLAGS_slo_p99_ms") or 0.0) \
-        or DEFAULT_SLO_P99_MS
+        or float(flag_value("FLAGS_router_slo_p99_ms") or 250.0)
 
 
 def enabled() -> bool:

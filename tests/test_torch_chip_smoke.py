@@ -429,3 +429,193 @@ def test_prom_line_reads_the_ports_metrics_text():
              if x and not x.startswith("#")]
     assert lines and all(smoke.PROM_LINE.match(x) for x in lines)
     assert not smoke.PROM_LINE.match("bad line with spaces 1")
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the fleet
+# ---------------------------------------------------------------------------
+
+def _argv_value(argv, flag):
+    return argv[list(argv).index(flag) + 1]
+
+
+def test_fleet_generation_replicas_run_llama_2_7b_at_the_card_config():
+    """Phase 12b's replicas: Llama-2-7B's widths and 32 layers, MHA, 4
+    slots of 1024 positions, the paged cache of 257 pages of 16 (phase
+    10's pools), phase 10's buckets, 64 new tokens, on the card; the
+    replica's own parser accepts the argv."""
+    from paddle_tpu_torch.serving import replica
+
+    argv = smoke.FLEET_GEN_ARGV
+    widths = {"--gen-vocab": "vocab_size", "--gen-hidden": "hidden",
+              "--gen-layers": "num_layers", "--gen-heads": "num_heads",
+              "--gen-intermediate": "intermediate"}
+    for flag, key in widths.items():
+        assert int(_argv_value(argv, flag)) == smoke.GEN[key]
+    assert "--gen-kv-heads" not in argv  # MHA
+    assert int(_argv_value(argv, "--gen-slots")) == \
+        smoke.GEN_ENGINE["num_slots"]
+    assert int(_argv_value(argv, "--gen-max-seq")) == \
+        smoke.GEN_ENGINE["max_seq_len"]
+    assert int(_argv_value(argv, "--gen-max-new")) == smoke.GEN_NEW_TOKENS
+    assert int(_argv_value(argv, "--gen-page-tokens")) == smoke.GEN_PAGE
+    slots, seq = smoke.GEN_ENGINE["num_slots"], \
+        smoke.GEN_ENGINE["max_seq_len"]
+    assert int(_argv_value(argv, "--gen-pages")) == \
+        slots * seq // smoke.GEN_PAGE + 1
+    assert "--gen-paged" in argv and _argv_value(argv, "--device") == "cuda"
+    assert smoke.FLEET_GEN_ENV["FLAGS_serving_prefill_buckets"] == \
+        ",".join(str(b) for b in smoke.GEN_ENGINE["prefill_buckets"])
+    assert _argv_value(smoke.FLEET_SERVE_ARGV, "--device") == "cuda"
+    assert int(_argv_value(smoke.FLEET_SERVE_ARGV, "--max-batch")) == \
+        smoke.SERVE_ENGINE["max_batch"]
+    with pytest.raises(SystemExit) as e:
+        replica.main(list(argv) + ["--help"])
+    assert e.value.code == 0
+
+
+def test_fleet_phase_runs_two_fleets_with_roles():
+    """12b's colocated reference is a one-replica fleet in role "both",
+    its pair a prefill- and a decode-role replica (the supervisor pins
+    the roles); the pair's gate wants every plain and every streamed
+    generation disaggregated and none losing its decode replica."""
+    from paddle_tpu_torch.serving import FleetSupervisor
+
+    roles = smoke.FLEET_GEN_ROLES
+    assert roles == {"colocated": ("both",), "pair": ("prefill", "decode")}
+    for key in roles:
+        sup = FleetSupervisor(roles=list(roles[key]), autostart=False)
+        assert [r.role for r in sup._replicas] == list(roles[key])
+    n = len(smoke.GEN_PROMPTS)
+    ok = {"disagg_generations": 2 * n, "affinity_lost": 0}
+    assert smoke.disagg_counters_ok(ok, n)
+    assert not smoke.disagg_counters_ok(dict(ok, disagg_generations=n), n)
+    assert not smoke.disagg_counters_ok(dict(ok, affinity_lost=1), n)
+
+
+SAMPLE_TRACE = [
+    {"ph": "X", "cat": "kernel", "name": "void (anonymous namespace)::f32"
+     "::fa_fwd_f32_kernel<64, 4>(float const*, float const*, float "
+     "const*, float const*, float*, float*, FwdShape)"},
+    {"ph": "X", "cat": "kernel", "name": "void gemm_skinny_kernel<4, 4, "
+     "true, true>(float const*, float const*, float*, int, int, int, "
+     "int, int, Strides)"},
+    {"ph": "X", "cat": "kernel", "name": "void gemm_tiled_kernel<false, "
+     "true>(float const*, float const*, float*, float*, int, int, int, "
+     "int, Strides)"},
+    {"ph": "X", "cat": "kernel", "name": "void rms_norm_rows_kernel<256>("
+     "float const*, float const*, float*, int, int, float)"},
+    {"ph": "X", "cat": "cuda_runtime", "name": "cudaGraphLaunch"},
+    {"ph": "X", "cat": "cpu_op", "name": "fa_fwd_f32_kernel"},
+    {"ph": "X", "cat": "kernel", "name": "void at::native::elementwise"},
+]
+
+
+def test_trace_records_count_kernel_events_by_family():
+    rec = smoke.trace_records(SAMPLE_TRACE)
+    assert rec == {"fa_fwd_f32": 1, "gemm_f32": 2, "rms_norm_f32": 1,
+                   "other_attention": 0, "other_product": 0}
+    tc = dict(SAMPLE_TRACE[0], name="void tc::fa_fwd_tc_kernel<128>()")
+    assert smoke.trace_records([tc])["other_attention"] == 1
+    sdpa = dict(SAMPLE_TRACE[0], name="fmha_cutlassF_f32_aligned_64x64")
+    assert smoke.trace_records([sdpa])["other_attention"] == 1
+    for lib in ("ampere_sgemm_128x64_tn", "nvjet_tst_128x64_64x4_1x1",
+                "sm90_xmma_gemm_f32f32_f32f32_f32_tn_n", "gemv2T_kernel"):
+        rec = smoke.trace_records([dict(SAMPLE_TRACE[1], name=lib)])
+        assert rec["other_product"] == 1 and rec["gemm_f32"] == 0, lib
+
+
+def _replay(corr, ts, fa=12, gemm=50, norms=0, extra=()):
+    """A cudaGraphLaunch call and the kernel records of its replay."""
+    names = (["fa_fwd_f32_kernel<64, 4>"] * fa
+             + ["gemm_tiled_kernel<false, true>"] * gemm
+             + ["rms_norm_rows_kernel<256>"] * norms + list(extra))
+    return ([{"ph": "X", "cat": "cuda_runtime", "name": "cudaGraphLaunch",
+              "ts": ts, "args": {"correlation": corr}}]
+            + [{"ph": "X", "cat": "kernel", "name": n, "ts": ts + 1 + i,
+                "args": {"correlation": corr}} for i, n in enumerate(names)])
+
+
+def test_trace_dispatches_group_kernels_by_their_graph_launch():
+    """A replay's kernels carry its cudaGraphLaunch's correlation id:
+    records are grouped by launch, in launch order; kernels of a launch
+    made before the trace began (no launch call in it) and eager ones are
+    left out, and so is a launch none of whose kernels was recorded."""
+    events = (_replay(7, 300.0, fa=12, gemm=87) + _replay(3, 100.0, gemm=50)
+              + _replay(5, 500.0, fa=0, gemm=0)
+              + [{"ph": "X", "cat": "kernel", "name": "fa_fwd_f32_kernel",
+                  "args": {"correlation": 1}},
+                 {"ph": "X", "cat": "kernel", "name": "gemm_fold_kernel",
+                  "args": {"correlation": 9}},
+                 {"ph": "X", "cat": "cuda_runtime",
+                  "name": "cudaLaunchKernel", "args": {"correlation": 9}}])
+    got = smoke.trace_dispatches(events)
+    assert [(d["fa_fwd_f32"], d["gemm_f32"]) for d in got] == [(12, 50),
+                                                               (12, 87)]
+
+
+@pytest.mark.parametrize("case,ok", [
+    ("whole", True), ("last_cut", True), ("short_attention", False),
+    ("few_products", False), ("library_product", False),
+    ("sdpa_attention", False), ("one_replay", False),
+    ("prefill_norms", True), ("prefill_missing_norm", False)])
+def test_dispatch_gate_holds_every_replay_but_the_last(case, ok):
+    """The per-dispatch gate of phase 12's traces: every graph replay but
+    the last holds one batch's (12a: 12 forward records, 48 products at
+    least, no RMSNorm) or one prefill's (12b: 32, 128, 65), and no other
+    attention or product kernel; two replays at least."""
+    path = "fleet_generation" if case.startswith("prefill") \
+        else "fleet_serving"
+    want = smoke.FLEET_DISPATCH[path]
+    kw = dict(fa=want["fa_fwd_f32"], gemm=want["gemm_f32"] + 2,
+              norms=want["rms_norm_f32"])
+    middle = dict(kw)
+    last = dict(kw)
+    if case == "last_cut":
+        last.update(fa=3, gemm=10)
+    elif case == "short_attention":
+        middle["fa"] -= 1
+    elif case == "few_products":
+        middle["gemm"] = want["gemm_f32"] - 1
+    elif case == "library_product":
+        middle["extra"] = ("ampere_sgemm_128x64_tn",)
+    elif case == "sdpa_attention":
+        middle["extra"] = ("pytorch_flash::flash_fwd_kernel",)
+    elif case == "prefill_missing_norm":
+        middle["norms"] -= 1
+    events = _replay(1, 0.0, **kw) + _replay(2, 10.0, **middle) \
+        + _replay(3, 20.0, **last)
+    if case == "one_replay":
+        events = _replay(1, 0.0, **kw)
+    if ok:
+        assert len(smoke.dispatch_gate(events, path, case)) == 3
+    else:
+        with pytest.raises(AssertionError, match="graph replays"):
+            smoke.dispatch_gate(events, path, case)
+
+
+def test_trace_launches_put_the_records_on_their_kernel():
+    rec = {"fa_fwd_f32": 24, "gemm_f32": 100, "rms_norm_f32": 0,
+           "other_attention": 0}
+    serving = smoke.trace_launches(rec, 0)
+    assert tuple(serving) == (24, 0, 0, 0, 0, 0)
+    assert (serving.gemm, serving.rms_norm) == (100, 0)
+    generation = smoke.trace_launches(dict(rec, rms_norm_f32=65), 3)
+    assert tuple(generation) == (0, 0, 0, 24, 0, 0)
+    assert generation.rms_norm == 65
+    assert set(smoke.TRACE_PATHS) == {"fleet_serving", "fleet_generation"}
+
+
+def test_closed_rows_holds_routed_answers_to_tolerance_0():
+    want = [np.arange(6, dtype="float32").reshape(1, 2, 3) / 7,
+            np.arange(2, dtype="int64").reshape(1, 2)]
+    got = [w.tolist() for w in want]
+    assert smoke.closed_rows(got, want)
+    bumped = want[0].copy()
+    bumped[0, 0, 1] = np.nextafter(bumped[0, 0, 1], 1)
+    assert not smoke.closed_rows([bumped.tolist(), got[1]], want)
+    assert not smoke.closed_rows(got[:1], want)
+    recs = [{"status": 200, "equal": True}, {"status": 503, "equal": False}]
+    assert smoke.traffic_gate(recs, "x") == 1
+    with pytest.raises(AssertionError):
+        smoke.traffic_gate(recs + [{"status": 500, "equal": False}], "x")

@@ -15,7 +15,19 @@ port's KV-segment codec against the JAX package's.
 * **Against the JAX package** — ``to_bytes`` gives the same bytes for
   the same segment, each package's ``from_bytes`` reads the other's,
   and ``config_fingerprint`` gives the same string.
+* **Through the router** — the port's router runs the prefill ->
+  ``/adopt`` -> decode pipeline across in-process port servers (plain
+  and streamed, the colocated engine's tokens), fails a lost decode
+  replica with ``affinity_lost`` and re-prefills only under
+  ``FLAGS_disagg_reprefill``.
 """
+import json
+import threading
+import time
+import urllib.error
+import urllib.request
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
 import numpy as np
 import pytest
 import torch
@@ -333,3 +345,209 @@ def test_config_fingerprint_matches_the_jax_package():
             MODEL, 8, 32, "llama", 0)
     finally:
         eng.close()
+
+
+# ---------------------------------------------------------------------------
+# the router's prefill -> /adopt -> decode pipeline (twins of the router
+# tests of tests/test_disagg.py)
+# ---------------------------------------------------------------------------
+
+def _mlp_predictor():
+    from paddle_tpu_torch import layers
+    from paddle_tpu_torch.inference import Predictor
+
+    main, startup = tpt.Program(), tpt.Program()
+    startup._is_startup = True
+    startup.random_seed = main.random_seed = 0
+    with tpt.program_guard(main, startup):
+        x = layers.data("x", [4])
+        out = layers.fc(x, 4, name="dis_f")
+    scope = tpt.Scope()
+    tpt.Executor(tpt.CPUPlace()).run(startup, scope=scope)
+    return Predictor(main, ["x"], [out], scope=scope, device="cpu")
+
+
+def _replica(role, **over):
+    from paddle_tpu_torch.serving import ServingEngine, serve
+
+    gen = _build(role, **over)
+    gen.warmup()
+    eng = ServingEngine(_mlp_predictor(), workers=1)
+    eng.attach_generator(gen)
+    return serve(eng), gen
+
+
+class _DyingDecodeStub(BaseHTTPRequestHandler):
+    """Reports itself as a ready decode replica with zero load, then
+    drops every /adopt connection after reading the body — the
+    signature of the cache-holding replica dying mid-generation."""
+    protocol_version = "HTTP/1.1"
+
+    def log_message(self, *a):
+        pass
+
+    def do_GET(self):
+        body = json.dumps({
+            "status": "ok", "ready": True, "role": "decode",
+            "generation": {"paged": {"pages_live": 0}},
+            "serving": {"queue_depth": 0, "inflight_rows": 0}}).encode()
+        self.send_response(200)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def do_POST(self):
+        n = int(self.headers.get("Content-Length", 0) or 0)
+        self.rfile.read(n)
+        self.connection.close()
+
+
+def _stub_server():
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), _DyingDecodeStub)
+    httpd.daemon_threads = True
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd, f"http://127.0.0.1:{httpd.server_address[1]}"
+
+
+def _generate(url, prompt, n, stream=False):
+    body = {"prompt": prompt, "max_new_tokens": n}
+    if stream:
+        body["stream"] = True
+    req = urllib.request.Request(url + "/generate",
+                                 data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    return urllib.request.urlopen(req, timeout=120)
+
+
+def test_router_disagg_pipeline_and_unrelated_ejection(colocated):
+    """Through a live port router: plain and streamed /generate ride
+    prefill -> adopt and equal the colocated engine's tokens (tolerance
+    0); ejecting an UNRELATED replica mid-stream never disturbs the
+    pinned decode, and no affinity_lost is counted."""
+    from paddle_tpu_torch.serving import Router, RouterServer
+
+    s_pre, _g_pre = _replica("prefill")
+    s_dec, _g_dec = _replica("decode", max_new_tokens=24)
+    s_other, _g_other = _replica("decode")
+    router = Router([s_pre.url, s_dec.url, s_other.url],
+                    poll_interval_ms=100.0, autostart=False)
+    server = RouterServer(router).start()
+    try:
+        router.poll_once()
+        assert router.disagg_active()
+        hz = router.healthz()[1]
+        assert hz["disagg"] and hz["roles"].get("prefill") == 1
+        prompt = [3, 5, 7, 11, 13]
+        want = colocated.generate(prompt, 6)
+        with _generate(server.url, prompt, 6) as r:
+            doc = json.loads(r.read())
+        assert doc["tokens"] == want["tokens"]
+        other_rep = router._replicas[s_other.url]
+        toks, done = [], None
+        with _generate(server.url, prompt, 6, stream=True) as r:
+            for line in r:
+                d = json.loads(line)
+                if d.get("done"):
+                    done = d
+                else:
+                    toks.append(d["token"])
+                    with router._lock:
+                        other_rep.ejected = True
+        assert toks == want["tokens"], (toks, want["tokens"])
+        assert done and done.get("error") is None
+        assert done["tokens"] == want["tokens"]
+        st = router.stats()["counters"]
+        assert st["affinity_lost"] == 0
+        assert st["disagg_generations"] == 2
+    finally:
+        server.close()
+        router.close()
+        for s in (s_pre, s_dec, s_other):
+            s.close()
+
+
+def test_affinity_lost_taxonomy_and_reprefill_flag(colocated):
+    """The cache-holding decode replica dying mid-generation fails the
+    request 502 ``affinity_lost``; with ``FLAGS_disagg_reprefill=1`` the
+    router restarts the pipeline once on a surviving decode replica and
+    the tokens stay the colocated engine's."""
+    from paddle_tpu_torch.serving import Router, RouterServer
+
+    s_pre, _g = _replica("prefill")
+    stub_httpd, stub_url = _stub_server()
+    prompt = [3, 5, 7, 11]
+    want = colocated.generate(prompt, 4)
+    router = Router([s_pre.url, stub_url], poll_interval_ms=100.0,
+                    autostart=False)
+    server = RouterServer(router).start()
+    try:
+        router.poll_once()
+        with pytest.raises(urllib.error.HTTPError) as ei:
+            _generate(server.url, prompt, 4)
+        doc = json.loads(ei.value.read())
+        assert ei.value.code == 502
+        assert doc["reason"] == "affinity_lost"
+        assert doc["error"] == "affinity_lost"
+        st = router.stats()["counters"]
+        assert st["affinity_lost"] == 1 and st["reprefills"] == 0
+    finally:
+        server.close()
+        router.close()
+
+    s_dec, _g2 = _replica("decode")
+    old = tpt.get_flags("FLAGS_disagg_reprefill")["FLAGS_disagg_reprefill"]
+    tpt.set_flags({"FLAGS_disagg_reprefill": "1"})
+    router2 = Router([s_pre.url, stub_url, s_dec.url],
+                     poll_interval_ms=100.0, autostart=False)
+    server2 = RouterServer(router2).start()
+    try:
+        router2.poll_once()
+        hit_stub = False
+        for _ in range(4):
+            with _generate(server2.url, prompt, 4) as r:
+                doc = json.loads(r.read())
+            assert doc["tokens"] == want["tokens"]
+            if router2.stats()["counters"]["reprefills"]:
+                hit_stub = True
+                break
+        assert hit_stub, "no request ever landed on the dying stub"
+        assert router2.stats()["counters"]["affinity_lost"] >= 1
+    finally:
+        tpt.set_flags({"FLAGS_disagg_reprefill": old})
+        server2.close()
+        router2.close()
+        s_pre.close()
+        s_dec.close()
+        stub_httpd.shutdown()
+
+
+def test_decode_hop_requires_adopt_capability():
+    """A dense 'both' replica never wins the adopt hop (its /adopt
+    would 404): pick() filters on the paged generation block."""
+    from paddle_tpu_torch.serving.router import _Replica
+
+    r = _Replica("http://x:1")
+    r.health = {"status": "ok", "ready": True, "role": "both",
+                "generation": {"paged": None}}
+    r.health_ts = time.monotonic()
+    assert r.serves(None) and r.serves("prefill")
+    assert not r.serves("decode")
+    r.health["generation"] = {"paged": {"pages_live": 0}}
+    assert r.serves("decode")
+    r.health["role"] = "decode"
+    assert r.serves("decode") and not r.serves("prefill")
+
+
+def test_fleet_roles_validation():
+    from paddle_tpu_torch.serving import FleetSupervisor
+
+    with pytest.raises(ValueError, match="roles has"):
+        FleetSupervisor(replicas=3, roles=["prefill"], autostart=False)
+    with pytest.raises(ValueError, match="unknown role"):
+        FleetSupervisor(roles=["prefill", "router"], autostart=False)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        FleetSupervisor(roles=["embedding", "both"], autostart=False)
+    sup = FleetSupervisor(roles=["prefill", "decode"], autostart=False)
+    assert sup.n == 2
+    assert [r.role for r in sup._replicas] == ["prefill", "decode"]
