@@ -372,6 +372,59 @@ Phases (any failure raises and exits non-zero; nothing is caught):
       ms, spawn-to-ready seconds of the both / prefill / decode
       replicas, the swap's seconds and its longest /healthz gap.  The
       "fleet:" JSON line holds a's and b's numbers.
+13. the port's load generator and chaos harness
+   (paddle_tpu_torch/tools/serving_loadgen.py and chaos.py; the phase's
+   seconds and the run's are printed).
+   a. serving_loadgen.main in this process on 11a's saved BERT-base
+      (--model-dir, --device cuda, 11a's engine: 1 worker, max batch 8,
+      5 ms): a closed loop of 64 one-row requests at 16 clients, then an
+      open loop at half 11a's 1-worker requests/s for 5 s.  Gates: no
+      failure, 64 closed answers, the report's engine.batch_fill_pct;
+      the counts read from 0 around the two loops: kernel #1 12 times and
+      the product kernel once a mul a dispatched batch, no plain call,
+      nothing realigned.  During phase 12a, through its router at half
+      12a's requests/s: a burst-shaped open loop (--traffic burst
+      --traffic-amplitude 1.0, 10 s) under generous budgets (rc 0, per-
+      phase reports, no failure); --slo-p99-ms 0.001 (rc 1, violations
+      labelled by phase, the router's /debugz bundle saved); --tenants 4
+      with --slo-tenant-p99-ms through the router (its /fleetz tenant
+      families; a router has no /usagez, so the bound is unmeasured and
+      violates: rc 1) and straight to a replica (its /usagez, every
+      tenant's p99 measured: rc 0).  During phase 12b, --generate --url
+      --gen-stream at the colocated replica: 8 requests at 4 clients,
+      prompts of 20-500 tokens, 64 new tokens each; gates: every request
+      answered with 64 tokens, client TTFT and inter-token measured
+      (printed beside the replica's own).
+   b. chaos.run_chaos with every port scenario (baseline, crash, hang,
+      slow, poison, poison_paged, spec_storm, disagg_crash, hot_swap,
+      noisy_neighbor).  Its /predict fleets: three replicas of BERT-base
+      (seq 128, fp32, 1 worker, max batch 8) serving the encoder output's
+      first position [B, 768] (built with the slice op), 1-row requests,
+      the poison sentinel 1e30 in attn_mask through --poison-value.  A
+      probe first: such a fleet behind the router, a closed loop of 256
+      requests at 32 clients (the rate it sustains and its p99), a
+      /profilez trace of one replica under traffic held as 12a's
+      (dispatch_gate; no library product or attention kernel); the
+      harness then runs at half the probe's rate, a forward timeout of 4x
+      its p99 (at least 1 s), the 5 s liveness default and scenarios of
+      1.6x 12a's SIGKILL respawn.  poison_paged and spec_storm run in
+      this process on Llama-2-7B at 32 layers (paged, pages of 16, 10c's
+      buckets; spec_storm speculating); disagg_crash on four replicas of
+      Llama-2-7B's widths at 4 layers (the only depth cut: four 25.10 GiB
+      replicas do not fit in 80 GB); hot_swap and noisy_neighbor spawn
+      their own BERT-base fleets (hot_swap writes two more weight sets
+      and swaps to them; a quarter of its reference storm is /generate,
+      which a /predict-only fleet does not serve).  Gates: no scenario
+      error, no collateral failure, no poison leak, no leaked page, no
+      torn version, availability >= 99%, the report's ok; a respawn
+      after crash (attributed SIGKILL), a liveness kill after hang, a
+      bisection in a replica after poison, drafts verified and slots
+      failed by the fault in spec_storm (its rejected-draft rollbacks
+      are printed: the seed-0 7B accepts every draft of its periodic
+      prompts); in this process (the 7B engines, hot_swap's fresh
+      predictor) the prefill, product and RMSNorm kernels launched, no
+      plain call, nothing realigned.  The "loadgen:" and "chaos:" JSON
+      lines hold a's and b's numbers.
 
 Every profiled replay (phases 4, 5, 6 and 9) also holds the profiler's
 launches of the forward, dK/dV and dQ kernels against what the
@@ -398,11 +451,12 @@ generation_parity (phase 10a, card requests), generation (phase 10b's
 dense traffic), generation_paged and generation_shared_prefix (its two
 paged runs), generation_spec (10c's speculating run) and
 generation_disagg (10d's pair, both transports), serving_engine (11a's
-2-worker traffic) and serving_http (11b's generation traffic); and
-fleet_serving and fleet_generation (12a, 12b), which count kernel
-records in a replica's /profilez trace instead (the replicas' counters
-live in their processes): each kernel's "trace_record_paths" names
-them. Kernel #4's entry also carries "f32_prefill": the fp32
+2-worker traffic), serving_http (11b's generation traffic), loadgen
+(13a in process) and chaos (13b in this process); and fleet_serving,
+fleet_generation and chaos_fleet (12a, 12b, 13b's probe fleet), which
+count kernel records in a replica's /profilez trace instead (the
+replicas' counters live in their processes): each kernel's
+"trace_record_paths" names them. Kernel #4's entry also carries "f32_prefill": the fp32
 forward at the largest prefill bucket, [1, 32, 512, 128] causal. The
 four backward entries also carry "f32": their fp32 kernel's device_ms,
 ms, bound_ms and SDPA's fp32 backward's library_device_ms at the same
@@ -3537,14 +3591,14 @@ def closed_loop(eng, feeds, clients=SERVE_CLIENTS):
     return outs, np.asarray(lat), wall
 
 
-def serving_feeds(n, seed):
-    """`n` BERT serving requests of SERVE_ROWS rows each (from a seed),
+def serving_feeds(n, seed, rows_range=SERVE_ROWS):
+    """`n` BERT serving requests of `rows_range` rows each (from a seed),
     token ids below SERVE_POISON_ID."""
     rng = np.random.RandomState(seed)
     S = SERVE_BERT["seq_len"]
     feeds = []
     for _ in range(n):
-        rows = int(rng.randint(SERVE_ROWS[0], SERVE_ROWS[1] + 1))
+        rows = int(rng.randint(rows_range[0], rows_range[1] + 1))
         mask = np.ones((rows, S), "float32")
         for b in range(rows):
             mask[b, S - int(rng.randint(0, S // 2)):] = 0.0
@@ -4182,7 +4236,11 @@ FLEET_GEN_ENV = {"FLAGS_serving_prefill_buckets": "64,128,256,512"}
 FLEET_GEN_ROLES = {"colocated": ("both",), "pair": ("prefill", "decode")}
 FLEET_READY_S = 600.0
 FLEET_PROFILE_S = 2.0
-FLEET_PROFILE_CLIENTS = 3
+# 12b's prefill trace: clients sending new prompts, and its length in
+# FLEET_PROFILE_S (the profiler starts recording a second or two into
+# it: at 3 clients and 4 s a trace once held a single prefill)
+FLEET_PROFILE_CLIENTS = 4
+FLEET_PREFILL_TRACE = 3
 SERVE_SERIAL = 16
 # kernel records in a replica's /profilez trace, by family: the fp32
 # forward (kernel #1 in a BERT replica, #4 in a prefill replica), the
@@ -4211,7 +4269,7 @@ FLEET_DISPATCH = {"fleet_serving": dict(fa_fwd_f32=12, gemm_f32=4 * 12,
 FLEET = {}
 # the paths of the kernels line whose "launches_by_path" counts are kernel
 # records in the replicas' /profilez traces, not wrapper counts
-TRACE_PATHS = ("fleet_serving", "fleet_generation")
+TRACE_PATHS = ("fleet_serving", "fleet_generation", "chaos_fleet")
 
 
 def trace_family(event):
@@ -4537,7 +4595,7 @@ def serial_hops(router_url, replica_url, feeds, want):
 
 
 def fleet_serving(workdir, second_dir, feeds, want, want_second,
-                  in_process):
+                  in_process, loadgen_dir):
     """Phase 12a: 11a's saved BERT-base served by two replica processes
     behind the router.  Gates (tolerance 0): every routed answer equals
     Predictor.run of its rows alone; every replica's /statusz names the
@@ -4547,7 +4605,9 @@ def fleet_serving(workdir, second_dir, feeds, want, want_second,
     by shedding; a rolling restart under traffic with zero non-shed
     failures and every exit code 0; a hot swap to the second seed's
     weights answered as a fresh Predictor on them; every replica exits
-    0 at close.  Returns the trace's kernel records."""
+    0 at close.  Before the close, phase 13a's load generator drives the
+    fleet through the router (loadgen_fleet; its reports in
+    `loadgen_dir`).  Returns the trace's kernel records."""
     import torch
 
     argv = ["--model-dir", workdir]
@@ -4694,6 +4754,8 @@ def fleet_serving(workdir, second_dir, feeds, want, want_second,
                 longest_healthz_gap_s=swap_gap)
             log("  12a hot swap (answers equal a fresh Predictor on the "
                 "second weights): " + json.dumps(out["hot_swap"]))
+            loadgen_fleet(server.url, urls[0],
+                          out["traffic"]["requests_per_s"], loadgen_dir)
             out["close_exit_rcs"] = close_fleet(sup, router, server, "12a")
         finally:
             if server is not None:
@@ -4796,7 +4858,7 @@ def generation_swap(sup, router_url, checkpoint_dir, prompt,
     return out
 
 
-def fleet_generation(gen_second_dir, swapped_tokens):
+def fleet_generation(gen_second_dir, swapped_tokens, loadgen_dir):
     """Phase 12b: Llama-2-7B (32 layers, fp32, 4 slots x 1024, 257 pages
     of 16) in replica processes behind the router.  A one-replica fleet
     in role "both" answers GEN_PROMPTS through /generate (the colocated
@@ -4810,7 +4872,10 @@ def fleet_generation(gen_second_dir, swapped_tokens):
     a /profilez trace of the prefill replica during prefills holds kernel
     #4's fp32 forward and the product and RMSNorm kernels' records, every
     graph replay but the last one whole prefill's (dispatch_gate); every
-    replica exits 0 at close.  Returns the trace's kernel records."""
+    replica exits 0 at close.  Between the colocated reference and the
+    swap, phase 13a's load generator streams generations from the
+    colocated replica (loadgen_generate; its report in `loadgen_dir`).
+    Returns the trace's kernel records."""
     prompts = gen_prompts(GEN_PROMPTS, GEN["vocab_size"], 32)
     n_tokens = len(prompts) * GEN_NEW_TOKENS
     out = {}
@@ -4833,6 +4898,7 @@ def fleet_generation(gen_second_dir, swapped_tokens):
                                     tokens_per_s=n_tokens / wall)
             log("  12b colocated through the router: "
                 + json.dumps(out["colocated"]))
+            loadgen_generate(urls[0], loadgen_dir)
             out["hot_swap"] = generation_swap(
                 sup, server.url, gen_second_dir, prompts[0],
                 swapped_tokens, want[0])
@@ -4925,7 +4991,8 @@ def profile_prefills(url, prefill_url):
 
     joins = [in_background(client) for _ in range(FLEET_PROFILE_CLIENTS)]
     time.sleep(0.5)
-    events = profilez_events(prefill_url, sec=2 * FLEET_PROFILE_S)
+    events = profilez_events(prefill_url,
+                             sec=FLEET_PREFILL_TRACE * FLEET_PROFILE_S)
     stop.set()
     for j in joins:
         j()
@@ -4967,6 +5034,538 @@ def release_card(what):
     return reserved
 
 
+# -- phase 13: the port's load generator and chaos harness -----------------
+
+# 13a in process: 11a's engine settings (1 worker, max batch 8, 5 ms), a
+# closed loop of 64 one-row requests at 16 clients, then an open loop at
+# half 11a's 1-worker requests/s for 5 s
+LOADGEN_ENGINE = ("--workers", "1", "--max-batch", "8", "--max-delay-ms",
+                  "5")
+LOADGEN_CLOSED = ("--requests", "64", "--concurrency", "16")
+LOADGEN_OPEN_S = 5.0
+# 13a through 12a's router at half 12a's requests/s: a burst-shaped open
+# loop under generous budgets, an impossible p99, then 4 tenants through
+# the router and straight to a replica
+LOADGEN_BURST_S = 10.0
+LOADGEN_SLO_FAIL_S = 3.0
+LOADGEN_TENANTS = ("--mode", "closed", "--requests", "32", "--concurrency",
+                   "8", "--tenants", "4", "--tenant-dist", "uniform",
+                   "--slo-tenant-p99-ms", "600000")
+# 13a against 12b's colocated replica: 8 streamed requests at 4 clients,
+# prompts of 20-500 tokens, 64 new tokens each (an output-length mean far
+# above the clamp gives every request the clamp)
+LOADGEN_GEN = ("--generate", "--gen-stream", "--mode", "closed",
+               "--requests", "8", "--concurrency", "4", "--gen-prompt-min",
+               "20", "--gen-prompt-max", "500", "--gen-out-mean", "1e9",
+               "--gen-out-max", "64", "--gen-vocab", "32000",
+               "--gen-max-seq", "1024")
+# 13b: the chaos harness.  Its /predict fleets serve BERT-base's encoder
+# output at the first position, [B, 768] (a sentence-embedding reply),
+# from 11a's model built again with the slice op; 1-row requests; the
+# poison sentinel in the float32 attn_mask feed
+CHAOS_REPLICAS = 3
+CHAOS_SEED = 41
+# one worker a replica, max batch 8 (the harness's), and a batch held open
+# 10 ms for riders: the router spreads a rate the host bounds over three
+# replicas, so at the harness's 2 ms (one H100, ~93 requests/s) none of
+# 427 poisoned requests shared a batch, and none was bisected
+CHAOS_ENGINE = ("--workers", "1", "--max-delay-ms", "10")
+# the closed-loop probe that sets the harness's rate and forward timeout:
+# requests, clients
+CHAOS_PROBE = (256, 32)
+# each replica's swap commit widened by one delay a weight array (149
+# arrays: ~0.6 s, the reference MLP's 4 x 150 ms)
+CHAOS_SWAP_FAULT = "weight_swap:delay:4~1.0"
+# poison_paged and spec_storm: Llama-2-7B at 32 layers in this process,
+# paged (pages of 16) and, for spec_storm, speculating as phase 10c runs
+CHAOS_GEN_ENGINE = dict(num_slots=4, max_seq_len=1024,
+                        prefill_buckets=(8, 64, 128, 256, 512),
+                        page_tokens=16)
+# disagg_crash's four replicas: Llama-2-7B's widths at 4 layers (four
+# 32-layer replicas, 25.10 GiB each, do not fit in 80 GB); its prompts
+# are 4-48 tokens
+CHAOS_DISAGG_LAYERS = 4
+CHAOS_DISAGG_ARGV = ("--feat", "8", "--hidden", "16", "--depth", "1",
+                     "--generate", "--gen-vocab", "32000", "--gen-hidden",
+                     "4096", "--gen-layers", str(CHAOS_DISAGG_LAYERS),
+                     "--gen-heads", "32", "--gen-intermediate", "11008",
+                     "--gen-slots", "4", "--gen-max-seq", "128",
+                     "--gen-max-new", "8", "--gen-page-tokens", "16",
+                     "--queue-cap", "512", "--deadline-ms", "60000")
+CHAOS_DISAGG_ENV = {"FLAGS_serving_prefill_buckets": "64"}
+# the supervisor's liveness deadline: the flag's default
+CHAOS_LIVENESS_MS = 5000.0
+# phase 13's numbers, for the "loadgen:" and "chaos:" lines
+LOADGEN = {}
+CHAOS = {}
+
+
+def bert_shape_args():
+    S = str(SERVE_BERT["seq_len"])
+    return ["--shape", f"input_ids={S}", "--shape", f"token_type_ids={S}",
+            "--shape", f"attn_mask={S}"]
+
+
+def loadgen_main(args, out_path):
+    """serving_loadgen.main(args + --out out_path) in this process, the
+    report it prints kept off this script's standard output: (rc, the
+    report)."""
+    import contextlib
+    import io
+
+    from paddle_tpu_torch.tools import serving_loadgen
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = serving_loadgen.main(list(args) + ["--out", out_path])
+    with open(out_path) as f:
+        return rc, json.load(f)
+
+
+def lat(rep, key="latency_ms"):
+    """A loadgen latency block's count, p50 and p99."""
+    return brief(rep.get(key) or {})
+
+
+def model_ops(model_dir):
+    """The op types of a saved model's program, with their counts."""
+    from collections import Counter
+
+    from paddle_tpu_torch import io
+
+    program, _ = io._load_model_payload(model_dir)
+    return Counter(op.type for op in program.global_block().ops)
+
+
+def loadgen_in_process(fa, model_dir, rate_1w, workdir):
+    """13a in process: serving_loadgen.main on 11a's saved BERT-base
+    (--model-dir, --mode both, --device cuda, 11a's engine settings):
+    the closed loop's 64 requests at 16 clients, then the open loop at
+    half `rate_1w` (11a's 1-worker requests/s) for LOADGEN_OPEN_S.  The
+    counts are set to 0 as the closed loop starts and read as the open
+    one ends (the loadgen's drivers wrapped for it), so the engine's
+    warmup is not among them.  Gates: rc 0, no failure, closed ok 64, the
+    report's engine.batch_fill_pct present, kernel #1 12 times and the
+    product kernel once a mul a dispatched batch, no plain call, nothing
+    realigned.  Returns the launches."""
+    from paddle_tpu_torch.tools import serving_loadgen as lg
+
+    ops = model_ops(model_dir)
+    n_attn, n_mul = ops["flash_attention_qkv"], ops["mul"]
+    seen = {}
+    closed, open_ = lg.run_closed_loop, lg.run_open_loop
+
+    def counted_closed(engine, *a, **kw):
+        seen["batches"] = engine.stats()["counters"]["batches"]
+        reset_counts(fa)
+        return closed(engine, *a, **kw)
+
+    def counted_open(engine, *a, **kw):
+        rep = open_(engine, *a, **kw)
+        seen["counts"] = read_counts(fa)
+        seen["batches"] = (engine.stats()["counters"]["batches"]
+                           - seen["batches"])
+        return rep
+
+    qps = rate_1w / 2
+    lg.run_closed_loop, lg.run_open_loop = counted_closed, counted_open
+    t0 = time.perf_counter()
+    try:
+        rc, rep = loadgen_main(
+            ["--model-dir", model_dir] + bert_shape_args()
+            + ["--mode", "both", *LOADGEN_CLOSED, "--qps", repr(qps),
+               "--duration", repr(LOADGEN_OPEN_S), "--device", "cuda",
+               *LOADGEN_ENGINE],
+            os.path.join(workdir, "loadgen_in_process.json"))
+    finally:
+        lg.run_closed_loop, lg.run_open_loop = closed, open_
+    seconds = time.perf_counter() - t0
+    counts, plain, realigned = seen["counts"]
+    batches = seen["batches"]
+    c, o = rep["closed"], rep["open"]
+    out = dict(
+        seconds=seconds,
+        closed=dict(requests=c["requests"], ok=c["ok"], shed=c["shed"],
+                    failed=c["failed"], requests_per_s=c["qps"],
+                    latency_ms=lat(c)),
+        open=dict(target_qps=o["target_qps"], requests=o["requests"],
+                  ok=o["ok"], shed=o["shed"], failed=o["failed"],
+                  requests_per_s=o["qps"], latency_ms=lat(o)),
+        batch_fill_pct=(c.get("engine") or {}).get("batch_fill_pct"),
+        batches=batches, serving_engine_1_worker_requests_per_s=rate_1w,
+        launches=dict(fa_fwd_f32=counts[0], gemm_f32=counts.gemm,
+                      plain=plain, realigned=realigned))
+    LOADGEN["in_process"] = out
+    log("  13a serving_loadgen.main in process (1-row requests; 11a's are "
+        "1-3 rows): " + json.dumps(out))
+    want = (n_attn * batches, 0, 0, 0, 0, 0)
+    if rc != 0 or c["failed"] or o["failed"] or c["ok"] != 64 \
+            or "batch_fill_pct" not in (c.get("engine") or {}) \
+            or counts != want or counts.gemm != n_mul * batches \
+            or plain or realigned or batches <= 0:
+        raise AssertionError(
+            f"13a in process: rc {rc}, {out}; launches {counts} (want "
+            f"{want}), product kernel {counts.gemm} (want "
+            f"{n_mul * batches})")
+    return counts
+
+
+def loadgen_fleet(router_url, replica_url, rate, workdir):
+    """13a through 12a's router over its two BERT-base replicas, at half
+    `rate` (12a's requests/s): a burst-shaped open loop under generous
+    budgets (rc 0, a per-phase report, no failure); an impossible p99
+    (rc 1, violations labelled by phase, the router's /debugz bundle
+    saved); 4 tenants through the router (its /fleetz tenant families
+    embedded; the router has no /usagez, so the tenant p99 bound is
+    unmeasured there: rc 1 naming it) and straight to a replica (its
+    /usagez: every tenant's p99 measured, rc 0)."""
+    qps = rate / 2
+    base = ["--url", router_url] + bert_shape_args()
+    out = {"target_qps": qps}
+    rc, rep = loadgen_main(
+        base + ["--mode", "open", "--qps", repr(qps), "--duration",
+                repr(LOADGEN_BURST_S), "--traffic", "burst",
+                "--traffic-amplitude", "1.0", "--slo-p99-ms", "600000",
+                "--slo-shed-pct", "50"],
+        os.path.join(workdir, "loadgen_burst.json"))
+    phases = rep.get("phases") or {}
+    out["burst"] = dict(
+        rc=rc, requests=rep["requests"], ok=rep["ok"], shed=rep["shed"],
+        failed=rep["failed"], requests_per_s=rep["qps"],
+        latency_ms=lat(rep),
+        phases={k: dict(requests=p["requests"], failed=p["failed"],
+                        offered_qps=p["offered_qps"], qps=p["qps"],
+                        latency_ms=lat(p)) for k, p in phases.items()})
+    if rc != 0 or rep["failed"] or set(phases) != {"burst", "base"} \
+            or any(p["failed"] for p in phases.values()):
+        raise AssertionError(f"13a burst through the router: {out}")
+    rc, rep = loadgen_main(
+        base + ["--mode", "open", "--qps", repr(qps), "--duration",
+                repr(LOADGEN_SLO_FAIL_S), "--traffic", "sine",
+                "--slo-p99-ms", "0.001"],
+        os.path.join(workdir, "loadgen_slo.json"))
+    bundle = rep["slo"].get("debugz")
+    doc = None
+    if bundle and os.path.isfile(bundle):
+        with open(bundle) as f:
+            doc = json.load(f)
+    out["impossible_slo"] = dict(
+        rc=rc, failed=rep["failed"], violations=rep["slo"]["violations"],
+        debugz_bytes=os.path.getsize(bundle) if doc else None)
+    if rc != 1 or rep["failed"] or doc is None \
+            or doc.get("bundle") != "paddle_tpu.debugz.v1" \
+            or not any("[" in v for v in rep["slo"]["violations"]):
+        raise AssertionError(f"13a impossible SLO: {out['impossible_slo']}")
+    names = [f"tenant-{i:02d}" for i in range(4)]
+    for what, url in (("router", router_url), ("replica", replica_url)):
+        rc, rep = loadgen_main(
+            ["--url", url] + bert_shape_args() + list(LOADGEN_TENANTS),
+            os.path.join(workdir, f"loadgen_tenants_{what}.json"))
+        usage = rep.get("usage") or {}
+        tenants = usage.get("tenants") or {}
+        out[f"tenants_{what}"] = dict(
+            rc=rc, ok=rep["ok"], failed=rep["failed"],
+            violations=rep["slo"]["violations"],
+            usage_from="/fleetz" if usage.get("fleet") else "/usagez",
+            tenant_p99_ms={t: ((tenants.get(t) or {}).get("request_ms")
+                               or {}).get("p99") for t in names})
+        fed = json.dumps(usage.get("tenant_families"))
+        ok = (rep["failed"] == 0 and rep["ok"] == 32 and (
+            rc == 1 and usage.get("fleet") is True
+            and all(t in fed for t in names)
+            and any("no per-tenant usage breakdown" in v
+                    for v in rep["slo"]["violations"])
+            if what == "router" else
+            rc == 0 and all(out[f"tenants_{what}"]["tenant_p99_ms"][t]
+                            is not None for t in names)))
+        if not ok:
+            raise AssertionError(f"13a tenants through the {what}: "
+                                 f"{out[f'tenants_{what}']}")
+    LOADGEN["fleet"] = out
+    log("  13a serving_loadgen --url through 12a's router: "
+        + json.dumps(out))
+    return out
+
+
+def loadgen_generate(replica_url, workdir):
+    """13a against 12b's colocated Llama-2-7B replica: --generate --url
+    --gen-stream, 8 requests at 4 clients, prompts of 20-500 tokens, 64
+    new tokens each.  Gates: rc 0, every request answered with its 64
+    tokens, the report's client TTFT and inter-token blocks measured.
+    Printed beside the replica's own TTFT and inter-token numbers."""
+    rc, rep = loadgen_main(["--url", replica_url] + list(LOADGEN_GEN),
+                           os.path.join(workdir, "loadgen_generate.json"))
+    gen = json.loads(get(replica_url + "/healthz")[1])["generation"]
+    out = dict(rc=rc, requests=rep["requests"], ok=rep["ok"],
+               failed=rep["failed"], shed=rep["shed"],
+               generated_tokens=rep["generated_tokens"],
+               tokens_per_s=rep["tokens_per_sec"], latency_ms=lat(rep),
+               client_ttft_ms=lat(rep, "ttft_ms"),
+               client_inter_token_ms=lat(rep, "inter_token_ms"),
+               replica_ttft_ms=brief(gen["ttft_ms"]),
+               replica_inter_token_ms=brief(gen["inter_token_ms"]))
+    LOADGEN["generate"] = out
+    log("  13a serving_loadgen --generate --gen-stream against 12b's "
+        "colocated replica: " + json.dumps(out))
+    if rc != 0 or rep["failed"] or rep["ok"] != 8 \
+            or rep["generated_tokens"] != 8 * 64 \
+            or not (rep.get("ttft_ms") or {}).get("count") \
+            or not (rep.get("inter_token_ms") or {}).get("count"):
+        raise AssertionError(f"13a generate: {out}")
+    return out
+
+
+def chaos_feeds(seed, n=16):
+    """`n` one-row BERT requests from a seed (11a's recipe)."""
+    return serving_feeds(n, seed, rows_range=(1, 1))
+
+
+def json_body(feed):
+    return json.dumps({"inputs": {n: np.asarray(a).tolist()
+                                  for n, a in feed.items()}}).encode()
+
+
+def chaos_model(tpt, workdir):
+    """BERT-base (seq 128, fp32) serving its encoder output's first
+    position [B, 768], built from 11a's encoder with the slice op and
+    saved with CHAOS_SEED's weights: the chaos harness's PredictModel (1
+    worker a replica; 1-row bodies; the poison sentinel in attn_mask;
+    swap checkpoints of other seeds; a fresh Predictor on the saved model
+    with a checkpoint swapped in)."""
+    from paddle_tpu_torch import layers
+    from paddle_tpu_torch.inference import Predictor
+    from paddle_tpu_torch.models.bert import bert_encoder
+    from paddle_tpu_torch.ops import registry
+    from paddle_tpu_torch.tools.chaos import POISON, PredictModel
+
+    op_seed = registry._OP_SEED[0]
+    S = SERVE_BERT["seq_len"]
+    main, startup = tpt.Program(), tpt.Program()
+    startup._is_startup = True
+    with tpt.program_guard(main, startup):
+        feeds = [layers.data(n, [-1, S], dtype=dt, append_batch_size=False)
+                 for n, dt in (("input_ids", "int64"),
+                               ("token_type_ids", "int64"),
+                               ("attn_mask", "float32"))]
+        enc = bert_encoder(*feeds, **{k: SERVE_BERT[k] for k in (
+            "vocab_size", "hidden", "num_layers", "num_heads",
+            "intermediate")}, seq_len=S, max_position=max(512, S),
+            dropout=0.0, is_test=True, use_flash=True)
+        first = layers.squeeze(layers.slice(enc, axes=[1], starts=[0],
+                                            ends=[1]), axes=[1])
+    registry.reset_op_seed(op_seed)
+    names = [v.name for v in feeds]
+
+    def write_checkpoint(dirname, seed):
+        exe, scope = tpt.Executor(), tpt.Scope()
+        startup.random_seed = seed
+        with tpt.scope_guard(scope):
+            exe.run(startup)
+            tpt.io.save_inference_model(dirname, names, [first], exe,
+                                        main_program=main)
+        exe.close()
+
+    model_dir = os.path.join(workdir, "bert_first_position")
+    write_checkpoint(model_dir, CHAOS_SEED)
+
+    def fresh(checkpoint):
+        pred = Predictor(model_dir)
+        pred.swap_weights(checkpoint)
+        return pred
+
+    poison = chaos_feeds(7, 1)[0]
+    poison["attn_mask"][0, 0] = POISON
+    return PredictModel(
+        ["--model-dir", model_dir] + bert_shape_args() + list(CHAOS_ENGINE),
+        lambda seed: [json_body(f) for f in chaos_feeds(seed)],
+        json_body(poison), write_checkpoint=write_checkpoint, fresh=fresh,
+        probe=chaos_feeds(9, 1)[0], swap_fault=CHAOS_SWAP_FAULT), model_dir
+
+
+def chaos_probe(model, model_dir):
+    """The closed-loop probe of a fleet as the chaos harness spawns it
+    (CHAOS_REPLICAS replicas, the shared fleet's argv) behind the router:
+    CHAOS_PROBE's requests through serving_loadgen.run_closed_loop_http
+    give the rate the fleet sustains and its latency; a /profilez trace of
+    one replica under closed-loop traffic holds kernel #1's and the product
+    kernel's records, every graph replay but the last one dispatch's, no
+    other attention or product kernel (dispatch_gate); every replica exits
+    0 at close.  Returns the probe's numbers and the trace's records."""
+    import threading
+
+    from paddle_tpu_torch.tools import chaos
+    from paddle_tpu_torch.tools import serving_loadgen as lg
+
+    ops = model_ops(model_dir)
+    feeds = chaos_feeds(0)
+    make_feed = lambda i: feeds[i % len(feeds)]  # noqa: E731
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_chaos_probe_") as fd:
+        sup, urls, ready, gap = spawn_fleet(
+            "13b probe fleet", replicas=CHAOS_REPLICAS,
+            replica_argv=chaos.shared_fleet_argv(model, "cuda"),
+            workdir=fd)
+        router = server = None
+        try:
+            router, server = routed(sup)
+            n, clients = CHAOS_PROBE
+            rep = lg.run_closed_loop_http(server.url, make_feed, n, clients)
+            if rep["ok"] != n:
+                raise AssertionError(f"13b probe: {rep}")
+            out = dict(startup_s=ready, requests=n, clients=clients,
+                       requests_per_s=rep["qps"],
+                       latency_ms=lat(rep), ops=dict(ops))
+            # closed-loop traffic until the trace is back
+            stop = threading.Event()
+
+            def traffic():
+                reps = []
+                while not stop.is_set():
+                    reps.append(lg.run_closed_loop_http(
+                        server.url, make_feed, 64, 8))
+                return reps
+
+            join = in_background(traffic)
+            time.sleep(0.3)
+            try:
+                events = profilez_events(urls[0])
+            finally:
+                stop.set()
+            bg = join()
+            if any(r["failed"] for r in bg):
+                raise AssertionError(f"13b traffic while profiling: {bg}")
+            records = trace_records(events)
+            dispatches = dispatch_gate(events, "fleet_serving",
+                                       "13b /profilez trace of a chaos "
+                                       "replica")
+            out["trace_records"] = records
+            out["trace_dispatches"] = len(dispatches)
+            if records["other_attention"] or records["other_product"]:
+                raise AssertionError(f"13b trace records {records}")
+            close_fleet(sup, router, server, "13b probe fleet")
+        finally:
+            if server is not None:
+                server.close()
+                router.close()
+            sup.close(timeout_s=120)
+    log("  13b probe of a chaos fleet: " + json.dumps(out))
+    return out
+
+
+def chaos_settings(probe, respawn_s):
+    """The harness's settings from the probe and 12a's SIGKILL respawn:
+    half the rate the fleet sustained; a forward timeout four times the
+    probe's p99 (at least 1 s); the supervisor's liveness deadline at its
+    default; scenarios long enough that a SIGKILL at a quarter of one
+    respawns before it ends: 1.6 times the longer of 12a's respawn and
+    the probe fleet's spawn to ready (a chaos replica respawns under the
+    harness's load, beside two others)."""
+    respawn_s = max([respawn_s] + list(probe["startup_s"].values()))
+    return dict(qps=probe["requests_per_s"] / 2,
+                forward_timeout_ms=max(1000.0,
+                                       4.0 * probe["latency_ms"]["p99"]),
+                liveness_timeout_ms=CHAOS_LIVENESS_MS,
+                duration_s=float(math.ceil(1.6 * respawn_s)))
+
+
+def chaos_gate(report):
+    """The hard gates of 13b's report: no scenario error, no collateral
+    failure, no poison leak, no leaked page, no torn version,
+    availability >= 99%, report["ok"]; and every recovery path fired: a
+    respawn after crash (attributed SIGKILL), a liveness kill after hang,
+    a bisection in a replica after poison, drafts verified and slots
+    failed by the decode_step fault in spec_storm (its pool drained:
+    leaked_pages).  A rejected draft's rollback is not required: the
+    seed-0 Llama-2-7B accepts every draft of the scenario's periodic
+    prompts (20 drafts, acceptance 1.0, the same in every run), so its
+    count is reported.  Returns the failed gates."""
+    sc, t = report["scenarios"], report["totals"]
+    bad = []
+    checks = (
+        ("errors", report["errors"] == {}),
+        ("collateral_failures", t["collateral_failures"] == 0),
+        ("poison_leaks", t["poison_leaks"] == 0),
+        ("leaked_pages", t.get("leaked_pages") == 0),
+        ("torn_responses", t.get("torn_responses") == 0),
+        ("availability", report["availability_pct"] >= 99.0),
+        ("ok", report["ok"] is True),
+        ("crash respawn", "crash" in sc
+         and sc["crash"].get("recovery_s") is not None
+         and (sc["crash"]["notes"].get("postmortem") or {}).get(
+             "attribution") == "signal:SIGKILL"),
+        ("hang liveness kill", "hang" in sc
+         and sc["hang"]["notes"].get("hung_kills_after", 0)
+         > sc["hang"]["notes"].get("hung_kills_before", 0)),
+        ("poison bisection", "poison" in sc
+         and sc["poison"]["notes"].get("bisections", 0) >= 1),
+        ("spec_storm speculated through the fault", "spec_storm" in sc
+         and ((sc["spec_storm"]["notes"].get("spec") or {}).get(
+             "drafts") or 0) >= 1
+         and (sc["spec_storm"]["notes"].get("fault_victims") or 0) >= 1))
+    for name, ok in checks:
+        if not ok:
+            bad.append(name)
+    return bad
+
+
+def chaos_flagship(fa, model, settings):
+    """13b: run_chaos with every port scenario at full width: the shared
+    and the hot_swap / noisy_neighbor fleets of CHAOS_REPLICAS BERT-base
+    replicas (`model`), poison_paged and spec_storm on Llama-2-7B at 32
+    layers in this process, disagg_crash on four replicas of Llama-2-7B's
+    widths at CHAOS_DISAGG_LAYERS layers.  The counts in this process are
+    set to 0 before and read after (the in-process engines and
+    hot_swap's fresh predictor): no plain call, nothing realigned, the
+    prefill kernel (#4), the product and RMSNorm kernels launched.  The
+    hard gates of chaos_gate.  Returns the launches."""
+    from paddle_tpu_torch.tools import chaos
+
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_chaos_") as fd:
+        report = chaos.run_chaos(
+            replicas=CHAOS_REPLICAS, scenarios=chaos.DEFAULT_SCENARIOS,
+            availability_pct=99.0, workdir=fd,
+            log=lambda m: log("  13b " + m), device="cuda", model=model,
+            gen_model=GEN, gen_engine=CHAOS_GEN_ENGINE,
+            disagg_argv=CHAOS_DISAGG_ARGV, disagg_env=CHAOS_DISAGG_ENV,
+            **settings)
+    seconds = time.perf_counter() - t0
+    counts, plain, realigned = read_counts(fa)
+    keep = ("requests", "ok", "shed", "injected_failures",
+            "collateral_failures", "poison_leaks", "availability_pct",
+            "p99_ms", "recovery_s", "wall_s", "leaked_pages",
+            "torn_responses", "usage_conservation_delta",
+            "hog_attribution_ratio", "alerts")
+    CHAOS["run"] = dict(
+        seconds=seconds, settings=settings,
+        availability_pct=report["availability_pct"],
+        p99_under_fault_ms=report["p99_under_fault_ms"],
+        totals=report["totals"], errors=report["errors"], ok=report["ok"],
+        scenarios={n: dict({k: r[k] for k in keep if k in r},
+                           notes={k: v for k, v in r["notes"].items()
+                                  if k in ("bisections", "poison_rows",
+                                           "spec", "fault_victims",
+                                           "recovery_s",
+                                           "hung_kills_after",
+                                           "prefix_hits", "page_evictions",
+                                           "swap_clean", "swap_killed",
+                                           "bit_exact")})
+                   for n, r in report["scenarios"].items()},
+        in_process_launches=dict(fa_fwd_f32=counts[0],
+                                 fa_fwd_prefill=counts[3],
+                                 gemm_f32=counts.gemm,
+                                 rms_norm_f32=counts.rms_norm, plain=plain,
+                                 realigned=realigned))
+    log("  13b run_chaos: " + json.dumps(CHAOS["run"]))
+    bad = chaos_gate(report)
+    if plain or realigned or counts[3] <= 0 or counts.gemm <= 0 \
+            or counts.rms_norm <= 0:
+        bad.append("in-process launches")
+    if bad:
+        raise AssertionError(f"13b chaos: failed {bad}: "
+                             f"{json.dumps(CHAOS['run'])[:4000]}")
+    return counts
+
+
 def main():
     import torch
 
@@ -4986,7 +5585,7 @@ def main():
 
     t_start = time.perf_counter()
     card = card_line()
-    log(f"[1/12] device: {card}; torch {torch.__version__}, CUDA "
+    log(f"[1/13] device: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5003,12 +5602,12 @@ def main():
     fa._bwd_lib()
     gemm._lib()
     rms_norm._lib()
-    log(f"[2/12] built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
+    log(f"[2/13] built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
     check_build(build)
     gemm_rows, gemm_ratios = check_gemm(gemm, build, device)
     norm_rows = check_rms_norm(rms_norm, device)
 
-    log("[3/12] packed kernels against their plain versions")
+    log("[3/13] packed kernels against their plain versions")
     check_kernel(fa, device)
     check_backward(fa, device)
     fwd_f32 = time_forward_f32(fa, device)
@@ -5019,36 +5618,36 @@ def main():
 
     # each path's launches of the six kernels, each read from 0
     by_path = {}
-    log("[4/12] BERT-base serving through Predictor on the card")
+    log("[4/13] BERT-base serving through Predictor on the card")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         by_path["serving"] = serve(tpt, fa, workdir)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[5/12] BERT-base training, card against the CPU (fp32)")
+    log("[5/13] BERT-base training, card against the CPU (fp32)")
     by_path["training_parity"] = bert_parity(tpt, fa)
     bert_fp32_profile(tpt, fa)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[6/12] bench.py's seq-512 training step on the card (bf16 AMP)")
+    log("[6/13] bench.py's seq-512 training step on the card (bf16 AMP)")
     by_path["training_flagship"], _ = bert_flagship(tpt, fa)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[7/12] unpacked kernels against their plain versions")
+    log("[7/13] unpacked kernels against their plain versions")
     check_unpacked(fa, device)
     unpacked_timing = time_unpacked(fa, device, "bfloat16")
     unpacked_f32 = time_unpacked(fa, device, "float32")
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[8/12] Llama-2-7B-width training, card against the CPU (fp32)")
+    log("[8/13] Llama-2-7B-width training, card against the CPU (fp32)")
     by_path["llama_parity"] = llama_parity(tpt, fa)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[9/12] Llama-2-7B-width training on the card (4 layers, bf16 AMP)")
+    log("[9/13] Llama-2-7B-width training on the card (4 layers, bf16 AMP)")
     by_path["llama_flagship"], losses = llama_flagship(tpt, fa)
     compare_losses(losses)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[10/12] Llama generation serving on the card (dense and paged KV "
+    log("[10/13] Llama generation serving on the card (dense and paged KV "
         "cache, speculative decoding, prefill / decode roles)")
     by_path["generation_parity"] = generation_parity(tpt, fa)
     by_path["generation"], paged_paths, gen_scope, dense_tokens = \
@@ -5059,7 +5658,7 @@ def main():
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
     t11 = time.perf_counter()
-    log("[11/12] the serving stack: BERT-base through ServingEngine, then "
+    log("[11/13] the serving stack: BERT-base through ServingEngine, then "
         "HTTP with Llama-2-7B generation attached")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_serving_") as wd:
         model_dir, second_dir, gen_second_dir = (
@@ -5082,19 +5681,46 @@ def main():
         pred.close()
         del eng, pred, gen_scope
         t12 = time.perf_counter()
-        log("[12/12] the fleet: BERT-base and Llama-2-7B in replica "
+        log("[12/13] the fleet: BERT-base and Llama-2-7B in replica "
             "processes behind the router")
         FLEET["reserved_gib_before"] = release_card(
             "released phases 10 and 11")
+        loadgen_dir = os.path.join(wd, "loadgen")
+        os.makedirs(loadgen_dir)
         by_path["fleet_serving"] = trace_launches(fleet_serving(
             model_dir, second_dir, feeds, want, want_second,
-            SERVING["engine"]["workers_2"]), 0)
+            SERVING["engine"]["workers_2"], loadgen_dir), 0)
         by_path["fleet_generation"] = trace_launches(fleet_generation(
-            gen_second_dir, gen_swapped_tokens), 3)
-    FLEET["phase_s"] = time.perf_counter() - t12
-    FLEET["card"] = card
-    log("fleet: " + json.dumps(FLEET))
-    log(f"  (phase 12 took {FLEET['phase_s']:.1f} s; "
+            gen_second_dir, gen_swapped_tokens, loadgen_dir), 3)
+        FLEET["phase_s"] = time.perf_counter() - t12
+        FLEET["card"] = card
+        log("fleet: " + json.dumps(FLEET))
+        log(f"  (phase 12 took {FLEET['phase_s']:.1f} s; "
+            f"{time.perf_counter() - t_start:.1f} s in all)")
+
+        t13 = time.perf_counter()
+        log("[13/13] the port's load generator and chaos harness: "
+            "BERT-base and Llama-2-7B fleets (13a's --url legs ran in "
+            "phase 12)")
+        by_path["loadgen"] = loadgen_in_process(
+            fa, model_dir, SERVING["engine"]["workers_1"]["requests_per_s"],
+            loadgen_dir)
+    release_card("13a's engine closed")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_chaos_") as wd:
+        model, model_dir = chaos_model(tpt, wd)
+        probe = chaos_probe(model, model_dir)
+        CHAOS["probe"] = probe
+        by_path["chaos_fleet"] = trace_launches(probe["trace_records"], 0)
+        settings = chaos_settings(probe,
+                                  FLEET["serving"]["sigkill"]["respawn_s"])
+        log("  13b settings (from the probe and 12a's respawn): "
+            + json.dumps(settings))
+        by_path["chaos"] = chaos_flagship(fa, model, settings)
+    LOADGEN["card"] = CHAOS["card"] = card
+    CHAOS["phase_s"] = time.perf_counter() - t13
+    log("loadgen: " + json.dumps(LOADGEN))
+    log("chaos: " + json.dumps(CHAOS))
+    log(f"  (phase 13 took {CHAOS['phase_s']:.1f} s; "
         f"{time.perf_counter() - t_start:.1f} s in all)")
     for key, (wall, busy, idle, launches) in EAGER_PROFILES.items():
         p = PROFILES[key]

@@ -43,8 +43,10 @@ refuses a segment whose fingerprint differs (:class:`SegmentMismatch`).
 :class:`DisaggPair` chains a prefill-role and a decode-role engine behind
 one ``submit()``: a pump thread hands each finished prefill's segment
 through the transport to ``decode.adopt`` without blocking on any one
-future.  The router's and fleet's disaggregated pipeline and the HTTP
-``POST /adopt`` hop are not ported yet (ROADMAP.md queue 1 item 6).
+future.  Across processes the same handoff runs through the HTTP
+``POST /adopt`` hop (serving/server.py) and the router's prefill ->
+``/adopt`` -> decode pipeline (serving/router.py) over a role-split
+fleet (serving/fleet.py).
 
 Stats: ``serving_segments_exported``, ``serving_segments_adopted``,
 ``serving_segment_export_bytes``, ``serving_segment_adopt_bytes``,

@@ -163,7 +163,6 @@ import threading
 import time
 import urllib.error
 import urllib.request
-from http.server import ThreadingHTTPServer
 from typing import Dict, List, Optional, Tuple
 
 from .. import blackbox, fault, promtext, telemetry, tsdb
@@ -171,7 +170,7 @@ from ..flags import all_flags, flag_value, register_flag
 from ..monitor import process_uptime_s, stat_add
 from . import usage
 from .server import (DEADLINE_HEADER, TENANT_HEADER, TRACE_HEADER,
-                     VERSION_HEADER, _AccessLog, _JsonHandler,
+                     VERSION_HEADER, _AccessLog, _HTTPServer, _JsonHandler,
                      parse_deadline_header, parse_tenant_header,
                      parse_trace_header)
 
@@ -2620,8 +2619,7 @@ class RouterServer:
         self.access_log = _AccessLog()
         handler = type("BoundRouterHandler", (_RouterHandler,),
                        {"router": router, "access_log": self.access_log})
-        self._httpd = ThreadingHTTPServer((host, port), handler)
-        self._httpd.daemon_threads = True
+        self._httpd = _HTTPServer((host, port), handler)
         self.host, self.port = self._httpd.server_address[:2]
         self._thread: Optional[threading.Thread] = None
         self._closed = False

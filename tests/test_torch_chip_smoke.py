@@ -6,6 +6,8 @@ fails on the card with "ptxas printed no spill line".  The mangled names
 here follow the Itanium C++ ABI as nvcc emits it for the kernels in
 paddle_tpu_torch/csrc/ (anonymous namespace, then namespace tc or f32)."""
 import importlib.util
+import json
+import math
 import os
 import re
 
@@ -603,7 +605,8 @@ def test_trace_launches_put_the_records_on_their_kernel():
     generation = smoke.trace_launches(dict(rec, rms_norm_f32=65), 3)
     assert tuple(generation) == (0, 0, 0, 24, 0, 0)
     assert generation.rms_norm == 65
-    assert set(smoke.TRACE_PATHS) == {"fleet_serving", "fleet_generation"}
+    assert set(smoke.TRACE_PATHS) == {"fleet_serving", "fleet_generation",
+                                      "chaos_fleet"}
 
 
 def test_closed_rows_holds_routed_answers_to_tolerance_0():
@@ -619,3 +622,219 @@ def test_closed_rows_holds_routed_answers_to_tolerance_0():
     assert smoke.traffic_gate(recs, "x") == 1
     with pytest.raises(AssertionError):
         smoke.traffic_gate(recs + [{"status": 500, "equal": False}], "x")
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the port's load generator and chaos harness
+# ---------------------------------------------------------------------------
+
+def _probe(rate=300.0, p99=120.0, startup=(11.0, 11.5, 12.0)):
+    return {"requests_per_s": rate, "latency_ms": {"p99": p99},
+            "startup_s": dict(enumerate(startup))}
+
+
+@pytest.mark.parametrize("rate,p99,respawn,want", [
+    (300.0, 120.0, 14.0, dict(qps=150.0, forward_timeout_ms=1000.0,
+                              duration_s=23.0)),
+    (180.0, 400.0, 12.4, dict(qps=90.0, forward_timeout_ms=1600.0,
+                              duration_s=20.0)),
+    (500.0, 249.0, 15.0, dict(qps=250.0, forward_timeout_ms=1000.0,
+                              duration_s=24.0))])
+def test_chaos_settings_derive_from_the_probe_and_the_respawn(rate, p99,
+                                                              respawn,
+                                                              want):
+    """13b's harness settings: half the rate the probed fleet sustained,
+    a forward timeout above the probe's p99 (4x, at least 1 s), the
+    liveness deadline at the flag's default, and scenarios long enough
+    that a SIGKILL a quarter of the way in respawns before the end."""
+    from paddle_tpu_torch.flags import flag_value
+
+    got = smoke.chaos_settings(_probe(rate, p99), respawn)
+    assert {k: got[k] for k in want} == want
+    assert got["forward_timeout_ms"] > p99
+    assert got["liveness_timeout_ms"] == \
+        flag_value("FLAGS_fleet_liveness_timeout_ms") == 5000.0
+    assert 0.25 * got["duration_s"] + respawn <= got["duration_s"]
+    # a probe fleet slower to start than 12a's respawn sets the duration
+    slow = smoke.chaos_settings(_probe(rate, p99, (16.1, 17.0, 15.0)),
+                                respawn)
+    assert slow["duration_s"] == math.ceil(1.6 * max(17.0, respawn))
+
+
+def _chaos_report():
+    """A passing run_chaos report, as the harness shapes it."""
+    scen = {
+        "crash": {"recovery_s": 13.0, "notes": {"postmortem": {
+            "attribution": "signal:SIGKILL"}}},
+        "hang": {"recovery_s": 19.0, "notes": {"hung_kills_before": 0,
+                                               "hung_kills_after": 1}},
+        "poison": {"notes": {"bisections": 3, "poison_rows": 3}},
+        "spec_storm": {"notes": {"spec": {"drafts": 20, "rollbacks": 0},
+                                 "fault_victims": 2}}}
+    return {"ok": True, "errors": {}, "availability_pct": 99.8,
+            "scenarios": scen,
+            "totals": {"collateral_failures": 0, "poison_leaks": 0,
+                       "leaked_pages": 0, "torn_responses": 0}}
+
+
+def _set(report, path, value):
+    doc = report
+    for k in path[:-1]:
+        doc = doc[k]
+    doc[path[-1]] = value
+
+
+@pytest.mark.parametrize("path,value,gate", [
+    (("totals", "collateral_failures"), 1, "collateral_failures"),
+    (("totals", "poison_leaks"), 1, "poison_leaks"),
+    (("totals", "leaked_pages"), 2, "leaked_pages"),
+    (("totals", "leaked_pages"), None, "leaked_pages"),
+    (("totals", "torn_responses"), 1, "torn_responses"),
+    (("availability_pct",), 98.99, "availability"),
+    (("errors",), {"hot_swap": "did not converge"}, "errors"),
+    (("ok",), False, "ok"),
+    (("scenarios", "crash", "recovery_s"), None, "crash respawn"),
+    (("scenarios", "crash", "notes", "postmortem"),
+     {"attribution": "unexplained"}, "crash respawn"),
+    (("scenarios", "hang", "notes", "hung_kills_after"), 0,
+     "hang liveness kill"),
+    (("scenarios", "poison", "notes", "bisections"), 0,
+     "poison bisection"),
+    (("scenarios", "spec_storm", "notes", "spec", "drafts"), 0,
+     "spec_storm speculated through the fault"),
+    (("scenarios", "spec_storm", "notes", "fault_victims"), 0,
+     "spec_storm speculated through the fault")])
+def test_chaos_gate_fails_each_broken_verdict(path, value, gate):
+    assert smoke.chaos_gate(_chaos_report()) == []
+    report = _chaos_report()
+    _set(report, path, value)
+    assert smoke.chaos_gate(report) == [gate]
+
+
+def test_chaos_gate_needs_every_recovery_scenario():
+    report = _chaos_report()
+    del report["scenarios"]["spec_storm"]
+    assert smoke.chaos_gate(report) == [
+        "spec_storm speculated through the fault"]
+
+
+def test_chaos_fleet_configuration():
+    """13b's /predict fleet: the shared fleet's argv the harness builds
+    (the model's arguments, 1 worker, max batch 8, a 10 ms batch window
+    over the harness's 2 ms, the poison sentinel through --poison-value,
+    on the card); 1-row BERT requests below the
+    poison id; the poison body's attn_mask carries the sentinel, which
+    the engine's check finds after its dtype cast."""
+    from paddle_tpu_torch.serving.engine import poison_sentinel_matches
+    from paddle_tpu_torch.tools import chaos
+
+    model = chaos.PredictModel(["--model-dir", "d"]
+                               + smoke.bert_shape_args()
+                               + list(smoke.CHAOS_ENGINE), None, b"")
+    argv = chaos.shared_fleet_argv(model, "cpu")
+    assert _argv_value(argv, "--model-dir") == "d"
+    assert _argv_value(argv, "--workers") == "1"
+    assert int(_argv_value(argv, "--max-batch")) == 8
+    # the model's engine arguments come after the harness's: they win
+    last = len(argv) - 1 - argv[::-1].index("--max-delay-ms")
+    assert float(argv[last + 1]) == 10.0 > float(
+        _argv_value(argv, "--max-delay-ms"))
+    assert float(_argv_value(argv, "--poison-value")) == chaos.POISON
+    assert _argv_value(argv, "--device") == "cpu"
+    S = smoke.SERVE_BERT["seq_len"]
+    assert smoke.bert_shape_args() == [
+        "--shape", f"input_ids={S}", "--shape", f"token_type_ids={S}",
+        "--shape", f"attn_mask={S}"]
+    feeds = smoke.chaos_feeds(0)
+    assert len(feeds) == 16
+    for f in feeds:
+        assert f["input_ids"].shape == (1, S)
+        assert f["input_ids"].max() < smoke.SERVE_POISON_ID
+        assert not poison_sentinel_matches(f["attn_mask"], chaos.POISON)
+    assert [smoke.json_body(f) for f in smoke.chaos_feeds(0)] == \
+        [smoke.json_body(f) for f in feeds]
+    poison = smoke.chaos_feeds(7, 1)[0]
+    poison["attn_mask"][0, 0] = chaos.POISON
+    doc = json.loads(smoke.json_body(poison))["inputs"]
+    mask = np.asarray(doc["attn_mask"]).astype("float32")
+    assert poison_sentinel_matches(mask, chaos.POISON)
+    ids = np.asarray(doc["input_ids"]).astype("int64")
+    assert not poison_sentinel_matches(ids, chaos.POISON)
+    assert smoke.CHAOS_REPLICAS == 3
+    assert smoke.CHAOS_LIVENESS_MS == 5000.0
+
+
+def test_chaos_generation_configuration():
+    """13b's generation: poison_paged and spec_storm on Llama-2-7B at 32
+    layers in pages of 16 with phase 10c's buckets (bucket 8 for the
+    verify); disagg_crash on four replicas of Llama-2-7B's widths at 4
+    layers (the one depth cut), their prompts (4-48 tokens) inside the
+    64-token bucket; the replica's parser accepts the argv."""
+    from paddle_tpu_torch.serving import replica
+
+    assert smoke.GEN["num_layers"] == 32
+    eng = smoke.CHAOS_GEN_ENGINE
+    assert eng["prefill_buckets"] == smoke.GEN_SPEC_ENGINE["prefill_buckets"]
+    assert eng["num_slots"] == smoke.GEN_SPEC_ENGINE["num_slots"]
+    assert eng["max_seq_len"] == smoke.GEN_SPEC_ENGINE["max_seq_len"]
+    assert eng["page_tokens"] == smoke.GEN_PAGE
+    argv = smoke.CHAOS_DISAGG_ARGV
+    widths = {"--gen-vocab": "vocab_size", "--gen-hidden": "hidden",
+              "--gen-heads": "num_heads",
+              "--gen-intermediate": "intermediate"}
+    for flag, key in widths.items():
+        assert int(_argv_value(argv, flag)) == smoke.GEN[key]
+    assert int(_argv_value(argv, "--gen-layers")) == \
+        smoke.CHAOS_DISAGG_LAYERS == 4
+    assert int(smoke.CHAOS_DISAGG_ENV["FLAGS_serving_prefill_buckets"]) \
+        >= 48 + 1
+    assert int(_argv_value(argv, "--gen-max-seq")) >= 48 + 8
+    with pytest.raises(SystemExit) as e:
+        replica.main(list(argv) + ["--help"])
+    assert e.value.code == 0
+
+
+def test_loadgen_generate_leg_sends_64_new_tokens_each():
+    """13a's generation leg: 8 requests at 4 clients, prompts of 20-500
+    tokens from the 7B vocab, every request's output clamped to 64 (an
+    output-length mean far above the clamp)."""
+    from paddle_tpu_torch.tools import serving_loadgen as lg
+
+    argv = smoke.LOADGEN_GEN
+    assert "--gen-stream" in argv and "--generate" in argv
+    assert (_argv_value(argv, "--requests"),
+            _argv_value(argv, "--concurrency")) == ("8", "4")
+    mk = lg.prompt_maker(int(_argv_value(argv, "--gen-vocab")),
+                         int(_argv_value(argv, "--gen-prompt-min")),
+                         int(_argv_value(argv, "--gen-prompt-max")),
+                         float(_argv_value(argv, "--gen-out-mean")),
+                         int(_argv_value(argv, "--gen-out-max")))
+    reqs = [mk(i) for i in range(8)]
+    assert all(n == 64 for _, n in reqs)
+    assert all(20 <= p.size <= 500 and p.max() < 32000 for p, _ in reqs)
+    assert smoke.GEN_ENGINE["max_seq_len"] >= 500 + 64
+    assert max(smoke.GEN_ENGINE["prefill_buckets"]) >= 500
+
+
+def test_loadgen_main_keeps_its_report_off_stdout(tmp_path, capsys):
+    """loadgen_main runs the tool in this process and returns its exit
+    code and report; the report is not printed on chip_smoke's standard
+    output (whose last lines the driver reads)."""
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch.serving import ServingEngine, ServingServer
+    from paddle_tpu_torch.tools import serving_loadgen as lg
+
+    pred, shapes = lg.build_synthetic(4, 8, 1, device="cpu")
+    eng = ServingEngine(pred, workers=1, max_batch=2, max_delay_ms=1.0)
+    eng.warmup(shapes)
+    srv = ServingServer(eng).start()
+    try:
+        rc, rep = smoke.loadgen_main(
+            ["--url", srv.url, "--feat", "4", "--mode", "closed",
+             "--requests", "4", "--concurrency", "2"],
+            str(tmp_path / "r.json"))
+    finally:
+        srv.close()
+        tpt.set_flags({"FLAGS_telemetry": True})
+    assert rc == 0 and rep["ok"] == 4
+    assert capsys.readouterr().out == ""

@@ -1,7 +1,8 @@
-"""The PyTorch port stands alone: no module under paddle_tpu_torch/, and
-not chip_smoke.py, time_fp32.py, time_step.py, probe_decode_rows.py,
-probe_fetch.py or probe_serving_host.py, imports jax or the JAX package
-paddle_tpu."""
+"""The PyTorch port stands alone: no module under paddle_tpu_torch/ (its
+subpackage tools/ included: the port's load generator and chaos
+harness), and not chip_smoke.py, time_fp32.py, time_step.py,
+probe_decode_rows.py, probe_fetch.py or probe_serving_host.py, imports
+jax or the JAX package paddle_tpu."""
 import ast
 import os
 

@@ -7,8 +7,8 @@ serving/usage.py (the ledger's exactness, conservation, determinism and
 memory bound; zero work when off; a live ServingEngine conserving
 against its totals), and costmodel.py (the H100 peaks, no TPU row,
 manifests counted from a program's ops).  Each twin is the reference
-test's body run against ``paddle_tpu_torch``; the engine tests serve a
-port MLP instead of the loadgen's JAX model.
+test's body run against ``paddle_tpu_torch``; the engine tests serve the
+port loadgen's MLP (``paddle_tpu_torch.tools.serving_loadgen``).
 """
 import importlib.util
 import json
@@ -20,13 +20,13 @@ import numpy as np
 import pytest
 
 import paddle_tpu_torch as pt
-from paddle_tpu_torch import (blackbox, costmodel, fault, layers,
-                              observatory, telemetry)
-from paddle_tpu_torch.inference import Predictor
+from paddle_tpu_torch import (blackbox, costmodel, fault, observatory,
+                              telemetry)
 from paddle_tpu_torch.monitor import stat_add, stat_get
 from paddle_tpu_torch.serving import ServingEngine, usage
 from paddle_tpu_torch.serving.usage import (COST_FIELDS, OTHER_TENANT,
                                             UsageLedger, split_ints)
+from paddle_tpu_torch.tools import serving_loadgen
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -61,32 +61,8 @@ def _load_tool(name):
     return mod
 
 
-class _Loadgen:
-    """The loadgen's ``build_synthetic`` for the port: an MLP predictor
-    on the CPU and its per-row feed shapes."""
-
-    @staticmethod
-    def build_synthetic(feat, hidden, depth):
-        main, startup = pt.Program(), pt.Program()
-        startup._is_startup = True
-        with pt.program_guard(main, startup):
-            x = layers.data("x", [feat])
-            h = x
-            for _ in range(depth):
-                h = layers.fc(h, hidden, act="gelu")
-            out = layers.fc(h, 2)
-        scope = pt.Scope()
-        pt.Executor(pt.CPUPlace()).run(startup, scope=scope)
-        return (Predictor(main, ["x"], [out], scope=scope, device="cpu"),
-                {"x": (feat,)})
-
-
-def _load_loadgen():
-    return _Loadgen
-
-
-def _tiny_engine(lg):
-    pred, _shapes = lg.build_synthetic(4, 8, 1)
+def _tiny_engine():
+    pred, _shapes = serving_loadgen.build_synthetic(4, 8, 1, device="cpu")
     eng = ServingEngine(pred, workers=1)
     eng.warmup({"x": (4,)})
     return eng
@@ -699,12 +675,11 @@ def test_sketch_memory_hard_bound_under_high_cardinality():
 
 
 def test_flags_usage_off_does_zero_per_request_work():
-    lg = _load_loadgen()
     pt.set_flags({"FLAGS_usage": False})
     usage.reset_ledger()
     try:
         assert not usage.enabled()
-        eng = _tiny_engine(lg)
+        eng = _tiny_engine()
         feed = {"x": np.random.RandomState(0).rand(1, 4)
                 .astype("float32")}
         for _ in range(3):
@@ -721,11 +696,10 @@ def test_flags_usage_off_does_zero_per_request_work():
 
 
 def test_engine_books_tenants_and_conserves_against_totals():
-    lg = _load_loadgen()
     pt.set_flags({"FLAGS_usage": True})
     usage.reset_ledger()
     try:
-        eng = _tiny_engine(lg)
+        eng = _tiny_engine()
         feed = {"x": np.random.RandomState(0).rand(1, 4)
                 .astype("float32")}
         for i in range(6):
@@ -786,7 +760,8 @@ def test_peak_overrides():
 def test_predictor_costs_count_the_products():
     """cache_info's cost manifest: 2 M K N flops a mul at the bucket's
     rows, the weights' bytes, and no graph pool on the CPU."""
-    pred, _ = _Loadgen.build_synthetic(4, 8, 1)
+    pred, _ = serving_loadgen.build_synthetic(4, 8, 1, classes=2,
+                                              device="cpu")
     pred.warmup([{"x": (b, 4)} for b in (1, 4)])
     info = pred.cache_info()
     costs = info["costs"]

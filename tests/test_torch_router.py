@@ -32,9 +32,10 @@ from paddle_tpu_torch.monitor import stat_get
 from paddle_tpu_torch.ops.registry import reset_op_seed
 from paddle_tpu_torch.serving import (FleetSupervisor, GenerationEngine,
                                       Router, RouterServer, ServingEngine)
+from paddle_tpu_torch.tools import serving_loadgen
 
 from torch_fleet_util import (TINY_ARGV, free_port, inject_health,
-                              kill, mini_replica, open_loop, post, post_raw,
+                              kill, mini_replica, post, post_raw,
                               router_over, synthetic, wait_respawned)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -707,10 +708,12 @@ def test_fleet_serves_the_jax_saved_model_within_1e5(fleet, jax_model):
 
 def test_fleet_replica_crash_respawns_without_nonshed_failures(fleet):
     router, server = router_over(fleet)
+    make_feed = serving_loadgen.feed_maker({"x": (FEAT,)}, rows=1)
     box = {}
 
     def _traffic():
-        box["rep"] = open_loop(server.url, qps=40.0, duration_s=6.0)
+        box["rep"] = serving_loadgen.run_open_loop_http(
+            server.url, make_feed, qps=40.0, duration_s=6.0)
 
     try:
         t = threading.Thread(target=_traffic, daemon=True)
@@ -737,10 +740,12 @@ def test_fleet_replica_crash_respawns_without_nonshed_failures(fleet):
 
 def test_rolling_restart_zero_nonshed_failure_window(fleet):
     router, server = router_over(fleet)
+    make_feed = serving_loadgen.feed_maker({"x": (FEAT,)}, rows=1)
     box = {}
 
     def _traffic():
-        box["rep"] = open_loop(server.url, qps=30.0, duration_s=10.0)
+        box["rep"] = serving_loadgen.run_open_loop_http(
+            server.url, make_feed, qps=30.0, duration_s=10.0)
 
     try:
         t = threading.Thread(target=_traffic, daemon=True)
@@ -772,10 +777,12 @@ def test_sigstop_replica_router_reroutes_and_supervisor_recovers(fleet):
     fleet._liveness_s = 1.2
     router, server = router_over(fleet, stale_ms=1500.0,
                                  forward_timeout_ms=500.0)
+    make_feed = serving_loadgen.feed_maker({"x": (FEAT,)}, rows=1)
     box = {}
 
     def _traffic():
-        box["rep"] = open_loop(server.url, qps=25.0, duration_s=5.0)
+        box["rep"] = serving_loadgen.run_open_loop_http(
+            server.url, make_feed, qps=25.0, duration_s=5.0)
 
     try:
         t = threading.Thread(target=_traffic, daemon=True)

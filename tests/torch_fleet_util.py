@@ -1,12 +1,11 @@
 """Helpers shared by the port's fleet-tier CPU tests
 (``test_torch_router.py``, ``test_torch_fleet.py``, ``test_torch_disagg.py``):
 in-process replicas over the synthetic MLP, injected health snapshots, raw
-HTTP posts, open-loop HTTP traffic and a fully routable router over a
-spawned fleet.  Spawned replicas get ``--device cpu``; in-process servers
+HTTP posts and a fully routable router over a spawned fleet (open-loop
+traffic comes from the port's load generator).  Spawned replicas get ``--device cpu``; in-process servers
 run on the CPU.
 """
 import argparse
-import concurrent.futures
 import json
 import os
 import signal
@@ -101,41 +100,6 @@ def free_port():
     port = s.getsockname()[1]
     s.close()
     return port
-
-
-def open_loop(url, qps, duration_s, body=BODY, timeout=60.0):
-    """Open-loop traffic: one POST every 1/qps seconds for duration_s,
-    each on its own pool thread.  A 200 is ok, a 503 a shed (explicit
-    backpressure), anything else (another code, a socket error) a
-    failure."""
-    n = max(1, int(qps * duration_s))
-    out = {"requests": n, "ok": 0, "shed": 0, "failed": 0, "errors": []}
-
-    def one():
-        try:
-            code, _doc, _h = post_raw(url, body, timeout=timeout)
-        except OSError as e:
-            return None, f"{type(e).__name__}: {e}"
-        return code, None
-
-    t0 = time.monotonic()
-    with concurrent.futures.ThreadPoolExecutor(max_workers=32) as pool:
-        futs = []
-        for i in range(n):
-            wait = t0 + i / qps - time.monotonic()
-            if wait > 0:
-                time.sleep(wait)
-            futs.append(pool.submit(one))
-        for f in futs:
-            code, err = f.result()
-            if code == 200:
-                out["ok"] += 1
-            elif code == 503:
-                out["shed"] += 1
-            else:
-                out["failed"] += 1
-                out["errors"].append(err or code)
-    return out
 
 
 def router_over(sup, timeout_s=30.0, **kw):
