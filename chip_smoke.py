@@ -210,8 +210,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
       step or chunk, 4 L + 1 a prefill on kernel #4) and the RMSNorm
       kernel 2 L + 1 times a program's run, read through the
       replay-aware counters.
-   b. the flagship: Llama-2-7B (32 layers, fp32 weights from the startup
-      program, 6.74 B parameters), 4 slots x 1024 positions (4 GiB of
+   b. the flagship: Llama-2-7B's widths at 16 of its 32 layers (GEN: the
+      depth cut of phases 10b-d, 11b, 12b and 13; fp32 weights from the
+      startup program, 3.50 B parameters), 4 slots x 1024 positions (2 GiB of
       caches), buckets 64 / 128 / 256 / 512, attn_impl "auto"; warmup
       runs each program twice (eager, then captured) and each must be
       captured exactly once; then 8 requests of 20-500 prompt tokens
@@ -264,7 +265,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
       keep_logits) runs 10b's 8 requests; then a DisaggPair of a
       prefill-role and a decode-role engine, each over a child scope of
       the weights' scope (its own pools of 257 pages, one copy of the
-      25.10 GiB of weights), runs them through HostBytesTransport (each
+      13.04 GiB of weights), runs them through HostBytesTransport (each
       segment through host memory: 16 MiB a page, a 500-token prompt's
       512 MiB) and then through DeviceTransport (a copy on the card).
       Gates: tokens and every step's logits bit-equal to the colocated
@@ -296,7 +297,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
       rows/s at 1 and 2 workers, latency p50 / p99, batch fill, bucket
       hit rate, the device idle share of one profiled window, swap_ms.
    b. a ServingServer on 127.0.0.1 over a's engine with a paged,
-      speculating Llama-2-7B engine attached (32 layers, fp32, 4 slots x
+      speculating Llama-2-7B engine attached (GEN's 16 layers, fp32, 4 slots x
       1024, phase 10's weights).  Gates (tolerance 0): /predict at batch
       1 equals the in-process answer; /healthz, /statusz (cost manifests,
       the H100's peaks), /tracez and /metrics (Prometheus text lines)
@@ -306,7 +307,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
       /adopt of a prefill-role server's segments gives them too; the
       launches of check_engine_counts over both engines; /swap "target":
       "generate" to a second set of weights (a checkpoint written to
-      disk, 25.10 GiB, kept for phase 12b): every live weight then
+      disk, 13.04 GiB, kept for phase 12b): every live weight then
       equals the second set, and
       a prompt's stream equals a fresh engine's over the swapped storage
       and differs from the first weights'; the revert, the streams after
@@ -349,7 +350,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
       rolling-restart
       and hot-swap seconds, the longest /healthz gap while replicas start
       and during the swap.
-   b. Llama-2-7B (32 layers, MHA, fp32, 4 slots x 1024, 257 pages of 16,
+   b. Llama-2-7B's widths (GEN's 16 layers, MHA, fp32, 4 slots x 1024, 257 pages of 16,
       phase 10's buckets, random weights from the replica's --seed): a
       one-replica fleet in role "both" answers the 8 GEN_PROMPTS through
       the router's /generate, 64 new tokens each (the colocated
@@ -408,9 +409,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
       harness then runs at half the probe's rate, a forward timeout of 4x
       its p99 (at least 1 s), the 5 s liveness default and scenarios of
       1.6x 12a's SIGKILL respawn.  poison_paged and spec_storm run in
-      this process on Llama-2-7B at 32 layers (paged, pages of 16, 10c's
+      this process on GEN (16 layers; paged, pages of 16, 10c's
       buckets; spec_storm speculating); disagg_crash on four replicas of
-      Llama-2-7B's widths at 4 layers (the only depth cut: four 25.10 GiB
+      Llama-2-7B's widths at 4 layers (four 25.10 GiB
       replicas do not fit in 80 GB); hot_swap and noisy_neighbor spawn
       their own BERT-base fleets (hot_swap writes two more weight sets
       and swaps to them; a quarter of its reference storm is /generate,
@@ -425,6 +426,36 @@ Phases (any failure raises and exits non-zero; nothing is caught):
       predictor) the prefill, product and RMSNorm kernels launched, no
       plain call, nothing realigned.  The "loadgen:" and "chaos:" JSON
       lines hold a's and b's numbers.
+14. training under TrainGuard (train_guard.py, checkpoint.py, the
+   executor's spans; the phase's seconds and the run's are printed):
+   phase 6's step (BERT-base, seq 512, batch 8, 77 predictions, bf16
+   AMP with the bench's white list, dropout 0.1, Adam with global-norm
+   clip and linear warmup) in three lives, each a fresh Executor and a
+   copy of one startup scope, telemetry on into a temporary
+   FLAGS_metrics_dir.  A: TrainGuard(checkpoint_dir, interval 4, keep 2)
+   with loss:nan@3, 12 step_async runs with the loss read: one skip, its
+   callback at run 3, every persistable bit-unchanged by that step,
+   checkpoints at runs 4, 8 and 12.  B: the same with step:sigterm@6: a
+   real SIGTERM, TrainingInterrupted with code 0 at run 6, a final
+   checkpoint validate_checkpoint accepts (sigterm_to_exit_ms printed).
+   C: a fresh executor and scope resume B's checkpoint (run 6;
+   train_guard_resume_ms printed) and run to 12.  Gates (tolerance 0):
+   C's losses at runs 7-12 equal A's, and every persistable equals A's
+   (randomness is keyed by the run count, so the resumed run draws A's
+   dropout masks); every step of every life launches 12 / 12 / 12 of
+   kernels #1-#3 in bf16 (the replay-aware counters), no plain call,
+   nothing realigned.  Then: 20 guarded replays with FLAGS_telemetry on
+   and 20 off, in turns (median ms of each); 3 replays between
+   profiler.start_profiler and stop_profiler("ave"), whose table must
+   name the three kernels; the metrics dir's trace.json holds the
+   executor/step, dispatch (each under a step), compile and fetch spans,
+   ckpt/write, ckpt/publish and train_guard/resume, heartbeat.json a
+   positive examples_per_sec, and python -m
+   paddle_tpu_torch.tools.trace_export merges the dir; memory.py's
+   max_memory_allocated equals torch.cuda's and drops after reset_peak.
+   Printed: the checkpoint's bytes (its manifest), checkpoint_write_ms
+   (the sha256 pass included), the resume and SIGTERM ms, the replay ms.
+   The "train_guard:" JSON line holds the numbers.
 
 Every profiled replay (phases 4, 5, 6 and 9) also holds the profiler's
 launches of the forward, dK/dV and dQ kernels against what the
@@ -452,7 +483,8 @@ dense traffic), generation_paged and generation_shared_prefix (its two
 paged runs), generation_spec (10c's speculating run) and
 generation_disagg (10d's pair, both transports), serving_engine (11a's
 2-worker traffic), serving_http (11b's generation traffic), loadgen
-(13a in process) and chaos (13b in this process); and fleet_serving,
+(13a in process), chaos (13b in this process) and train_guard (phase
+14's three lives); and fleet_serving,
 fleet_generation and chaos_fleet (12a, 12b, 13b's probe fleet), which
 count kernel records in a replica's /profilez trace instead (the
 replicas' counters live in their processes): each kernel's
@@ -561,10 +593,12 @@ LLAMA_FLAGSHIP_LR = 1e-4
 LLAMA_LOSSES_CUDA_CORES = (10.49620, 10.48460, 10.48037, 9.89279, 9.86580,
                            9.88604)
 LLAMA_LOSS_RTOL = 1e-3
-# phase 10: greedy generation at Llama-2-7B's widths and depth, fp32
-# weights, a dense KV cache of 4 slots x 1024 positions, prefill buckets
-# 64-512, 8 requests of 20-500 prompt tokens and 64 new tokens each
-GEN = dict(LLAMA, num_layers=32)
+# phase 10: greedy generation at Llama-2-7B's widths, fp32 weights, a
+# dense KV cache of 4 slots x 1024 positions, prefill buckets 64-512, 8
+# requests of 20-500 prompt tokens and 64 new tokens each.  Depth cut to
+# 16 of its 32 layers (phases 10b-d, 11b, 12b, 13's engines and
+# replicas), so the whole run stays within its 1200 s (PERF.md section 4)
+GEN = dict(LLAMA, num_layers=16)
 GEN_ENGINE = dict(num_slots=4, max_seq_len=1024,
                   prefill_buckets=(64, 128, 256, 512), max_new_tokens=64,
                   deadline_ms=600000.0)
@@ -3951,7 +3985,7 @@ def concurrently(fn, args):
 def serving_http_flagship(tpt, fa, eng, pred, feeds, want, scope,
                           dense_tokens, gen_second_dir):
     """Phase 11b: a ServingServer on 127.0.0.1 over 11a's engine, with a
-    paged, speculating Llama-2-7B engine attached (32 layers, fp32, 4
+    paged, speculating Llama-2-7B engine attached (GEN's 16 layers, fp32, 4
     slots x 1024, on `scope`'s weights).  Gates (tolerance 0): /predict at
     batch 1 equals the in-process answer; /healthz, /statusz (cost
     manifests, the H100's peaks), /tracez and /metrics (Prometheus text)
@@ -4223,7 +4257,8 @@ FLEET_SERVE_ARGV = ("--workers", "1", "--max-batch", "8", "--max-delay-ms",
                     "5", "--queue-cap", "256", "--deadline-ms", "600000",
                     "--device", "cuda")
 FLEET_GEN_ARGV = ("--generate", "--gen-paged", "--gen-vocab", "32000",
-                  "--gen-hidden", "4096", "--gen-layers", "32",
+                  "--gen-hidden", "4096", "--gen-layers",
+                  str(GEN["num_layers"]),
                   "--gen-heads", "32", "--gen-intermediate", "11008",
                   "--gen-slots", "4", "--gen-max-seq", "1024",
                   "--gen-max-new", "64", "--gen-page-tokens", "16",
@@ -4264,8 +4299,10 @@ TRACE_FAMILIES = {"fa_fwd_f32": ("fa_fwd_f32_kernel",),
 # at all (BERT)
 FLEET_DISPATCH = {"fleet_serving": dict(fa_fwd_f32=12, gemm_f32=4 * 12,
                                         rms_norm_f32=0),
-                  "fleet_generation": dict(fa_fwd_f32=32, gemm_f32=4 * 32,
-                                           rms_norm_f32=2 * 32 + 1)}
+                  "fleet_generation": dict(
+                      fa_fwd_f32=GEN["num_layers"],
+                      gemm_f32=4 * GEN["num_layers"],
+                      rms_norm_f32=2 * GEN["num_layers"] + 1)}
 FLEET = {}
 # the paths of the kernels line whose "launches_by_path" counts are kernel
 # records in the replicas' /profilez traces, not wrapper counts
@@ -4816,7 +4853,7 @@ def disagg_counters_ok(counters, n_prompts):
 def generation_swap(sup, router_url, checkpoint_dir, prompt,
                     want_swapped, want_first):
     """12b's hot swap: FleetSupervisor.hot_swap(target="generate") of the
-    colocated replica to the second weights phase 11b wrote (25.10 GiB,
+    colocated replica to the second weights phase 11b wrote (13.04 GiB,
     read by the replica inside its POST /swap), /healthz polled every
     100 ms meanwhile.  Gates: swapped in place (200, no restart fallback,
     no liveness kill), the generation engine at weights_version 2, and
@@ -4847,7 +4884,7 @@ def generation_swap(sup, router_url, checkpoint_dir, prompt,
                tokens_equal_fresh_engine=tokens == list(want_swapped),
                tokens_differ_from_first=tokens != list(
                    want_first[:len(want_swapped)]))
-    log("  12b hot swap of the generation weights (25.10 GiB): "
+    log("  12b hot swap of the generation weights: "
         + json.dumps(out))
     if not (res["converged"] and out["swap_status"] == 200
             and not out["fallback"] and out["hung_kills"] == 0
@@ -4859,7 +4896,7 @@ def generation_swap(sup, router_url, checkpoint_dir, prompt,
 
 
 def fleet_generation(gen_second_dir, swapped_tokens, loadgen_dir):
-    """Phase 12b: Llama-2-7B (32 layers, fp32, 4 slots x 1024, 257 pages
+    """Phase 12b: Llama-2-7B's widths (GEN's 16 layers, fp32, 4 slots x 1024, 257 pages
     of 16) in replica processes behind the router.  A one-replica fleet
     in role "both" answers GEN_PROMPTS through /generate (the colocated
     reference), is hot-swapped to phase 11b's second weights
@@ -5076,7 +5113,7 @@ CHAOS_PROBE = (256, 32)
 # each replica's swap commit widened by one delay a weight array (149
 # arrays: ~0.6 s, the reference MLP's 4 x 150 ms)
 CHAOS_SWAP_FAULT = "weight_swap:delay:4~1.0"
-# poison_paged and spec_storm: Llama-2-7B at 32 layers in this process,
+# poison_paged and spec_storm: GEN (16 layers) in this process,
 # paged (pages of 16) and, for spec_storm, speculating as phase 10c runs
 CHAOS_GEN_ENGINE = dict(num_slots=4, max_seq_len=1024,
                         prefill_buckets=(8, 64, 128, 256, 512),
@@ -5566,6 +5603,325 @@ def chaos_flagship(fa, model, settings):
     return counts
 
 
+
+# -- phase 14: BERT-base training under TrainGuard -------------------------
+
+# three lives of bench.py's flagship step (FLAGSHIP, FLAGSHIP_LR, bf16 AMP,
+# dropout 0.1) from one startup scope, copied: A runs GUARD_STEPS guarded
+# steps through a NaN; B is A preempted by a SIGTERM; C resumes B's final
+# checkpoint in a fresh executor and scope and runs to A's count
+GUARD_STEPS = 12
+GUARD_INTERVAL = 4
+GUARD_KEEP = 2
+GUARD_NAN = "loss:nan@3"         # the third guarded step's feed is NaN
+GUARD_SIGTERM = "step:sigterm@6"  # life B stops after its sixth step
+GUARD_TELEMETRY_REPLAYS = 20
+GUARD_PROFILED_REPLAYS = 3
+GUARD = {}
+
+
+def guard_batches():
+    """Four masked-gather batches; run k of any life reads the same one,
+    (k - 1) % 4."""
+    return [train_batch(FLAGSHIP, seed=1400 + i, padding=False)
+            for i in range(4)]
+
+
+def guard_scope(tpt, start):
+    """A new scope holding a copy of `start`'s tensors (state is updated
+    in place: each life needs its own)."""
+    scope = tpt.Scope()
+    for n, t in start.items():
+        scope.set_var(n, t.clone())
+    return scope
+
+
+def guard_step(guard, exe, fa, want, batches, scope, loss, what):
+    """One guarded run_async step of `guard` on run exe._step + 1's batch,
+    its loss handle read; returns the loss.  The step launches `want` of
+    the six kernels (read through the replay-aware counters), no plain
+    version and no realigned operand."""
+    before = read_counts(fa)
+    res = guard.step_async(batches[exe._step % len(batches)],
+                           fetch_list=[loss], scope=scope)
+    after = read_counts(fa)
+    got = (tuple(a - b for a, b in zip(after[0], before[0])),
+           after[1] - before[1], after[2] - before[2])
+    if got != (want, 0, 0):
+        raise AssertionError(f"{what} run {exe._step}: (launches, plain "
+                             f"calls, realigned) {got}, want {want}, 0, 0")
+    return float(np.ravel(res[0].numpy())[0])
+
+
+def guard_life(tpt, fa, main, loss, start, batches, ckpt_dir, spec, what):
+    """One life: a fresh executor and a copy of the startup scope under
+    TrainGuard(checkpoint_dir=ckpt_dir, interval GUARD_INTERVAL, keep
+    GUARD_KEEP) with `spec` injected, GUARD_STEPS guarded steps (or until
+    a SIGTERM ends it).  The poisoned step must leave every persistable
+    bit-unchanged and be the one skip, its callback at its own run.
+    Returns (executor, scope, losses by run, the TrainingInterrupted or
+    None, the counts over the life)."""
+    import torch
+    from paddle_tpu_torch import fault
+    from paddle_tpu_torch.train_guard import TrainGuard, TrainingInterrupted
+
+    want = per_step_launches(main)
+    exe = tpt.Executor()
+    scope = guard_scope(tpt, start)
+    fault.configure(spec)
+    seen = []
+    guard = TrainGuard(exe, loss, program=main, checkpoint_dir=ckpt_dir,
+                       interval_steps=GUARD_INTERVAL, keep_last_n=GUARD_KEEP,
+                       on_nonfinite=seen.append)
+    if guard.resumed_step is not None:
+        raise AssertionError(f"{what} resumed at {guard.resumed_step}")
+    reset_counts(fa)
+    losses, stopped, nan_run = {}, None, None
+    try:
+        for i in range(GUARD_STEPS):
+            held = None
+            if i == 2:  # GUARD_NAN's step: hold the state before it
+                nan_run = exe._step + 1
+                held = {n: scope.find_var(n).clone() for n in start}
+            run = exe._step + 1
+            losses[run] = guard_step(guard, exe, fa, want, batches, scope,
+                                     loss, what)
+            if held is not None:
+                moved = [n for n, t in held.items()
+                         if not torch.equal(scope.find_var(n), t)]
+                if moved or math.isfinite(losses[nan_run]):
+                    raise AssertionError(
+                        f"{what}: the NaN step {nan_run} (loss "
+                        f"{losses[nan_run]}) moved {moved[:5]}")
+                del held
+    except TrainingInterrupted as e:
+        stopped = e
+    finally:
+        fault.reset()
+        guard.close()
+    if guard.skipped_steps != 1 or seen != [nan_run]:
+        raise AssertionError(f"{what}: skips {guard.skipped_steps}, "
+                             f"callbacks at {seen}, want one at {nan_run}")
+    return exe, scope, losses, stopped, read_counts(fa)
+
+
+def guard_replay_ms(tpt, exe, main, batches, scope, loss, n):
+    """Median host ms of a replay ending in its loss fetch, with
+    FLAGS_telemetry on and off: `n` replays each, in turns (on, off, on,
+    ...), so a drift of the card's clocks falls on both."""
+    times = {True: [], False: []}
+    for i in range(2 * n):
+        on = i % 2 == 0
+        tpt.set_flags({"FLAGS_telemetry": on})
+        t = time.perf_counter()
+        exe.run(main, feed=batches[i % len(batches)], fetch_list=[loss],
+                scope=scope)
+        times[on].append((time.perf_counter() - t) * 1e3)
+    tpt.set_flags({"FLAGS_telemetry": True})
+    return float(np.median(times[True])), float(np.median(times[False]))
+
+
+def guard_profile_table(exe, main, batches, scope, loss, workdir):
+    """GUARD_PROFILED_REPLAYS replays between profiler.start_profiler and
+    stop_profiler("ave"): the printed table (the reference's 30 rows) must
+    name the forward, dK/dV and dQ tensor-core kernels.  By average: by
+    total the forward's 36 launches (~1.6 ms) sit below the 30th row,
+    under host ops and elementwise kernels of many launches."""
+    import contextlib
+    import io
+
+    from paddle_tpu_torch import profiler
+
+    profiler.start_profiler(trace_dir=os.path.join(workdir, "profile"))
+    for i in range(GUARD_PROFILED_REPLAYS):
+        exe.run(main, feed=batches[i % len(batches)], fetch_list=[loss],
+                scope=scope)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        profiler.stop_profiler("ave")
+    table = out.getvalue()
+    log("  profiler.stop_profiler('ave') over "
+        f"{GUARD_PROFILED_REPLAYS} replays:")
+    for line in table.splitlines():
+        log("    " + line)
+    missing = [k for k in TC_KERNELS if k not in table]
+    if missing:
+        raise AssertionError(f"the profiler's table does not name {missing}")
+
+
+def guard_trace(mdir):
+    """The metrics dir's trace.json and heartbeat.json, and
+    paddle_tpu_torch.tools.trace_export's merge of the dir."""
+    with open(os.path.join(mdir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e["name"] for e in events}
+    need = {"executor/step", "executor/dispatch", "executor/compile",
+            "executor/fetch", "ckpt/write", "ckpt/publish",
+            "train_guard/resume"}
+    steps = {e["args"]["span_id"] for e in events
+             if e["name"] == "executor/step"}
+    orphans = [e for e in events if e["name"] == "executor/dispatch"
+               and e["args"].get("parent_id") not in steps]
+    if need - names or orphans:
+        raise AssertionError(f"trace.json lacks {sorted(need - names)}; "
+                             f"{len(orphans)} dispatch spans outside a step")
+    with open(os.path.join(mdir, "heartbeat.json")) as f:
+        hb = json.load(f)
+    if not (hb.get("examples_per_sec") or 0) > 0:
+        raise AssertionError(f"heartbeat.json: {hb}")
+    out = os.path.join(mdir, "merged.json")
+    r = subprocess.run([sys.executable, "-m",
+                        "paddle_tpu_torch.tools.trace_export", mdir, out],
+                       capture_output=True, text=True, timeout=300,
+                       cwd=HERE)
+    if r.returncode:
+        raise AssertionError(f"trace_export: {r.stdout}{r.stderr}")
+    with open(out) as f:
+        merged = {e["name"] for e in json.load(f)["traceEvents"]}
+    if not {"executor/step", "event/ckpt_publish", "event/resume"} <= merged:
+        raise AssertionError(f"trace_export's merge lacks spans or events: "
+                             f"{sorted(merged)[:40]}")
+    log(f"  trace.json: {len(events)} events, {len(steps)} executor/step "
+        f"spans; heartbeat examples/s {hb['examples_per_sec']}; "
+        f"{r.stdout.strip()}")
+    return len(events)
+
+
+def train_guard_flagship(tpt, fa):
+    """Phase 14: bench.py's flagship step under TrainGuard, in three lives
+    from one startup scope.  A: GUARD_STEPS guarded steps, a NaN feed at
+    the third, checkpoints every GUARD_INTERVAL runs.  B: the same with a
+    SIGTERM at the sixth step: TrainingInterrupted, code 0, a valid final
+    checkpoint.  C: a fresh executor and scope resume B's checkpoint and
+    run to A's count: every loss after the resume and every persistable
+    bit-equal to A's.  Every step launches 12 / 12 / 12 of the packed
+    bf16 kernels, no plain version, nothing realigned.  Then the spans in
+    the metrics dir, trace_export, telemetry's cost on a replay,
+    profiler.py's table and memory.py's peak.  Returns the launches over
+    the three lives."""
+    import torch
+    from paddle_tpu_torch import checkpoint as ckpt
+    from paddle_tpu_torch import memory, telemetry
+    from paddle_tpu_torch.flags import flag_value
+
+    t0 = time.perf_counter()
+    main, startup, loss = build_train(tpt, FLAGSHIP, FLAGSHIP_LR, amp=True,
+                                      dropout=0.1)
+    batches = guard_batches()
+    names = [v.name for v in main.list_vars() if v.persistable]
+    exe0, scope0 = tpt.Executor(), tpt.Scope()
+    exe0.run(startup, scope=scope0)
+    start = {n: scope0.find_var(n) for n in names}
+    exe0.close()
+    total = [0] * 6
+    old_dir = flag_value("FLAGS_metrics_dir")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_guard_") as wd:
+        mdir = os.path.join(wd, "metrics")
+        dir_a, dir_b = os.path.join(wd, "ckpt_a"), os.path.join(wd, "ckpt_b")
+        tpt.set_flags({"FLAGS_metrics_dir": mdir, "FLAGS_telemetry": True})
+        telemetry.clear_spans()
+        writes = telemetry.metrics.histogram("checkpoint_write_ms")
+        w0 = (writes.summary()["count"], writes.summary()["sum"])
+
+        exe_a, scope_a, losses_a, _, counts = guard_life(
+            tpt, fa, main, loss, start, batches, dir_a, GUARD_NAN, "life A")
+        total = [x + y for x, y in zip(total, counts[0])]
+        exe_a.close()
+        steps_a = ckpt.valid_steps(dir_a)
+        with open(os.path.join(dir_a, str(steps_a[-1]),
+                               ckpt.MANIFEST)) as f:
+            ckpt_bytes = sum(m["bytes"]
+                             for m in json.load(f)["files"].values())
+        log(f"  life A: {GUARD_STEPS} guarded steps, one skip at run 3; "
+            f"losses {', '.join(f'{x:.5f}' for x in losses_a.values())}; "
+            f"checkpoints kept {steps_a} ({ckpt_bytes} bytes each)")
+
+        exe_b, scope_b, losses_b, stopped, counts = guard_life(
+            tpt, fa, main, loss, start, batches, dir_b,
+            f"{GUARD_NAN},{GUARD_SIGTERM}", "life B")
+        total = [x + y for x, y in zip(total, counts[0])]
+        if stopped is None or stopped.code != 0 or \
+                not ckpt.validate_checkpoint(dir_b, stopped.step):
+            raise AssertionError(f"life B: interrupted {stopped!r}, "
+                                 f"checkpoints {ckpt.valid_steps(dir_b)}")
+        sigterm_ms = telemetry.metrics.gauge("sigterm_to_exit_ms").get()
+        exe_b.close()
+        del scope_b
+        log(f"  life B: SIGTERM at its sixth step: TrainingInterrupted "
+            f"code {stopped.code} at run {stopped.step}, final checkpoint "
+            f"valid; sigterm_to_exit_ms {sigterm_ms:.1f}")
+
+        from paddle_tpu_torch.train_guard import TrainGuard
+        exe_c, scope_c = tpt.Executor(), guard_scope(tpt, start)
+        with tpt.scope_guard(scope_c):
+            guard = TrainGuard(exe_c, loss, program=main,
+                               checkpoint_dir=dir_b)
+        resume_ms = telemetry.metrics.gauge("train_guard_resume_ms").get()
+        if guard.resumed_step != stopped.step:
+            raise AssertionError(f"life C resumed at {guard.resumed_step}, "
+                                 f"not {stopped.step}")
+        reset_counts(fa)
+        want = per_step_launches(main)
+        losses_c = {}
+        while exe_c._step < GUARD_STEPS:
+            run = exe_c._step + 1
+            losses_c[run] = guard_step(guard, exe_c, fa, want, batches,
+                                       scope_c, loss, "life C")
+        counts = read_counts(fa)
+        total = [x + y for x, y in zip(total, counts[0])]
+        differ = [k for k, v in losses_c.items() if v != losses_a[k]]
+        moved = [n for n in names
+                 if not torch.equal(scope_c.find_var(n), scope_a.find_var(n))]
+        log(f"  life C: resumed at run {guard.resumed_step} in "
+            f"{resume_ms:.1f} ms, ran to {exe_c._step}; losses "
+            f"{', '.join(f'{x:.5f}' for x in losses_c.values())}; losses "
+            f"unequal to A's at runs {differ}; persistables unequal to A's "
+            f"{len(moved)} of {len(names)}")
+        if differ or moved:
+            raise AssertionError(f"life C differs from life A: losses at "
+                                 f"{differ}, persistables {moved[:5]}")
+        del scope_a
+
+        on, off = guard_replay_ms(tpt, exe_c, main, batches, scope_c, loss,
+                                  GUARD_TELEMETRY_REPLAYS)
+        log(f"  median guarded replay (host clock, ends in the loss "
+            f"fetch): telemetry on {on:.3f} ms, off {off:.3f} ms "
+            f"({GUARD_TELEMETRY_REPLAYS} replays each, in turns)")
+        guard_profile_table(exe_c, main, batches, scope_c, loss, wd)
+        guard.close()
+        n_events = guard_trace(mdir)
+        s = writes.summary()
+        n_writes, write_ms = s["count"] - w0[0], s["sum"] - w0[1]
+
+        peak = memory.max_memory_allocated()
+        exe_c.close()
+        del scope_c, start, scope0
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        if peak != torch.cuda.max_memory_allocated():
+            raise AssertionError(f"memory.max_memory_allocated() {peak} != "
+                                 f"{torch.cuda.max_memory_allocated()}")
+        memory.reset_peak()
+        after = memory.max_memory_allocated()
+        if not after < peak:
+            raise AssertionError(f"the peak did not drop after reset_peak: "
+                                 f"{peak} -> {after}")
+        tpt.set_flags({"FLAGS_metrics_dir": old_dir})
+    GUARD.update(
+        checkpoint_bytes=ckpt_bytes, checkpoint_writes=n_writes,
+        checkpoint_write_ms_mean=write_ms / max(n_writes, 1),
+        train_guard_resume_ms=resume_ms, sigterm_to_exit_ms=sigterm_ms,
+        replay_ms_telemetry_on=on, replay_ms_telemetry_off=off,
+        trace_events=n_events, peak_gib=peak / 2 ** 30,
+        peak_after_reset_gib=after / 2 ** 30,
+        launches=total, phase_s=time.perf_counter() - t0)
+    log(f"  checkpoints: {n_writes} written, {ckpt_bytes} bytes each, "
+        f"checkpoint_write_ms mean {GUARD['checkpoint_write_ms_mean']:.1f} "
+        f"(the sha256 pass included); memory.max_memory_allocated() "
+        f"{peak / 2 ** 30:.2f} GiB, {after / 2 ** 30:.2f} after reset_peak")
+    return Launches(total)
+
+
 def main():
     import torch
 
@@ -5585,7 +5941,7 @@ def main():
 
     t_start = time.perf_counter()
     card = card_line()
-    log(f"[1/13] device: {card}; torch {torch.__version__}, CUDA "
+    log(f"[1/14] device: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5602,12 +5958,12 @@ def main():
     fa._bwd_lib()
     gemm._lib()
     rms_norm._lib()
-    log(f"[2/13] built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
+    log(f"[2/14] built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
     check_build(build)
     gemm_rows, gemm_ratios = check_gemm(gemm, build, device)
     norm_rows = check_rms_norm(rms_norm, device)
 
-    log("[3/13] packed kernels against their plain versions")
+    log("[3/14] packed kernels against their plain versions")
     check_kernel(fa, device)
     check_backward(fa, device)
     fwd_f32 = time_forward_f32(fa, device)
@@ -5618,36 +5974,36 @@ def main():
 
     # each path's launches of the six kernels, each read from 0
     by_path = {}
-    log("[4/13] BERT-base serving through Predictor on the card")
+    log("[4/14] BERT-base serving through Predictor on the card")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         by_path["serving"] = serve(tpt, fa, workdir)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[5/13] BERT-base training, card against the CPU (fp32)")
+    log("[5/14] BERT-base training, card against the CPU (fp32)")
     by_path["training_parity"] = bert_parity(tpt, fa)
     bert_fp32_profile(tpt, fa)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[6/13] bench.py's seq-512 training step on the card (bf16 AMP)")
+    log("[6/14] bench.py's seq-512 training step on the card (bf16 AMP)")
     by_path["training_flagship"], _ = bert_flagship(tpt, fa)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[7/13] unpacked kernels against their plain versions")
+    log("[7/14] unpacked kernels against their plain versions")
     check_unpacked(fa, device)
     unpacked_timing = time_unpacked(fa, device, "bfloat16")
     unpacked_f32 = time_unpacked(fa, device, "float32")
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[8/13] Llama-2-7B-width training, card against the CPU (fp32)")
+    log("[8/14] Llama-2-7B-width training, card against the CPU (fp32)")
     by_path["llama_parity"] = llama_parity(tpt, fa)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[9/13] Llama-2-7B-width training on the card (4 layers, bf16 AMP)")
+    log("[9/14] Llama-2-7B-width training on the card (4 layers, bf16 AMP)")
     by_path["llama_flagship"], losses = llama_flagship(tpt, fa)
     compare_losses(losses)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[10/13] Llama generation serving on the card (dense and paged KV "
+    log("[10/14] Llama generation serving on the card (dense and paged KV "
         "cache, speculative decoding, prefill / decode roles)")
     by_path["generation_parity"] = generation_parity(tpt, fa)
     by_path["generation"], paged_paths, gen_scope, dense_tokens = \
@@ -5658,7 +6014,7 @@ def main():
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
     t11 = time.perf_counter()
-    log("[11/13] the serving stack: BERT-base through ServingEngine, then "
+    log("[11/14] the serving stack: BERT-base through ServingEngine, then "
         "HTTP with Llama-2-7B generation attached")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_serving_") as wd:
         model_dir, second_dir, gen_second_dir = (
@@ -5681,7 +6037,7 @@ def main():
         pred.close()
         del eng, pred, gen_scope
         t12 = time.perf_counter()
-        log("[12/13] the fleet: BERT-base and Llama-2-7B in replica "
+        log("[12/14] the fleet: BERT-base and Llama-2-7B in replica "
             "processes behind the router")
         FLEET["reserved_gib_before"] = release_card(
             "released phases 10 and 11")
@@ -5699,7 +6055,7 @@ def main():
             f"{time.perf_counter() - t_start:.1f} s in all)")
 
         t13 = time.perf_counter()
-        log("[13/13] the port's load generator and chaos harness: "
+        log("[13/14] the port's load generator and chaos harness: "
             "BERT-base and Llama-2-7B fleets (13a's --url legs ran in "
             "phase 12)")
         by_path["loadgen"] = loadgen_in_process(
@@ -5721,6 +6077,15 @@ def main():
     log("loadgen: " + json.dumps(LOADGEN))
     log("chaos: " + json.dumps(CHAOS))
     log(f"  (phase 13 took {CHAOS['phase_s']:.1f} s; "
+        f"{time.perf_counter() - t_start:.1f} s in all)")
+
+    log("[14/14] bench.py's seq-512 step under TrainGuard: a NaN, a SIGTERM "
+        "and a resume, bit for bit")
+    release_card("phase 13 closed")
+    by_path["train_guard"] = train_guard_flagship(tpt, fa)
+    GUARD["card"] = card
+    log("train_guard: " + json.dumps(GUARD))
+    log(f"  (phase 14 took {GUARD['phase_s']:.1f} s; "
         f"{time.perf_counter() - t_start:.1f} s in all)")
     for key, (wall, busy, idle, launches) in EAGER_PROFILES.items():
         p = PROFILES[key]

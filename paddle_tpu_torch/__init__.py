@@ -8,7 +8,10 @@ Hopper (``csrc/``, built with nvcc at first use).  It serves
 ``clip``, ``contrib.mixed_precision``) BERT and Llama, generates with
 Llama over a dense or paged KV cache (``serving.GenerationEngine``), and
 serves both behind the dynamic-batching ``serving.ServingEngine`` and its
-HTTP front end (``serving.serve``).  Programs run on
+HTTP front end (``serving.serve``).  A training loop survives a NaN, a
+SIGTERM and a restart under ``train_guard.TrainGuard`` (crash-safe
+``checkpoint``s, bit-exact resume); ``profiler`` and ``memory`` give the
+reference's profiler and allocator surfaces.  Programs run on
 one device, the card (``cuda:0``) unless the caller passes
 ``CPUPlace()`` / ``device="cpu"``; on the card each feed signature's
 step is captured once as a CUDA graph and replayed
@@ -46,6 +49,10 @@ from . import clip  # noqa
 from . import regularizer  # noqa
 from . import contrib  # noqa
 from . import fault  # noqa
+from . import checkpoint  # noqa
+from . import train_guard  # noqa
+from . import profiler  # noqa
+from . import memory  # noqa
 from . import serving  # noqa
 from .framework.backward import append_backward  # noqa
 

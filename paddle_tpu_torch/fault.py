@@ -29,9 +29,19 @@ package's module would import jax); the sites wired in the port so far:
     ================  ================================  ===================
     site              instrumented in                   kinds understood
     ================  ================================  ===================
+    ckpt_write        checkpoint.save_checkpoint        raise | torn | partial
+    loss              train_guard.TrainGuard.step       nan
+    step              train_guard.TrainGuard.step       sigterm
+    metrics_write     telemetry exporters               raise
+    serve_request     serving/engine.py submit          shed | fail
+    serve_batch       serving/engine.py _run_batch      fail | delay:ms | hang
     prefill           serving/generation.py _prefill    fail | delay:ms | hang
     decode_step       serving/generation.py decode      fail | delay:ms | hang
     adopt             serving/generation.py adopt       fail | delay:ms | hang
+    replica_health    serving/server.py /healthz        fail | delay:ms | hang
+    router_forward    serving/router.py route           fail | delay:ms | hang
+    weight_swap       inference.py swap commit          fail | delay:ms
+    blackbox_dump     blackbox.py postmortem write      raise
     ================  ================================  ===================
 
 Every fired fault bumps ``faults_injected`` plus a per-site/kind

@@ -16,7 +16,9 @@ observatory.py, blackbox.py, costmodel.py and serving/usage.py
 inherits it), locksan.py's ``FLAGS_debug_lock_order`` and the serving
 engine's ``FLAGS_serving_check_outputs``; serving/router.py and
 serving/fleet.py register the router's, the canary's and the
-supervisor's flags themselves.
+supervisor's flags themselves, checkpoint.py ``FLAGS_checkpoint_retries``
+and ``_retry_backoff_s``, memory.py ``FLAGS_allocator_strategy`` and
+``FLAGS_fraction_of_gpu_memory_to_use``.
 ``set_flags`` raises on any other name, so a flag the port would ignore
 is an error, not a silent no-op; a later slice registers a flag with the
 module that reads it.  ``all_flags`` is ``/statusz``'s view.

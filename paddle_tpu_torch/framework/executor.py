@@ -29,9 +29,25 @@ Fetches come back as numpy arrays (one host fence a run) or as lazy
 ``FetchHandle``s (``return_numpy=False``, ``run_async``).  The deferred
 non-finite guard (``set_nonfinite_guard``) computes ``isfinite(loss)``
 inside the step, keeps the old state where it is not, and resolves its
-verdicts on the host lazily.  The reference's telemetry spans, auto
-checkpoints, dataset training, pipelines and persistent compile cache
-wait for later slices.
+verdicts on the host lazily.
+
+Randomness is keyed by the run count, as the reference folds the step
+into its key: before every run or replay each op's generator is seeded
+from (random seed, run count, op seed) alone (``ops/registry.py``
+``run_seed``), so an executor that resumes at run r draws the masks of
+run r.
+
+Telemetry (``telemetry.py``; off with ``FLAGS_telemetry=0``, which
+leaves one ``enabled()`` test a run): every run opens an
+``executor/step`` span with ``executor/compile`` (an entry's build),
+``executor/dispatch`` (the eager run or the replay, with the capture's
+own ``executor/compile`` inside it on the run that captures) and
+``executor/fetch`` (blocking host reads) children, then feeds
+``telemetry.note_step`` (the ``executor_step_host_ms`` histogram, the
+``examples_per_sec`` gauge, the heartbeat) and ``maybe_flush``.
+``enable_auto_checkpoint`` restores the newest valid checkpoint
+(``checkpoint.py``) and writes one every N runs of the bound program.
+Dataset training and pipelines wait for later slices.
 """
 from __future__ import annotations
 
@@ -45,10 +61,11 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import telemetry as _telemetry
 from ..device import resolve_device
 from ..flags import flag_value
 from ..monitor import monitor as _monitor
-from ..ops.registry import LowerContext, lower_op, plan_grads
+from ..ops.registry import LowerContext, lower_op, plan_grads, run_seed
 from .core import (Block, Program, Variable, default_main_program,
                    dtype_to_np, dtype_to_torch)
 
@@ -60,6 +77,7 @@ _JIT_STAT = _monitor.get("executor_jit_builds")
 _SKIP_STAT = _monitor.get("skipped_nonfinite_steps")
 _HOST_SYNC_STAT = _monitor.get("host_syncs")
 _GUARD_RES_STAT = _monitor.get("guard_resolutions")
+_CKPT_FAIL_STAT = _monitor.get("checkpoint_write_failures")
 
 # Eager runs and captures on the card, one at a time in the process: a
 # capture must not meet another thread's kernels or allocations, nor
@@ -129,7 +147,9 @@ class FetchHandle:
     def numpy(self) -> np.ndarray:
         if self._np is None:
             _HOST_SYNC_STAT.increase()
-            self._np = to_numpy(self._value)
+            with _telemetry.trace_span("executor/fetch", n=1,
+                                       step=self._step):
+                self._np = to_numpy(self._value)
             if self._exe is not None:
                 self._exe._resolve_guard(upto=self._step)
         return self._np
@@ -427,10 +447,12 @@ class CompiledStep:
     eagerly the first time and, on the card, captured as a CUDA graph the
     second time and replayed after that.
 
-    `seed_step` (the executor's run count at the entry's first run) seeds
-    the entry's generators with the program's random seed and each op's
-    ``__op_seed__``; they advance with every run and are registered with
-    the graph, so every replay draws anew.  With `guard_loss`, the step
+    Each run's `step` (the executor's run count; by default `seed_step`,
+    the count at the entry's first run, plus the entry's runs) seeds the
+    entry's generators with the program's random seed and each op's
+    ``__op_seed__`` before the run: ``LowerContext.rng`` in an eager run,
+    ``_seed`` before a replay (the generators are registered with the
+    graph, which reads their seed at each replay).  With `guard_loss`, the step
     computes ``ok = isfinite(loss).all()`` on the device and writes each
     rebound state as ``where(ok, new, old)``.  `is_test` lowers for
     inference (Predictor).
@@ -506,17 +528,19 @@ class CompiledStep:
 
     # -- the step ------------------------------------------------------------
     def _lower(self, env: Dict[str, Any], state: Dict[str, torch.Tensor],
-               check: bool = False):
-        """Lower every op into `env`, write the rebound state into `state`'s
-        tensors; returns (fetches, new state outputs, ok)."""
+               step: int, check: bool = False, capture: bool = False):
+        """Lower every op into `env` at run `step`, write the rebound state
+        into `state`'s tensors; returns (fetches, new state outputs,
+        ok)."""
         guarded = self.guard_loss is not None
         ctx = LowerContext(self.block, env, self.device,
                            random_seed=self.random_seed,
-                           is_test=self.is_test, step=self.seed_step,
+                           is_test=self.is_test, step=step,
                            amp=self.amp, keep=self.keep,
                            grad_source=self.grad_source, dead=self.dead,
                            generators=self.generators,
-                           in_place=() if guarded else self.mut_in)
+                           in_place=() if guarded else self.mut_in,
+                           seeding=not capture)
         with torch.no_grad():
             for i, op, free in self.ops:
                 lower_op(ctx, op, i)
@@ -571,22 +595,26 @@ class CompiledStep:
         return fetches, ok
 
     def run(self, feeds: Dict[str, torch.Tensor], scope: "Scope",
-            check: bool = False):
-        """One step on `feeds` (name -> tensor, in this entry's signature);
-        returns (fetch tensors the next run does not overwrite, the guard's
-        on-device ok or None)."""
+            check: bool = False, step: Optional[int] = None):
+        """One step on `feeds` (name -> tensor, in this entry's signature)
+        at run count `step`; returns (fetch tensors the next run does not
+        overwrite, the guard's on-device ok or None)."""
+        if step is None:
+            step = self.seed_step + self.runs
         if self.stream is None:
-            return self._run_eager(feeds, scope, check)
+            return self._run_eager(feeds, scope, check, step)
         if check or self.runs == 0:
             with _BUILD_LOCK:
-                return self._run_eager(feeds, scope, check)
+                return self._run_eager(feeds, scope, check, step)
         if self.graph is None or any(scope.find_var(n) is not t
                                      for n, t in self.bound.items()):
             # the first capture, or the scope's state moved
-            with _BUILD_LOCK:
+            with _BUILD_LOCK, _telemetry.trace_span("executor/compile",
+                                                    capture=True):
                 self._capture(feeds, self._state(scope))
         else:
             self._copy_feeds(feeds)
+        self._seed(step)
         self.graph.replay()
         with _COUNTS_LOCK:
             for (owner, attr), d in zip(self.counters, self.deltas):
@@ -595,16 +623,23 @@ class CompiledStep:
         fetches, new, ok = self.outputs
         return self._finish(scope, fetches, new, ok, aliased=True)
 
-    def _run_eager(self, feeds, scope, check):
+    def _run_eager(self, feeds, scope, check, step):
         state = self._state(scope)
         with _on_stream(self.stream, self.device):
             env = {n: t.to(self.device) for n, t in feeds.items()}
             env.update(state)
-            fetches, new, ok = self._lower(env, state, check)
+            fetches, new, ok = self._lower(env, state, step, check)
         self.runs += 1
         return self._finish(scope, fetches, new, ok, aliased=False)
 
     # -- capture and replay --------------------------------------------------
+    def _seed(self, step: int):
+        """Seed every generator for a replay at run `step`, as an eager run
+        at `step` seeds it (a replay reads each registered generator's
+        seed and offset when it starts)."""
+        for op_seed, g in self.generators.items():
+            g.manual_seed(run_seed(self.random_seed, step, op_seed))
+
     def _capture(self, feeds, state):
         """Capture the step into a new graph over static feed buffers and
         the scope's state tensors; nothing runs until the replay."""
@@ -631,7 +666,9 @@ class CompiledStep:
                 try:
                     env = dict(self.static_feeds)
                     env.update(state)
-                    self.outputs = self._lower(env, state)
+                    self.outputs = self._lower(env, state,
+                                               self.seed_step + self.runs,
+                                               capture=True)
                 except Exception as e:
                     failure = e
                     raise
@@ -711,6 +748,7 @@ class Executor:
         self._guard_cb = None
         self._guard_program = None
         self._dispatched = False
+        self._auto_ckpt: Optional[dict] = None
 
     # -- public API ---------------------------------------------------------
     def run(self, program: Optional[Program] = None,
@@ -725,8 +763,30 @@ class Executor:
         if flag_value("FLAGS_check_nan_inf"):
             return self._run_debug(program, dict(feed or {}), fetch_names,
                                    scope, return_numpy)
+        if not _telemetry.enabled():
+            return self._run_compiled(program, dict(feed or {}),
+                                      fetch_names, scope, return_numpy,
+                                      use_program_cache, traced=False)[0]
+        t0 = time.perf_counter()
+        span = _telemetry.span_begin("executor/step", step=self._step + 1)
+        try:
+            out, examples = self._run_compiled(
+                program, dict(feed or {}), fetch_names, scope, return_numpy,
+                use_program_cache, traced=True)
+        finally:
+            _telemetry.span_end(span)
+        _telemetry.note_step(self._step,
+                             (time.perf_counter() - t0) * 1e3, examples)
+        _telemetry.maybe_flush()
+        return out
+
+    def _run_compiled(self, program, feed, fetch_names, scope,
+                      return_numpy, use_program_cache, traced):
+        """The body of :meth:`run`; returns (fetch result, examples in this
+        step's feed) for the telemetry wrapper's throughput gauge.
+        `traced` opens the dispatch and fetch spans (telemetry on)."""
         block = program.global_block()
-        feeds = _prepare_feed(block, dict(feed or {}))
+        feeds = _prepare_feed(block, feed)
         sig = tuple((n, tuple(t.shape), str(t.dtype))
                     for n, t in feeds.items())
         # guard every run of the bound training program that produces the
@@ -744,9 +804,12 @@ class Executor:
             self._cache.move_to_end(key)
         else:
             _JIT_STAT.increase()
-            entry = CompiledStep(program, list(feeds), fetch_names,
-                                 self.device, guard_loss=guard_loss,
-                                 seed_step=self._step + 1, sig=sig)
+            with _telemetry.trace_span("executor/compile",
+                                       program=program._uid,
+                                       fetches=len(fetch_names)):
+                entry = CompiledStep(program, list(feeds), fetch_names,
+                                     self.device, guard_loss=guard_loss,
+                                     seed_step=self._step + 1, sig=sig)
             if use_program_cache:
                 self._cache[key] = entry
                 while len(self._cache) > MAX_CACHED_STEPS:
@@ -757,7 +820,20 @@ class Executor:
         if bench:
             self._fence()
             t0 = time.perf_counter()
-        fetches, ok = entry.run(feeds, scope)
+        dspan = None
+        if traced:
+            dattrs = {"step": self._step, "guarded": guard_loss is not None}
+            if entry.pool_bytes is not None:
+                # the captured graph's memory pool: the executable's HBM
+                # footprint, as the reference's manifest carries it
+                # (torch.cuda.memory_allocated builds the allocator's
+                # whole stats dict at every call)
+                dattrs["peak_hbm_bytes"] = entry.pool_bytes
+            dspan = _telemetry.span_begin("executor/dispatch", **dattrs)
+        try:
+            fetches, ok = entry.run(feeds, scope, step=self._step)
+        finally:
+            _telemetry.span_end(dspan)
         self._dispatched = True
         if bench:
             t_dispatch = time.perf_counter() - t0
@@ -767,13 +843,19 @@ class Executor:
                   f"(host dispatch {t_dispatch * 1e3:.3f} ms)")
         if ok is not None:
             # deferred verdict: the host learns about a skipped step on a
-            # fetch read, at the resolve interval, or at sync / close
+            # fetch read, at the resolve interval, at a checkpoint, or at
+            # sync / close
             self._pending_guard.append((self._step, ok))
             interval = int(flag_value("FLAGS_guard_resolve_interval") or 0)
             if interval > 0 and len(self._pending_guard) >= interval:
                 self._resolve_guard()
+        self._maybe_auto_checkpoint(program, scope)
+        first = next(iter(feeds.values()), None)
+        examples = int(first.shape[0]) \
+            if first is not None and first.dim() else 0
         return self._finish_fetches(fetches, return_numpy,
-                                    resolve_guard=True)
+                                    resolve_guard=True, traced=traced), \
+            examples
 
     def run_async(self, program: Optional[Program] = None,
                   feed: Optional[Dict[str, Any]] = None,
@@ -822,6 +904,56 @@ class Executor:
             e.close()
         self._cache.clear()
         self._dispatched = False
+
+    # -- auto checkpoint ----------------------------------------------------
+    def enable_auto_checkpoint(self, directory: str,
+                               interval_steps: int = 100,
+                               program=None, max_keep: int = 3):
+        """Periodic checkpoint and resume (the reference's
+        auto_checkpoint): every `interval_steps` runs of `program` its
+        persistable state is checkpointed (``checkpoint.py``); on enable
+        the newest *valid* checkpoint, if any, is restored (corrupt or
+        torn ones skipped) and the run count set to its step, so a
+        restarted process continues where it died and draws that run's
+        randomness.  Returns the restored step or None."""
+        from .. import checkpoint as ckpt
+
+        program = program or default_main_program()
+        self._auto_ckpt = {"dir": directory,
+                           "interval": max(1, int(interval_steps)),
+                           "program": program, "max_keep": max_keep}
+        step, _extra = ckpt.restore_latest(directory, program=program)
+        if step is not None:
+            self._step = int(step)
+        return step
+
+    def disable_auto_checkpoint(self):
+        self._auto_ckpt = None
+
+    def _maybe_auto_checkpoint(self, program, scope):
+        ac = self._auto_ckpt
+        if not ac or self._step % ac["interval"]:
+            return
+        # a checkpoint is a guard-resolution point: the skip bookkeeping
+        # must be final before the state is read
+        self._resolve_guard()
+        # only runs of the bound training program: an eval program's run
+        # must not write a state without the optimizer's moments
+        if program is not ac["program"]:
+            return
+        from .. import checkpoint as ckpt
+
+        try:
+            ckpt.save_checkpoint(ac["dir"], self._step,
+                                 program=ac["program"], scope=scope,
+                                 keep_last_n=ac["max_keep"])
+        except OSError as e:
+            # best effort: a flaky store must not kill the training job
+            # (the write already retried with backoff inside)
+            _CKPT_FAIL_STAT.increase()
+            import logging
+            logging.getLogger("paddle_tpu_torch.checkpoint").error(
+                "auto-checkpoint at step %d failed: %s", self._step, e)
 
     # -- non-finite guard ---------------------------------------------------
     def set_nonfinite_guard(self, loss, callback=None, program=None):
@@ -878,16 +1010,21 @@ class Executor:
             torch.cuda.synchronize(self.device)
 
     def _finish_fetches(self, fetches, return_numpy: bool,
-                        resolve_guard: bool = False):
+                        resolve_guard: bool = False, traced: bool = False):
         """Blocking numpy fetches (one fence a run) or lazy FetchHandles.
         `resolve_guard` marks the paths where a blocking read doubles as
-        a guard-resolution point."""
+        a guard-resolution point; `traced` opens the fetch span."""
         if not return_numpy:
             return [FetchHandle(f, self, self._step) for f in fetches]
         if not fetches:
             return []
         _HOST_SYNC_STAT.increase()
-        out = fetch_to_numpy(fetches)
+        if traced:
+            with _telemetry.trace_span("executor/fetch", n=len(fetches),
+                                       step=self._step):
+                out = fetch_to_numpy(fetches)
+        else:
+            out = fetch_to_numpy(fetches)
         if resolve_guard:
             self._resolve_guard(upto=self._step)
         return out
@@ -903,7 +1040,7 @@ class Executor:
                              seed_step=self._step + 1)
         self._step += 1
         _STEP_STAT.increase()
-        fetches, _ = entry.run(feeds, scope, check=True)
+        fetches, _ = entry.run(feeds, scope, check=True, step=self._step)
         self._dispatched = True
         return self._finish_fetches(fetches, return_numpy)
 

@@ -1,5 +1,5 @@
 """Neural-network op lowerings in PyTorch: ``layer_norm``, ``rms_norm``,
-``softmax_with_cross_entropy`` and ``dropout``.
+``softmax_with_cross_entropy``, ``mse_loss`` and ``dropout``.
 
 Counterpart of the same ops in ``paddle_tpu/ops/nn_ops.py``, with the
 same formulas: normalisation statistics in float32, the loss as
@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from .cuda import rms_norm
-from .registry import in_var, register_op, set_out
+from .registry import in_var, register_op, same_as_input, set_out
 
 
 def _ln_infer(op, block):
@@ -146,3 +146,9 @@ def _dropout(ctx, op):
     ctx.set_output(op, "Out", out)
     if op.output("Mask"):
         ctx.set_output(op, "Mask", keep.to(torch.uint8))
+
+
+@register_op("mse_loss", infer=same_as_input())
+def _mse(ctx, op):
+    x, y = ctx.get_input(op, "X"), ctx.get_input(op, "Y")
+    ctx.set_output(op, "Out", (x - y) ** 2)

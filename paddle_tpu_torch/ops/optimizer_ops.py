@@ -1,6 +1,7 @@
-"""Optimizer op lowerings: ``adam`` and ``adamw`` on a dense gradient.
+"""Optimizer op lowerings: ``sgd``, ``adam`` and ``adamw`` on a dense
+gradient.
 
-Counterpart of ``paddle_tpu/ops/optimizer_ops.py:97-147,196-199``.  The
+Counterpart of ``paddle_tpu/ops/optimizer_ops.py:46-63,97-147,196-199``.  The
 update (param, grad, state) -> (param', state') is computed in float32 as
 the reference computes it, in the parameter's and the state's own
 storage where the run updates state in place (the port's counterpart of
@@ -84,3 +85,19 @@ def _adam(ctx: LowerContext, op: Operator):
 for _t in ("adam", "adamw"):
     register_op(_t, infer=_adam_infer, lower=_adam, grad=None,
                 stateful_outputs=tuple(a for a, _ in _ADAM_ALIASES))
+
+
+def _sgd_infer(op: Operator, block: Block):
+    src = in_var(op, block, "Param")
+    set_out(op, block, "ParamOut", src.shape, src.dtype)
+
+
+@register_op("sgd", infer=_sgd_infer, grad=None,
+             stateful_outputs=("ParamOut",))
+def _sgd(ctx: LowerContext, op: Operator):
+    """p - lr * g, in the parameter's dtype (the reference's dense
+    branch)."""
+    p = ctx.get_input(op, "Param")
+    g = ctx.get_input(op, "Grad")
+    lr = ctx.get_input(op, "LearningRate")
+    ctx.set_state(op, "ParamOut", "Param", p - lr * g.to(p.dtype))

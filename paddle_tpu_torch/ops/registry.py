@@ -26,6 +26,7 @@ from ..framework.core import (Block, Operator, Variable, convert_dtype,
 __all__ = [
     "OpDef", "register_op", "get_op_def", "has_op", "infer_op_shape",
     "LowerContext", "lower_op", "all_registered_ops", "plan_grads",
+    "run_seed",
 ]
 
 
@@ -47,7 +48,8 @@ class LowerContext:
     * ``dead``: grad outputs that no op reads, no fetch names and no
       state holds; they are not computed.
     * ``generators``: op seed -> torch.Generator, owned by the caller so
-      that they advance from run to run (see ``rng``).
+      that a captured graph keeps them registered (see ``rng``);
+      ``seeding`` False leaves their seeds to the caller (a capture).
     * ``in_place``: the scope state this run may write into (the
       entry's state read and rebound; empty under the non-finite guard).
       A state output (``set_state``) whose input is one of them is
@@ -60,7 +62,7 @@ class LowerContext:
                  device: torch.device, random_seed: int = 0,
                  is_test: bool = False, step: int = 0, amp=None,
                  keep=None, grad_source=None, dead=(), generators=None,
-                 in_place=()):
+                 in_place=(), seeding: bool = True):
         self.block = block
         self.env = env
         self.device = torch.device(device)
@@ -73,6 +75,8 @@ class LowerContext:
         self.dead = frozenset(dead)
         self.generators: Dict[int, torch.Generator] = \
             {} if generators is None else generators
+        self.seeding = seeding
+        self.seeded: set = set()  # op seeds whose generator this run seeded
         self.in_place = frozenset(in_place)
         self.op_index = -1  # the index in block.ops of the op lowering now
         # (name, dtype) -> (source tensor, cast): one AMP cast per tensor
@@ -132,22 +136,31 @@ class LowerContext:
                 self.leaves.pop(id(hit[1]), None)
 
     def rng(self, op: Operator) -> torch.Generator:
-        """The op's generator on the context's device: made at its first
-        draw in ``generators`` and seeded from the program's random seed,
-        the run count then and the op's build-time ``__op_seed__`` (the
-        JAX package folds the same three into its key).  Each draw
-        advances it.  The executor keeps an entry's generators from run
-        to run (and registers them with its CUDA graph), so every run or
-        replay draws anew and a new executor replays the same sequence;
-        a grad op reads its forward's mask from the kept graph."""
+        """The op's generator on the context's device, made at its first
+        draw in ``generators``.  At the first draw of a run it is seeded
+        from the program's random seed, the run count (``step``) and the
+        op's build-time ``__op_seed__`` alone (``run_seed``; the JAX
+        package folds the same three into its key), so a run draws what
+        any executor draws at that run count, whatever run its entry
+        first ran at: a resumed run draws the masks of the run it
+        resumes.  Later draws in the same run continue the stream.  A
+        captured entry's generators are registered with its CUDA graph
+        and seeded by the executor before each replay (``seeding``
+        False here); a grad op reads its forward's mask from the kept
+        graph."""
         seed = int(op.attr("__op_seed__", 0))
         g = self.generators.get(seed)
         if g is None:
-            g = torch.Generator(device=self.device)
-            g.manual_seed(hash((self.random_seed, self.step, seed))
-                          % (1 << 63))
-            self.generators[seed] = g
+            g = self.generators[seed] = torch.Generator(device=self.device)
+        if self.seeding and seed not in self.seeded:
+            self.seeded.add(seed)
+            g.manual_seed(run_seed(self.random_seed, self.step, seed))
         return g
+
+
+def run_seed(random_seed: int, step: int, op_seed: int) -> int:
+    """The seed of an op's generator at run `step`."""
+    return hash((int(random_seed), int(step), int(op_seed))) % (1 << 63)
 
 
 class OpDef:

@@ -317,11 +317,29 @@ def _lookup_infer(op, block):
     set_out(op, block, "Out", list(ids.shape) + [w.shape[-1]], w.dtype)
 
 
+# PyTorch's CUDA embedding backward sums each weight row's gradient in its
+# per-feature kernel up to this many ids; above it, a sort-based path whose
+# sums of a row looked up thousands of times came out 1 bf16 ulp apart
+# between identical runs on the card (BERT's token-type row, 4096 ids)
+EMBEDDING_GRAD_CHUNK = 3072
+
+
 @register_op("lookup_table_v2", infer=_lookup_infer)
 def _lookup_table_v2(ctx: LowerContext, op: Operator):
+    """On the card a lookup whose grad op differentiates it looks its ids
+    up in chunks of EMBEDDING_GRAD_CHUNK, so every weight gradient comes
+    from PyTorch's per-feature kernel, whose sums do not vary from run to
+    run (the chunks' gradients add in order)."""
     w, ids = ctx.get_input(op, "W"), ctx.get_input(op, "Ids")
     ids = ids.long()
-    out = torch.nn.functional.embedding(ids, w)
+    if w.is_cuda and ctx.op_index in ctx.keep and \
+            ids.numel() > EMBEDDING_GRAD_CHUNK:
+        flat = ids.reshape(-1)
+        out = torch.cat([torch.nn.functional.embedding(c, w) for c in
+                         flat.split(EMBEDDING_GRAD_CHUNK)]).reshape(
+            tuple(ids.shape) + (w.shape[-1],))
+    else:
+        out = torch.nn.functional.embedding(ids, w)
     padding_idx = op.attr("padding_idx", -1)
     if padding_idx is not None and padding_idx >= 0:
         out = out * (ids != padding_idx).unsqueeze(-1).to(out.dtype)

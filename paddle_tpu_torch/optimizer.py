@@ -1,6 +1,8 @@
-"""Static-graph optimizers: ``Optimizer``, ``AdamOptimizer`` and ``AdamW``.
+"""Static-graph optimizers: ``Optimizer``, ``SGDOptimizer``,
+``AdamOptimizer`` and ``AdamW``.
 
-Counterpart of ``paddle_tpu/optimizer.py:34-152`` and ``:323-384``.
+Counterpart of ``paddle_tpu/optimizer.py:34-152``, ``:217-227`` and
+``:323-384``.
 ``minimize(loss)`` = append_backward + clip + regularization + one
 optimizer op per parameter, with the accumulators (moments, beta powers)
 as persistable vars filled by the startup program.  The dygraph branches,
@@ -16,7 +18,8 @@ from .framework.core import (OpRole, Program, Variable, default_main_program,
 from .framework.initializer import ConstantInitializer
 from .regularizer import append_regularization_ops
 
-__all__ = ["Optimizer", "Adam", "AdamOptimizer", "AdamW"]
+__all__ = ["Optimizer", "SGD", "SGDOptimizer", "Adam", "AdamOptimizer",
+           "AdamW"]
 
 
 class Optimizer:
@@ -101,6 +104,17 @@ class Optimizer:
         raise NotImplementedError
 
 
+class SGDOptimizer(Optimizer):
+    """Plain gradient descent (the ``sgd`` op)."""
+    op_type = "sgd"
+
+    def _append_optimize_op(self, param, grad, lr):
+        return default_main_program().current_block().append_op(
+            "sgd", inputs={"Param": [param], "Grad": [grad],
+                           "LearningRate": [lr]},
+            outputs={"ParamOut": [param]})
+
+
 class AdamOptimizer(Optimizer):
     """Adam with bias correction folded into the step size (the
     reference's adam_op).  ``lazy_mode`` is accepted and, as in the JAX
@@ -166,4 +180,5 @@ class AdamW(AdamOptimizer):
         return op
 
 
+SGD = SGDOptimizer
 Adam = AdamOptimizer

@@ -120,12 +120,13 @@ def test_gated_profile_excuses_only_profiles_that_lost_records(readings,
 # ---------------------------------------------------------------------------
 
 def test_generation_phase_runs_llama_2_7b_at_the_card_configuration():
-    """The flagship engine: Llama-2-7B's widths and 32 layers, 4 slots of
-    1024 positions, buckets 64-512; 8 prompts of 20-500 tokens that land
-    in every bucket, each with its 64 new tokens inside the cache (so
-    every request ends 'length'); the parity config keeps the widths."""
+    """The flagship engine: Llama-2-7B's widths at 16 of its 32 layers
+    (the run's depth cut), 4 slots of 1024 positions, buckets 64-512; 8
+    prompts of 20-500 tokens that land in every bucket, each with its 64
+    new tokens inside the cache (so every request ends 'length'); the
+    parity config keeps the widths."""
     assert smoke.GEN == dict(vocab_size=32000, hidden=4096, num_heads=32,
-                             intermediate=11008, num_layers=32)
+                             intermediate=11008, num_layers=16)
     eng = smoke.GEN_ENGINE
     assert (eng["num_slots"], eng["max_seq_len"]) == (4, 1024)
     assert eng["prefill_buckets"] == (64, 128, 256, 512)
@@ -442,7 +443,7 @@ def _argv_value(argv, flag):
 
 
 def test_fleet_generation_replicas_run_llama_2_7b_at_the_card_config():
-    """Phase 12b's replicas: Llama-2-7B's widths and 32 layers, MHA, 4
+    """Phase 12b's replicas: Llama-2-7B's widths at GEN's 16 layers, MHA, 4
     slots of 1024 positions, the paged cache of 257 pages of 16 (phase
     10's pools), phase 10's buckets, 64 new tokens, on the card; the
     replica's own parser accepts the argv."""
@@ -765,14 +766,14 @@ def test_chaos_fleet_configuration():
 
 
 def test_chaos_generation_configuration():
-    """13b's generation: poison_paged and spec_storm on Llama-2-7B at 32
-    layers in pages of 16 with phase 10c's buckets (bucket 8 for the
-    verify); disagg_crash on four replicas of Llama-2-7B's widths at 4
-    layers (the one depth cut), their prompts (4-48 tokens) inside the
-    64-token bucket; the replica's parser accepts the argv."""
+    """13b's generation: poison_paged and spec_storm on GEN (Llama-2-7B's
+    widths at 16 layers) in pages of 16 with phase 10c's buckets (bucket
+    8 for the verify); disagg_crash on four replicas of Llama-2-7B's
+    widths at 4 layers, their prompts (4-48 tokens) inside the 64-token
+    bucket; the replica's parser accepts the argv."""
     from paddle_tpu_torch.serving import replica
 
-    assert smoke.GEN["num_layers"] == 32
+    assert smoke.GEN["num_layers"] == 16
     eng = smoke.CHAOS_GEN_ENGINE
     assert eng["prefill_buckets"] == smoke.GEN_SPEC_ENGINE["prefill_buckets"]
     assert eng["num_slots"] == smoke.GEN_SPEC_ENGINE["num_slots"]
@@ -838,3 +839,65 @@ def test_loadgen_main_keeps_its_report_off_stdout(tmp_path, capsys):
         tpt.set_flags({"FLAGS_telemetry": True})
     assert rc == 0 and rep["ok"] == 4
     assert capsys.readouterr().out == ""
+
+
+# ---------------------------------------------------------------------------
+# phase 14: BERT-base training under TrainGuard
+# ---------------------------------------------------------------------------
+
+def test_guard_phase_runs_the_flagship_configuration():
+    """Phase 14 trains bench.py's flagship step (BERT-base, seq 512, batch
+    8, 77 predictions) through a NaN at the third step and a SIGTERM at
+    the sixth, 12 steps a life, checkpoints every 4 runs."""
+    assert smoke.FLAGSHIP == dict(smoke.BERT_BASE, batch_size=8,
+                                  seq_len=512, max_predictions=77)
+    assert (smoke.GUARD_STEPS, smoke.GUARD_INTERVAL, smoke.GUARD_KEEP) == \
+        (12, 4, 2)
+    assert smoke.GUARD_NAN == "loss:nan@3"
+    assert smoke.GUARD_SIGTERM == "step:sigterm@6"
+    assert smoke.GUARD_INTERVAL < 6 < smoke.GUARD_STEPS
+
+
+def test_guard_phase_rehearses_on_the_cpu(monkeypatch):
+    """train_guard_flagship on the CPU at a tiny BERT: the three lives, the
+    resume bit-equal to the uninterrupted life, the trace, trace_export,
+    the telemetry on / off replays and profiler.py's table (no kernel
+    counts on the CPU: the counters are read as 0 and the table must name
+    host ops instead of the card's kernels)."""
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch import device, memory
+    from paddle_tpu_torch.framework import executor
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    cpu = torch.device("cpu")
+    for mod in (device, executor):
+        monkeypatch.setattr(mod, "resolve_device", lambda place=None: cpu)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+    peaks = [100, 10]
+    monkeypatch.setattr(memory, "max_memory_allocated",
+                        lambda device=None: peaks[0])
+    monkeypatch.setattr(memory, "reset_peak",
+                        lambda device=None: peaks.pop(0))
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated",
+                        lambda *a: peaks[0])
+    monkeypatch.setattr(smoke, "FLAGSHIP", dict(
+        vocab_size=97, hidden=128, num_layers=2, num_heads=2,
+        intermediate=256, batch_size=2, seq_len=32, max_predictions=5))
+    monkeypatch.setattr(smoke, "read_counts",
+                        lambda fa: (smoke.Launches((0,) * 6), 0, 0))
+    monkeypatch.setattr(smoke, "per_step_launches", lambda main: (0,) * 6)
+    monkeypatch.setattr(smoke, "TC_KERNELS", ("aten::",))
+    monkeypatch.setattr(smoke, "GUARD", {})
+    monkeypatch.setattr(smoke, "log", lambda msg: None)
+    try:
+        launches = smoke.train_guard_flagship(tpt, fa)
+    finally:
+        tpt.set_flags({"FLAGS_metrics_dir": "", "FLAGS_telemetry": True})
+    g = smoke.GUARD
+    assert tuple(launches) == (0,) * 6
+    assert g["checkpoint_writes"] == 5   # A: 4, 8, 12; B: 4 and its final
+    assert g["checkpoint_bytes"] > 0 and g["trace_events"] > 0
+    assert g["sigterm_to_exit_ms"] >= 0 and g["train_guard_resume_ms"] > 0
+    assert g["replay_ms_telemetry_on"] > 0 and g["peak_after_reset_gib"] < \
+        g["peak_gib"]

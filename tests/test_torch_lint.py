@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: no module under paddle_tpu_torch/ (its
-subpackage tools/ included: the port's load generator and chaos
-harness), and not chip_smoke.py, time_fp32.py, time_step.py,
-probe_decode_rows.py, probe_fetch.py or probe_serving_host.py, imports
-jax or the JAX package paddle_tpu."""
+subpackage tools/ included: the port's load generator, chaos harness
+and trace_export), and not chip_smoke.py, time_fp32.py, time_step.py,
+probe_decode_rows.py, probe_fetch.py, probe_serving_host.py or
+probe_train_guard.py, imports jax or the JAX package paddle_tpu."""
 import ast
 import os
 
@@ -18,7 +18,8 @@ def _port_files():
              os.path.join(REPO, "time_step.py"),
              os.path.join(REPO, "probe_decode_rows.py"),
              os.path.join(REPO, "probe_fetch.py"),
-             os.path.join(REPO, "probe_serving_host.py")]
+             os.path.join(REPO, "probe_serving_host.py"),
+             os.path.join(REPO, "probe_train_guard.py")]
     for root, _dirs, names in os.walk(os.path.join(REPO, "paddle_tpu_torch")):
         files.extend(os.path.join(root, n) for n in sorted(names)
                      if n.endswith(".py"))
