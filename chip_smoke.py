@@ -160,7 +160,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    bf16 and in fp32: the three kernels, their plain versions, and
    scaled_dot_product_attention(is_causal=True) forward and its backward
    through torch.autograd.grad as the yardstick; the timed results are
-   held to the same tolerances.
+   held to the same tolerances.  Then the same in bf16 at phase 15b's
+   attention shape, [1, 32, 4096, 128] causal (here, not in phase 15:
+   late in the run, after phase 14, torch.profiler sessions of eager
+   kernel calls have seen no device time on one H100).
 8. Llama training parity at full width: Llama-2-7B's widths (vocab 32000,
    hidden 4096, 32 heads, intermediate 11008) at 1 layer, seq 128, batch
    2, fp32 with TF32 off, AdamW(1e-3, weight_decay 0.01); 3 Executor.run
@@ -456,8 +459,44 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    Printed: the checkpoint's bytes (its manifest), checkpoint_write_ms
    (the sha256 pass included), the resume and SIGTERM ms, the replay ms.
    The "train_guard:" JSON line holds the numbers.
+15. recompute (append_backward(checkpoints=...) through
+   optimizer.RecomputeOptimizer; the phase's seconds and the run's are
+   printed).  Each path is a pair of lives, plain then recompute, each a
+   fresh Executor and Scope running its program's startup (the same
+   weights: the startup's draws are keyed by the seed and the run count),
+   the first closed before the second starts, 6 steps (eager, capture and
+   replay, replays), then 5 timed replays and one profiled.
+   a. bench.py's step (BERT-base, seq 512, batch 8, 77 predictions, bf16
+      AMP with the bench's white list, dropout 0.1), checkpointed at each
+      encoder layer's output (bert_checkpoints: the layer_norm after the
+      FFN's residual add).
+   b. Llama-2-7B's widths at 4 of its 32 layers, batch 2 at Llama-2's
+      4096 context, bf16 AMP, under Llama-2's recipe (RECIPE: AdamW
+      beta1 0.9, beta2 0.95, eps 1e-5, weight decay 0.1;
+      linear_lr_warmup(cosine_decay(3e-4, 1, 6), 2, 0, 3e-4);
+      GradientClipByGlobalNorm(1.0); Fluid's cosine decays to 0 where
+      Llama-2's stops at 10% of the peak), seeded token batches,
+      checkpointed at the residual stream entering each block and at the
+      final norm's input (llama_checkpoints).
+   Gates (tolerance 0): every fetch of every step (b: the loss and the
+   LR) and every persistable after the 6 steps bit-equal between the
+   lives; every step launches per_step_launches(main) (a: 12 / 12 / 12 of
+   #1-#3 plain, 24 / 12 / 12 with recompute; b: 4 / 4 / 4 of #4-#6
+   plain, 8 / 4 / 4), no plain call, nothing realigned; b's LRs equal to
+   recipe_lrs, the schedule on the host in float32, within 1e-6 of the
+   peak (the card's cos against numpy's); b's recompute eager peak at
+   least 3 GiB below plain's.  Printed a life: the eager step's peak
+   (torch.cuda.max_memory_allocated after reset_peak_memory_stats), the
+   graph pool's bytes, the median replay ms, the profiled replay's idle
+   share; and the deepest stack of b's widths whose eager step fits in
+   the card's memory, plain and with recompute, reckoned from b's peaks
+   (deepest_stack).  A profiled replay whose every profile lost kernel
+   records (its launches short of the counters') logs its device
+   numbers as not measured.  b's attention shape is timed in phase 7.
+   The "recompute:" JSON line holds the numbers.
 
-Every profiled replay (phases 4, 5, 6 and 9) also holds the profiler's
+Every profiled replay (phases 4, 5, 6 and 9; phase 15 where a profile
+kept every record) also holds the profiler's
 launches of the forward, dK/dV and dQ kernels against what the
 replay-aware counters added over it: a replay runs no wrapper, so this
 is what shows that the counts the per-step gates read are the
@@ -468,7 +507,7 @@ put down to lost records only in a profile with fewer kernel records
 than another of the same replay; the profile with the most records
 must agree (phase 4 and the flagships' profiled steps).
 
-On every path (phases 4, 5, 6, 8, 9, 10) no bfloat16 operand is copied to
+On every path (phases 4, 5, 6, 8, 9, 10, 15) no bfloat16 operand is copied to
 meet TMA's 16-byte alignment: the launching wrappers' ".realigned"
 counts stay 0.
 
@@ -483,13 +522,16 @@ dense traffic), generation_paged and generation_shared_prefix (its two
 paged runs), generation_spec (10c's speculating run) and
 generation_disagg (10d's pair, both transports), serving_engine (11a's
 2-worker traffic), serving_http (11b's generation traffic), loadgen
-(13a in process), chaos (13b in this process) and train_guard (phase
-14's three lives); and fleet_serving,
+(13a in process), chaos (13b in this process), train_guard (phase
+14's three lives), recompute_bert_plain, recompute_bert,
+recompute_llama_plain and recompute_llama (phase 15's lives); and
+fleet_serving,
 fleet_generation and chaos_fleet (12a, 12b, 13b's probe fleet), which
 count kernel records in a replica's /profilez trace instead (the
 replicas' counters live in their processes): each kernel's
 "trace_record_paths" names them. Kernel #4's entry also carries "f32_prefill": the fp32
-forward at the largest prefill bucket, [1, 32, 512, 128] causal. The
+forward at the largest prefill bucket, [1, 32, 512, 128] causal; #4-#6
+carry "seq4096": their bf16 rows at phase 15b's [1, 32, 4096, 128]. The
 four backward entries also carry "f32": their fp32 kernel's device_ms,
 ms, bound_ms and SDPA's fp32 backward's library_device_ms at the same
 shape (BERT's training shape for the packed, the Llama shape for the
@@ -1255,10 +1297,11 @@ def check_unpacked(fa, device):
     torch.cuda.empty_cache()
 
 
-def time_unpacked(fa, device, dtype, library_kernels=None):
+def time_unpacked(fa, device, dtype, library_kernels=None, shape=None):
     """Times of the three unpacked kernels at the Llama flagship's
     attention shape (B 1, 32 heads, S 2048, D 128, causal, views of
-    [B, S, H, D] buffers as rope leaves them) in `dtype`, beside their
+    [B, S, H, D] buffers as rope leaves them), or `shape` (B, H, S, D),
+    in `dtype`, beside their
     plain versions and scaled_dot_product_attention(is_causal=True)
     forward and backward (torch.autograd.grad over one forward, grads of
     q, k, v): event ms of back-to-back calls and device ms.  The timed
@@ -1268,9 +1311,9 @@ def time_unpacked(fa, device, dtype, library_kernels=None):
     import torch
     import torch.nn.functional as F
 
-    B, H, S, D = (LLAMA_FLAGSHIP["batch_size"], LLAMA["num_heads"],
-                  LLAMA_FLAGSHIP["seq_len"],
-                  LLAMA["hidden"] // LLAMA["num_heads"])
+    B, H, S, D = shape or (LLAMA_FLAGSHIP["batch_size"], LLAMA["num_heads"],
+                           LLAMA_FLAGSHIP["seq_len"],
+                           LLAMA["hidden"] // LLAMA["num_heads"])
     q, k, v, _, dout = unpacked_inputs(B, H, S, S, D, "none", True, 17,
                                        device, dtype)
     scale = 1.0 / math.sqrt(D)
@@ -1602,17 +1645,23 @@ def profile_request(pred, fa, feed):
 
 
 # profiles of one replay taken at most, while the profiler's launches
-# differ from the counters'
+# differ from the counters'; the pause before each profiled call
 PROFILE_TRIES = 3
+PROFILE_SETTLE_S = 0.05
 
 
-def profiled_launches(call, fa, what, key):
+def profiled_launches(call, fa, what, key, strict=True):
     """One profiled call of `call` (a replay): report_profile's numbers,
     and the profiler's launches held to the replay-aware counts
     (check_profiled_launches).  torch.profiler now and then loses kernel
     records; so while the two disagree the replay is profiled again, up
     to PROFILE_TRIES in all, each reading logged, and gated_profile
-    decides which profile the gate holds."""
+    decides which profile the gate holds.  Each profile waits for the
+    device and a moment before the call.  Not `strict`: where every try
+    lost records (late in a long run, each profile of phase 15b's plain
+    replay has lost the same 75 kernel records), the profile's device
+    numbers are logged as not measured instead of failing; the kernels'
+    launches stay held by the counters around every step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1621,6 +1670,8 @@ def profiled_launches(call, fa, what, key):
         before = read_counts(fa)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_SETTLE_S)
             t = time.perf_counter()
             call()
             torch.cuda.synchronize()
@@ -1636,6 +1687,12 @@ def profiled_launches(call, fa, what, key):
         runs.append((kernels, before, after, dict(PROFILES[key])))
         if seen == want:
             break
+    if not strict and all(seen != want for _, seen, want in readings):
+        PROFILES[key] = dict(PROFILES[key], busy_ms=None, idle=None,
+                             lost_records=readings)
+        log(f"  {what}: every profile lost kernel records; its device "
+            f"busy and idle share: not measured")
+        return
     kernels, before, after, PROFILES[key] = runs[gated_profile(readings,
                                                                what)]
     check_profiled_launches(kernels, before, after, what)
@@ -1747,10 +1804,12 @@ def report_profile(prof, wall_us, what, key=None):
     return kernels, busy_us
 
 
-def build_train(tpt, cfg, lr_args, amp, dropout):
+def build_train(tpt, cfg, lr_args, amp, dropout, recompute=False):
     """bench.py's training step: build_bert_pretrain, linear LR warmup,
     Adam with global-norm clip 1.0, optionally bf16 AMP with the bench's
-    white list; minimize."""
+    white list; minimize.  With `recompute`, the Adam is wrapped in a
+    RecomputeOptimizer checkpointed at each encoder layer's output
+    (bert_checkpoints)."""
     from paddle_tpu_torch import clip, optimizer
     from paddle_tpu_torch.contrib import mixed_precision
     from paddle_tpu_torch.models import build_bert_pretrain
@@ -1764,6 +1823,9 @@ def build_train(tpt, cfg, lr_args, amp, dropout):
         lr = tpt.layers.linear_lr_warmup(**lr_args)
         opt = optimizer.AdamOptimizer(
             learning_rate=lr, grad_clip=clip.GradientClipByGlobalNorm(1.0))
+        if recompute:
+            opt = optimizer.RecomputeOptimizer(opt)
+            opt._set_checkpoints(bert_checkpoints(main))
         if amp:
             opt = mixed_precision.decorate(
                 opt, dtype="bfloat16",
@@ -1825,13 +1887,17 @@ def llama_batch(cfg, seed):
 
 
 def per_step_launches(main):
-    """Launches of the six kernels one training step makes: each attention
-    op's forward once (its grad op differentiates the graph the forward
-    kept), then dK/dV and dQ once."""
+    """Launches of the six kernels one training step makes: the forward
+    once an attention op (a recompute program's re-emitted copies
+    included: a grad op differentiates the graph its forward kept), dK/dV
+    and dQ once a grad op."""
     ops = main.global_block().ops
-    packed = sum(op.type == "flash_attention_qkv" for op in ops)
-    unpacked = sum(op.type == "flash_attention" for op in ops)
-    return (packed, packed, packed, unpacked, unpacked, unpacked)
+    n = {t: sum(op.type == t for op in ops) for t in (
+        "flash_attention_qkv", "flash_attention_qkv_grad", "flash_attention",
+        "flash_attention_grad")}
+    return (n["flash_attention_qkv"], n["flash_attention_qkv_grad"],
+            n["flash_attention_qkv_grad"], n["flash_attention"],
+            n["flash_attention_grad"], n["flash_attention_grad"])
 
 
 def train_parity(tpt, fa, what, main, startup, loss, batches, grads, lrs):
@@ -5922,6 +5988,353 @@ def train_guard_flagship(tpt, fa):
     return Launches(total)
 
 
+# -- phase 15: recompute and Llama-2's training recipe ----------------------
+
+RECOMPUTE_STEPS = 6
+RECOMPUTE_REPLAYS = 5
+# a Llama-2-7B-width decoder at Llama-2's 4096 context, depth cut to 4 of
+# its 32 layers (AdamW's state for all 32 is ~104 GB)
+LLAMA_RECIPE = dict(LLAMA, num_layers=4, batch_size=2, seq_len=4096)
+# Llama-2's pretraining recipe (Touvron et al. 2023, section 2.2): AdamW
+# with beta2 0.95, eps 1e-5 and weight decay 0.1, warmup then a cosine
+# decay, a global-norm clip at 1.0.  Fluid's cosine_decay goes down to 0
+# (Llama-2's stops at 10% of the peak, which the schedules cannot write).
+RECIPE = dict(beta1=0.9, beta2=0.95, epsilon=1e-5, weight_decay=0.1,
+              peak_lr=3e-4, warmup_steps=2, step_each_epoch=1, epochs=6,
+              clip_norm=1.0)
+# a fetched LR against the host's formula: the card's float32 cos and
+# numpy's may differ by a few ulps, which 0.5 * peak * (1 + cos) carries
+# (up to ~8x relative near cos = -1); 1e-6 of the peak is far below the
+# schedule's own steps (> 1e-5 of the peak apart)
+RECIPE_LR_ATOL = 1e-6 * RECIPE["peak_lr"]
+# the least drop of the eager step's peak allocated bytes that recompute
+# must show at LLAMA_RECIPE
+RECOMPUTE_SAVING = 3 * 2 ** 30
+# the unpacked kernels' new shape on this path, held and timed in bf16
+RECOMPUTE_ATTN = (1, 32, 4096, 128)
+RECOMPUTE = {}
+
+
+def forward_ops(main):
+    """The forward ops of a built program (a recompute program's
+    re-emitted copies, role Backward, left out)."""
+    from paddle_tpu_torch.framework.core import OpRole
+
+    return [op for op in main.global_block().ops
+            if op.attr("op_role", OpRole.Forward) in
+            (OpRole.Forward, OpRole.Forward | OpRole.Loss)]
+
+
+def bert_checkpoints(main):
+    """Each encoder layer's output in a built BERT program (the
+    layer_norm after its FFN's residual add, paddle_tpu/models/bert.py
+    :132): of the layer_norm ops whose X an elementwise_add writes (the
+    embeddings' and two a layer), every second from the third."""
+    ops = forward_ops(main)
+    producer = {}
+    for op in ops:
+        for n in op.output_arg_names():
+            producer.setdefault(n, op)
+    norms = [op for op in ops if op.type == "layer_norm" and getattr(
+        producer.get(op.input("X")[0]), "type", None) == "elementwise_add"]
+    return [op.output("Y")[0] for op in norms[2::2]]
+
+
+def llama_checkpoints(main):
+    """The residual stream entering each block, and the final norm's
+    input, in a built Llama program (the X of rms_norm at
+    paddle_tpu/models/llama.py:71 and :163): every second rms_norm's X,
+    since a block has two (before attention, before the MLP) and the
+    final norm closes the stack."""
+    norms = [op for op in forward_ops(main) if op.type == "rms_norm"]
+    return [op.input("X")[0] for op in norms[::2]]
+
+
+def build_llama_recipe(tpt, cfg, recompute):
+    """The Llama training step under Llama-2's recipe (RECIPE): AdamW,
+    linear_lr_warmup over cosine_decay, GradientClipByGlobalNorm, bf16
+    AMP with the default lists; with `recompute` a RecomputeOptimizer
+    checkpointed by llama_checkpoints.  Names and op seeds restart, so
+    the two settings build the same parameters and startup.  Returns
+    (main, startup, loss name, LR name)."""
+    from paddle_tpu_torch import clip, optimizer
+    from paddle_tpu_torch.contrib import mixed_precision
+    from paddle_tpu_torch.models import build_llama_train
+    from paddle_tpu_torch.ops import registry
+
+    r = RECIPE
+    tpt.reset_unique_name()
+    registry.reset_op_seed()
+    main, startup = tpt.Program(), tpt.Program()
+    startup._is_startup = True
+    with tpt.program_guard(main, startup):
+        _, outs = build_llama_train(**cfg)
+        lr = tpt.layers.linear_lr_warmup(
+            tpt.layers.cosine_decay(r["peak_lr"], r["step_each_epoch"],
+                                    r["epochs"]),
+            r["warmup_steps"], 0.0, r["peak_lr"])
+        opt = optimizer.AdamW(
+            learning_rate=lr, beta1=r["beta1"], beta2=r["beta2"],
+            epsilon=r["epsilon"], weight_decay=r["weight_decay"],
+            grad_clip=clip.GradientClipByGlobalNorm(r["clip_norm"]))
+        if recompute:
+            opt = optimizer.RecomputeOptimizer(opt)
+            opt._set_checkpoints(llama_checkpoints(main))
+        opt = mixed_precision.decorate(opt, dtype="bfloat16")
+        opt.minimize(outs["loss"])
+    return main, startup, outs["loss"].name, lr.name
+
+
+def recipe_lrs(steps, recipe=RECIPE):
+    """The LR of each of the first `steps` runs: the schedule's ops in
+    their order, in float32 on the host.  Run r counts step r - 1 (each
+    counter starts at -1 and counts before it is read); linear_lr_warmup
+    gives start + (peak - start) / warmup * step below warmup_steps, else
+    cosine_decay's 0.5 peak (1 + cos(pi floor(step / step_each_epoch) /
+    epochs))."""
+    f = np.float32
+    peak, warm = recipe["peak_lr"], recipe["warmup_steps"]
+    out = []
+    for r in range(steps):
+        step = f(r)
+        ramp = step * f(peak / warm) + f(0.0)
+        epoch = np.floor(step * f(1.0 / recipe["step_each_epoch"]))
+        cos = np.cos(epoch * f(math.pi / recipe["epochs"]))
+        decay = cos * f(0.5 * peak) + f(0.5 * peak)
+        out.append(ramp if step < f(warm) else decay)
+    return out
+
+
+def recompute_life(tpt, fa, what, main, startup, fetch, batches, key):
+    """One life of `main` in a fresh executor and scope, from its startup
+    program's state (run in that executor: the startup's draws are keyed
+    by the program's seed and the run count, so every life starts from
+    the same weights): RECOMPUTE_STEPS steps (eager, capture and replay,
+    replays), each launching per_step_launches(main), no plain call,
+    nothing realigned.  Read: the eager step's peak allocated bytes (the
+    peak reset just before it), the graph pool's bytes, each step's
+    fetches, the persistables after the last step (copied to the host).
+    Then the median host ms of RECOMPUTE_REPLAYS replays (ending in the
+    fetch) and one profiled replay (PROFILES[key]).  Closes the
+    executor; returns the life's numbers."""
+    import torch
+
+    want = per_step_launches(main)
+    held = torch.cuda.memory_allocated()  # by earlier phases
+    exe, scope = tpt.Executor(), tpt.Scope()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa)
+    fetched, peak = [], None
+    for step in range(RECOMPUTE_STEPS):
+        before = read_counts(fa)
+        out = exe.run(main, feed=batches[step % len(batches)],
+                      fetch_list=fetch, scope=scope)
+        after = read_counts(fa)
+        if step == 0:
+            peak = torch.cuda.max_memory_allocated()
+        got = (tuple(a - b for a, b in zip(after[0], before[0])),
+               after[1] - before[1], after[2] - before[2])
+        if got != (want, 0, 0) or not np.isfinite(out[0]).all():
+            raise AssertionError(f"{what} step {step + 1}: (launches, plain "
+                                 f"calls, realigned operands) {got}, want "
+                                 f"{want}, 0, 0; loss {out[0]}")
+        fetched.append([np.asarray(x).reshape(-1)[0] for x in out])
+    counts = read_counts(fa)[0]
+    info = exe.cache_info()["entries"][-1]
+    if not info["aot"]:
+        raise AssertionError(f"{what}: the step was never captured")
+    state = {v.name: scope.find_var(v.name).to("cpu", copy=True)
+             for v in main.list_vars()
+             if v.persistable and scope.find_var(v.name) is not None}
+    times = []
+    for _ in range(RECOMPUTE_REPLAYS):
+        t = time.perf_counter()
+        out = exe.run(main, feed=batches[0], fetch_list=fetch, scope=scope)
+        times.append((time.perf_counter() - t) * 1e3)
+    profiled_launches(lambda: exe.run(main, feed=batches[0],
+                                      fetch_list=fetch, scope=scope),
+                      fa, f"one {what} replay", key, strict=False)
+    exe.close()
+    del scope
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    life = dict(losses=[x[0] for x in fetched],
+                fetched=[x[1:] for x in fetched], state=state, peak=peak,
+                held=held, pool=info["manifest"] or 0,
+                params=sum(int(np.prod(p.shape))
+                           for p in main.all_parameters()),
+                replay_ms=float(np.median(times)), launches=counts,
+                want=want, idle=PROFILES[key]["idle"])
+    log(f"  {what}: losses {', '.join(f'{x:.6f}' for x in life['losses'])}; "
+        f"eager step's peak {peak / 2 ** 30:.3f} GiB ({held / 2 ** 30:.3f} "
+        f"of it held before the life), graph pool "
+        f"{life['pool'] / 2 ** 30:.3f} GiB; replay {life['replay_ms']:.2f} "
+        f"ms (median of {RECOMPUTE_REPLAYS}); launches {counts} ({want} a "
+        f"step)")
+    return life
+
+
+def recompute_pair(tpt, fa, what, build, batches, key):
+    """`build(recompute)` -> (main, startup, fetch names): the plain life,
+    then the recompute life (recompute_life each, the first closed before
+    the second starts).  Gates: the recompute program launches each
+    forward kernel twice as often as the plain one and the backward ones
+    as often; every fetch of every step and every persistable after the
+    last step bit-equal.  Returns (plain life, recompute life)."""
+    import torch
+
+    lives = []
+    for recompute in (False, True):
+        main, startup, fetch = build(recompute)
+        lives.append(recompute_life(
+            tpt, fa, f"{what}, {'recompute' if recompute else 'plain'}",
+            main, startup, fetch, batches,
+            key + ("" if recompute else "_plain")))
+        del main, startup
+    plain, rc = lives
+    w0, w1 = plain["want"], rc["want"]
+    if not (w1[1:3] == w0[1:3] and w1[4:] == w0[4:] and
+            w1[0] == 2 * w0[0] and w1[3] == 2 * w0[3]):
+        raise AssertionError(f"{what}: recompute launches {w1} a step "
+                             f"against plain's {w0}")
+    differ = [i + 1 for i, (a, b) in enumerate(zip(
+        plain["losses"], rc["losses"])) if a != b or
+        any(x != y for x, y in zip(plain["fetched"][i], rc["fetched"][i]))]
+    moved = sorted(n for n in set(plain["state"]) | set(rc["state"])
+                   if n not in plain["state"] or n not in rc["state"] or
+                   not torch.equal(plain["state"][n], rc["state"][n]))
+    log(f"  {what}: recompute against plain: fetches unequal at steps "
+        f"{differ}; persistables unequal {len(moved)} of "
+        f"{len(plain['state'])}; eager peak {plain['peak'] / 2 ** 30:.3f} "
+        f"-> {rc['peak'] / 2 ** 30:.3f} GiB, graph pool "
+        f"{plain['pool'] / 2 ** 30:.3f} -> {rc['pool'] / 2 ** 30:.3f} GiB, "
+        f"replay {plain['replay_ms']:.2f} -> {rc['replay_ms']:.2f} ms")
+    if differ or moved:
+        raise AssertionError(f"{what}: recompute is not bit-equal to "
+                             f"plain: fetches at steps {differ}, "
+                             f"persistables {moved[:5]}")
+    return plain, rc
+
+
+def life_numbers(life):
+    return dict(peak_gib=life["peak"] / 2 ** 30,
+                held_gib=life["held"] / 2 ** 30,
+                pool_gib=life["pool"] / 2 ** 30,
+                replay_ms=life["replay_ms"], idle=life["idle"],
+                launches=list(life["want"]),
+                losses=[float(x) for x in life["losses"]])
+
+
+def deepest_stack(plain, rc, cfg, capacity):
+    """The deepest stack of cfg's widths whose eager step fits in
+    `capacity` bytes, reckoned from the two lives' measured peaks at
+    cfg's depth L: each layer adds its static bytes (fp32 weight, two
+    AdamW moments, fp32 grad, bf16 cast: 18 bytes a parameter) and, plain,
+    one block's kept activations, which the recompute life holds once
+    (so a block's activations are (plain peak - recompute peak) /
+    (L - 1)), or under recompute one checkpoint (tokens x hidden x 4
+    bytes); the bytes earlier phases held are left out.  Returns (plain
+    layers, recompute layers, the per-layer bytes of each)."""
+    L = cfg["num_layers"]
+    tokens = cfg["batch_size"] * cfg["seq_len"]
+    per_layer_params = (plain["params"] - 2 * cfg["vocab_size"] *
+                        cfg["hidden"] - cfg["hidden"]) / L
+    static = 18 * per_layer_params
+    own_plain = plain["peak"] - plain["held"]  # less earlier phases
+    own_rc = rc["peak"] - rc["held"]
+    act = (own_plain - own_rc) / (L - 1)
+    ckpt = tokens * cfg["hidden"] * 4
+    per_plain, per_rc = static + act, static + ckpt
+    base_plain = own_plain - L * per_plain
+    base_rc = own_rc - L * per_rc
+    return (int((capacity - base_plain) // per_plain),
+            int((capacity - base_rc) // per_rc), per_plain, per_rc)
+
+
+def recompute_flagship(tpt, fa, device):
+    """Phase 15.  a: bench.py's flagship step (BERT-base, seq 512, batch
+    8, bf16 AMP, dropout 0.1), plain and with recompute at every encoder
+    layer's output (bert_checkpoints).  b: LLAMA_RECIPE under RECIPE,
+    plain and with recompute at the residual stream entering each block
+    and the final norm (llama_checkpoints).  Each a pair of lives
+    (recompute_pair): bit-equal; b's every LR equal to recipe_lrs within
+    RECIPE_LR_ATOL and its recompute peak at least RECOMPUTE_SAVING
+    below plain's.  Returns each life's launches by path name."""
+    import torch
+    from paddle_tpu_torch.ops import registry
+
+    t0 = time.perf_counter()
+    paths = {}
+
+    def bert(recompute):
+        registry.reset_op_seed()
+        main, startup, loss = build_train(tpt, FLAGSHIP, FLAGSHIP_LR,
+                                          amp=True, dropout=0.1,
+                                          recompute=recompute)
+        if recompute:
+            log(f"  15a checkpoints: {bert_checkpoints(main)}")
+        return main, startup, [loss]
+
+    batches = [train_batch(FLAGSHIP, seed=600 + i, padding=False)
+               for i in range(4)]
+    plain, rc = recompute_pair(tpt, fa, "15a BERT-base seq 512", bert,
+                               batches, "recompute_bert")
+    paths["recompute_bert_plain"] = plain["launches"]
+    paths["recompute_bert"] = rc["launches"]
+    RECOMPUTE["bert"] = dict(plain=life_numbers(plain),
+                             recompute=life_numbers(rc))
+    del plain, rc
+
+    def llama(recompute):
+        main, startup, loss, lr = build_llama_recipe(tpt, LLAMA_RECIPE,
+                                                     recompute)
+        if recompute:
+            log(f"  15b checkpoints: {llama_checkpoints(main)}")
+        return main, startup, [loss, lr]
+
+    batches = [llama_batch(LLAMA_RECIPE, seed=1500 + i) for i in range(3)]
+    plain, rc = recompute_pair(
+        tpt, fa, f"15b Llama-2-7B widths, {LLAMA_RECIPE['num_layers']} "
+        f"layers, seq {LLAMA_RECIPE['seq_len']}", llama, batches,
+        "recompute_llama")
+    paths["recompute_llama_plain"] = plain["launches"]
+    paths["recompute_llama"] = rc["launches"]
+    want_lrs = recipe_lrs(RECOMPUTE_STEPS)
+    got_lrs = [x[0] for x in rc["fetched"]]
+    log("  15b LR by step (card / host formula): " + ", ".join(
+        f"{a:.6e} / {b:.6e}" for a, b in zip(got_lrs, want_lrs)))
+    if not all(abs(float(a) - float(b)) <= RECIPE_LR_ATOL
+               for a, b in zip(got_lrs, want_lrs)):
+        raise AssertionError(f"15b LRs {got_lrs} are not the schedule's "
+                             f"{want_lrs} (atol {RECIPE_LR_ATOL:g})")
+    saving = plain["peak"] - rc["peak"]
+    capacity = torch.cuda.get_device_properties(device).total_memory
+    deep = deepest_stack(plain, rc, LLAMA_RECIPE, capacity)
+    log(f"  15b recompute saves {saving / 2 ** 30:.3f} GiB of the eager "
+        f"step's peak (at least {RECOMPUTE_SAVING / 2 ** 30:g} GiB); "
+        f"replay {rc['replay_ms'] / plain['replay_ms']:.3f}x plain's; the "
+        f"deepest stack of these widths whose eager step fits in "
+        f"{capacity / 2 ** 30:.2f} GiB, reckoned from these peaks: "
+        f"{deep[0]} layers plain ({deep[2] / 2 ** 30:.3f} GiB a layer), "
+        f"{deep[1]} with recompute ({deep[3] / 2 ** 30:.3f} GiB a layer)")
+    if saving < RECOMPUTE_SAVING:
+        raise AssertionError(f"15b: recompute's eager peak is only "
+                             f"{saving / 2 ** 30:.3f} GiB below plain's")
+    RECOMPUTE["llama"] = dict(
+        plain=life_numbers(plain), recompute=life_numbers(rc),
+        saving_gib=saving / 2 ** 30,
+        lrs=[float(x) for x in got_lrs],
+        deepest_layers_plain=deep[0], deepest_layers_recompute=deep[1],
+        gib_a_layer_plain=deep[2] / 2 ** 30,
+        gib_a_layer_recompute=deep[3] / 2 ** 30)
+    del plain, rc
+    torch.cuda.empty_cache()
+    RECOMPUTE["phase_s"] = time.perf_counter() - t0
+    return paths
+
+
 def main():
     import torch
 
@@ -5941,7 +6354,7 @@ def main():
 
     t_start = time.perf_counter()
     card = card_line()
-    log(f"[1/14] device: {card}; torch {torch.__version__}, CUDA "
+    log(f"[1/15] device: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5958,12 +6371,12 @@ def main():
     fa._bwd_lib()
     gemm._lib()
     rms_norm._lib()
-    log(f"[2/14] built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
+    log(f"[2/15] built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
     check_build(build)
     gemm_rows, gemm_ratios = check_gemm(gemm, build, device)
     norm_rows = check_rms_norm(rms_norm, device)
 
-    log("[3/14] packed kernels against their plain versions")
+    log("[3/15] packed kernels against their plain versions")
     check_kernel(fa, device)
     check_backward(fa, device)
     fwd_f32 = time_forward_f32(fa, device)
@@ -5974,36 +6387,38 @@ def main():
 
     # each path's launches of the six kernels, each read from 0
     by_path = {}
-    log("[4/14] BERT-base serving through Predictor on the card")
+    log("[4/15] BERT-base serving through Predictor on the card")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         by_path["serving"] = serve(tpt, fa, workdir)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[5/14] BERT-base training, card against the CPU (fp32)")
+    log("[5/15] BERT-base training, card against the CPU (fp32)")
     by_path["training_parity"] = bert_parity(tpt, fa)
     bert_fp32_profile(tpt, fa)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[6/14] bench.py's seq-512 training step on the card (bf16 AMP)")
+    log("[6/15] bench.py's seq-512 training step on the card (bf16 AMP)")
     by_path["training_flagship"], _ = bert_flagship(tpt, fa)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[7/14] unpacked kernels against their plain versions")
+    log("[7/15] unpacked kernels against their plain versions")
     check_unpacked(fa, device)
     unpacked_timing = time_unpacked(fa, device, "bfloat16")
     unpacked_f32 = time_unpacked(fa, device, "float32")
+    log(f"  phase 15b's attention shape, {list(RECOMPUTE_ATTN)} causal:")
+    seq4096 = time_unpacked(fa, device, "bfloat16", shape=RECOMPUTE_ATTN)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[8/14] Llama-2-7B-width training, card against the CPU (fp32)")
+    log("[8/15] Llama-2-7B-width training, card against the CPU (fp32)")
     by_path["llama_parity"] = llama_parity(tpt, fa)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[9/14] Llama-2-7B-width training on the card (4 layers, bf16 AMP)")
+    log("[9/15] Llama-2-7B-width training on the card (4 layers, bf16 AMP)")
     by_path["llama_flagship"], losses = llama_flagship(tpt, fa)
     compare_losses(losses)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[10/14] Llama generation serving on the card (dense and paged KV "
+    log("[10/15] Llama generation serving on the card (dense and paged KV "
         "cache, speculative decoding, prefill / decode roles)")
     by_path["generation_parity"] = generation_parity(tpt, fa)
     by_path["generation"], paged_paths, gen_scope, dense_tokens = \
@@ -6014,7 +6429,7 @@ def main():
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
     t11 = time.perf_counter()
-    log("[11/14] the serving stack: BERT-base through ServingEngine, then "
+    log("[11/15] the serving stack: BERT-base through ServingEngine, then "
         "HTTP with Llama-2-7B generation attached")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_serving_") as wd:
         model_dir, second_dir, gen_second_dir = (
@@ -6037,7 +6452,7 @@ def main():
         pred.close()
         del eng, pred, gen_scope
         t12 = time.perf_counter()
-        log("[12/14] the fleet: BERT-base and Llama-2-7B in replica "
+        log("[12/15] the fleet: BERT-base and Llama-2-7B in replica "
             "processes behind the router")
         FLEET["reserved_gib_before"] = release_card(
             "released phases 10 and 11")
@@ -6055,7 +6470,7 @@ def main():
             f"{time.perf_counter() - t_start:.1f} s in all)")
 
         t13 = time.perf_counter()
-        log("[13/14] the port's load generator and chaos harness: "
+        log("[13/15] the port's load generator and chaos harness: "
             "BERT-base and Llama-2-7B fleets (13a's --url legs ran in "
             "phase 12)")
         by_path["loadgen"] = loadgen_in_process(
@@ -6079,13 +6494,23 @@ def main():
     log(f"  (phase 13 took {CHAOS['phase_s']:.1f} s; "
         f"{time.perf_counter() - t_start:.1f} s in all)")
 
-    log("[14/14] bench.py's seq-512 step under TrainGuard: a NaN, a SIGTERM "
+    log("[14/15] bench.py's seq-512 step under TrainGuard: a NaN, a SIGTERM "
         "and a resume, bit for bit")
     release_card("phase 13 closed")
     by_path["train_guard"] = train_guard_flagship(tpt, fa)
     GUARD["card"] = card
     log("train_guard: " + json.dumps(GUARD))
     log(f"  (phase 14 took {GUARD['phase_s']:.1f} s; "
+        f"{time.perf_counter() - t_start:.1f} s in all)")
+
+    log("[15/15] recompute: bench.py's seq-512 step and a Llama-2-7B-width "
+        "decoder at seq 4096 under Llama-2's recipe, plain against "
+        "recompute, bit for bit")
+    release_card("phase 14 closed")
+    by_path.update(recompute_flagship(tpt, fa, device))
+    RECOMPUTE["card"] = card
+    log("recompute: " + json.dumps(RECOMPUTE))
+    log(f"  (phase 15 took {RECOMPUTE['phase_s']:.1f} s; "
         f"{time.perf_counter() - t_start:.1f} s in all)")
     for key, (wall, busy, idle, launches) in EAGER_PROFILES.items():
         p = PROFILES[key]
@@ -6126,6 +6551,10 @@ def main():
     for i, row in f32_rows.items():
         kernels[i]["f32"] = {x: row[x] for x in (
             "device_ms", "ms", "bound_ms", "library_device_ms")}
+    # the unpacked kernels in bf16 at phase 15b's attention shape
+    for i, name in ((3, "fwd"), (4, "dkv"), (5, "dq")):
+        kernels[i]["seq4096"] = dict(shape=list(RECOMPUTE_ATTN),
+                                     **seq4096[name])
     # the fp32 forward at generation's largest prefill bucket
     kernels[3]["f32_prefill"] = {x: fwd_f32["prefill"][x] for x in (
         "device_ms", "ms", "plain_ms", "bound_ms", "library_device_ms",
@@ -6158,7 +6587,9 @@ def main():
                    [k[x] for x in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms")]
                    + list(k.get("f32", {}).values())
-                   + list(k.get("f32_prefill", {}).values())):
+                   + list(k.get("f32_prefill", {}).values())
+                   + [v for v in k.get("seq4096", {}).values()
+                      if isinstance(v, float)]):
             raise AssertionError(f"non-finite measurement in {k}")
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} never launched on the path")

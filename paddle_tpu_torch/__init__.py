@@ -4,8 +4,9 @@ The same Program/Block/Operator IR, JSON program format, layers, model
 builders, executor and Predictor as the JAX package, with op lowerings
 written in PyTorch and the TPU's Pallas kernels rewritten by hand for
 Hopper (``csrc/``, built with nvcc at first use).  It serves
-(``inference.Predictor``) and trains (``optimizer.AdamOptimizer``,
-``clip``, ``contrib.mixed_precision``) BERT and Llama, generates with
+(``inference.Predictor``) and trains (``optimizer``'s SGD, Adam, AdamW
+and ``RecomputeOptimizer``, ``clip``, ``regularizer``, the LR decays,
+``contrib.mixed_precision``) BERT and Llama, generates with
 Llama over a dense or paged KV cache (``serving.GenerationEngine``), and
 serves both behind the dynamic-batching ``serving.ServingEngine`` and its
 HTTP front end (``serving.serve``).  A training loop survives a NaN, a

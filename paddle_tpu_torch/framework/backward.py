@@ -10,12 +10,16 @@ Gradient accumulation: grad ops carry ``__accumulate__``, so several
 consumers of one forward var sum into the same ``X@GRAD`` value while
 lowering.
 
-Recompute (``checkpoints``) and ``gradients`` / ``calc_gradient`` wait for
-a later slice.
+Recompute (``checkpoints``) re-emits each segment's forward ops before
+its grad ops, as the JAX package does (``_emit_with_recompute``); the
+executor pairs each grad op with the re-emitted copy (ops/registry.py
+``plan_grads``), so only checkpoints and values read across segments
+stay alive from the forward to the backward.  ``gradients`` /
+``calc_gradient`` wait for a later slice.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Set, Tuple
+from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 from ..ops.registry import (build_auto_grad_specs, ensure_grad_op_registered,
                             get_op_def)
@@ -46,10 +50,8 @@ def append_backward(loss: Variable,
                     callbacks=None,
                     checkpoints=None) -> List[Tuple[Variable, Variable]]:
     """Emit backward ops for `loss` into its program; returns
-    [(param, grad_var)]."""
-    if checkpoints:
-        raise NotImplementedError(
-            "append_backward(checkpoints=...): recompute is not ported yet")
+    [(param, grad_var)].  With `checkpoints` (vars or names) the backward
+    recomputes each segment between them (``_emit_with_recompute``)."""
     block = loss.block.program.global_block()
     program = block.program
     no_grad = _collect_no_grad(block, no_grad_set)
@@ -71,9 +73,10 @@ def append_backward(loss: Variable,
                if op.attr("op_role", OpRole.Forward) in
                (OpRole.Forward, OpRole.Forward | OpRole.Loss)]
     grads_available: Set[str] = {loss.name}
-    specs: List[dict] = []
+    emitted: List[Tuple[int, dict]] = []  # (position in fwd_ops, spec)
     helper = GradHelper(block, no_grad)
-    for op in reversed(fwd_ops):
+    for pos in range(len(fwd_ops) - 1, -1, -1):
+        op = fwd_ops[pos]
         if not any(o in grads_available for o in op.output_arg_names()):
             continue
         opdef = get_op_def(op.type)
@@ -87,15 +90,18 @@ def append_backward(loss: Variable,
             spec["attrs"]["op_role"] = OpRole.Backward
             spec["attrs"]["__accumulate__"] = True
             ensure_grad_op_registered(op.type)
-            specs.append(spec)
+            emitted.append((pos, spec))
         for names in op.inputs.values():
             for n in names:
                 v = block._find_var_recursive(n)
                 if v is not None and not v.stop_gradient and n not in no_grad:
                     grads_available.add(n)
-    for spec in specs:
-        block.append_op(spec["type"], inputs=spec["inputs"],
-                        outputs=spec["outputs"], attrs=spec["attrs"])
+    if checkpoints:
+        _emit_with_recompute(block, fwd_ops, emitted, checkpoints)
+    else:
+        for _, spec in emitted:
+            block.append_op(spec["type"], inputs=spec["inputs"],
+                            outputs=spec["outputs"], attrs=spec["attrs"])
 
     # 3. (param, grad) pairs
     if parameter_list is not None:
@@ -116,6 +122,101 @@ def append_backward(loss: Variable,
             params_grads.append((p, g))
     program.bump()
     return params_grads
+
+
+def _emit_with_recompute(block: Block, fwd_ops, emitted, checkpoints):
+    """Segmented backward emission, as the JAX package's (the reference's
+    ``_append_backward_ops_with_checkpoints_``): the forward is cut into
+    segments at the ops producing the checkpoints, and before each
+    segment's grad ops (last segment first) its forward ops are emitted
+    again, role Backward and not shape-inferred, carrying the original's
+    attrs (``__op_seed__`` too, so a dropout draws the same mask).
+
+    Renaming: a segment's outputs that are neither checkpoints nor
+    persistable become ``<name>@RC<k>`` (k the segment), and the
+    re-emitted ops and the grad ops (``__fwd_inputs__`` too) read those;
+    a checkpoint or persistable output of a re-emitted op goes to a
+    discarded ``<name>@RC_DISCARD<n>`` (no second state update);
+    ``@GRAD`` names and ``__fwd_outputs__`` stay as they were, since
+    cotangents are found by the original outputs' grad names."""
+    ckpt_names = [c.name if isinstance(c, Variable) else str(c)
+                  for c in checkpoints]
+    ckpt_set = set(ckpt_names)
+
+    producer_pos: Dict[str, int] = {}
+    for pos, op in enumerate(fwd_ops):
+        for n in op.output_arg_names():
+            producer_pos.setdefault(n, pos)
+    boundaries = sorted({producer_pos[c] for c in ckpt_names
+                         if c in producer_pos})
+    segments = []  # [start, end] position ranges, inclusive
+    start = 0
+    for b in boundaries:
+        segments.append((start, b))
+        start = b + 1
+    if start < len(fwd_ops):
+        segments.append((start, len(fwd_ops) - 1))
+
+    has_grads = {pos for pos, _ in emitted}
+
+    def rename(names, rmap):
+        return [rmap.get(n, n) if "@GRAD" not in n else n for n in names]
+
+    discarded = 0
+    for k in range(len(segments) - 1, -1, -1):
+        s, e = segments[k]
+        seg_ops = fwd_ops[s:e + 1]
+        rmap: Dict[str, str] = {}
+        for op in seg_ops:
+            for n in op.output_arg_names():
+                if not n or n in ckpt_set or n in rmap:
+                    continue
+                v = block._find_var_recursive(n)
+                if v is not None and v.persistable:
+                    continue
+                rmap[n] = f"{n}@RC{k}"
+        if not has_grads.intersection(range(s, e + 1)):
+            continue  # nothing in this segment needs grads
+        for op in seg_ops:
+            new_inputs = {slot: rename(ns, rmap)
+                          for slot, ns in op.inputs.items()}
+            new_outputs = {}
+            for slot, ns in op.outputs.items():
+                outs = []
+                for n in ns:
+                    if n in rmap:
+                        outs.append(rmap[n])
+                    elif n:
+                        discarded += 1
+                        outs.append(f"{n}@RC_DISCARD{discarded}")
+                    else:
+                        outs.append(n)
+                new_outputs[slot] = outs
+            attrs = dict(op.attrs)
+            attrs["op_role"] = OpRole.Backward
+            block.append_op(op.type, inputs=new_inputs,
+                            outputs=new_outputs, attrs=attrs,
+                            infer_shape=False)
+            for slot, ns in op.outputs.items():
+                for n, rn in zip(ns, new_outputs[slot]):
+                    if n and rn != n:
+                        src = block._find_var_recursive(n)
+                        nv = block.create_var(name=rn)
+                        if src is not None:
+                            nv.shape, nv.dtype = src.shape, src.dtype
+                            nv.stop_gradient = src.stop_gradient
+        for pos, spec in emitted:
+            if not s <= pos <= e:
+                continue
+            inputs = {slot: rename(ns, rmap)
+                      for slot, ns in spec["inputs"].items()}
+            attrs = dict(spec["attrs"])
+            if "__fwd_inputs__" in attrs:
+                attrs["__fwd_inputs__"] = {
+                    slot: rename(ns, rmap)
+                    for slot, ns in attrs["__fwd_inputs__"].items()}
+            block.append_op(spec["type"], inputs=inputs,
+                            outputs=spec["outputs"], attrs=attrs)
 
 
 def _written_names(block: Block) -> Set[str]:

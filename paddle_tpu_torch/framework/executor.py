@@ -499,16 +499,19 @@ class CompiledStep:
             {v.name for v in program.list_vars() if v.persistable}
         if guard_loss is not None:
             kept.add(guard_loss)
-        self.keep, self.grad_source, self.dead = plan_grads(ops,
-                                                            reads | kept)
+        self.keep, self.grad_source, self.dead, self.differentiated = \
+            plan_grads(ops, reads | kept)
         free_after: Dict[int, List[str]] = {}
         for n, i in last.items():
             if n not in kept:
                 free_after.setdefault(i, []).append(n)
         self.ops = [(i, op, tuple(free_after.get(i, ()))) for i, op in ops]
-        self.generators: Dict[int, torch.Generator] = {}
+        self.generators: Dict[tuple, torch.Generator] = {}
         self.counters = _counters()
         self.runs = 0
+        # the most forward graphs kept alive at once in the last eager
+        # run (LowerContext.peak_saved)
+        self.peak_kept = 0
         # the captured graph and what it reads and writes in place
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.bound: Dict[str, torch.Tensor] = {}
@@ -540,7 +543,8 @@ class CompiledStep:
                            grad_source=self.grad_source, dead=self.dead,
                            generators=self.generators,
                            in_place=() if guarded else self.mut_in,
-                           seeding=not capture)
+                           seeding=not capture,
+                           differentiated=self.differentiated)
         with torch.no_grad():
             for i, op, free in self.ops:
                 lower_op(ctx, op, i)
@@ -548,6 +552,7 @@ class CompiledStep:
                     _check_outputs(op, env, self.block)
                 for n in free:
                     ctx.free(n)
+            self.peak_kept = ctx.peak_saved
             ok = None
             if guarded:
                 loss = env.get(self.guard_loss)
@@ -637,7 +642,7 @@ class CompiledStep:
         """Seed every generator for a replay at run `step`, as an eager run
         at `step` seeds it (a replay reads each registered generator's
         seed and offset when it starts)."""
-        for op_seed, g in self.generators.items():
+        for (op_seed, _), g in self.generators.items():
             g.manual_seed(run_seed(self.random_seed, step, op_seed))
 
     def _capture(self, feeds, state):

@@ -1,8 +1,11 @@
 """Parameter initializers: append init ops to the startup program.
 
-Counterpart of ``paddle_tpu/framework/initializer.py`` for the ops the
-port lowers (``fill_constant``, ``uniform_random``).  Each initializer
-emits the same op with the same attrs as the JAX package.
+Counterpart of ``paddle_tpu/framework/initializer.py``: Constant, Uniform,
+Normal, TruncatedNormal, Xavier, MSRA and NumpyArray (``fill_constant``,
+``uniform_random``, ``gaussian_random``, ``truncated_gaussian_random``,
+``assign_value``).  Each initializer emits the same op with the same
+attrs as the JAX package; the random ones draw from the op's generator
+(ops/registry.py ``LowerContext.rng``), other numbers than jax.random's.
 """
 from __future__ import annotations
 
@@ -12,8 +15,12 @@ import numpy as np
 
 from .core import Variable, default_startup_program
 
-__all__ = ["Initializer", "Constant", "Uniform", "Xavier",
-           "ConstantInitializer", "UniformInitializer", "XavierInitializer"]
+__all__ = [
+    "Initializer", "Constant", "Uniform", "Normal", "TruncatedNormal",
+    "Xavier", "MSRA", "NumpyArrayInitializer", "ConstantInitializer",
+    "UniformInitializer", "NormalInitializer", "XavierInitializer",
+    "MSRAInitializer", "TruncatedNormalInitializer",
+]
 
 
 class Initializer:
@@ -50,6 +57,36 @@ class UniformInitializer(Initializer):
                    "seed": self.seed})
 
 
+class NormalInitializer(Initializer):
+    def __init__(self, loc=0.0, scale=1.0, seed=0):
+        self.loc, self.scale, self.seed = loc, scale, seed
+
+    def __call__(self, var: Variable, block=None):
+        return _random_init(var, block, "gaussian_random", self.loc,
+                            self.scale, self.seed)
+
+
+class TruncatedNormalInitializer(Initializer):
+    """A normal draw truncated to two standard deviations."""
+
+    def __init__(self, loc=0.0, scale=1.0, seed=0):
+        self.loc, self.scale, self.seed = loc, scale, seed
+
+    def __call__(self, var: Variable, block=None):
+        return _random_init(var, block, "truncated_gaussian_random",
+                            self.loc, self.scale, self.seed)
+
+
+def _random_init(var, block, op_type, mean, std, seed):
+    block = block or default_startup_program().global_block()
+    block.create_var(name=var.name, shape=var.shape, dtype=var.dtype,
+                     persistable=True)
+    return block.append_op(
+        op_type, outputs={"Out": [var.name]},
+        attrs={"shape": list(var.shape), "dtype": var.dtype,
+               "mean": float(mean), "std": float(std), "seed": seed})
+
+
 def _fan_in_out(var: Variable):
     shape = var.shape
     if len(shape) == 2:
@@ -64,25 +101,60 @@ def _fan_in_out(var: Variable):
 
 
 class XavierInitializer(Initializer):
-    """Glorot init.  The normal form emits ``gaussian_random``, which the
-    port does not lower yet."""
+    """Glorot init: uniform over sqrt(6 / (fan_in + fan_out)), or normal
+    with std sqrt(2 / (fan_in + fan_out))."""
 
     def __init__(self, uniform=True, fan_in=None, fan_out=None, seed=0):
         self.uniform, self.fan_in, self.fan_out = uniform, fan_in, fan_out
         self.seed = seed
 
     def __call__(self, var: Variable, block=None):
-        if not self.uniform:
-            raise NotImplementedError(
-                "XavierInitializer(uniform=False) needs gaussian_random, "
-                "which the port does not lower yet")
         fi, fo = _fan_in_out(var)
         fi = self.fan_in if self.fan_in is not None else fi
         fo = self.fan_out if self.fan_out is not None else fo
-        limit = math.sqrt(6.0 / (fi + fo))
-        return UniformInitializer(-limit, limit, self.seed)(var, block)
+        if self.uniform:
+            limit = math.sqrt(6.0 / (fi + fo))
+            return UniformInitializer(-limit, limit, self.seed)(var, block)
+        std = math.sqrt(2.0 / (fi + fo))
+        return NormalInitializer(0.0, std, self.seed)(var, block)
+
+
+class MSRAInitializer(Initializer):
+    """Kaiming-He init from the fan-in: uniform over sqrt(6 / fan_in), or
+    normal with std sqrt(2 / fan_in)."""
+
+    def __init__(self, uniform=True, fan_in=None, seed=0):
+        self.uniform, self.fan_in, self.seed = uniform, fan_in, seed
+
+    def __call__(self, var: Variable, block=None):
+        fi, _ = _fan_in_out(var)
+        fi = self.fan_in if self.fan_in is not None else fi
+        if self.uniform:
+            limit = math.sqrt(6.0 / fi)
+            return UniformInitializer(-limit, limit, self.seed)(var, block)
+        std = math.sqrt(2.0 / fi)
+        return NormalInitializer(0.0, std, self.seed)(var, block)
+
+
+class NumpyArrayInitializer(Initializer):
+    """The parameter set to a given array (``assign_value``)."""
+
+    def __init__(self, value):
+        self.value = np.asarray(value)
+
+    def __call__(self, var: Variable, block=None):
+        block = block or default_startup_program().global_block()
+        block.create_var(name=var.name, shape=var.shape, dtype=var.dtype,
+                         persistable=True)
+        return block.append_op(
+            "assign_value", outputs={"Out": [var.name]},
+            attrs={"shape": list(self.value.shape), "dtype": var.dtype,
+                   "values": self.value.ravel().tolist()})
 
 
 Constant = ConstantInitializer
 Uniform = UniformInitializer
+Normal = NormalInitializer
+TruncatedNormal = TruncatedNormalInitializer
 Xavier = XavierInitializer
+MSRA = MSRAInitializer

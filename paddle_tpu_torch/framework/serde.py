@@ -1,6 +1,7 @@
 """Program (de)serialization — the JSON format of
 ``paddle_tpu/framework/serde.py`` (FORMAT_VERSION 1), so each package
-loads what the other writes."""
+loads what the other writes, training programs (grad ops, recompute's
+re-emitted forwards) included."""
 from __future__ import annotations
 
 import json
@@ -45,6 +46,8 @@ def _restore_attr(v):
 
 
 def program_from_dict(d: dict) -> Program:
+    from ..ops.registry import ensure_grad_op_registered, has_op
+
     if d.get("format_version", 1) > FORMAT_VERSION:
         raise ValueError(
             f"program format {d['format_version']} is newer than this "
@@ -71,6 +74,12 @@ def program_from_dict(d: dict) -> Program:
                     is_data=vd.get("is_data", False),
                     trainable=vd.get("trainable", True))
         for od in bd["ops"]:
+            base = od["type"][:-len("_grad")]
+            if od["type"].endswith("_grad") and has_op(base) and \
+                    not has_op(od["type"]):
+                # an auto-derived grad op: registered where backward
+                # first emits one, so a loaded program registers it
+                ensure_grad_op_registered(base)
             attrs = {k: _restore_attr(v) for k, v in od["attrs"].items()}
             blk.append_op(od["type"], inputs=od["inputs"],
                           outputs=od["outputs"], attrs=attrs,

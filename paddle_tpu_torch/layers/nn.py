@@ -1,7 +1,7 @@
 """Graph-building NN layers: the subset of ``paddle_tpu/layers/nn.py`` on
 the BERT and Llama paths (Llama generation's dense and paged KV-cache
-ops included), with the same arguments, ops and attrs (static graph
-only)."""
+ops, and the LR decays' and clips' pointwise ops, included), with the
+same arguments, ops and attrs (static graph only)."""
 from __future__ import annotations
 
 import numpy as np
@@ -10,28 +10,35 @@ from ..framework.initializer import ConstantInitializer
 from ..framework.layer_helper import LayerHelper
 
 __all__ = ["fc", "layer_norm", "embedding", "flash_attention",
-           "flash_attention_qkv", "dropout", "sqrt", "silu", "mean",
+           "flash_attention_qkv", "dropout", "sqrt", "silu", "exp", "cos",
+           "floor", "ceil", "clip", "clip_by_norm", "mean",
            "rms_norm", "rope", "kv_cache_write", "kv_cache_insert",
            "kv_pool_write", "kv_pool_gather", "cached_attention"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
        act=None, name=None):
-    """Fully-connected layer: flattens input to 2-D at num_flatten_dims,
-    matmuls against a [in, size] weight."""
+    """Fully-connected layer: flattens each input to 2-D at
+    num_flatten_dims and matmuls it against its own [in, size] weight;
+    several inputs' products are added by one ``sum`` op."""
     helper = LayerHelper("fc", name=name)
     inputs = input if isinstance(input, (list, tuple)) else [input]
-    if len(inputs) != 1:
-        raise NotImplementedError("fc over several inputs needs the `sum` "
-                                  "op, which the port does not lower yet")
-    x = inputs[0]
-    in_features = int(np.prod(x.shape[num_flatten_dims:]))
-    w = helper.create_parameter(param_attr, [in_features, size], x.dtype)
-    pre_bias = helper.create_variable_for_type_inference(x.dtype)
-    helper.append_op("mul", inputs={"X": [x], "Y": [w]},
-                     outputs={"Out": [pre_bias]},
-                     attrs={"x_num_col_dims": num_flatten_dims,
-                            "y_num_col_dims": 1})
+    mul_results = []
+    for x in inputs:
+        in_features = int(np.prod(x.shape[num_flatten_dims:]))
+        w = helper.create_parameter(param_attr, [in_features, size], x.dtype)
+        out = helper.create_variable_for_type_inference(x.dtype)
+        helper.append_op("mul", inputs={"X": [x], "Y": [w]},
+                         outputs={"Out": [out]},
+                         attrs={"x_num_col_dims": num_flatten_dims,
+                                "y_num_col_dims": 1})
+        mul_results.append(out)
+    if len(mul_results) == 1:
+        pre_bias = mul_results[0]
+    else:
+        pre_bias = helper.create_variable_for_type_inference(inputs[0].dtype)
+        helper.append_op("sum", inputs={"X": mul_results},
+                         outputs={"Out": [pre_bias]})
     if bias_attr is not False:
         b = helper.create_parameter(bias_attr, [size], pre_bias.dtype,
                                     is_bias=True)
@@ -159,6 +166,26 @@ def _unary(op_type):
 
 sqrt = _unary("sqrt")
 silu = _unary("silu")
+exp = _unary("exp")
+cos = _unary("cos")
+floor = _unary("floor")
+ceil = _unary("ceil")
+
+
+def clip(x, min, max, name=None):
+    helper = LayerHelper("clip", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("clip", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"min": min, "max": max})
+    return out
+
+
+def clip_by_norm(x, max_norm, name=None):
+    helper = LayerHelper("clip_by_norm", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("clip_by_norm", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"max_norm": max_norm})
+    return out
 
 
 def mean(x, name=None):

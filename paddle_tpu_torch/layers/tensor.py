@@ -1,6 +1,6 @@
 """Graph-building tensor layers: the subset of
 ``paddle_tpu/layers/tensor.py`` on the BERT and Llama paths (training
-included), with the same arguments, ops and attrs."""
+and its LR decays included), with the same arguments, ops and attrs."""
 from __future__ import annotations
 
 from ..framework.core import (default_main_program, default_startup_program,
@@ -11,8 +11,10 @@ __all__ = [
     "data", "fill_constant", "create_global_var", "cast", "sums",
     "reshape", "transpose", "squeeze", "unsqueeze", "stack", "slice",
     "gather_nd", "expand", "tile", "range", "argmax", "argmin",
-    "reduce_sum", "elementwise_add", "elementwise_mul", "elementwise_div",
-    "elementwise_max", "less_than", "scale", "increment", "where",
+    "reduce_sum", "elementwise_add", "elementwise_sub", "elementwise_mul",
+    "elementwise_div", "elementwise_max", "elementwise_min",
+    "elementwise_pow", "less_than", "equal", "scale", "pow", "increment",
+    "where", "clip",
 ]
 
 
@@ -106,17 +108,27 @@ def _binary(op_type):
 
 
 elementwise_add = _binary("elementwise_add")
+elementwise_sub = _binary("elementwise_sub")
 elementwise_mul = _binary("elementwise_mul")
 elementwise_div = _binary("elementwise_div")
 elementwise_max = _binary("elementwise_max")
+elementwise_min = _binary("elementwise_min")
+elementwise_pow = _binary("elementwise_pow")
 
 
-def less_than(x, y, cond=None, name=None):
-    helper = LayerHelper("less_than", name=name)
-    out = cond or helper.create_variable_for_type_inference("bool")
-    helper.append_op("less_than", inputs={"X": [x], "Y": [y]},
-                     outputs={"Out": [out]})
-    return out
+def _cmp(op_type):
+    def f(x, y, cond=None, name=None):
+        helper = LayerHelper(op_type, name=name)
+        out = cond or helper.create_variable_for_type_inference("bool")
+        helper.append_op(op_type, inputs={"X": [x], "Y": [y]},
+                         outputs={"Out": [out]})
+        return out
+    f.__name__ = op_type
+    return f
+
+
+less_than = _cmp("less_than")
+equal = _cmp("equal")
 
 
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
@@ -127,6 +139,19 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
                      attrs={"scale": float(scale), "bias": float(bias),
                             "bias_after_scale": bias_after_scale})
     return helper.append_activation(out, act)
+
+
+def pow(x, factor=1.0, name=None):
+    helper = LayerHelper("pow", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("pow", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"factor": factor})
+    return out
+
+
+def clip(x, min, max, name=None):
+    from .nn import clip as _clip
+    return _clip(x, min, max, name)
 
 
 def increment(x, value=1.0, in_place=True):

@@ -99,7 +99,8 @@ def _xla_attention(ctx, op):
     scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
     Sq, Sk = q.shape[-2], k.shape[-2]
     k, v = pad_keys(k, v)
-    s = gemm.product(q, k.transpose(-1, -2)) * scale
+    product = torch.matmul if ctx.differentiates() else gemm.product
+    s = product(q, k.transpose(-1, -2)) * scale
     if bias is not None:
         bias = torch.nn.functional.pad(bias, (0, s.shape[-1] - Sk))
         s = s + bias[:, None, None, :].to(s.dtype)
@@ -118,7 +119,7 @@ def _xla_attention(ctx, op):
         keep = torch.rand(p.shape, generator=ctx.rng(op),
                           device=p.device) < 1.0 - prob
         p = torch.where(keep, p / (1.0 - prob), torch.zeros_like(p))
-    out = gemm.product(p, v)
+    out = product(p, v)
     return out.transpose(1, 2) if bshd else out
 
 

@@ -1,9 +1,12 @@
 """Math / elementwise / reduction / matmul op lowerings in PyTorch.
 
 Counterpart of ``paddle_tpu/ops/math_ops.py`` for the ops on the BERT
-and Llama paths: ``elementwise_add/mul/div/max`` with Paddle ``axis``
-broadcasting, ``less_than``, ``scale``, ``mul``, ``gelu``, ``relu``, ``silu``,
-``sqrt``, ``cast``, ``reduce_sum``, ``mean`` and ``sum``.  ``mul``'s
+and Llama paths: ``elementwise_add/sub/mul/div/max/min/pow`` with Paddle
+``axis`` broadcasting, ``less_than``, ``equal``, ``scale``, ``mul``,
+``gelu``, ``relu``, ``silu``, ``sqrt``, ``exp``, ``cos``, ``floor``,
+``ceil``, ``sign``, ``pow``, ``cast``, ``reduce_sum``, ``mean`` and
+``sum``; and for the training recipe (LR decays, clips, L1 decay)
+``clip``, ``clip_by_norm`` and ``global_norm_sq``.  ``mul``'s
 row results must not depend on how many rows it has (generation's cached
 decode against the uncached forward, tolerance 0).  On the card a
 float32 product that no grad op differentiates runs the hand-written
@@ -73,9 +76,12 @@ def _make_ew(op_type, fn):
 
 
 _make_ew("elementwise_add", lambda x, y: x + y)
+_make_ew("elementwise_sub", lambda x, y: x - y)
 _make_ew("elementwise_mul", lambda x, y: x * y)
 _make_ew("elementwise_div", lambda x, y: x / y)
 _make_ew("elementwise_max", torch.maximum)
+_make_ew("elementwise_min", torch.minimum)
+_make_ew("elementwise_pow", torch.pow)
 
 
 # ---------------------------------------------------------------------------
@@ -90,10 +96,15 @@ def _cmp_infer(op: Operator, block: Block):
     set_out(op, block, "Out", shape, "bool")
 
 
-@register_op("less_than", infer=_cmp_infer, grad=None)
-def _less_than(ctx: LowerContext, op: Operator):
-    x, y = _promote(ctx.get_input(op, "X"), ctx.get_input(op, "Y"))
-    ctx.set_output(op, "Out", x < y)
+def _make_cmp(op_type, fn):
+    def lower(ctx: LowerContext, op: Operator):
+        x, y = _promote(ctx.get_input(op, "X"), ctx.get_input(op, "Y"))
+        ctx.set_output(op, "Out", fn(x, y))
+    register_op(op_type, infer=_cmp_infer, lower=lower, grad=None)
+
+
+_make_cmp("less_than", lambda x, y: x < y)
+_make_cmp("equal", lambda x, y: x == y)
 
 
 # ---------------------------------------------------------------------------
@@ -119,9 +130,50 @@ def _silu(ctx: LowerContext, op: Operator):
     ctx.set_output(op, "Out", F.silu(ctx.get_input(op, "X")))
 
 
-@register_op("sqrt", infer=same_as_input())
-def _sqrt(ctx: LowerContext, op: Operator):
-    ctx.set_output(op, "Out", torch.sqrt(ctx.get_input(op, "X")))
+def _make_unary(op_type, fn, grad="auto"):
+    def lower(ctx: LowerContext, op: Operator):
+        ctx.set_output(op, "Out", fn(ctx.get_input(op, "X"), op))
+    register_op(op_type, infer=same_as_input(), lower=lower, grad=grad)
+
+
+_make_unary("sqrt", lambda x, op: torch.sqrt(x))
+_make_unary("exp", lambda x, op: torch.exp(x))
+_make_unary("cos", lambda x, op: torch.cos(x))
+_make_unary("floor", lambda x, op: torch.floor(x))
+_make_unary("ceil", lambda x, op: torch.ceil(x))
+_make_unary("sign", lambda x, op: torch.sign(x), grad=None)
+_make_unary("clip", lambda x, op: torch.clamp(
+    x, op.attr("min", float("-inf")), op.attr("max", float("inf"))))
+
+
+@register_op("pow", infer=same_as_input())
+def _pow(ctx: LowerContext, op: Operator):
+    x = ctx.get_input(op, "X")
+    factor = op.attr("factor", 1.0)
+    if op.single_input("FactorTensor"):
+        factor = ctx.get_input(op, "FactorTensor")
+    ctx.set_output(op, "Out", torch.pow(x, factor))
+
+
+@register_op("clip_by_norm", infer=same_as_input())
+def _clip_by_norm(ctx: LowerContext, op: Operator):
+    """X scaled by max_norm / ||X|| where its L2 norm exceeds max_norm."""
+    x = ctx.get_input(op, "X")
+    max_norm = op.attr("max_norm", 1.0)
+    norm = torch.sqrt(torch.sum(x * x))
+    ctx.set_output(op, "Out",
+                   torch.where(norm > max_norm, x * (max_norm / norm), x))
+
+
+@register_op("global_norm_sq", infer=lambda op, block: set_out(
+    op, block, "Out", (), "float32"))
+def _global_norm_sq(ctx: LowerContext, op: Operator):
+    """sum_i ||X_i||^2 over every input, as one float32 dot product of
+    their concatenation (the JAX package's formulation; the clip's
+    ``PT_FUSED_GLOBAL_CLIP=1`` opt-in)."""
+    flat = torch.cat([x.float().reshape(-1)
+                      for x in ctx.get_inputs(op, "X")])
+    ctx.set_output(op, "Out", torch.dot(flat, flat))
 
 
 def _cast_infer(op: Operator, block: Block):
@@ -161,7 +213,8 @@ def _mul_infer(op: Operator, block: Block):
             x.dtype)
 
 
-def _cpu_product(x2: torch.Tensor, y2: torch.Tensor) -> torch.Tensor:
+def _cpu_product(x2: torch.Tensor, y2: torch.Tensor,
+                 differentiated: bool) -> torch.Tensor:
     """A product the kernel does not take.  On the CPU a float32 one that
     no grad op differentiates and whose K spans more than one of the
     kernel's chunks is summed as the kernel sums it, chunk partials
@@ -171,7 +224,7 @@ def _cpu_product(x2: torch.Tensor, y2: torch.Tensor) -> torch.Tensor:
     serving batch's rows would depend on its batchmates."""
     if (x2.device.type == "cpu" and x2.dtype == torch.float32
             and y2.dtype == torch.float32 and x2.shape[-1] > gemm.K_CHUNK
-            and not (x2.requires_grad or y2.requires_grad)):
+            and not differentiated):
         return gemm.matmul(x2, y2)
     return torch.matmul(x2, y2)
 
@@ -184,15 +237,18 @@ def _mul(ctx: LowerContext, op: Operator):
     xs, ys = tuple(x.shape), tuple(y.shape)
     x2 = x.reshape(math.prod(xs[:xd]), -1)
     y2 = y.reshape(math.prod(ys[:yd]), -1)
-    if gemm.routes(x2, y2):
+    # an original forward that recompute re-emits is differentiated
+    # through its copy: both take the training product
+    differentiated = ctx.differentiates()
+    if gemm.routes(x2, y2) and not differentiated:
         out = gemm.matmul(x2, y2)
     elif x2.shape[0] == 1:
         # one row takes a GEMV path that sums in another order than the
         # rows of a longer product (the uncached forward's); a decode
         # step over one slot computes it as the first of two rows
-        out = _cpu_product(torch.cat([x2, x2]), y2)[:1]
+        out = _cpu_product(torch.cat([x2, x2]), y2, differentiated)[:1]
     else:
-        out = _cpu_product(x2, y2)
+        out = _cpu_product(x2, y2, differentiated)
     ctx.set_output(op, "Out", out.reshape(xs[:xd] + ys[yd:]))
 
 

@@ -63,7 +63,7 @@ def _rms_norm(ctx, op):
     x = ctx.get_input(op, "X")
     scale = ctx.get_input(op, "Scale")
     eps = op.attr("epsilon", 1e-6)
-    if rms_norm.routes(x, scale):
+    if rms_norm.routes(x, scale) and not ctx.differentiates():
         ctx.set_output(op, "Y", rms_norm.rms_norm_rows(x, scale, eps))
         return
     xf = x.float()

@@ -15,6 +15,7 @@ captured CUDA graph.
 from __future__ import annotations
 
 import copy
+import re
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
@@ -37,19 +38,27 @@ class LowerContext:
     ``_amp_lowering`` ({"dtype", "white", "black"}) or None.
 
     What the executor's compiled step adds (``plan_grads`` builds the
-    first three):
+    first four):
 
     * ``keep``: forward op index -> the input names its grad op
       differentiates.  Such an op runs under autograd on detached leaves
       of those inputs, and its graph is kept in ``saved`` for its grad op
-      (no forward recompute).
+      (no second forward, unless the program itself re-emits it: under
+      recompute the kept op is the re-emitted copy).
     * ``grad_source``: grad op index -> (its forward's index, whether this
       grad op is the last to read the kept graph).
     * ``dead``: grad outputs that no op reads, no fetch names and no
       state holds; they are not computed.
-    * ``generators``: op seed -> torch.Generator, owned by the caller so
-      that a captured graph keeps them registered (see ``rng``);
-      ``seeding`` False leaves their seeds to the caller (a capture).
+    * ``differentiated``: the forward ops whose values a grad op
+      differentiates: those in ``keep`` and, under recompute, the
+      originals of the re-emitted ops in it.  Ops that pick their
+      kernel by whether a grad op reads them (``mul`` and ``rms_norm`` on
+      the card, ``mul`` on the CPU) ask ``differentiates()``, so an
+      original and its re-emitted copy compute the same bits.
+    * ``generators``: (op seed, draw) -> torch.Generator, owned by the
+      caller so that a captured graph keeps them registered (see
+      ``rng``); ``seeding`` False leaves their seeds to the caller (a
+      capture).
     * ``in_place``: the scope state this run may write into (the
       entry's state read and rebound; empty under the non-finite guard).
       A state output (``set_state``) whose input is one of them is
@@ -62,7 +71,7 @@ class LowerContext:
                  device: torch.device, random_seed: int = 0,
                  is_test: bool = False, step: int = 0, amp=None,
                  keep=None, grad_source=None, dead=(), generators=None,
-                 in_place=(), seeding: bool = True):
+                 in_place=(), seeding: bool = True, differentiated=()):
         self.block = block
         self.env = env
         self.device = torch.device(device)
@@ -73,10 +82,11 @@ class LowerContext:
         self.keep: Dict[int, Sequence[str]] = keep or {}
         self.grad_source: Dict[int, tuple] = grad_source or {}
         self.dead = frozenset(dead)
-        self.generators: Dict[int, torch.Generator] = \
+        self.differentiated = frozenset(differentiated)
+        self.generators: Dict[tuple, torch.Generator] = \
             {} if generators is None else generators
         self.seeding = seeding
-        self.seeded: set = set()  # op seeds whose generator this run seeded
+        self.draws: Dict[int, int] = {}  # op seed -> its draws this run
         self.in_place = frozenset(in_place)
         self.op_index = -1  # the index in block.ops of the op lowering now
         # (name, dtype) -> (source tensor, cast): one AMP cast per tensor
@@ -85,8 +95,10 @@ class LowerContext:
         # id(value) -> (value, detached leaf) shared by the kept forwards
         # that differentiate the same value
         self.leaves: Dict[int, tuple] = {}
-        # forward op index -> (leaf by input name, output by name)
+        # forward op index -> (leaf by input name, output by original
+        # name); the most graphs kept at once this run
         self.saved: Dict[int, tuple] = {}
+        self.peak_saved = 0
 
     def get(self, name: str):
         if name not in self.env:
@@ -135,25 +147,35 @@ class LowerContext:
             if hit is not None:
                 self.leaves.pop(id(hit[1]), None)
 
+    def differentiates(self) -> bool:
+        """Whether a grad op differentiates the op lowering now (see
+        ``differentiated``)."""
+        return self.op_index in self.differentiated
+
     def rng(self, op: Operator) -> torch.Generator:
-        """The op's generator on the context's device, made at its first
-        draw in ``generators``.  At the first draw of a run it is seeded
-        from the program's random seed, the run count (``step``) and the
-        op's build-time ``__op_seed__`` alone (``run_seed``; the JAX
-        package folds the same three into its key), so a run draws what
-        any executor draws at that run count, whatever run its entry
-        first ran at: a resumed run draws the masks of the run it
-        resumes.  Later draws in the same run continue the stream.  A
-        captured entry's generators are registered with its CUDA graph
-        and seeded by the executor before each replay (``seeding``
-        False here); a grad op reads its forward's mask from the kept
-        graph."""
+        """A generator for the op's draw on the context's device, made at
+        its first use in ``generators``.  Every draw of an op seed in a
+        run gets its own generator, keyed (op seed, n-th draw of that
+        seed in the run), seeded from the program's random seed, the run
+        count (``step``) and the op's build-time ``__op_seed__`` alone
+        (``run_seed``; the JAX package folds the same three into its
+        key).  So every draw of one op seed in a run gives the same
+        numbers, as the JAX package's key does: a forward op re-emitted
+        by recompute (which keeps the original's ``__op_seed__``) draws
+        the original's mask.  And a run draws what any executor draws at
+        that run count, whatever run its entry first ran at: a resumed
+        run draws the masks of the run it resumes.  A captured entry's
+        generators are registered with its CUDA graph and seeded by the
+        executor before each replay (``seeding`` False here); a grad op
+        reads its forward's mask from the kept graph."""
         seed = int(op.attr("__op_seed__", 0))
-        g = self.generators.get(seed)
+        n = self.draws.get(seed, 0)
+        self.draws[seed] = n + 1
+        g = self.generators.get((seed, n))
         if g is None:
-            g = self.generators[seed] = torch.Generator(device=self.device)
-        if self.seeding and seed not in self.seeded:
-            self.seeded.add(seed)
+            g = self.generators[(seed, n)] = torch.Generator(
+                device=self.device)
+        if self.seeding:
             g.manual_seed(run_seed(self.random_seed, self.step, seed))
         return g
 
@@ -161,6 +183,17 @@ class LowerContext:
 def run_seed(random_seed: int, step: int, op_seed: int) -> int:
     """The seed of an op's generator at run `step`."""
     return hash((int(random_seed), int(step), int(op_seed))) % (1 << 63)
+
+
+# the suffixes append_backward(checkpoints=...) gives a re-emitted
+# forward op's outputs (framework/backward.py)
+_RECOMPUTED = re.compile(r"@RC(?:_DISCARD)?\d+$")
+
+
+def original_name(name: str) -> str:
+    """`name` without a recompute suffix: the forward output a re-emitted
+    op's output stands for (its grad op names the original)."""
+    return _RECOMPUTED.sub("", name)
 
 
 class OpDef:
@@ -312,7 +345,9 @@ def _lower_kept(ctx: LowerContext, opdef: "OpDef", op: Operator,
         opdef.lower(sub, op)
     outs = {n: env[n] for n in op.output_arg_names() if n in env}
     ctx.env.update(outs)
-    ctx.saved[ctx.op_index] = ({n: env[n] for n in primals}, outs)
+    ctx.saved[ctx.op_index] = ({n: env[n] for n in primals},
+                               {original_name(n): v for n, v in outs.items()})
+    ctx.peak_saved = max(ctx.peak_saved, len(ctx.saved))
 
 
 def lower_op(ctx: LowerContext, op: Operator, index: int = -1):
@@ -521,21 +556,32 @@ def _frozen(slots: Dict[str, List[str]]) -> tuple:
 
 def plan_grads(ops: Sequence[tuple], live: set) -> tuple:
     """The grad side of a compiled step over `ops` ((index, op) pairs of
-    one block): (keep, grad_source, dead) as ``LowerContext`` takes
-    them.  `live` holds every name some op reads, a fetch names or the
-    state holds; an auto-derived grad op's output outside it is dead.
-    Each auto-derived grad op with a live output is paired with its
-    forward op (same type, inputs and outputs, earlier in the block),
-    which then keeps its graph for the inputs whose grads are live.
-    Raises for a grad op whose forward is not in the block."""
-    forward_at = {(op.type, _frozen(op.inputs), _frozen(op.outputs)): i
-                  for i, op in ops}
+    one block): (keep, grad_source, dead, differentiated) as
+    ``LowerContext`` takes them.  `live` holds every name some op reads,
+    a fetch names or the state holds; an auto-derived grad op's output
+    outside it is dead.  Each auto-derived grad op with a live output is
+    paired with the latest op before it of its forward's type, inputs
+    and outputs, which then keeps its graph for the inputs whose grads
+    are live.  A forward re-emitted by recompute has the inputs the
+    grad op's ``__fwd_inputs__`` name and its outputs renamed
+    (``@RC<k>``, ``@RC_DISCARD<n>``) where the grad op names the
+    originals, so outputs are compared by ``original_name``: the grad op
+    pairs with the re-emitted copy, and the original keeps no graph.
+    Raises for a grad op whose forward is not before it in the block."""
+    forward_at: Dict[tuple, int] = {}
+    writes: Dict[int, tuple] = {}  # op index -> (type, original outputs)
+    first_at: Dict[tuple, int] = {}  # the first op of each such pair
     keep: Dict[int, set] = {}
     pairs = []
     dead = set()
     for i, op in ops:
         opdef = _REGISTRY.get(op.type)
         if opdef is None or opdef.lower is not _lower_auto_grad:
+            outs = _frozen({k: [original_name(n) for n in v]
+                            for k, v in op.outputs.items()})
+            forward_at[(op.type, _frozen(op.inputs), outs)] = i
+            writes[i] = (op.type, outs)
+            first_at.setdefault(writes[i], i)
             continue
         dead.update(n for n in op.output_arg_names()
                     if n and n not in live)
@@ -545,7 +591,7 @@ def plan_grads(ops: Sequence[tuple], live: set) -> tuple:
         fwd_inputs = op.attr("__fwd_inputs__")
         f = forward_at.get((op.attr("__fwd_type__"), _frozen(fwd_inputs),
                             _frozen(op.attr("__fwd_outputs__"))))
-        if f is None or f >= i:
+        if f is None:
             raise RuntimeError(
                 f"grad op {op.type!r} (index {i}) has no forward op before "
                 f"it in its block; the port differentiates the autograd "
@@ -555,8 +601,10 @@ def plan_grads(ops: Sequence[tuple], live: set) -> tuple:
         pairs.append((i, f))
     last = {f: i for i, f in pairs}
     grad_source = {i: (f, last[f] == i) for i, f in pairs}
+    # a kept forward and its original (itself unless re-emitted)
+    differentiated = set(keep) | {first_at[writes[f]] for f in keep}
     return ({f: frozenset(names) for f, names in keep.items()},
-            grad_source, frozenset(dead))
+            grad_source, frozenset(dead), frozenset(differentiated))
 
 
 def infer_auto_grad(gop: Operator, block: Block):

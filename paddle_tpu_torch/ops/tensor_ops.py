@@ -1,7 +1,8 @@
 """Tensor creation / manipulation op lowerings in PyTorch.
 
 Counterpart of ``paddle_tpu/ops/tensor_ops.py`` for the ops on the BERT
-and Llama paths: ``fill_constant``, ``fill_any_like``, ``uniform_random``,
+and Llama paths: ``fill_constant``, ``fill_any_like``, ``assign_value``,
+``uniform_random``, ``gaussian_random``, ``truncated_gaussian_random``,
 ``range``, ``reshape2``/``transpose2``, ``squeeze2``/``unsqueeze2``,
 ``slice``, ``tile``, ``lookup_table_v2``, ``where``, ``arg_max`` /
 ``arg_min`` (generation's greedy pick) and, for the masked-gather MLM
@@ -11,6 +12,8 @@ package leaves layout to XLA.  Randomness comes from a per-op ``torch.Generator`
 draws other numbers than jax.random from the same seed.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -58,6 +61,25 @@ def _fill_any_like(ctx: LowerContext, op: Operator):
                                          dtype=dtype, device=x.device))
 
 
+@register_op("assign_value", infer=_fill_infer, grad=None)
+def _assign_value(ctx, op):
+    """A constant from the op's attrs (the first of ``fp32_values``,
+    ``int32_values``, ``int64_values``, ``bool_values``, ``values`` that
+    is set), reshaped to ``shape``; zeros where none is."""
+    dtype = dtype_to_torch(op.attr("dtype", "float32"))
+    shape = tuple(op.attr("shape", []))
+    for key in ("fp32_values", "int32_values", "int64_values", "bool_values",
+                "values"):
+        vals = op.attr(key)
+        if vals is not None and (not isinstance(vals, list) or vals):
+            arr = np.asarray(vals).reshape(shape)
+            ctx.set_output(op, "Out", torch.as_tensor(
+                arr, device=ctx.device).to(dtype))
+            return
+    ctx.set_output(op, "Out", torch.zeros(shape, dtype=dtype,
+                                          device=ctx.device))
+
+
 def _range_infer(op, block):
     # shape only known statically when start/end/step are attrs
     try:
@@ -83,6 +105,37 @@ def _uniform_random(ctx, op):
     u = torch.rand(shape, generator=ctx.rng(op), dtype=torch.float32,
                    device=ctx.device)
     ctx.set_output(op, "Out", (u * (hi - lo) + lo).to(dtype))
+
+
+@register_op("gaussian_random", infer=_fill_infer, grad=None)
+def _gaussian_random(ctx, op):
+    dtype = dtype_to_torch(op.attr("dtype", "float32"))
+    shape = tuple(op.attr("shape", []))
+    mean, std = op.attr("mean", 0.0), op.attr("std", 1.0)
+    z = torch.randn(shape, generator=ctx.rng(op), dtype=torch.float32,
+                    device=ctx.device)
+    ctx.set_output(op, "Out", (z * std + mean).to(dtype))
+
+
+# the standard normal's CDF at -2 and 2, as erf(x / sqrt 2) bounds
+_TRUNC_LO, _TRUNC_HI = math.erf(-2.0 / math.sqrt(2.0)), \
+    math.erf(2.0 / math.sqrt(2.0))
+
+
+@register_op("truncated_gaussian_random", infer=_fill_infer, grad=None)
+def _truncated_gaussian_random(ctx, op):
+    """A normal draw truncated to two standard deviations, by the inverse
+    CDF of a uniform draw over [-2, 2]'s share of it (jax.random's
+    ``truncated_normal`` method), then scaled by std and shifted by
+    mean."""
+    dtype = dtype_to_torch(op.attr("dtype", "float32"))
+    shape = tuple(op.attr("shape", []))
+    mean, std = op.attr("mean", 0.0), op.attr("std", 1.0)
+    u = torch.rand(shape, generator=ctx.rng(op), dtype=torch.float32,
+                   device=ctx.device)
+    z = math.sqrt(2.0) * torch.erfinv(u * (_TRUNC_HI - _TRUNC_LO) + _TRUNC_LO)
+    z = torch.clamp(z, -2.0, 2.0)
+    ctx.set_output(op, "Out", (z * std + mean).to(dtype))
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,10 @@
 """Static-graph optimizers: ``Optimizer``, ``SGDOptimizer``,
-``AdamOptimizer`` and ``AdamW``.
+``AdamOptimizer``, ``AdamW`` and ``RecomputeOptimizer``.
 
-Counterpart of ``paddle_tpu/optimizer.py:34-152``, ``:217-227`` and
-``:323-384``.
-``minimize(loss)`` = append_backward + clip + regularization + one
+Counterpart of ``paddle_tpu/optimizer.py:34-152``, ``:217-227``,
+``:323-384`` and ``:604-641``.
+``minimize(loss)`` = append_backward + clip (the optimizer's, else the
+program's from ``clip.set_gradient_clip``) + regularization + one
 optimizer op per parameter, with the accumulators (moments, beta powers)
 as persistable vars filled by the startup program.  The dygraph branches,
 ``state_dict`` and the other optimizers wait for later slices.
@@ -19,7 +20,7 @@ from .framework.initializer import ConstantInitializer
 from .regularizer import append_regularization_ops
 
 __all__ = ["Optimizer", "SGD", "SGDOptimizer", "Adam", "AdamOptimizer",
-           "AdamW"]
+           "AdamW", "RecomputeOptimizer"]
 
 
 class Optimizer:
@@ -77,8 +78,21 @@ class Optimizer:
                                no_grad_set, callbacks)
 
     def apply_gradients(self, params_grads: List[Tuple[Variable, Variable]]):
-        if self._grad_clip is not None:
-            params_grads = self._grad_clip(params_grads)
+        clip = self._grad_clip
+        if clip is None:
+            # the program's default from clip.set_gradient_clip, over its
+            # parameter list where it has one
+            program = default_main_program()
+            clip = getattr(program, "_gradient_clip", None)
+            only = getattr(program, "_gradient_clip_params", None)
+            if clip is not None and only:
+                keep = [(p, g) for p, g in params_grads if p.name in only]
+                rest = [(p, g) for p, g in params_grads
+                        if p.name not in only]
+                params_grads = clip(keep) + rest
+                clip = None
+        if clip is not None:
+            params_grads = clip(params_grads)
         params_grads = append_regularization_ops(params_grads,
                                                  self.regularization)
         return self.apply_optimize(params_grads)
@@ -178,6 +192,47 @@ class AdamW(AdamOptimizer):
                 not self._apply_decay_param_fun(param.name):
             op.attrs["with_decay"] = False
         return op
+
+
+class RecomputeOptimizer:
+    """Activation recompute around an inner optimizer: set checkpoints
+    with ``_set_checkpoints([...vars...])``, then ``minimize``; the
+    backward re-emits each segment between checkpoints
+    (``append_backward(checkpoints=...)``).  Any other attribute is the
+    inner optimizer's."""
+
+    def __init__(self, optimizer):
+        self.inner_optimizer = optimizer
+        self._checkpoints = None
+
+    def _set_checkpoints(self, checkpoints):
+        self._checkpoints = list(checkpoints)
+
+    def backward(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None, callbacks=None):
+        if not self._checkpoints:
+            raise ValueError("RecomputeOptimizer: call _set_checkpoints "
+                             "before minimize (reference semantics)")
+        return append_backward(loss,
+                               parameter_list or
+                               self.inner_optimizer._parameter_list,
+                               no_grad_set, callbacks,
+                               checkpoints=self._checkpoints)
+
+    def apply_gradients(self, params_grads):
+        return self.inner_optimizer.apply_gradients(params_grads)
+
+    def apply_optimize(self, loss, startup_program, params_grads):
+        return self.apply_gradients(params_grads)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        params_grads = self.backward(loss, startup_program, parameter_list,
+                                     no_grad_set)
+        return self.apply_gradients(params_grads), params_grads
+
+    def __getattr__(self, item):
+        return getattr(self.__dict__["inner_optimizer"], item)
 
 
 SGD = SGDOptimizer

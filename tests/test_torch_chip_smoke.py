@@ -901,3 +901,175 @@ def test_guard_phase_rehearses_on_the_cpu(monkeypatch):
     assert g["sigterm_to_exit_ms"] >= 0 and g["train_guard_resume_ms"] > 0
     assert g["replay_ms_telemetry_on"] > 0 and g["peak_after_reset_gib"] < \
         g["peak_gib"]
+
+
+# phase 15: recompute and Llama-2's recipe
+TINY_BERT = dict(vocab_size=97, hidden=128, num_layers=3, num_heads=2,
+                 intermediate=256, batch_size=2, seq_len=32,
+                 max_predictions=5)
+TINY_LLAMA = dict(vocab_size=97, hidden=64, num_heads=4, num_kv_heads=2,
+                  intermediate=128, num_layers=3, batch_size=2, seq_len=32)
+
+
+def _built(build):
+    import paddle_tpu_torch as tpt
+    with tpt.program_guard(tpt.Program(), tpt.Program()):
+        return build()
+
+
+def test_recompute_phase_runs_the_published_configurations():
+    """15a is bench.py's flagship step; 15b Llama-2-7B's widths at 4 of
+    its layers, batch 2 at Llama-2's 4096 context, under Llama-2's
+    recipe (AdamW beta2 0.95, eps 1e-5, weight decay 0.1, warmup then
+    cosine, global-norm clip 1.0)."""
+    assert smoke.LLAMA_RECIPE == dict(smoke.LLAMA, num_layers=4,
+                                      batch_size=2, seq_len=4096)
+    assert smoke.LLAMA["hidden"] == 4096 and smoke.LLAMA["num_heads"] == 32
+    r = smoke.RECIPE
+    assert (r["beta1"], r["beta2"], r["epsilon"], r["weight_decay"],
+            r["clip_norm"]) == (0.9, 0.95, 1e-5, 0.1, 1.0)
+    assert smoke.RECOMPUTE_ATTN == (1, 32, 4096, 128)
+    assert smoke.RECOMPUTE_SAVING == 3 * 2 ** 30
+
+
+def test_checkpoint_finders_pick_each_layer_output():
+    """bert_checkpoints: each encoder layer's output (its second
+    layer_norm); llama_checkpoints: each block's input and the final
+    norm's; both walk a built program."""
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch.models import build_bert_pretrain, build_llama_train
+
+    tpt.reset_unique_name()
+    _, outs = _built(lambda: build_bert_pretrain(dropout=0.1, **TINY_BERT))
+    main = outs["loss"].block.program
+    cks = smoke.bert_checkpoints(main)
+    assert len(cks) == TINY_BERT["num_layers"]
+    ops = main.global_block().ops
+    writer = {n: op for op in ops for n in op.output_arg_names()}
+    norms = [op.output("Y")[0] for op in ops if op.type == "layer_norm"]
+    # the embeddings' norm, then two a layer: the layers' second ones
+    assert cks == norms[2:2 * TINY_BERT["num_layers"] + 1:2]
+    for name in cks:
+        add = writer[writer[name].input("X")[0]]
+        assert add.type == "elementwise_add"
+
+    tpt.reset_unique_name()
+    _, outs = _built(lambda: build_llama_train(**TINY_LLAMA))
+    main = outs["loss"].block.program
+    cks = smoke.llama_checkpoints(main)
+    assert len(cks) == TINY_LLAMA["num_layers"] + 1
+    ops = main.global_block().ops
+    writer = {n: op for op in ops for n in op.output_arg_names()}
+    assert writer[cks[0]].type == "lookup_table_v2"
+    assert all(writer[n].type == "elementwise_add" for n in cks[1:])
+
+
+def test_recipe_lrs_follow_the_schedule_on_the_cpu():
+    """The host formula against the port's warmup-over-cosine program,
+    run on the CPU: warmup 0 then 1.5e-4, then the cosine from its third
+    step, within RECIPE_LR_ATOL."""
+    import paddle_tpu_torch as tpt
+
+    r = smoke.RECIPE
+    main, startup = tpt.Program(), tpt.Program()
+    startup._is_startup = True
+    with tpt.program_guard(main, startup):
+        lr = tpt.layers.linear_lr_warmup(
+            tpt.layers.cosine_decay(r["peak_lr"], r["step_each_epoch"],
+                                    r["epochs"]),
+            r["warmup_steps"], 0.0, r["peak_lr"])
+    exe, scope = tpt.Executor(tpt.CPUPlace()), tpt.Scope()
+    exe.run(startup, scope=scope)
+    got = [float(np.ravel(exe.run(main, fetch_list=[lr], scope=scope)[0])[0])
+           for _ in range(8)]
+    want = smoke.recipe_lrs(8)
+    assert want[0] == 0.0 and abs(want[1] - 1.5e-4) < 1e-12
+    assert abs(want[2] - 0.5 * r["peak_lr"] * (1 + math.cos(math.pi / 3))) \
+        < 1e-10
+    np.testing.assert_allclose(got, want, rtol=0, atol=smoke.RECIPE_LR_ATOL)
+    assert got[:2] == [0.0, float(want[1])]
+
+
+def test_recompute_phase_rehearses_on_the_cpu(monkeypatch):
+    """recompute_flagship on the CPU at tiny widths: 15a and 15b each run
+    plain then recompute from their startup state and must come out bit
+    for bit equal (dropout 0.1 in 15a), the LRs follow the host formula;
+    the kernel counts, the profile, the capture and the card's memory
+    are stubbed (no card here)."""
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch import device
+    from paddle_tpu_torch.framework import executor
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    cpu = torch.device("cpu")
+    for mod in (device, executor):
+        monkeypatch.setattr(mod, "resolve_device", lambda place=None: cpu)
+    for name in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda *a: 0)
+
+    class Props:
+        total_memory = 80 * 10 ** 9
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda *a: Props)
+    info = executor.Executor.cache_info
+
+    def captured(self):
+        out = info(self)
+        for e in out["entries"]:
+            e["aot"] = True
+        return out
+    monkeypatch.setattr(executor.Executor, "cache_info", captured)
+    monkeypatch.setattr(smoke, "FLAGSHIP", TINY_BERT)
+    monkeypatch.setattr(smoke, "LLAMA_RECIPE", TINY_LLAMA)
+    monkeypatch.setattr(smoke, "RECOMPUTE_SAVING", 0)
+    monkeypatch.setattr(smoke, "read_counts",
+                        lambda fa: (smoke.Launches((0,) * 6), 0, 0))
+    wants = []
+    real_want = smoke.per_step_launches
+
+    def want(main):
+        wants.append(real_want(main))
+        return (0,) * 6
+    monkeypatch.setattr(smoke, "per_step_launches", want)
+    monkeypatch.setattr(smoke, "profiled_launches",
+                        lambda call, fa, what, key, strict: smoke.PROFILES
+                        .__setitem__(key, dict(idle=None, call=call())))
+    monkeypatch.setattr(smoke, "RECOMPUTE", {})
+    monkeypatch.setattr(smoke, "log", lambda msg: None)
+    paths = smoke.recompute_flagship(tpt, fa, cpu)
+    assert sorted(paths) == ["recompute_bert", "recompute_bert_plain",
+                             "recompute_llama", "recompute_llama_plain"]
+    nb, nl = TINY_BERT["num_layers"], TINY_LLAMA["num_layers"]
+    assert wants == [(nb, nb, nb, 0, 0, 0), (2 * nb, nb, nb, 0, 0, 0),
+                     (0, 0, 0, nl, nl, nl), (0, 0, 0, 2 * nl, nl, nl)]
+    r = smoke.RECOMPUTE
+    assert r["bert"]["plain"]["losses"] == r["bert"]["recompute"]["losses"]
+    assert r["llama"]["lrs"] == pytest.approx(
+        [float(x) for x in smoke.recipe_lrs(smoke.RECOMPUTE_STEPS)],
+        abs=smoke.RECIPE_LR_ATOL)
+    assert r["llama"]["deepest_layers_recompute"] > 0
+
+
+def test_lenient_profile_reports_lost_records_as_not_measured(monkeypatch):
+    """profiled_launches(..., strict=False): where every profile's
+    launches fall short of the counters' (records lost), the device
+    numbers are not measured and nothing raises; strict, it raises."""
+    counts = iter(range(100))
+    monkeypatch.setattr(smoke, "read_counts", lambda fa: (
+        smoke.Launches((next(counts),) + (0,) * 5), 0, 0))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(smoke, "log", lambda msg: None)
+    monkeypatch.setattr(smoke, "PROFILES", {})
+
+    def call():
+        a = torch.randn(64, 64)
+        return a @ a
+
+    smoke.profiled_launches(call, None, "a replay", "lost", strict=False)
+    p = smoke.PROFILES["lost"]
+    assert p["idle"] is None and p["busy_ms"] is None
+    assert len(p["lost_records"]) == smoke.PROFILE_TRIES
+    with pytest.raises(AssertionError, match="differ from the counters"):
+        smoke.profiled_launches(call, None, "a replay", "lost")
