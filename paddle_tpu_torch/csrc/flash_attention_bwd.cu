@@ -5,11 +5,12 @@
 //   * the dK/dV entries replace `_fp_dkv_kernel` (pt_flash_attention_
 //     packed_bwd_dkv; :611, launched by `_packed_backward` at :745) and
 //     `_fa_dkv_kernel` (pt_flash_attention_bwd_dkv; :226, launched by
-//     `_flash_backward` at :342): fa_dkv_tc_kernel in bfloat16,
-//     fa_dkv_f32_kernel in float32.
+//     `_flash_backward` at :342): fa_dkv_tc_kernel in bfloat16 and
+//     float16, fa_dkv_f32_kernel in float32.
 //   * the dQ entries replace `_fp_dq_kernel` (pt_flash_attention_packed_
 //     bwd_dq; :686) and `_fa_dq_kernel` (pt_flash_attention_bwd_dq; :292):
-//     fa_dq_tc_kernel in bfloat16, fa_dq_f32_kernel in float32.
+//     fa_dq_tc_kernel in bfloat16 and float16, fa_dq_f32_kernel in
+//     float32.
 //
 // All read q [B, nh, Sq, D], k and v [B, nh, Sk, D], dO [B, nh, Sq, D]
 // through per-tensor batch, head and row strides (the last dim contiguous:
@@ -36,9 +37,10 @@
 //
 // Design (a block runs alone on Hopper, so a loop inside the block takes
 // the place of the TPU's sequential grid axis):
-//   * dK/dV, bfloat16 (fa_dkv_tc_kernel, tensor cores): one block of 256
-//     threads per (128-key tile, head, batch), so each key row is owned by
-//     one block (no atomics, deterministic): two warpgroups of 64 keys.
+//   * dK/dV, bfloat16 and float16 (fa_dkv_tc_kernel<T, D>, tensor cores,
+//     one code for either 16-bit type T): one block of 256 threads per
+//     (128-key tile, head, batch), so each key row is owned by one block
+//     (no atomics, deterministic): two warpgroups of 64 keys.
 //     The K and V tiles are loaded once by TMA and stay in 128B-swizzled
 //     shared memory; the 64-row Q and dO tiles stream through a three-stage
 //     TMA ring, from the diagonal q tile on when causal, each stage with
@@ -54,7 +56,7 @@
 //     alike) and dS^T = P^T * (dP^T - delta[q]) in fp32 registers (the keys
 //     are the rows, so each thread loads its two keys' bias once per block
 //     and reads lse and delta from shared memory at use), rounds P^T and
-//     dS^T to bf16 in registers (the accumulator layout is wgmma's
+//     dS^T to T in registers (the accumulator layout is wgmma's
 //     A-fragment layout) and accumulates dV += P^T dO and dK += dS^T Q with
 //     wgmma (dO and Q read MN-major from the same stage through the
 //     transpose bit).  The bias gradient's row sums are taken from the fp32
@@ -77,18 +79,23 @@
 //     columns of dK and dV; P^T and dS^T reach the second products through
 //     a warp-private strip.  The bias gradient's sums stay in registers,
 //     reduced by shuffles once at the end.  See namespace f32 below.
-//   * dQ, bfloat16 (fa_dq_tc_kernel, tensor cores): one block of 288
-//     threads per (128-row q tile, head, batch), so each q row is owned by
-//     one block (no atomics, deterministic): two consumer warpgroups of 64
-//     rows and a producer warp.  The producer loads Q and dO once and
-//     streams 64-key K and V tiles through a two-stage TMA ring (hopper.cuh).
+//   * dQ, bfloat16 and float16 (fa_dq_tc_kernel<T, D>, tensor cores): one
+//     block of 288 threads per (128-row q tile, head, batch), so each q
+//     row is owned by one block (no atomics, deterministic): two consumer
+//     warpgroups of 64 rows and a producer warp.  The producer loads Q and
+//     dO once and streams 64-key K and V tiles through a two-stage TMA ring
+//     (hopper.cuh).
 //     Per tile a warpgroup computes S = Q K^T and dP = dO V^T with wgmma
 //     (operands in shared memory), P = exp(S * scale + bias - lse) and
-//     dS = P * (dP - delta) in fp32 registers, rounds dS to bf16 in
+//     dS = P * (dP - delta) in fp32 registers, rounds dS to T in
 //     registers and accumulates dQ += dS K with wgmma (K read MN-major from
 //     the same shared tile through the transpose bit).  dQ stays in fp32
-//     registers; the epilogue writes dq * scale in bf16.  Causal q tiles run
-//     longest first.
+//     registers; the epilogue writes dq * scale in T.  In float16 both
+//     kernels round dS * scale instead and write dq and dk unscaled
+//     (kFold): float16 stops at 65504, and a loss-scaled dS alone can pass
+//     it where dq and dk are still finite.  Inf and NaN are never clamped
+//     or masked: an overflow in dO, q, k or v reaches dq, dk and dv, so
+//     the loss scaler sees it.  Causal q tiles run longest first.
 //   * dQ, float32 (fa_dq_f32_kernel): one block of 8 warps per (q tile,
 //     head, batch), each warp owning 16 q rows at D 64 (128-row tiles) and
 //     8 at D 128 (64-row tiles), whose q * scale and dO rows stay in
@@ -114,6 +121,7 @@
 // FMAs (no TF32): the fp32 gates hold the port to the CPU at 1e-4.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -702,18 +710,27 @@ namespace tc {
 
 using namespace hopper::attn;
 
+// float16 folds the softmax scale into dS before rounding it to an A
+// fragment (dq = (dS scale) K, dk = (dS scale)^T Q), so the rounded dS
+// is no larger than what the outputs themselves hold: dS alone can pass
+// 65504 under a large loss scale where dq and dk, a factor 1/sqrt(D)
+// smaller, are still finite.  bfloat16 has float32's range and keeps its
+// product order (its outputs stay bit-identical).
+template <typename T>
+constexpr bool kFold = hopper::kIsF16<T>;
+
 // Shared memory: the Q and dO tiles, the K/V ring, its barriers, and slack
 // to align the tiles to 1024 bytes.
 template <int D>
 constexpr int kDqSmem =
     2 * kRowTile<D> + Ring<D>::kBytes + Ring<D>::kBarBytes + 1024;
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1)
 fa_dq_tc_kernel(const __grid_constant__ hopper::TmaMaps<4> maps,
                 const float* __restrict__ bias, const float* __restrict__ lse,
-                const float* __restrict__ delta,
-                __nv_bfloat16* __restrict__ dq, const BwdShape a) {
+                const float* __restrict__ delta, T* __restrict__ dq,
+                const BwdShape a) {
   constexpr int kQ = kRowTile<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = hopper::align1024(smem_raw);
@@ -762,12 +779,14 @@ fa_dq_tc_kernel(const __grid_constant__ hopper::TmaMaps<4> maps,
       hopper::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        hopper::wgmma_ss_n64(s, hopper::desc_k_step(qs, kBM, kk),
-                             hopper::desc_k_step(ring.k(t), kBN, kk), kk > 0);
+        hopper::wgmma_ss_n64<T>(s, hopper::desc_k_step(qs, kBM, kk),
+                                hopper::desc_k_step(ring.k(t), kBN, kk),
+                                kk > 0);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        hopper::wgmma_ss_n64(dp, hopper::desc_k_step(dos, kBM, kk),
-                             hopper::desc_k_step(ring.v(t), kBN, kk), kk > 0);
+        hopper::wgmma_ss_n64<T>(dp, hopper::desc_k_step(dos, kBM, kk),
+                                hopper::desc_k_step(ring.v(t), kBN, kk),
+                                kk > 0);
       hopper::wgmma_commit();
       hopper::wgmma_wait_all();
       hopper::fence_regs(s);
@@ -793,22 +812,28 @@ fa_dq_tc_kernel(const __grid_constant__ hopper::TmaMaps<4> maps,
           }
         }
 
-      // dS in bf16 as wgmma A fragments: 16 keys per fragment
+      // dS in T as wgmma A fragments: 16 keys per fragment.  float16
+      // takes dS * scale (kFold), so that it overflows 65504 only where
+      // dq itself would
       uint32_t ds[kBN / 16][4];
 #pragma unroll
       for (int kk = 0; kk < kBN / 16; ++kk)
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
-          ds[kk][r] =
-              hopper::pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+        for (int r = 0; r < 4; ++r) {
+          const float lo = s[8 * kk + 2 * r], hi = s[8 * kk + 2 * r + 1];
+          if constexpr (kFold<T>)
+            ds[kk][r] = hopper::pack16<T>(lo * a.scale, hi * a.scale);
+          else
+            ds[kk][r] = hopper::pack16<T>(lo, hi);
+        }
 
       // dQ += dS K
       hopper::fence_regs(acc);
       hopper::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBN / 16; ++kk)
-        hopper::wgmma_rs<D>(acc, ds[kk],
-                            hopper::desc_mn_step(ring.k(t), kBN, kk));
+        hopper::wgmma_rs<T, D>(acc, ds[kk],
+                               hopper::desc_mn_step(ring.k(t), kBN, kk));
       hopper::wgmma_commit();
       hopper::wgmma_wait_all();
       hopper::fence_regs(acc);
@@ -816,13 +841,14 @@ fa_dq_tc_kernel(const __grid_constant__ hopper::TmaMaps<4> maps,
     ring.release(t);
   }
 
-  // epilogue: dq * scale in bf16 through the strides
-  const float mul[2] = {a.scale, a.scale};
-  store_bf16<D>(dq + f.b * a.dql.b + f.h * a.dql.h, a.dql.s, Sq, row0, quad,
+  // epilogue: dq (times scale unless folded) in T through the strides
+  const float sc = kFold<T> ? 1.f : a.scale;
+  const float mul[2] = {sc, sc};
+  store16<T, D>(dq + f.b * a.dql.b + f.h * a.dql.h, a.dql.s, Sq, row0, quad,
                 acc, mul);
 }
 
-template <int D>
+template <typename T, int D>
 int launch_dq(const Call& c, cudaStream_t stream) {
   const BwdShape& a = c.a;
   const int nh = a.num_heads;
@@ -832,17 +858,17 @@ int launch_dq(const Call& c, cudaStream_t stream) {
                           {c.k, a.Sk, a.kl, kBN},
                           {c.v, a.Sk, a.vl, kBN},
                           {c.dout, a.Sq, a.dol, kBM}};
-  const int err = encode_maps(&maps, ops, D, nh, c.B);
+  const int err = encode_maps<T>(&maps, ops, D, nh, c.B);
   if (err) return err;
   constexpr int smem = kDqSmem<D>;
   static const cudaError_t attr = hopper::set_smem_limit(
-      fa_dq_tc_kernel<D>, smem);
+      fa_dq_tc_kernel<T, D>, smem);
   if (attr != cudaSuccess) return (int)attr;
   dim3 grid(c.B * nh, (a.Sq + kBM - 1) / kBM);
-  fa_dq_tc_kernel<D><<<grid, kThreads, smem, stream>>>(
+  fa_dq_tc_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       maps, static_cast<const float*>(c.bias),
       static_cast<const float*>(c.lse), static_cast<const float*>(c.delta),
-      static_cast<__nv_bfloat16*>(c.dq), a);
+      static_cast<T*>(c.dq), a);
   return (int)cudaGetLastError();
 }
 
@@ -858,7 +884,7 @@ constexpr int kDkvThreads = 2 * 128;                 // two warpgroups
 template <int D>
 using QRing = hopper::KvRing<D, kQRows, kQStages>;
 
-// K and V (kKeys x D bf16 each), the ring, its stats (lse and delta,
+// K and V (kKeys x D 16-bit values each), the ring, its stats (lse and delta,
 // kQRows floats each a stage), its barriers, and alignment slack.
 template <int D>
 constexpr int kKvTile = kKeys * D * 2;
@@ -867,13 +893,13 @@ template <int D>
 constexpr int kDkvSmem = 2 * kKvTile<D> + QRing<D>::kBytes + kStatBytes +
                          QRing<D>::kBarBytes + 1024;
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kDkvThreads, 1)
 fa_dkv_tc_kernel(const __grid_constant__ hopper::TmaMaps<4> maps,
                  const float* __restrict__ bias, const float* __restrict__ lse,
-                 const float* __restrict__ delta,
-                 __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                 float* __restrict__ dbias_heads, const BwdShape a) {
+                 const float* __restrict__ delta, T* __restrict__ dk,
+                 T* __restrict__ dv, float* __restrict__ dbias_heads,
+                 const BwdShape a) {
   constexpr int kKV = kKvTile<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = hopper::align1024(smem_raw);
@@ -955,13 +981,14 @@ fa_dkv_tc_kernel(const __grid_constant__ hopper::TmaMaps<4> maps,
       hopper::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        hopper::wgmma_ss_n64(s, hopper::desc_k_step(ks, kKeys, kk),
-                             hopper::desc_k_step(qs, kQRows, kk), kk > 0);
+        hopper::wgmma_ss_n64<T>(s, hopper::desc_k_step(ks, kKeys, kk),
+                                hopper::desc_k_step(qs, kQRows, kk), kk > 0);
       hopper::wgmma_commit();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        hopper::wgmma_ss_n64(dp, hopper::desc_k_step(vs, kKeys, kk),
-                             hopper::desc_k_step(dos, kQRows, kk), kk > 0);
+        hopper::wgmma_ss_n64<T>(dp, hopper::desc_k_step(vs, kKeys, kk),
+                                hopper::desc_k_step(dos, kQRows, kk),
+                                kk > 0);
       hopper::wgmma_commit();
       hopper::wgmma_wait<1>();
       hopper::fence_regs(s);
@@ -1004,16 +1031,20 @@ fa_dkv_tc_kernel(const __grid_constant__ hopper::TmaMaps<4> maps,
           }
         }
 
-      // P^T and dS^T in bf16 as wgmma A fragments, 16 q rows each
+      // P^T and dS^T in T as wgmma A fragments, 16 q rows each; float16
+      // takes dS^T * scale (kFold, after the bias-gradient sums)
       uint32_t pf[kQRows / 16][4], dsf[kQRows / 16][4];
 #pragma unroll
       for (int kk = 0; kk < kQRows / 16; ++kk)
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
           pf[kk][r] =
-              hopper::pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
-          dsf[kk][r] =
-              hopper::pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+              hopper::pack16<T>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+          const float lo = dp[8 * kk + 2 * r], hi = dp[8 * kk + 2 * r + 1];
+          if constexpr (kFold<T>)
+            dsf[kk][r] = hopper::pack16<T>(lo * a.scale, hi * a.scale);
+          else
+            dsf[kk][r] = hopper::pack16<T>(lo, hi);
         }
 
       // dV += P^T dO, dK += dS^T Q
@@ -1022,12 +1053,12 @@ fa_dkv_tc_kernel(const __grid_constant__ hopper::TmaMaps<4> maps,
       hopper::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kQRows / 16; ++kk)
-        hopper::wgmma_rs<D>(dva, pf[kk],
-                            hopper::desc_mn_step(dos, kQRows, kk));
+        hopper::wgmma_rs<T, D>(dva, pf[kk],
+                               hopper::desc_mn_step(dos, kQRows, kk));
 #pragma unroll
       for (int kk = 0; kk < kQRows / 16; ++kk)
-        hopper::wgmma_rs<D>(dka, dsf[kk],
-                            hopper::desc_mn_step(qs, kQRows, kk));
+        hopper::wgmma_rs<T, D>(dka, dsf[kk],
+                               hopper::desc_mn_step(qs, kQRows, kk));
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_regs(dva);
@@ -1040,12 +1071,14 @@ fa_dkv_tc_kernel(const __grid_constant__ hopper::TmaMaps<4> maps,
     if (warp == 0 && i + kQStages - 1 < n) fill(i + kQStages - 1);
   }
 
-  // epilogue: dk * scale and dv in bf16 through the strides; each key's
-  // bias gradient summed over its quad, written by one thread
-  const float one[2] = {1.f, 1.f}, sc[2] = {a.scale, a.scale};
-  store_bf16<D>(dv + b * a.dvl.b + h * a.dvl.h, a.dvl.s, Sk, row0, quad,
+  // epilogue: dk (times scale unless folded) and dv in T through the
+  // strides; each key's bias gradient summed over its quad, written by one
+  // thread
+  const float k_mul = kFold<T> ? 1.f : a.scale;
+  const float one[2] = {1.f, 1.f}, sc[2] = {k_mul, k_mul};
+  store16<T, D>(dv + b * a.dvl.b + h * a.dvl.h, a.dvl.s, Sk, row0, quad,
                 dva, one);
-  store_bf16<D>(dk + b * a.dkl.b + h * a.dkl.h, a.dkl.s, Sk, row0, quad,
+  store16<T, D>(dk + b * a.dkl.b + h * a.dkl.h, a.dkl.s, Sk, row0, quad,
                 dka, sc);
   if (dbias_heads) {
 #pragma unroll
@@ -1060,7 +1093,7 @@ fa_dkv_tc_kernel(const __grid_constant__ hopper::TmaMaps<4> maps,
   }
 }
 
-template <int D>
+template <typename T, int D>
 int launch_dkv(const Call& c, cudaStream_t stream) {
   const BwdShape& a = c.a;
   const int nh = a.num_heads;
@@ -1071,25 +1104,26 @@ int launch_dkv(const Call& c, cudaStream_t stream) {
                           {c.k, a.Sk, a.kl, kKeys},
                           {c.v, a.Sk, a.vl, kKeys},
                           {c.dout, a.Sq, a.dol, kQRows}};
-  const int err = encode_maps(&maps, ops, D, nh, c.B);
+  const int err = encode_maps<T>(&maps, ops, D, nh, c.B);
   if (err) return err;
   constexpr int smem = kDkvSmem<D>;
   static const cudaError_t attr = hopper::set_smem_limit(
-      fa_dkv_tc_kernel<D>, smem);
+      fa_dkv_tc_kernel<T, D>, smem);
   if (attr != cudaSuccess) return (int)attr;
   dim3 grid(c.B * nh, (a.Sk + kKeys - 1) / kKeys);
-  fa_dkv_tc_kernel<D><<<grid, kDkvThreads, smem, stream>>>(
+  fa_dkv_tc_kernel<T, D><<<grid, kDkvThreads, smem, stream>>>(
       maps, static_cast<const float*>(c.bias),
       static_cast<const float*>(c.lse), static_cast<const float*>(c.delta),
-      static_cast<__nv_bfloat16*>(c.dk), static_cast<__nv_bfloat16*>(c.dv),
+      static_cast<T*>(c.dk), static_cast<T*>(c.dv),
       static_cast<float*>(c.dbias_heads), a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace tc
 
-// which: 0 = dK/dV, 1 = dQ.  dtype: 0 = float32, 1 = bfloat16.  bfloat16
-// runs the tensor-core kernels (fa_dkv_tc_kernel, fa_dq_tc_kernel), float32
+// which: 0 = dK/dV, 1 = dQ.  dtype: 0 = float32, 1 = bfloat16, 2 =
+// float16.  bfloat16 and float16 run the tensor-core kernels
+// (fa_dkv_tc_kernel<T, D>, fa_dq_tc_kernel<T, D>), float32
 // the CUDA-core ones (fa_dkv_f32_kernel, fa_dq_f32_kernel) in blocks of 8
 // warps: at D 64 as 4 row groups x 8 column groups (16 rows a warp, 128 a
 // block), at D 128 as 2 x 16 (8 rows a warp, 64 a block), where 4 x 16
@@ -1102,13 +1136,21 @@ int run(const Call& c, int which, int dtype, void* stream) {
   if (which == 0) {
     if (dtype == 0 && c.D == 64) return f32::launch_dkv<64, 4>(c, st);
     if (dtype == 0 && c.D == 128) return f32::launch_dkv<128, 2>(c, st);
-    if (dtype == 1 && c.D == 64) return tc::launch_dkv<64>(c, st);
-    if (dtype == 1 && c.D == 128) return tc::launch_dkv<128>(c, st);
+    if (dtype == 1 && c.D == 64)
+      return tc::launch_dkv<__nv_bfloat16, 64>(c, st);
+    if (dtype == 1 && c.D == 128)
+      return tc::launch_dkv<__nv_bfloat16, 128>(c, st);
+    if (dtype == 2 && c.D == 64) return tc::launch_dkv<__half, 64>(c, st);
+    if (dtype == 2 && c.D == 128) return tc::launch_dkv<__half, 128>(c, st);
   } else {
     if (dtype == 0 && c.D == 64) return f32::launch_dq<64, 4>(c, st);
     if (dtype == 0 && c.D == 128) return f32::launch_dq<128, 2>(c, st);
-    if (dtype == 1 && c.D == 64) return tc::launch_dq<64>(c, st);
-    if (dtype == 1 && c.D == 128) return tc::launch_dq<128>(c, st);
+    if (dtype == 1 && c.D == 64)
+      return tc::launch_dq<__nv_bfloat16, 64>(c, st);
+    if (dtype == 1 && c.D == 128)
+      return tc::launch_dq<__nv_bfloat16, 128>(c, st);
+    if (dtype == 2 && c.D == 64) return tc::launch_dq<__half, 64>(c, st);
+    if (dtype == 2 && c.D == 128) return tc::launch_dq<__half, 128>(c, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1123,8 +1165,7 @@ Call packed_call(const void* qkv, const void* bias, const void* dout,
   const long long row = 3LL * H;
   const Layout in{(long long)S * row, D, row};
   const Layout dl{(long long)S * H, D, H};
-  const size_t col = (size_t)H * (dtype == 1 ? sizeof(__nv_bfloat16)
-                                             : sizeof(float));
+  const size_t col = (size_t)H * (dtype == 0 ? sizeof(float) : 2);
   const char* x = static_cast<const char*>(qkv);
   char* dx = static_cast<char*>(dqkv);
   return Call{x, x + col, x + 2 * col, dout, bias, lse, delta,
@@ -1154,7 +1195,8 @@ Call unpacked_call(const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// Packed QKV.  dtype: 0 = float32, 1 = bfloat16.  bias is float32 [B, S]
+// Packed QKV.  dtype: 0 = float32, 1 = bfloat16, 2 = float16.  bias is
+// float32 [B, S]
 // or null; dbias_heads is float32 [B, num_heads, S] or null (no bias
 // grad).  Each returns the cudaError_t of its launch (0 = success).
 int pt_flash_attention_packed_bwd_dkv(const void* qkv, const void* bias,

@@ -28,19 +28,24 @@
 //
 // run() picks the kernel by dtype, for both entries:
 //
-//   * bfloat16: fa_fwd_tc_kernel, on the tensor cores.  One block of 288
-//     threads per (128-row q tile, head, batch): two consumer warpgroups of
-//     64 rows each and one producer warp.  The producer issues every load
-//     as a TMA copy (hopper.cuh): the Q tile once, then 64-key K and V tiles
-//     through a two-stage ring of 128B-swizzled shared memory gated by
-//     mbarriers, so the next tile is in flight while the current one is
-//     computed.  A consumer warpgroup computes S = Q K^T with wgmma (both
-//     operands in shared memory, fp32 accumulators in registers), applies
-//     scale, bias and masks and the online-softmax update to its registers
-//     (a row lives in the four threads of a quad: two shuffles reduce it),
-//     rounds P to bf16 in registers and accumulates O += P V with wgmma (A
-//     from registers, V read MN-major through the transpose bit).  The
-//     epilogue writes O / l in bf16 through the strides and lse in float32.
+//   * bfloat16 and float16: fa_fwd_tc_kernel<T, D>, on the tensor cores
+//     (the same code for either 16-bit type T; hopper.cuh's Half16).  One
+//     block of 288 threads per (128-row q tile, head, batch): two consumer
+//     warpgroups of 64 rows each and one producer warp.  The producer
+//     issues every load as a TMA copy (hopper.cuh): the Q tile once, then
+//     64-key K and V tiles through a two-stage ring of 128B-swizzled shared
+//     memory gated by mbarriers, so the next tile is in flight while the
+//     current one is computed.  A consumer warpgroup computes S = Q K^T
+//     with wgmma (both operands in shared memory, fp32 accumulators in
+//     registers), applies scale, bias and masks and the online-softmax
+//     update to its registers (a row lives in the four threads of a quad:
+//     two shuffles reduce it), rounds P to T in registers and accumulates
+//     O += P V with wgmma (A from registers, V read MN-major through the
+//     transpose bit).  The epilogue writes O / l in T through the strides
+//     and lse in float32.
+//     Inf and NaN in q, k or v pass through the max, the exponentials and
+//     both products into out (nothing is clamped), as in the plain
+//     version, so a float16 overflow upstream reaches the loss scaler.
 //     Causal q tiles run longest first (the grid's y index is reversed), so
 //     the short tiles fill the tail.  Shared memory: 32 KB of Q and 2 x 32
 //     KB of K/V at D 128.
@@ -79,6 +84,7 @@
 // causal grid.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -419,7 +425,8 @@ int launch(const FwdPtrs& p, const FwdShape& a, int B, cudaStream_t stream) {
 }  // namespace f32
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor cores (wgmma), TMA loads, warp specialisation
+// bfloat16 and float16: tensor cores (wgmma), TMA loads, warp
+// specialisation
 // ---------------------------------------------------------------------------
 
 namespace tc {
@@ -432,12 +439,11 @@ template <int D>
 constexpr int kSmem =
     kRowTile<D> + Ring<D>::kBytes + Ring<D>::kBarBytes + 1024;
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1)
 fa_fwd_tc_kernel(const __grid_constant__ hopper::TmaMaps<3> maps,
-                 const float* __restrict__ bias,
-                 __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                 const FwdShape a) {
+                 const float* __restrict__ bias, T* __restrict__ out,
+                 float* __restrict__ lse, const FwdShape a) {
   constexpr int kQ = kRowTile<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = hopper::align1024(smem_raw);
@@ -476,8 +482,9 @@ fa_fwd_tc_kernel(const __grid_constant__ hopper::TmaMaps<3> maps,
       hopper::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        hopper::wgmma_ss_n64(s, hopper::desc_k_step(qs, kBM, kk),
-                             hopper::desc_k_step(ring.k(t), kBN, kk), kk > 0);
+        hopper::wgmma_ss_n64<T>(s, hopper::desc_k_step(qs, kBM, kk),
+                                hopper::desc_k_step(ring.k(t), kBN, kk),
+                                kk > 0);
       hopper::wgmma_commit();
       hopper::wgmma_wait_all();
       hopper::fence_regs(s);
@@ -530,22 +537,23 @@ fa_fwd_tc_kernel(const __grid_constant__ hopper::TmaMaps<3> maps,
         }
       }
 
-      // P in bf16 as wgmma A fragments: 16 keys per fragment
+      // P in T as wgmma A fragments: 16 keys per fragment (P in [0, 1]:
+      // float16 keeps 2**-24 and up, finer than bfloat16 above 2**-14)
       uint32_t p[kBN / 16][4];
 #pragma unroll
       for (int kk = 0; kk < kBN / 16; ++kk)
 #pragma unroll
         for (int r = 0; r < 4; ++r)
           p[kk][r] =
-              hopper::pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+              hopper::pack16<T>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
 
       // O += P V
       hopper::fence_regs(o);
       hopper::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBN / 16; ++kk)
-        hopper::wgmma_rs<D>(o, p[kk],
-                            hopper::desc_mn_step(ring.v(t), kBN, kk));
+        hopper::wgmma_rs<T, D>(o, p[kk],
+                               hopper::desc_mn_step(ring.v(t), kBN, kk));
       hopper::wgmma_commit();
       hopper::wgmma_wait_all();
       hopper::fence_regs(o);
@@ -553,7 +561,7 @@ fa_fwd_tc_kernel(const __grid_constant__ hopper::TmaMaps<3> maps,
     ring.release(t);
   }
 
-  // epilogue: O / l in bf16 through the strides, lse in float32
+  // epilogue: O / l in T through the strides, lse in float32
   float inv[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -566,11 +574,11 @@ fa_fwd_tc_kernel(const __grid_constant__ hopper::TmaMaps<3> maps,
       lse[((long long)f.b * a.num_heads + f.h) * Sq + row] =
           m[i] + logf(fmaxf(li, 1e-30f));
   }
-  store_bf16<D>(out + f.b * a.ol.b + f.h * a.ol.h, a.ol.s, Sq, row0, quad, o,
+  store16<T, D>(out + f.b * a.ol.b + f.h * a.ol.h, a.ol.s, Sq, row0, quad, o,
                 inv);
 }
 
-template <int D>
+template <typename T, int D>
 int launch(const FwdPtrs& p, const FwdShape& a, int B, cudaStream_t stream) {
   if (!pairs_aligned(p.out, a.ol)) return (int)cudaErrorMisalignedAddress;
   hopper::TmaMaps<3> maps;
@@ -578,22 +586,23 @@ int launch(const FwdPtrs& p, const FwdShape& a, int B, cudaStream_t stream) {
   const Operand ops[3] = {{p.q, a.Sq, a.ql, kBM},
                           {p.k, a.Sk, a.kl, kBN},
                           {p.v, a.Sk, a.vl, kBN}};
-  const int err = encode_maps(&maps, ops, D, nh, B);
+  const int err = encode_maps<T>(&maps, ops, D, nh, B);
   if (err) return err;
   constexpr int smem = kSmem<D>;
   static const cudaError_t attr = hopper::set_smem_limit(
-      fa_fwd_tc_kernel<D>, smem);
+      fa_fwd_tc_kernel<T, D>, smem);
   if (attr != cudaSuccess) return (int)attr;
   dim3 grid(B * nh, (a.Sq + kBM - 1) / kBM);
-  fa_fwd_tc_kernel<D><<<grid, kThreads, smem, stream>>>(
-      maps, static_cast<const float*>(p.bias),
-      static_cast<__nv_bfloat16*>(p.out), static_cast<float*>(p.lse), a);
+  fa_fwd_tc_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+      maps, static_cast<const float*>(p.bias), static_cast<T*>(p.out),
+      static_cast<float*>(p.lse), a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace tc
 
-// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16, 2 = float16 (tensor
+// cores).
 int run(int dtype, int D, const FwdPtrs& p, const FwdShape& a, int B,
         void* stream) {
   if (B <= 0 || a.Sq <= 0 || a.Sk <= 0 || a.num_heads <= 0)
@@ -601,8 +610,12 @@ int run(int dtype, int D, const FwdPtrs& p, const FwdShape& a, int B,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 64) return f32::launch<64>(p, a, B, st);
   if (dtype == 0 && D == 128) return f32::launch<128>(p, a, B, st);
-  if (dtype == 1 && D == 64) return tc::launch<64>(p, a, B, st);
-  if (dtype == 1 && D == 128) return tc::launch<128>(p, a, B, st);
+  if (dtype == 1 && D == 64)
+    return tc::launch<__nv_bfloat16, 64>(p, a, B, st);
+  if (dtype == 1 && D == 128)
+    return tc::launch<__nv_bfloat16, 128>(p, a, B, st);
+  if (dtype == 2 && D == 64) return tc::launch<__half, 64>(p, a, B, st);
+  if (dtype == 2 && D == 128) return tc::launch<__half, 128>(p, a, B, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -611,8 +624,9 @@ int run(int dtype, int D, const FwdPtrs& p, const FwdShape& a, int B,
 extern "C" {
 
 
-// Packed QKV.  dtype: 0 = float32, 1 = bfloat16.  bias is float32 [B, S]
-// or null.  Returns the cudaError_t of the launch (0 = success).
+// Packed QKV.  dtype: 0 = float32, 1 = bfloat16, 2 = float16.  bias is
+// float32 [B, S] or null.  Returns the cudaError_t of the launch (0 =
+// success).
 int pt_flash_attention_packed_fwd(const void* qkv, const void* bias,
                                   void* out, void* lse, int B, int S, int H,
                                   int num_heads, int causal, float scale,
@@ -623,8 +637,7 @@ int pt_flash_attention_packed_fwd(const void* qkv, const void* bias,
   const Layout in{(long long)S * row, D, row};
   const Layout ol{(long long)S * H, D, H};
   const char* base = static_cast<const char*>(qkv);
-  const size_t col = (size_t)H * (dtype == 1 ? sizeof(__nv_bfloat16)
-                                             : sizeof(float));
+  const size_t col = (size_t)H * (dtype == 0 ? sizeof(float) : 2);
   const FwdPtrs p{base, base + col, base + 2 * col, bias, out, lse};
   const FwdShape a{in, in, in, ol, S, S, num_heads, causal, scale};
   return run(dtype, D, p, a, B, stream);
@@ -634,7 +647,7 @@ int pt_flash_attention_packed_fwd(const void* qkv, const void* bias,
 // strides: 12 element strides, (batch, head, row) of q, k, v and out in
 // that order; every last dim is contiguous.  bias is float32 [B, Sk] or
 // null; lse float32 [B, nh, Sq].  dtype as above.  q, k and v are read in
-// 16-byte pieces (TMA in bfloat16, cp.async in float32): their addresses
+// 16-byte pieces (TMA in 16 bits, cp.async in float32): their addresses
 // and byte strides must be multiples of 16, and in float32 out's too
 // (cudaErrorMisalignedAddress otherwise).
 int pt_flash_attention_fwd(const void* q, const void* k, const void* v,

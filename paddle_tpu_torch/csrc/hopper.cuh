@@ -2,12 +2,18 @@
 // flash_attention_fwd.cu and flash_attention_bwd.cu: TMA tensor maps and
 // loads, cp.async (also the fp32 forward's 16-byte copies), mbarriers, the
 // launch-side shared-memory limit, and warpgroup matrix multiplies (wgmma) on
-// bf16 tiles held in 128-byte-swizzled shared memory; then the frame the
+// 16-bit tiles held in 128-byte-swizzled shared memory; then the frame the
 // kernels share (tile sizes, block and thread coordinates, q-tile loads,
-// the bf16 epilogue, the launch-side maps).  Raw PTX, no CUTLASS/CuTe, so
+// the 16-bit epilogue, the launch-side maps).  Raw PTX, no CUTLASS/CuTe, so
 // a source builds in seconds.
 //
-// Shared-memory tiles.  TMA writes a box of 64 bf16 columns (128 bytes, the
+// The tensor-core kernels are templates on their 16-bit element type T,
+// bfloat16 or float16 (Half16 below).  Both are 2 bytes, so everything
+// laid out in bytes (tiles, swizzle, TMA boxes, descriptors) is the same;
+// T picks the TMA map's data type, the wgmma operand type (.bf16 or
+// .f16) and the rounding of fp32 registers into operands and outputs.
+//
+// Shared-memory tiles.  TMA writes a box of 64 16-bit columns (128 bytes, the
 // swizzle span) x R rows as R rows of 128 bytes, the 16-byte chunks of row r
 // XOR-ed with r % 8: 8-row atoms of 1024 bytes, which is the layout wgmma's
 // 128B-swizzle mode reads.  A D-wide tile (D = 64 or 128) is D/64 such boxes
@@ -27,10 +33,43 @@
 
 #include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace hopper {
+
+// The 16-bit element types of the tensor-core kernels.  pair() rounds two
+// floats to nearest even into the two halves of one 32-bit register (lo
+// in the low half); a float16 rounding past 65504 gives inf, and inf and
+// NaN pass through, so an overflow reaches the caller's finiteness check.
+template <typename T>
+struct Half16;
+
+template <>
+struct Half16<__nv_bfloat16> {
+  using Pair = __nv_bfloat162;
+  static constexpr CUtensorMapDataType kMapType =
+      CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static __device__ __forceinline__ Pair pair(float lo, float hi) {
+    return __floats2bfloat162_rn(lo, hi);
+  }
+};
+
+template <>
+struct Half16<__half> {
+  using Pair = __half2;
+  static constexpr CUtensorMapDataType kMapType =
+      CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  static __device__ __forceinline__ Pair pair(float lo, float hi) {
+    return __floats2half2_rn(lo, hi);
+  }
+};
+
+template <typename T>
+constexpr bool kIsF16 = std::is_same<T, __half>::value;
 
 // ---------------------------------------------------------------------------
 // host: tensor maps
@@ -71,15 +110,17 @@ struct TmaMaps {
   CUtensorMap m[N];
 };
 
-// A rank-4 map (D, heads, rows, batch) over a bf16 [B, heads, rows, D]
-// operand whose last dim is contiguous, with element strides (sb, sh, ss):
+// A rank-4 map (D, heads, rows, batch) over a 16-bit [B, heads, rows, D]
+// operand of TMA data type `type` whose last dim is contiguous, with
+// element strides (sb, sh, ss):
 // boxes of 64 columns x `box_rows` rows of one head and batch, 128-byte
 // swizzled; rows past `rows` read as zeros.  TMA needs the base address and
 // every byte stride to be multiples of 16 (a size-1 dim's stride is never
 // stepped).  Returns 0 or a cudaError_t.
-inline int encode_map(CUtensorMap* map, const void* base, int D, int heads,
-                      int rows, int B, long long sb, long long sh,
-                      long long ss, int box_rows) {
+inline int encode_map(CUtensorMap* map, CUtensorMapDataType type,
+                      const void* base, int D, int heads, int rows, int B,
+                      long long sb, long long sh, long long ss,
+                      int box_rows) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   if (reinterpret_cast<uintptr_t>(base) % 16 != 0)
@@ -97,7 +138,7 @@ inline int encode_map(CUtensorMap* map, const void* base, int D, int heads,
                               (cuuint64_t)rows, (cuuint64_t)B};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+  const CUresult r = fn(map, type, 4,
                         const_cast<void*>(base), dims, strides, box, unit,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
@@ -384,10 +425,11 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// Two floats as the bf16 pair of one A-fragment register (lo in the low
+// Two floats as the 16-bit pair of one A-fragment register (lo in the low
 // half: the lower column).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+template <typename T>
+__device__ __forceinline__ uint32_t pack16(float lo, float hi) {
+  typename Half16<T>::Pair v = Half16<T>::pair(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
@@ -398,73 +440,104 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 #define PT_F64(d) \
   PT_F32(d), PT_F8(d, 32), PT_F8(d, 40), PT_F8(d, 48), PT_F8(d, 56)
 
+// The three wgmma shapes, each instantiated for .bf16 and .f16 operands
+// (TY): the instruction string is a literal, so the type is pasted in.
+
 // d[64 x 64] (+)= A[64 x 16] B[64 x 16]^T, A and B K-major in shared
 // memory; the first product of a sum passes accumulate = 0.
+#define PT_WGMMA_SS_N64(TY)                                               \
+  asm volatile(                                                           \
+      "{\n"                                                               \
+      ".reg .pred p;\n"                                                   \
+      "setp.ne.b32 p, %34, 0;\n"                                          \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "         \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "  \
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"                    \
+      "}\n"                                                               \
+      : PT_F32(d)                                                         \
+      : "l"(a), "l"(b), "r"(accumulate))
+
+template <typename T>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
                                              uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : PT_F32(d)
-      : "l"(a), "l"(b), "r"(accumulate));
+  if constexpr (kIsF16<T>) {
+    PT_WGMMA_SS_N64("f16");
+  } else {
+    PT_WGMMA_SS_N64("bf16");
+  }
 }
 
 // d[64 x N] += A[64 x 16] B[16 x N], A in registers (the accumulator
-// layout of a 64 x 16 slice, as bf16 pairs), B MN-major in shared memory.
+// layout of a 64 x 16 slice, as 16-bit pairs), B MN-major in shared
+// memory.
+#define PT_WGMMA_RS_N64(TY)                                               \
+  asm volatile(                                                           \
+      "{\n"                                                               \
+      ".reg .pred p;\n"                                                   \
+      "setp.ne.b32 p, %37, 0;\n"                                          \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "         \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "  \
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"      \
+      "}\n"                                                               \
+      : PT_F32(d)                                                         \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+
+template <typename T>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
                                              const uint32_t (&a)[4],
                                              uint64_t b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : PT_F32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  if constexpr (kIsF16<T>) {
+    PT_WGMMA_RS_N64("f16");
+  } else {
+    PT_WGMMA_RS_N64("bf16");
+  }
 }
 
+#define PT_WGMMA_RS_N128(TY)                                              \
+  asm volatile(                                                           \
+      "{\n"                                                               \
+      ".reg .pred p;\n"                                                   \
+      "setp.ne.b32 p, %69, 0;\n"                                          \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "        \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "  \
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "  \
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "  \
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "                \
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"                           \
+      "}\n"                                                               \
+      : PT_F64(d)                                                         \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+
+template <typename T>
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
                                               const uint32_t (&a)[4],
                                               uint64_t b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
-      "}\n"
-      : PT_F64(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  if constexpr (kIsF16<T>) {
+    PT_WGMMA_RS_N128("f16");
+  } else {
+    PT_WGMMA_RS_N128("bf16");
+  }
 }
 
+#undef PT_WGMMA_RS_N128
+#undef PT_WGMMA_RS_N64
+#undef PT_WGMMA_SS_N64
 #undef PT_F64
 #undef PT_F32
 #undef PT_F8
 
 // d[64 x D] += A B for D = 64 or 128 (see wgmma_rs_n64).
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
                                          const uint32_t (&a)[4], uint64_t b) {
   if constexpr (D == 64) {
-    wgmma_rs_n64(d, a, b);
+    wgmma_rs_n64<T>(d, a, b);
   } else {
     static_assert(D == 128, "head_dim 64 or 128");
-    wgmma_rs_n128(d, a, b);
+    wgmma_rs_n128<T>(d, a, b);
   }
 }
 
@@ -477,7 +550,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
 // to 255 registers a thread), a 128-key K/V tile held once, 64-row Q/dO
 // tiles streamed through the same KvRing by warp 0 between its stages,
 // the keys as every accumulator's rows; it shares the tile ring,
-// store_bf16 and the maps.
+// store16 and the maps.
 // ---------------------------------------------------------------------------
 
 // Element strides of one [B, heads, rows, D] operand; the last dim is
@@ -508,7 +581,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 template <int D>
 using Ring = KvRing<D, kBN, kStages>;
 
-// A kBM-row tile of D bf16 columns: D/64 halves of kBM x 128 bytes.
+// A kBM-row tile of D 16-bit columns: D/64 halves of kBM x 128 bytes.
 template <int D>
 constexpr int kRowTile = kBM * D * 2;
 
@@ -549,26 +622,27 @@ __device__ __forceinline__ void load_rows(uint8_t* dst, const CUtensorMap* map,
 
 // This thread's share of a warpgroup's 64 x D fp32 accumulator (its rows
 // row0 and row0 + 8, columns 2 * quad + {0, 1} of every 8), row i times
-// mul[i], as bf16 pairs into the rows of `base` (row stride `ss` elements)
-// below `rows`.
-template <int D>
-__device__ __forceinline__ void store_bf16(__nv_bfloat16* base, long long ss,
-                                           int rows, int row0, int quad,
-                                           const float (&acc)[D / 2],
-                                           const float (&mul)[2]) {
+// mul[i], as 16-bit pairs into the rows of `base` (row stride `ss`
+// elements) below `rows`.
+template <typename T, int D>
+__device__ __forceinline__ void store16(T* base, long long ss, int rows,
+                                        int row0, int quad,
+                                        const float (&acc)[D / 2],
+                                        const float (&mul)[2]) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + 8 * i;
     if (row >= rows) continue;
-    __nv_bfloat16* r = base + row * ss + 2 * quad;
+    T* r = base + row * ss + 2 * quad;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(r + 8 * j) = __floats2bfloat162_rn(
-          acc[4 * j + 2 * i] * mul[i], acc[4 * j + 2 * i + 1] * mul[i]);
+      *reinterpret_cast<typename Half16<T>::Pair*>(r + 8 * j) =
+          Half16<T>::pair(acc[4 * j + 2 * i] * mul[i],
+                          acc[4 * j + 2 * i + 1] * mul[i]);
   }
 }
 
-// An output that store_bf16 writes as 4-byte bf16 pairs: its base and
+// An output that store16 writes as 4-byte 16-bit pairs: its base and
 // every stride must be even.
 inline bool pairs_aligned(const void* p, const Layout& l) {
   return reinterpret_cast<uintptr_t>(p) % 4 == 0 && l.b % 2 == 0 &&
@@ -584,15 +658,16 @@ struct Operand {
   int box_rows;
 };
 
-// The maps of one call, in the kernel's order (see encode_map); 0 or the
-// first error.
-template <int N>
+// The maps of one call over operands of element type T, in the kernel's
+// order (see encode_map); 0 or the first error.
+template <typename T, int N>
 inline int encode_maps(TmaMaps<N>* maps, const Operand (&ops)[N], int D,
                        int heads, int B) {
   for (int i = 0; i < N; ++i) {
     const Operand& o = ops[i];
-    const int err = encode_map(&maps->m[i], o.p, D, heads, o.rows, B, o.l.b,
-                               o.l.h, o.l.s, o.box_rows);
+    const int err = encode_map(&maps->m[i], Half16<T>::kMapType, o.p, D,
+                               heads, o.rows, B, o.l.b, o.l.h, o.l.s,
+                               o.box_rows);
     if (err) return err;
   }
   return 0;

@@ -4,7 +4,9 @@ Counterpart of ``paddle_tpu/io.py`` for the serving path, in the same
 on-disk format: ``__model__`` is the program JSON (framework/serde.py)
 plus an ``inference_meta`` entry, and ``__params__`` is a pickled
 name -> numpy array dict.  A model directory saved by either package
-loads in the other.
+loads in the other.  The port pickles with protocol 5 where the
+reference uses 2, for the reason checkpoint.py gives; ``pickle.load``
+reads either.
 """
 from __future__ import annotations
 
@@ -19,6 +21,11 @@ from .framework.serde import program_from_json, program_to_dict
 
 __all__ = ["save_persistables", "save_inference_model",
            "get_program_persistable_vars"]
+
+# protocol 2 writes an array's buffer as a latin-1 string through a
+# per-character codec, both ways: a BERT-base replica spent 4.5 s of its
+# start unpickling its 0.5 GB of weights (probe_replica_start.py)
+_PICKLE_PROTOCOL = 5
 
 
 def get_program_persistable_vars(program: Program) -> List[Variable]:
@@ -40,7 +47,7 @@ def _write(path: str, payload: dict):
     if d:
         os.makedirs(d, exist_ok=True)
     with open(path, "wb") as f:
-        pickle.dump(payload, f, protocol=2)
+        pickle.dump(payload, f, protocol=_PICKLE_PROTOCOL)
 
 
 def _read(path: str) -> dict:

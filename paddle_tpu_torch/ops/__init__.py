@@ -8,3 +8,4 @@ from . import decode_ops  # noqa
 from . import rope_ops  # noqa
 from . import control_flow_ops  # noqa
 from . import optimizer_ops  # noqa
+from . import amp_ops  # noqa

@@ -38,13 +38,16 @@ leave are read in place:
 * ``flash_attention_autograd``: the ``torch.autograd.Function``
   differentiable in q, k, v and bias.
 
-Each source picks its kernel by dtype: bfloat16 runs the tensor-core
-kernels (wgmma, with TMA loads), float32 the CUDA-core kernels (exact
-fp32 FMAs).  Every kernel reads its operands in 16-byte pieces (TMA in
-bfloat16, cp.async in float32), which need 16-byte-aligned addresses and
-byte strides.  An operand that is not aligned (``tma_aligned``) is copied
-to fresh contiguous memory first, and each such copy is counted in the
-launching wrapper's ``.realigned``, which stays 0 on the model paths.
+Each source picks its kernel by dtype: bfloat16 and float16 run the
+tensor-core kernels (wgmma, with TMA loads; one template on the 16-bit
+type), float32 the CUDA-core kernels (exact fp32 FMAs).  The plain
+versions take any of the three, compute in float32 and return the
+input's dtype, as the Pallas kernels do.  Every kernel reads its operands
+in 16-byte pieces (TMA in 16 bits, cp.async in float32), which need
+16-byte-aligned addresses and byte strides.  An operand that is not
+aligned (``tma_aligned``) is copied to fresh contiguous memory first, and
+each such copy is counted in the launching wrapper's ``.realigned``,
+which stays 0 on the model paths.
 
 A wrapper takes its plain version only for a tensor on the CPU; on a
 CUDA tensor it launches its kernel (counted in ``.launches``) or raises,
@@ -70,7 +73,7 @@ NEG_INF = -1e30
 
 _KERNEL = "flash_attention_fwd"
 _BWD_KERNEL = "flash_attention_bwd"
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def _fit_block(block, size):
@@ -205,8 +208,8 @@ flash_attention_packed_backward_reference.calls = 0
 
 
 def _check_qkv(qkv, num_heads, what):
-    """What every kernel needs of qkv: a contiguous float32 or bfloat16
-    [B, S, 3H] CUDA tensor with head_dim 64 or 128 and a grid CUDA can
+    """What every kernel needs of qkv: a contiguous float32, bfloat16 or
+    float16 [B, S, 3H] CUDA tensor with head_dim 64 or 128 and a grid CUDA can
     launch; returns (B, S, H, D)."""
     if qkv.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {qkv.device}")
@@ -214,7 +217,8 @@ def _check_qkv(qkv, num_heads, what):
         raise ValueError(f"qkv must be [B, S, 3H], got {tuple(qkv.shape)}")
     B, S, H, D = _split_heads(qkv, num_heads)
     if qkv.dtype not in _DTYPE_CODES:
-        raise TypeError(f"{what} takes float32 or bfloat16, got {qkv.dtype}")
+        raise TypeError(f"{what} takes float32, bfloat16 or float16, got "
+                        f"{qkv.dtype}")
     if D not in (64, 128):
         raise ValueError(f"{what} needs head_dim in (64, 128); got {D}")
     if not qkv.is_contiguous():
@@ -286,9 +290,9 @@ def flash_attention_packed(qkv: torch.Tensor, bias: Optional[torch.Tensor],
 
     A CUDA tensor launches the Hopper kernel (counted in ``.launches``);
     a CPU tensor takes the plain version.  Raises on anything the kernel
-    does not take: another device type, a dtype other than float32 or
-    bfloat16, a non-contiguous qkv, head_dim not in (64, 128), or a bias
-    that is not [B, S] on qkv's device.
+    does not take: another device type, a dtype other than float32,
+    bfloat16 or float16, a non-contiguous qkv, head_dim not in (64, 128),
+    or a bias that is not [B, S] on qkv's device.
     """
     if qkv.device.type == "cpu":
         return flash_attention_packed_reference(qkv, bias, num_heads,
@@ -535,9 +539,9 @@ flash_attention_backward_reference.calls = 0
 
 def _check_unpacked(q, k, v, what):
     """What the unpacked kernels need: CUDA tensors q [B,H,Sq,D] and k, v
-    [B,H,Sk,D] of one dtype, float32 or bfloat16, on one device, head_dim
-    64 or 128, each with a contiguous last dim (any other strides); and a
-    grid CUDA can launch.  Returns (B, H, Sq, Sk, D)."""
+    [B,H,Sk,D] of one dtype, float32, bfloat16 or float16, on one device,
+    head_dim 64 or 128, each with a contiguous last dim (any other
+    strides); and a grid CUDA can launch.  Returns (B, H, Sq, Sk, D)."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
     if q.dim() != 4:
@@ -551,8 +555,9 @@ def _check_unpacked(q, k, v, what):
                              f"{tuple(q.shape)}, got {tuple(t.shape)}")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or \
             v.dtype != q.dtype:
-        raise TypeError(f"{what} takes float32 or bfloat16 q, k and v of "
-                        f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+        raise TypeError(f"{what} takes float32, bfloat16 or float16 q, k and "
+                        f"v of one dtype, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
     if D not in (64, 128):
         raise ValueError(f"{what} needs head_dim in (64, 128); got {D}")
     for name, t in (("q", q), ("k", k), ("v", v)):

@@ -1283,6 +1283,25 @@ def _epoch_total(points, boundaries) -> float:
     return total
 
 
+def _restart_bound(points, t_kill) -> List[float]:
+    """The epoch boundary of a counter series across a process's SIGKILL
+    at `t_kill`: the first sample after the kill that fell below its
+    predecessor, the respawned process's counter restarting from zero.
+    A scrape sent before the kill whose reply landed after it still
+    carries the old process's count, so the first sample after the kill
+    is not the boundary (taking it put that stale count into the new
+    epoch: a series the new process never reports, a tenant it serves
+    nothing, kept it as its new epoch's final value and was counted
+    twice).  Without a drop after the kill, the first sample after
+    it."""
+    prev = None
+    for ts, v in points:
+        if ts > t_kill and prev is not None and v < prev:
+            return [ts]
+        prev = v
+    return [ts for ts, _ in points if ts > t_kill][:1]
+
+
 def _scenario_noisy_neighbor(cfg: dict, log=print) -> dict:
     """Usage-observatory forensics: a 3-replica dense fleet behind its
     own federating router serves multi-tenant ``/predict`` traffic —
@@ -1470,9 +1489,8 @@ def _scenario_noisy_neighbor(cfg: dict, log=print) -> dict:
             t_kill = box.get("t_kill")
             bounds: List[float] = []
             if rep_ is victim and t_kill is not None:
-                pts = router._db.points(
-                    f"serving_tenant_requests[{rid}]")
-                bounds = [ts for ts, _ in pts if ts > t_kill][:1]
+                bounds = _restart_bound(router._db.points(
+                    f"serving_tenant_requests[{rid}]"), t_kill)
             for f in fields:
                 labeled = 0.0
                 for t in tenant_names:

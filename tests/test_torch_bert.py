@@ -159,6 +159,26 @@ def test_port_save_load_round_trip(tmp_path):
     np.testing.assert_allclose(got[1], want[1], rtol=LOSS_RTOL, atol=0)
 
 
+def test_port_params_pickle_with_protocol_5_and_load_in_the_reference(
+        tmp_path):
+    """The port writes ``__params__`` with pickle protocol 5 (the
+    reference writes 2); the reference's reader returns every array
+    bit-equal, dtype and shape included."""
+    rng = np.random.RandomState(5)
+    arrays = {"w": rng.randn(3, 4).astype("float32"),
+              "ids": rng.randint(0, 9, (5,)).astype("int64"),
+              "empty": np.zeros((0, 2), "float32")}
+    path = str(tmp_path / "__params__")
+    tpt.io._write(path, arrays)
+    with open(path, "rb") as f:
+        assert f.read(2) == b"\x80\x05"
+    for got in (jpt.io._read(path), tpt.io._read(path)):
+        assert sorted(got) == sorted(arrays)
+        for n, a in arrays.items():
+            assert got[n].dtype == a.dtype and got[n].shape == a.shape
+            np.testing.assert_array_equal(got[n], a)
+
+
 def test_scope_from_arrays_checks_names_and_shapes():
     t_main, t_startup, *_ = _build(tpt)
     j_main, j_startup, *_ = _build(jpt)

@@ -95,6 +95,30 @@ def test_epoch_total_matches_the_reference(points, bounds):
         ref._epoch_total(points, bounds)
 
 
+def test_restart_bound_skips_a_scrape_that_left_before_the_kill():
+    """The victim's all-tenant requests series: scrapes at 1 and 2 s of
+    the old process (5, 9 requests), one sent before the kill at 2.5 s
+    whose reply landed at 2.6 s (11: the old process's), then the
+    respawned process (1, 3).  The epoch starts at 3.0, where the count
+    fell, not at 2.6; a tenant the new process never served (its series
+    ends at the stale 2.6 sample) is then counted once, as its total
+    is, where the first-sample-after-the-kill boundary of the reference
+    counted it twice.  Without a drop the first sample after the kill
+    still bounds the epoch."""
+    total = [(1.0, 5.0), (2.0, 9.0), (2.6, 11.0), (3.0, 1.0), (4.0, 3.0)]
+    hog = [(1.0, 4.0), (2.0, 7.0), (2.6, 8.0)]
+    rest = [(1.0, 1.0), (2.0, 2.0), (2.6, 3.0), (3.0, 1.0), (4.0, 3.0)]
+    bound = chaos._restart_bound(total, 2.5)
+    assert bound == [3.0]
+    assert chaos._epoch_total(hog, bound) + chaos._epoch_total(
+        rest, bound) == chaos._epoch_total(total, bound) == 14.0
+    stale = [2.6]  # the reference's boundary: 15 + 5 against 12
+    assert chaos._epoch_total(hog, stale) + chaos._epoch_total(
+        rest, stale) - chaos._epoch_total(total, stale) == 8.0
+    assert chaos._restart_bound([(1.0, 2.0), (3.0, 4.0)], 2.0) == [3.0]
+    assert chaos._restart_bound([(1.0, 2.0)], 2.0) == []
+
+
 def test_bodies_and_constants_match_the_reference():
     for seed in (0, 3, 7):
         assert chaos._bodies(8, seed=seed) == ref._bodies(8, seed=seed)

@@ -1,8 +1,8 @@
 """chip_smoke.py's phase 2 reads ptxas's report and cuobjdump's SASS by
-kernel name: every instantiation it checks (CHECKED_KERNELS: the bf16
-tensor-core kernels, the fp32 forward and the fp32 backward) must come back
-from ``kernel_label`` under the name the check looks up, or the spill check
-fails on the card with "ptxas printed no spill line".  The mangled names
+kernel name: every instantiation it checks (CHECKED_KERNELS: the bf16 and
+fp16 tensor-core kernels, the fp32 forward and the fp32 backward) must come
+back from ``kernel_label`` under the name the check looks up, or the spill
+check fails on the card with "ptxas printed no spill line".  The mangled names
 here follow the Itanium C++ ABI as nvcc emits it for the kernels in
 paddle_tpu_torch/csrc/ (anonymous namespace, then namespace tc or f32)."""
 import importlib.util
@@ -22,18 +22,23 @@ smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(smoke)
 
 
+# the 16-bit element types of the tensor-core kernels, as mangled
+_TYPES = {"bf16": "13__nv_bfloat16", "f16": "6__half"}
+
+
 def _mangle(label):
     """The mangled name of the kernel `label` names: 'fa_dq_tc_kernel<bf16,
-    128>' is namespace tc's fa_dq_tc_kernel<128>, 'fa_dkv_f32_kernel<64,
-    4>' namespace f32's fa_dkv_f32_kernel<64, 4>; parameters as the
-    kernels take them (TMA maps for tc, float pointers for f32)."""
+    128>' is namespace tc's fa_dq_tc_kernel<__nv_bfloat16, 128> ('f16':
+    <__half, 128>), 'fa_dkv_f32_kernel<64, 4>' namespace f32's
+    fa_dkv_f32_kernel<64, 4>; parameters as the kernels take them (TMA
+    maps for tc, float pointers for f32)."""
     name, args = re.fullmatch(r"(\w+)<(.*)>", label).groups()
     args = [a.strip() for a in args.split(",")]
-    if args[0] == "bf16":
+    if args[0] in _TYPES:
         ns, ints, params = "tc", args[1:], "N6hopper7TmaMapsILi4EEEPKfS6_"
     else:
         ns, ints, params = "f32", args, "PKfS3_S3_S3_S3_S3_S3_PfS4_S4_"
-    targs = "".join(f"Li{a}E" for a in ints)
+    targs = _TYPES.get(args[0], "") + "".join(f"Li{a}E" for a in ints)
     return (f"_ZN12_GLOBAL__N_1{len(ns)}{ns}{len(name)}{name}I{targs}EEv"
             f"{params}NS_8BwdShapeE")
 
@@ -115,18 +120,44 @@ def test_gated_profile_excuses_only_profiles_that_lost_records(readings,
         assert smoke.gated_profile(readings, "a replay") == gated
 
 
+@pytest.mark.parametrize("readings,held", [
+    ([(60, (12, 0, 0), (12, 0, 0))], (0, True)),
+    ([(58, (10, 0, 0), (12, 0, 0)), (60, (12, 0, 0), (12, 0, 0))], (1, True)),
+    # the profile that holds every launch lost other records
+    ([(1764, (7, 4, 4), (8, 4, 4)), (1764, (7, 4, 4), (8, 4, 4)),
+      (1627, (8, 4, 4), (8, 4, 4))], (2, False)),
+    # every profile short: records lost, nothing proved
+    ([(1522, (3, 4, 4), (4, 4, 4))] * 3, (None, False)),
+    # a launch the counters missed
+    ([(60, (13, 0, 0), (12, 0, 0))], None),
+    ([(58, (11, 0, 0), (12, 0, 0)), (60, (12, 1, 0), (12, 0, 0))], None)],
+    ids=["agrees", "records_lost", "fewer_records_agree", "all_short",
+         "over", "short_then_over"])
+def test_lenient_profile_holds_a_profile_that_proves_the_counters(readings,
+                                                                  held):
+    """Phase 15's gate: a profile whose launches equal the counters'
+    holds them (its device numbers stand only if it is the fullest);
+    every profile short is not measured; a profile that saw more
+    launches than the counters added fails."""
+    if held is None:
+        with pytest.raises(AssertionError, match="more launches"):
+            smoke.lenient_profile(readings, "a replay")
+    else:
+        assert smoke.lenient_profile(readings, "a replay") == held
+
+
 # ---------------------------------------------------------------------------
 # phase 10: generation serving
 # ---------------------------------------------------------------------------
 
 def test_generation_phase_runs_llama_2_7b_at_the_card_configuration():
-    """The flagship engine: Llama-2-7B's widths at 16 of its 32 layers
+    """The flagship engine: Llama-2-7B's widths at 8 of its 32 layers
     (the run's depth cut), 4 slots of 1024 positions, buckets 64-512; 8
     prompts of 20-500 tokens that land in every bucket, each with its 64
     new tokens inside the cache (so every request ends 'length'); the
     parity config keeps the widths."""
     assert smoke.GEN == dict(vocab_size=32000, hidden=4096, num_heads=32,
-                             intermediate=11008, num_layers=16)
+                             intermediate=11008, num_layers=8)
     eng = smoke.GEN_ENGINE
     assert (eng["num_slots"], eng["max_seq_len"]) == (4, 1024)
     assert eng["prefill_buckets"] == (64, 128, 256, 512)
@@ -365,6 +396,40 @@ def test_check_engine_counts_sums_a_pair():
         smoke.check_engine_counts((pre, dec), counts, 0, 0, "pair", False)
 
 
+@pytest.mark.parametrize("given", [None, "/elsewhere/pycache"])
+def test_bytecode_cache_reaches_every_process_the_run_starts(
+        given, monkeypatch, tmp_path):
+    """The run's bytecode cache lies under the checkout's ignored
+    _build directory; it is set for this interpreter and, through the
+    environment that spawn_process copies, for every child, with the
+    writing of bytecode allowed (into the prefix only) where the
+    environment forbade it; a prefix the caller set is kept."""
+    import sys
+
+    from paddle_tpu_torch.distributed import launch
+
+    assert smoke.BYTECODE_CACHE.startswith(
+        os.path.join(smoke.HERE, "paddle_tpu_torch", "_build") + os.sep)
+    # set first, so that the undo also removes what the call sets
+    monkeypatch.setenv("PYTHONPYCACHEPREFIX", given or "")
+    if given is None:
+        monkeypatch.delenv("PYTHONPYCACHEPREFIX")
+    monkeypatch.setenv("PYTHONDONTWRITEBYTECODE", "1")
+    monkeypatch.setattr(sys, "pycache_prefix", None)
+    monkeypatch.setattr(sys, "dont_write_bytecode", True)
+    smoke.use_bytecode_cache()
+    want = given or smoke.BYTECODE_CACHE
+    assert sys.pycache_prefix == want and not sys.dont_write_bytecode
+    assert os.environ["PYTHONPYCACHEPREFIX"] == want
+    assert "PYTHONDONTWRITEBYTECODE" not in os.environ
+    log = tmp_path / "child.log"
+    proc = launch.spawn_process(
+        [sys.executable, "-c", "import sys; print(sys.pycache_prefix, "
+         "sys.flags.dont_write_bytecode)"], log_path=str(log))
+    assert proc.wait(60) == 0
+    assert log.read_text().split() == [want, "0"]
+
+
 def test_serving_phase_configuration():
     """Phase 11: BERT-base at its published widths behind an engine at
     the reference's serving defaults (max batch 8, max delay 5 ms), 64
@@ -443,7 +508,7 @@ def _argv_value(argv, flag):
 
 
 def test_fleet_generation_replicas_run_llama_2_7b_at_the_card_config():
-    """Phase 12b's replicas: Llama-2-7B's widths at GEN's 16 layers, MHA, 4
+    """Phase 12b's replicas: Llama-2-7B's widths at GEN's 8 layers, MHA, 4
     slots of 1024 positions, the paged cache of 257 pages of 16 (phase
     10's pools), phase 10's buckets, 64 new tokens, on the card; the
     replica's own parser accepts the argv."""
@@ -767,13 +832,13 @@ def test_chaos_fleet_configuration():
 
 def test_chaos_generation_configuration():
     """13b's generation: poison_paged and spec_storm on GEN (Llama-2-7B's
-    widths at 16 layers) in pages of 16 with phase 10c's buckets (bucket
+    widths at 8 layers) in pages of 16 with phase 10c's buckets (bucket
     8 for the verify); disagg_crash on four replicas of Llama-2-7B's
     widths at 4 layers, their prompts (4-48 tokens) inside the 64-token
     bucket; the replica's parser accepts the argv."""
     from paddle_tpu_torch.serving import replica
 
-    assert smoke.GEN["num_layers"] == 16
+    assert smoke.GEN["num_layers"] == 8
     eng = smoke.CHAOS_GEN_ENGINE
     assert eng["prefill_buckets"] == smoke.GEN_SPEC_ENGINE["prefill_buckets"]
     assert eng["num_slots"] == smoke.GEN_SPEC_ENGINE["num_slots"]
@@ -1073,3 +1138,146 @@ def test_lenient_profile_reports_lost_records_as_not_measured(monkeypatch):
     assert len(p["lost_records"]) == smoke.PROFILE_TRIES
     with pytest.raises(AssertionError, match="differ from the counters"):
         smoke.profiled_launches(call, None, "a replay", "lost")
+
+
+@pytest.mark.parametrize("strict", [False, True])
+def test_lenient_profile_when_the_fullest_profile_lost_a_launch(
+        monkeypatch, strict):
+    """Three profiles of one replay: two of 1764 kernel records without a
+    forward launch, one of 1627 with every launch (so no profile is
+    whole).  Lenient, the device numbers are not measured; strict, the
+    fullest profile's disagreement raises; a replay whose fullest profile
+    agrees is measured either way."""
+    readings = iter([(1764, (7, 4, 4)), (1764, (7, 4, 4)),
+                     (1627, (8, 4, 4)), (1764, (8, 4, 4))])
+
+    class Row:
+        def __init__(self, count):
+            self.count, self.key = count, "k"
+
+    def report(prof, wall_us, what, key=None):
+        total, seen = next(readings)
+        smoke.PROFILES[key] = dict(busy_ms=1.0, idle=0.1, seen=seen)
+        return [Row(total)], 1.0
+
+    monkeypatch.setattr(smoke, "report_profile", report)
+    monkeypatch.setattr(smoke, "launch_deltas", lambda kernels, b, a: (
+        smoke.PROFILES["r"]["seen"], (8, 4, 4)))
+    monkeypatch.setattr(smoke, "check_profiled_launches",
+                        lambda kernels, b, a, what: None)
+    monkeypatch.setattr(smoke, "read_counts", lambda fa: None)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(smoke, "log", lambda msg: None)
+    monkeypatch.setattr(smoke, "PROFILES", {})
+    if strict:
+        with pytest.raises(AssertionError, match="differ from the counters"):
+            smoke.profiled_launches(lambda: None, None, "a replay", "r")
+    else:
+        smoke.profiled_launches(lambda: None, None, "a replay", "r",
+                                strict=False)
+        p = smoke.PROFILES["r"]
+        assert p["busy_ms"] is None and len(p["lost_records"]) == 3
+    smoke.profiled_launches(lambda: None, None, "a replay", "r",
+                            strict=strict)
+    assert smoke.PROFILES["r"]["busy_ms"] == 1.0
+
+
+# phase 16: float16 AMP with dynamic loss scaling
+def test_loss_scale_machine_follows_update_loss_scaling():
+    """The host's state machine of 16a': halve at every bad step with
+    decr 1 (never below 1e-8), double after incr good steps, counters
+    reset as the op resets them."""
+    m = smoke.loss_scale_machine([True] * 3 + [False] * 3 + [True],
+                                 2.0 ** 18, incr_n=2, decr_n=1)
+    assert m == [(2.0 ** 17, 0, 0), (2.0 ** 16, 0, 0), (2.0 ** 15, 0, 0),
+                 (2.0 ** 15, 1, 0), (2.0 ** 16, 0, 0), (2.0 ** 16, 1, 0),
+                 (2.0 ** 15, 0, 0)]
+    assert smoke.loss_scale_machine([True, True, False], 1000.0, 1000,
+                                    2) == [(1000.0, 0, 1), (500.0, 0, 0),
+                                           (500.0, 1, 0)]
+    assert smoke.loss_scale_machine([True], 1.5e-8, 2, 1)[0][0] == \
+        pytest.approx(1e-8)
+
+
+def test_attention_types_read_the_profiled_kernels_names():
+    class Row:
+        def __init__(self, key):
+            self.key = key
+    rows = [Row("void (anonymous namespace)::tc::fa_fwd_tc_kernel<__half, "
+                "64>(hopper::TmaMaps<3>, float const*, __half*, float*)"),
+            Row("void (anonymous namespace)::tc::fa_dq_tc_kernel<__half, 64>"
+                "(hopper::TmaMaps<4>)"),
+            Row("ampere_fp16_s16816gemm_fp16_128x128_ldg8_f2f_nn")]
+    assert smoke.attention_types(rows) == ["__half"]
+    rows.append(Row("void (anonymous namespace)::f32::fa_dkv_f32_kernel<64, "
+                    "4>(float const*)"))
+    assert smoke.attention_types(rows) == ["__half", "float"]
+
+
+def test_fp16_phase_rehearses_on_the_cpu(monkeypatch):
+    """Phase 9 then phase 16 on the CPU at tiny widths: 16a's flagship,
+    its dropout-0 life against fp32 (and the bf16 control outside the
+    fp16 limit), the overflow life (captured against
+    eager, bit for bit; the scale state against the host machine) and
+    16b against the bf16 life's losses; the kernel counts, the profile,
+    the capture and the card's memory are stubbed (no card here)."""
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch import device
+    from paddle_tpu_torch.framework import executor
+    from paddle_tpu_torch.ops import registry
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    cpu = torch.device("cpu")
+    for mod in (device, executor):
+        monkeypatch.setattr(mod, "resolve_device", lambda place=None: cpu)
+    for name in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: None)
+    for name in ("max_memory_allocated", "memory_allocated",
+                 "memory_reserved"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: 0)
+    info = executor.Executor.cache_info
+
+    def captured(self):
+        out = info(self)
+        for e in out["entries"]:
+            e["aot"] = True
+            e["manifest"] = 0
+        return out
+    monkeypatch.setattr(executor.Executor, "cache_info", captured)
+    monkeypatch.setattr(smoke, "FLAGSHIP", TINY_BERT)
+    monkeypatch.setattr(smoke, "LLAMA_FLAGSHIP", TINY_LLAMA)
+    monkeypatch.setattr(smoke, "ASYNC_STEPS", 2)
+    monkeypatch.setattr(smoke, "read_counts",
+                        lambda fa: (smoke.Launches((0,) * 6), 0, 0))
+    wants = []
+    real_want = smoke.per_step_launches
+
+    def want(main):
+        wants.append(real_want(main))
+        return (0,) * 6
+    monkeypatch.setattr(smoke, "per_step_launches", want)
+    monkeypatch.setattr(smoke, "profiled_launches",
+                        lambda call, fa, what, key, strict=True: smoke
+                        .PROFILES.__setitem__(key, dict(busy_ms=None,
+                                                        call=call())))
+    monkeypatch.setattr(smoke, "FP16", {})
+    monkeypatch.setattr(smoke, "second_signature", lambda *a: None)
+    monkeypatch.setattr(smoke, "log", lambda msg: None)
+    seed = registry._OP_SEED[0]
+    _, bf16_losses = smoke.llama_flagship(tpt, fa)
+    after = registry._OP_SEED[0]
+    paths = smoke.fp16_flagship(tpt, fa, seed, bf16_losses)
+    assert registry._OP_SEED[0] == after  # put back for phase 10
+    assert sorted(paths) == ["llama_fp16", "training_fp16"]
+    nb, nl = TINY_BERT["num_layers"], TINY_LLAMA["num_layers"]
+    # 16a, its fp32, fp16 and bf16 lives at dropout 0, 16a', 16b
+    assert wants[1:] == [(nb, nb, nb, 0, 0, 0)] * 5 + [(0, 0, 0, nl, nl, nl)]
+    r = smoke.FP16
+    assert max(r["bert_vs_fp32"]["rel"]) <= smoke.FP16_FP32_LOSS_RTOL
+    assert max(r["bert_vs_fp32"]["bf16_rel"]) > smoke.FP16_FP32_LOSS_RTOL
+    assert max(r["llama"]["rel"]) <= smoke.FP16_BF16_LOSS_RTOL
+    steps = r["overflow"]["steps"]
+    assert r["overflow"]["captured_eq_eager"]
+    assert [s["scale"] for s in steps[:3]] == [2.0 ** 17, 2.0 ** 16,
+                                               2.0 ** 15]
+    assert not steps[3]["found"] and steps[4]["scale"] == 2.0 ** 16

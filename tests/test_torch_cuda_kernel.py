@@ -4,15 +4,26 @@ Marked ``cuda``: each test skips, with the reason, where
 torch.cuda.is_available() is false.  On a machine with the card:
 ``python -m pytest -m cuda tests/test_torch_cuda_kernel.py``.
 Tolerances as in chip_smoke.py: fp32 out 2e-5 and lse 1e-5 (TF32 off);
-bf16 out 2e-2 against the fp32 plain version on the same rounded inputs.
-The all-padding batch row scores near -1e4, where one fp32 ulp is
-2**-10: it is held to half an ulp (out) and one ulp (lse).
+bf16 out 2e-2 against the fp32 plain version on the same rounded inputs;
+fp16 a quarter of bf16's (OUT_ATOL, GRAD_ATOL): the kernels round the
+same values (P, dS and the outputs) to 2**-11 where bf16 rounds them to
+2**-8, eight times finer, and a quarter keeps a factor 2 of room; per
+128-row block fp16 1e-3 (BLOCK_REL), between fp16's largest reading in
+chip_smoke.py (3.4e-4) and bf16's smallest (1.8e-3).  The all-padding
+batch row scores near -1e4, where one fp32 ulp is 2**-10: it is held to
+half an ulp (out) and one ulp (lse); a 16-bit out to its dtype's out
+limit, since the kernels round that row's P and output as a live row's.
 """
 import numpy as np
 import pytest
 import torch
 
 from paddle_tpu_torch.ops.cuda import flash_attention as tfa
+
+OUT_ATOL = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 5e-3}
+GRAD_ATOL = {"float32": 1e-4, "bfloat16": 5e-2, "float16": 1.25e-2}
+BLOCK_REL = {"bfloat16": 1e-2, "float16": 1e-3}
+NOT_TAKEN = "float32, bfloat16 or float16"
 
 
 @pytest.fixture
@@ -35,7 +46,7 @@ def cuda():
                           (8, 512, 768, 12, True, True),
                           (2, 100, 256, 2, True, True),
                           (2, 64, 256, 2, False, False)])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_kernel_matches_plain_version(cuda, B, S, H, nh, causal, with_bias,
                                       dtype):
     """The packed forward against its plain version.  In float32 on an
@@ -55,7 +66,7 @@ def test_kernel_matches_plain_version(cuda, B, S, H, nh, causal, with_bias,
     assert tfa.flash_attention_packed.launches == before + 1
     ref_out, ref_lse = tfa.flash_attention_packed_reference(
         qkv.float(), bias, nh, causal)
-    atol = 2e-5 if dtype == "float32" else 2e-2
+    atol = OUT_ATOL[dtype]
     assert out.dtype == qkv.dtype
     err = (out.float() - ref_out).abs()
     lerr = (lse - ref_lse).abs()
@@ -71,8 +82,8 @@ def test_kernel_matches_plain_version(cuda, B, S, H, nh, causal, with_bias,
 @pytest.mark.cuda
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     qkv = torch.randn(2, 16, 3 * 128, device=cuda)
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        tfa.flash_attention_packed(qkv.half(), None, 2)
+    with pytest.raises(TypeError, match=NOT_TAKEN):
+        tfa.flash_attention_packed(qkv.double(), None, 2)
     with pytest.raises(ValueError, match="head_dim"):
         tfa.flash_attention_packed(qkv, None, 4)           # head_dim 32
     with pytest.raises(ValueError, match="contiguous"):
@@ -167,14 +178,15 @@ def _bwd_inputs(B, S, H, nh, causal, with_bias, dtype, device, seed):
                           (2, 100, 256, 2, True, True),
                           (2, 64, 256, 2, False, False),
                           (1, 100, 768, 12, True, False)])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_backward_kernels_match_plain_version(cuda, B, S, H, nh, causal,
                                               with_bias, dtype):
     """dqkv and dbias from the dK/dV and dQ kernels against the plain
     backward on the same (rounded) inputs in float32.  fp32: atol 1e-4 on
     dqkv and dbias (sums of up to S products of O(1) terms in another
     order); bf16: atol 5e-2 on dqkv, the kernel's bf16 output rounding
-    (2**-8 relative on values up to ~10), and 1e-4 on the float32 dbias."""
+    (2**-8 relative on values up to ~10), fp16 a quarter of it, and 1e-4
+    on the float32 dbias."""
     qkv, bias, out, lse, dout = _bwd_inputs(B, S, H, nh, causal, with_bias,
                                             dtype, cuda, seed=B * S + H)
     before = (tfa.flash_attention_packed_dkv.launches,
@@ -188,7 +200,7 @@ def test_backward_kernels_match_plain_version(cuda, B, S, H, nh, causal,
     ref, ref_db = tfa.flash_attention_packed_backward_reference(
         qkv.float(), bias, out.float(), lse, dout.float(), nh, causal)
     assert dqkv.dtype == qkv.dtype and dqkv.shape == qkv.shape
-    atol = 1e-4 if dtype == "float32" else 5e-2
+    atol = GRAD_ATOL[dtype]
     assert torch.isfinite(dqkv.float()).all()
     assert (dqkv.float() - ref).abs().max().item() <= atol
     if with_bias:
@@ -230,9 +242,9 @@ def test_backward_wrapper_rejects_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="lse"):
         tfa.flash_attention_packed_backward(qkv, bias, out, lse[:, :1], dout,
                                             2)
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        tfa.flash_attention_packed_backward(qkv.half(), bias, out.half(),
-                                            lse, dout.half(), 2)
+    with pytest.raises(TypeError, match=NOT_TAKEN):
+        tfa.flash_attention_packed_backward(qkv.double(), bias, out.double(),
+                                            lse, dout.double(), 2)
 
 
 # ---------------------------------------------------------------------------
@@ -274,14 +286,15 @@ UNPACKED_CASES = [
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,Sq,Sk,D,causal,with_bias,views",
                          UNPACKED_CASES)
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_unpacked_kernels_match_plain_versions(cuda, B, H, Sq, Sk, D,
                                                causal, with_bias, views,
                                                dtype):
     """Forward (out, lse) and backward (dq, dk, dv, dbias) on the card
     against the plain versions on the same rounded inputs in float32.
     Tolerances as for the packed kernels: fp32 out 2e-5, lse 1e-5, grads
-    1e-4; bf16 out 2e-2, grads 5e-2 (the kernels' output rounding); the
+    1e-4; bf16 out 2e-2, grads 5e-2 (the kernels' output rounding), fp16
+    a quarter of those; the
     all-padding row of out to half an fp32 ulp at 1e4 (or the bf16
     tolerance), its lse to one ulp, its grads to 2**-6."""
     q, k, v, bias, dout = _unpacked_inputs(B, H, Sq, Sk, D, with_bias,
@@ -302,9 +315,8 @@ def test_unpacked_kernels_match_plain_versions(cuda, B, H, Sq, Sk, D,
     ref_out, ref_lse = tfa.flash_attention_reference(*f, bias, causal)
     ref = tfa.flash_attention_backward_reference(
         *f, bias, out.float(), lse, dout.float(), causal)
-    fp32 = dtype == "float32"
     live = slice(0, B - 1) if with_bias else slice(0, B)
-    out_tol, grad_tol = (2e-5, 1e-4) if fp32 else (2e-2, 5e-2)
+    out_tol, grad_tol = OUT_ATOL[dtype], GRAD_ATOL[dtype]
     assert out.dtype == q.dtype and out.shape == q.shape
     assert (out.float() - ref_out)[live].abs().max().item() <= out_tol
     assert (lse - ref_lse)[live].abs().max().item() <= 1e-5
@@ -455,8 +467,8 @@ def test_unpacked_wrapper_rejects_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="head_dim"):
         tfa.flash_attention_unpacked(t(1, 2, 32, 96), t(1, 2, 32, 96),
                                      t(1, 2, 32, 96))
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        tfa.flash_attention_unpacked(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError, match=NOT_TAKEN):
+        tfa.flash_attention_unpacked(q.double(), q.double(), q.double())
     with pytest.raises(TypeError, match="one dtype"):
         tfa.flash_attention_unpacked(q, q.bfloat16(), q)
     with pytest.raises(ValueError, match="contiguous last dim"):
@@ -522,8 +534,8 @@ def test_flash_attention_op_on_the_card(cuda):
 
 
 # ---------------------------------------------------------------------------
-# the bf16 tensor-core kernels (forward and dQ: wgmma, TMA loads), which
-# every bf16 call of the forward and dQ entries runs, packed or unpacked
+# the 16-bit tensor-core kernels (forward, dK/dV and dQ: wgmma, TMA loads),
+# which every bf16 and fp16 call of the entries runs, packed or unpacked
 # ---------------------------------------------------------------------------
 
 TC_CASES = [
@@ -543,7 +555,8 @@ def _block_rel(got, want, block=128):
     ||want|| for [B, H, S, D] tensors: a long row's values (near
     sqrt(e / n) over n keys) are as small as the absolute limits, so the
     bf16 results are also held to 1e-2 of their own size (~4e-3 from
-    rounding P or dS and the output to bf16)."""
+    rounding P or dS and the output to bf16), the fp16 ones to 1e-3
+    (BLOCK_REL)."""
     B, H, S, D = want.shape
     pad = -S % block
     diff, ref = (torch.nn.functional.pad(t, (0, 0, 0, pad)).reshape(
@@ -560,18 +573,23 @@ def _tc_counts():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,Sq,Sk,D,causal,with_bias,views", TC_CASES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
 def test_tensor_core_kernels_match_plain_versions(cuda, B, H, Sq, Sk, D,
-                                                  causal, with_bias, views):
-    """The bf16 forward (out, lse), dK/dV (dk, dv, the bias gradient's
+                                                  causal, with_bias, views,
+                                                  dtype):
+    """The 16-bit forward (out, lse), dK/dV (dk, dv, the bias gradient's
     per-head partials) and dQ kernels against the plain versions on the
-    same rounded inputs in float32: out atol 2e-2, dq, dk and dv 5e-2 (P
-    and dS are rounded to bf16 before their second product, ~2**-9
-    relative a term, and the outputs to bf16) and per 128-row block 1e-2
-    of their own size, lse and dbias 1e-4 / 1e-5 (float32); the
-    all-padding row of out to the bf16 tolerance, its lse to one fp32 ulp
-    at 1e4, its grads to 2**-6.  No operand needs realigning."""
+    same rounded inputs in float32: bf16 out atol 2e-2, dq, dk and dv
+    5e-2 (P and dS are rounded to bf16 before their second product,
+    ~2**-9 relative a term, and the outputs to bf16) and per 128-row block
+    1e-2 of their own size, fp16 a quarter of each; lse and dbias 1e-4 /
+    1e-5 (float32); the all-padding row of out to the 16-bit tolerance,
+    its lse to one fp32 ulp at 1e4, its grads to 2**-6 or the 16-bit
+    tolerance.  No operand needs realigning."""
+    out_tol, grad_tol, rel = OUT_ATOL[dtype], GRAD_ATOL[dtype], \
+        BLOCK_REL[dtype]
     q, k, v, bias, dout = _unpacked_inputs(B, H, Sq, Sk, D, with_bias,
-                                           "bfloat16", cuda, Sq + Sk + D,
+                                           dtype, cuda, Sq + Sk + D,
                                            views)
     before = _tc_counts()
     out, lse = tfa.flash_attention_unpacked(q, k, v, bias, causal)
@@ -591,20 +609,23 @@ def test_tensor_core_kernels_match_plain_versions(cuda, B, H, Sq, Sk, D,
     ref = tfa.flash_attention_backward_reference(
         *f, bias, out.float(), lse, dout.float(), causal)
     live = slice(0, B - 1) if with_bias else slice(0, B)
-    assert (out.float() - ref_out)[live].abs().max().item() <= 2e-2
+    assert out.dtype == q.dtype
+    assert (out.float() - ref_out)[live].abs().max().item() <= out_tol
     assert (lse - ref_lse)[live].abs().max().item() <= 1e-5
-    assert _block_rel(out[live], ref_out[live]) <= 1e-2
+    assert _block_rel(out[live], ref_out[live]) <= rel
     for got, want in zip((dq, dk, dv), ref[:3]):
-        assert torch.isfinite(got.float()).all()
-        assert (got.float() - want)[live].abs().max().item() <= 5e-2
-        assert _block_rel(got[live], want[live]) <= 1e-2
+        assert got.dtype == q.dtype and torch.isfinite(got.float()).all()
+        assert (got.float() - want)[live].abs().max().item() <= grad_tol
+        assert _block_rel(got[live], want[live]) <= rel
     if with_bias:
         dbias = db_heads.sum(1)
         assert (dbias - ref[3])[live].abs().max().item() <= 1e-4
-        assert (out.float() - ref_out)[-1].abs().max().item() <= 2e-2
+        assert (out.float() - ref_out)[-1].abs().max().item() <= max(
+            out_tol, 2.0 ** -11)
         assert (lse - ref_lse)[-1].abs().max().item() <= 2.0 ** -10
         for got, want in zip((dq, dk, dv, dbias), ref):
-            assert (got.float() - want)[-1].abs().max().item() <= 5e-2
+            assert (got.float() - want)[-1].abs().max().item() <= max(
+                grad_tol, 2.0 ** -6)
 
 
 @pytest.mark.cuda
@@ -646,17 +667,18 @@ def test_tensor_core_kernels_at_the_bert_training_shape(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "float16"])
 def test_misaligned_operands_are_realigned_and_counted(cuda, dtype):
     """A view one element (2 or 4 bytes) into its storage cannot be read
-    by 16-byte loads (TMA in bf16, cp.async in the fp32 forward): the
+    by 16-byte loads (TMA in 16 bits, cp.async in the fp32 forward): the
     wrapper copies it to contiguous memory, counts the copy in
     ``.realigned``, and the result still matches the plain version.  The
     unpacked forward, dK/dV and dQ (a misaligned q), then the packed
     forward and dK/dV (a misaligned qkv).  Tolerances as above: bf16 out
-    2e-2, grads 5e-2; fp32 out 2e-5, grads 1e-4; lse 1e-5."""
+    2e-2, grads 5e-2; fp16 a quarter of those; fp32 out 2e-5, grads 1e-4;
+    lse 1e-5."""
     dt = getattr(torch, dtype)
-    out_tol, grad_tol = (2e-5, 1e-4) if dtype == "float32" else (2e-2, 5e-2)
+    out_tol, grad_tol = OUT_ATOL[dtype], GRAD_ATOL[dtype]
     B, H, S, D = 2, 2, 128, 64
     n = B * H * S * D
     rng = np.random.RandomState(3)

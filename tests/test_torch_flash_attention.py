@@ -2,12 +2,16 @@
 package's Pallas kernel (interpret mode, as tests/test_attention.py runs
 it on the CPU) and its blockwise_attention scan.
 
-Inputs come from numpy with a fixed seed and go to both packages; fp32
-throughout, atol 1e-5 on out and on the log-sum-exp (the two sides sum in
-different orders; values are O(1) for out and O(5) for lse).  A batch row
-whose keys are all padding has every score near -1e4, where one fp32 ulp
-is 2**-10: those rows are held to half an ulp there on out and one ulp on
-the lse, set from that resolution, not from a run.
+Inputs come from numpy with a fixed seed and go to both packages, in
+fp32 and in fp16; atol 1e-5 on out and on the log-sum-exp (the two sides
+sum in different orders; values are O(1) for out and O(5) for lse).  A
+batch row whose keys are all padding has every score near -1e4, where one
+fp32 ulp is 2**-10: those rows are held to half an ulp there on out and
+one ulp on the lse, set from that resolution, not from a run.  In fp16
+both sides take the same fp16-rounded inputs, compute in fp32 and round
+out once to fp16 (the lse stays fp32): out is held besides to rel 2**-10,
+one fp16 ulp, the most that one rounding of two fp32 values 1e-5 apart
+can part them.
 """
 import importlib
 
@@ -27,6 +31,8 @@ DEAD_OUT_ATOL = 2.0 ** -11   # half an ulp of fp32 at 1e4
 DEAD_LSE_ATOL = 2.0 ** -10   # one ulp of fp32 at 1e4
 B, S = 2, 64
 DEAD = 1  # the batch row _inputs(dead_row=True) pads out entirely
+DTYPES = ["float32", "float16"]
+OUT_RTOL = {"float32": 0.0, "float16": 2.0 ** -10}  # one fp16 ulp
 
 
 def _inputs(H, seed, with_bias, dead_row=False):
@@ -53,11 +59,13 @@ CASES = [
 ]
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("H,nh,with_bias,causal,dead_row", CASES)
 def test_reference_matches_pallas_interpret(H, nh, with_bias, causal,
-                                            dead_row):
+                                            dead_row, dtype):
     qkv, bias = _inputs(H, seed=H + nh + causal, with_bias=with_bias,
                         dead_row=dead_row)
+    qkv = qkv.astype(dtype)
     j_out, j_lse = jfa._packed_forward(
         jnp.asarray(qkv), nh, causal, None, 64, 32, True,
         bias=None if bias is None else jnp.asarray(bias))
@@ -69,13 +77,18 @@ def test_reference_matches_pallas_interpret(H, nh, with_bias, causal,
     t_lse_tpu = t_lse.numpy().reshape(B, H // 128, 128 // D, S)
     live = [b for b in range(B) if not (dead_row and b == DEAD)]
     j_out, j_lse = np.asarray(j_out), np.asarray(j_lse)
-    np.testing.assert_allclose(t_out.numpy()[live], j_out[live], atol=ATOL,
-                               rtol=0)
+    assert t_out.numpy().dtype == j_out.dtype == qkv.dtype
+    assert t_lse.dtype == torch.float32
+    rtol = OUT_RTOL[dtype]
+    t_out = t_out.float().numpy()
+    j_out = j_out.astype("float32")
+    np.testing.assert_allclose(t_out[live], j_out[live], atol=ATOL,
+                               rtol=rtol)
     np.testing.assert_allclose(t_lse_tpu[live], j_lse[live], atol=ATOL,
                                rtol=0)
     if dead_row:
-        np.testing.assert_allclose(t_out.numpy()[DEAD], j_out[DEAD],
-                                   atol=DEAD_OUT_ATOL, rtol=0)
+        np.testing.assert_allclose(t_out[DEAD], j_out[DEAD],
+                                   atol=DEAD_OUT_ATOL, rtol=rtol)
         np.testing.assert_allclose(t_lse_tpu[DEAD], j_lse[DEAD],
                                    atol=DEAD_LSE_ATOL, rtol=0)
 
@@ -158,3 +171,19 @@ def test_reference_bfloat16_tracks_float32():
                                atol=2e-2, rtol=0)
     np.testing.assert_allclose(lse16.numpy(), lse32.numpy(), atol=0,
                                rtol=0)
+
+
+def test_reference_float16_rounds_once():
+    """fp16 inputs compute in fp32 and round only the output, to nearest:
+    within half an fp16 ulp of the fp32 result (2**-11 relative, 2**-25
+    absolute among the subnormals); the lse is the fp32 one."""
+    qkv, bias = _inputs(128, seed=9, with_bias=True, dead_row=True)
+    q16 = torch.from_numpy(qkv).to(torch.float16)
+    out16, lse16 = tfa.flash_attention_packed_reference(
+        q16, torch.from_numpy(bias), 2)
+    out32, lse32 = tfa.flash_attention_packed_reference(
+        q16.float(), torch.from_numpy(bias), 2)
+    assert out16.dtype == torch.float16
+    np.testing.assert_allclose(out16.float().numpy(), out32.numpy(),
+                               atol=2.0 ** -25, rtol=2.0 ** -11)
+    np.testing.assert_array_equal(lse16.numpy(), lse32.numpy())

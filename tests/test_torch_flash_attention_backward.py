@@ -5,8 +5,8 @@ to the Pallas backward kernels (``_packed_backward`` in interpret mode, as
 tests/test_attention.py runs them on the CPU) and to ``jax.grad`` of
 ``flash_attention_packed_bias``; the ``torch.autograd.Function`` that the
 ``flash_attention_qkv`` op runs is held to both and to autograd through
-the plain forward.  Inputs come from numpy with a fixed seed; fp32, S 64
-with blocks of 32.  Tolerances are stated where they are set.
+the plain forward.  Inputs come from numpy with a fixed seed; fp32 and
+fp16, S 64 with blocks of 32.  Tolerances are stated where they are set.
 """
 import importlib
 
@@ -40,6 +40,16 @@ BWD_ATOL = 5e-5   # dqkv and dbias: sums of 64 O(1) products, other order
 # the all-padding row: p = exp(s - lse) with s and lse near -1e4, each
 # carrying up to an ulp (2**-10) there, so p is good to ~2**-9 relative
 BWD_DEAD_ATOL = 2.0 ** -6
+# fp16: both sides take the same fp16-rounded inputs, compute in fp32 and
+# round dqkv once to fp16 (dbias stays in the bias's fp32), so dqkv is
+# held besides to rel 2**-10, one fp16 ulp
+GRAD_RTOL = {"float32": 0.0, "float16": 2.0 ** -10}
+# through autograd each side also rounds its own forward's out to fp16,
+# and the two outs may part by an fp16 ulp (2**-11 of O(1) values); it
+# enters every row's delta = rowsum(dO * O) and so each dS, and p sums
+# to 1 over a row: 2**-12 on the fp16 grads (readings up to 7.6e-5)
+AUTOGRAD_ATOL = {"float32": BWD_ATOL, "float16": 2.0 ** -12}
+DTYPES = ["float32", "float16"]
 
 BWD_CASES = [
     # (H, num_heads, with_bias, causal, dead_row): each width (two heads
@@ -52,12 +62,14 @@ BWD_CASES = [
 ]
 
 
-def _bwd_case(H, nh, with_bias, causal, dead_row, seed):
-    """Inputs, a cotangent, and the forward's out and lse [B, nh, S] from
-    the JAX package's blockwise_attention (the Pallas forward's equality
-    to it is held above; interpret mode would triple this file's time)."""
+def _bwd_case(H, nh, with_bias, causal, dead_row, seed, dtype="float32"):
+    """Inputs and a cotangent in `dtype`, and the forward's out (in
+    `dtype`) and lse [B, nh, S] (fp32) from the JAX package's
+    blockwise_attention (the Pallas forward's equality to it is held
+    above; interpret mode would triple this file's time)."""
     qkv, bias = _inputs(H, seed, with_bias, dead_row)
-    g = np.random.RandomState(seed + 1).randn(B, S, H).astype("float32")
+    qkv = qkv.astype(dtype)
+    g = np.random.RandomState(seed + 1).randn(B, S, H).astype(dtype)
     D = H // nh
     x = qkv.reshape(B, S, 3, nh, D)
     q, k, v = (jnp.asarray(x[:, :, i].transpose(0, 2, 1, 3)) for i in range(3))
@@ -66,22 +78,26 @@ def _bwd_case(H, nh, with_bias, causal, dead_row, seed):
         else jnp.asarray(bias))
     out = np.asarray(out).transpose(0, 2, 1, 3).reshape(B, S, H)
     lse = np.asarray(m) + np.log(np.asarray(l))
-    return qkv, bias, g, out, lse.astype("float32")
+    return qkv, bias, g, out.astype(dtype), lse.astype("float32")
 
 
-def _assert_rows(got, want, dead_row, atol=BWD_ATOL):
+def _assert_rows(got, want, dead_row, atol=BWD_ATOL, rtol=0.0):
+    got, want = np.asarray(got, "float32"), np.asarray(want, "float32")
     live = [b for b in range(B) if not (dead_row and b == DEAD)]
-    np.testing.assert_allclose(got[live], want[live], atol=atol, rtol=0)
+    np.testing.assert_allclose(got[live], want[live], atol=atol, rtol=rtol)
     if dead_row:
         np.testing.assert_allclose(got[DEAD], want[DEAD], atol=BWD_DEAD_ATOL,
-                                   rtol=0)
+                                   rtol=rtol)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("H,nh,with_bias,causal,dead_row", BWD_CASES)
 def test_backward_reference_matches_pallas_interpret(H, nh, with_bias,
-                                                     causal, dead_row):
+                                                     causal, dead_row,
+                                                     dtype):
     qkv, bias, g, out, lse = _bwd_case(H, nh, with_bias, causal, dead_row,
-                                       seed=H + 3 * causal + with_bias)
+                                       seed=H + 3 * causal + with_bias,
+                                       dtype=dtype)
     # the TPU kernels' lse layout [B, H/128, 128/D, S] is [B, nh, S]
     j_dqkv, j_db = jfa._packed_backward(
         jnp.asarray(qkv), nh, jnp.asarray(out),
@@ -95,23 +111,30 @@ def test_backward_reference_matches_pallas_interpret(H, nh, with_bias,
         torch.from_numpy(lse), torch.from_numpy(g), nh,
         causal, None)
     assert tfa.flash_attention_packed_backward_reference.calls == calls + 1
-    assert t_dqkv.shape == (B, S, 3 * H) and t_dqkv.dtype == torch.float32
-    _assert_rows(t_dqkv.numpy(), np.asarray(j_dqkv), dead_row)
+    assert t_dqkv.shape == (B, S, 3 * H)
+    assert t_dqkv.numpy().dtype == np.asarray(j_dqkv).dtype == qkv.dtype
+    _assert_rows(t_dqkv.float().numpy(), j_dqkv, dead_row,
+                 rtol=GRAD_RTOL[dtype])
     if with_bias:
-        _assert_rows(t_db.numpy(), np.asarray(j_db), dead_row)
+        assert t_db.dtype == torch.float32
+        _assert_rows(t_db.numpy(), j_db, dead_row)
     else:
         assert t_db is None and j_db is None
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("H,nh,causal", [(128, 2, True)])
-def test_autograd_function_matches_jax_grad(H, nh, causal):
+def test_autograd_function_matches_jax_grad(H, nh, causal, dtype):
     """d/d(qkv, bias) of <out, g> through the port's autograd.Function
     (plain versions on the CPU) against jax.grad of
-    flash_attention_packed_bias in interpret mode."""
+    flash_attention_packed_bias in interpret mode.  In fp16 the grads of
+    qkv are fp16 and the bias's fp32, both held besides to rel one fp16
+    ulp (see AUTOGRAD_ATOL)."""
     import jax
 
     qkv, bias = _inputs(H, seed=21 + H, with_bias=True)
-    g = np.random.RandomState(5).randn(B, S, H).astype("float32")
+    qkv = qkv.astype(dtype)
+    g = np.random.RandomState(5).randn(B, S, H).astype(dtype)
 
     def f(x, b):
         return (jfa.flash_attention_packed_bias(
@@ -121,12 +144,16 @@ def test_autograd_function_matches_jax_grad(H, nh, causal):
                                              jnp.asarray(bias))
     x = torch.from_numpy(qkv).requires_grad_(True)
     b = torch.from_numpy(bias).requires_grad_(True)
-    (tfa.flash_attention_packed_autograd(x, b, nh, causal)
-     * torch.from_numpy(g)).sum().backward()
-    np.testing.assert_allclose(x.grad.numpy(), np.asarray(j_dx),
-                               atol=BWD_ATOL, rtol=0)
+    (tfa.flash_attention_packed_autograd(x, b, nh, causal).float()
+     * torch.from_numpy(g).float()).sum().backward()
+    assert x.grad.dtype == x.dtype and b.grad.dtype == torch.float32
+    np.testing.assert_allclose(x.grad.float().numpy(),
+                               np.asarray(j_dx, "float32"),
+                               atol=AUTOGRAD_ATOL[dtype],
+                               rtol=GRAD_RTOL[dtype])
+    # the bias grad stays fp32 but sums the dS that the outs' ulp moved
     np.testing.assert_allclose(b.grad.numpy(), np.asarray(j_db),
-                               atol=BWD_ATOL, rtol=0)
+                               atol=BWD_ATOL, rtol=GRAD_RTOL[dtype])
 
 
 @pytest.mark.parametrize("with_bias,causal", [(True, False), (False, True)])

@@ -8,13 +8,19 @@ mode (``_flash_forward``, ``_flash_backward``, with the small blocks
 tests/test_attention.py uses), and the ``torch.autograd.Function`` that
 the ``flash_attention`` op runs is held to ``jax.grad`` through the
 ``flash_attention`` / ``flash_attention_bias`` custom_vjp.  Inputs come
-from numpy with a fixed seed; fp32.
+from numpy with a fixed seed; fp32 and fp16.
 
 Tolerances: atol 1e-5 on out and lse and 5e-5 on the gradients (sums of
 up to 128 O(1) products in another order).  A batch row whose keys are all
 padding scores near -1e4, where one fp32 ulp is 2**-10: that row is held
 to half an ulp on out, one on the lse, and 2**-6 on the gradients
-(p = exp(s - lse) with s and lse each carrying up to an ulp).
+(p = exp(s - lse) with s and lse each carrying up to an ulp).  In fp16
+both sides take the same fp16-rounded q, k, v and dO, compute in fp32 and
+round out, dq, dk and dv once to fp16 (lse and dbias stay fp32): those
+are held besides to rel 2**-10, one fp16 ulp.  Through autograd each
+side also rounds its own forward's out, which may part by an fp16 ulp
+and enters every delta = rowsum(dO * O): 2**-12 on the fp16 grads and
+rel 2**-10 on dbias there.
 """
 import importlib
 
@@ -37,26 +43,31 @@ DEAD_OUT_ATOL = 2.0 ** -11   # half an ulp of fp32 at 1e4
 DEAD_LSE_ATOL = 2.0 ** -10   # one ulp of fp32 at 1e4
 DEAD_GRAD_ATOL = 2.0 ** -6
 DEAD = 1  # the batch row an all-padding bias masks out entirely
+DTYPES = ["float32", "float16"]
+RTOL = {"float32": 0.0, "float16": 2.0 ** -10}  # one fp16 ulp
+AUTOGRAD_ATOL = {"float32": GRAD_ATOL, "float16": 2.0 ** -12}
 
 CASES = [
-    # (Sq, Sk, D, causal, with_bias, dead_row): D 16 and 64, causal or
-    # not, bias or not, Sq = Sk and Sq != Sk both ways
+    # (Sq, Sk, D, causal, with_bias, dead_row): D 16, 64 and 128, causal
+    # or not, bias or not, Sq = Sk and Sq != Sk both ways
     (64, 64, 16, False, False, False),
     (64, 64, 64, True, False, False),
     (64, 96, 16, False, True, True),
     (96, 64, 64, True, True, False),
     (64, 128, 64, True, False, False),
+    (64, 64, 128, True, True, True),
 ]
 IDS = [f"Sq{c[0]}_Sk{c[1]}_D{c[2]}_{'causal' if c[3] else 'full'}"
        f"{'_bias' if c[4] else ''}{'_dead' if c[5] else ''}" for c in CASES]
 
 
-def _inputs(Sq, Sk, D, with_bias, dead_row, seed):
+def _inputs(Sq, Sk, D, with_bias, dead_row, seed, dtype="float32"):
+    """q, k, v and a cotangent in `dtype`; the bias in fp32."""
     rng = np.random.RandomState(seed)
-    q = rng.randn(B, H, Sq, D).astype("float32")
-    k = rng.randn(B, H, Sk, D).astype("float32")
-    v = rng.randn(B, H, Sk, D).astype("float32")
-    g = rng.randn(B, H, Sq, D).astype("float32")
+    q = rng.randn(B, H, Sq, D).astype(dtype)
+    k = rng.randn(B, H, Sk, D).astype(dtype)
+    v = rng.randn(B, H, Sk, D).astype(dtype)
+    g = rng.randn(B, H, Sq, D).astype(dtype)
     bias = None
     if with_bias:
         mask = (rng.rand(B, Sk) > 0.25).astype("float32")
@@ -74,20 +85,23 @@ def _j(x):
     return None if x is None else jnp.asarray(x)
 
 
-def _assert_rows(got, want, dead_row, atol, dead_atol):
-    got, want = np.asarray(got), np.asarray(want)
+def _assert_rows(got, want, dead_row, atol, dead_atol, rtol=0.0):
+    got, want = np.asarray(got, "float32"), np.asarray(want, "float32")
     live = [b for b in range(B) if not (dead_row and b == DEAD)]
-    np.testing.assert_allclose(got[live], want[live], atol=atol, rtol=0)
+    np.testing.assert_allclose(got[live], want[live], atol=atol, rtol=rtol)
     if dead_row:
         np.testing.assert_allclose(got[DEAD], want[DEAD], atol=dead_atol,
-                                   rtol=0)
+                                   rtol=rtol)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("Sq,Sk,D,causal,with_bias,dead_row", CASES,
                          ids=IDS)
 def test_forward_reference_matches_pallas_interpret(Sq, Sk, D, causal,
-                                                    with_bias, dead_row):
-    q, k, v, _, bias = _inputs(Sq, Sk, D, with_bias, dead_row, seed=Sq + D)
+                                                    with_bias, dead_row,
+                                                    dtype):
+    q, k, v, _, bias = _inputs(Sq, Sk, D, with_bias, dead_row, seed=Sq + D,
+                               dtype=dtype)
     j_out, j_lse = jfa._flash_forward(_j(q), _j(k), _j(v), causal, None, BQ,
                                       BK, True, bias=_j(bias))
     calls = tfa.flash_attention_reference.calls
@@ -96,18 +110,22 @@ def test_forward_reference_matches_pallas_interpret(Sq, Sk, D, causal,
     assert tfa.flash_attention_reference.calls == calls + 1
     assert t_out.shape == (B, H, Sq, D) and t_lse.shape == (B, H, Sq)
     assert t_lse.dtype == torch.float32
-    _assert_rows(t_out.numpy(), j_out, dead_row, ATOL, DEAD_OUT_ATOL)
+    assert t_out.numpy().dtype == np.asarray(j_out).dtype == q.dtype
+    _assert_rows(t_out.float(), j_out, dead_row, ATOL, DEAD_OUT_ATOL,
+                 RTOL[dtype])
     _assert_rows(t_lse.numpy(), j_lse, dead_row, ATOL, DEAD_LSE_ATOL)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("Sq,Sk,D,causal,with_bias,dead_row", CASES,
                          ids=IDS)
 def test_backward_reference_matches_pallas_interpret(Sq, Sk, D, causal,
-                                                     with_bias, dead_row):
+                                                     with_bias, dead_row,
+                                                     dtype):
     """dq, dk, dv and dbias of the plain backward against ``_flash_backward``
     in interpret mode, both from the JAX forward's out and lse."""
     q, k, v, g, bias = _inputs(Sq, Sk, D, with_bias, dead_row,
-                               seed=3 * Sq + D)
+                               seed=3 * Sq + D, dtype=dtype)
     out, lse = jfa._flash_forward(_j(q), _j(k), _j(v), causal, None, BQ, BK,
                                   True, bias=_j(bias))
     want = jfa._flash_backward(_j(q), _j(k), _j(v), out, lse, _j(g), causal,
@@ -118,25 +136,29 @@ def test_backward_reference_matches_pallas_interpret(Sq, Sk, D, causal,
         _t(np.array(lse)), _t(g), causal)
     assert tfa.flash_attention_backward_reference.calls == calls + 1
     for name, t, w in zip(("dq", "dk", "dv"), got[:3], want[:3]):
-        assert t.shape == w.shape and t.dtype == torch.float32, name
-        _assert_rows(t.numpy(), w, dead_row, GRAD_ATOL, DEAD_GRAD_ATOL)
+        assert t.shape == w.shape, name
+        assert t.numpy().dtype == np.asarray(w).dtype == q.dtype, name
+        _assert_rows(t.float(), w, dead_row, GRAD_ATOL, DEAD_GRAD_ATOL,
+                     RTOL[dtype])
     if with_bias:
+        assert got[3].dtype == torch.float32
         _assert_rows(got[3].numpy(), want[3], dead_row, GRAD_ATOL,
                      DEAD_GRAD_ATOL)
     else:
         assert got[3] is None and want[3] is None
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("Sq,Sk,D,causal,with_bias,dead_row",
                          [CASES[1], CASES[3], CASES[4]],
                          ids=[IDS[1], IDS[3], IDS[4]])
 def test_autograd_function_matches_jax_grad(Sq, Sk, D, causal, with_bias,
-                                            dead_row):
+                                            dead_row, dtype):
     """d/d(q, k, v, bias) of <out, g> through the port's autograd.Function
     (plain versions on the CPU) against jax.grad of the custom_vjp
     ``flash_attention`` / ``flash_attention_bias`` in interpret mode."""
     q, k, v, g, bias = _inputs(Sq, Sk, D, with_bias, dead_row,
-                               seed=5 * Sq + D)
+                               seed=5 * Sq + D, dtype=dtype)
     if bias is None:
         def f(q, k, v):
             return (jfa.flash_attention(q, k, v, causal, None, BQ, BK, True)
@@ -150,12 +172,15 @@ def test_autograd_function_matches_jax_grad(Sq, Sk, D, causal, with_bias,
                                                  _j(bias))
     xs = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
     b = None if bias is None else torch.from_numpy(bias).requires_grad_(True)
-    (tfa.flash_attention_autograd(*xs, b, causal) * _t(g)).sum().backward()
+    (tfa.flash_attention_autograd(*xs, b, causal).float()
+     * _t(g).float()).sum().backward()
     got = [x.grad for x in xs] + ([] if b is None else [b.grad])
     assert len(got) == len(want)
     for t, w in zip(got, want):
-        np.testing.assert_allclose(t.numpy(), np.asarray(w), atol=GRAD_ATOL,
-                                   rtol=0)
+        assert t.numpy().dtype == np.asarray(w).dtype
+        np.testing.assert_allclose(t.float().numpy(), np.asarray(w, "float32"),
+                                   atol=AUTOGRAD_ATOL[dtype],
+                                   rtol=RTOL[dtype])
 
 
 @pytest.mark.parametrize("with_bias,causal", [(True, False), (False, True)])

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Times the fp32 kernels of one checkout on one card.
+"""Times the fp32 kernels (and hashes the 16-bit attention kernels) of
+one checkout on one card.
 
     python3 time_fp32.py [--what {forward,backward,gemm,rms_norm,
-                                  gemm_plans}] [--checkout DIR]
+                                  gemm_plans,attention16}] [--checkout DIR]
                          [--sdpa-sass]
 
 Imports ``paddle_tpu_torch`` from DIR (default: the directory of this
@@ -25,7 +26,13 @@ across checkouts show equal bits.  ``gemm_plans`` (this checkout's
 wrapper only): the device time of every tiled launch (K split) and
 skinny launch (lane width x cluster) at the main path's shapes, each
 output held bit-equal to the chosen launch's, beside the launch model's
-time (``gemm.tiled_time``).  Prints the card's name and power limit, then one
+time (``gemm.tiled_time``).  ``attention16``: the six tensor-core
+attention kernels in bfloat16 and float16 (a checkout without float16
+reports it not supported) at BERT's training shape (packed, padding
+bias, bias gradient) and the Llama shape (unpacked views, causal), each
+output's sha256 on inputs from fixed seeds and each kernel's device time:
+equal hashes across checkouts show equal bits.  Prints the card's name
+and power limit, then one
 JSON line {"checkout": DIR, "what": ..., "rows": ...}.  With --sdpa-sass
 (backward only) it also prints, for the longest kernel of
 scaled_dot_product_attention's backward at each shape, the count of
@@ -154,11 +161,90 @@ def time_plans(gemm, smoke, device, only=""):
     return rows
 
 
+def attention16(fa, smoke, device):
+    """{dtype: {kernel: {"sha256": [outputs' digests], "device_ms": ...}}}
+    of the six kernels in bfloat16 and float16 at BERT's training shape
+    (packed) and the Llama shape (unpacked, causal), on chip_smoke's
+    seeded inputs; a dtype the checkout's wrappers refuse is "not
+    supported"."""
+    import math
+
+    import torch
+
+    rows = {}
+    for dtype in ("bfloat16", "float16"):
+        B, S, H, nh = 8, 512, 768, 12
+        qkv, bias = smoke.make_inputs(B, S, H, "pad_dead_row", 17, device,
+                                      dtype)
+        try:
+            fa.flash_attention_packed(qkv, bias, nh)
+        except TypeError as e:
+            rows[dtype] = f"not supported ({e})"
+            continue
+        out, lse, dout = smoke.backward_inputs(fa, qkv, bias, nh, False, 18)
+        got, got_lse = fa.flash_attention_packed(qkv, bias, nh)
+        scale = 1.0 / math.sqrt(H // nh)
+        delta = fa.backward_delta(out, dout, nh)
+        dqkv = torch.zeros_like(qkv)
+        db = torch.zeros((B, nh, S), dtype=torch.float32, device=device)
+        fa.flash_attention_packed_dkv(qkv, bias, dout, lse, delta, dqkv, db,
+                                      nh, False, scale)
+        dkv = (smoke.sha256(dqkv[..., H:]), smoke.sha256(db))
+        fa.flash_attention_packed_dq(qkv, bias, dout, lse, delta, dqkv, nh,
+                                     False, scale)
+        r = {"packed_fwd": dict(sha256=[smoke.sha256(got), smoke.sha256(got_lse)],
+                                device_ms=smoke.device_ms(
+                                    lambda: fa.flash_attention_packed(
+                                        qkv, bias, nh), 10)),
+             "packed_dkv": dict(sha256=list(dkv), device_ms=smoke.device_ms(
+                 lambda: fa.flash_attention_packed_dkv(
+                     qkv, bias, dout, lse, delta, dqkv, db, nh, False,
+                     scale), 10)),
+             "packed_dq": dict(sha256=[smoke.sha256(dqkv[..., :H])],
+                               device_ms=smoke.device_ms(
+                                   lambda: fa.flash_attention_packed_dq(
+                                       qkv, bias, dout, lse, delta, dqkv,
+                                       nh, False, scale), 10))}
+        q, k, v, _, dout = smoke.unpacked_inputs(1, 32, 2048, 2048, 128,
+                                                 "none", True, 17, device,
+                                                 dtype)
+        out, lse = fa.flash_attention_unpacked(q, k, v, None, True)
+        delta = (dout.float() * out.float()).sum(-1).contiguous()
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        scale = 1.0 / math.sqrt(128)
+        fa.flash_attention_unpacked_dkv(q, k, v, None, dout, lse, delta, dk,
+                                        dv, None, True, scale)
+        fa.flash_attention_unpacked_dq(q, k, v, None, dout, lse, delta, dq,
+                                       True, scale)
+        r["unpacked_fwd"] = dict(sha256=[smoke.sha256(out), smoke.sha256(lse)],
+                                 device_ms=smoke.device_ms(
+                                     lambda: fa.flash_attention_unpacked(
+                                         q, k, v, None, True), 5))
+        r["unpacked_dkv"] = dict(sha256=[smoke.sha256(dk), smoke.sha256(dv)],
+                                 device_ms=smoke.device_ms(
+                                     lambda: fa.flash_attention_unpacked_dkv(
+                                         q, k, v, None, dout, lse, delta, dk,
+                                         dv, None, True, scale), 5))
+        r["unpacked_dq"] = dict(sha256=[smoke.sha256(dq)],
+                                device_ms=smoke.device_ms(
+                                    lambda: fa.flash_attention_unpacked_dq(
+                                        q, k, v, None, dout, lse, delta, dq,
+                                        True, scale), 5))
+        for name, row in r.items():
+            smoke.log(f"  {dtype} {name}: {row['device_ms']:.5f} ms device, "
+                      f"sha256 {[h[:16] for h in row['sha256']]}")
+        rows[dtype] = r
+        del qkv, bias, out, lse, dout, dqkv, q, k, v, dq, dk, dv
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--what", choices=("forward", "backward", "gemm",
-                                       "rms_norm", "gemm_plans"),
-                    default="forward", help="which fp32 kernels to time")
+                                       "rms_norm", "gemm_plans",
+                                       "attention16"),
+                    default="forward", help="which kernels to time")
     ap.add_argument("--checkout", default=HERE,
                     help="directory holding the paddle_tpu_torch to time")
     ap.add_argument("--only", default="",
@@ -185,8 +271,10 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
-    smoke.log(f"timing the fp32 {args.what} of {checkout}")
-    if args.what == "forward":
+    smoke.log(f"timing the {args.what} kernels of {checkout}")
+    if args.what == "attention16":
+        rows = attention16(fa, smoke, device)
+    elif args.what == "forward":
         rows = smoke.time_forward_f32(fa, device)
     elif args.what == "gemm":
         from paddle_tpu_torch.ops.cuda import gemm
