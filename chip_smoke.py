@@ -14,12 +14,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ptxas's registers and spills per kernel, and per kernel function the
    count of HGMMA (wgmma) and UTMALDG (TMA load) instructions in
    cuobjdump's SASS.  Each tensor-core kernel (fa_fwd_tc_kernel,
-   fa_dq_tc_kernel, fa_dkv_tc_kernel; bfloat16 and float16, at D 64 and
-   128) must show HGMMA and UTMALDG in its own code, the proof that the
-   tensor cores run on TMA-loaded tiles, and spill nothing;
-   nor may the fp32 forward (fa_fwd_f32_kernel at D 64 and 128, 16- and
+   fa_dq_tc_kernel, fa_dkv_tc_kernel; bfloat16 and float16, at D 32, 64
+   and 128) must show HGMMA and UTMALDG in its own code, the proof that
+   the tensor cores run on TMA-loaded tiles, and spill nothing;
+   nor may the fp32 forward (fa_fwd_f32_kernel at D 32 with 64-row q
+   tiles, at D 64 and 128 with 16- and
    64-row q tiles) or the fp32 backward (fa_dkv_f32_kernel and
-   fa_dq_f32_kernel, 8-warp blocks of 128 rows at D 64 and 64 at D 128);
+   fa_dq_f32_kernel, 8-warp blocks of 128 rows at D 32 and 64 and of 64
+   at D 128);
    a ptxas warning
    C7508 (setmaxnreg ignored) or C7512 (wgmmas serialised for want of
    registers) fails the phase.
@@ -556,8 +558,55 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    The "fp16:" JSON line holds the numbers and the phase's seconds, and
    the seconds of phases 3 and 7's fp16 cases, times and overflow
    checks.
+17. MiniLM-L12-H384 and bench.py's seq-128 step (run right after phase
+   7: right after phase 16 the profiler saw no device time in any
+   session, even of one elementwise kernel, for 40 s of tries).  MiniLM-L12-H384 (Wang
+   et al. 2020; microsoft/MiniLM-L12-H384-uncased: 12 layers, hidden
+   384, 12 heads of 32, intermediate 1536, vocab 30522) at its published
+   widths, no cut: BERT's builder sends head_dim 32 through the
+   unpacked flash_attention op, kernels #4-#6 at D 32 (64-byte-swizzled
+   16-bit tiles).
+   a. the unpacked kernels at D 32 against their plain versions over
+      unpacked_cases(32) (phase 7's grid at D 32) in fp32, bf16 and
+      fp16 at phase 7's limits; fp16's overflow check at [2, 4, 128,
+      32]; every D-32 instantiation's HGMMA / UTMALDG (16-bit) and
+      spills from phase 2's build (none may spill); then each kernel's
+      event and device times at MiniLM's training shape [32, 12, 512,
+      32] (bf16 and fp16) and its serving shape [4, 12, 128, 32] (fp32),
+      not causal, a padding bias, beside its plain version, SDPA with
+      the bias as its mask and the bound: the largest of the bytes, the
+      products and the exponentials (B*nh*S^2 of them at ~3.9e12 a
+      second, PEAK_EXP_PER_S; they bound every D-32 kernel).
+   b. MiniLM serving: build_bert_pretrain(is_test=True) at seq 128,
+      fp32, saved and served by a Predictor on the card, batches 1, 4
+      and 8, two requests each: 12 launches of #4 and one product kernel
+      launch a forward product a request, no plain call, no realigned
+      operand; each row of a batch-4 request equal to the row served
+      alone (tolerance 0); batch 4 against a CPU Predictor at phase 4's
+      limits (logits 1e-3, loss rel 1e-4).
+   c. MiniLM training: card against the CPU in fp32 at 2 layers, seq
+      128, batch 2 (phase 5's gates); then bench.py's recipe at seq 512,
+      batch 32, 77 predictions, bf16 AMP, dropout 0.1 through
+      train_flagship: 6 steps of 12 / 12 / 12 launches of #4-#6, the
+      run_async window and a profiled replay whose attention kernels are
+      exactly fa_{fwd,dkv,dq}_tc_kernel<__nv_bfloat16, 32>.
+   d. bench.py's default leg, BENCH_SEQ=128, at BERT-base: batch 192, 19
+      predictions, bf16 AMP, dropout 0.1, attention unfused as
+      _attn_for(128) picks it (matmul, softmax, probability dropout):
+      train_flagship (no attention kernel and no plain call a step, the
+      run_async window, a profiled replay); the same 6 steps captured
+      against FLAGS_check_nan_inf's eager debug run at the same run
+      counts, bit for bit, dropout masks included; at dropout 0 the
+      unfused, einsum ("xla") and packed-flash lives (3 steps each, the
+      unfused life's weights copied into the other two; the first two
+      launch no attention kernel, the packed one 12 / 12 / 12 of #1-#3
+      a step) give losses within SEQ128_LOSS_RTOL = 1e-2 relative of
+      the unfused life's (bf16 rounds at other places in each); then
+      BERT-base serving with use_flash=False at seq 128 as in b (no
+      attention kernel; the 24 matmuls on the product kernel).
+   The "minilm:" and "seq128:" JSON lines hold the numbers and seconds.
 
-Every profiled replay (phases 4, 5, 6, 9, 15 and 16) also holds the
+Every profiled replay (phases 4, 5, 6, 9, 15, 16 and 17) also holds the
 profiler's launches of the forward, dK/dV and dQ kernels against what the
 replay-aware counters added over it: a replay runs no wrapper, so this
 is what shows that the counts the per-step gates read are the
@@ -566,13 +615,13 @@ while the two disagree the replay is profiled again, up to 3 in all,
 each profile's kernel records and launches logged.  A disagreement is
 put down to lost records only in a profile with fewer kernel records
 than another of the same replay; the profile with the most records
-must agree (phases 4, 5, 6, 9 and 16).  Phase 15's replays, late in the
+must agree (phases 4, 5, 6, 9, 16 and 17).  Phase 15's replays, late in the
 run, are held leniently: a profile whose launches equal the counters'
 proves them (its device numbers stand only if it is the fullest), a
 profile that saw more launches than the counters added fails, and where
 every profile falls short the device numbers are not measured.
 
-On every path (phases 4, 5, 6, 8, 9, 10, 15, 16) no 16-bit operand is copied to
+On every path (phases 4, 5, 6, 8, 9, 10, 15, 16, 17) no 16-bit operand is copied to
 meet TMA's 16-byte alignment: the launching wrappers' ".realigned"
 counts stay 0.
 
@@ -590,7 +639,9 @@ generation_disagg (10d's pair, both transports), serving_engine (11a's
 (13a in process), chaos (13b in this process), train_guard (phase
 14's three lives), recompute_bert_plain, recompute_bert,
 recompute_llama_plain and recompute_llama (phase 15's lives),
-training_fp16 and llama_fp16 (16a's and 16b's flagships); and
+training_fp16 and llama_fp16 (16a's and 16b's flagships),
+minilm_serving, minilm_parity (card steps) and minilm_flagship (17b,
+17c), seq128_unfused and seq128_serving (17d); and
 fleet_serving,
 fleet_generation and chaos_fleet (12a, 12b, 13b's probe fleet), which
 count kernel records in a replica's /profilez trace instead (the
@@ -600,23 +651,29 @@ forward at the largest prefill bucket, [1, 32, 512, 128] causal; #4-#6
 carry "seq4096": their bf16 rows at phase 15b's [1, 32, 4096, 128]; all
 six carry "f16": their fp16 kernel's device_ms, ms, bound_ms,
 max_abs_err and SDPA's fp16 library_device_ms, at BERT's training shape
-[8, 512, 2304] (packed) and the Llama shape (unpacked). The
+[8, 512, 2304] (packed) and the Llama shape (unpacked). Entries 7-9
+are #4-#6 at D 32 (flash_attention_{fwd,dkv,dq}_d32): their bf16 rows at
+MiniLM's training shape [32, 12, 512, 32] with "bound_quantity" (which
+of bytes, products and exponentials sets the bound), "launches" phase
+17c's flagship's, "f16" their fp16 rows at the same shape and "f32"
+their fp32 rows at MiniLM's serving shape ("f32_shape"). The
 four backward entries also carry "f32": their fp32 kernel's device_ms,
 ms, bound_ms and SDPA's fp32 backward's library_device_ms at the same
 shape (BERT's training shape for the packed, the Llama shape for the
-unpacked ones). The seventh entry is the product kernel (gemm_f32): its
+unpacked ones). The tenth entry is the product kernel (gemm_f32): its
 row the decode step's qkv product (M 4, K 4096, N 12288), its "launches"
 phase 10b's dense traffic's, "tolerance_ratio" the largest |kernel -
 plain| / gemm.tolerance of phase 2 and the smallest of its TF32 and bf16
 controls, "shapes" every shape phase 2 timed (decode attention's
-products among them); the eighth the RMSNorm
+products among them); the eleventh the RMSNorm
 kernel (rms_norm_f32): its row the decode step's [4, 4096], "library_ms"
 torch.nn.functional.rms_norm's. The last lines are the card's name and
 power limit, one {"kernels": ...} JSON line, and {"ok": true, "device":
 {...}}. Before them, one "compiled step:" JSON line holds each profiled
 path's wall ms, device busy ms, idle share and host launches
 (serving_b4, bert_fp32, bert_flagship, llama_flagship, bert_fp16,
-llama_fp16) and the attention kernels' element types each ran, the run_async
+llama_fp16, minilm_flagship, seq128_unfused) and the attention kernels'
+element types and instantiations each ran, the run_async
 windows' ms/step and tokens/s, whether captured = eager came out
 bit-equal and the memory with two captured Llama entries
 (llama_two_signatures), and phase 10's profiled replays
@@ -629,6 +686,7 @@ run_async and Predictor.run on the card: the first run of a signature
 eager, the second captured as one CUDA graph, the rest replays), and
 closes its executor (graphs and pools) before the next.
 """
+import contextlib
 import json
 import math
 import os
@@ -650,6 +708,11 @@ BYTECODE_CACHE = os.path.join(HERE, "paddle_tpu_torch", "_build", "pycache")
 # tensor-core rate.  A kernel's bound uses the peak for its inputs' type.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOP_PER_S = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
+# the exponentials of the special-function units, ~3.9e12 a second on an
+# H100 SXM (Shah et al. 2024, FlashAttention-3, section 1): at head_dim 32
+# an attention kernel's B*nh*Sq*Sk exponentials take longer than its
+# products (4*B*nh*Sq*Sk*D flop forward)
+PEAK_EXP_PER_S = 3.9e12
 
 BERT = dict(batch_size=4, seq_len=128, vocab_size=30522, hidden=768,
             num_layers=12, num_heads=12, intermediate=3072)
@@ -755,6 +818,37 @@ GEN_SPEC = dict(spec_tokens=4, spec_ngram=3)
 GEN_SPEC_PATTERN = 8
 GEN_SPEC_REPEATS = (64, 100, 200, 300)
 GEN_SPEC_OPT_OUT = (1, 5)
+# phase 17: MiniLM-L12-H384 (Wang et al. 2020; the config of
+# microsoft/MiniLM-L12-H384-uncased): 12 layers, hidden 384, 12 heads of
+# 32, intermediate 1536, vocab 30522, 512 positions, 2 token types: the
+# repo's bert_encoder at these widths, no cut.  BERT's builder sends head
+# dim 32 through the unpacked flash_attention op (kernels #4-#6 at D 32).
+MINILM = dict(vocab_size=30522, hidden=384, num_layers=12, num_heads=12,
+              intermediate=1536)
+MINILM_SERVE_SEQ = 128
+# 17c: card against the CPU at 2 layers, then bench.py's recipe at seq 512
+MINILM_PARITY = dict(MINILM, num_layers=2, batch_size=2, seq_len=128,
+                     max_predictions=19)
+MINILM_TRAIN = dict(MINILM, batch_size=32, seq_len=512,
+                    max_predictions=int(round(0.15 * 512)))
+MINILM_STEPS = 6
+# 17a's timed attention shapes (B, heads, S, D): MiniLM's training step
+# and a batch-4 serving request
+MINILM_TRAIN_ATTN = (32, 12, 512, 32)
+MINILM_SERVE_ATTN = (4, 12, 128, 32)
+# 17d: bench.py's default leg, BENCH_SEQ=128 (bench.py run_config:
+# batch 192 below seq 512, max_predictions round(0.15 * seq) = 19,
+# dropout 0.1, bf16 AMP), with _attn_for(128)'s unfused attention
+SEQ128 = dict(BERT_BASE, batch_size=192, seq_len=128, max_predictions=19)
+SEQ128_STEPS = 6
+# the control lives at dropout 0 (unfused, einsum, packed flash) and the
+# limit on their losses' spread: each rounds to bf16 at other places (P
+# in the flash kernels, scores and probabilities in the other two), a
+# loss near ln(30522) of random weights
+SEQ128_CONTROL_STEPS = 3
+SEQ128_LOSS_RTOL = 1e-2
+MINILM_RUN = {}
+SEQ128_RUN = {}
 # phase 11: the serving stack.  11a: BERT-base at its published widths,
 # seq 128, fp32, saved with row-shaped fetches; ServingEngine at max batch
 # 8 (buckets 1 / 2 / 4 / 8), max delay 5 ms; 64 requests of 1-3 rows from
@@ -786,22 +880,24 @@ OUT_ATOL = {"float32": FP32_OUT_ATOL, "bfloat16": BF16_OUT_ATOL,
 GRAD_ATOL = {"float32": FP32_GRAD_ATOL, "bfloat16": BF16_GRAD_ATOL,
              "float16": FP16_GRAD_ATOL}
 REL_LIMIT = {"bfloat16": BF16_REL_LIMIT, "float16": FP16_REL_LIMIT}
-# the 16-bit tensor-core kernels, each built for bf16 and fp16 at D 64
-# and 128
+# the 16-bit tensor-core kernels, each built for bf16 and fp16 at D 32, 64
+# and 128 (D 32 in 64-byte-swizzled tiles, since PR 20)
 TC_KERNELS = ("fa_fwd_tc_kernel", "fa_dq_tc_kernel", "fa_dkv_tc_kernel")
+HEAD_DIMS = (32, 64, 128)
 # the fp32 forward (template <D, warps a block>), built at D 64 and 128
-# with 16-row (2 warps of 8 rows) and 64-row (8 warps) q tiles
-F32_FWD_KERNELS = tuple(f"fa_fwd_f32_kernel<{D}, {w}>" for D in (64, 128)
-                        for w in (2, 8))
+# with 16-row (2 warps of 8 rows) and 64-row (8 warps) q tiles, at D 32
+# with 64-row ones
+F32_FWD_KERNELS = ("fa_fwd_f32_kernel<32, 8>",) + tuple(
+    f"fa_fwd_f32_kernel<{D}, {w}>" for D in (64, 128) for w in (2, 8))
 # the fp32 backward (template <D, row groups a warp>), 8-warp blocks built
-# at D 64 with 4 row groups (128 keys for dK/dV, 128 q rows for dQ) and at
-# D 128 with 2 (64 keys, 64 q rows)
+# at D 32 and 64 with 4 row groups (128 keys for dK/dV, 128 q rows for dQ)
+# and at D 128 with 2 (64 keys, 64 q rows)
 F32_BWD_KERNELS = tuple(f"{k}<{D}, {rg}>" for k in ("fa_dkv_f32_kernel",
                                                    "fa_dq_f32_kernel")
-                        for D, rg in ((64, 4), (128, 2)))
+                        for D, rg in ((32, 4), (64, 4), (128, 2)))
 # every kernel instantiation phase 2 holds to its checks, by kernel_label
 TC_LABELS = tuple(f"{kernel}<{t}, {D}>" for kernel in TC_KERNELS
-                  for t in ("bf16", "f16") for D in (64, 128))
+                  for t in ("bf16", "f16") for D in HEAD_DIMS)
 CHECKED_KERNELS = TC_LABELS + F32_FWD_KERNELS + F32_BWD_KERNELS
 
 
@@ -1014,7 +1110,7 @@ def nonfinite_kept(got, want, what):
     return n
 
 
-def check_fp16_overflow(fa, device, unpacked):
+def check_fp16_overflow(fa, device, unpacked, D=128):
     """float16 inputs that overflow give inf or NaN where the plain
     version does, never a finite value (nonfinite_kept): an inf planted
     in one v value (batch 0, key 5, head 0) reaches out; an inf planted in
@@ -1024,12 +1120,12 @@ def check_fp16_overflow(fa, device, unpacked):
     float16's rounding threshold of 65520 (values within 1e-3 relative of
     it excused: the two sum in other orders); the rest of the batch stays
     finite.  Packed [2, 128, 3 x 768] (12 heads of 64), or unpacked
-    [2, 4, 128, 128] views."""
+    [2, 4, 128, D] views."""
     import torch
 
     inf = float("inf")
     if unpacked:
-        q, k, v, _, dout = unpacked_inputs(2, 4, 128, 128, 128, "none", True,
+        q, k, v, _, dout = unpacked_inputs(2, 4, 128, 128, D, "none", True,
                                            41, device, "float16")
 
         def fwd():
@@ -1049,7 +1145,7 @@ def check_fp16_overflow(fa, device, unpacked):
                 g.float())
 
         v_at, do_at, hot = (0, 0, 5, 0), (0, 0, 3, 0), (0, 0)
-        what = "unpacked fp16 [2, 4, 128, 128]"
+        what = f"unpacked fp16 [2, 4, 128, {D}]"
 
         def dv_of(g):
             return g[2][0, 0]
@@ -1425,10 +1521,11 @@ def time_forward_flagship(fa, device, dtype):
     return row
 
 
-def unpacked_cases():
+def unpacked_cases(D=None):
     """(name, B, H, Sq, Sk, D, causal, bias kind, views, dtype): the Llama
     attention shape, D 64, ragged S 100, Sq != Sk both ways, bias or not,
-    views of [B, S, H, D] buffers or contiguous tensors."""
+    views of [B, S, H, D] buffers or contiguous tensors; with `D`, the
+    same grid at that head_dim (phase 17a's D 32)."""
     shapes = [(1, 32, 2048, 2048, 128, True, "none", True),
               (2, 4, 128, 128, 64, True, "none", True),
               (2, 4, 128, 128, 64, False, "pad_dead_row", False),
@@ -1437,6 +1534,9 @@ def unpacked_cases():
               (2, 2, 128, 384, 64, True, "pad_dead_row", True),
               (2, 2, 384, 128, 128, False, "none", True),
               (2, 2, 128, 384, 128, False, "pad_dead_row", False)]
+    if D is not None:
+        shapes = [(B, H, Sq, Sk, D, *rest)
+                  for B, H, Sq, Sk, _, *rest in shapes]
     return [(f"{dtype}_B{B}_H{H}_Sq{Sq}_Sk{Sk}_D{D}_"
              f"{'causal' if causal else 'full'}_{bias}_"
              f"{'views' if views else 'contiguous'}",
@@ -1511,15 +1611,17 @@ def unpacked_limits(dtype):
     return live, dead
 
 
-def check_unpacked(fa, device):
+def check_unpacked(fa, device, cases=None, seed=900):
+    """Each of `cases` (unpacked_cases()'s) through the unpacked kernels
+    against their plain versions, at the phase's limits."""
     import torch
 
     names = ("out", "lse", "dq", "dk", "dv", "dbias")
     for i, (name, B, H, Sq, Sk, D, causal, bias_kind, views, dtype) in \
-            enumerate(unpacked_cases()):
+            enumerate(unpacked_cases() if cases is None else cases):
         t = time.perf_counter()
         q, k, v, bias, dout = unpacked_inputs(B, H, Sq, Sk, D, bias_kind,
-                                              views, 900 + i, device, dtype)
+                                              views, seed + i, device, dtype)
         out, lse = fa.flash_attention_unpacked(q, k, v, bias, causal)
         grads = fa.flash_attention_unpacked_backward(q, k, v, bias, out, lse,
                                                      dout, causal)
@@ -1549,16 +1651,21 @@ def check_unpacked(fa, device):
     torch.cuda.empty_cache()
 
 
-def time_unpacked(fa, device, dtype, library_kernels=None, shape=None):
+def time_unpacked(fa, device, dtype, library_kernels=None, shape=None,
+                  causal=True, bias_kind="none"):
     """Times of the three unpacked kernels at the Llama flagship's
     attention shape (B 1, 32 heads, S 2048, D 128, causal, views of
     [B, S, H, D] buffers as rope leaves them), or `shape` (B, H, S, D),
-    in `dtype`, beside their
-    plain versions and scaled_dot_product_attention(is_causal=True)
-    forward and backward (torch.autograd.grad over one forward, grads of
-    q, k, v): event ms of back-to-back calls and device ms.  The timed
-    results are held to the phase's tolerances.  The work is what the
-    causal mask leaves: S (S + 1) / 2 live (q, k) pairs.  A list given as
+    in `dtype`, causal or not, with a padding bias (`bias_kind`
+    "pad_dead_row", as unpacked_inputs makes it) or none, beside their
+    plain versions and scaled_dot_product_attention (is_causal, or the
+    bias as its additive mask) forward and backward (torch.autograd.grad
+    over one forward, grads of q, k, v): event ms of back-to-back calls
+    and device ms.  The timed results are held to the phase's tolerances.
+    The work is what the causal mask leaves: S (S + 1) / 2 live (q, k)
+    pairs, else S**2.  Each bound is the largest of the bytes, the
+    products and the exponentials (one a live pair in every kernel:
+    PEAK_EXP_PER_S), its quantity in `bound_quantity`.  A list given as
     `library_kernels` gets SDPA's backward kernels (device_ms's names)."""
     import torch
     import torch.nn.functional as F
@@ -1566,32 +1673,37 @@ def time_unpacked(fa, device, dtype, library_kernels=None, shape=None):
     B, H, S, D = shape or (LLAMA_FLAGSHIP["batch_size"], LLAMA["num_heads"],
                            LLAMA_FLAGSHIP["seq_len"],
                            LLAMA["hidden"] // LLAMA["num_heads"])
-    q, k, v, _, dout = unpacked_inputs(B, H, S, S, D, "none", True, 17,
-                                       device, dtype)
+    q, k, v, bias, dout = unpacked_inputs(B, H, S, S, D, bias_kind, True, 17,
+                                          device, dtype)
     scale = 1.0 / math.sqrt(D)
+    lib_kw = dict(is_causal=True) if causal else dict(
+        attn_mask=None if bias is None else
+        bias[:, None, None, :].to(q.dtype))
     fwd_ms, fwd_dev = timed(
-        lambda: fa.flash_attention_unpacked(q, k, v, None, True), iters=10,
+        lambda: fa.flash_attention_unpacked(q, k, v, bias, causal), iters=10,
         device_iters=5)
     fwd_plain_ms = cuda_ms(
-        lambda: fa.flash_attention_reference(q, k, v, None, True), iters=3,
+        lambda: fa.flash_attention_reference(q, k, v, bias, causal), iters=3,
         warmup=1)
     fwd_lib_ms, fwd_lib_dev = timed(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True), iters=10, device_iters=5)
+        q, k, v, **lib_kw), iters=10, device_iters=5)
 
-    out, lse = fa.flash_attention_unpacked(q, k, v, None, True)
-    fa.check_unpacked_backward_inputs(q, k, v, None, out, lse, dout)
+    out, lse = fa.flash_attention_unpacked(q, k, v, bias, causal)
+    fa.check_unpacked_backward_inputs(q, k, v, bias, out, lse, dout)
     delta = (dout.float() * out.float()).sum(-1).contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dbias_heads = None if bias is None else torch.empty(
+        (B, H, S), dtype=torch.float32, device=device)
     dkv_ms, dkv_dev = timed(lambda: fa.flash_attention_unpacked_dkv(
-        q, k, v, None, dout, lse, delta, dk, dv, None, True, scale),
+        q, k, v, bias, dout, lse, delta, dk, dv, dbias_heads, causal, scale),
         iters=10, device_iters=5)
     dq_ms, dq_dev = timed(lambda: fa.flash_attention_unpacked_dq(
-        q, k, v, None, dout, lse, delta, dq, True, scale), iters=10,
+        q, k, v, bias, dout, lse, delta, dq, causal, scale), iters=10,
         device_iters=5)
     bwd_plain_ms = cuda_ms(lambda: fa.flash_attention_backward_reference(
-        q, k, v, None, out, lse, dout, True), iters=3, warmup=1)
+        q, k, v, bias, out, lse, dout, causal), iters=3, warmup=1)
     ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
-    lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl, **lib_kw)
     lib_kernels = [] if library_kernels is None else library_kernels
     bwd_lib_ms, bwd_lib_dev = timed(lambda: torch.autograd.grad(
         lib_out, (ql, kl, vl), dout, retain_graph=True), iters=10,
@@ -1599,42 +1711,51 @@ def time_unpacked(fa, device, dtype, library_kernels=None, shape=None):
     log_kernels(f"sdpa's {dtype} backward", lib_kernels)
     del lib_out, ql, kl, vl
 
-    live, _, rel = unpacked_errors(fa, q, k, v, None, dout, True, out, lse,
-                                   (dq, dk, dv, None))
-    lim, _ = unpacked_limits(dtype)
+    dbias = None if bias is None else dbias_heads.sum(1)
+    live, dead, rel = unpacked_errors(fa, q, k, v, bias, dout, causal, out,
+                                      lse, (dq, dk, dv, dbias))
+    lim, lim_dead = unpacked_limits(dtype)
     if rel is not None:
         log("  timed results: rel " + ", ".join(
             f"{n} {e:.3e}" for n, e in zip(REL_NAMES, rel)) +
             f" (limit {REL_LIMIT[dtype]:g})")
     if not (all(e <= t for e, t in zip(live, lim)) and
-            (rel is None or max(rel) <= REL_LIMIT[dtype])):
+            (dead is None or all(e <= t for e, t in zip(dead, lim_dead)))
+            and (rel is None or max(rel) <= REL_LIMIT[dtype])):
         raise AssertionError(f"unpacked kernels disagree with their plain "
-                             f"versions in the timed calls: {live}, rel "
-                             f"{rel}")
+                             f"versions in the timed calls: {live}, "
+                             f"all-padding row {dead}, rel {rel}")
     elem = q.element_size()
     tile = B * H * S * D * elem                  # one [B, H, S, D] tensor
     rows = B * H * S * 4                         # one [B, H, S] f32 row set
-    pairs = B * H * D * S * (S + 1) / 2.0        # live multiply-adds / 2
+    keys = 0 if bias is None else B * S * 4      # the bias row set
+    live_pairs = B * H * (S * (S + 1) / 2.0 if causal else float(S * S))
+    pairs = live_pairs * D                       # live multiply-adds / 2
     rows_out = {}
     for name, flops, nbytes, ms, dev, plain_ms, lib_ms, lib_dev, err in (
-            ("fwd", 4 * pairs, 4 * tile + rows, fwd_ms, fwd_dev, fwd_plain_ms,
-             fwd_lib_ms, fwd_lib_dev, max(live[:2])),
-            ("dkv", 8 * pairs, 6 * tile + 2 * rows, dkv_ms, dkv_dev,
-             bwd_plain_ms, bwd_lib_ms, bwd_lib_dev, max(live[3:5])),
-            ("dq", 6 * pairs, 5 * tile + 2 * rows, dq_ms, dq_dev,
+            ("fwd", 4 * pairs, 4 * tile + rows + keys, fwd_ms, fwd_dev,
+             fwd_plain_ms, fwd_lib_ms, fwd_lib_dev, max(live[:2])),
+            ("dkv", 8 * pairs, 6 * tile + 2 * rows + keys * (1 + H), dkv_ms,
+             dkv_dev, bwd_plain_ms, bwd_lib_ms, bwd_lib_dev,
+             max(live[3:5])),
+            ("dq", 6 * pairs, 5 * tile + 2 * rows + keys, dq_ms, dq_dev,
              bwd_plain_ms, bwd_lib_ms, bwd_lib_dev, live[2])):
-        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOP_PER_S[dtype] * 1e3
+        times = {"bytes": nbytes / PEAK_BYTES_PER_S * 1e3,
+                 "products": flops / PEAK_FLOP_PER_S[dtype] * 1e3,
+                 "exponentials": live_pairs / PEAK_EXP_PER_S * 1e3}
+        quantity = max(times, key=times.get)
         rows_out[name] = dict(
             ms=ms, device_ms=dev, plain_ms=plain_ms, library_ms=lib_ms,
-            library_device_ms=lib_dev, bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            max_abs_err=err)
-        log(f"  {name} at B={B} H={H} S={S} D={D} causal {dtype}: kernel "
+            library_device_ms=lib_dev, bound_ms=times[quantity],
+            bound_by="bytes" if quantity == "bytes" else "operations",
+            bound_quantity=quantity, max_abs_err=err)
+        log(f"  {name} at B={B} H={H} S={S} D={D} "
+            f"{'causal' if causal else 'full'}"
+            f"{'' if bias is None else ', padding bias'} {dtype}: kernel "
             f"{ms:.5f} ms events / {dev:.5f} ms device, plain "
             f"{plain_ms:.5f} ms, sdpa {lib_ms:.5f} / {lib_dev:.5f} ms, "
-            f"bound {max(t_bytes, t_ops):.5f} ms "
-            f"({rows_out[name]['bound_by']}: {flops:.4g} flop, {nbytes} "
+            f"bound {times[quantity]:.5f} ms ({quantity}: "
+            f"{live_pairs:.4g} exponentials, {flops:.4g} flop, {nbytes} "
             f"bytes), max|err| {err:.3e}")
     log("  (plain and sdpa backward times each cover dq, dk and dv in one "
         "call)")
@@ -2073,7 +2194,8 @@ def report_profile(prof, wall_us, what, key=None):
             idle=1 - busy_us / wall_us if busy_us > 0 else None,
             kernel_launches=kernel_launches, graph_launches=graph_launches,
             device_launches=sum(e.count for e in kernels),
-            attention_types=attention_types(kernels))
+            attention_types=attention_types(kernels),
+            attention_kernels=attention_kernels(kernels))
     if busy_us <= 0:
         log(f"  profile: {what} {wall_us:.0f} us wall; device time not "
             f"measured (the profiler saw no kernels)")
@@ -2106,6 +2228,18 @@ def attention_types(kernels):
             types.add(next((t for t in ("__half", "__nv_bfloat16")
                             if t in e.key), "float"))
     return sorted(types)
+
+
+def attention_kernels(kernels):
+    """The attention kernels among profiled kernel rows, each as its
+    name and template arguments ('fa_fwd_tc_kernel<__nv_bfloat16, 32>')
+    from the demangled names."""
+    found = set()
+    for e in kernels:
+        m = re.search(r"(fa_\w+?_kernel)<([^>]*)>", e.key)
+        if m and any(f in m.group(1) for f in KERNEL_FAMILIES):
+            found.add(f"{m.group(1)}<{m.group(2)}>")
+    return sorted(found)
 
 
 def build_train(tpt, cfg, lr_args, amp, dropout, recompute=False,
@@ -2196,8 +2330,9 @@ def per_step_launches(main):
     """Launches of the six kernels one training step makes: the forward
     once an attention op (a recompute program's re-emitted copies
     included: a grad op differentiates the graph its forward kept), dK/dV
-    and dQ once a grad op."""
-    ops = main.global_block().ops
+    and dQ once a grad op; the einsum formulation (impl "xla") none."""
+    ops = [op for op in main.global_block().ops
+           if op.attr("impl", "auto") != "xla"]  # the einsum: no kernel
     n = {t: sum(op.type == t for op in ops) for t in (
         "flash_attention_qkv", "flash_attention_qkv_grad", "flash_attention",
         "flash_attention_grad")}
@@ -2285,7 +2420,8 @@ def train_parity(tpt, fa, what, main, startup, loss, batches, grads, lrs):
 def captured_vs_eager(tpt, main, startup, loss, batches, lrs):
     """The same steps through the compiled step (eager, then capture and
     replay, then replay) and through FLAGS_check_nan_inf's eager debug
-    run, from one startup scope copied (fp32, TF32 off, dropout 0).  Both
+    run, from one startup scope copied, at the same run counts (fp32 at
+    dropout 0 in phase 5; bf16 at dropout 0.1 in phase 17d).  Both
     run the same kernels on the same shapes, so the losses and every
     parameter are expected bit-equal; otherwise the largest differences
     are logged and held to the parity limits (loss rel LOSS_RTOL,
@@ -2295,6 +2431,9 @@ def captured_vs_eager(tpt, main, startup, loss, batches, lrs):
     exe, dbg = tpt.Executor(), tpt.Executor()
     scope, dscope = tpt.Scope(), tpt.Scope()
     exe.run(startup, scope=scope)
+    # the debug executor runs the startup too (into a scope thrown away):
+    # each run's dropout masks are keyed by the executor's run count
+    dbg.run(startup, scope=tpt.Scope())
     for n in scope.local_var_names():
         dscope.set_var(n, scope.find_var(n).clone())
     got, want = [], []
@@ -2718,6 +2857,7 @@ def check_build(build):
     for label, lines in sorted(report.items()):
         log(f"  ptxas {label}: " + "; ".join(lines))
     counts = sass_counts(build)
+    BUILD_REPORT.update(sass=counts, ptxas=report)
     for label, (hgmma, utmaldg) in sorted(counts.items()):
         log(f"  SASS {label}: {hgmma} HGMMA, {utmaldg} UTMALDG")
     for label in TC_LABELS:
@@ -2734,6 +2874,10 @@ def check_build(build):
             raise AssertionError(f"{label} spills registers (or ptxas "
                                  f"printed no spill line): "
                                  f"{report.get(label)}")
+
+
+# phase 2's SASS counts and ptxas lines by kernel label, for phase 17a
+BUILD_REPORT = {}
 
 
 # the product kernel (csrc/gemm_f32.cu): the decode and prefill shapes K x
@@ -4798,6 +4942,49 @@ class HealthGaps:
         return max(self.gap_s.values(), default=None)
 
 
+# the end of a dead replica's log that a failed fleet phase prints, and
+# how many such logs at most
+DEAD_LOG_BYTES = 3000
+DEAD_LOGS = 12
+
+
+def dead_replica_logs(workdir, what):
+    """Print the end of every replica log under `workdir` that shows a
+    death: a second life, a bind error (fleet.BIND_ERROR) or a traceback.
+    A respawn's log is appended to its slot's, so one life's end and the
+    next one's start lie side by side."""
+    from paddle_tpu_torch.serving.fleet import BIND_ERROR
+
+    shown = 0
+    for root, _, files in sorted(os.walk(workdir)):
+        for name in sorted(files):
+            if name != "replica.log" or shown >= DEAD_LOGS:
+                continue
+            path = os.path.join(root, name)
+            with open(path, "rb") as f:
+                text = f.read().decode("utf-8", "replace")
+            if text.count(" listening on ") < 2 and BIND_ERROR not in text \
+                    and "Traceback" not in text:
+                continue
+            shown += 1
+            log(f"  {what}: the end of {os.path.relpath(path, workdir)} "
+                f"({len(text)} bytes):\n{text[-DEAD_LOG_BYTES:]}")
+    log(f"  {what}: {shown} replica log(s) showed a death")
+
+
+@contextlib.contextmanager
+def fleet_workdir(prefix, what):
+    """A temporary directory for a fleet's replicas that, when the phase
+    inside fails, prints its dead replicas' logs (dead_replica_logs)
+    before it is removed; the failure goes on up."""
+    with tempfile.TemporaryDirectory(prefix=prefix) as fd:
+        try:
+            yield fd
+        except BaseException:
+            dead_replica_logs(fd, what)
+            raise
+
+
 def spawn_fleet(what, **kw):
     """A FleetSupervisor (liveness deadline at its default) and, per
     replica, the seconds from spawn to its first ready /healthz; the
@@ -5030,7 +5217,7 @@ def fleet_serving(workdir, second_dir, feeds, want, want_second,
         argv += ["--shape", f"{n}={SERVE_BERT['seq_len']}"]
     argv += list(FLEET_SERVE_ARGV)
     out = {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as fd:
+    with fleet_workdir("chip_smoke_fleet_", "12a") as fd:
         sup, urls, ready, gap = spawn_fleet(
             "12a BERT-base", replicas=2, replica_argv=argv, workdir=fd)
         out["startup_s"], out["startup_healthz_gap_s"] = ready, gap
@@ -5294,7 +5481,7 @@ def fleet_generation(gen_second_dir, swapped_tokens, loadgen_dir):
     prompts = gen_prompts(GEN_PROMPTS, GEN["vocab_size"], 32)
     n_tokens = len(prompts) * GEN_NEW_TOKENS
     out = {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_genfleet_") as fd:
+    with fleet_workdir("chip_smoke_genfleet_", "12b") as fd:
         sup, urls, ready, gap = spawn_fleet(
             "12b colocated", roles=list(FLEET_GEN_ROLES["colocated"]),
             replica_argv=FLEET_GEN_ARGV, env=FLEET_GEN_ENV,
@@ -5813,7 +6000,7 @@ def chaos_probe(model, model_dir):
     ops = model_ops(model_dir)
     feeds = chaos_feeds(0)
     make_feed = lambda i: feeds[i % len(feeds)]  # noqa: E731
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_chaos_probe_") as fd:
+    with fleet_workdir("chip_smoke_chaos_probe_", "13b's probe fleet") as fd:
         sup, urls, ready, gap = spawn_fleet(
             "13b probe fleet", replicas=CHAOS_REPLICAS,
             replica_argv=chaos.shared_fleet_argv(model, "cuda"),
@@ -5935,7 +6122,7 @@ def chaos_flagship(fa, model, settings):
 
     reset_counts(fa)
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_chaos_") as fd:
+    with fleet_workdir("chip_smoke_chaos_", "13b") as fd:
         report = chaos.run_chaos(
             replicas=CHAOS_REPLICAS, scenarios=chaos.DEFAULT_SCENARIOS,
             availability_pct=99.0, workdir=fd,
@@ -5943,6 +6130,8 @@ def chaos_flagship(fa, model, settings):
             gen_model=GEN, gen_engine=CHAOS_GEN_ENGINE,
             disagg_argv=CHAOS_DISAGG_ARGV, disagg_env=CHAOS_DISAGG_ENV,
             **settings)
+        if chaos_gate(report):  # its replicas' logs before they go
+            dead_replica_logs(fd, "13b")
     seconds = time.perf_counter() - t0
     counts, plain, realigned = read_counts(fa)
     keep = ("requests", "ok", "shed", "injected_failures",
@@ -6954,6 +7143,344 @@ def fp16_flagship(tpt, fa, llama_op_seed, bf16_losses):
     return paths
 
 
+def d32_build_report():
+    """Phase 17a's look at phase 2's build: HGMMA, UTMALDG, registers and
+    spills of each D-32 instantiation (phase 2 already held every one of
+    CHECKED_KERNELS to no spill, and the 16-bit ones to HGMMA and
+    UTMALDG)."""
+    rows = {}
+    for label in CHECKED_KERNELS:
+        if not re.search(r"<(?:\w+, )?32[,>]", label):
+            continue
+        hgmma, utmaldg = BUILD_REPORT["sass"].get(label, (0, 0))
+        regs = [m for line in BUILD_REPORT["ptxas"].get(label, ())
+                for m in re.findall(r"Used (\d+) registers", line)]
+        spills = [int(x) for line in BUILD_REPORT["ptxas"].get(label, ())
+                  for x in re.findall(r"(\d+) bytes spill", line)]
+        rows[label] = dict(hgmma=hgmma, utmaldg=utmaldg,
+                           registers=int(regs[0]) if regs else None,
+                           spill_bytes=sum(spills))
+        log(f"  {label}: {hgmma} HGMMA, {utmaldg} UTMALDG, "
+            f"{rows[label]['registers']} registers, {sum(spills)} bytes "
+            f"spilled")
+        if spills == [] or any(spills) or (
+                "_tc_" in label and not (hgmma and utmaldg)):
+            raise AssertionError(f"{label}: {rows[label]}")
+    if len(rows) != 9:
+        raise AssertionError(f"D-32 instantiations in the build: "
+                             f"{sorted(rows)}")
+    return rows
+
+
+def minilm_kernels(fa, device):
+    """Phase 17a: the unpacked kernels at D 32 against their plain
+    versions over unpacked_cases(32), in fp32, bf16 and fp16 at the
+    phase's limits; fp16's overflow check at D 32; the D-32 builds'
+    SASS and ptxas lines; then each kernel's times at MiniLM-L12-H384's
+    training shape (MINILM_TRAIN_ATTN, not causal, a padding bias) in
+    bf16 and fp16 and its serving shape (MINILM_SERVE_ATTN) in fp32,
+    beside SDPA's and the bound.  Returns the rows by dtype."""
+    import torch
+
+    t0 = time.perf_counter()
+    MINILM_RUN["build"] = d32_build_report()
+    check_unpacked(fa, device, unpacked_cases(32), seed=1700)
+    check_fp16_overflow(fa, device, unpacked=True, D=32)
+    rows = {}
+    for dtype, shape in (("bfloat16", MINILM_TRAIN_ATTN),
+                         ("float16", MINILM_TRAIN_ATTN),
+                         ("float32", MINILM_SERVE_ATTN)):
+        log(f"  MiniLM's attention {list(shape)}, not causal, padding "
+            f"bias, {dtype}:")
+        rows[dtype] = time_unpacked(fa, device, dtype, shape=shape,
+                                    causal=False, bias_kind="pad_dead_row")
+    torch.cuda.empty_cache()
+    MINILM_RUN["kernels_s"] = time.perf_counter() - t0
+    return rows
+
+
+def serving_launches(main):
+    """A served request's launches of the six kernels: the packed
+    forward once a flash_attention_qkv op, the unpacked one once a
+    flash_attention op (impl "auto"; the einsum formulation launches
+    none)."""
+    ops = main.global_block().ops
+    return (sum(op.type == "flash_attention_qkv" for op in ops), 0, 0,
+            sum(op.type == "flash_attention" and
+                op.attr("impl", "auto") != "xla" for op in ops), 0, 0)
+
+
+def forward_products(main):
+    """A served request's launches of the product kernel: one a mul or
+    matmul op (every forward-only fp32 product on the card)."""
+    return sum(op.type in ("mul", "matmul") for op in main.global_block().ops)
+
+
+def bert_serving_check(tpt, fa, what, cfg, use_flash, workdir):
+    """One model's serving on the card (phases 17b and 17d): the
+    pretraining program at `cfg` (is_test, random weights from its
+    startup), saved with io.save_inference_model and served by a
+    Predictor on the card, warmed at batches 1, 4 and 8; two requests a
+    batch, each launching the six kernels as serving_launches says and
+    the product kernel as forward_products says, with no plain call and
+    no realigned operand; each row of a batch-4 request equal to the same
+    row served alone (tolerance 0); batch 4 against a CPU Predictor at
+    phase 4's limits.  Returns the launches of the six kernels and the
+    numbers."""
+    import torch
+    from paddle_tpu_torch.models import build_bert_pretrain
+
+    t0 = time.perf_counter()
+    main, startup = tpt.Program(), tpt.Program()
+    with tpt.program_guard(main, startup), warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        feeds, outs = build_bert_pretrain(is_test=True, use_flash=use_flash,
+                                          **cfg)
+    ops = main.global_block().ops
+    logits = [op for op in ops if op.type == "softmax_with_cross_entropy"][
+        0].input("Logits")[0]
+    loss = outs["loss"].name
+    want, n_products = serving_launches(main), forward_products(main)
+    exe = tpt.Executor()
+    scope = tpt.Scope()
+    with tpt.scope_guard(scope):
+        exe.run(startup)
+        tpt.io.save_inference_model(workdir, feeds, [logits, loss], exe,
+                                    main_program=main)
+    del scope
+    torch.cuda.empty_cache()
+    pred = tpt.inference.Predictor(workdir)
+    S, V = cfg["seq_len"], cfg["vocab_size"]
+    feed = bert_feed  # BERT's seq 128 and vocab: both models' feeds
+    warmed = pred.warmup([{n: a.shape for n, a in feed(b, 0).items()}
+                          for b in (1, 4, 8)])
+    log(f"  {what}: built, saved and loaded in "
+        f"{time.perf_counter() - t0:.2f} s; {warmed} signatures captured; "
+        f"{n_products} forward products a request")
+    reset_counts(fa)
+    lat = {}
+    for b in (1, 4, 8):
+        for s in range(2):
+            before = read_counts(fa)
+            t = time.perf_counter()
+            out = pred.run(feed(b, 30 + 10 * b + s))
+            lat.setdefault(b, []).append((time.perf_counter() - t) * 1e3)
+            after = read_counts(fa)
+            d = count_delta(before, after)
+            gemm = after[0].gemm - before[0].gemm
+            if d != (want, 0, 0) or gemm != n_products:
+                raise AssertionError(f"{what} batch {b}: (launches, plain, "
+                                     f"realigned) {d}, {gemm} product "
+                                     f"launches; want {want}, 0, 0 and "
+                                     f"{n_products}")
+            if out[0].shape != (b, S, V) or not np.isfinite(out[0]).all():
+                raise AssertionError(f"{what} batch {b}: bad logits")
+    f4 = feed(4, 70)
+    whole = pred.run(f4)[0]
+    alone = [pred.run({n: a[r:r + 1] for n, a in f4.items()})[0]
+             for r in range(4)]
+    same = all(np.array_equal(whole[r:r + 1], a) for r, a in
+               enumerate(alone))
+    cpu = tpt.inference.Predictor(workdir, device="cpu")
+    want_cpu = cpu.run(feed(4, 70))
+    diff = float(np.abs(whole - want_cpu[0]).max())
+    got_loss = pred.run(f4)[1]
+    loss_rel = float(abs(got_loss[0] - want_cpu[1][0]) / abs(want_cpu[1][0]))
+    counts = read_counts(fa)[0]
+    log(f"  {what}: request latency by batch "
+        + "; ".join(f"{b}: {', '.join(f'{x:.2f}' for x in v)} ms"
+                    for b, v in lat.items())
+        + f"; {want} launches and {n_products} products a request"
+        + f"; batch-4 rows equal to each row alone: {same}; card vs CPU "
+        f"logits max|diff| {diff:.3e} (limit {LOGITS_ATOL:g}), loss rel "
+        f"{loss_rel:.3e} (limit {LOSS_RTOL:g}); launches {tuple(counts)}, "
+        f"product kernel {counts.gemm}")
+    if not (same and diff <= LOGITS_ATOL and loss_rel <= LOSS_RTOL):
+        raise AssertionError(f"{what}: batched != single or card != CPU")
+    pred.close()
+    del pred, cpu
+    torch.cuda.empty_cache()
+    return counts, dict(latency_ms=lat, card_vs_cpu=diff, loss_rel=loss_rel)
+
+
+def minilm_training(tpt, fa):
+    """Phase 17c: MiniLM-L12-H384 training.  First card-vs-CPU fp32
+    parity at 2 layers and seq 128 (phase 5's train_parity: 3 steps of
+    the parity recipe, the loss, step-1 grads and the parameters), then
+    bench.py's recipe (Adam, global-norm clip 1.0, linear warmup, bf16
+    AMP with the bench's white list, the masked-gather head, dropout 0.1)
+    at MINILM_TRAIN through train_flagship: 12 / 12 / 12 D-32 launches a
+    step, the run_async window and a profiled replay whose attention
+    kernels are the bf16 D-32 instantiations.  Returns the two paths'
+    launches."""
+    t0 = time.perf_counter()
+    main, startup, loss = build_train(tpt, MINILM_PARITY, PARITY_LR,
+                                      amp=False, dropout=0.0)
+    params = [p.name for p in main.all_parameters()]
+    grads = ["fc_0.w_0@GRAD", "fc_0.tmp_1@GRAD", "layer_norm_0.w_0@GRAD",
+             "embedding_0.w_0@GRAD", f"{params[-2]}@GRAD"]
+    batches = [train_batch(MINILM_PARITY, seed=1710 + step, padding=True)
+               for step in range(3)]
+    parity = train_parity(tpt, fa, "MiniLM-L12-H384 (2 layers)", main,
+                          startup, loss, batches, grads, PARITY_LRS)
+    MINILM_RUN["parity_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    main, startup, loss = build_train(tpt, MINILM_TRAIN, FLAGSHIP_LR,
+                                      amp=True, dropout=0.1)
+    batches = [train_batch(MINILM_TRAIN, seed=1720 + i, padding=False)
+               for i in range(4)]
+    flagship, losses = train_flagship(
+        tpt, fa, "MiniLM-L12-H384 training (bench.py's recipe, seq 512, "
+        "batch 32, bf16 AMP, dropout 0.1)", main, startup, loss, batches,
+        MINILM_STEPS, MINILM_TRAIN["batch_size"] * MINILM_TRAIN["seq_len"],
+        "minilm_flagship")
+    kernels = PROFILES["minilm_flagship"].get("attention_kernels", [])
+    log(f"  the profiled replay's attention kernels: {kernels}")
+    want = {f"fa_{k}_tc_kernel<__nv_bfloat16, 32>"
+            for k in ("fwd", "dkv", "dq")}
+    if set(kernels) != want:
+        raise AssertionError(f"MiniLM's replay ran {kernels}, want {want}")
+    MINILM_RUN.update(losses=losses, train_s=time.perf_counter() - t1)
+    return parity, flagship
+
+
+def seq128_lives(tpt, fa):
+    """Phase 17d's control lives: bench.py's seq-128 step at dropout 0,
+    unfused, einsum ("xla") and packed flash (kernels #1-#3 at seq 128),
+    each from the unfused life's startup weights (copied into the other
+    two), SEQ128_CONTROL_STEPS captured steps.  The unfused and
+    einsum lives launch no attention kernel and call no plain version;
+    the packed one launches 12 / 12 / 12 a step.  Their losses agree
+    within SEQ128_LOSS_RTOL (bf16 rounds scores, probabilities and
+    products at other places in each).  Returns the losses by life."""
+    import torch
+    from paddle_tpu_torch.ops import registry
+
+    op_seed = registry._OP_SEED[0]
+    batches = [train_batch(SEQ128, seed=1760 + i, padding=True)
+               for i in range(SEQ128_CONTROL_STEPS)]
+    losses, first = {}, None
+    for name, use_flash in (("unfused", False), ("einsum", "xla"),
+                            ("packed_flash", True)):
+        registry.reset_op_seed(op_seed)
+        main, startup, loss = build_train(
+            tpt, dict(SEQ128, use_flash=use_flash), FLAGSHIP_LR, amp=True,
+            dropout=0.0)
+        want = per_step_launches(main)
+        exe, scope = tpt.Executor(), tpt.Scope()
+        exe.run(startup, scope=scope)
+        params = [p.name for p in main.all_parameters()]
+        if first is None:  # the unfused life's weights for all three
+            first = {n: scope.find_var(n).clone() for n in params}
+        elif sorted(first) != sorted(params):
+            raise AssertionError(f"17d {name}: other parameters")
+        else:
+            for n in params:
+                scope.find_var(n).copy_(first[n])
+        reset_counts(fa)
+        got = []
+        for feed in batches:
+            got.append(float(np.ravel(exe.run(
+                main, feed=feed, fetch_list=[loss], scope=scope)[0])[0]))
+        counts = read_counts(fa)
+        steps = len(batches)
+        if counts != (tuple(steps * x for x in want), 0, 0):
+            raise AssertionError(f"17d {name}: (launches, plain, realigned) "
+                                 f"{counts}, want {want} a step, 0, 0")
+        if name != "packed_flash" and any(want):
+            raise AssertionError(f"17d {name} built attention kernels")
+        losses[name] = got
+        log(f"  {name} at dropout 0: losses "
+            f"{', '.join(f'{x:.5f}' for x in got)}; launches "
+            f"{tuple(counts[0])}")
+        exe.close()
+        del scope
+        torch.cuda.empty_cache()
+    del first
+    registry.reset_op_seed(op_seed)
+    rel = {n: max(abs(a - b) / abs(b) for a, b in zip(l, losses["unfused"]))
+           for n, l in losses.items() if n != "unfused"}
+    log(f"  largest loss rel diff from the unfused life: "
+        + ", ".join(f"{n} {r:.3e}" for n, r in rel.items())
+        + f" (limit {SEQ128_LOSS_RTOL:g})")
+    if max(rel.values()) > SEQ128_LOSS_RTOL or \
+            not all(np.isfinite(l).all() for l in losses.values()):
+        raise AssertionError("17d: the three attention branches' losses "
+                             "part")
+    return losses, rel
+
+
+def seq128_flagship(tpt, fa, workdir):
+    """Phase 17d: bench.py's seq-128 step at BERT-base, unfused as
+    _attn_for(128) picks it (SEQ128: batch 192, 19 predictions, bf16 AMP,
+    dropout 0.1) through train_flagship (no attention kernel a step, the
+    run_async window, a profiled replay); captured against eager over
+    SEQ128_STEPS steps, bit for bit, probability dropout included; the
+    three branches' control lives (seq128_lives); BERT-base serving with
+    use_flash=False (bert_serving_check).  Returns the paths' launches."""
+    t0 = time.perf_counter()
+    paths = {}
+    main, startup, loss = build_train(tpt, dict(SEQ128, use_flash=False),
+                                      FLAGSHIP_LR, amp=True, dropout=0.1)
+    batches = [train_batch(SEQ128, seed=1740 + i, padding=False)
+               for i in range(4)]
+    paths["seq128_unfused"], losses = train_flagship(
+        tpt, fa, "bench.py's seq-128 step (BERT-base unfused, batch 192, "
+        "bf16 AMP, dropout 0.1)", main, startup, loss, batches,
+        SEQ128_STEPS, SEQ128["batch_size"] * SEQ128["seq_len"],
+        "seq128_unfused")
+    exact = captured_vs_eager(tpt, main, startup, loss,
+                              [batches[i % len(batches)]
+                               for i in range(SEQ128_STEPS)],
+                              [FLAGSHIP_LR["end_lr"]] * SEQ128_STEPS)
+    if not exact:
+        raise AssertionError("17d: the captured seq-128 step is not "
+                             "bit-equal to the eager one")
+    SEQ128_RUN.update(losses=losses, captured_bit_equal=exact,
+                      train_s=time.perf_counter() - t0)
+    del main, startup
+    t1 = time.perf_counter()
+    SEQ128_RUN["control_losses"], SEQ128_RUN["control_rel"] = \
+        seq128_lives(tpt, fa)
+    SEQ128_RUN["control_s"] = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    paths["seq128_serving"], SEQ128_RUN["serving"] = bert_serving_check(
+        tpt, fa, "BERT-base serving, use_flash=False, seq 128, fp32",
+        SERVE_BERT, False, workdir)
+    SEQ128_RUN["serving_s"] = time.perf_counter() - t2
+    return paths
+
+
+def minilm_flagship(tpt, fa, device, card):
+    """Phase 17: MiniLM-L12-H384 and bench.py's seq-128 step (17a-17d).
+    The op-seed counter is put back afterwards (see bert_fp32_profile).
+    Returns the paths' launches and 17a's kernel rows."""
+    from paddle_tpu_torch.ops import registry
+
+    t0 = time.perf_counter()
+    op_seed = registry._OP_SEED[0]
+    paths = {}
+    log("  17a: kernels #4-#6 at D 32")
+    rows = minilm_kernels(fa, device)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_minilm_") as wd:
+        t1 = time.perf_counter()
+        log("  17b: MiniLM-L12-H384 serving (fp32, seq 128)")
+        paths["minilm_serving"], MINILM_RUN["serving"] = bert_serving_check(
+            tpt, fa, "MiniLM-L12-H384 serving, seq 128, fp32",
+            dict(MINILM, seq_len=MINILM_SERVE_SEQ), True,
+            os.path.join(wd, "minilm"))
+        MINILM_RUN["serving_s"] = time.perf_counter() - t1
+        log("  17c: MiniLM-L12-H384 training")
+        paths["minilm_parity"], paths["minilm_flagship"] = \
+            minilm_training(tpt, fa)
+        log("  17d: bench.py's seq-128 BERT-base step, unfused")
+        paths.update(seq128_flagship(tpt, fa, os.path.join(wd, "bert")))
+    registry.reset_op_seed(op_seed)
+    MINILM_RUN["card"] = SEQ128_RUN["card"] = card
+    MINILM_RUN["phase_s"] = time.perf_counter() - t0
+    return paths, rows
+
+
 def use_bytecode_cache():
     """Write and read the interpreter's compiled bytecode under
     BYTECODE_CACHE, in this process and every process it starts
@@ -6990,7 +7517,7 @@ def main():
 
     t_start = time.perf_counter()
     card = card_line()
-    log(f"[1/16] device: {card}; torch {torch.__version__}, CUDA "
+    log(f"[1/17] device: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -7007,12 +7534,12 @@ def main():
     fa._bwd_lib()
     gemm._lib()
     rms_norm._lib()
-    log(f"[2/16] built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
+    log(f"[2/17] built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
     check_build(build)
     gemm_rows, gemm_ratios = check_gemm(gemm, build, device)
     norm_rows = check_rms_norm(rms_norm, device)
 
-    log("[3/16] packed kernels against their plain versions")
+    log("[3/17] packed kernels against their plain versions")
     check_kernel(fa, device)
     check_backward(fa, device)
     fwd_f32 = time_forward_f32(fa, device)
@@ -7028,21 +7555,21 @@ def main():
 
     # each path's launches of the six kernels, each read from 0
     by_path = {}
-    log("[4/16] BERT-base serving through Predictor on the card")
+    log("[4/17] BERT-base serving through Predictor on the card")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         by_path["serving"] = serve(tpt, fa, workdir)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[5/16] BERT-base training, card against the CPU (fp32)")
+    log("[5/17] BERT-base training, card against the CPU (fp32)")
     by_path["training_parity"] = bert_parity(tpt, fa)
     bert_fp32_profile(tpt, fa)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[6/16] bench.py's seq-512 training step on the card (bf16 AMP)")
+    log("[6/17] bench.py's seq-512 training step on the card (bf16 AMP)")
     by_path["training_flagship"], _ = bert_flagship(tpt, fa)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[7/16] unpacked kernels against their plain versions")
+    log("[7/17] unpacked kernels against their plain versions")
     check_unpacked(fa, device)
     unpacked_timing = time_unpacked(fa, device, "bfloat16")
     unpacked_f32 = time_unpacked(fa, device, "float32")
@@ -7057,11 +7584,23 @@ def main():
         f"cases)")
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[8/16] Llama-2-7B-width training, card against the CPU (fp32)")
+    # phase 17 runs here, beside phase 7's unpacked kernels: right after
+    # phase 16 the profiler saw no device time in any session (my chip
+    # runs 4 and 6, PR 20), while phase 7's sessions see it
+    log("[17/17] MiniLM-L12-H384 (kernels #4-#6 at D 32) and bench.py's "
+        "seq-128 BERT-base step (unfused) on the card")
+    paths17, d32_rows = minilm_flagship(tpt, fa, device, card)
+    by_path.update(paths17)
+    log("minilm: " + json.dumps(MINILM_RUN))
+    log("seq128: " + json.dumps(SEQ128_RUN))
+    log(f"  (phase 17 took {MINILM_RUN['phase_s']:.1f} s; "
+        f"{time.perf_counter() - t_start:.1f} s in all)")
+
+    log("[8/17] Llama-2-7B-width training, card against the CPU (fp32)")
     by_path["llama_parity"] = llama_parity(tpt, fa)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[9/16] Llama-2-7B-width training on the card (4 layers, bf16 AMP)")
+    log("[9/17] Llama-2-7B-width training on the card (4 layers, bf16 AMP)")
     llama_op_seed = registry._OP_SEED[0]  # phase 9's startup draws
     by_path["llama_flagship"], losses = llama_flagship(tpt, fa)
     compare_losses(losses)
@@ -7069,7 +7608,7 @@ def main():
 
     # phase 16 runs here, where torch.profiler still sees the card (after
     # phase 14 its sessions have seen no device time or lost records)
-    log("[16/16] float16 AMP with dynamic loss scaling: bench.py's seq-512 "
+    log("[16/17] float16 AMP with dynamic loss scaling: bench.py's seq-512 "
         "step and the Llama-2-7B-width step on the card")
     by_path.update(fp16_flagship(tpt, fa, llama_op_seed, losses))
     FP16["card"] = card
@@ -7078,7 +7617,7 @@ def main():
     log(f"  (phase 16 took {FP16['phase_s']:.1f} s, the fp16 kernel checks "
         f"{f16_s:.1f} s; {time.perf_counter() - t_start:.1f} s in all)")
 
-    log("[10/16] Llama generation serving on the card (dense and paged KV "
+    log("[10/17] Llama generation serving on the card (dense and paged KV "
         "cache, speculative decoding, prefill / decode roles)")
     by_path["generation_parity"] = generation_parity(tpt, fa)
     by_path["generation"], paged_paths, gen_scope, dense_tokens = \
@@ -7089,7 +7628,7 @@ def main():
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
     t11 = time.perf_counter()
-    log("[11/16] the serving stack: BERT-base through ServingEngine, then "
+    log("[11/17] the serving stack: BERT-base through ServingEngine, then "
         "HTTP with Llama-2-7B generation attached")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_serving_") as wd:
         model_dir, second_dir, gen_second_dir = (
@@ -7112,7 +7651,7 @@ def main():
         pred.close()
         del eng, pred, gen_scope
         t12 = time.perf_counter()
-        log("[12/16] the fleet: BERT-base and Llama-2-7B in replica "
+        log("[12/17] the fleet: BERT-base and Llama-2-7B in replica "
             "processes behind the router")
         FLEET["reserved_gib_before"] = release_card(
             "released phases 10 and 11")
@@ -7130,7 +7669,7 @@ def main():
             f"{time.perf_counter() - t_start:.1f} s in all)")
 
         t13 = time.perf_counter()
-        log("[13/16] the port's load generator and chaos harness: "
+        log("[13/17] the port's load generator and chaos harness: "
             "BERT-base and Llama-2-7B fleets (13a's --url legs ran in "
             "phase 12)")
         by_path["loadgen"] = loadgen_in_process(
@@ -7154,7 +7693,7 @@ def main():
     log(f"  (phase 13 took {CHAOS['phase_s']:.1f} s; "
         f"{time.perf_counter() - t_start:.1f} s in all)")
 
-    log("[14/16] bench.py's seq-512 step under TrainGuard: a NaN, a SIGTERM "
+    log("[14/17] bench.py's seq-512 step under TrainGuard: a NaN, a SIGTERM "
         "and a resume, bit for bit")
     release_card("phase 13 closed")
     by_path["train_guard"] = train_guard_flagship(tpt, fa)
@@ -7163,7 +7702,7 @@ def main():
     log(f"  (phase 14 took {GUARD['phase_s']:.1f} s; "
         f"{time.perf_counter() - t_start:.1f} s in all)")
 
-    log("[15/16] recompute: bench.py's seq-512 step and a Llama-2-7B-width "
+    log("[15/17] recompute: bench.py's seq-512 step and a Llama-2-7B-width "
         "decoder at seq 4096 under Llama-2's recipe, plain against "
         "recompute, bit for bit")
     release_card("phase 14 closed")
@@ -7228,9 +7767,27 @@ def main():
     kernels[3]["f32_prefill"] = {x: fwd_f32["prefill"][x] for x in (
         "device_ms", "ms", "plain_ms", "bound_ms", "library_device_ms",
         "max_abs_err")}
+    # the unpacked kernels at D 32 (MiniLM-L12-H384's heads): their bf16
+    # rows at MiniLM's training shape, where phase 17c launches them, the
+    # fp16 ones there too, the fp32 ones at its serving shape
+    for slot, name, line in ((3, "fwd", "120"), (4, "dkv", "226"),
+                             (5, "dq", "292")):
+        row = dict(name=f"flash_attention_{name}_d32", route="cuda",
+                   source=src + ("flash_attention_fwd.cu" if name == "fwd"
+                                 else "flash_attention_bwd.cu"),
+                   replaces=tpu + line, main_path="minilm_flagship",
+                   slot=slot, shape=list(MINILM_TRAIN_ATTN),
+                   **d32_rows["bfloat16"][name])
+        for key, dtype in (("f16", "float16"), ("f32", "float32")):
+            row[key] = {x: d32_rows[dtype][name][x] for x in (
+                "device_ms", "ms", "plain_ms", "bound_ms", "library_ms",
+                "library_device_ms", "max_abs_err")}
+        row["f32_shape"] = list(MINILM_SERVE_ATTN)
+        kernels.append(row)
     for i, k in enumerate(kernels):
-        k["launches"] = by_path[k.pop("main_path")][i]
-        k["launches_by_path"] = {p: n[i] for p, n in by_path.items()}
+        slot = k.pop("slot", i)
+        k["launches"] = by_path[k.pop("main_path")][slot]
+        k["launches_by_path"] = {p: n[slot] for p, n in by_path.items()}
         k["trace_record_paths"] = list(TRACE_PATHS)
     # the product kernel: its row is the decode step's qkv product (M 4),
     # its "shapes" every timed decode (M 4) and prefill (M 512) shape
@@ -7265,7 +7822,7 @@ def main():
             raise AssertionError(f"{k['name']} never launched on the path")
     log(f"chip_smoke: the run took {time.perf_counter() - t_start:.1f} s "
         f"(phase 16 {FP16['phase_s']:.1f} s, the fp16 kernel checks "
-        f"{f16_s:.1f} s)")
+        f"{f16_s:.1f} s, phase 17 {MINILM_RUN['phase_s']:.1f} s)")
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -70,15 +70,17 @@
 //   * dK/dV, float32 (fa_dkv_f32_kernel, exact fp32 FMAs on the CUDA
 //     cores; no TF32: the fp32 gates hold the port to the CPU at 1e-4):
 //     one block of 8 warps per (key tile, head, batch), each warp owning
-//     16 keys at D 64 (128-key tiles) and 8 at D 128 (64-key tiles), whose
+//     16 keys at D 32 and 64 (128-key tiles) and 8 at D 128 (64-key tiles),
+//     whose
 //     k * scale and v rows stay in shared memory; the 64-row Q and dO
 //     tiles with their lse and delta stream through a two-stage ring
 //     filled by 16-byte cp.async copies, one block barrier a tile (from
 //     the diagonal q tile on when causal).  Lanes hold 4-key x 8-row (D
-//     64) or 4 x 4 (D 128) patches of S^T and dP^T, then 4 keys x 8
-//     columns of dK and dV; P^T and dS^T reach the second products through
-//     a warp-private strip.  The bias gradient's sums stay in registers,
-//     reduced by shuffles once at the end.  See namespace f32 below.
+//     32 and 64) or 4 x 4 (D 128) patches of S^T and dP^T, then 4 keys x 8
+//     columns (4 at D 32) of dK and dV; P^T and dS^T reach the second
+//     products through a warp-private strip.  The bias gradient's sums
+//     stay in registers, reduced by shuffles once at the end.  See
+//     namespace f32 below.
 //   * dQ, bfloat16 and float16 (fa_dq_tc_kernel<T, D>, tensor cores): one
 //     block of 288 threads per (128-row q tile, head, batch), so each q
 //     row is owned by one block (no atomics, deterministic): two consumer
@@ -96,8 +98,17 @@
 //     it where dq and dk are still finite.  Inf and NaN are never clamped
 //     or masked: an overflow in dO, q, k or v reaches dq, dk and dv, so
 //     the loss scaler sees it.  Causal q tiles run longest first.
+//   * D 32 in 16 bits (both tensor-core kernels): the tiles are 64-byte
+//     swizzled (a row is 64 bytes; hopper.cuh's Tile), the score-side
+//     products take two k16 steps and the accumulating ones (dQ += dS K,
+//     dV += P^T dO, dK += dS^T Q) wgmma's n32 shape; nothing else changes.
+//     At MiniLM-L12-H384's training shape (B 32, 12 heads, S 512, D 32)
+//     each kernel recomputes B*nh*S^2 = 101 M exponentials, 26 us at the
+//     ~3.9 T/s of the special-function units, above its products (dK/dV
+//     25.8 GFLOP, dQ 19.3: 26 and 20 us) and its bytes.
 //   * dQ, float32 (fa_dq_f32_kernel): one block of 8 warps per (q tile,
-//     head, batch), each warp owning 16 q rows at D 64 (128-row tiles) and
+//     head, batch), each warp owning 16 q rows at D 32 and 64 (128-row
+//     tiles) and
 //     8 at D 128 (64-row tiles), whose q * scale and dO rows stay in
 //     shared memory; 64-key K, V and bias tiles stream through the same
 //     kind of ring (up to the diagonal when causal, the longest q tiles
@@ -752,7 +763,7 @@ fa_dq_tc_kernel(const __grid_constant__ hopper::TmaMaps<4> maps,
   }
 
   const int row0 = f.row0, wg_last = f.wg_last;
-  const uint8_t* qs = sm + f.wg * 64 * 128;
+  const uint8_t* qs = wg_rows<D>(sm, f.wg);
   const uint8_t* dos = qs + kQ;
   const float* brow = bias ? bias + (long long)f.b * Sk : nullptr;
   const long long stats = ((long long)f.b * a.num_heads + f.h) * Sq;
@@ -779,14 +790,14 @@ fa_dq_tc_kernel(const __grid_constant__ hopper::TmaMaps<4> maps,
       hopper::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        hopper::wgmma_ss_n64<T>(s, hopper::desc_k_step(qs, kBM, kk),
-                                hopper::desc_k_step(ring.k(t), kBN, kk),
-                                kk > 0);
+        hopper::wgmma_ss_n64<T>(
+            s, hopper::desc_k_step<D>(qs, kBM, kk),
+            hopper::desc_k_step<D>(ring.k(t), kBN, kk), kk > 0);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        hopper::wgmma_ss_n64<T>(dp, hopper::desc_k_step(dos, kBM, kk),
-                                hopper::desc_k_step(ring.v(t), kBN, kk),
-                                kk > 0);
+        hopper::wgmma_ss_n64<T>(
+            dp, hopper::desc_k_step<D>(dos, kBM, kk),
+            hopper::desc_k_step<D>(ring.v(t), kBN, kk), kk > 0);
       hopper::wgmma_commit();
       hopper::wgmma_wait_all();
       hopper::fence_regs(s);
@@ -832,8 +843,8 @@ fa_dq_tc_kernel(const __grid_constant__ hopper::TmaMaps<4> maps,
       hopper::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBN / 16; ++kk)
-        hopper::wgmma_rs<T, D>(acc, ds[kk],
-                               hopper::desc_mn_step(ring.k(t), kBN, kk));
+        hopper::wgmma_rs<T, D>(
+            acc, ds[kk], hopper::desc_mn_step<D>(ring.k(t), kBN, kk));
       hopper::wgmma_commit();
       hopper::wgmma_wait_all();
       hopper::fence_regs(acc);
@@ -938,11 +949,12 @@ fa_dkv_tc_kernel(const __grid_constant__ hopper::TmaMaps<4> maps,
   if (warp == 0) {
     if (lane == 0) {  // K and V once
       hopper::mbar_expect_tx(ring.q_full, 2 * kKV);
-      for (int c = 0; c < D / 64; ++c) {
-        hopper::tma_load(sm + c * kKeys * 128, &maps.m[1], ring.q_full,
-                         c * 64, h, k0, b);
-        hopper::tma_load(sm + kKV + c * kKeys * 128, &maps.m[2], ring.q_full,
-                         c * 64, h, k0, b);
+      using L = hopper::Tile<D>;
+      for (int c = 0; c < L::kBoxes; ++c) {
+        hopper::tma_load(sm + c * kKeys * L::kSpan, &maps.m[1], ring.q_full,
+                         c * L::kCols, h, k0, b);
+        hopper::tma_load(sm + kKV + c * kKeys * L::kSpan, &maps.m[2],
+                         ring.q_full, c * L::kCols, h, k0, b);
       }
     }
     for (int j = 0; j < min(n, kQStages - 1); ++j) fill(j);
@@ -952,7 +964,7 @@ fa_dkv_tc_kernel(const __grid_constant__ hopper::TmaMaps<4> maps,
   const int wg = warp / 4, quad = lane % 4;
   const int kw0 = k0 + wg * 64;
   const int row0 = kw0 + (warp % 4) * 16 + lane / 4;  // keys row0, row0 + 8
-  const uint8_t* ks = sm + wg * 64 * 128;
+  const uint8_t* ks = wg_rows<D>(sm, wg);
   const uint8_t* vs = ks + kKV;
   float bk[2];  // this thread's keys' bias
 #pragma unroll
@@ -981,13 +993,14 @@ fa_dkv_tc_kernel(const __grid_constant__ hopper::TmaMaps<4> maps,
       hopper::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        hopper::wgmma_ss_n64<T>(s, hopper::desc_k_step(ks, kKeys, kk),
-                                hopper::desc_k_step(qs, kQRows, kk), kk > 0);
+        hopper::wgmma_ss_n64<T>(s, hopper::desc_k_step<D>(ks, kKeys, kk),
+                                hopper::desc_k_step<D>(qs, kQRows, kk),
+                                kk > 0);
       hopper::wgmma_commit();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        hopper::wgmma_ss_n64<T>(dp, hopper::desc_k_step(vs, kKeys, kk),
-                                hopper::desc_k_step(dos, kQRows, kk),
+        hopper::wgmma_ss_n64<T>(dp, hopper::desc_k_step<D>(vs, kKeys, kk),
+                                hopper::desc_k_step<D>(dos, kQRows, kk),
                                 kk > 0);
       hopper::wgmma_commit();
       hopper::wgmma_wait<1>();
@@ -1054,11 +1067,11 @@ fa_dkv_tc_kernel(const __grid_constant__ hopper::TmaMaps<4> maps,
 #pragma unroll
       for (int kk = 0; kk < kQRows / 16; ++kk)
         hopper::wgmma_rs<T, D>(dva, pf[kk],
-                               hopper::desc_mn_step(dos, kQRows, kk));
+                               hopper::desc_mn_step<D>(dos, kQRows, kk));
 #pragma unroll
       for (int kk = 0; kk < kQRows / 16; ++kk)
         hopper::wgmma_rs<T, D>(dka, dsf[kk],
-                               hopper::desc_mn_step(qs, kQRows, kk));
+                               hopper::desc_mn_step<D>(qs, kQRows, kk));
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_regs(dva);
@@ -1125,30 +1138,39 @@ int launch_dkv(const Call& c, cudaStream_t stream) {
 // float16.  bfloat16 and float16 run the tensor-core kernels
 // (fa_dkv_tc_kernel<T, D>, fa_dq_tc_kernel<T, D>), float32
 // the CUDA-core ones (fa_dkv_f32_kernel, fa_dq_f32_kernel) in blocks of 8
-// warps: at D 64 as 4 row groups x 8 column groups (16 rows a warp, 128 a
-// block), at D 128 as 2 x 16 (8 rows a warp, 64 a block), where 4 x 16
-// spilled (dK/dV) or, in blocks of 4 warps to fit shared memory, ran
-// slower (dQ).
+// warps: at D 32 and 64 as 4 row groups x 8 column groups (16 rows a warp,
+// 128 a block; at D 32 a lane's accumulator patch is 4 rows x 4 columns,
+// the narrowest float4 patch, where D 64 holds 4 x 8), at D 128 as 2 x 16
+// (8 rows a warp, 64 a block), where 4 x 16 spilled (dK/dV) or, in blocks
+// of 4 warps to fit shared memory, ran slower (dQ).
 int run(const Call& c, int which, int dtype, void* stream) {
   if (c.B <= 0 || c.a.Sq <= 0 || c.a.Sk <= 0 || c.a.num_heads <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (which == 0) {
+    if (dtype == 0 && c.D == 32) return f32::launch_dkv<32, 4>(c, st);
     if (dtype == 0 && c.D == 64) return f32::launch_dkv<64, 4>(c, st);
     if (dtype == 0 && c.D == 128) return f32::launch_dkv<128, 2>(c, st);
+    if (dtype == 1 && c.D == 32)
+      return tc::launch_dkv<__nv_bfloat16, 32>(c, st);
     if (dtype == 1 && c.D == 64)
       return tc::launch_dkv<__nv_bfloat16, 64>(c, st);
     if (dtype == 1 && c.D == 128)
       return tc::launch_dkv<__nv_bfloat16, 128>(c, st);
+    if (dtype == 2 && c.D == 32) return tc::launch_dkv<__half, 32>(c, st);
     if (dtype == 2 && c.D == 64) return tc::launch_dkv<__half, 64>(c, st);
     if (dtype == 2 && c.D == 128) return tc::launch_dkv<__half, 128>(c, st);
   } else {
+    if (dtype == 0 && c.D == 32) return f32::launch_dq<32, 4>(c, st);
     if (dtype == 0 && c.D == 64) return f32::launch_dq<64, 4>(c, st);
     if (dtype == 0 && c.D == 128) return f32::launch_dq<128, 2>(c, st);
+    if (dtype == 1 && c.D == 32)
+      return tc::launch_dq<__nv_bfloat16, 32>(c, st);
     if (dtype == 1 && c.D == 64)
       return tc::launch_dq<__nv_bfloat16, 64>(c, st);
     if (dtype == 1 && c.D == 128)
       return tc::launch_dq<__nv_bfloat16, 128>(c, st);
+    if (dtype == 2 && c.D == 32) return tc::launch_dq<__half, 32>(c, st);
     if (dtype == 2 && c.D == 64) return tc::launch_dq<__half, 64>(c, st);
     if (dtype == 2 && c.D == 128) return tc::launch_dq<__half, 128>(c, st);
   }

@@ -48,7 +48,9 @@
 //     version, so a float16 overflow upstream reaches the loss scaler.
 //     Causal q tiles run longest first (the grid's y index is reversed), so
 //     the short tiles fill the tail.  Shared memory: 32 KB of Q and 2 x 32
-//     KB of K/V at D 128.
+//     KB of K/V at D 128.  D is 32, 64 or 128: at D 32 a 16-bit row is 64
+//     bytes, so the tiles are 64-byte swizzled (hopper.cuh's Tile), S =
+//     Q K^T takes two k16 steps and O += P V wgmma's n32 shape.
 //   * float32: fa_fwd_f32_kernel, exact fp32 FMAs on the CUDA cores (no
 //     TF32: the fp32 gates hold the port to the CPU at 2e-5 / 1e-5).  It
 //     stands for `_fp_fwd_kernel` (#1: BERT serving, 12 launches a request,
@@ -69,7 +71,11 @@
 //     with 16-byte stores.
 //
 // Bounds on an H100 SXM (data-sheet peaks, which assume its 700 W power
-// limit).  fp32 (67 TFLOP/s outside the tensor cores, 3.35 TB/s): BERT-base
+// limit).  At D 32 (MiniLM-L12-H384: 12 heads of 32) the exponentials
+// bound it: B*nh*S^2 of them against 4*B*nh*S^2*D flop, so at its training
+// shape (B 32, S 512, bf16) 101 M exponentials take 26 us at the ~3.9 T/s
+// of the special-function units, the products 13 us, the bytes 7.5 us.
+// fp32 (67 TFLOP/s outside the tensor cores, 3.35 TB/s): BERT-base
 // serving (B 4, S 128, 12 heads, D 64) is 4*B*nh*S^2*D = 201 MFLOP, 3.0 us,
 // against 6.3 MB moved (1.9 us); B 1: 0.75 us, B 8: 6.0 us.  BERT's
 // training shape (B 8, S 512) 6.44 GFLOP, 96 us.  The Llama shape (B 1, 32
@@ -120,7 +126,8 @@ constexpr float kLog2e = 1.4426950408889634f;
 // The lanes of a warp as 2 row groups x kKG = 16 key (column) groups:
 // lane (rg, kg) holds 4 q rows, 4 rg .. 4 rg + 3 of the warp's kR = 8,
 // against keys kg + 16 j of a tile (j < 4) in Q K^T and output columns
-// 4 kg + 64 jj .. + 3 (jj < D / 64) in P V.  A shared-memory load costs the
+// 4 kg + 64 jj .. + 3 (jj < D / 64; at D 32 columns 2 kg and 2 kg + 1) in
+// P V.  A shared-memory load costs the
 // SM's load pipe a cycle per float a lane, broadcast or not, against 4 FMA
 // instructions a cycle: a lane's 4 x 4 patch of S gets 16 FMAs from 8
 // floats, its 4 x D/16 patch of O 4 D/16 from 4 + D/16 (2 at D 64, 2.7 at
@@ -321,8 +328,8 @@ fa_fwd_f32_kernel(const float* __restrict__ q_, const float* __restrict__ k_,
     }
     __syncwarp();  // the warp's P strip is written
 
-    // O += P V: rows my0 + i, columns 4 kg + 4 KG jj .. + 3, four keys a
-    // step
+    // O += P V: rows my0 + i, columns 4 kg + 4 KG jj .. + 3 (at D 32:
+    // columns 2 kg, 2 kg + 1), four keys a step
 #pragma unroll 2
     for (int k = 0; k < kKeys; k += 4) {
       float4 pv[4];
@@ -331,20 +338,35 @@ fa_fwd_f32_kernel(const float* __restrict__ q_, const float* __restrict__ k_,
         pv[i] = *reinterpret_cast<const float4*>(pr + i * S::kPStride + k);
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        const float* vr = vs + (k + u) * D + 4 * kg;
-#pragma unroll
-        for (int jj = 0; jj < CP / 4; ++jj) {
-          const float4 x = *reinterpret_cast<const float4*>(vr + 4 * KG * jj);
+        if constexpr (CP == 2) {
+          const float2 x =
+              *reinterpret_cast<const float2*>(vs + (k + u) * D + 2 * kg);
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const float p = u == 0   ? pv[i].x
                             : u == 1 ? pv[i].y
                             : u == 2 ? pv[i].z
                                      : pv[i].w;
-            acc[i][4 * jj + 0] = fmaf(p, x.x, acc[i][4 * jj + 0]);
-            acc[i][4 * jj + 1] = fmaf(p, x.y, acc[i][4 * jj + 1]);
-            acc[i][4 * jj + 2] = fmaf(p, x.z, acc[i][4 * jj + 2]);
-            acc[i][4 * jj + 3] = fmaf(p, x.w, acc[i][4 * jj + 3]);
+            acc[i][0] = fmaf(p, x.x, acc[i][0]);
+            acc[i][1] = fmaf(p, x.y, acc[i][1]);
+          }
+        } else {
+          const float* vr = vs + (k + u) * D + 4 * kg;
+#pragma unroll
+          for (int jj = 0; jj < CP / 4; ++jj) {
+            const float4 x =
+                *reinterpret_cast<const float4*>(vr + 4 * KG * jj);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const float p = u == 0   ? pv[i].x
+                              : u == 1 ? pv[i].y
+                              : u == 2 ? pv[i].z
+                                       : pv[i].w;
+              acc[i][4 * jj + 0] = fmaf(p, x.x, acc[i][4 * jj + 0]);
+              acc[i][4 * jj + 1] = fmaf(p, x.y, acc[i][4 * jj + 1]);
+              acc[i][4 * jj + 2] = fmaf(p, x.z, acc[i][4 * jj + 2]);
+              acc[i][4 * jj + 3] = fmaf(p, x.w, acc[i][4 * jj + 3]);
+            }
           }
         }
       }
@@ -364,12 +386,17 @@ fa_fwd_f32_kernel(const float* __restrict__ q_, const float* __restrict__ k_,
     const int row = my0 + i;
     if (row >= Sq) continue;
     const float den = fmaxf(li, 1e-30f);
-    float* orow = ob + (long long)row * a.ol.s + 4 * kg;
+    if constexpr (CP == 2) {
+      *reinterpret_cast<float2*>(ob + (long long)row * a.ol.s + 2 * kg) =
+          make_float2(acc[i][0] / den, acc[i][1] / den);
+    } else {
+      float* orow = ob + (long long)row * a.ol.s + 4 * kg;
 #pragma unroll
-    for (int jj = 0; jj < CP / 4; ++jj)
-      *reinterpret_cast<float4*>(orow + 4 * KG * jj) = make_float4(
-          acc[i][4 * jj] / den, acc[i][4 * jj + 1] / den,
-          acc[i][4 * jj + 2] / den, acc[i][4 * jj + 3] / den);
+      for (int jj = 0; jj < CP / 4; ++jj)
+        *reinterpret_cast<float4*>(orow + 4 * KG * jj) = make_float4(
+            acc[i][4 * jj] / den, acc[i][4 * jj + 1] / den,
+            acc[i][4 * jj + 2] / den, acc[i][4 * jj + 3] / den);
+    }
     if (kg == 0)
       lse[((long long)b * a.num_heads + h) * Sq + row] = m[i] + logf(den);
   }
@@ -406,7 +433,8 @@ int launch_tiles(const FwdPtrs& p, const FwdShape& a, int B,
 // 16-row q tiles (2 warps of 8 rows) where 64-row tiles would leave more
 // than half of the card's SMs without a block (BERT serving at batch 1:
 // 12 heads x 2 tiles), else 64-row tiles (8 warps), which read each K/V
-// tile from L2 once for 4x the rows.
+// tile from L2 once for 4x the rows.  D 32 takes 64-row tiles at every
+// fill: its 16-row instantiation spilled (8 bytes, ptxas on sm_90a).
 template <int D>
 int launch(const FwdPtrs& p, const FwdShape& a, int B, cudaStream_t stream) {
   const int nh = a.num_heads;
@@ -416,9 +444,11 @@ int launch(const FwdPtrs& p, const FwdShape& a, int B, cudaStream_t stream) {
       !aligned16(p.v, a.vl, B, nh, a.Sk) ||
       !aligned16(p.out, a.ol, B, nh, a.Sq))
     return (int)cudaErrorMisalignedAddress;
-  static const int sms = num_sms();
-  const long long big = (long long)B * nh * ((a.Sq + 63) / 64);
-  if (2 * big < sms) return launch_tiles<D, 2>(p, a, B, stream);
+  if constexpr (D != 32) {
+    static const int sms = num_sms();
+    const long long big = (long long)B * nh * ((a.Sq + 63) / 64);
+    if (2 * big < sms) return launch_tiles<D, 2>(p, a, B, stream);
+  }
   return launch_tiles<D, 8>(p, a, B, stream);
 }
 
@@ -464,7 +494,7 @@ fa_fwd_tc_kernel(const __grid_constant__ hopper::TmaMaps<3> maps,
   }
 
   const int row0 = f.row0, wg_last = f.wg_last;
-  const uint8_t* qs = sm + f.wg * 64 * 128;
+  const uint8_t* qs = wg_rows<D>(sm, f.wg);
   const float* brow = bias ? bias + (long long)f.b * Sk : nullptr;
 
   float o[D / 2];
@@ -482,9 +512,9 @@ fa_fwd_tc_kernel(const __grid_constant__ hopper::TmaMaps<3> maps,
       hopper::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        hopper::wgmma_ss_n64<T>(s, hopper::desc_k_step(qs, kBM, kk),
-                                hopper::desc_k_step(ring.k(t), kBN, kk),
-                                kk > 0);
+        hopper::wgmma_ss_n64<T>(
+            s, hopper::desc_k_step<D>(qs, kBM, kk),
+            hopper::desc_k_step<D>(ring.k(t), kBN, kk), kk > 0);
       hopper::wgmma_commit();
       hopper::wgmma_wait_all();
       hopper::fence_regs(s);
@@ -553,7 +583,7 @@ fa_fwd_tc_kernel(const __grid_constant__ hopper::TmaMaps<3> maps,
 #pragma unroll
       for (int kk = 0; kk < kBN / 16; ++kk)
         hopper::wgmma_rs<T, D>(o, p[kk],
-                               hopper::desc_mn_step(ring.v(t), kBN, kk));
+                               hopper::desc_mn_step<D>(ring.v(t), kBN, kk));
       hopper::wgmma_commit();
       hopper::wgmma_wait_all();
       hopper::fence_regs(o);
@@ -608,12 +638,16 @@ int run(int dtype, int D, const FwdPtrs& p, const FwdShape& a, int B,
   if (B <= 0 || a.Sq <= 0 || a.Sk <= 0 || a.num_heads <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && D == 32) return f32::launch<32>(p, a, B, st);
   if (dtype == 0 && D == 64) return f32::launch<64>(p, a, B, st);
   if (dtype == 0 && D == 128) return f32::launch<128>(p, a, B, st);
+  if (dtype == 1 && D == 32)
+    return tc::launch<__nv_bfloat16, 32>(p, a, B, st);
   if (dtype == 1 && D == 64)
     return tc::launch<__nv_bfloat16, 64>(p, a, B, st);
   if (dtype == 1 && D == 128)
     return tc::launch<__nv_bfloat16, 128>(p, a, B, st);
+  if (dtype == 2 && D == 32) return tc::launch<__half, 32>(p, a, B, st);
   if (dtype == 2 && D == 64) return tc::launch<__half, 64>(p, a, B, st);
   if (dtype == 2 && D == 128) return tc::launch<__half, 128>(p, a, B, st);
   return (int)cudaErrorInvalidValue;

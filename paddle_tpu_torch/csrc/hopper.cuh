@@ -13,22 +13,28 @@
 // T picks the TMA map's data type, the wgmma operand type (.bf16 or
 // .f16) and the rounding of fp32 registers into operands and outputs.
 //
-// Shared-memory tiles.  TMA writes a box of 64 16-bit columns (128 bytes, the
-// swizzle span) x R rows as R rows of 128 bytes, the 16-byte chunks of row r
-// XOR-ed with r % 8: 8-row atoms of 1024 bytes, which is the layout wgmma's
-// 128B-swizzle mode reads.  A D-wide tile (D = 64 or 128) is D/64 such boxes
-// ("halves") one after another.  A tile is read by wgmma in two ways:
-//   * K-major (the contraction runs along the 64 columns): Q, dO, K and V
+// Shared-memory tiles.  TMA writes a box of 16-bit columns x R rows as R
+// rows of one swizzle span, the 16-byte chunks of each row XOR-ed with its
+// place in an atom of 8 rows; wgmma reads the same layout in the matching
+// swizzle mode (Tile<D> below).  At D 64 and 128 the span is 128 bytes (64
+// columns; a chunk XOR-ed with r % 8; 1024-byte atoms) and a D-wide tile is
+// D/64 such boxes ("halves") one after another.  At D 32 a row is 64 bytes,
+// so the span is 64 (the whole row, one box; a chunk XOR-ed with (r / 2) %
+// 4; 512-byte atoms): a 128-byte box would be half zeros, doubling the
+// tile's bytes and the K of every product.  A tile is read by wgmma in two
+// ways:
+//   * K-major (the contraction runs along the columns): Q, dO, K and V
 //     as the operands of Q K^T and dO V^T (K Q^T and V dO^T in dK/dV).
-//     Descriptor: SBO = 1024 (next 8 rows); a 16-column k step moves the
-//     start address by 32 bytes inside the atom; the next 64 columns are
+//     Descriptor: SBO = one atom (the next 8 rows); a 16-column k step
+//     moves the start address by 32 bytes inside the span; past the span,
 //     the next half.
 //   * MN-major (the contraction runs along the rows, the output columns
-//     along the 64 contiguous columns): V in P V, K in dS K, dO in P^T dO
-//     and Q in dS^T Q, with the instruction's transpose bit.  Descriptor:
-//     SBO = 1024 (next 8 rows of the contraction), LBO = the byte distance
-//     between halves (next 64 output columns); a 16-row k step moves the
-//     start by 2048 bytes.
+//     along the contiguous ones), V in P V, K in dS K, dO in P^T dO and Q
+//     in dS^T Q, with the instruction's transpose bit.  Descriptor: SBO =
+//     one atom (the next 8 rows of the contraction), LBO = the byte
+//     distance between halves (the next 64 output columns; unused at D
+//     32); a 16-row k step moves the start by 16 rows of the span.
+// Every tile starts on a 1024-byte boundary, a multiple of either atom.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only)
@@ -110,11 +116,26 @@ struct TmaMaps {
   CUtensorMap m[N];
 };
 
+// The shared-memory layout of a D-wide 16-bit tile (D = 32, 64 or 128): the
+// swizzle span in bytes, the columns of one TMA box, the boxes of a row,
+// the atom of 8 rows (the descriptors' SBO) and the descriptor's layout
+// type (1 = 128-byte swizzle, 2 = 64-byte).
+template <int D>
+struct Tile {
+  static_assert(D == 32 || D == 64 || D == 128, "head_dim 32, 64 or 128");
+  static constexpr int kSpan = D >= 64 ? 128 : 64;
+  static constexpr int kCols = kSpan / 2;
+  static constexpr int kBoxes = D / kCols;
+  static constexpr int kAtom = 8 * kSpan;
+  static constexpr uint64_t kLayout = kSpan == 128 ? 1 : 2;
+};
+
 // A rank-4 map (D, heads, rows, batch) over a 16-bit [B, heads, rows, D]
 // operand of TMA data type `type` whose last dim is contiguous, with
 // element strides (sb, sh, ss):
-// boxes of 64 columns x `box_rows` rows of one head and batch, 128-byte
-// swizzled; rows past `rows` read as zeros.  TMA needs the base address and
+// boxes of Tile<D>::kCols columns x `box_rows` rows of one head and batch,
+// swizzled over Tile<D>::kSpan bytes (128 at D 64 and 128, 64 at D 32);
+// rows past `rows` read as zeros.  TMA needs the base address and
 // every byte stride to be multiples of 16 (a size-1 dim's stride is never
 // stepped).  Returns 0 or a cudaError_t.
 inline int encode_map(CUtensorMap* map, CUtensorMapDataType type,
@@ -136,12 +157,15 @@ inline int encode_map(CUtensorMap* map, CUtensorMapDataType type,
   }
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
                               (cuuint64_t)rows, (cuuint64_t)B};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
+  if (D != 32 && D != 64 && D != 128) return (int)cudaErrorInvalidValue;
+  const bool wide = D >= 64;  // Tile<D>::kSpan == 128
+  const cuuint32_t box[4] = {wide ? 64u : 32u, 1, (cuuint32_t)box_rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, type, 4,
                         const_cast<void*>(base), dims, strides, box, unit,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        wide ? CU_TENSOR_MAP_SWIZZLE_128B
+                             : CU_TENSOR_MAP_SWIZZLE_64B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidPitchValue;
@@ -172,7 +196,8 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 }
 
 // The first 1024-byte boundary at or after `p` (the 128B swizzle repeats
-// every 1024 bytes, so a swizzled tile must start on one).
+// every 1024 bytes, the 64B one every 512, so a swizzled tile must start on
+// such a boundary).
 __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
   return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
 }
@@ -281,14 +306,14 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
 
 // The tile ring of a kernel whose consumer warps loop over tiles of kBN
 // rows of two maps: K and V tiles (forward, dQ) or Q and dO tiles (dK/dV).
-// Stage s holds a tile of the first map then one of the second, each D/64
-// halves of kBN x 128 bytes.  Barriers: `q_full` for the tiles loaded
-// once, then full[s] (the producers' arrivals and TMA's bytes) and
-// empty[s] (one arrival from each consumer warp) per stage.  Iteration i
-// of a loop uses stage i % kStages, whichever tile it loads.
+// Stage s holds a tile of the first map then one of the second, each
+// Tile<D>::kBoxes halves of kBN rows of the span.  Barriers: `q_full` for
+// the tiles loaded once, then full[s] (the producers' arrivals and TMA's
+// bytes) and empty[s] (one arrival from each consumer warp) per stage.
+// Iteration i of a loop uses stage i % kStages, whichever tile it loads.
 template <int D, int kBN, int kStages>
 struct KvRing {
-  static constexpr int kHalf = kBN * 128;       // one 64-column half
+  static constexpr int kHalf = kBN * Tile<D>::kSpan;  // one box
   static constexpr int kTile = kBN * D * 2;     // one tile of one map
   static constexpr int kBytes = kStages * 2 * kTile;
   static constexpr int kBarBytes = 8 * (1 + 2 * kStages);
@@ -333,11 +358,11 @@ struct KvRing {
     const int s = i % kStages;
     uint8_t* kt = tiles + s * 2 * kTile;
     mbar_expect_tx(&full[s], 2 * kTile);
-    for (int c = 0; c < D / 64; ++c) {
-      tma_load(kt + c * kHalf, kmap, &full[s], c * 64, head, tile * kBN,
-               batch);
-      tma_load(kt + kTile + c * kHalf, vmap, &full[s], c * 64, head,
+    for (int c = 0; c < Tile<D>::kBoxes; ++c) {
+      tma_load(kt + c * kHalf, kmap, &full[s], c * Tile<D>::kCols, head,
                tile * kBN, batch);
+      tma_load(kt + kTile + c * kHalf, vmap, &full[s], c * Tile<D>::kCols,
+               head, tile * kBN, batch);
     }
   }
 
@@ -366,38 +391,36 @@ struct KvRing {
 // device: wgmma
 // ---------------------------------------------------------------------------
 
-// A shared-memory matrix descriptor in 128B-swizzle mode (see the top).
+// A shared-memory matrix descriptor in swizzle mode `layout` (see the top
+// and Tile).
 __device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
-                                              uint32_t sbo) {
+                                              uint32_t sbo, uint64_t layout) {
   return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
          ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (layout << 62);
 }
 
-// K-major operand: LBO is unused in swizzled K-major mode (1 by
-// convention), SBO = one 8-row atom.
-__device__ __forceinline__ uint64_t desc_kmajor(const void* p) {
-  return smem_desc(p, 16, 1024);
-}
-
-// MN-major operand whose 64-column halves lie `half_bytes` apart.
-__device__ __forceinline__ uint64_t desc_mnmajor(const void* p,
-                                                 uint32_t half_bytes) {
-  return smem_desc(p, half_bytes, 1024);
-}
-
-// k step kk (16 columns) of a K-major tile whose halves have `rows` rows:
-// half kk / 4, 32 bytes a step inside it.
+// k step kk (16 columns) of a K-major D-wide tile whose halves have `rows`
+// rows: half kk / (span / 32), 32 bytes a step inside it.  LBO is unused
+// in swizzled K-major mode (1 by convention), SBO = one 8-row atom.
+template <int D>
 __device__ __forceinline__ uint64_t desc_k_step(const uint8_t* tile,
                                                 int rows, int kk) {
-  return desc_kmajor(tile + (kk / 4) * rows * 128 + (kk % 4) * 32);
+  using L = Tile<D>;
+  constexpr int kSteps = L::kSpan / 32;
+  const uint8_t* p = tile + (kk / kSteps) * rows * L::kSpan +
+                     (kk % kSteps) * 32;
+  return smem_desc(p, 16, L::kAtom, L::kLayout);
 }
 
-// k step kk (16 rows) of a tile of `rows` rows read MN-major: 2048 bytes a
-// step, the halves `rows` x 128 bytes apart.
+// k step kk (16 rows) of a D-wide tile of `rows` rows read MN-major: 16
+// rows of the span a step, the halves `rows` rows of the span apart (LBO).
+template <int D>
 __device__ __forceinline__ uint64_t desc_mn_step(const uint8_t* tile,
                                                  int rows, int kk) {
-  return desc_mnmajor(tile + kk * 16 * 128, rows * 128);
+  using L = Tile<D>;
+  return smem_desc(tile + kk * 16 * L::kSpan, rows * L::kSpan, L::kAtom,
+                   L::kLayout);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -436,11 +459,12 @@ __device__ __forceinline__ uint32_t pack16(float lo, float hi) {
 #define PT_F8(d, i)                                                      \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),            \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define PT_F16(d) PT_F8(d, 0), PT_F8(d, 8)
 #define PT_F32(d) PT_F8(d, 0), PT_F8(d, 8), PT_F8(d, 16), PT_F8(d, 24)
 #define PT_F64(d) \
   PT_F32(d), PT_F8(d, 32), PT_F8(d, 40), PT_F8(d, 48), PT_F8(d, 56)
 
-// The three wgmma shapes, each instantiated for .bf16 and .f16 operands
+// The four wgmma shapes, each instantiated for .bf16 and .f16 operands
 // (TY): the instruction string is a literal, so the type is pasted in.
 
 // d[64 x 64] (+)= A[64 x 16] B[64 x 16]^T, A and B K-major in shared
@@ -495,6 +519,30 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
   }
 }
 
+// d[64 x 32] += A[64 x 16] B[16 x 32] (D 32's P V, dS K, P^T dO, dS^T Q).
+#define PT_WGMMA_RS_N32(TY)                                               \
+  asm volatile(                                                           \
+      "{\n"                                                               \
+      ".reg .pred p;\n"                                                   \
+      "setp.ne.b32 p, %21, 0;\n"                                          \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " "         \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n"                     \
+      "}\n"                                                               \
+      : PT_F16(d)                                                         \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+
+template <typename T>
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  if constexpr (kIsF16<T>) {
+    PT_WGMMA_RS_N32("f16");
+  } else {
+    PT_WGMMA_RS_N32("bf16");
+  }
+}
+
 #define PT_WGMMA_RS_N128(TY)                                              \
   asm volatile(                                                           \
       "{\n"                                                               \
@@ -524,19 +572,23 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
 
 #undef PT_WGMMA_RS_N128
 #undef PT_WGMMA_RS_N64
+#undef PT_WGMMA_RS_N32
 #undef PT_WGMMA_SS_N64
 #undef PT_F64
 #undef PT_F32
+#undef PT_F16
 #undef PT_F8
 
-// d[64 x D] += A B for D = 64 or 128 (see wgmma_rs_n64).
+// d[64 x D] += A B for D = 32, 64 or 128 (see wgmma_rs_n64).
 template <typename T, int D>
 __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
                                          const uint32_t (&a)[4], uint64_t b) {
-  if constexpr (D == 64) {
+  if constexpr (D == 32) {
+    wgmma_rs_n32<T>(d, a, b);
+  } else if constexpr (D == 64) {
     wgmma_rs_n64<T>(d, a, b);
   } else {
-    static_assert(D == 128, "head_dim 64 or 128");
+    static_assert(D == 128, "head_dim 32, 64 or 128");
     wgmma_rs_n128<T>(d, a, b);
   }
 }
@@ -581,9 +633,17 @@ constexpr float kLog2e = 1.4426950408889634f;
 template <int D>
 using Ring = KvRing<D, kBN, kStages>;
 
-// A kBM-row tile of D 16-bit columns: D/64 halves of kBM x 128 bytes.
+// A kBM-row tile of D 16-bit columns: Tile<D>::kBoxes halves of kBM rows
+// of the span.
 template <int D>
 constexpr int kRowTile = kBM * D * 2;
+
+// Warpgroup wg's 64 rows of a D-wide tile (within its first half).
+template <int D>
+__device__ __forceinline__ const uint8_t* wg_rows(const uint8_t* tile,
+                                                  int wg) {
+  return tile + wg * 64 * Tile<D>::kSpan;
+}
 
 // Where a block and one of its threads work.  Block (x = b * heads + h, y)
 // takes q tile y of head h and batch b, reversed when causal so that the
@@ -616,8 +676,9 @@ struct Frame {
 template <int D>
 __device__ __forceinline__ void load_rows(uint8_t* dst, const CUtensorMap* map,
                                           uint64_t* bar, const Frame& f) {
-  for (int c = 0; c < D / 64; ++c)
-    tma_load(dst + c * kBM * 128, map, bar, c * 64, f.h, f.q0, f.b);
+  for (int c = 0; c < Tile<D>::kBoxes; ++c)
+    tma_load(dst + c * kBM * Tile<D>::kSpan, map, bar, c * Tile<D>::kCols,
+             f.h, f.q0, f.b);
 }
 
 // This thread's share of a warpgroup's 64 x D fp32 accumulator (its rows

@@ -9,7 +9,8 @@ import numpy as np
 from ..framework.initializer import ConstantInitializer
 from ..framework.layer_helper import LayerHelper
 
-__all__ = ["fc", "layer_norm", "embedding", "flash_attention",
+__all__ = ["fc", "layer_norm", "embedding", "softmax", "matmul",
+           "flash_attention",
            "flash_attention_qkv", "dropout", "sqrt", "silu", "exp", "cos",
            "floor", "ceil", "clip", "clip_by_norm", "mean",
            "rms_norm", "rope", "kv_cache_write", "kv_cache_insert",
@@ -90,6 +91,24 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
                             else padding_idx,
                             "is_sparse": is_sparse,
                             "is_distributed": is_distributed})
+    return out
+
+
+def softmax(input, axis=-1, name=None, use_cudnn=False):
+    helper = LayerHelper("softmax", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("softmax", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
+    helper = LayerHelper("matmul", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("matmul", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]},
+                     attrs={"transpose_X": transpose_x,
+                            "transpose_Y": transpose_y, "alpha": alpha})
     return out
 
 

@@ -1,18 +1,30 @@
-"""BERT/ERNIE-base encoder + pretraining heads, on the packed
-flash-attention path.
+"""BERT/ERNIE-base encoder + pretraining heads.
 
 Counterpart of ``paddle_tpu/models/bert.py``: the same layers in the same
 order, so the program matches the JAX package's op for op, name for
 name, for serving (``is_test=True``) and for training (``dropout`` on the
-embeddings, the attention output and the FFN output; the flash path folds
-out attention-probability dropout, as the JAX package does).  What waits
-for later slices raises NotImplementedError: the unfused
-(``use_flash=False``) and einsum (``use_flash="xla"``) attention paths,
-and widths the packed path cannot take (hidden % 128 != 0 or head_dim
-not in (64, 128)).
+embeddings, the attention output and the FFN output).  Attention takes
+the JAX package's four branches:
+
+* ``use_flash=True`` at hidden % 128 == 0 and head_dim 64 or 128: the
+  packed ``flash_attention_qkv`` op (its kernels read the fused
+  projection in place);
+* ``use_flash=True`` at other widths (MiniLM's head_dim 32): heads split
+  by reshape / transpose / slice, then the unpacked ``flash_attention``
+  op;
+* ``use_flash="xla"``: the einsum formulation (``flash_attention
+  impl="xla"``, layout ``bshd``), with in-op probability dropout unless
+  ``PT_BERT_NO_PROB_DROPOUT`` is set;
+* ``use_flash=False``: the unfused one, ``matmul`` with alpha, the
+  ``[B, 1, 1, S]`` bias, ``softmax``, probability ``dropout``, ``matmul``.
+
+The flash branches fold out attention-probability dropout, as the JAX
+package does (output dropout kept).
 """
 from __future__ import annotations
 
+import math
+import os
 import warnings
 
 from .. import layers
@@ -20,23 +32,54 @@ from .. import layers
 
 def _attention(x, hidden, num_heads, seq_len, attn_bias=None, dropout=0.0,
                is_test=False, use_flash=True):
-    """Multi-head self-attention on the packed path. x: [-1, S, H]."""
+    """Multi-head self-attention. x: [-1, S, H]."""
     head_dim = hidden // num_heads
-    if use_flash is not True:
-        raise NotImplementedError(
-            f"bert use_flash={use_flash!r}: only the packed flash path "
-            f"(use_flash=True) is ported")
-    if not (hidden % 128 == 0 and head_dim in (64, 128)):
-        raise NotImplementedError(
-            f"bert hidden {hidden} / head_dim {head_dim}: the packed path "
-            f"needs hidden % 128 == 0 and head_dim in (64, 128); the "
-            f"unpacked flash_attention path is not ported")
     qkv = layers.fc(x, size=3 * hidden, num_flatten_dims=2)  # [B,S,3H]
-    if dropout and not is_test:
+    if use_flash is True and dropout and not is_test:
         warnings.warn(
             "bert: flash attention folds out attention-probability "
-            "dropout (output dropout kept)", stacklevel=3)
-    ctx = layers.flash_attention_qkv(qkv, num_heads, bias=attn_bias)
+            "dropout (output dropout kept); use use_flash=False for "
+            "exact reference regularization", stacklevel=3)
+    if use_flash is True and hidden % 128 == 0 and head_dim in (64, 128):
+        # packed path: the kernels read the fused projection in place
+        ctx = layers.flash_attention_qkv(qkv, num_heads, bias=attn_bias)
+        return layers.fc(ctx, size=hidden, num_flatten_dims=2)
+    if use_flash == "xla":
+        # [B,S,h,d] throughout: the einsum formulation takes layout bshd
+        qkv = layers.reshape(qkv, [0, seq_len, 3, num_heads, head_dim])
+        q = layers.squeeze(
+            layers.slice(qkv, axes=[2], starts=[0], ends=[1]), [2])
+        k = layers.squeeze(
+            layers.slice(qkv, axes=[2], starts=[1], ends=[2]), [2])
+        v = layers.squeeze(
+            layers.slice(qkv, axes=[2], starts=[2], ends=[3]), [2])
+        prob_drop = (0.0 if os.environ.get("PT_BERT_NO_PROB_DROPOUT")
+                     else dropout)
+        ctx = layers.flash_attention(
+            q, k, v, bias=attn_bias, impl="xla", layout="bshd",
+            dropout_prob=prob_drop, is_test=is_test)   # [B,S,h,d]
+        ctx = layers.reshape(ctx, [0, seq_len, hidden])
+        return layers.fc(ctx, size=hidden, num_flatten_dims=2)
+    qkv = layers.reshape(qkv, [0, seq_len, 3, num_heads, head_dim])
+    qkv = layers.transpose(qkv, [2, 0, 3, 1, 4])  # [3,B,h,S,D]
+    q = layers.squeeze(layers.slice(qkv, axes=[0], starts=[0], ends=[1]), [0])
+    k = layers.squeeze(layers.slice(qkv, axes=[0], starts=[1], ends=[2]), [0])
+    v = layers.squeeze(layers.slice(qkv, axes=[0], starts=[2], ends=[3]), [0])
+    if use_flash:
+        ctx = layers.flash_attention(q, k, v, bias=attn_bias)
+    else:
+        scores = layers.matmul(q, k, transpose_y=True,
+                               alpha=1.0 / math.sqrt(head_dim))  # [B,h,S,S]
+        if attn_bias is not None:
+            bias4d = layers.unsqueeze(layers.unsqueeze(attn_bias, [1]), [1])
+            scores = layers.elementwise_add(scores, bias4d)
+        probs = layers.softmax(scores)
+        if dropout and not is_test:
+            probs = layers.dropout(probs, dropout, is_test=is_test,
+                                   dropout_implementation="upscale_in_train")
+        ctx = layers.matmul(probs, v)  # [B,h,S,D]
+    ctx = layers.transpose(ctx, [0, 2, 1, 3])
+    ctx = layers.reshape(ctx, [0, seq_len, hidden])
     return layers.fc(ctx, size=hidden, num_flatten_dims=2)
 
 
@@ -68,7 +111,8 @@ def bert_encoder(input_ids, token_type_ids=None, attn_mask=None,
 
     attn_bias = None
     if attn_mask is not None:
-        # [B,S] additive bias rows, broadcast over heads and queries
+        # [B,S] additive bias rows (the flash branches broadcast them over
+        # heads and queries; the unfused one unsqueezes to [B,1,1,S])
         attn_bias = layers.scale(attn_mask, scale=10000.0, bias=-10000.0)
 
     for _ in range(num_layers):

@@ -7,10 +7,13 @@ a ``torch.autograd.Function`` whose backward is what its auto-derived
 
   * a CUDA tensor launches the Hopper kernels (ops/cuda/flash_attention.py):
     the forward kernel, and the dK/dV and dQ kernels in the backward;
-    ``flash_attention_qkv`` only for H % 128 == 0 and head_dim in (64, 128),
-    as the JAX package dispatches it, ``flash_attention`` for head_dim 64
+    ``flash_attention_qkv`` for H % 128 == 0 and head_dim in (64, 128), as
+    the JAX package dispatches it, ``flash_attention`` for head_dim 32, 64
     or 128;
   * a CPU tensor takes the plain PyTorch versions;
+  * ``flash_attention_qkv`` at other widths takes the JAX package's own
+    formulation there on any device, heads split then
+    ``blockwise_attention`` (``split_heads_attention``, no kernel);
   * a CUDA tensor of any other shape or dtype raises: nothing falls back.
 
 ``flash_attention`` with ``impl="xla"`` is the JAX package's einsum
@@ -25,8 +28,9 @@ from __future__ import annotations
 import torch
 
 from .cuda import gemm
-from .cuda.flash_attention import (flash_attention_autograd,
-                                   flash_attention_packed_autograd)
+from .cuda.flash_attention import (PACKED_HEAD_DIMS, flash_attention_autograd,
+                                   flash_attention_packed_autograd,
+                                   split_heads_attention)
 from .registry import in_var, register_op, set_out
 
 
@@ -133,18 +137,17 @@ def _attn_qkv_infer(op, block):
 @register_op("flash_attention_qkv", infer=_attn_qkv_infer, grad="auto")
 def _flash_attention_qkv(ctx, op):
     """QKV [B, S, 3H] -> Out [B, S, H], optional additive Bias [B, S]
-    (or [B, 1, 1, S]) broadcast over heads and queries."""
+    (or [B, 1, 1, S]) broadcast over heads and queries.  The packed
+    kernels where the JAX package runs its own (hidden % 128 == 0 and
+    head_dim 64 or 128), else that package's formulation for the other
+    widths: heads split, then ``blockwise_attention``."""
     qkv = ctx.get_input(op, "QKV")
     nh = op.attr("num_heads")
     H = qkv.shape[-1] // 3
     D = H // nh
-    if qkv.is_cuda and not (H % 128 == 0 and D in (64, 128)):
-        raise NotImplementedError(
-            f"flash_attention_qkv on CUDA needs hidden % 128 == 0 and "
-            f"head_dim in (64, 128) (got hidden {H}, head_dim {D}), as the "
-            f"JAX package's kernel dispatch does; its unpacked fallback for "
-            f"other widths (split heads, then blockwise attention) is not "
-            f"ported")
-    ctx.set_output(op, "Out", flash_attention_packed_autograd(
+    attend = (flash_attention_packed_autograd
+              if H % 128 == 0 and D in PACKED_HEAD_DIMS
+              else split_heads_attention)
+    ctx.set_output(op, "Out", attend(
         qkv, _row_bias(ctx, op), nh, op.attr("causal", False),
         op.attr("scale", None)))

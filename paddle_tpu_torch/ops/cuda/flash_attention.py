@@ -70,6 +70,12 @@ import torch
 
 DEFAULT_BLOCK_K = 512
 NEG_INF = -1e30
+# The head dims each layout's kernels are built for.  The packed path keeps
+# the JAX package's dispatch (hidden % 128 == 0 and head_dim 64 or 128);
+# the unpacked kernels also take 32 (MiniLM-L12-H384's heads), in
+# 64-byte-swizzled tiles (csrc/hopper.cuh).
+PACKED_HEAD_DIMS = (64, 128)
+UNPACKED_HEAD_DIMS = (32, 64, 128)
 
 _KERNEL = "flash_attention_fwd"
 _BWD_KERNEL = "flash_attention_bwd"
@@ -124,6 +130,38 @@ def blockwise_attention(q, k, v, causal=False, sm_scale=None,
     return out.to(q.dtype), (m, l)
 
 
+def split_heads_attention(qkv: torch.Tensor, bias: Optional[torch.Tensor],
+                          num_heads: int, causal: bool = False,
+                          sm_scale: Optional[float] = None) -> torch.Tensor:
+    """The JAX package's ``flash_attention_qkv`` at widths its packed
+    kernels do not take (hidden % 128 != 0 or head_dim not 64 / 128;
+    ``paddle_tpu/ops/attention_ops.py`` ``_flash_attention_qkv``): split
+    qkv [B, S, 3H] into q, k, v [B, h, S, D], run ``blockwise_attention``,
+    merge the heads: out [B, S, H] in qkv's dtype.  Plain PyTorch on any
+    device, differentiated by autograd; this is that package's own
+    formulation at such widths, not a kernel's stand-in.  Counts its calls
+    in ``.calls`` (not a plain version's count, which stays 0 where a
+    kernel must run)."""
+    split_heads_attention.calls += 1
+    return _blockwise_packed(qkv, bias, num_heads, causal, sm_scale)[0]
+
+
+split_heads_attention.calls = 0
+
+
+def _blockwise_packed(qkv, bias, num_heads, causal, sm_scale):
+    """qkv [B, S, 3H] split into q, k, v [B, h, S, D], then
+    ``blockwise_attention``: (out [B, S, H] in qkv's dtype, lse [B, h, S]
+    float32)."""
+    B, S, H, D = _split_heads(qkv, num_heads)
+    x = qkv.reshape(B, S, 3, num_heads, D)
+    q, k, v = (x[:, :, j].transpose(1, 2) for j in range(3))   # [B,h,S,D]
+    o, (m, l) = blockwise_attention(q, k, v, causal=causal,
+                                    sm_scale=sm_scale, bias=bias)
+    lse = m + torch.log(torch.clamp(l, min=1e-30))
+    return o.transpose(1, 2).reshape(B, S, H).to(qkv.dtype), lse
+
+
 def _split_heads(qkv, num_heads):
     B, S, threeH = qkv.shape
     H = threeH // 3
@@ -141,16 +179,7 @@ def flash_attention_packed_reference(qkv: torch.Tensor,
     """Plain PyTorch version of the kernel: (out [B,S,H] in qkv's dtype,
     lse [B,num_heads,S] float32).  Counts its calls in ``.calls``."""
     flash_attention_packed_reference.calls += 1
-    B, S, H, D = _split_heads(qkv, num_heads)
-    x = qkv.reshape(B, S, 3, num_heads, D)
-    q = x[:, :, 0].transpose(1, 2)                       # [B,h,S,D]
-    k = x[:, :, 1].transpose(1, 2)
-    v = x[:, :, 2].transpose(1, 2)
-    o, (m, l) = blockwise_attention(q, k, v, causal=causal,
-                                    sm_scale=sm_scale, bias=bias)
-    lse = m + torch.log(torch.clamp(l, min=1e-30))
-    out = o.transpose(1, 2).reshape(B, S, H).to(qkv.dtype)
-    return out, lse
+    return _blockwise_packed(qkv, bias, num_heads, causal, sm_scale)
 
 
 flash_attention_packed_reference.calls = 0
@@ -209,8 +238,8 @@ flash_attention_packed_backward_reference.calls = 0
 
 def _check_qkv(qkv, num_heads, what):
     """What every kernel needs of qkv: a contiguous float32, bfloat16 or
-    float16 [B, S, 3H] CUDA tensor with head_dim 64 or 128 and a grid CUDA can
-    launch; returns (B, S, H, D)."""
+    float16 [B, S, 3H] CUDA tensor with head_dim in PACKED_HEAD_DIMS and a
+    grid CUDA can launch; returns (B, S, H, D)."""
     if qkv.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {qkv.device}")
     if qkv.dim() != 3:
@@ -219,8 +248,10 @@ def _check_qkv(qkv, num_heads, what):
     if qkv.dtype not in _DTYPE_CODES:
         raise TypeError(f"{what} takes float32, bfloat16 or float16, got "
                         f"{qkv.dtype}")
-    if D not in (64, 128):
-        raise ValueError(f"{what} needs head_dim in (64, 128); got {D}")
+    if D not in PACKED_HEAD_DIMS:
+        raise ValueError(f"{what}: the kernels take head_dim "
+                         f"{' / '.join(map(str, PACKED_HEAD_DIMS))}; got "
+                         f"{D}")
     if not qkv.is_contiguous():
         raise ValueError(f"{what} needs a contiguous qkv")
     if B == 0 or S == 0 or B > 65535 or num_heads > 65535:
@@ -540,8 +571,9 @@ flash_attention_backward_reference.calls = 0
 def _check_unpacked(q, k, v, what):
     """What the unpacked kernels need: CUDA tensors q [B,H,Sq,D] and k, v
     [B,H,Sk,D] of one dtype, float32, bfloat16 or float16, on one device,
-    head_dim 64 or 128, each with a contiguous last dim (any other
-    strides); and a grid CUDA can launch.  Returns (B, H, Sq, Sk, D)."""
+    head_dim in UNPACKED_HEAD_DIMS, each with a contiguous last dim (any
+    other strides); and a grid CUDA can launch.  Returns (B, H, Sq, Sk,
+    D)."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
     if q.dim() != 4:
@@ -558,8 +590,10 @@ def _check_unpacked(q, k, v, what):
         raise TypeError(f"{what} takes float32, bfloat16 or float16 q, k and "
                         f"v of one dtype, got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
-    if D not in (64, 128):
-        raise ValueError(f"{what} needs head_dim in (64, 128); got {D}")
+    if D not in UNPACKED_HEAD_DIMS:
+        raise ValueError(f"{what}: the kernels take head_dim "
+                         f"{' / '.join(map(str, UNPACKED_HEAD_DIMS))}; got "
+                         f"{D}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{what}: {name} is on {t.device}, q on "
@@ -798,8 +832,9 @@ def flash_attention_autograd(q: torch.Tensor, k: torch.Tensor,
 def counters():
     """(owner, attribute) of every count kept here: ``.launches`` and
     ``.realigned`` of the six launching wrappers, ``.calls`` of the four
-    plain versions.  A replayed CUDA graph runs none of this Python, so
-    the executor adds what its capture counted on every replay."""
+    plain versions and of ``split_heads_attention``.  A replayed CUDA
+    graph runs none of this Python, so the executor adds what its capture
+    counted on every replay."""
     wrappers = (flash_attention_packed, flash_attention_packed_dkv,
                 flash_attention_packed_dq, flash_attention_unpacked,
                 flash_attention_unpacked_dkv, flash_attention_unpacked_dq)
@@ -807,4 +842,4 @@ def counters():
              flash_attention_packed_backward_reference,
              flash_attention_reference, flash_attention_backward_reference)
     return (tuple((w, a) for w in wrappers for a in ("launches", "realigned"))
-            + tuple((p, "calls") for p in plain))
+            + tuple((p, "calls") for p in plain + (split_heads_attention,)))

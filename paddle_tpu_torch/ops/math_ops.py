@@ -5,13 +5,15 @@ and Llama paths: ``elementwise_add/sub/mul/div/max/min/pow`` with Paddle
 ``axis`` broadcasting, ``less_than``, ``equal``, ``scale``, ``mul``,
 ``gelu``, ``relu``, ``silu``, ``sqrt``, ``exp``, ``cos``, ``floor``,
 ``ceil``, ``sign``, ``pow``, ``cast``, ``reduce_sum``, ``mean`` and
-``sum``; and for the training recipe (LR decays, clips, L1 decay)
-``clip``, ``clip_by_norm`` and ``global_norm_sq``.  ``mul``'s
-row results must not depend on how many rows it has (generation's cached
-decode against the uncached forward, tolerance 0).  On the card a
-float32 product that no grad op differentiates runs the hand-written
-product kernel whose rows do not depend on M (ops/cuda/gemm.py); a
-differentiated (training) or bfloat16 product keeps ``torch.matmul``.
+``sum``; ``matmul`` / ``matmul_v2`` (BERT's unfused attention); and for
+the training recipe (LR decays, clips, L1 decay) ``clip``,
+``clip_by_norm`` and ``global_norm_sq``.  ``mul``'s and ``matmul``'s
+row results must not depend on how many rows they have (generation's
+cached decode against the uncached forward, a served batch against its
+rows alone: tolerance 0).  On the card a float32 product that no grad op
+differentiates runs the hand-written product kernel whose rows do not
+depend on M (ops/cuda/gemm.py); a differentiated (training) or bfloat16
+product keeps ``torch.matmul``.
 On the CPU a one-row product is computed as two rows: MKL's one-row GEMV
 sums in another order than the rows of a longer product.
 
@@ -26,6 +28,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..errors import InvalidArgumentError
 from ..framework.core import Block, Operator, dtype_to_torch
 from .cuda import gemm
 from .registry import (LowerContext, broadcast_shapes, in_var, register_op,
@@ -250,6 +253,92 @@ def _mul(ctx: LowerContext, op: Operator):
     else:
         out = _cpu_product(x2, y2, differentiated)
     ctx.set_output(op, "Out", out.reshape(xs[:xd] + ys[yd:]))
+
+
+# ---------------------------------------------------------------------------
+# matmul: batched products with transposes, alpha and broadcast batch dims
+# ---------------------------------------------------------------------------
+
+def _matmul_shape(xs, ys, tx, ty):
+    """Out's shape, as the JAX package infers it: a 1-D operand is a row
+    (X) or a column (Y) whose transpose flag is ignored; batch dims are
+    the longer operand's."""
+    xs, ys = list(xs), list(ys)
+    x1, y1 = len(xs) == 1, len(ys) == 1
+    if x1:
+        xs = [1, xs[0]]
+    if y1:
+        ys = [ys[0], 1]
+    if tx and not x1:
+        xs = xs[:-2] + [xs[-1], xs[-2]]
+    if ty and not y1:
+        ys = ys[:-2] + [ys[-1], ys[-2]]
+    if not (int(xs[-1]) == int(ys[-2]) or -1 in (int(xs[-1]),
+                                                 int(ys[-2]))):
+        raise InvalidArgumentError(
+            f"matmul contraction mismatch: X{tuple(xs)} @ Y{tuple(ys)} "
+            f"(K={xs[-1]} vs {ys[-2]})")
+    batch = xs[:-2] if len(xs) >= len(ys) else ys[:-2]
+    out = list(batch) + [xs[-2], ys[-1]]
+    if x1:
+        out.pop(-2)
+    if y1:
+        out.pop(-1)
+    return tuple(out or [1])
+
+
+def _matmul_infer(op: Operator, block: Block):
+    x, y = in_var(op, block, "X"), in_var(op, block, "Y")
+    tx = op.attr("trans_x", op.attr("transpose_X", False))
+    ty = op.attr("trans_y", op.attr("transpose_Y", False))
+    set_out(op, block, "Out", _matmul_shape(x.shape, y.shape, tx, ty),
+            x.dtype)
+
+
+def _matmul(ctx: LowerContext, op: Operator):
+    """Out = alpha * op(X) @ op(Y), op a transpose of the last two dims
+    where ``trans_x`` / ``transpose_X`` (``trans_y`` / ``transpose_Y``)
+    asks for it; batch dims broadcast, a 1-D operand is a row or a column.
+    16-bit operands are summed in float32 and rounded once, as the JAX
+    package's ``preferred_element_type`` does; alpha scales the result in
+    its dtype.  The product is chosen as ``mul``'s: the kernel on the card
+    where no grad op differentiates it, on the CPU the kernel's chunked
+    sums for a long K (``_cpu_product``) and one row as the first of two,
+    else ``torch.matmul``."""
+    x, y = _promote(ctx.get_input(op, "X"), ctx.get_input(op, "Y"))
+    if op.attr("trans_x", op.attr("transpose_X", False)) and x.dim() >= 2:
+        x = x.transpose(-1, -2)
+    if op.attr("trans_y", op.attr("transpose_Y", False)) and y.dim() >= 2:
+        y = y.transpose(-1, -2)
+    x1, y1 = x.dim() == 1, y.dim() == 1
+    if x1:
+        x = x[None]
+    if y1:
+        y = y[:, None]
+    lead = torch.broadcast_shapes(x.shape[:-2], y.shape[:-2])
+    x = x.expand(*lead, *x.shape[-2:])
+    y = y.expand(*lead, *y.shape[-2:])
+    differentiated = ctx.differentiates()
+    if gemm.routes(x, y) and not differentiated:
+        out = gemm.matmul(x, y)
+    elif x.shape[-2] == 1:
+        # one row as the first of two, as ``mul`` computes it
+        out = _cpu_product(torch.cat([x, x], dim=-2), y,
+                           differentiated)[..., :1, :]
+    else:
+        out = _cpu_product(x, y, differentiated)
+    if x1:
+        out = out.squeeze(-2)
+    if y1:
+        out = out.squeeze(-1)
+    alpha = op.attr("alpha", 1.0)
+    if alpha != 1.0:
+        out = out * alpha
+    ctx.set_output(op, "Out", out)
+
+
+register_op("matmul_v2", infer=_matmul_infer, lower=_matmul)
+register_op("matmul", infer=_matmul_infer, lower=_matmul)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""Neural-network op lowerings in PyTorch: ``layer_norm``, ``rms_norm``,
-``softmax_with_cross_entropy``, ``mse_loss`` and ``dropout``.
+"""Neural-network op lowerings in PyTorch: ``softmax``, ``layer_norm``,
+``rms_norm``, ``softmax_with_cross_entropy``, ``mse_loss`` and
+``dropout``.
 
 Counterpart of the same ops in ``paddle_tpu/ops/nn_ops.py``, with the
 same formulas: normalisation statistics in float32, the loss as
@@ -15,6 +16,13 @@ import torch
 
 from .cuda import rms_norm
 from .registry import in_var, register_op, same_as_input, set_out
+
+
+@register_op("softmax", infer=same_as_input())
+def _softmax(ctx, op):
+    """Softmax over ``axis`` (default the last), in X's dtype."""
+    ctx.set_output(op, "Out", torch.softmax(ctx.get_input(op, "X"),
+                                            dim=op.attr("axis", -1)))
 
 
 def _ln_infer(op, block):

@@ -15,10 +15,20 @@ the launcher machinery (:func:`paddle_tpu_torch.distributed.launch.
 spawn_process` — shared restart accounting + log capture), with its
 own port, metrics dir, and ``PADDLE_TPU_REPLICA_ID`` env.
 
-* **Stable URLs.** A replica binds ephemeral on first spawn and
-  publishes its port via an atomic endpoint file; the supervisor PINS
-  that port for every respawn, so the router registry never changes
-  across crashes or rollouts.
+* **Stable URLs.** A replica's first life binds a free port the
+  supervisor draws OUTSIDE the kernel's ephemeral range
+  (``ip_local_port_range``; the JAX package's supervisor passes 0, an
+  ephemeral port) and publishes it via an atomic endpoint file; the
+  supervisor PINS that port for every respawn, so the router registry
+  never changes across crashes or rollouts.  An ephemeral port is the
+  pool every outgoing connection draws its source port from (the
+  router's relays, load generators, probes): while the replica is
+  down one of them can take it, and the respawns cannot bind until it
+  is free again, ~60 s of TIME_WAIT after it closes.  A life that
+  cannot bind logs the errno and the port (``BIND_ERROR``) and exits
+  1; the supervisor names that error in the death record, the respawn
+  log line and the ``fleet_replica_crash`` event, and draws a new port
+  for a first life that never bound.
 
 * **Crash detection → bounded respawn.** A monitor thread polls the
   processes; an unexpected exit respawns the replica with exponential
@@ -84,26 +94,40 @@ from __future__ import annotations
 import json
 import logging
 import os
+import random
+import re
 import signal
+import socket
 import sys
 import tempfile
 import threading
 import time
 import urllib.error
 import urllib.request
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from .. import blackbox, telemetry
 from ..distributed.launch import spawn_process
 from ..flags import flag_value, register_flag
 from ..monitor import stat_add
 
-__all__ = ["FleetSupervisor"]
+__all__ = ["FleetSupervisor", "ephemeral_range", "pick_port", "bind_error"]
 
 logger = logging.getLogger("paddle_tpu_torch.serving.fleet")
 
 _BACKOFF_CAP_S = 5.0
 _MONITOR_POLL_S = 0.1
+# where Linux keeps the ephemeral (local) port range; its default
+_PORT_RANGE_FILE = "/proc/sys/net/ipv4/ip_local_port_range"
+_DEFAULT_PORT_RANGE = (32768, 60999)
+# the lowest port a first life is given (below it: well-known services)
+_LOW_PORT = 10000
+# the line a replica logs when its listener cannot bind (serving/replica.py)
+BIND_ERROR = "replica bind failed"
+_BIND_ERROR_RE = re.compile(BIND_ERROR + r": pid (\d+) port (\d+) errno "
+                            r"(\d+) \((\w+)\)")
+# how much of a log's end the supervisor reads for a dead life's line
+_LOG_TAIL_BYTES = 16384
 # the directory holding this checkout's paddle_tpu_torch package
 _CHECKOUT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -153,6 +177,61 @@ def swap_timeout_s(checkpoint_dir: str) -> float:
     return 35.0 + 4.0 * size / 2 ** 30
 
 
+def ephemeral_range() -> Tuple[int, int]:
+    """The kernel's ephemeral port range (low, high): every outgoing
+    connection that names no source port draws one from it."""
+    try:
+        with open(_PORT_RANGE_FILE, encoding="ascii") as f:
+            lo, hi = (int(x) for x in f.read().split()[:2])
+        return lo, hi
+    except (OSError, ValueError):
+        return _DEFAULT_PORT_RANGE
+
+
+def pick_port(host: str = "127.0.0.1") -> int:
+    """A port outside ``ephemeral_range`` that binds now, as a replica's
+    listener binds (SO_REUSEADDR on), drawn at random so that supervisors
+    side by side rarely draw the same one; 0 (ephemeral) where the range
+    leaves no port or none of 64 draws binds."""
+    lo, hi = ephemeral_range()
+    spans = [(a, b) for a, b in ((_LOW_PORT, lo - 1), (hi + 1, 65535))
+             if a <= b]
+    total = sum(b - a + 1 for a, b in spans)
+    rng = random.SystemRandom()
+    for _ in range(64 if total else 0):
+        k = rng.randrange(total)
+        for a, b in spans:
+            if k <= b - a:
+                port = a + k
+                break
+            k -= b - a + 1
+        with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+            sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            try:
+                sock.bind((host, port))
+            except OSError:
+                continue
+        return port
+    return 0
+
+
+def bind_error(log_path: str, pid: int) -> Optional[dict]:
+    """The bind error life `pid` logged before it exited (``BIND_ERROR``'s
+    line in the end of its log): {"port", "errno", "name"}, or None."""
+    try:
+        with open(log_path, "rb") as f:
+            f.seek(max(0, os.path.getsize(log_path) - _LOG_TAIL_BYTES))
+            tail = f.read().decode("utf-8", "replace")
+    except OSError:
+        return None
+    found = None
+    for m in _BIND_ERROR_RE.finditer(tail):
+        if int(m.group(1)) == pid:
+            found = {"port": int(m.group(2)), "errno": int(m.group(3)),
+                     "name": m.group(4)}
+    return found
+
+
 def _healthz(url: str, timeout: float = 2.0) -> Optional[dict]:
     try:
         with urllib.request.urlopen(url.rstrip("/") + "/healthz",
@@ -174,6 +253,9 @@ class _Replica:
         self.metrics_dir = os.path.join(rdir, "metrics")
         self.proc = None
         self.port: Optional[int] = None     # pinned after first bind
+        # the port a first life is given, drawn outside the ephemeral
+        # range (pick_port), until a life has bound
+        self.first_port: Optional[int] = None
         self.url: Optional[str] = None
         self.lives = 0            # spawns so far (-> RESTART_COUNT)
         self.crash_streak = 0     # consecutive crashes (backoff input)
@@ -271,9 +353,12 @@ class FleetSupervisor:
             os.remove(rep.endpoint_file)
         except FileNotFoundError:
             pass  # ok: first spawn
+        if rep.port is None and rep.first_port is None:
+            rep.first_port = pick_port()
         cmd = [sys.executable, "-u", "-m", "paddle_tpu_torch.serving.replica",
                "--endpoint-file", rep.endpoint_file,
-               "--port", str(rep.port or 0), *self.replica_argv]
+               "--port", str(rep.port or rep.first_port or 0),
+               *self.replica_argv]
         if rep.role is not None:
             cmd += ["--role", rep.role]
         env = dict(self.env)
@@ -293,7 +378,7 @@ class FleetSupervisor:
         # successful health answer
         logger.info("replica %d spawned (pid %d, life %d, port %s)",
                     rep.idx, rep.proc.pid, rep.lives,
-                    rep.port or "ephemeral")
+                    rep.port or rep.first_port or "ephemeral")
         self._publish_live()
 
     def start(self):
@@ -387,11 +472,16 @@ class FleetSupervisor:
         arts = blackbox.harvest(rep.metrics_dir, pid) \
             if pid is not None else []
         attribution = blackbox.attribute_death(rc, arts)
+        bind = bind_error(rep.log_path, pid) if pid is not None else None
         rec = {"pid": pid, "rc": rc,
                "signal": blackbox.signal_name(rc),
                "attribution": attribution,
                "postmortems": [a["path"] for a in arts],
+               "bind_error": bind,
                "time": round(time.time(), 3)}
+        if bind is not None and rep.port is None:
+            # a first life that never bound: the next one draws anew
+            rep.first_port = None
         rep.last_death = rec
         if arts:
             rep.postmortems += len(arts)
@@ -441,15 +531,20 @@ class FleetSupervisor:
                       _BACKOFF_CAP_S)
         rep.respawn_at = time.monotonic() + backoff
         stat_add("fleet_restarts")
-        logger.warning("replica %d crashed rc=%s [%s, %d postmortem(s)]"
+        bind = death["bind_error"]
+        logger.warning("replica %d crashed rc=%s [%s, %d postmortem(s)%s]"
                        "; respawn %d/%d in %.2fs", rep.idx,
                        self._rc_str(rc), death["attribution"],
-                       len(death["postmortems"]), rep.crash_restarts,
-                       self.max_restarts, backoff)
+                       len(death["postmortems"]),
+                       "" if bind is None else
+                       f", cannot bind port {bind['port']}: errno "
+                       f"{bind['errno']} ({bind['name']})",
+                       rep.crash_restarts, self.max_restarts, backoff)
         telemetry.log_event("fleet_replica_crash", replica=rep.idx,
                             rc=rc, signal=death["signal"],
                             attribution=death["attribution"],
                             postmortems=len(death["postmortems"]),
+                            bind_error=bind,
                             restart=rep.crash_restarts,
                             backoff_s=round(backoff, 3))
 

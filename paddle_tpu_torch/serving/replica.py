@@ -16,7 +16,9 @@ pay a first-request compile.
 
 Startup contract (what the supervisor relies on):
 
-1. bind the port (``--port``, 0 = ephemeral) and write
+1. bind the port (``--port``, 0 = ephemeral; a port that cannot be
+   bound is logged as ``fleet.BIND_ERROR`` with its errno, then exit 1) and
+   write
    ``--endpoint-file`` atomically: ``{"url", "port", "pid",
    "replica_id", "restart_count"}`` — the supervisor learns the bound
    port from here and PINS it for respawns, so a replica's URL is
@@ -46,6 +48,7 @@ normal flag env vars.
 from __future__ import annotations
 
 import argparse
+import errno
 import json
 import logging
 import os
@@ -242,6 +245,7 @@ def main(argv=None) -> int:
     from ..device import resolve_device
     from ..flags import set_flags
     from .engine import ServingEngine
+    from .fleet import BIND_ERROR
     from .server import serve
 
     try:
@@ -298,7 +302,16 @@ def main(argv=None) -> int:
             spec_tokens=args.gen_spec_tokens, seed=args.seed,
             device=args.device)
         engine.attach_generator(gen)
-    server = serve(engine, host=args.host, port=args.port)
+    try:
+        server = serve(engine, host=args.host, port=args.port)
+    except OSError as e:
+        # the port is taken (a pinned port another socket drew while this
+        # replica was down): name it for the supervisor's crash record
+        logger.error("%s: pid %d port %d errno %s (%s): %s", BIND_ERROR,
+                     os.getpid(), args.port, e.errno,
+                     errno.errorcode.get(e.errno, "UNKNOWN"), e.strerror)
+        _close_engines(engine, predictor)
+        return 1
     server.install_sigterm()
 
     restart_count = int(os.environ.get("PADDLE_TPU_RESTART_COUNT",

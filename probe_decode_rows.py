@@ -5,6 +5,7 @@ from the decode step's.
 
     python3 probe_decode_rows.py [--layers 2] [--products {as_is,f64}]
                                  [--program {decode,prefill,verify,serving}]
+                                 [--attention {flash,xla,unfused}]
                                  [--device cuda|cpu] [--tiny]
 
 Builds Llama at Llama-2-7B's widths (``--tiny``: a 2-layer toy) with
@@ -42,6 +43,9 @@ every op's output row of the batch-1 run against that row of the
 batch-8 run (outputs without a batch axis, such as the position ids,
 whole).  This is the serving engine's batched = single invariant, op by
 op: a difference names the op whose rows depend on their batchmates.
+``--attention`` picks BERT's attention branch: ``flash`` (the packed
+kernel, the default), ``xla`` (the einsum formulation) or ``unfused``
+(``matmul``, ``softmax``, ``matmul``).
 
 ``--products f64`` computes every torch.matmul in float64 and rounds it
 to float32, so that no product's rows depend on how many rows it has
@@ -247,11 +251,16 @@ def serving_feed(batch, seq_len, vocab, seed):
             "attn_mask": mask}
 
 
+# --attention: BERT's use_flash for each attention branch
+ATTENTION = {"flash": True, "xla": "xla", "unfused": False}
+
+
 def serving_rows(model, device, seq_len=SERVING_SEQ, seed=5):
     """Every op's output of BERT's serving program run on one request
     alone against the same op's row SERVING_ROW of a SERVING_BATCH-row
     batch holding that request there, on `device` with `model`'s sizes
-    (``num_layers`` among them) and random weights: [{"op", "index",
+    (``num_layers`` and ``use_flash`` among them) and random weights:
+    [{"op", "index",
     "out", "max_abs_diff"}] in op order."""
     import torch
     import paddle_tpu_torch as tpt
@@ -306,6 +315,8 @@ def main():
     ap.add_argument("--program",
                     choices=("decode", "prefill", "verify", "serving"),
                     default="decode")
+    ap.add_argument("--attention", choices=tuple(ATTENTION),
+                    default="flash")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--tiny", action="store_true")
     args = ap.parse_args()
@@ -333,7 +344,8 @@ def main():
 
     if args.program == "serving":
         model = dict(BERT_TINY if args.tiny else BERT_BASE,
-                     num_layers=args.layers)
+                     num_layers=args.layers,
+                     use_flash=ATTENTION[args.attention])
         report = serving_rows(model, device)
         first = next((r for r in report if r["max_abs_diff"] > 0), None)
         for r in report:
@@ -343,6 +355,7 @@ def main():
               f"{SERVING_ROW} of {SERVING_BATCH}, {args.products} "
               f"products): {first}")
         print(json.dumps({"products": args.products, "program": "serving",
+                          "attention": args.attention,
                           "device": str(device),
                           "kind": torch.cuda.get_device_name(0)
                           if device.type == "cuda" else "cpu",

@@ -9,7 +9,7 @@ seq 32).
   differently ordered sums) through both Predictors.
 * A model directory saved by paddle_tpu loads and answers in the port.
 * With no CUDA, Predictor() without an explicit device raises.
-* The paths not ported yet raise NotImplementedError at build time.
+* The other attention branches are in tests/test_torch_bert_branches.py.
 """
 import json
 
@@ -209,19 +209,3 @@ def test_predictor_without_cuda_and_without_device_raises(tmp_path,
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tpt.inference.Predictor(t_main, feeds, [loss], scope=tpt.Scope(),
                                 device="cuda")
-
-
-@pytest.mark.parametrize("kw", [dict(use_flash=False),
-                                dict(use_flash="xla"),
-                                dict(hidden=96, num_heads=2),
-                                # head_dim 32 (training with dropout, the
-                                # case this slot held, is ported now)
-                                dict(hidden=256, num_heads=8,
-                                     is_test=False)])
-def test_paths_not_ported_yet_raise(kw):
-    main, startup = tpt.Program(), tpt.Program()
-    cfg = dict(CFG, is_test=True)
-    cfg.update(kw)
-    with tpt.program_guard(main, startup):
-        with pytest.raises(NotImplementedError):
-            t_build(**cfg)

@@ -1281,3 +1281,211 @@ def test_fp16_phase_rehearses_on_the_cpu(monkeypatch):
     assert [s["scale"] for s in steps[:3]] == [2.0 ** 17, 2.0 ** 16,
                                                2.0 ** 15]
     assert not steps[3]["found"] and steps[4]["scale"] == 2.0 ** 16
+
+
+# phase 17: MiniLM-L12-H384 and bench.py's seq-128 step
+def test_minilm_phase_runs_the_published_configurations():
+    """MiniLM-L12-H384's published widths (12 layers, hidden 384, 12
+    heads of 32, intermediate 1536, vocab 30522), no cut; its training at
+    bench.py's seq-512 recipe with 77 predictions; bench.py's seq-128 leg
+    at BERT-base, batch 192, 19 predictions; the timed attention shapes.
+    BERT's builder takes the unpacked flash_attention op at these widths,
+    one a layer, so a served request launches the D-32 forward 12 times."""
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch.models import build_bert_pretrain
+
+    m = smoke.MINILM
+    assert (m["num_layers"], m["hidden"], m["num_heads"],
+            m["intermediate"], m["vocab_size"]) == (12, 384, 12, 1536, 30522)
+    assert m["hidden"] // m["num_heads"] == 32
+    assert smoke.MINILM_TRAIN["seq_len"] == 512
+    assert smoke.MINILM_TRAIN["max_predictions"] == 77
+    assert smoke.MINILM_TRAIN_ATTN == (smoke.MINILM_TRAIN["batch_size"], 12,
+                                       512, 32)
+    assert smoke.MINILM_SERVE_ATTN == (4, 12, smoke.MINILM_SERVE_SEQ, 32)
+    s = smoke.SEQ128
+    assert (s["batch_size"], s["seq_len"], s["max_predictions"]) == \
+        (192, 128, 19)
+    assert all(s[k] == smoke.BERT_BASE[k] for k in smoke.BERT_BASE)
+    main, startup = tpt.Program(), tpt.Program()
+    with tpt.program_guard(main, startup):
+        build_bert_pretrain(is_test=True, seq_len=smoke.MINILM_SERVE_SEQ,
+                            **m)
+    assert smoke.serving_launches(main) == (0, 0, 0, 12, 0, 0)
+    assert smoke.forward_products(main) == 12 * 4 + 2  # 4 fc a layer, head
+    for use_flash, want in ((False, (0,) * 6), ("xla", (0,) * 6),
+                            (True, (12, 0, 0, 0, 0, 0))):
+        main = tpt.Program()
+        with tpt.program_guard(main, tpt.Program()):
+            build_bert_pretrain(is_test=True, use_flash=use_flash,
+                                **smoke.SERVE_BERT)
+        assert smoke.serving_launches(main) == want
+
+
+def test_d32_build_report_reads_every_d32_instantiation(monkeypatch):
+    """Phase 17a's look at phase 2's build: the nine D-32 instantiations
+    (three tensor-core kernels in bf16 and fp16, the fp32 forward's
+    64-row tile, the fp32 dK/dV and dQ), each with HGMMA and UTMALDG where
+    it is a tensor-core kernel and no spill; a spill fails."""
+    labels = [k for k in smoke.CHECKED_KERNELS
+              if re.search(r"<(?:\w+, )?32[,>]", k)]
+    assert len(labels) == 9
+    ok = ["0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+          "ptxas info    : Used 120 registers, used 1 barriers"]
+    report = {"sass": {k: (6, 3) if "_tc_" in k else (0, 0)
+                       for k in smoke.CHECKED_KERNELS},
+              "ptxas": {k: ok for k in smoke.CHECKED_KERNELS}}
+    monkeypatch.setattr(smoke, "BUILD_REPORT", report)
+    monkeypatch.setattr(smoke, "log", lambda msg: None)
+    rows = smoke.d32_build_report()
+    assert sorted(rows) == sorted(labels)
+    assert all(r["registers"] == 120 and r["spill_bytes"] == 0
+               for r in rows.values())
+    report["ptxas"]["fa_fwd_f32_kernel<32, 8>"] = [
+        "8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads"]
+    with pytest.raises(AssertionError, match="fa_fwd_f32_kernel<32, 8>"):
+        smoke.d32_build_report()
+
+
+def test_attention_kernels_read_names_and_template_arguments():
+    class Row:
+        def __init__(self, key):
+            self.key = key
+    rows = [Row("void (anonymous namespace)::tc::fa_fwd_tc_kernel<"
+                "__nv_bfloat16, 32>(hopper::TmaMaps<3>, float const*)"),
+            Row("void (anonymous namespace)::tc::fa_dkv_tc_kernel<"
+                "__nv_bfloat16, 32>(hopper::TmaMaps<4>)"),
+            Row("void (anonymous namespace)::f32::fa_dq_f32_kernel<32, 4>"
+                "(float const*)"),
+            Row("void gemm_tiled_kernel<64>(float const*)")]
+    assert smoke.attention_kernels(rows) == [
+        "fa_dkv_tc_kernel<__nv_bfloat16, 32>", "fa_dq_f32_kernel<32, 4>",
+        "fa_fwd_tc_kernel<__nv_bfloat16, 32>"]
+
+
+TINY_MINILM = dict(vocab_size=97, hidden=64, num_layers=2, num_heads=2,
+                   intermediate=128)
+
+
+def test_minilm_phase_rehearses_on_the_cpu(monkeypatch):
+    """Phase 17b-d on the CPU at tiny widths (head_dim 32 for MiniLM, 64
+    for the seq-128 step): MiniLM serving (batched = single at tolerance
+    0, against a second CPU Predictor), its parity and training lives,
+    the seq-128 unfused step captured against eager bit for bit with
+    dropout 0.1, the three branches' control lives within their limit,
+    and BERT serving unfused; 17a (CUDA kernels) is stubbed, and so are
+    the kernel counts, the profile, the capture and the card's memory
+    (no card here)."""
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch import device, inference
+    from paddle_tpu_torch.framework import executor
+    from paddle_tpu_torch.ops import registry
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    cpu = torch.device("cpu")
+    for mod in (device, executor, inference):
+        if hasattr(mod, "resolve_device"):
+            monkeypatch.setattr(mod, "resolve_device",
+                                lambda place=None: cpu)
+    for name in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    info = executor.Executor.cache_info
+
+    def captured(self):
+        out = info(self)
+        for e in out["entries"]:
+            e["aot"] = True
+            e["manifest"] = 0
+        return out
+    monkeypatch.setattr(executor.Executor, "cache_info", captured)
+    monkeypatch.setattr(smoke, "MINILM", TINY_MINILM)
+    monkeypatch.setattr(smoke, "MINILM_SERVE_SEQ", 32)
+    monkeypatch.setattr(smoke, "MINILM_PARITY", dict(
+        TINY_MINILM, batch_size=2, seq_len=32, max_predictions=5))
+    monkeypatch.setattr(smoke, "MINILM_TRAIN", dict(
+        TINY_MINILM, batch_size=2, seq_len=32, max_predictions=5))
+    monkeypatch.setattr(smoke, "SEQ128", dict(TINY_BERT, num_layers=2))
+    monkeypatch.setattr(smoke, "SERVE_BERT", dict(
+        vocab_size=97, hidden=128, num_layers=2, num_heads=2,
+        intermediate=256, seq_len=32))
+    monkeypatch.setattr(smoke, "BERT", dict(smoke.BERT, seq_len=32,
+                                            vocab_size=97))
+    monkeypatch.setattr(smoke, "ASYNC_STEPS", 2)
+    monkeypatch.setattr(smoke, "MINILM_STEPS", 3)
+    monkeypatch.setattr(smoke, "SEQ128_STEPS", 3)
+    monkeypatch.setattr(smoke, "read_counts",
+                        lambda fa: (smoke.Launches((0,) * 6), 0, 0))
+    wants, serving = [], []
+    real_want, real_serving = smoke.per_step_launches, smoke.serving_launches
+
+    def want(main):
+        wants.append(real_want(main))
+        return (0,) * 6
+
+    def served(main):
+        serving.append(real_serving(main))
+        return (0,) * 6
+    monkeypatch.setattr(smoke, "per_step_launches", want)
+    monkeypatch.setattr(smoke, "serving_launches", served)
+    monkeypatch.setattr(smoke, "forward_products", lambda main: 0)
+    monkeypatch.setattr(smoke, "profiled_launches",
+                        lambda call, fa, what, key, strict=True: smoke
+                        .PROFILES.__setitem__(key, dict(
+                            busy_ms=None, call=call(),
+                            attention_kernels=[
+                                f"fa_{k}_tc_kernel<__nv_bfloat16, 32>"
+                                for k in ("dkv", "dq", "fwd")])))
+    monkeypatch.setattr(smoke, "minilm_kernels", lambda fa, device: {})
+    monkeypatch.setattr(smoke, "second_signature", lambda *a: None)
+    monkeypatch.setattr(smoke, "MINILM_RUN", {})
+    monkeypatch.setattr(smoke, "SEQ128_RUN", {})
+    monkeypatch.setattr(smoke, "log", lambda msg: None)
+    seed = registry._OP_SEED[0]
+    paths, rows = smoke.minilm_flagship(tpt, fa, cpu, "a card")
+    assert registry._OP_SEED[0] == seed  # put back for phase 10
+    assert rows == {}
+    assert sorted(paths) == ["minilm_flagship", "minilm_parity",
+                             "minilm_serving", "seq128_serving",
+                             "seq128_unfused"]
+    n = TINY_MINILM["num_layers"]
+    # MiniLM parity and training, the seq-128 step, its three lives
+    assert wants == [(0, 0, 0, n, n, n)] * 2 + [(0,) * 6] * 3 + [
+        (n, n, n, 0, 0, 0)]
+    assert serving == [(0, 0, 0, n, 0, 0), (0,) * 6]
+    r, q = smoke.MINILM_RUN, smoke.SEQ128_RUN
+    assert len(r["losses"]) == 3 and np.isfinite(r["losses"]).all()
+    assert r["serving"]["card_vs_cpu"] == 0.0
+    assert q["captured_bit_equal"]
+    assert sorted(q["control_rel"]) == ["einsum", "packed_flash"]
+    assert max(q["control_rel"].values()) <= smoke.SEQ128_LOSS_RTOL
+    assert q["serving"]["card_vs_cpu"] == 0.0
+
+
+def test_a_failed_fleet_phase_prints_its_dead_replicas_logs(monkeypatch):
+    """fleet_workdir: a failure inside prints the end of each replica log
+    that shows a death (a second life, a bind error, a traceback), not a
+    healthy one's, then the failure goes on up and the directory goes."""
+    from paddle_tpu_torch.serving.fleet import BIND_ERROR
+
+    lines = []
+    monkeypatch.setattr(smoke, "log", lines.append)
+    life = "replica 0 listening on http://127.0.0.1:20001 (restart 0)\n"
+    logs = {"replica-0": life + life.replace("restart 0", "restart 1"),
+            "replica-1": life + f"{BIND_ERROR}: pid 7 port 20002 errno 98 "
+            f"(EADDRINUSE): Address already in use\n",
+            "replica-2": life + "replica 2 ready (buckets primed)\n"}
+    with pytest.raises(AssertionError, match="scenario failed"):
+        with smoke.fleet_workdir("chip_smoke_test_", "13b") as fd:
+            for name, text in logs.items():
+                os.makedirs(os.path.join(fd, "fleet", name))
+                with open(os.path.join(fd, "fleet", name, "replica.log"),
+                          "w") as f:
+                    f.write(text)
+            raise AssertionError("scenario failed")
+    assert not os.path.exists(fd)
+    shown = "\n".join(lines)
+    assert "replica-0/replica.log" in shown and "restart 1" in shown
+    assert "replica-1/replica.log" in shown and "EADDRINUSE" in shown
+    assert "replica-2" not in shown
+    assert lines[-1].endswith("2 replica log(s) showed a death")

@@ -97,8 +97,11 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 
 @pytest.mark.cuda
 def test_op_dispatch_on_the_card(cuda):
-    """flash_attention_qkv launches the kernel for packed widths and raises
-    for the others on a CUDA tensor (no fallback)."""
+    """flash_attention_qkv launches the kernel for packed widths; at the
+    others (head_dim 48) it runs the JAX package's formulation there,
+    heads split then blockwise attention, on the card (counted in
+    split_heads_attention.calls, no kernel launch; fp32 against the CPU:
+    atol 2e-5)."""
     import paddle_tpu_torch as tpt
 
     def run(H, nh):
@@ -118,8 +121,13 @@ def test_op_dispatch_on_the_card(cuda):
     assert tfa.flash_attention_packed.launches == before + 1
     ref, _ = tfa.flash_attention_packed_reference(torch.from_numpy(x), None, 2)
     np.testing.assert_allclose(out, ref.numpy(), atol=2e-5, rtol=0)
-    with pytest.raises(NotImplementedError, match="unpacked"):
-        run(96, 2)  # head_dim 48
+    before = tfa.flash_attention_packed.launches
+    calls = tfa.split_heads_attention.calls
+    out, x = run(96, 2)  # head_dim 48
+    assert tfa.flash_attention_packed.launches == before
+    assert tfa.split_heads_attention.calls == calls + 1
+    ref = tfa.split_heads_attention(torch.from_numpy(x), None, 2)
+    np.testing.assert_allclose(out, ref.numpy(), atol=2e-5, rtol=0)
 
 
 @pytest.mark.cuda
@@ -280,6 +288,10 @@ UNPACKED_CASES = [
     (2, 2, 128, 384, 64, False, True, True),
     (1, 2, 384, 128, 128, True, False, True),
     (3, 2, 64, 100, 64, False, False, False),
+    # D 32 (MiniLM-L12-H384's heads): 64-byte-swizzled 16-bit tiles
+    (2, 4, 128, 128, 32, True, True, True),
+    (2, 2, 100, 100, 32, False, True, False),
+    (1, 2, 384, 128, 32, True, False, True),
 ]
 
 
@@ -348,6 +360,8 @@ F32_FWD_CASES = [
     (2, 2, 384, 128, 64, True, True, True),        # Sq > Sk, 16 rows
     (4, 24, 384, 300, 64, False, True, True),      # Sq > Sk ragged, 64 rows
     (3, 16, 300, 512, 128, True, True, False),     # Sq < Sk ragged, 64 rows
+    (2, 12, 128, 128, 32, False, True, False),     # D 32: 64 rows always
+    (2, 2, 100, 300, 32, True, True, True),        # D 32, Sq < Sk ragged
 ]
 
 
@@ -398,6 +412,8 @@ F32_BWD_CASES = [
     (False, 2, 2, 65, 200, 128, True, True, False),    # Sq < Sk
     (False, 2, 2, 300, 65, 64, False, True, True),     # Sq > Sk
     (False, 1, 4, 130, 1, 64, True, False, False),     # one key
+    (False, 2, 3, 100, 100, 32, False, True, True),    # D 32
+    (False, 2, 2, 65, 200, 32, True, True, False),     # D 32, Sq < Sk
     (False, 2, 2, 129, 129, 64, True, True, True),     # 128-row edge
 ]
 
@@ -467,6 +483,10 @@ def test_unpacked_wrapper_rejects_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="head_dim"):
         tfa.flash_attention_unpacked(t(1, 2, 32, 96), t(1, 2, 32, 96),
                                      t(1, 2, 32, 96))
+    # head_dim 48: no kernel takes it, and nothing falls back
+    with pytest.raises(ValueError, match="take head_dim 32 / 64 / 128"):
+        tfa.flash_attention_unpacked(t(1, 2, 32, 48), t(1, 2, 32, 48),
+                                     t(1, 2, 32, 48))
     with pytest.raises(TypeError, match=NOT_TAKEN):
         tfa.flash_attention_unpacked(q.double(), q.double(), q.double())
     with pytest.raises(TypeError, match="one dtype"):
@@ -547,6 +567,9 @@ TC_CASES = [
     (2, 2, 100, 100, 128, True, True, True),       # ragged S 100
     (3, 2, 100, 100, 64, False, True, False),
     (2, 3, 100, 100, 64, True, True, True),        # ragged S 100, D 64
+    (2, 12, 512, 512, 32, False, True, False),     # MiniLM training, D 32
+    (2, 3, 100, 300, 32, True, True, True),        # ragged, Sq < Sk, D 32
+    (2, 2, 384, 128, 32, False, False, True),      # Sq > Sk, D 32
 ]
 
 

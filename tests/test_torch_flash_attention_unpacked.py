@@ -48,7 +48,7 @@ RTOL = {"float32": 0.0, "float16": 2.0 ** -10}  # one fp16 ulp
 AUTOGRAD_ATOL = {"float32": GRAD_ATOL, "float16": 2.0 ** -12}
 
 CASES = [
-    # (Sq, Sk, D, causal, with_bias, dead_row): D 16, 64 and 128, causal
+    # (Sq, Sk, D, causal, with_bias, dead_row): D 16, 32, 64 and 128, causal
     # or not, bias or not, Sq = Sk and Sq != Sk both ways
     (64, 64, 16, False, False, False),
     (64, 64, 64, True, False, False),
@@ -56,6 +56,11 @@ CASES = [
     (96, 64, 64, True, True, False),
     (64, 128, 64, True, False, False),
     (64, 64, 128, True, True, True),
+    # D 32 (MiniLM-L12-H384's heads, the kernels' 64-byte-swizzled tiles)
+    (64, 64, 32, True, True, True),
+    (64, 96, 32, False, True, True),
+    (96, 64, 32, True, False, False),
+    (64, 64, 32, False, False, False),
 ]
 IDS = [f"Sq{c[0]}_Sk{c[1]}_D{c[2]}_{'causal' if c[3] else 'full'}"
        f"{'_bias' if c[4] else ''}{'_dead' if c[5] else ''}" for c in CASES]
@@ -150,8 +155,8 @@ def test_backward_reference_matches_pallas_interpret(Sq, Sk, D, causal,
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("Sq,Sk,D,causal,with_bias,dead_row",
-                         [CASES[1], CASES[3], CASES[4]],
-                         ids=[IDS[1], IDS[3], IDS[4]])
+                         [CASES[1], CASES[3], CASES[4], CASES[6]],
+                         ids=[IDS[1], IDS[3], IDS[4], IDS[6]])
 def test_autograd_function_matches_jax_grad(Sq, Sk, D, causal, with_bias,
                                             dead_row, dtype):
     """d/d(q, k, v, bias) of <out, g> through the port's autograd.Function

@@ -11,9 +11,12 @@ how many rows a batch has, so a padded batch answers as a row alone).
 One module-scoped fleet of two spawned replicas (``--device cpu``)
 carries the hot swap, the swap revert and the SIGKILL attribution.
 """
+import errno
 import json
 import os
 import signal
+import socket
+import struct
 import threading
 import time
 import urllib.error
@@ -27,6 +30,7 @@ from paddle_tpu_torch import blackbox, fault, locksan, promtext, telemetry
 from paddle_tpu_torch.serving import (FleetSupervisor, Router, RouterServer,
                                       ServingEngine, ServingServer, serve,
                                       usage)
+from paddle_tpu_torch.serving.fleet import BIND_ERROR, ephemeral_range
 from paddle_tpu_torch.serving.replica import build_synthetic_checkpoint
 from paddle_tpu_torch.serving.server import VERSION_HEADER
 
@@ -916,3 +920,96 @@ def test_locksan_installs_from_the_flag():
         locksan.disable()
         tpt.set_flags({"FLAGS_debug_lock_order": False})
     assert threading.Lock is locksan._REAL_LOCK
+
+
+# ---------------------------------------------------------------------------
+# a respawn whose pinned port an outgoing connection holds
+# ---------------------------------------------------------------------------
+
+def _holding(port, peer):
+    """A client socket bound to `port` and connected to `peer`, as an
+    outgoing connection that drew `port` from the ephemeral range holds
+    it (no SO_REUSEADDR: a listener cannot bind beside it).  The bind
+    itself sets SO_REUSEADDR for a moment to pass the dead listener's
+    TIME_WAIT connections."""
+    deadline = time.monotonic() + 30.0
+    while True:
+        sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        try:
+            sock.bind(("127.0.0.1", port))
+            break
+        except OSError:
+            sock.close()
+            if time.monotonic() > deadline:
+                raise
+            time.sleep(0.05)  # the killed listener not reaped yet
+    sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 0)
+    sock.connect(peer)
+    return sock
+
+
+def test_respawn_whose_pinned_port_is_taken_names_the_bind_error(tmp_path):
+    """The first life's port lies outside ``ip_local_port_range``, where
+    no outgoing connection draws its source port.  SIGKILL the replica
+    and hold its pinned port with a connected client socket: each respawn
+    then cannot bind, logs ``BIND_ERROR`` with the errno and the port and
+    exits 1, and the supervisor's death record names that error; once the
+    socket closes (abortively: no TIME_WAIT of its own) the next respawn
+    serves on the same URL."""
+    lo, hi = ephemeral_range()
+    peer = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    peer.bind(("127.0.0.1", 0))
+    peer.listen(4)
+    hold = None
+    sup = FleetSupervisor(replicas=1, replica_argv=TINY_ARGV,
+                          workdir=str(tmp_path / "fleet"), max_restarts=20,
+                          backoff_ms=100.0, liveness_timeout_ms=0)
+    try:
+        url = sup.wait_ready(240)[0]
+        rep = sup._replicas[0]
+        port = rep.port
+        assert url.endswith(f":{port}")
+        assert not lo <= port <= hi, (port, lo, hi)
+        old_pid = rep.proc.pid
+        kill(old_pid)
+        hold = _holding(port, peer.getsockname())
+        deadline = time.monotonic() + 120.0
+        while True:
+            death = rep.last_death
+            if death is not None and death["pid"] != old_pid:
+                break
+            assert time.monotonic() < deadline, "no respawn died"
+            time.sleep(0.1)
+        assert death["rc"] == 1
+        assert death["bind_error"] == {"port": port,
+                                       "errno": errno.EADDRINUSE,
+                                       "name": "EADDRINUSE"}
+        with open(rep.log_path, encoding="utf-8") as f:
+            assert (f"{BIND_ERROR}: pid {death['pid']} port {port} errno "
+                    f"{errno.EADDRINUSE} (EADDRINUSE)") in f.read()
+        assert sup.statusz()["replicas"][0]["last_death"]["bind_error"] == \
+            death["bind_error"]
+        # the port free again: a later respawn binds it and serves
+        hold.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER,
+                        struct.pack("ii", 1, 0))
+        hold.close()
+        hold = None
+        deadline = time.monotonic() + 240.0
+        while True:
+            try:
+                health = get_json(url + "/healthz")
+                if health.get("ready"):
+                    break
+            except OSError:
+                pass
+            assert time.monotonic() < deadline, "never served again"
+            time.sleep(0.2)
+        assert rep.port == port and rep.proc.poll() is None
+        status, body, _ = post(url)
+        assert status == 200 and body["outputs"]
+    finally:
+        if hold is not None:
+            hold.close()
+        peer.close()
+        sup.close()
