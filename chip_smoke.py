@@ -51,7 +51,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    to 1024) bit-equal to the same row of the 1024-row one and of a
    row-permuted one, within 2e-6 (relative to the largest output) of
    the op's PyTorch formulation, and its times and output hashes at 4
-   and 512 rows.
+   and 512 rows.  Then the SelectedRows merge kernel
+   (csrc/selected_rows.cu, ops/cuda/selected_rows.py: every merge of a
+   sparse gradient on the card) builds with no spill and, at Wide&Deep's
+   K (4096 x 26 Zipf(1.1) ids over 1,000,001 rows) for 10 columns and 1,
+   gives the bits of its plain version run on the CPU on the same inputs
+   and the same bits on a second launch; its wrapper's and kernel's
+   times beside the plain version's, torch's index_add_ of the same sums
+   and the bound.
    Each source picks its kernel by dtype: bfloat16 and float16 run the
    tensor-core kernels (one template on the 16-bit type), float32 the
    CUDA-core ones (fa_fwd_f32_kernel, fa_dkv_f32_kernel,
@@ -605,6 +612,32 @@ Phases (any failure raises and exits non-zero; nothing is caught):
       BERT-base serving with use_flash=False at seq 128 as in b (no
       attention kernel; the 24 matmuls on the product kernel).
    The "minilm:" and "seq128:" JSON lines hold the numbers and seconds.
+18. Wide&Deep (run right after phase 17, where the profiler still sees
+   the card).  wide_deep_net's defaults, the Criteo layout of Cheng et
+   al. 2016 (26 slots hashed into 1,000,001 ids, 13 dense features,
+   embed 10, a 400-400-400 MLP), batch 4096, Adam 1e-3, fp32, no cut;
+   ids Zipf(1.1) over a seeded permutation of the vocabulary, labels 1
+   at a rate of 0.25; lives of 6 steps from one startup seed:
+   a. dense tables (is_sparse=False);
+   b. sparse tables, lazy_mode off: (a)'s losses within 1e-5 relative
+      and every persistable within 1e-4 of its norm (a parameter's worst
+      element within 2 lr a step);
+   c. sparse, lazy_mode on: the same program on the CPU from the card's
+      startup values within the same limits, and every row no step
+      looked up at its startup bits in both tables and both moments;
+   d. (c) again in a fresh executor and scope, and (c) with every step
+      eager (an uncached entry a run): both bit-equal to (c) in every
+      loss and persistable;
+   e. wide_deep_serving_net (the embedding tier's dense remainder),
+      random weights, fed rows gathered from (c)'s tables, saved and
+      served by a Predictor at batches 1 and 64: each row served alone
+      gives its row of the batch bit for bit, batch 64 within 1e-5 of a
+      CPU Predictor, one product-kernel launch a forward product.
+   Each card life counts the merge kernel's launches from 0 against the
+   reckoning from its program (merge_launches: 2 a step sparse, 0
+   dense) with no plain call and no realigned operand; a profiled
+   replay of the lazy step gives its device busy and idle share and top
+   kernels.  The "wide_deep:" JSON line holds the numbers.
 
 Every profiled replay (phases 4, 5, 6, 9, 15, 16 and 17) also holds the
 profiler's launches of the forward, dK/dV and dQ kernels against what the
@@ -641,7 +674,8 @@ generation_disagg (10d's pair, both transports), serving_engine (11a's
 recompute_llama_plain and recompute_llama (phase 15's lives),
 training_fp16 and llama_fp16 (16a's and 16b's flagships),
 minilm_serving, minilm_parity (card steps) and minilm_flagship (17b,
-17c), seq128_unfused and seq128_serving (17d); and
+17c), seq128_unfused and seq128_serving (17d), wide_deep_dense,
+wide_deep_sparse, wide_deep_lazy and wide_deep_serving (18a-c, 18e); and
 fleet_serving,
 fleet_generation and chaos_fleet (12a, 12b, 13b's probe fleet), which
 count kernel records in a replica's /profilez trace instead (the
@@ -667,7 +701,12 @@ plain| / gemm.tolerance of phase 2 and the smallest of its TF32 and bf16
 controls, "shapes" every shape phase 2 timed (decode attention's
 products among them); the eleventh the RMSNorm
 kernel (rms_norm_f32): its row the decode step's [4, 4096], "library_ms"
-torch.nn.functional.rms_norm's. The last lines are the card's name and
+torch.nn.functional.rms_norm's; the twelfth the SelectedRows merge
+kernel (selected_rows_merge): its row the deep table's [106496, 10]
+merge (the wrapper's time: sort, scan and kernel; "kernel_device_ms" the
+kernel alone), "library_ms" torch's index_add_ of the same sums,
+"launches" phase 18c's lazy life's, "shapes" both tables' widths. The
+last lines are the card's name and
 power limit, one {"kernels": ...} JSON line, and {"ok": true, "device":
 {...}}. Before them, one "compiled step:" JSON line holds each profiled
 path's wall ms, device busy ms, idle share and host launches
@@ -1792,13 +1831,14 @@ def kernel_wrappers(fa):
 
 
 def plain_versions(fa):
-    from paddle_tpu_torch.ops.cuda import gemm, rms_norm
+    from paddle_tpu_torch.ops.cuda import gemm, rms_norm, selected_rows
 
     return (fa.flash_attention_packed_reference,
             fa.flash_attention_packed_backward_reference,
             fa.flash_attention_reference,
             fa.flash_attention_backward_reference, gemm.matmul_reference,
-            rms_norm.rms_norm_rows_reference)
+            rms_norm.rms_norm_rows_reference,
+            selected_rows.merge_rows_reference)
 
 
 def tma_wrappers(fa):
@@ -1810,16 +1850,19 @@ def tma_wrappers(fa):
 
 class Launches(tuple):
     """The six attention kernels' launches (a tuple, as the gates compare
-    it), with the product kernel's and the RMSNorm kernel's beside them
-    in ``.gemm`` and ``.rms_norm``."""
+    it), with the product kernel's, the RMSNorm kernel's and the
+    SelectedRows merge kernel's beside them in ``.gemm``, ``.rms_norm``
+    and ``.merge``."""
     gemm = 0
     rms_norm = 0
+    merge = 0
 
 
 def reset_counts(fa):
-    from paddle_tpu_torch.ops.cuda import gemm, rms_norm
+    from paddle_tpu_torch.ops.cuda import gemm, rms_norm, selected_rows
 
-    for w in kernel_wrappers(fa) + (gemm.matmul, rms_norm.rms_norm_rows):
+    for w in kernel_wrappers(fa) + (gemm.matmul, rms_norm.rms_norm_rows,
+                                    selected_rows.merge_rows):
         w.launches = 0
     for w in tma_wrappers(fa):
         w.realigned = 0
@@ -1829,14 +1872,15 @@ def reset_counts(fa):
 
 def read_counts(fa):
     """(launches of the six kernels, with the product kernel's in
-    ``.gemm`` and the RMSNorm kernel's in ``.rms_norm``; plain-version
-    calls; operands realigned for TMA): a path must leave the last two at
-    0."""
-    from paddle_tpu_torch.ops.cuda import gemm, rms_norm
+    ``.gemm``, the RMSNorm kernel's in ``.rms_norm`` and the merge
+    kernel's in ``.merge``; plain-version calls; operands realigned for
+    TMA): a path must leave the last two at 0."""
+    from paddle_tpu_torch.ops.cuda import gemm, rms_norm, selected_rows
 
     counts = Launches(w.launches for w in kernel_wrappers(fa))
     counts.gemm = gemm.matmul.launches
     counts.rms_norm = rms_norm.rms_norm_rows.launches
+    counts.merge = selected_rows.merge_rows.launches
     return (counts, sum(p.calls for p in plain_versions(fa)),
             sum(w.realigned for w in tma_wrappers(fa)))
 
@@ -2897,11 +2941,11 @@ GEMM_ATTN_M = 1
 
 
 def gemm_label(mangled):
-    """'gemm_skinny_kernel<4, 4, 1, 1>' for a product or RMSNorm kernel's
-    mangled name (its template arguments in order), None for anything
+    """'gemm_skinny_kernel<4, 4, 1, 1>' for a product, RMSNorm or merge
+    kernel's mangled name (its template arguments in order), None for anything
     else."""
-    m = re.search(r"((?:gemm_(?:skinny|tiled|fold)|rms_norm_rows(?:_loop)?)"
-                  r"_kernel)(I\w*?E)?E", mangled)
+    m = re.search(r"((?:gemm_(?:skinny|tiled|fold)|rms_norm_rows(?:_loop)?|"
+                  r"merge_rows)_kernel)(I\w*?E)?E", mangled)
     if m is None:
         return None
     params = re.findall(r"L[ib](\d+)E", m.group(2) or "")
@@ -2918,8 +2962,8 @@ def gemm_bound(M, N, K, batch=1):
 
 
 def check_own_kernel_spills(build):
-    """ptxas's report of the product and RMSNorm sources: every function
-    of both is in it, and none spills."""
+    """ptxas's report of the product, RMSNorm and SelectedRows merge
+    sources: every function of each is in it, and none spills."""
     lines = []
     for text in build.build_logs.values():
         label = None
@@ -2931,9 +2975,10 @@ def check_own_kernel_spills(build):
             elif label and "spill" in line:
                 lines.append((label, line.strip()))
     labels = sorted({label for label, _ in lines})
-    log(f"  product and RMSNorm kernel functions: {len(labels)} "
+    log(f"  product, RMSNorm and merge kernel functions: {len(labels)} "
         f"({', '.join(labels)})")
-    for prefix in ("gemm_tiled", "gemm_skinny", "gemm_fold", "rms_norm_rows"):
+    for prefix in ("gemm_tiled", "gemm_skinny", "gemm_fold", "rms_norm_rows",
+                   "merge_rows"):
         if not any(label.startswith(prefix) for label in labels):
             raise AssertionError(f"no ptxas report of {prefix}*: {labels}")
     for label, line in lines:
@@ -4895,8 +4940,18 @@ def dispatch_gate(events, path, what):
 def profilez_events(url, sec=FLEET_PROFILE_S):
     """GET `url`/profilez?sec=N on a replica (its handler thread traces
     the whole process with torch.profiler for N seconds and writes
-    trace.json into the replica's metrics dir): the trace's events."""
-    status, body = get(f"{url}/profilez?sec={sec}", timeout=300)
+    trace.json into the replica's metrics dir): the trace's events.  Logs
+    the round trip and the replica's longest /healthz gap meanwhile (the
+    profiler's stop and export hold its GIL; the supervisor's liveness
+    deadline waits out the capture's mark, observatory.CAPTURE_MARK)."""
+    gaps = HealthGaps([url])
+    t0 = time.monotonic()
+    try:
+        status, body = get(f"{url}/profilez?sec={sec}", timeout=300)
+    finally:
+        gap = gaps.stop()
+        log(f"  /profilez?sec={sec} on {url}: round trip "
+            f"{time.monotonic() - t0:.2f} s, longest /healthz gap {gap} s")
     doc = json.loads(body)
     if status != 200 or "trace.json" not in doc.get("files", []):
         raise AssertionError(f"/profilez on {url}: {status} {doc}")
@@ -7481,6 +7536,515 @@ def minilm_flagship(tpt, fa, device, card):
     return paths, rows
 
 
+# ---------------------------------------------------------------------------
+# phase 18: Wide&Deep, SelectedRows gradients and lazy Adam
+# ---------------------------------------------------------------------------
+
+# wide_deep_net's defaults, the Criteo layout of Wide & Deep (Cheng et al.
+# 2016): 26 categorical slots hashed into one table space of 1,000,001
+# ids, 13 dense features, 10-wide embeddings, a 400-400-400 MLP; batch
+# 4096, Adam 1e-3, fp32 (TF32 off).  Nothing is cut: both tables and their
+# moments are ~132 MB on the card.
+WIDE_DEEP = dict(num_sparse=26, num_dense=13, vocab_size=1000001,
+                 embed_dim=10, hidden=(400, 400, 400))
+WIDE_DEEP_BATCH = 4096
+WIDE_DEEP_LR = 1e-3
+WIDE_DEEP_STEPS = 6
+# ids: Zipf(1.1) ranks over a seeded permutation of the vocabulary, so a
+# batch's hottest id repeats ~13,000 times among its 106,496
+WIDE_DEEP_ZIPF = 1.1
+WIDE_DEEP_SEED = 1800
+WIDE_DEEP_SERVE_BATCHES = (1, 64)
+# Limits.  Dense against sparse with lazy_mode off (18b) and the lazy life
+# on the card against the same program on the CPU (18c) run the same
+# arithmetic with sums in other orders: PyTorch's chunked embedding
+# backward against the merge kernel's sequential sums (18b), cuBLAS
+# against MKL in the MLP's fp32 products (18c), ~1e-7 to 1e-6 relative a
+# sum.  Over 6 Adam steps that keeps every loss within WIDE_DEEP_LOSS_RTOL
+# relative and every persistable within WIDE_DEEP_STATE_RTOL of its norm
+# (||got - want|| / ||want||); a weight whose gradient sums to nearly 0
+# may take Adam's step of either sign, so a parameter's worst element is
+# held to 2 lr a step.  Everything else is held bit for bit.
+WIDE_DEEP_LOSS_RTOL = 1e-5
+WIDE_DEEP_STATE_RTOL = 1e-4
+# serving on the card against a CPU Predictor: logits of a 400-wide fp32
+# MLP's products summed in other orders
+WIDE_DEEP_SERVE_ATOL = 1e-5
+# the optimizers and clips that merge a SelectedRows gradient once (18's
+# launch reckoning), by the slot that takes it
+MERGING_SLOTS = {"sgd": "Grad", "momentum": "Grad", "adam": "Grad",
+                 "adamw": "Grad", "adagrad": "Grad", "clip": "X",
+                 "clip_by_norm": "X", "merge_selected_rows": "X"}
+WIDE_DEEP_RUN = {}
+
+
+def zipf_ids(rng, n, vocab, perm, s=WIDE_DEEP_ZIPF):
+    """n ids: Zipf(s) ranks (those within the vocabulary) mapped through
+    the permutation `perm` of the vocabulary."""
+    out = np.empty(0, np.int64)
+    while out.size < n:
+        r = rng.zipf(s, 2 * n)
+        out = np.concatenate([out, r[r <= vocab]])
+    return perm[out[:n] - 1].astype(np.int64)
+
+
+def wide_deep_feeds(cfg, batch, steps, seed):
+    """`steps` feeds of wide_deep_net: Zipf ids, standard-normal dense
+    features, labels 1 with probability 0.25."""
+    rng = np.random.RandomState(seed)
+    perm = rng.permutation(cfg["vocab_size"])
+    return [{"sparse_ids": zipf_ids(rng, batch * cfg["num_sparse"],
+                                    cfg["vocab_size"], perm).reshape(
+                                        batch, cfg["num_sparse"]),
+             "dense_x": rng.randn(batch, cfg["num_dense"]).astype(
+                 np.float32),
+             "label": (rng.rand(batch, 1) < 0.25).astype(np.float32)}
+            for _ in range(steps)]
+
+
+def untouched_rows(feeds, vocab):
+    """The ids no feed looks up (int64, ascending)."""
+    seen = np.zeros(vocab, bool)
+    for f in feeds:
+        seen[f["sparse_ids"].ravel()] = True
+    return np.flatnonzero(~seen)
+
+
+def merge_launches(main, fetch_names=()):
+    """The merge kernel's launches a step of `main`: one a SelectedRows
+    value that an optimizer, a clip or merge_selected_rows takes
+    (MERGING_SLOTS), one a distinct elementwise or global_norm_sq operand
+    that is one (it densifies), one a fetched one.  SelectedRows are the
+    SELECTED_ROWS vars and what stays sparse after them: the output of a
+    clip, a clip by norm, merge_selected_rows, a scale without bias and a
+    sum of SelectedRows alone."""
+    block = main.global_block()
+    sparse = {n for n, v in block.vars.items()
+              if getattr(v, "type", None) == "selected_rows"}
+    n = 0
+    for op in block.ops:
+        ins = op.input_arg_names()
+        if op.type in MERGING_SLOTS:
+            n += sum(name in sparse for name in op.input(
+                MERGING_SLOTS[op.type]))
+        elif op.type.startswith("elementwise_") or \
+                op.type == "global_norm_sq":
+            n += len({name for name in ins if name in sparse})
+        keeps = op.type in ("clip", "clip_by_norm", "merge_selected_rows") \
+            or (op.type == "scale" and not op.attr("bias", 0.0)) \
+            or (op.type == "sum" and ins and all(x in sparse for x in ins))
+        if keeps and any(x in sparse for x in ins):
+            sparse.update(op.output("Out"))
+    return n + sum(name in sparse for name in fetch_names)
+
+
+def build_wide_deep(tpt, is_sparse, lazy, op_seed):
+    """wide_deep_net at WIDE_DEEP with Adam(WIDE_DEEP_LR, lazy_mode), its
+    ops seeded from `op_seed` (every life's startup draws the same
+    weights).  Returns (main, startup, loss)."""
+    from paddle_tpu_torch.models import wide_deep_net
+    from paddle_tpu_torch.ops import registry
+
+    registry.reset_op_seed(op_seed)
+    tpt.reset_unique_name()
+    main, startup = tpt.Program(), tpt.Program()
+    startup._is_startup = True
+    main.random_seed = startup.random_seed = WIDE_DEEP_SEED
+    with tpt.program_guard(main, startup):
+        net = wide_deep_net(is_sparse=is_sparse, **WIDE_DEEP)
+        tpt.optimizer.AdamOptimizer(WIDE_DEEP_LR, lazy_mode=lazy).minimize(
+            net["loss"])
+    return main, startup, net["loss"]
+
+
+def wide_deep_life(tpt, fa, what, main, startup, loss, feeds, start=None,
+                   eager=False, device=None):
+    """One life of `feeds` steps: a fresh executor and scope on `device`
+    (the card by default) run `startup` (on the CPU its values come from
+    `start`, a dict of the card's startup tensors), then each step
+    (`eager`: every step op by op, never captured).  On the card the
+    kernel counts are read from 0 around the steps: the plain versions'
+    calls and realigned operands must stay 0 and the merge kernel's
+    launches must be merge_launches(main) a step.  Returns (losses,
+    {persistable: tensor}, startup state, per-step wall ms, launches)."""
+    import torch
+
+    names = [v.name for v in main.list_vars() if v.persistable]
+    on_cpu = device is not None and device.type == "cpu"
+    exe = tpt.Executor(tpt.CPUPlace() if on_cpu else None)
+    scope = tpt.Scope()
+    exe.run(startup, scope=scope)
+    if start is not None:
+        for n in names:
+            scope.find_var(n).copy_(start[n])
+    first = {n: scope.find_var(n).clone() for n in names}
+    if not on_cpu:
+        reset_counts(fa)
+    losses, wall = [], []
+    for feed in feeds:
+        if not on_cpu:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                      use_program_cache=not eager)
+        wall.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(np.ravel(out[0])[0]))
+    counts = None
+    if not on_cpu:
+        counts, plain, realigned = read_counts(fa)
+        want = merge_launches(main) * len(feeds)
+        log(f"  {what}: losses {', '.join(f'{x:.7f}' for x in losses)}; "
+            f"step ms {', '.join(f'{x:.2f}' for x in wall)}; merge "
+            f"kernel launches {counts.merge} (reckoned {want}), plain "
+            f"calls {plain}, realigned {realigned}")
+        if counts.merge != want or plain or realigned or any(counts):
+            raise AssertionError(f"{what}: merge launches {counts.merge} "
+                                 f"(want {want}), plain {plain}, realigned "
+                                 f"{realigned}, attention {tuple(counts)}")
+        if not eager and not exe.cache_info()["entries"][-1]["aot"]:
+            raise AssertionError(f"{what}: the step was never captured")
+    else:
+        log(f"  {what}: losses {', '.join(f'{x:.7f}' for x in losses)}; "
+            f"step ms {', '.join(f'{x:.0f}' for x in wall)}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{what}: non-finite losses {losses}")
+    state = {n: scope.find_var(n) for n in names}
+    exe.close()
+    return losses, state, first, wall, counts
+
+
+def state_gap(got, want, what, params, lr_sum):
+    """Holds two lives' persistables to WIDE_DEEP_STATE_RTOL of each
+    tensor's norm and a parameter's worst element to 2 * lr_sum; returns
+    the worst relative gap."""
+    worst, worst_name = 0.0, None
+    for n, w in want.items():
+        g = got[n].to(w.device).double()
+        w = w.double()
+        d = (g - w)
+        norm = float(w.norm())
+        rel = float(d.norm()) / norm if norm > 0 else float(d.norm())
+        if rel > worst:
+            worst, worst_name = rel, n
+        if rel > WIDE_DEEP_STATE_RTOL or (
+                n in params and float(d.abs().max()) > 2 * lr_sum):
+            raise AssertionError(f"{what}: {n} apart by {rel:.3e} of its "
+                                 f"norm, max|d| {float(d.abs().max()):.3e}")
+    return worst, worst_name
+
+
+def check_untouched(state, first, rows, what):
+    """Every row no step looked up keeps its startup bits in both tables
+    and in both tables' moments.  Returns the names checked."""
+    import torch
+
+    checked = []
+    for n, t in state.items():
+        if "embedding_w" not in n or "_pow" in n:
+            continue
+        idx = torch.from_numpy(rows).to(t.device)
+        got = t.index_select(0, idx).view(torch.int32)
+        if not torch.equal(got, first[n].index_select(0, idx).view(
+                torch.int32)):
+            raise AssertionError(f"{what}: untouched rows of {n} moved")
+        checked.append(n)
+    if len(checked) != 6:
+        raise AssertionError(f"{what}: checked {checked}, want both tables "
+                             f"and their two moments")
+    return checked
+
+
+def lives_equal(a, b, what):
+    """Bit-equality of two lives' losses and persistables."""
+    import torch
+
+    la, sa = a[0], a[1]
+    lb, sb = b[0], b[1]
+    diff = [n for n in sa if not torch.equal(sa[n], sb[n])]
+    if la != lb or diff:
+        raise AssertionError(f"{what}: losses {la} vs {lb}; persistables "
+                             f"apart: {diff[:5]}")
+
+
+def profile_wide_deep(tpt, fa, main, startup, loss, feeds, key):
+    """One profiled replay of a captured sparse step (after two runs: the
+    eager one and the capture): wall, device busy and idle share, the top
+    kernels (report_profile), and the profiler's merge-kernel records
+    held to merge_launches(main)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    exe, scope = tpt.Executor(), tpt.Scope()
+    exe.run(startup, scope=scope)
+    for feed in feeds[:2]:
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_SETTLE_S)
+        t = time.perf_counter()
+        exe.run(main, feed=feeds[2], fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    kernels, busy = report_profile(prof, wall_us, "a lazy sparse Wide&Deep "
+                                   "step (a replay)", key=key)
+    merges = sum(e.count for e in kernels if "merge_rows_kernel" in e.key)
+    want = merge_launches(main)
+    top = [(e.key[:80], e.self_device_time_total / 1e3) for e in sorted(
+        kernels, key=lambda e: -e.self_device_time_total)[:6]]
+    PROFILES[key]["top_kernels_ms"] = top
+    log(f"  the profiled replay: {merges} merge kernel records "
+        f"(reckoned {want})")
+    if busy > 0 and merges != want:
+        raise AssertionError(f"{key}: the profiler saw {merges} merge "
+                             f"launches, want {want}")
+    exe.close()
+
+
+def wide_deep_serving(tpt, fa, workdir, tables, feeds):
+    """18e: wide_deep_serving_net at WIDE_DEEP's widths (random weights
+    from its startup) saved and served by a Predictor on the card, fed
+    rows gathered from `tables` (the lazy life's trained tables) at the
+    first feed's ids: each of 64 rows served alone at batch 1 gives the
+    bits of its row of the batch of 64; batch 64 against a CPU Predictor
+    within WIDE_DEEP_SERVE_ATOL; every request launches the product
+    kernel once a forward product (forward_products) and nothing else
+    counted.  Returns (launches, numbers)."""
+    import torch
+
+    from paddle_tpu_torch.models import wide_deep_serving_net
+
+    tpt.reset_unique_name()
+    main, startup = tpt.Program(), tpt.Program()
+    startup._is_startup = True
+    cfg = {k: v for k, v in WIDE_DEEP.items() if k != "vocab_size"}
+    with tpt.program_guard(main, startup):
+        net = wide_deep_serving_net(**cfg)
+    feeds_names = ["wide_rows", "deep_rows", "dense_x"]
+    exe, scope = tpt.Executor(), tpt.Scope()
+    with tpt.scope_guard(scope):
+        exe.run(startup)
+        tpt.io.save_inference_model(workdir, feeds_names,
+                                    [net["logit"], net["prob"]], exe,
+                                    main_program=main)
+    n = max(WIDE_DEEP_SERVE_BATCHES)
+    ids = torch.from_numpy(feeds[0]["sparse_ids"][:n])
+    wide = tables["wide_embedding_w"].cpu()[ids].numpy()
+    deep = tables["deep_embedding_w"].cpu()[ids].numpy()
+    batch = {"wide_rows": wide, "deep_rows": deep,
+             "dense_x": feeds[0]["dense_x"][:n]}
+    n_products = forward_products(main)
+    pred = tpt.inference.Predictor(workdir)
+    pred.warmup([{k: (b,) + v.shape[1:] for k, v in batch.items()}
+                 for b in WIDE_DEEP_SERVE_BATCHES])
+    reset_counts(fa)
+    lat = {}
+    t = time.perf_counter()
+    whole = pred.run(batch)
+    lat[n] = (time.perf_counter() - t) * 1e3
+    alone, single_ms = [], []
+    for r in range(n):
+        t = time.perf_counter()
+        alone.append(pred.run({k: v[r:r + 1] for k, v in batch.items()}))
+        single_ms.append((time.perf_counter() - t) * 1e3)
+    lat[1] = float(np.median(single_ms))
+    counts, plain, realigned = read_counts(fa)
+    requests = 1 + n
+    same = all(np.array_equal(whole[i][r:r + 1], a[i])
+               for r, a in enumerate(alone) for i in range(2))
+    cpu = tpt.inference.Predictor(workdir, device="cpu")
+    want = cpu.run(batch)
+    diff = max(float(np.abs(g - w).max()) for g, w in zip(whole, want))
+    log(f"  18e serving: batch 64 {lat[n]:.2f} ms, batch 1 median "
+        f"{lat[1]:.2f} ms; rows served alone equal to the batch's: {same};"
+        f" card vs CPU max|diff| {diff:.3e} (limit "
+        f"{WIDE_DEEP_SERVE_ATOL:g}); product kernel launches {counts.gemm} "
+        f"({n_products} a request x {requests}), merge {counts.merge}, "
+        f"plain {plain}, realigned {realigned}")
+    if not (same and diff <= WIDE_DEEP_SERVE_ATOL
+            and counts.gemm == n_products * requests and not counts.merge
+            and not plain and not realigned and not any(counts)
+            and all(np.isfinite(x).all() for x in whole)
+            and whole[1].shape == (n, 1)):
+        raise AssertionError("18e: Wide&Deep serving failed its gates")
+    pred.close()
+    del pred, cpu, exe, scope
+    torch.cuda.empty_cache()
+    return counts, dict(latency_ms=lat, card_vs_cpu=diff,
+                        batched_equals_single=same)
+
+
+def wide_deep_flagship(tpt, fa, card):
+    """Phase 18: Wide&Deep at WIDE_DEEP, batch WIDE_DEEP_BATCH, on the
+    card, lives of WIDE_DEEP_STEPS steps from one startup seed:
+    (a) dense tables; (b) sparse tables, lazy_mode off: (a)'s losses and
+    persistables within the limits; (c) sparse, lazy_mode on: the port's
+    CPU run of the same program from the card's startup values within the
+    limits, and every row no step touched at its startup bits (moments
+    at 0); (d) (c) again in a fresh executor and scope, bit for bit, and
+    (c) with every step eager, bit for bit (captured = eager); (e) the
+    serving net (wide_deep_serving).  Each card life asserts its merge
+    launches against merge_launches and no plain call; a profiled replay
+    of the lazy step gives the device's idle share and top kernels.  The
+    op-seed counter is put back afterwards.  Returns the paths' launches
+    and WIDE_DEEP_RUN."""
+    import torch
+
+    from paddle_tpu_torch.ops import registry
+
+    t0 = time.perf_counter()
+    op_seed = registry._OP_SEED[0]
+    feeds = wide_deep_feeds(WIDE_DEEP, WIDE_DEEP_BATCH, WIDE_DEEP_STEPS,
+                            WIDE_DEEP_SEED)
+    untouched = untouched_rows(feeds, WIDE_DEEP["vocab_size"])
+    hot = np.bincount(feeds[0]["sparse_ids"].ravel()).max()
+    log(f"  {WIDE_DEEP_BATCH * WIDE_DEEP['num_sparse']} ids a step, the "
+        f"hottest id {hot} times in the first; "
+        f"{WIDE_DEEP['vocab_size'] - untouched.size} rows touched in "
+        f"{WIDE_DEEP_STEPS} steps, {untouched.size} not")
+    lr_sum = WIDE_DEEP_LR * WIDE_DEEP_STEPS
+    paths, lives, reckoned = {}, {}, {}
+    for key, is_sparse, lazy in (("dense", False, False),
+                                 ("sparse", True, False),
+                                 ("lazy", True, True)):
+        main, startup, loss = build_wide_deep(tpt, is_sparse, lazy,
+                                              op_seed)
+        reckoned[key] = merge_launches(main)
+        lives[key] = wide_deep_life(tpt, fa, f"18{'abc'[len(lives)]} "
+                                    f"{key}", main, startup, loss, feeds)
+        paths[f"wide_deep_{key}"] = lives[key][4]
+        torch.cuda.empty_cache()
+    params = {v.name for v in main.all_parameters()}
+    for key in ("sparse", "lazy"):
+        diff = [n for n in lives["dense"][2]
+                if not torch.equal(lives[key][2][n], lives["dense"][2][n])]
+        if diff:
+            raise AssertionError(f"18: the {key} life's startup state "
+                                 f"differs from the dense life's: {diff}")
+    d_loss = max(abs(a - b) / abs(b) for a, b in
+                 zip(lives["sparse"][0], lives["dense"][0]))
+    d_state = state_gap(lives["sparse"][1], lives["dense"][1],
+                        "18b sparse vs dense", params, lr_sum)
+    log(f"  18b sparse (lazy_mode off) vs dense: loss rel {d_loss:.3e} "
+        f"(limit {WIDE_DEEP_LOSS_RTOL:g}), worst persistable "
+        f"{d_state[0]:.3e} of its norm ({d_state[1]}; limit "
+        f"{WIDE_DEEP_STATE_RTOL:g})")
+    if d_loss > WIDE_DEEP_LOSS_RTOL:
+        raise AssertionError(f"18b: losses apart by {d_loss}")
+    lives["dense"] = lives["dense"][:1] + (None, None) + lives["dense"][3:]
+    check_untouched(lives["lazy"][1], lives["lazy"][2], untouched, "18c")
+    # the CPU life starts from the card's startup values (the CPU's
+    # generators draw other numbers)
+    start = {n: t.cpu() for n, t in lives["lazy"][2].items()}
+    t_cpu = time.perf_counter()
+    cpu = wide_deep_life(tpt, fa, "18c lazy on the CPU", main, startup,
+                         loss, feeds, start=start,
+                         device=torch.device("cpu"))
+    cpu_s = time.perf_counter() - t_cpu
+    c_loss = max(abs(a - b) / abs(b) for a, b in
+                 zip(lives["lazy"][0], cpu[0]))
+    c_state = state_gap(lives["lazy"][1], cpu[1], "18c card vs CPU",
+                        params, lr_sum)
+    log(f"  18c lazy card vs CPU: loss rel {c_loss:.3e} (limit "
+        f"{WIDE_DEEP_LOSS_RTOL:g}), worst persistable {c_state[0]:.3e} of "
+        f"its norm ({c_state[1]}); untouched rows at their startup bits")
+    if c_loss > WIDE_DEEP_LOSS_RTOL:
+        raise AssertionError(f"18c: card and CPU losses apart by {c_loss}")
+    del cpu, start
+    again = wide_deep_life(tpt, fa, "18d lazy again (fresh executor and "
+                           "scope)", main, startup, loss, feeds)
+    lives_equal(again, lives["lazy"], "18d")
+    del again
+    eager = wide_deep_life(tpt, fa, "18d lazy eager (every step op by "
+                           "op)", main, startup, loss, feeds, eager=True)
+    lives_equal(eager, lives["lazy"], "18d captured vs eager")
+    del eager
+    torch.cuda.empty_cache()
+    profile_wide_deep(tpt, fa, main, startup, loss, feeds, "wide_deep_lazy")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_wide_deep_") as wd:
+        paths["wide_deep_serving"], serving = wide_deep_serving(
+            tpt, fa, wd, lives["lazy"][1], feeds)
+    registry.reset_op_seed(op_seed)
+    replay = {k: float(np.median(v[3][2:])) for k, v in lives.items()}
+    WIDE_DEEP_RUN.update(
+        card=card, hottest_id=int(hot), untouched_rows=int(untouched.size),
+        losses={k: v[0] for k, v in lives.items()},
+        replay_ms=replay, sparse_vs_dense=dict(loss_rel=d_loss,
+                                               state_rel=d_state[0]),
+        card_vs_cpu=dict(loss_rel=c_loss, state_rel=c_state[0],
+                         cpu_s=cpu_s),
+        merge_launches_a_step=reckoned, serving=serving,
+        profile=PROFILES.get("wide_deep_lazy"),
+        phase_s=time.perf_counter() - t0)
+    log("  replay ms a step (median of steps 3-6): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in replay.items()))
+    return paths
+
+
+# the merge kernel in phase 2: the deep table's 10 columns and the wide
+# table's 1, at Wide&Deep's K
+MERGE_COLS = (10, 1)
+
+
+def check_merge(kernel, device):
+    """Phase 2's look at the SelectedRows merge kernel at Wide&Deep's K
+    (WIDE_DEEP_BATCH x 26 Zipf ids over WIDE_DEEP's 1,000,001 rows, from
+    fixed seeds), MERGE_COLS columns: its output bit-equal to the plain
+    version run on the CPU on the same inputs and across two launches;
+    the event and device time of the wrapper (sort, scan, kernel) and of
+    the kernel alone, the plain version's on the card, torch's index_add_
+    of the same sums into a dense table (the library call) and the bound
+    (rows and values read once, merged rows and values written once at
+    the HBM peak).  Returns {f"cols{c}": row}."""
+    import torch
+
+    height = WIDE_DEEP["vocab_size"]
+    k = WIDE_DEEP_BATCH * WIDE_DEEP["num_sparse"]
+    rng = np.random.RandomState(WIDE_DEEP_SEED + 2)
+    rows = torch.from_numpy(zipf_ids(rng, k, height,
+                                     rng.permutation(height))).to(device)
+    out = {}
+    for cols in MERGE_COLS:
+        vals = seeded((k, cols), WIDE_DEEP_SEED + cols, device)
+        got = kernel.merge_rows(rows, vals, height)
+        again = kernel.merge_rows(rows, vals, height)
+        want = kernel.merge_rows_reference(rows.cpu(), vals.cpu(), height)
+        same = (torch.equal(got[0].cpu(), want[0]) and
+                got[1].cpu().numpy().tobytes() == want[1].numpy().tobytes())
+        repeat = (torch.equal(got[0], again[0]) and torch.equal(
+            got[1].view(torch.int32), again[1].view(torch.int32)))
+        names = []
+        ms, dev = timed(lambda: kernel.merge_rows(rows, vals, height), 20,
+                        names=names)
+        kernel_dev = sum(us for n, us in names
+                         if "merge_rows_kernel" in n) / 1e3
+        plain_ms = cuda_ms(
+            lambda: kernel.merge_rows_reference(rows, vals, height), 1,
+            warmup=1)
+        dense = torch.zeros(height, cols, device=device)
+        lib_ms, lib_dev = timed(lambda: dense.index_add_(0, rows, vals), 20)
+        bound = (16.0 + 8.0 * cols) * k / PEAK_BYTES_PER_S * 1e3
+        unique = int((got[0] < height).sum())
+        err = float((got[1].cpu() - want[1]).abs().max())
+        out[f"cols{cols}"] = dict(
+            ms=ms, device_ms=dev, kernel_device_ms=kernel_dev,
+            plain_ms=plain_ms, library_ms=lib_ms, library_device_ms=lib_dev,
+            bound_ms=bound, bound_by="bytes", max_abs_err=err, k=k,
+            unique_rows=unique, sha256=sha256(got[1]))
+        log(f"  merge kernel [{k}, {cols}] ({unique} unique rows): "
+            f"bit-equal to the plain version on the CPU: {same}, across "
+            f"two launches: {repeat}; wrapper {ms:.4f} ms events / "
+            f"{dev:.4f} ms device ({kernel_dev:.4f} ms the kernel), plain "
+            f"on the card {plain_ms:.1f} ms, index_add_ {lib_ms:.4f} / "
+            f"{lib_dev:.4f} ms, bound {bound:.5f} ms (bytes)")
+        log_kernels(f"merge [{k}, {cols}]", names)
+        if not (same and repeat):
+            raise AssertionError(f"merge kernel at {cols} columns: bit-equal "
+                                 f"to the plain version {same}, across "
+                                 f"launches {repeat}")
+    return out
+
+
 def use_bytecode_cache():
     """Write and read the interpreter's compiled bytecode under
     BYTECODE_CACHE, in this process and every process it starts
@@ -7509,6 +8073,7 @@ def main():
     from paddle_tpu_torch.ops import registry
     from paddle_tpu_torch.ops.cuda import build, gemm, rms_norm
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import selected_rows
 
     pkg_dir = os.path.dirname(os.path.abspath(tpt.__file__))
     if pkg_dir != os.path.join(HERE, "paddle_tpu_torch"):
@@ -7517,7 +8082,7 @@ def main():
 
     t_start = time.perf_counter()
     card = card_line()
-    log(f"[1/17] device: {card}; torch {torch.__version__}, CUDA "
+    log(f"[1/18] device: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -7534,12 +8099,14 @@ def main():
     fa._bwd_lib()
     gemm._lib()
     rms_norm._lib()
-    log(f"[2/17] built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
+    selected_rows._lib()
+    log(f"[2/18] built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
     check_build(build)
     gemm_rows, gemm_ratios = check_gemm(gemm, build, device)
     norm_rows = check_rms_norm(rms_norm, device)
+    merge_rows = check_merge(selected_rows, device)
 
-    log("[3/17] packed kernels against their plain versions")
+    log("[3/18] packed kernels against their plain versions")
     check_kernel(fa, device)
     check_backward(fa, device)
     fwd_f32 = time_forward_f32(fa, device)
@@ -7555,21 +8122,21 @@ def main():
 
     # each path's launches of the six kernels, each read from 0
     by_path = {}
-    log("[4/17] BERT-base serving through Predictor on the card")
+    log("[4/18] BERT-base serving through Predictor on the card")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         by_path["serving"] = serve(tpt, fa, workdir)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[5/17] BERT-base training, card against the CPU (fp32)")
+    log("[5/18] BERT-base training, card against the CPU (fp32)")
     by_path["training_parity"] = bert_parity(tpt, fa)
     bert_fp32_profile(tpt, fa)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[6/17] bench.py's seq-512 training step on the card (bf16 AMP)")
+    log("[6/18] bench.py's seq-512 training step on the card (bf16 AMP)")
     by_path["training_flagship"], _ = bert_flagship(tpt, fa)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[7/17] unpacked kernels against their plain versions")
+    log("[7/18] unpacked kernels against their plain versions")
     check_unpacked(fa, device)
     unpacked_timing = time_unpacked(fa, device, "bfloat16")
     unpacked_f32 = time_unpacked(fa, device, "float32")
@@ -7587,7 +8154,7 @@ def main():
     # phase 17 runs here, beside phase 7's unpacked kernels: right after
     # phase 16 the profiler saw no device time in any session (my chip
     # runs 4 and 6, PR 20), while phase 7's sessions see it
-    log("[17/17] MiniLM-L12-H384 (kernels #4-#6 at D 32) and bench.py's "
+    log("[17/18] MiniLM-L12-H384 (kernels #4-#6 at D 32) and bench.py's "
         "seq-128 BERT-base step (unfused) on the card")
     paths17, d32_rows = minilm_flagship(tpt, fa, device, card)
     by_path.update(paths17)
@@ -7596,11 +8163,20 @@ def main():
     log(f"  (phase 17 took {MINILM_RUN['phase_s']:.1f} s; "
         f"{time.perf_counter() - t_start:.1f} s in all)")
 
-    log("[8/17] Llama-2-7B-width training, card against the CPU (fp32)")
+    # phase 18 runs beside phase 17, where the profiler still sees the
+    # card (PERF.md section 7)
+    log("[18/18] Wide&Deep at the Criteo layout: dense, sparse and lazy "
+        "Adam training lives and the serving net on the card")
+    by_path.update(wide_deep_flagship(tpt, fa, card))
+    log("wide_deep: " + json.dumps(WIDE_DEEP_RUN))
+    log(f"  (phase 18 took {WIDE_DEEP_RUN['phase_s']:.1f} s; "
+        f"{time.perf_counter() - t_start:.1f} s in all)")
+
+    log("[8/18] Llama-2-7B-width training, card against the CPU (fp32)")
     by_path["llama_parity"] = llama_parity(tpt, fa)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[9/17] Llama-2-7B-width training on the card (4 layers, bf16 AMP)")
+    log("[9/18] Llama-2-7B-width training on the card (4 layers, bf16 AMP)")
     llama_op_seed = registry._OP_SEED[0]  # phase 9's startup draws
     by_path["llama_flagship"], losses = llama_flagship(tpt, fa)
     compare_losses(losses)
@@ -7608,7 +8184,7 @@ def main():
 
     # phase 16 runs here, where torch.profiler still sees the card (after
     # phase 14 its sessions have seen no device time or lost records)
-    log("[16/17] float16 AMP with dynamic loss scaling: bench.py's seq-512 "
+    log("[16/18] float16 AMP with dynamic loss scaling: bench.py's seq-512 "
         "step and the Llama-2-7B-width step on the card")
     by_path.update(fp16_flagship(tpt, fa, llama_op_seed, losses))
     FP16["card"] = card
@@ -7617,7 +8193,7 @@ def main():
     log(f"  (phase 16 took {FP16['phase_s']:.1f} s, the fp16 kernel checks "
         f"{f16_s:.1f} s; {time.perf_counter() - t_start:.1f} s in all)")
 
-    log("[10/17] Llama generation serving on the card (dense and paged KV "
+    log("[10/18] Llama generation serving on the card (dense and paged KV "
         "cache, speculative decoding, prefill / decode roles)")
     by_path["generation_parity"] = generation_parity(tpt, fa)
     by_path["generation"], paged_paths, gen_scope, dense_tokens = \
@@ -7628,7 +8204,7 @@ def main():
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
     t11 = time.perf_counter()
-    log("[11/17] the serving stack: BERT-base through ServingEngine, then "
+    log("[11/18] the serving stack: BERT-base through ServingEngine, then "
         "HTTP with Llama-2-7B generation attached")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_serving_") as wd:
         model_dir, second_dir, gen_second_dir = (
@@ -7651,7 +8227,7 @@ def main():
         pred.close()
         del eng, pred, gen_scope
         t12 = time.perf_counter()
-        log("[12/17] the fleet: BERT-base and Llama-2-7B in replica "
+        log("[12/18] the fleet: BERT-base and Llama-2-7B in replica "
             "processes behind the router")
         FLEET["reserved_gib_before"] = release_card(
             "released phases 10 and 11")
@@ -7669,7 +8245,7 @@ def main():
             f"{time.perf_counter() - t_start:.1f} s in all)")
 
         t13 = time.perf_counter()
-        log("[13/17] the port's load generator and chaos harness: "
+        log("[13/18] the port's load generator and chaos harness: "
             "BERT-base and Llama-2-7B fleets (13a's --url legs ran in "
             "phase 12)")
         by_path["loadgen"] = loadgen_in_process(
@@ -7693,7 +8269,7 @@ def main():
     log(f"  (phase 13 took {CHAOS['phase_s']:.1f} s; "
         f"{time.perf_counter() - t_start:.1f} s in all)")
 
-    log("[14/17] bench.py's seq-512 step under TrainGuard: a NaN, a SIGTERM "
+    log("[14/18] bench.py's seq-512 step under TrainGuard: a NaN, a SIGTERM "
         "and a resume, bit for bit")
     release_card("phase 13 closed")
     by_path["train_guard"] = train_guard_flagship(tpt, fa)
@@ -7702,7 +8278,7 @@ def main():
     log(f"  (phase 14 took {GUARD['phase_s']:.1f} s; "
         f"{time.perf_counter() - t_start:.1f} s in all)")
 
-    log("[15/17] recompute: bench.py's seq-512 step and a Llama-2-7B-width "
+    log("[15/18] recompute: bench.py's seq-512 step and a Llama-2-7B-width "
         "decoder at seq 4096 under Llama-2's recipe, plain against "
         "recompute, bit for bit")
     release_card("phase 14 closed")
@@ -7808,6 +8384,17 @@ def main():
         launches_by_path={p: getattr(n, "rms_norm", None)
                           for p, n in by_path.items()},
         trace_record_paths=list(TRACE_PATHS), shapes=norm_rows))
+    # the SelectedRows merge kernel: its row the deep table's [106496, 10]
+    # merge, its launches phase 18's lazy life's (two a step, one a table)
+    kernels.append(dict(
+        name="selected_rows_merge", route="cuda",
+        source=src + "selected_rows.cu",
+        replaces="paddle_tpu/framework/selected_rows.py:56",
+        **merge_rows["cols10"],
+        launches=by_path["wide_deep_lazy"].merge,
+        launches_by_path={p: getattr(n, "merge", None)
+                          for p, n in by_path.items()},
+        shapes=merge_rows))
     for k in kernels:
         if not all(math.isfinite(x) for x in
                    [k[x] for x in ("max_abs_err", "ms", "plain_ms",
@@ -7822,7 +8409,8 @@ def main():
             raise AssertionError(f"{k['name']} never launched on the path")
     log(f"chip_smoke: the run took {time.perf_counter() - t_start:.1f} s "
         f"(phase 16 {FP16['phase_s']:.1f} s, the fp16 kernel checks "
-        f"{f16_s:.1f} s, phase 17 {MINILM_RUN['phase_s']:.1f} s)")
+        f"{f16_s:.1f} s, phase 17 {MINILM_RUN['phase_s']:.1f} s, phase 18 "
+        f"{WIDE_DEEP_RUN['phase_s']:.1f} s)")
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

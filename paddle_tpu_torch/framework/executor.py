@@ -68,6 +68,7 @@ from ..monitor import monitor as _monitor
 from ..ops.registry import LowerContext, lower_op, plan_grads, run_seed
 from .core import (Block, Program, Variable, default_main_program,
                    dtype_to_np, dtype_to_torch)
+from .selected_rows import densify, is_selected_rows
 
 __all__ = ["Executor", "FetchHandle", "AsyncRunResult", "CompiledStep",
            "Scope", "global_scope", "scope_guard", "analyze_block"]
@@ -390,13 +391,13 @@ def fetch_to_numpy(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
 
 def _counters():
     """(owner, attribute) of every kernel count: the attention wrappers',
-    the product kernel's and the RMSNorm kernel's ``.launches``, the
-    attention wrappers' ``.realigned`` and the plain versions'
-    ``.calls``."""
-    from ..ops.cuda import flash_attention, gemm, rms_norm
+    the product kernel's, the RMSNorm kernel's and the SelectedRows merge
+    kernel's ``.launches``, the attention wrappers' ``.realigned`` and the
+    plain versions' ``.calls``."""
+    from ..ops.cuda import flash_attention, gemm, rms_norm, selected_rows
 
     return flash_attention.counters() + gemm.counters() + \
-        rms_norm.counters()
+        rms_norm.counters() + selected_rows.counters()
 
 
 @contextlib.contextmanager
@@ -418,9 +419,12 @@ def _on_stream(stream: Optional[torch.cuda.Stream], device: torch.device):
 
 def _check_outputs(op, env, block):
     """FLAGS_check_nan_inf: the op's outputs must have the shapes shape
-    inference declared and, if float, be finite."""
+    inference declared and, if float, be finite (a SelectedRows output:
+    its values slab)."""
     for name in op.output_arg_names():
         val = env.get(name)
+        if is_selected_rows(val):
+            val = val.values
         if not isinstance(val, torch.Tensor):
             continue
         v = block._find_var_recursive(name)
@@ -559,14 +563,17 @@ class CompiledStep:
                 ok = torch.isfinite(loss).all() if loss is not None else \
                     torch.ones((), dtype=torch.bool, device=self.device)
             for n in self.mut_in:
-                old, new = state[n], env[n]
+                old, new = state[n], densify(env[n])
                 if ok is not None:
                     # a non-finite step leaves the old state bit-unchanged
                     old.copy_(torch.where(ok, new, old))
                 elif new is not old:
                     old.copy_(new)
-        fetches = tuple(env[n].detach() for n in self.fetch_names)
-        return fetches, tuple(env[n] for n in self.new_out), ok
+            # a SelectedRows fetch or state output leaves the step dense
+            fetches = tuple(densify(env[n]).detach()
+                            for n in self.fetch_names)
+            new = tuple(densify(env[n]) for n in self.new_out)
+        return fetches, new, ok
 
     def _state(self, scope: "Scope") -> Dict[str, torch.Tensor]:
         """The scope's state tensors this step reads, by name; a value that

@@ -1,10 +1,12 @@
-"""Loss layers: ``softmax_with_cross_entropy`` and ``square_error_cost``
-as in ``paddle_tpu/layers/loss.py``."""
+"""Loss layers: ``softmax_with_cross_entropy``,
+``sigmoid_cross_entropy_with_logits`` and ``square_error_cost`` as in
+``paddle_tpu/layers/loss.py``."""
 from __future__ import annotations
 
 from ..framework.layer_helper import LayerHelper
 
-__all__ = ["softmax_with_cross_entropy", "square_error_cost"]
+__all__ = ["softmax_with_cross_entropy", "sigmoid_cross_entropy_with_logits",
+           "square_error_cost"]
 
 
 def softmax_with_cross_entropy(logits, label, soft_label=False,
@@ -21,6 +23,18 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     if return_softmax:
         return loss, softmax
     return loss
+
+
+def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100,
+                                      name=None, normalize=False):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("sigmoid_cross_entropy_with_logits",
+                     inputs={"X": [x], "Label": [label]},
+                     outputs={"Out": [out]},
+                     attrs={"ignore_index": ignore_index,
+                            "normalize": normalize})
+    return out
 
 
 def square_error_cost(input, label):

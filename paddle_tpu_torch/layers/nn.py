@@ -1,6 +1,7 @@
 """Graph-building NN layers: the subset of ``paddle_tpu/layers/nn.py`` on
-the BERT and Llama paths (Llama generation's dense and paged KV-cache
-ops, and the LR decays' and clips' pointwise ops, included), with the
+the BERT, Llama and Wide&Deep paths (Llama generation's dense and paged
+KV-cache ops, and the LR decays' and clips' pointwise ops, included), with
+the
 same arguments, ops and attrs (static graph only)."""
 from __future__ import annotations
 
@@ -12,7 +13,8 @@ from ..framework.layer_helper import LayerHelper
 __all__ = ["fc", "layer_norm", "embedding", "softmax", "matmul",
            "flash_attention",
            "flash_attention_qkv", "dropout", "sqrt", "silu", "exp", "cos",
-           "floor", "ceil", "clip", "clip_by_norm", "mean",
+           "floor", "ceil", "sigmoid", "square", "flatten", "clip",
+           "clip_by_norm", "mean",
            "rms_norm", "rope", "kv_cache_write", "kv_cache_insert",
            "kv_pool_write", "kv_pool_gather", "cached_attention"]
 
@@ -189,6 +191,19 @@ exp = _unary("exp")
 cos = _unary("cos")
 floor = _unary("floor")
 ceil = _unary("ceil")
+sigmoid = _unary("sigmoid")
+square = _unary("square")
+
+
+def flatten(x, axis=1, name=None):
+    """-> flatten2: x as 2-D, the dims before `axis` into rows."""
+    helper = LayerHelper("flatten", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    xshape = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("flatten2", inputs={"X": [x]},
+                     outputs={"Out": [out], "XShape": [xshape]},
+                     attrs={"axis": axis})
+    return out
 
 
 def clip(x, min, max, name=None):

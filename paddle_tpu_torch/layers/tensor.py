@@ -8,11 +8,11 @@ from ..framework.core import (default_main_program, default_startup_program,
 from ..framework.layer_helper import LayerHelper
 
 __all__ = [
-    "data", "fill_constant", "create_global_var", "cast", "sums",
+    "data", "fill_constant", "create_global_var", "cast", "concat", "sums",
     "reshape", "transpose", "squeeze", "unsqueeze", "stack", "slice",
     "gather_nd", "expand", "tile", "range", "argmax", "argmin",
-    "reduce_sum", "elementwise_add", "elementwise_sub", "elementwise_mul",
-    "elementwise_div", "elementwise_max", "elementwise_min",
+    "reduce_sum", "reduce_mean", "elementwise_add", "elementwise_sub",
+    "elementwise_mul", "elementwise_div", "elementwise_max", "elementwise_min",
     "elementwise_pow", "less_than", "equal", "scale", "pow", "increment",
     "where", "clip",
 ]
@@ -67,6 +67,14 @@ def cast(x, dtype):
     return out
 
 
+def concat(input, axis=0, name=None):
+    helper = LayerHelper("concat", name=name)
+    out = helper.create_variable_for_type_inference(input[0].dtype)
+    helper.append_op("concat", inputs={"X": list(input)},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
 def sums(input, out=None):
     helper = LayerHelper("sum")
     if out is None:
@@ -94,6 +102,7 @@ def _reduce(op_type):
 
 
 reduce_sum = _reduce("reduce_sum")
+reduce_mean = _reduce("reduce_mean")
 
 
 def _binary(op_type):

@@ -27,12 +27,19 @@ this module watches the **device**:
   (:class:`CaptureDisabled` otherwise — the ``/profilez`` 503).
   ``GET /profilez?sec=N`` on the serving server and ``SIGUSR2`` /
   :meth:`TrainGuard.capture_profile` in training both land here.
+  ``torch.profiler``'s stop and trace export hold the GIL, so the
+  process's other threads (its ``/healthz`` among them) stall for a
+  time that grows with the events recorded: while it runs, a capture
+  leaves ``CAPTURE_MARK`` in ``FLAGS_metrics_dir``, and a fleet
+  supervisor's liveness watchdog reads it (:func:`capture_waiver_until`)
+  rather than SIGKILL a replica that is busy exporting its trace.
 
 Stats: ``profile_captures`` counter; gauges ``hbm_live_bytes``,
 ``hbm_peak_bytes`` (+ dynamic ``hbm_live_bytes_dev<i>``).
 """
 from __future__ import annotations
 
+import json
 import logging
 import os
 import threading
@@ -51,6 +58,14 @@ __all__ = ["device_live_bytes", "HbmSampler", "start_hbm_sampler",
 logger = logging.getLogger("paddle_tpu_torch.observatory")
 
 MAX_CAPTURE_SEC = 60.0
+# the file a capture in flight leaves in FLAGS_metrics_dir: its pid, its
+# wall-clock start and its length
+CAPTURE_MARK = "profile_capture.json"
+# a marked capture excuses a silent /healthz for this many times its
+# length from its start: the recording, then the stop and the export,
+# which silenced /healthz for 0.61-1.02 s a second recorded under
+# traffic on an H100 (probe_profilez.py)
+CAPTURE_WAIVER_FACTOR = 3.0
 
 
 # ---------------------------------------------------------------------------
@@ -215,6 +230,37 @@ def _profile_for(sec: float, target: str):
     prof.export_chrome_trace(os.path.join(target, "trace.json"))
 
 
+def _mark_capture(sec: float) -> Optional[str]:
+    """Write CAPTURE_MARK into FLAGS_metrics_dir (none where the flag is
+    unset: no supervisor reads one then); its path."""
+    base = flag_value("FLAGS_metrics_dir")
+    if not base:
+        return None
+    path = os.path.join(str(base), CAPTURE_MARK)
+    os.makedirs(str(base), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        json.dump({"pid": os.getpid(), "started": time.time(),
+                   "sec": sec}, f)
+    os.replace(tmp, path)
+    return path
+
+
+def capture_waiver_until(metrics_dir: str, pid: int) -> Optional[float]:
+    """The wall-clock time until which a capture in flight in process
+    `pid` (its CAPTURE_MARK in `metrics_dir`) excuses a silent /healthz;
+    None where that process marks no capture."""
+    try:
+        with open(os.path.join(metrics_dir, CAPTURE_MARK)) as f:
+            doc = json.load(f)
+        if doc.get("pid") != pid:
+            return None
+        return float(doc["started"]) + \
+            CAPTURE_WAIVER_FACTOR * float(doc["sec"])
+    except (OSError, ValueError, KeyError, TypeError, AttributeError):
+        return None
+
+
 def capture_profile(sec: Optional[float] = None,
                     out_dir: Optional[str] = None) -> dict:
     """Capture ``sec`` seconds of ``torch.profiler`` device+host trace
@@ -235,9 +281,16 @@ def capture_profile(sec: Optional[float] = None,
             raise CaptureBusy("profiler capture already running")
         _capture_active[0] = True
     target = out_dir or _capture_dir()
+    mark = None
     try:
+        mark = _mark_capture(sec)
         _profile_for(sec, target)
     finally:
+        if mark is not None:
+            try:
+                os.remove(mark)
+            except OSError:
+                pass
         with _capture_lock:
             _capture_active[0] = False
     files, total = [], 0

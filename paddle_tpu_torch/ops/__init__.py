@@ -9,3 +9,4 @@ from . import rope_ops  # noqa
 from . import control_flow_ops  # noqa
 from . import optimizer_ops  # noqa
 from . import amp_ops  # noqa
+from . import catalog_seq_ops  # noqa

@@ -3,11 +3,16 @@
 Counterpart of ``paddle_tpu/ops/math_ops.py`` for the ops on the BERT
 and Llama paths: ``elementwise_add/sub/mul/div/max/min/pow`` with Paddle
 ``axis`` broadcasting, ``less_than``, ``equal``, ``scale``, ``mul``,
-``gelu``, ``relu``, ``silu``, ``sqrt``, ``exp``, ``cos``, ``floor``,
-``ceil``, ``sign``, ``pow``, ``cast``, ``reduce_sum``, ``mean`` and
-``sum``; ``matmul`` / ``matmul_v2`` (BERT's unfused attention); and for
-the training recipe (LR decays, clips, L1 decay) ``clip``,
-``clip_by_norm`` and ``global_norm_sq``.  ``mul``'s and ``matmul``'s
+``gelu``, ``relu``, ``silu``, ``sigmoid``, ``square``, ``sqrt``, ``exp``,
+``cos``, ``floor``, ``ceil``, ``sign``, ``pow``, ``cast``, ``reduce_sum``,
+``reduce_mean``, ``mean`` and ``sum``; ``matmul`` / ``matmul_v2`` (BERT's
+unfused attention); and for the training recipe (LR decays, clips, L1
+decay) ``clip``, ``clip_by_norm`` and ``global_norm_sq``.  The
+SelectedRows cases of the JAX package's (``math_ops.py:53-63``,
+``:198-235``, ``:480-493``, ``:544-560``, ``:579-592``): elementwise
+operands and ``global_norm_sq``'s inputs densify, ``scale`` without a bias
+keeps the rows, ``clip`` and ``clip_by_norm`` merge and stay sparse,
+``sum`` of SelectedRows alone concatenates.  ``mul``'s and ``matmul``'s
 row results must not depend on how many rows they have (generation's
 cached decode against the uncached forward, a served batch against its
 rows alone: tolerance 0).  On the card a float32 product that no grad op
@@ -30,6 +35,9 @@ import torch.nn.functional as F
 
 from ..errors import InvalidArgumentError
 from ..framework.core import Block, Operator, dtype_to_torch
+from ..framework.selected_rows import (SelectedRowsValue,
+                                       concat_selected_rows, densify,
+                                       is_selected_rows)
 from .cuda import gemm
 from .registry import (LowerContext, broadcast_shapes, in_var, register_op,
                        same_as_input, set_out)
@@ -71,11 +79,13 @@ def _promote(x, y):
 
 def _make_ew(op_type, fn):
     def lower(ctx: LowerContext, op: Operator):
-        x, y = _align_y(*_promote(ctx.get_input(op, "X"),
-                                  ctx.get_input(op, "Y")),
-                        op.attr("axis", -1))
+        # a SelectedRows operand densifies, once where it is both (the
+        # global-norm clip squares and scales gradients elementwise)
+        x, y = ctx.get_input(op, "X"), ctx.get_input(op, "Y")
+        x, y = (densify(x), densify(y)) if x is not y else (densify(x),) * 2
+        x, y = _align_y(*_promote(x, y), op.attr("axis", -1))
         ctx.set_output(op, "Out", fn(x, y))
-    register_op(op_type, infer=_ew_infer, lower=lower)
+    register_op(op_type, infer=_ew_infer, lower=lower, selected_rows=True)
 
 
 _make_ew("elementwise_add", lambda x, y: x + y)
@@ -133,6 +143,11 @@ def _silu(ctx: LowerContext, op: Operator):
     ctx.set_output(op, "Out", F.silu(ctx.get_input(op, "X")))
 
 
+@register_op("sigmoid", infer=same_as_input())
+def _sigmoid(ctx: LowerContext, op: Operator):
+    ctx.set_output(op, "Out", torch.sigmoid(ctx.get_input(op, "X")))
+
+
 def _make_unary(op_type, fn, grad="auto"):
     def lower(ctx: LowerContext, op: Operator):
         ctx.set_output(op, "Out", fn(ctx.get_input(op, "X"), op))
@@ -144,9 +159,26 @@ _make_unary("exp", lambda x, op: torch.exp(x))
 _make_unary("cos", lambda x, op: torch.cos(x))
 _make_unary("floor", lambda x, op: torch.floor(x))
 _make_unary("ceil", lambda x, op: torch.ceil(x))
+_make_unary("square", lambda x, op: x * x)
 _make_unary("sign", lambda x, op: torch.sign(x), grad=None)
-_make_unary("clip", lambda x, op: torch.clamp(
-    x, op.attr("min", float("-inf")), op.attr("max", float("inf"))))
+
+
+def _clip_value(x, op):
+    """Clamp into [min, max]; a SelectedRows gradient is merged first and
+    its values clamped (the reference's clip_op SelectedRows branch: rows
+    it does not hold are 0 and stay so)."""
+    lo = op.attr("min", float("-inf"))
+    hi = op.attr("max", float("inf"))
+    if is_selected_rows(x):
+        m = x.merge()
+        return SelectedRowsValue(m.rows, torch.clamp(m.values, lo, hi),
+                                 m.height)
+    return torch.clamp(x, lo, hi)
+
+
+register_op("clip", infer=same_as_input(), selected_rows=True,
+            lower=lambda ctx, op: ctx.set_output(
+                op, "Out", _clip_value(ctx.get_input(op, "X"), op)))
 
 
 @register_op("pow", infer=same_as_input())
@@ -158,23 +190,33 @@ def _pow(ctx: LowerContext, op: Operator):
     ctx.set_output(op, "Out", torch.pow(x, factor))
 
 
-@register_op("clip_by_norm", infer=same_as_input())
+@register_op("clip_by_norm", infer=same_as_input(), selected_rows=True)
 def _clip_by_norm(ctx: LowerContext, op: Operator):
-    """X scaled by max_norm / ||X|| where its L2 norm exceeds max_norm."""
+    """X scaled by max_norm / ||X|| where its L2 norm exceeds max_norm.  A
+    SelectedRows gradient is merged and its values scaled, and stays
+    sparse (the reference's clip_by_norm_op SelectedRows branch)."""
     x = ctx.get_input(op, "X")
     max_norm = op.attr("max_norm", 1.0)
+    if is_selected_rows(x):
+        m = x.merge()
+        norm = torch.sqrt(torch.sum(m.values * m.values))
+        ctx.set_output(op, "Out", SelectedRowsValue(
+            m.rows, torch.where(norm > max_norm,
+                                m.values * (max_norm / norm), m.values),
+            m.height))
+        return
     norm = torch.sqrt(torch.sum(x * x))
     ctx.set_output(op, "Out",
                    torch.where(norm > max_norm, x * (max_norm / norm), x))
 
 
 @register_op("global_norm_sq", infer=lambda op, block: set_out(
-    op, block, "Out", (), "float32"))
+    op, block, "Out", (), "float32"), selected_rows=True)
 def _global_norm_sq(ctx: LowerContext, op: Operator):
     """sum_i ||X_i||^2 over every input, as one float32 dot product of
     their concatenation (the JAX package's formulation; the clip's
-    ``PT_FUSED_GLOBAL_CLIP=1`` opt-in)."""
-    flat = torch.cat([x.float().reshape(-1)
+    ``PT_FUSED_GLOBAL_CLIP=1`` opt-in); a SelectedRows input densifies."""
+    flat = torch.cat([densify(x).float().reshape(-1)
                       for x in ctx.get_inputs(op, "X")])
     ctx.set_output(op, "Out", torch.dot(flat, flat))
 
@@ -190,13 +232,21 @@ def _cast(ctx: LowerContext, op: Operator):
         dtype_to_torch(op.attr("out_dtype", "float32"))))
 
 
-@register_op("scale", infer=same_as_input())
+@register_op("scale", infer=same_as_input(), selected_rows=True)
 def _scale(ctx: LowerContext, op: Operator):
+    """X * scale + bias (or (X + bias) * scale).  A SelectedRows X with
+    no bias keeps its rows and scales its values; with a bias it
+    densifies."""
     x = ctx.get_input(op, "X")
     scale = op.attr("scale", 1.0)
     if op.single_input("ScaleTensor"):
         scale = ctx.get_input(op, "ScaleTensor")
     bias = op.attr("bias", 0.0)
+    if is_selected_rows(x):
+        if bias == 0.0:
+            ctx.set_output(op, "Out", x.scale(scale))
+            return
+        x = x.to_dense()
     if op.attr("bias_after_scale", True):
         out = x * scale + bias
     else:
@@ -380,6 +430,23 @@ def _mean_infer(op: Operator, block: Block):
     set_out(op, block, "Out", [], in_var(op, block, "X").dtype)
 
 
+@register_op("reduce_mean", infer=_reduce_infer)
+def _reduce_mean(ctx: LowerContext, op: Operator):
+    x = ctx.get_input(op, "X")
+    keep = op.attr("keep_dim", False)
+    if op.attr("reduce_all", False) or not op.attr("dim", [0]):
+        out = x.mean()
+        if keep:
+            out = out.reshape((1,) * x.dim())
+    else:
+        dims = op.attr("dim", [0])
+        dims = dims if isinstance(dims, (list, tuple)) else [dims]
+        out = x.mean(dim=tuple(d % x.dim() for d in dims), keepdim=keep)
+    if op.attr("out_dtype"):
+        out = out.to(dtype_to_torch(op.attr("out_dtype")))
+    ctx.set_output(op, "Out", out)
+
+
 @register_op("mean", infer=_mean_infer)
 def _mean(ctx: LowerContext, op: Operator):
     """The mean of every element: Out has shape []."""
@@ -391,10 +458,17 @@ def _sum_infer(op: Operator, block: Block):
     set_out(op, block, "Out", x.shape, x.dtype)
 
 
-@register_op("sum", infer=_sum_infer)
+@register_op("sum", infer=_sum_infer, selected_rows=True)
 def _sum(ctx: LowerContext, op: Operator):
-    """Add N tensors (the clip's sum of squared grad norms)."""
+    """Add N tensors (the clip's sum of squared grad norms).  SelectedRows
+    inputs alone concatenate (the reference's sum_op SelectedRows branch;
+    the consumer merges); mixed with dense ones they densify."""
     xs = ctx.get_inputs(op, "X")
+    if xs and all(is_selected_rows(x) for x in xs):
+        ctx.set_output(op, "Out", xs[0] if len(xs) == 1
+                       else concat_selected_rows(xs))
+        return
+    xs = [densify(x) for x in xs]
     out = xs[0]
     for x in xs[1:]:
         out = torch.add(*_promote(out, x))

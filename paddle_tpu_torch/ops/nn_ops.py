@@ -1,6 +1,6 @@
 """Neural-network op lowerings in PyTorch: ``softmax``, ``layer_norm``,
-``rms_norm``, ``softmax_with_cross_entropy``, ``mse_loss`` and
-``dropout``.
+``rms_norm``, ``softmax_with_cross_entropy``, ``mse_loss``, ``dropout``
+and ``sigmoid_cross_entropy_with_logits`` (Wide&Deep's loss).
 
 Counterpart of the same ops in ``paddle_tpu/ops/nn_ops.py``, with the
 same formulas: normalisation statistics in float32, the loss as
@@ -160,3 +160,21 @@ def _dropout(ctx, op):
 def _mse(ctx, op):
     x, y = ctx.get_input(op, "X"), ctx.get_input(op, "Y")
     ctx.set_output(op, "Out", (x - y) ** 2)
+
+
+@register_op("sigmoid_cross_entropy_with_logits", infer=same_as_input())
+def _sigmoid_ce(ctx, op):
+    """max(x, 0) - x * label + log(1 + exp(-|x|)), elementwise (the stable
+    form); 0 where the label is ``ignore_index`` (when >= 0); with
+    ``normalize`` divided by the count of labels that are not."""
+    x = ctx.get_input(op, "X")
+    label = ctx.get_input(op, "Label")
+    loss = torch.clamp(x, min=0) - x * label + \
+        torch.log1p(torch.exp(-x.abs()))
+    ignore = op.attr("ignore_index", -100)
+    if ignore >= 0:
+        loss = torch.where(label == ignore, torch.zeros_like(loss), loss)
+    if op.attr("normalize", False):
+        n = torch.clamp((label != ignore).to(x.dtype).sum(), min=1.0)
+        loss = loss / n
+    ctx.set_output(op, "Out", loss)

@@ -23,6 +23,7 @@ import torch
 from ..errors import NotFoundError, UnimplementedError, op_error_context
 from ..framework.core import (Block, Operator, Variable, convert_dtype,
                               dtype_to_torch, grad_var_name)
+from ..framework.selected_rows import SelectedRowsValue
 
 __all__ = [
     "OpDef", "register_op", "get_op_def", "has_op", "infer_op_shape",
@@ -200,7 +201,8 @@ class OpDef:
     def __init__(self, type: str,
                  infer: Optional[Callable[[Operator, Block], None]] = None,
                  lower: Optional[Callable[[LowerContext, Operator], None]] = None,
-                 grad=None, stateful_outputs: Sequence[str] = ()):
+                 grad=None, stateful_outputs: Sequence[str] = (),
+                 selected_rows: bool = False):
         self.type = type
         self.infer = infer
         self.lower = lower
@@ -210,22 +212,28 @@ class OpDef:
         # output slots aliasing an input (in-place update semantics, e.g.
         # an optimizer's ParamOut)
         self.stateful_outputs = tuple(stateful_outputs)
+        # whether the lowering takes a SelectedRows input (lower_op raises
+        # for one that does not)
+        self.selected_rows = selected_rows
 
 
 _REGISTRY: Dict[str, OpDef] = {}
 
 
 def register_op(type: str, *, infer=None, lower=None, grad="auto",
-                stateful_outputs=()):
-    """Register an op type.  Usable directly or as a decorator on `lower`."""
+                stateful_outputs=(), selected_rows=False):
+    """Register an op type.  Usable directly or as a decorator on `lower`.
+    `selected_rows` marks a lowering that takes SelectedRows inputs."""
     if lower is None:
         def deco(fn):
             register_op(type, infer=infer, lower=fn, grad=grad,
-                        stateful_outputs=stateful_outputs)
+                        stateful_outputs=stateful_outputs,
+                        selected_rows=selected_rows)
             return fn
         return deco
     _REGISTRY[type] = OpDef(type, infer=infer, lower=lower, grad=grad,
-                            stateful_outputs=stateful_outputs)
+                            stateful_outputs=stateful_outputs,
+                            selected_rows=selected_rows)
     return _REGISTRY[type]
 
 
@@ -357,6 +365,14 @@ def lower_op(ctx: LowerContext, op: Operator, index: int = -1):
     if opdef is None or opdef.lower is None:
         raise UnimplementedError(f"no lowering for op {op.type!r}")
     ctx.op_index = index
+    if not opdef.selected_rows:
+        for name in op.input_arg_names():
+            if isinstance(ctx.env.get(name), SelectedRowsValue):
+                raise NotImplementedError(
+                    f"op {op.type!r} got the SelectedRows value of "
+                    f"{name!r}; the port's sparse gradients reach only the "
+                    f"ops ported with them (the rest of the op catalog is "
+                    f"ROADMAP.md queue 1, item 7)")
     with op_error_context(op, ctx.block, phase="lowering"):
         primals = ctx.keep.get(index)
         if primals is not None:
@@ -550,6 +566,11 @@ def _lower_auto_grad(ctx: LowerContext, gop: Operator):
         written.add(gname)
 
 
+# grad ops with a lowering of their own whose outputs the dead-grad pass
+# covers as it covers the auto-derived ones' (the op skips a dead output)
+SPARSE_GRAD_OPS = frozenset({"lookup_table_sparse_grad"})
+
+
 def _frozen(slots: Dict[str, List[str]]) -> tuple:
     return tuple(sorted((k, tuple(v)) for k, v in slots.items()))
 
@@ -562,7 +583,8 @@ def plan_grads(ops: Sequence[tuple], live: set) -> tuple:
     outside it is dead.  Each auto-derived grad op with a live output is
     paired with the latest op before it of its forward's type, inputs
     and outputs, which then keeps its graph for the inputs whose grads
-    are live.  A forward re-emitted by recompute has the inputs the
+    are live.  A ``lookup_table_sparse_grad`` output outside `live` is
+    dead too.  A forward re-emitted by recompute has the inputs the
     grad op's ``__fwd_inputs__`` name and its outputs renamed
     (``@RC<k>``, ``@RC_DISCARD<n>``) where the grad op names the
     originals, so outputs are compared by ``original_name``: the grad op
@@ -576,6 +598,9 @@ def plan_grads(ops: Sequence[tuple], live: set) -> tuple:
     dead = set()
     for i, op in ops:
         opdef = _REGISTRY.get(op.type)
+        if op.type in SPARSE_GRAD_OPS:
+            dead.update(n for n in op.output_arg_names()
+                        if n and n not in live)
         if opdef is None or opdef.lower is not _lower_auto_grad:
             outs = _frozen({k: [original_name(n) for n in v]
                             for k, v in op.outputs.items()})

@@ -4,9 +4,11 @@ Counterpart of ``paddle_tpu/ops/tensor_ops.py`` for the ops on the BERT
 and Llama paths: ``fill_constant``, ``fill_any_like``, ``assign_value``,
 ``uniform_random``, ``gaussian_random``, ``truncated_gaussian_random``,
 ``range``, ``reshape2``/``transpose2``, ``squeeze2``/``unsqueeze2``,
-``slice``, ``tile``, ``lookup_table_v2``, ``where``, ``arg_max`` /
-``arg_min`` (generation's greedy pick) and, for the masked-gather MLM
-head, ``expand``, ``stack`` and ``gather_nd``.
+``slice``, ``tile``, ``lookup_table_v2`` (with its sparse grad,
+``lookup_table_sparse_grad``), ``where``, ``arg_max`` / ``arg_min``
+(generation's greedy pick), for the masked-gather MLM head ``expand``,
+``stack`` and ``gather_nd``, and for Wide&Deep ``concat`` and
+``flatten2``.
 Reshape, transpose and slice return views where PyTorch can, as the JAX
 package leaves layout to XLA.  Randomness comes from a per-op ``torch.Generator`` (LowerContext.rng); it
 draws other numbers than jax.random from the same seed.
@@ -18,8 +20,11 @@ import math
 import numpy as np
 import torch
 
-from ..framework.core import Block, Operator, dtype_to_torch
-from .registry import LowerContext, in_var, register_op, set_out
+from ..framework.core import (Block, Operator, VarType, dtype_to_torch,
+                              grad_var_name)
+from ..framework.selected_rows import SelectedRowsValue
+from .registry import (LowerContext, build_auto_grad_specs, in_var,
+                       register_op, set_out)
 
 
 # ---------------------------------------------------------------------------
@@ -377,7 +382,27 @@ def _lookup_infer(op, block):
 EMBEDDING_GRAD_CHUNK = 3072
 
 
-@register_op("lookup_table_v2", infer=_lookup_infer)
+def _lookup_grad_maker(fwd_op: Operator, block: Block, helper):
+    """``is_sparse`` routes the table's gradient to
+    ``lookup_table_sparse_grad``, whose ``W@GRAD`` is a SELECTED_ROWS var
+    (the reference's LookupTableGradOp); a dense lookup keeps the auto
+    grad (and, on the card, EMBEDDING_GRAD_CHUNK)."""
+    if not fwd_op.attr("is_sparse", False):
+        return build_auto_grad_specs(fwd_op, block, helper.no_grad_set)
+    w_name = fwd_op.single_input("W")
+    v = block._find_var_recursive(w_name)
+    if v is None or v.stop_gradient or w_name in helper.no_grad_set:
+        return []
+    return [dict(
+        type="lookup_table_sparse_grad",
+        inputs={"W": [w_name], "Ids": list(fwd_op.input("Ids")),
+                "Out@GRAD": [grad_var_name(fwd_op.single_output("Out"))]},
+        outputs={"W@GRAD": [grad_var_name(w_name)]},
+        attrs={"padding_idx": fwd_op.attr("padding_idx", -1),
+               "__lookup_type__": fwd_op.type})]
+
+
+@register_op("lookup_table_v2", infer=_lookup_infer, grad=_lookup_grad_maker)
 def _lookup_table_v2(ctx: LowerContext, op: Operator):
     """On the card a lookup whose grad op differentiates it looks its ids
     up in chunks of EMBEDDING_GRAD_CHUNK, so every weight gradient comes
@@ -397,6 +422,79 @@ def _lookup_table_v2(ctx: LowerContext, op: Operator):
     if padding_idx is not None and padding_idx >= 0:
         out = out * (ids != padding_idx).unsqueeze(-1).to(out.dtype)
     ctx.set_output(op, "Out", out)
+
+
+def _lookup_sparse_grad_infer(op: Operator, block: Block):
+    w = in_var(op, block, "W")
+    set_out(op, block, "W@GRAD", w.shape, w.dtype,
+            type=VarType.SELECTED_ROWS)
+
+
+@register_op("lookup_table_sparse_grad", infer=_lookup_sparse_grad_infer,
+             grad=None)
+def _lookup_sparse_grad(ctx: LowerContext, op: Operator):
+    """W@GRAD as SelectedRows {rows: the flat ids, values: the flat
+    out-grad rows in W's dtype}: no [height, cols] tensor is made.  A
+    padding id's rows carry zeros (its lookup was masked).  A second
+    lookup of the same table adds its SelectedRows to the first's (the
+    grad op's ``__accumulate__``): the two concatenate.  A dead W@GRAD is
+    not computed."""
+    name = op.single_output("W@GRAD")
+    if name in ctx.dead:
+        return
+    w, ids = ctx.get_input(op, "W"), ctx.get_input(op, "Ids")
+    og = ctx.get_input(op, "Out@GRAD")
+    rows = ids.reshape(-1).long()
+    vals = og.reshape(rows.shape[0], w.shape[-1]).to(w.dtype)
+    pad = op.attr("padding_idx", -1)
+    if pad is not None and pad >= 0:
+        vals = vals * (rows != pad).unsqueeze(-1).to(vals.dtype)
+    value = SelectedRowsValue(rows, vals, w.shape[0])
+    if op.attr("__accumulate__", False) and name in ctx.env:
+        value = ctx.env[name] + value
+    ctx.env[name] = value
+
+
+# ---------------------------------------------------------------------------
+# concat / flatten2 (Wide&Deep's deep tower input)
+# ---------------------------------------------------------------------------
+
+def _concat_infer(op, block):
+    xs = [block.var(n) for n in op.input("X")]
+    axis = op.attr("axis", 0) % len(xs[0].shape)
+    out = list(xs[0].shape)
+    out[axis] = sum(v.shape[axis] for v in xs)
+    set_out(op, block, "Out", out, xs[0].dtype)
+
+
+@register_op("concat", infer=_concat_infer)
+def _concat(ctx, op):
+    axis = op.attr("axis", 0)
+    if op.single_input("AxisTensor"):
+        axis = int(ctx.get_input(op, "AxisTensor").reshape(()).item())
+    ctx.set_output(op, "Out", torch.cat(ctx.get_inputs(op, "X"), dim=axis))
+
+
+def _flatten2_infer(op, block):
+    """``layers.flatten``'s form: 2-D at ``axis`` (a -1 batch dim stays
+    -1)."""
+    x = in_var(op, block, "X")
+    axis = op.attr("axis", 1)
+    set_out(op, block, "Out",
+            [int(np.prod(x.shape[:axis])) if axis else 1,
+             int(np.prod(x.shape[axis:]))], x.dtype)
+    if op.output("XShape"):
+        set_out(op, block, "XShape", [0] + list(x.shape), x.dtype)
+
+
+@register_op("flatten2", infer=_flatten2_infer)
+def _flatten2(ctx, op):
+    x = ctx.get_input(op, "X")
+    axis = op.attr("axis", 1)
+    ctx.set_output(op, "Out", x.reshape(
+        math.prod(x.shape[:axis]) if axis else 1, -1))
+    if op.output("XShape"):
+        ctx.set_output(op, "XShape", x.new_zeros((0,)))
 
 
 # ---------------------------------------------------------------------------

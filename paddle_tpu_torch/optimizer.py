@@ -1,8 +1,12 @@
 """Static-graph optimizers: ``Optimizer``, ``SGDOptimizer``,
-``AdamOptimizer``, ``AdamW`` and ``RecomputeOptimizer``.
+``MomentumOptimizer``, ``AdamOptimizer``, ``AdamW``, ``AdagradOptimizer``
+and ``RecomputeOptimizer``.
 
-Counterpart of ``paddle_tpu/optimizer.py:34-152``, ``:217-227``,
-``:323-384`` and ``:604-641``.
+Counterpart of ``paddle_tpu/optimizer.py:34-152``, ``:217-254``,
+``:323-405`` and ``:604-641``.  ``lazy_mode`` on Adam / AdamW is kept
+and reaches the op (``"lazy_mode": True`` where it is set, nothing at the
+default, so a default program stays JSON-equal to the JAX package's);
+the JAX package accepts the flag and drops it.
 ``minimize(loss)`` = append_backward + clip (the optimizer's, else the
 program's from ``clip.set_gradient_clip``) + regularization + one
 optimizer op per parameter, with the accumulators (moments, beta powers)
@@ -19,8 +23,9 @@ from .framework.core import (OpRole, Program, Variable, default_main_program,
 from .framework.initializer import ConstantInitializer
 from .regularizer import append_regularization_ops
 
-__all__ = ["Optimizer", "SGD", "SGDOptimizer", "Adam", "AdamOptimizer",
-           "AdamW", "RecomputeOptimizer"]
+__all__ = ["Optimizer", "SGD", "SGDOptimizer", "Momentum",
+           "MomentumOptimizer", "Adam", "AdamOptimizer", "AdamW", "Adagrad",
+           "AdagradOptimizer", "RecomputeOptimizer"]
 
 
 class Optimizer:
@@ -129,16 +134,42 @@ class SGDOptimizer(Optimizer):
             outputs={"ParamOut": [param]})
 
 
+class MomentumOptimizer(Optimizer):
+    """Momentum SGD (the ``momentum`` op), optionally Nesterov."""
+    op_type = "momentum"
+
+    def __init__(self, learning_rate, momentum, use_nesterov=False,
+                 **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, param):
+        self._add_accumulator("velocity", param)
+
+    def _append_optimize_op(self, param, grad, lr):
+        v = self._get_accumulator("velocity", param)
+        return default_main_program().current_block().append_op(
+            "momentum",
+            inputs={"Param": [param], "Grad": [grad], "Velocity": [v],
+                    "LearningRate": [lr]},
+            outputs={"ParamOut": [param], "VelocityOut": [v]},
+            attrs={"mu": self._momentum,
+                   "use_nesterov": self._use_nesterov})
+
+
 class AdamOptimizer(Optimizer):
     """Adam with bias correction folded into the step size (the
-    reference's adam_op).  ``lazy_mode`` is accepted and, as in the JAX
-    package, has no effect on a dense gradient."""
+    reference's adam_op).  ``lazy_mode`` makes a SelectedRows gradient
+    update only the rows it touches (parameter and moments); it does
+    nothing to a dense gradient."""
     op_type = "adam"
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, lazy_mode=False, **kwargs):
         super().__init__(learning_rate, **kwargs)
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+        self._lazy_mode = bool(lazy_mode)
 
     def _create_accumulators(self, param):
         self._add_accumulator("moment1", param)
@@ -165,7 +196,7 @@ class AdamOptimizer(Optimizer):
                    "epsilon": self._epsilon, **self._extra_attrs()})
 
     def _extra_attrs(self):
-        return {}
+        return {"lazy_mode": True} if self._lazy_mode else {}
 
 
 class AdamW(AdamOptimizer):
@@ -184,7 +215,7 @@ class AdamW(AdamOptimizer):
         self._apply_decay_param_fun = apply_decay_param_fun
 
     def _extra_attrs(self):
-        return {"coeff": self._coeff}
+        return {**super()._extra_attrs(), "coeff": self._coeff}
 
     def _append_optimize_op(self, param, grad, lr):
         op = super()._append_optimize_op(param, grad, lr)
@@ -192,6 +223,30 @@ class AdamW(AdamOptimizer):
                 not self._apply_decay_param_fun(param.name):
             op.attrs["with_decay"] = False
         return op
+
+
+class AdagradOptimizer(Optimizer):
+    """Adagrad (the ``adagrad`` op): the moment sums squared gradients,
+    from ``initial_accumulator_value``."""
+    op_type = "adagrad"
+
+    def __init__(self, learning_rate, epsilon=1e-6,
+                 initial_accumulator_value=0.0, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self._epsilon = epsilon
+        self._initial = initial_accumulator_value
+
+    def _create_accumulators(self, param):
+        self._add_accumulator("moment", param, fill_value=self._initial)
+
+    def _append_optimize_op(self, param, grad, lr):
+        m = self._get_accumulator("moment", param)
+        return default_main_program().current_block().append_op(
+            "adagrad",
+            inputs={"Param": [param], "Grad": [grad], "Moment": [m],
+                    "LearningRate": [lr]},
+            outputs={"ParamOut": [param], "MomentOut": [m]},
+            attrs={"epsilon": self._epsilon})
 
 
 class RecomputeOptimizer:
@@ -236,4 +291,6 @@ class RecomputeOptimizer:
 
 
 SGD = SGDOptimizer
+Momentum = MomentumOptimizer
 Adam = AdamOptimizer
+Adagrad = AdagradOptimizer

@@ -51,6 +51,10 @@ own port, metrics dir, and ``PADDLE_TPU_REPLICA_ID`` env.
   repeatedly is as broken as one that crashes repeatedly).  The
   deadline arms only after the first successful health response of a
   life, so a successor paying its import/bind cost is never shot.
+  A ``/profilez`` capture holds the replica's GIL through the
+  profiler's stop and trace export: while the replica marks one
+  (``observatory.capture_waiver_until``), the deadline counts from the
+  end of its waiver, not from the last answer.
 
 * **Drain-aware rolling restart.** :meth:`rolling_restart` takes the
   fleet through a rollout ONE replica at a time: SIGTERM (the
@@ -106,7 +110,7 @@ import urllib.error
 import urllib.request
 from typing import Dict, List, Optional, Tuple
 
-from .. import blackbox, telemetry
+from .. import blackbox, observatory, telemetry
 from ..distributed.launch import spawn_process
 from ..flags import flag_value, register_flag
 from ..monitor import stat_add
@@ -575,6 +579,11 @@ class FleetSupervisor:
                 # blackholed replica must not stall the crash monitor
                 h = _healthz(url, timeout=min(1.0, interval))
                 now = time.monotonic()
+                # a /profilez capture's stop and export hold the
+                # replica's GIL: its mark moves the deadline's start
+                until = None if h is not None else \
+                    observatory.capture_waiver_until(rep.metrics_dir,
+                                                     proc.pid)
                 with self._lock:
                     if (self._closing.is_set() or rep.in_rollout
                             or rep.proc is not proc
@@ -586,8 +595,11 @@ class FleetSupervisor:
                     if h is not None:
                         rep.last_alive = now
                         continue
-                    hung = (rep.last_alive is not None
-                            and now - rep.last_alive > self._liveness_s)
+                    since = rep.last_alive
+                    if since is not None and until is not None:
+                        since = max(since, now + until - time.time())
+                    hung = (since is not None
+                            and now - since > self._liveness_s)
                     if not hung:
                         continue
                     stale_s = now - rep.last_alive

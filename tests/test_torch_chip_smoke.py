@@ -1489,3 +1489,150 @@ def test_a_failed_fleet_phase_prints_its_dead_replicas_logs(monkeypatch):
     assert "replica-1/replica.log" in shown and "EADDRINUSE" in shown
     assert "replica-2" not in shown
     assert lines[-1].endswith("2 replica log(s) showed a death")
+
+
+def test_wide_deep_phase_runs_the_criteo_layout():
+    """Phase 18 runs wide_deep_net's defaults (the Criteo layout) at batch
+    4096, uncut, with Adam 1e-3 over 6 steps."""
+    assert smoke.WIDE_DEEP == dict(num_sparse=26, num_dense=13,
+                                   vocab_size=1000001, embed_dim=10,
+                                   hidden=(400, 400, 400))
+    assert (smoke.WIDE_DEEP_BATCH, smoke.WIDE_DEEP_LR,
+            smoke.WIDE_DEEP_STEPS, smoke.WIDE_DEEP_ZIPF) == (4096, 1e-3, 6,
+                                                             1.1)
+    assert smoke.WIDE_DEEP_SERVE_BATCHES == (1, 64)
+
+
+def test_zipf_ids_are_seeded_skewed_and_in_range():
+    vocab = 1000001
+    draw = lambda: smoke.zipf_ids(np.random.RandomState(3), 106496, vocab,
+                                  np.random.RandomState(4).permutation(
+                                      vocab))
+    a, b = draw(), draw()
+    assert a.dtype == np.int64 and a.shape == (106496,)
+    np.testing.assert_array_equal(a, b)
+    assert a.min() >= 0 and a.max() < vocab
+    # Zipf(1.1): the hottest id takes ~1/8 of the draws
+    assert np.bincount(a).max() > 10000
+    feeds = smoke.wide_deep_feeds(smoke.WIDE_DEEP, 8, 2, 5)
+    assert feeds[0]["sparse_ids"].shape == (8, 26)
+    assert feeds[0]["dense_x"].shape == (8, 13)
+    assert set(np.unique(feeds[1]["label"])) <= {0.0, 1.0}
+
+
+def test_untouched_rows_are_the_ids_no_feed_looks_up():
+    feeds = [{"sparse_ids": np.array([[0, 3], [3, 5]])},
+             {"sparse_ids": np.array([[7, 0]])}]
+    np.testing.assert_array_equal(smoke.untouched_rows(feeds, 9),
+                                  [1, 2, 4, 6, 8])
+
+
+@pytest.mark.parametrize("is_sparse,clip,want", [
+    (False, None, 0), (True, None, 2), (True, "by_norm", 4),
+    (True, "global_norm", 4)])
+def test_merge_launches_reckon_each_selected_rows_reader(is_sparse, clip,
+                                                          want):
+    """Adam merges each sparse table's gradient once; a by-norm clip
+    merges it and Adam merges the clipped one; a global-norm clip
+    densifies each table's gradient at its square (once for both
+    operands) and at its scaling, and Adam gets a dense one.  The
+    reckoning is held to a CPU step's plain merges."""
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch.models import wide_deep_net
+
+    tpt.reset_unique_name()
+    main, startup = tpt.Program(), tpt.Program()
+    clips = {"by_norm": lambda: tpt.clip.GradientClipByNorm(1.0),
+             "global_norm": lambda: tpt.clip.GradientClipByGlobalNorm(1.0)}
+    with tpt.program_guard(main, startup):
+        net = wide_deep_net(num_sparse=3, vocab_size=50, embed_dim=2,
+                            hidden=(4,), is_sparse=is_sparse)
+        tpt.optimizer.AdamOptimizer(
+            1e-3, grad_clip=clips[clip]() if clip else None).minimize(
+                net["loss"])
+    assert smoke.merge_launches(main) == want
+    assert smoke.merge_launches(main, ["deep_embedding_w@GRAD"]) == \
+        want + is_sparse
+    from paddle_tpu_torch.ops.cuda import selected_rows
+
+    exe, scope = tpt.Executor(tpt.CPUPlace()), tpt.Scope()
+    exe.run(startup, scope=scope)
+    feed = smoke.wide_deep_feeds(dict(num_sparse=3, num_dense=13,
+                                      vocab_size=50), 8, 1, 3)[0]
+    calls = selected_rows.merge_rows_reference.calls
+    exe.run(main, feed=feed, fetch_list=[net["loss"]], scope=scope)
+    assert selected_rows.merge_rows_reference.calls - calls == want
+
+
+def _count_merges(tpt):
+    """A CPU run's plain merges, read as the kernel's launches."""
+    from paddle_tpu_torch.ops.cuda import selected_rows
+
+    def read(fa):
+        counts = smoke.Launches((0,) * 6)
+        counts.merge = selected_rows.merge_rows_reference.calls
+        return counts, 0, 0
+
+    def reset(fa):
+        selected_rows.merge_rows_reference.calls = 0
+    return read, reset
+
+
+def test_wide_deep_phase_rehearses_on_the_cpu(monkeypatch):
+    """Phase 18 on the CPU at a tiny width (4 slots, 1000 ids, embed 4,
+    hidden (16, 16), batch 64, 3 steps): the dense, sparse and lazy lives
+    (their merges, here the plain version's, counted against the
+    reckoning), sparse against dense, the CPU life, the second lazy life
+    and the eager one bit for bit, untouched rows, and serving at batches
+    1 and 2; the card, the capture and the profile are stubbed."""
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch import device, inference
+    from paddle_tpu_torch.framework import executor
+    from paddle_tpu_torch.ops import registry
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    cpu = torch.device("cpu")
+    for mod in (device, executor, inference):
+        if hasattr(mod, "resolve_device"):
+            monkeypatch.setattr(mod, "resolve_device",
+                                lambda place=None: cpu)
+    for name in ("synchronize", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: None)
+    info = executor.Executor.cache_info
+
+    def captured(self):
+        out = info(self)
+        for e in out["entries"]:
+            e["aot"] = True
+        return out
+    monkeypatch.setattr(executor.Executor, "cache_info", captured)
+    monkeypatch.setattr(smoke, "WIDE_DEEP", dict(
+        num_sparse=4, num_dense=13, vocab_size=1000, embed_dim=4,
+        hidden=(16, 16)))
+    monkeypatch.setattr(smoke, "WIDE_DEEP_BATCH", 64)
+    monkeypatch.setattr(smoke, "WIDE_DEEP_STEPS", 3)
+    monkeypatch.setattr(smoke, "WIDE_DEEP_SERVE_BATCHES", (1, 2))
+    read, reset = _count_merges(tpt)
+    monkeypatch.setattr(smoke, "read_counts", read)
+    monkeypatch.setattr(smoke, "reset_counts", reset)
+    monkeypatch.setattr(smoke, "forward_products", lambda main: 0)
+    profiled = []
+    monkeypatch.setattr(smoke, "profile_wide_deep",
+                        lambda *a: profiled.append(a[-1]))
+    monkeypatch.setattr(smoke, "WIDE_DEEP_RUN", {})
+    monkeypatch.setattr(smoke, "log", lambda msg: None)
+    seed = registry._OP_SEED[0]
+    paths = smoke.wide_deep_flagship(tpt, fa, "a card")
+    assert registry._OP_SEED[0] == seed
+    assert sorted(paths) == ["wide_deep_dense", "wide_deep_lazy",
+                             "wide_deep_serving", "wide_deep_sparse"]
+    # two tables: one merge each a step where they are sparse
+    assert [paths[f"wide_deep_{k}"].merge
+            for k in ("dense", "sparse", "lazy")] == [0, 6, 6]
+    r = smoke.WIDE_DEEP_RUN
+    assert r["merge_launches_a_step"] == dict(dense=0, sparse=2, lazy=2)
+    assert r["sparse_vs_dense"]["loss_rel"] <= smoke.WIDE_DEEP_LOSS_RTOL
+    assert r["card_vs_cpu"]["loss_rel"] == 0.0
+    assert r["serving"]["batched_equals_single"]
+    assert sorted(r["replay_ms"]) == ["dense", "lazy", "sparse"]
+    assert profiled == ["wide_deep_lazy"]

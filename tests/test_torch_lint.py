@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no module under paddle_tpu_torch/ (its
 subpackage tools/ included: the port's load generator, chaos harness
 and trace_export), and not chip_smoke.py, time_fp32.py, time_step.py,
-probe_decode_rows.py, probe_fetch.py, probe_serving_host.py or
+probe_decode_rows.py, probe_fetch.py, probe_profile_records.py,
+probe_profilez.py, probe_replica_start.py, probe_serving_host.py or
 probe_train_guard.py, imports jax or the JAX package paddle_tpu."""
 import ast
 import os
@@ -18,6 +19,9 @@ def _port_files():
              os.path.join(REPO, "time_step.py"),
              os.path.join(REPO, "probe_decode_rows.py"),
              os.path.join(REPO, "probe_fetch.py"),
+             os.path.join(REPO, "probe_profile_records.py"),
+             os.path.join(REPO, "probe_profilez.py"),
+             os.path.join(REPO, "probe_replica_start.py"),
              os.path.join(REPO, "probe_serving_host.py"),
              os.path.join(REPO, "probe_train_guard.py")]
     for root, _dirs, names in os.walk(os.path.join(REPO, "paddle_tpu_torch")):

@@ -539,6 +539,48 @@ def test_capture_profile_disabled_and_busy(tmp_path):
     assert not observatory._capture_active[0]
 
 
+def test_capture_marks_itself_while_it_runs(tmp_path, monkeypatch):
+    """A capture leaves CAPTURE_MARK (its pid, start and length) in
+    FLAGS_metrics_dir while it runs and removes it after, also when the
+    profiler fails; capture_waiver_until reads it for that pid only."""
+    pt.set_flags({"FLAGS_metrics_dir": str(tmp_path)})
+    mark = os.path.join(str(tmp_path), observatory.CAPTURE_MARK)
+    seen = []
+
+    def profile_for(sec, target):
+        with open(mark) as f:
+            seen.append(json.load(f))
+        seen.append(observatory.capture_waiver_until(str(tmp_path),
+                                                     os.getpid()))
+        seen.append(observatory.capture_waiver_until(str(tmp_path),
+                                                     os.getpid() + 1))
+        os.makedirs(target, exist_ok=True)
+
+    monkeypatch.setattr(observatory, "_profile_for", profile_for)
+    observatory.capture_profile(0.5)
+    doc, until, other = seen
+    assert doc["pid"] == os.getpid() and doc["sec"] == 0.5
+    assert until == doc["started"] + \
+        observatory.CAPTURE_WAIVER_FACTOR * 0.5
+    assert other is None
+    assert not os.path.exists(mark)
+    assert observatory.capture_waiver_until(str(tmp_path),
+                                            os.getpid()) is None
+
+    def broken(sec, target):
+        assert os.path.exists(mark)
+        raise RuntimeError("profiler backend failure")
+
+    monkeypatch.setattr(observatory, "_profile_for", broken)
+    with pytest.raises(RuntimeError):
+        observatory.capture_profile(0.05)
+    assert not os.path.exists(mark)
+    with open(mark, "w") as f:
+        f.write("{not json")
+    assert observatory.capture_waiver_until(str(tmp_path),
+                                            os.getpid()) is None
+
+
 def _assert_conserved(led: UsageLedger):
     cons = led.conservation()
     assert set(cons) == set(COST_FIELDS)

@@ -27,7 +27,7 @@ import numpy as np
 import pytest
 
 import paddle_tpu_torch as tpt
-from paddle_tpu_torch import fault, promtext, telemetry
+from paddle_tpu_torch import fault, observatory, promtext, telemetry
 from paddle_tpu_torch.monitor import stat_get
 from paddle_tpu_torch.ops.registry import reset_op_seed
 from paddle_tpu_torch.serving import (FleetSupervisor, GenerationEngine,
@@ -810,6 +810,43 @@ def test_sigstop_replica_router_reroutes_and_supervisor_recovers(fleet):
         fleet._liveness_s = liveness
         server.close()
         router.close()
+
+
+def test_liveness_deadline_waits_out_a_marked_profile_capture(fleet):
+    """A replica that marks a /profilez capture in its metrics dir (as
+    observatory.capture_profile does; torch.profiler's stop and export
+    hold its GIL) and goes silent is not SIGKILLed before the capture's
+    waiver plus the liveness deadline; past them it is, and respawns."""
+    liveness = fleet._liveness_s
+    fleet._liveness_s = 1.2
+    victim = fleet._replicas[0]
+    old_pid = victim.proc.pid
+    kills = victim.hung_kills
+    sec = 1.5
+    mark = os.path.join(victim.metrics_dir, observatory.CAPTURE_MARK)
+    # the deadline arms at the watchdog's first answer from this life
+    deadline = time.monotonic() + 30.0
+    while victim.last_alive is None and time.monotonic() < deadline:
+        time.sleep(0.1)
+    assert victim.last_alive is not None
+    try:
+        with open(mark, "w") as f:
+            json.dump({"pid": old_pid, "started": time.time(),
+                       "sec": sec}, f)
+        t0 = time.monotonic()
+        kill(old_pid, signal.SIGSTOP)
+        waiver = observatory.CAPTURE_WAIVER_FACTOR * sec
+        while time.monotonic() - t0 < waiver:
+            assert victim.hung_kills == kills and victim.proc.pid == old_pid
+            time.sleep(0.1)
+        wait_respawned(victim, old_pid, hung_kill=True)
+        assert victim.hung_kills == kills + 1
+        assert victim.last_death["attribution"] == "hung_kill"
+    finally:
+        fleet._liveness_s = liveness
+        kill(old_pid, signal.SIGKILL)
+        if os.path.exists(mark):
+            os.remove(mark)
 
 
 GEN_TINY = dict(vocab_size=32, hidden=16, num_layers=1, num_heads=2,
