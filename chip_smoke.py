@@ -58,7 +58,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    gives the bits of its plain version run on the CPU on the same inputs
    and the same bits on a second launch; its wrapper's and kernel's
    times beside the plain version's, torch's index_add_ of the same sums
-   and the bound.
+   and the bound.  Then the forward-only fp32 convolution route
+   (nn_ops.conv2d_rows: an im2col copy, then the product kernel; every
+   served convolution) at ResNet-50's shapes at a batch of 8 (the stem's
+   7 x 7 / 2 at 224, a 3 x 3 at 56 with 64 channels, a 1 x 1 at 14 with
+   1024, conv3_x's 3 x 3 / 2): every image's output bit-equal alone, in
+   the batch and in a permuted batch; within gemm.tolerance of its plain
+   version (the same im2col product by gemm.matmul_reference), and so is
+   F.conv2d with TF32 off under the port's cuDNN settings, while
+   F.conv2d with TF32 allowed (the control) is over it; the training
+   route's grads (nn_ops.conv2d_library, the caller allowing TF32)
+   bit-equal to cuDNN's backward with TF32 off, cuDNN's TF32 backward
+   (the control) outside float32 limits of the grads in float64 in one
+   grad at least; the route's event and device time beside F.conv2d's,
+   the plain version's and the bound.
    Each source picks its kernel by dtype: bfloat16 and float16 run the
    tensor-core kernels (one template on the 16-bit type), float32 the
    CUDA-core ones (fa_fwd_f32_kernel, fa_dkv_f32_kernel,
@@ -638,6 +651,47 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    dense) with no plain call and no realigned operand; a profiled
    replay of the lazy step gives its device busy and idle share and top
    kernels.  The "wide_deep:" JSON line holds the numbers.
+19. LeNet-5 and ResNet-50 (run right after phase 18, where the profiler
+   still sees the card).  Weights from the startup seed, feeds from
+   fixed seeds (no dataset in the repository: synthetic images).
+   a. LeNet-5 (build_mnist_train: [64, 1, 28, 28], 10 classes) with the
+      reference book's recognize_digits recipe (batch 64, Adam 1e-3,
+      fp32, TF32 off) on tests/test_book.py's separable digits, 6 steps:
+      the card against the port's CPU run from the card's startup values
+      (losses within 1e-5 relative, accuracies equal, every persistable
+      within 1e-4 of its norm, a parameter's worst element within 2 lr a
+      step), the life again in a fresh executor and scope and with every
+      step eager, both bit for bit; the loss falls; then the prediction
+      saved and served by a Predictor at batches 1 and 64: each row alone
+      gives its row of the batch bit for bit, within 1e-5 of a CPU
+      Predictor, the product kernel launched 4 times a request (2
+      convolutions, 2 fcs).
+   b. ResNet-50 (He et al. 2016, Table 1: depth 50, 224 x 224, 1000
+      classes), fp32, Momentum 0.1 / 0.9, batch 2, 3 steps, card against
+      CPU: step 1's loss within 1e-4 relative, every parameter's grad
+      within 0.1 of its norm (relu masks flip where the two sides'
+      forwards round a value near 0 apart), the parameters after it
+      within 2 lr and each of the 53 moving means and variances within
+      1e-4 of its norm; the later steps, chaotic at lr 0.1, finite and
+      logged beside a CPU life whose stem filter is nudged by 1e-6.
+   c. bench.py's ResNet-50 leg (_run_resnet50_once: batch 64, bf16
+      AMP, Momentum 0.1 / 0.9, uniform images and labels in [0, 1000)),
+      no cut: a captured life of 6 steps against a life with every step
+      eager and a second captured life in a fresh executor and scope,
+      bit for bit in every loss and persistable (the moving statistics
+      among them); the median of 10 replays and its images/s, a profiled
+      replay's busy and idle share and top kernels, the eager peak
+      (beside its reckoning, printed before the run) and the graph pool.
+   d. ResNet-50's fp32 is_test program on 19c's startup weights (after
+      6 steps at lr 0.1 the moving statistics lag the batches' and the
+      is_test logits reach ~1e11) served at batches 1 and 8 as in a (54
+      product launches a request, 53 of them the convolution route's
+      own count), each row within 1e-4 of its largest logit of a CPU
+      Predictor's, the Predictor's moving statistics unchanged.
+   A training step launches nothing counted (its convolutions are
+   cuDNN's, with TF32 off and deterministic algorithms set by the port
+   around each call, its products cuBLAS's).  The "vision:" JSON line
+   holds the numbers.
 
 Every profiled replay (phases 4, 5, 6, 9, 15, 16 and 17) also holds the
 profiler's launches of the forward, dK/dV and dQ kernels against what the
@@ -675,7 +729,9 @@ recompute_llama_plain and recompute_llama (phase 15's lives),
 training_fp16 and llama_fp16 (16a's and 16b's flagships),
 minilm_serving, minilm_parity (card steps) and minilm_flagship (17b,
 17c), seq128_unfused and seq128_serving (17d), wide_deep_dense,
-wide_deep_sparse, wide_deep_lazy and wide_deep_serving (18a-c, 18e); and
+wide_deep_sparse, wide_deep_lazy and wide_deep_serving (18a-c, 18e),
+lenet_training, lenet_serving, resnet50_parity, resnet50_bench and
+resnet50_serving (19a-d); and
 fleet_serving,
 fleet_generation and chaos_fleet (12a, 12b, 13b's probe fleet), which
 count kernel records in a replica's /profilez trace instead (the
@@ -705,13 +761,18 @@ torch.nn.functional.rms_norm's; the twelfth the SelectedRows merge
 kernel (selected_rows_merge): its row the deep table's [106496, 10]
 merge (the wrapper's time: sort, scan and kernel; "kernel_device_ms" the
 kernel alone), "library_ms" torch's index_add_ of the same sums,
-"launches" phase 18c's lazy life's, "shapes" both tables' widths. The
+"launches" phase 18c's lazy life's, "shapes" both tables' widths; the
+thirteenth the forward-only convolution route (conv2d_rows, on
+gemm_f32.cu): its row conv2_x's 3 x 3 at a batch of 8, "library_ms"
+F.conv2d's with TF32 off, "launches" the route's own count in 19d (53 a
+request), "shapes" phase 2's four ResNet-50 convolutions. The
 last lines are the card's name and
 power limit, one {"kernels": ...} JSON line, and {"ok": true, "device":
 {...}}. Before them, one "compiled step:" JSON line holds each profiled
 path's wall ms, device busy ms, idle share and host launches
 (serving_b4, bert_fp32, bert_flagship, llama_flagship, bert_fp16,
-llama_fp16, minilm_flagship, seq128_unfused) and the attention kernels'
+llama_fp16, minilm_flagship, seq128_unfused, resnet50_bench) and the
+attention kernels'
 element types and instantiations each ran, the run_async
 windows' ms/step and tokens/s, whether captured = eager came out
 bit-equal and the memory with two captured Llama entries
@@ -1852,17 +1913,21 @@ class Launches(tuple):
     """The six attention kernels' launches (a tuple, as the gates compare
     it), with the product kernel's, the RMSNorm kernel's and the
     SelectedRows merge kernel's beside them in ``.gemm``, ``.rms_norm``
-    and ``.merge``."""
+    and ``.merge``, and in ``.conv`` those of the product kernel that the
+    forward-only convolution route (nn_ops.conv2d_rows) made."""
     gemm = 0
     rms_norm = 0
     merge = 0
+    conv = 0
 
 
 def reset_counts(fa):
+    from paddle_tpu_torch.ops import nn_ops
     from paddle_tpu_torch.ops.cuda import gemm, rms_norm, selected_rows
 
     for w in kernel_wrappers(fa) + (gemm.matmul, rms_norm.rms_norm_rows,
-                                    selected_rows.merge_rows):
+                                    selected_rows.merge_rows,
+                                    nn_ops.conv2d_rows):
         w.launches = 0
     for w in tma_wrappers(fa):
         w.realigned = 0
@@ -1872,15 +1937,18 @@ def reset_counts(fa):
 
 def read_counts(fa):
     """(launches of the six kernels, with the product kernel's in
-    ``.gemm``, the RMSNorm kernel's in ``.rms_norm`` and the merge
-    kernel's in ``.merge``; plain-version calls; operands realigned for
-    TMA): a path must leave the last two at 0."""
+    ``.gemm`` (the convolution route's share of them in ``.conv``), the
+    RMSNorm kernel's in ``.rms_norm`` and the merge kernel's in
+    ``.merge``; plain-version calls; operands realigned for TMA): a path
+    must leave the last two at 0."""
+    from paddle_tpu_torch.ops import nn_ops
     from paddle_tpu_torch.ops.cuda import gemm, rms_norm, selected_rows
 
     counts = Launches(w.launches for w in kernel_wrappers(fa))
     counts.gemm = gemm.matmul.launches
     counts.rms_norm = rms_norm.rms_norm_rows.launches
     counts.merge = selected_rows.merge_rows.launches
+    counts.conv = nn_ops.conv2d_rows.launches
     return (counts, sum(p.calls for p in plain_versions(fa)),
             sum(w.realigned for w in tma_wrappers(fa)))
 
@@ -4937,21 +5005,39 @@ def dispatch_gate(events, path, what):
     return dispatches
 
 
-def profilez_events(url, sec=FLEET_PROFILE_S):
-    """GET `url`/profilez?sec=N on a replica (its handler thread traces
-    the whole process with torch.profiler for N seconds and writes
+def profilez_events(url, sup, sec=FLEET_PROFILE_S):
+    """GET `url`/profilez?sec=N on a replica of `sup` (its handler thread
+    traces the whole process with torch.profiler for N seconds and writes
     trace.json into the replica's metrics dir): the trace's events.  Logs
-    the round trip and the replica's longest /healthz gap meanwhile (the
-    profiler's stop and export hold its GIL; the supervisor's liveness
-    deadline waits out the capture's mark, observatory.CAPTURE_MARK)."""
-    gaps = HealthGaps([url])
+    the round trip and the replica's longest /healthz silence meanwhile as
+    the supervisor's liveness watchdog polls (the profiler's stop and
+    export hold its GIL; the deadline waits out the capture's mark,
+    observatory.CAPTURE_MARK).  A GET that fails raises naming what
+    became of the replica."""
+    gaps = HealthGaps([url], timeout=WATCHDOG_POLL_S)
+    rep = next(r for r in sup._replicas if r.url == url)
+    proc, kills = rep.proc, rep.hung_kills
     t0 = time.monotonic()
     try:
         status, body = get(f"{url}/profilez?sec={sec}", timeout=300)
+    except OSError as e:
+        time.sleep(2.0)
+        stages = capture_stages(rep.log_path)
+        raise AssertionError(
+            f"/profilez?sec={sec} on {url} failed after "
+            f"{time.monotonic() - t0:.2f} s ({type(e).__name__}: {e}): "
+            f"replica {rep.idx} pid {proc.pid} rc {proc.poll()}, hung kills "
+            f"{rep.hung_kills - kills}, last death "
+            f"{json.dumps(rep.last_death, default=str)[:600]}; its last "
+            f"capture stages {stages[-4:]}") from e
     finally:
         gap = gaps.stop()
+        stages = [ln.rsplit(": ", 1)[-1]
+                  for ln in capture_stages(rep.log_path)[-4:]]
         log(f"  /profilez?sec={sec} on {url}: round trip "
-            f"{time.monotonic() - t0:.2f} s, longest /healthz gap {gap} s")
+            f"{time.monotonic() - t0:.2f} s, longest /healthz silence "
+            f"{gap} s (polls of {WATCHDOG_POLL_S} s), the replica's "
+            f"stages {stages}")
     doc = json.loads(body)
     if status != 200 or "trace.json" not in doc.get("files", []):
         raise AssertionError(f"/profilez on {url}: {status} {doc}")
@@ -4959,14 +5045,32 @@ def profilez_events(url, sec=FLEET_PROFILE_S):
         return json.load(f).get("traceEvents", [])
 
 
+# how long the supervisor's liveness watchdog waits for a /healthz
+# answer at its 5 s default (serving/fleet.py _liveness_loop): a slower
+# answer is silence to it
+WATCHDOG_POLL_S = 1.0
+
+
+def capture_stages(log_path):
+    """The lines a replica's log holds of its /profilez captures' stages
+    (observatory._profile_for: started, recorded, stopped, exported,
+    each with its seconds from the start), oldest first."""
+    try:
+        with open(log_path, errors="replace") as f:
+            return [ln.strip() for ln in f if "profile capture" in ln]
+    except OSError:
+        return []
+
+
 class HealthGaps:
     """Polls each added URL's /healthz every 100 ms on a thread of its
     own and keeps, per URL, the longest gap between two answers (after
-    its first): what the supervisor's liveness deadline would see."""
+    its first), an answer later than `timeout` counting as none."""
 
-    def __init__(self, urls=()):
+    def __init__(self, urls=(), timeout=10.0):
         import threading
 
+        self.timeout = timeout
         self.last, self.gap_s = {}, {}
         for u in urls:
             self.add(u)
@@ -4982,7 +5086,7 @@ class HealthGaps:
         while not self._stop.is_set():
             for u in list(self.last):
                 try:
-                    get(u + "/healthz", timeout=10)
+                    get(u + "/healthz", timeout=self.timeout)
                 except OSError:
                     continue
                 now = time.monotonic()
@@ -5318,7 +5422,7 @@ def fleet_serving(workdir, second_dir, feeds, want, want_second,
             # a /profilez trace of replica 0 while traffic runs
             stop = background_traffic(server.url, feeds, want)
             time.sleep(0.3)
-            events = profilez_events(urls[0])
+            events = profilez_events(urls[0], sup)
             traffic_gate(stop(), "traffic while profiling")
             records = trace_records(events)
             out["trace_records"] = records
@@ -5588,7 +5692,7 @@ def fleet_generation(gen_second_dir, swapped_tokens, loadgen_dir):
 
             # a /profilez trace of the prefill replica while prompts of
             # the longest length, each new (no prefix hit), are prefilled
-            records, n_dispatches = profile_prefills(server.url, urls[0])
+            records, n_dispatches = profile_prefills(server.url, urls[0], sup)
             out["pair"] = dict(
                 startup_s={"prefill": ready[0], "decode": ready[1]},
                 startup_healthz_gap_s=gap,
@@ -5625,9 +5729,9 @@ def fleet_generation(gen_second_dir, swapped_tokens, loadgen_dir):
     return out["pair"]["trace_records"]
 
 
-def profile_prefills(url, prefill_url):
+def profile_prefills(url, prefill_url, sup):
     """The kernel records of a /profilez trace of the prefill replica
-    taken while FLEET_PROFILE_CLIENTS clients send /generate requests
+    (of `sup`) taken while FLEET_PROFILE_CLIENTS clients send /generate requests
     through the router at `url`, each a new prompt of the longest
     GEN_PROMPTS length (a new prompt has no prefix hit, so its whole
     prefill runs on kernel #4), held to one prefill a graph replay
@@ -5648,7 +5752,7 @@ def profile_prefills(url, prefill_url):
 
     joins = [in_background(client) for _ in range(FLEET_PROFILE_CLIENTS)]
     time.sleep(0.5)
-    events = profilez_events(prefill_url,
+    events = profilez_events(prefill_url, sup,
                              sec=FLEET_PREFILL_TRACE * FLEET_PROFILE_S)
     stop.set()
     for j in joins:
@@ -5727,6 +5831,12 @@ CHAOS_SEED = 41
 # replicas, so at the harness's 2 ms (one H100, ~93 requests/s) none of
 # 427 poisoned requests shared a batch, and none was bisected
 CHAOS_ENGINE = ("--workers", "1", "--max-delay-ms", "10")
+# a chaos replica's batch window holds this many of the paced arrivals
+# that reach it (the router spreads the harness's rate over
+# CHAOS_REPLICAS), so a poisoned request has batchmates to be bisected
+# from at whatever rate the probe set: at 64 qps a 10 ms window held no
+# batch of two (0 bisections of 282 poisoned requests, H100 host)
+CHAOS_WINDOW_ARRIVALS = 2
 # the closed-loop probe that sets the harness's rate and forward timeout:
 # requests, clients
 CHAOS_PROBE = (256, 32)
@@ -6083,7 +6193,7 @@ def chaos_probe(model, model_dir):
             join = in_background(traffic)
             time.sleep(0.3)
             try:
-                events = profilez_events(urls[0])
+                events = profilez_events(urls[0], sup)
             finally:
                 stop.set()
             bg = join()
@@ -6163,6 +6273,25 @@ def chaos_gate(report):
     return bad
 
 
+def chaos_batch_window_ms(qps):
+    """The chaos fleets' batch window (--max-delay-ms) at `qps`:
+    CHAOS_ENGINE's, or CHAOS_WINDOW_ARRIVALS arrivals a replica where
+    that is longer."""
+    engine = CHAOS_ENGINE[CHAOS_ENGINE.index("--max-delay-ms") + 1]
+    return max(float(engine),
+               CHAOS_WINDOW_ARRIVALS * CHAOS_REPLICAS * 1e3 / qps)
+
+
+def chaos_windowed(model, window_ms):
+    """A copy of the chaos PredictModel `model` whose replicas hold their
+    batches `window_ms` (the model's arguments come last: they win)."""
+    import copy
+
+    out = copy.copy(model)
+    out.argv = list(model.argv) + ["--max-delay-ms", f"{window_ms:.3f}"]
+    return out
+
+
 def chaos_flagship(fa, model, settings):
     """13b: run_chaos with every port scenario at full width: the shared
     and the hot_swap / noisy_neighbor fleets of CHAOS_REPLICAS BERT-base
@@ -6172,9 +6301,14 @@ def chaos_flagship(fa, model, settings):
     set to 0 before and read after (the in-process engines and
     hot_swap's fresh predictor): no plain call, nothing realigned, the
     prefill kernel (#4), the product and RMSNorm kernels launched.  The
-    hard gates of chaos_gate.  Returns the launches."""
+    replicas hold batches chaos_batch_window_ms(qps).  The hard gates of
+    chaos_gate.  Returns the launches."""
     from paddle_tpu_torch.tools import chaos
 
+    window_ms = chaos_batch_window_ms(settings["qps"])
+    model = chaos_windowed(model, window_ms)
+    log(f"  13b batch window {window_ms:.3f} ms ({CHAOS_WINDOW_ARRIVALS} "
+        f"arrivals a replica at {settings['qps']} qps)")
     reset_counts(fa)
     t0 = time.perf_counter()
     with fleet_workdir("chip_smoke_chaos_", "13b") as fd:
@@ -6195,7 +6329,7 @@ def chaos_flagship(fa, model, settings):
             "torn_responses", "usage_conservation_delta",
             "hog_attribution_ratio", "alerts")
     CHAOS["run"] = dict(
-        seconds=seconds, settings=settings,
+        seconds=seconds, settings=settings, batch_window_ms=window_ms,
         availability_pct=report["availability_pct"],
         p99_under_fault_ms=report["p99_under_fault_ms"],
         totals=report["totals"], errors=report["errors"], ok=report["ok"],
@@ -7267,8 +7401,10 @@ def serving_launches(main):
 
 def forward_products(main):
     """A served request's launches of the product kernel: one a mul or
-    matmul op (every forward-only fp32 product on the card)."""
-    return sum(op.type in ("mul", "matmul") for op in main.global_block().ops)
+    matmul op and one a convolution (im2col, then one product; every
+    forward-only fp32 product on the card)."""
+    return sum(op.type in ("mul", "matmul", "conv2d", "depthwise_conv2d")
+               for op in main.global_block().ops)
 
 
 def bert_serving_check(tpt, fa, what, cfg, use_flash, workdir):
@@ -7560,13 +7696,16 @@ WIDE_DEEP_SERVE_BATCHES = (1, 64)
 # arithmetic with sums in other orders: PyTorch's chunked embedding
 # backward against the merge kernel's sequential sums (18b), cuBLAS
 # against MKL in the MLP's fp32 products (18c), ~1e-7 to 1e-6 relative a
-# sum.  Over 6 Adam steps that keeps every loss within WIDE_DEEP_LOSS_RTOL
-# relative and every persistable within WIDE_DEEP_STATE_RTOL of its norm
+# sum.  Over 6 Adam steps that keeps every loss within LIFE_LOSS_RTOL
+# relative and every persistable within LIFE_STATE_RTOL of its norm
 # (||got - want|| / ||want||); a weight whose gradient sums to nearly 0
 # may take Adam's step of either sign, so a parameter's worst element is
-# held to 2 lr a step.  Everything else is held bit for bit.
-WIDE_DEEP_LOSS_RTOL = 1e-5
-WIDE_DEEP_STATE_RTOL = 1e-4
+# held to 2 lr a step.  Everything else is held bit for bit.  Phase 19a
+# (LeNet card vs CPU) holds its lives to the same pair: it too is 6 fp32
+# Adam steps at lr 1e-3 whose two sides differ only in the order of their
+# sums, and Adam's normalised step leaves a gap of that rounding's size.
+LIFE_LOSS_RTOL = 1e-5
+LIFE_STATE_RTOL = 1e-4
 # serving on the card against a CPU Predictor: logits of a 400-wide fp32
 # MLP's products summed in other orders
 WIDE_DEEP_SERVE_ATOL = 1e-5
@@ -7657,18 +7796,23 @@ def build_wide_deep(tpt, is_sparse, lazy, op_seed):
     return main, startup, net["loss"]
 
 
-def wide_deep_life(tpt, fa, what, main, startup, loss, feeds, start=None,
-                   eager=False, device=None):
+def training_life(tpt, fa, what, main, startup, fetch, feeds, start=None,
+                  eager=False, device=None, keep=False):
     """One life of `feeds` steps: a fresh executor and scope on `device`
     (the card by default) run `startup` (on the CPU its values come from
-    `start`, a dict of the card's startup tensors), then each step
-    (`eager`: every step op by op, never captured).  On the card the
-    kernel counts are read from 0 around the steps: the plain versions'
-    calls and realigned operands must stay 0 and the merge kernel's
-    launches must be merge_launches(main) a step.  Returns (losses,
-    {persistable: tensor}, startup state, per-step wall ms, launches)."""
+    `start`, a dict of the card's startup tensors), then each step,
+    fetching `fetch` (a var or a list, the loss first; `eager`: every
+    step op by op, never captured).  On the card the kernel counts are
+    read from 0 around the steps: no attention kernel may launch, the
+    plain versions' calls and realigned operands must stay 0, the merge
+    kernel's launches must be merge_launches(main) a step, and the step
+    must be captured.  Returns (losses, {persistable: tensor}, startup
+    state, per-step wall ms, launches, per-step fetches as numpy arrays,
+    the first step's device peak GiB, the graph pool's bytes), and with
+    `keep` the executor and scope too (left open)."""
     import torch
 
+    fetch = list(fetch) if isinstance(fetch, (list, tuple)) else [fetch]
     names = [v.name for v in main.list_vars() if v.persistable]
     on_cpu = device is not None and device.type == "cpu"
     exe = tpt.Executor(tpt.CPUPlace() if on_cpu else None)
@@ -7679,17 +7823,22 @@ def wide_deep_life(tpt, fa, what, main, startup, loss, feeds, start=None,
             scope.find_var(n).copy_(start[n])
     first = {n: scope.find_var(n).clone() for n in names}
     if not on_cpu:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         reset_counts(fa)
-    losses, wall = [], []
-    for feed in feeds:
+    outs, wall, peak = [], [], None
+    for step, feed in enumerate(feeds):
         if not on_cpu:
             torch.cuda.synchronize()
         t = time.perf_counter()
-        out = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+        out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
                       use_program_cache=not eager)
         wall.append((time.perf_counter() - t) * 1e3)
-        losses.append(float(np.ravel(out[0])[0]))
-    counts = None
+        outs.append([np.asarray(x).copy() for x in out])
+        if step == 0 and not on_cpu:
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(np.ravel(o[0])[0]) for o in outs]
+    counts = pool = None
     if not on_cpu:
         counts, plain, realigned = read_counts(fa)
         want = merge_launches(main) * len(feeds)
@@ -7701,7 +7850,9 @@ def wide_deep_life(tpt, fa, what, main, startup, loss, feeds, start=None,
             raise AssertionError(f"{what}: merge launches {counts.merge} "
                                  f"(want {want}), plain {plain}, realigned "
                                  f"{realigned}, attention {tuple(counts)}")
-        if not eager and not exe.cache_info()["entries"][-1]["aot"]:
+        info = exe.cache_info()["entries"][-1]
+        pool = info["manifest"]
+        if not eager and not info["aot"]:
             raise AssertionError(f"{what}: the step was never captured")
     else:
         log(f"  {what}: losses {', '.join(f'{x:.7f}' for x in losses)}; "
@@ -7709,14 +7860,17 @@ def wide_deep_life(tpt, fa, what, main, startup, loss, feeds, start=None,
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{what}: non-finite losses {losses}")
     state = {n: scope.find_var(n) for n in names}
+    life = (losses, state, first, wall, counts, outs, peak, pool)
+    if keep:
+        return life, exe, scope
     exe.close()
-    return losses, state, first, wall, counts
+    return life
 
 
 def state_gap(got, want, what, params, lr_sum):
-    """Holds two lives' persistables to WIDE_DEEP_STATE_RTOL of each
-    tensor's norm and a parameter's worst element to 2 * lr_sum; returns
-    the worst relative gap."""
+    """Holds two lives' persistables to LIFE_STATE_RTOL of each tensor's
+    norm and a parameter's worst element to 2 * lr_sum; returns the worst
+    relative gap."""
     worst, worst_name = 0.0, None
     for n, w in want.items():
         g = got[n].to(w.device).double()
@@ -7726,7 +7880,7 @@ def state_gap(got, want, what, params, lr_sum):
         rel = float(d.norm()) / norm if norm > 0 else float(d.norm())
         if rel > worst:
             worst, worst_name = rel, n
-        if rel > WIDE_DEEP_STATE_RTOL or (
+        if rel > LIFE_STATE_RTOL or (
                 n in params and float(d.abs().max()) > 2 * lr_sum):
             raise AssertionError(f"{what}: {n} apart by {rel:.3e} of its "
                                  f"norm, max|d| {float(d.abs().max()):.3e}")
@@ -7755,15 +7909,19 @@ def check_untouched(state, first, rows, what):
 
 
 def lives_equal(a, b, what):
-    """Bit-equality of two lives' losses and persistables."""
+    """Bit-equality of two training_life lives' fetches and
+    persistables."""
     import torch
 
-    la, sa = a[0], a[1]
-    lb, sb = b[0], b[1]
+    fetches = all(x.tobytes() == y.tobytes()
+                  for ra, rb in zip(a[5], b[5]) for x, y in zip(ra, rb))
+    sa, sb = a[1], b[1]
     diff = [n for n in sa if not torch.equal(sa[n], sb[n])]
-    if la != lb or diff:
-        raise AssertionError(f"{what}: losses {la} vs {lb}; persistables "
-                             f"apart: {diff[:5]}")
+    log(f"  {what}: fetches bit-equal {fetches}; persistables apart: "
+        f"{len(diff)} of {len(sa)}")
+    if not fetches or diff:
+        raise AssertionError(f"{what}: losses {a[0]} vs {b[0]}; "
+                             f"persistables apart: {diff[:5]}")
 
 
 def profile_wide_deep(tpt, fa, main, startup, loss, feeds, key):
@@ -7910,8 +8068,8 @@ def wide_deep_flagship(tpt, fa, card):
         main, startup, loss = build_wide_deep(tpt, is_sparse, lazy,
                                               op_seed)
         reckoned[key] = merge_launches(main)
-        lives[key] = wide_deep_life(tpt, fa, f"18{'abc'[len(lives)]} "
-                                    f"{key}", main, startup, loss, feeds)
+        lives[key] = training_life(tpt, fa, f"18{'abc'[len(lives)]} "
+                                   f"{key}", main, startup, loss, feeds)
         paths[f"wide_deep_{key}"] = lives[key][4]
         torch.cuda.empty_cache()
     params = {v.name for v in main.all_parameters()}
@@ -7926,10 +8084,10 @@ def wide_deep_flagship(tpt, fa, card):
     d_state = state_gap(lives["sparse"][1], lives["dense"][1],
                         "18b sparse vs dense", params, lr_sum)
     log(f"  18b sparse (lazy_mode off) vs dense: loss rel {d_loss:.3e} "
-        f"(limit {WIDE_DEEP_LOSS_RTOL:g}), worst persistable "
+        f"(limit {LIFE_LOSS_RTOL:g}), worst persistable "
         f"{d_state[0]:.3e} of its norm ({d_state[1]}; limit "
-        f"{WIDE_DEEP_STATE_RTOL:g})")
-    if d_loss > WIDE_DEEP_LOSS_RTOL:
+        f"{LIFE_STATE_RTOL:g})")
+    if d_loss > LIFE_LOSS_RTOL:
         raise AssertionError(f"18b: losses apart by {d_loss}")
     lives["dense"] = lives["dense"][:1] + (None, None) + lives["dense"][3:]
     check_untouched(lives["lazy"][1], lives["lazy"][2], untouched, "18c")
@@ -7937,26 +8095,25 @@ def wide_deep_flagship(tpt, fa, card):
     # generators draw other numbers)
     start = {n: t.cpu() for n, t in lives["lazy"][2].items()}
     t_cpu = time.perf_counter()
-    cpu = wide_deep_life(tpt, fa, "18c lazy on the CPU", main, startup,
-                         loss, feeds, start=start,
-                         device=torch.device("cpu"))
+    cpu = training_life(tpt, fa, "18c lazy on the CPU", main, startup,
+                        loss, feeds, start=start, device=torch.device("cpu"))
     cpu_s = time.perf_counter() - t_cpu
     c_loss = max(abs(a - b) / abs(b) for a, b in
                  zip(lives["lazy"][0], cpu[0]))
     c_state = state_gap(lives["lazy"][1], cpu[1], "18c card vs CPU",
                         params, lr_sum)
     log(f"  18c lazy card vs CPU: loss rel {c_loss:.3e} (limit "
-        f"{WIDE_DEEP_LOSS_RTOL:g}), worst persistable {c_state[0]:.3e} of "
+        f"{LIFE_LOSS_RTOL:g}), worst persistable {c_state[0]:.3e} of "
         f"its norm ({c_state[1]}); untouched rows at their startup bits")
-    if c_loss > WIDE_DEEP_LOSS_RTOL:
+    if c_loss > LIFE_LOSS_RTOL:
         raise AssertionError(f"18c: card and CPU losses apart by {c_loss}")
     del cpu, start
-    again = wide_deep_life(tpt, fa, "18d lazy again (fresh executor and "
-                           "scope)", main, startup, loss, feeds)
+    again = training_life(tpt, fa, "18d lazy again (fresh executor and "
+                          "scope)", main, startup, loss, feeds)
     lives_equal(again, lives["lazy"], "18d")
     del again
-    eager = wide_deep_life(tpt, fa, "18d lazy eager (every step op by "
-                           "op)", main, startup, loss, feeds, eager=True)
+    eager = training_life(tpt, fa, "18d lazy eager (every step op by "
+                          "op)", main, startup, loss, feeds, eager=True)
     lives_equal(eager, lives["lazy"], "18d captured vs eager")
     del eager
     torch.cuda.empty_cache()
@@ -8045,6 +8202,725 @@ def check_merge(kernel, device):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 2's look at the forward-only convolution route, and phase 19:
+# LeNet-5 and ResNet-50
+# ---------------------------------------------------------------------------
+
+# ResNet-50's convolutions at 224 x 224 (He et al. 2016, Table 1), (name,
+# C, H = W, OC, k, stride, pad): the stem's 7 x 7 / 2, a 3 x 3 of conv2_x,
+# a 1 x 1 of conv4_x, and conv3_x's first 3 x 3 / 2; each at a batch of
+# CONV_BATCH images
+CONV_SHAPES = (("stem_7x7s2_224", 3, 224, 64, 7, 2, 3),
+               ("3x3_56_c64", 64, 56, 64, 3, 1, 1),
+               ("1x1_14_c1024", 1024, 14, 256, 1, 1, 0),
+               ("3x3s2_56_c128", 128, 56, 128, 3, 2, 1))
+CONV_BATCH = 8
+# the kernels line's row of the route: conv2_x's 3 x 3
+CONV_ROW = "3x3_56_c64"
+
+
+def conv_operands(x, w, stride, pad):
+    """(a, b) of the forward-only route's product for x [N, C, H, W] and an
+    OIHW filter w (groups 1): the im2col rows [N * L, K] (one an output
+    pixel) and the filter as [K, OC]."""
+    import torch.nn.functional as F
+
+    oc, k = w.shape[0], w[0].numel()
+    cols = F.unfold(F.pad(x, (pad,) * 4) if pad else x, tuple(w.shape[2:]),
+                    stride=stride)
+    n, _, l = cols.shape
+    return cols.transpose(1, 2).reshape(n * l, k), w.reshape(oc, k).t()
+
+
+def conv_bound(x_shape, w_shape, out_shape):
+    """(bound ms, 'bytes' or 'operations') of a convolution: the input,
+    the filter and the output moved once at the HBM peak, against 2 x
+    output elements x K operations at the fp32 peak."""
+    n_x, n_w, n_o = (math.prod(s) for s in (x_shape, w_shape, out_shape))
+    k = math.prod(w_shape[1:])
+    t_bytes = 4.0 * (n_x + n_w + n_o) / PEAK_BYTES_PER_S * 1e3
+    t_ops = 2.0 * n_o * k / PEAK_FLOP_PER_S["float32"] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def conv_grad_ratios(gemm, x, w, gout, stride, pad, gx, gw):
+    """How far the grads gx and gw of a convolution (x [N, C, H, W], OIHW
+    w, groups 1, the output's grad gout) lie from the same grads in
+    float64, as (max |gx - want| / limit, the same for gw).  Both are
+    products: gw = gout's rows^T @ the im2col rows, a sum over the N x L
+    output pixels, whose limit is gemm.tolerance's; gx folds gout's rows
+    @ the filter back onto the input, a sum over OC x (kh x kw) terms at
+    most, whose limit is the same spread of that many terms:
+    sqrt(kh x kw x fold(tolerance**2)).  TF32 (10 mantissa bits) spreads
+    either some 2**13 / (ERR_SPREADS sqrt(K)) times wider, so a TF32
+    backward fails them.  (cuDNN's float32 backward is not always one
+    direct sum: its weight grad of a 3 x 3 at 56 x 56 lies at 1.23 of the
+    limit on an H100, so the port's grads are held bit for bit to cuDNN's
+    with TF32 off, and these ratios are read beside them.)"""
+    import torch
+    import torch.nn.functional as F
+
+    n, c, h, wd = x.shape
+    oc, _, kh, kw = w.shape
+    cols, wt = conv_operands(x.double(), w.double(), stride, pad)
+    g = gout.double().permute(0, 2, 3, 1).reshape(-1, oc)
+    want_gw = (g.t() @ cols).view(w.shape)
+    tol_gw = gemm.tolerance(g.t(), cols).view(w.shape)
+    spread = gemm.tolerance(g, wt.t()) ** 2
+
+    def fold(t):
+        t = t.view(n, -1, c * kh * kw).transpose(1, 2)
+        out = F.fold(t, (h + 2 * pad, wd + 2 * pad), (kh, kw), stride=stride)
+        return out[:, :, pad:pad + h, pad:pad + wd]
+    want_gx = fold(g @ wt.t())
+    tol_gx = torch.sqrt(kh * kw * fold(spread))
+    return (float(((gx.double() - want_gx).abs() / tol_gx).max()),
+            float(((gw.double() - want_gw).abs() / tol_gw).max()))
+
+
+def cudnn_conv_grads(x, w, gout, stride, pad, allow_tf32):
+    """(gx, gw) of a convolution by cuDNN's backward with deterministic
+    algorithms, no benchmarking and TF32 as `allow_tf32` says."""
+    import torch
+
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True,
+                                    allow_tf32=allow_tf32):
+        gx, gw, _ = torch.ops.aten.convolution_backward(
+            gout, x, w, None, [stride] * 2, [pad] * 2, [1, 1], False, [0, 0],
+            1, [True, True, False])
+    return gx, gw
+
+
+def conv_grads(nn_ops, x, w, gout, stride, pad):
+    """(gx, gw) of a convolution through the port's training route
+    (nn_ops.conv2d_library, which sets its own cuDNN settings) with the
+    caller's setting allowing TF32."""
+    import torch
+
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # the caller's setting
+    try:
+        xg, wg = x.detach().requires_grad_(), w.detach().requires_grad_()
+        out = nn_ops.conv2d_library(xg, wg, [stride] * 2, [(pad, pad)] * 2,
+                                    [1, 1])
+        return torch.autograd.grad(out, [xg, wg], gout)
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+
+
+def check_conv(gemm, device):
+    """Phase 2's look at the forward-only fp32 convolution route
+    (nn_ops.conv2d_rows: im2col, then the product kernel) at CONV_SHAPES:
+    every image's output bit-equal alone, in the batch of CONV_BATCH and
+    in a permuted batch; within gemm.tolerance of the plain version (the
+    same im2col product by gemm.matmul_reference), F.conv2d with TF32 off
+    (cuDNN, the library call, under the port's settings) within it too,
+    and F.conv2d with TF32 allowed, the control, over it; the training
+    route's grads (nn_ops.conv2d_library's backward, the caller allowing
+    TF32) bit-equal to cuDNN's backward with TF32 off, and cuDNN's TF32
+    backward, the control, outside conv_grad_ratios' float32 limits in
+    one grad at least (cuDNN may pick a float32 algorithm for the other;
+    the route's own ratios read beside); then the route's
+    event and device
+    time beside F.conv2d's (TF32 off), the plain version's and the bound.
+    Returns ({shape: row}, the ratios to the limits: the route's, the
+    library's and its grads' largest, the controls' smallest)."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import nn_ops
+
+    g = torch.Generator(device=device).manual_seed(19)
+    rows = {}
+    ratios = {"kernel": 0.0, "library": 0.0, "tf32": math.inf,
+              "library_grad": 0.0, "tf32_grad": math.inf}
+    for i, (name, c, hw, oc, k, s, p) in enumerate(CONV_SHAPES):
+        x = seeded((CONV_BATCH, c, hw, hw), 300 + 10 * i, device)
+        # He-initialised, as conv2d's layer draws it: outputs near 1
+        w = seeded((oc, c, k, k), 301 + 10 * i, device) * math.sqrt(
+            2.0 / (c * k * k))
+        args = ([s, s], [(p, p), (p, p)], [1, 1])
+
+        def run(xx):
+            return nn_ops.conv2d_rows(xx, w, *args)
+
+        def library(xx):
+            with nn_ops._cudnn_settings():
+                return F.conv2d(xx, w, None, s, p)
+
+        full = run(x)
+        perm = torch.randperm(CONV_BATCH, device=device, generator=g)
+        same = torch.equal(run(x[perm]), full[perm]) and all(
+            torch.equal(run(x[j:j + 1]), full[j:j + 1])
+            for j in range(CONV_BATCH))
+        a, b = conv_operands(x, w, s, p)
+        oh = full.shape[2]
+
+        def nchw(t):
+            return t.view(CONV_BATCH, oh, oh, oc).permute(0, 3, 1, 2)
+
+        tol = nchw(gemm.tolerance(a, b))
+        plain = nchw(gemm.matmul_reference(a, b))
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True, allow_tf32=True):
+            tf32 = F.conv2d(x, w, None, s, p)
+        err = float((full - plain).abs().max())
+        r_kernel, r_lib, r_tf32 = (float(((t - plain).abs() / tol).max())
+                                   for t in (full, library(x), tf32))
+        ratios["kernel"] = max(ratios["kernel"], r_kernel)
+        ratios["library"] = max(ratios["library"], r_lib)
+        ratios["tf32"] = min(ratios["tf32"], r_tf32)
+        del a, b, tol, plain, tf32
+        gout = seeded(full.shape, 302 + 10 * i, device)
+        port = conv_grads(nn_ops, x, w, gout, s, p)
+        same_grads = all(torch.equal(a, b) for a, b in zip(
+            port, cudnn_conv_grads(x, w, gout, s, p, False)))
+        r_grads = conv_grad_ratios(gemm, x, w, gout, s, p, *port)
+        c_grads = conv_grad_ratios(gemm, x, w, gout, s, p,
+                                   *cudnn_conv_grads(x, w, gout, s, p, True))
+        ratios["library_grad"] = max(ratios["library_grad"], *r_grads)
+        ratios["tf32_grad"] = min(ratios["tf32_grad"], max(c_grads))
+        del gout, port
+        iters = 10
+        names = []
+        ms, dev = timed(lambda: run(x), iters, names=names)
+        lib_ms, lib_dev = timed(lambda: library(x), iters)
+
+        def plain_route():
+            a, b = conv_operands(x, w, s, p)
+            return gemm.matmul_reference(a, b)
+        plain_ms = cuda_ms(plain_route, 3, warmup=1)
+        bound, by = conv_bound(x.shape, w.shape, full.shape)
+        rows[name] = dict(
+            ms=ms, device_ms=dev, plain_ms=plain_ms, library_ms=lib_ms,
+            library_device_ms=lib_dev, bound_ms=bound, bound_by=by,
+            max_abs_err=err, route_tolerance_ratio=r_kernel,
+            library_tolerance_ratio=r_lib, tf32_tolerance_ratio=r_tf32,
+            library_grads_equal_tf32_off=same_grads,
+            library_grad_ratios=r_grads, tf32_grad_ratios=c_grads,
+            batch=CONV_BATCH, K=c * k * k, sha256=sha256(full))
+        log(f"  conv {name} [{CONV_BATCH}, {c}, {hw}, {hw}] * [{oc}, {c}, "
+            f"{k}, {k}] /{s}: images bit-equal alone, in the batch and "
+            f"permuted: {same}; max|d| to plain {err:.3e} ({r_kernel:.4f} "
+            f"of gemm.tolerance), F.conv2d TF32 off {r_lib:.4f} of it, TF32 "
+            f"allowed {r_tf32:.2f} of it; the training route's grads with "
+            f"the caller allowing TF32 bit-equal to cuDNN's with TF32 off: "
+            f"{same_grads}, (gx, gw) at {r_grads[0]:.4f}, {r_grads[1]:.4f} "
+            f"of their float32 limits, cuDNN's TF32 backward at "
+            f"{c_grads[0]:.2f}, {c_grads[1]:.2f}; route {ms:.4f} ms events / "
+            f"{dev:.4f} ms device, F.conv2d {lib_ms:.4f} / {lib_dev:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}): "
+            f"{100 * bound / dev:.1f}% of it")
+        log_kernels(f"conv {name}", names)
+        if not same:
+            raise AssertionError(f"conv {name}: an image's rows depend on "
+                                 f"its batch")
+        if r_kernel > 1 or r_lib > 1:
+            raise AssertionError(f"conv {name}: the route ({r_kernel:.3g}) "
+                                 f"or F.conv2d with TF32 off ({r_lib:.3g}) "
+                                 f"is outside gemm.tolerance")
+        if not r_tf32 > 1:
+            raise AssertionError(f"conv {name}: the TF32 control is within "
+                                 f"the tolerance ({r_tf32:.3g} of it)")
+        if not same_grads or not max(c_grads) > 1:
+            raise AssertionError(f"conv {name}: the training route's grads "
+                                 f"equal cuDNN's with TF32 off: "
+                                 f"{same_grads}; the TF32 control's at "
+                                 f"{c_grads} of the float32 limits")
+        del x, w, full
+    torch.cuda.empty_cache()
+    return rows, ratios
+
+
+# phase 19a: LeNet-5, the reference book's recognize_digits recipe (batch
+# 64, Adam 1e-3, fp32, TF32 off) on tests/test_book.py's separable
+# synthetic digits (an image's intensity is its label / 10, plus noise)
+LENET_BATCH = 64
+LENET_LR = 1e-3
+LENET_STEPS = 6
+LENET_SEED = 1900
+LENET_SERVE_BATCHES = (1, 64)
+# 19b: ResNet-50 (He et al. 2016, Table 1: depth 50, 224 x 224, 1000
+# classes) in fp32, card against the CPU, with bench.py's optimizer
+# (Momentum 0.1 / 0.9), at batch 2 for 3 steps; 19c: bench.py's ResNet-50
+# leg (bench.py _run_resnet50_once: batch 64, bf16 AMP, the same
+# optimizer, feeds rand(64, 3, 224, 224) and labels in [0, 1000)), no
+# cut; 19d: the is_test program on 19c's startup weights, fp32, batches
+# 1 and 8
+RESNET = dict(depth=50, image_size=224, class_num=1000)
+RESNET_LR, RESNET_MOMENTUM = 0.1, 0.9
+RESNET_PARITY_BATCH = 2
+RESNET_PARITY_STEPS = 3
+RESNET_BENCH_BATCH = 64
+RESNET_BENCH_STEPS = 6
+RESNET_BENCH_FEEDS = 4
+RESNET_TIMED_REPLAYS = 10
+RESNET_SERVE_BATCHES = (1, 8)
+RESNET_SEED = 1901
+# Limits.  19a's card life against the same program on the CPU: cuDNN's
+# and oneDNN's convolutions, cuBLAS's and MKL's products sum in other
+# orders (~1e-7 relative a sum); over 6 Adam steps every loss stays within
+# LIFE_LOSS_RTOL and every persistable within LIFE_STATE_RTOL of its norm,
+# a parameter's worst element within 2 lr a step, as phase 18's.  19b holds
+# step 1: its loss to the conventions' LOSS_RTOL, each moving mean and
+# variance to RESNET_STATS_RTOL of its norm, every grad to
+# RESNET_GRAD_RTOL of its norm (ResNet-50's ~9.4 M relu inputs a step at
+# batch 2: a relu whose input lies within the forward's rounding of 0
+# passes its grad on one side only, so the grads above a few such flips
+# move by percents: up to 3.8e-2 of a norm measured on an H100)
+# and the parameters after it to 2 lr; the later steps are chaotic at lr
+# 0.1 and are held to be finite, beside a CPU life nudged by
+# RESNET_NUDGE.  Served probabilities (19a) and logits (19d) against a
+# CPU Predictor, row by row: LENET_SERVE_ATOL absolute, RESNET_SERVE_RTOL
+# of the row's largest logit (53 fp32 convolutions, each summed in another
+# order on each side).  Everything else bit for bit.
+LENET_SERVE_ATOL = 1e-5
+RESNET_GRAD_RTOL = 0.1
+RESNET_STATS_RTOL = 1e-4
+RESNET_NUDGE = 1e-6
+RESNET_SERVE_RTOL = 1e-4
+VISION = {}
+
+
+def lenet_feeds(batch, steps, seed):
+    """`steps` feeds of separable digits (tests/test_book.py's): labels
+    uniform in [0, 10), each image label / 10 plus N(0, 0.1) noise."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(steps):
+        y = rng.randint(0, 10, (batch, 1)).astype("int64")
+        x = (y.reshape(batch, 1, 1, 1) / 10.0
+             + 0.1 * rng.randn(batch, 1, 28, 28)).astype("float32")
+        out.append({"images": x, "label": y})
+    return out
+
+
+def resnet_feeds(batch, n, seed):
+    """`n` feeds at RESNET as bench.py draws them: uniform images in [0,
+    1) and labels in [0, class_num)."""
+    rng = np.random.RandomState(seed)
+    size = RESNET["image_size"]
+    return [{"images": rng.rand(batch, 3, size, size).astype("float32"),
+             "label": rng.randint(0, RESNET["class_num"],
+                                  (batch, 1)).astype("int64")}
+            for _ in range(n)]
+
+
+def build_vision(tpt, kind, op_seed, batch):
+    """(main, startup, outputs) of phase 19's programs, their ops seeded
+    from `op_seed` (every life draws the same weights): "lenet"
+    (build_mnist_train + Adam(LENET_LR)), "resnet" (build_resnet_train at
+    RESNET + Momentum), "resnet_bf16" (the same under bf16 decorate,
+    bench.py's leg) and "resnet_is_test" (the fp32 serving program, its
+    parameters named as the training program's)."""
+    from paddle_tpu_torch import models
+    from paddle_tpu_torch.contrib import mixed_precision
+    from paddle_tpu_torch.ops import registry
+
+    registry.reset_op_seed(op_seed)
+    tpt.reset_unique_name()
+    main, startup = tpt.Program(), tpt.Program()
+    startup._is_startup = True
+    main.random_seed = startup.random_seed = (
+        LENET_SEED if kind == "lenet" else RESNET_SEED)
+    with tpt.program_guard(main, startup):
+        if kind == "lenet":
+            _, outs = models.build_mnist_train(batch_size=batch)
+            tpt.optimizer.AdamOptimizer(LENET_LR).minimize(outs["loss"])
+        elif kind == "resnet_is_test":
+            size = RESNET["image_size"]
+            images = tpt.layers.data("images", [-1, 3, size, size],
+                                     append_batch_size=False)
+            outs = models.resnet(images, depth=RESNET["depth"],
+                                 class_num=RESNET["class_num"], is_test=True)
+        else:
+            _, outs = models.build_resnet_train(batch_size=batch, **RESNET)
+            opt = tpt.optimizer.MomentumOptimizer(RESNET_LR,
+                                                  momentum=RESNET_MOMENTUM)
+            if kind == "resnet_bf16":
+                opt = mixed_precision.decorate(opt, dtype="bfloat16")
+            opt.minimize(outs["loss"])
+    return main, startup, outs
+
+
+def moving_stats(main):
+    """The names of batch norm's moving means and variances."""
+    return [n for op in main.global_block().ops if op.type == "batch_norm"
+            for n in op.input("Mean") + op.input("Variance")]
+
+
+def serve_vision(tpt, fa, what, workdir, images, batches, rtol, atol):
+    """The model in `workdir` served by a Predictor on the card, warmed at
+    `batches`: the largest batch of `images` whole, then each of its rows
+    alone; every row alone gives its row of the batch bit for bit, every
+    request launches the product kernel once a forward product
+    (forward_products: each convolution and fc), the convolution route's
+    share of them (read_counts' .conv) once a convolution, and nothing
+    else counted, every row of the batch is within atol + rtol x its
+    largest value of a CPU Predictor's row, and the Predictor's
+    persistables (batch norm's moving statistics among them) are
+    unchanged by serving.  Returns (launches, numbers)."""
+    import torch
+
+    n = max(batches)
+    pred = tpt.inference.Predictor(workdir)
+    pred.warmup([{"images": (b,) + images.shape[1:]} for b in batches])
+    n_products = forward_products(pred.program)
+    n_convs = sum(op.type in ("conv2d", "depthwise_conv2d")
+                  for op in pred.program.global_block().ops)
+    before = {k: pred.scope.find_var(k).clone()
+              for k in pred.scope.local_var_names()}
+    reset_counts(fa)
+    t = time.perf_counter()
+    whole = pred.run({"images": images[:n]})[0]
+    batch_ms = (time.perf_counter() - t) * 1e3
+    alone, single_ms = [], []
+    for r in range(n):
+        t = time.perf_counter()
+        alone.append(pred.run({"images": images[r:r + 1]})[0])
+        single_ms.append((time.perf_counter() - t) * 1e3)
+    counts, plain, realigned = read_counts(fa)
+    requests = 1 + n
+    same = all(np.array_equal(whole[r:r + 1], a) for r, a in enumerate(alone))
+    unchanged = all(torch.equal(v, pred.scope.find_var(k))
+                    for k, v in before.items())
+    want = tpt.inference.Predictor(workdir, device="cpu").run(
+        {"images": images[:n]})[0]
+    rows_diff = np.abs(whole - want).reshape(n, -1).max(1)
+    scale = np.abs(want).reshape(n, -1).max(1)
+    ratio = float((rows_diff / (atol + rtol * scale)).max())
+    diff = float(rows_diff.max())
+    log(f"  {what}: batch {n} {batch_ms:.2f} ms, batch 1 median "
+        f"{np.median(single_ms):.2f} ms; rows alone equal to the batch's: "
+        f"{same}; card vs CPU max|diff| {diff:.3e}, largest |output| "
+        f"{float(scale.max()):.4g} (rows' smallest {float(scale.min()):.4g}"
+        f"), worst row at {ratio:.4f} of its limit (atol {atol:g} + rtol "
+        f"{rtol:g} x the row's largest); product kernel launches "
+        f"{counts.gemm} ({n_products} a request x {requests}), of them the "
+        f"convolution route's {counts.conv} ({n_convs} a request), plain "
+        f"{plain}, realigned {realigned}; persistables unchanged by "
+        f"serving: {unchanged}")
+    if not (same and unchanged and ratio <= 1
+            and counts.gemm == n_products * requests
+            and counts.conv == n_convs * requests and not plain
+            and not realigned and not any(counts) and not counts.merge
+            and not counts.rms_norm and np.isfinite(whole).all()):
+        raise AssertionError(
+            f"{what}: serving failed its gates: rows alone equal {same}, "
+            f"persistables unchanged {unchanged}, card vs CPU {diff:.3e} "
+            f"({ratio:.3g} of the limit), product launches {counts.gemm} "
+            f"(want {n_products * requests}), of them the convolution "
+            f"route's {counts.conv} (want {n_convs * requests}), plain "
+            f"{plain}, realigned {realigned}, other launches "
+            f"{tuple(counts)}")
+    pred.close()
+    del pred
+    torch.cuda.empty_cache()
+    return counts, dict(batch_ms=batch_ms,
+                        single_ms=float(np.median(single_ms)),
+                        card_vs_cpu=diff, output_scale=float(scale.max()),
+                        card_vs_cpu_of_limit=ratio,
+                        batched_equals_single=same)
+
+
+def lenet_flagship(tpt, fa, workdir, op_seed):
+    """19a: LeNet-5 (build_mnist_train at LENET_BATCH, Adam LENET_LR,
+    fp32): the card life against the same program on the CPU from the
+    card's startup values (losses, accuracies, every persistable); the
+    life again in a fresh executor and scope and with every step eager,
+    both bit for bit; the loss falls; then the prediction saved and
+    served at LENET_SERVE_BATCHES (serve_vision: two convolutions and two
+    fc products a request).  Returns the paths' launches."""
+    import torch
+
+    feeds = lenet_feeds(LENET_BATCH, LENET_STEPS, LENET_SEED)
+    main, startup, outs = build_vision(tpt, "lenet", op_seed, LENET_BATCH)
+    fetch = [outs["loss"], outs["acc"]]
+    card = training_life(tpt, fa, "19a LeNet on the card", main, startup,
+                         fetch, feeds)
+    if card[4].gemm or card[4].conv or card[4].rms_norm:
+        raise AssertionError(f"19a: a training step launched the product "
+                             f"kernel {card[4].gemm} times")
+    start = {n: t.cpu() for n, t in card[2].items()}
+    cpu = training_life(tpt, fa, "19a LeNet on the CPU", main, startup,
+                        fetch, feeds, start=start, device=torch.device("cpu"))
+    losses = card[0]
+    c_loss = max(abs(a - b) / abs(b) for a, b in zip(card[0], cpu[0]))
+    c_acc = max(abs(float(a[1]) - float(b[1]))
+                for a, b in zip(card[5], cpu[5]))
+    params = {p.name for p in main.all_parameters()}
+    c_state = state_gap(card[1], cpu[1], "19a card vs CPU", params,
+                        LENET_LR * LENET_STEPS)
+    log(f"  19a card vs CPU: loss rel {c_loss:.3e} (limit "
+        f"{LIFE_LOSS_RTOL:g}), accuracy apart by {c_acc:g}, worst "
+        f"persistable {c_state[0]:.3e} of its norm ({c_state[1]})")
+    if c_loss > LIFE_LOSS_RTOL or c_acc > 0:
+        raise AssertionError("19a: the card and the CPU disagree")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"19a: the loss did not fall: {losses}")
+    del cpu, start
+    lives_equal(card, training_life(
+        tpt, fa, "19a again (fresh executor and scope)", main, startup,
+        fetch, feeds), "19a second life")
+    lives_equal(card, training_life(
+        tpt, fa, "19a eager (every step op by op)", main, startup, fetch,
+        feeds, eager=True), "19a captured vs eager")
+    scope = tpt.Scope()
+    for n, t in card[1].items():
+        scope.set_var(n, t)
+    with tpt.scope_guard(scope):
+        tpt.io.save_inference_model(workdir, ["images"],
+                                    [outs["prediction"]], tpt.Executor(),
+                                    main_program=main)
+    images = lenet_feeds(max(LENET_SERVE_BATCHES), 1, LENET_SEED + 1)[0][
+        "images"]
+    served, serving = serve_vision(tpt, fa, "19a LeNet serving", workdir,
+                                   images, LENET_SERVE_BATCHES, 0.0,
+                                   LENET_SERVE_ATOL)
+    VISION["lenet"] = dict(
+        losses=losses, card_vs_cpu=dict(loss_rel=c_loss,
+                                        state_rel=c_state[0]),
+        replay_ms=float(np.median(card[3][2:])), serving=serving)
+    return {"lenet_training": card[4], "lenet_serving": served}
+
+
+def resnet_parity(tpt, fa, op_seed):
+    """19b: ResNet-50 at RESNET, fp32, Momentum, batch
+    RESNET_PARITY_BATCH: RESNET_PARITY_STEPS steps on the card against the
+    port's CPU path from the card's startup scope, copied; nothing
+    counted launches on the card.  Step 1 is held: its loss (LOSS_RTOL),
+    every parameter's grad (RESNET_GRAD_RTOL of its norm: a relu whose
+    input lies within the two sides' forward difference of 0 passes its
+    grad on one side only, and the grads above it move by percents), the
+    parameters after it (max|diff| within 2 lr) and the moving means and
+    variances (RESNET_STATS_RTOL of each one's norm).  After step 1 the
+    trajectory at lr 0.1 is chaotic (the loss jumps to ~100): a CPU life
+    whose stem filter is nudged by RESNET_NUDGE relative diverges from
+    the CPU life as far, so the later steps' gaps are logged beside that
+    control's and only their finiteness is held.  Returns the card
+    steps' launches."""
+    import torch
+
+    main, startup, outs = build_vision(tpt, "resnet", op_seed,
+                                       RESNET_PARITY_BATCH)
+    feeds = resnet_feeds(RESNET_PARITY_BATCH, RESNET_PARITY_STEPS,
+                         RESNET_SEED)
+    params = [p.name for p in main.all_parameters()]
+    grads = [p + "@GRAD" for p in params]
+    stats = moving_stats(main)
+    stem = next(op.input("Filter")[0] for op in main.global_block().ops
+                if op.type == "conv2d")
+    card, scope = tpt.Executor(), tpt.Scope()
+    card.run(startup, scope=scope)
+    cpu, cpu_scope = tpt.Executor(tpt.CPUPlace()), tpt.Scope()
+    nudged, nudged_scope = tpt.Executor(tpt.CPUPlace()), tpt.Scope()
+    for n in scope.local_var_names():
+        cpu_scope.set_var(n, scope.find_var(n).to("cpu", copy=True))
+        nudged_scope.set_var(n, scope.find_var(n).to("cpu", copy=True))
+    nudged_scope.find_var(stem).mul_(1 + RESNET_NUDGE)
+    log(f"  19b: ResNet-{RESNET['depth']} ({len(main.global_block().ops)} "
+        f"ops, {len(params)} parameters, {len(stats) // 2} batch norms) "
+        f"at batch {RESNET_PARITY_BATCH}, fp32, card against the CPU")
+
+    def gaps(a, b, names):
+        """(worst relative norm gap, its name, worst max|diff|)."""
+        worst, top = (0.0, ""), 0.0
+        for n in names:
+            x, y = a.find_var(n).cpu().double(), b.find_var(n).double()
+            d = x - y
+            worst = max(worst, (float(d.norm() / y.norm()), n))
+            top = max(top, float(d.abs().max()))
+        return worst + (top,)
+
+    reset_counts(fa)
+    losses, failures = [], []
+    for step, feed in enumerate(feeds):
+        fetch = [outs["loss"]] + (grads if step == 0 else [])
+        t = time.perf_counter()
+        got = card.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        card_s = time.perf_counter() - t
+        t = time.perf_counter()
+        want = cpu.run(main, feed=feed, fetch_list=fetch, scope=cpu_scope)
+        cpu_s = time.perf_counter() - t
+        ctrl = nudged.run(main, feed=feed, fetch_list=[outs["loss"]],
+                          scope=nudged_scope)
+        lg, lw, lc = (float(np.ravel(v[0])[0]) for v in (got, want, ctrl))
+        rel, ctrl_rel = abs(lg - lw) / abs(lw), abs(lc - lw) / abs(lw)
+        losses.append(dict(card=lg, cpu=lw, rel=rel, control_rel=ctrl_rel))
+        log(f"  step {step + 1}: loss card {lg:.7f} cpu {lw:.7f} rel "
+            f"{rel:.3e} (the nudged CPU life {ctrl_rel:.3e}"
+            f"{f'; limit {LOSS_RTOL:g}' if step == 0 else ''}); card "
+            f"{card_s:.2f} s, cpu {cpu_s:.2f} s")
+        if not math.isfinite(lg) or (step == 0 and rel > LOSS_RTOL):
+            failures.append(f"step {step + 1}'s loss rel {rel:.3e}")
+        if step:
+            continue
+        worst_grad = (0.0, "")
+        for name, g, w in zip(fetch[1:], got[1:], want[1:]):
+            g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+            r = float(np.linalg.norm(g - w) / np.linalg.norm(w))
+            worst_grad = max(worst_grad, (r, name))
+        first_params = gaps(scope, cpu_scope, params)
+        first_stats = gaps(scope, cpu_scope, stats)
+        log(f"  19b step 1: grads at most {worst_grad[0]:.3e} of their norm "
+            f"({worst_grad[1]}; limit {RESNET_GRAD_RTOL:g}); parameters "
+            f"max|diff| {first_params[2]:.3e} (limit {2 * RESNET_LR:g}); "
+            f"moving statistics at most {first_stats[0]:.3e} of their norm "
+            f"({first_stats[1]}; limit {RESNET_STATS_RTOL:g})")
+        if worst_grad[0] > RESNET_GRAD_RTOL or \
+                first_params[2] > 2 * RESNET_LR or \
+                first_stats[0] > RESNET_STATS_RTOL:
+            failures.append("step 1's grads, parameters or statistics")
+    counts, plain, realigned = read_counts(fa)
+    if plain or realigned or any(counts) or counts.gemm:
+        failures.append(f"gemm {counts.gemm}, plain {plain}, realigned "
+                        f"{realigned}")
+    last_stats = gaps(scope, cpu_scope, stats)
+    ctrl_stats = gaps(nudged_scope, cpu_scope, stats)
+    log(f"  19b after step {RESNET_PARITY_STEPS}: moving statistics at "
+        f"most {last_stats[0]:.3e} of their norm from the CPU's; the CPU "
+        f"life nudged by {RESNET_NUDGE:g} at most {ctrl_stats[0]:.3e}")
+    VISION["resnet_parity"] = dict(
+        losses=losses, grad_rel=worst_grad[0],
+        step1_param_max=first_params[2], step1_stats_rel=first_stats[0],
+        last_stats_rel=last_stats[0], control_last_stats_rel=ctrl_stats[0])
+    for exe in (card, cpu, nudged):
+        exe.close()
+    del scope, cpu_scope, nudged_scope
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("19b: " + "; ".join(failures))
+    return counts
+
+
+def resnet_peak_reckoning(main, batch):
+    """A reckoning of 19c's eager peak before the run, in GiB: the conv
+    outputs of one step (bf16, kept for their batch norm and relu), batch
+    norm's three fp32 tensors a conv output kept for its grad, and the
+    fp32 parameters, their grads and velocities."""
+    block = main.global_block()
+    acts = sum(math.prod(block.var(op.output("Output")[0]).shape[1:])
+               for op in block.ops if op.type == "conv2d") * batch
+    params = sum(math.prod(p.shape) for p in main.all_parameters())
+    return (acts * (2 + 12 + 2 + 2) + params * 4 * 3) / 2 ** 30
+
+
+def resnet_bench(tpt, fa, workdir, op_seed, card):
+    """19c: bench.py's ResNet-50 leg at RESNET_BENCH_BATCH, bf16 AMP: a
+    captured life of RESNET_BENCH_STEPS steps (step 1 eager, 2 captures,
+    the rest replay) against a life with every step eager and a second
+    captured life in a fresh executor and scope, bit for bit in every
+    loss and persistable (the moving statistics among them); then
+    RESNET_TIMED_REPLAYS timed replays (median ms and images/s) and a
+    profiled one (device busy, idle share, top kernels); the eager and
+    graph-pool peaks.  Saves the fp32 is_test program on the life's
+    startup weights to `workdir` (19d: after 6 steps at lr 0.1 the moving
+    statistics lag the batches' and the is_test logits reach ~1e11, too
+    far from a served model's for its limits to mean much).  Returns the
+    captured life's launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    main, startup, outs = build_vision(tpt, "resnet_bf16", op_seed,
+                                       RESNET_BENCH_BATCH)
+    feeds = resnet_feeds(RESNET_BENCH_BATCH, RESNET_BENCH_FEEDS,
+                         RESNET_SEED + 1)
+    steps = [feeds[i % len(feeds)] for i in range(RESNET_BENCH_STEPS)]
+    reckoned = resnet_peak_reckoning(main, RESNET_BENCH_BATCH)
+    log(f"  19c: bench.py's ResNet-{RESNET['depth']} step at batch "
+        f"{RESNET_BENCH_BATCH}, bf16 ({len(main.global_block().ops)} ops); "
+        f"eager peak reckoned at {reckoned:.1f} GiB of the card's 80")
+    fetch = [outs["loss"]]
+    life, exe, scope = training_life(tpt, fa, "19c captured", main,
+                                     startup, fetch, steps, keep=True)
+    if life[4].gemm or life[4].conv or life[4].rms_norm:
+        raise AssertionError(f"19c: a training step launched the product "
+                             f"kernel {life[4].gemm} times")
+    snap = {n: t.clone() for n, t in life[1].items()}
+    life = life[:1] + (snap,) + life[2:]
+    replay_ms = []
+    for i in range(RESNET_TIMED_REPLAYS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        exe.run(main, feed=feeds[i % len(feeds)], fetch_list=fetch,
+                scope=scope)
+        replay_ms.append((time.perf_counter() - t) * 1e3)
+    ms = float(np.median(replay_ms))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_SETTLE_S)
+        t = time.perf_counter()
+        exe.run(main, feed=feeds[0], fetch_list=fetch, scope=scope)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    kernels, _ = report_profile(prof, wall_us, "bench.py's ResNet-50 step "
+                                "(a replay)", key="resnet50_bench")
+    PROFILES["resnet50_bench"]["top_kernels_ms"] = [
+        (e.key[:80], e.self_device_time_total / 1e3) for e in sorted(
+            kernels, key=lambda e: -e.self_device_time_total)[:8]]
+    serving, _, served = build_vision(tpt, "resnet_is_test", op_seed, None)
+    start = tpt.Scope()
+    for n, t in life[2].items():
+        start.set_var(n, t)
+    with tpt.scope_guard(start):
+        tpt.io.save_inference_model(workdir, ["images"], [served["logits"]],
+                                    exe, main_program=serving)
+    exe.close()
+    del scope
+    torch.cuda.empty_cache()
+    lives_equal(life, training_life(
+        tpt, fa, "19c eager (every step op by op)", main, startup, fetch,
+        steps, eager=True), "19c captured vs eager")
+    lives_equal(life, training_life(
+        tpt, fa, "19c again (fresh executor and scope)", main, startup,
+        fetch, steps), "19c second life")
+    images_s = RESNET_BENCH_BATCH * 1e3 / ms
+    log(f"  19c: a replay {ms:.2f} ms median of {RESNET_TIMED_REPLAYS} "
+        f"({images_s:.0f} images/s); eager peak {life[6]:.2f} GiB "
+        f"(reckoned {reckoned:.1f}), graph pool "
+        f"{(life[7] or 0) / 2 ** 30:.2f} GiB")
+    VISION["resnet_bench"] = dict(
+        card=card, batch=RESNET_BENCH_BATCH, losses=life[0],
+        step_ms=life[3], replay_ms=ms, replays_ms=replay_ms,
+        images_per_s=images_s, eager_peak_gib=life[6],
+        reckoned_peak_gib=reckoned, graph_pool_gib=(life[7] or 0) / 2 ** 30,
+        profile=PROFILES.get("resnet50_bench"))
+    return life[4]
+
+
+def vision_flagship(tpt, fa, card):
+    """Phase 19: LeNet-5 (19a, lenet_flagship), ResNet-50 card against
+    the CPU (19b, resnet_parity), bench.py's ResNet-50 leg (19c,
+    resnet_bench) and its is_test program served (19d): batches 1 and 8
+    in fp32 on 19c's startup weights, 53 convolutions and the fc on the
+    product kernel a request.  The op-seed counter is put back afterwards.
+    Returns the paths' launches."""
+    from paddle_tpu_torch.ops import registry
+
+    t0 = time.perf_counter()
+    op_seed = registry._OP_SEED[0]
+    paths = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_vision_") as wd:
+        lenet_dir, resnet_dir = (os.path.join(wd, "lenet"),
+                                 os.path.join(wd, "resnet"))
+        paths.update(lenet_flagship(tpt, fa, lenet_dir, op_seed))
+        paths["resnet50_parity"] = resnet_parity(tpt, fa, op_seed)
+        paths["resnet50_bench"] = resnet_bench(tpt, fa, resnet_dir, op_seed,
+                                               card)
+        images = resnet_feeds(max(RESNET_SERVE_BATCHES), 1,
+                              RESNET_SEED + 2)[0]["images"]
+        paths["resnet50_serving"], VISION["resnet_serving"] = serve_vision(
+            tpt, fa, "19d ResNet-50 serving", resnet_dir, images,
+            RESNET_SERVE_BATCHES, RESNET_SERVE_RTOL, 0.0)
+    registry.reset_op_seed(op_seed)
+    VISION["card"] = card
+    VISION["phase_s"] = time.perf_counter() - t0
+    return paths
+
+
 def use_bytecode_cache():
     """Write and read the interpreter's compiled bytecode under
     BYTECODE_CACHE, in this process and every process it starts
@@ -8082,7 +8958,7 @@ def main():
 
     t_start = time.perf_counter()
     card = card_line()
-    log(f"[1/18] device: {card}; torch {torch.__version__}, CUDA "
+    log(f"[1/19] device: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -8100,13 +8976,14 @@ def main():
     gemm._lib()
     rms_norm._lib()
     selected_rows._lib()
-    log(f"[2/18] built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
+    log(f"[2/19] built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
     check_build(build)
     gemm_rows, gemm_ratios = check_gemm(gemm, build, device)
     norm_rows = check_rms_norm(rms_norm, device)
     merge_rows = check_merge(selected_rows, device)
+    conv_rows, conv_ratios = check_conv(gemm, device)
 
-    log("[3/18] packed kernels against their plain versions")
+    log("[3/19] packed kernels against their plain versions")
     check_kernel(fa, device)
     check_backward(fa, device)
     fwd_f32 = time_forward_f32(fa, device)
@@ -8122,21 +8999,21 @@ def main():
 
     # each path's launches of the six kernels, each read from 0
     by_path = {}
-    log("[4/18] BERT-base serving through Predictor on the card")
+    log("[4/19] BERT-base serving through Predictor on the card")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         by_path["serving"] = serve(tpt, fa, workdir)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[5/18] BERT-base training, card against the CPU (fp32)")
+    log("[5/19] BERT-base training, card against the CPU (fp32)")
     by_path["training_parity"] = bert_parity(tpt, fa)
     bert_fp32_profile(tpt, fa)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[6/18] bench.py's seq-512 training step on the card (bf16 AMP)")
+    log("[6/19] bench.py's seq-512 training step on the card (bf16 AMP)")
     by_path["training_flagship"], _ = bert_flagship(tpt, fa)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[7/18] unpacked kernels against their plain versions")
+    log("[7/19] unpacked kernels against their plain versions")
     check_unpacked(fa, device)
     unpacked_timing = time_unpacked(fa, device, "bfloat16")
     unpacked_f32 = time_unpacked(fa, device, "float32")
@@ -8154,7 +9031,7 @@ def main():
     # phase 17 runs here, beside phase 7's unpacked kernels: right after
     # phase 16 the profiler saw no device time in any session (my chip
     # runs 4 and 6, PR 20), while phase 7's sessions see it
-    log("[17/18] MiniLM-L12-H384 (kernels #4-#6 at D 32) and bench.py's "
+    log("[17/19] MiniLM-L12-H384 (kernels #4-#6 at D 32) and bench.py's "
         "seq-128 BERT-base step (unfused) on the card")
     paths17, d32_rows = minilm_flagship(tpt, fa, device, card)
     by_path.update(paths17)
@@ -8165,18 +9042,28 @@ def main():
 
     # phase 18 runs beside phase 17, where the profiler still sees the
     # card (PERF.md section 7)
-    log("[18/18] Wide&Deep at the Criteo layout: dense, sparse and lazy "
+    log("[18/19] Wide&Deep at the Criteo layout: dense, sparse and lazy "
         "Adam training lives and the serving net on the card")
     by_path.update(wide_deep_flagship(tpt, fa, card))
     log("wide_deep: " + json.dumps(WIDE_DEEP_RUN))
     log(f"  (phase 18 took {WIDE_DEEP_RUN['phase_s']:.1f} s; "
         f"{time.perf_counter() - t_start:.1f} s in all)")
 
-    log("[8/18] Llama-2-7B-width training, card against the CPU (fp32)")
+    # phase 19 runs beside phases 17 and 18, where the profiler still
+    # sees the card
+    log("[19/19] LeNet-5 and ResNet-50 on the card: LeNet trained and "
+        "served, ResNet-50 against the CPU, bench.py's ResNet-50 step and "
+        "its serving")
+    by_path.update(vision_flagship(tpt, fa, card))
+    log("vision: " + json.dumps(VISION))
+    log(f"  (phase 19 took {VISION['phase_s']:.1f} s; "
+        f"{time.perf_counter() - t_start:.1f} s in all)")
+
+    log("[8/19] Llama-2-7B-width training, card against the CPU (fp32)")
     by_path["llama_parity"] = llama_parity(tpt, fa)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[9/18] Llama-2-7B-width training on the card (4 layers, bf16 AMP)")
+    log("[9/19] Llama-2-7B-width training on the card (4 layers, bf16 AMP)")
     llama_op_seed = registry._OP_SEED[0]  # phase 9's startup draws
     by_path["llama_flagship"], losses = llama_flagship(tpt, fa)
     compare_losses(losses)
@@ -8184,7 +9071,7 @@ def main():
 
     # phase 16 runs here, where torch.profiler still sees the card (after
     # phase 14 its sessions have seen no device time or lost records)
-    log("[16/18] float16 AMP with dynamic loss scaling: bench.py's seq-512 "
+    log("[16/19] float16 AMP with dynamic loss scaling: bench.py's seq-512 "
         "step and the Llama-2-7B-width step on the card")
     by_path.update(fp16_flagship(tpt, fa, llama_op_seed, losses))
     FP16["card"] = card
@@ -8193,7 +9080,7 @@ def main():
     log(f"  (phase 16 took {FP16['phase_s']:.1f} s, the fp16 kernel checks "
         f"{f16_s:.1f} s; {time.perf_counter() - t_start:.1f} s in all)")
 
-    log("[10/18] Llama generation serving on the card (dense and paged KV "
+    log("[10/19] Llama generation serving on the card (dense and paged KV "
         "cache, speculative decoding, prefill / decode roles)")
     by_path["generation_parity"] = generation_parity(tpt, fa)
     by_path["generation"], paged_paths, gen_scope, dense_tokens = \
@@ -8204,7 +9091,7 @@ def main():
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
     t11 = time.perf_counter()
-    log("[11/18] the serving stack: BERT-base through ServingEngine, then "
+    log("[11/19] the serving stack: BERT-base through ServingEngine, then "
         "HTTP with Llama-2-7B generation attached")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_serving_") as wd:
         model_dir, second_dir, gen_second_dir = (
@@ -8227,7 +9114,7 @@ def main():
         pred.close()
         del eng, pred, gen_scope
         t12 = time.perf_counter()
-        log("[12/18] the fleet: BERT-base and Llama-2-7B in replica "
+        log("[12/19] the fleet: BERT-base and Llama-2-7B in replica "
             "processes behind the router")
         FLEET["reserved_gib_before"] = release_card(
             "released phases 10 and 11")
@@ -8245,7 +9132,7 @@ def main():
             f"{time.perf_counter() - t_start:.1f} s in all)")
 
         t13 = time.perf_counter()
-        log("[13/18] the port's load generator and chaos harness: "
+        log("[13/19] the port's load generator and chaos harness: "
             "BERT-base and Llama-2-7B fleets (13a's --url legs ran in "
             "phase 12)")
         by_path["loadgen"] = loadgen_in_process(
@@ -8269,7 +9156,7 @@ def main():
     log(f"  (phase 13 took {CHAOS['phase_s']:.1f} s; "
         f"{time.perf_counter() - t_start:.1f} s in all)")
 
-    log("[14/18] bench.py's seq-512 step under TrainGuard: a NaN, a SIGTERM "
+    log("[14/19] bench.py's seq-512 step under TrainGuard: a NaN, a SIGTERM "
         "and a resume, bit for bit")
     release_card("phase 13 closed")
     by_path["train_guard"] = train_guard_flagship(tpt, fa)
@@ -8278,7 +9165,7 @@ def main():
     log(f"  (phase 14 took {GUARD['phase_s']:.1f} s; "
         f"{time.perf_counter() - t_start:.1f} s in all)")
 
-    log("[15/18] recompute: bench.py's seq-512 step and a Llama-2-7B-width "
+    log("[15/19] recompute: bench.py's seq-512 step and a Llama-2-7B-width "
         "decoder at seq 4096 under Llama-2's recipe, plain against "
         "recompute, bit for bit")
     release_card("phase 14 closed")
@@ -8395,6 +9282,20 @@ def main():
         launches_by_path={p: getattr(n, "merge", None)
                           for p, n in by_path.items()},
         shapes=merge_rows))
+    # the forward-only convolution route: im2col, then the product
+    # kernel; its row conv2_x's 3 x 3 at a batch of 8, its launches the
+    # route's own count in 19d (53 a request, beside the fc's one on the
+    # same kernel)
+    kernels.append(dict(
+        name="conv2d_rows", route="cuda", source=src + "gemm_f32.cu",
+        replaces="paddle_tpu/ops/nn_ops.py:405",
+        wrapper="paddle_tpu_torch/ops/nn_ops.py conv2d_rows",
+        **conv_rows[CONV_ROW],
+        launches=by_path["resnet50_serving"].conv,
+        launches_by_path={p: getattr(n, "conv", None)
+                          for p, n in by_path.items()},
+        tolerance_ratio=conv_ratios,
+        shapes=conv_rows))
     for k in kernels:
         if not all(math.isfinite(x) for x in
                    [k[x] for x in ("max_abs_err", "ms", "plain_ms",
@@ -8410,7 +9311,8 @@ def main():
     log(f"chip_smoke: the run took {time.perf_counter() - t_start:.1f} s "
         f"(phase 16 {FP16['phase_s']:.1f} s, the fp16 kernel checks "
         f"{f16_s:.1f} s, phase 17 {MINILM_RUN['phase_s']:.1f} s, phase 18 "
-        f"{WIDE_DEEP_RUN['phase_s']:.1f} s)")
+        f"{WIDE_DEEP_RUN['phase_s']:.1f} s, phase 19 "
+        f"{VISION['phase_s']:.1f} s)")
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

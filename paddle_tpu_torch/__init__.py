@@ -55,6 +55,7 @@ from . import train_guard  # noqa
 from . import profiler  # noqa
 from . import memory  # noqa
 from . import serving  # noqa
-from .framework.backward import append_backward  # noqa
+from .framework.backward import append_backward, gradients  # noqa
+from .framework import ir  # noqa
 
 __version__ = "0.1.0"

@@ -14,8 +14,13 @@ Recompute (``checkpoints``) re-emits each segment's forward ops before
 its grad ops, as the JAX package does (``_emit_with_recompute``); the
 executor pairs each grad op with the re-emitted copy (ops/registry.py
 ``plan_grads``), so only checkpoints and values read across segments
-stay alive from the forward to the backward.  ``gradients`` /
-``calc_gradient`` wait for a later slice.
+stay alive from the forward to the backward.
+
+``gradients`` / ``calc_gradient`` differentiate targets with respect to
+any inputs, through grad ops too, each pass under a grad suffix of its own
+(``@GRAD``, ``@GRAD2``, ...): a grad op that a later pass differentiates
+keeps a graph of its own result (ops/registry.py
+``_differentiable_grad``).
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ from ..ops.registry import (build_auto_grad_specs, ensure_grad_op_registered,
                             get_op_def)
 from .core import Block, OpRole, Variable, grad_var_name
 
-__all__ = ["append_backward"]
+__all__ = ["append_backward", "gradients", "calc_gradient"]
 
 
 class GradHelper:
@@ -224,3 +229,83 @@ def _written_names(block: Block) -> Set[str]:
     for op in block.ops:
         s.update(op.output_arg_names())
     return s
+
+
+def gradients(targets, inputs, target_gradients=None, no_grad_set=None):
+    """Grads of sum(targets) with respect to `inputs` (a list, None where
+    an input gets no grad), as the JAX package's ``gradients``.  It
+    differentiates Backward-role ops too, so a pass over the result of an
+    earlier one gives higher-order grads; each pass takes the first
+    suffix no var of the block ends with yet, so two passes never
+    accumulate into each other's grads."""
+    from .core import grad_suffix_guard
+
+    targets = targets if isinstance(targets, (list, tuple)) else [targets]
+    inputs = inputs if isinstance(inputs, (list, tuple)) else [inputs]
+    block = targets[0].block
+    suffix = "@GRAD"
+    k = 1
+    existing = set(block.vars)
+    while any(n.endswith(suffix) for n in existing):
+        k += 1
+        suffix = f"@GRAD{k}"
+    with grad_suffix_guard(suffix):
+        return _calc_gradient(targets, inputs, target_gradients,
+                              no_grad_set)
+
+
+def _calc_gradient(targets, inputs, target_gradients, no_grad_set):
+    block = targets[0].block
+    no_grad = _collect_no_grad(block, no_grad_set)
+    for i, t in enumerate(targets):
+        tg = (target_gradients[i]
+              if target_gradients and i < len(target_gradients) else None)
+        gname = grad_var_name(t.name)
+        if tg is None:
+            block.append_op("fill_any_like", inputs={"X": [t.name]},
+                            outputs={"Out": [gname]},
+                            attrs={"value": 1.0, "dtype": t.dtype,
+                                   "op_role": OpRole.Backward})
+        else:
+            block.append_op("assign", inputs={"X": [tg.name]},
+                            outputs={"Out": [gname]},
+                            attrs={"op_role": OpRole.Backward})
+    # Forward and Backward roles: a later pass differentiates an earlier
+    # pass's grad ops (only the optimizer's ops are left out)
+    fwd_ops = [op for op in block.ops
+               if op.attr("op_role") in (OpRole.Forward,
+                                         OpRole.Forward | OpRole.Loss,
+                                         OpRole.Backward)]
+    grads_available = {t.name for t in targets}
+    helper = GradHelper(block, no_grad)
+    emitted = []
+    for op in reversed(fwd_ops):
+        if not any(o in grads_available for o in op.output_arg_names()):
+            continue
+        opdef = get_op_def(op.type)
+        if opdef.grad is None:
+            continue
+        specs = (opdef.grad(op, block, helper) if callable(opdef.grad)
+                 else build_auto_grad_specs(op, block, no_grad))
+        for spec in specs:
+            spec["attrs"]["op_role"] = OpRole.Backward
+            spec["attrs"]["__accumulate__"] = True
+            ensure_grad_op_registered(op.type)
+            emitted.append(spec)
+        for names in op.inputs.values():
+            for n in names:
+                v = block._find_var_recursive(n)
+                if v is not None and not v.stop_gradient and n not in no_grad:
+                    grads_available.add(n)
+    for spec in emitted:
+        block.append_op(spec["type"], inputs=spec["inputs"],
+                        outputs=spec["outputs"], attrs=spec["attrs"])
+    block.program.bump()
+    outs = []
+    for x in inputs:
+        gname = grad_var_name(x.name)
+        outs.append(block.var(gname) if block.has_var(gname) else None)
+    return outs
+
+
+calc_gradient = gradients

@@ -171,6 +171,61 @@ class Variable:
         return (f"Variable(name={self.name!r}, shape={self.shape}, "
                 f"dtype={self.dtype}, persistable={self.persistable})")
 
+    # `x + y`, `x * 2`, `x @ w` build ops, as the JAX package's Variable
+    # does (layers/math_op_patch.py)
+    def _binary(self, op_type, other, reverse=False):
+        from ..layers import math_op_patch
+        return math_op_patch.binary(self, other, op_type, reverse)
+
+    def __add__(self, other):
+        return self._binary("elementwise_add", other)
+
+    def __radd__(self, other):
+        return self._binary("elementwise_add", other, reverse=True)
+
+    def __sub__(self, other):
+        return self._binary("elementwise_sub", other)
+
+    def __rsub__(self, other):
+        return self._binary("elementwise_sub", other, reverse=True)
+
+    def __mul__(self, other):
+        return self._binary("elementwise_mul", other)
+
+    def __rmul__(self, other):
+        return self._binary("elementwise_mul", other, reverse=True)
+
+    def __truediv__(self, other):
+        return self._binary("elementwise_div", other)
+
+    def __rtruediv__(self, other):
+        return self._binary("elementwise_div", other, reverse=True)
+
+    def __pow__(self, other):
+        return self._binary("elementwise_pow", other)
+
+    def __matmul__(self, other):
+        return self._binary("matmul_v2", other)
+
+    def __neg__(self):
+        return self._binary("elementwise_mul", -1.0)
+
+    def __lt__(self, other):
+        return self._binary("less_than", other)
+
+    def __le__(self, other):
+        return self._binary("less_equal", other)
+
+    def __gt__(self, other):
+        return self._binary("greater_than", other)
+
+    def __ge__(self, other):
+        return self._binary("greater_equal", other)
+
+    def astype(self, dtype):
+        from ..layers import tensor as tensor_layers
+        return tensor_layers.cast(self, dtype)
+
 
 class Parameter(Variable):
     """Persistable trainable variable."""
@@ -487,3 +542,24 @@ GRAD_SUFFIX = "@GRAD"
 
 def grad_var_name(name: str) -> str:
     return name + GRAD_SUFFIX
+
+
+class grad_suffix_guard:
+    """Sets the grad-var suffix inside the guard.  Higher-order gradients
+    (``backward.gradients``) emit grad ops again over a block
+    that already holds ``@GRAD`` vars; each pass takes a suffix of its own
+    (``@GRAD2``, ``@GRAD3``, ...) so the passes' vars stay apart."""
+
+    def __init__(self, suffix: str):
+        self.suffix = suffix
+
+    def __enter__(self):
+        global GRAD_SUFFIX
+        self._old = GRAD_SUFFIX
+        GRAD_SUFFIX = self.suffix
+        return self
+
+    def __exit__(self, *exc):
+        global GRAD_SUFFIX
+        GRAD_SUFFIX = self._old
+        return False

@@ -392,12 +392,14 @@ def fetch_to_numpy(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
 def _counters():
     """(owner, attribute) of every kernel count: the attention wrappers',
     the product kernel's, the RMSNorm kernel's and the SelectedRows merge
-    kernel's ``.launches``, the attention wrappers' ``.realigned`` and the
+    kernel's ``.launches``, the forward-only convolution route's share of
+    the product kernel's, the attention wrappers' ``.realigned`` and the
     plain versions' ``.calls``."""
+    from ..ops import nn_ops
     from ..ops.cuda import flash_attention, gemm, rms_norm, selected_rows
 
     return flash_attention.counters() + gemm.counters() + \
-        rms_norm.counters() + selected_rows.counters()
+        rms_norm.counters() + selected_rows.counters() + nn_ops.counters()
 
 
 @contextlib.contextmanager

@@ -4,7 +4,10 @@ from .nn import *  # noqa
 from .tensor import *  # noqa
 from .loss import *  # noqa
 from .learning_rate_scheduler import *  # noqa
+from .metric_op import *  # noqa
 from . import nn  # noqa
 from . import tensor  # noqa
 from . import loss  # noqa
 from . import learning_rate_scheduler  # noqa
+from . import metric_op  # noqa
+from . import math_op_patch  # noqa

@@ -1,12 +1,24 @@
-"""Loss layers: ``softmax_with_cross_entropy``,
+"""Loss layers: ``cross_entropy``, ``softmax_with_cross_entropy``,
 ``sigmoid_cross_entropy_with_logits`` and ``square_error_cost`` as in
 ``paddle_tpu/layers/loss.py``."""
 from __future__ import annotations
 
 from ..framework.layer_helper import LayerHelper
 
-__all__ = ["softmax_with_cross_entropy", "sigmoid_cross_entropy_with_logits",
-           "square_error_cost"]
+__all__ = ["cross_entropy", "softmax_with_cross_entropy",
+           "sigmoid_cross_entropy_with_logits", "square_error_cost"]
+
+
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    """-log(p[label]) of probabilities `input` (not logits)."""
+    helper = LayerHelper("cross_entropy")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("cross_entropy",
+                     inputs={"X": [input], "Label": [label]},
+                     outputs={"Y": [out]},
+                     attrs={"soft_label": soft_label,
+                            "ignore_index": ignore_index})
+    return out
 
 
 def softmax_with_cross_entropy(logits, label, soft_label=False,

@@ -1,22 +1,24 @@
 """Graph-building NN layers: the subset of ``paddle_tpu/layers/nn.py`` on
-the BERT, Llama and Wide&Deep paths (Llama generation's dense and paged
-KV-cache ops, and the LR decays' and clips' pointwise ops, included), with
-the
-same arguments, ops and attrs (static graph only)."""
+the BERT, Llama, Wide&Deep, LeNet and ResNet paths (Llama generation's
+dense and paged KV-cache ops, the LR decays' and clips' pointwise ops,
+convolution, pooling and batch norm included), with the same arguments,
+ops and attrs (static graph only)."""
 from __future__ import annotations
 
 import numpy as np
 
-from ..framework.initializer import ConstantInitializer
+from ..framework.initializer import ConstantInitializer, NormalInitializer
 from ..framework.layer_helper import LayerHelper
 
 __all__ = ["fc", "layer_norm", "embedding", "softmax", "matmul",
            "flash_attention",
            "flash_attention_qkv", "dropout", "sqrt", "silu", "exp", "cos",
-           "floor", "ceil", "sigmoid", "square", "flatten", "clip",
-           "clip_by_norm", "mean",
+           "floor", "ceil", "sigmoid", "square", "relu", "tanh", "flatten",
+           "clip", "clip_by_norm", "mean",
            "rms_norm", "rope", "kv_cache_write", "kv_cache_insert",
-           "kv_pool_write", "kv_pool_gather", "cached_attention"]
+           "kv_pool_write", "kv_pool_gather", "cached_attention",
+           "conv2d", "conv2d_transpose", "pool2d", "adaptive_pool2d",
+           "batch_norm"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -193,6 +195,8 @@ floor = _unary("floor")
 ceil = _unary("ceil")
 sigmoid = _unary("sigmoid")
 square = _unary("square")
+relu = _unary("relu")
+tanh = _unary("tanh")
 
 
 def flatten(x, axis=1, name=None):
@@ -331,3 +335,125 @@ def cached_attention(q, cache_k, cache_v, positions, scale=None,
                              "Positions": [positions]},
                      outputs={"Out": [out]}, attrs=attrs)
     return out
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None, data_format="NCHW"):
+    """A 2-D convolution: an OIHW filter drawn from Normal(0, sqrt(2 /
+    fan_in)), the bias added on the channel axis by elementwise_add."""
+    helper = LayerHelper("conv2d", name=name)
+    if isinstance(filter_size, int):
+        filter_size = [filter_size, filter_size]
+    if isinstance(stride, int):
+        stride = [stride, stride]
+    if isinstance(dilation, int):
+        dilation = [dilation, dilation]
+    if isinstance(padding, int):
+        padding = [padding, padding]
+    c_in = input.shape[1] if data_format == "NCHW" else input.shape[-1]
+    w_shape = [num_filters, c_in // groups] + list(filter_size)
+    fan_in = (c_in // groups) * filter_size[0] * filter_size[1]
+    std = (2.0 / fan_in) ** 0.5
+    w = helper.create_parameter(
+        param_attr, w_shape, input.dtype,
+        default_initializer=NormalInitializer(0.0, std))
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("conv2d",
+                     inputs={"Input": [input], "Filter": [w]},
+                     outputs={"Output": [out]},
+                     attrs={"strides": stride, "paddings": padding,
+                            "dilations": dilation, "groups": groups,
+                            "data_format": data_format})
+    if bias_attr is not False:
+        b = helper.create_parameter(bias_attr, [num_filters], input.dtype,
+                                    is_bias=True)
+        pre_act = helper.create_variable_for_type_inference(input.dtype)
+        helper.append_op("elementwise_add", inputs={"X": [out], "Y": [b]},
+                         outputs={"Out": [pre_act]},
+                         attrs={"axis": 1 if data_format == "NCHW" else 3})
+    else:
+        pre_act = out
+    return helper.append_activation(pre_act, act)
+
+
+def conv2d_transpose(*args, **kwargs):
+    raise NotImplementedError(
+        "conv2d_transpose is not ported yet (ROADMAP.md queue 1, item 7: "
+        "the rest of nn_ops)")
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, name=None, exclusive=True,
+           data_format="NCHW"):
+    helper = LayerHelper("pool2d", name=name)
+    if isinstance(pool_size, int):
+        pool_size = [pool_size, pool_size]
+    if isinstance(pool_stride, int):
+        pool_stride = [pool_stride, pool_stride]
+    if isinstance(pool_padding, int):
+        pool_padding = [pool_padding, pool_padding]
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("pool2d", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"pooling_type": pool_type, "ksize": pool_size,
+                            "strides": pool_stride,
+                            "paddings": pool_padding,
+                            "global_pooling": global_pooling,
+                            "ceil_mode": ceil_mode, "exclusive": exclusive,
+                            "data_format": data_format})
+    return out
+
+
+def adaptive_pool2d(input, pool_size, pool_type="max", name=None):
+    helper = LayerHelper("adaptive_pool2d", name=name)
+    if isinstance(pool_size, int):
+        pool_size = [pool_size, pool_size]
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("pool2d", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"pooling_type": pool_type, "ksize": pool_size,
+                            "adaptive": True})
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               name=None, moving_mean_name=None, moving_variance_name=None,
+               do_model_average_for_mean_and_var=True,
+               use_global_stats=False):
+    """Batch norm: float32 scale (1) and bias (0) parameters, and the
+    moving mean and variance as persistable state, set to 0 and 1 by the
+    startup program and rewritten by each training step."""
+    from ..framework.core import unique_name
+
+    helper = LayerHelper("batch_norm", name=name)
+    c = (input.shape[1] if data_layout == "NCHW" else input.shape[-1])
+    dtype = "float32"
+    scale = helper.create_parameter(
+        param_attr, [c], dtype,
+        default_initializer=ConstantInitializer(1.0))
+    bias = helper.create_parameter(bias_attr, [c], dtype, is_bias=True)
+    gb = helper.main_program.global_block()
+    mean_name = moving_mean_name or unique_name(f"{helper.name}.mean")
+    var_name = moving_variance_name or unique_name(f"{helper.name}.var")
+    mean = gb.create_var(name=mean_name, shape=[c], dtype=dtype,
+                         persistable=True, stop_gradient=True)
+    variance = gb.create_var(name=var_name, shape=[c], dtype=dtype,
+                             persistable=True, stop_gradient=True)
+    ConstantInitializer(0.0)(mean, helper.startup_program.global_block())
+    ConstantInitializer(1.0)(variance, helper.startup_program.global_block())
+    saved_mean = helper.create_variable_for_type_inference(dtype)
+    saved_var = helper.create_variable_for_type_inference(dtype)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        "batch_norm",
+        inputs={"X": [input], "Scale": [scale], "Bias": [bias],
+                "Mean": [mean], "Variance": [variance]},
+        outputs={"Y": [out], "MeanOut": [mean], "VarianceOut": [variance],
+                 "SavedMean": [saved_mean], "SavedVariance": [saved_var]},
+        attrs={"momentum": momentum, "epsilon": epsilon,
+               "is_test": is_test, "data_layout": data_layout,
+               "use_global_stats": use_global_stats})
+    return helper.append_activation(out, act)

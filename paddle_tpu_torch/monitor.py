@@ -8,8 +8,8 @@ The port's copy of ``paddle_tpu/monitor.py``'s registry (importing the
 JAX package's module would import jax), with the process epoch that
 every uptime the serving surfaces report is measured from
 (``process_start_time`` / ``process_uptime_s``) and the per-device
-stat siblings (``stat_add_per_device``); the graphviz program dump is
-left out.
+stat siblings (``stat_add_per_device``) and the graphviz program dump
+(``program_to_dot`` / ``save_program_dot``, the ``graph_viz`` pass's).
 The port's executor books the reference's stat names:
 ``executor_run_steps``, ``executor_jit_builds`` (builds of a
 compiled-step entry), ``host_syncs`` (every device->host fence the
@@ -145,3 +145,67 @@ def stat_add_per_device(name: str, n_devices: int, n: int = 1):
     series of a stat that every device of a group books."""
     for i in range(max(int(n_devices), 0)):
         monitor.get(f"{name}_dev{i}").increase(n)
+
+
+# ---------------------------------------------------------------------------
+# graphviz program dump (the JAX package's, for the graph_viz pass)
+# ---------------------------------------------------------------------------
+
+def _esc(s: str) -> str:
+    return s.replace('"', '\\"')
+
+
+def program_to_dot(program, block_idx: int = 0,
+                   max_var_len: int = 40) -> str:
+    """One block's op / var dataflow as graphviz DOT: ops are boxes,
+    variables ellipses (persistables shaded), edges follow def-use; an
+    op that owns a sub-block names its index."""
+    block = program.block(block_idx)
+    lines = ["digraph G {", '  rankdir="TB";',
+             '  node [fontsize=10];']
+    var_nodes = set()
+
+    def var_node(name):
+        if name in var_nodes:
+            return
+        var_nodes.add(name)
+        v = block._find_var_recursive(name)
+        shape_s = ""
+        if v is not None and v.shape is not None:
+            shape_s = "\\n" + str(tuple(v.shape))
+        style = ""
+        if v is not None and getattr(v, "persistable", False):
+            style = ', style=filled, fillcolor="lightgrey"'
+        label = name if len(name) <= max_var_len \
+            else name[:max_var_len - 3] + "..."
+        lines.append(f'  "v_{_esc(name)}" [label="{_esc(label)}{shape_s}"'
+                     f', shape=ellipse{style}];')
+
+    for i, op in enumerate(block.ops):
+        extra = ""
+        sub = op.attrs.get("sub_block")
+        if sub is None:
+            sub = op.attrs.get("true_block")
+        if sub is not None:
+            extra = f"\\n[sub_block {sub}]"
+        lines.append(f'  "op_{i}" [label="{_esc(op.type)}{extra}", '
+                     'shape=box, style=filled, fillcolor="lightblue"];')
+        for name in op.input_arg_names():
+            if not name:
+                continue
+            var_node(name)
+            lines.append(f'  "v_{_esc(name)}" -> "op_{i}";')
+        for name in op.output_arg_names():
+            if not name:
+                continue
+            var_node(name)
+            lines.append(f'  "op_{i}" -> "v_{_esc(name)}";')
+    lines.append("}")
+    return "\n".join(lines)
+
+
+def save_program_dot(program, path: str, block_idx: int = 0):
+    """Write ``program_to_dot`` to `path`; returns `path`."""
+    with open(path, "w") as f:
+        f.write(program_to_dot(program, block_idx))
+    return path

@@ -61,11 +61,14 @@ MAX_CAPTURE_SEC = 60.0
 # the file a capture in flight leaves in FLAGS_metrics_dir: its pid, its
 # wall-clock start and its length
 CAPTURE_MARK = "profile_capture.json"
-# a marked capture excuses a silent /healthz for this many times its
-# length from its start: the recording, then the stop and the export,
-# which silenced /healthz for 0.61-1.02 s a second recorded under
-# traffic on an H100 (probe_profilez.py)
-CAPTURE_WAIVER_FACTOR = 3.0
+# a marked capture excuses a silent /healthz from its start until this
+# many seconds after its recording ends, unless its mark goes first: the
+# stop and the export outlast the recording by a time that follows the
+# events recorded and the host's load (a 2 s capture of a BERT-base
+# replica under traffic came back after 21.6 s on an H100's host,
+# chip_smoke.py phase 12a), and the mark is removed when they end, so
+# the bound only decides how long a replica hung mid-capture lives
+CAPTURE_STOP_S = 120.0
 
 
 # ---------------------------------------------------------------------------
@@ -217,7 +220,10 @@ def _capture_dir() -> str:
 def _profile_for(sec: float, target: str):
     """Trace `sec` seconds of whatever the process runs with
     ``torch.profiler`` and write ``trace.json`` (Chrome format) into
-    `target`."""
+    `target`.  Each stage (started, recorded, stopped, exported) is
+    logged with its seconds from the start: the profiler's calls hold
+    the GIL, so the last line a silent process logged names the stage
+    it is in."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -225,9 +231,49 @@ def _profile_for(sec: float, target: str):
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(target, exist_ok=True)
+    t0 = time.monotonic()
+
+    def stage(what):
+        logger.info("profile capture %s: %s after %.3f s", target, what,
+                    time.monotonic() - t0)
+
     with profile(activities=activities) as prof:
+        stage("started")
         time.sleep(sec)
-    prof.export_chrome_trace(os.path.join(target, "trace.json"))
+        stage("recorded")
+    stage("stopped")
+    _export_trace(prof, os.path.join(target, "trace.json"))
+    stage("exported")
+
+
+# where a trace is exported first: memory (tmpfs), so the profiler's
+# write, which holds the GIL, never waits on a disk
+TRACE_SCRATCH = "/dev/shm"
+
+
+def _export_trace(prof, path: str):
+    """``prof.export_chrome_trace(path)`` without disk I/O under the GIL:
+    the profiler writes the trace into TRACE_SCRATCH, and this thread
+    copies it to `path` (file writes release the GIL, so a slow disk
+    stalls this thread alone).  Where TRACE_SCRATCH is missing or the
+    trace does not fit there, the profiler writes `path` itself."""
+    import shutil
+    import tempfile
+
+    try:
+        scratch = tempfile.mkdtemp(prefix="trace-", dir=TRACE_SCRATCH)
+    except OSError:
+        prof.export_chrome_trace(path)
+        return
+    try:
+        staged = os.path.join(scratch, "trace.json")
+        prof.export_chrome_trace(staged)
+        if os.path.exists(staged) and os.path.getsize(staged) > 0:
+            shutil.copyfile(staged, path)
+        else:
+            prof.export_chrome_trace(path)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
 
 
 def _mark_capture(sec: float) -> Optional[str]:
@@ -255,8 +301,7 @@ def capture_waiver_until(metrics_dir: str, pid: int) -> Optional[float]:
             doc = json.load(f)
         if doc.get("pid") != pid:
             return None
-        return float(doc["started"]) + \
-            CAPTURE_WAIVER_FACTOR * float(doc["sec"])
+        return float(doc["started"]) + float(doc["sec"]) + CAPTURE_STOP_S
     except (OSError, ValueError, KeyError, TypeError, AttributeError):
         return None
 

@@ -2,9 +2,10 @@
 
 Counterpart of ``paddle_tpu/ops/math_ops.py`` for the ops on the BERT
 and Llama paths: ``elementwise_add/sub/mul/div/max/min/pow`` with Paddle
-``axis`` broadcasting, ``less_than``, ``equal``, ``scale``, ``mul``,
-``gelu``, ``relu``, ``silu``, ``sigmoid``, ``square``, ``sqrt``, ``exp``,
-``cos``, ``floor``, ``ceil``, ``sign``, ``pow``, ``cast``, ``reduce_sum``,
+``axis`` broadcasting, the six comparisons, ``scale``, ``mul``,
+``gelu``, ``relu``, ``silu``, ``sigmoid``, ``tanh``, ``square``, ``sqrt``,
+``exp``, ``cos``, ``floor``, ``ceil``, ``sign``, ``pow``, ``assign``,
+``cast``, ``reduce_sum``,
 ``reduce_mean``, ``mean`` and ``sum``; ``matmul`` / ``matmul_v2`` (BERT's
 unfused attention); and for the training recipe (LR decays, clips, L1
 decay) ``clip``, ``clip_by_norm`` and ``global_norm_sq``.  The
@@ -117,7 +118,11 @@ def _make_cmp(op_type, fn):
 
 
 _make_cmp("less_than", lambda x, y: x < y)
+_make_cmp("less_equal", lambda x, y: x <= y)
+_make_cmp("greater_than", lambda x, y: x > y)
+_make_cmp("greater_equal", lambda x, y: x >= y)
 _make_cmp("equal", lambda x, y: x == y)
+_make_cmp("not_equal", lambda x, y: x != y)
 
 
 # ---------------------------------------------------------------------------
@@ -161,6 +166,10 @@ _make_unary("floor", lambda x, op: torch.floor(x))
 _make_unary("ceil", lambda x, op: torch.ceil(x))
 _make_unary("square", lambda x, op: x * x)
 _make_unary("sign", lambda x, op: torch.sign(x), grad=None)
+_make_unary("tanh", lambda x, op: torch.tanh(x))
+# a copy, as Paddle's assign makes one: the output may be state that a
+# later op writes in place, which must not reach the input's storage
+_make_unary("assign", lambda x, op: x.clone())
 
 
 def _clip_value(x, op):
@@ -282,6 +291,22 @@ def _cpu_product(x2: torch.Tensor, y2: torch.Tensor,
     return torch.matmul(x2, y2)
 
 
+def forward_product(a: torch.Tensor, b: torch.Tensor,
+                    differentiated: bool) -> torch.Tensor:
+    """a [..., M, K] @ b [..., K, N] for ``mul``, ``matmul`` and the
+    forward-only convolution, each row with the bits it has in any longer
+    product: the kernel on the card where no grad op differentiates it
+    (``gemm.routes``); elsewhere ``_cpu_product``, one row (a GEMV,
+    summed in another order than the rows of a longer product) computed
+    as the first of two."""
+    if gemm.routes(a, b) and not differentiated:
+        return gemm.matmul(a, b)
+    if a.shape[-2] == 1:
+        return _cpu_product(torch.cat([a, a], dim=-2), b,
+                            differentiated)[..., :1, :]
+    return _cpu_product(a, b, differentiated)
+
+
 @register_op("mul", infer=_mul_infer)
 def _mul(ctx: LowerContext, op: Operator):
     x, y = ctx.get_input(op, "X"), ctx.get_input(op, "Y")
@@ -292,16 +317,7 @@ def _mul(ctx: LowerContext, op: Operator):
     y2 = y.reshape(math.prod(ys[:yd]), -1)
     # an original forward that recompute re-emits is differentiated
     # through its copy: both take the training product
-    differentiated = ctx.differentiates()
-    if gemm.routes(x2, y2) and not differentiated:
-        out = gemm.matmul(x2, y2)
-    elif x2.shape[0] == 1:
-        # one row takes a GEMV path that sums in another order than the
-        # rows of a longer product (the uncached forward's); a decode
-        # step over one slot computes it as the first of two rows
-        out = _cpu_product(torch.cat([x2, x2]), y2, differentiated)[:1]
-    else:
-        out = _cpu_product(x2, y2, differentiated)
+    out = forward_product(x2, y2, ctx.differentiates())
     ctx.set_output(op, "Out", out.reshape(xs[:xd] + ys[yd:]))
 
 
@@ -351,10 +367,7 @@ def _matmul(ctx: LowerContext, op: Operator):
     asks for it; batch dims broadcast, a 1-D operand is a row or a column.
     16-bit operands are summed in float32 and rounded once, as the JAX
     package's ``preferred_element_type`` does; alpha scales the result in
-    its dtype.  The product is chosen as ``mul``'s: the kernel on the card
-    where no grad op differentiates it, on the CPU the kernel's chunked
-    sums for a long K (``_cpu_product``) and one row as the first of two,
-    else ``torch.matmul``."""
+    its dtype.  The product is ``forward_product``'s, as ``mul``'s is."""
     x, y = _promote(ctx.get_input(op, "X"), ctx.get_input(op, "Y"))
     if op.attr("trans_x", op.attr("transpose_X", False)) and x.dim() >= 2:
         x = x.transpose(-1, -2)
@@ -368,15 +381,7 @@ def _matmul(ctx: LowerContext, op: Operator):
     lead = torch.broadcast_shapes(x.shape[:-2], y.shape[:-2])
     x = x.expand(*lead, *x.shape[-2:])
     y = y.expand(*lead, *y.shape[-2:])
-    differentiated = ctx.differentiates()
-    if gemm.routes(x, y) and not differentiated:
-        out = gemm.matmul(x, y)
-    elif x.shape[-2] == 1:
-        # one row as the first of two, as ``mul`` computes it
-        out = _cpu_product(torch.cat([x, x], dim=-2), y,
-                           differentiated)[..., :1, :]
-    else:
-        out = _cpu_product(x, y, differentiated)
+    out = forward_product(x, y, ctx.differentiates())
     if x1:
         out = out.squeeze(-2)
     if y1:

@@ -7,8 +7,9 @@ op's outputs) and ``grad``: ``'auto'`` (default) makes backward emit a
 generic ``<type>_grad`` op whose lowering calls ``torch.autograd.grad``
 on the autograd graph its forward op kept (the JAX package calls
 ``jax.vjp`` on a re-lowered forward, and XLA's CSE drops the second
-forward), a callable builds custom grad op descs, None marks a
-non-differentiable op.  The executor lowers a block's ops in order on
+forward; a grad op that a later ``gradients()`` pass differentiates
+re-lowers its forward too, with ``create_graph``), a callable builds
+custom grad op descs, None marks a non-differentiable op.  The executor lowers a block's ops in order on
 the context's device (framework/executor.py), on the card inside one
 captured CUDA graph.
 """
@@ -124,9 +125,10 @@ class LowerContext:
         """Bind `value` to the state output `out_slot`, which aliases the
         input `in_slot` (an op's ``stateful_outputs``).  Where the input
         is state in ``in_place`` it is written into the input tensor's
-        storage and the output binds that tensor; otherwise the output
-        binds `value` (the non-finite guard needs the old state until it
-        has chosen, and a fed value is the caller's)."""
+        storage (no autograd graph goes with it) and the output binds
+        that tensor; otherwise the output binds `value` (the non-finite
+        guard needs the old state until it has chosen, and a fed value is
+        the caller's)."""
         name = op.single_output(out_slot)
         if name is None:
             return
@@ -134,7 +136,7 @@ class LowerContext:
         if name in self.in_place and name == op.single_input(in_slot) and \
                 isinstance(dst, torch.Tensor) and dst.shape == value.shape:
             if value is not dst:
-                dst.copy_(value)
+                dst.copy_(value.detach())
             value = dst
         self.env[name] = value
 
@@ -349,10 +351,20 @@ def _lower_kept(ctx: LowerContext, opdef: "OpDef", op: Operator,
         env[name] = v
     sub = copy.copy(ctx)  # shares generators, casts, leaves, saved
     sub.env = env
+    grad_op = opdef.lower is _lower_auto_grad
     with torch.enable_grad():
-        opdef.lower(sub, op)
+        if grad_op:  # a grad op that a later grad op differentiates
+            _differentiable_grad(sub, op)
+        else:
+            opdef.lower(sub, op)
     outs = {n: env[n] for n in op.output_arg_names() if n in env}
-    ctx.env.update(outs)
+    if grad_op and op.attr("__accumulate__", False):
+        # the kept graph holds this op's own terms; the block's value sums
+        # them into the other consumers' terms, as _lower_auto_grad does
+        ctx.env.update({n: ctx.env[n] + v if n in ctx.env else v
+                        for n, v in outs.items()})
+    else:
+        ctx.env.update(outs)
     ctx.saved[ctx.op_index] = ({n: env[n] for n in primals},
                                {original_name(n): v for n, v in outs.items()})
     ctx.peak_saved = max(ctx.peak_saved, len(ctx.saved))
@@ -566,6 +578,64 @@ def _lower_auto_grad(ctx: LowerContext, gop: Operator):
         written.add(gname)
 
 
+def _differentiable_grad(ctx: LowerContext, gop: Operator):
+    """Lower the auto-derived grad op `gop` as a function of its inputs in
+    ``ctx.env`` whose results keep a graph back to them, for a later grad
+    op to differentiate (higher-order ``gradients``): its forward op is
+    lowered again on those inputs (a grad op's own forward recursively,
+    from the ``__fwd_desc__`` recorded at build time) and differentiated
+    with ``create_graph``, as the JAX package takes ``jax.vjp`` of the
+    re-lowered forward.  Writes every grad output into ``ctx.env``,
+    without accumulating (the caller sums into the block's value)."""
+    fwd_inputs: Dict[str, List[str]] = gop.attr("__fwd_inputs__")
+    fwd_outputs: Dict[str, List[str]] = gop.attr("__fwd_outputs__")
+    desc = gop.attr("__fwd_desc__")
+    attrs = dict(desc["attrs"]) if desc is not None else {
+        k: v for k, v in gop.attrs.items() if not k.startswith("__fwd_")}
+    fwd_op = Operator(ctx.block, gop.attr("__fwd_type__"), fwd_inputs,
+                      fwd_outputs, attrs)
+    wanted = _grad_slots(gop)
+    diff_names: List[str] = []
+    for slot, i, _ in wanted:
+        n = fwd_inputs[slot][i]
+        if n not in diff_names:
+            diff_names.append(n)
+    env = {n: ctx.get(n) for names in fwd_inputs.values() for n in names}
+    for n in diff_names:
+        if not env[n].requires_grad:  # no graph reaches it from outside
+            env[n] = env[n].detach().requires_grad_(True)
+    sub = copy.copy(ctx)
+    sub.env, sub.casts, sub.op_index = env, {}, -1
+    sub.differentiated = frozenset({-1})  # the training kernels
+    sub.in_place = frozenset()  # state was written by the op's first run
+    fdef = get_op_def(fwd_op.type)
+    if fdef.lower is _lower_auto_grad:
+        _differentiable_grad(sub, fwd_op)
+    else:
+        _lower_with_amp(sub, fdef, fwd_op)
+    outs, cots, seen = [], [], set()
+    for slot, names in fwd_outputs.items():
+        gnames = gop.inputs.get(slot + "@GRAD", [])
+        for i, n in enumerate(names):
+            ov = env.get(n)
+            g = ctx.env.get(gnames[i]) if i < len(gnames) and gnames[i] \
+                else None
+            if n in seen or not isinstance(ov, torch.Tensor) or \
+                    not ov.requires_grad or g is None:
+                continue
+            seen.add(n)
+            outs.append(ov)
+            cots.append(g.to(ov.dtype).reshape(ov.shape))
+    primals = [env[n] for n in diff_names]
+    grads = (torch.autograd.grad(outs, primals, cots, allow_unused=True,
+                                 create_graph=True)
+             if outs else [None] * len(primals))
+    by_name = {n: torch.zeros_like(p) if g is None else g
+               for n, p, g in zip(diff_names, primals, grads)}
+    for slot, i, gname in wanted:
+        ctx.env[gname] = by_name[fwd_inputs[slot][i]]
+
+
 # grad ops with a lowering of their own whose outputs the dead-grad pass
 # covers as it covers the auto-derived ones' (the op skips a dead output)
 SPARSE_GRAD_OPS = frozenset({"lookup_table_sparse_grad"})
@@ -588,12 +658,14 @@ def plan_grads(ops: Sequence[tuple], live: set) -> tuple:
     grad op's ``__fwd_inputs__`` name and its outputs renamed
     (``@RC<k>``, ``@RC_DISCARD<n>``) where the grad op names the
     originals, so outputs are compared by ``original_name``: the grad op
-    pairs with the re-emitted copy, and the original keeps no graph.
-    Raises for a grad op whose forward is not before it in the block."""
+    pairs with the re-emitted copy, and the original keeps no graph.  A
+    grad op that a later ``gradients()`` pass differentiates is itself
+    kept (it re-lowers its forward, ``_differentiable_grad``) and reads
+    no kept graph; its forward counts as differentiated.  Raises for a
+    grad op whose forward is not before it in the block."""
     forward_at: Dict[tuple, int] = {}
     writes: Dict[int, tuple] = {}  # op index -> (type, original outputs)
     first_at: Dict[tuple, int] = {}  # the first op of each such pair
-    keep: Dict[int, set] = {}
     pairs = []
     dead = set()
     for i, op in ops:
@@ -601,12 +673,14 @@ def plan_grads(ops: Sequence[tuple], live: set) -> tuple:
         if op.type in SPARSE_GRAD_OPS:
             dead.update(n for n in op.output_arg_names()
                         if n and n not in live)
+        outs = _frozen({k: [original_name(n) for n in v]
+                        for k, v in op.outputs.items()})
+        # a grad op is a forward too, of the grad ops a later gradients()
+        # pass emits for it
+        forward_at[(op.type, _frozen(op.inputs), outs)] = i
+        writes[i] = (op.type, outs)
+        first_at.setdefault(writes[i], i)
         if opdef is None or opdef.lower is not _lower_auto_grad:
-            outs = _frozen({k: [original_name(n) for n in v]
-                            for k, v in op.outputs.items()})
-            forward_at[(op.type, _frozen(op.inputs), outs)] = i
-            writes[i] = (op.type, outs)
-            first_at.setdefault(writes[i], i)
             continue
         dead.update(n for n in op.output_arg_names()
                     if n and n not in live)
@@ -621,13 +695,25 @@ def plan_grads(ops: Sequence[tuple], live: set) -> tuple:
                 f"grad op {op.type!r} (index {i}) has no forward op before "
                 f"it in its block; the port differentiates the autograd "
                 f"graph its forward kept")
-        keep.setdefault(f, set()).update(fwd_inputs[slot][j]
-                                          for slot, j, _ in wanted)
-        pairs.append((i, f))
+        pairs.append((i, f, {fwd_inputs[slot][j] for slot, j, _ in wanted}))
+    # A grad op that a later grad op differentiates is kept: it re-lowers
+    # its forward (_differentiable_grad) and reads no kept graph, so its
+    # own pairing is dropped.  Latest first: whether an op is kept is
+    # settled by the grad ops after it.
+    keep: Dict[int, set] = {}
+    relowered = set()
+    for i, f, names in reversed(pairs):
+        if i in keep:
+            relowered.add(f)
+            continue
+        keep.setdefault(f, set()).update(names)
+    pairs = [(i, f) for i, f, _ in pairs if i not in keep]
     last = {f: i for i, f in pairs}
     grad_source = {i: (f, last[f] == i) for i, f in pairs}
-    # a kept forward and its original (itself unless re-emitted)
-    differentiated = set(keep) | {first_at[writes[f]] for f in keep}
+    # a kept forward and its original (itself unless re-emitted); a
+    # forward that a kept grad op lowers again computes as it would kept
+    differentiated = set(keep) | relowered | {
+        first_at[writes[f]] for f in set(keep) | relowered}
     return ({f: frozenset(names) for f, names in keep.items()},
             grad_source, frozenset(dead), frozenset(differentiated))
 

@@ -7,8 +7,8 @@ and Llama paths: ``fill_constant``, ``fill_any_like``, ``assign_value``,
 ``slice``, ``tile``, ``lookup_table_v2`` (with its sparse grad,
 ``lookup_table_sparse_grad``), ``where``, ``arg_max`` / ``arg_min``
 (generation's greedy pick), for the masked-gather MLM head ``expand``,
-``stack`` and ``gather_nd``, and for Wide&Deep ``concat`` and
-``flatten2``.
+``stack`` and ``gather_nd``, for Wide&Deep ``concat`` and ``flatten2``,
+and for ``layers.accuracy`` ``top_k`` / ``top_k_v2``.
 Reshape, transpose and slice return views where PyTorch can, as the JAX
 package leaves layout to XLA.  Randomness comes from a per-op ``torch.Generator`` (LowerContext.rng); it
 draws other numbers than jax.random from the same seed.
@@ -542,3 +542,34 @@ def _make_argminmax(op_type, fn):
 
 _make_argminmax("arg_max", lambda x, a, k: torch.argmax(x, dim=a, keepdim=k))
 _make_argminmax("arg_min", lambda x, a, k: torch.argmin(x, dim=a, keepdim=k))
+
+
+def _topk_infer(op, block):
+    x = in_var(op, block, "X")
+    axis = op.attr("axis", -1) % len(x.shape)
+    shape = list(x.shape)
+    shape[axis] = op.attr("k", 1)
+    set_out(op, block, "Out", shape, x.dtype)
+    set_out(op, block, "Indices", shape, "int64")
+
+
+def _topk_lower(ctx, op):
+    """The k largest (``largest`` False: smallest) along ``axis``, ties
+    lower index first as ``lax.top_k`` puts them: a stable sort keeps
+    equal values in index order (``torch.topk`` promises no order on the
+    card)."""
+    if op.single_input("K"):
+        raise NotImplementedError(
+            "top_k's K input (a k read from the device) is not ported; "
+            "the attr k is (ROADMAP.md queue 1, item 7)")
+    x = ctx.get_input(op, "X")
+    k = op.attr("k", 1)
+    axis = op.attr("axis", -1) % x.dim()
+    vals, idx = torch.sort(x.movedim(axis, -1), dim=-1,
+                           descending=op.attr("largest", True), stable=True)
+    ctx.set_output(op, "Out", vals[..., :k].movedim(-1, axis))
+    ctx.set_output(op, "Indices", idx[..., :k].movedim(-1, axis))
+
+
+register_op("top_k", infer=_topk_infer, lower=_topk_lower, grad=None)
+register_op("top_k_v2", infer=_topk_infer, lower=_topk_lower, grad=None)

@@ -318,7 +318,7 @@ def test_read_counts_carries_the_product_kernel():
     rms_norm.rms_norm_rows.launches = 3
     counts, plain, realigned = smoke.read_counts(fa)
     assert counts == (0, 0, 0, 0, 0, 0) and counts.gemm == 5
-    assert counts.rms_norm == 3
+    assert counts.rms_norm == 3 and counts.conv == 0
     assert plain == realigned == 0
     gemm.matmul_reference(torch.zeros(2, 3), torch.zeros(3, 2))
     assert smoke.read_counts(fa)[1] == 1  # the plain version is a gate
@@ -327,6 +327,27 @@ def test_read_counts_carries_the_product_kernel():
     smoke.reset_counts(fa)
     assert gemm.matmul.launches == 0 and gemm.matmul_reference.calls == 0
     assert rms_norm.rms_norm_rows.launches == 0
+
+
+def test_read_counts_carries_the_convolution_route():
+    """The forward-only convolution route's own count of its product
+    kernel launches is read beside the kernel's and reset with it, and a
+    captured step's replays add to it as to the kernel's (the executor's
+    counters); on the CPU the route launches nothing and counts nothing."""
+    from paddle_tpu_torch.framework import executor
+    from paddle_tpu_torch.ops import nn_ops
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    assert (nn_ops.conv2d_rows, "launches") in executor._counters()
+    smoke.reset_counts(fa)
+    nn_ops.conv2d_rows(torch.ones(1, 2, 5, 5), torch.ones(3, 2, 3, 3),
+                       [1, 1], [(1, 1), (1, 1)], [1, 1])
+    assert nn_ops.conv2d_rows.launches == 0
+    nn_ops.conv2d_rows.launches = 53
+    counts = smoke.read_counts(fa)[0]
+    assert counts.conv == 53 and counts.gemm == 0
+    smoke.reset_counts(fa)
+    assert nn_ops.conv2d_rows.launches == 0
 
 
 def test_generation_launch_counts_with_verifies():
@@ -725,6 +746,31 @@ def test_chaos_settings_derive_from_the_probe_and_the_respawn(rate, p99,
     slow = smoke.chaos_settings(_probe(rate, p99, (16.1, 17.0, 15.0)),
                                 respawn)
     assert slow["duration_s"] == math.ceil(1.6 * max(17.0, respawn))
+
+
+@pytest.mark.parametrize("qps,want", [(64.065, 93.655), (133.655, 44.892),
+                                      (600.0, 10.0), (1000.0, 10.0)])
+def test_chaos_batch_window_holds_two_arrivals_a_replica(qps, want):
+    """13b's replicas hold a batch for CHAOS_WINDOW_ARRIVALS of the paced
+    arrivals that reach each (the rate spread over CHAOS_REPLICAS), and
+    never less than CHAOS_ENGINE's 10 ms; the windowed model's argv
+    ends with that window (it wins over the harness's and the model's)
+    and the model it came from is untouched."""
+    from paddle_tpu_torch.tools import chaos
+
+    got = smoke.chaos_batch_window_ms(qps)
+    assert got == pytest.approx(want, abs=1e-3)
+    per_replica_gap_ms = smoke.CHAOS_REPLICAS * 1e3 / qps
+    assert got >= smoke.CHAOS_WINDOW_ARRIVALS * per_replica_gap_ms - 1e-9
+    assert got >= 10.0
+    model = chaos.PredictModel(["--model-dir", "d"]
+                               + list(smoke.CHAOS_ENGINE), None, b"")
+    windowed = smoke.chaos_windowed(model, got)
+    argv = chaos.shared_fleet_argv(windowed, "cpu")
+    last = len(argv) - 1 - argv[::-1].index("--max-delay-ms")
+    assert float(argv[last + 1]) == pytest.approx(got, abs=1e-3)
+    assert model.argv == ["--model-dir", "d"] + list(smoke.CHAOS_ENGINE)
+    assert windowed.poison == model.poison
 
 
 def _chaos_report():
@@ -1596,8 +1642,9 @@ def test_wide_deep_phase_rehearses_on_the_cpu(monkeypatch):
         if hasattr(mod, "resolve_device"):
             monkeypatch.setattr(mod, "resolve_device",
                                 lambda place=None: cpu)
-    for name in ("synchronize", "empty_cache"):
+    for name in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
         monkeypatch.setattr(torch.cuda, name, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
     info = executor.Executor.cache_info
 
     def captured(self):
@@ -1631,8 +1678,211 @@ def test_wide_deep_phase_rehearses_on_the_cpu(monkeypatch):
             for k in ("dense", "sparse", "lazy")] == [0, 6, 6]
     r = smoke.WIDE_DEEP_RUN
     assert r["merge_launches_a_step"] == dict(dense=0, sparse=2, lazy=2)
-    assert r["sparse_vs_dense"]["loss_rel"] <= smoke.WIDE_DEEP_LOSS_RTOL
+    assert r["sparse_vs_dense"]["loss_rel"] <= smoke.LIFE_LOSS_RTOL
     assert r["card_vs_cpu"]["loss_rel"] == 0.0
     assert r["serving"]["batched_equals_single"]
     assert sorted(r["replay_ms"]) == ["dense", "lazy", "sparse"]
     assert profiled == ["wide_deep_lazy"]
+
+
+def test_vision_phase_runs_the_published_configurations():
+    """Phase 19: the book's LeNet recipe (batch 64, Adam 1e-3, 6 steps),
+    ResNet-50 at 224 x 224 and 1000 classes with bench.py's Momentum 0.1 /
+    0.9 (parity at batch 2 for 3 steps, bench.py's leg at batch 64), served
+    at batches 1 and 8; phase 2's convolutions are ResNet-50's."""
+    assert (smoke.LENET_BATCH, smoke.LENET_LR, smoke.LENET_STEPS) == \
+        (64, 1e-3, 6)
+    assert smoke.LENET_SERVE_BATCHES == (1, 64)
+    assert smoke.RESNET == dict(depth=50, image_size=224, class_num=1000)
+    assert (smoke.RESNET_LR, smoke.RESNET_MOMENTUM) == (0.1, 0.9)
+    assert (smoke.RESNET_PARITY_BATCH, smoke.RESNET_PARITY_STEPS) == (2, 3)
+    assert smoke.RESNET_BENCH_BATCH == 64
+    assert smoke.RESNET_SERVE_BATCHES == (1, 8)
+    assert [s[1:] for s in smoke.CONV_SHAPES] == [
+        (3, 224, 64, 7, 2, 3), (64, 56, 64, 3, 1, 1),
+        (1024, 14, 256, 1, 1, 0), (128, 56, 128, 3, 2, 1)]
+
+
+def test_vision_feeds_are_seeded_and_separable(monkeypatch):
+    a = smoke.lenet_feeds(8, 2, 3)
+    b = smoke.lenet_feeds(8, 2, 3)
+    assert a[1]["images"].tobytes() == b[1]["images"].tobytes()
+    f = a[0]
+    assert f["images"].shape == (8, 1, 28, 28) and f["label"].dtype == np.int64
+    # an image's mean intensity is its label / 10 (plus 0.1-sigma noise)
+    means = f["images"].reshape(8, -1).mean(1)
+    np.testing.assert_allclose(means, f["label"].ravel() / 10.0, atol=0.02)
+    monkeypatch.setattr(smoke, "RESNET", dict(depth=18, image_size=32,
+                                              class_num=10))
+    r = smoke.resnet_feeds(2, 1, 4)[0]
+    assert r["images"].shape == (2, 3, 32, 32)
+    assert r["images"].min() >= 0 and r["images"].max() < 1
+    assert r["label"].max() < 10
+
+
+@pytest.mark.parametrize("name,c,hw,oc,k,s,p", smoke.CONV_SHAPES)
+def test_conv_operands_give_the_route_and_the_bound(name, c, hw, oc, k, s,
+                                                     p):
+    """conv_operands' product is the route's convolution (at a 2-image
+    batch of each shape's channels over a small map); the bound counts
+    the shape's bytes and operations."""
+    from paddle_tpu_torch.ops import nn_ops
+
+    hw_small = 9
+    x = torch.randn(2, c, hw_small, hw_small, generator=torch.Generator()
+                    .manual_seed(1))
+    w = torch.randn(oc, c, k, k, generator=torch.Generator().manual_seed(2))
+    a, b = smoke.conv_operands(x, w, s, p)
+    got = nn_ops.conv2d_rows(x, w, [s, s], [(p, p), (p, p)], [1, 1])
+    oh = got.shape[2]
+    want = (a @ b).view(2, oh, oh, oc).permute(0, 3, 1, 2)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    out = (8, oc, (hw + 2 * p - k) // s + 1, (hw + 2 * p - k) // s + 1)
+    bound, by = smoke.conv_bound((8, c, hw, hw), (oc, c, k, k), out)
+    n_x, n_w, n_o = 8 * c * hw * hw, oc * c * k * k, math.prod(out)
+    want_b = 4.0 * (n_x + n_w + n_o) / smoke.PEAK_BYTES_PER_S * 1e3
+    want_o = 2.0 * n_o * c * k * k / smoke.PEAK_FLOP_PER_S["float32"] * 1e3
+    assert bound == max(want_b, want_o)
+    assert by == ("bytes" if want_b >= want_o else "operations")
+
+
+@pytest.mark.parametrize("name,c,hw,oc,k,s,p", smoke.CONV_SHAPES)
+def test_conv_grad_ratios_pass_fp32_grads_and_fail_tf32_ones(name, c, hw,
+                                                              oc, k, s, p):
+    """conv_grad_ratios at each of phase 2's shapes (a 2-image batch over
+    a 9 x 9 map): the training route's float32 grads (conv_grads, on the
+    CPU F.conv2d's backward) equal cudnn_conv_grads' (here the same CPU
+    backward) and lie within the limits; grads of operands
+    truncated to TF32's 10 mantissa bits lie outside them in both."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import nn_ops
+    from paddle_tpu_torch.ops.cuda import gemm
+
+    def randn(shape, seed):
+        return torch.randn(*shape, generator=torch.Generator().manual_seed(
+            seed))
+
+    def tf32(t):
+        return (t.view(torch.int32) & ~0x1FFF).view(torch.float32)
+    x = randn((2, c, 9, 9), 1)
+    w = randn((oc, c, k, k), 2) * (2.0 / (c * k * k)) ** 0.5
+    oh = (9 + 2 * p - k) // s + 1
+    gout = randn((2, oc, oh, oh), 3)
+    port = smoke.conv_grads(nn_ops, x, w, gout, s, p)
+    assert all(torch.equal(a, b) for a, b in zip(
+        port, smoke.cudnn_conv_grads(x, w, gout, s, p, False)))
+    assert max(smoke.conv_grad_ratios(gemm, x, w, gout, s, p, *port)) <= 1
+    xt, wt = tf32(x).requires_grad_(), tf32(w).requires_grad_()
+    grads = torch.autograd.grad(F.conv2d(xt, wt, None, s, p), [xt, wt],
+                                tf32(gout))
+    assert min(smoke.conv_grad_ratios(gemm, x, w, gout, s, p, *grads)) > 1
+
+
+def test_resnet_reckoning_counts_every_conv_output():
+    import paddle_tpu_torch as tpt
+
+    main, _, _ = smoke.build_vision(tpt, "resnet_bf16", 0, 64)
+    types = [op.type for op in main.global_block().ops]
+    assert types.count("conv2d") == 53
+    assert len(smoke.moving_stats(main)) == 2 * 53
+    gib = smoke.resnet_peak_reckoning(main, 64)
+    assert 5 < gib < 40  # ~11 M conv outputs an image, 18 bytes each
+
+
+def test_forward_products_count_convolutions_and_fcs():
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch.models import lenet
+
+    main, startup = tpt.Program(), tpt.Program()
+    with tpt.program_guard(main, startup):
+        images = tpt.layers.data("images", [-1, 1, 28, 28],
+                                 append_batch_size=False)
+        lenet(images)
+    assert smoke.forward_products(main) == 4
+
+
+def test_vision_phase_rehearses_on_the_cpu(monkeypatch):
+    """Phase 19 on the CPU at a tiny size (LeNet batch 8 over 3 steps,
+    ResNet-18 at 32 x 32 and 10 classes, batches 2 and 4, served at 1 and
+    2): every life, card against CPU (here CPU against CPU: equal),
+    captured against eager and the second lives bit for bit, serving's
+    rows alone against the batch; the forward-only products (the port's
+    CPU product rule, read as the product kernel's launches) counted
+    against forward_products.  The card's memory and the capture are
+    stubbed."""
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch import device, inference
+    from paddle_tpu_torch.framework import executor
+    from paddle_tpu_torch.ops import math_ops, nn_ops, registry
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    cpu = torch.device("cpu")
+    for mod in (device, executor, inference):
+        if hasattr(mod, "resolve_device"):
+            monkeypatch.setattr(mod, "resolve_device",
+                                lambda place=None: cpu)
+    for name in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    info = executor.Executor.cache_info
+
+    def captured(self):
+        out = info(self)
+        for e in out["entries"]:
+            e["aot"] = True
+        return out
+    monkeypatch.setattr(executor.Executor, "cache_info", captured)
+    products = [0]
+    product = math_ops._cpu_product
+
+    def counted(x, y, differentiated):
+        products[0] += not differentiated
+        return product(x, y, differentiated)
+    monkeypatch.setattr(math_ops, "_cpu_product", counted)
+    convs = [0]
+    conv = nn_ops.conv2d_rows
+
+    def conv_counted(*args, **kwargs):
+        convs[0] += 1
+        return conv(*args, **kwargs)
+    monkeypatch.setattr(nn_ops, "conv2d_rows", conv_counted)
+
+    def read(fa):
+        counts = smoke.Launches((0,) * 6)
+        counts.gemm, counts.conv = products[0], convs[0]
+        return counts, 0, 0
+
+    def reset(fa):
+        products[0] = convs[0] = 0
+    monkeypatch.setattr(smoke, "read_counts", read)
+    monkeypatch.setattr(smoke, "reset_counts", reset)
+    for name, value in dict(
+            LENET_BATCH=8, LENET_STEPS=3, LENET_SERVE_BATCHES=(1, 2),
+            RESNET=dict(depth=18, image_size=32, class_num=10),
+            RESNET_PARITY_BATCH=2, RESNET_PARITY_STEPS=2,
+            RESNET_BENCH_BATCH=4, RESNET_BENCH_STEPS=3,
+            RESNET_BENCH_FEEDS=2, RESNET_TIMED_REPLAYS=2,
+            RESNET_SERVE_BATCHES=(1, 2), VISION={}, PROFILES={}).items():
+        monkeypatch.setattr(smoke, name, value)
+    monkeypatch.setattr(smoke, "log", lambda msg: None)
+    seed = registry._OP_SEED[0]
+    paths = smoke.vision_flagship(tpt, fa, "a card")
+    assert registry._OP_SEED[0] == seed
+    assert sorted(paths) == ["lenet_serving", "lenet_training",
+                             "resnet50_bench", "resnet50_parity",
+                             "resnet50_serving"]
+    v = smoke.VISION
+    assert v["lenet"]["card_vs_cpu"]["loss_rel"] == 0.0
+    assert v["lenet"]["losses"][-1] < v["lenet"]["losses"][0]
+    # LeNet: 2 convolutions + 2 fcs a request, 3 requests
+    assert paths["lenet_serving"].gemm == 4 * 3
+    assert paths["lenet_serving"].conv == 2 * 3
+    # ResNet-18: 20 convolutions + the fc a request
+    assert paths["resnet50_serving"].gemm == 21 * 3
+    assert paths["resnet50_serving"].conv == 20 * 3
+    assert paths["lenet_training"].conv == 0
+    assert v["resnet_serving"]["batched_equals_single"]
+    assert all(r["rel"] == 0.0 for r in v["resnet_parity"]["losses"])
+    assert v["resnet_parity"]["grad_rel"] == 0.0
+    assert len(v["resnet_bench"]["losses"]) == 3
+    assert "resnet50_bench" in smoke.PROFILES

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no module under paddle_tpu_torch/ (its
 subpackage tools/ included: the port's load generator, chaos harness
 and trace_export), and not chip_smoke.py, time_fp32.py, time_step.py,
-probe_decode_rows.py, probe_fetch.py, probe_profile_records.py,
+probe_chaos_window.py, probe_decode_rows.py, probe_fetch.py,
+probe_profile_records.py, probe_profiler_start.py,
 probe_profilez.py, probe_replica_start.py, probe_serving_host.py or
 probe_train_guard.py, imports jax or the JAX package paddle_tpu."""
 import ast
@@ -17,9 +18,11 @@ def _port_files():
     files = [os.path.join(REPO, "chip_smoke.py"),
              os.path.join(REPO, "time_fp32.py"),
              os.path.join(REPO, "time_step.py"),
+             os.path.join(REPO, "probe_chaos_window.py"),
              os.path.join(REPO, "probe_decode_rows.py"),
              os.path.join(REPO, "probe_fetch.py"),
              os.path.join(REPO, "probe_profile_records.py"),
+             os.path.join(REPO, "probe_profiler_start.py"),
              os.path.join(REPO, "probe_profilez.py"),
              os.path.join(REPO, "probe_replica_start.py"),
              os.path.join(REPO, "probe_serving_host.py"),

@@ -560,8 +560,7 @@ def test_capture_marks_itself_while_it_runs(tmp_path, monkeypatch):
     observatory.capture_profile(0.5)
     doc, until, other = seen
     assert doc["pid"] == os.getpid() and doc["sec"] == 0.5
-    assert until == doc["started"] + \
-        observatory.CAPTURE_WAIVER_FACTOR * 0.5
+    assert until == doc["started"] + 0.5 + observatory.CAPTURE_STOP_S
     assert other is None
     assert not os.path.exists(mark)
     assert observatory.capture_waiver_until(str(tmp_path),

@@ -812,11 +812,14 @@ def test_sigstop_replica_router_reroutes_and_supervisor_recovers(fleet):
         router.close()
 
 
-def test_liveness_deadline_waits_out_a_marked_profile_capture(fleet):
+def test_liveness_deadline_waits_out_a_marked_profile_capture(
+        fleet, monkeypatch):
     """A replica that marks a /profilez capture in its metrics dir (as
     observatory.capture_profile does; torch.profiler's stop and export
     hold its GIL) and goes silent is not SIGKILLed before the capture's
-    waiver plus the liveness deadline; past them it is, and respawns."""
+    waiver (its recording plus the stop's allowance) and the liveness
+    deadline; past them it is, and respawns."""
+    monkeypatch.setattr(observatory, "CAPTURE_STOP_S", 1.5)
     liveness = fleet._liveness_s
     fleet._liveness_s = 1.2
     victim = fleet._replicas[0]
@@ -835,7 +838,7 @@ def test_liveness_deadline_waits_out_a_marked_profile_capture(fleet):
                        "sec": sec}, f)
         t0 = time.monotonic()
         kill(old_pid, signal.SIGSTOP)
-        waiver = observatory.CAPTURE_WAIVER_FACTOR * sec
+        waiver = sec + observatory.CAPTURE_STOP_S
         while time.monotonic() - t0 < waiver:
             assert victim.hung_kills == kills and victim.proc.pid == old_pid
             time.sleep(0.1)
