@@ -374,7 +374,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    a. 11a's saved BERT-base (and its second seed's weights, saved beside
       it) served by two replicas (--workers 1 --max-batch 8
       --max-delay-ms 5): 11a's 64 requests through the router's
-      /predict, 16 closed-loop clients, three rounds.  Gates (tolerance
+      /predict, 16 closed-loop clients, one round.  Gates (tolerance
       0): every answer equals Predictor.run of its rows alone; every
       replica's /statusz names the card; a /profilez trace of a replica
       during traffic holds the fp32 forward's (kernel #1) and the product
@@ -452,10 +452,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
       probe first: such a fleet behind the router, a closed loop of 256
       requests at 32 clients (the rate it sustains and its p99), a
       /profilez trace of one replica under traffic held as 12a's
-      (dispatch_gate; no library product or attention kernel); the
-      harness then runs at half the probe's rate, a forward timeout of 4x
-      its p99 (at least 1 s), the 5 s liveness default and scenarios of
-      1.6x 12a's SIGKILL respawn.  poison_paged and spec_storm run in
+      (dispatch_gate; no library product or attention kernel), then one
+      of its replicas SIGKILLed under closed-loop traffic and timed to
+      ready again; the harness then runs at half the probe's rate, a
+      forward timeout of 4x its p99 (at least 1 s), the 5 s liveness
+      default and scenarios of 1.6x that respawn (its profiler warm-up
+      included; at most CHAOS_MAX_S), but baseline, slow and poison,
+      which kill no replica, of CHAOS_STEADY_S.  poison_paged and spec_storm run in
       this process on GEN (8 layers; paged, pages of 16, 10c's
       buckets; spec_storm speculating); disagg_crash on four replicas of
       Llama-2-7B's widths at 4 layers (four 25.10 GiB
@@ -692,6 +695,27 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    cuDNN's, with TF32 off and deterministic algorithms set by the port
    around each call, its products cuBLAS's).  The "vision:" JSON line
    holds the numbers.
+20. the attention seq2seq (run right after phase 19) at PaddleNLP's
+   IWSLT'15 en-vi widths (embedding and hidden 512, vocabularies 17191
+   and 7709; the reference builder's one bi-GRU encoder layer), feeds a
+   synthetic copy-and-reverse task of ragged lengths 10-50.
+   a. fp32 training at batch 128 (Adam 1e-3, global-norm clip 5.0), 6
+      steps: captured = eager = a second life bit for bit, the loss
+      falls; the card against the port's CPU at batch 8 over 3 steps.
+   b. the beam decode (beam 10 over 50 steps, batches 1 and 16) on a's
+      trained weights and on its startup weights (live hypotheses: at
+      least S2S_LIVE_SHARE of the continuations): encoder and first
+      scores against the CPU, each sentence's selected ids and parents
+      equal up to its first near tie and its ids where it had none,
+      hypotheses well-formed, captured = eager and batched = single bit
+      for bit, the product kernel's launches held to the program.
+   c. lstm, lstmp, gru, rnn and cudnn_lstm at small widths forward and
+      with grads against the CPU, and the book's understand_sentiment.
+   Then the product kernel at every shape b's and c's forward runs sent
+   it: rows bit-equal across the path's M and batches, within
+   gemm.tolerance of the plain version with TF32 and bf16 controls
+   outside it, timed beside torch.matmul and its bound.  The "seq2seq:"
+   JSON line holds the numbers.
 
 Every profiled replay (phases 4, 5, 6, 9, 15, 16 and 17) also holds the
 profiler's launches of the forward, dK/dV and dQ kernels against what the
@@ -967,6 +991,9 @@ SERVE_SWAP_REQUESTS = 16
 # the closed loop runs the 64 requests this many times a worker count
 # (every round gated; the median round's rates reported)
 SERVE_ROUNDS = 3
+# 12a's closed loop through the router runs them once: a round there
+# takes ~12 s of the run's 1200 (the host parses ~3.75 MB a reply)
+FLEET_ROUNDS = 1
 SERVE_PROFILE_REQUESTS = 32
 # 11b: the GEN_PROMPTS handed from a prefill-role server to /adopt
 SERVE_ADOPT = (0, 3, 1)
@@ -1914,20 +1941,24 @@ class Launches(tuple):
     it), with the product kernel's, the RMSNorm kernel's and the
     SelectedRows merge kernel's beside them in ``.gemm``, ``.rms_norm``
     and ``.merge``, and in ``.conv`` those of the product kernel that the
-    forward-only convolution route (nn_ops.conv2d_rows) made."""
+    forward-only convolution route (nn_ops.conv2d_rows) made, in
+    ``.recurrent`` those the recurrences' steps made
+    (sequence_ops.step_product)."""
     gemm = 0
     rms_norm = 0
     merge = 0
     conv = 0
+    recurrent = 0
 
 
 def reset_counts(fa):
-    from paddle_tpu_torch.ops import nn_ops
+    from paddle_tpu_torch.ops import nn_ops, sequence_ops
     from paddle_tpu_torch.ops.cuda import gemm, rms_norm, selected_rows
 
     for w in kernel_wrappers(fa) + (gemm.matmul, rms_norm.rms_norm_rows,
                                     selected_rows.merge_rows,
-                                    nn_ops.conv2d_rows):
+                                    nn_ops.conv2d_rows,
+                                    sequence_ops.step_product):
         w.launches = 0
     for w in tma_wrappers(fa):
         w.realigned = 0
@@ -1939,9 +1970,10 @@ def read_counts(fa):
     """(launches of the six kernels, with the product kernel's in
     ``.gemm`` (the convolution route's share of them in ``.conv``), the
     RMSNorm kernel's in ``.rms_norm`` and the merge kernel's in
-    ``.merge``; plain-version calls; operands realigned for TMA): a path
-    must leave the last two at 0."""
-    from paddle_tpu_torch.ops import nn_ops
+    ``.merge``, the recurrences' share of the product kernel's in
+    ``.recurrent``; plain-version calls; operands realigned for TMA): a
+    path must leave the last two at 0."""
+    from paddle_tpu_torch.ops import nn_ops, sequence_ops
     from paddle_tpu_torch.ops.cuda import gemm, rms_norm, selected_rows
 
     counts = Launches(w.launches for w in kernel_wrappers(fa))
@@ -1949,6 +1981,7 @@ def read_counts(fa):
     counts.rms_norm = rms_norm.rms_norm_rows.launches
     counts.merge = selected_rows.merge_rows.launches
     counts.conv = nn_ops.conv2d_rows.launches
+    counts.recurrent = sequence_ops.step_product.launches
     return (counts, sum(p.calls for p in plain_versions(fa)),
             sum(w.realigned for w in tma_wrappers(fa)))
 
@@ -3229,6 +3262,180 @@ def check_gemm(gemm, build, device):
         f"{ratios['kernel']:.4f} of gemm.tolerance; the controls at least "
         f"{ratios['tf32']:.2f} (TF32) and {ratios['bf16']:.2f} (bf16) of it")
     return time_gemm(gemm, device), ratios
+
+
+def product_key(a, b):
+    """(batch, M, K, N, whether b is a transposed view) of a @ b, a
+    [..., M, K] and b [..., K, N]."""
+    return (math.prod(a.shape[:-2]), a.shape[-2], a.shape[-1], b.shape[-1],
+            b.dim() > 1 and b.shape[-1] > 1 and b.stride(-2) == 1
+            and b.stride(-1) != 1)
+
+
+@contextlib.contextmanager
+def products_taken(into):
+    """Every float32 product that asks the product kernel's route
+    (gemm.routes: every forward-only product, math_ops.forward_product)
+    while the block runs, counted in the dict `into` by product_key.  On
+    the card every such product of phase 20's runs launches the kernel;
+    on the CPU the same shapes are recorded."""
+    import torch
+    from paddle_tpu_torch.ops.cuda import gemm
+
+    real = gemm.routes
+
+    def routes(a, b):
+        if a.dtype == b.dtype == torch.float32:
+            key = product_key(a, b)
+            into[key] = into.get(key, 0) + 1
+        return real(a, b)
+
+    gemm.routes = routes
+    try:
+        yield into
+    finally:
+        gemm.routes = real
+
+
+def tf32_round(x):
+    """float32 `x` rounded to TF32's 10 mantissa bits, to nearest."""
+    import torch
+
+    i = x.contiguous().view(torch.int32)
+    return ((i + 0x1000) & -0x2000).view(torch.float32)
+
+
+def check_path_products(gemm, keys, what, device):
+    """The product kernel at every shape a path sent it (`keys`,
+    product_key's, as products_taken records them), held as check_gemm
+    holds phase 2's shapes: 2-D products grouped by K x N, every row of
+    the product at each of the path's M bit-equal to the same row of the
+    largest M's and of a row-permuted one; batched products grouped by
+    M x K x N, every item at each of the path's batches bit-equal to the
+    same item of the largest batch's and of an item-permuted one; at each
+    shape within gemm.tolerance of the plain version, and the exact
+    products of the operands rounded to TF32 and to bf16 outside it, so
+    the limit is shown to catch reduced precision (TF32 by rounding the
+    operands: cuBLAS takes no TF32 route for a product of one column).
+    Then each shape timed (events, and device time while the profiler
+    sees it) beside torch.matmul (TF32 off), the plain version and
+    gemm_bound.  Returns ({shape: row}, the largest |got -
+    plain| / tolerance of the kernel and the smallest of each control)."""
+    import torch
+
+    if not keys:
+        raise AssertionError(f"{what}: no product reached the kernel")
+    g = torch.Generator(device=device).manual_seed(5)
+    ratios = {"kernel": 0.0, "tf32": math.inf, "bf16": math.inf}
+
+    def randn(*shape):
+        return torch.randn(*shape, device=device, generator=g)
+
+    def operand(lead, K, N, transposed):
+        if transposed:  # a [.., N, K] tensor read as K^T
+            return randn(*lead, N, K).transpose(-1, -2)
+        return randn(*lead, K, N)
+
+    def hold(x, w, got, name):
+        d = (got - gemm.matmul_reference(x, w)).abs()
+        r = float((d / gemm.tolerance(x, w)).max())
+        ratios["kernel"] = max(ratios["kernel"], r)
+        if r > 1:
+            raise AssertionError(f"{what} gemm {name}: max|err| "
+                                 f"{float(d.max())} is {r:.3g} of the "
+                                 f"tolerance")
+        for control, cast in (("tf32", tf32_round),
+                              ("bf16", lambda t: t.bfloat16().float())):
+            c = gemm.matmul_reference(cast(x), cast(w))
+            rc = float(((c - gemm.matmul_reference(x, w)).abs()
+                        / gemm.tolerance(x, w)).max())
+            ratios[control] = min(ratios[control], rc)
+            if not rc > 1:
+                raise AssertionError(f"{what} gemm {name}: the {control} "
+                                     f"control is within the tolerance "
+                                     f"({rc:.3g} of it)")
+
+    cases = []
+    flat, batched = {}, {}
+    for batch, M, K, N, t in keys:
+        if batch == 1:
+            flat.setdefault((K, N, t), set()).add(M)
+        else:
+            batched.setdefault((M, K, N, t), set()).add(batch)
+    for (K, N, t), ms in sorted(flat.items()):
+        top = max(ms)
+        x, w = randn(top, K), operand((), K, N, t)
+        full = gemm.matmul(x, w)
+        perm = torch.randperm(top, device=device, generator=g)
+        same = torch.equal(gemm.matmul(x[perm], w), full[perm])
+        for M in sorted(ms):
+            name = f"M{M}_K{K}_N{N}" + ("_t" if t else "")
+            same = same and torch.equal(gemm.matmul(x[:M], w), full[:M])
+            hold(x[:M], w, full[:M], name)
+            cases.append((name, 1, M, K, N, x[:M], w))
+        if not same:
+            raise AssertionError(f"{what} gemm {K} x {N}: rows differ "
+                                 f"across M {sorted(ms)} or a permutation")
+    for (M, K, N, t), bs in sorted(batched.items()):
+        top = max(bs)
+        x, w = randn(top, M, K), operand((top,), K, N, t)
+        full = gemm.matmul(x, w)
+        perm = torch.randperm(top, device=device, generator=g)
+        wp = w.transpose(1, 2)[perm].transpose(1, 2) if t else w[perm]
+        same = torch.equal(gemm.matmul(x[perm], wp), full[perm])
+        for b in sorted(bs):
+            name = f"B{b}_M{M}_K{K}_N{N}" + ("_t" if t else "")
+            same = same and torch.equal(gemm.matmul(x[:b], w[:b]), full[:b])
+            hold(x[:b], w[:b], full[:b], name)
+            cases.append((name, b, M, K, N, x[:b], w[:b]))
+        if not same:
+            raise AssertionError(f"{what} gemm [{sorted(bs)}] x {M} x {K} "
+                                 f"x {N}: items differ across the batches "
+                                 f"or a permutation")
+    rows, profiled = {}, [True]
+
+    def device(fn, iters):
+        """device_ms while the profiler sees the card: late in a full run
+        it can stop seeing device time (PERF.md §7), and then this and
+        every later device time here are not measured (None)."""
+        if profiled[0]:
+            try:
+                return device_ms(fn, iters)
+            except AssertionError as e:
+                profiled[0] = False
+                log(f"  {what}: device times not measured from here: {e}")
+        return None
+
+    def fmt(t):
+        return "not measured" if t is None else f"{t:.4f}"
+
+    for name, batch, M, K, N, x, w in cases:
+        iters = 20 if batch * M <= 160 else 5
+        ms = cuda_ms(lambda: gemm.matmul(x, w), iters, 3)
+        dev = device(lambda: gemm.matmul(x, w), iters)
+        lib_ms = cuda_ms(lambda: torch.matmul(x, w), iters, 3)
+        lib_dev = device(lambda: torch.matmul(x, w), iters)
+        plain_ms = cuda_ms(lambda: gemm.matmul_reference(x, w), 3, warmup=1)
+        bound, by = gemm_bound(M, N, K, batch)
+        rows[name] = dict(
+            ms=ms, device_ms=dev, plain_ms=plain_ms, library_ms=lib_ms,
+            library_device_ms=lib_dev, bound_ms=bound, bound_by=by,
+            calls=sum(n for k, n in keys.items()
+                      if k[:4] == (batch, M, K, N)))
+        log(f"  {what} gemm {name} ({rows[name]['calls']} calls): kernel "
+            f"{ms:.4f} ms events / {fmt(dev)} ms device, torch.matmul "
+            f"{lib_ms:.4f} / {fmt(lib_dev)} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bound:.4f} ms ({by}): "
+            f"{100 * bound / (dev or ms):.1f}% of "
+            f"{'its device' if dev else 'its events'} time")
+    log(f"  {what}: the product kernel at its {len(rows)} shapes: rows "
+        f"bit-equal across the path's M and batches and a permutation, at "
+        f"most {ratios['kernel']:.4f} of gemm.tolerance; the TF32 and bf16 "
+        f"controls at least {ratios['tf32']:.2f} and {ratios['bf16']:.2f} "
+        f"of it")
+    del cases
+    torch.cuda.empty_cache()
+    return rows, ratios
 
 
 # the RMSNorm kernel (csrc/rms_norm_f32.cu): Llama-2-7B's hidden width,
@@ -5041,8 +5248,67 @@ def profilez_events(url, sup, sec=FLEET_PROFILE_S):
     doc = json.loads(body)
     if status != 200 or "trace.json" not in doc.get("files", []):
         raise AssertionError(f"/profilez on {url}: {status} {doc}")
+    start = capture_start(rep.log_path)
+    start.update(round_trip_s=time.monotonic() - t0, silence_s=gap)
+    CAPTURE_STARTS.append(start)
+    log(f"  /profilez on {url}: the capture's profiler start "
+        f"{start['capture_start_s']} s, the life's warm-up before ready "
+        f"{start['warmup_s']} s")
+    if start["warmup_s"] is None or start["capture_start_s"] is None:
+        raise AssertionError(
+            f"/profilez on {url}: the capture was its process's first "
+            f"profiler start (no warm-up in this life's log before it): "
+            f"{start}")
     with open(os.path.join(doc["dir"], "trace.json")) as f:
         return json.load(f).get("traceEvents", [])
+
+
+# each /profilez capture of the run: the replica life's profiler warm-up
+# (before it reported ready) and the capture's own profiler start, in
+# seconds, from the replica's log
+CAPTURE_STARTS = []
+
+
+def stage_seconds(line, stage):
+    """The seconds a replica log line gives for `stage` ("started after
+    N s"), or None."""
+    key = f"{stage} after "
+    if key not in line:
+        return None
+    return float(line.split(key, 1)[1].split(" s", 1)[0])
+
+
+def capture_start(log_path):
+    """The latest replica life's profiler warm-up (its "stopped after"
+    seconds) and its latest capture's start ("started after"), from its
+    log; None for one the life has not logged.  A respawn's log is
+    appended to its slot's, so the life begins at the last "listening on"
+    line."""
+    from paddle_tpu_torch.observatory import WARMUP_LOG
+
+    try:
+        with open(log_path, errors="replace") as f:
+            lines = f.read().splitlines()
+    except OSError:
+        lines = []
+    life = max([i for i, ln in enumerate(lines) if " listening on " in ln],
+               default=0)
+    warm = capture = None
+    cold = False  # a capture started before any warm-up of the life
+    for ln in lines[life:]:
+        if WARMUP_LOG + ":" in ln:
+            warm = stage_seconds(ln, "stopped")
+        elif "profile capture" in ln and \
+                stage_seconds(ln, "started") is not None:
+            capture = stage_seconds(ln, "started")
+            cold = cold or warm is None
+    return dict(warmup_s=None if cold else warm, capture_start_s=capture)
+
+
+def warmup_seconds(log_path):
+    """The latest replica life's profiler warm-up seconds (0.0 where the
+    life did not warm its profiler)."""
+    return capture_start(log_path)["warmup_s"] or 0.0
 
 
 # how long the supervisor's liveness watchdog waits for a /healthz
@@ -5390,7 +5656,7 @@ def fleet_serving(workdir, second_dir, feeds, want, want_second,
                                          f"{card}")
 
             recs, walls = http_closed_loop(server.url, feeds, want,
-                                           rounds=SERVE_ROUNDS)
+                                           rounds=FLEET_ROUNDS)
             shed = traffic_gate(recs, "traffic")
             rows = sum(f["input_ids"].shape[0] for f in feeds)
             wall = float(np.median(walls))
@@ -5398,7 +5664,7 @@ def fleet_serving(workdir, second_dir, feeds, want, want_second,
             replica = np.asarray([r["replica_ms"] for r in recs])
             hop = client - replica
             out["traffic"] = dict(
-                requests=len(feeds), rows=rows, rounds=SERVE_ROUNDS,
+                requests=len(feeds), rows=rows, rounds=FLEET_ROUNDS,
                 shed=shed, wall_s=wall, round_walls_s=walls,
                 requests_per_s=len(feeds) / wall, rows_per_s=rows / wall,
                 in_process_2_workers=dict(
@@ -5446,6 +5712,7 @@ def fleet_serving(workdir, second_dir, feeds, want, want_second,
             t_kill = time.monotonic()
             os.kill(old_pid, 9)
             respawn_s = wait_ready_again(victim, old_pid, t_kill)
+            respawn_warmup_s = warmup_seconds(victim.log_path)
             deadline = time.monotonic() + 60
             while router.stats()["routable"] < 2:
                 if time.monotonic() > deadline:
@@ -5458,7 +5725,8 @@ def fleet_serving(workdir, second_dir, feeds, want, want_second,
             out["sigkill"] = dict(
                 requests=len(recs),
                 shed=traffic_gate(recs, "traffic through a SIGKILL"),
-                respawn_s=respawn_s, url_kept=victim.url == urls[0],
+                respawn_s=respawn_s, warmup_s=respawn_warmup_s,
+                url_kept=victim.url == urls[0],
                 attribution=victim.last_death["attribution"],
                 ejections=after["ejections"] - before["ejections"],
                 recoveries=after["recoveries"] - before["recoveries"],
@@ -5862,6 +6130,16 @@ CHAOS_DISAGG_ARGV = ("--feat", "8", "--hidden", "16", "--depth", "1",
 CHAOS_DISAGG_ENV = {"FLAGS_serving_prefill_buckets": "64"}
 # the supervisor's liveness deadline: the flag's default
 CHAOS_LIVENESS_MS = 5000.0
+# the seconds of traffic of the scenarios that kill no replica (baseline,
+# slow, poison): the harness's default length, ~690 requests at the
+# probe's half rate on an H100 host; only the scenarios that wait on a
+# respawn take their length from it (chaos_settings)
+CHAOS_STEADY_S = 6.0
+# the longest scenario length 1.6 respawns may set: on a slow host (a
+# 35.3 s respawn, 57 s scenarios, H100 host) the harness alone outran
+# the run's 1200 s; past it a respawn may end after its scenario's
+# traffic, and the harness waits for it (90 s) before its gates
+CHAOS_MAX_S = 24.0
 # phase 13's numbers, for the "loadgen:" and "chaos:" lines
 LOADGEN = {}
 CHAOS = {}
@@ -6155,7 +6433,11 @@ def chaos_probe(model, model_dir):
     give the rate the fleet sustains and its latency; a /profilez trace of
     one replica under closed-loop traffic holds kernel #1's and the product
     kernel's records, every graph replay but the last one dispatch's, no
-    other attention or product kernel (dispatch_gate); every replica exits
+    other attention or product kernel (dispatch_gate); then the last
+    replica SIGKILLed under the harness's own traffic (chaos.run_traffic,
+    open loop at half the probe's rate, the scenarios' load): its
+    respawn's seconds to ready (the scenarios' length follows them:
+    chaos_settings), the router routing to it again; every replica exits
     0 at close.  Returns the probe's numbers and the trace's records."""
     import threading
 
@@ -6177,7 +6459,9 @@ def chaos_probe(model, model_dir):
             rep = lg.run_closed_loop_http(server.url, make_feed, n, clients)
             if rep["ok"] != n:
                 raise AssertionError(f"13b probe: {rep}")
-            out = dict(startup_s=ready, requests=n, clients=clients,
+            out = dict(startup_s=ready, warmup_s={
+                rep.idx: warmup_seconds(rep.log_path)
+                for rep in sup._replicas}, requests=n, clients=clients,
                        requests_per_s=rep["qps"],
                        latency_ms=lat(rep), ops=dict(ops))
             # closed-loop traffic until the trace is back
@@ -6207,6 +6491,44 @@ def chaos_probe(model, model_dir):
             out["trace_dispatches"] = len(dispatches)
             if records["other_attention"] or records["other_product"]:
                 raise AssertionError(f"13b trace records {records}")
+            # a SIGKILL under the scenarios' own load: open-loop traffic
+            # at the harness's rate (chaos_settings), as the scenarios
+            # kill; closed-loop clients saturate the two others and
+            # lengthened this respawn (11.4-18.9 s against the
+            # scenarios' 10.1-10.8 s recoveries, H100 host)
+            qps = chaos_settings(out, 0.0)["qps"]
+
+            def paced():
+                recs = []
+                while not stop.is_set():
+                    recs += chaos.run_traffic(
+                        server.url, 0, qps, 1.0, bodies=model.bodies(0),
+                        poison=model.poison)
+                return recs
+
+            victim = sup._replicas[-1]
+            old_pid = victim.proc.pid
+            stop.clear()
+            join = in_background(paced)
+            time.sleep(0.5)
+            t_kill = time.monotonic()
+            os.kill(old_pid, 9)
+            out["respawn_s"] = wait_ready_again(victim, old_pid, t_kill)
+            out["respawn_warmup_s"] = warmup_seconds(victim.log_path)
+            deadline = time.monotonic() + 60
+            while router.stats()["routable"] < CHAOS_REPLICAS:
+                if time.monotonic() > deadline:
+                    stop.set()
+                    join()
+                    raise AssertionError("13b probe: the respawned replica "
+                                         "was never routed to again")
+                time.sleep(0.1)
+            stop.set()
+            recs = join()
+            out["respawn_traffic"] = dict(
+                requests=len(recs), qps=qps, **{k: sum(
+                    r["outcome"] == k for r in recs) for k in (
+                        "ok", "failed", "shed")})
             close_fleet(sup, router, server, "13b probe fleet")
         finally:
             if server is not None:
@@ -6218,19 +6540,22 @@ def chaos_probe(model, model_dir):
 
 
 def chaos_settings(probe, respawn_s):
-    """The harness's settings from the probe and 12a's SIGKILL respawn:
-    half the rate the fleet sustained; a forward timeout four times the
-    probe's p99 (at least 1 s); the supervisor's liveness deadline at its
-    default; scenarios long enough that a SIGKILL at a quarter of one
-    respawns before it ends: 1.6 times the longer of 12a's respawn and
-    the probe fleet's spawn to ready (a chaos replica respawns under the
-    harness's load, beside two others)."""
-    respawn_s = max([respawn_s] + list(probe["startup_s"].values()))
+    """The harness's settings from the probe and a chaos replica's
+    SIGKILL respawn under closed-loop traffic beside the two others (the
+    probe's: the scenarios' own replicas, argv and load): half the rate
+    the fleet sustained; a forward timeout four times the probe's p99
+    (at least 1 s); the supervisor's liveness deadline at its default;
+    scenarios long enough that a SIGKILL at a quarter of one respawns
+    before it ends: 1.6 times that respawn (its profiler warm-up
+    included, as every replica on the card warms), at most CHAOS_MAX_S;
+    the scenarios that kill no replica CHAOS_STEADY_S."""
     return dict(qps=probe["requests_per_s"] / 2,
                 forward_timeout_ms=max(1000.0,
                                        4.0 * probe["latency_ms"]["p99"]),
                 liveness_timeout_ms=CHAOS_LIVENESS_MS,
-                duration_s=float(math.ceil(1.6 * respawn_s)))
+                duration_s=min(float(math.ceil(1.6 * respawn_s)),
+                               CHAOS_MAX_S),
+                steady_duration_s=CHAOS_STEADY_S)
 
 
 def chaos_gate(report):
@@ -7282,6 +7607,7 @@ def fp16_flagship(tpt, fa, llama_op_seed, bf16_losses):
     flagships' launches by path name."""
     import torch
     from paddle_tpu_torch.ops import registry
+    from paddle_tpu_torch.ops.cuda import gemm
 
     t0 = time.perf_counter()
     op_seed = registry._OP_SEED[0]
@@ -8921,6 +9247,776 @@ def vision_flagship(tpt, fa, card):
     return paths
 
 
+# -- phase 20: the attention seq2seq ----------------------------------------
+
+# PaddleNLP's attention seq2seq example on IWSLT'15 en-vi
+# (examples/machine_translation/seq2seq: embedding and hidden 512,
+# vocabularies 17191 and 7709, batch 128, Adam 1e-3 with a global-norm clip
+# of 5.0, beam 10) through the reference's model functions at their own
+# depth (one bi-GRU encoder layer, a GRU + Luong-attention decoder, no
+# dropout); sources and targets of S2S_LEN steps.  There is no dataset in the
+# repository: the feeds are a synthetic copy-and-reverse task (the target
+# is the source reversed, mapped into the target vocabulary, then EOS),
+# source lengths uniform in S2S_MIN_LEN..S2S_LEN
+S2S = dict(src_vocab=17191, trg_vocab=7709, emb_dim=512, hidden=512)
+S2S_BATCH = 128
+S2S_LEN = 50
+S2S_MIN_LEN = 10
+S2S_LR, S2S_CLIP = 1e-3, 5.0
+S2S_STEPS = 6
+S2S_FEEDS = 3
+# 20a's card-against-CPU lives: batch 8 (cut for the CPU, as 19b's), 3 steps
+S2S_PARITY_BATCH, S2S_PARITY_STEPS = 8, 3
+# 20b: beam 10, max_len 50, batches 1 and 16
+S2S_BEAM, S2S_MAX_LEN = 10, 50
+S2S_DECODE_BATCHES = (1, 16)
+S2S_TIMED_DECODES = 5
+S2S_BOS, S2S_EOS = 0, 1
+S2S_SEED = 2000
+# 20c: the fused family at small widths, card against the port's CPU
+FUSED_B, FUSED_T, FUSED_H, FUSED_D = 4, 7, 16, 8
+# Limits.  20a: the card's life against the same program on the CPU from
+# the card's startup values sums its products and reductions in other
+# orders (cuBLAS and MKL, ~1e-7 relative a sum) through 100 recurrent
+# steps a sentence; each loss within LOSS_RTOL relative, each step-1 grad
+# within S2S_GRAD_RTOL of its tensor's largest magnitude (the conventions'
+# 1e-3 of max), every persistable within LIFE_STATE_RTOL of its norm and a
+# parameter's worst element within 2 lr a step (Adam's normalised step, as
+# phases 18 and 19a).  20b: the encoder's outputs (tanh-bounded) within
+# S2S_ENC_ATOL, the first step's accumulated scores within S2S_SCORE_ATOL;
+# the ids must be equal in every sentence whose every step's candidates
+# (after the finished hypotheses' masking) had the K + 1 best apart by
+# more than S2S_GAP_ULPS ulps of their magnitude (64 at -450, a 50-step
+# score, is 2e-3): a closer pair may swap on either device; and in every
+# sentence each step's selected ids and parents must be equal up to its
+# first step with such a close pair.  20c: forward
+# outputs and grads within S2S_FUSED_RTOL / S2S_FUSED_ATOL.  Everything
+# else bit for bit.
+S2S_GRAD_RTOL = 1e-3
+S2S_ENC_ATOL = 1e-5
+S2S_SCORE_ATOL = 1e-5
+S2S_GAP_ULPS = 64
+# the least share of live continuations in 20b's decode on the startup
+# weights (live_share), so that its gates see the beams' reorder, the
+# attention over live beams and the top-k among live candidates at work
+S2S_LIVE_SHARE = 0.5
+S2S_FUSED_RTOL, S2S_FUSED_ATOL = 1e-4, 1e-5
+S2S_RUN = {}
+
+
+def s2s_feeds(batch, n, seed):
+    """`n` copy-and-reverse feeds of the training program: ragged source
+    lengths in S2S_MIN_LEN..S2S_LEN (token 0 past them), the target the
+    source reversed (its first S2S_LEN - 1 tokens, each mapped into the
+    target vocabulary above EOS) then EOS, teacher-forced from BOS."""
+    rng = np.random.RandomState(seed)
+    trg_v, length = S2S["trg_vocab"], S2S_LEN
+    out = []
+    for _ in range(n):
+        lens = rng.randint(S2S_MIN_LEN, length + 1, batch)
+        src = rng.randint(2, S2S["src_vocab"], (batch, length))
+        src_mask = (np.arange(length)[None] < lens[:, None]).astype(
+            np.float32)
+        src = np.where(src_mask > 0, src, 0).astype(np.int64)
+        trg_out = np.full((batch, length), S2S_EOS, np.int64)
+        trg_mask = np.zeros((batch, length), np.float32)
+        for b, n_b in enumerate(lens):
+            body = src[b, :n_b][::-1][:length - 1] % (trg_v - 2) + 2
+            trg_out[b, :len(body)] = body
+            trg_mask[b, :len(body) + 1] = 1.0
+        trg_in = np.concatenate([np.full((batch, 1), S2S_BOS, np.int64),
+                                 trg_out[:, :-1]], 1)
+        out.append({"src_ids": src, "src_mask": src_mask, "trg_in": trg_in,
+                    "trg_out": trg_out, "trg_mask": trg_mask})
+    return out
+
+
+def build_s2s(tpt, kind, op_seed, batch):
+    """(main, startup, outputs) of phase 20's programs, their ops seeded
+    from `op_seed`: "train" (build_seq2seq_train at S2S, Adam(S2S_LR) with
+    GradientClipByGlobalNorm(S2S_CLIP)) and "infer" (build_seq2seq_infer,
+    beam S2S_BEAM over S2S_MAX_LEN steps; its parameters named as the
+    training program's)."""
+    from paddle_tpu_torch import clip
+    from paddle_tpu_torch.models import (build_seq2seq_infer,
+                                         build_seq2seq_train)
+    from paddle_tpu_torch.ops import registry
+
+    registry.reset_op_seed(op_seed)
+    tpt.reset_unique_name()
+    main, startup = tpt.Program(), tpt.Program()
+    startup._is_startup = True
+    main.random_seed = startup.random_seed = S2S_SEED
+    widths = dict(emb_dim=S2S["emb_dim"], hidden=S2S["hidden"])
+    with tpt.program_guard(main, startup):
+        if kind == "train":
+            _, outs = build_seq2seq_train(batch, S2S_LEN, S2S_LEN,
+                                          S2S["src_vocab"],
+                                          S2S["trg_vocab"], **widths)
+            tpt.optimizer.AdamOptimizer(
+                S2S_LR, grad_clip=clip.GradientClipByGlobalNorm(S2S_CLIP)
+            ).minimize(outs["loss"])
+        else:
+            _, outs = build_seq2seq_infer(
+                batch, S2S_LEN, S2S["src_vocab"], S2S["trg_vocab"],
+                beam_size=S2S_BEAM, max_len=S2S_MAX_LEN, bos_id=S2S_BOS,
+                eos_id=S2S_EOS, **widths)
+    return main, startup, outs
+
+
+def s2s_parity(tpt, fa, main, startup, outs):
+    """20a's card against the CPU at S2S_PARITY_BATCH: S2S_PARITY_STEPS
+    steps on the card, then on the CPU from the card's startup values;
+    step 1's grads fetched on both.  Returns the numbers."""
+    import torch
+
+    params = [p.name for p in main.all_parameters()]
+    grads = [p + "@GRAD" for p in params]
+    feeds = s2s_feeds(S2S_PARITY_BATCH, S2S_PARITY_STEPS, S2S_SEED + 1)
+    fetch = [outs["loss"]] + grads
+    card = training_life(tpt, fa, "20a parity on the card", main, startup,
+                         fetch, feeds)
+    if card[4].gemm or card[4].recurrent:
+        raise AssertionError(f"20a: a training step launched the product "
+                             f"kernel {card[4].gemm} times")
+    start = {n: t.cpu() for n, t in card[2].items()}
+    cpu = training_life(tpt, fa, "20a parity on the CPU", main, startup,
+                        fetch, feeds, start=start,
+                        device=torch.device("cpu"))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card[0], cpu[0]))
+    grad_worst = (0.0, "")
+    for name, g, w in zip(grads, card[5][0][1:], cpu[5][0][1:]):
+        g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+        top = float(np.abs(w).max())
+        r = float(np.abs(g - w).max()) / top if top > 0 else \
+            float(np.abs(g - w).max())
+        grad_worst = max(grad_worst, (r, name))
+    state = state_gap(card[1], cpu[1], "20a card vs CPU", set(params),
+                      S2S_LR * S2S_PARITY_STEPS)
+    log(f"  20a card vs CPU at batch {S2S_PARITY_BATCH}: loss rel "
+        f"{loss_rel:.3e} (limit {LOSS_RTOL:g}), step-1 grads at most "
+        f"{grad_worst[0]:.3e} of their largest ({grad_worst[1]}; limit "
+        f"{S2S_GRAD_RTOL:g}), worst persistable {state[0]:.3e} of its norm "
+        f"({state[1]})")
+    if loss_rel > LOSS_RTOL or grad_worst[0] > S2S_GRAD_RTOL:
+        raise AssertionError("20a: the card and the CPU disagree")
+    return dict(batch=S2S_PARITY_BATCH, card_losses=card[0],
+                cpu_losses=cpu[0], loss_rel=loss_rel,
+                grad_rel=grad_worst[0], state_rel=state[0],
+                cpu_step_ms=cpu[3])
+
+
+def s2s_training(tpt, fa, op_seed, card):
+    """20a: S2S_STEPS fp32 steps at S2S_BATCH (step 1 eager, 2 captures,
+    the rest replay) against a life with every step eager and a second
+    captured life in a fresh executor and scope, bit for bit in every
+    loss and persistable; the loss falls; the replay's time, tokens/s, the
+    eager peak and the graph pool; then the card against the CPU at
+    S2S_PARITY_BATCH (s2s_parity).  Returns (the captured life's launches,
+    its persistables and its startup values: 20b decodes on both)."""
+    main, startup, outs = build_s2s(tpt, "train", op_seed, S2S_BATCH)
+    ops = len(main.global_block().ops)
+    n_params = sum(math.prod(p.shape) for p in main.all_parameters())
+    n_state = sum(math.prod(v.shape) for v in main.list_vars()
+                  if v.persistable)
+    log(f"  20a: seq2seq at {json.dumps(S2S)}, batch {S2S_BATCH}, "
+        f"{S2S_LEN} steps, {ops} ops, {n_params / 1e6:.1f} M parameters, "
+        f"{n_state / 1e6:.1f} M persistable elements")
+    feeds = s2s_feeds(S2S_BATCH, S2S_FEEDS, S2S_SEED)
+    steps = [feeds[i % len(feeds)] for i in range(S2S_STEPS)]
+    fetch = [outs["loss"]]
+    life = training_life(tpt, fa, "20a captured", main, startup, fetch, steps)
+    if life[4].gemm or life[4].recurrent:
+        raise AssertionError(f"20a: a training step launched the product "
+                             f"kernel {life[4].gemm} times")
+    if not life[0][-1] < life[0][0]:
+        raise AssertionError(f"20a: the loss did not fall: {life[0]}")
+    lives_equal(life, training_life(
+        tpt, fa, "20a eager (every step op by op)", main, startup, fetch,
+        steps, eager=True), "20a captured vs eager")
+    lives_equal(life, training_life(
+        tpt, fa, "20a again (fresh executor and scope)", main, startup,
+        fetch, steps), "20a second life")
+    replay_ms = float(np.median(life[3][2:]))
+    tokens = [float(f["trg_mask"].sum()) for f in steps[2:]]
+    tokens_s = float(np.mean(tokens)) * 1e3 / replay_ms
+    log(f"  20a: a replay {replay_ms:.2f} ms median of {len(life[3]) - 2} "
+        f"({tokens_s:.0f} target tokens/s, {np.mean(tokens):.0f} a "
+        f"batch); eager peak {life[6]:.2f} GiB, graph pool "
+        f"{(life[7] or 0) / 2 ** 30:.2f} GiB")
+    S2S_RUN["training"] = dict(
+        card=card, batch=S2S_BATCH, ops=ops, parameters=n_params,
+        persistable_elements=n_state, losses=life[0], step_ms=life[3],
+        replay_ms=replay_ms, target_tokens_per_s=tokens_s,
+        eager_peak_gib=life[6], graph_pool_gib=(life[7] or 0) / 2 ** 30)
+    parity_main, parity_startup, parity_outs = build_s2s(
+        tpt, "train", op_seed, S2S_PARITY_BATCH)
+    S2S_RUN["parity"] = s2s_parity(tpt, fa, parity_main, parity_startup,
+                                   parity_outs)
+    return life[4], life[1], life[2]
+
+
+def beam_steps(main):
+    """Each beam_search op of a decode program: (Scores, PreIds, PreScores,
+    SelectedIds, SelectedScores, ParentIdx) var names, in step order."""
+    return [tuple(op.input(s)[0] for s in ("Scores", "PreIds", "PreScores"))
+            + tuple(op.output(s)[0] for s in ("SelectedIds",
+                                              "SelectedScores",
+                                              "ParentIdx"))
+            for op in main.global_block().ops if op.type == "beam_search"]
+
+
+def encoder_output(main):
+    """The decode program's encoder output [B, S, 2H]: the concat of the
+    two directions (axis 2)."""
+    return next(op.output("Out")[0] for op in main.global_block().ops
+                if op.type == "concat" and op.attr("axis") == 2)
+
+
+def recurrent_products(main):
+    """A decode's launches of the product kernel from its recurrences:
+    two products a step of each gru_rnn, one of each lstm_rnn."""
+    n = 0
+    for op in main.global_block().ops:
+        if op.type in ("gru_rnn", "lstm_rnn"):
+            T = main.global_block().var(op.input("X")[0]).shape[1]
+            n += T * (2 if op.type == "gru_rnn" else 1)
+    return n
+
+
+def step_gaps(steps, K, end_id):
+    """For each step and sentence, the least gap between adjacent
+    candidates among the K + 1 best, as beam_search ranks them (a
+    finished hypothesis offers its frozen score once), and that gap's
+    limit: S2S_GAP_ULPS ulps of the candidates' magnitude.  `steps` holds
+    each step's (Scores [B, K, V], PreIds [B, K], PreScores [B, K])
+    fetched from the card.  Returns (gaps [T, B], limits [T, B])."""
+    gaps, limits = [], []
+    for scores, pre_ids, pre_scores in steps:
+        B, Kin, V = scores.shape
+        cand = scores.astype(np.float32).copy()
+        fin = pre_ids == end_id
+        cand[fin] = np.float32(-1e9)
+        cand[fin, 0] = pre_scores[fin]
+        flat = cand.reshape(B, Kin * V)
+        top = -np.sort(-np.partition(flat, -(K + 1), axis=1)[:, -(K + 1):],
+                       axis=1)
+        gaps.append((top[:, :-1] - top[:, 1:]).min(1))
+        limits.append(S2S_GAP_ULPS * np.spacing(np.abs(top[:, 0]).astype(
+            np.float32)).astype(np.float64))
+    return np.stack(gaps), np.stack(limits)
+
+
+def candidate_gaps(steps, K, end_id):
+    """step_gaps over the whole decode: each sentence's least gap and its
+    largest limit.  Returns (gaps [B], limits [B])."""
+    gaps, limits = step_gaps(steps, K, end_id)
+    return gaps.min(0), limits.max(0)
+
+
+def open_steps(gaps, limits):
+    """[B]: the steps of each sentence before its first step whose K + 1
+    best lay within the limit of each other (all of them where none
+    did): up to there neither device can have swapped a pair."""
+    close = gaps <= limits
+    return np.where(close.any(0), close.argmax(0), close.shape[0])
+
+
+def beam_step_reference(scores, pre_ids, pre_scores, K, end_id):
+    """One beam_search step in numpy, the plain version of the op: a
+    finished hypothesis offers end_id once at its frozen score (the rest
+    of its row -1e9), the K best of the [B, K * V] candidates by a stable
+    sort (ties lower index first, as lax.top_k).  Returns (SelectedIds,
+    SelectedScores, ParentIdx) [B, K]."""
+    B, Kin, V = scores.shape
+    fin = pre_ids == end_id
+    cand = np.where(fin[:, :, None],
+                    np.where(np.arange(V) == 0, pre_scores[:, :, None],
+                             np.float32(-1e9)),
+                    scores).astype(np.float32).reshape(B, Kin * V)
+    order = np.argsort(-cand, axis=1, kind="stable")[:, :K]
+    parent = order // V
+    sel = np.where(np.take_along_axis(fin, parent, 1), end_id, order % V)
+    return (sel.astype(np.int64), np.take_along_axis(cand, order, 1),
+            parent.astype(np.int64))
+
+
+def live_share(steps, end_id):
+    """The share of a decode's continuations (step x sentence x beam,
+    each step's PreIds) that extend a live hypothesis, not a finished
+    one frozen at its score."""
+    pre = np.stack([p for _, p, _ in steps])
+    return float((pre != end_id).mean())
+
+
+def well_formed(ids, scores, lengths, steps, what):
+    """Every hypothesis end-padded past its length and its scores sorted;
+    every finished hypothesis kept, at its frozen score, by the step after
+    it finished (the per-step SelectedIds / SelectedScores / ParentIdx of
+    `steps`)."""
+    B, K, T = ids.shape
+    bad = []
+    for b in range(B):
+        for k in range(K):
+            if lengths[b, k] < T and not (ids[b, k, lengths[b, k]:]
+                                          == S2S_EOS).all():
+                bad.append(f"({b}, {k}) not end-padded")
+    if not (np.diff(scores, axis=1) <= 0).all():
+        bad.append("scores not sorted")
+    frozen = 0
+    for (sel, sc, _), (sel2, sc2, par2) in zip(steps, steps[1:]):
+        fin = sel == S2S_EOS
+        kept = np.take_along_axis(fin, par2, 1)
+        frozen += int(kept.sum())
+        if not ((sel2[kept] == S2S_EOS).all()
+                and (sc2[kept] == np.take_along_axis(sc, par2, 1)[kept])
+                .all()):
+            bad.append("a finished hypothesis moved")
+            break
+    if bad:
+        raise AssertionError(f"{what}: ill-formed hypotheses: {bad[:5]}")
+    return frozen
+
+
+def s2s_decode(tpt, fa, op_seed, trained, startup, card, keys):
+    """20b: the beam decode at S2S_DECODE_BATCHES on 20a's trained
+    weights, then on its startup weights, whose hypotheses stay live
+    (the trained ones favour EOS: most of their continuations extend
+    finished hypotheses).  Each is held by decode_gates; the startup
+    decode's live share must reach S2S_LIVE_SHARE.  The product shapes
+    of the trained weights' eager card runs, one decode at each batch, go
+    into `keys` (products_taken).  Returns the
+    launches of the trained weights' timed batch-16 decodes."""
+    B = max(S2S_DECODE_BATCHES)
+    progs = {b: build_s2s(tpt, "infer", op_seed, b)
+             for b in S2S_DECODE_BATCHES}
+    main = progs[B][0]
+    feeds = s2s_feeds(B, 1, S2S_SEED + 2)[0]
+    feed = {k: feeds[k] for k in ("src_ids", "src_mask")}
+    log(f"  20b: beam {S2S_BEAM} over {S2S_MAX_LEN} steps, "
+        f"{len(main.global_block().ops)} ops a decode at batch {B}")
+    runs, counts = {}, None
+    for what, state in (("trained", trained), ("startup", startup)):
+        runs[what], launches = decode_gates(
+            tpt, fa, progs, state, feed, f"20b {what}",
+            keys if what == "trained" else {})
+        counts = counts or launches
+    live = runs["startup"]["live_share"]
+    if not live >= S2S_LIVE_SHARE:
+        raise AssertionError(f"20b: the startup weights' decode extends "
+                             f"live hypotheses in {live:.3f} of its "
+                             f"continuations, under {S2S_LIVE_SHARE}")
+    S2S_RUN["decode"] = dict(
+        card=card, beam=S2S_BEAM, max_len=S2S_MAX_LEN,
+        ops=len(main.global_block().ops), **runs["trained"],
+        startup_weights=runs["startup"])
+    return counts
+
+
+def decode_gates(tpt, fa, progs, state, feed, what, keys):
+    """One weight set's 20b gates.  An eager run of the batch-16 program
+    on the card and on the CPU
+    (weights copied) fetch the outputs, the encoder's output and every
+    step's candidates: encoder and first-step scores within their limits;
+    every step's beam search on the card equal to beam_step_reference's
+    on the card's own candidates, bit for bit, and its selection the next
+    step's hypotheses (so the live candidates' ranking, ties and parents
+    are held exactly, whatever the drift between the devices); each
+    sentence's selected ids and parents equal on both at every step
+    before its first close pair (open_steps), and its ids and lengths
+    equal where it had none (candidate_gaps); hypotheses well-formed; the
+    live share logged.  Then a Predictor a batch over `state`, captured:
+    the batch-16 decode equal to the eager one bit for bit (captured =
+    eager), each of its sentences decoded alone by the batch-1 Predictor
+    equal to its row bit for bit (batched = single), the product kernel
+    launched as the program says a decode (forward_products +
+    recurrent_products; the recurrences' share in their own count),
+    nothing else counted; timed decodes.  The eager batch-16 run's and
+    an eager batch-1 run's products are recorded into `keys`.  Returns
+    (the numbers, the launches of the timed batch-16 decodes)."""
+    import torch
+
+    B = max(S2S_DECODE_BATCHES)
+    main, _, outs = progs[B]
+    names = [outs[k].name for k in ("ids", "scores", "lengths")]
+    steps = beam_steps(main)
+    enc = encoder_output(main)
+    first_scores = steps[0][0]
+    extra = [enc] + [n for s in steps for n in s]
+    scope = tpt.Scope()
+    for n, t in state.items():
+        scope.set_var(n, t)
+    cpu_scope = tpt.Scope()
+    for n in {v.name for v in main.list_vars() if v.persistable}:
+        cpu_scope.set_var(n, state[n].to("cpu", copy=True))
+    exe = tpt.Executor()
+    t = time.perf_counter()
+    with products_taken(keys):
+        got = exe.run(main, feed=feed, fetch_list=names + extra,
+                      scope=scope, use_program_cache=False)
+    eager_s = time.perf_counter() - t
+    with products_taken(keys):  # the batch-1 program's shapes
+        exe.run(progs[1][0], feed={k: v[:1] for k, v in feed.items()},
+                fetch_list=[progs[1][2]["ids"]], scope=scope,
+                use_program_cache=False)
+    exe.close()
+    t = time.perf_counter()
+    want = tpt.Executor(tpt.CPUPlace()).run(
+        main, feed=feed, fetch_list=names + extra, scope=cpu_scope)
+    cpu_s = time.perf_counter() - t
+    got = [np.asarray(x) for x in got]
+    want = [np.asarray(x) for x in want]
+    ids, scores, lengths = got[:3]
+    by_name = dict(zip(names + extra, got))
+    cpu_by_name = dict(zip(names + extra, want))
+    enc_d = float(np.abs(by_name[enc] - cpu_by_name[enc]).max())
+    first_d = float(np.abs(by_name[first_scores]
+                           - cpu_by_name[first_scores]).max())
+    candidates = [(by_name[s[0]], by_name[s[1]], by_name[s[2]])
+                  for s in steps]
+    gaps, limits = step_gaps(candidates, S2S_BEAM, S2S_EOS)
+    decided = (gaps > limits).all(0)
+    opened = open_steps(gaps, limits)
+    prefix_equal = [all(
+        np.array_equal(by_name[s[slot]][b], cpu_by_name[s[slot]][b])
+        for s in steps[:opened[b]] for slot in (3, 5)) for b in range(B)]
+    ids_equal = [bool(np.array_equal(ids[b], want[0][b])) for b in range(B)]
+    lengths_equal = [bool(np.array_equal(lengths[b], want[2][b]))
+                     for b in range(B)]
+    frozen = well_formed(ids, scores, lengths,
+                         [(by_name[s[3]], by_name[s[4]], by_name[s[5]])
+                          for s in steps], f"{what} on the card")
+    well_formed(want[0], want[1], want[2],
+                [(cpu_by_name[s[3]], cpu_by_name[s[4]], cpu_by_name[s[5]])
+                 for s in steps], f"{what} on the CPU")
+    live = live_share(candidates, S2S_EOS)
+    # each step of the card's beam search against the plain version on
+    # the card's own candidates, bit for bit, and each step's selection
+    # handed on as the next step's hypotheses
+    outputs = [tuple(by_name[n] for n in s[3:]) for s in steps]
+    stepped = sum(all(np.array_equal(r, o) for r, o in zip(
+        beam_step_reference(*c, S2S_BEAM, S2S_EOS), out))
+        for c, out in zip(candidates, outputs))
+    chained = all(np.array_equal(out[0], c[1]) and np.array_equal(out[1], c[2])
+                  for out, c in zip(outputs, candidates[1:]))
+    log(f"  {what} card vs CPU (eager {eager_s:.2f} s, CPU {cpu_s:.2f} s): "
+        f"encoder max|d| {enc_d:.3e} (limit {S2S_ENC_ATOL:g}), step-1 "
+        f"scores max|d| {first_d:.3e} (limit {S2S_SCORE_ATOL:g}); live "
+        f"continuations {live:.4f} of {len(steps)} x {B} x {S2S_BEAM}; "
+        f"steps equal to the plain beam step on the card's candidates "
+        f"{stepped} of {len(steps)}, each handed on: {chained}; "
+        f"steps before each sentence's first pair within the limit "
+        f"{opened.tolist()} ({int(opened.sum())} of {len(steps) * B}), "
+        f"their selected ids and parents equal in {sum(prefix_equal)} of "
+        f"{B}; sentences with no such pair: {int(decided.sum())} of {B} "
+        f"(least gaps {np.round(gaps.min(0), 6).tolist()}, limits "
+        f"{np.round(limits.max(0), 6).tolist()}); ids equal in "
+        f"{sum(ids_equal)} of {B}, lengths in {sum(lengths_equal)}; "
+        f"finished hypotheses kept at their scores: {frozen}")
+    if enc_d > S2S_ENC_ATOL or first_d > S2S_SCORE_ATOL or not all(
+            prefix_equal) or stepped < len(steps) or not chained or not all(
+            ids_equal[b] and lengths_equal[b] for b in range(B)
+            if decided[b]):
+        raise AssertionError(f"{what}: the card and the CPU disagree")
+    del cpu_scope, want, cpu_by_name
+    preds = {b: tpt.inference.Predictor(
+        progs[b][0], feed_names=["src_ids", "src_mask"],
+        fetch_vars=[progs[b][2][k] for k in ("ids", "scores", "lengths")],
+        scope=scope) for b in S2S_DECODE_BATCHES}
+    for b, pred in preds.items():
+        pred.warmup({"src_ids": (b, S2S_LEN), "src_mask": (b, S2S_LEN)})
+    n_products = forward_products(main)
+    n_recurrent = recurrent_products(main)
+    reset_counts(fa)
+    decode_ms = []
+    for _ in range(S2S_TIMED_DECODES):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        whole = preds[B].run(feed)
+        decode_ms.append((time.perf_counter() - t) * 1e3)
+    counts, plain, realigned = read_counts(fa)
+    captured = all(np.array_equal(w, g) for w, g in zip(whole, got[:3]))
+    single_ms, same = [], True
+    for r in range(B):
+        t = time.perf_counter()
+        alone = preds[1].run({k: v[r:r + 1] for k, v in feed.items()})
+        single_ms.append((time.perf_counter() - t) * 1e3)
+        same = same and all(w[r:r + 1].tobytes() == a.tobytes()
+                            for w, a in zip(whole, alone))
+    want_gemm = (n_products + n_recurrent) * S2S_TIMED_DECODES
+    want_rec = n_recurrent * S2S_TIMED_DECODES
+    ms = float(np.median(decode_ms))
+    ms1 = float(np.median(single_ms))
+    log(f"  {what}: a decode at batch {B} {ms:.2f} ms median of "
+        f"{S2S_TIMED_DECODES} ({B * 1e3 / ms:.1f} sentences/s), at batch 1 "
+        f"{ms1:.2f} ms ({1e3 / ms1:.1f} sentences/s); captured = eager: "
+        f"{captured}; each sentence alone = its row: {same}; product "
+        f"kernel launches {counts.gemm} (want {want_gemm}: {n_products} "
+        f"products and {n_recurrent} recurrent steps' a decode), the "
+        f"recurrences' {counts.recurrent} (want {want_rec}), plain "
+        f"{plain}, realigned {realigned}, other {tuple(counts)}")
+    if not (captured and same and counts.gemm == want_gemm
+            and counts.recurrent == want_rec and not plain
+            and not realigned and not any(counts) and not counts.conv
+            and not counts.rms_norm and not counts.merge):
+        raise AssertionError(
+            f"{what}: captured = eager {captured}, batched = single {same}, "
+            f"product launches {counts.gemm} (want {want_gemm}), "
+            f"recurrent {counts.recurrent} (want {want_rec}), plain "
+            f"{plain}, realigned {realigned}, other {tuple(counts)}")
+    for pred in preds.values():
+        pred.close()
+    return dict(
+        batch_ms=ms, batch_sentences_per_s=B * 1e3 / ms, single_ms=ms1,
+        single_sentences_per_s=1e3 / ms1, eager_s=eager_s, cpu_s=cpu_s,
+        products_a_decode=n_products, recurrent_a_decode=n_recurrent,
+        encoder_max_abs=enc_d, first_scores_max_abs=first_d,
+        live_share=live, open_steps=opened.tolist(), steps_plain=stepped,
+        decided=int(decided.sum()), ids_equal=sum(ids_equal),
+        lengths=lengths.tolist(), frozen=frozen,
+        captured_equals_eager=captured, batched_equals_single=same), counts
+
+
+def fused_cases():
+    """20c's programs: (name, op type, inputs, output slots, attrs, grad
+    slots) at FUSED_B x FUSED_T, hidden FUSED_H, input width FUSED_D,
+    ragged lengths."""
+    B, T, H, D = FUSED_B, FUSED_T, FUSED_H, FUSED_D
+    rng = np.random.RandomState(S2S_SEED + 3)
+
+    def r(*shape, scale=0.3):
+        return (rng.randn(*shape) * scale).astype(np.float32)
+
+    lens = np.array([T, 3, 1, 5][:B], np.int64)
+
+    def rnn_weights(mode, layers, ndir):
+        k = {"LSTM": 4, "GRU": 3}.get(mode, 1)
+        ws = []
+        for layer in range(layers):
+            din = D if layer == 0 else H * ndir
+            for _ in range(ndir):
+                ws += [r(din, k * H), r(H, k * H), r(k * H, scale=0.1),
+                       r(k * H, scale=0.1)]
+        return ws
+
+    cases = [
+        ("lstm_peepholes_reverse", "lstm",
+         {"Input": r(B, T, 4 * H), "Weight": r(H, 4 * H),
+          "Bias": r(7 * H, scale=0.1), "Lengths": lens},
+         ("Hidden", "Cell"), {"use_peepholes": True, "is_reverse": True},
+         ("Input", "Weight", "Bias")),
+        ("lstmp", "lstmp",
+         {"Input": r(B, T, 4 * H), "Weight": r(H // 2, 4 * H),
+          "ProjWeight": r(H, H // 2), "Bias": r(4 * H, scale=0.1),
+          "Lengths": lens},
+         ("Projection", "Cell"), {}, ("Input", "Weight", "ProjWeight")),
+    ] + [
+        (f"gru_origin_{o}", "gru",
+         {"Input": r(B, T, 3 * H), "Weight": r(H, 3 * H),
+          "Bias": r(3 * H, scale=0.1), "Lengths": lens},
+         ("Hidden",), {"origin_mode": o}, ("Input", "Weight", "Bias"))
+        for o in (False, True)
+    ] + [
+        (f"{op}_{mode.lower()}_2_layers_bidirectional", op,
+         {"Input": r(B, T, D), "WeightList": rnn_weights(mode, 2, 2),
+          "Lengths": lens},
+         ("Out", "LastH") + (("LastC",) if mode == "LSTM" else ()),
+         {"mode": mode, "hidden_size": H, "num_layers": 2,
+          "is_bidirec": True}, ("Input", "WeightList"))
+        for op, mode in (("rnn", "LSTM"), ("rnn", "GRU"),
+                         ("rnn", "RNN_TANH"), ("rnn", "RNN_RELU"),
+                         ("cudnn_lstm", "LSTM"))
+    ]
+    return cases
+
+
+def fused_program(tpt, op_type, inputs, out_slots, attrs, grad_slots):
+    """(main, feed, fetch names) of one 20c case: the inputs fed, the op,
+    and with `grad_slots` a loss (each float output summed against fixed
+    weights) and its backward, fetching the outputs then the grads."""
+    from paddle_tpu_torch.framework.backward import append_backward
+
+    tpt.reset_unique_name()
+    main, startup = tpt.Program(), tpt.Program()
+    feed, slots = {}, {}
+    rng = np.random.RandomState(7)
+    with tpt.program_guard(main, startup):
+        block = main.global_block()
+        for slot, vals in inputs.items():
+            names = []
+            for j, arr in enumerate(vals if isinstance(vals, list)
+                                    else [vals]):
+                n = f"in_{slot}_{j}"
+                block.create_var(name=n, shape=arr.shape,
+                                 dtype=str(arr.dtype), is_data=True,
+                                 stop_gradient=not (grad_slots and
+                                                    slot in grad_slots))
+                feed[n] = arr
+                names.append(n)
+            slots[slot] = names
+        outs = {s: [f"out_{s}"] for s in out_slots}
+        block.append_op(op_type, inputs=slots, outputs=outs,
+                        attrs=dict(attrs))
+        fetch = [n for ns in outs.values() for n in ns]
+        if grad_slots:
+            parts = []
+            for n in fetch:
+                v = block.var(n)
+                w = rng.uniform(0.5, 1.5, v.shape).astype(np.float32)
+                block.create_var(name=f"w_{n}", shape=w.shape,
+                                 dtype="float32", is_data=True,
+                                 stop_gradient=True)
+                feed[f"w_{n}"] = w
+                parts.append(tpt.layers.reduce_sum(tpt.layers.elementwise_mul(
+                    v, block.var(f"w_{n}"))))
+            loss = parts[0]
+            for p in parts[1:]:
+                loss = tpt.layers.elementwise_add(loss, p)
+            append_backward(loss)
+            fetch += [f"{n}@GRAD" for s in grad_slots for n in slots[s]]
+    return main, feed, fetch
+
+
+def fused_family(tpt, fa, keys):
+    """20c: each fused case on the card against the port's CPU, forward
+    only (the recurrences' products on the product kernel, counted) and
+    with grads (the training route), every output and grad within
+    S2S_FUSED_RTOL / S2S_FUSED_ATOL; the fused ops' outputs zero past a
+    row's length.  Then tests/test_book.py's understand_sentiment (two
+    stacked layers.lstm) trained 3 steps on the card against the CPU from
+    the card's startup values (LIFE_LOSS_RTOL, LIFE_STATE_RTOL).  The
+    forward-only runs' product shapes go into `keys` (products_taken).
+    Returns their launches."""
+    import torch
+
+    worst = (0.0, "")
+    rows, total = {}, Launches((0,) * 6)
+    for name, op_type, inputs, out_slots, attrs, grads in fused_cases():
+        for mode in ("forward", "grads"):
+            main, feed, fetch = fused_program(
+                tpt, op_type, inputs, out_slots, attrs,
+                grads if mode == "grads" else ())
+            if mode == "forward":
+                reset_counts(fa)
+                with products_taken(keys):
+                    got = tpt.Executor().run(main, feed=feed,
+                                             fetch_list=fetch)
+            else:
+                got = tpt.Executor().run(main, feed=feed, fetch_list=fetch)
+            if mode == "forward":
+                counts, plain, realigned = read_counts(fa)
+                if not counts.recurrent or counts.gemm < counts.recurrent \
+                        or plain or realigned or any(counts):
+                    raise AssertionError(f"20c {name}: launches {counts.gemm}"
+                                         f", recurrent {counts.recurrent}")
+                total.gemm += counts.gemm
+                total.recurrent += counts.recurrent
+                rows[name] = counts.recurrent
+            want = tpt.Executor(tpt.CPUPlace()).run(main, feed=feed,
+                                                    fetch_list=fetch)
+            for n, g, w in zip(fetch, got, want):
+                g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+                excess = np.abs(g - w) - S2S_FUSED_RTOL * np.abs(w)
+                worst = max(worst, (float(excess.max() / S2S_FUSED_ATOL),
+                                    f"{name} {mode} {n}"))
+            lens = inputs["Lengths"]
+            for n, g in zip(fetch, got):
+                if n.startswith("out_") and "Last" not in n:
+                    g = np.asarray(g)
+                    if any(g[b, lens[b]:].any() for b in range(len(lens))):
+                        raise AssertionError(f"20c {name}: {n} is not zero "
+                                             f"past a row's end")
+    log(f"  20c: {len(rows)} fused cases forward and with grads, card vs "
+        f"CPU at worst {worst[0]:.3f} of the limit ({worst[1]}); the "
+        f"recurrences' product kernel launches a forward: "
+        f"{json.dumps(rows)}")
+    if worst[0] > 1:
+        raise AssertionError(f"20c: {worst[1]} outside the limits")
+    book = sentiment_life(tpt, fa)
+    S2S_RUN["fused"] = dict(worst_of_limit=worst[0], worst=worst[1],
+                            recurrent_launches=rows, sentiment=book)
+    return total
+
+
+def sentiment_life(tpt, fa):
+    """tests/test_book.py's understand_sentiment at its widths (vocabulary
+    50, batch 16, 12 steps, two stacked layers.lstm of 32, Adam 5e-3):
+    3 steps on the card against the CPU from the card's startup values."""
+    import torch
+
+    rng = np.random.RandomState(0)
+    V, Bn, Tn = 50, 16, 12
+    xv = rng.randint(0, V, (Bn, Tn)).astype(np.int64)
+    half = Bn // 2
+    xv[:half, rng.randint(0, Tn)] = 7
+    xv[half:, rng.randint(0, Tn)] = 13
+    feed = {"words": xv, "ln": np.full((Bn,), Tn, np.int64),
+            "label": np.array([[1]] * half + [[0]] * half, np.int64)}
+    tpt.reset_unique_name()
+    main, startup = tpt.Program(), tpt.Program()
+    startup._is_startup = True
+    with tpt.program_guard(main, startup):
+        L = tpt.layers
+        words = L.data("words", [Bn, Tn], dtype="int64",
+                       append_batch_size=False)
+        ln = L.data("ln", [Bn], dtype="int64", append_batch_size=False)
+        label = L.data("label", [Bn, 1], dtype="int64",
+                       append_batch_size=False)
+        emb = L.embedding(words, size=[V, 32])
+        out1, h1, _ = L.lstm(emb, 32, lengths=ln)
+        out2, h2, _ = L.lstm(out1, 32, lengths=ln)
+        loss = L.mean(L.softmax_with_cross_entropy(
+            L.fc(L.concat([h1, h2], axis=1), size=2), label))
+        tpt.optimizer.AdamOptimizer(5e-3).minimize(loss)
+    card = training_life(tpt, fa, "20c understand_sentiment on the card",
+                         main, startup, [loss], [feed] * 3)
+    cpu = training_life(tpt, fa, "20c understand_sentiment on the CPU", main,
+                        startup, [loss], [feed] * 3,
+                        start={n: t.cpu() for n, t in card[2].items()},
+                        device=torch.device("cpu"))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card[0], cpu[0]))
+    state = state_gap(card[1], cpu[1], "20c understand_sentiment",
+                      {p.name for p in main.all_parameters()}, 5e-3 * 3)
+    log(f"  20c understand_sentiment card vs CPU: loss rel {rel:.3e} "
+        f"(limit {LIFE_LOSS_RTOL:g}), worst persistable {state[0]:.3e}")
+    if rel > LIFE_LOSS_RTOL:
+        raise AssertionError("20c: understand_sentiment card vs CPU")
+    return dict(losses=card[0], loss_rel=rel, state_rel=state[0])
+
+
+def s2s_flagship(tpt, fa, card):
+    """Phase 20: the attention seq2seq trained (20a, s2s_training) and
+    beam-decoded (20b, s2s_decode) at PaddleNLP's widths, then the fused
+    recurrences and the book's sentiment model (20c, fused_family); then
+    the product kernel at every shape 20b's and 20c's forward-only runs
+    sent it (check_path_products).  The op-seed counter is put back
+    afterwards.  Returns the paths' launches."""
+    import torch
+    from paddle_tpu_torch.ops import registry
+    from paddle_tpu_torch.ops.cuda import gemm
+
+    t0 = time.perf_counter()
+    op_seed = registry._OP_SEED[0]
+    paths = {}
+    paths["seq2seq_training"], state, start = s2s_training(tpt, fa, op_seed,
+                                                           card)
+    decode_keys, fused_keys = {}, {}
+    paths["seq2seq_decode"] = s2s_decode(tpt, fa, op_seed, state, start,
+                                         card, decode_keys)
+    del state, start
+    torch.cuda.empty_cache()
+    paths["rnn_fused"] = fused_family(tpt, fa, fused_keys)
+    registry.reset_op_seed(op_seed)
+    device = torch.device("cuda", 0)
+    for what, keys, run in (("20b", decode_keys, "decode"),
+                            ("20c", fused_keys, "fused")):
+        S2S_RUN[run]["products"], S2S_RUN[run]["product_ratios"] = \
+            check_path_products(gemm, keys, what, device)
+    S2S_RUN["card"] = card
+    S2S_RUN["phase_s"] = time.perf_counter() - t0
+    return paths
+
+
 def use_bytecode_cache():
     """Write and read the interpreter's compiled bytecode under
     BYTECODE_CACHE, in this process and every process it starts
@@ -8958,7 +10054,7 @@ def main():
 
     t_start = time.perf_counter()
     card = card_line()
-    log(f"[1/19] device: {card}; torch {torch.__version__}, CUDA "
+    log(f"[1/20] device: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -8976,14 +10072,14 @@ def main():
     gemm._lib()
     rms_norm._lib()
     selected_rows._lib()
-    log(f"[2/19] built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
+    log(f"[2/20] built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
     check_build(build)
     gemm_rows, gemm_ratios = check_gemm(gemm, build, device)
     norm_rows = check_rms_norm(rms_norm, device)
     merge_rows = check_merge(selected_rows, device)
     conv_rows, conv_ratios = check_conv(gemm, device)
 
-    log("[3/19] packed kernels against their plain versions")
+    log("[3/20] packed kernels against their plain versions")
     check_kernel(fa, device)
     check_backward(fa, device)
     fwd_f32 = time_forward_f32(fa, device)
@@ -8999,21 +10095,21 @@ def main():
 
     # each path's launches of the six kernels, each read from 0
     by_path = {}
-    log("[4/19] BERT-base serving through Predictor on the card")
+    log("[4/20] BERT-base serving through Predictor on the card")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         by_path["serving"] = serve(tpt, fa, workdir)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[5/19] BERT-base training, card against the CPU (fp32)")
+    log("[5/20] BERT-base training, card against the CPU (fp32)")
     by_path["training_parity"] = bert_parity(tpt, fa)
     bert_fp32_profile(tpt, fa)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[6/19] bench.py's seq-512 training step on the card (bf16 AMP)")
+    log("[6/20] bench.py's seq-512 training step on the card (bf16 AMP)")
     by_path["training_flagship"], _ = bert_flagship(tpt, fa)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[7/19] unpacked kernels against their plain versions")
+    log("[7/20] unpacked kernels against their plain versions")
     check_unpacked(fa, device)
     unpacked_timing = time_unpacked(fa, device, "bfloat16")
     unpacked_f32 = time_unpacked(fa, device, "float32")
@@ -9031,7 +10127,7 @@ def main():
     # phase 17 runs here, beside phase 7's unpacked kernels: right after
     # phase 16 the profiler saw no device time in any session (my chip
     # runs 4 and 6, PR 20), while phase 7's sessions see it
-    log("[17/19] MiniLM-L12-H384 (kernels #4-#6 at D 32) and bench.py's "
+    log("[17/20] MiniLM-L12-H384 (kernels #4-#6 at D 32) and bench.py's "
         "seq-128 BERT-base step (unfused) on the card")
     paths17, d32_rows = minilm_flagship(tpt, fa, device, card)
     by_path.update(paths17)
@@ -9042,7 +10138,7 @@ def main():
 
     # phase 18 runs beside phase 17, where the profiler still sees the
     # card (PERF.md section 7)
-    log("[18/19] Wide&Deep at the Criteo layout: dense, sparse and lazy "
+    log("[18/20] Wide&Deep at the Criteo layout: dense, sparse and lazy "
         "Adam training lives and the serving net on the card")
     by_path.update(wide_deep_flagship(tpt, fa, card))
     log("wide_deep: " + json.dumps(WIDE_DEEP_RUN))
@@ -9051,7 +10147,7 @@ def main():
 
     # phase 19 runs beside phases 17 and 18, where the profiler still
     # sees the card
-    log("[19/19] LeNet-5 and ResNet-50 on the card: LeNet trained and "
+    log("[19/20] LeNet-5 and ResNet-50 on the card: LeNet trained and "
         "served, ResNet-50 against the CPU, bench.py's ResNet-50 step and "
         "its serving")
     by_path.update(vision_flagship(tpt, fa, card))
@@ -9059,11 +10155,21 @@ def main():
     log(f"  (phase 19 took {VISION['phase_s']:.1f} s; "
         f"{time.perf_counter() - t_start:.1f} s in all)")
 
-    log("[8/19] Llama-2-7B-width training, card against the CPU (fp32)")
+    # phase 20 runs beside phases 17-19, where the profiler still sees
+    # the card
+    log("[20/20] the attention seq2seq at PaddleNLP's IWSLT'15 widths: "
+        "trained and beam-decoded on the card, then the fused recurrences "
+        "and the book's sentiment model")
+    by_path.update(s2s_flagship(tpt, fa, card))
+    log("seq2seq: " + json.dumps(S2S_RUN))
+    log(f"  (phase 20 took {S2S_RUN['phase_s']:.1f} s; "
+        f"{time.perf_counter() - t_start:.1f} s in all)")
+
+    log("[8/20] Llama-2-7B-width training, card against the CPU (fp32)")
     by_path["llama_parity"] = llama_parity(tpt, fa)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[9/19] Llama-2-7B-width training on the card (4 layers, bf16 AMP)")
+    log("[9/20] Llama-2-7B-width training on the card (4 layers, bf16 AMP)")
     llama_op_seed = registry._OP_SEED[0]  # phase 9's startup draws
     by_path["llama_flagship"], losses = llama_flagship(tpt, fa)
     compare_losses(losses)
@@ -9071,7 +10177,7 @@ def main():
 
     # phase 16 runs here, where torch.profiler still sees the card (after
     # phase 14 its sessions have seen no device time or lost records)
-    log("[16/19] float16 AMP with dynamic loss scaling: bench.py's seq-512 "
+    log("[16/20] float16 AMP with dynamic loss scaling: bench.py's seq-512 "
         "step and the Llama-2-7B-width step on the card")
     by_path.update(fp16_flagship(tpt, fa, llama_op_seed, losses))
     FP16["card"] = card
@@ -9080,7 +10186,7 @@ def main():
     log(f"  (phase 16 took {FP16['phase_s']:.1f} s, the fp16 kernel checks "
         f"{f16_s:.1f} s; {time.perf_counter() - t_start:.1f} s in all)")
 
-    log("[10/19] Llama generation serving on the card (dense and paged KV "
+    log("[10/20] Llama generation serving on the card (dense and paged KV "
         "cache, speculative decoding, prefill / decode roles)")
     by_path["generation_parity"] = generation_parity(tpt, fa)
     by_path["generation"], paged_paths, gen_scope, dense_tokens = \
@@ -9091,7 +10197,7 @@ def main():
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
     t11 = time.perf_counter()
-    log("[11/19] the serving stack: BERT-base through ServingEngine, then "
+    log("[11/20] the serving stack: BERT-base through ServingEngine, then "
         "HTTP with Llama-2-7B generation attached")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_serving_") as wd:
         model_dir, second_dir, gen_second_dir = (
@@ -9114,7 +10220,7 @@ def main():
         pred.close()
         del eng, pred, gen_scope
         t12 = time.perf_counter()
-        log("[12/19] the fleet: BERT-base and Llama-2-7B in replica "
+        log("[12/20] the fleet: BERT-base and Llama-2-7B in replica "
             "processes behind the router")
         FLEET["reserved_gib_before"] = release_card(
             "released phases 10 and 11")
@@ -9132,7 +10238,7 @@ def main():
             f"{time.perf_counter() - t_start:.1f} s in all)")
 
         t13 = time.perf_counter()
-        log("[13/19] the port's load generator and chaos harness: "
+        log("[13/20] the port's load generator and chaos harness: "
             "BERT-base and Llama-2-7B fleets (13a's --url legs ran in "
             "phase 12)")
         by_path["loadgen"] = loadgen_in_process(
@@ -9144,19 +10250,20 @@ def main():
         probe = chaos_probe(model, model_dir)
         CHAOS["probe"] = probe
         by_path["chaos_fleet"] = trace_launches(probe["trace_records"], 0)
-        settings = chaos_settings(probe,
-                                  FLEET["serving"]["sigkill"]["respawn_s"])
-        log("  13b settings (from the probe and 12a's respawn): "
+        settings = chaos_settings(probe, probe["respawn_s"])
+        log("  13b settings (from the probe and its replica's respawn): "
             + json.dumps(settings))
         by_path["chaos"] = chaos_flagship(fa, model, settings)
     LOADGEN["card"] = CHAOS["card"] = card
     CHAOS["phase_s"] = time.perf_counter() - t13
     log("loadgen: " + json.dumps(LOADGEN))
     log("chaos: " + json.dumps(CHAOS))
+    log("profilez capture starts (12a, 12b, 13b): "
+        + json.dumps(CAPTURE_STARTS))
     log(f"  (phase 13 took {CHAOS['phase_s']:.1f} s; "
         f"{time.perf_counter() - t_start:.1f} s in all)")
 
-    log("[14/19] bench.py's seq-512 step under TrainGuard: a NaN, a SIGTERM "
+    log("[14/20] bench.py's seq-512 step under TrainGuard: a NaN, a SIGTERM "
         "and a resume, bit for bit")
     release_card("phase 13 closed")
     by_path["train_guard"] = train_guard_flagship(tpt, fa)
@@ -9165,7 +10272,7 @@ def main():
     log(f"  (phase 14 took {GUARD['phase_s']:.1f} s; "
         f"{time.perf_counter() - t_start:.1f} s in all)")
 
-    log("[15/19] recompute: bench.py's seq-512 step and a Llama-2-7B-width "
+    log("[15/20] recompute: bench.py's seq-512 step and a Llama-2-7B-width "
         "decoder at seq 4096 under Llama-2's recipe, plain against "
         "recompute, bit for bit")
     release_card("phase 14 closed")
@@ -9261,7 +10368,10 @@ def main():
         launches=by_path["generation"].gemm,
         launches_by_path={p: getattr(n, "gemm", None)
                           for p, n in by_path.items()},
-        trace_record_paths=list(TRACE_PATHS), tolerance_ratio=gemm_ratios, shapes=gemm_rows))
+        trace_record_paths=list(TRACE_PATHS), tolerance_ratio=gemm_ratios,
+        shapes=gemm_rows, seq2seq_shapes={
+            path: S2S_RUN[run]["products"] for path, run in (
+                ("seq2seq_decode", "decode"), ("rnn_fused", "fused"))}))
     # the RMSNorm kernel: its row the decode step's [4, 4096]
     kernels.append(dict(
         name="rms_norm_f32", route="cuda", source=src + "rms_norm_f32.cu",
@@ -9312,7 +10422,7 @@ def main():
         f"(phase 16 {FP16['phase_s']:.1f} s, the fp16 kernel checks "
         f"{f16_s:.1f} s, phase 17 {MINILM_RUN['phase_s']:.1f} s, phase 18 "
         f"{WIDE_DEEP_RUN['phase_s']:.1f} s, phase 19 "
-        f"{VISION['phase_s']:.1f} s)")
+        f"{VISION['phase_s']:.1f} s, phase 20 {S2S_RUN['phase_s']:.1f} s)")
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

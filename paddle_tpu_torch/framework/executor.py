@@ -392,14 +392,15 @@ def fetch_to_numpy(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
 def _counters():
     """(owner, attribute) of every kernel count: the attention wrappers',
     the product kernel's, the RMSNorm kernel's and the SelectedRows merge
-    kernel's ``.launches``, the forward-only convolution route's share of
-    the product kernel's, the attention wrappers' ``.realigned`` and the
-    plain versions' ``.calls``."""
-    from ..ops import nn_ops
+    kernel's ``.launches``, the forward-only convolution route's and the
+    recurrences' shares of the product kernel's, the attention wrappers'
+    ``.realigned`` and the plain versions' ``.calls``."""
+    from ..ops import nn_ops, sequence_ops
     from ..ops.cuda import flash_attention, gemm, rms_norm, selected_rows
 
     return flash_attention.counters() + gemm.counters() + \
-        rms_norm.counters() + selected_rows.counters() + nn_ops.counters()
+        rms_norm.counters() + selected_rows.counters() + \
+        nn_ops.counters() + sequence_ops.counters()
 
 
 @contextlib.contextmanager
@@ -651,8 +652,8 @@ class CompiledStep:
         """Seed every generator for a replay at run `step`, as an eager run
         at `step` seeds it (a replay reads each registered generator's
         seed and offset when it starts)."""
-        for (op_seed, _), g in self.generators.items():
-            g.manual_seed(run_seed(self.random_seed, step, op_seed))
+        for (op_seed, _, fold), g in self.generators.items():
+            g.manual_seed(run_seed(self.random_seed, step, op_seed, fold))
 
     def _capture(self, feeds, state):
         """Capture the step into a new graph over static feed buffers and

@@ -10,7 +10,7 @@ the int64 ``@LR_DECAY_COUNTER@`` back as int32.
 """
 from __future__ import annotations
 
-from typing import Mapping, Optional
+from typing import Mapping, Sequence, Union
 
 import numpy as np
 
@@ -21,12 +21,16 @@ __all__ = ["scope_from_arrays"]
 
 
 def scope_from_arrays(arrays: Mapping[str, np.ndarray], device,
-                      program: Optional[Program] = None) -> Scope:
+                      program: Union[Program, Sequence[Program], None] = None
+                      ) -> Scope:
     """A Scope holding each array as a tensor on `device`.
 
     With `program`, the names must be exactly the program's persistable
     vars, each array must have its var's shape, and it is converted to
-    its var's dtype; a missing, unknown or misshapen entry raises.
+    its var's dtype; a missing, unknown or misshapen entry raises.  A
+    list of programs that share parameters by name (a seq2seq's training
+    and decoding programs) takes the union of their persistable vars; a
+    name two of them declare with another shape or dtype raises.
     """
     from .device import resolve_device
 
@@ -36,7 +40,20 @@ def scope_from_arrays(arrays: Mapping[str, np.ndarray], device,
         for name, arr in arrays.items():
             scope.set_var(name, to_tensor(np.asarray(arr), dev))
         return scope
-    want = {v.name: v for v in program.list_vars() if v.persistable}
+    programs = [program] if isinstance(program, Program) else list(program)
+    want = {}
+    for prog in programs:
+        for v in prog.list_vars():
+            if not v.persistable:
+                continue
+            seen = want.setdefault(v.name, v)
+            if (seen.shape is not None and v.shape is not None
+                    and tuple(seen.shape) != tuple(v.shape)) or \
+                    seen.dtype != v.dtype:
+                raise ValueError(
+                    f"scope_from_arrays: {v.name!r} is {seen.dtype} "
+                    f"{seen.shape} in one program and {v.dtype} {v.shape} "
+                    f"in another")
     missing = sorted(set(want) - set(arrays))
     unknown = sorted(set(arrays) - set(want))
     if missing or unknown:

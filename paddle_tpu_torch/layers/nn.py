@@ -10,7 +10,8 @@ import numpy as np
 from ..framework.initializer import ConstantInitializer, NormalInitializer
 from ..framework.layer_helper import LayerHelper
 
-__all__ = ["fc", "layer_norm", "embedding", "softmax", "matmul",
+__all__ = ["fc", "layer_norm", "embedding", "softmax", "log_softmax",
+           "matmul",
            "flash_attention",
            "flash_attention_qkv", "dropout", "sqrt", "silu", "exp", "cos",
            "floor", "ceil", "sigmoid", "square", "relu", "tanh", "flatten",
@@ -102,6 +103,14 @@ def softmax(input, axis=-1, name=None, use_cudnn=False):
     helper = LayerHelper("softmax", name=name)
     out = helper.create_variable_for_type_inference(input.dtype)
     helper.append_op("softmax", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
+def log_softmax(input, axis=-1, name=None):
+    helper = LayerHelper("log_softmax", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("log_softmax", inputs={"X": [input]},
                      outputs={"Out": [out]}, attrs={"axis": axis})
     return out
 

@@ -3,6 +3,8 @@
 and its LR decays included), with the same arguments, ops and attrs."""
 from __future__ import annotations
 
+import numpy as np
+
 from ..framework.core import (default_main_program, default_startup_program,
                               unique_name)
 from ..framework.layer_helper import LayerHelper
@@ -14,7 +16,7 @@ __all__ = [
     "reduce_sum", "reduce_mean", "elementwise_add", "elementwise_sub",
     "elementwise_mul", "elementwise_div", "elementwise_max", "elementwise_min",
     "elementwise_pow", "less_than", "equal", "scale", "pow", "increment",
-    "where", "clip",
+    "where", "clip", "assign",
 ]
 
 
@@ -57,6 +59,26 @@ def create_global_var(shape, value, dtype, persistable=False,
                  attrs={"shape": list(shape), "dtype": dtype,
                         "value": float(value)})
     return var
+
+
+def assign(input, output=None):
+    """A copy of `input` (op ``assign``), or a numpy array's values as a
+    constant (op ``assign_value``)."""
+    helper = LayerHelper("assign")
+    if isinstance(input, np.ndarray):
+        if output is None:
+            output = helper.create_variable_for_type_inference(
+                str(input.dtype))
+        helper.append_op("assign_value", outputs={"Out": [output]},
+                         attrs={"shape": list(input.shape),
+                                "dtype": str(input.dtype),
+                                "values": input.ravel().tolist()})
+        return output
+    if output is None:
+        output = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("assign", inputs={"X": [input]},
+                     outputs={"Out": [output]})
+    return output
 
 
 def cast(x, dtype):

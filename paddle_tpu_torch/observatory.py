@@ -33,18 +33,29 @@ this module watches the **device**:
   leaves ``CAPTURE_MARK`` in ``FLAGS_metrics_dir``, and a fleet
   supervisor's liveness watchdog reads it (:func:`capture_waiver_until`)
   rather than SIGKILL a replica that is busy exporting its trace.
+  A process's first profiler start is the slow one (CUPTI and the
+  profiler's own set-up, seconds; a later start takes milliseconds), and
+  under traffic it took several times longer than idle and once
+  silenced a replica for minutes: :func:`warm_profiler` starts and stops
+  the profiler once, which a replica does before it reports ready, so
+  no capture under traffic is the process's first start.  Its start
+  and its stop run inside :func:`quiesced`: every registered engine
+  (:func:`add_quiescer`) holds its device work at a boundary meanwhile,
+  so the profiler never starts or stops while another thread launches
+  work (a stop under traffic once never returned).
 
 Stats: ``profile_captures`` counter; gauges ``hbm_live_bytes``,
 ``hbm_peak_bytes`` (+ dynamic ``hbm_live_bytes_dev<i>``).
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
 import threading
 import time
-from typing import Dict, Optional
+from typing import Callable, ContextManager, Dict, List, Optional
 
 from . import telemetry
 from .flags import flag_value
@@ -53,7 +64,8 @@ from .monitor import stat_add
 __all__ = ["device_live_bytes", "HbmSampler", "start_hbm_sampler",
            "stop_hbm_sampler", "hbm_snapshot", "capture_profile",
            "capture_profile_async", "CaptureBusy", "CaptureDisabled",
-           "MAX_CAPTURE_SEC"]
+           "MAX_CAPTURE_SEC", "warm_profiler", "add_quiescer",
+           "remove_quiescer", "quiesced"]
 
 logger = logging.getLogger("paddle_tpu_torch.observatory")
 
@@ -223,7 +235,8 @@ def _profile_for(sec: float, target: str):
     `target`.  Each stage (started, recorded, stopped, exported) is
     logged with its seconds from the start: the profiler's calls hold
     the GIL, so the last line a silent process logged names the stage
-    it is in."""
+    it is in.  The start and the stop run with the registered engines
+    held (``quiesced``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -237,13 +250,98 @@ def _profile_for(sec: float, target: str):
         logger.info("profile capture %s: %s after %.3f s", target, what,
                     time.monotonic() - t0)
 
-    with profile(activities=activities) as prof:
-        stage("started")
+    prof = profile(activities=activities)
+    with quiesced():
+        prof.start()
+    stage("started")
+    try:
         time.sleep(sec)
+    finally:
         stage("recorded")
+        with quiesced():
+            prof.stop()
     stage("stopped")
     _export_trace(prof, os.path.join(target, "trace.json"))
     stage("exported")
+
+
+# the log line of a profiler warm-up's end, with its seconds
+WARMUP_LOG = "profiler warm-up"
+
+# callables, each returning a context manager that holds one engine's
+# device work at a boundary (a serving engine between batches, a
+# generation engine between grid steps) while it is entered
+_quiescers: List[Callable[[], ContextManager]] = []
+_quiescers_lock = threading.Lock()
+
+
+def add_quiescer(fn: Callable[[], ContextManager]):
+    """Register `fn` (an engine's ``quiesced``): the profiler starts and
+    stops inside every registered one."""
+    with _quiescers_lock:
+        _quiescers.append(fn)
+
+
+def remove_quiescer(fn: Callable[[], ContextManager]):
+    with _quiescers_lock:
+        if fn in _quiescers:
+            _quiescers.remove(fn)
+
+
+@contextlib.contextmanager
+def quiesced():
+    """Every registered engine held at its boundary until the block
+    ends."""
+    with _quiescers_lock:
+        fns = list(_quiescers)
+    with contextlib.ExitStack() as stack:
+        for fn in fns:
+            stack.enter_context(fn())
+        yield
+
+
+def warm_profiler() -> Optional[float]:
+    """Start and stop ``torch.profiler`` once, with a capture's
+    activities and nothing recorded, so that the process's first profiler
+    start (the slow one) is not a capture's.  Single-flight with the
+    captures (a /profilez meanwhile gets :class:`CaptureBusy`) and marked
+    as a capture is (CAPTURE_MARK: the start holds the GIL, and a fleet's
+    watchdog must not take the silence for a hang).  Logs its seconds as
+    "profiler warm-up: started after S s, stopped after T s".  Returns T,
+    or None where telemetry is off (no capture surface to warm)."""
+    if not telemetry.enabled():
+        return None
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with _capture_lock:
+        if _capture_active[0]:
+            raise CaptureBusy("profiler capture already running")
+        _capture_active[0] = True
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    mark = None
+    try:
+        mark = _mark_capture(0.0)
+        t0 = time.monotonic()
+        prof = profile(activities=activities)
+        with quiesced():
+            prof.start()
+            started = time.monotonic() - t0
+            prof.stop()
+        took = time.monotonic() - t0
+    finally:
+        if mark is not None:
+            try:
+                os.remove(mark)
+            except OSError:
+                pass
+        with _capture_lock:
+            _capture_active[0] = False
+    logger.info("%s: started after %.3f s, stopped after %.3f s",
+                WARMUP_LOG, started, took)
+    return took
 
 
 # where a trace is exported first: memory (tmpfs), so the profiler's

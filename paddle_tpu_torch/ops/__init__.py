@@ -10,3 +10,6 @@ from . import control_flow_ops  # noqa
 from . import optimizer_ops  # noqa
 from . import amp_ops  # noqa
 from . import catalog_seq_ops  # noqa
+from . import sequence_ops  # noqa
+from . import rnn_fused_ops  # noqa
+from . import beam_ops  # noqa

@@ -414,8 +414,32 @@ def _reduce_infer(op: Operator, block: Block):
     set_out(op, block, "Out", shape, op.attr("out_dtype") or x.dtype)
 
 
+def ordered_sum(x: torch.Tensor, dim: int,
+                keepdim: bool = False) -> torch.Tensor:
+    """x summed over `dim` in one order fixed by that dim's size alone:
+    halves added elementwise, pairwise, until one slice is left.  Each
+    output element's sum then does not depend on the other dims' sizes;
+    a library reduction splits the reduced axis by the number of outputs
+    (on the card), so a serving row's bits would depend on its
+    batchmates."""
+    n = x.shape[dim]
+    if n == 0:
+        return x.sum(dim, keepdim=keepdim)
+    y = x.movedim(dim, 0)
+    while n > 1:
+        h = n // 2
+        s = y[:h] + y[h:2 * h]
+        y = torch.cat([s, y[2 * h:]]) if n % 2 else s
+        n = y.shape[0]
+    out = y[0]
+    return out.unsqueeze(dim) if keepdim else out
+
+
 @register_op("reduce_sum", infer=_reduce_infer)
 def _reduce_sum(ctx: LowerContext, op: Operator):
+    """A float32 sum over one axis other than the batch's (axis 0) that
+    no grad op differentiates is ``ordered_sum``'s (the encoder's masked
+    mean pool of a served seq2seq, say); any other is torch's."""
     x = ctx.get_input(op, "X")
     keep = op.attr("keep_dim", False)
     if op.attr("reduce_all", False) or not op.attr("dim", [0]):
@@ -424,8 +448,13 @@ def _reduce_sum(ctx: LowerContext, op: Operator):
             out = out.reshape((1,) * x.dim())
     else:
         dims = op.attr("dim", [0])
-        dims = dims if isinstance(dims, (list, tuple)) else [dims]
-        out = x.sum(dim=tuple(d % x.dim() for d in dims), keepdim=keep)
+        dims = [d % x.dim() for d in
+                (dims if isinstance(dims, (list, tuple)) else [dims])]
+        if len(dims) == 1 and dims[0] != 0 and \
+                x.dtype == torch.float32 and not ctx.differentiates():
+            out = ordered_sum(x, dims[0], keepdim=keep)
+        else:
+            out = x.sum(dim=tuple(dims), keepdim=keep)
     if op.attr("out_dtype"):
         out = out.to(dtype_to_torch(op.attr("out_dtype")))
     ctx.set_output(op, "Out", out)

@@ -1,5 +1,6 @@
-"""Neural-network op lowerings in PyTorch: ``softmax``, ``layer_norm``,
-``rms_norm``, ``softmax_with_cross_entropy``, ``mse_loss``, ``dropout``,
+"""Neural-network op lowerings in PyTorch: ``softmax``, ``log_softmax``,
+``layer_norm``, ``rms_norm``, ``softmax_with_cross_entropy``,
+``mse_loss``, ``dropout``,
 ``sigmoid_cross_entropy_with_logits`` (Wide&Deep's loss), and for the
 vision models ``conv2d`` / ``depthwise_conv2d``, ``pool2d``,
 ``batch_norm``, ``cross_entropy`` and ``accuracy``.
@@ -41,6 +42,14 @@ def _softmax(ctx, op):
     """Softmax over ``axis`` (default the last), in X's dtype."""
     ctx.set_output(op, "Out", torch.softmax(ctx.get_input(op, "X"),
                                             dim=op.attr("axis", -1)))
+
+
+@register_op("log_softmax", infer=same_as_input())
+def _log_softmax(ctx, op):
+    """log(softmax) over ``axis`` (default the last), in X's dtype: the
+    beam decoder's step scores."""
+    ctx.set_output(op, "Out", torch.log_softmax(ctx.get_input(op, "X"),
+                                                dim=op.attr("axis", -1)))
 
 
 def _ln_infer(op, block):

@@ -155,7 +155,7 @@ class LowerContext:
         ``differentiated``)."""
         return self.op_index in self.differentiated
 
-    def rng(self, op: Operator) -> torch.Generator:
+    def rng(self, op: Operator, fold: int = 0) -> torch.Generator:
         """A generator for the op's draw on the context's device, made at
         its first use in ``generators``.  Every draw of an op seed in a
         run gets its own generator, keyed (op seed, n-th draw of that
@@ -170,22 +170,30 @@ class LowerContext:
         run draws the masks of the run it resumes.  A captured entry's
         generators are registered with its CUDA graph and seeded by the
         executor before each replay (``seeding`` False here); a grad op
-        reads its forward's mask from the kept graph."""
+        reads its forward's mask from the kept graph.  A nonzero `fold`
+        (an op's draws that must differ from one another, as each layer
+        of a multi-layer ``rnn``'s dropout) is folded into the seed, and
+        keys its generator beside the op seed and the draw."""
         seed = int(op.attr("__op_seed__", 0))
         n = self.draws.get(seed, 0)
         self.draws[seed] = n + 1
-        g = self.generators.get((seed, n))
+        key = (seed, n, int(fold))
+        g = self.generators.get(key)
         if g is None:
-            g = self.generators[(seed, n)] = torch.Generator(
-                device=self.device)
+            g = self.generators[key] = torch.Generator(device=self.device)
         if self.seeding:
-            g.manual_seed(run_seed(self.random_seed, self.step, seed))
+            g.manual_seed(run_seed(self.random_seed, self.step, seed, fold))
         return g
 
 
-def run_seed(random_seed: int, step: int, op_seed: int) -> int:
-    """The seed of an op's generator at run `step`."""
-    return hash((int(random_seed), int(step), int(op_seed))) % (1 << 63)
+def run_seed(random_seed: int, step: int, op_seed: int,
+             fold: int = 0) -> int:
+    """The seed of an op's generator at run `step` (`fold` 0: the op's
+    plain draw)."""
+    key = (int(random_seed), int(step), int(op_seed))
+    if fold:
+        key += (int(fold),)
+    return hash(key) % (1 << 63)
 
 
 # the suffixes append_backward(checkpoints=...) gives a re-emitted

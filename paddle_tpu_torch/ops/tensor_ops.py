@@ -16,6 +16,7 @@ draws other numbers than jax.random from the same seed.
 from __future__ import annotations
 
 import math
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -66,11 +67,35 @@ def _fill_any_like(ctx: LowerContext, op: Operator):
                                          dtype=dtype, device=x.device))
 
 
+# assign_value's constants on their devices, by (bytes, numpy dtype,
+# shape, dtype, device), the least recently used dropped past
+# CONSTANTS_CACHED: a captured step cannot copy from pageable host memory,
+# so a constant is copied to the card once, in the eager run, and a
+# device copy of it (which a capture can take) is each run's value
+CONSTANTS_CACHED = 256
+_CONSTANTS: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
+
+
+def _constant(arr: np.ndarray, dtype: torch.dtype,
+              device: torch.device) -> torch.Tensor:
+    key = (arr.tobytes(), arr.dtype.str, arr.shape, dtype, str(device))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = torch.as_tensor(arr, device=device).to(dtype)
+        _CONSTANTS[key] = t
+        while len(_CONSTANTS) > CONSTANTS_CACHED:
+            _CONSTANTS.popitem(last=False)
+    else:
+        _CONSTANTS.move_to_end(key)
+    return t.clone()
+
+
 @register_op("assign_value", infer=_fill_infer, grad=None)
 def _assign_value(ctx, op):
     """A constant from the op's attrs (the first of ``fp32_values``,
     ``int32_values``, ``int64_values``, ``bool_values``, ``values`` that
-    is set), reshaped to ``shape``; zeros where none is."""
+    is set), reshaped to ``shape``; zeros where none is.  The host copy
+    is made once a device (``_constant``), so the op can be captured."""
     dtype = dtype_to_torch(op.attr("dtype", "float32"))
     shape = tuple(op.attr("shape", []))
     for key in ("fp32_values", "int32_values", "int64_values", "bool_values",
@@ -78,8 +103,7 @@ def _assign_value(ctx, op):
         vals = op.attr(key)
         if vals is not None and (not isinstance(vals, list) or vals):
             arr = np.asarray(vals).reshape(shape)
-            ctx.set_output(op, "Out", torch.as_tensor(
-                arr, device=ctx.device).to(dtype))
+            ctx.set_output(op, "Out", _constant(arr, dtype, ctx.device))
             return
     ctx.set_output(op, "Out", torch.zeros(shape, dtype=dtype,
                                           device=ctx.device))

@@ -116,6 +116,7 @@ and the embedding tier's duck-typed predictors (item 8).
 from __future__ import annotations
 
 import collections
+import contextlib
 import logging
 import math
 import os
@@ -142,6 +143,8 @@ __all__ = ["ServingError", "OverloadedError", "RequestFailed",
 logger = logging.getLogger("paddle_tpu_torch.serving")
 
 FILL_BUCKETS = tuple(float(x) for x in range(5, 101, 5))
+# the longest a quiesce waits for the batches in flight to finish
+QUIESCE_S = 30.0
 
 
 class ServingError(RuntimeError):
@@ -380,6 +383,9 @@ class ServingEngine:
         self._swap_lock = threading.Lock()
         self._paused = False
         self._dispatching = 0
+        # profiler starts and stops in flight (``quiesced``): dispatch
+        # holds at the same boundary while any is
+        self._holds = 0
 
         # request-trace store for /tracez: a ring of recent head-sampled
         # traces + the slowest-N tail (kept regardless of sampling)
@@ -465,6 +471,29 @@ class ServingEngine:
                                  name=f"serving-worker-{i}", daemon=True)
             t.start()
             self._threads.append(t)
+        observatory.add_quiescer(self.quiesced)
+
+    @contextlib.contextmanager
+    def quiesced(self, timeout_s: float = QUIESCE_S):
+        """Hold dispatch at the drained-batch boundary, as a weight swap
+        does, while the block runs (requests keep queueing): no batch is
+        in flight once the in-flight ones finish, up to `timeout_s`
+        (then the block runs all the same).  A profiler capture starts
+        and stops inside it (``observatory.quiesced``)."""
+        with self._cv:
+            self._holds += 1
+            self._cv.notify_all()
+        try:
+            deadline = time.monotonic() + timeout_s
+            with self._cv:
+                while self._dispatching > 0 and \
+                        time.monotonic() < deadline:
+                    self._cv.wait(0.01)
+            yield
+        finally:
+            with self._cv:
+                self._holds -= 1
+                self._cv.notify_all()
 
     def install_sigterm(self):
         """SIGTERM → graceful drain (mirrors TrainGuard): stop accepting,
@@ -510,6 +539,7 @@ class ServingEngine:
             if not drain:
                 shed, self._queue = list(self._queue), collections.deque()
             self._cv.notify_all()
+        observatory.remove_quiescer(self.quiesced)
         for req in shed:
             self._shed(req, "draining")
         for t in self._threads:
@@ -995,10 +1025,11 @@ class ServingEngine:
         with self._cv:
             first = None
             while first is None:
-                if self._paused:
-                    # a weight swap is quiescing/committing: hold at
-                    # the drained-batch boundary (requests keep
-                    # queueing; the swap's finally unpauses)
+                if self._paused or self._holds:
+                    # a weight swap is quiescing/committing, or the
+                    # profiler starts or stops: hold at the drained-
+                    # batch boundary (requests keep queueing; the
+                    # swap's finally, the hold's end, releases it)
                     self._cv.wait(0.05)
                     continue
                 first = self._pop_live_locked()

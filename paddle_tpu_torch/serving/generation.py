@@ -137,6 +137,7 @@ decode step, verify, TTFT, inter-token, segment export and adopt).
 from __future__ import annotations
 
 import collections
+import contextlib
 import logging
 import os
 import threading
@@ -147,7 +148,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from .. import blackbox, fault, telemetry
+from .. import blackbox, fault, observatory, telemetry
 from ..device import resolve_device
 from ..flags import flag_value, register_flag
 from ..framework.core import Program, program_guard
@@ -157,8 +158,8 @@ from ..models.llama import (build_llama_decode, build_llama_prefill,
 from ..monitor import stat_add
 from . import batcher, usage
 from .disagg import KVSegment, SegmentMismatch, config_fingerprint, wait_ready
-from .engine import (OverloadedError, PoisonedInput, RequestFailed,
-                     ServingFuture, poison_sentinel_matches)
+from .engine import (QUIESCE_S, OverloadedError, PoisonedInput,
+                     RequestFailed, ServingFuture, poison_sentinel_matches)
 
 __all__ = ["GenerationEngine", "GenRequest", "PagePool", "PrefixIndex",
            "PoolExhausted", "ngram_draft"]
@@ -558,6 +559,10 @@ class GenerationEngine:
         # scheduler state
         self._queue: collections.deque = collections.deque()
         self._cv = threading.Condition()
+        # profiler starts and stops in flight (``quiesced``) and whether
+        # the scheduler is parked at a step boundary for them
+        self._holds = 0
+        self._parked = False
         self._slots = [_Slot(i) for i in range(self.num_slots)]
         self._draining = False
         self._closed = False
@@ -821,6 +826,28 @@ class GenerationEngine:
                                             name="generation-scheduler",
                                             daemon=True)
             self._thread.start()
+            observatory.add_quiescer(self.quiesced)
+
+    @contextlib.contextmanager
+    def quiesced(self, timeout_s: float = QUIESCE_S):
+        """Hold the scheduler between grid steps while the block runs
+        (requests keep queueing; sequences in flight keep their pages and
+        decode on after it): the block starts once the scheduler is
+        parked, or after `timeout_s`.  A profiler capture starts and
+        stops inside it (``observatory.quiesced``)."""
+        with self._cv:
+            self._holds += 1
+            self._cv.notify_all()
+            deadline = time.monotonic() + timeout_s
+            while (self._thread is not None and self._thread.is_alive()
+                   and not self._parked and time.monotonic() < deadline):
+                self._cv.wait(0.01)
+        try:
+            yield
+        finally:
+            with self._cv:
+                self._holds -= 1
+                self._cv.notify_all()
 
     def drain(self, timeout: Optional[float] = None):
         with self._cv:
@@ -841,6 +868,7 @@ class GenerationEngine:
             if not drain:
                 shed, self._queue = list(self._queue), collections.deque()
             self._cv.notify_all()
+        observatory.remove_quiescer(self.quiesced)
         for req in shed:
             self._shed(req, "draining")
         if self._thread is not None:
@@ -1268,8 +1296,14 @@ class GenerationEngine:
             # a pending weight swap commits here, between grid steps
             self._apply_pending_swap()
             with self._cv:
+                # a profiler start or stop holds the grid here
+                while self._holds and self._pending_swap is None:
+                    self._parked = True
+                    self._cv.notify_all()
+                    self._cv.wait(0.01)
+                self._parked = False
                 while True:
-                    if self._pending_swap is not None:
+                    if self._pending_swap is not None or self._holds:
                         break
                     if self._queue and self._can_claim_locked():
                         break
@@ -1278,7 +1312,7 @@ class GenerationEngine:
                     if self._draining and not self._queue:
                         return
                     self._cv.wait(0.02)
-                if self._pending_swap is not None:
+                if self._pending_swap is not None or self._holds:
                     continue
                 claimed = self._claim_locked()
             for slot, req in claimed:

@@ -325,12 +325,8 @@ def main(argv=None) -> int:
                 args.replica_id, server.url, restart_count)
 
     # warmup AFTER the listener is up: the router polls ready=false the
-    # whole time, so no traffic lands on cold buckets.  The generator
-    # (prefill buckets + the decode grid) warms first — the one-shot
-    # warmup flips `ready` and must stay the LAST gate
-    if gen is not None:
-        gen.warmup()
-    engine.warmup(shapes)
+    # whole time, so no traffic lands on cold buckets
+    warm_up(engine, shapes, gen, args.device)
     logger.info("replica %d ready (buckets primed)", args.replica_id)
 
     # block until SIGTERM drains the engine and stops the listener
@@ -341,6 +337,20 @@ def main(argv=None) -> int:
         server.close()
     _close_engines(engine, predictor)
     return 0
+
+
+def warm_up(engine, shapes, gen, device):
+    """A replica's warm-up, in order: the generator (prefill buckets +
+    the decode grid); on the card, the profiler (its first start, the
+    slow one, before any traffic: ``observatory.warm_profiler``, a no-op
+    with telemetry off); last the engine's one-shot warmup, which flips
+    ``ready`` and must stay the LAST gate."""
+    if gen is not None:
+        gen.warmup()
+    if device.type == "cuda":
+        from .. import observatory
+        observatory.warm_profiler()
+    engine.warmup(shapes)
 
 
 def _close_engines(engine, predictor):

@@ -164,6 +164,9 @@ POISON_TOKEN = 7
 DEFAULT_SCENARIOS = ("baseline", "crash", "hang", "slow", "poison",
                      "poison_paged", "spec_storm", "disagg_crash",
                      "hot_swap", "noisy_neighbor")
+# the shared fleet's scenarios that kill no replica: their length need
+# not cover a respawn (run_chaos's steady_duration_s)
+STEADY_SCENARIOS = ("baseline", "slow", "poison")
 NOT_PORTED = {"embedding_shard_crash": "the embedding tier is not ported "
                                        "yet (ROADMAP.md queue 1 item 8)"}
 
@@ -527,6 +530,8 @@ def _scenario(name: str, sup, router, url: str, cfg: dict) -> dict:
     from paddle_tpu_torch import fault
 
     qps, duration = cfg["qps"], cfg["duration_s"]
+    if name in STEADY_SCENARIOS and cfg.get("steady_duration_s"):
+        duration = cfg["steady_duration_s"]
     feat = cfg["feat"]
     model = cfg["model"]
     box: Dict[str, Optional[float]] = {"t_fault": None, "t_recover": None}
@@ -1863,6 +1868,7 @@ def shared_fleet_argv(model: PredictModel, device) -> List[str]:
 def run_chaos(replicas: int = 3, qps: float = 40.0,
               duration_s: float = 6.0,
               scenarios=DEFAULT_SCENARIOS,
+              steady_duration_s: Optional[float] = None,
               availability_pct: float = 99.0,
               feat: int = 8, hidden: int = 32, depth: int = 1,
               liveness_timeout_ms: float = 1500.0,
@@ -1890,8 +1896,11 @@ def run_chaos(replicas: int = 3, qps: float = 40.0,
     the model and the engine arguments of ``poison_paged`` and
     ``spec_storm`` (None: the reference's); ``disagg_argv`` /
     ``disagg_env``, the role-split fleet's replica arguments and
-    environment (None: the reference's).  Each scenario's report also
-    carries its ``wall_s``."""
+    environment (None: the reference's); ``steady_duration_s``, the
+    seconds of traffic of the scenarios that kill no replica
+    (STEADY_SCENARIOS: nothing there waits on a respawn; None:
+    ``duration_s``).  Each scenario's report also carries its
+    ``wall_s``."""
     from paddle_tpu_torch.device import resolve_device
     from paddle_tpu_torch.serving import FleetSupervisor, Router, \
         RouterServer
@@ -1902,7 +1911,8 @@ def run_chaos(replicas: int = 3, qps: float = 40.0,
             raise NotImplementedError(f"chaos scenario {name!r}: "
                                       f"{NOT_PORTED[name]}")
     device = resolve_device(device)
-    cfg = {"qps": qps, "duration_s": duration_s, "feat": feat,
+    cfg = {"qps": qps, "duration_s": duration_s,
+           "steady_duration_s": steady_duration_s, "feat": feat,
            "poison_every": poison_every, "slow_delay_ms": slow_delay_ms,
            "slow_prob": slow_prob, "timeout_s": timeout_s,
            "liveness_timeout_ms": liveness_timeout_ms,
@@ -1939,7 +1949,9 @@ def run_chaos(replicas: int = 3, qps: float = 40.0,
         router.poll_once()
         log(f"chaos: fleet of {replicas} ready in "
             f"{time.monotonic() - t_setup0:.1f}s; running "
-            f"{','.join(scenarios)} at {qps} qps x {duration_s}s each")
+            f"{','.join(scenarios)} at {qps} qps x {duration_s}s each"
+            + (f" ({','.join(STEADY_SCENARIOS)} {steady_duration_s}s)"
+               if steady_duration_s else ""))
         for name in scenarios:
             t_scenario = time.monotonic()
             if name == "poison_paged":
@@ -2086,6 +2098,7 @@ def run_chaos(replicas: int = 3, qps: float = 40.0,
         "errors": errors,
         "config": {"replicas": replicas, "qps": qps,
                    "duration_s": duration_s,
+                   "steady_duration_s": steady_duration_s,
                    "scenarios": list(scenarios),
                    "feat": feat, "hidden": hidden, "depth": depth,
                    "liveness_timeout_ms": liveness_timeout_ms,

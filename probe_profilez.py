@@ -18,8 +18,11 @@ longest gap between two /healthz answers of the profiled replica
 (polled every 100 ms, as chip_smoke.py's HealthGaps does, an answer
 later than the watchdog's 1 s poll counting as none): what the
 watchdog, at its 5 s default, would have seen, and the supervisor's
-hung kills of replica 0 so far; after each capture, the profiler lines
-of the replica's log go to chiprun_out/probe_profilez_dumps.txt.
+hung kills of replica 0 so far, and from the replica's log the
+capture's profiler start and the life's profiler warm-up before it
+reported ready (none where the checkout's replicas do not warm: a
+parent's); after each capture, the profiler lines of the replica's log
+go to chiprun_out/probe_profilez_dumps.txt.
 --checkout runs another tree's package and chip_smoke.py.  --fleets
 spawns that many fleets one after another; --each captures every
 replica in turn, not only replica 0 (a replica's first capture is the
@@ -269,6 +272,15 @@ def profile_fleet(smoke, chaos, lg, model, make_feed, args, fleet, fh_dir):
     return rows
 
 
+def last_seconds(lines, what, key):
+    """The seconds after `key` on the last of `lines` that holds `what`
+    and `key` (a replica log's capture or warm-up stage), or None."""
+    for ln in reversed(lines):
+        if what in ln and key in ln:
+            return float(ln.split(key, 1)[1].split(" s", 1)[0])
+    return None
+
+
 def capture(smoke, sup, url, idx, sec, args, fleet, fh_dir):
     """One /profilez capture of replica `idx` at `url`: its row."""
     rep = sup._replicas[idx]
@@ -298,7 +310,11 @@ def capture(smoke, sup, url, idx, sec, args, fleet, fh_dir):
     with open(rep.log_path, errors="replace") as f:
         stages = [ln.rstrip() for ln in f if any(
             k in ln for k in ("STAGE", "CUPTI", "kineto",
-                              "profile capture"))]
+                              "profile capture", "profiler warm-up"))]
+    row["capture_start_s"] = last_seconds(stages, "profile capture",
+                                          "started after ")
+    row["warmup_s"] = last_seconds(stages, "profiler warm-up",
+                                   "stopped after ")
     os.makedirs(os.path.dirname(DUMPS), exist_ok=True)
     with open(DUMPS, "a") as out:
         out.write(f"==== profiler lines of replica {idx}'s log after "

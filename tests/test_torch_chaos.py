@@ -191,3 +191,37 @@ def test_chaos_harness_smoke_three_replica_fleet():
     assert scen["poison_paged"]["poison_leaks"] == 0
     assert scen["poison_paged"]["notes"]["page_evictions"] == 0
     assert report["config"]["device"] == "cpu"
+
+
+@pytest.mark.parametrize("name,steady,want", [
+    ("baseline", 1.5, 1.5), ("slow", 1.5, 1.5), ("baseline", None, 4.0),
+    ("slow", None, 4.0)])
+def test_steady_scenarios_take_their_own_length(monkeypatch, name, steady,
+                                                want):
+    """run_chaos's steady_duration_s is the traffic length of the
+    scenarios that kill no replica (STEADY_SCENARIOS); unset, they run
+    duration_s as the others do."""
+    seen = []
+
+    def traffic(url, feat, qps, duration_s, **kw):
+        seen.append(duration_s)
+        return []
+
+    class Monitor:
+        fast_s = 0.1
+
+        def firing(self):
+            return []
+
+    class Router:
+        burn_monitor = Monitor()
+
+    monkeypatch.setattr(chaos, "run_traffic", traffic)
+    model = chaos.synthetic_model(8, 16, 1, "cpu")
+    cfg = {"qps": 10.0, "duration_s": 4.0, "steady_duration_s": steady,
+           "feat": 8, "model": model, "timeout_s": 1.0,
+           "slow_delay_ms": 40, "slow_prob": 0.25}
+    rep = chaos._scenario(name, None, Router(), "http://127.0.0.1:1", cfg)
+    assert seen == [want]
+    assert "error" not in rep, rep
+    assert set(chaos.STEADY_SCENARIOS) == {"baseline", "slow", "poison"}

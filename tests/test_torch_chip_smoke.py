@@ -733,8 +733,13 @@ def test_chaos_settings_derive_from_the_probe_and_the_respawn(rate, p99,
     """13b's harness settings: half the rate the probed fleet sustained,
     a forward timeout above the probe's p99 (4x, at least 1 s), the
     liveness deadline at the flag's default, and scenarios long enough
-    that a SIGKILL a quarter of the way in respawns before the end."""
+    that a SIGKILL a quarter of the way in respawns before the end; the
+    scenarios that kill no replica CHAOS_STEADY_S, every key one that
+    run_chaos takes."""
+    import inspect
+
     from paddle_tpu_torch.flags import flag_value
+    from paddle_tpu_torch.tools import chaos
 
     got = smoke.chaos_settings(_probe(rate, p99), respawn)
     assert {k: got[k] for k in want} == want
@@ -742,10 +747,24 @@ def test_chaos_settings_derive_from_the_probe_and_the_respawn(rate, p99,
     assert got["liveness_timeout_ms"] == \
         flag_value("FLAGS_fleet_liveness_timeout_ms") == 5000.0
     assert 0.25 * got["duration_s"] + respawn <= got["duration_s"]
-    # a probe fleet slower to start than 12a's respawn sets the duration
+    # the respawn is the scenarios' own replicas' (the probe's SIGKILL):
+    # the probe fleet's three cold starts at once do not set the length
     slow = smoke.chaos_settings(_probe(rate, p99, (16.1, 17.0, 15.0)),
                                 respawn)
-    assert slow["duration_s"] == math.ceil(1.6 * max(17.0, respawn))
+    assert slow["duration_s"] == math.ceil(1.6 * respawn)
+    assert got["steady_duration_s"] == smoke.CHAOS_STEADY_S == 6.0
+    assert set(got) <= set(inspect.signature(chaos.run_chaos).parameters)
+
+
+@pytest.mark.parametrize("respawn,want", [(15.0, 24.0), (15.1, 24.0),
+                                          (35.3, 24.0), (9.0, 15.0)])
+def test_chaos_length_stops_at_its_cap_on_a_slow_host(respawn, want):
+    """1.6 respawns set 13b's scenario length up to CHAOS_MAX_S: a slow
+    host's 35.3 s respawn gives 24 s scenarios, not 57 s, and the
+    scenarios that kill no replica keep CHAOS_STEADY_S."""
+    got = smoke.chaos_settings(_probe(), respawn)
+    assert got["duration_s"] == want <= smoke.CHAOS_MAX_S == 24.0
+    assert got["steady_duration_s"] == smoke.CHAOS_STEADY_S
 
 
 @pytest.mark.parametrize("qps,want", [(64.065, 93.655), (133.655, 44.892),
@@ -1886,3 +1905,394 @@ def test_vision_phase_rehearses_on_the_cpu(monkeypatch):
     assert v["resnet_parity"]["grad_rel"] == 0.0
     assert len(v["resnet_bench"]["losses"]) == 3
     assert "resnet50_bench" in smoke.PROFILES
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the attention seq2seq; the profiler warm-up's capture gate
+# ---------------------------------------------------------------------------
+
+def test_seq2seq_phase_runs_the_published_configuration():
+    """Phase 20: PaddleNLP's attention seq2seq on IWSLT'15 en-vi
+    (embedding and hidden 512, vocabularies 17191 / 7709, batch 128, Adam
+    1e-3 with a global-norm clip of 5.0, beam 10) at the reference
+    model function's own depth, 50-step sources and targets; the training
+    program has the widths' op count (3320 before the clip's 47) and
+    persistable size (30.4 M parameters, their Adam moments), and both
+    programs serialise JSON-equal to the JAX package's."""
+    import json
+
+    import paddle_tpu as jpt
+    import paddle_tpu_torch as tpt
+    from paddle_tpu import clip as j_clip
+    from paddle_tpu.framework.core import reset_unique_name
+    from paddle_tpu.framework.serde import program_to_json as j_json
+    from paddle_tpu.models.seq2seq import (build_seq2seq_infer,
+                                           build_seq2seq_train)
+    from paddle_tpu.ops.registry import reset_op_seed
+    from paddle_tpu_torch.framework.serde import program_to_json as t_json
+
+    assert smoke.S2S == dict(src_vocab=17191, trg_vocab=7709, emb_dim=512,
+                             hidden=512)
+    assert (smoke.S2S_BATCH, smoke.S2S_LEN, smoke.S2S_MIN_LEN) == \
+        (128, 50, 10)
+    assert (smoke.S2S_LR, smoke.S2S_CLIP, smoke.S2S_STEPS) == (1e-3, 5.0, 6)
+    assert (smoke.S2S_PARITY_BATCH, smoke.S2S_PARITY_STEPS) == (8, 3)
+    assert (smoke.S2S_BEAM, smoke.S2S_MAX_LEN) == (10, 50)
+    assert smoke.S2S_DECODE_BATCHES == (1, 16)
+    for kind, batch in (("train", smoke.S2S_BATCH), ("infer", 16)):
+        main, startup, _ = smoke.build_s2s(tpt, kind, 0, batch)
+        reset_op_seed(0)
+        reset_unique_name()
+        jm, js = jpt.Program(), jpt.Program()
+        js._is_startup = True
+        jm.random_seed = js.random_seed = smoke.S2S_SEED
+        widths = dict(emb_dim=512, hidden=512)
+        with jpt.program_guard(jm, js):
+            if kind == "train":
+                _, outs = build_seq2seq_train(128, 50, 50, 17191, 7709,
+                                              **widths)
+                jpt.optimizer.AdamOptimizer(
+                    1e-3, grad_clip=j_clip.GradientClipByGlobalNorm(5.0)
+                ).minimize(outs["loss"])
+            else:
+                build_seq2seq_infer(16, 50, 17191, 7709, beam_size=10,
+                                    max_len=50, bos_id=0, eos_id=1, **widths)
+        assert json.loads(j_json(jm)) == json.loads(t_json(main))
+        assert json.loads(j_json(js)) == json.loads(t_json(startup))
+        if kind == "train":
+            assert len(main.global_block().ops) == 3367
+            n = sum(math.prod(v.shape) for v in main.list_vars()
+                    if v.persistable)
+            assert round(n / 1e6, 1) == 91.1
+        else:
+            assert len(main.global_block().ops) == 2436
+            assert smoke.recurrent_products(main) == 2 * 2 * 50
+            assert smoke.forward_products(main) == 101 + 200
+
+
+def test_seq2seq_feeds_copy_and_reverse_ragged_sources():
+    feeds = smoke.s2s_feeds(16, 2, 3)
+    again = smoke.s2s_feeds(16, 2, 3)
+    assert feeds[1]["src_ids"].tobytes() == again[1]["src_ids"].tobytes()
+    f = feeds[0]
+    lens = f["src_mask"].sum(1).astype(int)
+    assert lens.min() >= smoke.S2S_MIN_LEN and lens.max() <= smoke.S2S_LEN
+    assert len(set(lens.tolist())) > 1
+    for b, n in enumerate(lens):
+        body = f["src_ids"][b, :n][::-1][:smoke.S2S_LEN - 1]
+        want = body % (smoke.S2S["trg_vocab"] - 2) + 2
+        m = len(want)
+        assert (f["trg_out"][b, :m] == want).all()
+        assert f["trg_out"][b, m] == smoke.S2S_EOS if m < smoke.S2S_LEN \
+            else True
+        assert f["trg_mask"][b].sum() == min(m + 1, smoke.S2S_LEN)
+        assert (f["src_ids"][b, n:] == 0).all()
+    assert (f["trg_in"][:, 0] == smoke.S2S_BOS).all()
+    assert (f["trg_in"][:, 1:] == f["trg_out"][:, :-1]).all()
+
+
+def test_candidate_gaps_read_the_beam_steps_ranking():
+    """The least gap among the K + 1 best of a step's candidates, a
+    finished hypothesis offering only its frozen score."""
+    K, V = 2, 4
+    scores = np.array([[[-1.0, -1.5, -4.0, -5.0],
+                        [-1.2, -2.0, -6.0, -7.0]]], np.float32)
+    pre_ids = np.array([[3, 1]], np.int64)
+    pre_scores = np.array([[-0.5, -1.25]], np.float32)
+    gaps, limits = smoke.candidate_gaps([(scores, pre_ids, pre_scores)], K,
+                                        1)
+    # the finished hypothesis offers -1.25 once: the best three are
+    # -1.0, -1.25, -1.5
+    np.testing.assert_allclose(gaps, [0.25])
+    assert limits[0] == smoke.S2S_GAP_ULPS * np.spacing(np.float32(1.0))
+
+
+def test_open_steps_and_live_share_read_each_step():
+    """step_gaps keeps each step's gaps; open_steps counts a sentence's
+    steps before its first close pair (all where none); live_share is
+    the share of continuations of unfinished hypotheses."""
+    K, V = 1, 3
+    lim = smoke.S2S_GAP_ULPS * np.spacing(np.float32(1.0))
+    wide = np.array([[[-1.0, -2.0, -3.0]], [[-1.0, -2.0, -3.0]]],
+                    np.float32)
+    close = wide.copy()
+    close[0, 0, 1] = -1.0 - lim / 2
+    ids = np.array([[3], [1]], np.int64)
+    pre = np.array([[-0.5], [-0.25]], np.float32)
+    steps = [(wide, ids, pre), (close, ids, pre), (wide, ids, pre)]
+    gaps, limits = smoke.step_gaps(steps, K, 1)
+    assert gaps.shape == limits.shape == (3, 2)
+    np.testing.assert_array_equal(gaps[:, 0], [1.0, lim / 2, 1.0])
+    # sentence 1 is finished: its frozen score leads the -1e9 of the rest
+    assert smoke.open_steps(gaps, limits).tolist() == [1, 3]
+    assert smoke.live_share(steps, 1) == 0.5
+    g, lm = smoke.candidate_gaps(steps, K, 1)
+    np.testing.assert_array_equal(g, gaps.min(0))
+    np.testing.assert_array_equal(lm, limits.max(0))
+
+
+def test_beam_step_reference_matches_the_op_with_ties():
+    """beam_step_reference (numpy, 20b's plain beam step) gives the
+    port's beam_search op's outputs bit for bit: exact ties broken lower
+    index first, finished hypotheses offering end_id once, dead beams at
+    -1e9 (their candidates tie exactly)."""
+    import paddle_tpu_torch as tpt
+
+    rng = np.random.RandomState(3)
+    B, K, V, end = 3, 4, 6, 1
+    scores = np.round(rng.randn(B, K, V), 1).astype(np.float32)  # ties
+    scores[2, 1:] = np.float32(-1e9)
+    pre_ids = np.array([[3, 1, 4, 5], [1, 1, 2, 2], [0, 2, 2, 2]],
+                       np.int64)
+    pre_scores = np.round(rng.randn(B, K), 1).astype(np.float32)
+    tpt.reset_unique_name()
+    main, startup = tpt.Program(), tpt.Program()
+    with tpt.program_guard(main, startup):
+        block = main.global_block()
+        for n, arr in (("s", scores), ("pi", pre_ids), ("ps", pre_scores)):
+            block.create_var(name=n, shape=arr.shape, dtype=str(arr.dtype),
+                             is_data=True)
+        outs = {k: [k] for k in ("SelectedIds", "SelectedScores",
+                                 "ParentIdx")}
+        block.append_op("beam_search", inputs={"Scores": ["s"],
+                                               "PreIds": ["pi"],
+                                               "PreScores": ["ps"]},
+                        outputs=outs, attrs={"beam_size": K, "end_id": end})
+    got = tpt.Executor(tpt.CPUPlace()).run(
+        main, feed={"s": scores, "pi": pre_ids, "ps": pre_scores},
+        fetch_list=list(outs))
+    want = smoke.beam_step_reference(scores, pre_ids, pre_scores, K, end)
+    for g, w in zip(got, want):
+        assert np.asarray(g).tobytes() == w.tobytes()
+
+
+def test_tf32_round_keeps_ten_mantissa_bits():
+    """tf32_round rounds to nearest at 10 mantissa bits and leaves a
+    value it already holds as it is."""
+    x = torch.tensor([1.0, 1 + 2 ** -12, 1 + 3 * 2 ** -12, -(1 + 2 ** -10),
+                      3.0e-20], dtype=torch.float32)
+    got = smoke.tf32_round(x)
+    assert got.tolist()[:4] == [1.0, 1.0, 1 + 2 ** -10, -(1 + 2 ** -10)]
+    assert not (got.view(torch.int32) & 0x1FFF).any()
+    assert abs(got[4].item() / 3.0e-20 - 1) < 2 ** -10
+
+
+def test_products_taken_records_each_float32_product():
+    """products_taken counts each float32 product that asks the kernel's
+    route by (batch, M, K, N, b transposed), and puts the route back."""
+    from paddle_tpu_torch.ops import math_ops
+    from paddle_tpu_torch.ops.cuda import gemm
+
+    real = gemm.routes
+    keys = {}
+    a, b = torch.ones(3, 5), torch.ones(5, 2)
+    with smoke.products_taken(keys):
+        math_ops.forward_product(a, b, False)
+        math_ops.forward_product(a, b, False)
+        math_ops.forward_product(torch.ones(4, 1, 5),
+                                 torch.ones(4, 6, 5).transpose(1, 2), False)
+        math_ops.forward_product(a.double(), b.double(), False)
+    assert gemm.routes is real
+    assert keys == {(1, 3, 5, 2, False): 2, (4, 1, 5, 6, True): 1}
+
+
+@pytest.mark.parametrize("fault", [None, "rows", "precision"])
+def test_check_path_products_holds_each_shape(monkeypatch, fault):
+    """check_path_products on the CPU, timing stubbed, with a stand-in
+    kernel (the exact product, rounded once): it groups 2-D products by
+    K x N and batched ones by M x K x N, holds and times each of the
+    path's shapes; a kernel whose rows depend on M, or one that computes
+    in bf16, is caught."""
+    from types import SimpleNamespace
+
+    from paddle_tpu_torch.ops.cuda import gemm
+
+    def exact(x, w):
+        return torch.matmul(x.double(), w.double()).float()
+
+    def kernel(x, w):
+        out = exact(x, w)
+        if fault == "rows" and x.shape[-2] > 2:
+            out = out + 1e-3
+        if fault == "precision":
+            out = exact(x.bfloat16().float(), w.bfloat16().float())
+        return out
+
+    fake = SimpleNamespace(matmul=kernel, matmul_reference=exact,
+                           tolerance=gemm.tolerance)
+    profiles = []
+
+    def device_ms(fn, iters):
+        # the profiler sees the card for three timings, then no more
+        profiles.append(fn())
+        if len(profiles) > 3:
+            raise AssertionError("the profiler saw no device time")
+        return 1.0
+    monkeypatch.setattr(smoke, "device_ms", device_ms)
+    monkeypatch.setattr(smoke, "cuda_ms", lambda fn, iters, warmup: 1.0)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+    monkeypatch.setattr(smoke, "log", lambda msg: None)
+    keys = {(1, 1, 64, 24, False): 4, (1, 5, 64, 24, False): 4,
+            (1, 5, 32, 7, True): 1, (3, 1, 9, 40, False): 2,
+            (6, 1, 9, 40, False): 2}
+    cpu = torch.device("cpu")
+    if fault:
+        with pytest.raises(AssertionError):
+            smoke.check_path_products(fake, keys, "t", cpu)
+        return
+    rows, ratios = smoke.check_path_products(fake, keys, "t", cpu)
+    assert sorted(rows) == ["B3_M1_K9_N40", "B6_M1_K9_N40", "M1_K64_N24",
+                            "M5_K32_N7_t", "M5_K64_N24"]
+    assert rows["M5_K64_N24"]["calls"] == 4
+    # device times until the profiler stopped seeing the card, then none
+    # (not measured) and no more profiles; events throughout
+    assert len(profiles) == 4
+    dev = [(r["device_ms"], r["library_device_ms"]) for r in rows.values()]
+    assert dev[0] == (1.0, 1.0) and dev[1] == (1.0, None)
+    assert all(d == (None, None) for d in dev[2:])
+    assert all(r["ms"] == r["library_ms"] == 1.0 for r in rows.values())
+    assert rows["B6_M1_K9_N40"]["bound_ms"] == smoke.gemm_bound(
+        1, 40, 9, 6)[0]
+    assert ratios["kernel"] == 0.0
+    assert ratios["tf32"] > 1 and ratios["bf16"] > 1
+    with pytest.raises(AssertionError, match="no product"):
+        smoke.check_path_products(fake, {}, "t", cpu)
+
+
+def test_capture_start_reads_the_life_warm_up_and_the_capture(tmp_path):
+    """capture_start: the latest life (from its last "listening on") and
+    its warm-up before its capture; a capture with no warm-up before it
+    in its life reads as cold (warmup_s None)."""
+    log_path = tmp_path / "replica.log"
+    lines = [
+        "replica 0 listening on http://x (restart 0)",
+        "paddle_tpu_torch.observatory INFO profiler warm-up: started after "
+        "4.100 s, stopped after 4.250 s",
+        "replica 0 ready (buckets primed)",
+        "profile capture /m/c1: started after 0.020 s",
+        "profile capture /m/c1: recorded after 2.030 s",
+        "replica 0 listening on http://x (restart 1)",
+        "profile capture /m/c2: started after 17.500 s"]
+    log_path.write_text("\n".join(lines) + "\n")
+    assert smoke.capture_start(str(log_path)) == dict(
+        warmup_s=None, capture_start_s=17.5)
+    log_path.write_text("\n".join(lines[:5]) + "\n")
+    assert smoke.capture_start(str(log_path)) == dict(
+        warmup_s=4.25, capture_start_s=0.02)
+    assert smoke.warmup_seconds(str(log_path)) == 4.25
+
+
+def test_seq2seq_phase_rehearses_on_the_cpu(monkeypatch):
+    """Phase 20 on the CPU at a tiny size (vocabularies 40 / 30, widths
+    16, batch 4 over 3 steps, 8-step sentences, beam 3 over 6 steps,
+    decode batches 1 and 4): the lives captured, eager and again equal,
+    card against CPU (here CPU against CPU: equal), captured = eager and
+    batched = single in the decode, the forward-only products (the
+    port's CPU product rule, read as the product kernel's launches) and
+    the recurrences' share against the program's count; 20c's cases and
+    the sentiment model.  The card's memory and the capture are
+    stubbed."""
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch import device, inference
+    from paddle_tpu_torch.framework import executor
+    from paddle_tpu_torch.ops import (math_ops, registry, rnn_fused_ops,
+                                      sequence_ops)
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    cpu = torch.device("cpu")
+    for mod in (device, executor, inference):
+        if hasattr(mod, "resolve_device"):
+            monkeypatch.setattr(mod, "resolve_device",
+                                lambda place=None: cpu)
+    for name in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    info = executor.Executor.cache_info
+
+    def captured(self):
+        out = info(self)
+        for e in out["entries"]:
+            e["aot"] = True
+        return out
+    monkeypatch.setattr(executor.Executor, "cache_info", captured)
+    products, steps = [0], [0]
+    product = math_ops._cpu_product
+
+    def counted(x, y, differentiated):
+        products[0] += not differentiated
+        return product(x, y, differentiated)
+    monkeypatch.setattr(math_ops, "_cpu_product", counted)
+    step = sequence_ops.step_product
+
+    def step_counted(a, b, differentiated):
+        steps[0] += not differentiated
+        return step(a, b, differentiated)
+    step_counted.launches = 0
+    monkeypatch.setattr(sequence_ops, "step_product", step_counted)
+    monkeypatch.setattr(rnn_fused_ops, "step_product", step_counted)
+
+    def read(fa):
+        counts = smoke.Launches((0,) * 6)
+        counts.gemm, counts.recurrent = products[0], steps[0]
+        return counts, 0, 0
+
+    def reset(fa):
+        products[0] = steps[0] = 0
+    monkeypatch.setattr(smoke, "read_counts", read)
+    monkeypatch.setattr(smoke, "reset_counts", reset)
+    for name, value in dict(
+            S2S=dict(src_vocab=40, trg_vocab=30, emb_dim=16, hidden=16),
+            S2S_BATCH=4, S2S_LEN=8, S2S_MIN_LEN=3, S2S_STEPS=3,
+            S2S_FEEDS=2, S2S_PARITY_BATCH=2, S2S_PARITY_STEPS=2, S2S_BEAM=3,
+            S2S_MAX_LEN=6, S2S_DECODE_BATCHES=(1, 4), S2S_TIMED_DECODES=2,
+            S2S_RUN={}).items():
+        monkeypatch.setattr(smoke, name, value)
+    monkeypatch.setattr(smoke, "log", lambda msg: None)
+    held = {}
+
+    def hold(gemm, keys, what, device):
+        held[what] = dict(keys)
+        return {}, {}
+    monkeypatch.setattr(smoke, "check_path_products", hold)
+    seed = registry._OP_SEED[0]
+    paths = smoke.s2s_flagship(tpt, fa, "a card")
+    assert registry._OP_SEED[0] == seed
+    assert sorted(paths) == ["rnn_fused", "seq2seq_decode",
+                             "seq2seq_training"]
+    run = smoke.S2S_RUN
+    assert run["parity"]["loss_rel"] == 0.0
+    assert run["training"]["losses"][-1] < run["training"]["losses"][0]
+    d = run["decode"]
+    assert d["captured_equals_eager"] and d["batched_equals_single"]
+    assert d["recurrent_a_decode"] == 2 * 2 * 8
+    assert paths["seq2seq_decode"].recurrent == 2 * 2 * 8 * 2
+    assert paths["seq2seq_decode"].gemm == \
+        (d["products_a_decode"] + d["recurrent_a_decode"]) * 2
+    assert paths["seq2seq_training"].gemm == 0
+    assert paths["rnn_fused"].recurrent > 0
+    assert run["fused"]["worst_of_limit"] == 0.0
+    assert run["fused"]["sentiment"]["loss_rel"] == 0.0
+    # both weight sets decoded; the startup weights' hypotheses stay live
+    live = d["startup_weights"]
+    assert live["captured_equals_eager"] and live["batched_equals_single"]
+    assert live["live_share"] >= smoke.S2S_LIVE_SHARE
+    assert d["steps_plain"] == live["steps_plain"] == 6
+    assert d["live_share"] <= 1.0
+    # the product shapes the decode and the fused forwards sent the
+    # product kernel's route (batch, M, K, N, b transposed): the encoder's
+    # steps and h0 at M = B, the cell's, the query's and the output
+    # projection's at M = B x beam, the attention's two batched products
+    E = H = 16
+    S, V = 8, 30
+    want = set()
+    for b in (1, 4):
+        n = b * 3
+        want |= {(1, b, E + H, 2 * H, False), (1, b, E + H, H, False),
+                 (1, b, 2 * H, H, False), (1, n, E, 3 * H, False),
+                 (1, n, H, 3 * H, False), (1, n, H, 2 * H, False),
+                 (1, n, 3 * H, V, False), (n, S, 2 * H, 1, False),
+                 (n, 1, S, 2 * H, False)}
+    assert set(held["20b"]) == want
+    # the lstm case's recurrent step: [B, H] x [H, 4H]
+    assert (1, smoke.FUSED_B, smoke.FUSED_H, 4 * smoke.FUSED_H, False) \
+        in held["20c"]
