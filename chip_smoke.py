@@ -458,8 +458,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
       forward timeout of 4x its p99 (at least 1 s), the 5 s liveness
       default and scenarios of 1.6x that respawn (its profiler warm-up
       included; at most CHAOS_MAX_S), but baseline, slow and poison,
-      which kill no replica, of CHAOS_STEADY_S.  poison_paged and spec_storm run in
-      this process on GEN (8 layers; paged, pages of 16, 10c's
+      which kill no replica, of CHAOS_STEADY_S.  The shared fleet's
+      replicas hold a batch CHAOS_ENGINE's 10 ms; poison runs on a
+      fleet of its own, the same but for a window of two arrivals a
+      replica at that rate (chaos_batch_window_ms), so its poisoned
+      requests have batchmates to be bisected from.  poison_paged and
+      spec_storm run in this process on GEN (8 layers; paged, pages of 16, 10c's
       buckets; spec_storm speculating); disagg_crash on four replicas of
       Llama-2-7B's widths at 4 layers (four 25.10 GiB
       replicas do not fit in 80 GB); hot_swap and noisy_neighbor spawn
@@ -716,6 +720,46 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    gemm.tolerance of the plain version with TF32 and bf16 controls
    outside it, timed beside torch.matmul and its bound.  The "seq2seq:"
    JSON line holds the numbers.
+21. the optimizer tier and static control flow (run right after phase
+   20).
+   a. bench.py's seq-512 BERT-base step (batch 8, bf16 AMP with its white
+      list, global-norm clip 1.0, linear warmup, dropout 0.1) under
+      GradientMergeOptimizer(decorate(LambOptimizer), k_steps=4,
+      avg=True): LAMB at beta1 0.9, beta2 0.999, eps 1e-6, weight decay
+      0.01, the 1-D parameters exempt; an effective batch of 32.  8
+      micro-steps (two windows): on the 3 of each window that do not
+      update, every persistable but the accumulators, the merge's step
+      and the LR counter is bit-identical to the step before; the
+      packed kernels launch 12 times a micro-step, whether it updates or
+      not; captured = eager = a second life bit for bit.  The replays'
+      times by kind (merging, updating: one graph) beside the same LAMB
+      step without the merge and phase 6's Adam step.  Then 2 layers at
+      BERT-base's widths, seq 128, batch 2, fp32, dropout 0, 8
+      micro-steps, the card against the port's CPU: each loss within
+      LOSS_RTOL, every persistable after each update within
+      LIFE_STATE_RTOL of its norm.
+   b. 19c's step (bench.py's ResNet-50 leg, batch 64, bf16) under
+      LarsMomentumOptimizer at Fluid's defaults and an
+      ExponentialMovingAverage(0.999) updated every step, 4 steps:
+      captured = eager = a second life bit for bit; the fp32 is_test
+      program served over the life's own tensors, captured before the
+      swap, gives under ema.apply() (every parameter keeps its tensor and
+      data_ptr, nothing captured again) the bits of a fresh Predictor on
+      the bias-corrected EMA arrays, and restore() gives every parameter
+      back bit for bit; one fp32 step at batch 2 card against CPU.
+   c. 19a's LeNet under Adamax, Adadelta, RMSProp (centered, momentum
+      0.9), Ftrl, DecayedAdagrad, Dpsgd (sigma 0), Lookahead(Adam, k 5),
+      ModelAverage (a window of 2-3) and the two proximal ops, 6 steps
+      each: card against CPU within LIFE_LOSS_RTOL / LIFE_STATE_RTOL,
+      captured = eager bit for bit; Dpsgd's noise at sigma 1 within 5
+      sigma of its moments over 20000 draws.
+   d. cond, Switch and a while_loop whose trip count follows its feed,
+      feed after feed through one entry, card against CPU: cond and
+      Switch captured (each feed's replay gives its eager bits); the
+      loop's entry eager on every run, at three trip counts.  The
+      route's counts (captures, eager runs, the condition's host reads)
+      are printed.
+   The "optimizers:" JSON line holds the numbers.
 
 Every profiled replay (phases 4, 5, 6, 9, 15, 16 and 17) also holds the
 profiler's launches of the forward, dK/dV and dQ kernels against what the
@@ -755,7 +799,8 @@ minilm_serving, minilm_parity (card steps) and minilm_flagship (17b,
 17c), seq128_unfused and seq128_serving (17d), wide_deep_dense,
 wide_deep_sparse, wide_deep_lazy and wide_deep_serving (18a-c, 18e),
 lenet_training, lenet_serving, resnet50_parity, resnet50_bench and
-resnet50_serving (19a-d); and
+resnet50_serving (19a-d), lamb_merge, lars_ema, optimizers_lenet and
+control_flow (21a-d); and
 fleet_serving,
 fleet_generation and chaos_fleet (12a, 12b, 13b's probe fleet), which
 count kernel records in a replica's /profilez trace instead (the
@@ -807,8 +852,9 @@ numbers, 10c's under "spec" and 10d's under "disagg".
 
 Every phase runs through the executor's compiled step (Executor.run /
 run_async and Predictor.run on the card: the first run of a signature
-eager, the second captured as one CUDA graph, the rest replays), and
-closes its executor (graphs and pools) before the next.
+eager, the second captured as one CUDA graph, the rest replays; a
+program holding a while loop eager on every run), and closes its
+executor (graphs and pools) before the next.
 """
 import contextlib
 import json
@@ -6599,9 +6645,12 @@ def chaos_gate(report):
 
 
 def chaos_batch_window_ms(qps):
-    """The chaos fleets' batch window (--max-delay-ms) at `qps`:
+    """The poison scenario's batch window (--max-delay-ms) at `qps`:
     CHAOS_ENGINE's, or CHAOS_WINDOW_ARRIVALS arrivals a replica where
-    that is longer."""
+    that is longer.  The other scenarios keep CHAOS_ENGINE's (they need
+    no batchmates, and on a slow host the long window's wait put
+    baseline's p99 over the SLO: 331.6 ms against 250 at 54.45 qps with
+    a 110 ms window, H100 host)."""
     engine = CHAOS_ENGINE[CHAOS_ENGINE.index("--max-delay-ms") + 1]
     return max(float(engine),
                CHAOS_WINDOW_ARRIVALS * CHAOS_REPLICAS * 1e3 / qps)
@@ -6626,14 +6675,17 @@ def chaos_flagship(fa, model, settings):
     set to 0 before and read after (the in-process engines and
     hot_swap's fresh predictor): no plain call, nothing realigned, the
     prefill kernel (#4), the product and RMSNorm kernels launched.  The
-    replicas hold batches chaos_batch_window_ms(qps).  The hard gates of
-    chaos_gate.  Returns the launches."""
+    shared fleet's replicas hold batches CHAOS_ENGINE's 10 ms; poison
+    runs on a fleet of its own (run_chaos's poison_model) whose replicas
+    hold them chaos_batch_window_ms(qps), so poisoned requests have
+    batchmates to be bisected from.  The hard gates of chaos_gate.
+    Returns the launches."""
     from paddle_tpu_torch.tools import chaos
 
     window_ms = chaos_batch_window_ms(settings["qps"])
-    model = chaos_windowed(model, window_ms)
-    log(f"  13b batch window {window_ms:.3f} ms ({CHAOS_WINDOW_ARRIVALS} "
-        f"arrivals a replica at {settings['qps']} qps)")
+    log(f"  13b batch window {window_ms:.3f} ms in poison's own fleet "
+        f"({CHAOS_WINDOW_ARRIVALS} arrivals a replica at "
+        f"{settings['qps']} qps), CHAOS_ENGINE's elsewhere")
     reset_counts(fa)
     t0 = time.perf_counter()
     with fleet_workdir("chip_smoke_chaos_", "13b") as fd:
@@ -6643,7 +6695,7 @@ def chaos_flagship(fa, model, settings):
             log=lambda m: log("  13b " + m), device="cuda", model=model,
             gen_model=GEN, gen_engine=CHAOS_GEN_ENGINE,
             disagg_argv=CHAOS_DISAGG_ARGV, disagg_env=CHAOS_DISAGG_ENV,
-            **settings)
+            poison_model=chaos_windowed(model, window_ms), **settings)
         if chaos_gate(report):  # its replicas' logs before they go
             dead_replica_logs(fd, "13b")
     seconds = time.perf_counter() - t0
@@ -10017,6 +10069,930 @@ def s2s_flagship(tpt, fa, card):
     return paths
 
 
+
+# -- phase 21: the optimizer tier and static control flow -------------------
+
+# 21a: bench.py's seq-512 BERT-base step (FLAGSHIP, FLAGSHIP_LR, bf16 AMP
+# with EXTRA_WHITE, global-norm clip 1.0, dropout 0.1) with its Adam
+# replaced by LAMB (You et al. 2020: beta1 0.9, beta2 0.999, eps 1e-6,
+# weight decay 0.01, the 1-D parameters (biases, LayerNorm scales and
+# shifts) exempt) under a gradient merge of MERGE_K micro-steps
+# (GradientMergeOptimizer(decorate(lamb), k_steps=4, avg=True): an
+# effective batch of 32, no cut), LAMB_STEPS micro-steps (two windows);
+# the card against the port's CPU at LAMB_PARITY (2 layers at BERT-base's
+# widths, seq 128, batch 2, fp32, dropout 0: a cut for the CPU)
+LAMB = dict(beta1=0.9, beta2=0.999, epsilon=1e-6, lamb_weight_decay=0.01)
+MERGE_K = 4
+LAMB_STEPS = 8
+LAMB_SEED = 2100
+LAMB_TIMED_REPLAYS = 8
+LAMB_PARITY = dict(BERT_BASE, num_layers=2, batch_size=2, seq_len=128,
+                   max_predictions=19)
+# 21b: 19c's step (bench.py's ResNet-50 leg: batch 64, bf16) under LARS at
+# Fluid's defaults (You, Gitman, Ginsburg 2017: momentum 0.9, lars_coeff
+# 0.001, lars_weight_decay 0.0005) and 19c's learning rate, with an EMA of
+# decay EMA_DECAY updated every step; card against CPU for its first step
+# at 19b's cut (batch 2, fp32); the EMA swapped into the fp32 is_test
+# program served at a batch of LARS_SERVE_BATCH
+LARS = dict(momentum=0.9, lars_coeff=0.001, lars_weight_decay=0.0005)
+EMA_DECAY = 0.999
+LARS_STEPS = 4
+LARS_SERVE_BATCH = 8
+# 21c: 19a's LeNet recipe (batch 64, fp32) under each other optimizer,
+# OPT_STEPS steps; DP-SGD's noise at sigma 1 held to its moments over
+# DPSGD_DRAWS draws (5 sigma)
+OPT_STEPS = 6
+DPSGD_DRAWS = 20000
+# 21c's card-against-CPU hold of the normalised updates' parameters and
+# states (lenet_tier): NORMALISED_RTOL of their norm
+NORMALISED_RTOL = 5e-3
+# 21d: control flow on the feeds of tests/test_torch_control_flow.py
+CF_SEED = 2130
+OPTIMIZER_RUN = {}
+
+
+def one_d(param):
+    """LAMB's weight-decay exclusion: the 1-D parameters."""
+    return len(param.shape) == 1
+
+
+def build_lamb(tpt, cfg, lr_args, amp, dropout, merge=True, op_seed=None):
+    """bench.py's BERT step (build_bert_pretrain, linear LR warmup,
+    global-norm clip 1.0) under LAMB, optionally AMP with bench.py's
+    white list, wrapped in a gradient merge of MERGE_K (`merge`)."""
+    from paddle_tpu_torch import clip, optimizer
+    from paddle_tpu_torch.contrib import mixed_precision
+    from paddle_tpu_torch.models import build_bert_pretrain
+    from paddle_tpu_torch.ops import registry
+
+    if op_seed is not None:
+        registry.reset_op_seed(op_seed)
+    tpt.reset_unique_name()
+    main, startup = tpt.Program(), tpt.Program()
+    startup._is_startup = True
+    main.random_seed = startup.random_seed = LAMB_SEED
+    with tpt.program_guard(main, startup), warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        _, outs = build_bert_pretrain(dropout=dropout, **cfg)
+        lr = tpt.layers.linear_lr_warmup(**lr_args)
+        opt = optimizer.LambOptimizer(
+            learning_rate=lr, exclude_from_weight_decay_fn=one_d,
+            grad_clip=clip.GradientClipByGlobalNorm(1.0), **LAMB)
+        if amp:
+            opt = mixed_precision.decorate(
+                opt, amp_lists=mixed_precision.AutoMixedPrecisionLists(
+                    custom_white_list=EXTRA_WHITE), dtype="bfloat16")
+        if merge:
+            opt = optimizer.GradientMergeOptimizer(opt, k_steps=MERGE_K,
+                                                   avg=True)
+        opt.minimize(outs["loss"])
+    return main, startup, outs["loss"].name
+
+
+def window_state(names):
+    """The persistables that move on every micro-step of a merge: the
+    accumulators, the merge's step and the LR schedule's counter (it
+    counts runs, in the global block, as in the reference)."""
+    return {n for n in names if ".gm_acc" in n or n.startswith("gm_step")
+            or n.startswith("@LR_DECAY_COUNTER@")}
+
+
+def merge_life(tpt, fa, what, main, startup, loss, feeds, start=None,
+               eager=False, device=None, keep=False, record=False):
+    """One life of a gradient-merge program: a fresh executor and scope
+    on `device` (the card by default; on the CPU its startup values come
+    from `start`), then each micro-step (`eager`: op by op, never
+    captured).  On every micro-step that does not update, every
+    persistable but window_state's is bit-identical to the step before;
+    on an updating one, most of them move.  On the card the kernel
+    counts are read from 0 around the steps: per_step_launches(main) a
+    micro-step, no plain call, nothing realigned, and the step captured
+    (unless `eager`).  Returns (losses, {persistable: tensor} after the
+    last step, the startup state, per-step wall ms, launches, each
+    step's loss fetch as numpy, and with `record` {micro-step: the
+    persistables after it} at each update, else {}), laid out as
+    training_life's lives are (lives_equal compares two), and with
+    `keep` the executor and scope too (left open)."""
+    import torch
+
+    names = sorted(v.name for v in main.list_vars() if v.persistable)
+    moving = window_state(names)
+    on_cpu = device is not None and device.type == "cpu"
+    exe = tpt.Executor(tpt.CPUPlace() if on_cpu else None)
+    scope = tpt.Scope()
+    exe.run(startup, scope=scope)
+    if start is not None:
+        for n in names:
+            scope.find_var(n).copy_(start[n])
+    first = {n: scope.find_var(n).clone() for n in names}
+    if not on_cpu:
+        torch.cuda.synchronize()
+        reset_counts(fa)
+    prev = {n: t.clone() for n, t in first.items() if n not in moving}
+    losses, outs, wall, updates, held = [], [], [], {}, 0
+    for step, feed in enumerate(feeds):
+        if not on_cpu:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                      use_program_cache=not eager)
+        wall.append((time.perf_counter() - t) * 1e3)
+        outs.append([np.asarray(out[0]).copy()])
+        losses.append(float(np.ravel(out[0])[0]))
+        now = {n: scope.find_var(n) for n in prev}
+        moved = [n for n in prev if not torch.equal(now[n], prev[n])]
+        if (step + 1) % MERGE_K:
+            if moved:
+                raise AssertionError(f"{what}: micro-step {step + 1} does "
+                                     f"not update but moved {moved[:5]}")
+            held += len(prev)
+        else:
+            if len(moved) < len(prev) // 2:
+                raise AssertionError(f"{what}: update at micro-step "
+                                     f"{step + 1} moved only {len(moved)} "
+                                     f"of {len(prev)}")
+            if record:
+                updates[step + 1] = {n: scope.find_var(n).clone()
+                                     for n in names}
+            prev = {n: now[n].clone() for n in prev}
+    counts = None
+    if not on_cpu:
+        counts, plain, realigned = read_counts(fa)
+        want = tuple(len(feeds) * w for w in per_step_launches(main))
+        info = exe.cache_info()["entries"][-1]
+        if (tuple(counts), plain, realigned) != (want, 0, 0) or (
+                not eager and not info["aot"]):
+            raise AssertionError(f"{what}: launches {tuple(counts)} (want "
+                                 f"{want}), plain {plain}, realigned "
+                                 f"{realigned}, captured {info['aot']}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{what}: non-finite losses {losses}")
+    log(f"  {what}: losses {', '.join(f'{x:.6f}' for x in losses)}; step "
+        f"ms {', '.join(f'{x:.1f}' for x in wall)}; {held} persistables "
+        f"held bit-identical over the steps that merge")
+    life = (losses, {n: scope.find_var(n) for n in names}, first, wall,
+            counts, outs, updates)
+    if keep:
+        return life, exe, scope
+    exe.close()
+    return life
+
+
+def timed_replays(exe, main, scope, feeds, loss, n):
+    """`n` replays of a captured step, each timed on the host clock from a
+    synchronized card to its loss fetch; returns the ms of each."""
+    import torch
+
+    out = []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        exe.run(main, feed=feeds[i % len(feeds)], fetch_list=[loss],
+                scope=scope)
+        out.append((time.perf_counter() - t) * 1e3)
+    return out
+
+
+def lamb_merge(tpt, fa, card):
+    """21a: LAMB under a gradient merge at bench.py's seq-512 step, bf16:
+    a captured life of LAMB_STEPS micro-steps (merge_life's gates: the
+    steps that merge hold every parameter and optimizer state bit for
+    bit; 12 launches of each packed kernel a micro-step, whether it
+    updates or not), an eager life and a second life bit-equal to it;
+    the replays' times by kind (the conditional block is computed and
+    selected every micro-step, so a merging and an updating replay run
+    one graph) beside phase 6's Adam step and the same LAMB step with no
+    merge; then LAMB_PARITY's card life against the port's CPU one from
+    the card's startup values, every loss within LOSS_RTOL and every
+    persistable after each update within LIFE_STATE_RTOL of its norm.
+    Returns the captured life's launches."""
+    import torch
+
+    t0 = time.perf_counter()
+    main, startup, loss = build_lamb(tpt, FLAGSHIP, FLAGSHIP_LR, amp=True,
+                                     dropout=0.1)
+    cond = next(op for op in main.global_block().ops
+                if op.type == "conditional_block")
+    sub_ops = len(main.block(cond.attr("sub_block")).ops)
+    batches = [train_batch(FLAGSHIP, seed=LAMB_SEED + i, padding=False)
+               for i in range(MERGE_K)]
+    feeds = [batches[i % len(batches)] for i in range(LAMB_STEPS)]
+    log(f"  21a: {len(main.global_block().ops)} ops and a conditional "
+        f"block of {sub_ops} (built in {time.perf_counter() - t0:.1f} s)")
+    life, exe, scope = merge_life(tpt, fa, "21a captured", main, startup,
+                                  loss, feeds, keep=True)
+    snap = {n: t.clone() for n, t in life[1].items()}
+    life = life[:1] + (snap,) + life[2:]
+    ms = timed_replays(exe, main, scope, batches, loss, LAMB_TIMED_REPLAYS)
+    # the replays continue the run count: step r + 1 updates where it is
+    # a multiple of MERGE_K
+    done = len(feeds)
+    kinds = {"merge": [], "update": []}
+    for i, x in enumerate(ms):
+        kinds["update" if (done + i + 1) % MERGE_K == 0
+              else "merge"].append(x)
+    exe.close()
+    del scope
+    torch.cuda.empty_cache()
+    lives_equal(life, merge_life(
+        tpt, fa, "21a eager (every step op by op)", main, startup, loss,
+        feeds, eager=True), "21a captured vs eager")
+    lives_equal(life, merge_life(
+        tpt, fa, "21a again (fresh executor and scope)", main, startup,
+        loss, feeds), "21a second life")
+    losses, counts = life[0], life[4]
+    del life, snap
+    torch.cuda.empty_cache()
+    plain, p_start, p_loss = build_lamb(tpt, FLAGSHIP, FLAGSHIP_LR,
+                                        amp=True, dropout=0.1, merge=False)
+    p_exe, p_scope = tpt.Executor(), tpt.Scope()
+    p_exe.run(p_start, scope=p_scope)
+    for b in batches[:2]:  # eager, then the capture
+        p_exe.run(plain, feed=b, fetch_list=[p_loss], scope=p_scope)
+    plain_ms = timed_replays(p_exe, plain, p_scope, batches, p_loss,
+                             LAMB_TIMED_REPLAYS)
+    p_exe.close()
+    del p_scope
+    torch.cuda.empty_cache()
+    adam = PROFILES.get("bert_flagship_async", {}).get("ms_per_step")
+    med = {k: float(np.median(v)) for k, v in kinds.items()}
+    log(f"  21a replays (host clock, synchronized, to the loss fetch): "
+        f"merging {med['merge']:.2f} ms, updating {med['update']:.2f} ms "
+        f"(one graph); the same LAMB step without the merge "
+        f"{float(np.median(plain_ms)):.2f} ms; phase 6's Adam step "
+        f"{'not measured' if adam is None else f'{adam:.2f} ms'} (its "
+        f"run_async window)")
+
+    p_main, p_startup, p_loss = build_lamb(tpt, LAMB_PARITY, PARITY_LR,
+                                           amp=False, dropout=0.0)
+    pfeeds = [train_batch(LAMB_PARITY, seed=LAMB_SEED + 10 + i,
+                          padding=True) for i in range(LAMB_STEPS)]
+    c_life = merge_life(tpt, fa, "21a parity, card", p_main, p_startup,
+                        p_loss, pfeeds, record=True)
+    cpu = torch.device("cpu")
+    w_life = merge_life(tpt, fa, "21a parity, CPU", p_main, p_startup,
+                        p_loss, pfeeds, start=c_life[2], device=cpu,
+                        record=True)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(c_life[0],
+                                                       w_life[0]))
+    # LAMB's step on an element is lr * trust * r_i, which lr does not
+    # bound: the persistables are held by their norms alone
+    state = [state_gap(c_life[6][s], w_life[6][s], f"21a after micro-step "
+                       f"{s}", set(), 0.0)
+             for s in sorted(w_life[6])]
+    # the limit must catch a lower precision: the CPU's persistables
+    # rounded to bf16 lie above it after every update
+    low = min(max(float((w.to(torch.bfloat16).double() - w.double()).norm())
+                  / max(float(w.double().norm()), 1e-30)
+                  for w in w_life[6][s].values() if w.is_floating_point())
+              for s in w_life[6])
+    log(f"  21a card vs CPU ({LAMB_PARITY['num_layers']} layers, fp32): "
+        f"losses at most {loss_rel:.3e} apart (limit {LOSS_RTOL:g}); "
+        f"persistables after each update at most "
+        f"{max(s[0] for s in state):.3e} of their norm (limit "
+        f"{LIFE_STATE_RTOL:g}; the CPU's rounded to bf16 at least "
+        f"{low:.3e})")
+    if loss_rel > LOSS_RTOL:
+        raise AssertionError(f"21a card vs CPU: losses {loss_rel:.3e}")
+    if low <= LIFE_STATE_RTOL:
+        raise AssertionError(f"21a: bf16 rounding lies within the limit "
+                             f"({low:.3e})")
+    OPTIMIZER_RUN["lamb_merge"] = dict(
+        card=card, ops=len(main.global_block().ops), sub_block_ops=sub_ops,
+        losses=losses, merge_ms=med["merge"], update_ms=med["update"],
+        replays_ms=ms, plain_lamb_ms=float(np.median(plain_ms)),
+        adam_async_ms=adam,
+        parity=dict(losses=c_life[0], loss_rel=loss_rel,
+                    state_rel=max(s[0] for s in state), bf16_state=low),
+        seconds=time.perf_counter() - t0)
+    return counts
+
+
+def build_lars(tpt, op_seed, batch, amp):
+    """(main, startup, loss, the EMA, the fp32 is_test program and its
+    logits): 19b's / 19c's ResNet-50 step under LarsMomentumOptimizer at
+    LARS and RESNET_LR (bf16 decorate with `amp`) with an
+    ExponentialMovingAverage(EMA_DECAY) updated every step, its ops
+    seeded from `op_seed` as build_vision seeds phase 19's."""
+    from paddle_tpu_torch import models
+    from paddle_tpu_torch.contrib import mixed_precision
+    from paddle_tpu_torch.ops import registry
+
+    registry.reset_op_seed(op_seed)
+    tpt.reset_unique_name()
+    main, startup = tpt.Program(), tpt.Program()
+    startup._is_startup = True
+    main.random_seed = startup.random_seed = RESNET_SEED
+    with tpt.program_guard(main, startup):
+        _, outs = models.build_resnet_train(batch_size=batch, **RESNET)
+        opt = tpt.optimizer.LarsMomentumOptimizer(RESNET_LR, **LARS)
+        if amp:
+            opt = mixed_precision.decorate(opt, dtype="bfloat16")
+        opt.minimize(outs["loss"])
+        ema = tpt.optimizer.ExponentialMovingAverage(EMA_DECAY)
+        ema.update()
+    serving, _, served = build_vision(tpt, "resnet_is_test", op_seed, None)
+    return main, startup, outs["loss"], ema, serving, served["logits"]
+
+
+def lars_ema(tpt, fa, op_seed, card):
+    """21b: ResNet-50 under LARS with an EMA.  bench.py's batch-64 bf16
+    step, LARS_STEPS steps: a captured life against an eager one and a
+    second one, bit for bit (training_life, lives_equal: no attention
+    kernel, no product kernel in training, captured).  Then the EMA on
+    the captured life's scope: the fp32 is_test program, served by a
+    Predictor over that scope's own tensors and captured before the
+    swap, gives under ``ema.apply()`` (every parameter keeps its tensor
+    and data_ptr, the Predictor captures nothing again) the bits of a
+    fresh Predictor loaded with the swapped-in arrays, which are the
+    EMA over one minus the decay's running product (within 2 ulps of
+    numpy's float32 division: torch divides by a scalar as a product by
+    its reciprocal); ``restore()`` gives every parameter back
+    bit for bit.  Then card against CPU for one step at 19b's cut (batch
+    2, fp32): the loss (LOSS_RTOL), every grad (RESNET_GRAD_RTOL of its
+    norm), every parameter (2 lr), every EMA (2 lr (1 - EMA_DECAY): one
+    step's EMA is that share of the parameter, and LARS moves a
+    zero-initialised bias at the plain rate, so its gap is its grad's)
+    and every moving statistic (RESNET_STATS_RTOL of its norm).  Returns
+    the captured life's launches."""
+    import torch
+
+    t0 = time.perf_counter()
+    main, startup, loss, ema, serving, logits = build_lars(
+        tpt, op_seed, RESNET_BENCH_BATCH, amp=True)
+    feeds = resnet_feeds(RESNET_BENCH_BATCH, 2, RESNET_SEED + 3)
+    steps = [feeds[i % len(feeds)] for i in range(LARS_STEPS)]
+    log(f"  21b: {len(main.global_block().ops)} ops at batch "
+        f"{RESNET_BENCH_BATCH}, bf16, LARS and an EMA")
+    life, exe, scope = training_life(tpt, fa, "21b captured", main,
+                                     startup, [loss], steps, keep=True)
+    if life[4].gemm or life[4].conv or life[4].rms_norm:
+        raise AssertionError("21b: a training step launched the product "
+                             "kernel")
+    snap = {n: t.clone() for n, t in life[1].items()}
+    life = life[:1] + (snap,) + life[2:]
+    replay_ms = float(np.median(timed_replays(exe, main, scope, feeds,
+                                              loss, 4)))
+    params = [p.name for p in main.all_parameters()]
+    images = resnet_feeds(LARS_SERVE_BATCH, 1, RESNET_SEED + 4)[0]
+    feed = {"images": images["images"]}
+    live = tpt.inference.Predictor(serving, ["images"], [logits],
+                                   scope=scope)
+    raw = [live.run(feed)[0] for _ in range(2)]  # eager, then captured
+    captures = [e.captures for e, _ in live._cache.values()]
+    tensors = {n: scope.find_var(n) for n in params}
+    ptrs = {n: t.data_ptr() for n, t in tensors.items()}
+    before = {n: t.clone() for n, t in tensors.items()}
+    dp = float(scope.find_var(ema._decay_pow.name).cpu()[0])
+    with ema.apply(exe, scope=scope):
+        kept = all(scope.find_var(n) is tensors[n]
+                   and tensors[n].data_ptr() == ptrs[n] for n in params)
+        swapped = live.run(feed)[0]
+        arrays = {n: t.cpu().numpy().copy() for n, t in tensors.items()}
+        ema_vals = {n: scope.find_var(ema._ema_vars[n].name).cpu().numpy()
+                    for n in params}
+    restored = all(torch.equal(tensors[n], before[n]) and
+                   tensors[n].data_ptr() == ptrs[n] for n in params)
+    again = [e.captures for e, _ in live._cache.values()]
+    live.close()
+    ulps = max(float(np.max(np.abs(arrays[n] - ema_vals[n] / np.float32(
+        1.0 - dp)) / np.spacing(np.abs(arrays[n]) + np.float32(1e-30))))
+        for n in params)
+    fresh_scope = tpt.Scope()
+    for n in scope.local_var_names():
+        fresh_scope.set_var(n, arrays[n] if n in arrays
+                            else scope.find_var(n))
+    fresh = tpt.inference.Predictor(serving, ["images"], [logits],
+                                    scope=fresh_scope)
+    want = fresh.run(feed)[0]
+    fresh.close()
+    same = swapped.tobytes() == want.tobytes()
+    log(f"  21b: replay {replay_ms:.2f} ms; EMA swap kept every tensor "
+        f"and data_ptr {kept}, captures {captures} -> {again}; served "
+        f"under the swap equal to a fresh Predictor on the bias-corrected "
+        f"arrays: {same} (logits moved by the swap: "
+        f"{not np.array_equal(raw[1], swapped)}; decay power {dp:.6f}, "
+        f"arrays within {ulps:.2f} ulp of numpy's); restore bit-exact "
+        f"{restored}")
+    exe.close()
+    del scope, fresh_scope, tensors, before
+    torch.cuda.empty_cache()
+    if not (kept and restored and same and captures == again
+            and raw[0].tobytes() == raw[1].tobytes() and ulps <= 2.0
+            and np.isfinite(swapped).all()):
+        raise AssertionError("21b: the EMA swap failed its gates")
+    lives_equal(life, training_life(
+        tpt, fa, "21b eager (every step op by op)", main, startup, [loss],
+        steps, eager=True), "21b captured vs eager")
+    lives_equal(life, training_life(
+        tpt, fa, "21b again (fresh executor and scope)", main, startup,
+        [loss], steps), "21b second life")
+    counts = life[4]
+    del life, snap
+    torch.cuda.empty_cache()
+
+    p_main, p_startup, p_loss, p_ema, _, _ = build_lars(
+        tpt, op_seed, RESNET_PARITY_BATCH, amp=False)
+    feed = resnet_feeds(RESNET_PARITY_BATCH, 1, RESNET_SEED + 5)[0]
+    names = [p.name for p in p_main.all_parameters()]
+    card_exe, card_scope = tpt.Executor(), tpt.Scope()
+    card_exe.run(p_startup, scope=card_scope)
+    cpu_exe, cpu_scope = tpt.Executor(tpt.CPUPlace()), tpt.Scope()
+    for n in card_scope.local_var_names():
+        cpu_scope.set_var(n, card_scope.find_var(n).to("cpu", copy=True))
+    fetch = [p_loss.name] + [n + "@GRAD" for n in names]
+    got = card_exe.run(p_main, feed=feed, fetch_list=fetch,
+                       scope=card_scope)
+    want = cpu_exe.run(p_main, feed=feed, fetch_list=fetch,
+                       scope=cpu_scope)
+    lg, lw = float(np.ravel(got[0])[0]), float(np.ravel(want[0])[0])
+    loss_rel = abs(lg - lw) / abs(lw)
+    grad_rel = max(float(np.linalg.norm(np.asarray(g, np.float64) - w)
+                         / np.linalg.norm(np.asarray(w, np.float64)))
+                   for g, w in zip(got[1:], want[1:]))
+
+    def rel(n):
+        a = card_scope.find_var(n).cpu().double()
+        b = cpu_scope.find_var(n).double()
+        return float((a - b).norm() / b.norm()) if float(b.norm()) else \
+            float((a - b).norm())
+    def max_diff(n):
+        return float((card_scope.find_var(n).cpu()
+                      - cpu_scope.find_var(n)).abs().max())
+    param_max = max(max_diff(n) for n in names)
+    ema_max = max(max_diff(p_ema._ema_vars[n].name) for n in names)
+    stat_rel = max(rel(n) for n in moving_stats(p_main))
+    log(f"  21b card vs CPU, one step at batch {RESNET_PARITY_BATCH}, "
+        f"fp32: loss {lg:.7f} / {lw:.7f} rel {loss_rel:.3e} (limit "
+        f"{LOSS_RTOL:g}); grads at most {grad_rel:.3e} of their norm "
+        f"(limit {RESNET_GRAD_RTOL:g}); parameters max|diff| "
+        f"{param_max:.3e} (limit {2 * RESNET_LR:g}), their EMAs "
+        f"{ema_max:.3e} (limit {2 * RESNET_LR * (1 - EMA_DECAY):g}); "
+        f"moving statistics at most {stat_rel:.3e} of their norm (limit "
+        f"{RESNET_STATS_RTOL:g})")
+    card_exe.close()
+    cpu_exe.close()
+    del card_scope, cpu_scope
+    torch.cuda.empty_cache()
+    if not (loss_rel <= LOSS_RTOL and grad_rel <= RESNET_GRAD_RTOL
+            and param_max <= 2 * RESNET_LR
+            and ema_max <= 2 * RESNET_LR * (1 - EMA_DECAY)
+            and stat_rel <= RESNET_STATS_RTOL):
+        raise AssertionError("21b: card vs CPU disagree")
+    OPTIMIZER_RUN["lars_ema"] = dict(
+        card=card, replay_ms=replay_ms,
+        images_per_s=RESNET_BENCH_BATCH * 1e3 / replay_ms,
+        swap=dict(kept=kept, restored=restored, served_equal=same,
+                  captures=again, ulps=ulps, decay_pow=dp),
+        parity=dict(loss_rel=loss_rel, grad_rel=grad_rel,
+                    param_max=param_max, ema_max=ema_max,
+                    stats_rel=stat_rel),
+        seconds=time.perf_counter() - t0)
+    return counts
+
+
+def proximal_optimizers(tpt):
+    """(ProximalGD, ProximalAdagrad): test-side Optimizer subclasses over
+    the two proximal ops (the port, as the reference, has the ops and no
+    class), L1 0.01 and L2 0.01."""
+    from paddle_tpu_torch.framework.core import default_main_program
+
+    class Prox(tpt.optimizer.Optimizer):
+        op_type = "proximal_gd"
+
+        def _create_accumulators(self, param):
+            if self.op_type == "proximal_adagrad":
+                self._add_accumulator("moment", param, fill_value=0.1)
+
+        def _append_optimize_op(self, param, grad, lr):
+            ins = {"Param": [param], "Grad": [grad], "LearningRate": [lr]}
+            outs = {"ParamOut": [param]}
+            if self.op_type == "proximal_adagrad":
+                m = self._get_accumulator("moment", param)
+                ins["Moment"], outs["MomentOut"] = [m], [m]
+            return default_main_program().current_block().append_op(
+                self.op_type, inputs=ins, outputs=outs,
+                attrs={"l1": 0.01, "l2": 0.01})
+
+    class ProxAdagrad(Prox):
+        op_type = "proximal_adagrad"
+
+    return Prox, ProxAdagrad
+
+
+def lenet_optimizers(tpt):
+    """21c's optimizers on 19a's LeNet: name -> (a function of the loss
+    that minimizes it, the most one step moves an element where the
+    update is normalised, a ratio of gradient statistics, else None).
+    Each normalised update's first step is set near 19a's Adam step
+    (LENET_LR an element): Adamax, Lookahead's Adam and FTRL (a weight
+    is lr |z| / sqrt(n), and |z| / sqrt(n) grows by at most 1 a step)
+    move an element at most lr (FTRL with L1 and L2 1e-4: at Fluid's
+    default L1 0 a weight whose gradient is 0 on one device and not on
+    the other is zeroed on one side only, a conv weight 0.18 apart after
+    one step on an H100, while L1 zeroes every weight whose |z| falls
+    under it, smoothly); Adadelta sqrt(eps / (1 - rho)) at its start, so
+    eps 5e-8 (at its default 1e-6 the first step is 4.5 x 19a's and the
+    loss jumps from 2.6 to 8.6); RMSProp lr / sqrt(1 - rho) and
+    DecayedAdagrad lr / sqrt(1 - decay), so lr LENET_LR / 5 (RMSProp's
+    momentum 0.9 sums up to ten of them).  The rest scale the gradient:
+    DP-SGD (clipped to a global norm of 1 over a batch size of 1), SGD
+    under ModelAverage at 10 LENET_LR, the proximal steps at 1e-2
+    (proximal Adagrad's moment starts at 0.1, above any g^2 here)."""
+    O = tpt.optimizer
+    prox_gd, prox_adagrad = proximal_optimizers(tpt)
+    slow = LENET_LR / 5
+
+    def model_average(loss):
+        O.SGD(LENET_LR * 10).minimize(loss)
+        O.ModelAverage(0.5, min_average_window=2, max_average_window=3)
+
+    return {
+        "adamax": (lambda loss: O.Adamax(LENET_LR).minimize(loss),
+                   LENET_LR),
+        "adadelta": (lambda loss: O.Adadelta(
+            1.0, epsilon=5e-8).minimize(loss), math.sqrt(5e-8 / 0.05)),
+        "rmsprop": (lambda loss: O.RMSProp(
+            slow, momentum=0.9, centered=True).minimize(loss),
+            10 * slow / math.sqrt(0.05)),
+        "ftrl": (lambda loss: O.Ftrl(LENET_LR, l1=1e-4,
+                                     l2=1e-4).minimize(loss), LENET_LR),
+        "decayed_adagrad": (lambda loss: O.DecayedAdagrad(
+            slow).minimize(loss), slow / math.sqrt(0.05)),
+        "dpsgd": (lambda loss: O.Dpsgd(LENET_LR, clip=1.0, batch_size=1.0,
+                                       sigma=0.0).minimize(loss), None),
+        "lookahead": (lambda loss: O.LookaheadOptimizer(
+            O.Adam(LENET_LR), alpha=0.5, k=5).minimize(loss), LENET_LR),
+        "model_average": (model_average, None),
+        "proximal_gd": (lambda loss: prox_gd(1e-2).minimize(loss), None),
+        "proximal_adagrad": (lambda loss: prox_adagrad(1e-2).minimize(
+            loss), None),
+    }
+
+
+def control_limit(control, limit):
+    """A card-against-CPU limit: `limit`, or 10 times the `control`'s gap
+    (a CPU life from startup values nudged by RESNET_NUDGE) where the
+    training amplifies rounding so far that the control itself lies
+    more than `limit` / 10 from the CPU life."""
+    return limit if control <= limit / 10 else 10 * control
+
+
+def persistable_gaps(life, ref, names, step):
+    """name -> (relative gap, max |d|) of `life`'s persistables `names`
+    against `ref`'s, fetched after step `step` (0-based; the loss is
+    fetched first): the gap's norm over the tensor's, or the gap's norm
+    where the tensor's is 0."""
+    out = {}
+    for n, g, w in zip(names, life[5][step][1:], ref[5][step][1:]):
+        g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+        d, norm = float(np.linalg.norm(g - w)), float(np.linalg.norm(w))
+        out[n] = (d / norm if norm > 0 else d,
+                  float(np.abs(g - w).max()) if g.size else 0.0)
+    return out
+
+
+def build_lenet(tpt, op_seed, minimize):
+    """19a's LeNet (build_mnist_train at LENET_BATCH) under `minimize`,
+    its ops seeded from `op_seed`."""
+    from paddle_tpu_torch import models
+    from paddle_tpu_torch.ops import registry
+
+    registry.reset_op_seed(op_seed)
+    tpt.reset_unique_name()
+    main, startup = tpt.Program(), tpt.Program()
+    startup._is_startup = True
+    main.random_seed = startup.random_seed = LENET_SEED
+    with tpt.program_guard(main, startup):
+        _, outs = models.build_mnist_train(batch_size=LENET_BATCH)
+        minimize(outs["loss"])
+    return main, startup, outs["loss"]
+
+
+def add_launches(a, b):
+    """The sum of two Launches, their kernels' counts beside them."""
+    out = Launches(x + y for x, y in zip(a, b))
+    for k in ("gemm", "rms_norm", "merge", "conv", "recurrent"):
+        setattr(out, k, getattr(a, k) + getattr(b, k))
+    return out
+
+
+def dpsgd_noise(tpt):
+    """DP-SGD at sigma 1 on the card: one ``dpsgd`` op over DPSGD_DRAWS
+    zero parameters and gradients at lr 1, clip 2, batch_size 4, so the
+    new parameters are -noise / 4, the noise normal with std sigma *
+    clip from the op's own generator.  Returns (mean, std) of the
+    noise."""
+    main, startup = tpt.Program(), tpt.Program()
+    startup._is_startup = True
+    block = main.global_block()
+    for n, shape in (("p", [DPSGD_DRAWS]), ("g", [DPSGD_DRAWS]),
+                     ("lr", [1])):
+        block.create_var(name=n, shape=shape, dtype="float32",
+                         is_data=True)
+    block.create_var(name="p_out", shape=[DPSGD_DRAWS], dtype="float32")
+    block.append_op("dpsgd", inputs={"Param": ["p"], "Grad": ["g"],
+                                     "LearningRate": ["lr"]},
+                    outputs={"ParamOut": ["p_out"]},
+                    attrs={"clip": 2.0, "batch_size": 4.0, "sigma": 1.0})
+    zeros = np.zeros(DPSGD_DRAWS, "float32")
+    out = tpt.Executor().run(main, feed={"p": zeros, "g": zeros,
+                                         "lr": np.ones(1, "float32")},
+                             fetch_list=["p_out"], scope=tpt.Scope())[0]
+    noise = -np.asarray(out, np.float64) * 4.0
+    return float(noise.mean()), float(noise.std())
+
+
+def lenet_tier(tpt, fa, op_seed, card):
+    """21c: the other optimizers on 19a's LeNet (batch 64, fp32; the
+    proximal ops through test-side Optimizer subclasses, ModelAverage
+    over SGD with a window of 2-3 that rotates within the run, Lookahead
+    over Adam at k 5): for each, OPT_STEPS steps on the card (captured)
+    against the port's CPU from the card's startup values, and against an
+    eager card life bit for bit.  Card against CPU, after every step:
+    each loss within LIFE_LOSS_RTOL; under an update that scales the
+    gradient, every persistable within LIFE_STATE_RTOL of its norm;
+    under a normalised one (lenet_optimizers), every persistable within
+    NORMALISED_RTOL of its norm and every parameter's element within 2
+    steps a step taken: a step is a ratio of gradient statistics, so
+    the card's rounding of a small or cancelling gradient sum moves it
+    by its own relative share, and an element whose gradient lies within
+    that rounding of 0 (or of FTRL's L1) may step anywhere between -1
+    and 1 steps on either device.  A norm's limit, the loss's too, widens
+    to 10 times the gap of a CPU life whose first convolution filter is
+    nudged by RESNET_NUDGE (19b's control; control_limit) where that
+    control passes a tenth of it.  The limits must catch a lower
+    precision: at every step a CPU life from the startup parameters
+    rounded to bf16 lies above one of them.
+    Every failure of every optimizer is logged before the phase fails.
+    Then DP-SGD's noise at sigma 1 (dpsgd_noise) within 5 sigma of its
+    moments.  Returns the captured lives' launches, summed."""
+    import torch
+
+    t0 = time.perf_counter()
+    feeds = lenet_feeds(LENET_BATCH, OPT_STEPS, LENET_SEED + 21)
+    cpu = torch.device("cpu")
+    total, out, failed = Launches((0,) * 6), {}, []
+    for name, (minimize, step) in lenet_optimizers(tpt).items():
+        main, startup, loss = build_lenet(tpt, op_seed, minimize)
+        # every persistable a step reads or writes, fetched after every
+        # step beside the loss (Adadelta's unused LR var is not)
+        used = {n for op in main.global_block().ops
+                for n in op.input_arg_names() + op.output_arg_names()}
+        names = sorted(v.name for v in main.list_vars()
+                       if v.persistable and v.name in used)
+        fetch = [loss] + names
+        card_life = training_life(tpt, fa, f"21c {name}", main, startup,
+                                  fetch, feeds)
+        cpu_life = training_life(tpt, fa, f"21c {name} CPU", main, startup,
+                                 fetch, feeds, start=card_life[2],
+                                 device=cpu)
+        stem = next(op.input("Filter")[0] for op in main.global_block().ops
+                    if op.type == "conv2d")
+        nudged = dict(card_life[2])
+        nudged[stem] = nudged[stem] * (1 + RESNET_NUDGE)
+        ctrl_life = training_life(tpt, fa, f"21c {name} CPU nudged", main,
+                                  startup, fetch, feeds, start=nudged,
+                                  device=cpu)
+        params = {p.name for p in main.all_parameters()}
+        low_life = training_life(
+            tpt, fa, f"21c {name} CPU from bf16", main, startup, fetch,
+            feeds, device=cpu, start={
+                n: t.to(torch.bfloat16).to(t.dtype) if n in params else t
+                for n, t in card_life[2].items()})
+        lives_equal(card_life, training_life(
+            tpt, fa, f"21c {name} eager", main, startup, fetch, feeds,
+            eager=True), f"21c {name} captured vs eager")
+        rels = [abs(a - b) / abs(b) for a, b in zip(card_life[0],
+                                                    cpu_life[0])]
+        ctrl = [abs(a - b) / abs(b) for a, b in zip(ctrl_life[0],
+                                                    cpu_life[0])]
+        limits = [control_limit(c, LIFE_LOSS_RTOL) for c in ctrl]
+        if any(r > lim for r, lim in zip(rels, limits)):
+            failed.append(f"{name}: losses apart by {rels}, limits "
+                          f"{limits} (the nudged control {ctrl})")
+        worst, widened, low_floor = (0.0, 0.0, None), set(), math.inf
+        for i in range(OPT_STEPS):
+            gaps = {k: persistable_gaps(life, cpu_life, names, i)
+                    for k, life in (("card", card_life),
+                                    ("nudged", ctrl_life),
+                                    ("low", low_life))}
+            # name -> [(the gap held: 0 its share of the norm, 1 its
+            # worst element; the limit)]
+            rtol = LIFE_STATE_RTOL if step is None else NORMALISED_RTOL
+            holds = {n: [(0, control_limit(c, rtol))] + (
+                [(1, 2 * step * (i + 1))] if step is not None
+                and n in params else [])
+                for n, (c, _) in gaps["nudged"].items()}
+            widened |= {n for n, h in holds.items() if h[0][1] > rtol}
+            for n, gap in gaps["card"].items():
+                for k, x in holds[n]:
+                    if gap[k] / x > worst[1]:
+                        worst = (gap[k], gap[k] / x,
+                                 f"{n} after step {i + 1}")
+                    if gap[k] > x:
+                        failed.append(
+                            f"{name}: after step {i + 1} {n} apart by "
+                            f"{gap[0]:.3e} of its norm, max|d| "
+                            f"{gap[1]:.3e} (limit {x:.3e} on the "
+                            f"{('norm', 'worst element')[k]}; the nudged "
+                            f"control {gaps['nudged'][n][k]:.3e}, from "
+                            f"bf16 {gaps['low'][n][k]:.3e})")
+            low_floor = min(low_floor, max(
+                gaps["low"][n][k] / x for n, h in holds.items()
+                for k, x in h))
+        if low_floor <= 1.0:
+            failed.append(f"{name}: the life from bf16 startup parameters "
+                          f"lies within the limits ({low_floor:.3f} of "
+                          f"one at most)")
+        out[name] = dict(losses=card_life[0], loss_rel=max(rels),
+                         control_rel=max(ctrl),
+                         loss_of_limit=max(r / lim for r, lim in
+                                           zip(rels, limits)),
+                         state_rel=worst[0], state_of_limit=worst[1],
+                         state_worst=worst[2], widened=len(widened),
+                         bf16_of_limit=low_floor,
+                         replay_ms=float(np.median(card_life[3][2:])))
+        total = add_launches(total, card_life[4])
+    mean, std = dpsgd_noise(tpt)
+    mean_lim = 5 * 2.0 / math.sqrt(DPSGD_DRAWS)
+    std_lim = 5 * 2.0 / math.sqrt(2 * DPSGD_DRAWS)
+    top = max(out, key=lambda k: out[k]["state_of_limit"])
+    log(f"  21c: {len(out)} optimizers, worst loss rel "
+        f"{max(v['loss_rel'] for v in out.values()):.3e} (the nudged "
+        f"controls' worst {max(v['control_rel'] for v in out.values()):.3e}"
+        f"; at most {max(v['loss_of_limit'] for v in out.values()):.3f} of "
+        f"a limit); persistables at most {out[top]['state_of_limit']:.3f} "
+        f"of a limit ({top}, {out[top]['state_worst']}: "
+        f"{out[top]['state_rel']:.3e}; {sum(v['widened'] for v in out.values())}"
+        f" norm limits widened by the control: "
+        f"{ {k: v['widened'] for k, v in out.items() if v['widened']} }); "
+        f"the lives from bf16 startup parameters at least "
+        f"{min(v['bf16_of_limit'] for v in out.values()):.1f} limits out; "
+        f"DP-SGD sigma 1: noise mean {mean:.4f} (limit {mean_lim:.4f}), "
+        f"std {std:.4f} (2 +- {std_lim:.4f})")
+    for f in failed:
+        log(f"  21c FAILED {f}")
+    if failed:
+        raise AssertionError(f"21c: {len(failed)} holds failed: "
+                             f"{failed[:3]}")
+    if abs(mean) > mean_lim or abs(std - 2.0) > std_lim:
+        raise AssertionError("21c: DP-SGD's noise is off its law")
+    OPTIMIZER_RUN["lenet"] = dict(card=card, optimizers=out,
+                                  dpsgd_noise=dict(mean=mean, std=std),
+                                  seconds=time.perf_counter() - t0)
+    return total
+
+
+def cf_cond(L):
+    x = L.data("x", [1], append_batch_size=False)
+    zero = L.fill_constant([1], "float32", 0.0)
+    return L.cond(L.less_than(x, zero),
+                  lambda: [L.scale(x, -2.0), L.elementwise_mul(x, x)],
+                  lambda: [L.scale(x, 3.0, bias=1.0), L.exp(x)])
+
+
+def cf_switch(L):
+    x = L.data("x", [1], append_batch_size=False)
+    out = L.fill_constant([1], "float32", -1.0)
+    with L.Switch() as switch:
+        with switch.case(L.less_than(x, L.fill_constant([1], "float32",
+                                                         0.0))):
+            L.assign(L.scale(x, -1.0), out)
+        with switch.case(L.less_than(x, L.fill_constant([1], "float32",
+                                                         1.0))):
+            L.assign(L.fill_constant([1], "float32", 10.0), out)
+        with switch.default():
+            L.assign(L.elementwise_mul(x, x), out)
+    return [out]
+
+
+def cf_halving(L):
+    """Halve x until its squared norm falls under 1e-4, counting the
+    halvings: a trip count that follows the feed."""
+    x = L.data("x", [256], append_batch_size=False)
+    i = L.fill_constant([1], "int64", 0)
+    one = L.fill_constant([1], "int64", 1)
+    tol = L.fill_constant([1], "float32", 1e-4)
+    i, x = L.while_loop(
+        lambda i, x: L.less_than(tol, L.reduce_sum(L.elementwise_mul(x, x))),
+        lambda i, x: [L.elementwise_add(i, one), L.scale(x, 0.5)], [i, x])
+    return [i, x]
+
+
+def cf_feeds(kind):
+    rng = np.random.RandomState(CF_SEED)
+    if kind == "halving":
+        return [{"x": (s * rng.randn(256)).astype("float32")}
+                for s in (1.0, 1e-4, 300.0)]
+    return [{"x": np.array([v], "float32")}
+            for v in (-2.0, 0.5, 3.0, 0.0, -1e-3)]
+
+
+def control_flow(tpt, fa, card):
+    """21d: ``cond``, ``Switch`` and a ``while_loop`` whose trip count
+    follows its feed (cf_cond, cf_switch, cf_halving), each through one
+    executor entry on the card and one on the CPU, feed after feed: every
+    fetch equal to the CPU's (float32 within rtol 1e-6, atol 1e-7;
+    integers exactly).  ``cond`` and ``Switch`` are captured (the
+    branches selected on the card) and each feed run again through the
+    replay gives its eager run's bits; the loop runs eagerly on the card,
+    every run counted (``cache_info``'s ``eager_runs``), at three trip
+    counts; its host reads and iterations are the process's, the CPU
+    executor's loops among them.  Nothing counted launches.  Returns the
+    launches (0)."""
+    import torch
+    from paddle_tpu_torch.ops import control_flow_ops
+
+    t0 = time.perf_counter()
+    reset_counts(fa)
+    route = {}
+    for kind, make in (("cond", cf_cond), ("switch", cf_switch),
+                       ("halving", cf_halving)):
+        tpt.reset_unique_name()
+        main, startup = tpt.Program(), tpt.Program()
+        startup._is_startup = True
+        with tpt.program_guard(main, startup):
+            fetch = [v.name for v in make(tpt.layers)]
+        feeds = cf_feeds(kind)
+        reads = control_flow_ops.LOOP_COUNTS.host_reads
+        iters = control_flow_ops.LOOP_COUNTS.iterations
+        card_exe, cpu_exe = tpt.Executor(), tpt.Executor(tpt.CPUPlace())
+        card_scope, cpu_scope = tpt.Scope(), tpt.Scope()
+        card_exe.run(startup, scope=card_scope)
+        cpu_exe.run(startup, scope=cpu_scope)
+        first, worst = [], 0.0
+        # each feed once (the first run eager, the second captures), then
+        # each again through the replay
+        for i, feed in enumerate(feeds + feeds):
+            got = card_exe.run(main, feed=feed, fetch_list=fetch,
+                               scope=card_scope)
+            if i < len(feeds):
+                first.append(got)
+                want = cpu_exe.run(main, feed=feed, fetch_list=fetch,
+                                   scope=cpu_scope)
+                for g, w in zip(got, want):
+                    if w.dtype.kind in "biu":
+                        ok = np.array_equal(g, w)
+                    else:
+                        ok = np.allclose(g, w, rtol=1e-6, atol=1e-7)
+                        worst = max(worst, float(np.abs(g - w).max()))
+                    if not ok:
+                        raise AssertionError(f"21d {kind}: feed {i} card "
+                                             f"{g} vs CPU {w}")
+            elif not all(g.tobytes() == f.tobytes() for g, f in
+                         zip(got, first[i - len(feeds)])):
+                raise AssertionError(f"21d {kind}: feed {i - len(feeds)} "
+                                     f"gave other bits the second time")
+        entry = card_exe.cache_info()["entries"][-1]
+        route[kind] = dict(
+            runs=2 * len(feeds), captured=entry["aot"],
+            captures=card_exe.captures()[-1],
+            eager_runs=entry.get("eager_runs", 0),
+            host_reads=control_flow_ops.LOOP_COUNTS.host_reads - reads,
+            iterations=control_flow_ops.LOOP_COUNTS.iterations - iters,
+            card_vs_cpu=worst)
+        if kind == "halving":
+            trips = [int(np.ravel(f[0])[0]) for f in first]
+            route[kind]["trips"] = trips
+            ok = (entry.get("eager") and entry["eager_runs"] == 2 * len(
+                feeds) and len(set(trips)) == len(trips)
+                and not entry["aot"])
+        else:
+            ok = entry["aot"] and route[kind]["captures"] == 1
+        log(f"  21d {kind}: " + json.dumps(route[kind]))
+        if not ok:
+            raise AssertionError(f"21d {kind}: route {route[kind]}")
+        card_exe.close()
+    counts, plain, realigned = read_counts(fa)
+    if plain or realigned or any(counts) or counts.gemm:
+        raise AssertionError(f"21d: launches {tuple(counts)}, plain "
+                             f"{plain}, realigned {realigned}")
+    torch.cuda.empty_cache()
+    OPTIMIZER_RUN["control_flow"] = dict(card=card, route=route,
+                                         seconds=time.perf_counter() - t0)
+    return counts
+
+
+def optimizer_flagship(tpt, fa, card):
+    """Phase 21: LAMB under a gradient merge at bench.py's seq-512 BERT
+    step (21a, lamb_merge), ResNet-50 under LARS with an EMA (21b,
+    lars_ema), the other optimizers on LeNet (21c, lenet_tier) and static
+    control flow (21d, control_flow).  The op-seed counter is put back
+    afterwards.  Returns the paths' launches."""
+    from paddle_tpu_torch.ops import registry
+
+    t0 = time.perf_counter()
+    op_seed = registry._OP_SEED[0]
+    paths = {"lamb_merge": lamb_merge(tpt, fa, card)}
+    paths["lars_ema"] = lars_ema(tpt, fa, op_seed, card)
+    paths["optimizers_lenet"] = lenet_tier(tpt, fa, op_seed, card)
+    paths["control_flow"] = control_flow(tpt, fa, card)
+    registry.reset_op_seed(op_seed)
+    OPTIMIZER_RUN["card"] = card
+    OPTIMIZER_RUN["phase_s"] = time.perf_counter() - t0
+    return paths
+
 def use_bytecode_cache():
     """Write and read the interpreter's compiled bytecode under
     BYTECODE_CACHE, in this process and every process it starts
@@ -10054,7 +11030,7 @@ def main():
 
     t_start = time.perf_counter()
     card = card_line()
-    log(f"[1/20] device: {card}; torch {torch.__version__}, CUDA "
+    log(f"[1/21] device: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -10072,14 +11048,14 @@ def main():
     gemm._lib()
     rms_norm._lib()
     selected_rows._lib()
-    log(f"[2/20] built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
+    log(f"[2/21] built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
     check_build(build)
     gemm_rows, gemm_ratios = check_gemm(gemm, build, device)
     norm_rows = check_rms_norm(rms_norm, device)
     merge_rows = check_merge(selected_rows, device)
     conv_rows, conv_ratios = check_conv(gemm, device)
 
-    log("[3/20] packed kernels against their plain versions")
+    log("[3/21] packed kernels against their plain versions")
     check_kernel(fa, device)
     check_backward(fa, device)
     fwd_f32 = time_forward_f32(fa, device)
@@ -10095,21 +11071,21 @@ def main():
 
     # each path's launches of the six kernels, each read from 0
     by_path = {}
-    log("[4/20] BERT-base serving through Predictor on the card")
+    log("[4/21] BERT-base serving through Predictor on the card")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         by_path["serving"] = serve(tpt, fa, workdir)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[5/20] BERT-base training, card against the CPU (fp32)")
+    log("[5/21] BERT-base training, card against the CPU (fp32)")
     by_path["training_parity"] = bert_parity(tpt, fa)
     bert_fp32_profile(tpt, fa)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[6/20] bench.py's seq-512 training step on the card (bf16 AMP)")
+    log("[6/21] bench.py's seq-512 training step on the card (bf16 AMP)")
     by_path["training_flagship"], _ = bert_flagship(tpt, fa)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[7/20] unpacked kernels against their plain versions")
+    log("[7/21] unpacked kernels against their plain versions")
     check_unpacked(fa, device)
     unpacked_timing = time_unpacked(fa, device, "bfloat16")
     unpacked_f32 = time_unpacked(fa, device, "float32")
@@ -10127,7 +11103,7 @@ def main():
     # phase 17 runs here, beside phase 7's unpacked kernels: right after
     # phase 16 the profiler saw no device time in any session (my chip
     # runs 4 and 6, PR 20), while phase 7's sessions see it
-    log("[17/20] MiniLM-L12-H384 (kernels #4-#6 at D 32) and bench.py's "
+    log("[17/21] MiniLM-L12-H384 (kernels #4-#6 at D 32) and bench.py's "
         "seq-128 BERT-base step (unfused) on the card")
     paths17, d32_rows = minilm_flagship(tpt, fa, device, card)
     by_path.update(paths17)
@@ -10138,7 +11114,7 @@ def main():
 
     # phase 18 runs beside phase 17, where the profiler still sees the
     # card (PERF.md section 7)
-    log("[18/20] Wide&Deep at the Criteo layout: dense, sparse and lazy "
+    log("[18/21] Wide&Deep at the Criteo layout: dense, sparse and lazy "
         "Adam training lives and the serving net on the card")
     by_path.update(wide_deep_flagship(tpt, fa, card))
     log("wide_deep: " + json.dumps(WIDE_DEEP_RUN))
@@ -10147,7 +11123,7 @@ def main():
 
     # phase 19 runs beside phases 17 and 18, where the profiler still
     # sees the card
-    log("[19/20] LeNet-5 and ResNet-50 on the card: LeNet trained and "
+    log("[19/21] LeNet-5 and ResNet-50 on the card: LeNet trained and "
         "served, ResNet-50 against the CPU, bench.py's ResNet-50 step and "
         "its serving")
     by_path.update(vision_flagship(tpt, fa, card))
@@ -10157,7 +11133,7 @@ def main():
 
     # phase 20 runs beside phases 17-19, where the profiler still sees
     # the card
-    log("[20/20] the attention seq2seq at PaddleNLP's IWSLT'15 widths: "
+    log("[20/21] the attention seq2seq at PaddleNLP's IWSLT'15 widths: "
         "trained and beam-decoded on the card, then the fused recurrences "
         "and the book's sentiment model")
     by_path.update(s2s_flagship(tpt, fa, card))
@@ -10165,11 +11141,22 @@ def main():
     log(f"  (phase 20 took {S2S_RUN['phase_s']:.1f} s; "
         f"{time.perf_counter() - t_start:.1f} s in all)")
 
-    log("[8/20] Llama-2-7B-width training, card against the CPU (fp32)")
+    # phase 21 runs beside phases 17-20, where the profiler still sees
+    # the card
+    log("[21/21] the optimizer tier and static control flow: LAMB under a "
+        "gradient merge at bench.py's seq-512 BERT-base step, ResNet-50 "
+        "under LARS with an EMA, the other optimizers on LeNet, cond / "
+        "Switch / while_loop")
+    by_path.update(optimizer_flagship(tpt, fa, card))
+    log("optimizers: " + json.dumps(OPTIMIZER_RUN))
+    log(f"  (phase 21 took {OPTIMIZER_RUN['phase_s']:.1f} s; "
+        f"{time.perf_counter() - t_start:.1f} s in all)")
+
+    log("[8/21] Llama-2-7B-width training, card against the CPU (fp32)")
     by_path["llama_parity"] = llama_parity(tpt, fa)
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
-    log("[9/20] Llama-2-7B-width training on the card (4 layers, bf16 AMP)")
+    log("[9/21] Llama-2-7B-width training on the card (4 layers, bf16 AMP)")
     llama_op_seed = registry._OP_SEED[0]  # phase 9's startup draws
     by_path["llama_flagship"], losses = llama_flagship(tpt, fa)
     compare_losses(losses)
@@ -10177,7 +11164,7 @@ def main():
 
     # phase 16 runs here, where torch.profiler still sees the card (after
     # phase 14 its sessions have seen no device time or lost records)
-    log("[16/20] float16 AMP with dynamic loss scaling: bench.py's seq-512 "
+    log("[16/21] float16 AMP with dynamic loss scaling: bench.py's seq-512 "
         "step and the Llama-2-7B-width step on the card")
     by_path.update(fp16_flagship(tpt, fa, llama_op_seed, losses))
     FP16["card"] = card
@@ -10186,7 +11173,7 @@ def main():
     log(f"  (phase 16 took {FP16['phase_s']:.1f} s, the fp16 kernel checks "
         f"{f16_s:.1f} s; {time.perf_counter() - t_start:.1f} s in all)")
 
-    log("[10/20] Llama generation serving on the card (dense and paged KV "
+    log("[10/21] Llama generation serving on the card (dense and paged KV "
         "cache, speculative decoding, prefill / decode roles)")
     by_path["generation_parity"] = generation_parity(tpt, fa)
     by_path["generation"], paged_paths, gen_scope, dense_tokens = \
@@ -10197,7 +11184,7 @@ def main():
     log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
 
     t11 = time.perf_counter()
-    log("[11/20] the serving stack: BERT-base through ServingEngine, then "
+    log("[11/21] the serving stack: BERT-base through ServingEngine, then "
         "HTTP with Llama-2-7B generation attached")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_serving_") as wd:
         model_dir, second_dir, gen_second_dir = (
@@ -10220,7 +11207,7 @@ def main():
         pred.close()
         del eng, pred, gen_scope
         t12 = time.perf_counter()
-        log("[12/20] the fleet: BERT-base and Llama-2-7B in replica "
+        log("[12/21] the fleet: BERT-base and Llama-2-7B in replica "
             "processes behind the router")
         FLEET["reserved_gib_before"] = release_card(
             "released phases 10 and 11")
@@ -10238,7 +11225,7 @@ def main():
             f"{time.perf_counter() - t_start:.1f} s in all)")
 
         t13 = time.perf_counter()
-        log("[13/20] the port's load generator and chaos harness: "
+        log("[13/21] the port's load generator and chaos harness: "
             "BERT-base and Llama-2-7B fleets (13a's --url legs ran in "
             "phase 12)")
         by_path["loadgen"] = loadgen_in_process(
@@ -10263,7 +11250,7 @@ def main():
     log(f"  (phase 13 took {CHAOS['phase_s']:.1f} s; "
         f"{time.perf_counter() - t_start:.1f} s in all)")
 
-    log("[14/20] bench.py's seq-512 step under TrainGuard: a NaN, a SIGTERM "
+    log("[14/21] bench.py's seq-512 step under TrainGuard: a NaN, a SIGTERM "
         "and a resume, bit for bit")
     release_card("phase 13 closed")
     by_path["train_guard"] = train_guard_flagship(tpt, fa)
@@ -10272,7 +11259,7 @@ def main():
     log(f"  (phase 14 took {GUARD['phase_s']:.1f} s; "
         f"{time.perf_counter() - t_start:.1f} s in all)")
 
-    log("[15/20] recompute: bench.py's seq-512 step and a Llama-2-7B-width "
+    log("[15/21] recompute: bench.py's seq-512 step and a Llama-2-7B-width "
         "decoder at seq 4096 under Llama-2's recipe, plain against "
         "recompute, bit for bit")
     release_card("phase 14 closed")
@@ -10422,7 +11409,8 @@ def main():
         f"(phase 16 {FP16['phase_s']:.1f} s, the fp16 kernel checks "
         f"{f16_s:.1f} s, phase 17 {MINILM_RUN['phase_s']:.1f} s, phase 18 "
         f"{WIDE_DEEP_RUN['phase_s']:.1f} s, phase 19 "
-        f"{VISION['phase_s']:.1f} s, phase 20 {S2S_RUN['phase_s']:.1f} s)")
+        f"{VISION['phase_s']:.1f} s, phase 20 {S2S_RUN['phase_s']:.1f} s, "
+        f"phase 21 {OPTIMIZER_RUN['phase_s']:.1f} s)")
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

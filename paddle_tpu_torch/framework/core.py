@@ -427,6 +427,18 @@ class Program:
     def block(self, idx: int) -> Block:
         return self.blocks[idx]
 
+    def _create_block(self) -> Block:
+        """A new block under the current one, made the current block: a
+        control-flow op's branch or loop body."""
+        blk = Block(self, len(self.blocks), self._current_block_idx)
+        self.blocks.append(blk)
+        self._current_block_idx = blk.idx
+        return blk
+
+    def _rollback(self):
+        """Make the current block's parent current again."""
+        self._current_block_idx = self.current_block().parent_idx
+
     def bump(self):
         self._mod_count += 1
 

@@ -22,8 +22,12 @@ place: an op that rebinds a persistable writes into its input's storage
 (``LowerContext.set_state``) or the step copies into it, so a parameter
 keeps its tensor and ``data_ptr()`` from run to run.  A failure to
 capture raises, naming the op where one failed; nothing falls back to
-eager.  The only eager path on the card besides the first run is
-``FLAGS_check_nan_inf``'s debug run.
+eager.  The eager paths on the card besides the first run are
+``FLAGS_check_nan_inf``'s debug run and a program holding a ``while``
+(its trip count is read on the host; ``CompiledStep.eager_only``, every
+run counted in ``eager_runs``, ``cache_info`` and the dispatch span's
+``eager`` attribute).  ``conditional_block`` and ``cond2`` select on the
+device and are captured (``ops/control_flow_ops.py``).
 
 Fetches come back as numpy arrays (one host fence a run) or as lazy
 ``FetchHandle``s (``return_numpy=False``, ``run_async``).  The deferred
@@ -65,6 +69,7 @@ from .. import telemetry as _telemetry
 from ..device import resolve_device
 from ..flags import flag_value
 from ..monitor import monitor as _monitor
+from ..ops.control_flow_ops import SUB_BLOCK_ATTRS, holds_loop
 from ..ops.registry import LowerContext, lower_op, plan_grads, run_seed
 from .core import (Block, Program, Variable, default_main_program,
                    dtype_to_np, dtype_to_torch)
@@ -274,7 +279,7 @@ def _op_io(op, block):
     reads = list(op.input_arg_names())
     writes = list(op.output_arg_names())
     prog = block.program
-    for key in ("sub_block", "true_block", "false_block"):
+    for key in SUB_BLOCK_ATTRS:
         idx = op.attr(key, None)
         if idx is None:
             continue
@@ -528,12 +533,17 @@ class CompiledStep:
         self.pool_bytes: Optional[int] = None
         self.captures = 0  # CUDA graphs captured for this entry
         self._ring: Dict[str, list] = {}
+        # a block holding a while (its trip count read on the host) runs
+        # eagerly on every run, on the card too
+        self.eager_only = holds_loop(block)
+        self.eager_runs = 0
 
     @property
     def ready(self) -> bool:
         """Whether the next run takes the entry's steady path: a replay on
         the card, any run after the first on the CPU."""
-        return self.graph is not None if self.stream is not None \
+        return self.graph is not None \
+            if self.stream is not None and not self.eager_only \
             else self.runs > 0
 
     # -- the step ------------------------------------------------------------
@@ -618,7 +628,7 @@ class CompiledStep:
             step = self.seed_step + self.runs
         if self.stream is None:
             return self._run_eager(feeds, scope, check, step)
-        if check or self.runs == 0:
+        if check or self.runs == 0 or self.eager_only:
             with _BUILD_LOCK:
                 return self._run_eager(feeds, scope, check, step)
         if self.graph is None or any(scope.find_var(n) is not t
@@ -639,6 +649,8 @@ class CompiledStep:
         return self._finish(scope, fetches, new, ok, aliased=True)
 
     def _run_eager(self, feeds, scope, check, step):
+        if self.eager_only:
+            self.eager_runs += 1
         state = self._state(scope)
         with _on_stream(self.stream, self.device):
             env = {n: t.to(self.device) for n, t in feeds.items()}
@@ -838,6 +850,8 @@ class Executor:
         dspan = None
         if traced:
             dattrs = {"step": self._step, "guarded": guard_loss is not None}
+            if entry.eager_only:
+                dattrs["eager"] = True
             if entry.pool_bytes is not None:
                 # the captured graph's memory pool: the executable's HBM
                 # footprint, as the reference's manifest carries it
@@ -898,10 +912,14 @@ class Executor:
         """Compiled-step inventory: one record per entry with its feed
         signature, whether its CUDA graph is captured (``aot``) and the
         device memory its capture reserved (``manifest``, bytes; None
-        before a capture; the XLA cost manifest has no counterpart)."""
+        before a capture; the XLA cost manifest has no counterpart);
+        ``eager`` for an entry that holds a ``while`` and runs eagerly,
+        with its ``eager_runs``."""
         entries = [{"signature": None if e.sig is None else str(e.sig),
                     "aot": e.graph is not None,
-                    "manifest": e.pool_bytes}
+                    "manifest": e.pool_bytes,
+                    **({"eager": True, "eager_runs": e.eager_runs}
+                       if e.eager_only else {})}
                    for e in self._cache.values()]
         return {"compiled": len(entries), "entries": entries}
 

@@ -13,6 +13,8 @@ from . import learning_rate_scheduler  # noqa
 from . import metric_op  # noqa
 from . import math_op_patch  # noqa
 from . import sequence  # noqa
+from .control_flow import cond, While, Switch, while_loop, Print  # noqa
+from . import control_flow  # noqa
 # after the submodule: the name ``rnn`` is the function, as in the JAX
 # package
 from .rnn import (RNNCell, GRUCell, LSTMCell, rnn, birnn,  # noqa

@@ -15,8 +15,9 @@ __all__ = [
     "gather_nd", "expand", "tile", "range", "argmax", "argmin",
     "reduce_sum", "reduce_mean", "elementwise_add", "elementwise_sub",
     "elementwise_mul", "elementwise_div", "elementwise_max", "elementwise_min",
-    "elementwise_pow", "less_than", "equal", "scale", "pow", "increment",
-    "where", "clip", "assign",
+    "elementwise_pow", "elementwise_mod", "less_than", "equal",
+    "logical_and", "logical_or", "logical_not", "logical_xor", "scale",
+    "pow", "increment", "where", "clip", "assign",
 ]
 
 
@@ -145,6 +146,7 @@ elementwise_div = _binary("elementwise_div")
 elementwise_max = _binary("elementwise_max")
 elementwise_min = _binary("elementwise_min")
 elementwise_pow = _binary("elementwise_pow")
+elementwise_mod = _binary("elementwise_mod")
 
 
 def _cmp(op_type):
@@ -160,6 +162,21 @@ def _cmp(op_type):
 
 less_than = _cmp("less_than")
 equal = _cmp("equal")
+logical_and = _cmp("logical_and")
+logical_or = _cmp("logical_or")
+
+
+def logical_not(x, out=None, name=None):
+    helper = LayerHelper("logical_not", name=name)
+    out = out or helper.create_variable_for_type_inference("bool")
+    helper.append_op("logical_not", inputs={"X": [x]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def logical_xor(x, y, name=None):
+    from .math_op_patch import binary
+    return binary(x, y, "logical_xor")
 
 
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,

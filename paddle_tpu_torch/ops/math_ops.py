@@ -1,8 +1,9 @@
 """Math / elementwise / reduction / matmul op lowerings in PyTorch.
 
 Counterpart of ``paddle_tpu/ops/math_ops.py`` for the ops on the BERT
-and Llama paths: ``elementwise_add/sub/mul/div/max/min/pow`` with Paddle
-``axis`` broadcasting, the six comparisons, ``scale``, ``mul``,
+and Llama paths: ``elementwise_add/sub/mul/div/max/min/pow/mod`` with
+Paddle ``axis`` broadcasting (``elementwise_mod`` a floor modulo, as
+``jnp.mod``), the six comparisons, ``logical_and/or/xor/not``, ``scale``, ``mul``,
 ``gelu``, ``relu``, ``silu``, ``sigmoid``, ``tanh``, ``square``, ``sqrt``,
 ``exp``, ``cos``, ``floor``, ``ceil``, ``sign``, ``pow``, ``assign``,
 ``cast``, ``reduce_sum``,
@@ -96,6 +97,9 @@ _make_ew("elementwise_div", lambda x, y: x / y)
 _make_ew("elementwise_max", torch.maximum)
 _make_ew("elementwise_min", torch.minimum)
 _make_ew("elementwise_pow", torch.pow)
+# a floor modulo (the result takes the divisor's sign), as jnp.mod:
+# torch.remainder, not torch.fmod
+_make_ew("elementwise_mod", torch.remainder)
 
 
 # ---------------------------------------------------------------------------
@@ -123,6 +127,14 @@ _make_cmp("greater_than", lambda x, y: x > y)
 _make_cmp("greater_equal", lambda x, y: x >= y)
 _make_cmp("equal", lambda x, y: x == y)
 _make_cmp("not_equal", lambda x, y: x != y)
+_make_cmp("logical_and", torch.logical_and)
+_make_cmp("logical_or", torch.logical_or)
+_make_cmp("logical_xor", torch.logical_xor)
+
+
+@register_op("logical_not", infer=same_as_input(), grad=None)
+def _logical_not(ctx: LowerContext, op: Operator):
+    ctx.set_output(op, "Out", torch.logical_not(ctx.get_input(op, "X")))
 
 
 # ---------------------------------------------------------------------------

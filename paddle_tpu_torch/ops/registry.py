@@ -22,8 +22,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import torch
 
 from ..errors import NotFoundError, UnimplementedError, op_error_context
-from ..framework.core import (Block, Operator, Variable, convert_dtype,
-                              dtype_to_torch, grad_var_name)
+from ..framework.core import (Block, Operator, OpRole, Variable,
+                              convert_dtype, dtype_to_torch, grad_var_name)
 from ..framework.selected_rows import SelectedRowsValue
 
 __all__ = [
@@ -286,12 +286,33 @@ def infer_op_shape(op: Operator, block: Block):
 _AMP_CASTABLE = (torch.float16, torch.bfloat16, torch.float32)
 
 
+def _writes_state(ctx: LowerContext, op: Operator) -> bool:
+    """Whether `op` writes a persistable variable."""
+    for n in op.output_arg_names():
+        v = ctx.block._find_var_recursive(n)
+        if v is not None and v.persistable:
+            return True
+    return False
+
+
 def _amp_target(ctx: LowerContext, op: Operator) -> Optional[torch.dtype]:
     """The dtype AMP gives `op`'s float inputs: low precision for the
     white list, float32 for the black list, None otherwise; a grad op
-    casts like its forward."""
+    casts like its forward.  Fluid's AMP rewrites only the forward and
+    its gradients, so gradients are summed, clipped and applied at
+    float32 into float32 state: an op of the Optimize role (clip, update,
+    gradient merge's average and reset, the moving averages) sees
+    float32, and an op outside the forward and its grad ops that writes
+    persistable state (gradient merge's accumulate) sees its inputs as
+    they are."""
     amp = ctx.amp
     if amp is None:
+        return None
+    role = op.attr("op_role", OpRole.Forward)
+    if role & OpRole.Optimize:
+        return torch.float32
+    if (role & OpRole.Backward and not op.attr("__accumulate__", False)
+            and _writes_state(ctx, op)):
         return None
     base = op.type[:-5] if op.type.endswith("_grad") else op.type
     if base in amp["white"]:

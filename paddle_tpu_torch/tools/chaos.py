@@ -1865,6 +1865,56 @@ def shared_fleet_argv(model: PredictModel, device) -> List[str]:
         "--device", resolve_device(device).type]
 
 
+def _shared_router(urls, cfg: dict):
+    """The router (and its started server) in front of a shared fleet:
+    burn-rate windows scaled to scenario time, fast ~ a quarter scenario
+    (clears quickly after recovery), slow ~ most of one (a single bad
+    scrape cannot page); the alert threshold stays the flag default (the
+    chaos faults burn budget at 10-30x)."""
+    from paddle_tpu_torch.serving import Router, RouterServer
+
+    fast_s = max(1.0, cfg["duration_s"] / 4.0)
+    slow_s = max(fast_s * 2.0, cfg["duration_s"] * 0.75)
+    router = Router(urls, poll_interval_ms=100.0, stale_ms=1500.0,
+                    eject_after=2,
+                    forward_timeout_ms=cfg["forward_timeout_ms"],
+                    slo_fast_s=fast_s, slo_slow_s=slow_s)
+    server = RouterServer(router).start()
+    router.poll_once()
+    return router, server
+
+
+def _own_fleet_scenario(name: str, cfg: dict, model: PredictModel,
+                        log=print) -> dict:
+    """Scenario `name` against a fleet of its own that serves `model`:
+    the shared fleet's replicas, argv, supervisor and router settings
+    (``shared_fleet_argv``, ``_shared_router``), spawned for the scenario
+    and closed after it."""
+    from paddle_tpu_torch.serving import FleetSupervisor
+
+    workdir = cfg.get("workdir")
+    t0 = time.monotonic()
+    sup = FleetSupervisor(
+        replicas=cfg["replicas"],
+        replica_argv=shared_fleet_argv(model, cfg["device"]),
+        max_restarts=8, backoff_ms=100.0,
+        liveness_timeout_ms=cfg["liveness_timeout_ms"],
+        workdir=None if workdir is None else os.path.join(workdir, name))
+    server = None
+    try:
+        urls = sup.wait_ready(timeout_s=300)
+        router, server = _shared_router(urls, cfg)
+        log(f"chaos: {name}'s own fleet of {cfg['replicas']} ready in "
+            f"{time.monotonic() - t0:.1f}s")
+        rep = _scenario(name, sup, router, server.url,
+                        dict(cfg, model=model))
+    finally:
+        if server is not None:
+            server.close()
+        sup.close()
+    return rep
+
+
 def run_chaos(replicas: int = 3, qps: float = 40.0,
               duration_s: float = 6.0,
               scenarios=DEFAULT_SCENARIOS,
@@ -1881,7 +1931,8 @@ def run_chaos(replicas: int = 3, qps: float = 40.0,
               model: Optional[PredictModel] = None,
               gen_model: Optional[dict] = None,
               gen_engine: Optional[dict] = None,
-              disagg_argv=None, disagg_env: Optional[dict] = None
+              disagg_argv=None, disagg_env: Optional[dict] = None,
+              poison_model: Optional[PredictModel] = None
               ) -> dict:
     """Spawn a fleet + router, run every scenario, and return the
     availability report (``report["ok"]`` is the harness verdict).
@@ -1899,11 +1950,14 @@ def run_chaos(replicas: int = 3, qps: float = 40.0,
     environment (None: the reference's); ``steady_duration_s``, the
     seconds of traffic of the scenarios that kill no replica
     (STEADY_SCENARIOS: nothing there waits on a respawn; None:
-    ``duration_s``).  Each scenario's report also carries its
+    ``duration_s``); ``poison_model``, a model the ``poison`` scenario
+    serves from a shared-fleet twin of its own (``_own_fleet_scenario``:
+    the same replicas, argv and router, another model's arguments, such
+    as a longer batch window that gives poisoned requests batchmates;
+    None: the shared fleet).  Each scenario's report also carries its
     ``wall_s``."""
     from paddle_tpu_torch.device import resolve_device
-    from paddle_tpu_torch.serving import FleetSupervisor, Router, \
-        RouterServer
+    from paddle_tpu_torch.serving import FleetSupervisor
 
     scenarios = tuple(scenarios)
     for name in scenarios:
@@ -1922,7 +1976,9 @@ def run_chaos(replicas: int = 3, qps: float = 40.0,
                feat, 16, 1, device, gen_argv=SYNTHETIC_GEN_ARGV),
            "neighbor_model": model or synthetic_model(feat, 16, 1, device),
            "gen_model": gen_model, "gen_engine": gen_engine,
-           "disagg_argv": disagg_argv, "disagg_env": disagg_env}
+           "disagg_argv": disagg_argv, "disagg_env": disagg_env,
+           "replicas": replicas, "workdir": workdir,
+           "poison_model": poison_model}
     argv = shared_fleet_argv(cfg["model"], device)
     t_setup0 = time.monotonic()
     sup = FleetSupervisor(
@@ -1935,18 +1991,7 @@ def run_chaos(replicas: int = 3, qps: float = 40.0,
     fault_records: List[dict] = []
     try:
         urls = sup.wait_ready(timeout_s=300)
-        # burn-rate windows scaled to scenario time: fast ~ a quarter
-        # scenario (clears quickly after recovery), slow ~ most of one
-        # (a single bad scrape cannot page).  Alert threshold stays the
-        # flag default — the chaos faults burn budget at 10-30x
-        fast_s = max(1.0, duration_s / 4.0)
-        slow_s = max(fast_s * 2.0, duration_s * 0.75)
-        router = Router(urls, poll_interval_ms=100.0, stale_ms=1500.0,
-                        eject_after=2,
-                        forward_timeout_ms=forward_timeout_ms,
-                        slo_fast_s=fast_s, slo_slow_s=slow_s)
-        server = RouterServer(router).start()
-        router.poll_once()
+        router, server = _shared_router(urls, cfg)
         log(f"chaos: fleet of {replicas} ready in "
             f"{time.monotonic() - t_setup0:.1f}s; running "
             f"{','.join(scenarios)} at {qps} qps x {duration_s}s each"
@@ -1975,6 +2020,8 @@ def run_chaos(replicas: int = 3, qps: float = 40.0,
                 # own fleet (direct per-replica traffic so the torn-
                 # version check keeps exact attribution)
                 rep = _scenario_hot_swap(cfg, log=log)
+            elif name == "poison" and poison_model is not None:
+                rep = _own_fleet_scenario(name, cfg, poison_model, log)
             elif name == "noisy_neighbor":
                 # multi-tenant usage forensics against its own fleet:
                 # a hog tenant floods, background tenants trickle, one

@@ -225,3 +225,60 @@ def test_steady_scenarios_take_their_own_length(monkeypatch, name, steady,
     assert seen == [want]
     assert "error" not in rep, rep
     assert set(chaos.STEADY_SCENARIOS) == {"baseline", "slow", "poison"}
+
+
+def test_poison_runs_on_a_fleet_of_its_own_model(monkeypatch):
+    """With poison_model, run_chaos runs poison against a shared-fleet
+    twin spawned for it (the same replicas and router, that model's
+    argv: a longer batch window) and every other shared-fleet scenario
+    against the shared fleet and its model; without it, poison runs on
+    the shared fleet."""
+    from paddle_tpu_torch import serving
+
+    spawned, ran = [], []
+
+    class Supervisor:
+        def __init__(self, replicas, replica_argv, **kw):
+            spawned.append((replicas, list(replica_argv)))
+
+        def wait_ready(self, timeout_s):
+            return ["http://127.0.0.1:1"]
+
+        def close(self):
+            pass
+
+    class Server:
+        url = "http://127.0.0.1:2"
+
+        def close(self):
+            pass
+
+    class Router:
+        def poll_once(self):
+            pass
+
+    def scenario(name, sup, router, url, cfg):
+        ran.append((name, cfg["model"].argv[-1], len(spawned)))
+        rep = chaos.classify([], [])
+        rep.update(_records=[], notes={})
+        return rep
+
+    monkeypatch.setattr(serving, "FleetSupervisor", Supervisor)
+    monkeypatch.setattr(chaos, "_shared_router",
+                        lambda urls, cfg: (Router(), Server()))
+    monkeypatch.setattr(chaos, "_scenario", scenario)
+    shared = chaos.PredictModel(["--max-delay-ms", "10"], None, b"p")
+    own = chaos.PredictModel(["--max-delay-ms", "110.193"], None, b"p")
+    chaos.run_chaos(replicas=3, scenarios=("baseline", "poison", "slow"),
+                    model=shared, poison_model=own, device="cpu",
+                    log=lambda m: None)
+    assert [r[:2] for r in ran] == [("baseline", "10"),
+                                    ("poison", "110.193"), ("slow", "10")]
+    assert [n for n, _ in spawned] == [3, 3]
+    assert spawned[1][1] == chaos.shared_fleet_argv(own, "cpu")
+    assert spawned[0][1] == chaos.shared_fleet_argv(shared, "cpu")
+    spawned.clear()
+    ran.clear()
+    chaos.run_chaos(replicas=3, scenarios=("poison",), model=shared,
+                    device="cpu", log=lambda m: None)
+    assert ran == [("poison", "10", 1)] and len(spawned) == 1
